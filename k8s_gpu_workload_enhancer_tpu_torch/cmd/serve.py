@@ -15,6 +15,10 @@ Endpoints: POST /v1/generate {"prompt": [ids], "maxNewTokens": N,
 timeout or an abandoned stream CANCELS the request, freeing its slot.
 A full queue answers 429 with Retry-After. GET /v1/metrics, GET /health.
 
+--kv-block-len N > 0 serves from the paged KV engine: pages of N tokens,
+reserved per request, with automatic radix prefix reuse; /v1/metrics then
+reports the pool in its `kv_cache` block.
+
 SIGTERM drains: new submits get 503 + Retry-After, /health answers 503
 "draining", accepted requests complete up to --drain-timeout, then the
 process exits 0.
@@ -52,7 +56,8 @@ DEFAULTS = dict(port=8000, vocab_size=32768, d_model=2048,
                 int8=False, num_slots=8, prefill_len=128, decode_chunk=8,
                 max_queue=64, prefill_interleave=2, eos_id=-1,
                 drain_timeout=30.0, temperature=0.0, top_k=0, top_p=1.0,
-                enable_top_p=False, device="cuda", seed=0)
+                enable_top_p=False, kv_block_len=0, kv_num_blocks=0,
+                device="cuda", seed=0)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -68,6 +73,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--int8", action="store_true",
                    help="weight-only int8 quantization (ops/quant.py)")
     p.add_argument("--num-slots", type=int)
+    p.add_argument("--kv-block-len", type=int,
+                   help="paged KV cache page size in tokens (must "
+                        "divide --max-seq); 0 = dense per-slot cache. "
+                        "Paged serving reserves only the pages a "
+                        "request's prompt+maxNewTokens span needs, "
+                        "radix-shares repeated prompt prefixes, and "
+                        "evicts cold pages LRU — more concurrent "
+                        "sequences per card at equal HBM")
+    p.add_argument("--kv-num-blocks", type=int,
+                   help="paged KV pool size in pages; 0 = auto "
+                        "(num-slots * max-seq / kv-block-len, i.e. "
+                        "equal HBM to the dense cache). Raise slots "
+                        "and keep this fixed to trade per-request "
+                        "headroom for density")
     p.add_argument("--prefill-len", type=int,
                    help="prefill CHUNK size; longer prompts prefill in "
                         "chunks up to max-seq - maxNewTokens")
@@ -329,6 +348,7 @@ def build_engine(args) -> serving.ContinuousBatchEngine:
         eos_id=None if args.eos_id < 0 else args.eos_id,
         temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
         enable_top_p=True if args.enable_top_p else None, seed=args.seed,
+        kv_block_len=args.kv_block_len, kv_num_blocks=args.kv_num_blocks,
         device=device)
 
 
@@ -337,7 +357,12 @@ def main(argv=None, *, stop: Optional[threading.Event] = None,
     """Serve until SIGTERM/SIGINT (or until `stop` is set, for a caller
     that runs the server in a thread; `on_ready` then gets the bound
     port), drain, exit 0."""
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if args.kv_num_blocks and not args.kv_block_len:
+        # A pool size without a page size would silently build the dense
+        # engine; fail fast instead.
+        parser.error("--kv-num-blocks requires --kv-block-len > 0")
     engine = build_engine(args)
     service = ServeService(engine, drain_timeout=args.drain_timeout)
     handler = make_json_handler(

@@ -9,7 +9,12 @@ the JAX package. Where JAX threads the cache functionally through a layer
 `cache.v[l]` IN PLACE: a forward pass copies no cache, it only writes the
 T new rows per layer.
 
-Not ported here: the int8 KV cache, the paged pool and mesh sharding.
+The paged pool (`init_paged_pool`, `paged_rows`) is the same KVCache with
+the sequence axes cut into (num_blocks, block_len) pages; the paged engine
+(models/serving.py, `kv_block_len > 0`) addresses it through per-slot
+block tables.
+
+Not ported here: the int8 KV cache and mesh sharding.
 """
 
 from __future__ import annotations
@@ -30,7 +35,8 @@ Params = tf.Params
 
 @dataclass
 class KVCache:
-    """k, v: (L, B, S_max, KH, D) in the activation dtype."""
+    """k, v: (L, B, S_max, KH, D) in the activation dtype; a paged pool
+    (init_paged_pool) holds (L, NB, BL, KH, D) pages instead."""
     k: torch.Tensor
     v: torch.Tensor
 
@@ -45,6 +51,35 @@ def init_cache(cfg: tf.TransformerConfig, batch: int,
     shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
     return KVCache(k=torch.zeros(shape, dtype=cfg.dtype, device=device),
                    v=torch.zeros(shape, dtype=cfg.dtype, device=device))
+
+
+def init_paged_pool(cfg: tf.TransformerConfig, num_blocks: int,
+                    block_len: int, device="cpu") -> KVCache:
+    """Paged serving pool: the dense cache's KVCache with the sequence axes
+    as (num_blocks, block_len) physical pages — k/v are (L, NB, BL, KH, D).
+    Block 0 is the engine's trash page (models/paged_kv.TRASH_BLOCK):
+    parked slots point there, so their ignored decode writes never reach
+    another request's pages."""
+    shape = (cfg.n_layers, num_blocks, block_len, cfg.n_kv_heads,
+             cfg.head_dim)
+    return KVCache(k=torch.zeros(shape, dtype=cfg.dtype, device=device),
+                   v=torch.zeros(shape, dtype=cfg.dtype, device=device))
+
+
+def paged_rows(table: torch.Tensor, positions: torch.Tensor,
+               block_len: int) -> torch.Tensor:
+    """Physical pool-row ids for logical `positions`.
+
+    table: (..., max_blocks) int physical block ids per slot; positions:
+    broadcastable int logical positions. Row of logical j is
+    ``table[j // block_len] * block_len + j % block_len``; table entries
+    beyond a slot's reservation are TRASH_BLOCK (0), so a clamped or
+    parked position lands in the trash page, never in another slot's
+    pages."""
+    blk = torch.div(positions, block_len, rounding_mode="floor")
+    blk = blk.expand(*table.shape[:-1], blk.shape[-1])
+    phys = torch.gather(table, -1, blk.to(torch.int64))
+    return phys * block_len + positions % block_len
 
 
 def forward_cached(params: Params, tokens: torch.Tensor, cache: KVCache,

@@ -1,10 +1,25 @@
-"""Continuous-batching serving engine for KTWE-LM (dense KV, one device).
+"""Continuous-batching serving engine for KTWE-LM (one device).
 
-Port of the dense engine of k8s_gpu_workload_enhancer_tpu/models/serving.py.
+Port of the dense and the paged engine of
+k8s_gpu_workload_enhancer_tpu/models/serving.py.
 
 - **Slots.** A fixed pool of `num_slots` rows in one static (L, N, S, KH, D)
   KV cache. Requests are admitted into free slots and evicted on
   completion on the host; device shapes never change.
+- **Paged KV** (`kv_block_len > 0`). The cache becomes a pool of
+  (num_blocks, block_len) pages (decode.init_paged_pool) and each slot a
+  block-table row. A request reserves the pages its prompt + max_new span
+  needs, all or nothing, evicting cold radix pages LRU; when the pool is
+  short it waits at the queue head (deferred), and a reservation that can
+  never fit fails. Prompt full blocks are published to a radix tree
+  (models/paged_kv.py) and later prompts with the same prefix map those
+  pages read-only instead of recomputing them. Decode attention walks the
+  table in the paged decode kernel (ops/paged_attention.py). Block 0 is the
+  trash page: a freed slot's table row is parked there, so its ignored
+  decode writes never reach pages another request now owns. A freed page
+  is handed out again at once; that is safe because all device work runs
+  in order on one stream and the engine collects every chunk before it
+  dispatches the next, so no chunk that read the old table is in flight.
 - **Per-slot positions.** Each slot decodes at its own frontier `pos[b]`:
   RoPE rows are gathered at `pos`, the new K/V row is written at `pos`
   BEFORE the attention read, and attention masks `j <= pos[b]`, so a freed
@@ -28,17 +43,19 @@ Port of the dense engine of k8s_gpu_workload_enhancer_tpu/models/serving.py.
   torch.Generator seeded by both, so a sampled stream does not depend on
   slot or batch company.
 
-The norms, prefill RoPE and prefill attention run the hand-written CUDA
-kernels on the card (ops/). Decode attention, decode RoPE, the KV write and
-sampling are plain torch, as they are plain XLA in the JAX package. Where
-JAX donates the cache to each program and threads it through a layer
-`scan`, the port writes the cache's new rows in place: no step copies it.
+The norms, prefill RoPE, prefill attention and paged decode attention run
+the hand-written CUDA kernels on the card (ops/). Dense decode attention,
+decode RoPE, the KV writes and sampling are plain torch, as they are plain
+XLA in the JAX package. Where JAX donates the cache to each program and
+threads it through a layer `scan`, the port writes the cache's new rows in
+place: no step copies it, and a prefill commits only the rows it owns.
 
-Not ported here (later slices): shared prefixes, speculative decoding, the
-paged pool and host tier, meshes, eject/resume/handoff, tenancy and
-preemption, the watchdog and FaultLab sites, `swap_params`, phase events,
-and the overlapped dispatch/commit pipeline (this engine collects every
-chunk before it dispatches the next).
+Not ported here (later slices): register_prefix/release_prefix, speculative
+decoding, the host-RAM KV tier and preemption of the paged engine, the int8
+KV cache, meshes, eject/resume/handoff, tenancy, the watchdog and FaultLab
+sites, `swap_params` (and with it radix detachment), phase events, and the
+overlapped dispatch/commit pipeline (this engine collects every chunk
+before it dispatches the next).
 """
 
 from __future__ import annotations
@@ -47,17 +64,18 @@ import math
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..ops.attention import NEG_INF, rope_frequencies
 from ..ops.layers import rms_norm, swiglu
+from ..ops.paged_attention import paged_decode_attention
 from ..ops.quant import as_compute
 from ..utils.device import resolve_device
 from ..utils.stats import percentile
-from . import decode
+from . import decode, paged_kv
 from . import transformer as tf
 
 Params = tf.Params
@@ -169,31 +187,21 @@ class _Sampling:
                          self.top_ps, self.top_k, self.enable_top_p)
 
 
-def _decode_once(params: Params, cache: decode.KVCache, toks: torch.Tensor,
-                 pos: torch.Tensor, cfg: tf.TransformerConfig,
-                 freqs: torch.Tensor, sampling: _Sampling
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One batched decode step at per-slot positions. toks, pos: (B,).
-    Writes each slot's K/V at pos[b] in place, then attends j <= pos[b].
-    Returns (next token (B,) int64, its logprob (B,) f32)."""
-    dt = cfg.dtype
-    b = toks.shape[0]
-    nh, nkh, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
-    s_max = cache.max_seq
-    x = params["embed"].to(dt)[toks] * math.sqrt(d)                # (B, D)
-    mask = (torch.arange(s_max, device=x.device)[None, :]
+Attend = Callable[[int, torch.Tensor, torch.Tensor, torch.Tensor],
+                  torch.Tensor]
+
+
+def _dense_attend(cache: decode.KVCache, pos: torch.Tensor,
+                  cfg: tf.TransformerConfig) -> Attend:
+    """Decode attention over the dense cache: layer `layer`'s new K/V rows
+    go in place at pos[b] of each slot, then each slot attends j <=
+    pos[b]."""
+    b, s_max = cache.k.shape[1], cache.max_seq
+    nh, nkh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    mask = (torch.arange(s_max, device=pos.device)[None, :]
             <= pos[:, None])                                        # (B, S)
-    for layer in range(cfg.n_layers):
-        lp = tf.layer_params(params, layer)
-        h = rms_norm(x, lp["ln1"])
-        q = (h @ as_compute(lp["wq"], dt).reshape(d, nh * hd)
-             ).reshape(b, nh, hd)
-        k = (h @ as_compute(lp["wk"], dt).reshape(d, nkh * hd)
-             ).reshape(b, nkh, hd)
-        v = (h @ as_compute(lp["wv"], dt).reshape(d, nkh * hd)
-             ).reshape(b, nkh, hd)
-        q = _rope_at(q, freqs, pos)
-        k = _rope_at(k, freqs, pos)
+
+    def attend(layer, q, k, v):
         _write_slot(cache.k[layer], k, pos)
         _write_slot(cache.v[layer], v, pos)
         # Query heads grouped by KV head (GQA without repeating the cache);
@@ -204,8 +212,51 @@ def _decode_once(params: Params, cache: decode.KVCache, toks: torch.Tensor,
         logits = (_bmm_f32(qg, kt.transpose(1, 2)) * hd ** -0.5
                   ).reshape(b, nh, s_max)
         logits = torch.where(mask[:, None, :], logits, NEG_INF)
-        p = torch.softmax(logits, dim=-1).to(dt)
-        o = _bmm_f32(p.reshape(b * nkh, nh // nkh, s_max), vt).to(dt)
+        p = torch.softmax(logits, dim=-1).to(q.dtype)
+        o = _bmm_f32(p.reshape(b * nkh, nh // nkh, s_max), vt)
+        return o.reshape(b, nh, hd).to(q.dtype)
+    return attend
+
+
+def _paged_attend(pool: decode.KVCache, table: torch.Tensor,
+                  pos: torch.Tensor, block_len: int) -> Attend:
+    """Decode attention through the block table: layer `layer`'s new K/V
+    rows go in place at each slot's physical row of pos[b] (a parked slot's
+    land in the trash page), then the paged decode kernel attends j <=
+    pos[b] page by page."""
+    nb, bl, nkh, hd = pool.k.shape[1:]
+    wrow = decode.paged_rows(table, pos[:, None], block_len)[:, 0]   # (B,)
+    pos32 = pos.to(torch.int32)
+
+    def attend(layer, q, k, v):
+        pool.k[layer].view(nb * bl, nkh, hd)[wrow] = k
+        pool.v[layer].view(nb * bl, nkh, hd)[wrow] = v
+        return paged_decode_attention(q, pool.k[layer], pool.v[layer], table,
+                                      pos32, block_len=block_len)
+    return attend
+
+
+def _decode_step(params: Params, toks: torch.Tensor, pos: torch.Tensor,
+                 cfg: tf.TransformerConfig, freqs: torch.Tensor,
+                 sampling: _Sampling, attend: Attend
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One batched decode step at per-slot positions. toks, pos: (B,).
+    `attend` writes each layer's new K/V rows and returns its attention.
+    Returns (next token (B,) int64, its logprob (B,) f32)."""
+    dt = cfg.dtype
+    b = toks.shape[0]
+    nh, nkh, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
+    x = params["embed"].to(dt)[toks] * math.sqrt(d)                # (B, D)
+    for layer in range(cfg.n_layers):
+        lp = tf.layer_params(params, layer)
+        h = rms_norm(x, lp["ln1"])
+        q = (h @ as_compute(lp["wq"], dt).reshape(d, nh * hd)
+             ).reshape(b, nh, hd)
+        k = (h @ as_compute(lp["wk"], dt).reshape(d, nkh * hd)
+             ).reshape(b, nkh, hd)
+        v = (h @ as_compute(lp["wv"], dt).reshape(d, nkh * hd)
+             ).reshape(b, nkh, hd)
+        o = attend(layer, _rope_at(q, freqs, pos), _rope_at(k, freqs, pos), v)
         x = x + (o.reshape(b, nh * hd)
                  @ as_compute(lp["wo"], dt).reshape(nh * hd, d))
         h2 = rms_norm(x, lp["ln2"])
@@ -238,22 +289,43 @@ def _unpack(packed_h: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     return packed_h[..., 0], packed_h.view(np.float32)[..., 1]
 
 
-def _decode_chunk(params: Params, cache: decode.KVCache, toks: torch.Tensor,
-                  pos: torch.Tensor, cfg: tf.TransformerConfig, steps: int,
-                  freqs: torch.Tensor, sampling: _Sampling) -> torch.Tensor:
-    """`steps` decode steps; returns the packed (C, B, 2) int32 result.
-    Step n of slot b samples at index sampling.counts[b] + n. Parked slots'
-    positions clamp at max_seq - 1 so their ignored writes stay in
-    bounds."""
-    s_max = cache.max_seq
+def _steps(params: Params, toks: torch.Tensor, pos: torch.Tensor,
+           cfg: tf.TransformerConfig, steps: int, freqs: torch.Tensor,
+           sampling: _Sampling, s_max: int,
+           attend_at: Callable[[torch.Tensor], Attend]) -> torch.Tensor:
+    """`steps` decode steps, attending through `attend_at(pos)`; returns
+    the packed (C, B, 2) int32 result. Step n of slot b samples at index
+    sampling.counts[b] + n. Parked slots' positions clamp at s_max - 1 so
+    their ignored writes stay in bounds."""
     out, lps = [], []
     for n in range(steps):
-        toks, lp = _decode_once(params, cache, toks, pos, cfg, freqs,
-                                sampling.at(n))
+        toks, lp = _decode_step(params, toks, pos, cfg, freqs,
+                                sampling.at(n), attend_at(pos))
         out.append(toks)
         lps.append(lp)
         pos = torch.clamp(pos + 1, max=s_max - 1)
     return _pack(torch.stack(out), torch.stack(lps))
+
+
+def _decode_chunk(params: Params, cache: decode.KVCache, toks: torch.Tensor,
+                  pos: torch.Tensor, cfg: tf.TransformerConfig, steps: int,
+                  freqs: torch.Tensor, sampling: _Sampling) -> torch.Tensor:
+    """`steps` decode steps over the dense cache."""
+    return _steps(params, toks, pos, cfg, steps, freqs, sampling,
+                  cache.max_seq, lambda p: _dense_attend(cache, p, cfg))
+
+
+def _decode_chunk_paged(params: Params, pool: decode.KVCache,
+                        table: torch.Tensor, toks: torch.Tensor,
+                        pos: torch.Tensor, cfg: tf.TransformerConfig,
+                        steps: int, freqs: torch.Tensor, sampling: _Sampling,
+                        block_len: int) -> torch.Tensor:
+    """`steps` decode steps through the block table (B, MB) int32, which
+    does not change within a chunk: a reservation covers the request's
+    whole prompt + max_new span from admission."""
+    return _steps(params, toks, pos, cfg, steps, freqs, sampling,
+                  table.shape[1] * block_len,
+                  lambda p: _paged_attend(pool, table, p, block_len))
 
 
 def _init_temp_cache(cfg: tf.TransformerConfig, max_seq: int,
@@ -287,11 +359,71 @@ def _prefill_final(params: Params, cache: decode.KVCache,
                                          freqs=freqs)
     cache.k[:, slot].copy_(temp.k[:, 0])
     cache.v[:, slot].copy_(temp.v[:, 0])
-    last = logits[0, plen - 1]                                       # (V,)
+    return _first_token(logits[0, plen - 1], sampling)
+
+
+def _first_token(last: torch.Tensor, sampling: _Sampling
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sample a request's first token from its last prompt row's logits
+    (V,); returns (token, logprob) device scalars."""
     tok = _sample_per_slot(last[None], sampling.keys, sampling.counts,
                            sampling.temps, sampling.top_ps, sampling.top_k,
                            sampling.enable_top_p)[0]
     return tok, torch.log_softmax(last, dim=-1)[tok]
+
+
+def _pool_rows(row: np.ndarray, start: int, stop: int, block_len: int,
+               device) -> torch.Tensor:
+    """Physical pool rows of logical positions [start, stop) of a slot
+    whose block-table row is `row` (host int32)."""
+    return decode.paged_rows(torch.as_tensor(row, device=device),
+                             torch.arange(start, stop, device=device),
+                             block_len)
+
+
+def _temp_from_pool(pool: decode.KVCache, row: np.ndarray, matched: int,
+                    max_seq: int, block_len: int) -> decode.KVCache:
+    """A batch-1 temp prefill cache whose first `matched` rows are gathered
+    from the pool (a radix-matched prefix), the rest zero: suffix prefill
+    chunks attend over the shared prefix KV without recomputing it."""
+    l, nb, bl, kh, d = pool.k.shape
+    rows = _pool_rows(row, 0, matched, block_len, pool.k.device)
+
+    def gather(pages: torch.Tensor) -> torch.Tensor:
+        out = torch.zeros((l, 1, max_seq, kh, d), dtype=pages.dtype,
+                          device=pages.device)
+        out[:, 0, :matched] = pages.view(l, nb * bl, kh, d)[:, rows]
+        return out
+    return decode.KVCache(k=gather(pool.k), v=gather(pool.v))
+
+
+def _commit_rows(pool: decode.KVCache, temp: decode.KVCache, row: np.ndarray,
+                 write_from: int, write_to: int, block_len: int) -> None:
+    """Scatter temp rows [write_from, write_to) into the slot's pool pages
+    through its table row, in place (JAX's _commit_window_rows +
+    _pool_commit_rows). Rows outside the window are not written at all, so
+    shared prefix pages stay read-only and pad garbage never lands; the
+    JAX package's trash redirect of those rows is not needed."""
+    l, nb, bl, kh, d = pool.k.shape
+    rows = _pool_rows(row, write_from, write_to, block_len, pool.k.device)
+    for pages, src in ((pool.k, temp.k), (pool.v, temp.v)):
+        pages.view(l, nb * bl, kh, d)[:, rows] = src[:, 0, write_from:write_to]
+
+
+def _prefill_final_paged(params: Params, pool: decode.KVCache,
+                         temp: decode.KVCache, chunk: torch.Tensor,
+                         row: np.ndarray, write_from: int, write_to: int,
+                         plen: int, cfg: tf.TransformerConfig, offset: int,
+                         freqs: torch.Tensor, sampling: _Sampling,
+                         block_len: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Paged twin of _prefill_final: advance the temp cache over the
+    (padded) last chunk, commit rows [write_from, write_to) — the part of
+    the prompt no shared page holds — into the slot's pages, and sample the
+    first token from the logits at plen - 1 (real tokens in this chunk)."""
+    logits, temp = decode.forward_cached(params, chunk, temp, offset, cfg,
+                                         freqs=freqs)
+    _commit_rows(pool, temp, row, write_from, write_to, block_len)
+    return _first_token(logits[0, plen - 1], sampling)
 
 
 # ---------------------------------------------------------------------------
@@ -338,6 +470,21 @@ class _PrefillState:
     slot: int
     offset: int
     temp: Optional[decode.KVCache]
+    # Paged engines: prompt tokens served from radix-matched pool pages (a
+    # multiple of kv_block_len; 0 = cold). The final commit writes only
+    # [matched, len(prompt)) — shared pages are read-only.
+    matched: int = 0
+
+
+@dataclass
+class _KVLease:
+    """A paged request's block ownership: `nodes` are radix-tree blocks it
+    holds a reference on (shared, read-only), `private` are pool blocks it
+    owns outright (prompt tail + decode span), `row` is the host copy of
+    its block-table row."""
+    nodes: list
+    private: List[int]
+    row: np.ndarray                 # (max_blocks,) int32
 
 
 class ContinuousBatchEngine:
@@ -348,7 +495,9 @@ class ContinuousBatchEngine:
     per step while anything decodes), advances every live slot by
     `decode_chunk` tokens and commits them; cancel() evicts; run() drains.
     `device` defaults to "cuda" and raises without a card; params must
-    already live on it."""
+    already live on it. `kv_block_len > 0` builds the paged engine over a
+    pool of `kv_num_blocks` pages (0 = the dense cache's rows plus the
+    trash page)."""
 
     def __init__(self, params: Params, cfg: tf.TransformerConfig, *,
                  num_slots: int = 4, max_seq: Optional[int] = None,
@@ -357,7 +506,8 @@ class ContinuousBatchEngine:
                  top_k: int = 0, top_p: float = 1.0,
                  enable_top_p: Optional[bool] = None, seed: int = 0,
                  max_queue: int = 256, prefill_interleave: int = 2,
-                 keep_results: int = 1024, device="cuda"):
+                 keep_results: int = 1024, kv_block_len: int = 0,
+                 kv_num_blocks: int = 0, device="cuda"):
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
             raise ValueError(f"params live on {params['embed'].device}, the "
@@ -385,8 +535,32 @@ class ContinuousBatchEngine:
         self.prefill_interleave = max(1, int(prefill_interleave))
         self.keep_results = int(keep_results)
         self._seed = int(seed)
-        self._cache = decode.init_cache(cfg, self.num_slots, self.max_seq,
-                                        self.device)
+        self.kv_block_len = int(kv_block_len or 0)
+        self._paged = self.kv_block_len > 0
+        if self._paged:
+            if self.max_seq % self.kv_block_len:
+                raise ValueError(f"max_seq {self.max_seq} must be a multiple "
+                                 f"of kv_block_len {self.kv_block_len}")
+            self._max_blocks = self.max_seq // self.kv_block_len
+            # Auto: the dense cache's HBM (slots x max_seq rows) plus the
+            # trash page; density then comes from short sequences and
+            # shared prefixes.
+            nb = (int(kv_num_blocks or 0)
+                  or self.num_slots * self._max_blocks + 1)
+            self.kv_num_blocks = nb
+            self._pool = paged_kv.BlockPool(nb, self.kv_block_len)
+            self._radix = paged_kv.RadixCache(self._pool)
+            self._leases: Dict[int, _KVLease] = {}
+            # Device block tables, one row per slot; a row is non-trash only
+            # while its slot holds a live request.
+            self._table_d = torch.zeros((self.num_slots, self._max_blocks),
+                                        dtype=torch.int32, device=self.device)
+            self._cache = decode.init_paged_pool(cfg, nb, self.kv_block_len,
+                                                 self.device)
+        else:
+            self.kv_num_blocks = 0
+            self._cache = decode.init_cache(cfg, self.num_slots,
+                                            self.max_seq, self.device)
         self._freqs = rope_frequencies(cfg.head_dim, self.max_seq,
                                        cfg.rope_theta, self.device)
         # Host slot table: the truth for every slot's next input token,
@@ -414,6 +588,13 @@ class ContinuousBatchEngine:
         self._prefill_chunks_total = 0
         self._errors_total = {"prefill": 0, "decode": 0}
         self._started_at: Optional[float] = None
+        # Prompt-token accounting behind kv_cache.prefix_hit_rate, and the
+        # paged pool's admission deferrals (counted once per request).
+        self._prefix_hits = 0
+        self._kv_prompt_tokens_total = 0
+        self._kv_matched_tokens_total = 0
+        self._kv_deferrals_total = 0
+        self._kv_deferred_req: Optional[int] = None
 
     # -- client API --
 
@@ -438,6 +619,14 @@ class ContinuousBatchEngine:
             raise ValueError(f"prompt length {len(prompt)} not in [1, {limit}]"
                              f" (max_seq {self.max_seq} - max_new_tokens "
                              f"{max_new_tokens})")
+        if self._paged:
+            need = paged_kv.blocks_needed(len(prompt) + max_new_tokens,
+                                          self.kv_block_len)
+            if need > self._pool.capacity:
+                raise ValueError(
+                    f"request needs {need} KV blocks; the pool has "
+                    f"{self._pool.capacity} total (raise kv_num_blocks or "
+                    f"lower maxNewTokens)")
         if len(self._queue) >= self.max_queue:
             raise QueueFull(
                 f"serving queue full ({self.max_queue} requests waiting)")
@@ -469,6 +658,7 @@ class ContinuousBatchEngine:
         for b in range(self.num_slots):
             if self._slot_req[b] is req:
                 self._slot_req[b] = None
+                self._park_slot(b)
         try:
             self._queue.remove(req)
         except ValueError:
@@ -545,13 +735,24 @@ class ContinuousBatchEngine:
             touched = [self._prefill.req] if self._prefill is not None else []
             self._prefill = None
         else:
+            # Paged: the pool needs no rebuild. The port writes in place,
+            # and a faulted chunk can have written only its slots' private
+            # decode rows (and the trash page), never a shared tree page:
+            # a slot's pos is past every block its prompt published.
             touched = [r for r in self._slot_req if r is not None]
+            for b, r in enumerate(self._slot_req):
+                if r is not None:
+                    self._park_slot(b)
             self._slot_req = [None] * self.num_slots
         for req in touched:
             if not req.done:
-                req.error = msg
-                req.finish_reason = "error"
-                self._finish(req)
+                self._fail_request(req, msg)
+
+    def _fail_request(self, req: ServeRequest, msg: str) -> None:
+        """Finish `req` as errored with `msg` (its lease goes back)."""
+        req.finish_reason = "error"
+        req.error = msg
+        self._finish(req)
 
     @staticmethod
     def _matched_stop(req: ServeRequest) -> Optional[List[int]]:
@@ -571,6 +772,10 @@ class ContinuousBatchEngine:
 
     def _finish(self, req: ServeRequest) -> None:
         req.done_at = time.perf_counter()
+        # Paged: the request's pages go back the moment it finishes (radix
+        # references drop, private pages return to the free list). Queued
+        # requests have no lease.
+        self._release_lease(req)
         if req.finish_reason is None:
             if req.cancelled:
                 req.finish_reason = "cancelled"
@@ -612,8 +817,15 @@ class ContinuousBatchEngine:
         n = self.decode_chunk
         toks = torch.as_tensor(self._cur, device=self.device)
         pos = torch.as_tensor(self._pos, device=self.device)
-        packed = _decode_chunk(self.params, self._cache, toks, pos, self.cfg,
-                               n, self._freqs, self._sampling())
+        if self._paged:
+            packed = _decode_chunk_paged(self.params, self._cache,
+                                         self._table_d, toks, pos, self.cfg,
+                                         n, self._freqs, self._sampling(),
+                                         self.kv_block_len)
+        else:
+            packed = _decode_chunk(self.params, self._cache, toks, pos,
+                                   self.cfg, n, self._freqs,
+                                   self._sampling())
         snapshot = [(b, r) for b, r in enumerate(self._slot_req)
                     if r is not None]
         self._pos = np.minimum(self._pos + n, self.max_seq - 1)
@@ -657,6 +869,7 @@ class ContinuousBatchEngine:
             self._finish(req)
             if self._slot_req[b] is req:
                 self._slot_req[b] = None
+                self._park_slot(b)
         return emitted
 
     def _admit(self) -> None:
@@ -689,12 +902,155 @@ class ContinuousBatchEngine:
             return False
         if self._started_at is None:
             self._started_at = time.perf_counter()
+        if self._paged:
+            return self._start_prefill_paged(b)
         req = self._queue.popleft()
         req.admitted_at = time.perf_counter()
+        self._kv_prompt_tokens_total += len(req.prompt)
         self._prefill = _PrefillState(req=req, slot=b, offset=0, temp=None)
         self._prefill.temp = _init_temp_cache(self.cfg, self.max_seq,
                                               self.device)
         return True
+
+    # -- paged block plumbing --
+
+    def _table_row(self, chain, blocks) -> np.ndarray:
+        """Host block-table row: matched chain pages first, then the
+        private/fresh pages, remaining entries the trash page — the layout
+        paged_rows assumes."""
+        row = np.zeros(self._max_blocks, np.int32)
+        for i, node in enumerate(chain):
+            row[i] = node.block
+        for i, blk in enumerate(blocks):
+            row[len(chain) + i] = blk
+        return row
+
+    def _kv_alloc(self, n: int) -> Optional[List[int]]:
+        """All-or-nothing pool allocation, evicting cold radix blocks
+        LRU-first under pressure. None = defer (the pool cannot cover `n`
+        even after eviction). Eviction is all-or-nothing too: when `n`
+        cannot be met even by evicting everything cold, nothing is evicted,
+        so an oversized reservation never wipes the warm prefix cache for
+        nothing."""
+        if n > self._pool.free_count:
+            deficit = n - self._pool.free_count
+            if deficit > self._radix.evictable_blocks():
+                return None
+            self._radix.evict(deficit)
+        return self._pool.alloc(n)
+
+    def _release_lease(self, req: ServeRequest) -> None:
+        """Give a finished, cancelled or failed request's pages back: radix
+        references drop, private pages return to the free list. Reusing
+        them at once is safe: the slot's table row is parked before the
+        next chunk, and no chunk is in flight (see the module note)."""
+        if not self._paged:
+            return
+        lease = self._leases.pop(req.req_id, None)
+        if lease is None:
+            return
+        self._radix.release(lease.nodes)
+        if lease.private:
+            self._pool.free(lease.private)
+
+    def _park_slot(self, b: int) -> None:
+        """Point a freed slot's table row at the trash page, so the next
+        chunks' (ignored) writes for it land there."""
+        if self._paged:
+            self._table_d[b].zero_()
+
+    def _start_prefill_paged(self, b: int) -> bool:
+        """Paged admission: radix-match the prompt's full blocks, reserve
+        the rest of the prompt + max_new span from the pool, and start the
+        suffix prefill at the match's prefill-grid frontier. When the pool
+        cannot cover the reservation even after eviction the request stays
+        at the queue head (deferred, strict FIFO); one that can never fit
+        fails instead of blocking the queue forever."""
+        req = self._queue[0]
+        bl = self.kv_block_len
+        plen = len(req.prompt)
+        chain = self._radix.match(req.prompt)
+        while chain and len(chain) * bl >= plen:
+            # Keep >= 1 prompt token out of the match: the first token is
+            # sampled from the last prompt row's logits.
+            chain = chain[:-1]
+        matched = len(chain) * bl
+        need = paged_kv.blocks_needed(plen + req.max_new_tokens, bl) \
+            - len(chain)
+        self._radix.acquire(chain)       # eviction guard + our reference
+        private = self._kv_alloc(need)
+        if private is None:
+            self._radix.release(chain)
+            # The whole footprint must fit in capacity minus pinned blocks
+            # (eviction never touches those), except pinned blocks the
+            # request itself rides. Matched unpinned blocks get no credit:
+            # every retry re-acquires them, so they hold headroom exactly
+            # like fresh pages.
+            rideable = sum(1 for n in chain if n.pins > 0)
+            footprint = len(chain) + need - rideable
+            headroom = self._pool.capacity - self._radix.pinned_blocks()
+            if footprint > headroom:
+                self._queue.popleft()
+                self._fail_request(
+                    req, f"request needs {footprint} KV blocks but only "
+                         f"{headroom} are reclaimable (pinned prefixes hold "
+                         f"the rest); raise kv_num_blocks")
+                return False
+            if self._kv_deferred_req != req.req_id:
+                self._kv_deferrals_total += 1
+                self._kv_deferred_req = req.req_id
+            return False
+        row = self._table_row(chain, private)
+        self._queue.popleft()
+        req.admitted_at = time.perf_counter()
+        self._leases[req.req_id] = _KVLease(
+            nodes=list(chain), private=list(private), row=row)
+        if matched > 0:
+            self._prefix_hits += 1
+        self._kv_prompt_tokens_total += plen
+        self._kv_matched_tokens_total += matched
+        # The suffix prefill starts at the match's prefill-grid frontier;
+        # positions [off0, matched) are recomputed into the temp cache but
+        # never committed.
+        off0 = (min(matched, plen - 1) // self.prefill_len) * self.prefill_len
+        self._prefill = _PrefillState(req=req, slot=b, offset=off0, temp=None,
+                                      matched=matched)
+        self._prefill.temp = (
+            _temp_from_pool(self._cache, row, matched, self.max_seq, bl)
+            if matched > 0
+            else _init_temp_cache(self.cfg, self.max_seq, self.device))
+        return True
+
+    def _insert_prompt_blocks(self, tokens: List[int],
+                              lease: _KVLease) -> None:
+        """After the final prefill commit, publish the request's full prompt
+        blocks into the radix tree, so the next request sharing this prefix
+        matches them. The request keeps a reference on each published node
+        (released with its lease); its partial tail block and decode span
+        stay private."""
+        bl = self.kv_block_len
+        full = len(tokens) // bl
+        start = len(lease.nodes)
+        if full <= start:
+            return
+        parent = lease.nodes[-1] if lease.nodes else None
+        keep_private: List[int] = []
+        new_nodes = []
+        for idx, i in enumerate(range(start, full)):
+            blk = lease.private[idx]
+            node = self._radix.insert(parent, tokens[i * bl:(i + 1) * bl],
+                                      blk)
+            if node.block == blk:
+                new_nodes.append(node)
+            else:
+                # An identical chain is already in the tree: its node serves
+                # later matches, our identical page stays private.
+                keep_private.append(blk)
+            parent = node
+        keep_private.extend(lease.private[full - start:])
+        self._radix.acquire(new_nodes)
+        lease.nodes.extend(new_nodes)
+        lease.private = keep_private
 
     def _advance_prefill(self) -> None:
         st = self._prefill
@@ -723,10 +1079,19 @@ class ContinuousBatchEngine:
                              np.asarray([r_temp], np.float32),
                              np.asarray([r_topp], np.float32), self.top_k,
                              self.enable_top_p)
-        tok, lp = _prefill_final(
-            self.params, self._cache, st.temp,
-            torch.as_tensor(padded, device=self.device), b, remaining,
-            self.cfg, st.offset, self._freqs, sampling)
+        chunk = torch.as_tensor(padded, device=self.device)
+        if self._paged:
+            lease = self._leases[req.req_id]
+            tok, lp = _prefill_final_paged(
+                self.params, self._cache, st.temp, chunk, lease.row,
+                st.matched, len(ctx), remaining, self.cfg, st.offset,
+                self._freqs, sampling, self.kv_block_len)
+            # Publish the prompt's full blocks for automatic reuse.
+            self._insert_prompt_blocks(ctx, lease)
+        else:
+            tok, lp = _prefill_final(
+                self.params, self._cache, st.temp, chunk, b, remaining,
+                self.cfg, st.offset, self._freqs, sampling)
         self._prefill_chunks_total += 1
         self._prefill = None
         t = int(tok)                              # the first-token sync
@@ -745,6 +1110,9 @@ class ContinuousBatchEngine:
         self._topps[b] = r_topp
         self._skeys[b] = req.base_key
         self._scnt[b] = 1            # the prefill consumed sample index 0
+        if self._paged:
+            self._table_d[b] = torch.as_tensor(
+                self._leases[req.req_id].row, device=self.device)
         self._slot_req[b] = req
 
     # -- metrics --
@@ -775,6 +1143,34 @@ class ContinuousBatchEngine:
             },
             "errors": dict(self._errors_total),
             "draining": self._draining,
+            # Prompt prefix reuse (monotonic counters).
+            "prefix_cache": {
+                "hits": self._prefix_hits,
+                # Every matched prompt token is one the prefill skipped.
+                "prompt_tokens_saved": self._kv_matched_tokens_total,
+            },
+            # Paged pool and radix state; zeros on a dense engine except
+            # the prompt-token total.
+            "kv_cache": {
+                "paged": self._paged,
+                "block_len": self.kv_block_len,
+                "blocks_total": self._pool.capacity if self._paged else 0,
+                "blocks_free": self._pool.free_count if self._paged else 0,
+                "blocks_used": self._pool.used_count if self._paged else 0,
+                "blocks_shared": (self._radix.shared_blocks()
+                                  if self._paged else 0),
+                "blocks_cached": (self._radix.cached_blocks
+                                  if self._paged else 0),
+                "evictions_total": (self._radix.evictions_total
+                                    if self._paged else 0),
+                "deferrals_total": self._kv_deferrals_total,
+                "prompt_tokens_total": self._kv_prompt_tokens_total,
+                "matched_tokens_total": self._kv_matched_tokens_total,
+                "prefix_hit_rate": (
+                    self._kv_matched_tokens_total
+                    / self._kv_prompt_tokens_total
+                    if self._kv_prompt_tokens_total else 0.0),
+            },
         }
 
     @staticmethod
@@ -798,6 +1194,8 @@ class ContinuousBatchEngine:
             "requests_cancelled": sum(1 for r in rows if r["cancelled"]),
             "requests_errored": sum(1 for r in rows if r["errored"]),
             "lifetime": snap["lifetime"],
+            "prefix_cache": snap["prefix_cache"],
+            "kv_cache": snap["kv_cache"],
             "errors": snap["errors"],
             "draining": snap["draining"],
             "queued": snap["queued"],

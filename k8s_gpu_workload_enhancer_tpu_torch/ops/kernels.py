@@ -46,6 +46,8 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "flash_attention": {"ktwe_flash_attention_fwd": [
         _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _LL, _LL, _F, _I,
         _I, _P]},
+    "paged_decode": {"ktwe_paged_decode_fwd": [
+        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P]},
 }
 
 launches: collections.Counter = collections.Counter()

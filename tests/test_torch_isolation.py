@@ -15,7 +15,7 @@ import torch
 from k8s_gpu_workload_enhancer_tpu_torch.cmd import generate, serve
 from k8s_gpu_workload_enhancer_tpu_torch.models import serving
 from k8s_gpu_workload_enhancer_tpu_torch.ops import (
-    flash_attention, kernels, rms, rope)
+    flash_attention, kernels, paged_attention, rms, rope)
 from k8s_gpu_workload_enhancer_tpu_torch.utils.device import resolve_device
 
 import torch_parity as tp
@@ -97,12 +97,22 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     assert torch.equal(flash_attention.flash_attention(x, x, x, True, 3),
                        flash_attention.flash_attention_plain(x, x, x, True,
                                                              3))
+    pages = torch.randn(5, 4, 2, 32, generator=g)
+    table = torch.tensor([[1, 2], [4, 3]], dtype=torch.int32)
+    pos = torch.tensor([5, 2], dtype=torch.int32)
+    assert torch.equal(
+        paged_attention.paged_decode_attention(x[:2, 0], pages, pages, table,
+                                               pos, block_len=4),
+        paged_attention.paged_decode_attention_plain(
+            x[:2, 0], pages, pages, table, pos, block_len=4))
     _, _, cfg, params = tp.model()
-    eng = serving.ContinuousBatchEngine(params, cfg, num_slots=2,
-                                        prefill_len=32, device="cpu")
-    rid = eng.submit([1, 2, 3], 5)
-    eng.run()
-    assert len(eng.result(rid).tokens) == 5
+    for kv_block_len in (0, 8):
+        eng = serving.ContinuousBatchEngine(params, cfg, num_slots=2,
+                                            prefill_len=32, device="cpu",
+                                            kv_block_len=kv_block_len)
+        rid = eng.submit([1, 2, 3], 5)
+        eng.run()
+        assert len(eng.result(rid).tokens) == 5
     assert sum(kernels.launches.values()) == 0
     with pytest.raises(ValueError):     # a CUDA-only entry refuses CPU input
         rms._rms_norm_cuda(x, w, 1e-6)

@@ -1,7 +1,9 @@
 """The port's serve main over HTTP on --device cpu at tiny dims:
 /v1/generate (blocking and streamed) returns the port's `generate` tokens
 on the same seeded weights, /health and /v1/metrics answer, bad requests
-get 400, and a drain turns new submits and /health into 503."""
+get 400, and a drain turns new submits and /health into 503. With
+--kv-block-len the server runs the paged engine: the same greedy tokens as
+the dense one, and a `kv_cache` block in /v1/metrics."""
 
 import json
 import threading
@@ -20,8 +22,8 @@ ARGS = ["--device", "cpu", "--port", "0", "--seed", "5", "--vocab-size",
         "--prefill-len", "16", "--decode-chunk", "4", "--drain-timeout", "5"]
 
 
-@pytest.fixture(scope="module")
-def server():
+def _serve(args):
+    """Run serve.main(args) in a thread; yields its port, then drains it."""
     stop = threading.Event()
     ready = threading.Event()
     port = {}
@@ -32,13 +34,23 @@ def server():
         ready.set()
 
     th = threading.Thread(target=lambda: result.update(
-        rc=serve.main(ARGS, stop=stop, on_ready=on_ready)), daemon=True)
+        rc=serve.main(args, stop=stop, on_ready=on_ready)), daemon=True)
     th.start()
     assert ready.wait(60), "serve main did not come up"
     yield port["p"]
     stop.set()
     th.join(30)
     assert not th.is_alive() and result.get("rc") == 0
+
+
+@pytest.fixture(scope="module")
+def server():
+    yield from _serve(ARGS)
+
+
+@pytest.fixture(scope="module")
+def paged_server():
+    yield from _serve(ARGS + ["--kv-block-len", "8"])
 
 
 def _expected(prompt, n):
@@ -121,3 +133,32 @@ def test_timeout_cancels_and_queue_full_is_429():
     with pytest.raises(serve.StatusError) as e:
         svc.generate({"prompt": [3], "maxNewTokens": 2})
     assert e.value.code == 429 and e.value.reason == "queue-pressure"
+
+
+def test_kv_num_blocks_without_block_len_is_a_parser_error():
+    with pytest.raises(SystemExit) as e:
+        serve.main(ARGS + ["--kv-num-blocks", "9"])
+    assert e.value.code == 2
+
+
+def test_max_seq_not_a_multiple_of_the_block_len_raises():
+    args = serve.build_parser().parse_args(ARGS + ["--kv-block-len", "24"])
+    with pytest.raises(ValueError, match="multiple of kv_block_len"):
+        serve.build_engine(args)
+
+
+def test_paged_server_matches_dense_and_reports_kv_cache(paged_server):
+    prompt = [3, 17, 29, 5, 8, 100, 7, 7, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10]
+    want = _expected(prompt, 12)
+    for _ in range(2):                   # the second reuses 2 full blocks
+        with _post(paged_server, {"prompt": prompt,
+                                  "maxNewTokens": 12}) as resp:
+            reply = json.loads(resp.read())
+        assert reply["status"] == "ok" and reply["tokens"] == want
+    with urllib.request.urlopen(f"http://127.0.0.1:{paged_server}/v1/metrics",
+                                timeout=30) as resp:
+        kv = json.loads(resp.read())["metrics"]["kv_cache"]
+    assert kv["paged"] and kv["block_len"] == 8
+    assert kv["blocks_total"] == 2 * 64 // 8
+    assert kv["matched_tokens_total"] == 16 and kv["prefix_hit_rate"] > 0
+    assert kv["blocks_used"] == kv["blocks_cached"] == 2
