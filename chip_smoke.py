@@ -2,19 +2,24 @@
 
 Drives the port's serving path at the default serve dims (vocab 32768,
 d_model 2048, 3 layers, 4 heads of 512, d_ff 16384, max_seq 256, 8 slots,
-prefill_len 128, decode_chunk 8) from a seeded random init in bf16:
+prefill_len 128, decode_chunk 8) and its training path at the trainer's
+defaults (vocab 32768, d_model 2048, 8 layers, 16 heads of 128, d_ff 8192,
+seq 2048, batch 8), from seeded random inits in bf16:
 
   1. prints the card's name and power limit (nvidia-smi) and builds every
      kernel from csrc/, one nvcc per source, all at once;
   2. holds each kernel against its plain PyTorch version on the card at the
-     shapes the serving paths give it (and small ragged shapes), and times
-     on the device (50 calls in one CUDA graph, replayed) the kernel, the
-     plain version and, where one PyTorch call computes the same function,
-     that call; the wrapper's eager per-call rate, which includes the
-     host's cost of issuing it, is reported apart. The paged decode kernel
-     is also timed beside `scaled_dot_product_attention` over the same rows
-     laid out as a contiguous cache (`dense_sdpa_ms`, a yardstick: that
-     call does no table walk, so it is not the same function);
+     shapes the serving and training paths give it (and small ragged
+     shapes, bf16 and f32), and times on the device (calls captured in one
+     CUDA graph, replayed) the kernel, the plain version and, where one
+     PyTorch call computes the same function, that call (for a backward:
+     torch.autograd.grad of F.rms_norm or scaled_dot_product_attention on
+     a retained graph, eager, between CUDA events); the wrapper's eager
+     per-call rate, which includes the host's cost of issuing it, is
+     reported apart. The paged decode kernel is also timed beside
+     `scaled_dot_product_attention` over the same rows laid out as a
+     contiguous cache (`dense_sdpa_ms`, a yardstick: that call does no
+     table walk, so it is not the same function);
   3. runs the main paths, each with the launch counters set to 0 just
      before it and read just after: the dense engine on 8 requests of
      128-token prompts plus one of 160 (chunked prefill at offset 128); the
@@ -22,14 +27,22 @@ prefill_len 128, decode_chunk 8) from a seeded random init in bf16:
      streamed); the paged engine (kv_block_len 16) on 8 requests of 160
      tokens sharing a 128-token prefix plus one cold request of 160, after
      a warm-up that published the prefix, so 8 of the 9 start from pool
-     pages; and the paged serve main answering two requests that share a
-     128-token prefix. Every phase must launch exactly the kernels its
-     prefill chunks and decode steps need (on the paged path the paged
-     decode kernel L times a step, and never the dense decode attention).
-     The dense phase's first prefill chunk and first tokens are checked
-     against the plain versions; the paged engine is held to the dense
-     engine: identical greedy transcripts in f32 on the same weights (a
-     hard gate), and the count of identical ones in bf16, printed;
+     pages; the paged serve main answering two requests that share a
+     128-token prefix; and the trainer main in-process, 4 steps at batch 8
+     (the p/ds stash is over its gate, so dK/dV are recomputed) and 2 at
+     batch 4 (the stash path). Every phase must launch exactly the kernels
+     its prefill chunks, decode steps and train steps need (on the paged
+     path the paged decode kernel L times a step, and never the dense
+     decode attention). The dense phase's first prefill chunk and first
+     tokens are checked against the plain versions; the paged engine is
+     held to the dense engine: identical greedy transcripts in f32 on the
+     same weights (a hard gate), and the count of identical ones in bf16,
+     printed. An f32 training gate at full width (2 layers, batch 2, seq
+     512) holds the loss and every gradient leaf through the kernels, once
+     with the p/ds stash and once with dK/dV recomputed, to the same step
+     through the plain versions; the trainer's losses and grad norms must
+     be finite. The backward kernels are held to limits scaled to each
+     output's own values (BWD_RTOL, BWD_ATOL_OF_RMS);
   4. prints the {"kernels": [...]} line, then the result line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
@@ -43,6 +56,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import json
 import subprocess
 import sys
@@ -66,6 +80,17 @@ N_REQUESTS, PROMPT_LEN, LONG_PROMPT_LEN, NEW_TOKENS = 8, 128, 160, 48
 # 8 requests sharing a 128-token prefix with 32-token suffixes, one cold.
 KV_BLOCK_LEN, SHARED_PREFIX, SUFFIX = 16, 128, 32
 
+# Training: the trainer main's defaults (cmd/trainer.py of the JAX package),
+# and the stash-path batch (the p/ds stash is 1.07 GB at batch 4, under the
+# 1.2 GB gate; 2.15 GB at batch 8, over it).
+TRAIN_DIMS = dict(vocab_size=32768, d_model=2048, n_layers=8, n_heads=16,
+                  d_ff=8192, seq_len=2048)
+TRAIN_BATCH, STASH_BATCH, TRAIN_STEPS, STASH_STEPS = 8, 4, 4, 2
+# The f32 gate: full width, 2 layers, batch 2, seq 512.
+GATE_DIMS = dict(vocab_size=32768, d_model=2048, n_layers=2, n_heads=16,
+                 n_kv_heads=16, d_ff=8192, max_seq=512)
+GATE_BATCH, GATE_LOSS_RTOL, GATE_LEAF_RTOL = 2, 1e-5, 1e-3
+
 # Kernel vs plain version in bf16: both round once from f32, so they differ
 # by at most a couple of bf16 ulps (2^-8 relative) where their f32 sums are
 # taken in another order.
@@ -74,6 +99,15 @@ BF16_ATOL, BF16_RTOL = 2e-2, 2e-2
 # activations through 3 layers; a one-ulp flip upstream moves a logit by
 # about 1e-2 at these magnitudes.
 LOGITS_ATOL = 0.1
+# Backward kernels vs plain versions: each output (and the p/ds stash) is
+# held to a limit scaled to its own values. rtol: in bf16 one rounding (an
+# ulp is at most 2^-7 of the value) of f32 results that differ only in
+# summation order; in f32 those sums themselves (a few thousand terms: a
+# few 1e-6 of the output's size). atol, for entries near zero where
+# cancellation decides the last bits, is this fraction of the output's
+# root mean square.
+BWD_RTOL = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-5}
+BWD_ATOL_OF_RMS = {torch.bfloat16: 1e-3, torch.float32: 1e-5}
 
 
 def fail(msg: str) -> None:
@@ -164,6 +198,15 @@ def errors(got: torch.Tensor, want: torch.Tensor, atol: float, rtol: float):
     ok = bool((diff <= atol + rtol * w.abs()).all())
     rel = float((diff / w.abs().clamp_min(1e-6)).max())
     return float(diff.max()), rel, ok
+
+
+def bwd_errors(got: torch.Tensor, want: torch.Tensor):
+    """`errors` at the backward limits for want's dtype (BWD_RTOL, and
+    BWD_ATOL_OF_RMS times want's root mean square)."""
+    rms_w = float(torch.linalg.vector_norm(want, dtype=torch.float32)) \
+        / max(1, want.numel()) ** 0.5
+    return errors(got, want, BWD_ATOL_OF_RMS[want.dtype] * rms_w,
+                  BWD_RTOL[want.dtype])
 
 
 # ---------------------------------------------------------------------------
@@ -347,24 +390,261 @@ def check_paged_decode(dev, gen, paged) -> list:
 
 
 # ---------------------------------------------------------------------------
+# Phase 2b: the training kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def library_bwd_ms(forward, inputs, iters: int = 10) -> float:
+    """Milliseconds per backward of one PyTorch call (the yardstick): eager
+    torch.autograd.grad on a retained graph, timed with CUDA events."""
+    out = forward(*inputs)
+    g = torch.randn_like(out)
+    return wrapper_ms(lambda: torch.autograd.grad(out, inputs, g,
+                                                  retain_graph=True),
+                      iters=iters, warmup=2)
+
+
+def check_train_kernels(dev, rms, rope, flash, attn_mod, out: dict) -> dict:
+    """The backward kernels (and the RoPE VJP) at the trainer's shapes, a
+    stash-path shape and small ragged shapes, in bf16 and f32; adds cases
+    to `out`."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def randn(*shape, dtype=bf16):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    b, s, d = TRAIN_BATCH, TRAIN_DIMS["seq_len"], TRAIN_DIMS["d_model"]
+    h = TRAIN_DIMS["n_heads"]
+    hd = d // h
+
+    # RMSNorm forward and backward: the trainer's (B*S, D) rows in bf16
+    # with f32 weights, then smaller and ragged shapes.
+    cases = []
+    for rows, width, dt, wdt in ((b * s, d, bf16, f32), (600, d, f32, f32),
+                                 (3, 203, bf16, bf16)):
+        big = rows * width > 1 << 22
+        x, dy = randn(rows, width, dtype=dt), randn(rows, width, dtype=dt)
+        w = (1.0 + 0.1 * randn(width, dtype=f32)).to(wdt)
+        dx, dw = rms.rms_norm_backward(x, w, dy)
+        want_dx, want_dw = rms.rms_norm_backward_plain(x, w, dy)
+        ea, er, ok = bwd_errors(dx, want_dx)
+        ea_w, er_w, ok_w = bwd_errors(dw, want_dw)
+        repeat = bool(torch.equal(rms.rms_norm_backward(x, w, dy)[1], dw))
+        es, ws = x.element_size(), w.element_size()
+        b_ms, b_by = bound(3 * x.numel() * es + 2 * width * ws,
+                           10.0 * x.numel(), dt)
+        it = dict(iters=5, replays=4) if big else {}
+        cases.append(dict(
+            case="train" if big else "small", shape=[rows, width],
+            dtype=str(dt).split(".")[-1], w_dtype=str(wdt).split(".")[-1],
+            max_abs_err=max(ea, ea_w), max_rel_err=max(er, er_w),
+            dw_max_abs_err=ea_w, ok=ok and ok_w and repeat,
+            dw_bitwise_repeatable=repeat,
+            ms=device_ms(lambda: rms.rms_norm_backward(x, w, dy), **it),
+            wrapper_ms=wrapper_ms(lambda: rms.rms_norm_backward(x, w, dy)),
+            plain_ms=device_ms(lambda: rms.rms_norm_backward_plain(x, w, dy),
+                               **it),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=library_bwd_ms(
+                lambda a, ww: torch.nn.functional.rms_norm(
+                    a, (width,), ww, 1e-6),
+                (x.detach().requires_grad_(),
+                 w.to(dt).detach().requires_grad_()))))
+        if big:      # the forward kernel at the trainer's rows too
+            ea, er, okf = errors(rms.rms_norm(x, w), rms.rms_norm_plain(x, w),
+                                 BF16_ATOL, BF16_RTOL)
+            fb_ms, fb_by = bound(2 * x.numel() * es + width * ws,
+                                 4.0 * x.numel(), dt)
+            out["rms_norm"].append(dict(
+                case="train_fwd", shape=[rows, width], dtype="bfloat16",
+                max_abs_err=ea, max_rel_err=er, ok=okf,
+                ms=device_ms(lambda: rms.rms_norm(x, w), **it),
+                wrapper_ms=wrapper_ms(lambda: rms.rms_norm(x, w)),
+                plain_ms=device_ms(lambda: rms.rms_norm_plain(x, w), **it),
+                bound_ms=fb_ms, bound_by=fb_by,
+                library_ms=device_ms(lambda: torch.nn.functional.rms_norm(
+                    x, (width,), w.to(dt), 1e-6), **it)))
+        del x, dy, dx, want_dx
+    out["rms_norm_bwd"] = cases
+
+    # RoPE VJP: the same kernel with -sin, at the trainer's q shape.
+    freqs = attn_mod.rope_frequencies(hd, s, 10000.0, dev)
+    c, sn = freqs[..., 0].contiguous(), freqs[..., 1].contiguous()
+    neg = -sn
+    for dt in (bf16, f32):
+        x = randn(b, s, h, hd, dtype=dt).requires_grad_()
+        g = randn(b, s, h, hd, dtype=dt)
+        (got,) = torch.autograd.grad(rope.rope_rotate(x, c, sn), (x,), g)
+        want = rope.rope_rotate_plain(g, c, neg)
+        ea, er, ok = bwd_errors(got, want)
+        b_ms, b_by = bound(2 * g.numel() * g.element_size()
+                           + 2 * c.numel() * 4, 3.0 * g.numel(), dt)
+        it = dict(iters=10, replays=3)
+        out["rope"].append(dict(
+            case="train_vjp", shape=list(g.shape), offset=0,
+            dtype=str(dt).split(".")[-1], max_abs_err=ea, max_rel_err=er,
+            ok=ok, ms=device_ms(lambda: rope.rope_rotate_forward(g, c, neg),
+                                **it),
+            wrapper_ms=wrapper_ms(lambda: rope.rope_rotate_forward(g, c, neg),
+                                  iters=10),
+            plain_ms=device_ms(lambda: rope.rope_rotate_plain(g, c, neg),
+                               **it),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None))
+        del x, g, got, want
+
+    # Flash backward: the trainer's shape (recompute dK/dV), the stash
+    # shape (batch 4), the trainer's sequence and head_dim in f32 (batch 1)
+    # and small ragged shapes; the dQ kernel (with its stash except at the
+    # trainer's shape) and both dK/dV kernels at each, against the plain
+    # versions of ops/flash_attention.py.
+    dq_cases, dkv_cases, st_cases = [], [], []
+    for name, (bb, ss, hh, dd), dt, big in (
+            ("train", (b, s, h, hd), bf16, True),
+            ("stash", (STASH_BATCH, s, h, hd), bf16, True),
+            ("seq2048_f32", (1, s, h, hd), f32, True),
+            ("ragged", (2, 100, 3, 64), bf16, False),
+            ("ragged_f32", (2, 77, 2, 256), f32, False)):
+        q, k, v, do = (randn(bb, ss, hh, dd, dtype=dt) for _ in range(4))
+        o, lse = flash.flash_attention(q, k, v, True, return_lse=True)
+        delta = flash.backward_delta(o, do)
+        use_stash = name != "train"
+        args = (q, k, v, do, lse, delta)
+        with torch.no_grad():
+            want_dq, want_p, want_ds = flash.flash_bwd_dq_plain(
+                *args, stash=use_stash)
+            want_dk, want_dv = flash.flash_bwd_dkv_plain(*args)
+        dq, p_st, ds_st = flash.flash_bwd_dq(*args, stash=use_stash)
+        dk_r, dv_r = flash.flash_bwd_dkv(*args)
+        e_dq, e_dkv, e_st = (dict(max_abs_err=0.0, max_rel_err=0.0, ok=True)
+                             for _ in range(3))
+
+        def acc(entry, got, want):
+            ea, er, ok = bwd_errors(got, want)
+            entry["max_abs_err"] = max(entry["max_abs_err"], ea)
+            entry["max_rel_err"] = max(entry["max_rel_err"], er)
+            entry["ok"] = entry["ok"] and ok
+        acc(e_dq, dq, want_dq)
+        acc(e_dkv, dk_r, want_dk)
+        acc(e_dkv, dv_r, want_dv)
+        if use_stash:
+            # The stash itself (zeros past the diagonal included), then
+            # dK/dV from it.
+            acc(e_dq, p_st, want_p)
+            acc(e_dq, ds_st, want_ds)
+            dk_s, dv_s = flash.flash_bwd_dkv_from_stash(q, k, v, do, p_st,
+                                                        ds_st)
+            acc(e_st, dk_s, want_dk)
+            acc(e_st, dv_s, want_dv)
+            del dk_s, dv_s
+        del want_dq, want_p, want_ds, want_dk, want_dv, dk_r, dv_r, dq
+        # Work this run's data needs: query row i sees keys [0, i].
+        vis = bb * hh * ss * (ss + 1) // 2
+        es = q.element_size()
+        io_bytes = 4 * q.numel() * es + 2 * 4 * bb * hh * ss
+        stash_w = 2 * bb * hh * ss * ss * es if use_stash else 0
+        shape = dict(b=bb, s=ss, h=hh, d=dd)
+        it = dict(iters=2, replays=2) if big else {}
+        wit = 3 if big else 50
+        lib = None
+        if dt == bf16:
+            qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                          for t in (q, k, v))
+            lib = library_bwd_ms(
+                lambda a, bk, c_: torch.nn.functional
+                .scaled_dot_product_attention(a, bk, c_, is_causal=True),
+                (qt, kt, vt), iters=5 if big else 20)
+            del qt, kt, vt
+
+        def case(entry, fn, plain, flops, bts):
+            b_ms, b_by = bound(bts, flops, dt)
+            entry.update(case=name, shape=shape, dtype=str(dt).split(".")[-1],
+                         rtol=BWD_RTOL[dt], atol_of_rms=BWD_ATOL_OF_RMS[dt],
+                         ms=device_ms(fn, **it), wrapper_ms=wrapper_ms(
+                             fn, iters=wit, warmup=2),
+                         plain_ms=device_ms(plain, **it), bound_ms=b_ms,
+                         bound_by=b_by, library_ms=lib,
+                         library_is="the whole backward (dQ, dK, dV)"
+                         if lib is not None else None)
+            return entry
+        dq_cases.append(case(
+            e_dq, lambda: flash.flash_bwd_dq(*args, stash=use_stash),
+            lambda: flash.flash_bwd_dq_plain(*args, stash=use_stash),
+            3 * 2.0 * dd * vis, io_bytes + stash_w))
+        if use_stash:     # what the recompute path's dQ costs at this shape
+            e_dq["ms_without_stash"] = device_ms(
+                lambda: flash.flash_bwd_dq(*args), **it)
+        dkv_cases.append(case(
+            e_dkv, lambda: flash.flash_bwd_dkv(*args),
+            lambda: flash.flash_bwd_dkv_plain(*args),
+            4 * 2.0 * dd * vis, io_bytes + 2 * q.numel() * es))
+        if use_stash:
+            st_cases.append(case(
+                e_st, lambda: flash.flash_bwd_dkv_from_stash(
+                    q, k, v, do, p_st, ds_st),
+                lambda: flash.flash_bwd_dkv_from_stash_plain(
+                    q, k, v, do, p_st, ds_st),
+                2 * 2.0 * dd * vis, 4 * q.numel() * es + 2 * vis * es))
+        del q, k, v, do, o, lse, delta, p_st, ds_st, args
+        torch.cuda.empty_cache()
+    out["flash_attention_bwd_dq"] = dq_cases
+    out["flash_attention_bwd_dkv"] = dkv_cases
+    out["flash_attention_bwd_dkv_stash"] = st_cases
+
+    # The forward kernel at the trainer's shape (it runs 8 times a step).
+    q, k, v = (randn(b, s, h, hd) for _ in range(3))
+    ea, er, ok = errors(flash.flash_attention(q, k, v, True),
+                        flash.flash_attention_plain(q, k, v, True),
+                        BF16_ATOL, BF16_RTOL)
+    vis = b * h * s * (s + 1) // 2
+    fb_ms, fb_by = bound(4 * q.numel() * 2, 4.0 * hd * vis)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    it = dict(iters=2, replays=2)
+    out["flash_attention"].append(dict(
+        case="train_fwd", shape=dict(b=b, sq=s, sk=s, h=h, kh=h, d=hd),
+        q_offset=0, dtype="bfloat16", max_abs_err=ea, max_rel_err=er, ok=ok,
+        ms=device_ms(lambda: flash.flash_attention(q, k, v, True), **it),
+        wrapper_ms=wrapper_ms(lambda: flash.flash_attention(q, k, v, True),
+                              iters=3, warmup=1),
+        plain_ms=device_ms(lambda: flash.flash_attention_plain(q, k, v, True),
+                           **it),
+        bound_ms=fb_ms, bound_by=fb_by,
+        library_ms=device_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True), **it)))
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    for name, cs in out.items():
+        for c in cs:
+            if not c["ok"]:
+                fail(f"{name} disagrees with its plain version: {c}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 3: the engines at the serve dims
 # ---------------------------------------------------------------------------
 
 
 @contextlib.contextmanager
 def plain_versions(rms, rope, flash):
-    """Route the kernel entry points to their plain versions (the reference
-    forward of this script; the package itself never does this)."""
-    saved = (rms._rms_norm_cuda, rope._rope_rotate_cuda,
-             flash._flash_attention_cuda)
-    rms._rms_norm_cuda = rms.rms_norm_plain
-    rope._rope_rotate_cuda = rope.rope_rotate_plain
-    flash._flash_attention_cuda = flash.flash_attention_plain
+    """Route the kernel entry points, forward and backward, to their plain
+    versions (the reference of this script; the package itself never does
+    this)."""
+    names = ((rms, "_rms_norm_cuda", rms.rms_norm_plain),
+             (rms, "_rms_norm_backward_cuda", rms.rms_norm_backward_plain),
+             (rope, "_rope_rotate_cuda", rope.rope_rotate_plain),
+             (flash, "_flash_attention_cuda", flash.flash_attention_plain),
+             (flash, "_flash_attention_backward_cuda",
+              flash.flash_attention_backward_plain))
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in names]
+    for mod, name, plain in names:
+        setattr(mod, name, plain)
     try:
         yield
     finally:
-        (rms._rms_norm_cuda, rope._rope_rotate_cuda,
-         flash._flash_attention_cuda) = saved
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
 def prefill_logits(decode, params, cfg, prompt, dev):
@@ -720,6 +1000,151 @@ def run_serve(serve, kernels, paged: bool = False) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 5: training
+# ---------------------------------------------------------------------------
+
+
+def per_step_launches(n_layers: int, stash: bool) -> dict:
+    """Kernel launches of one train step of the dense model: 2L+1 norms
+    forward and backward, q and k rotated forward and back (4L RoPE
+    launches), L flash forward, dQ and dK/dV calls (the stash dK/dV kernel
+    when the p/ds stash fits under its gate, else the recompute one)."""
+    return {"rms_norm": 2 * n_layers + 1, "rms_norm_bwd": 2 * n_layers + 1,
+            "rope": 4 * n_layers, "flash_attention": n_layers,
+            "flash_attention_bwd_dq": n_layers,
+            ("flash_attention_bwd_dkv_stash" if stash
+             else "flash_attention_bwd_dkv"): n_layers}
+
+
+def leaf_names(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [n for k, v in tree.items()
+                for n in leaf_names(v, f"{prefix}/{k}")]
+    return [prefix]
+
+
+def run_train_gate(dev, mods) -> dict:
+    """f32 at full width (2 layers, batch 2, seq 512): the model loss and
+    every gradient leaf through the kernels against the same step through
+    the plain versions, same weights and batch. The kernel step runs twice:
+    with the p/ds stash (it fits under its gate here) and with the gate set
+    to 0, so the recompute dK/dV kernel runs at head_dim 128."""
+    kernels, rms, rope, flash, tf, trainer = mods
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = tf.TransformerConfig(**GATE_DIMS, dtype=torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    params = tf.init_params(gen, cfg)
+    toks = torch.randint(0, cfg.vocab_size, (GATE_BATCH, cfg.max_seq + 1),
+                         generator=gen, device=dev)
+
+    def loss_and_grads():
+        p = trainer.tree_map(lambda t: t.detach().clone().requires_grad_(),
+                             params)
+        loss, _ = tf.loss_fn(p, toks, cfg)
+        grads = torch.autograd.grad(loss, trainer.tree_leaves(p))
+        return loss.item(), grads
+
+    runs = {}
+    limit = flash.PDS_STASH_LIMIT_BYTES
+    for path, gate in (("stash", limit), ("recompute", 0)):
+        flash.PDS_STASH_LIMIT_BYTES = gate
+        try:
+            kernels.reset_launches()
+            runs[path] = loss_and_grads() + (dict(kernels.launches),)
+        finally:
+            flash.PDS_STASH_LIMIT_BYTES = limit
+    kernels.reset_launches()
+    with plain_versions(rms, rope, flash):
+        p_loss, p_grads = loss_and_grads()
+    if dict(kernels.launches):
+        fail("the plain-version reference step launched kernels")
+    out = dict(config=dict(GATE_DIMS, batch=GATE_BATCH, dtype="float32"),
+               plain_loss=p_loss, loss_rtol=GATE_LOSS_RTOL,
+               leaf_rtol=GATE_LEAF_RTOL)
+    for path, (k_loss, k_grads, launches) in runs.items():
+        want = per_step_launches(cfg.n_layers, stash=path == "stash")
+        if launches != want:
+            fail(f"f32 gate step ({path}) launched {launches}, want {want}")
+        loss_rel = abs(k_loss - p_loss) / abs(p_loss)
+        leaf_err = {}
+        for name, a, b in zip(leaf_names(params), k_grads, p_grads):
+            leaf_err[name] = float((a - b).norm() / b.norm().clamp_min(1e-30))
+            if not torch.isfinite(a).all():
+                fail(f"f32 gate ({path}): gradient {name} has non-finite "
+                     f"values")
+        worst = max(leaf_err, key=leaf_err.get)
+        if not loss_rel <= GATE_LOSS_RTOL or leaf_err[worst] >= GATE_LEAF_RTOL:
+            fail(f"f32 gate ({path}): loss {k_loss} vs plain {p_loss} (rel "
+                 f"{loss_rel}), worst leaf {worst} rel norm error "
+                 f"{leaf_err[worst]}")
+        out[path] = dict(loss=k_loss, loss_rel_err=loss_rel,
+                         leaf_rel_norm_err=leaf_err, worst_leaf=worst,
+                         launches=launches)
+    del params, runs, p_grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_trainer(trainer_cli, kernels, batch: int, steps: int,
+                stash: bool) -> dict:
+    """The port's trainer main in-process at its defaults (bf16 on the
+    card), with the launch counters set to 0 just before it starts and
+    read after every step and when it returns."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    snaps, losses, gnorms = [], [], []
+
+    def on_step(i, metrics):
+        snaps.append(dict(kernels.launches))
+        losses.append(float(metrics["loss"]))
+        gnorms.append(float(metrics["grad_norm"]))
+    argv = ["--device", "cuda", "--steps", str(steps), "--batch-size",
+            str(batch), "--seed", "0"]
+    buf = io.StringIO()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = trainer_cli.main(argv, callback=on_step)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    if rc != 0:
+        fail(f"trainer main {argv} exited {rc}")
+    lines = [json.loads(x) for x in buf.getvalue().splitlines()
+             if x.startswith("{")]
+    final = lines[-1] if lines else {}
+    if not final.get("final") or final.get("steps") != steps - 1:
+        fail(f"trainer main printed no final line for {steps} steps: "
+             f"{buf.getvalue()[-2000:]}")
+    want = per_step_launches(TRAIN_DIMS["n_layers"], stash)
+    prev = {}
+    per_step = []
+    for snap in snaps:
+        delta = {k: n - prev.get(k, 0) for k, n in snap.items()
+                 if n - prev.get(k, 0)}
+        per_step.append(delta)
+        prev = snap
+        if delta != want:
+            fail(f"trainer step launched {delta}, want {want} "
+                 f"(batch {batch})")
+    if launches != snaps[-1]:
+        fail("the trainer launched kernels outside its steps")
+    if not all(np.isfinite(losses)) or not all(np.isfinite(gnorms)):
+        fail(f"trainer losses {losses} or grad norms {gnorms} not finite")
+    return dict(config=dict(TRAIN_DIMS, batch=batch, dtype="bfloat16"),
+                argv=argv, steps=steps, wall_s=wall,
+                step_ms=final["avg_step_s"] * 1e3,
+                tokens_per_s=final["tokens_per_s"],
+                achieved_tflops=final["achieved_tflops"],
+                mfu_pct=final["mfu_pct"], mfu_peak_tflops=989.0,
+                max_memory_allocated_gb=torch.cuda.max_memory_allocated()
+                / 1e9,
+                losses=losses, grad_norms=gnorms,
+                launches_per_step=per_step[0], launches=launches)
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -727,11 +1152,13 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     from k8s_gpu_workload_enhancer_tpu_torch.cmd import serve
+    from k8s_gpu_workload_enhancer_tpu_torch.cmd import trainer as trainer_cli
     from k8s_gpu_workload_enhancer_tpu_torch.models import (
         decode, serving, transformer as tf)
     from k8s_gpu_workload_enhancer_tpu_torch.ops import (
         attention as attn_mod, flash_attention as flash, kernels,
         paged_attention as paged, rms, rope)
+    from k8s_gpu_workload_enhancer_tpu_torch.train import trainer
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -743,6 +1170,9 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
     dev = torch.device("cuda", 0)
+    # Every f32 product in full f32 (the plain versions' references).
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
     per_lib = kernels.build()
@@ -755,6 +1185,7 @@ def main() -> int:
 
     results = {"kernels": check_kernels(dev, rms, rope, flash, paged,
                                         attn_mod)}
+    check_train_kernels(dev, rms, rope, flash, attn_mod, results["kernels"])
     print(json.dumps({"kernel_checks": results["kernels"]}), flush=True)
     mods = (kernels, rms, rope, flash, paged, tf, decode, serving, serve)
     cfg, params, init_s = serve_params(dev, tf, serve)
@@ -777,10 +1208,24 @@ def main() -> int:
                                  paged=phase == "paged_serve")
         if got != want:
             fail(f"{phase} launches {got}, its chunks and steps need {want}")
+    gate = run_train_gate(dev, (kernels, rms, rope, flash, tf, trainer))
+    print(json.dumps({"train_gate_f32": gate}), flush=True)
+    results["train"] = run_trainer(trainer_cli, kernels, TRAIN_BATCH,
+                                   TRAIN_STEPS, stash=False)
+    print(json.dumps({"train": results["train"]}), flush=True)
+    results["train_stash"] = run_trainer(trainer_cli, kernels, STASH_BATCH,
+                                         STASH_STEPS, stash=True)
+    print(json.dumps({"train_stash": results["train_stash"]}), flush=True)
 
-    phases = ("engine", "serve", "paged_engine", "paged_serve")
-    paths = {"rms_norm": phases, "rope": phases, "flash_attention": phases,
-             "paged_decode": ("paged_engine", "paged_serve")}
+    serving_phases = ("engine", "serve", "paged_engine", "paged_serve")
+    train_phases = ("train", "train_stash")
+    every = serving_phases + train_phases
+    paths = {"rms_norm": every, "rope": every, "flash_attention": every,
+             "paged_decode": ("paged_engine", "paged_serve"),
+             "rms_norm_bwd": train_phases,
+             "flash_attention_bwd_dq": train_phases,
+             "flash_attention_bwd_dkv": ("train",),
+             "flash_attention_bwd_dkv_stash": ("train_stash",)}
     main_path_launches = {}
     for name, on in paths.items():
         for phase in on:
@@ -789,28 +1234,38 @@ def main() -> int:
                 fail(f"kernel {name} never launched in the {phase} phase")
             main_path_launches[name] = main_path_launches.get(name, 0) + n
     entries = []
+    port, ref = ("k8s_gpu_workload_enhancer_tpu_torch/csrc/",
+                 "k8s_gpu_workload_enhancer_tpu/ops/")
     meta = {
-        "rms_norm": ("k8s_gpu_workload_enhancer_tpu_torch/csrc/rms.cu",
-                     "k8s_gpu_workload_enhancer_tpu/ops/rms_pallas.py:41"),
-        "rope": ("k8s_gpu_workload_enhancer_tpu_torch/csrc/rope.cu",
-                 "k8s_gpu_workload_enhancer_tpu/ops/rope_pallas.py:30"),
-        "flash_attention": (
-            "k8s_gpu_workload_enhancer_tpu_torch/csrc/flash_attention.cu",
-            "k8s_gpu_workload_enhancer_tpu/ops/flash_attention.py:125"),
-        "paged_decode": (
-            "k8s_gpu_workload_enhancer_tpu_torch/csrc/paged_decode.cu",
-            "k8s_gpu_workload_enhancer_tpu/ops/flash_attention.py:809"),
+        "rms_norm": ("rms.cu", "rms_pallas.py:41"),
+        "rope": ("rope.cu", "rope_pallas.py:30"),
+        "flash_attention": ("flash_attention.cu", "flash_attention.py:125"),
+        "paged_decode": ("paged_decode.cu", "flash_attention.py:809"),
+        "rms_norm_bwd": ("rms.cu", "rms_pallas.py:48"),
+        "flash_attention_bwd_dq": ("flash_attention_bwd.cu",
+                                   "flash_attention.py:299"),
+        "flash_attention_bwd_dkv_stash": ("flash_attention_bwd.cu",
+                                          "flash_attention.py:377"),
+        "flash_attention_bwd_dkv": ("flash_attention_bwd.cu",
+                                    "flash_attention.py:418"),
     }
+    fwd_tol = {"atol": BF16_ATOL, "rtol": BF16_RTOL}
+    bwd_tol = {"rtol": {str(k).split(".")[-1]: v for k, v in BWD_RTOL.items()},
+               "atol_of_rms": {str(k).split(".")[-1]: v
+                               for k, v in BWD_ATOL_OF_RMS.items()}}
     for name, (source, replaces) in meta.items():
         cases = results["kernels"][name]
-        main = cases[0]              # the prefill-chunk / decode-step shape
-        extra = ({"dense_sdpa_ms": main["dense_sdpa_ms"]}
+        main = cases[0]     # the path's own shape: prefill chunk, decode
+        extra = ({"dense_sdpa_ms": main["dense_sdpa_ms"]}  # step, train step
                  if "dense_sdpa_ms" in main else {})
+        tolerance = ({"backward": bwd_tol} if "bwd" in name else
+                     {"forward": fwd_tol, "vjp": bwd_tol} if name == "rope"
+                     else {"forward": fwd_tol})
         entries.append(dict(
-            name=name, route="cuda", source=source, replaces=replaces,
-            launches=main_path_launches[name],
+            name=name, route="cuda", source=port + source,
+            replaces=ref + replaces, launches=main_path_launches[name],
             max_abs_err=max(c["max_abs_err"] for c in cases),
-            atol=BF16_ATOL, rtol=BF16_RTOL, ms=main["ms"],
+            tolerance=tolerance, ms=main["ms"],
             wrapper_ms=main["wrapper_ms"], plain_ms=main["plain_ms"],
             bound_ms=main["bound_ms"], bound_by=main["bound_by"],
             library_ms=main["library_ms"], **extra, shape=main["shape"],

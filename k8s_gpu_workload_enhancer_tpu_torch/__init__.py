@@ -9,7 +9,8 @@ its own copy (utils/).
 
 Layout mirrors the JAX package: `ops/` (plain tensor math plus the
 hand-written CUDA kernels of `csrc/`, built on first use), `models/`
-(KTWE-LM, KV-cached decoding, the continuous-batching engine), `cmd/`
-(serve and generate mains) and `utils/`. Entry points run on the card
+(KTWE-LM, KV-cached decoding, the continuous-batching engine), `train/`
+(single-device training), `cmd/` (serve, generate and trainer mains) and
+`utils/`. Entry points run on the card
 unless the caller passes device "cpu".
 """

@@ -7,21 +7,28 @@ same names and shapes, so a JAX param tree converts leaf for leaf
 are a Python loop over the stacked leaves. Activations run in `cfg.dtype`,
 norms and softmax statistics in f32, logits are returned in f32.
 
-Not ported here: MoE, ring attention, remat, meshes and the training loss
-path.
+Training: `loss_fn` is the next-token loss through the chunked LM-head
+cross-entropy (ops/chunked_ce.py), differentiable end to end: RMSNorm,
+RoPE and attention run their forward and backward kernels on the card,
+the FFN the lean SwiGLU backward, and `remat` / `remat_ffn` recompute a
+layer or its FFN in the backward (torch.utils.checkpoint).
+
+Not ported here: MoE, ring attention, meshes, and the fused Pallas CE
+(`ce_fused` with `ce_cache_logits` on the card).
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import apply_rope, attention, rope_frequencies
-from ..ops.layers import rms_norm, swiglu
+from ..ops.layers import cross_entropy_loss, rms_norm, swiglu, swiglu_lean
 from ..ops.quant import as_compute, is_quantized
 
 Params = Dict[str, Any]
@@ -37,12 +44,47 @@ class TransformerConfig:
     d_ff: int = 4096
     max_seq: int = 2048
     rope_theta: float = 10000.0
+    # MoE: 0 experts = dense, the only kind ported (ROADMAP A11).
+    n_experts: int = 0
+    expert_top_k: int = 1
     dtype: torch.dtype = torch.bfloat16
+    # Training: recompute each layer (remat) or only its FFN (remat_ffn) in
+    # the backward; the lean SwiGLU backward (ops/layers.swiglu_lean).
+    remat: bool = False
+    remat_ffn: bool = False
+    ffn_lean_vjp: bool = True
     tie_embeddings: bool = False
+    # Training loss path: LM head + CE over vocab chunks (ops/chunked_ce.py),
+    # never materializing (B, S, V) f32 logits; ce_cache_logits stashes bf16
+    # logits for a single-chunk backward. ce_fused with ce_cache_logits is
+    # the JAX package's Pallas CE, not ported for the card yet (ROADMAP B9,
+    # B10).
+    use_chunked_ce: bool = True
+    ce_chunk: int = 8192
+    ce_cache_logits: bool = False
+    ce_fused: bool = True
 
     @property
     def head_dim(self) -> int:
         return self.d_model // self.n_heads
+
+    @property
+    def is_moe(self) -> bool:
+        return self.n_experts > 0
+
+    def flops_per_token(self, seq_len: Optional[int] = None) -> float:
+        """Model fwd+bwd FLOPs/token: 6 * params-activated plus the causal
+        attention-score matmuls (the JAX package's formula, PaLM appendix
+        B; causal halves the score term). seq_len defaults to max_seq."""
+        d, f, L, v = self.d_model, self.d_ff, self.n_layers, self.vocab_size
+        s = seq_len if seq_len is not None else self.max_seq
+        attn = 4 * d * d + 2 * d * d  # qkv+o projections (approx, MHA)
+        ffn = 3 * d * f
+        if self.is_moe:
+            ffn *= self.expert_top_k
+        per_layer = attn + ffn
+        attn_scores = 6.0 * s * d * L
+        return 6.0 * (L * per_layer + 2 * d * v / 2) + attn_scores
 
 
 # ---------------------------------------------------------------------------
@@ -164,35 +206,66 @@ def output_head(params: Params, cfg: TransformerConfig):
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
 
+def _attention_block(x: torch.Tensor, lp: Params, cfg: TransformerConfig,
+                     freqs: torch.Tensor, position_offset: int) -> torch.Tensor:
+    dt = cfg.dtype
+    bsz, slen, d = x.shape
+    nh, nkh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    h = rms_norm(x, lp["ln1"]).reshape(bsz * slen, d)
+    q = (h @ as_compute(lp["wq"], dt).reshape(d, nh * hd)
+         ).reshape(bsz, slen, nh, hd)
+    k = (h @ as_compute(lp["wk"], dt).reshape(d, nkh * hd)
+         ).reshape(bsz, slen, nkh, hd)
+    v = (h @ as_compute(lp["wv"], dt).reshape(d, nkh * hd)
+         ).reshape(bsz, slen, nkh, hd)
+    q = apply_rope(q, freqs, position_offset)
+    k = apply_rope(k, freqs, position_offset)
+    o = attention(q, k, v, causal=True, q_offset=position_offset,
+                  kv_offset=position_offset)
+    return x + (o.reshape(bsz * slen, nh * hd)
+                @ as_compute(lp["wo"], dt).reshape(nh * hd, d)
+                ).reshape(bsz, slen, d)
+
+
+def _ffn(h3: torch.Tensor, w_gate, w_up, w_down,
+         cfg: TransformerConfig) -> torch.Tensor:
+    dt = cfg.dtype
+    op = swiglu_lean if cfg.ffn_lean_vjp else swiglu
+    bsz, slen, d = h3.shape
+    return op(h3.reshape(bsz * slen, d), as_compute(w_gate, dt),
+              as_compute(w_up, dt), as_compute(w_down, dt)
+              ).reshape(bsz, slen, d)
+
+
+def _layer(x: torch.Tensor, lp: Params, cfg: TransformerConfig,
+           freqs: torch.Tensor, position_offset: int) -> torch.Tensor:
+    x = _attention_block(x, lp, cfg, freqs, position_offset)
+    h3 = rms_norm(x, lp["ln2"])
+    if cfg.remat_ffn and not cfg.remat and torch.is_grad_enabled():
+        y = checkpoint(_ffn, h3, lp["w_gate"], lp["w_up"], lp["w_down"], cfg,
+                       use_reentrant=False)
+    else:
+        y = _ffn(h3, lp["w_gate"], lp["w_up"], lp["w_down"], cfg)
+    return x + y
+
+
 def forward_hidden(params: Params, tokens: torch.Tensor,
                    cfg: TransformerConfig,
                    position_offset: int = 0) -> torch.Tensor:
     """tokens (B, S) -> final hidden (B, S, D) after the last norm."""
-    dt = cfg.dtype
-    bsz, slen = tokens.shape
-    nh, nkh, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
-    x = params["embed"].to(dt)[tokens.long()] * math.sqrt(d)
-    freqs = rope_frequencies(hd, cfg.max_seq, cfg.rope_theta, x.device)
+    if cfg.is_moe:
+        raise NotImplementedError("MoE layers (n_experts > 0) are not ported "
+                                  "(ROADMAP A11)")
+    x = params["embed"].to(cfg.dtype)[tokens.long()] * math.sqrt(cfg.d_model)
+    freqs = rope_frequencies(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
+                             x.device)
     for layer in range(cfg.n_layers):
         lp = layer_params(params, layer)
-        h = rms_norm(x, lp["ln1"]).reshape(bsz * slen, d)
-        q = (h @ as_compute(lp["wq"], dt).reshape(d, nh * hd)
-             ).reshape(bsz, slen, nh, hd)
-        k = (h @ as_compute(lp["wk"], dt).reshape(d, nkh * hd)
-             ).reshape(bsz, slen, nkh, hd)
-        v = (h @ as_compute(lp["wv"], dt).reshape(d, nkh * hd)
-             ).reshape(bsz, slen, nkh, hd)
-        q = apply_rope(q, freqs, position_offset)
-        k = apply_rope(k, freqs, position_offset)
-        o = attention(q, k, v, causal=True, q_offset=position_offset,
-                      kv_offset=position_offset)
-        x = x + (o.reshape(bsz * slen, nh * hd)
-                 @ as_compute(lp["wo"], dt).reshape(nh * hd, d)
-                 ).reshape(bsz, slen, d)
-        h3 = rms_norm(x, lp["ln2"])
-        x = x + swiglu(h3, as_compute(lp["w_gate"], dt),
-                       as_compute(lp["w_up"], dt),
-                       as_compute(lp["w_down"], dt))
+        if cfg.remat and torch.is_grad_enabled():
+            x = checkpoint(_layer, x, lp, cfg, freqs, position_offset,
+                           use_reentrant=False)
+        else:
+            x = _layer(x, lp, cfg, freqs, position_offset)
     return rms_norm(x, params["final_ln"])
 
 
@@ -203,3 +276,29 @@ def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
     x = forward_hidden(params, tokens, cfg, position_offset)
     head = as_compute(output_head(params, cfg), cfg.dtype)
     return (x @ head).float()
+
+
+def loss_fn(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
+            aux_weight: float = 0.01
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token LM loss over tokens (B, S+1) -> (total, {nll, aux}). The
+    dense model has no auxiliary loss, so aux is 0."""
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    if cfg.use_chunked_ce:
+        from ..ops.chunked_ce import chunked_softmax_xent
+        x = forward_hidden(params, inputs, cfg)
+        head = output_head(params, cfg)
+        if cfg.ce_fused and cfg.ce_cache_logits and x.is_cuda:
+            raise NotImplementedError(
+                "ce_fused with ce_cache_logits runs the fused Pallas CE "
+                "kernels, not ported for the card yet (ROADMAP B9, B10); "
+                "set ce_fused=False for the chunked path")
+        # On the CPU the fused CE's function is the single-chunk cached
+        # path of the chunked op.
+        nll = chunked_softmax_xent(x, head, targets,
+                                   min(cfg.ce_chunk, cfg.vocab_size),
+                                   cfg.ce_cache_logits)
+    else:
+        nll = cross_entropy_loss(forward(params, inputs, cfg), targets)
+    aux = torch.zeros((), dtype=torch.float32, device=nll.device)
+    return nll + aux_weight * aux, {"nll": nll, "aux": aux}

@@ -30,10 +30,16 @@ def repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, q_offset: int = 0,
               kv_offset: int = 0) -> torch.Tensor:
-    """Flash attention: the CUDA kernel on a CUDA tensor, its plain version
-    on the CPU. Unlike the JAX dispatch there is no shape gate: the kernel
-    takes every shape the serving path gives it, Sq = 1 and GQA included."""
-    from .flash_attention import flash_attention
+    """Flash attention: the CUDA kernels on a CUDA tensor, their plain
+    versions on the CPU. Unlike the JAX dispatch there is no shape gate:
+    the forward kernel takes every shape the serving path gives it, Sq = 1
+    and GQA included. Where autograd records (an input requires grad), the
+    differentiable entry runs, forward and backward kernels, with GQA
+    expanded first."""
+    from .flash_attention import flash_attention, flash_attention_train
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return flash_attention_train(q, k, v, causal, q_offset, kv_offset)
     return flash_attention(q, k, v, causal=causal, q_offset=q_offset,
                            kv_offset=kv_offset)
 

@@ -1,16 +1,22 @@
-"""Flash-attention forward: the hand-written CUDA kernel and its plain
-version.
+"""Flash attention forward and backward: the hand-written CUDA kernels
+and their plain versions.
 
-Port of the forward of k8s_gpu_workload_enhancer_tpu/ops/flash_attention.py
-(`flash_attention` / `_flash_kernel`); the backward kernels are training
-work and the paged decode kernel belongs to the paged engine. The kernel is
-csrc/flash_attention.cu; its source note says what bounds it on the card
-and how the design answers that.
+Port of k8s_gpu_workload_enhancer_tpu/ops/flash_attention.py: the forward
+(`flash_attention` / `_flash_kernel`) and its custom VJP, the backward of
+`_flash_backward_flat` (the dQ kernel with its optional p/ds stash, then
+dK/dV either from that stash or recomputed, chosen by the same
+`PDS_STASH_LIMIT_BYTES` gate). The paged decode kernel belongs to the
+paged engine (ops/paged_attention.py). The kernels are
+csrc/flash_attention.cu and csrc/flash_attention_bwd.cu; their source
+notes say what bounds them on the card and how the designs answer that.
 
-`flash_attention` launches the kernel for CUDA tensors and takes the plain
-version only for tensors on the CPU. The kernel takes any Sq >= 1, any Sk,
-GQA (KH dividing H) and a head_dim that is a multiple of 8 up to 512; a
-CUDA call outside that raises.
+`flash_attention` is the forward alone (the serving path): it takes any
+Sq >= 1, any Sk, GQA natively (KH dividing H) and a head_dim that is a
+multiple of 8 up to 512. `flash_attention_train` is differentiable: it
+expands GQA first, as the JAX kernels require, and its backward kernels
+take a head_dim that is a multiple of 8 up to 256. Each launches its
+kernels for CUDA tensors and takes the plain versions only for tensors on
+the CPU; a CUDA call outside what the kernels take raises.
 """
 
 from __future__ import annotations
@@ -23,8 +29,15 @@ from . import kernels
 from .attention import NEG_INF, repeat_kv
 
 KERNEL = "flash_attention"
+KERNEL_BWD_DQ = "flash_attention_bwd_dq"
+KERNEL_BWD_DKV = "flash_attention_bwd_dkv"
+KERNEL_BWD_DKV_STASH = "flash_attention_bwd_dkv_stash"
 LSE_MASKED = 1e30
 MAX_HEAD_DIM = 512
+MAX_HEAD_DIM_BWD = 256
+# Ceiling for the backward's transient p/ds stash, as in the JAX module:
+# above it dK/dV recompute s, p and dp instead of reading the stash.
+PDS_STASH_LIMIT_BYTES = int(1.2e9)
 
 Result = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
 
@@ -112,3 +125,270 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                      int(kv_offset), return_lse)
     return _flash_attention_cuda(q, k, v, causal, int(q_offset),
                                  int(kv_offset), return_lse)
+
+
+# ---------------------------------------------------------------------------
+# Backward
+# ---------------------------------------------------------------------------
+
+
+def backward_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(dO * O) in f32, (B, H, Sq): plain torch, as it is
+    XLA in the JAX package."""
+    return (do.float() * o.float()).sum(dim=-1).transpose(1, 2).contiguous()
+
+
+def flash_bwd_probs_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          lse: torch.Tensor, do: torch.Tensor,
+                          delta: torch.Tensor, causal: bool = True,
+                          q_offset: int = 0, kv_offset: int = 0
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """What the dQ kernel stashes, (B, H, Sq, Sk) in f32: p = exp(s - lse)
+    from f32 scores times D^-0.5 with NEG_INF past the diagonal, and ds =
+    p * (dp - delta) * scale rounded to q's dtype."""
+    d = q.shape[-1]
+    sq, sk = q.shape[1], k.shape[1]
+    scale = d ** -0.5
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if causal:
+        qi = q_offset + torch.arange(sq, device=q.device)[:, None]
+        kj = kv_offset + torch.arange(sk, device=q.device)[None, :]
+        s = torch.where(qi >= kj, s, NEG_INF)
+    p = torch.exp(s - lse[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    ds = (p * (dp - delta[..., None]) * scale).to(q.dtype).float()
+    return p, ds
+
+
+def flash_bwd_dq_plain(q, k, v, do, lse, delta, causal=True, q_offset=0,
+                       kv_offset=0, stash=False):
+    """The dQ kernel's function (`flash_bwd_dq`): dq = ds K in f32, cast to
+    q's dtype, and with `stash` the p and ds stashes (B*H, Sq, Sk) in dO's
+    and q's dtypes (zeros past the diagonal), else None."""
+    p, ds = flash_bwd_probs_plain(q, k, v, lse, do, delta, causal, q_offset,
+                                  kv_offset)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()).to(q.dtype)
+    if not stash:
+        return dq, None, None
+    b, sq, h, _ = q.shape
+    flat = (b * h, sq, k.shape[1])
+    return dq, p.to(do.dtype).reshape(flat), ds.to(q.dtype).reshape(flat)
+
+
+def flash_bwd_dkv_from_stash_plain(q, k, v, do, p_stash, ds_stash,
+                                   causal=True, q_offset=0, kv_offset=0):
+    """The stash dK/dV kernel's function (`flash_bwd_dkv_from_stash`):
+    dk = ds^T Q and dv = p^T dO from the stashes, f32 sums, in k's and v's
+    dtypes. The masking is already in the stashes."""
+    b, sq, h, _ = q.shape
+    full = (b, h, sq, k.shape[1])
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds_stash.reshape(full).float(),
+                      q.float())
+    dv = torch.einsum("bhqk,bqhd->bkhd", p_stash.reshape(full).float(),
+                      do.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal=True, q_offset=0,
+                        kv_offset=0):
+    """The recompute dK/dV kernel's function (`flash_bwd_dkv`): p and ds
+    recomputed, p cast to dO's dtype and ds to q's before the products."""
+    p, ds = flash_bwd_probs_plain(q, k, v, lse, do, delta, causal, q_offset,
+                                  kv_offset)
+    return flash_bwd_dkv_from_stash_plain(q, k, v, do, p.to(do.dtype),
+                                          ds.to(q.dtype))
+
+
+def flash_attention_backward_plain(q: torch.Tensor, k: torch.Tensor,
+                                   v: torch.Tensor, o: torch.Tensor,
+                                   lse: torch.Tensor, do: torch.Tensor,
+                                   causal: bool = True, q_offset: int = 0,
+                                   kv_offset: int = 0
+                                   ) -> Tuple[torch.Tensor, torch.Tensor,
+                                              torch.Tensor]:
+    """The backward kernels' function in plain torch, with their rounding
+    points: delta = rowsum(dO * O) in f32, p and ds as
+    `flash_bwd_probs_plain` makes them, ds in q's dtype before the dQ and
+    dK products, p cast to dO's dtype before the dV product, f32 sums.
+    q/o/dO (B, Sq, H, D), k/v (B, Sk, H, D) (MHA), lse (B, H, Sq) f32.
+    Returns (dq, dk, dv) in q's, k's, v's dtypes."""
+    args = (causal, q_offset, kv_offset)
+    dq, p_st, ds_st = flash_bwd_dq_plain(q, k, v, do, lse,
+                                         backward_delta(o, do), *args,
+                                         stash=True)
+    dk, dv = flash_bwd_dkv_from_stash_plain(q, k, v, do, p_st, ds_st, *args)
+    return dq, dk, dv
+
+
+def stash_bytes(q: torch.Tensor, k: torch.Tensor, do: torch.Tensor) -> int:
+    """Bytes of the p stash (in dO's dtype) plus the ds stash (in q's
+    dtype), sized as the JAX module sizes them."""
+    b, sq, h, _ = q.shape
+    return b * h * sq * k.shape[1] * (do.element_size() + q.element_size())
+
+
+def _check_bwd(q, k, v, do, lse, delta=None) -> Tuple[int, ...]:
+    """Checks shared by the backward wrappers; (b, sq, sk, h, d)."""
+    for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
+        kernels.require(t, f"flash_attention_bwd {name}", dtypes=(q.dtype,))
+        if t.dim() != 4 or t.device != q.device:
+            raise ValueError(f"flash_attention_bwd {name} must be (B, S, H, D) "
+                             f"on q's device, got {tuple(t.shape)}")
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    if do.shape != q.shape:
+        raise ValueError("flash_attention_bwd do must match q's shape")
+    if k.shape != (b, sk, h, d) or v.shape != k.shape:
+        raise ValueError(f"flash_attention_bwd k/v {tuple(k.shape)} / "
+                         f"{tuple(v.shape)} must be MHA over q "
+                         f"{tuple(q.shape)}: expand GQA first")
+    if d % 8 or d > MAX_HEAD_DIM_BWD:
+        raise ValueError(f"flash_attention_bwd head_dim {d} must be a "
+                         f"multiple of 8 and at most {MAX_HEAD_DIM_BWD}")
+    if b > 65535 or h > 65535:
+        raise ValueError("flash_attention_bwd batch and heads must be "
+                         "<= 65535")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t is None:
+            continue
+        kernels.require(t, f"flash_attention_bwd {name}",
+                        dtypes=(torch.float32,))
+        if t.shape != (b, h, sq) or t.device != q.device:
+            raise ValueError(f"flash_attention_bwd {name} must be "
+                             f"({b}, {h}, {sq}) f32 on q's device, got "
+                             f"{tuple(t.shape)}")
+    return b, sq, sk, h, d
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, causal=True, q_offset=0,
+                 kv_offset=0, stash=False):
+    """The dQ kernel on CUDA tensors: (dq, p_stash, ds_stash), the stashes
+    (B*H, Sq, Sk) in dO's and q's dtypes when `stash`, else None."""
+    b, sq, sk, h, d = _check_bwd(q, k, v, do, lse, delta)
+    dq = torch.empty_like(q)
+    p_st = ds_st = None
+    if stash:
+        p_st = torch.empty((b * h, sq, sk), dtype=do.dtype, device=q.device)
+        ds_st = torch.empty((b * h, sq, sk), dtype=q.dtype, device=q.device)
+    lib = kernels.library("flash_attention_bwd")
+    code = lib.ktwe_flash_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        p_st.data_ptr() if stash else None,
+        ds_st.data_ptr() if stash else None, b, sq, sk, h, d,
+        int(bool(causal)), int(q_offset), int(kv_offset), float(d ** -0.5),
+        kernels.DTYPE_CODES[q.dtype], q.device.index or 0,
+        kernels.stream_handle(q))
+    kernels.check(lib, KERNEL_BWD_DQ, code)
+    kernels.launches[KERNEL_BWD_DQ] += 1
+    return dq, p_st, ds_st
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, causal=True, q_offset=0,
+                  kv_offset=0):
+    """The recompute dK/dV kernel on CUDA tensors: (dk, dv)."""
+    b, sq, sk, h, d = _check_bwd(q, k, v, do, lse, delta)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    lib = kernels.library("flash_attention_bwd")
+    code = lib.ktwe_flash_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b,
+        sq, sk, h, d, int(bool(causal)), int(q_offset), int(kv_offset),
+        float(d ** -0.5), kernels.DTYPE_CODES[q.dtype], q.device.index or 0,
+        kernels.stream_handle(q))
+    kernels.check(lib, KERNEL_BWD_DKV, code)
+    kernels.launches[KERNEL_BWD_DKV] += 1
+    return dk, dv
+
+
+def flash_bwd_dkv_from_stash(q, k, v, do, p_stash, ds_stash, causal=True,
+                             q_offset=0, kv_offset=0):
+    """The stash dK/dV kernel on CUDA tensors, from the stashes the dQ
+    kernel wrote for the same arguments: (dk, dv). k and v give only the
+    shapes of the results."""
+    b, sq, sk, h, d = _check_bwd(q, k, v, do, None)
+    for name, t, dt in (("p_stash", p_stash, do.dtype),
+                        ("ds_stash", ds_stash, q.dtype)):
+        kernels.require(t, f"flash_attention_bwd {name}", dtypes=(dt,))
+        if t.shape != (b * h, sq, sk) or t.device != q.device:
+            raise ValueError(f"flash_attention_bwd {name} must be "
+                             f"({b * h}, {sq}, {sk}), got {tuple(t.shape)}")
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    lib = kernels.library("flash_attention_bwd")
+    code = lib.ktwe_flash_bwd_dkv_stash(
+        q.data_ptr(), do.data_ptr(), p_stash.data_ptr(), ds_stash.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), b, sq, sk, h, d, int(bool(causal)),
+        int(q_offset), int(kv_offset), kernels.DTYPE_CODES[q.dtype],
+        q.device.index or 0, kernels.stream_handle(q))
+    kernels.check(lib, KERNEL_BWD_DKV_STASH, code)
+    kernels.launches[KERNEL_BWD_DKV_STASH] += 1
+    return dk, dv
+
+
+def _flash_attention_backward_cuda(q, k, v, o, lse, do, causal, q_offset,
+                                   kv_offset):
+    b, sq, sk, h, d = _check_bwd(q, k, v, do, lse)
+    kernels.require(o, "flash_attention_bwd o", dtypes=(q.dtype,))
+    if o.shape != q.shape or o.device != q.device:
+        raise ValueError("flash_attention_bwd o must match q's shape")
+    if q.numel() == 0 or sk == 0:
+        return (torch.zeros_like(q), torch.zeros_like(k),
+                torch.zeros_like(v))
+    delta = backward_delta(o, do)
+    args = (causal, q_offset, kv_offset)
+    if stash_bytes(q, k, do) <= PDS_STASH_LIMIT_BYTES:
+        dq, p_st, ds_st = flash_bwd_dq(q, k, v, do, lse, delta, *args,
+                                       stash=True)
+        dk, dv = flash_bwd_dkv_from_stash(q, k, v, do, p_st, ds_st, *args)
+    else:
+        dq, _, _ = flash_bwd_dq(q, k, v, do, lse, delta, *args)
+        dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, *args)
+    return dq, dk, dv
+
+
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, o: torch.Tensor,
+                             lse: torch.Tensor, do: torch.Tensor,
+                             causal: bool = True, q_offset: int = 0,
+                             kv_offset: int = 0
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """(dq, dk, dv) by the backward kernels (plain version for CPU
+    tensors); the arguments as for `flash_attention_backward_plain`."""
+    if q.device.type == "cpu":
+        return flash_attention_backward_plain(q, k, v, o, lse, do, causal,
+                                              int(q_offset), int(kv_offset))
+    return _flash_attention_backward_cuda(q, k, v, o, lse, do, causal,
+                                          int(q_offset), int(kv_offset))
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The forward kernel with its LSE; residuals (q, k, v, o, lse), as the
+    JAX custom VJP keeps them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_offset, kv_offset):
+        o, lse = flash_attention(q, k, v, causal, q_offset, kv_offset,
+                                 return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = (causal, q_offset, kv_offset)
+        return o
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, o, lse,
+                                              g.contiguous(), *ctx.args)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_train(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, causal: bool = True,
+                          q_offset: int = 0,
+                          kv_offset: int = 0) -> torch.Tensor:
+    """Differentiable flash attention, q (B, Sq, H, D), k/v (B, Sk, KH, D):
+    GQA is expanded with `repeat_kv` before the kernels (autograd sums the
+    copies' gradients back), as the JAX kernels require."""
+    n_rep = q.shape[2] // k.shape[2]
+    return _FlashAttention.apply(q, repeat_kv(k, n_rep), repeat_kv(v, n_rep),
+                                 causal, int(q_offset), int(kv_offset))

@@ -41,11 +41,19 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 # library -> {exported launcher: argtypes}; every pointer is c_void_p so a
 # 64-bit address is never cut to a C int.
 SIGNATURES: Dict[str, Dict[str, list]] = {
-    "rms": {"ktwe_rms_norm_fwd": [_P, _P, _P, _LL, _I, _F, _I, _I, _I, _P]},
+    "rms": {"ktwe_rms_norm_fwd": [_P, _P, _P, _LL, _I, _F, _I, _I, _I, _P],
+            "ktwe_rms_norm_bwd": [_P, _P, _P, _P, _P, _P, _LL, _I, _F, _I, _I,
+                                  _I, _I, _P]},
     "rope": {"ktwe_rope_fwd": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _P]},
     "flash_attention": {"ktwe_flash_attention_fwd": [
         _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _LL, _LL, _F, _I,
         _I, _P]},
+    "flash_attention_bwd": {
+        "ktwe_flash_bwd_dq": [_P] * 9 + [_I] * 6 + [_LL, _LL, _F, _I, _I, _P],
+        "ktwe_flash_bwd_dkv": [_P] * 8 + [_I] * 6 + [_LL, _LL, _F, _I, _I,
+                                                     _P],
+        "ktwe_flash_bwd_dkv_stash": [_P] * 6 + [_I] * 6 + [_LL, _LL, _I, _I,
+                                                           _P]},
     "paged_decode": {"ktwe_paged_decode_fwd": [
         _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P]},
 }

@@ -1,10 +1,12 @@
-"""Rotate-half RoPE forward: the hand-written CUDA kernel and its plain
-version.
+"""Rotate-half RoPE: the hand-written CUDA kernel and its plain version.
 
-Port of k8s_gpu_workload_enhancer_tpu/ops/rope_pallas.py:rope_rotate
-(forward; its VJP and the layout-emitting twins are training work). The
-kernel is csrc/rope.cu; its source note says what bounds it on the card
-and how the design answers that.
+Port of k8s_gpu_workload_enhancer_tpu/ops/rope_pallas.py:rope_rotate with
+its custom VJP (`_rope_bwd`): a rotation's transpose is the inverse
+rotation, so the backward is the same kernel with sin negated, and the
+cos/sin tables get no gradient. The layout-emitting twins
+(`rope_rotate_t`, `_rope_t_inv_kernel`) are not ported yet. The kernel is
+csrc/rope.cu; its source note says what bounds it on the card and how the
+design answers that.
 
 `rope_rotate` launches the kernel for a CUDA tensor and takes the plain
 version only for a tensor on the CPU. The kernel takes any even head_dim.
@@ -57,10 +59,35 @@ def _rope_rotate_cuda(x: torch.Tensor, cos: torch.Tensor,
     return out
 
 
-def rope_rotate(x: torch.Tensor, cos: torch.Tensor,
-                sin: torch.Tensor) -> torch.Tensor:
-    """Rotate x (B, S, H, D) by the (S, D/2) tables (same math as
-    ops/attention.apply_rope)."""
+def rope_rotate_forward(x: torch.Tensor, cos: torch.Tensor,
+                        sin: torch.Tensor) -> torch.Tensor:
+    """The kernel (plain version for a CPU tensor), no autograd."""
     if x.device.type == "cpu":
         return rope_rotate_plain(x, cos, sin)
     return _rope_rotate_cuda(x, cos, sin)
+
+
+class _RopeRotate(torch.autograd.Function):
+    """Residuals are the tables only; the cotangent is rotated back by the
+    same kernel with -sin (rope_pallas.py:82-85)."""
+
+    @staticmethod
+    def forward(ctx, x, cos, sin):
+        ctx.save_for_backward(cos, sin)
+        return rope_rotate_forward(x, cos, sin)
+
+    @staticmethod
+    def backward(ctx, g):
+        cos, sin = ctx.saved_tensors
+        return rope_rotate_forward(g.contiguous(), cos, -sin), None, None
+
+
+def rope_rotate(x: torch.Tensor, cos: torch.Tensor,
+                sin: torch.Tensor) -> torch.Tensor:
+    """Rotate x (B, S, H, D) by the (S, D/2) tables (same math as
+    ops/attention.apply_rope), differentiable in x. Where autograd records
+    nothing (the serving path), the kernel runs without the
+    autograd.Function's host cost."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _RopeRotate.apply(x, cos, sin)
+    return rope_rotate_forward(x, cos, sin)

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from k8s_gpu_workload_enhancer_tpu_torch.cmd import generate, serve
+from k8s_gpu_workload_enhancer_tpu_torch.cmd import trainer as trainer_cli
 from k8s_gpu_workload_enhancer_tpu_torch.models import serving
 from k8s_gpu_workload_enhancer_tpu_torch.ops import (
     flash_attention, kernels, paged_attention, rms, rope)
@@ -81,6 +82,9 @@ def test_cuda_without_a_card_raises():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         generate.main(["--d-model", "64", "--n-layers", "1", "--n-heads",
                        "2", "--d-ff", "64", "--vocab-size", "64"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        trainer_cli.main(["--d-model", "64", "--n-layers", "1", "--n-heads",
+                          "2", "--d-ff", "64", "--vocab-size", "64"])
     with pytest.raises(ValueError):
         resolve_device("mps")
 
@@ -116,6 +120,28 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     assert sum(kernels.launches.values()) == 0
     with pytest.raises(ValueError):     # a CUDA-only entry refuses CPU input
         rms._rms_norm_cuda(x, w, 1e-6)
+
+
+def test_cpu_backward_takes_the_plain_versions_and_launches_nothing():
+    kernels.reset_launches()
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(2, 16, 2, 32, generator=g)
+    w = torch.randn(32, generator=g)
+    got = rms.rms_norm_backward(x, w, x)
+    want = rms.rms_norm_backward_plain(x, w, x)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    o, lse = flash_attention.flash_attention(x, x, x, True, return_lse=True)
+    got = flash_attention.flash_attention_backward(x, x, x, o, lse, x)
+    want = flash_attention.flash_attention_backward_plain(x, x, x, o, lse, x)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    xg = x.clone().requires_grad_()
+    c, s = torch.randn(16, 16, generator=g), torch.randn(16, 16, generator=g)
+    (dx,) = torch.autograd.grad(rope.rope_rotate(xg, c, s), (xg,), x)
+    assert torch.equal(dx, rope.rope_rotate_plain(x, c, -s))
+    assert sum(kernels.launches.values()) == 0
+    with pytest.raises(ValueError):     # the CUDA-only wrappers refuse CPU
+        flash_attention.flash_bwd_dq(x, x, x, x, lse,
+                                     flash_attention.backward_delta(o, x))
 
 
 def test_params_on_another_device_are_refused():

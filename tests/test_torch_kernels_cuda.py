@@ -6,9 +6,11 @@ sm_90a) and skip without one. Run them on the card from the repo root:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
 
 (--noconftest: the suite's conftest imports jax, which the card's machine
-need not have.) Tolerances: f32 kernels differ from the plain versions only
-by summation order (1e-5); bf16 outputs by at most a couple of bf16 ulps
-where those f32 sums round differently (2e-2).
+need not have.) Tolerances: f32 forward kernels differ from the plain
+versions only by summation order (1e-5); bf16 forward outputs by at most a
+couple of bf16 ulps where those f32 sums round differently (2e-2). The
+backward kernels are held to limits scaled to each output's own values
+(`_assert_bwd_close`).
 """
 
 import pytest
@@ -158,3 +160,207 @@ def test_kernels_raise_on_shapes_they_do_not_take(dev):
         call(q=q.half(), k=k.half(), v=v.half())
     with pytest.raises(ValueError):                 # not contiguous
         call(q=_randn(dev, 2, 64, 4).transpose(1, 2))
+
+
+# ---------------------------------------------------------------------------
+# Backward kernels (training). Each output is held to a limit scaled to its
+# own values: rtol one bf16 rounding (an ulp is at most 2^-7 of a value) of
+# f32 sums taken in another order than the plain version's, or in f32 those
+# sums themselves; atol a fraction of the output's root mean square, for
+# entries near zero where cancellation decides the last bits.
+# ---------------------------------------------------------------------------
+
+BWD_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
+BWD_ATOL_OF_RMS = {torch.float32: 1e-5, torch.bfloat16: 1e-3}
+
+
+def _assert_bwd_close(got, want, msg=None):
+    rms_w = (float(torch.linalg.vector_norm(want, dtype=torch.float32))
+             / max(1, want.numel()) ** 0.5)
+    torch.testing.assert_close(got, want,
+                               atol=BWD_ATOL_OF_RMS[want.dtype] * rms_w,
+                               rtol=BWD_RTOL[want.dtype], msg=msg)
+
+
+@pytest.mark.parametrize("w_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d", [(128, 2048), (600, 2048), (3, 203),
+                                    (1, 8), (1000, 1024)])
+def test_rms_backward_kernel_matches_plain(dev, dtype, w_dtype, rows, d):
+    x = _randn(dev, rows, d, dtype=dtype)
+    w = (1.0 + 0.1 * _randn(dev, d, seed=1)).to(w_dtype)
+    dy = _randn(dev, rows, d, dtype=dtype, seed=2)
+    before = kernels.launches["rms_norm_bwd"]
+    dx, dw = rms.rms_norm_backward(x, w, dy)
+    torch.cuda.synchronize()
+    assert kernels.launches["rms_norm_bwd"] == before + 1
+    assert dx.dtype == dtype and dw.dtype == w_dtype
+    want_dx, want_dw = rms.rms_norm_backward_plain(x, w, dy)
+    _assert_bwd_close(dx, want_dx)
+    _assert_bwd_close(dw, want_dw)
+    # dw's cross-row sum runs in a fixed order: bitwise the same each time.
+    assert torch.equal(rms.rms_norm_backward(x, w, dy)[1], dw)
+
+
+def test_rms_autograd_on_the_card_launches_both_kernels(dev):
+    x = _randn(dev, 4, 16, 256, dtype=torch.bfloat16).requires_grad_()
+    w = (1.0 + 0.1 * _randn(dev, 256, seed=1)).requires_grad_()
+    g = _randn(dev, 4, 16, 256, dtype=torch.bfloat16, seed=2)
+    kernels.reset_launches()
+    dx, dw = torch.autograd.grad(rms.rms_norm(x, w), (x, w), g)
+    assert dict(kernels.launches) == {"rms_norm": 1, "rms_norm_bwd": 1}
+    want_dx, want_dw = rms.rms_norm_backward_plain(x.detach(), w.detach(), g)
+    _assert_bwd_close(dx, want_dx)
+    _assert_bwd_close(dw, want_dw)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rope_vjp_is_the_inverse_rotation(dev, dtype):
+    x = _randn(dev, 2, 64, 4, 128, dtype=dtype).requires_grad_()
+    g = _randn(dev, 2, 64, 4, 128, dtype=dtype, seed=1)
+    fr = attention.rope_frequencies(128, 64, device=dev)
+    c, s = fr[..., 0].contiguous(), fr[..., 1].contiguous()
+    kernels.reset_launches()
+    (dx,) = torch.autograd.grad(rope.rope_rotate(x, c, s), (x,), g)
+    assert kernels.launches["rope"] == 2
+    _assert_bwd_close(dx, rope.rope_rotate_plain(g, c, -s))
+
+
+@pytest.mark.parametrize("stash", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,sk,h,d,causal,q_off,kv_off", [
+    (1, 256, 256, 2, 128, True, 0, 0),       # the training layout, D 128
+    (2, 100, 100, 3, 64, True, 0, 0),        # ragged tiles, D 64
+    (1, 77, 77, 2, 256, True, 0, 0),         # D 256
+    (1, 70, 70, 2, 96, False, 0, 0),         # not causal, D 96 (< its bound)
+    (2, 16, 48, 2, 64, True, 32, 0),         # queries at an offset
+    (1, 16, 32, 2, 64, True, 0, 40),         # every row fully masked
+])
+def test_flash_backward_kernels_match_plain(dev, monkeypatch, stash, dtype, b,
+                                            sq, sk, h, d, causal, q_off,
+                                            kv_off):
+    q = _randn(dev, b, sq, h, d, dtype=dtype, seed=2)
+    k = _randn(dev, b, sk, h, d, dtype=dtype, seed=3)
+    v = _randn(dev, b, sk, h, d, dtype=dtype, seed=4)
+    do = _randn(dev, b, sq, h, d, dtype=dtype, seed=5)
+    o, lse = flash.flash_attention(q, k, v, causal, q_off, kv_off,
+                                   return_lse=True)
+    monkeypatch.setattr(flash, "PDS_STASH_LIMIT_BYTES",
+                        int(1.2e9) if stash else 0)
+    kernels.reset_launches()
+    got = flash.flash_attention_backward(q, k, v, o, lse, do, causal, q_off,
+                                         kv_off)
+    torch.cuda.synchronize()
+    dkv = ("flash_attention_bwd_dkv_stash" if stash
+           else "flash_attention_bwd_dkv")
+    assert dict(kernels.launches) == {"flash_attention_bwd_dq": 1, dkv: 1}
+    want = flash.flash_attention_backward_plain(q, k, v, o, lse, do, causal,
+                                                q_off, kv_off)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dtype and torch.isfinite(g.float()).all(), name
+        _assert_bwd_close(g, w, msg=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_each_flash_backward_kernel_matches_its_plain_version(dev, dtype):
+    """dQ with its p/ds stash, dK/dV from that stash, and the recompute
+    dK/dV, each against its own plain version, at the training layout
+    (head_dim 128) with a ragged last tile."""
+    q, k, v, do = (_randn(dev, 2, 200, 2, 128, dtype=dtype, seed=10 + i)
+                   for i in range(4))
+    o, lse = flash.flash_attention(q, k, v, True, return_lse=True)
+    args = (q, k, v, do, lse, flash.backward_delta(o, do))
+    got = flash.flash_bwd_dq(*args, stash=True)
+    want = flash.flash_bwd_dq_plain(*args, stash=True)
+    for name, g, w in zip(("dq", "p_stash", "ds_stash"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        _assert_bwd_close(g, w, msg=name)
+    for name, g, w in zip(
+            ("dk", "dv"), flash.flash_bwd_dkv_from_stash(q, k, v, do, *got[1:]),
+            flash.flash_bwd_dkv_from_stash_plain(q, k, v, do, *got[1:])):
+        _assert_bwd_close(g, w, msg=f"stash {name}")
+    for name, g, w in zip(("dk", "dv"), flash.flash_bwd_dkv(*args),
+                          flash.flash_bwd_dkv_plain(*args)):
+        _assert_bwd_close(g, w, msg=f"recompute {name}")
+
+
+def test_flash_train_on_the_card_matches_plain_with_gqa(dev):
+    """The differentiable entry expands GQA before the kernels; autograd
+    sums the copies' gradients back onto the kv heads."""
+    q = _randn(dev, 2, 64, 4, 64, seed=6).requires_grad_()
+    k = _randn(dev, 2, 64, 2, 64, seed=7).requires_grad_()
+    v = _randn(dev, 2, 64, 2, 64, seed=8).requires_grad_()
+    g = _randn(dev, 2, 64, 4, 64, seed=9)
+    kernels.reset_launches()
+    got = torch.autograd.grad(flash.flash_attention_train(q, k, v), (q, k, v),
+                              g)
+    assert kernels.launches["flash_attention"] == 1
+    assert kernels.launches["flash_attention_bwd_dq"] == 1
+    qc, kc, vc = (t.detach().cpu().requires_grad_() for t in (q, k, v))
+    want = torch.autograd.grad(flash.flash_attention_train(qc, kc, vc),
+                               (qc, kc, vc), g.cpu())
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        torch.testing.assert_close(a.cpu(), w, atol=1e-4, rtol=1e-4, msg=name)
+
+
+def test_train_step_on_the_card_matches_the_cpu(dev):
+    """Loss and every gradient leaf of a small f32 model: the kernels on
+    the card against the plain versions on the CPU, same weights."""
+    from k8s_gpu_workload_enhancer_tpu_torch.models import transformer as tf
+    from k8s_gpu_workload_enhancer_tpu_torch.train import trainer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = tf.TransformerConfig(vocab_size=320, d_model=256, n_layers=2,
+                               n_heads=2, n_kv_heads=2, d_ff=512, max_seq=64,
+                               dtype=torch.float32, ce_chunk=128)
+    params = tf.init_params(torch.Generator().manual_seed(0), cfg)
+    toks = torch.randint(0, 320, (2, 65),
+                         generator=torch.Generator().manual_seed(1))
+    out = {}
+    for where in ("cpu", "cuda"):
+        p = trainer.tree_map(
+            lambda t: t.detach().to(where).requires_grad_(), params)
+        kernels.reset_launches()
+        loss, _ = tf.loss_fn(p, toks.to(where), cfg)
+        grads = torch.autograd.grad(loss, trainer.tree_leaves(p))
+        out[where] = (loss.item(), [g.cpu() for g in grads],
+                      dict(kernels.launches))
+    assert out["cpu"][2] == {}
+    assert out["cuda"][2] == {"rms_norm": 5, "rms_norm_bwd": 5, "rope": 8,
+                              "flash_attention": 2,
+                              "flash_attention_bwd_dq": 2,
+                              "flash_attention_bwd_dkv_stash": 2}
+    assert out["cuda"][0] == pytest.approx(out["cpu"][0], rel=1e-5)
+    for a, w in zip(out["cuda"][1], out["cpu"][1]):
+        assert float((a - w).norm() / w.norm().clamp_min(1e-12)) < 1e-4
+
+
+def test_backward_kernels_raise_on_inputs_they_do_not_take(dev):
+    q = _randn(dev, 1, 16, 4, 64)
+    kv = _randn(dev, 1, 16, 2, 64)                  # GQA: expand first
+    o, lse = flash.flash_attention(q, q, q, True, return_lse=True)
+    with pytest.raises(ValueError):
+        flash.flash_attention_backward(q, kv, kv, o, lse, q)
+    q5 = _randn(dev, 1, 16, 1, 512)                 # head_dim above 256
+    o5, lse5 = flash.flash_attention(q5, q5, q5, True, return_lse=True)
+    with pytest.raises(ValueError):
+        flash.flash_attention_backward(q5, q5, q5, o5, lse5, q5)
+    with pytest.raises(TypeError):                  # dO in another dtype
+        flash.flash_attention_backward(q, q, q, o, lse, q.bfloat16())
+    with pytest.raises(ValueError):                 # wider than the kernel
+        x = _randn(dev, 2, 1025)
+        rms.rms_norm_backward(x, torch.ones(1025, device=dev), x)
+
+
+def test_fused_ce_is_refused_on_the_card(dev):
+    import dataclasses
+    from k8s_gpu_workload_enhancer_tpu_torch.models import transformer as tf
+    cfg = tf.TransformerConfig(vocab_size=256, d_model=128, n_layers=1,
+                               n_heads=1, n_kv_heads=1, d_ff=256, max_seq=16,
+                               dtype=torch.float32, ce_cache_logits=True)
+    params = tf.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    toks = torch.zeros((1, 9), dtype=torch.long, device=dev)
+    with pytest.raises(NotImplementedError, match="B9"):
+        tf.loss_fn(params, toks, cfg)
+    loss, _ = tf.loss_fn(params, toks, dataclasses.replace(cfg,
+                                                           ce_fused=False))
+    assert torch.isfinite(loss)

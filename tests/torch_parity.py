@@ -49,3 +49,31 @@ def model(n_kv_heads: int = 2, int8: bool = False, seed: int = 0):
 def tokens(shape, seed: int = 0) -> np.ndarray:
     return np.random.default_rng(seed).integers(
         0, DIMS["vocab_size"], shape).astype(np.int32)
+
+
+# The training parity configuration: head_dim 128 (so the JAX package's
+# flash forward and backward Pallas kernels engage, in interpret mode, while
+# its RoPE takes the XLA branch, as at the trainer's defaults), a vocab of
+# 320 over CE chunks of 128 (a clamped, ragged last chunk), seq 32, f32.
+TRAIN_DIMS = dict(vocab_size=320, d_model=256, n_layers=2, n_heads=2,
+                  d_ff=512, max_seq=32)
+TRAIN_CE_CHUNK = 128
+
+
+def train_jax_cfg() -> jtf.TransformerConfig:
+    return jtf.TransformerConfig(**TRAIN_DIMS, n_kv_heads=2,
+                                 dtype=jnp.float32, use_flash=True,
+                                 use_ring_attention=False,
+                                 ce_chunk=TRAIN_CE_CHUNK)
+
+
+def train_torch_cfg() -> ttf.TransformerConfig:
+    return ttf.TransformerConfig(**TRAIN_DIMS, n_kv_heads=2,
+                                 dtype=torch.float32,
+                                 ce_chunk=TRAIN_CE_CHUNK)
+
+
+def to_torch_tree(tree) -> dict:
+    """A JAX param tree as the port's f32 CPU tensors, leaf for leaf."""
+    return ttf.params_from_numpy(jax.tree.map(np.asarray, tree),
+                                 train_torch_cfg(), "cpu")
