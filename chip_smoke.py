@@ -2,19 +2,24 @@
 
 Drives the port's serving path at the default serve dims (vocab 32768,
 d_model 2048, 3 layers, 4 heads of 512, d_ff 16384, max_seq 256, 8 slots,
-prefill_len 128, decode_chunk 8) and its training path at the trainer's
+prefill_len 128, decode_chunk 8), its training path at the trainer's
 defaults (vocab 32768, d_model 2048, 8 layers, 16 heads of 128, d_ff 8192,
-seq 2048, batch 8), from seeded random inits in bf16:
+seq 2048, batch 8) and at the flagship training configuration
+(train/flagship.py: 3 layers, 4 heads of 512, d_ff 16384, seq 2048,
+single-chunk fused LM-head CE, microbatches of 8), from seeded random
+inits in bf16:
 
   1. prints the card's name and power limit (nvidia-smi) and builds every
      kernel from csrc/, one nvcc per source, all at once;
   2. holds each kernel against its plain PyTorch version on the card at the
-     shapes the serving and training paths give it (and small ragged
-     shapes, bf16 and f32), and times on the device (calls captured in one
+     shapes the serving, training and flagship paths give it (and small
+     ragged shapes, bf16 and f32), and times on the device (calls captured in one
      CUDA graph, replayed) the kernel, the plain version and, where one
      PyTorch call computes the same function, that call (for a backward:
      torch.autograd.grad of F.rms_norm or scaled_dot_product_attention on
-     a retained graph, eager, between CUDA events); the wrapper's eager
+     a retained graph, eager, between CUDA events; for the fused CE, the
+     head matmul plus F.cross_entropy, two calls, and their backward to
+     the hidden); the wrapper's eager
      per-call rate, which includes the host's cost of issuing it, is
      reported apart. The paged decode kernel is also timed beside
      `scaled_dot_product_attention` over the same rows laid out as a
@@ -28,19 +33,24 @@ seq 2048, batch 8), from seeded random inits in bf16:
      tokens sharing a 128-token prefix plus one cold request of 160, after
      a warm-up that published the prefix, so 8 of the 9 start from pool
      pages; the paged serve main answering two requests that share a
-     128-token prefix; and the trainer main in-process, 4 steps at batch 8
+     128-token prefix; the trainer main in-process, 4 steps at batch 8
      (the p/ds stash is over its gate, so dK/dV are recomputed) and 2 at
-     batch 4 (the stash path). Every phase must launch exactly the kernels
-     its prefill chunks, decode steps and train steps need (on the paged
+     batch 4 (the stash path); and the flagship configuration through
+     train.trainer.train_loop, cut to batch 32 (grad_accum 4 instead of
+     32) for 1 warm-up and 3 timed steps (the t-layout RoPE pair, flash at
+     head_dim 512 with the p/ds stash, the fused CE kernels). Every phase
+     must launch exactly the kernels its prefill chunks, decode steps,
+     train steps and microbatches need (on the paged
      path the paged decode kernel L times a step, and never the dense
      decode attention). The dense phase's first prefill chunk and first
      tokens are checked against the plain versions; the paged engine is
      held to the dense engine: identical greedy transcripts in f32 on the
      same weights (a hard gate), and the count of identical ones in bf16,
-     printed. An f32 training gate at full width (2 layers, batch 2, seq
-     512) holds the loss and every gradient leaf through the kernels, once
-     with the p/ds stash and once with dK/dV recomputed, to the same step
-     through the plain versions; the trainer's losses and grad norms must
+     printed. Two f32 training gates at full width (the trainer's: 2
+     layers, batch 2, seq 512; the flagship's: 1 layer, batch 1, seq 512)
+     hold the loss and every gradient leaf through the kernels, once with
+     the p/ds stash and once with dK/dV recomputed, to the same step
+     through the plain versions; the trainers' losses and grad norms must
      be finite. The backward kernels are held to limits scaled to each
      output's own values (BWD_RTOL, BWD_ATOL_OF_RMS);
   4. prints the {"kernels": [...]} line, then the result line
@@ -90,6 +100,25 @@ TRAIN_BATCH, STASH_BATCH, TRAIN_STEPS, STASH_STEPS = 8, 4, 4, 2
 GATE_DIMS = dict(vocab_size=32768, d_model=2048, n_layers=2, n_heads=16,
                  n_kv_heads=16, d_ff=8192, max_seq=512)
 GATE_BATCH, GATE_LOSS_RTOL, GATE_LEAF_RTOL = 2, 1e-5, 1e-3
+# The flagship training configuration (train/flagship.py: 3 layers, 4 heads
+# of 512, d_ff 16384, seq 2048, bf16, single-chunk fused CE) at its
+# microbatch of 8, cut from 32 microbatches a step to 4 (batch 32) to keep
+# the run inside its time limit; 1 warm-up step and 3 timed ones.
+FLAGSHIP_BATCH, FLAGSHIP_ACCUM, FLAGSHIP_STEPS = 32, 4, 4
+FLAGSHIP_MICRO = FLAGSHIP_BATCH // FLAGSHIP_ACCUM
+# Its f32 gate: the flagship widths, 1 layer, batch 1, seq 512.
+FLAGSHIP_GATE_DIMS = dict(vocab_size=32768, d_model=2048, n_layers=1,
+                          n_heads=4, n_kv_heads=4, d_ff=16384, max_seq=512,
+                          ce_chunk=32768, ce_cache_logits=True)
+FLAGSHIP_GATE_BATCH = 1
+# Fused CE forward vs plain: lse and gold relative (bf16: the tensor cores
+# sum the logits in another order; f32: the f32 pipes in contraction order
+# against cuBLAS); stash and dlg within one bf16 ulp (an f32 value within
+# the sums' difference of a bf16 midpoint rounds to its neighbour), with
+# the backward limits' floor of BWD_ATOL_OF_RMS[bf16] times the output's
+# root mean square for entries near zero, where the sums' difference
+# (~1e-5 at D 2048) is more than the value's ulp.
+CE_STAT_RTOL = {torch.bfloat16: 1e-3, torch.float32: 1e-5}
 
 # Kernel vs plain version in bf16: both round once from f32, so they differ
 # by at most a couple of bf16 ulps (2^-8 relative) where their f32 sums are
@@ -494,17 +523,22 @@ def check_train_kernels(dev, rms, rope, flash, attn_mod, out: dict) -> dict:
         del x, g, got, want
 
     # Flash backward: the trainer's shape (recompute dK/dV), the stash
-    # shape (batch 4), the trainer's sequence and head_dim in f32 (batch 1)
-    # and small ragged shapes; the dQ kernel (with its stash except at the
-    # trainer's shape) and both dK/dV kernels at each, against the plain
-    # versions of ops/flash_attention.py.
+    # shape (batch 4), the trainer's sequence and head_dim in f32 (batch 1),
+    # the flagship microbatch and its f32 gate on the flat (B*H, S, 1, D)
+    # view the t-layout path launches on, and small ragged shapes; the dQ
+    # kernel (with its stash except at the trainer's shape) and both dK/dV
+    # kernels at each, against the plain versions of ops/flash_attention.py.
     dq_cases, dkv_cases, st_cases = [], [], []
     for name, (bb, ss, hh, dd), dt, big in (
             ("train", (b, s, h, hd), bf16, True),
             ("stash", (STASH_BATCH, s, h, hd), bf16, True),
             ("seq2048_f32", (1, s, h, hd), f32, True),
             ("ragged", (2, 100, 3, 64), bf16, False),
-            ("ragged_f32", (2, 77, 2, 256), f32, False)):
+            ("ragged_f32", (2, 77, 2, 256), f32, False),
+            ("flagship", (FLAGSHIP_MICRO * 4, s, 1, 512), bf16, True),
+            ("flagship_gate_f32", (FLAGSHIP_GATE_BATCH * 4, 512, 1, 512),
+             f32, True),
+            ("ragged_d512", (2, 37, 1, 512), bf16, False)):
         q, k, v, do = (randn(bb, ss, hh, dd, dtype=dt) for _ in range(4))
         o, lse = flash.flash_attention(q, k, v, True, return_lse=True)
         delta = flash.backward_delta(o, do)
@@ -591,31 +625,168 @@ def check_train_kernels(dev, rms, rope, flash, attn_mod, out: dict) -> dict:
     out["flash_attention_bwd_dkv"] = dkv_cases
     out["flash_attention_bwd_dkv_stash"] = st_cases
 
-    # The forward kernel at the trainer's shape (it runs 8 times a step).
-    q, k, v = (randn(b, s, h, hd) for _ in range(3))
-    ea, er, ok = errors(flash.flash_attention(q, k, v, True),
-                        flash.flash_attention_plain(q, k, v, True),
-                        BF16_ATOL, BF16_RTOL)
-    vis = b * h * s * (s + 1) // 2
-    fb_ms, fb_by = bound(4 * q.numel() * 2, 4.0 * hd * vis)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    it = dict(iters=2, replays=2)
-    out["flash_attention"].append(dict(
-        case="train_fwd", shape=dict(b=b, sq=s, sk=s, h=h, kh=h, d=hd),
-        q_offset=0, dtype="bfloat16", max_abs_err=ea, max_rel_err=er, ok=ok,
-        ms=device_ms(lambda: flash.flash_attention(q, k, v, True), **it),
-        wrapper_ms=wrapper_ms(lambda: flash.flash_attention(q, k, v, True),
-                              iters=3, warmup=1),
-        plain_ms=device_ms(lambda: flash.flash_attention_plain(q, k, v, True),
-                           **it),
-        bound_ms=fb_ms, bound_by=fb_by,
-        library_ms=device_ms(
-            lambda: torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True), **it)))
-    del q, k, v, qt, kt, vt
-    torch.cuda.empty_cache()
+    # The forward kernel at the trainer's shape (it runs 8 times a step) and
+    # at the flagship's flat view (3 times a microbatch).
+    for name, (bb, hh, dd) in (
+            ("train_fwd", (b, h, hd)),
+            ("flagship_fwd", (FLAGSHIP_MICRO * 4, 1, 512))):
+        q, k, v = (randn(bb, s, hh, dd) for _ in range(3))
+        ea, er, ok = errors(flash.flash_attention(q, k, v, True),
+                            flash.flash_attention_plain(q, k, v, True),
+                            BF16_ATOL, BF16_RTOL)
+        vis = bb * hh * s * (s + 1) // 2
+        fb_ms, fb_by = bound(4 * q.numel() * 2, 4.0 * dd * vis)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        it = dict(iters=2, replays=2)
+        out["flash_attention"].append(dict(
+            case=name, shape=dict(b=bb, sq=s, sk=s, h=hh, kh=hh, d=dd),
+            q_offset=0, dtype="bfloat16", max_abs_err=ea, max_rel_err=er,
+            ok=ok,
+            ms=device_ms(lambda: flash.flash_attention(q, k, v, True), **it),
+            wrapper_ms=wrapper_ms(lambda: flash.flash_attention(q, k, v, True),
+                                  iters=3, warmup=1),
+            plain_ms=device_ms(
+                lambda: flash.flash_attention_plain(q, k, v, True), **it),
+            bound_ms=fb_ms, bound_by=fb_by,
+            library_ms=device_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True), **it)))
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
     for name, cs in out.items():
         for c in cs:
+            if not c["ok"]:
+                fail(f"{name} disagrees with its plain version: {c}")
+    return out
+
+
+def ulp_errors(got: torch.Tensor, want: torch.Tensor):
+    """Max abs difference of two bf16 tensors, and whether every entry is
+    within one bf16 ulp (2^-7 of the value) of want's, or within the floor
+    of CE_STAT_RTOL's note for entries near zero."""
+    g, w = got.float(), want.float()
+    if not torch.isfinite(g).all():
+        fail("kernel output has non-finite values")
+    diff = (g - w).abs()
+    rms_w = float(torch.linalg.vector_norm(w)) / max(1, w.numel()) ** 0.5
+    floor = BWD_ATOL_OF_RMS[torch.bfloat16] * rms_w
+    return float(diff.max()), bool((diff <= w.abs() / 128 + floor).all())
+
+
+def check_flagship_kernels(dev, rope, fused_ce, attn_mod, out: dict) -> dict:
+    """The t-layout RoPE pair and the fused CE kernels at the flagship's
+    shapes (microbatch 8 x 2048 tokens, 4 heads of 512, vocab 32768), the
+    f32 gate's and small ragged ones; adds cases to `out`."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    bf16, f32 = torch.bfloat16, torch.float32
+    F = torch.nn.functional
+
+    def randn(*shape, dtype=bf16):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    # RoPE into and out of the flat layout: bit for bit, as `rope` is.
+    seq = TRAIN_DIMS["seq_len"]
+    fwd_cases, inv_cases = [], []
+    for name, (bb, ss, hh, dd), dt in (
+            ("flagship", (FLAGSHIP_MICRO, seq, 4, 512), bf16),
+            ("flagship_f32", (FLAGSHIP_MICRO, seq, 4, 512), f32),
+            ("ragged", (3, 5, 2, 24), bf16)):
+        fr = attn_mod.rope_frequencies(dd, ss, 10000.0, dev)
+        c, sn = fr[..., 0].contiguous(), fr[..., 1].contiguous()
+        x = randn(bb, ss, hh, dd, dtype=dt)
+        g = randn(bb * hh, ss, dd, dtype=dt)
+        es = x.element_size()
+        b_ms, b_by = bound(2 * x.numel() * es + 2 * c.numel() * 4,
+                           3.0 * x.numel(), dt)
+        it = dict(iters=10, replays=3)
+        for lst, fn, plain in (
+                (fwd_cases, lambda: rope.rope_rotate_t_forward(x, c, sn),
+                 lambda: rope.rope_rotate_t_plain(x, c, sn)),
+                (inv_cases, lambda: rope.rope_rotate_t_inverse(g, c, sn, hh),
+                 lambda: rope.rope_rotate_t_inv_plain(g, c, sn, hh))):
+            got, want = fn(), plain()
+            lst.append(dict(
+                case=name, shape=[bb, ss, hh, dd], dtype=str(dt).split(".")[-1],
+                max_abs_err=float((got.float() - want.float()).abs().max()),
+                ok=bool(torch.equal(got, want)), ms=device_ms(fn, **it),
+                wrapper_ms=wrapper_ms(fn, iters=10), plain_ms=device_ms(
+                    plain, **it), bound_ms=b_ms, bound_by=b_by,
+                library_ms=None))
+        del x, g
+    out["rope_t"], out["rope_t_inv"] = fwd_cases, inv_cases
+
+    # Fused CE: the flagship microbatch, the f32 gate's rows, a ragged one.
+    fwd_cases, bwd_cases = [], []
+    for name, (n, d, v), dt in (
+            ("flagship", (FLAGSHIP_MICRO * seq, 2048, 32768), bf16),
+            ("flagship_gate_f32", (FLAGSHIP_GATE_BATCH * 512, 2048, 32768),
+             f32),
+            ("ragged", (300, 128, 264), bf16)):
+        h2 = randn(n, d, dtype=dt)
+        head = (0.05 * randn(d, v, dtype=f32)).to(dt)
+        t1 = torch.randint(0, v, (n,), generator=gen, device=dev)
+        lse, gold, stash = fused_ce.fused_ce_forward(h2, head, t1)
+        w_lse, w_gold, w_stash = fused_ce.fused_ce_forward_plain(h2, head, t1)
+        rt = CE_STAT_RTOL[dt]
+        ea, er, ok = errors(lse, w_lse, rt, rt)
+        ea_g, er_g, ok_g = errors(gold, w_gold, rt, rt)
+        ea_s, ok_s = ulp_errors(stash, w_stash)
+        scale = torch.tensor([1.0 / n], device=dev)
+        dlg, dh = fused_ce.fused_ce_backward(w_stash, head, w_lse, t1, scale)
+        w_dlg, w_dh = fused_ce.fused_ce_backward_plain(w_stash, head, w_lse,
+                                                       t1, scale)
+        ea_d, ok_d = ulp_errors(dlg, w_dlg)
+        ea_h, er_h, ok_h = bwd_errors(dh, w_dh)
+        del lse, gold, stash, dlg, dh, w_dlg, w_dh
+        big = n * v > 1 << 24
+        it = dict(iters=2, replays=2) if big else {}
+        wit = 3 if big else 20
+        es = h2.element_size()
+        shape = dict(n=n, d=d, v=v)
+        fb_ms, fb_by = bound(n * d * es + d * v * es + 4 * n + 2 * n * v
+                             + 8 * n, 2.0 * n * d * v, dt)
+        hl = h2.detach().requires_grad_()
+        fwd_cases.append(dict(
+            case=name, shape=shape, dtype=str(dt).split(".")[-1],
+            max_abs_err=max(ea, ea_g, ea_s), max_rel_err=max(er, er_g),
+            lse_max_abs_err=ea, gold_max_abs_err=ea_g,
+            stash_max_abs_err=ea_s, stat_rtol=rt, stash_within_one_ulp=ok_s,
+            ok=ok and ok_g and ok_s,
+            ms=device_ms(lambda: fused_ce.fused_ce_forward(h2, head, t1),
+                         **it),
+            wrapper_ms=wrapper_ms(
+                lambda: fused_ce.fused_ce_forward(h2, head, t1), iters=wit,
+                warmup=2),
+            plain_ms=device_ms(
+                lambda: fused_ce.fused_ce_forward_plain(h2, head, t1), **it),
+            bound_ms=fb_ms, bound_by=fb_by,
+            library_ms=device_ms(lambda: F.cross_entropy(
+                (h2 @ head).float(), t1), **it),
+            library_is="two calls: torch.matmul (logits) + F.cross_entropy"))
+        bb_ms, bb_by = bound(2 * n * v * 2 + d * v * es + 8 * n
+                             + n * d * 2, 2.0 * n * d * v + 5.0 * n * v, dt)
+        bwd_cases.append(dict(
+            case=name, shape=shape, dtype=str(dt).split(".")[-1],
+            max_abs_err=max(ea_d, ea_h), max_rel_err=er_h,
+            dlg_max_abs_err=ea_d, dlg_within_one_ulp=ok_d,
+            dh_max_abs_err=ea_h, ok=ok_d and ok_h,
+            ms=device_ms(lambda: fused_ce.fused_ce_backward(
+                w_stash, head, w_lse, t1, scale), **it),
+            wrapper_ms=wrapper_ms(lambda: fused_ce.fused_ce_backward(
+                w_stash, head, w_lse, t1, scale), iters=wit, warmup=2),
+            plain_ms=device_ms(lambda: fused_ce.fused_ce_backward_plain(
+                w_stash, head, w_lse, t1, scale), **it),
+            bound_ms=bb_ms, bound_by=bb_by,
+            library_ms=library_bwd_ms(
+                lambda a: F.cross_entropy((a @ head).float(), t1), (hl,),
+                iters=3 if big else 10),
+            library_is="backward of torch.matmul + F.cross_entropy (two "
+                       "calls) to the hidden, eager"))
+        del h2, head, t1, w_lse, w_gold, w_stash, hl
+        torch.cuda.empty_cache()
+    out["fused_ce_fwd"], out["fused_ce_bwd"] = fwd_cases, bwd_cases
+    for name in ("rope_t", "rope_t_inv", "fused_ce_fwd", "fused_ce_bwd"):
+        for c in out[name]:
             if not c["ok"]:
                 fail(f"{name} disagrees with its plain version: {c}")
     return out
@@ -626,17 +797,30 @@ def check_train_kernels(dev, rms, rope, flash, attn_mod, out: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def _rope_t_plain(rope):
+    def plain(x, cos, sin, heads, to_flat):
+        return (rope.rope_rotate_t_plain(x, cos, sin) if to_flat
+                else rope.rope_rotate_t_inv_plain(x, cos, sin, heads))
+    return plain
+
+
 @contextlib.contextmanager
 def plain_versions(rms, rope, flash):
     """Route the kernel entry points, forward and backward, to their plain
     versions (the reference of this script; the package itself never does
     this)."""
+    from k8s_gpu_workload_enhancer_tpu_torch.ops import fused_ce
     names = ((rms, "_rms_norm_cuda", rms.rms_norm_plain),
              (rms, "_rms_norm_backward_cuda", rms.rms_norm_backward_plain),
              (rope, "_rope_rotate_cuda", rope.rope_rotate_plain),
+             (rope, "_rope_t_cuda", _rope_t_plain(rope)),
              (flash, "_flash_attention_cuda", flash.flash_attention_plain),
              (flash, "_flash_attention_backward_cuda",
-              flash.flash_attention_backward_plain))
+              flash.flash_attention_backward_plain),
+             (fused_ce, "_fused_ce_forward_cuda",
+              fused_ce.fused_ce_forward_plain),
+             (fused_ce, "_fused_ce_backward_cuda",
+              fused_ce.fused_ce_backward_plain))
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in names]
     for mod, name, plain in names:
         setattr(mod, name, plain)
@@ -1004,16 +1188,24 @@ def run_serve(serve, kernels, paged: bool = False) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def per_step_launches(n_layers: int, stash: bool) -> dict:
-    """Kernel launches of one train step of the dense model: 2L+1 norms
-    forward and backward, q and k rotated forward and back (4L RoPE
-    launches), L flash forward, dQ and dK/dV calls (the stash dK/dV kernel
-    when the p/ds stash fits under its gate, else the recompute one)."""
-    return {"rms_norm": 2 * n_layers + 1, "rms_norm_bwd": 2 * n_layers + 1,
-            "rope": 4 * n_layers, "flash_attention": n_layers,
-            "flash_attention_bwd_dq": n_layers,
+def per_step_launches(n_layers: int, stash: bool, flagship: bool = False,
+                      microbatches: int = 1) -> dict:
+    """Kernel launches of one train step of the dense model: per microbatch
+    2L+1 norms forward and backward, q and k rotated forward and back, L
+    flash forward, dQ and dK/dV calls (the stash dK/dV kernel when the p/ds
+    stash fits under its gate, else the recompute one). On the flagship's
+    paths the rotations are the t-layout pair (2L each way) and the loss
+    is one fused CE forward and backward; elsewhere 4L RoPE launches."""
+    want = {"rms_norm": 2 * n_layers + 1, "rms_norm_bwd": 2 * n_layers + 1,
+            "flash_attention": n_layers, "flash_attention_bwd_dq": n_layers,
             ("flash_attention_bwd_dkv_stash" if stash
              else "flash_attention_bwd_dkv"): n_layers}
+    if flagship:
+        want.update(rope_t=2 * n_layers, rope_t_inv=2 * n_layers,
+                    fused_ce_fwd=1, fused_ce_bwd=1)
+    else:
+        want["rope"] = 4 * n_layers
+    return {k: n * microbatches for k, n in want.items()}
 
 
 def leaf_names(tree, prefix=""):
@@ -1023,19 +1215,21 @@ def leaf_names(tree, prefix=""):
     return [prefix]
 
 
-def run_train_gate(dev, mods) -> dict:
-    """f32 at full width (2 layers, batch 2, seq 512): the model loss and
-    every gradient leaf through the kernels against the same step through
-    the plain versions, same weights and batch. The kernel step runs twice:
+def run_train_gate(dev, mods, dims=GATE_DIMS, batch=GATE_BATCH,
+                   flagship=False) -> dict:
+    """f32 at full width (the trainer's: 2 layers, batch 2, seq 512; the
+    flagship's: 1 layer, batch 1, seq 512): the model loss and every
+    gradient leaf through the kernels against the same step through the
+    plain versions, same weights and batch. The kernel step runs twice:
     with the p/ds stash (it fits under its gate here) and with the gate set
-    to 0, so the recompute dK/dV kernel runs at head_dim 128."""
+    to 0, so the recompute dK/dV kernel runs too."""
     kernels, rms, rope, flash, tf, trainer = mods
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = tf.TransformerConfig(**GATE_DIMS, dtype=torch.float32)
+    cfg = tf.TransformerConfig(**dims, dtype=torch.float32)
     gen = torch.Generator(device=dev).manual_seed(5)
     params = tf.init_params(gen, cfg)
-    toks = torch.randint(0, cfg.vocab_size, (GATE_BATCH, cfg.max_seq + 1),
+    toks = torch.randint(0, cfg.vocab_size, (batch, cfg.max_seq + 1),
                          generator=gen, device=dev)
 
     def loss_and_grads():
@@ -1059,11 +1253,12 @@ def run_train_gate(dev, mods) -> dict:
         p_loss, p_grads = loss_and_grads()
     if dict(kernels.launches):
         fail("the plain-version reference step launched kernels")
-    out = dict(config=dict(GATE_DIMS, batch=GATE_BATCH, dtype="float32"),
+    out = dict(config=dict(dims, batch=batch, dtype="float32"),
                plain_loss=p_loss, loss_rtol=GATE_LOSS_RTOL,
                leaf_rtol=GATE_LEAF_RTOL)
     for path, (k_loss, k_grads, launches) in runs.items():
-        want = per_step_launches(cfg.n_layers, stash=path == "stash")
+        want = per_step_launches(cfg.n_layers, stash=path == "stash",
+                                 flagship=flagship)
         if launches != want:
             fail(f"f32 gate step ({path}) launched {launches}, want {want}")
         loss_rel = abs(k_loss - p_loss) / abs(p_loss)
@@ -1144,6 +1339,62 @@ def run_trainer(trainer_cli, kernels, batch: int, steps: int,
                 launches_per_step=per_step[0], launches=launches)
 
 
+def run_flagship(kernels, trainer, flagship) -> dict:
+    """train.trainer.train_loop on the flagship configuration at full width
+    and depth (bf16 on the card), cut to batch 32 (4 microbatches of 8) a
+    step; launch counters set to 0 just before it and read after every
+    step and when it returns."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model_cfg, train_cfg = flagship.flagship_configs(
+        batch_size=FLAGSHIP_BATCH, grad_accum=FLAGSHIP_ACCUM)
+    snaps, losses, gnorms = [], [], []
+
+    def on_step(i, metrics):
+        snaps.append(dict(kernels.launches))
+        losses.append(float(metrics["loss"]))
+        gnorms.append(float(metrics["grad_norm"]))
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = trainer.train_loop(model_cfg, train_cfg, num_steps=FLAGSHIP_STEPS,
+                             callback=on_step, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    want = per_step_launches(model_cfg.n_layers, stash=True, flagship=True,
+                             microbatches=FLAGSHIP_ACCUM)
+    prev, per_step = {}, []
+    for snap in snaps:
+        delta = {k: n - prev.get(k, 0) for k, n in snap.items()
+                 if n - prev.get(k, 0)}
+        per_step.append(delta)
+        prev = snap
+        if delta != want:
+            fail(f"flagship step launched {delta}, want {want}")
+    if len(snaps) != FLAGSHIP_STEPS or launches != snaps[-1]:
+        fail("the flagship run launched kernels outside its steps")
+    if not all(np.isfinite(losses)) or not all(np.isfinite(gnorms)):
+        fail(f"flagship losses {losses} or grad norms {gnorms} not finite")
+    return dict(config=dict(model=dict(
+                    vocab_size=model_cfg.vocab_size,
+                    d_model=model_cfg.d_model, n_layers=model_cfg.n_layers,
+                    n_heads=model_cfg.n_heads, d_ff=model_cfg.d_ff,
+                    ce_chunk=model_cfg.ce_chunk,
+                    ce_cache_logits=model_cfg.ce_cache_logits),
+                    seq_len=train_cfg.seq_len, batch=train_cfg.batch_size,
+                    grad_accum=train_cfg.grad_accum,
+                    microbatch=train_cfg.microbatch_size, dtype="bfloat16"),
+                steps=FLAGSHIP_STEPS, timed_steps=res["steps"], wall_s=wall,
+                step_ms=res["avg_step_s"] * 1e3,
+                tokens_per_s=res["tokens_per_s"],
+                achieved_tflops=res["achieved_tflops"],
+                mfu_pct=res["mfu_pct"], mfu_peak_tflops=989.0,
+                max_memory_allocated_gb=torch.cuda.max_memory_allocated()
+                / 1e9,
+                losses=losses, grad_norms=gnorms,
+                launches_per_step=per_step[0], launches=launches)
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -1156,9 +1407,9 @@ def main() -> int:
     from k8s_gpu_workload_enhancer_tpu_torch.models import (
         decode, serving, transformer as tf)
     from k8s_gpu_workload_enhancer_tpu_torch.ops import (
-        attention as attn_mod, flash_attention as flash, kernels,
+        attention as attn_mod, flash_attention as flash, fused_ce, kernels,
         paged_attention as paged, rms, rope)
-    from k8s_gpu_workload_enhancer_tpu_torch.train import trainer
+    from k8s_gpu_workload_enhancer_tpu_torch.train import flagship, trainer
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1186,6 +1437,7 @@ def main() -> int:
     results = {"kernels": check_kernels(dev, rms, rope, flash, paged,
                                         attn_mod)}
     check_train_kernels(dev, rms, rope, flash, attn_mod, results["kernels"])
+    check_flagship_kernels(dev, rope, fused_ce, attn_mod, results["kernels"])
     print(json.dumps({"kernel_checks": results["kernels"]}), flush=True)
     mods = (kernels, rms, rope, flash, paged, tf, decode, serving, serve)
     cfg, params, init_s = serve_params(dev, tf, serve)
@@ -1208,24 +1460,33 @@ def main() -> int:
                                  paged=phase == "paged_serve")
         if got != want:
             fail(f"{phase} launches {got}, its chunks and steps need {want}")
-    gate = run_train_gate(dev, (kernels, rms, rope, flash, tf, trainer))
+    gate_mods = (kernels, rms, rope, flash, tf, trainer)
+    gate = run_train_gate(dev, gate_mods)
     print(json.dumps({"train_gate_f32": gate}), flush=True)
+    gate = run_train_gate(dev, gate_mods, FLAGSHIP_GATE_DIMS,
+                          FLAGSHIP_GATE_BATCH, flagship=True)
+    print(json.dumps({"flagship_gate_f32": gate}), flush=True)
     results["train"] = run_trainer(trainer_cli, kernels, TRAIN_BATCH,
                                    TRAIN_STEPS, stash=False)
     print(json.dumps({"train": results["train"]}), flush=True)
     results["train_stash"] = run_trainer(trainer_cli, kernels, STASH_BATCH,
                                          STASH_STEPS, stash=True)
     print(json.dumps({"train_stash": results["train_stash"]}), flush=True)
+    results["flagship"] = run_flagship(kernels, trainer, flagship)
+    print(json.dumps({"flagship": results["flagship"]}), flush=True)
 
     serving_phases = ("engine", "serve", "paged_engine", "paged_serve")
     train_phases = ("train", "train_stash")
     every = serving_phases + train_phases
-    paths = {"rms_norm": every, "rope": every, "flash_attention": every,
+    paths = {"rms_norm": every + ("flagship",), "rope": every,
+             "flash_attention": every + ("flagship",),
              "paged_decode": ("paged_engine", "paged_serve"),
-             "rms_norm_bwd": train_phases,
-             "flash_attention_bwd_dq": train_phases,
+             "rms_norm_bwd": train_phases + ("flagship",),
+             "flash_attention_bwd_dq": train_phases + ("flagship",),
              "flash_attention_bwd_dkv": ("train",),
-             "flash_attention_bwd_dkv_stash": ("train_stash",)}
+             "flash_attention_bwd_dkv_stash": ("train_stash", "flagship"),
+             "rope_t": ("flagship",), "rope_t_inv": ("flagship",),
+             "fused_ce_fwd": ("flagship",), "fused_ce_bwd": ("flagship",)}
     main_path_launches = {}
     for name, on in paths.items():
         for phase in on:
@@ -1248,17 +1509,27 @@ def main() -> int:
                                           "flash_attention.py:377"),
         "flash_attention_bwd_dkv": ("flash_attention_bwd.cu",
                                     "flash_attention.py:418"),
+        "rope_t": ("rope.cu", "rope_pallas.py:111"),
+        "rope_t_inv": ("rope.cu", "rope_pallas.py:121"),
+        "fused_ce_fwd": ("fused_ce.cu", "fused_ce.py:87"),
+        "fused_ce_bwd": ("fused_ce.cu", "fused_ce.py:175"),
     }
     fwd_tol = {"atol": BF16_ATOL, "rtol": BF16_RTOL}
     bwd_tol = {"rtol": {str(k).split(".")[-1]: v for k, v in BWD_RTOL.items()},
                "atol_of_rms": {str(k).split(".")[-1]: v
                                for k, v in BWD_ATOL_OF_RMS.items()}}
+    ce_tol = {"fused_ce_fwd": {"lse_gold_rtol": {
+                  str(k).split(".")[-1]: v for k, v in CE_STAT_RTOL.items()},
+                  "stash": "one bf16 ulp"},
+              "fused_ce_bwd": {"dlg": "one bf16 ulp", "dh": bwd_tol}}
     for name, (source, replaces) in meta.items():
         cases = results["kernels"][name]
         main = cases[0]     # the path's own shape: prefill chunk, decode
         extra = ({"dense_sdpa_ms": main["dense_sdpa_ms"]}  # step, train step
                  if "dense_sdpa_ms" in main else {})
-        tolerance = ({"backward": bwd_tol} if "bwd" in name else
+        tolerance = (ce_tol[name] if name in ce_tol else
+                     {"forward": "bit for bit"} if name.startswith("rope_t")
+                     else {"backward": bwd_tol} if "bwd" in name else
                      {"forward": fwd_tol, "vjp": bwd_tol} if name == "rope"
                      else {"forward": fwd_tol})
         entries.append(dict(

@@ -30,10 +30,16 @@
 // outer product out of shared memory: both operands are stored k-major in
 // f32 (the tile loads transpose and convert once), so each step of the
 // contraction loads a few float2/float4 words and issues 8-32 FMAs per
-// thread. A thread owns the same rows in the score tile and in its
-// accumulator tile, so its rows' lse and delta stay in registers. Head
-// dims up to 64, 128 and 256 are three instantiations with tiles sized so
-// the shared memory fits one block (at most 223 KB at 256).
+// thread; the D-wide accumulators' columns are spread so that those words
+// never share a bank (`acc_col`). A thread owns the same rows in the score
+// tile and in its accumulator tile, so its rows' lse and delta stay in
+// registers. Head
+// dims up to 64, 128, 256 and 512 are four instantiations with tiles sized
+// so the shared memory fits one block: 223 KB at 256 with 32-row tiles; at
+// 512 (the flagship's 4 heads of 512) 16-row tiles on both sides, each
+// thread owning one score, taken as a dot product of two row-major rows 16
+// bytes at a time (no k-major copies of q, k, v or dO: 130 KB for dQ, 131
+// KB for dK/dV), and 32 columns of its accumulator rows.
 #include <atomic>
 
 #include "common.cuh"
@@ -65,11 +71,44 @@ struct BwdArgs {
 };
 
 // Tile sizes by the head-dim bound DMAX: BR rows owned by the block, BC
-// rows of the other side per step of its loop.
+// rows of the other side per step of its loop, and the padding P of the
+// k-major (transposed) tiles' rows. ROWDOT: each thread owns one score of
+// the 16 x 16 tiles, taken as a dot product of two row-major rows 16 bytes
+// at a time (`row_dot`), so the score products read no k-major copies.
 template <int DMAX> struct Tiles;
-template <> struct Tiles<64> { static constexpr int BR = 64, BC = 32; };
-template <> struct Tiles<128> { static constexpr int BR = 64, BC = 32; };
-template <> struct Tiles<256> { static constexpr int BR = 32, BC = 32; };
+template <> struct Tiles<64> {
+  static constexpr int BR = 64, BC = 32, P = 4;
+  static constexpr bool ROWDOT = false;
+};
+template <> struct Tiles<128> {
+  static constexpr int BR = 64, BC = 32, P = 4;
+  static constexpr bool ROWDOT = false;
+};
+template <> struct Tiles<256> {
+  static constexpr int BR = 32, BC = 32, P = 4;
+  static constexpr bool ROWDOT = false;
+};
+template <> struct Tiles<512> {
+  static constexpr int BR = 16, BC = 16, P = 1;
+  static constexpr bool ROWDOT = true;
+};
+
+// sum_{k < K} a[k] * b[k] in k order with FMAs (the order of `outer_mma`),
+// both rows in shared memory, 16-byte aligned, K a multiple of 4.
+__device__ __forceinline__ float row_dot(const float* __restrict__ a, const float* __restrict__ b,
+                                         int K) {
+  float acc = 0.f;
+#pragma unroll 4
+  for (int k = 0; k < K; k += 4) {
+    const float4 x = *reinterpret_cast<const float4*>(a + k);
+    const float4 y = *reinterpret_cast<const float4*>(b + k);
+    acc = fmaf(x.x, y.x, acc);
+    acc = fmaf(x.y, y.y, acc);
+    acc = fmaf(x.z, y.z, acc);
+    acc = fmaf(x.w, y.w, acc);
+  }
+  return acc;
+}
 
 template <int N>
 __device__ __forceinline__ void load_row(const float* p, float (&v)[N]) {
@@ -92,9 +131,21 @@ __device__ __forceinline__ void load_row(const float* p, float (&v)[N]) {
   }
 }
 
-// acc[i][j] += sum_{k < K} A[k * lda + m0 + i] * B[k * ldb + n0 + j]: a
-// register-tiled outer product over operands stored k-major in shared memory.
-template <int TM, int TN>
+// The D-wide accumulator products give thread tx of the 16 across a tile
+// the columns tx * 4 + kSpread * g + e (g < TD / 4, e < 4): each step of a
+// contraction then reads 16-byte words that neighbouring threads take from
+// neighbouring addresses, free of shared-memory bank conflicts at any D.
+constexpr int kSpread = 16 * 4;
+
+__device__ __forceinline__ int acc_col(int tx, int j) {
+  return tx * 4 + (j / 4) * kSpread + j % 4;
+}
+
+// acc[i][j] += sum_{k < K} A[k * lda + m0 + i] * B[k * ldb + col(j)]: a
+// register-tiled outer product over operands stored k-major in shared memory,
+// col(j) = n0 + j, or with kSpreadCols the spread columns n0 + kSpread * (j /
+// 4) + j % 4 of `acc_col` (n0 = tx * 4). Every sum runs in k order.
+template <int TM, int TN, bool kSpreadCols = false>
 __device__ __forceinline__ void outer_mma(const float* __restrict__ A, int lda, int m0,
                                           const float* __restrict__ B, int ldb, int n0, int K,
                                           float (&acc)[TM][TN]) {
@@ -102,7 +153,19 @@ __device__ __forceinline__ void outer_mma(const float* __restrict__ A, int lda, 
   for (int k = 0; k < K; ++k) {
     float a[TM], b[TN];
     load_row<TM>(A + k * lda + m0, a);
-    load_row<TN>(B + k * ldb + n0, b);
+    if constexpr (kSpreadCols) {
+      static_assert(TN % 4 == 0, "spread columns come in groups of 4");
+#pragma unroll
+      for (int g = 0; g < TN / 4; ++g) {
+        const float4 t = *reinterpret_cast<const float4*>(B + k * ldb + n0 + g * kSpread);
+        b[4 * g] = t.x;
+        b[4 * g + 1] = t.y;
+        b[4 * g + 2] = t.z;
+        b[4 * g + 3] = t.w;
+      }
+    } else {
+      load_row<TN>(B + k * ldb + n0, b);
+    }
 #pragma unroll
     for (int i = 0; i < TM; ++i) {
 #pragma unroll
@@ -158,22 +221,37 @@ __device__ __forceinline__ bool visible(const BwdArgs& a, int r, int c) {
 
 template <int DMAX>
 constexpr size_t dq_smem_floats() {
-  constexpr int BQ = Tiles<DMAX>::BR, BK = Tiles<DMAX>::BC;
-  return 2 * DMAX * (BQ + 4) + 2 * DMAX * (BK + 4) + BK * (DMAX + 4) + BK * (BQ + 4);
+  constexpr int BQ = Tiles<DMAX>::BR, BK = Tiles<DMAX>::BC, P = Tiles<DMAX>::P;
+  if constexpr (Tiles<DMAX>::ROWDOT) {
+    return 2 * BQ * (DMAX + 4) + 2 * BK * (DMAX + 4) + BK * (BQ + P);
+  }
+  return 2 * DMAX * (BQ + P) + 2 * DMAX * (BK + P) + BK * (DMAX + 4) + BK * (BQ + P);
 }
 
 template <typename T, int DMAX>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(BwdArgs a) {
-  constexpr int BQ = Tiles<DMAX>::BR, BK = Tiles<DMAX>::BC;
-  constexpr int LQ = BQ + 4, LK = BK + 4, LD = DMAX + 4;
+  constexpr int BQ = Tiles<DMAX>::BR, BK = Tiles<DMAX>::BC, P = Tiles<DMAX>::P;
+  constexpr int LQ = BQ + P, LK = BK + P, LD = DMAX + 4;
   constexpr int TM = BQ / 16, TN = BK / 16, TD = DMAX / 16;
   extern __shared__ __align__(16) float smem[];
-  float* qT = smem;               // [DMAX][LQ]
-  float* doT = qT + DMAX * LQ;    // [DMAX][LQ]
-  float* kT = doT + DMAX * LQ;    // [DMAX][LK]
-  float* vT = kT + DMAX * LK;     // [DMAX][LK]
-  float* kR = vT + DMAX * LK;     // [BK][LD]
-  float* dsT = kR + BK * LD;      // [BK][LQ]
+  constexpr bool RD = Tiles<DMAX>::ROWDOT;
+  // k-major tiles [DMAX][LQ or LK], or with ROWDOT row-major ones [rows][LD].
+  float *qT = nullptr, *doT = nullptr, *kT = nullptr, *vT = nullptr;
+  float *qR = nullptr, *doR = nullptr, *vR = nullptr, *kR, *dsT;
+  if constexpr (RD) {
+    qR = smem;
+    doR = qR + BQ * LD;
+    kR = doR + BQ * LD;
+    vR = kR + BK * LD;
+    dsT = vR + BK * LD;            // [BK][LQ]
+  } else {
+    qT = smem;
+    doT = qT + DMAX * LQ;
+    kT = doT + DMAX * LQ;
+    vT = kT + DMAX * LK;
+    kR = vT + DMAX * LK;           // [BK][LD]
+    dsT = kR + BK * LD;            // [BK][LQ]
+  }
 
   const int q0 = blockIdx.x * BQ;
   const int head = blockIdx.y;
@@ -187,8 +265,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(BwdArgs a) {
   const T* kb = static_cast<const T*>(a.k) + static_cast<long long>(batch) * a.sk * rs + head * d;
   const T* vb = static_cast<const T*>(a.v) + static_cast<long long>(batch) * a.sk * rs + head * d;
 
-  load_tile<T, BQ, DMAX>(qb, rs, q0, a.sq, d, qT, LQ, nullptr, 0);
-  load_tile<T, BQ, DMAX>(gb, rs, q0, a.sq, d, doT, LQ, nullptr, 0);
+  load_tile<T, BQ, DMAX>(qb, rs, q0, a.sq, d, qT, LQ, qR, LD);
+  load_tile<T, BQ, DMAX>(gb, rs, q0, a.sq, d, doT, LQ, doR, LD);
   float lse_r[TM], delta_r[TM];
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
@@ -221,7 +299,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(BwdArgs a) {
     const int k0 = t * BK;
     __syncthreads();  // the previous tile's readers are done with kT/vT/kR/dsT
     load_tile<T, BK, DMAX>(kb, rs, k0, a.sk, d, kT, LK, kR, LD);
-    load_tile<T, BK, DMAX>(vb, rs, k0, a.sk, d, vT, LK, nullptr, 0);
+    load_tile<T, BK, DMAX>(vb, rs, k0, a.sk, d, vT, LK, vR, LD);
     __syncthreads();
     float s[TM][TN], dp[TM][TN];
 #pragma unroll
@@ -229,8 +307,13 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(BwdArgs a) {
 #pragma unroll
       for (int j = 0; j < TN; ++j) s[i][j] = dp[i][j] = 0.f;
     }
-    outer_mma<TM, TN>(qT, LQ, ty * TM, kT, LK, tx * TN, d, s);
-    outer_mma<TM, TN>(doT, LQ, ty * TM, vT, LK, tx * TN, d, dp);
+    if constexpr (RD) {
+      s[0][0] = row_dot(qR + ty * LD, kR + tx * LD, d);
+      dp[0][0] = row_dot(doR + ty * LD, vR + tx * LD, d);
+    } else {
+      outer_mma<TM, TN>(qT, LQ, ty * TM, kT, LK, tx * TN, d, s);
+      outer_mma<TM, TN>(doT, LQ, ty * TM, vT, LK, tx * TN, d, dp);
+    }
 #pragma unroll
     for (int i = 0; i < TM; ++i) {
       const int r = q0 + ty * TM + i;
@@ -250,7 +333,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(BwdArgs a) {
       }
     }
     __syncthreads();
-    outer_mma<TM, TD>(dsT, LQ, ty * TM, kR, LD, tx * TD, BK, acc);
+    outer_mma<TM, TD, true>(dsT, LQ, ty * TM, kR, LD, tx * 4, BK, acc);
   }
 
   // Stash tiles past the causal range hold zeros, as the TPU kernel leaves
@@ -277,7 +360,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(BwdArgs a) {
     if (r < a.sq) {
 #pragma unroll
       for (int j = 0; j < TD; ++j) {
-        const int c = tx * TD + j;
+        const int c = acc_col(tx, j);
         if (c < d) dqb[r * rs + c] = from_f<T>(acc[i][j]);
       }
     }
@@ -309,7 +392,7 @@ __device__ __forceinline__ void store_kv(const BwdArgs& a, int k0, int ty, int t
     if (c < a.sk) {
 #pragma unroll
       for (int j = 0; j < TD; ++j) {
-        const int col = tx * TD + j;
+        const int col = acc_col(tx, j);
         if (col < d) {
           dkb[c * rs + col] = from_f<T>(acc_k[i][j]);
           dvb[c * rs + col] = from_f<T>(acc_v[i][j]);
@@ -325,21 +408,35 @@ __device__ __forceinline__ void store_kv(const BwdArgs& a, int k0, int ty, int t
 
 template <int DMAX>
 constexpr size_t dkv_smem_floats() {
-  constexpr int BKV = Tiles<DMAX>::BR, BQ = Tiles<DMAX>::BC;
-  return 2 * DMAX * (BKV + 4) + 2 * DMAX * (BQ + 4) + 2 * BQ * (DMAX + 4) + 2 * BQ * (BKV + 4);
+  constexpr int BKV = Tiles<DMAX>::BR, BQ = Tiles<DMAX>::BC, P = Tiles<DMAX>::P;
+  if constexpr (Tiles<DMAX>::ROWDOT) {
+    return 2 * BKV * (DMAX + 4) + 2 * BQ * (DMAX + 4) + 2 * BQ * (BKV + P);
+  }
+  return 2 * DMAX * (BKV + P) + 2 * DMAX * (BQ + P) + 2 * BQ * (DMAX + 4) + 2 * BQ * (BKV + P);
 }
 
 template <typename T, int DMAX>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(BwdArgs a) {
-  constexpr int BKV = Tiles<DMAX>::BR, BQ = Tiles<DMAX>::BC;
-  constexpr int LC = BKV + 4, LR = BQ + 4, LD = DMAX + 4;
+  constexpr int BKV = Tiles<DMAX>::BR, BQ = Tiles<DMAX>::BC, P = Tiles<DMAX>::P;
+  constexpr int LC = BKV + P, LR = BQ + P, LD = DMAX + 4;
   constexpr int TM = BKV / 16, TN = BQ / 16, TD = DMAX / 16;
   extern __shared__ __align__(16) float smem[];
-  float* kT = smem;             // [DMAX][LC]
-  float* vT = kT + DMAX * LC;   // [DMAX][LC]
-  float* qT = vT + DMAX * LC;   // [DMAX][LR]
-  float* doT = qT + DMAX * LR;  // [DMAX][LR]
-  float* qR = doT + DMAX * LR;  // [BQ][LD]
+  constexpr bool RD = Tiles<DMAX>::ROWDOT;
+  // k-major key and query tiles [DMAX][LC or LR], or with ROWDOT row-major
+  // key tiles [BKV][LD]; row-major query tiles [BQ][LD] either way.
+  float *kT = nullptr, *vT = nullptr, *qT = nullptr, *doT = nullptr;
+  float *kR = nullptr, *vR = nullptr, *qR;
+  if constexpr (RD) {
+    kR = smem;
+    vR = kR + BKV * LD;
+    qR = vR + BKV * LD;
+  } else {
+    kT = smem;
+    vT = kT + DMAX * LC;
+    qT = vT + DMAX * LC;
+    doT = qT + DMAX * LR;
+    qR = doT + DMAX * LR;
+  }
   float* doR = qR + BQ * LD;    // [BQ][LD]
   float* pR = doR + BQ * LD;    // [BQ][LC]
   float* dsR = pR + BQ * LC;    // [BQ][LC]
@@ -358,8 +455,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(BwdArgs a) {
   const T* kb = static_cast<const T*>(a.k) + static_cast<long long>(batch) * a.sk * rs + head * d;
   const T* vb = static_cast<const T*>(a.v) + static_cast<long long>(batch) * a.sk * rs + head * d;
 
-  load_tile<T, BKV, DMAX>(kb, rs, k0, a.sk, d, kT, LC, nullptr, 0);
-  load_tile<T, BKV, DMAX>(vb, rs, k0, a.sk, d, vT, LC, nullptr, 0);
+  load_tile<T, BKV, DMAX>(kb, rs, k0, a.sk, d, kT, LC, kR, LD);
+  load_tile<T, BKV, DMAX>(vb, rs, k0, a.sk, d, vT, LC, vR, LD);
   float acc_k[TM][TD], acc_v[TM][TD];
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
@@ -385,8 +482,13 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(BwdArgs a) {
 #pragma unroll
       for (int j = 0; j < TN; ++j) s[i][j] = dp[i][j] = 0.f;
     }
-    outer_mma<TM, TN>(kT, LC, ty * TM, qT, LR, tx * TN, d, s);   // S^T[c][r]
-    outer_mma<TM, TN>(vT, LC, ty * TM, doT, LR, tx * TN, d, dp);  // dP^T[c][r]
+    if constexpr (RD) {
+      s[0][0] = row_dot(kR + ty * LD, qR + tx * LD, d);    // S^T[c][r]
+      dp[0][0] = row_dot(vR + ty * LD, doR + tx * LD, d);  // dP^T[c][r]
+    } else {
+      outer_mma<TM, TN>(kT, LC, ty * TM, qT, LR, tx * TN, d, s);   // S^T[c][r]
+      outer_mma<TM, TN>(vT, LC, ty * TM, doT, LR, tx * TN, d, dp);  // dP^T[c][r]
+    }
 #pragma unroll
     for (int i = 0; i < TM; ++i) {
       const int c = k0 + ty * TM + i;
@@ -401,8 +503,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(BwdArgs a) {
       }
     }
     __syncthreads();
-    outer_mma<TM, TD>(pR, LC, ty * TM, doR, LD, tx * TD, BQ, acc_v);   // dV += P^T dO
-    outer_mma<TM, TD>(dsR, LC, ty * TM, qR, LD, tx * TD, BQ, acc_k);   // dK += dS^T Q
+    outer_mma<TM, TD, true>(pR, LC, ty * TM, doR, LD, tx * 4, BQ, acc_v);   // dV += P^T dO
+    outer_mma<TM, TD, true>(dsR, LC, ty * TM, qR, LD, tx * 4, BQ, acc_k);   // dK += dS^T Q
   }
   store_kv<T, TM, TD>(a, k0, ty, tx, acc_k, acc_v);
 }
@@ -413,14 +515,14 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(BwdArgs a) {
 
 template <int DMAX>
 constexpr size_t dkv_stash_smem_floats() {
-  constexpr int BKV = Tiles<DMAX>::BR, BQ = Tiles<DMAX>::BC;
-  return 2 * BQ * (DMAX + 4) + 2 * BQ * (BKV + 4);
+  constexpr int BKV = Tiles<DMAX>::BR, BQ = Tiles<DMAX>::BC, P = Tiles<DMAX>::P;
+  return 2 * BQ * (DMAX + 4) + 2 * BQ * (BKV + P);
 }
 
 template <typename T, int DMAX>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_stash_kernel(BwdArgs a) {
-  constexpr int BKV = Tiles<DMAX>::BR, BQ = Tiles<DMAX>::BC;
-  constexpr int LC = BKV + 4, LD = DMAX + 4;
+  constexpr int BKV = Tiles<DMAX>::BR, BQ = Tiles<DMAX>::BC, P = Tiles<DMAX>::P;
+  constexpr int LC = BKV + P, LD = DMAX + 4;
   constexpr int TM = BKV / 16, TD = DMAX / 16;
   extern __shared__ __align__(16) float smem[];
   float* qR = smem;            // [BQ][LD]
@@ -460,8 +562,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_stash_kernel(BwdArgs a
       dsR[r * LC + c] = in ? to_f(ds_st[at]) : 0.f;
     }
     __syncthreads();
-    outer_mma<TM, TD>(pR, LC, ty * TM, doR, LD, tx * TD, BQ, acc_v);
-    outer_mma<TM, TD>(dsR, LC, ty * TM, qR, LD, tx * TD, BQ, acc_k);
+    outer_mma<TM, TD, true>(pR, LC, ty * TM, doR, LD, tx * 4, BQ, acc_v);
+    outer_mma<TM, TD, true>(dsR, LC, ty * TM, qR, LD, tx * 4, BQ, acc_k);
   }
   store_kv<T, TM, TD>(a, k0, ty, tx, acc_k, acc_v);
 }
@@ -507,20 +609,22 @@ cudaError_t launch_one(const BwdArgs& a, int batch, int device, cudaStream_t str
 
 template <int W>
 cudaError_t launch(const BwdArgs& a, int batch, int dtype, int device, cudaStream_t s) {
-  const int dmax = a.d <= 64 ? 64 : (a.d <= 128 ? 128 : 256);
+  const int dmax = a.d <= 64 ? 64 : (a.d <= 128 ? 128 : (a.d <= 256 ? 256 : 512));
   if (dtype == kF32) {
     if (dmax == 64) return launch_one<float, 64, W>(a, batch, device, s);
     if (dmax == 128) return launch_one<float, 128, W>(a, batch, device, s);
-    return launch_one<float, 256, W>(a, batch, device, s);
+    if (dmax == 256) return launch_one<float, 256, W>(a, batch, device, s);
+    return launch_one<float, 512, W>(a, batch, device, s);
   }
   if (dmax == 64) return launch_one<__nv_bfloat16, 64, W>(a, batch, device, s);
   if (dmax == 128) return launch_one<__nv_bfloat16, 128, W>(a, batch, device, s);
-  return launch_one<__nv_bfloat16, 256, W>(a, batch, device, s);
+  if (dmax == 256) return launch_one<__nv_bfloat16, 256, W>(a, batch, device, s);
+  return launch_one<__nv_bfloat16, 512, W>(a, batch, device, s);
 }
 
 int validate(int batch, int sq, int sk, int h, int d, int dtype, int device) {
   if (batch <= 0 || batch > 65535 || sq <= 0 || sk <= 0 || h <= 0 || h > 65535 || d <= 0 ||
-      d > 256 || d % 8 != 0 || device < 0 || device >= kMaxDevices ||
+      d > 512 || d % 8 != 0 || device < 0 || device >= kMaxDevices ||
       (dtype != kF32 && dtype != kBF16)) {
     return kBadArgument;
   }

@@ -7,14 +7,17 @@ same names and shapes, so a JAX param tree converts leaf for leaf
 are a Python loop over the stacked leaves. Activations run in `cfg.dtype`,
 norms and softmax statistics in f32, logits are returned in f32.
 
-Training: `loss_fn` is the next-token loss through the chunked LM-head
-cross-entropy (ops/chunked_ce.py), differentiable end to end: RMSNorm,
-RoPE and attention run their forward and backward kernels on the card,
-the FFN the lean SwiGLU backward, and `remat` / `remat_ffn` recompute a
-layer or its FFN in the backward (torch.utils.checkpoint).
+Training: `loss_fn` is the next-token loss through the fused LM-head
+cross-entropy (ops/fused_ce.py) where the reference's gate takes it
+(`ce_fused`, `ce_cache_logits` and `fused_ce_supported`), else the chunked
+one (ops/chunked_ce.py), differentiable end to end: RMSNorm, RoPE and
+attention run their forward and backward kernels on the card, the FFN the
+lean SwiGLU backward, and `remat` / `remat_ffn` recompute a layer or its
+FFN in the backward (torch.utils.checkpoint). Attention takes the
+reference's t-layout path where its gate (`_t_layout_ok`) holds: RoPE
+writes the flash kernels' flat (B*H, S, D) layout and attention runs on it.
 
-Not ported here: MoE, ring attention, meshes, and the fused Pallas CE
-(`ce_fused` with `ce_cache_logits` on the card).
+Not ported here: MoE, ring attention and meshes.
 """
 
 from __future__ import annotations
@@ -27,9 +30,13 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.attention import apply_rope, attention, rope_frequencies
+from ..ops.attention import (apply_rope, apply_rope_t, attention,
+                             rope_frequencies)
+from ..ops.flash_attention import flash_attention_t, flash_supported
+from ..ops.fused_ce import fused_ce_supported, fused_lm_head_xent
 from ..ops.layers import cross_entropy_loss, rms_norm, swiglu, swiglu_lean
 from ..ops.quant import as_compute, is_quantized
+from ..ops.rope import rope_supported
 
 Params = Dict[str, Any]
 
@@ -56,9 +63,9 @@ class TransformerConfig:
     tie_embeddings: bool = False
     # Training loss path: LM head + CE over vocab chunks (ops/chunked_ce.py),
     # never materializing (B, S, V) f32 logits; ce_cache_logits stashes bf16
-    # logits for a single-chunk backward. ce_fused with ce_cache_logits is
-    # the JAX package's Pallas CE, not ported for the card yet (ROADMAP B9,
-    # B10).
+    # logits for a single-chunk backward. ce_fused with ce_cache_logits
+    # takes the fused LM-head CE kernels (ops/fused_ce.py) where its shape
+    # gate holds.
     use_chunked_ce: bool = True
     ce_chunk: int = 8192
     ce_cache_logits: bool = False
@@ -206,6 +213,15 @@ def output_head(params: Params, cfg: TransformerConfig):
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
 
+def _t_layout_ok(q: torch.Tensor, cfg: TransformerConfig,
+                 position_offset: int) -> bool:
+    """The reference's gate for the kernel-native-layout attention path
+    (models/transformer.py `_t_layout_ok`) on one device: training offset
+    0, full MHA, and both kernels' shape gates."""
+    return (position_offset == 0 and cfg.n_kv_heads == cfg.n_heads
+            and flash_supported(q, q, q) and rope_supported(q))
+
+
 def _attention_block(x: torch.Tensor, lp: Params, cfg: TransformerConfig,
                      freqs: torch.Tensor, position_offset: int) -> torch.Tensor:
     dt = cfg.dtype
@@ -218,10 +234,20 @@ def _attention_block(x: torch.Tensor, lp: Params, cfg: TransformerConfig,
          ).reshape(bsz, slen, nkh, hd)
     v = (h @ as_compute(lp["wv"], dt).reshape(d, nkh * hd)
          ).reshape(bsz, slen, nkh, hd)
-    q = apply_rope(q, freqs, position_offset)
-    k = apply_rope(k, freqs, position_offset)
-    o = attention(q, k, v, causal=True, q_offset=position_offset,
-                  kv_offset=position_offset)
+    if _t_layout_ok(q, cfg, position_offset):
+        # RoPE emits (B*H, S, D) and flash keeps its residuals there; v and
+        # the output take plain transposes, as they are plain XLA in the
+        # reference.
+        qt = apply_rope_t(q, freqs)
+        kt = apply_rope_t(k, freqs)
+        vt = v.transpose(1, 2).contiguous().view(bsz * nh, slen, hd)
+        ot = flash_attention_t(qt, kt, vt, True)
+        o = ot.reshape(bsz, nh, slen, hd).permute(0, 2, 1, 3)
+    else:
+        q = apply_rope(q, freqs, position_offset)
+        k = apply_rope(k, freqs, position_offset)
+        o = attention(q, k, v, causal=True, q_offset=position_offset,
+                      kv_offset=position_offset)
     return x + (o.reshape(bsz * slen, nh * hd)
                 @ as_compute(lp["wo"], dt).reshape(nh * hd, d)
                 ).reshape(bsz, slen, d)
@@ -288,16 +314,13 @@ def loss_fn(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
         from ..ops.chunked_ce import chunked_softmax_xent
         x = forward_hidden(params, inputs, cfg)
         head = output_head(params, cfg)
-        if cfg.ce_fused and cfg.ce_cache_logits and x.is_cuda:
-            raise NotImplementedError(
-                "ce_fused with ce_cache_logits runs the fused Pallas CE "
-                "kernels, not ported for the card yet (ROADMAP B9, B10); "
-                "set ce_fused=False for the chunked path")
-        # On the CPU the fused CE's function is the single-chunk cached
-        # path of the chunked op.
-        nll = chunked_softmax_xent(x, head, targets,
-                                   min(cfg.ce_chunk, cfg.vocab_size),
-                                   cfg.ce_cache_logits)
+        if (cfg.ce_fused and cfg.ce_cache_logits
+                and fused_ce_supported(x, head)):
+            nll = fused_lm_head_xent(x, head, targets)
+        else:
+            nll = chunked_softmax_xent(x, head, targets,
+                                       min(cfg.ce_chunk, cfg.vocab_size),
+                                       cfg.ce_cache_logits)
     else:
         nll = cross_entropy_loss(forward(params, inputs, cfg), targets)
     aux = torch.zeros((), dtype=torch.float32, device=nll.device)

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from .rope import rope_rotate
+from .rope import rope_rotate, rope_rotate_t
 
 NEG_INF = -1e30
 
@@ -64,7 +64,22 @@ def apply_rope(x: torch.Tensor, freqs: torch.Tensor,
     """x: (B, S, H, D); freqs: (max_seq, D/2, 2) from rope_frequencies.
     Rotate-half pairs (i, i + D/2), through the RoPE kernel on the card.
     The offset clamps to [0, max_seq - S] like the JAX dynamic slice."""
-    s = x.shape[1]
+    cos, sin = _tables(freqs, x.shape[1], position_offset)
+    return rope_rotate(x, cos, sin)
+
+
+def apply_rope_t(x: torch.Tensor, freqs: torch.Tensor,
+                 position_offset: int = 0) -> torch.Tensor:
+    """`apply_rope` that emits the flash kernels' (B*H, S, D) layout in the
+    same pass (ops/rope.rope_rotate_t). Callers gate on
+    `rope.rope_supported(x)`; same rotate-half math as apply_rope."""
+    cos, sin = _tables(freqs, x.shape[1], position_offset)
+    return rope_rotate_t(x, cos, sin)
+
+
+def _tables(freqs: torch.Tensor, s: int, position_offset: int):
+    """The (S, D/2) cos and sin rows at the offset, clamped to [0,
+    max_seq - S] like the JAX dynamic slice."""
     start = max(0, min(int(position_offset), freqs.shape[0] - s))
     fr = freqs[start:start + s]
-    return rope_rotate(x, fr[..., 0].contiguous(), fr[..., 1].contiguous())
+    return fr[..., 0].contiguous(), fr[..., 1].contiguous()

@@ -14,9 +14,13 @@ notes say what bounds them on the card and how the designs answer that.
 Sq >= 1, any Sk, GQA natively (KH dividing H) and a head_dim that is a
 multiple of 8 up to 512. `flash_attention_train` is differentiable: it
 expands GQA first, as the JAX kernels require, and its backward kernels
-take a head_dim that is a multiple of 8 up to 256. Each launches its
-kernels for CUDA tensors and takes the plain versions only for tensors on
-the CPU; a CUDA call outside what the kernels take raises.
+take the same head dims. `flash_attention_t` is the differentiable entry
+on the kernels' flat (B*H, S, D) layout (the reference's
+`flash_attention_t`, training offsets 0), which the model's t-layout path
+feeds from `rope_rotate_t`; `flash_supported` is the reference's shape
+gate for that path. Each launches its kernels for CUDA tensors and takes
+the plain versions only for tensors on the CPU; a CUDA call outside what
+the kernels take raises.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ from typing import Optional, Tuple, Union
 import torch
 
 from . import kernels
-from .attention import NEG_INF, repeat_kv
+from .attention import NEG_INF, attention, repeat_kv
 
 KERNEL = "flash_attention"
 KERNEL_BWD_DQ = "flash_attention_bwd_dq"
@@ -34,12 +38,42 @@ KERNEL_BWD_DKV = "flash_attention_bwd_dkv"
 KERNEL_BWD_DKV_STASH = "flash_attention_bwd_dkv_stash"
 LSE_MASKED = 1e30
 MAX_HEAD_DIM = 512
-MAX_HEAD_DIM_BWD = 256
+MAX_HEAD_DIM_BWD = 512
+# The reference's preferred and fallback flash block sizes, which its shape
+# gate `flash_supported` asks a sequence to divide.
+DEFAULT_BLOCK_Q = DEFAULT_BLOCK_K = 512
+FALLBACK_BLOCK = 256
 # Ceiling for the backward's transient p/ds stash, as in the JAX module:
 # above it dK/dV recompute s, p and dp instead of reading the stash.
 PDS_STASH_LIMIT_BYTES = int(1.2e9)
 
 Result = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
+
+
+def _pick_block(seq: int, preferred: int) -> int:
+    for cand in (preferred, FALLBACK_BLOCK):
+        b = min(cand, seq)
+        if seq % b == 0:
+            return b
+    return 0
+
+
+def flash_supported(q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor) -> bool:
+    """The reference's shape gate (ops/flash_attention.py:flash_supported):
+    (B, S, H, D) with D a multiple of 128, both sequences block-divisible,
+    MHA."""
+    if q.dim() != 4 or k.shape != v.shape:
+        return False
+    _, sq, h, d = q.shape
+    sk = k.shape[1]
+    if d % 128:
+        return False
+    bq = _pick_block(sq, DEFAULT_BLOCK_Q)
+    bk = _pick_block(sk, DEFAULT_BLOCK_K)
+    if bq == 0 or bk == 0 or bq % 8 or bk % 8:
+        return False
+    return h == k.shape[2]
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -392,3 +426,14 @@ def flash_attention_train(q: torch.Tensor, k: torch.Tensor,
     n_rep = q.shape[2] // k.shape[2]
     return _FlashAttention.apply(q, repeat_kv(k, n_rep), repeat_kv(v, n_rep),
                                  causal, int(q_offset), int(kv_offset))
+
+
+def flash_attention_t(qt: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor,
+                      causal: bool = True) -> torch.Tensor:
+    """Flash attention on (B*H, S, D) tensors at offsets 0 (the training
+    path). The flat layout is the kernels' (B, S, H, D) with B*H batches of
+    one head, so `attention` runs on views: differentiable where autograd
+    records, with the residuals (q, k, v, o, lse) of the reference's
+    `_t_fwd`."""
+    return attention(qt[:, :, None], kt[:, :, None], vt[:, :, None],
+                     causal=causal)[:, :, 0]

@@ -44,7 +44,8 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "rms": {"ktwe_rms_norm_fwd": [_P, _P, _P, _LL, _I, _F, _I, _I, _I, _P],
             "ktwe_rms_norm_bwd": [_P, _P, _P, _P, _P, _P, _LL, _I, _F, _I, _I,
                                   _I, _I, _P]},
-    "rope": {"ktwe_rope_fwd": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _P]},
+    "rope": {"ktwe_rope_fwd": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _P],
+             "ktwe_rope_t": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _P]},
     "flash_attention": {"ktwe_flash_attention_fwd": [
         _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _LL, _LL, _F, _I,
         _I, _P]},
@@ -54,6 +55,8 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
                                                      _P],
         "ktwe_flash_bwd_dkv_stash": [_P] * 6 + [_I] * 6 + [_LL, _LL, _I, _I,
                                                            _P]},
+    "fused_ce": {"ktwe_fused_ce_fwd": [_P] * 7 + [_I] * 6 + [_P],
+                 "ktwe_fused_ce_bwd": [_P] * 7 + [_I] * 5 + [_P]},
     "paged_decode": {"ktwe_paged_decode_fwd": [
         _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P]},
 }

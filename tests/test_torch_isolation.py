@@ -144,6 +144,38 @@ def test_cpu_backward_takes_the_plain_versions_and_launches_nothing():
                                      flash_attention.backward_delta(o, x))
 
 
+def test_cpu_flagship_path_takes_the_plain_versions_and_launches_nothing():
+    from k8s_gpu_workload_enhancer_tpu_torch.ops import fused_ce
+    kernels.reset_launches()
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn(2, 16, 2, 32, generator=g)
+    c, s = torch.randn(16, 16, generator=g), torch.randn(16, 16, generator=g)
+    assert torch.equal(rope.rope_rotate_t_forward(x, c, s),
+                       rope.rope_rotate_t_plain(x, c, s))
+    xt = x.permute(0, 2, 1, 3).reshape(4, 16, 32)
+    assert torch.equal(rope.rope_rotate_t_inverse(xt, c, s, 2),
+                       rope.rope_rotate_t_inv_plain(xt, c, s, 2))
+    assert torch.equal(flash_attention.flash_attention_t(xt, xt, xt),
+                       flash_attention.flash_attention_plain(
+                           xt[:, :, None], xt[:, :, None], xt[:, :, None])
+                       [:, :, 0])
+    h2, head = torch.randn(32, 128, generator=g), torch.randn(128, 64,
+                                                             generator=g)
+    t1 = torch.randint(0, 64, (32,), generator=g)
+    got = fused_ce.fused_ce_forward(h2, head, t1)
+    assert all(torch.equal(a, b) for a, b in
+               zip(got, fused_ce.fused_ce_forward_plain(h2, head, t1)))
+    scale = torch.tensor([1 / 32])
+    assert all(torch.equal(a, b) for a, b in zip(
+        fused_ce.fused_ce_backward(got[2], head, got[0], t1, scale),
+        fused_ce.fused_ce_backward_plain(got[2], head, got[0], t1, scale)))
+    assert sum(kernels.launches.values()) == 0
+    with pytest.raises(ValueError):     # the CUDA-only wrappers refuse CPU
+        fused_ce._fused_ce_forward_cuda(h2, head, t1)
+    with pytest.raises(ValueError):
+        rope._rope_t_cuda(x, c, s, 2, True)
+
+
 def test_params_on_another_device_are_refused():
     _, _, cfg, params = tp.model()
     moved = dict(params, embed=params["embed"].to("meta"))

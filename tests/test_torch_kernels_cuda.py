@@ -17,8 +17,8 @@ import pytest
 import torch
 
 from k8s_gpu_workload_enhancer_tpu_torch.ops import (
-    attention, flash_attention as flash, kernels, paged_attention as paged, rms,
-    rope)
+    attention, flash_attention as flash, fused_ce, kernels,
+    paged_attention as paged, rms, rope)
 
 pytestmark = pytest.mark.cuda
 
@@ -235,6 +235,9 @@ def test_rope_vjp_is_the_inverse_rotation(dev, dtype):
     (1, 70, 70, 2, 96, False, 0, 0),         # not causal, D 96 (< its bound)
     (2, 16, 48, 2, 64, True, 32, 0),         # queries at an offset
     (1, 16, 32, 2, 64, True, 0, 40),         # every row fully masked
+    (1, 64, 64, 2, 512, True, 0, 0),         # the flagship's head_dim 512
+    (2, 37, 37, 1, 512, True, 0, 0),         # D 512, ragged tiles
+    (1, 40, 40, 2, 264, False, 0, 0),        # D 264 (< 512), not causal
 ])
 def test_flash_backward_kernels_match_plain(dev, monkeypatch, stash, dtype, b,
                                             sq, sk, h, d, causal, q_off,
@@ -261,12 +264,13 @@ def test_flash_backward_kernels_match_plain(dev, monkeypatch, stash, dtype, b,
         _assert_bwd_close(g, w, msg=name)
 
 
+@pytest.mark.parametrize("d", [128, 512])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_each_flash_backward_kernel_matches_its_plain_version(dev, dtype):
+def test_each_flash_backward_kernel_matches_its_plain_version(dev, dtype, d):
     """dQ with its p/ds stash, dK/dV from that stash, and the recompute
-    dK/dV, each against its own plain version, at the training layout
-    (head_dim 128) with a ragged last tile."""
-    q, k, v, do = (_randn(dev, 2, 200, 2, 128, dtype=dtype, seed=10 + i)
+    dK/dV, each against its own plain version, at the training layouts
+    (head_dim 128, and the flagship's 512) with a ragged last tile."""
+    q, k, v, do = (_randn(dev, 2, 200, 2, d, dtype=dtype, seed=10 + i)
                    for i in range(4))
     o, lse = flash.flash_attention(q, k, v, True, return_lse=True)
     args = (q, k, v, do, lse, flash.backward_delta(o, do))
@@ -340,10 +344,10 @@ def test_backward_kernels_raise_on_inputs_they_do_not_take(dev):
     o, lse = flash.flash_attention(q, q, q, True, return_lse=True)
     with pytest.raises(ValueError):
         flash.flash_attention_backward(q, kv, kv, o, lse, q)
-    q5 = _randn(dev, 1, 16, 1, 512)                 # head_dim above 256
-    o5, lse5 = flash.flash_attention(q5, q5, q5, True, return_lse=True)
+    q5 = _randn(dev, 1, 16, 1, 520)                 # head_dim above 512
+    lse5 = torch.zeros((1, 1, 16), device=dev)
     with pytest.raises(ValueError):
-        flash.flash_attention_backward(q5, q5, q5, o5, lse5, q5)
+        flash.flash_attention_backward(q5, q5, q5, q5, lse5, q5)
     with pytest.raises(TypeError):                  # dO in another dtype
         flash.flash_attention_backward(q, q, q, o, lse, q.bfloat16())
     with pytest.raises(ValueError):                 # wider than the kernel
@@ -351,16 +355,142 @@ def test_backward_kernels_raise_on_inputs_they_do_not_take(dev):
         rms.rms_norm_backward(x, torch.ones(1025, device=dev), x)
 
 
-def test_fused_ce_is_refused_on_the_card(dev):
+def test_fused_ce_runs_on_the_card(dev):
+    """ce_fused with ce_cache_logits takes the fused CE kernels on the card
+    (the model's shape gate holds at N 8, D 128, V 256) and agrees with the
+    chunked op."""
     import dataclasses
     from k8s_gpu_workload_enhancer_tpu_torch.models import transformer as tf
+    torch.backends.cuda.matmul.allow_tf32 = False
     cfg = tf.TransformerConfig(vocab_size=256, d_model=128, n_layers=1,
                                n_heads=1, n_kv_heads=1, d_ff=256, max_seq=16,
                                dtype=torch.float32, ce_cache_logits=True)
     params = tf.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
-    toks = torch.zeros((1, 9), dtype=torch.long, device=dev)
-    with pytest.raises(NotImplementedError, match="B9"):
-        tf.loss_fn(params, toks, cfg)
-    loss, _ = tf.loss_fn(params, toks, dataclasses.replace(cfg,
-                                                           ce_fused=False))
+    toks = torch.randint(0, 256, (1, 9), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    kernels.reset_launches()
+    loss, _ = tf.loss_fn(params, toks, cfg)
+    assert kernels.launches["fused_ce_fwd"] == 1
+    chunked, _ = tf.loss_fn(params, toks, dataclasses.replace(cfg,
+                                                              ce_fused=False))
     assert torch.isfinite(loss)
+    assert loss.item() == pytest.approx(chunked.item(), rel=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 64, 4, 512), (1, 7, 3, 24),
+                                   (3, 5, 2, 2)])
+def test_rope_t_kernels_match_plain(dev, dtype, shape):
+    """The t-layout rotation and its inverse, bit for bit (both round every
+    multiply and add on its own)."""
+    b, s, h, d = shape
+    x = _randn(dev, *shape, dtype=dtype)
+    g = _randn(dev, b * h, s, d, dtype=dtype, seed=1)
+    fr = attention.rope_frequencies(d, s + 3, device=dev)[3:]
+    c, sn = fr[..., 0].contiguous(), fr[..., 1].contiguous()
+    kernels.reset_launches()
+    got = rope.rope_rotate_t_forward(x, c, sn)
+    back = rope.rope_rotate_t_inverse(g, c, sn, h)
+    torch.cuda.synchronize()
+    assert dict(kernels.launches) == {"rope_t": 1, "rope_t_inv": 1}
+    assert torch.equal(got, rope.rope_rotate_t_plain(x, c, sn))
+    assert torch.equal(back, rope.rope_rotate_t_inv_plain(g, c, sn, h))
+    # Through autograd: the VJP is the inverse kernel.
+    xr = x.detach().requires_grad_()
+    (dx,) = torch.autograd.grad(rope.rope_rotate_t(xr, c, sn), (xr,), g)
+    assert torch.equal(dx, back)
+
+
+def _ce_inputs(dev, dtype, n, d, v, seed=0):
+    h2 = _randn(dev, n, d, dtype=dtype, seed=seed)
+    head = (0.05 * _randn(dev, d, v, seed=seed + 1)).to(dtype)
+    t1 = torch.randint(0, v, (n,), device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(seed))
+    t1[0], t1[-1] = 0, v - 1
+    return h2, head, t1
+
+
+def _assert_within_ulp(got, want, msg):
+    """bf16 values at most one bf16 ulp (2^-7 of the value) apart, with the
+    backward limits' floor (1e-3 of want's root mean square) for entries
+    near zero, where two f32 sums' order decides more than an ulp."""
+    g, w = got.float(), want.float()
+    floor = BWD_ATOL_OF_RMS[torch.bfloat16] * float(w.norm()) / w.numel() ** 0.5
+    assert bool(((g - w).abs() <= w.abs() / 128 + floor).all()), msg
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d,v", [(256, 512, 1024), (300, 128, 264),
+                                   (8, 256, 8), (1024, 2048, 4096)])
+def test_fused_ce_kernels_match_plain(dev, dtype, n, d, v):
+    """Forward: lse and gold within 1e-3 relative in bf16 (the tensor
+    cores sum in another order) or 1e-5 in f32, the stash within one bf16
+    ulp. Backward from the plain version's stash: dlg within one ulp, dH
+    to the backward limits scaled to its root mean square."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    h2, head, t1 = _ce_inputs(dev, dtype, n, d, v)
+    kernels.reset_launches()
+    lse, gold, stash = fused_ce.fused_ce_forward(h2, head, t1)
+    torch.cuda.synchronize()
+    assert dict(kernels.launches) == {"fused_ce_fwd": 1}
+    w_lse, w_gold, w_stash = fused_ce.fused_ce_forward_plain(h2, head, t1)
+    rtol = 1e-3 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(lse, w_lse, rtol=rtol, atol=rtol)
+    torch.testing.assert_close(gold, w_gold, rtol=rtol, atol=rtol)
+    _assert_within_ulp(stash, w_stash, "stash")
+    scale = torch.tensor([0.5 / n], device=dev)
+    dlg, dh = fused_ce.fused_ce_backward(w_stash, head, w_lse, t1, scale)
+    torch.cuda.synchronize()
+    assert kernels.launches["fused_ce_bwd"] == 1
+    w_dlg, w_dh = fused_ce.fused_ce_backward_plain(w_stash, head, w_lse, t1,
+                                                   scale)
+    _assert_within_ulp(dlg, w_dlg, "dlg")
+    rms_w = float(w_dh.float().norm()) / w_dh.numel() ** 0.5
+    torch.testing.assert_close(dh.float(), w_dh.float(),
+                               atol=BWD_ATOL_OF_RMS[torch.bfloat16] * rms_w,
+                               rtol=BWD_RTOL[torch.bfloat16])
+
+
+def test_fused_ce_kernels_raise_on_inputs_they_do_not_take(dev):
+    h2, head, t1 = _ce_inputs(dev, torch.bfloat16, 16, 128, 64)
+    with pytest.raises(ValueError):                 # D not a multiple of 128
+        fused_ce.fused_ce_forward(h2[:, :96].contiguous(),
+                                  head[:96].contiguous(), t1)
+    with pytest.raises(TypeError):                  # head in another dtype
+        fused_ce.fused_ce_forward(h2, head.float(), t1)
+    with pytest.raises(ValueError):                 # V not a multiple of 8
+        fused_ce.fused_ce_forward(h2, head[:, :60].contiguous(), t1)
+
+
+def test_flagship_layout_train_step_on_the_card_matches_the_cpu(dev):
+    """A small f32 model on the flagship's paths (t-layout RoPE and flash
+    at head_dim 256, fused CE): loss and every gradient leaf, the kernels
+    on the card against the plain versions on the CPU."""
+    from k8s_gpu_workload_enhancer_tpu_torch.models import transformer as tf
+    from k8s_gpu_workload_enhancer_tpu_torch.train import trainer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = tf.TransformerConfig(vocab_size=512, d_model=512, n_layers=2,
+                               n_heads=2, n_kv_heads=2, d_ff=1024, max_seq=64,
+                               dtype=torch.float32, ce_chunk=512,
+                               ce_cache_logits=True)
+    params = tf.init_params(torch.Generator().manual_seed(0), cfg)
+    toks = torch.randint(0, 512, (2, 65),
+                         generator=torch.Generator().manual_seed(1))
+    out = {}
+    for where in ("cpu", "cuda"):
+        p = trainer.tree_map(
+            lambda t: t.detach().to(where).requires_grad_(), params)
+        kernels.reset_launches()
+        loss, _ = tf.loss_fn(p, toks.to(where), cfg)
+        grads = torch.autograd.grad(loss, trainer.tree_leaves(p))
+        out[where] = (loss.item(), [g.cpu() for g in grads],
+                      dict(kernels.launches))
+    assert out["cpu"][2] == {}
+    assert out["cuda"][2] == {"rms_norm": 5, "rms_norm_bwd": 5, "rope_t": 4,
+                              "rope_t_inv": 4, "flash_attention": 2,
+                              "flash_attention_bwd_dq": 2,
+                              "flash_attention_bwd_dkv_stash": 2,
+                              "fused_ce_fwd": 1, "fused_ce_bwd": 1}
+    assert out["cuda"][0] == pytest.approx(out["cpu"][0], rel=1e-5)
+    for a, w in zip(out["cuda"][1], out["cpu"][1]):
+        assert float((a - w).norm() / w.norm().clamp_min(1e-12)) < 1e-3
