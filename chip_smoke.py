@@ -24,7 +24,10 @@ inits in bf16:
      reported apart. The paged decode kernel is also timed beside
      `scaled_dot_product_attention` over the same rows laid out as a
      contiguous cache (`dense_sdpa_ms`, a yardstick: that call does no
-     table walk, so it is not the same function);
+     table walk, so it is not the same function). The embedding gather is
+     timed beside `F.embedding` (the gather alone) and the eager
+     `table.to(dtype)[ids] * scale` it replaced (`eager_ms`), the relayouts
+     beside `x.transpose(1, 2).contiguous()`;
   3. runs the main paths, each with the launch counters set to 0 just
      before it and read just after: the dense engine on 8 requests of
      128-token prompts plus one of 160 (chunked prefill at offset 128); the
@@ -40,7 +43,9 @@ inits in bf16:
      32) for 1 warm-up and 3 timed steps (the t-layout RoPE pair, flash at
      head_dim 512 with the p/ds stash, the fused CE kernels). Every phase
      must launch exactly the kernels its prefill chunks, decode steps,
-     train steps and microbatches need (on the paged
+     train steps and microbatches need (one embedding gather a chunk, step
+     and microbatch; the flagship's relayout pair 2L times each a
+     microbatch; on the paged
      path the paged decode kernel L times a step, and never the dense
      decode attention). The dense phase's first prefill chunk and first
      tokens are checked against the plain versions; the paged engine is
@@ -66,6 +71,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import io
 import json
 import subprocess
@@ -201,11 +207,13 @@ def bound(bytes_moved: float, flops: float, dtype=torch.bfloat16):
 def expected_launches(n_layers: int, lifetime: dict,
                       paged: bool = False) -> dict:
     """Kernel launches an engine run must have made: every prefill chunk
-    runs 2L+1 norms, 2L RoPE rotations (q and k) and L flash calls; every
-    decode step 2L+1 norms and, on the paged engine, L paged decode calls
-    (dense decode RoPE and attention are plain torch)."""
+    runs one embedding gather, 2L+1 norms, 2L RoPE rotations (q and k) and
+    L flash calls; every decode step one gather, 2L+1 norms and, on the
+    paged engine, L paged decode calls (dense decode RoPE and attention are
+    plain torch)."""
     chunks, steps = lifetime["prefill_chunks"], lifetime["decode_steps"]
-    want = {"rms_norm": (2 * n_layers + 1) * (chunks + steps),
+    want = {"embed_gather": chunks + steps,
+            "rms_norm": (2 * n_layers + 1) * (chunks + steps),
             "rope": 2 * n_layers * chunks,
             "flash_attention": n_layers * chunks}
     if paged:
@@ -792,6 +800,100 @@ def check_flagship_kernels(dev, rope, fused_ce, attn_mod, out: dict) -> dict:
     return out
 
 
+def check_embed_relayout_kernels(dev, embed, relayout, out: dict) -> dict:
+    """The embedding gather at the flagship microbatch (the loss's strided
+    tokens[:, :-1] view of 8 x 2049 ids, the bf16 table of V 32768 x D
+    2048), a decode step (8 ids), a prefill chunk (1 x 128), the trainer's
+    f32 master table (rows rounded to bf16) and an f32 table with repeated
+    ids, 0 and V - 1 (the f32 gates'); the relayout pair at the flagship
+    microbatch (8, 2048, 4, 512) bf16, the flagship f32 gate's
+    (1, 512, 4, 512) and a ragged shape. Each is held to its plain version
+    bit for bit; adds cases to `out`."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    bf16, f32 = torch.bfloat16, torch.float32
+    F = torch.nn.functional
+    v, d = SERVE_DIMS["vocab_size"], SERVE_DIMS["d_model"]
+    seq = TRAIN_DIMS["seq_len"]
+    master = 0.02 * torch.randn((v, d), generator=gen, device=dev)
+    table_bf = master.to(bf16)
+
+    def ids(*shape, high=v):
+        return torch.randint(0, high, shape, generator=gen, device=dev)
+    repeats = ids(FLAGSHIP_GATE_BATCH, 512, high=64)
+    repeats[0, 0], repeats[0, -1] = 0, v - 1
+    cases = []
+    for name, table, i, dt in (
+            ("flagship", table_bf, ids(FLAGSHIP_MICRO, seq + 1)[:, :-1], bf16),
+            ("decode", table_bf, ids(NUM_SLOTS), bf16),
+            ("prefill", table_bf, ids(1, PREFILL_LEN), bf16),
+            ("train_f32_master", master, ids(TRAIN_BATCH, seq + 1)[:, :-1],
+             bf16),
+            ("f32_repeats", master, repeats, f32)):
+        scale = embed.embed_scale(d, dt)
+
+        def kernel():
+            return embed.embed_gather(table, i, scale, dt, True)
+
+        def plain():
+            return embed.embed_gather_plain(table, i, scale, dt, True)
+        got, want = kernel(), plain()
+        n = i.numel()
+        b_ms, b_by = bound(n * d * (table.element_size() + got.element_size())
+                           + n * i.element_size(), 1.0 * n * d, f32)
+        it = dict(iters=10, replays=3) if n * d > 1 << 22 else {}
+        cases.append(dict(
+            case=name, shape=dict(ids=list(i.shape), v=v, d=d),
+            table_dtype=str(table.dtype).split(".")[-1],
+            dtype=str(dt).split(".")[-1], scale=scale,
+            max_abs_err=float((got.float() - want.float()).abs().max()),
+            ok=bool(torch.equal(got, want)), ms=device_ms(kernel, **it),
+            wrapper_ms=wrapper_ms(kernel), plain_ms=device_ms(plain, **it),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=device_ms(lambda: F.embedding(i, table), **it),
+            library_is="F.embedding (the gather alone)",
+            eager_ms=device_ms(lambda: table.to(dt)[i] * scale, **it),
+            eager_is="table.to(dtype)[ids] * scale, the model's expression "
+                     "before the kernel"))
+        del got, want
+    out["embed_gather"] = cases
+
+    to_cases, from_cases = [], []
+    for name, (b, s, h, dd), dt in (
+            ("flagship", (FLAGSHIP_MICRO, seq, 4, 512), bf16),
+            ("flagship_gate_f32", (FLAGSHIP_GATE_BATCH, 512, 4, 512), f32),
+            ("ragged", (3, 5, 2, 24), bf16)):
+        x = torch.randn((b, s, h, dd), generator=gen, device=dev).to(dt)
+        g = torch.randn((b * h, s, dd), generator=gen, device=dev).to(dt)
+        b_ms, b_by = bound(2 * x.numel() * x.element_size(), 0.0, dt)
+        it = dict(iters=10, replays=3) if x.numel() > 1 << 22 else {}
+        for lst, kernel, plain, lib in (
+                (to_cases, lambda: relayout.to_t_forward(x),
+                 lambda: relayout.to_t_layout_plain(x),
+                 lambda: x.transpose(1, 2).contiguous()),
+                (from_cases, lambda: relayout.from_t_forward(g, b, h),
+                 lambda: relayout.from_t_layout_plain(g, b, h),
+                 lambda: g.view(b, h, s, dd).transpose(1, 2).contiguous())):
+            got, want = kernel(), plain()
+            lst.append(dict(
+                case=name, shape=[b, s, h, dd], dtype=str(dt).split(".")[-1],
+                max_abs_err=float((got.float() - want.float()).abs().max()),
+                ok=bool(torch.equal(got, want)), ms=device_ms(kernel, **it),
+                wrapper_ms=wrapper_ms(kernel), plain_ms=device_ms(plain, **it),
+                bound_ms=b_ms, bound_by=b_by,
+                library_ms=device_ms(lib, **it),
+                library_is="x.transpose(1, 2).contiguous() (or its inverse)"))
+            del got, want
+        del x, g
+    out["relayout_to_t"], out["relayout_from_t"] = to_cases, from_cases
+    del master, table_bf
+    torch.cuda.empty_cache()
+    for name in ("embed_gather", "relayout_to_t", "relayout_from_t"):
+        for c in out[name]:
+            if not c["ok"]:
+                fail(f"{name} disagrees with its plain version: {c}")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: the engines at the serve dims
 # ---------------------------------------------------------------------------
@@ -809,8 +911,15 @@ def plain_versions(rms, rope, flash):
     """Route the kernel entry points, forward and backward, to their plain
     versions (the reference of this script; the package itself never does
     this)."""
-    from k8s_gpu_workload_enhancer_tpu_torch.ops import fused_ce
-    names = ((rms, "_rms_norm_cuda", rms.rms_norm_plain),
+    from k8s_gpu_workload_enhancer_tpu_torch.ops import (embed, fused_ce,
+                                                         relayout)
+
+    def relayout_plain(x, b, h, to_flat):
+        return (relayout.to_t_layout_plain(x) if to_flat
+                else relayout.from_t_layout_plain(x, b, h))
+    names = ((embed, "_embed_gather_cuda", embed.embed_gather_plain),
+             (relayout, "_relayout_cuda", relayout_plain),
+             (rms, "_rms_norm_cuda", rms.rms_norm_plain),
              (rms, "_rms_norm_backward_cuda", rms.rms_norm_backward_plain),
              (rope, "_rope_rotate_cuda", rope.rope_rotate_plain),
              (rope, "_rope_t_cuda", _rope_t_plain(rope)),
@@ -1191,17 +1300,21 @@ def run_serve(serve, kernels, paged: bool = False) -> dict:
 def per_step_launches(n_layers: int, stash: bool, flagship: bool = False,
                       microbatches: int = 1) -> dict:
     """Kernel launches of one train step of the dense model: per microbatch
-    2L+1 norms forward and backward, q and k rotated forward and back, L
-    flash forward, dQ and dK/dV calls (the stash dK/dV kernel when the p/ds
-    stash fits under its gate, else the recompute one). On the flagship's
-    paths the rotations are the t-layout pair (2L each way) and the loss
-    is one fused CE forward and backward; elsewhere 4L RoPE launches."""
-    want = {"rms_norm": 2 * n_layers + 1, "rms_norm_bwd": 2 * n_layers + 1,
+    one embedding gather, 2L+1 norms forward and backward, q and k rotated
+    forward and back, L flash forward, dQ and dK/dV calls (the stash dK/dV
+    kernel when the p/ds stash fits under its gate, else the recompute
+    one). On the flagship's paths the rotations are the t-layout pair (2L
+    each way), v and the attention output pass the relayout pair (L each
+    way forward, L each way back: 2L each) and the loss is one fused CE
+    forward and backward; elsewhere 4L RoPE launches."""
+    want = {"embed_gather": 1,
+            "rms_norm": 2 * n_layers + 1, "rms_norm_bwd": 2 * n_layers + 1,
             "flash_attention": n_layers, "flash_attention_bwd_dq": n_layers,
             ("flash_attention_bwd_dkv_stash" if stash
              else "flash_attention_bwd_dkv"): n_layers}
     if flagship:
         want.update(rope_t=2 * n_layers, rope_t_inv=2 * n_layers,
+                    relayout_to_t=2 * n_layers, relayout_from_t=2 * n_layers,
                     fused_ce_fwd=1, fused_ce_bwd=1)
     else:
         want["rope"] = 4 * n_layers
@@ -1286,6 +1399,7 @@ def run_trainer(trainer_cli, kernels, batch: int, steps: int,
     """The port's trainer main in-process at its defaults (bf16 on the
     card), with the launch counters set to 0 just before it starts and
     read after every step and when it returns."""
+    gc.collect()     # garbage in reference cycles left by earlier phases
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     snaps, losses, gnorms = [], [], []
@@ -1344,6 +1458,7 @@ def run_flagship(kernels, trainer, flagship) -> dict:
     and depth (bf16 on the card), cut to batch 32 (4 microbatches of 8) a
     step; launch counters set to 0 just before it and read after every
     step and when it returns."""
+    gc.collect()     # garbage in reference cycles left by earlier phases
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     model_cfg, train_cfg = flagship.flagship_configs(
@@ -1407,8 +1522,8 @@ def main() -> int:
     from k8s_gpu_workload_enhancer_tpu_torch.models import (
         decode, serving, transformer as tf)
     from k8s_gpu_workload_enhancer_tpu_torch.ops import (
-        attention as attn_mod, flash_attention as flash, fused_ce, kernels,
-        paged_attention as paged, rms, rope)
+        attention as attn_mod, embed, flash_attention as flash, fused_ce,
+        kernels, paged_attention as paged, relayout, rms, rope)
     from k8s_gpu_workload_enhancer_tpu_torch.train import flagship, trainer
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1438,6 +1553,7 @@ def main() -> int:
                                         attn_mod)}
     check_train_kernels(dev, rms, rope, flash, attn_mod, results["kernels"])
     check_flagship_kernels(dev, rope, fused_ce, attn_mod, results["kernels"])
+    check_embed_relayout_kernels(dev, embed, relayout, results["kernels"])
     print(json.dumps({"kernel_checks": results["kernels"]}), flush=True)
     mods = (kernels, rms, rope, flash, paged, tf, decode, serving, serve)
     cfg, params, init_s = serve_params(dev, tf, serve)
@@ -1478,7 +1594,8 @@ def main() -> int:
     serving_phases = ("engine", "serve", "paged_engine", "paged_serve")
     train_phases = ("train", "train_stash")
     every = serving_phases + train_phases
-    paths = {"rms_norm": every + ("flagship",), "rope": every,
+    paths = {"embed_gather": every + ("flagship",),
+             "rms_norm": every + ("flagship",), "rope": every,
              "flash_attention": every + ("flagship",),
              "paged_decode": ("paged_engine", "paged_serve"),
              "rms_norm_bwd": train_phases + ("flagship",),
@@ -1486,7 +1603,8 @@ def main() -> int:
              "flash_attention_bwd_dkv": ("train",),
              "flash_attention_bwd_dkv_stash": ("train_stash", "flagship"),
              "rope_t": ("flagship",), "rope_t_inv": ("flagship",),
-             "fused_ce_fwd": ("flagship",), "fused_ce_bwd": ("flagship",)}
+             "fused_ce_fwd": ("flagship",), "fused_ce_bwd": ("flagship",),
+             "relayout_to_t": ("flagship",), "relayout_from_t": ("flagship",)}
     main_path_launches = {}
     for name, on in paths.items():
         for phase in on:
@@ -1513,6 +1631,9 @@ def main() -> int:
         "rope_t_inv": ("rope.cu", "rope_pallas.py:121"),
         "fused_ce_fwd": ("fused_ce.cu", "fused_ce.py:87"),
         "fused_ce_bwd": ("fused_ce.cu", "fused_ce.py:175"),
+        "embed_gather": ("embed.cu", "embed_pallas.py:61"),
+        "relayout_to_t": ("relayout.cu", "relayout.py:56"),
+        "relayout_from_t": ("relayout.cu", "relayout.py:63"),
     }
     fwd_tol = {"atol": BF16_ATOL, "rtol": BF16_RTOL}
     bwd_tol = {"rtol": {str(k).split(".")[-1]: v for k, v in BWD_RTOL.items()},
@@ -1525,10 +1646,12 @@ def main() -> int:
     for name, (source, replaces) in meta.items():
         cases = results["kernels"][name]
         main = cases[0]     # the path's own shape: prefill chunk, decode
-        extra = ({"dense_sdpa_ms": main["dense_sdpa_ms"]}  # step, train step
-                 if "dense_sdpa_ms" in main else {})
+        extra = {k: main[k] for k in ("dense_sdpa_ms", "eager_ms",  # step,
+                                      "eager_is", "library_is")  # train step
+                 if k in main}
+        exact = name.startswith(("rope_t", "embed", "relayout"))
         tolerance = (ce_tol[name] if name in ce_tol else
-                     {"forward": "bit for bit"} if name.startswith("rope_t")
+                     {"forward": "bit for bit"} if exact
                      else {"backward": bwd_tol} if "bwd" in name else
                      {"forward": fwd_tol, "vjp": bwd_tol} if name == "rope"
                      else {"forward": fwd_tol})

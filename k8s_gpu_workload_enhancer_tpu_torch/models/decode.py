@@ -19,13 +19,13 @@ Not ported here: the int8 KV cache and mesh sharding.
 
 from __future__ import annotations
 
-import math
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
 
 from ..ops.attention import apply_rope, attention, rope_frequencies
+from ..ops.embed import embed_tokens
 from ..ops.layers import rms_norm, swiglu
 from ..ops.quant import as_compute
 from . import transformer as tf
@@ -97,7 +97,7 @@ def forward_cached(params: Params, tokens: torch.Tensor, cache: KVCache,
     dt = cfg.dtype
     b, t = tokens.shape
     nh, nkh, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
-    x = params["embed"].to(dt)[tokens.long()] * math.sqrt(d)
+    x = embed_tokens(params["embed"], tokens, d, dt)
     if freqs is None:
         freqs = rope_frequencies(hd, cache.max_seq, cfg.rope_theta, x.device)
     # The write window clamps into the cache like a dynamic_update_slice.

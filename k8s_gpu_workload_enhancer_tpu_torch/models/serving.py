@@ -60,7 +60,6 @@ before it dispatches the next).
 
 from __future__ import annotations
 
-import math
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -70,6 +69,7 @@ import numpy as np
 import torch
 
 from ..ops.attention import NEG_INF, rope_frequencies
+from ..ops.embed import embed_tokens
 from ..ops.layers import rms_norm, swiglu
 from ..ops.paged_attention import paged_decode_attention
 from ..ops.quant import as_compute
@@ -246,7 +246,7 @@ def _decode_step(params: Params, toks: torch.Tensor, pos: torch.Tensor,
     dt = cfg.dtype
     b = toks.shape[0]
     nh, nkh, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
-    x = params["embed"].to(dt)[toks] * math.sqrt(d)                # (B, D)
+    x = embed_tokens(params["embed"], toks, d, dt)                 # (B, D)
     for layer in range(cfg.n_layers):
         lp = tf.layer_params(params, layer)
         h = rms_norm(x, lp["ln1"])

@@ -10,19 +10,20 @@ norms and softmax statistics in f32, logits are returned in f32.
 Training: `loss_fn` is the next-token loss through the fused LM-head
 cross-entropy (ops/fused_ce.py) where the reference's gate takes it
 (`ce_fused`, `ce_cache_logits` and `fused_ce_supported`), else the chunked
-one (ops/chunked_ce.py), differentiable end to end: RMSNorm, RoPE and
-attention run their forward and backward kernels on the card, the FFN the
-lean SwiGLU backward, and `remat` / `remat_ffn` recompute a layer or its
-FFN in the backward (torch.utils.checkpoint). Attention takes the
-reference's t-layout path where its gate (`_t_layout_ok`) holds: RoPE
-writes the flash kernels' flat (B*H, S, D) layout and attention runs on it.
+one (ops/chunked_ce.py), differentiable end to end: the embedding
+gather (ops/embed.py), RMSNorm, RoPE and attention run their kernels on
+the card, the FFN the lean SwiGLU backward, and `remat` / `remat_ffn`
+recompute a layer or its FFN in the backward (torch.utils.checkpoint).
+Attention takes the reference's t-layout path where its gate
+(`_t_layout_ok`) holds: RoPE writes the flash kernels' flat (B*H, S, D)
+layout, v goes into it and the output comes out of it through the
+relayout kernels (ops/relayout.py), and attention runs on it.
 
 Not ported here: MoE, ring attention and meshes.
 """
 
 from __future__ import annotations
 
-import math
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
@@ -32,10 +33,12 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import (apply_rope, apply_rope_t, attention,
                              rope_frequencies)
+from ..ops.embed import embed_tokens
 from ..ops.flash_attention import flash_attention_t, flash_supported
 from ..ops.fused_ce import fused_ce_supported, fused_lm_head_xent
 from ..ops.layers import cross_entropy_loss, rms_norm, swiglu, swiglu_lean
 from ..ops.quant import as_compute, is_quantized
+from ..ops.relayout import from_t_layout, to_t_layout
 from ..ops.rope import rope_supported
 
 Params = Dict[str, Any]
@@ -235,14 +238,13 @@ def _attention_block(x: torch.Tensor, lp: Params, cfg: TransformerConfig,
     v = (h @ as_compute(lp["wv"], dt).reshape(d, nkh * hd)
          ).reshape(bsz, slen, nkh, hd)
     if _t_layout_ok(q, cfg, position_offset):
-        # RoPE emits (B*H, S, D) and flash keeps its residuals there; v and
-        # the output take plain transposes, as they are plain XLA in the
-        # reference.
+        # RoPE emits (B*H, S, D) and flash keeps its residuals there; v
+        # goes into that layout and the output comes back through the
+        # relayout kernels (the reference's transposes).
         qt = apply_rope_t(q, freqs)
         kt = apply_rope_t(k, freqs)
-        vt = v.transpose(1, 2).contiguous().view(bsz * nh, slen, hd)
-        ot = flash_attention_t(qt, kt, vt, True)
-        o = ot.reshape(bsz, nh, slen, hd).permute(0, 2, 1, 3)
+        ot = flash_attention_t(qt, kt, to_t_layout(v), True)
+        o = from_t_layout(ot, bsz, nh)
     else:
         q = apply_rope(q, freqs, position_offset)
         k = apply_rope(k, freqs, position_offset)
@@ -282,7 +284,7 @@ def forward_hidden(params: Params, tokens: torch.Tensor,
     if cfg.is_moe:
         raise NotImplementedError("MoE layers (n_experts > 0) are not ported "
                                   "(ROADMAP A11)")
-    x = params["embed"].to(cfg.dtype)[tokens.long()] * math.sqrt(cfg.d_model)
+    x = embed_tokens(params["embed"], tokens, cfg.d_model, cfg.dtype)
     freqs = rope_frequencies(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
                              x.device)
     for layer in range(cfg.n_layers):

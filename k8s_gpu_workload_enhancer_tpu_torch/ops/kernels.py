@@ -59,6 +59,10 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
                  "ktwe_fused_ce_bwd": [_P] * 7 + [_I] * 5 + [_P]},
     "paged_decode": {"ktwe_paged_decode_fwd": [
         _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P]},
+    "embed": {"ktwe_embed_gather": [_P, _P, _P] + [_LL] * 5
+              + [_I, _F] + [_I] * 5 + [_P]},
+    "relayout": {"ktwe_relayout": [_P, _P, _LL, _LL, _LL] + [_I] * 4
+                 + [_P]},
 }
 
 launches: collections.Counter = collections.Counter()

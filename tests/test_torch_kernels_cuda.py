@@ -17,8 +17,8 @@ import pytest
 import torch
 
 from k8s_gpu_workload_enhancer_tpu_torch.ops import (
-    attention, flash_attention as flash, fused_ce, kernels,
-    paged_attention as paged, rms, rope)
+    attention, embed, flash_attention as flash, fused_ce, kernels,
+    paged_attention as paged, relayout, rms, rope)
 
 pytestmark = pytest.mark.cuda
 
@@ -329,7 +329,8 @@ def test_train_step_on_the_card_matches_the_cpu(dev):
         out[where] = (loss.item(), [g.cpu() for g in grads],
                       dict(kernels.launches))
     assert out["cpu"][2] == {}
-    assert out["cuda"][2] == {"rms_norm": 5, "rms_norm_bwd": 5, "rope": 8,
+    assert out["cuda"][2] == {"embed_gather": 1, "rms_norm": 5,
+                              "rms_norm_bwd": 5, "rope": 8,
                               "flash_attention": 2,
                               "flash_attention_bwd_dq": 2,
                               "flash_attention_bwd_dkv_stash": 2}
@@ -486,11 +487,141 @@ def test_flagship_layout_train_step_on_the_card_matches_the_cpu(dev):
         out[where] = (loss.item(), [g.cpu() for g in grads],
                       dict(kernels.launches))
     assert out["cpu"][2] == {}
-    assert out["cuda"][2] == {"rms_norm": 5, "rms_norm_bwd": 5, "rope_t": 4,
-                              "rope_t_inv": 4, "flash_attention": 2,
+    assert out["cuda"][2] == {"embed_gather": 1, "rms_norm": 5,
+                              "rms_norm_bwd": 5, "rope_t": 4,
+                              "rope_t_inv": 4, "relayout_to_t": 4,
+                              "relayout_from_t": 4, "flash_attention": 2,
                               "flash_attention_bwd_dq": 2,
                               "flash_attention_bwd_dkv_stash": 2,
                               "fused_ce_fwd": 1, "fused_ce_bwd": 1}
     assert out["cuda"][0] == pytest.approx(out["cpu"][0], rel=1e-5)
     for a, w in zip(out["cuda"][1], out["cpu"][1]):
         assert float((a - w).norm() / w.norm().clamp_min(1e-12)) < 1e-3
+
+
+# ---------------------------------------------------------------------------
+# The embedding gather and the relayouts: both move or scale bits exactly,
+# so each kernel equals its plain version bit for bit.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("round_rows", [False, True])
+@pytest.mark.parametrize("table_dtype,out_dtype", [
+    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16),
+    (torch.float32, torch.float32), (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("v,d,ids_shape", [
+    (32768, 2048, (8,)),                # a decode step
+    (32768, 2048, (1, 128)),            # a prefill chunk
+    (32768, 2048, (8, 2048)),           # a flagship microbatch
+    (300, 203, (3, 17)),                # a ragged width (scalar path)
+])
+def test_embed_kernel_matches_plain(dev, round_rows, table_dtype, out_dtype,
+                                    v, d, ids_shape):
+    table = (0.02 * _randn(dev, v, d)).to(table_dtype)
+    g = torch.Generator(device=dev).manual_seed(3)
+    for id_dtype in (torch.int32, torch.int64):
+        ids = torch.randint(0, v, ids_shape, device=dev, generator=g,
+                            dtype=id_dtype)
+        ids.view(-1)[:4] = torch.tensor([0, v - 1, 0, v - 1], device=dev)
+        kernels.reset_launches()
+        got = embed.embed_gather(table, ids, 45.25, out_dtype, round_rows)
+        torch.cuda.synchronize()
+        assert dict(kernels.launches) == {"embed_gather": 1}
+        assert got.shape == (*ids_shape, d) and got.dtype == out_dtype
+        assert torch.equal(got, embed.embed_gather_plain(
+            table, ids, 45.25, out_dtype, round_rows))
+
+
+def test_embed_kernel_reads_strided_and_wild_ids(dev):
+    """tokens[:, :-1] through its strides, and ids out of range clamped
+    like the JAX model's gather."""
+    v, d = 64, 256
+    table = _randn(dev, v, d)
+    toks = torch.randint(0, v, (4, 33), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(4))
+    view = toks[:, :-1]
+    assert not view.is_contiguous()
+    got = embed.embed_tokens(table, view, 2048, torch.bfloat16)
+    assert torch.equal(got, embed.embed_gather_plain(
+        table, view, embed.embed_scale(2048, torch.bfloat16),
+        torch.bfloat16, True))
+    wild = torch.tensor([[0, v - 1, v, v + 5, -1, -v, -v - 3, 2 * v]],
+                        device=dev)
+    assert torch.equal(embed.embed_gather(table, wild, 0.5, torch.float32),
+                       embed.embed_gather_plain(table, wild, 0.5,
+                                                torch.float32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_embed_autograd_on_the_card_matches_the_cpu(dev, dtype):
+    """The model's embedding and `embed_lookup`: forward bit for bit and
+    the VJP (plain torch) against the same ops on the CPU."""
+    v, d = 64, 512
+    table = _randn(dev, v, d).requires_grad_()
+    ids = torch.randint(0, v, (2, 16), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(5))
+    gy = _randn(dev, 2, 16, d, seed=6).to(dtype)
+    tc = table.detach().cpu().requires_grad_()
+    for fn in (lambda t, i: embed.embed_tokens(t, i, 2048, dtype),
+               lambda t, i: embed.embed_lookup(t, i, 1.5, dtype)):
+        kernels.reset_launches()
+        y = fn(table, ids)
+        (dt,) = torch.autograd.grad(y, (table,), gy)
+        assert dict(kernels.launches) == {"embed_gather": 1}
+        yc = fn(tc, ids.cpu())
+        (dtc,) = torch.autograd.grad(yc, (tc,), gy.cpu())
+        assert torch.equal(y.cpu(), yc)
+        # Repeated ids' sums in another order: the backward limits of the
+        # compute dtype.
+        rms_w = float(dtc.norm()) / dtc.numel() ** 0.5
+        torch.testing.assert_close(dt.cpu(), dtc,
+                                   atol=BWD_ATOL_OF_RMS[dtype] * rms_w,
+                                   rtol=BWD_RTOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 2048, 4, 512), (1, 512, 4, 512),
+                                   (3, 5, 2, 24), (2, 7, 3, 13)])
+def test_relayout_kernels_match_plain(dev, dtype, shape):
+    b, s, h, d = shape
+    x = _randn(dev, *shape, dtype=dtype)
+    g = _randn(dev, b * h, s, d, dtype=dtype, seed=1)
+    kernels.reset_launches()
+    xt = relayout.to_t_forward(x)
+    gb = relayout.from_t_forward(g, b, h)
+    torch.cuda.synchronize()
+    assert dict(kernels.launches) == {"relayout_to_t": 1,
+                                      "relayout_from_t": 1}
+    assert torch.equal(xt, relayout.to_t_layout_plain(x))
+    assert torch.equal(gb, relayout.from_t_layout_plain(g, b, h))
+    # Through autograd: each VJP is the other kernel.
+    xr, gr = x.detach().requires_grad_(), g.detach().requires_grad_()
+    (dx,) = torch.autograd.grad(relayout.to_t_layout(xr), (xr,), g)
+    (dg,) = torch.autograd.grad(relayout.from_t_layout(gr, b, h), (gr,), x)
+    assert torch.equal(dx, gb) and torch.equal(dg, xt)
+
+
+def test_embed_and_relayout_kernels_raise_on_inputs_they_do_not_take(dev):
+    table = _randn(dev, 16, 64)
+    ids = torch.zeros((2, 4), dtype=torch.long, device=dev)
+    with pytest.raises(TypeError):                  # f32 and bf16 tables
+        embed.embed_gather(table.half(), ids, 1.0, torch.float32)
+    with pytest.raises(TypeError):                  # f32 and bf16 outputs
+        embed.embed_gather(table, ids, 1.0, torch.float16)
+    with pytest.raises(ValueError):                 # not contiguous
+        embed.embed_gather(table.t(), ids, 1.0, torch.float32)
+    with pytest.raises(ValueError):                 # ids must be integers
+        embed.embed_gather(table, ids.float(), 1.0, torch.float32)
+    with pytest.raises(ValueError):                 # (B, S) or (B,) ids
+        embed.embed_gather(table, ids[None], 1.0, torch.float32)
+    with pytest.raises(ValueError):                 # ids on the table's card
+        embed.embed_gather(table, ids.cpu(), 1.0, torch.float32)
+    x = _randn(dev, 2, 8, 3, 64)
+    with pytest.raises(ValueError):                 # not contiguous
+        relayout.to_t_forward(x.transpose(1, 2))
+    with pytest.raises(TypeError):                  # f32 and bf16
+        relayout.to_t_forward(x.half())
+    with pytest.raises(ValueError):                 # 4-d into the flat layout
+        relayout.to_t_forward(x[0])
+    with pytest.raises(ValueError):                 # B*H must match
+        relayout.from_t_forward(_randn(dev, 6, 8, 64), 4, 2)
