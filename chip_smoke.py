@@ -58,7 +58,14 @@ inits in bf16:
      through the plain versions; the trainers' losses and grad norms must
      be finite. The backward kernels are held to limits scaled to each
      output's own values (BWD_RTOL, BWD_ATOL_OF_RMS);
-  4. prints the {"kernels": [...]} line, then the result line
+     Every bf16 flash forward of every phase must run the tensor-core
+     (wgmma) body, and no f32 gate's may; the flash library's build
+     seconds, registers, spills and shared memory are printed first;
+  4. opens a torch.profiler window on one step of the trainer main at its
+     defaults and one flagship step of a single microbatch, after the
+     timed phases, and prints the ten device operations with the most
+     self time and the device's idle share in each;
+  5. prints the {"kernels": [...]} line, then the result line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
 Any failed phase exits non-zero before the result line. Without a CUDA card
@@ -74,6 +81,7 @@ import dataclasses
 import gc
 import io
 import json
+import re
 import subprocess
 import sys
 import threading
@@ -208,14 +216,15 @@ def expected_launches(n_layers: int, lifetime: dict,
                       paged: bool = False) -> dict:
     """Kernel launches an engine run must have made: every prefill chunk
     runs one embedding gather, 2L+1 norms, 2L RoPE rotations (q and k) and
-    L flash calls; every decode step one gather, 2L+1 norms and, on the
-    paged engine, L paged decode calls (dense decode RoPE and attention are
-    plain torch)."""
+    L flash calls, all on the tensor-core body (serving is bf16); every
+    decode step one gather, 2L+1 norms and, on the paged engine, L paged
+    decode calls (dense decode RoPE and attention are plain torch)."""
     chunks, steps = lifetime["prefill_chunks"], lifetime["decode_steps"]
     want = {"embed_gather": chunks + steps,
             "rms_norm": (2 * n_layers + 1) * (chunks + steps),
             "rope": 2 * n_layers * chunks,
-            "flash_attention": n_layers * chunks}
+            "flash_attention": n_layers * chunks,
+            "flash_attention_wgmma": n_layers * chunks}
     if paged:
         want["paged_decode"] = n_layers * steps
     return want
@@ -244,6 +253,50 @@ def bwd_errors(got: torch.Tensor, want: torch.Tensor):
         / max(1, want.numel()) ** 0.5
     return errors(got, want, BWD_ATOL_OF_RMS[want.dtype] * rms_w,
                   BWD_RTOL[want.dtype])
+
+
+def ptxas_entries(log: str) -> list:
+    """Each kernel of a library's build log (`nvcc -Xptxas -v`): its name,
+    registers at launch, spill bytes and static shared memory."""
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            shape = re.search(r"ShapeILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E", name)
+            if shape:
+                name = ("flash_fwd_wgmma_kernel<d<=%s, %s query rows, %s keys,"
+                        " %s stage(s)>" % shape.groups())
+            elif "flash_fwd_kernelIf" in name:
+                name = "flash_fwd_kernel<float>"
+            cur = dict(kernel=name)
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur.update(spill_stores=int(m.group(1)),
+                       spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            cur["static_smem_bytes"] = int(m.group(1))
+    return out
+
+
+def flash_body(flash, dtype, d: int) -> dict:
+    """Which forward body `ktwe_flash_attention_fwd` runs for dtype and
+    head_dim, and the dynamic shared memory a block of it takes."""
+    lib = flash.kernels.library("flash_attention")
+    smem = lib.ktwe_flash_attention_smem(d, flash.kernels.DTYPE_CODES[dtype])
+    if dtype != torch.bfloat16:
+        return dict(body="f32 pipes", dynamic_smem_bytes=smem)
+    return dict(body="wgmma", instance="d<=128" if d <= 128 else "d<=512",
+                dynamic_smem_bytes=smem)
 
 
 # ---------------------------------------------------------------------------
@@ -340,8 +393,9 @@ def check_kernels(dev, rms, rope, flash, paged, attn_mod) -> dict:
         def kernel():
             return flash.flash_attention(q, k, v, True, q_off, 0)
         cases.append(dict(shape=dict(b=b, sq=sq, sk=sk, h=hh, kh=kh, d=dd),
-                          q_offset=q_off, dtype="bfloat16", max_abs_err=ea,
-                          max_rel_err=er, ok=ok,
+                          q_offset=q_off, dtype="bfloat16",
+                          **flash_body(flash, q.dtype, dd),
+                          max_abs_err=ea, max_rel_err=er, ok=ok,
                           ms=device_ms(kernel), wrapper_ms=wrapper_ms(kernel),
                           plain_ms=device_ms(
                               lambda: flash.flash_attention_plain(
@@ -648,8 +702,9 @@ def check_train_kernels(dev, rms, rope, flash, attn_mod, out: dict) -> dict:
         it = dict(iters=2, replays=2)
         out["flash_attention"].append(dict(
             case=name, shape=dict(b=bb, sq=s, sk=s, h=hh, kh=hh, d=dd),
-            q_offset=0, dtype="bfloat16", max_abs_err=ea, max_rel_err=er,
-            ok=ok,
+            q_offset=0, dtype="bfloat16",
+            **flash_body(flash, q.dtype, dd), max_abs_err=ea,
+            max_rel_err=er, ok=ok,
             ms=device_ms(lambda: flash.flash_attention(q, k, v, True), **it),
             wrapper_ms=wrapper_ms(lambda: flash.flash_attention(q, k, v, True),
                                   iters=3, warmup=1),
@@ -1226,6 +1281,7 @@ def run_serve(serve, kernels, paged: bool = False) -> dict:
     argv = ["--device", "cuda", "--port", "0", "--seed", "0"]
     if paged:
         argv += ["--kv-block-len", str(KV_BLOCK_LEN)]
+    allocated_before = torch.cuda.memory_allocated()
     kernels.reset_launches()
     th = threading.Thread(target=lambda: rc.update(rc=serve.main(
         argv, stop=stop, on_ready=on_ready)), daemon=True)
@@ -1280,6 +1336,8 @@ def run_serve(serve, kernels, paged: bool = False) -> dict:
         th.join(120)
     if th.is_alive() or rc.get("rc") != 0:
         fail(f"serve main did not drain and exit 0: {rc}")
+    # Read without a gc.collect(): what main() leaves on the card.
+    retained_gb = (torch.cuda.memory_allocated() - allocated_before) / 1e9
     kv = metrics["kv_cache"]
     if paged and kv["matched_tokens_total"] < SHARED_PREFIX:
         fail(f"paged serve reused no prefix: {kv}")
@@ -1289,6 +1347,7 @@ def run_serve(serve, kernels, paged: bool = False) -> dict:
                 kv_cache={k: kv[k] for k in ("paged", "block_len",
                                              "matched_tokens_total",
                                              "prefix_hit_rate")},
+                retained_after_return_gb=retained_gb,
                 launches=dict(kernels.launches))
 
 
@@ -1298,10 +1357,11 @@ def run_serve(serve, kernels, paged: bool = False) -> dict:
 
 
 def per_step_launches(n_layers: int, stash: bool, flagship: bool = False,
-                      microbatches: int = 1) -> dict:
+                      microbatches: int = 1, bf16: bool = True) -> dict:
     """Kernel launches of one train step of the dense model: per microbatch
     one embedding gather, 2L+1 norms forward and backward, q and k rotated
-    forward and back, L flash forward, dQ and dK/dV calls (the stash dK/dV
+    forward and back, L flash forward (in bf16 every one on the
+    tensor-core body, in f32 none), dQ and dK/dV calls (the stash dK/dV
     kernel when the p/ds stash fits under its gate, else the recompute
     one). On the flagship's paths the rotations are the t-layout pair (2L
     each way), v and the attention output pass the relayout pair (L each
@@ -1312,6 +1372,8 @@ def per_step_launches(n_layers: int, stash: bool, flagship: bool = False,
             "flash_attention": n_layers, "flash_attention_bwd_dq": n_layers,
             ("flash_attention_bwd_dkv_stash" if stash
              else "flash_attention_bwd_dkv"): n_layers}
+    if bf16:
+        want["flash_attention_wgmma"] = n_layers
     if flagship:
         want.update(rope_t=2 * n_layers, rope_t_inv=2 * n_layers,
                     relayout_to_t=2 * n_layers, relayout_from_t=2 * n_layers,
@@ -1371,7 +1433,10 @@ def run_train_gate(dev, mods, dims=GATE_DIMS, batch=GATE_BATCH,
                leaf_rtol=GATE_LEAF_RTOL)
     for path, (k_loss, k_grads, launches) in runs.items():
         want = per_step_launches(cfg.n_layers, stash=path == "stash",
-                                 flagship=flagship)
+                                 flagship=flagship, bf16=False)
+        if launches.get("flash_attention_wgmma", 0):
+            fail(f"f32 gate step ({path}) ran the bf16 tensor-core flash "
+                 f"body: {launches}")
         if launches != want:
             fail(f"f32 gate step ({path}) launched {launches}, want {want}")
         loss_rel = abs(k_loss - p_loss) / abs(p_loss)
@@ -1399,8 +1464,7 @@ def run_trainer(trainer_cli, kernels, batch: int, steps: int,
     """The port's trainer main in-process at its defaults (bf16 on the
     card), with the launch counters set to 0 just before it starts and
     read after every step and when it returns."""
-    gc.collect()     # garbage in reference cycles left by earlier phases
-    torch.cuda.empty_cache()
+    freed_gb = collect_garbage()
     torch.cuda.reset_peak_memory_stats()
     snaps, losses, gnorms = [], [], []
 
@@ -1448,9 +1512,19 @@ def run_trainer(trainer_cli, kernels, batch: int, steps: int,
                 achieved_tflops=final["achieved_tflops"],
                 mfu_pct=final["mfu_pct"], mfu_peak_tflops=989.0,
                 max_memory_allocated_gb=torch.cuda.max_memory_allocated()
-                / 1e9,
+                / 1e9, freed_by_gc_collect_gb=freed_gb,
                 losses=losses, grad_norms=gnorms,
                 launches_per_step=per_step[0], launches=launches)
+
+
+def collect_garbage() -> float:
+    """gc.collect() before a phase's peak reset, so garbage that earlier
+    phases left in reference cycles does not count; returns the GB of
+    device memory it freed."""
+    before = torch.cuda.memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return (before - torch.cuda.memory_allocated()) / 1e9
 
 
 def run_flagship(kernels, trainer, flagship) -> dict:
@@ -1458,8 +1532,7 @@ def run_flagship(kernels, trainer, flagship) -> dict:
     and depth (bf16 on the card), cut to batch 32 (4 microbatches of 8) a
     step; launch counters set to 0 just before it and read after every
     step and when it returns."""
-    gc.collect()     # garbage in reference cycles left by earlier phases
-    torch.cuda.empty_cache()
+    freed_gb = collect_garbage()
     torch.cuda.reset_peak_memory_stats()
     model_cfg, train_cfg = flagship.flagship_configs(
         batch_size=FLAGSHIP_BATCH, grad_accum=FLAGSHIP_ACCUM)
@@ -1505,9 +1578,79 @@ def run_flagship(kernels, trainer, flagship) -> dict:
                 achieved_tflops=res["achieved_tflops"],
                 mfu_pct=res["mfu_pct"], mfu_peak_tflops=989.0,
                 max_memory_allocated_gb=torch.cuda.max_memory_allocated()
-                / 1e9,
+                / 1e9, freed_by_gc_collect_gb=freed_gb,
                 losses=losses, grad_norms=gnorms,
                 launches_per_step=per_step[0], launches=launches)
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: where a step's device time goes
+# ---------------------------------------------------------------------------
+
+
+def profile_window(run) -> dict:
+    """torch.profiler over one training step. `run(on_step)` trains two
+    steps and calls on_step(i, metrics) after each (a step ends in a host
+    read of its loss); the window opens after step 0 and closes after step
+    1, outside every timed phase. Returns the ten device operations with
+    the most self time under the profiler's names, the flash forward's
+    total, and the device's idle share: 1 - (union of device activity) /
+    (the window's host wall time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    marks = {}
+
+    def on_step(i, metrics):
+        torch.cuda.synchronize()
+        if i == 0:
+            prof.start()
+            marks["start"] = time.perf_counter()
+        elif i == 1:
+            marks["end"] = time.perf_counter()
+            prof.stop()
+    rc = run(on_step)
+    if isinstance(rc, int) and rc != 0:
+        fail(f"profiled run exited {rc}")
+    window_ms = (marks["end"] - marks["start"]) * 1e3
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        t0, t1 = e.time_range.start, e.time_range.end
+        spans.append((t0, t1))
+        by_name[e.name] = by_name.get(e.name, 0.0) + (t1 - t0) / 1e3
+    busy_us, reach = 0.0, float("-inf")
+    for t0, t1 in sorted(spans):
+        if t1 > reach:
+            busy_us += t1 - max(t0, reach)
+            reach = t1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    return dict(window_ms=window_ms, device_ops=len(spans),
+                device_busy_ms=busy_us / 1e3,
+                idle_share=1.0 - busy_us / 1e3 / window_ms,
+                flash_fwd_ms=sum(ms for n, ms in by_name.items()
+                                 if "flash_fwd" in n),
+                top=[dict(name=n[:160], self_ms=ms, share=ms / window_ms)
+                     for n, ms in top])
+
+
+def profile_steps(trainer_cli, trainer, flagship) -> dict:
+    """The profiler window on a step of the trainer main at its defaults
+    and on a flagship step of one microbatch of 8 (grad_accum 1)."""
+    collect_garbage()
+    argv = ["--device", "cuda", "--steps", "2", "--batch-size",
+            str(TRAIN_BATCH), "--seed", "0"]
+    with contextlib.redirect_stdout(io.StringIO()):
+        train = profile_window(
+            lambda cb: trainer_cli.main(argv, callback=cb))
+    collect_garbage()
+    model_cfg, train_cfg = flagship.flagship_configs(
+        batch_size=FLAGSHIP_MICRO, grad_accum=1)
+    micro = profile_window(lambda cb: trainer.train_loop(
+        model_cfg, train_cfg, num_steps=2, callback=cb, device="cuda"))
+    collect_garbage()
+    return {"train_step": train, "flagship_microbatch": micro}
 
 
 # ---------------------------------------------------------------------------
@@ -1548,6 +1691,18 @@ def main() -> int:
         for line in kernels.build_log(name).splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"ptxas[{name}]: {line.strip()}", flush=True)
+    src = (kernels.CSRC / "flash_attention.cu").read_text()
+    regs = {k: int(re.search(rf"{k} = (\d+);", src).group(1))
+            for k in ("kProducerRegs", "kConsumerRegs")}
+    print(json.dumps({"flash_attention_build": {
+        "build_s": per_lib["flash_attention"],
+        "kernels": ptxas_entries(kernels.build_log("flash_attention")),
+        "setmaxnreg": regs,
+        "bodies": [dict(dtype=str(dt).split(".")[-1], d=d,
+                        **flash_body(flash, dt, d))
+                   for dt, d in ((torch.bfloat16, 128),
+                                 (torch.bfloat16, 512),
+                                 (torch.float32, 512))]}}), flush=True)
 
     results = {"kernels": check_kernels(dev, rms, rope, flash, paged,
                                         attn_mod)}
@@ -1577,11 +1732,13 @@ def main() -> int:
         if got != want:
             fail(f"{phase} launches {got}, its chunks and steps need {want}")
     gate_mods = (kernels, rms, rope, flash, tf, trainer)
-    gate = run_train_gate(dev, gate_mods)
-    print(json.dumps({"train_gate_f32": gate}), flush=True)
-    gate = run_train_gate(dev, gate_mods, FLAGSHIP_GATE_DIMS,
-                          FLAGSHIP_GATE_BATCH, flagship=True)
-    print(json.dumps({"flagship_gate_f32": gate}), flush=True)
+    results["train_gate_f32"] = run_train_gate(dev, gate_mods)
+    print(json.dumps({"train_gate_f32": results["train_gate_f32"]}),
+          flush=True)
+    results["flagship_gate_f32"] = run_train_gate(
+        dev, gate_mods, FLAGSHIP_GATE_DIMS, FLAGSHIP_GATE_BATCH, flagship=True)
+    print(json.dumps({"flagship_gate_f32": results["flagship_gate_f32"]}),
+          flush=True)
     results["train"] = run_trainer(trainer_cli, kernels, TRAIN_BATCH,
                                    TRAIN_STEPS, stash=False)
     print(json.dumps({"train": results["train"]}), flush=True)
@@ -1590,6 +1747,8 @@ def main() -> int:
     print(json.dumps({"train_stash": results["train_stash"]}), flush=True)
     results["flagship"] = run_flagship(kernels, trainer, flagship)
     print(json.dumps({"flagship": results["flagship"]}), flush=True)
+    results["profile"] = profile_steps(trainer_cli, trainer, flagship)
+    print(json.dumps({"profile": results["profile"]}), flush=True)
 
     serving_phases = ("engine", "serve", "paged_engine", "paged_serve")
     train_phases = ("train", "train_stash")
@@ -1605,6 +1764,23 @@ def main() -> int:
              "rope_t": ("flagship",), "rope_t_inv": ("flagship",),
              "fused_ce_fwd": ("flagship",), "fused_ce_bwd": ("flagship",),
              "relayout_to_t": ("flagship",), "relayout_from_t": ("flagship",)}
+    # Every bf16 flash forward ran the tensor-core body; the f32 gates none.
+    bodies = {}
+    for phase in every + ("flagship",):
+        n = results[phase]["launches"]
+        bodies[phase] = [n.get("flash_attention_wgmma", 0),
+                         n.get("flash_attention", 0)]
+        if bodies[phase][0] != bodies[phase][1]:
+            fail(f"{phase}: {bodies[phase][0]} of {bodies[phase][1]} bf16 "
+                 f"flash forwards ran the wgmma body")
+    for gate in ("train_gate_f32", "flagship_gate_f32"):
+        for path in ("stash", "recompute"):
+            n = results[gate][path]["launches"]
+            bodies[f"{gate}/{path}"] = [n.get("flash_attention_wgmma", 0),
+                                        n.get("flash_attention", 0)]
+            if bodies[f"{gate}/{path}"][0]:
+                fail(f"{gate} ({path}) ran the bf16 wgmma body")
+    print(json.dumps({"flash_bodies_wgmma_of_all": bodies}), flush=True)
     main_path_launches = {}
     for name, on in paths.items():
         for phase in on:
@@ -1649,6 +1825,10 @@ def main() -> int:
         extra = {k: main[k] for k in ("dense_sdpa_ms", "eager_ms",  # step,
                                       "eager_is", "library_is")  # train step
                  if k in main}
+        if name == "flash_attention":
+            extra["wgmma_launches"] = sum(
+                results[phase]["launches"].get("flash_attention_wgmma", 0)
+                for phase in paths[name])
         exact = name.startswith(("rope_t", "embed", "relayout"))
         tolerance = (ce_tol[name] if name in ce_tol else
                      {"forward": "bit for bit"} if exact

@@ -14,6 +14,9 @@ Endpoints: POST /v1/generate {"prompt": [ids], "maxNewTokens": N,
 "requestId"} line per batch of new tokens and then the final view. A
 timeout or an abandoned stream CANCELS the request, freeing its slot.
 A full queue answers 429 with Retry-After. GET /v1/metrics, GET /health.
+With a bearer token (--auth-token, $KTWE_AUTH_TOKEN or the file at
+$KTWE_AUTH_TOKEN_FILE, which must be readable when set) every route but
+/health answers 401 without `Authorization: Bearer <token>`.
 
 --kv-block-len N > 0 serves from the paged KV engine: pages of N tokens,
 reserved per request, with automatic radix prefix reuse; /v1/metrics then
@@ -46,7 +49,8 @@ from ..models import serving
 from ..models import transformer as tf
 from ..ops.quant import quantize_params
 from ..utils.device import resolve_device
-from ..utils.httpjson import StatusError, make_json_handler
+from ..utils.httpjson import (StatusError, make_json_handler,
+                              resolve_auth_token)
 from ..utils.stats import LatencyWindow
 
 # The serve defaults of the JAX package's knob registry
@@ -57,7 +61,7 @@ DEFAULTS = dict(port=8000, vocab_size=32768, d_model=2048,
                 max_queue=64, prefill_interleave=2, eos_id=-1,
                 drain_timeout=30.0, temperature=0.0, top_k=0, top_p=1.0,
                 enable_top_p=False, kv_block_len=0, kv_num_blocks=0,
-                device="cuda", seed=0)
+                device="cuda", seed=0, auth_token="")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -108,6 +112,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", type=str,
                    help="cuda (default; raises without a card) or cpu")
     p.add_argument("--seed", type=int, help="seed of the random init")
+    p.add_argument("--auth-token", type=str,
+                   help="shared bearer token required on every route but "
+                        "/health (else $KTWE_AUTH_TOKEN, else the file "
+                        "at $KTWE_AUTH_TOKEN_FILE; empty = no auth)")
     p.set_defaults(**DEFAULTS)
     return p
 
@@ -363,14 +371,17 @@ def main(argv=None, *, stop: Optional[threading.Event] = None,
         # A pool size without a page size would silently build the dense
         # engine; fail fast instead.
         parser.error("--kv-num-blocks requires --kv-block-len > 0")
+    auth_token = resolve_auth_token(args.auth_token)
     engine = build_engine(args)
     service = ServeService(engine, drain_timeout=args.drain_timeout)
     handler = make_json_handler(
         {"/v1/generate": service.generate, "/v1/metrics": service.metrics},
-        get_routes={"/v1/metrics": service.metrics, "/health": service.health})
+        get_routes={"/v1/metrics": service.metrics, "/health": service.health},
+        auth_token=auth_token)
     server = ThreadingHTTPServer(("0.0.0.0", args.port), handler)
-    threading.Thread(target=server.serve_forever, daemon=True,
-                     name="ktwe-serve-http").start()
+    http_thread = threading.Thread(target=server.serve_forever, daemon=True,
+                                   name="ktwe-serve-http")
+    http_thread.start()
     port = server.server_address[1]
     print(f"ktwe-serve-torch up on :{port} ({engine.device})", flush=True)
     if stop is None:
@@ -394,6 +405,7 @@ def main(argv=None, *, stop: Optional[threading.Event] = None,
         service.stop()
         server.shutdown()
         server.server_close()
+        http_thread.join()   # its bound serve_forever holds the server
     return 0
 
 

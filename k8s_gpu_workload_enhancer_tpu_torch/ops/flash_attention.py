@@ -33,6 +33,9 @@ from . import kernels
 from .attention import NEG_INF, attention, repeat_kv
 
 KERNEL = "flash_attention"
+# The tensor-core body (wgmma + TMA) that every bf16 forward launch runs;
+# f32 runs the f32-pipe body. `KERNEL` counts both.
+KERNEL_WGMMA = "flash_attention_wgmma"
 KERNEL_BWD_DQ = "flash_attention_bwd_dq"
 KERNEL_BWD_DKV = "flash_attention_bwd_dkv"
 KERNEL_BWD_DKV_STASH = "flash_attention_bwd_dkv_stash"
@@ -143,6 +146,8 @@ def _flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             kernels.stream_handle(q))
         kernels.check(lib, KERNEL, code)
         kernels.launches[KERNEL] += 1
+        if q.dtype == torch.bfloat16:   # the launcher's choice of body
+            kernels.launches[KERNEL_WGMMA] += 1
     elif q.numel():
         raise ValueError("flash_attention needs at least one key")
     return (out, lse) if return_lse else out

@@ -6,7 +6,7 @@ ctypes. Nothing here runs at import time: the first launch on a CUDA
 tensor builds the library it needs (seconds per source), and `build()`
 compiles several at once, one `nvcc` process per source. Libraries are
 cached in `build/kernels/` at the root of the checkout under a name that
-hashes the source, the shared header and the compiler flags, so an edited
+hashes the source, the shared headers and the compiler flags, so an edited
 source rebuilds and an unchanged one loads as it is.
 
 `launches` counts kernel launches by name. A wrapper adds one exactly where
@@ -48,7 +48,7 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
              "ktwe_rope_t": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _P]},
     "flash_attention": {"ktwe_flash_attention_fwd": [
         _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _LL, _LL, _F, _I,
-        _I, _P]},
+        _I, _P], "ktwe_flash_attention_smem": [_I, _I]},
     "flash_attention_bwd": {
         "ktwe_flash_bwd_dq": [_P] * 9 + [_I] * 6 + [_LL, _LL, _F, _I, _I, _P],
         "ktwe_flash_bwd_dkv": [_P] * 8 + [_I] * 6 + [_LL, _LL, _F, _I, _I,
@@ -86,7 +86,7 @@ def _nvcc() -> str:
 def library_path(name: str) -> Path:
     """Where `name`'s compiled library lives for the current sources."""
     h = hashlib.sha256()
-    for part in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+    for part in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         h.update(part.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"

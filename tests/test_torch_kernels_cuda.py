@@ -74,6 +74,16 @@ def test_rope_kernel_matches_plain(dev, dtype, shape, offset):
     (2, 1, 64, 4, 2, 256, True, 40, 0),        # decode row, GQA
     (2, 19, 45, 4, 2, 72, False, 0, 0),        # ragged, not causal
     (1, 16, 32, 2, 2, 64, True, 0, 40),        # every row fully masked
+    (2, 100, 100, 4, 2, 64, True, 0, 0),       # Sq 100: both tile tails, GQA
+    (1, 2048, 2048, 2, 2, 128, True, 0, 0),    # the trainer's head_dim, long
+    (1, 100, 237, 4, 2, 128, True, 37, 0),     # offset 37 across a tile edge
+    (1, 100, 300, 2, 1, 128, True, 128, 0),    # offset 128, GQA 2:1
+    (1, 100, 64, 2, 1, 128, True, 0, 50),      # rows 0-49 fully masked
+    (1, 100, 237, 4, 2, 256, True, 37, 0),     # head_dim 256
+    (2, 1, 300, 4, 2, 512, True, 299, 0),      # one query row at 512
+    (1, 2048, 2048, 1, 1, 512, True, 0, 0),    # the flagship's flat head
+    (1, 100, 180, 2, 2, 512, False, 0, 0),     # 512, not causal, ragged
+    (1, 16, 64, 2, 2, 512, True, 0, 40),       # 512, every row masked
 ])
 def test_flash_kernel_matches_plain(dev, dtype, b, sq, sk, h, kh, d, causal,
                                     q_off, kv_off):
@@ -88,6 +98,20 @@ def test_flash_kernel_matches_plain(dev, dtype, b, sq, sk, h, kh, d, causal,
     assert torch.isfinite(out.float()).all()
     torch.testing.assert_close(out, want, atol=atol, rtol=rtol)
     torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype,body", [(torch.bfloat16, 1),
+                                        (torch.float32, 0)])
+def test_flash_bf16_runs_the_wgmma_body(dev, dtype, body):
+    q = _randn(dev, 1, 64, 2, 128, dtype=dtype, seed=2)
+    k = _randn(dev, 1, 64, 2, 128, dtype=dtype, seed=3)
+    before = dict(kernels.launches)
+    flash.flash_attention(q, k, k)
+    torch.cuda.synchronize()
+    assert (kernels.launches[flash.KERNEL]
+            == before.get(flash.KERNEL, 0) + 1)
+    assert (kernels.launches[flash.KERNEL_WGMMA]
+            == before.get(flash.KERNEL_WGMMA, 0) + body)
 
 
 def _paged_inputs(dev, dtype, b, h, kh, d, bl, s_max, seed=5):
