@@ -59,8 +59,11 @@ inits in bf16:
      be finite. The backward kernels are held to limits scaled to each
      output's own values (BWD_RTOL, BWD_ATOL_OF_RMS);
      Every bf16 flash forward of every phase must run the tensor-core
-     (wgmma) body, and no f32 gate's may; the flash library's build
-     seconds, registers, spills and shared memory are printed first;
+     (wgmma) body, and so must every bf16 dQ and recompute dK/dV launch at
+     head_dim <= 128 (the train phases); no f32 gate's flash kernel may,
+     nor the flagship's head_dim-512 backward. The flash libraries' build
+     seconds, registers, spills and shared memory are printed first, and
+     each backward case names the body that ran it;
   4. opens a torch.profiler window on one step of the trainer main at its
      defaults and one flagship step of a single microbatch, after the
      timed phases, and prints the ten device operations with the most
@@ -151,6 +154,12 @@ LOGITS_ATOL = 0.1
 # root mean square.
 BWD_RTOL = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-5}
 BWD_ATOL_OF_RMS = {torch.bfloat16: 1e-3, torch.float32: 1e-5}
+
+
+# Each flash kernel's count of launches on its bf16 tensor-core body.
+WGMMA_COUNTERS = {"flash_attention": "flash_attention_wgmma",
+                  "flash_attention_bwd_dq": "flash_attention_bwd_dq_wgmma",
+                  "flash_attention_bwd_dkv": "flash_attention_bwd_dkv_wgmma"}
 
 
 def fail(msg: str) -> None:
@@ -264,11 +273,21 @@ def ptxas_entries(log: str) -> list:
         if m:
             name = m.group(1)
             shape = re.search(r"ShapeILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E", name)
+            bwd = re.search(r"(flash_bwd_\w+?_kernel)I(f|13__nv_bfloat16)Li(\d+)E",
+                            name)
+            wgmma = re.search(r"(flash_bwd_(?:dq|dkv)_wgmma_kernel)", name)
             if shape:
                 name = ("flash_fwd_wgmma_kernel<d<=%s, %s query rows, %s keys,"
                         " %s stage(s)>" % shape.groups())
             elif "flash_fwd_kernelIf" in name:
                 name = "flash_fwd_kernel<float>"
+            elif bwd:
+                name = "%s<%s, d<=%s>" % (
+                    bwd.group(1), "float" if bwd.group(2) == "f" else "bf16",
+                    bwd.group(3))
+            elif wgmma:
+                name = ("%s<bf16, d<=128, 128 resident rows, 64-row tiles, "
+                        "2 stages>" % wgmma.group(1))
             cur = dict(kernel=name)
             out.append(cur)
             continue
@@ -652,9 +671,10 @@ def check_train_kernels(dev, rms, rope, flash, attn_mod, out: dict) -> dict:
                 (qt, kt, vt), iters=5 if big else 20)
             del qt, kt, vt
 
-        def case(entry, fn, plain, flops, bts):
+        def case(entry, kernel, fn, plain, flops, bts):
             b_ms, b_by = bound(bts, flops, dt)
             entry.update(case=name, shape=shape, dtype=str(dt).split(".")[-1],
+                         **flash.bwd_body(kernel, dd, dt),
                          rtol=BWD_RTOL[dt], atol_of_rms=BWD_ATOL_OF_RMS[dt],
                          ms=device_ms(fn, **it), wrapper_ms=wrapper_ms(
                              fn, iters=wit, warmup=2),
@@ -664,19 +684,21 @@ def check_train_kernels(dev, rms, rope, flash, attn_mod, out: dict) -> dict:
                          if lib is not None else None)
             return entry
         dq_cases.append(case(
-            e_dq, lambda: flash.flash_bwd_dq(*args, stash=use_stash),
+            e_dq, flash.KERNEL_BWD_DQ,
+            lambda: flash.flash_bwd_dq(*args, stash=use_stash),
             lambda: flash.flash_bwd_dq_plain(*args, stash=use_stash),
             3 * 2.0 * dd * vis, io_bytes + stash_w))
         if use_stash:     # what the recompute path's dQ costs at this shape
             e_dq["ms_without_stash"] = device_ms(
                 lambda: flash.flash_bwd_dq(*args), **it)
         dkv_cases.append(case(
-            e_dkv, lambda: flash.flash_bwd_dkv(*args),
+            e_dkv, flash.KERNEL_BWD_DKV, lambda: flash.flash_bwd_dkv(*args),
             lambda: flash.flash_bwd_dkv_plain(*args),
             4 * 2.0 * dd * vis, io_bytes + 2 * q.numel() * es))
         if use_stash:
             st_cases.append(case(
-                e_st, lambda: flash.flash_bwd_dkv_from_stash(
+                e_st, flash.KERNEL_BWD_DKV_STASH,
+                lambda: flash.flash_bwd_dkv_from_stash(
                     q, k, v, do, p_st, ds_st),
                 lambda: flash.flash_bwd_dkv_from_stash_plain(
                     q, k, v, do, p_st, ds_st),
@@ -1357,16 +1379,19 @@ def run_serve(serve, kernels, paged: bool = False) -> dict:
 
 
 def per_step_launches(n_layers: int, stash: bool, flagship: bool = False,
-                      microbatches: int = 1, bf16: bool = True) -> dict:
+                      microbatches: int = 1, bf16: bool = True,
+                      head_dim: int = 128) -> dict:
     """Kernel launches of one train step of the dense model: per microbatch
     one embedding gather, 2L+1 norms forward and backward, q and k rotated
     forward and back, L flash forward (in bf16 every one on the
     tensor-core body, in f32 none), dQ and dK/dV calls (the stash dK/dV
     kernel when the p/ds stash fits under its gate, else the recompute
-    one). On the flagship's paths the rotations are the t-layout pair (2L
-    each way), v and the attention output pass the relayout pair (L each
-    way forward, L each way back: 2L each) and the loss is one fused CE
-    forward and backward; elsewhere 4L RoPE launches."""
+    one; in bf16 at head_dim <= 128 dQ and the recompute dK/dV on their
+    tensor-core bodies, else none). On the flagship's paths the rotations
+    are the t-layout pair (2L each way), v and the attention output pass
+    the relayout pair (L each way forward, L each way back: 2L each) and
+    the loss is one fused CE forward and backward; elsewhere 4L RoPE
+    launches."""
     want = {"embed_gather": 1,
             "rms_norm": 2 * n_layers + 1, "rms_norm_bwd": 2 * n_layers + 1,
             "flash_attention": n_layers, "flash_attention_bwd_dq": n_layers,
@@ -1374,6 +1399,10 @@ def per_step_launches(n_layers: int, stash: bool, flagship: bool = False,
              else "flash_attention_bwd_dkv"): n_layers}
     if bf16:
         want["flash_attention_wgmma"] = n_layers
+    if bf16 and head_dim <= 128:
+        want["flash_attention_bwd_dq_wgmma"] = n_layers
+        if not stash:
+            want["flash_attention_bwd_dkv_wgmma"] = n_layers
     if flagship:
         want.update(rope_t=2 * n_layers, rope_t_inv=2 * n_layers,
                     relayout_to_t=2 * n_layers, relayout_from_t=2 * n_layers,
@@ -1434,8 +1463,8 @@ def run_train_gate(dev, mods, dims=GATE_DIMS, batch=GATE_BATCH,
     for path, (k_loss, k_grads, launches) in runs.items():
         want = per_step_launches(cfg.n_layers, stash=path == "stash",
                                  flagship=flagship, bf16=False)
-        if launches.get("flash_attention_wgmma", 0):
-            fail(f"f32 gate step ({path}) ran the bf16 tensor-core flash "
+        if any(launches.get(k, 0) for k in WGMMA_COUNTERS.values()):
+            fail(f"f32 gate step ({path}) ran a bf16 tensor-core flash "
                  f"body: {launches}")
         if launches != want:
             fail(f"f32 gate step ({path}) launched {launches}, want {want}")
@@ -1490,7 +1519,8 @@ def run_trainer(trainer_cli, kernels, batch: int, steps: int,
     if not final.get("final") or final.get("steps") != steps - 1:
         fail(f"trainer main printed no final line for {steps} steps: "
              f"{buf.getvalue()[-2000:]}")
-    want = per_step_launches(TRAIN_DIMS["n_layers"], stash)
+    want = per_step_launches(TRAIN_DIMS["n_layers"], stash, head_dim=TRAIN_DIMS[
+        "d_model"] // TRAIN_DIMS["n_heads"])
     prev = {}
     per_step = []
     for snap in snaps:
@@ -1550,7 +1580,8 @@ def run_flagship(kernels, trainer, flagship) -> dict:
     wall = time.perf_counter() - t0
     launches = dict(kernels.launches)
     want = per_step_launches(model_cfg.n_layers, stash=True, flagship=True,
-                             microbatches=FLAGSHIP_ACCUM)
+                             microbatches=FLAGSHIP_ACCUM,
+                             head_dim=model_cfg.d_model // model_cfg.n_heads)
     prev, per_step = {}, []
     for snap in snaps:
         delta = {k: n - prev.get(k, 0) for k, n in snap.items()
@@ -1631,6 +1662,10 @@ def profile_window(run) -> dict:
                 idle_share=1.0 - busy_us / 1e3 / window_ms,
                 flash_fwd_ms=sum(ms for n, ms in by_name.items()
                                  if "flash_fwd" in n),
+                flash_bwd_ms={k: sum(ms for n, ms in by_name.items() if k in n)
+                              for k in ("flash_bwd_dq", "flash_bwd_dkv_wgmma",
+                                        "flash_bwd_dkv_kernel",
+                                        "flash_bwd_dkv_stash")},
                 top=[dict(name=n[:160], self_ms=ms, share=ms / window_ms)
                      for n, ms in top])
 
@@ -1704,6 +1739,15 @@ def main() -> int:
                                  (torch.bfloat16, 512),
                                  (torch.float32, 512))]}}), flush=True)
 
+    print(json.dumps({"flash_attention_bwd_build": {
+        "build_s": per_lib["flash_attention_bwd"],
+        "kernels": ptxas_entries(kernels.build_log("flash_attention_bwd")),
+        "bodies": [dict(kernel=k, dtype=str(dt).split(".")[-1], d=d,
+                        **flash.bwd_body(k, d, dt))
+                   for k in (flash.KERNEL_BWD_DQ, flash.KERNEL_BWD_DKV,
+                             flash.KERNEL_BWD_DKV_STASH)
+                   for dt, d in ((torch.bfloat16, 128), (torch.bfloat16, 512),
+                                 (torch.float32, 128))]}}), flush=True)
     results = {"kernels": check_kernels(dev, rms, rope, flash, paged,
                                         attn_mod)}
     check_train_kernels(dev, rms, rope, flash, attn_mod, results["kernels"])
@@ -1764,22 +1808,32 @@ def main() -> int:
              "rope_t": ("flagship",), "rope_t_inv": ("flagship",),
              "fused_ce_fwd": ("flagship",), "fused_ce_bwd": ("flagship",),
              "relayout_to_t": ("flagship",), "relayout_from_t": ("flagship",)}
-    # Every bf16 flash forward ran the tensor-core body; the f32 gates none.
+    # Every bf16 flash forward ran the tensor-core body, and every bf16 dQ
+    # and recompute dK/dV at head_dim <= 128 (the train phases); none in the
+    # f32 gates or the flagship's head_dim-512 backward.
     bodies = {}
     for phase in every + ("flagship",):
         n = results[phase]["launches"]
-        bodies[phase] = [n.get("flash_attention_wgmma", 0),
-                         n.get("flash_attention", 0)]
-        if bodies[phase][0] != bodies[phase][1]:
-            fail(f"{phase}: {bodies[phase][0]} of {bodies[phase][1]} bf16 "
-                 f"flash forwards ran the wgmma body")
+        for kernel, counter in WGMMA_COUNTERS.items():
+            if kernel != "flash_attention" and phase not in train_phases \
+                    + ("flagship",):
+                continue
+            got = [n.get(counter, 0), n.get(kernel, 0)]
+            bodies[f"{phase}/{kernel}"] = got
+            want = got[1] if (kernel == "flash_attention"
+                              or phase in train_phases) else 0
+            if got[0] != want:
+                fail(f"{phase}: {got[0]} of {got[1]} {kernel} launches ran "
+                     f"the wgmma body, want {want}")
     for gate in ("train_gate_f32", "flagship_gate_f32"):
         for path in ("stash", "recompute"):
             n = results[gate][path]["launches"]
-            bodies[f"{gate}/{path}"] = [n.get("flash_attention_wgmma", 0),
-                                        n.get("flash_attention", 0)]
-            if bodies[f"{gate}/{path}"][0]:
-                fail(f"{gate} ({path}) ran the bf16 wgmma body")
+            for kernel, counter in WGMMA_COUNTERS.items():
+                bodies[f"{gate}/{path}/{kernel}"] = [n.get(counter, 0),
+                                                     n.get(kernel, 0)]
+                if n.get(counter, 0):
+                    fail(f"{gate} ({path}) ran the bf16 wgmma body of "
+                         f"{kernel}")
     print(json.dumps({"flash_bodies_wgmma_of_all": bodies}), flush=True)
     main_path_launches = {}
     for name, on in paths.items():
@@ -1825,10 +1879,13 @@ def main() -> int:
         extra = {k: main[k] for k in ("dense_sdpa_ms", "eager_ms",  # step,
                                       "eager_is", "library_is")  # train step
                  if k in main}
-        if name == "flash_attention":
+        if name in WGMMA_COUNTERS:
             extra["wgmma_launches"] = sum(
-                results[phase]["launches"].get("flash_attention_wgmma", 0)
+                results[phase]["launches"].get(WGMMA_COUNTERS[name], 0)
                 for phase in paths[name])
+        for k in ("body", "instance", "dynamic_smem_bytes"):
+            if k in main:
+                extra[k] = main[k]
         exact = name.startswith(("rope_t", "embed", "relayout"))
         tolerance = (ce_tol[name] if name in ce_tol else
                      {"forward": "bit for bit"} if exact

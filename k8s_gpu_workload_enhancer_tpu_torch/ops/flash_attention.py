@@ -9,6 +9,10 @@ dK/dV either from that stash or recomputed, chosen by the same
 paged engine (ops/paged_attention.py). The kernels are
 csrc/flash_attention.cu and csrc/flash_attention_bwd.cu; their source
 notes say what bounds them on the card and how the designs answer that.
+bf16 calls run tensor-core (wgmma + TMA) bodies: the forward at every
+head_dim, dQ and the recompute dK/dV at head_dim <= 128. `launches` counts
+those launches under KERNEL_WGMMA, KERNEL_BWD_DQ_WGMMA and
+KERNEL_BWD_DKV_WGMMA, beside each kernel's own name.
 
 `flash_attention` is the forward alone (the serving path): it takes any
 Sq >= 1, any Sk, GQA natively (KH dividing H) and a head_dim that is a
@@ -39,6 +43,13 @@ KERNEL_WGMMA = "flash_attention_wgmma"
 KERNEL_BWD_DQ = "flash_attention_bwd_dq"
 KERNEL_BWD_DKV = "flash_attention_bwd_dkv"
 KERNEL_BWD_DKV_STASH = "flash_attention_bwd_dkv_stash"
+# The tensor-core bodies (wgmma + TMA) that bf16 dQ and recompute dK/dV
+# calls at head_dim <= 128 run, counted beside the two names above; which
+# body a call runs is the library's rule (`bwd_body`).
+KERNEL_BWD_DQ_WGMMA = "flash_attention_bwd_dq_wgmma"
+KERNEL_BWD_DKV_WGMMA = "flash_attention_bwd_dkv_wgmma"
+# Kernel codes of the backward library's body queries (csrc's `Which`).
+BWD_CODES = {KERNEL_BWD_DQ: 0, KERNEL_BWD_DKV: 1, KERNEL_BWD_DKV_STASH: 2}
 LSE_MASKED = 1e30
 MAX_HEAD_DIM = 512
 MAX_HEAD_DIM_BWD = 512
@@ -266,6 +277,28 @@ def stash_bytes(q: torch.Tensor, k: torch.Tensor, do: torch.Tensor) -> int:
     return b * h * sq * k.shape[1] * (do.element_size() + q.element_size())
 
 
+def bwd_body(kernel: str, d: int, dtype: torch.dtype) -> dict:
+    """Which body the backward library runs for `kernel` (a KERNEL_BWD_*
+    name) at head_dim `d` and `dtype`, as its launcher decides: wgmma
+    (tensor cores) or the f32 pipes, with the dynamic shared memory a
+    block asks for."""
+    lib = kernels.library("flash_attention_bwd")
+    args = (BWD_CODES[kernel], d, kernels.DTYPE_CODES[dtype])
+    wgmma = bool(lib.ktwe_flash_bwd_wgmma(*args))
+    bound = 128 if wgmma else next(b for b in (64, 128, 256, 512) if d <= b)
+    return dict(body="wgmma" if wgmma else "f32 pipes",
+                instance=f"d<={bound}",
+                dynamic_smem_bytes=lib.ktwe_flash_bwd_smem(*args))
+
+
+def _count_bwd(lib, kernel: str, wgmma_name: str, d: int,
+               dtype: torch.dtype) -> None:
+    kernels.launches[kernel] += 1
+    if lib.ktwe_flash_bwd_wgmma(BWD_CODES[kernel], d,
+                                kernels.DTYPE_CODES[dtype]):
+        kernels.launches[wgmma_name] += 1
+
+
 def _check_bwd(q, k, v, do, lse, delta=None) -> Tuple[int, ...]:
     """Checks shared by the backward wrappers; (b, sq, sk, h, d)."""
     for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
@@ -319,7 +352,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal=True, q_offset=0,
         kernels.DTYPE_CODES[q.dtype], q.device.index or 0,
         kernels.stream_handle(q))
     kernels.check(lib, KERNEL_BWD_DQ, code)
-    kernels.launches[KERNEL_BWD_DQ] += 1
+    _count_bwd(lib, KERNEL_BWD_DQ, KERNEL_BWD_DQ_WGMMA, d, q.dtype)
     return dq, p_st, ds_st
 
 
@@ -336,7 +369,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal=True, q_offset=0,
         float(d ** -0.5), kernels.DTYPE_CODES[q.dtype], q.device.index or 0,
         kernels.stream_handle(q))
     kernels.check(lib, KERNEL_BWD_DKV, code)
-    kernels.launches[KERNEL_BWD_DKV] += 1
+    _count_bwd(lib, KERNEL_BWD_DKV, KERNEL_BWD_DKV_WGMMA, d, q.dtype)
     return dk, dv
 
 

@@ -54,7 +54,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "ktwe_flash_bwd_dkv": [_P] * 8 + [_I] * 6 + [_LL, _LL, _F, _I, _I,
                                                      _P],
         "ktwe_flash_bwd_dkv_stash": [_P] * 6 + [_I] * 6 + [_LL, _LL, _I, _I,
-                                                           _P]},
+                                                           _P],
+        "ktwe_flash_bwd_wgmma": [_I, _I, _I],
+        "ktwe_flash_bwd_smem": [_I, _I, _I]},
     "fused_ce": {"ktwe_fused_ce_fwd": [_P] * 7 + [_I] * 6 + [_P],
                  "ktwe_fused_ce_bwd": [_P] * 7 + [_I] * 5 + [_P]},
     "paged_decode": {"ktwe_paged_decode_fwd": [

@@ -262,6 +262,10 @@ def test_rope_vjp_is_the_inverse_rotation(dev, dtype):
     (1, 64, 64, 2, 512, True, 0, 0),         # the flagship's head_dim 512
     (2, 37, 37, 1, 512, True, 0, 0),         # D 512, ragged tiles
     (1, 40, 40, 2, 264, False, 0, 0),        # D 264 (< 512), not causal
+    (2, 90, 90, 2, 72, True, 0, 0),          # D 72: columns 72-127 zero-filled
+    (1, 2048, 2048, 4, 128, True, 0, 0),     # many tiles of both sides
+    (1, 96, 300, 2, 128, True, 0, 17),       # Sq 96 against Sk 300, kv_offset 17
+    (1, 200, 200, 2, 128, True, 0, 0),       # Sq 200: ragged 64-row tiles
 ])
 def test_flash_backward_kernels_match_plain(dev, monkeypatch, stash, dtype, b,
                                             sq, sk, h, d, causal, q_off,
@@ -280,7 +284,12 @@ def test_flash_backward_kernels_match_plain(dev, monkeypatch, stash, dtype, b,
     torch.cuda.synchronize()
     dkv = ("flash_attention_bwd_dkv_stash" if stash
            else "flash_attention_bwd_dkv")
-    assert dict(kernels.launches) == {"flash_attention_bwd_dq": 1, dkv: 1}
+    want_launches = {"flash_attention_bwd_dq": 1, dkv: 1}
+    if dtype == torch.bfloat16 and d <= 128:     # the tensor-core bodies
+        want_launches[flash.KERNEL_BWD_DQ_WGMMA] = 1
+        if not stash:
+            want_launches[flash.KERNEL_BWD_DKV_WGMMA] = 1
+    assert dict(kernels.launches) == want_launches
     want = flash.flash_attention_backward_plain(q, k, v, o, lse, do, causal,
                                                 q_off, kv_off)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
@@ -310,6 +319,67 @@ def test_each_flash_backward_kernel_matches_its_plain_version(dev, dtype, d):
     for name, g, w in zip(("dk", "dv"), flash.flash_bwd_dkv(*args),
                           flash.flash_bwd_dkv_plain(*args)):
         _assert_bwd_close(g, w, msg=f"recompute {name}")
+
+
+@pytest.mark.parametrize("stash", [True, False])
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 64),
+                                     (torch.bfloat16, 128),
+                                     (torch.bfloat16, 512),
+                                     (torch.float32, 128)])
+def test_flash_backward_bf16_runs_the_wgmma_bodies(dev, monkeypatch, stash,
+                                                   dtype, d):
+    """bf16 dQ and recompute dK/dV at head_dim <= 128 run the tensor-core
+    bodies, and the library's body query says so; f32 and head_dim 512 keep
+    the f32-pipe bodies."""
+    q, k, v, do = (_randn(dev, 1, 64, 2, d, dtype=dtype, seed=20 + i)
+                   for i in range(4))
+    o, lse = flash.flash_attention(q, k, v, True, return_lse=True)
+    monkeypatch.setattr(flash, "PDS_STASH_LIMIT_BYTES",
+                        int(1.2e9) if stash else 0)
+    wgmma = int(dtype == torch.bfloat16 and d <= 128)
+    before = dict(kernels.launches)
+    flash.flash_attention_backward(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+
+    def rise(name):
+        return kernels.launches[name] - before.get(name, 0)
+    assert rise(flash.KERNEL_BWD_DQ) == 1
+    assert rise(flash.KERNEL_BWD_DQ_WGMMA) == wgmma
+    assert rise(flash.KERNEL_BWD_DKV) == int(not stash)
+    assert rise(flash.KERNEL_BWD_DKV_WGMMA) == wgmma * int(not stash)
+    assert rise(flash.KERNEL_BWD_DKV_STASH) == int(stash)
+    for kernel in (flash.KERNEL_BWD_DQ, flash.KERNEL_BWD_DKV):
+        body = flash.bwd_body(kernel, d, dtype)
+        assert body["body"] == ("wgmma" if wgmma else "f32 pipes")
+        assert body["dynamic_smem_bytes"] > 0
+    assert flash.bwd_body(flash.KERNEL_BWD_DKV_STASH, d, dtype)["body"] \
+        == "f32 pipes"
+
+
+def test_flash_dq_stash_holds_zeros_past_the_diagonal(dev):
+    """The tensor-core dQ body writes the whole p/ds stash: the plain
+    version's values bit for bit in the causal range (P and dS round as the
+    plain version's in-order sums make them round) and exact zeros in every
+    tile past it up to Sk, over memory that held NaNs before."""
+    b, sq, sk, h, d = 1, 200, 260, 2, 128
+    q, do = (_randn(dev, b, sq, h, d, dtype=torch.bfloat16, seed=30 + i)
+             for i in range(2))
+    k, v = (_randn(dev, b, sk, h, d, dtype=torch.bfloat16, seed=32 + i)
+            for i in range(2))
+    o, lse = flash.flash_attention(q, k, v, True, return_lse=True)
+    args = (q, k, v, do, lse, flash.backward_delta(o, do))
+    garbage = torch.full((2, b * h, sq, sk), float("nan"),
+                         dtype=torch.bfloat16, device=dev)
+    del garbage       # the caching allocator hands this memory out next
+    dq, p_st, ds_st = flash.flash_bwd_dq(*args, stash=True)
+    want_dq, want_p, want_ds = flash.flash_bwd_dq_plain(*args, stash=True)
+    past = (torch.arange(sk, device=dev)[None, :]
+            > torch.arange(sq, device=dev)[:, None])
+    for name, g, w in (("p_stash", p_st, want_p), ("ds_stash", ds_st, want_ds)):
+        assert torch.isfinite(g.float()).all(), name
+        assert bool((g[:, past] == 0).all()), name
+        assert torch.equal(g, w), name
+    _assert_bwd_close(dq, want_dq, msg="dq")
 
 
 def test_flash_train_on_the_card_matches_plain_with_gqa(dev):

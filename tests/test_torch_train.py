@@ -101,36 +101,54 @@ def _unflat(a, b, s, h, d):
     return np.asarray(a).reshape(b, h, s, d).transpose(0, 2, 1, 3)
 
 
-@pytest.mark.parametrize("stash", [True, False])
-@pytest.mark.parametrize("causal", [True, False])
+# (causal, stash, (b, sq, sk, h, d, q_offset)): D 128 at S 256 under its
+# first ids, then head_dim 64, and queries at an offset (Sq 256 against
+# Sk 512, q_offset 256), the edges the card's bodies are held to them at.
+_BWD_PLAIN_CASES = (
+    [pytest.param(causal, stash, (1, 256, 256, 2, 128, 0),
+                  id=f"{causal}-{stash}")
+     for stash in (True, False) for causal in (True, False)]
+    + [pytest.param(causal, stash, (1, 128, 128, 2, 64, 0),
+                    id=f"d64-{causal}-{stash}")
+       for stash in (True, False) for causal in (True, False)]
+    + [pytest.param(True, stash, (1, 256, 512, 2, 128, 256),
+                    id=f"q_offset256-True-{stash}")
+       for stash in (True, False)])
+
+
+@pytest.mark.parametrize("causal,stash,shape", _BWD_PLAIN_CASES)
 def test_flash_backward_plain_matches_jax_kernels(monkeypatch, stash,
-                                                  causal):
+                                                  causal, shape):
     """Both dK/dV branches of `_flash_backward_flat` (the p/ds stash and
-    the recompute kernel, chosen by PDS_STASH_LIMIT_BYTES) at D 128,
-    S 256."""
-    b, s, h, d = 1, 256, 2, 128
-    q, k, v, do = (_randn(b, s, h, d, seed=10 + i) for i in range(4))
-    o, lse = tflash.flash_attention(_t(q), _t(k), _t(v), causal,
+    the recompute kernel, chosen by PDS_STASH_LIMIT_BYTES), whole and
+    composed from the per-kernel plain versions, at D 128 and S 256, at
+    D 64, and with Sq 256 at q_offset 256 against Sk 512."""
+    b, sq, sk, h, d, q_off = shape
+    q, do = (_randn(b, sq, h, d, seed=10 + i) for i in (0, 3))
+    k, v = (_randn(b, sk, h, d, seed=10 + i) for i in (1, 2))
+    o, lse = tflash.flash_attention(_t(q), _t(k), _t(v), causal, q_off,
                                     return_lse=True)
     monkeypatch.setattr(jflash, "PDS_STASH_LIMIT_BYTES",
                         int(1.2e9) if stash else 0)
     want = jflash._flash_backward_flat(
-        *(_flat(a, b, s, h, d) for a in (q, k, v, o.numpy())),
-        jnp.asarray(lse.numpy()).reshape(b * h, s), _flat(do, b, s, h, d),
-        causal, 0, 0, interpret=True)
+        *(_flat(a, b, s_, h, d) for a, s_ in ((q, sq), (k, sk), (v, sk),
+                                              (o.numpy(), sq))),
+        jnp.asarray(lse.numpy()).reshape(b * h, sq), _flat(do, b, sq, h, d),
+        causal, q_off, 0, interpret=True)
     got = tflash.flash_attention_backward_plain(_t(q), _t(k), _t(v), o, lse,
-                                                _t(do), causal)
+                                                _t(do), causal, q_off)
     # The same branch composed from the per-kernel plain versions.
     args = (_t(q), _t(k), _t(v), _t(do), lse,
-            tflash.backward_delta(o, _t(do)), causal)
+            tflash.backward_delta(o, _t(do)), causal, q_off)
     dq, p_st, ds_st = tflash.flash_bwd_dq_plain(*args, stash=stash)
     dkv = (tflash.flash_bwd_dkv_from_stash_plain(*args[:4], p_st, ds_st,
-                                                 causal)
+                                                 causal, q_off)
            if stash else tflash.flash_bwd_dkv_plain(*args))
-    for name, g, g2, w in zip(("dq", "dk", "dv"), got, (dq, *dkv), want):
-        np.testing.assert_allclose(g.numpy(), _unflat(w, b, s, h, d),
+    for name, g, g2, w, s_ in zip(("dq", "dk", "dv"), got, (dq, *dkv), want,
+                                  (sq, sk, sk)):
+        np.testing.assert_allclose(g.numpy(), _unflat(w, b, s_, h, d),
                                    err_msg=name, **TOL)
-        np.testing.assert_allclose(g2.numpy(), _unflat(w, b, s, h, d),
+        np.testing.assert_allclose(g2.numpy(), _unflat(w, b, s_, h, d),
                                    err_msg=f"per-kernel {name}", **TOL)
 
 
