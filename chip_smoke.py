@@ -59,11 +59,12 @@ inits in bf16:
      be finite. The backward kernels are held to limits scaled to each
      output's own values (BWD_RTOL, BWD_ATOL_OF_RMS);
      Every bf16 flash forward of every phase must run the tensor-core
-     (wgmma) body, and so must every bf16 dQ and recompute dK/dV launch at
-     head_dim <= 128 (the train phases); no f32 gate's flash kernel may,
-     nor the flagship's head_dim-512 backward. The flash libraries' build
-     seconds, registers, spills and shared memory are printed first, and
-     each backward case names the body that ran it;
+     (wgmma) body, and so must every bf16 dQ and stash dK/dV launch (the
+     train phases and the flagship at head_dim 512) and every recompute
+     dK/dV of the train phase (head_dim 128); no f32 gate's flash kernel
+     may. The flash libraries' build seconds, registers, spills and shared
+     memory are printed first, and each backward case names the body (and
+     its instance) that ran it;
   4. opens a torch.profiler window on one step of the trainer main at its
      defaults and one flagship step of a single microbatch, after the
      timed phases, and prints the ten device operations with the most
@@ -159,7 +160,24 @@ BWD_ATOL_OF_RMS = {torch.bfloat16: 1e-3, torch.float32: 1e-5}
 # Each flash kernel's count of launches on its bf16 tensor-core body.
 WGMMA_COUNTERS = {"flash_attention": "flash_attention_wgmma",
                   "flash_attention_bwd_dq": "flash_attention_bwd_dq_wgmma",
-                  "flash_attention_bwd_dkv": "flash_attention_bwd_dkv_wgmma"}
+                  "flash_attention_bwd_dkv": "flash_attention_bwd_dkv_wgmma",
+                  "flash_attention_bwd_dkv_stash":
+                      "flash_attention_bwd_dkv_stash_wgmma"}
+# The backward's tensor-core bodies in a build log, by kernel name.
+BWD_WGMMA_INSTANCES = {
+    "flash_bwd_dq_wgmma_kernel":
+        "bf16, d<=128, 128 resident query rows, 64-key tiles, 2 stages",
+    "flash_bwd_dkv_wgmma_kernel":
+        "bf16, d<=128, 128 resident keys, 64-query tiles, 2 stages",
+    "flash_bwd_dq_wide_wgmma_kernel":
+        "bf16, 128<d<=512, 64 resident query rows, 32-key tiles, one stage "
+        "each of K and V",
+    "flash_bwd_dkv_stash_wgmma_kernelILb1E":
+        "bf16, d<=512, 128 keys x 128-column slice, 64-query tiles, 3 "
+        "stages, P and dS by TMA",
+    "flash_bwd_dkv_stash_wgmma_kernelILb0E":
+        "bf16, d<=512, 128 keys x 128-column slice, 64-query tiles, 3 "
+        "stages, P and dS copied by the producer (Sk % 8 != 0)"}
 
 
 def fail(msg: str) -> None:
@@ -275,7 +293,7 @@ def ptxas_entries(log: str) -> list:
             shape = re.search(r"ShapeILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E", name)
             bwd = re.search(r"(flash_bwd_\w+?_kernel)I(f|13__nv_bfloat16)Li(\d+)E",
                             name)
-            wgmma = re.search(r"(flash_bwd_(?:dq|dkv)_wgmma_kernel)", name)
+            wgmma = next((k for k in BWD_WGMMA_INSTANCES if k in name), None)
             if shape:
                 name = ("flash_fwd_wgmma_kernel<d<=%s, %s query rows, %s keys,"
                         " %s stage(s)>" % shape.groups())
@@ -286,8 +304,8 @@ def ptxas_entries(log: str) -> list:
                     bwd.group(1), "float" if bwd.group(2) == "f" else "bf16",
                     bwd.group(3))
             elif wgmma:
-                name = ("%s<bf16, d<=128, 128 resident rows, 64-row tiles, "
-                        "2 stages>" % wgmma.group(1))
+                name = "%s<%s>" % (wgmma.split("I")[0],
+                                   BWD_WGMMA_INSTANCES[wgmma])
             cur = dict(kernel=name)
             out.append(cur)
             continue
@@ -1386,8 +1404,9 @@ def per_step_launches(n_layers: int, stash: bool, flagship: bool = False,
     forward and back, L flash forward (in bf16 every one on the
     tensor-core body, in f32 none), dQ and dK/dV calls (the stash dK/dV
     kernel when the p/ds stash fits under its gate, else the recompute
-    one; in bf16 at head_dim <= 128 dQ and the recompute dK/dV on their
-    tensor-core bodies, else none). On the flagship's paths the rotations
+    one; in bf16 dQ and the stash dK/dV on their tensor-core bodies at
+    every head_dim, the recompute dK/dV at head_dim <= 128; in f32 none).
+    On the flagship's paths the rotations
     are the t-layout pair (2L each way), v and the attention output pass
     the relayout pair (L each way forward, L each way back: 2L each) and
     the loss is one fused CE forward and backward; elsewhere 4L RoPE
@@ -1399,9 +1418,10 @@ def per_step_launches(n_layers: int, stash: bool, flagship: bool = False,
              else "flash_attention_bwd_dkv"): n_layers}
     if bf16:
         want["flash_attention_wgmma"] = n_layers
-    if bf16 and head_dim <= 128:
         want["flash_attention_bwd_dq_wgmma"] = n_layers
-        if not stash:
+        if stash:
+            want["flash_attention_bwd_dkv_stash_wgmma"] = n_layers
+        elif head_dim <= 128:
             want["flash_attention_bwd_dkv_wgmma"] = n_layers
     if flagship:
         want.update(rope_t=2 * n_layers, rope_t_inv=2 * n_layers,
@@ -1663,9 +1683,13 @@ def profile_window(run) -> dict:
                 flash_fwd_ms=sum(ms for n, ms in by_name.items()
                                  if "flash_fwd" in n),
                 flash_bwd_ms={k: sum(ms for n, ms in by_name.items() if k in n)
-                              for k in ("flash_bwd_dq", "flash_bwd_dkv_wgmma",
+                              for k in ("flash_bwd_dq_kernel",
+                                        "flash_bwd_dq_wgmma",
+                                        "flash_bwd_dq_wide_wgmma",
                                         "flash_bwd_dkv_kernel",
-                                        "flash_bwd_dkv_stash")},
+                                        "flash_bwd_dkv_wgmma",
+                                        "flash_bwd_dkv_stash_kernel",
+                                        "flash_bwd_dkv_stash_wgmma")},
                 top=[dict(name=n[:160], self_ms=ms, share=ms / window_ms)
                      for n, ms in top])
 
@@ -1808,9 +1832,9 @@ def main() -> int:
              "rope_t": ("flagship",), "rope_t_inv": ("flagship",),
              "fused_ce_fwd": ("flagship",), "fused_ce_bwd": ("flagship",),
              "relayout_to_t": ("flagship",), "relayout_from_t": ("flagship",)}
-    # Every bf16 flash forward ran the tensor-core body, and every bf16 dQ
-    # and recompute dK/dV at head_dim <= 128 (the train phases); none in the
-    # f32 gates or the flagship's head_dim-512 backward.
+    # Every bf16 flash launch of every phase ran a tensor-core body: the
+    # forward, dQ and the stash dK/dV at every head_dim, the recompute dK/dV
+    # of the train phase (head_dim 128); none in the f32 gates.
     bodies = {}
     for phase in every + ("flagship",):
         n = results[phase]["launches"]
@@ -1820,11 +1844,9 @@ def main() -> int:
                 continue
             got = [n.get(counter, 0), n.get(kernel, 0)]
             bodies[f"{phase}/{kernel}"] = got
-            want = got[1] if (kernel == "flash_attention"
-                              or phase in train_phases) else 0
-            if got[0] != want:
+            if got[0] != got[1]:
                 fail(f"{phase}: {got[0]} of {got[1]} {kernel} launches ran "
-                     f"the wgmma body, want {want}")
+                     f"the wgmma body, want all")
     for gate in ("train_gate_f32", "flagship_gate_f32"):
         for path in ("stash", "recompute"):
             n = results[gate][path]["launches"]

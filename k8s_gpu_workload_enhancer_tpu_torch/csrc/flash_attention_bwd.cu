@@ -18,15 +18,21 @@
 // model's (B, S, H, D) layout; lse and delta are (B, H, Sq) f32. Heads are
 // MHA: the caller expands GQA first, as the TPU kernels require.
 //
-// Bound: operations. dQ is three products (S, dP, dS K) and the recompute
-// dK/dV four (S, dP, P^T dO, dS^T Q), each 2 D flops a visible (query, key)
-// pair: at the trainer's shape (B 8, S 2048, 16 heads of 128, causal) 206
-// and 275 GFLOP against ~0.3 GB, 0.209 and 0.278 ms at the bf16
-// tensor-core rate. The bodies are chosen explicitly in launch<W>, by
-// dtype and head_dim (wgmma_body, exported as ktwe_flash_bwd_wgmma for
-// the wrappers' counts); none is a fallback for another.
+// Bound. dQ is three products (S, dP, dS K) and the recompute dK/dV four
+// (S, dP, P^T dO, dS^T Q), each 2 D flops a visible (query, key) pair: at
+// the trainer's shape (B 8, S 2048, 16 heads of 128, causal) 206 and 275
+// GFLOP against ~0.3 GB, 0.209 and 0.278 ms at the bf16 tensor-core rate;
+// operations bound them. The stash dK/dV is two products of 2 D flops a
+// visible pair against the stash it reads (2 bf16 a visible pair) and Q,
+// dO, dK, dV: bytes bound it (the trainer's batch-4 shape 0.200 ms, the
+// flagship's (32, 2048, 1, 512) 0.160 ms at 3.35 TB/s). The bodies are
+// chosen explicitly in launch<W>, by kernel, dtype, head_dim and (for the
+// stash's load path) Sk: wgmma_body, exported as ktwe_flash_bwd_wgmma for
+// the wrappers' counts, and body_dmax (ktwe_flash_bwd_dmax) name them; none
+// is a fallback for another.
 //
-// bf16 dQ and recompute dK/dV at head_dim <= 128 (tc::): tensor cores
+// bf16 dQ and recompute dK/dV at head_dim <= 128 (tc::, replacing
+// _flash_bwd_dq_kernel and _flash_bwd_dkv_kernel there): tensor cores
 // (wgmma) on tiles that TMA loads under mbarriers (csrc/sm90.cuh). A block
 // owns 128 rows of one (batch, head) -- query rows for dQ, key rows for
 // dK/dV -- as two consumer warpgroups of 64 rows, and a producer warpgroup
@@ -52,6 +58,52 @@
 // R237 in the consumers; dQ spills nothing, dK/dV (dK, dV, S^T and dP^T
 // are 192 registers a thread) 132-152 bytes, on the recheck path.
 //
+// bf16 dQ at 128 < head_dim <= 512 (tc::flash_bwd_dq_wide_wgmma_kernel, the
+// flagship's 4 heads of 512; 256 and other widths through TMA's zero-filled
+// columns). A 64 x 512 f32 dQ tile is 256 registers a thread in one
+// warpgroup, so a block owns 64 query rows and its two consumer warpgroups
+// split dQ's columns (256 each: 128 registers). Each computes the whole
+// S = Q K^T and dP = dO V^T itself, as the forward at 512 computes S twice:
+// the same wgmma sequence on the same tiles gives both the same bits, so
+// their P, dS, flags and rechecks agree with no exchange (the price: the
+// S and dP products twice, 1.67x the ideal tensor work). Shared memory: Q
+// and dO resident (2 x 64 KB) and one 32-key tile each of K and V (2 x 32
+// KB) on separate barriers, 193 KB dynamic; a second stage does not fit in
+// 227 KB. So the order inside a tile frees each buffer at its last use: dP
+// first (V), then S (K) while the rest of K may still be landing; V goes
+// back after the recheck, its last reader, so the next V loads during dS K;
+// K after dS K, so the next K loads during the next dP. Tiles are 8 boxes
+// of 64 columns; S and dP are 32 fixed k16 steps of m64n32k16, dQ two
+// m64n256k16 steps with dS from registers and K MN-major. The first
+// consumer writes the P stash, the second the dS stash.
+//
+// bf16 dK/dV from the stash at every head_dim (tc::
+// flash_bwd_dkv_stash_wgmma_kernel, replacing
+// _flash_bwd_dkv_from_stash_kernel): a block owns 128 keys x one 128-column
+// slice of dK and dV (two consumer warpgroups of 64 keys, 64 + 64 f32
+// registers a thread); the grid covers key tiles x ceil(D / 128) slices,
+// the slices of a key tile next to each other so that the P and dS tiles
+// they share come out of L2. Keys are wgmma's M: dV += P^T dO and dK += dS^T
+// Q, m64n128k16 with both operands read MN-major (both transpose bits) out
+// of the stash's (query, key) tiles and Q's and dO's (query, column) tiles.
+// Nothing is recomputed, so no recheck: P and dS are already rounded, and
+// the outputs differ from the plain version only in the order of their
+// f32 sums. A stage carries P, dS, Q and dO for 64 queries (4 x 16 KB), a
+// ring of 3 stages (193 KB) keeps the loads in flight, since bytes bound the
+// kernel; query tiles wholly before the keys' diagonal (zeros) are
+// skipped. TMA needs 16-byte row strides, which a stash row of Sk bf16 has
+// only when Sk % 8 == 0; for other Sk (the card tests' 37, 77, 100, 300)
+// the launcher picks the instance in which the producer warpgroup copies P
+// and dS element by element into the same swizzled layout (zeros past Sq
+// and Sk), fences them to the async proxy and hands them on through the
+// same barrier as Q's and dO's TMA loads.
+//
+// `-Xptxas -v` (CUDA 12.8) for the two: the wide dQ 168 registers at
+// launch (setmaxnreg: producer 24, consumers 240), 12 bytes spilled, 4,208
+// B static shared memory (recheck queues, norms, barriers) beside 197,632
+// B dynamic; the stash dK/dV (no setmaxnreg) 154 registers, no spill, 48 B
+// static beside 197,632 B dynamic, both instances.
+//
 // The in-order recheck. P and dS are rounded to bf16 before the products,
 // so a sum S or dP that differs in its last bits from the plain version's
 // can flip their roundings: measured on the card, hundreds of output
@@ -66,38 +118,42 @@
 // kChainErr |q| |k| (4 f32 roundings of the product of the rows' norms,
 // which bounds the sum of the terms' magnitudes), plus the argument's and
 // the exponentials' roundings, plus for ds that of dP over |dP - delta|.
-// A warp's flagged elements (1.6 % at the trainer's shape) are rechecked
-// 32 at a time, one a lane (`recheck`): S and dP as FMA chains in
-// head-dim order from the tiles in shared memory, p with expf and ds with
-// the plain version's steps. P and dS then round as the plain version's
-// do: at the card's shapes the p/ds stash equals it bit for bit, and dQ,
-// dK, dV differ from it only by the order of their final f32 sums.
+// A warp's flagged elements are rechecked 32 at a time, one a lane
+// (`recheck`): S and dP as FMA chains in head-dim order from the tiles in
+// shared memory, p with expf and ds with the plain version's steps. P and
+// dS then round as the plain version's do: at the card's shapes the p/ds
+// stash equals it bit for bit, and dQ, dK, dV differ from it only by the
+// order of their final f32 sums. The share of visible elements flagged
+// (ktwe_flash_bwd_dq_flagged, counted on the card by
+// scripts/flash_bwd_probe.py): 1.64 % at the trainer's shape, 2.88 % at
+// the flagship's head_dim 512, whose margins are about twice as wide (scale
+// |q| |k| grows as sqrt(D)) and whose chains are four times as long. The
+// wide dQ's two warpgroups recheck the same elements, each for itself.
 //
-// f32, and bf16 above head_dim 128: the f32 pipes (the f32 training gates
-// need true f32 products, which TF32 wgmma would not give). One block of
-// 256 threads owns a tile of rows and walks the other side's tiles inside
-// the block, keeping its output accumulators in registers. Every product
-// is a register-tiled outer product out of shared memory: both operands
-// are stored k-major in f32 (the tile loads transpose and convert once),
-// so each step of the contraction loads a few float2/float4 words and
-// issues 8-32 FMAs per thread; the D-wide accumulators' columns are spread
-// so that those words never share a bank (`acc_col`). A thread owns the
-// same rows in the score tile and in its accumulator tile, so its rows'
-// lse and delta stay in registers. Head dims up to 64, 128, 256 and 512
-// are four instantiations (bf16 only 256 and 512 for dQ and dK/dV; the
-// stash dK/dV all four) with tiles sized so the shared memory fits one
-// block: 223 KB at 256 with 32-row tiles; at 512 (the flagship's 4 heads
-// of 512) 16-row tiles on both sides, each thread owning one score, taken
-// as a dot product of two row-major rows 16 bytes at a time (no k-major
-// copies of q, k, v or dO: 130 KB for dQ, 131 KB for dK/dV), and 32
-// columns of its accumulator rows.
+// f32, and the recompute dK/dV in bf16 above head_dim 128 (off the main
+// path): the f32 pipes (the f32 training gates need true f32 products,
+// which TF32 wgmma would not give). One block of 256 threads owns a tile of
+// rows and walks the other side's tiles inside the block, keeping its
+// output accumulators in registers. Every product is a register-tiled
+// outer product out of shared memory: both operands are stored k-major in
+// f32 (the tile loads transpose and convert once), so each step of the
+// contraction loads a few float2/float4 words and issues 8-32 FMAs per
+// thread; the D-wide accumulators' columns are spread so that those words
+// never share a bank (`acc_col`). A thread owns the same rows in the score
+// tile and in its accumulator tile, so its rows' lse and delta stay in
+// registers. Head dims up to 64, 128, 256 and 512 are four instantiations
+// in f32 (in bf16 only the recompute dK/dV's 256 and 512) with tiles sized
+// so the shared memory fits one block: 223 KB at 256 with 32-row tiles; at
+// 512 16-row tiles on both sides, each thread owning one score, taken as a
+// dot product of two row-major rows 16 bytes at a time (no k-major copies
+// of q, k, v or dO: 130 KB for dQ, 131 KB for dK/dV), and 32 columns of
+// its accumulator rows.
 //
-// Not done yet: tensor-core bodies for dQ at head_dim 512 and for the stash
-// dK/dV kernel (both head-dim instances), which need their own tiles (64 x
-// 512 bf16 tiles of Q, dO, K and V do not fit in 227 KB together); the
-// recompute dK/dV at 512 (off the main path); overlapping one tile's
-// elementwise pass and recheck with the next tile's products inside a
-// warpgroup. Times beside the bound and SDPA: PERF.md, section 6, rows 7-9.
+// Not done yet: a tensor-core body for the recompute dK/dV above head_dim
+// 128 (off the main path); overlapping one tile's elementwise pass and
+// recheck with the next tile's products inside a warpgroup; splitting the
+// wide dQ's duplicated recheck between its two warpgroups. Times beside
+// the bound and SDPA: PERF.md, section 6, rows 7-9.
 #include <atomic>
 
 #include "common.cuh"
@@ -127,6 +183,7 @@ struct BwdArgs {
   int causal;
   long long q_offset, kv_offset;
   float scale;
+  unsigned long long* flagged = nullptr;  // dQ on a tensor-core body: the recheck's count
 };
 
 // Tile sizes by the head-dim bound DMAX: BR rows owned by the block, BC
@@ -668,6 +725,7 @@ struct Args {
   long long q_offset, kv_offset;
   float scale;
   int n_tiles;         // row tiles of the grid
+  unsigned long long* flagged;  // dQ: adds the recheck's element count, or null
 };
 
 __device__ __forceinline__ unsigned char* align_atom(unsigned char* p) {
@@ -678,13 +736,14 @@ __device__ __forceinline__ void named_sync(int id) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
 }
 
-// Key tiles of kStream keys that query rows up to `last_row` need.
+// Key tiles of BK keys that query rows up to `last_row` need.
+template <int BK = kStream>
 __device__ __forceinline__ int key_tiles(const Args& a, int last_row) {
-  int n = (a.sk + kStream - 1) / kStream;
+  int n = (a.sk + BK - 1) / BK;
   if (a.causal) {
     const long long last_key = a.q_offset + last_row - a.kv_offset;
     if (last_key < 0) return 0;
-    if (last_key / kStream + 1 < n) n = static_cast<int>(last_key / kStream + 1);
+    if (last_key / BK + 1 < n) n = static_cast<int>(last_key / BK + 1);
   }
   return n;
 }
@@ -701,13 +760,14 @@ __device__ __forceinline__ int first_query_tile(const Args& a, int key) {
   return static_cast<int>(first_row / kStream);
 }
 
-// Loads the kBoxes 64-column boxes of `rows` rows at sequence row `row`;
+// Loads the BOXES 64-column boxes of `rows` rows at sequence row `row`;
 // columns past D (a whole box at D <= 64) read as zeros.
+template <int BOXES = kBoxes>
 __device__ __forceinline__ void load_boxes(unsigned char* dst, const CUtensorMap* map,
                                            uint64_t* bar, int rows, int head, int row,
                                            int batch) {
 #pragma unroll
-  for (int c = 0; c < kBoxes; ++c) {
+  for (int c = 0; c < BOXES; ++c) {
     tma_load_4d(dst + c * rows * kBoxRowBytes, map, bar, c * kSwizzleCols, head, row, batch);
   }
 }
@@ -727,11 +787,13 @@ __device__ __forceinline__ void mma_abt(float (&acc)[32], uint32_t a_addr, int a
   }
 }
 
-// The accumulator fragment of a 64 x 64 product as four k16 A fragments
-// in bf16 (round to nearest even): the next product's A from registers.
-__device__ __forceinline__ void pack_a(const float (&x)[32], uint32_t (&a)[4][4]) {
+// The accumulator fragment of a 64 x N product (N / 2 floats) as N / 16
+// k16 A fragments in bf16 (round to nearest even): the next product's A
+// from registers.
+template <int N>
+__device__ __forceinline__ void pack_a(const float (&x)[N], uint32_t (&a)[N / 8][4]) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < N / 8; ++kk) {
 #pragma unroll
     for (int r = 0; r < 4; ++r) a[kk][r] = pack_bf16x2(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
   }
@@ -763,22 +825,34 @@ __device__ __forceinline__ float2 bf16x2_to_f2(uint32_t w) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
 }
 
-// Euclidean norm of row r of a tile (columns past D are zeros), in eight
-// independent partial sums: a margin needs no particular order.
-__device__ __forceinline__ float row_norm(const unsigned char* tile, int rows, int r) {
+// Squared Euclidean norm of chunks [ch0, ch0 + CHUNKS) (8 columns each) of
+// row r of a tile (columns past D are zeros), in eight independent partial
+// sums: a margin needs no particular order.
+template <int CHUNKS>
+__device__ __forceinline__ float row_norm_sq(const unsigned char* tile, int rows, int r,
+                                             int ch0 = 0) {
+  static_assert(CHUNKS % 16 == 0, "16 chunks (128 columns) a step");
   float acc[8] = {};
+#pragma unroll 1
+  for (int g = ch0; g < ch0 + CHUNKS; g += 16) {
 #pragma unroll
-  for (int ch = 0; ch < kDPad / 8; ++ch) {
-    const uint4 v = tile_chunk(tile, rows, r, ch);
-    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+    for (int ch = g; ch < g + 16; ++ch) {
+      const uint4 v = tile_chunk(tile, rows, r, ch);
+      const uint32_t w[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = bf16x2_to_f2(w[i]);
-      acc[2 * i] = fmaf(f.x, f.x, acc[2 * i]);
-      acc[2 * i + 1] = fmaf(f.y, f.y, acc[2 * i + 1]);
+      for (int i = 0; i < 4; ++i) {
+        const float2 f = bf16x2_to_f2(w[i]);
+        acc[2 * i] = fmaf(f.x, f.x, acc[2 * i]);
+        acc[2 * i + 1] = fmaf(f.y, f.y, acc[2 * i + 1]);
+      }
     }
   }
-  return sqrtf(((acc[0] + acc[1]) + (acc[2] + acc[3])) + ((acc[4] + acc[5]) + (acc[6] + acc[7])));
+  return ((acc[0] + acc[1]) + (acc[2] + acc[3])) + ((acc[4] + acc[5]) + (acc[6] + acc[7]));
+}
+
+template <int CHUNKS = kDPad / 8>
+__device__ __forceinline__ float row_norm(const unsigned char* tile, int rows, int r) {
+  return sqrtf(row_norm_sq<CHUNKS>(tile, rows, r));
 }
 
 // One row of a tile: its base, height and row index.
@@ -787,29 +861,35 @@ struct TileRow {
   int rows, r;
 };
 
-// x = sum_i a_i b_i and y = sum_i c_i e_i, each an FMA chain in i order
-// from 0: the order of the plain version's f32 products (and of the f32-pipe
-// bodies), so x and y are theirs bit for bit. The columns past D are zeros,
-// and an FMA of two zeros leaves a chain from +0 as it was.
+// x = sum_i a_i b_i and y = sum_i c_i e_i over CHUNKS chunks of 8 columns,
+// each an FMA chain in i order from 0: the order of the plain version's f32
+// products (and of the f32-pipe bodies), so x and y are theirs bit for bit.
+// The columns past D are zeros, and an FMA of two zeros leaves a chain from
+// +0 as it was.
+template <int CHUNKS = kDPad / 8>
 __device__ __forceinline__ void chain_dots(TileRow a, TileRow b, TileRow c, TileRow e,
                                            float& x, float& y) {
+  static_assert(CHUNKS % 16 == 0, "16 chunks (128 columns) a step");
   float sx = 0.f, sy = 0.f;
+#pragma unroll 1
+  for (int g = 0; g < CHUNKS; g += 16) {
 #pragma unroll
-  for (int ch = 0; ch < kDPad / 8; ++ch) {
-    const uint4 va = tile_chunk(a.tile, a.rows, a.r, ch);
-    const uint4 vb = tile_chunk(b.tile, b.rows, b.r, ch);
-    const uint4 vc = tile_chunk(c.tile, c.rows, c.r, ch);
-    const uint4 ve = tile_chunk(e.tile, e.rows, e.r, ch);
-    const uint32_t wa[4] = {va.x, va.y, va.z, va.w}, wb[4] = {vb.x, vb.y, vb.z, vb.w};
-    const uint32_t wc[4] = {vc.x, vc.y, vc.z, vc.w}, we[4] = {ve.x, ve.y, ve.z, ve.w};
+    for (int ch = g; ch < g + 16; ++ch) {
+      const uint4 va = tile_chunk(a.tile, a.rows, a.r, ch);
+      const uint4 vb = tile_chunk(b.tile, b.rows, b.r, ch);
+      const uint4 vc = tile_chunk(c.tile, c.rows, c.r, ch);
+      const uint4 ve = tile_chunk(e.tile, e.rows, e.r, ch);
+      const uint32_t wa[4] = {va.x, va.y, va.z, va.w}, wb[4] = {vb.x, vb.y, vb.z, vb.w};
+      const uint32_t wc[4] = {vc.x, vc.y, vc.z, vc.w}, we[4] = {ve.x, ve.y, ve.z, ve.w};
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 fa = bf16x2_to_f2(wa[i]), fb = bf16x2_to_f2(wb[i]);
-      const float2 fc = bf16x2_to_f2(wc[i]), fe = bf16x2_to_f2(we[i]);
-      sx = fmaf(fa.x, fb.x, sx);
-      sy = fmaf(fc.x, fe.x, sy);
-      sx = fmaf(fa.y, fb.y, sx);
-      sy = fmaf(fc.y, fe.y, sy);
+      for (int i = 0; i < 4; ++i) {
+        const float2 fa = bf16x2_to_f2(wa[i]), fb = bf16x2_to_f2(wb[i]);
+        const float2 fc = bf16x2_to_f2(wc[i]), fe = bf16x2_to_f2(we[i]);
+        sx = fmaf(fa.x, fb.x, sx);
+        sy = fmaf(fc.x, fe.x, sy);
+        sx = fmaf(fa.y, fb.y, sx);
+        sy = fmaf(fc.y, fe.y, sy);
+      }
     }
   }
   x = sx;
@@ -869,23 +949,34 @@ __device__ __forceinline__ float margin_c(float do_norm) {
   return kChainErr * kTwo24 * do_norm;
 }
 
-// Writes element i of the two fragments; a switch on the runtime i keeps
-// the fragments in registers.
-__device__ __forceinline__ void set_element(float (&x)[32], float (&y)[32], int i, float xv,
+// Writes element i of the two fragments; a switch on the runtime i (for
+// N < 32 a chain of compares) keeps the fragments in registers.
+template <int N>
+__device__ __forceinline__ void set_element(float (&x)[N], float (&y)[N], int i, float xv,
                                             float yv) {
-  switch (i) {
+  if constexpr (N == 32) {
+    switch (i) {
 #define KTWE_SET(k) \
   case k:           \
     x[k] = xv;      \
     y[k] = yv;      \
     break;
-    KTWE_SET(0) KTWE_SET(1) KTWE_SET(2) KTWE_SET(3) KTWE_SET(4) KTWE_SET(5) KTWE_SET(6)
-    KTWE_SET(7) KTWE_SET(8) KTWE_SET(9) KTWE_SET(10) KTWE_SET(11) KTWE_SET(12) KTWE_SET(13)
-    KTWE_SET(14) KTWE_SET(15) KTWE_SET(16) KTWE_SET(17) KTWE_SET(18) KTWE_SET(19)
-    KTWE_SET(20) KTWE_SET(21) KTWE_SET(22) KTWE_SET(23) KTWE_SET(24) KTWE_SET(25)
-    KTWE_SET(26) KTWE_SET(27) KTWE_SET(28) KTWE_SET(29) KTWE_SET(30) KTWE_SET(31)
+      KTWE_SET(0) KTWE_SET(1) KTWE_SET(2) KTWE_SET(3) KTWE_SET(4) KTWE_SET(5) KTWE_SET(6)
+      KTWE_SET(7) KTWE_SET(8) KTWE_SET(9) KTWE_SET(10) KTWE_SET(11) KTWE_SET(12) KTWE_SET(13)
+      KTWE_SET(14) KTWE_SET(15) KTWE_SET(16) KTWE_SET(17) KTWE_SET(18) KTWE_SET(19)
+      KTWE_SET(20) KTWE_SET(21) KTWE_SET(22) KTWE_SET(23) KTWE_SET(24) KTWE_SET(25)
+      KTWE_SET(26) KTWE_SET(27) KTWE_SET(28) KTWE_SET(29) KTWE_SET(30) KTWE_SET(31)
 #undef KTWE_SET
-    default: break;
+      default: break;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      if (i == k) {
+        x[k] = xv;
+        y[k] = yv;
+      }
+    }
   }
 }
 
@@ -901,9 +992,9 @@ struct RecheckQueue {
 // lane's fragments), 32 at a time, one a lane: exact(owner, i, p, ds)
 // recomputes element i of lane `owner`'s fragments, and the owner takes the
 // result into s and dp. q.count is 0 on entry and on return.
-template <class Exact>
+template <int N, class Exact>
 __device__ __forceinline__ void recheck(RecheckQueue& q, uint32_t flags, int lane,
-                                        float (&s)[32], float (&dp)[32], Exact exact) {
+                                        float (&s)[N], float (&dp)[N], Exact exact) {
   if (!__any_sync(kAll, flags != 0)) return;
   const int cnt = __popc(flags);
   const int first = cnt ? atomicAdd(&q.count, cnt) : 0;
@@ -935,18 +1026,19 @@ __device__ __forceinline__ void recheck(RecheckQueue& q, uint32_t flags, int lan
   __syncwarp();
 }
 
-// Visible columns of a tile row as 32-bit limits: column c (0..63) of the
+// Visible columns of a tile row as 32-bit limits: column c (0..hi-1) of the
 // tile is visible when c < cols and c <= last (causal).
-__device__ __forceinline__ int clamp_col(long long x) {
-  return static_cast<int>(x < -1 ? -1 : (x > kStream ? kStream : x));
+__device__ __forceinline__ int clamp_col(long long x, int hi = kStream) {
+  return static_cast<int>(x < -1 ? -1 : (x > hi ? hi : x));
 }
 
-// (B, S, H, D) bf16 rows of a 64 x 128 f32 accumulator fragment: rows
-// row0 and row0 + 8 of this thread, columns 8 j + 2 quad (+1) below d.
+// (B, S, H, D) bf16 rows of a 64 x 2N f32 accumulator fragment (N floats):
+// rows row0 and row0 + 8 of this thread, columns 8 j + 2 quad (+1) below d.
+template <int N>
 __device__ __forceinline__ void store_rows(__nv_bfloat16* base, long long row_stride, int n_rows,
-                                           int d, int row0, int quad, const float (&acc)[64]) {
+                                           int d, int row0, int quad, const float (&acc)[N]) {
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
+  for (int j = 0; j < N / 4; ++j) {
     const int col = 8 * j + 2 * quad;
     if (col < d) {   // d is a multiple of 8, so col + 1 < d too
       if (row0 < n_rows) {
@@ -1074,6 +1166,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const float mc0 = margin_c(row_norm(do_s, kRows, lrow0));
   const float mc1 = margin_c(row_norm(do_s, kRows, lrow0 + 8));
   int done = 0;   // tiles this warpgroup computed (the norm buffer's parity)
+  unsigned long long flagged = 0;
 
   for (int t = 0; t < n_tiles; ++t) {
     const int st = t % kStages;
@@ -1135,6 +1228,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         dp[4 * j + 2 + e] = ds;
       }
     }
+    flagged += __popc(flags);
     // Elements near a bf16 rounding boundary take S and dP as in-order
     // chains, so they round as the plain version rounds them.
     recheck(queue, flags, lane, s, dp, [&](int owner, int i, float& p, float& ds) {
@@ -1205,6 +1299,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
   }
 
+  if (a.flagged != nullptr && flagged != 0) atomicAdd(a.flagged, flagged);
   const long long rs = static_cast<long long>(a.h) * a.d;
   store_rows(static_cast<__nv_bfloat16*>(a.out0) + static_cast<long long>(batch) * a.sq * rs +
                  static_cast<long long>(head) * a.d,
@@ -1423,7 +1518,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 template <int W>
 cudaError_t launch(const BwdArgs& ba, int batch, int device, cudaStream_t stream) {
-  static_assert(W == kDq || W == kDkv, "the stash dK/dV kernel has no tensor-core body");
+  static_assert(W == kDq || W == kDkv, "the stash dK/dV kernel's body is launch_stash's");
   auto kernel = W == kDq ? flash_bwd_dq_wgmma_kernel : flash_bwd_dkv_wgmma_kernel;
   static std::atomic<bool> opted_in[kMaxDevices];
   if (!opted_in[device].load(std::memory_order_acquire)) {
@@ -1445,10 +1540,498 @@ cudaError_t launch(const BwdArgs& ba, int batch, int device, cudaStream_t stream
   if (err != cudaSuccess) return err;
   const Args a{ba.lse, ba.delta, W == kDq ? ba.dq : ba.dk, ba.dv, ba.p_stash, ba.ds_stash,
                ba.sq, ba.sk, ba.h, ba.d, ba.causal ? 1 : 0, ba.q_offset, ba.kv_offset,
-               ba.scale, n_tiles};
+               ba.scale, n_tiles, ba.flagged};
   kernel<<<dim3(ba.h, batch, n_tiles), kThreads, kSmem, stream>>>(q_map, do_map, k_map, v_map,
                                                                  a);
   return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// dQ (and the optional p/ds stash) at 128 < head_dim <= 512: 64 query rows
+// resident, 32-key tiles stream; the two consumers split dQ's columns.
+// ---------------------------------------------------------------------------
+constexpr int kWideD = 512;                              // widest head_dim taken
+constexpr int kWideBoxes = kWideD / kSwizzleCols;        // 64-column boxes a tile row
+constexpr int kWideRows = 64;                            // query rows a block
+constexpr int kWideKeys = 32;                            // keys a streamed tile
+constexpr int kWideCols = kWideD / kConsumers;           // dQ columns a consumer
+constexpr int kWideOwnBytes = kWideRows * kWideD * 2;    // Q or dO: 64 KB
+constexpr int kWideTileBytes = kWideKeys * kWideD * 2;   // K or V: 32 KB
+constexpr int kWideSmem = 2 * kWideOwnBytes + 2 * kWideTileBytes + kAtomBytes;
+
+// acc (64 x 32) = A (64 x 512) B (32 x 512)^T, both K-major: A's boxes
+// kWideRows tall, B's kWideKeys tall; 32 fixed k16 steps.
+__device__ __forceinline__ void mma_abt_wide(float (&acc)[kWideKeys / 2], uint32_t a_addr,
+                                             uint32_t b_addr) {
+#pragma unroll
+  for (int ks = 0; ks < kWideD / 16; ++ks) {
+    const uint32_t col_bytes = (ks & 3) * 32;
+    wgmma_m64n32k16_ss(
+        acc, desc_sw128(a_addr + (ks >> 2) * kWideRows * kBoxRowBytes + col_bytes, 16, kAtomBytes),
+        desc_sw128(b_addr + (ks >> 2) * kWideKeys * kBoxRowBytes + col_bytes, 16, kAtomBytes),
+        ks > 0);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dq_wide_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                                   const __grid_constant__ CUtensorMap do_map,
+                                   const __grid_constant__ CUtensorMap k_map,
+                                   const __grid_constant__ CUtensorMap v_map, const Args a) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t own_full, k_full, k_empty, v_full, v_empty;
+  // Per consumer, two buffers of one key tile's K and V row norms.
+  __shared__ __align__(16) float norm_s[kConsumers][2][2 * kWideKeys];
+  __shared__ RecheckQueue queue_s[kConsumers * 4];
+  unsigned char* q_s = align_atom(smem_raw);
+  unsigned char* do_s = q_s + kWideOwnBytes;
+  unsigned char* k_s = do_s + kWideOwnBytes;
+  unsigned char* v_s = k_s + kWideTileBytes;
+
+  const int head = blockIdx.x;
+  const int batch = blockIdx.y;
+  const int q0 = (a.n_tiles - 1 - static_cast<int>(blockIdx.z)) * kWideRows;  // heavy first
+  const int n_tiles = key_tiles<kWideKeys>(a, min(q0 + kWideRows, a.sq) - 1);
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&own_full, 1);
+    mbar_init(&k_full, 1);
+    mbar_init(&v_full, 1);
+    mbar_init(&k_empty, kConsumers * 4);   // lane 0 of every consumer warp
+    mbar_init(&v_empty, kConsumers * 4);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // Producer: one thread loads Q and dO once, then each key tile's V (free
+    // once the recheck is done with it) and K (free after dQ's product).
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(&own_full, 2 * kWideOwnBytes);
+      load_boxes<kWideBoxes>(q_s, &q_map, &own_full, kWideRows, head, q0, batch);
+      load_boxes<kWideBoxes>(do_s, &do_map, &own_full, kWideRows, head, q0, batch);
+      for (int t = 0; t < n_tiles; ++t) {
+        const uint32_t free_parity = (t & 1) ^ 1;   // the first round passes
+        mbar_wait(&v_empty, free_parity);
+        mbar_arrive_expect_tx(&v_full, kWideTileBytes);
+        load_boxes<kWideBoxes>(v_s, &v_map, &v_full, kWideKeys, head, t * kWideKeys, batch);
+        mbar_wait(&k_empty, free_parity);
+        mbar_arrive_expect_tx(&k_full, kWideTileBytes);
+        load_boxes<kWideBoxes>(k_s, &k_map, &k_full, kWideKeys, head, t * kWideKeys, batch);
+      }
+    }
+    return;
+  }
+
+  // Consumers: both compute S and dP for all 64 rows (the same wgmma
+  // sequence on the same tiles gives both the same bits), and warpgroup cw
+  // accumulates dQ's columns cw * 256 .. cw * 256 + 255.
+  setmaxnreg_inc<kConsumerRegs>();
+  const int cw = wg - 1;
+  const int t128 = threadIdx.x & 127;
+  const int warp = t128 >> 5;
+  const int lane = t128 & 31;
+  const int quad = lane & 3;
+  const int lrow0 = warp * 16 + (lane >> 2);   // this thread's rows: row0 and row0 + 8
+  const int row0 = q0 + lrow0;
+  const int row1 = row0 + 8;
+  const long long bh = static_cast<long long>(batch) * a.h + head;
+  const float lse0 = row0 < a.sq ? a.lse[bh * a.sq + row0] : kLseMasked;
+  const float lse1 = row1 < a.sq ? a.lse[bh * a.sq + row1] : kLseMasked;
+  const float dl0 = row0 < a.sq ? a.delta[bh * a.sq + row0] : 0.f;
+  const float dl1 = row1 < a.sq ? a.delta[bh * a.sq + row1] : 0.f;
+  // The stash this consumer writes: P (the first) or dS (the second).
+  __nv_bfloat16* my_st = static_cast<__nv_bfloat16*>(cw == 0 ? a.p_stash : a.ds_stash);
+  const long long st_base = bh * a.sq * static_cast<long long>(a.sk);
+
+  float dq[kWideCols / 2];
+#pragma unroll
+  for (int i = 0; i < kWideCols / 2; ++i) dq[i] = 0.f;
+  float s[kWideKeys / 2], dp[kWideKeys / 2];
+  uint32_t dsa[kWideKeys / 16][4];
+
+  mbar_wait(&own_full, 0);
+  const uint32_t q_addr = smem_u32(q_s);
+  const uint32_t do_addr = smem_u32(do_s);
+  // dQ's product reads K's boxes 4 cw .. 4 cw + 3 (MN-major).
+  const uint32_t kb_addr =
+      smem_u32(k_s) + cw * (kWideCols / kSwizzleCols) * kWideKeys * kBoxRowBytes;
+  RecheckQueue& queue = queue_s[cw * 4 + warp];
+  if (lane == 0) queue.count = 0;
+  __syncwarp();
+  constexpr int kChunks = kWideD / 8;
+  const float sl2e = a.scale * kLog2e;
+  const float nl0 = -lse0 * kLog2e, nl1 = -lse1 * kLog2e;
+  const float ma0 = margin_a(a.scale, row_norm<kChunks>(q_s, kWideRows, lrow0));
+  const float ma1 = margin_a(a.scale, row_norm<kChunks>(q_s, kWideRows, lrow0 + 8));
+  const float mb0 = margin_b(lse0), mb1 = margin_b(lse1);
+  const float mc0 = margin_c(row_norm<kChunks>(do_s, kWideRows, lrow0));
+  const float mc1 = margin_c(row_norm<kChunks>(do_s, kWideRows, lrow0 + 8));
+  unsigned long long flagged = 0;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const uint32_t parity = t & 1;
+    const int k0 = t * kWideKeys;
+    // dP = dO V^T while K may still be on its way, then S = Q K^T.
+    mbar_wait(&v_full, parity);
+    wgmma_fence();
+    mma_abt_wide(dp, do_addr, smem_u32(v_s));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dp);
+    mbar_wait(&k_full, parity);
+    wgmma_fence();
+    mma_abt_wide(s, q_addr, smem_u32(k_s));
+    wgmma_commit();
+    // The tile's K and V row norms meanwhile: thread t128 sums half of row
+    // t128 / 2 (K's rows, then V's).
+    float* norms = norm_s[cw][t & 1];
+    {
+      const int r = t128 >> 1;
+      float part = row_norm_sq<kChunks / 2>(r < kWideKeys ? k_s : v_s, kWideKeys,
+                                            r & (kWideKeys - 1), (t128 & 1) * (kChunks / 2));
+      part += __shfl_xor_sync(kAll, part, 1);
+      if ((t128 & 1) == 0) norms[r] = sqrtf(part);
+    }
+    named_sync(1 + cw);
+    wgmma_wait<0>();
+    fence_regs(s);
+
+    // P and dS in place, as in flash_bwd_dq_wgmma_kernel.
+    const int cols = clamp_col(static_cast<long long>(a.sk) - k0, kWideKeys) - 2 * quad;
+    const int last0 = (row0 >= a.sq ? -1
+                       : a.causal
+                           ? clamp_col(a.q_offset + row0 - a.kv_offset - k0, kWideKeys)
+                           : kWideKeys) -
+                      2 * quad;
+    const int last1 = (row1 >= a.sq ? -1
+                       : a.causal
+                           ? clamp_col(a.q_offset + row1 - a.kv_offset - k0, kWideKeys)
+                           : kWideKeys) -
+                      2 * quad;
+    uint32_t flags = 0;
+#pragma unroll
+    for (int j = 0; j < kWideKeys / 8; ++j) {
+      const float2 nk = *reinterpret_cast<const float2*>(norms + 8 * j + 2 * quad);
+      const float2 nv = *reinterpret_cast<const float2*>(norms + kWideKeys + 8 * j + 2 * quad);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * j + e;   // the tile column, less 2 quad
+        const float nkv = e ? nk.y : nk.x, nvv = e ? nv.y : nv.x;
+        float p, ds;
+        if (probs(s[4 * j + e], dp[4 * j + e], nl0, dl0, sl2e, a.scale, c < cols && c <= last0,
+                  fmaf(ma0, nkv, mb0), mc0 * nvv, p, ds)) {
+          flags |= 1u << (4 * j + e);
+        }
+        s[4 * j + e] = p;
+        dp[4 * j + e] = ds;
+        if (probs(s[4 * j + 2 + e], dp[4 * j + 2 + e], nl1, dl1, sl2e, a.scale,
+                  c < cols && c <= last1, fmaf(ma1, nkv, mb1), mc1 * nvv, p, ds)) {
+          flags |= 1u << (4 * j + 2 + e);
+        }
+        s[4 * j + 2 + e] = p;
+        dp[4 * j + 2 + e] = ds;
+      }
+    }
+    if (cw == 0) flagged += __popc(flags);
+    recheck(queue, flags, lane, s, dp, [&](int owner, int i, float& p, float& ds) {
+      const int lr = warp * 16 + (owner >> 2) + ((i >> 1) & 1) * 8;
+      const int lk = 8 * (i >> 2) + 2 * (owner & 3) + (i & 1);
+      const int row = q0 + lr;   // flagged rows are below Sq
+      float sx, dpx;
+      chain_dots<kChunks>(TileRow{q_s, kWideRows, lr}, TileRow{k_s, kWideKeys, lk},
+                          TileRow{do_s, kWideRows, lr}, TileRow{v_s, kWideKeys, lk}, sx, dpx);
+      probs_exact(sx, dpx, a.lse[bh * a.sq + row], a.delta[bh * a.sq + row], a.scale, p, ds);
+    });
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&v_empty);   // the recheck was V's last reader
+    pack_a(dp, dsa);   // dS in q's dtype for the product
+    if (my_st != nullptr) {
+#pragma unroll
+      for (int j = 0; j < kWideKeys / 8; ++j) {
+        const int col = k0 + 8 * j + 2 * quad;
+        if (row0 < a.sq) {
+          stash_pair(my_st + st_base + static_cast<long long>(row0) * a.sk, col, a.sk,
+                     cw == 0 ? s[4 * j] : dp[4 * j], cw == 0 ? s[4 * j + 1] : dp[4 * j + 1]);
+        }
+        if (row1 < a.sq) {
+          stash_pair(my_st + st_base + static_cast<long long>(row1) * a.sk, col, a.sk,
+                     cw == 0 ? s[4 * j + 2] : dp[4 * j + 2],
+                     cw == 0 ? s[4 * j + 3] : dp[4 * j + 3]);
+        }
+      }
+    }
+
+    // dQ += dS K over this consumer's 256 columns, K read MN-major.
+    fence_regs(dq);
+#pragma unroll
+    for (int kk = 0; kk < kWideKeys / 16; ++kk) fence_regs(dsa[kk]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kWideKeys / 16; ++kk) {
+      wgmma_m64n256k16_rs_tb(
+          dq, dsa[kk],
+          desc_sw128(kb_addr + kk * 16 * kBoxRowBytes, kWideKeys * kBoxRowBytes, kAtomBytes), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&k_empty);
+  }
+
+  // This consumer's stash holds zeros past the causal range up to Sk.
+  if (my_st != nullptr) {
+    const int c_start = n_tiles * kWideKeys;
+    const int rows = max(0, min(kWideRows, a.sq - q0));
+    const int width = a.sk - c_start;
+    if (width > 0 && rows > 0) {
+      const long long at0 = st_base + static_cast<long long>(q0) * a.sk + c_start;
+      if ((a.sk & 7) == 0) {   // 16-byte stores: c_start is a multiple of 32
+        const int vecs = width / 8;
+        const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+        for (int idx = t128; idx < rows * vecs; idx += 128) {
+          const int r = idx / vecs;
+          *reinterpret_cast<uint4*>(my_st + at0 + static_cast<long long>(r) * a.sk +
+                                    (idx - r * vecs) * 8) = zero;
+        }
+      } else {
+        const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
+        for (int idx = t128; idx < rows * width; idx += 128) {
+          const int r = idx / width;
+          my_st[at0 + static_cast<long long>(r) * a.sk + (idx - r * width)] = zero;
+        }
+      }
+    }
+  }
+
+  if (a.flagged != nullptr && flagged != 0) atomicAdd(a.flagged, flagged);
+  const long long rs = static_cast<long long>(a.h) * a.d;
+  store_rows(static_cast<__nv_bfloat16*>(a.out0) + static_cast<long long>(batch) * a.sq * rs +
+                 static_cast<long long>(head) * a.d + cw * kWideCols,
+             rs, a.sq, a.d - cw * kWideCols, row0, quad, dq);
+}
+
+cudaError_t launch_dq_wide(const BwdArgs& ba, int batch, int device, cudaStream_t stream) {
+  static std::atomic<bool> opted_in[kMaxDevices];
+  if (!opted_in[device].load(std::memory_order_acquire)) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_bwd_dq_wide_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kWideSmem);
+    if (err != cudaSuccess) return err;
+    opted_in[device].store(true, std::memory_order_release);
+  }
+  const int n_tiles = (ba.sq + kWideRows - 1) / kWideRows;
+  if (n_tiles > 65535) return static_cast<cudaError_t>(kBadArgument);
+  CUtensorMap q_map, do_map, k_map, v_map;
+  cudaError_t err = make_bshd_map(&q_map, ba.q, batch, ba.sq, ba.h, ba.d, kWideRows);
+  if (err == cudaSuccess) err = make_bshd_map(&do_map, ba.dout, batch, ba.sq, ba.h, ba.d, kWideRows);
+  if (err == cudaSuccess) err = make_bshd_map(&k_map, ba.k, batch, ba.sk, ba.h, ba.d, kWideKeys);
+  if (err == cudaSuccess) err = make_bshd_map(&v_map, ba.v, batch, ba.sk, ba.h, ba.d, kWideKeys);
+  if (err != cudaSuccess) return err;
+  const Args a{ba.lse, ba.delta, ba.dq, nullptr, ba.p_stash, ba.ds_stash, ba.sq, ba.sk, ba.h,
+               ba.d, ba.causal ? 1 : 0, ba.q_offset, ba.kv_offset, ba.scale, n_tiles,
+               ba.flagged};
+  flash_bwd_dq_wide_wgmma_kernel<<<dim3(ba.h, batch, n_tiles), kThreads, kWideSmem, stream>>>(
+      q_map, do_map, k_map, v_map, a);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// dK/dV from the p/ds stash: a block owns 128 keys x one 128-column slice of
+// dK and dV (the registers of two consumer warpgroups); query tiles stream.
+// ---------------------------------------------------------------------------
+constexpr int kSlice = 128;                         // dK/dV columns a block
+constexpr int kStashBox = kStream * kBoxRowBytes;   // one 64 x 64 bf16 box: 8 KB
+constexpr int kStashStages = 3;
+// A stage: P and dS (64 queries x 128 keys) and Q and dO (64 queries x the
+// slice's 128 columns), two boxes each.
+constexpr int kStashStageBytes = 8 * kStashBox;     // 64 KB
+constexpr int kStashSmem = kStashStages * kStashStageBytes + kAtomBytes;
+
+// kTma: P and dS arrive by TMA (Sk % 8 == 0: TMA takes row strides in
+// 16-byte units); otherwise the producer warpgroup copies them itself into
+// the same swizzled layout. Q and dO always arrive by TMA.
+template <bool kTma>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dkv_stash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                                     const __grid_constant__ CUtensorMap do_map,
+                                     const __grid_constant__ CUtensorMap p_map,
+                                     const __grid_constant__ CUtensorMap ds_map, const Args a) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[kStashStages], empty[kStashStages];
+  unsigned char* ring = align_atom(smem_raw);
+
+  const int n_slices = (a.d + kSlice - 1) / kSlice;
+  const int slice = static_cast<int>(blockIdx.x) % n_slices;   // a key tile's slices run
+  const int head = static_cast<int>(blockIdx.x) / n_slices;    // side by side (L2)
+  const int batch = blockIdx.y;
+  const int k0 = static_cast<int>(blockIdx.z) * kRows;  // causal: the first key tiles are heaviest
+  const int n_qtiles = (a.sq + kStream - 1) / kStream;
+  const int t_first = first_query_tile(a, k0);
+  const int wg = threadIdx.x / 128;
+  const long long bh = static_cast<long long>(batch) * a.h + head;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int st = 0; st < kStashStages; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], kConsumers * 4);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    const int c0 = slice * kSlice;
+    for (int t = t_first; t < n_qtiles; ++t) {
+      const int i = t - t_first;
+      const int st = i % kStashStages;
+      unsigned char* stage = ring + st * kStashStageBytes;
+      if constexpr (kTma) {
+        if (threadIdx.x != 0) break;
+        mbar_wait(&empty[st], ((i / kStashStages) & 1) ^ 1);   // the first round passes
+        mbar_arrive_expect_tx(&full[st], kStashStageBytes);
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          tma_load_3d(stage + c * kStashBox, &p_map, &full[st], k0 + c * kSwizzleCols,
+                      t * kStream, static_cast<int>(bh));
+          tma_load_3d(stage + (2 + c) * kStashBox, &ds_map, &full[st], k0 + c * kSwizzleCols,
+                      t * kStream, static_cast<int>(bh));
+        }
+      } else {
+        // Every producer thread: 64 queries x 128 keys of P and dS element
+        // by element (a stash row is only 2-byte aligned), zeros past Sq
+        // and Sk; element (r, c) of a box sits in 16-byte chunk (c / 8) ^ (r
+        // % 8) of its row.
+        mbar_wait(&empty[st], ((i / kStashStages) & 1) ^ 1);
+        const __nv_bfloat16* p_st = static_cast<const __nv_bfloat16*>(a.p_stash) +
+                                    bh * a.sq * static_cast<long long>(a.sk);
+        const __nv_bfloat16* ds_st = static_cast<const __nv_bfloat16*>(a.ds_stash) +
+                                     bh * a.sq * static_cast<long long>(a.sk);
+        const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
+        for (int idx = threadIdx.x; idx < kStream * kRows; idx += 128) {
+          const int r = idx / kRows, c = idx % kRows;
+          const int q = t * kStream + r, key = k0 + c;
+          const bool in = q < a.sq && key < a.sk;
+          const long long at = static_cast<long long>(q) * a.sk + key;
+          const int off = (c >> 6) * kStashBox + r * kBoxRowBytes +
+                          ((((c & 63) >> 3) ^ (r & 7)) << 4) + (c & 7) * 2;
+          *reinterpret_cast<__nv_bfloat16*>(stage + off) = in ? p_st[at] : zero;
+          *reinterpret_cast<__nv_bfloat16*>(stage + 2 * kStashBox + off) = in ? ds_st[at] : zero;
+        }
+        fence_proxy_async();   // the copies, visible to wgmma before the barrier hands them on
+        named_sync(1);
+        if (threadIdx.x != 0) continue;
+        mbar_arrive_expect_tx(&full[st], 4 * kStashBox);
+      }
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        tma_load_4d(stage + (4 + c) * kStashBox, &q_map, &full[st], c0 + c * kSwizzleCols, head,
+                    t * kStream, batch);
+        tma_load_4d(stage + (6 + c) * kStashBox, &do_map, &full[st], c0 + c * kSwizzleCols,
+                    head, t * kStream, batch);
+      }
+    }
+    return;
+  }
+
+  // Consumers: warpgroup cw owns keys kc0 .. kc0 + 63 as wgmma's M. dV +=
+  // P^T dO and dK += dS^T Q: P^T and dS^T read MN-major out of the stash's
+  // (query, key) tiles, dO and Q MN-major.
+  const int cw = wg - 1;
+  const int t128 = threadIdx.x & 127;
+  const int warp = t128 >> 5;
+  const int lane = t128 & 31;
+  const int quad = lane & 3;
+  const int kc0 = k0 + cw * 64;
+  const int key0 = kc0 + warp * 16 + (lane >> 2);   // this thread's keys: key0 and key0 + 8
+  const int my_first = first_query_tile(a, kc0);
+
+  float dk[kSlice / 2], dv[kSlice / 2];
+#pragma unroll
+  for (int i = 0; i < kSlice / 2; ++i) dk[i] = dv[i] = 0.f;
+
+  for (int t = t_first; t < n_qtiles; ++t) {
+    const int i = t - t_first;
+    const int st = i % kStashStages;
+    mbar_wait(&full[st], (i / kStashStages) & 1);
+    if (t >= my_first) {   // earlier tiles lie wholly past the diagonal: zeros
+      const uint32_t stage = smem_u32(ring + st * kStashStageBytes);
+      const uint32_t p_addr = stage + cw * kStashBox;
+      const uint32_t ds_addr = stage + (2 + cw) * kStashBox;
+      const uint32_t q_addr = stage + 4 * kStashBox;
+      const uint32_t do_addr = stage + 6 * kStashBox;
+      fence_regs(dk);
+      fence_regs(dv);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kStream / 16; ++kk) {
+        const uint32_t step = kk * 16 * kBoxRowBytes;
+        wgmma_m64n128k16_ss_tt(dv, desc_sw128(p_addr + step, kStashBox, kAtomBytes),
+                               desc_sw128(do_addr + step, kStashBox, kAtomBytes), 1);
+      }
+#pragma unroll
+      for (int kk = 0; kk < kStream / 16; ++kk) {
+        const uint32_t step = kk * 16 * kBoxRowBytes;
+        wgmma_m64n128k16_ss_tt(dk, desc_sw128(ds_addr + step, kStashBox, kAtomBytes),
+                               desc_sw128(q_addr + step, kStashBox, kAtomBytes), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dk);
+      fence_regs(dv);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);
+  }
+
+  const long long rs = static_cast<long long>(a.h) * a.d;
+  const long long off = static_cast<long long>(batch) * a.sk * rs +
+                        static_cast<long long>(head) * a.d + slice * kSlice;
+  store_rows(static_cast<__nv_bfloat16*>(a.out0) + off, rs, a.sk, a.d - slice * kSlice, key0,
+             quad, dk);
+  store_rows(static_cast<__nv_bfloat16*>(a.out1) + off, rs, a.sk, a.d - slice * kSlice, key0,
+             quad, dv);
+}
+
+template <bool kTma>
+cudaError_t launch_stash_body(const BwdArgs& ba, int batch, int device, cudaStream_t stream) {
+  static std::atomic<bool> opted_in[kMaxDevices];
+  if (!opted_in[device].load(std::memory_order_acquire)) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(flash_bwd_dkv_stash_wgmma_kernel<kTma>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, kStashSmem);
+    if (err != cudaSuccess) return err;
+    opted_in[device].store(true, std::memory_order_release);
+  }
+  const int n_ktiles = (ba.sk + kRows - 1) / kRows;
+  const long long n_x = static_cast<long long>((ba.d + kSlice - 1) / kSlice) * ba.h;
+  if (n_ktiles > 65535 || static_cast<long long>(batch) * ba.h > 0x7fffffffLL) {
+    return static_cast<cudaError_t>(kBadArgument);
+  }
+  CUtensorMap q_map, do_map, p_map{}, ds_map{};
+  cudaError_t err = make_bshd_map(&q_map, ba.q, batch, ba.sq, ba.h, ba.d, kStream);
+  if (err == cudaSuccess) err = make_bshd_map(&do_map, ba.dout, batch, ba.sq, ba.h, ba.d, kStream);
+  if constexpr (kTma) {
+    if (err == cudaSuccess) err = make_stash_map(&p_map, ba.p_stash, batch * ba.h, ba.sq, ba.sk);
+    if (err == cudaSuccess) err = make_stash_map(&ds_map, ba.ds_stash, batch * ba.h, ba.sq, ba.sk);
+  }
+  if (err != cudaSuccess) return err;
+  const Args a{nullptr, nullptr, ba.dk, ba.dv, ba.p_stash, ba.ds_stash, ba.sq, ba.sk, ba.h,
+               ba.d, ba.causal ? 1 : 0, ba.q_offset, ba.kv_offset, 1.f, n_ktiles, nullptr};
+  flash_bwd_dkv_stash_wgmma_kernel<kTma>
+      <<<dim3(static_cast<unsigned>(n_x), batch, n_ktiles), kThreads, kStashSmem, stream>>>(
+          q_map, do_map, p_map, ds_map, a);
+  return cudaGetLastError();
+}
+
+// The body for Sk is chosen here, explicitly: TMA for the stash when its
+// rows are 16-byte multiples, else the producer's own copies.
+cudaError_t launch_stash(const BwdArgs& ba, int batch, int device, cudaStream_t stream) {
+  return ba.sk % 8 == 0 ? launch_stash_body<true>(ba, batch, device, stream)
+                        : launch_stash_body<false>(ba, batch, device, stream);
 }
 
 }  // namespace tc
@@ -1490,16 +2073,27 @@ cudaError_t launch_one(const BwdArgs& a, int batch, int device, cudaStream_t str
   return cudaGetLastError();
 }
 
-// Whether a call runs a tensor-core body: bf16 at head_dim <= 128, dQ and
-// the recompute dK/dV. The launcher's rule, exported for the wrappers'
-// counts (ktwe_flash_bwd_wgmma).
+// Whether a call runs a tensor-core body: in bf16 every dQ and stash dK/dV
+// call, and the recompute dK/dV at head_dim <= 128. The launcher's rule,
+// exported for the wrappers' counts (ktwe_flash_bwd_wgmma).
 bool wgmma_body(int which, int d, int dtype) {
-  return (which == kDq || which == kDkv) && dtype == kBF16 && d <= tc::kDPad;
+  return dtype == kBF16 && (which != kDkv || d <= tc::kDPad);
+}
+
+// The widest head_dim of the body instance a call runs (exported as
+// ktwe_flash_bwd_dmax): the f32 pipes' 64, 128, 256 or 512; the tensor-core
+// bodies' 128 (dQ and dK/dV at head_dim <= 128) or 512 (dQ above 128, and
+// the stash dK/dV at every head_dim, in 128-column slices).
+int body_dmax(int which, int d, int dtype) {
+  if (wgmma_body(which, d, dtype)) {
+    return which != kDkvStash && d <= tc::kDPad ? tc::kDPad : tc::kWideD;
+  }
+  return d <= 64 ? 64 : (d <= 128 ? 128 : (d <= 256 ? 256 : 512));
 }
 
 template <int W>
 cudaError_t launch(const BwdArgs& a, int batch, int dtype, int device, cudaStream_t s) {
-  const int dmax = a.d <= 64 ? 64 : (a.d <= 128 ? 128 : (a.d <= 256 ? 256 : 512));
+  const int dmax = body_dmax(W, a.d, dtype);
   if (dtype == kF32) {
     if (dmax == 64) return launch_one<float, 64, W>(a, batch, device, s);
     if (dmax == 128) return launch_one<float, 128, W>(a, batch, device, s);
@@ -1507,13 +2101,17 @@ cudaError_t launch(const BwdArgs& a, int batch, int dtype, int device, cudaStrea
     return launch_one<float, 512, W>(a, batch, device, s);
   }
   if constexpr (W == kDkvStash) {
-    if (dmax == 64) return launch_one<__nv_bfloat16, 64, W>(a, batch, device, s);
-    if (dmax == 128) return launch_one<__nv_bfloat16, 128, W>(a, batch, device, s);
+    return tc::launch_stash(a, batch, device, s);
+  } else if constexpr (W == kDq) {
+    return dmax == tc::kDPad ? tc::launch<kDq>(a, batch, device, s)
+                             : tc::launch_dq_wide(a, batch, device, s);
   } else {
-    if (wgmma_body(W, a.d, dtype)) return tc::launch<W>(a, batch, device, s);
+    // The recompute dK/dV above head_dim 128 keeps the f32 pipes (off the
+    // main path).
+    if (dmax == tc::kDPad) return tc::launch<kDkv>(a, batch, device, s);
+    if (dmax == 256) return launch_one<__nv_bfloat16, 256, W>(a, batch, device, s);
+    return launch_one<__nv_bfloat16, 512, W>(a, batch, device, s);
   }
-  if (dmax == 256) return launch_one<__nv_bfloat16, 256, W>(a, batch, device, s);
-  return launch_one<__nv_bfloat16, 512, W>(a, batch, device, s);
 }
 
 int validate(int batch, int sq, int sk, int h, int d, int dtype, int device) {
@@ -1578,11 +2176,39 @@ KTWE_EXPORT int ktwe_flash_bwd_dkv_stash(const void* q, const void* dout, const 
   return run<kDkvStash>(a, batch, dtype, device, stream);
 }
 
+// The launch of ktwe_flash_bwd_dq that also adds to *flagged (one device
+// unsigned 64-bit counter) how many P and dS elements its tensor-core body
+// rechecked as in-order chains (nothing on the f32 pipes): a probe of the
+// recheck's share, not a path of the model.
+KTWE_EXPORT int ktwe_flash_bwd_dq_flagged(const void* q, const void* k, const void* v,
+                                          const void* dout, const void* lse, const void* delta,
+                                          void* dq, void* p_stash, void* ds_stash, int batch,
+                                          int sq, int sk, int h, int d, int causal,
+                                          long long q_offset, long long kv_offset, float scale,
+                                          int dtype, int device, void* stream, void* flagged) {
+  if ((p_stash == nullptr) != (ds_stash == nullptr) || flagged == nullptr) return kBadArgument;
+  const BwdArgs a{q, k, v, dout, static_cast<const float*>(lse),
+                  static_cast<const float*>(delta), dq, nullptr, nullptr, p_stash, ds_stash,
+                  sq, sk, h, d, causal != 0, q_offset, kv_offset, scale,
+                  static_cast<unsigned long long*>(flagged)};
+  return run<kDq>(a, batch, dtype, device, stream);
+}
+
 // 1 when a call of kernel `which` (0 dQ, 1 recompute dK/dV, 2 dK/dV from
 // the stash) at head_dim d and `dtype` runs a tensor-core (wgmma) body,
 // else 0: the rule the launchers above apply.
 KTWE_EXPORT int ktwe_flash_bwd_wgmma(int which, int d, int dtype) {
   return wgmma_body(which, d, dtype) ? 1 : 0;
+}
+
+// The widest head_dim of the body instance that (which, d, dtype) selects
+// (body_dmax), for reports; 0 for arguments the launchers refuse.
+KTWE_EXPORT int ktwe_flash_bwd_dmax(int which, int d, int dtype) {
+  if (d <= 0 || d > 512 || d % 8 != 0 || which < kDq || which > kDkvStash ||
+      (dtype != kF32 && dtype != kBF16)) {
+    return 0;
+  }
+  return body_dmax(which, d, dtype);
 }
 
 // Dynamic shared memory a block of the body that (which, d, dtype)
@@ -1593,7 +2219,10 @@ KTWE_EXPORT int ktwe_flash_bwd_smem(int which, int d, int dtype) {
       (dtype != kF32 && dtype != kBF16)) {
     return 0;
   }
-  if (wgmma_body(which, d, dtype)) return tc::kSmem;
+  if (wgmma_body(which, d, dtype)) {
+    if (which == kDkvStash) return tc::kStashSmem;
+    return body_dmax(which, d, dtype) == tc::kDPad ? tc::kSmem : tc::kWideSmem;
+  }
   constexpr int kDmax[4] = {64, 128, 256, 512};
   size_t floats[3][4] = {{smem_floats<64, kDq>(), smem_floats<128, kDq>(),
                           smem_floats<256, kDq>(), smem_floats<512, kDq>()},

@@ -55,7 +55,10 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
                                                      _P],
         "ktwe_flash_bwd_dkv_stash": [_P] * 6 + [_I] * 6 + [_LL, _LL, _I, _I,
                                                            _P],
+        "ktwe_flash_bwd_dq_flagged": [_P] * 9 + [_I] * 6 + [_LL, _LL, _F, _I,
+                                                          _I, _P, _P],
         "ktwe_flash_bwd_wgmma": [_I, _I, _I],
+        "ktwe_flash_bwd_dmax": [_I, _I, _I],
         "ktwe_flash_bwd_smem": [_I, _I, _I]},
     "fused_ce": {"ktwe_fused_ce_fwd": [_P] * 7 + [_I] * 6 + [_P],
                  "ktwe_fused_ce_bwd": [_P] * 7 + [_I] * 5 + [_P]},

@@ -266,6 +266,9 @@ def test_rope_vjp_is_the_inverse_rotation(dev, dtype):
     (1, 2048, 2048, 4, 128, True, 0, 0),     # many tiles of both sides
     (1, 96, 300, 2, 128, True, 0, 17),       # Sq 96 against Sk 300, kv_offset 17
     (1, 200, 200, 2, 128, True, 0, 0),       # Sq 200: ragged 64-row tiles
+    (2, 256, 256, 1, 512, True, 0, 0),       # D 512, several tiles of both sides
+    (1, 200, 300, 1, 512, True, 0, 17),      # D 512, Sk 300 (not a multiple of 8)
+    (1, 136, 136, 2, 264, True, 0, 0),       # D 264: three 128-column slices
 ])
 def test_flash_backward_kernels_match_plain(dev, monkeypatch, stash, dtype, b,
                                             sq, sk, h, d, causal, q_off,
@@ -285,9 +288,11 @@ def test_flash_backward_kernels_match_plain(dev, monkeypatch, stash, dtype, b,
     dkv = ("flash_attention_bwd_dkv_stash" if stash
            else "flash_attention_bwd_dkv")
     want_launches = {"flash_attention_bwd_dq": 1, dkv: 1}
-    if dtype == torch.bfloat16 and d <= 128:     # the tensor-core bodies
+    if dtype == torch.bfloat16:                  # the tensor-core bodies
         want_launches[flash.KERNEL_BWD_DQ_WGMMA] = 1
-        if not stash:
+        if stash:
+            want_launches[flash.KERNEL_BWD_DKV_STASH_WGMMA] = 1
+        elif d <= 128:
             want_launches[flash.KERNEL_BWD_DKV_WGMMA] = 1
     assert dict(kernels.launches) == want_launches
     want = flash.flash_attention_backward_plain(q, k, v, o, lse, do, causal,
@@ -328,15 +333,19 @@ def test_each_flash_backward_kernel_matches_its_plain_version(dev, dtype, d):
                                      (torch.float32, 128)])
 def test_flash_backward_bf16_runs_the_wgmma_bodies(dev, monkeypatch, stash,
                                                    dtype, d):
-    """bf16 dQ and recompute dK/dV at head_dim <= 128 run the tensor-core
-    bodies, and the library's body query says so; f32 and head_dim 512 keep
-    the f32-pipe bodies."""
+    """bf16 dQ and the stash dK/dV run tensor-core bodies at every head_dim,
+    the recompute dK/dV at head_dim <= 128, and the library's body query
+    says so, instance included; f32, and the recompute dK/dV at head_dim
+    512, keep the f32-pipe bodies."""
     q, k, v, do = (_randn(dev, 1, 64, 2, d, dtype=dtype, seed=20 + i)
                    for i in range(4))
     o, lse = flash.flash_attention(q, k, v, True, return_lse=True)
     monkeypatch.setattr(flash, "PDS_STASH_LIMIT_BYTES",
                         int(1.2e9) if stash else 0)
-    wgmma = int(dtype == torch.bfloat16 and d <= 128)
+    bf16 = int(dtype == torch.bfloat16)
+    wgmma = {flash.KERNEL_BWD_DQ: bf16,
+             flash.KERNEL_BWD_DKV: bf16 * int(d <= 128),
+             flash.KERNEL_BWD_DKV_STASH: bf16}
     before = dict(kernels.launches)
     flash.flash_attention_backward(q, k, v, o, lse, do)
     torch.cuda.synchronize()
@@ -344,24 +353,31 @@ def test_flash_backward_bf16_runs_the_wgmma_bodies(dev, monkeypatch, stash,
     def rise(name):
         return kernels.launches[name] - before.get(name, 0)
     assert rise(flash.KERNEL_BWD_DQ) == 1
-    assert rise(flash.KERNEL_BWD_DQ_WGMMA) == wgmma
+    assert rise(flash.KERNEL_BWD_DQ_WGMMA) == wgmma[flash.KERNEL_BWD_DQ]
     assert rise(flash.KERNEL_BWD_DKV) == int(not stash)
-    assert rise(flash.KERNEL_BWD_DKV_WGMMA) == wgmma * int(not stash)
+    assert rise(flash.KERNEL_BWD_DKV_WGMMA) \
+        == wgmma[flash.KERNEL_BWD_DKV] * int(not stash)
     assert rise(flash.KERNEL_BWD_DKV_STASH) == int(stash)
-    for kernel in (flash.KERNEL_BWD_DQ, flash.KERNEL_BWD_DKV):
+    assert rise(flash.KERNEL_BWD_DKV_STASH_WGMMA) \
+        == wgmma[flash.KERNEL_BWD_DKV_STASH] * int(stash)
+    f32_bound = next(b for b in (64, 128, 256, 512) if d <= b)
+    for kernel, on in wgmma.items():
         body = flash.bwd_body(kernel, d, dtype)
-        assert body["body"] == ("wgmma" if wgmma else "f32 pipes")
-        assert body["dynamic_smem_bytes"] > 0
-    assert flash.bwd_body(flash.KERNEL_BWD_DKV_STASH, d, dtype)["body"] \
-        == "f32 pipes"
+        assert body["body"] == ("wgmma" if on else "f32 pipes"), kernel
+        bound = (f32_bound if not on else 128
+                 if kernel != flash.KERNEL_BWD_DKV_STASH and d <= 128 else 512)
+        assert body["instance"] == f"d<={bound}", kernel
+        assert body["dynamic_smem_bytes"] > 0, kernel
 
 
-def test_flash_dq_stash_holds_zeros_past_the_diagonal(dev):
-    """The tensor-core dQ body writes the whole p/ds stash: the plain
-    version's values bit for bit in the causal range (P and dS round as the
-    plain version's in-order sums make them round) and exact zeros in every
-    tile past it up to Sk, over memory that held NaNs before."""
-    b, sq, sk, h, d = 1, 200, 260, 2, 128
+@pytest.mark.parametrize("d", [128, 512])
+def test_flash_dq_stash_holds_zeros_past_the_diagonal(dev, d):
+    """The tensor-core dQ bodies (head_dim 128 and 512) write the whole p/ds
+    stash: the plain version's values bit for bit in the causal range (P
+    and dS round as the plain version's in-order sums make them round) and
+    exact zeros in every tile past it up to Sk, over memory that held NaNs
+    before."""
+    b, sq, sk, h = 1, 200, 260, 2
     q, do = (_randn(dev, b, sq, h, d, dtype=torch.bfloat16, seed=30 + i)
              for i in range(2))
     k, v = (_randn(dev, b, sk, h, d, dtype=torch.bfloat16, seed=32 + i)

@@ -102,8 +102,9 @@ def _unflat(a, b, s, h, d):
 
 
 # (causal, stash, (b, sq, sk, h, d, q_offset)): D 128 at S 256 under its
-# first ids, then head_dim 64, and queries at an offset (Sq 256 against
-# Sk 512, q_offset 256), the edges the card's bodies are held to them at.
+# first ids, then head_dim 64, queries at an offset (Sq 256 against Sk 512,
+# q_offset 256), and the flagship's head_dim 512 on its flat (B*H, S, 1, D)
+# view: the edges and widths the card's bodies are held to them at.
 _BWD_PLAIN_CASES = (
     [pytest.param(causal, stash, (1, 256, 256, 2, 128, 0),
                   id=f"{causal}-{stash}")
@@ -113,7 +114,10 @@ _BWD_PLAIN_CASES = (
        for stash in (True, False) for causal in (True, False)]
     + [pytest.param(True, stash, (1, 256, 512, 2, 128, 256),
                     id=f"q_offset256-True-{stash}")
-       for stash in (True, False)])
+       for stash in (True, False)]
+    + [pytest.param(causal, stash, (1, 128, 128, 1, 512, 0),
+                    id=f"d512-{causal}-{stash}")
+       for stash in (True, False) for causal in (True, False)])
 
 
 @pytest.mark.parametrize("causal,stash,shape", _BWD_PLAIN_CASES)
@@ -122,7 +126,8 @@ def test_flash_backward_plain_matches_jax_kernels(monkeypatch, stash,
     """Both dK/dV branches of `_flash_backward_flat` (the p/ds stash and
     the recompute kernel, chosen by PDS_STASH_LIMIT_BYTES), whole and
     composed from the per-kernel plain versions, at D 128 and S 256, at
-    D 64, and with Sq 256 at q_offset 256 against Sk 512."""
+    D 64, with Sq 256 at q_offset 256 against Sk 512, and at the flagship's
+    head_dim 512 (one head)."""
     b, sq, sk, h, d, q_off = shape
     q, do = (_randn(b, sq, h, d, seed=10 + i) for i in (0, 3))
     k, v = (_randn(b, sk, h, d, seed=10 + i) for i in (1, 2))
