@@ -60,11 +60,12 @@ inits in bf16:
      output's own values (BWD_RTOL, BWD_ATOL_OF_RMS);
      Every bf16 flash forward of every phase must run the tensor-core
      (wgmma) body, and so must every bf16 dQ and stash dK/dV launch (the
-     train phases and the flagship at head_dim 512) and every recompute
-     dK/dV of the train phase (head_dim 128); no f32 gate's flash kernel
-     may. The flash libraries' build seconds, registers, spills and shared
-     memory are printed first, and each backward case names the body (and
-     its instance) that ran it;
+     train phases and the flagship at head_dim 512), every recompute
+     dK/dV of the train phase (head_dim 128) and every fused CE forward
+     and backward of the flagship; no f32 gate's flash or fused CE kernel
+     may. The flash and fused CE libraries' build seconds, registers,
+     spills and shared memory are printed first, and each backward and
+     fused CE case names the body (and its instance) that ran it;
   4. opens a torch.profiler window on one step of the trainer main at its
      defaults and one flagship step of a single microbatch, after the
      timed phases, and prints the ten device operations with the most
@@ -157,12 +158,15 @@ BWD_RTOL = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-5}
 BWD_ATOL_OF_RMS = {torch.bfloat16: 1e-3, torch.float32: 1e-5}
 
 
-# Each flash kernel's count of launches on its bf16 tensor-core body.
+# Each flash and fused CE kernel's count of launches on its bf16
+# tensor-core body.
 WGMMA_COUNTERS = {"flash_attention": "flash_attention_wgmma",
                   "flash_attention_bwd_dq": "flash_attention_bwd_dq_wgmma",
                   "flash_attention_bwd_dkv": "flash_attention_bwd_dkv_wgmma",
                   "flash_attention_bwd_dkv_stash":
-                      "flash_attention_bwd_dkv_stash_wgmma"}
+                      "flash_attention_bwd_dkv_stash_wgmma",
+                  "fused_ce_fwd": "fused_ce_fwd_wgmma",
+                  "fused_ce_bwd": "fused_ce_bwd_wgmma"}
 # The backward's tensor-core bodies in a build log, by kernel name.
 BWD_WGMMA_INSTANCES = {
     "flash_bwd_dq_wgmma_kernel":
@@ -178,6 +182,16 @@ BWD_WGMMA_INSTANCES = {
     "flash_bwd_dkv_stash_wgmma_kernelILb0E":
         "bf16, d<=512, 128 keys x 128-column slice, 64-query tiles, 3 "
         "stages, P and dS copied by the producer (Sk % 8 != 0)"}
+# The fused CE library's kernels in a build log, by the name's distinct part.
+CE_KERNELS = {
+    "ce_wgmma_kernelILb1E": "ce_wgmma_kernel<forward: bf16, 128 x 256 "
+                            "tiles, 64 deep, 4 stages, persistent>",
+    "ce_wgmma_kernelILb0E": "ce_wgmma_kernel<backward dH: bf16, 128 x 256 "
+                            "tiles, 64 deep, 4 stages, persistent>",
+    "ce_dlg_kernel": "ce_dlg_kernel<backward dlg: bf16>",
+    "ce_combine_kernel": "ce_combine_kernel<forward statistics>",
+    "simt13ce_fwd_kernel": "ce_fwd_kernel<float>",
+    "simt13ce_bwd_kernel": "ce_bwd_kernel<float>"}
 
 
 def fail(msg: str) -> None:
@@ -294,7 +308,10 @@ def ptxas_entries(log: str) -> list:
             bwd = re.search(r"(flash_bwd_\w+?_kernel)I(f|13__nv_bfloat16)Li(\d+)E",
                             name)
             wgmma = next((k for k in BWD_WGMMA_INSTANCES if k in name), None)
-            if shape:
+            ce = next((k for k in CE_KERNELS if k in name), None)
+            if ce:
+                name = CE_KERNELS[ce]
+            elif shape:
                 name = ("flash_fwd_wgmma_kernel<d<=%s, %s query rows, %s keys,"
                         " %s stage(s)>" % shape.groups())
             elif "flash_fwd_kernelIf" in name:
@@ -818,13 +835,16 @@ def check_flagship_kernels(dev, rope, fused_ce, attn_mod, out: dict) -> dict:
         del x, g
     out["rope_t"], out["rope_t_inv"] = fwd_cases, inv_cases
 
-    # Fused CE: the flagship microbatch, the f32 gate's rows, a ragged one.
+    # Fused CE: the flagship microbatch, the f32 gate's rows, ragged N and
+    # V (at D 128 and at the full D) and N < 64 with V 8.
     fwd_cases, bwd_cases = [], []
     for name, (n, d, v), dt in (
             ("flagship", (FLAGSHIP_MICRO * seq, 2048, 32768), bf16),
             ("flagship_gate_f32", (FLAGSHIP_GATE_BATCH * 512, 2048, 32768),
              f32),
-            ("ragged", (300, 128, 264), bf16)):
+            ("ragged", (300, 128, 264), bf16),
+            ("ragged_full_d", (300, 2048, 264), bf16),
+            ("tiny", (8, 256, 8), bf16)):
         h2 = randn(n, d, dtype=dt)
         head = (0.05 * randn(d, v, dtype=f32)).to(dt)
         t1 = torch.randint(0, v, (n,), generator=gen, device=dev)
@@ -849,8 +869,14 @@ def check_flagship_kernels(dev, rope, fused_ce, attn_mod, out: dict) -> dict:
         fb_ms, fb_by = bound(n * d * es + d * v * es + 4 * n + 2 * n * v
                              + 8 * n, 2.0 * n * d * v, dt)
         hl = h2.detach().requires_grad_()
+        fwd_body = fused_ce.body_report(fused_ce.KERNEL_FWD, dt)
+        bwd_body = fused_ce.body_report(fused_ce.KERNEL_BWD, dt)
+        if fwd_body["body"] != fused_ce.ce_body(dt) \
+                or bwd_body["body"] != fused_ce.ce_body(dt):
+            fail(f"fused CE bodies {fwd_body} / {bwd_body} at {dt}, the "
+                 f"rule says {fused_ce.ce_body(dt)}")
         fwd_cases.append(dict(
-            case=name, shape=shape, dtype=str(dt).split(".")[-1],
+            case=name, shape=shape, dtype=str(dt).split(".")[-1], **fwd_body,
             max_abs_err=max(ea, ea_g, ea_s), max_rel_err=max(er, er_g),
             lse_max_abs_err=ea, gold_max_abs_err=ea_g,
             stash_max_abs_err=ea_s, stat_rtol=rt, stash_within_one_ulp=ok_s,
@@ -869,7 +895,7 @@ def check_flagship_kernels(dev, rope, fused_ce, attn_mod, out: dict) -> dict:
         bb_ms, bb_by = bound(2 * n * v * 2 + d * v * es + 8 * n
                              + n * d * 2, 2.0 * n * d * v + 5.0 * n * v, dt)
         bwd_cases.append(dict(
-            case=name, shape=shape, dtype=str(dt).split(".")[-1],
+            case=name, shape=shape, dtype=str(dt).split(".")[-1], **bwd_body,
             max_abs_err=max(ea_d, ea_h), max_rel_err=er_h,
             dlg_max_abs_err=ea_d, dlg_within_one_ulp=ok_d,
             dh_max_abs_err=ea_h, ok=ok_d and ok_h,
@@ -1409,8 +1435,8 @@ def per_step_launches(n_layers: int, stash: bool, flagship: bool = False,
     On the flagship's paths the rotations
     are the t-layout pair (2L each way), v and the attention output pass
     the relayout pair (L each way forward, L each way back: 2L each) and
-    the loss is one fused CE forward and backward; elsewhere 4L RoPE
-    launches."""
+    the loss is one fused CE forward and backward (in bf16 both on their
+    tensor-core bodies, in f32 neither); elsewhere 4L RoPE launches."""
     want = {"embed_gather": 1,
             "rms_norm": 2 * n_layers + 1, "rms_norm_bwd": 2 * n_layers + 1,
             "flash_attention": n_layers, "flash_attention_bwd_dq": n_layers,
@@ -1427,6 +1453,8 @@ def per_step_launches(n_layers: int, stash: bool, flagship: bool = False,
         want.update(rope_t=2 * n_layers, rope_t_inv=2 * n_layers,
                     relayout_to_t=2 * n_layers, relayout_from_t=2 * n_layers,
                     fused_ce_fwd=1, fused_ce_bwd=1)
+        if bf16:
+            want.update(fused_ce_fwd_wgmma=1, fused_ce_bwd_wgmma=1)
     else:
         want["rope"] = 4 * n_layers
     return {k: n * microbatches for k, n in want.items()}
@@ -1682,6 +1710,11 @@ def profile_window(run) -> dict:
                 idle_share=1.0 - busy_us / 1e3 / window_ms,
                 flash_fwd_ms=sum(ms for n, ms in by_name.items()
                                  if "flash_fwd" in n),
+                fused_ce_ms={k: sum(ms for n, ms in by_name.items() if k in n)
+                             for k in ("ce_wgmma_kernel<true>",
+                                       "ce_wgmma_kernel<false>",
+                                       "ce_dlg_kernel", "ce_combine_kernel",
+                                       "ce_fwd_kernel", "ce_bwd_kernel")},
                 flash_bwd_ms={k: sum(ms for n, ms in by_name.items() if k in n)
                               for k in ("flash_bwd_dq_kernel",
                                         "flash_bwd_dq_wgmma",
@@ -1772,6 +1805,16 @@ def main() -> int:
                              flash.KERNEL_BWD_DKV_STASH)
                    for dt, d in ((torch.bfloat16, 128), (torch.bfloat16, 512),
                                  (torch.float32, 128))]}}), flush=True)
+    print(json.dumps({"fused_ce_build": {
+        "build_s": per_lib["fused_ce"],
+        "kernels": ptxas_entries(kernels.build_log("fused_ce")),
+        "setmaxnreg": {k: int(re.search(rf"{k} = (\d+);", (
+            kernels.CSRC / "fused_ce.cu").read_text()).group(1))
+            for k in ("kProducerRegs", "kConsumerRegs")},
+        "bodies": [dict(kernel=k, dtype=str(dt).split(".")[-1],
+                        **fused_ce.body_report(k, dt))
+                   for k in (fused_ce.KERNEL_FWD, fused_ce.KERNEL_BWD)
+                   for dt in (torch.bfloat16, torch.float32)]}}), flush=True)
     results = {"kernels": check_kernels(dev, rms, rope, flash, paged,
                                         attn_mod)}
     check_train_kernels(dev, rms, rope, flash, attn_mod, results["kernels"])
@@ -1832,16 +1875,14 @@ def main() -> int:
              "rope_t": ("flagship",), "rope_t_inv": ("flagship",),
              "fused_ce_fwd": ("flagship",), "fused_ce_bwd": ("flagship",),
              "relayout_to_t": ("flagship",), "relayout_from_t": ("flagship",)}
-    # Every bf16 flash launch of every phase ran a tensor-core body: the
-    # forward, dQ and the stash dK/dV at every head_dim, the recompute dK/dV
-    # of the train phase (head_dim 128); none in the f32 gates.
+    # Every bf16 flash and fused CE launch of every phase ran a tensor-core
+    # body: the flash forward, dQ and the stash dK/dV at every head_dim, the
+    # recompute dK/dV of the train phase (head_dim 128), the fused CE
+    # forward and backward of the flagship; none in the f32 gates.
     bodies = {}
-    for phase in every + ("flagship",):
-        n = results[phase]["launches"]
-        for kernel, counter in WGMMA_COUNTERS.items():
-            if kernel != "flash_attention" and phase not in train_phases \
-                    + ("flagship",):
-                continue
+    for kernel, counter in WGMMA_COUNTERS.items():
+        for phase in paths[kernel]:
+            n = results[phase]["launches"]
             got = [n.get(counter, 0), n.get(kernel, 0)]
             bodies[f"{phase}/{kernel}"] = got
             if got[0] != got[1]:
@@ -1856,7 +1897,7 @@ def main() -> int:
                 if n.get(counter, 0):
                     fail(f"{gate} ({path}) ran the bf16 wgmma body of "
                          f"{kernel}")
-    print(json.dumps({"flash_bodies_wgmma_of_all": bodies}), flush=True)
+    print(json.dumps({"bodies_wgmma_of_all": bodies}), flush=True)
     main_path_launches = {}
     for name, on in paths.items():
         for phase in on:

@@ -15,7 +15,9 @@ csrc/fused_ce.cu; its source note says what bounds them on the card and
 how the design answers that.
 
 `fused_lm_head_xent` launches the kernels for CUDA tensors and takes the
-plain versions only for tensors on the CPU. The port has no block-size
+plain versions only for tensors on the CPU. The library picks the body by
+dtype (`ce_body`): bf16 runs the tensor-core (wgmma + TMA) bodies, f32
+the f32 pipes, which the f32 gates need for true f32 products. The port has no block-size
 knobs: `fused_ce_supported` is the reference's shape gate at its 512/512
 defaults, which decides between this op and the chunked one (ops/
 chunked_ce.py) in the model's loss.
@@ -31,13 +33,18 @@ from . import kernels
 
 KERNEL_FWD = "fused_ce_fwd"
 KERNEL_BWD = "fused_ce_bwd"
+# The tensor-core bodies (wgmma + TMA) that every bf16 call runs, counted
+# beside the two names above; which body a call runs is the library's rule
+# (`ktwe_fused_ce_wgmma`), written out in `ce_body`.
+KERNEL_FWD_WGMMA = "fused_ce_fwd_wgmma"
+KERNEL_BWD_WGMMA = "fused_ce_bwd_wgmma"
+# Kernel codes of the library's tile query (csrc's `Kernel`).
+CE_CODES = {KERNEL_FWD: 0, KERNEL_BWD: 1}
 # The reference's block sizes (the same for its forward and backward),
 # which its shape gate asks N and V to be cut into.
 DEFAULT_BLOCK_N = DEFAULT_BLOCK_V = 512
-# The kernels' tile (csrc/fused_ce.cu kBM, kBN) and the number of forward
-# blocks the vocab shares aim for, so a few hundred rows still fill the card.
+# D must be a multiple of this (the f32 body's column tile).
 TILE = 128
-TARGET_FWD_BLOCKS = 1024
 
 
 def _pick(total: int, preferred: int) -> int:
@@ -80,16 +87,23 @@ def fused_ce_forward_plain(h2: torch.Tensor, head16: torch.Tensor,
     return lse, gold, lg.to(torch.bfloat16)
 
 
+def fused_ce_dlg_plain(stash: torch.Tensor, lse: torch.Tensor,
+                       t1: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """The backward's first stage: dlg (N, V) = ((exp(stash - lse) -
+    onehot) * scale) rounded to bf16. `scale` is the f32 one-element
+    g / N."""
+    p = torch.exp(stash.float() - lse[:, None])
+    p[torch.arange(p.shape[0], device=p.device), t1.long()] -= 1.0
+    return (p * scale.float()).to(torch.bfloat16)
+
+
 def fused_ce_backward_plain(stash: torch.Tensor, head16: torch.Tensor,
                             lse: torch.Tensor, t1: torch.Tensor,
                             scale: torch.Tensor
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """-> (dlg (N, V) bf16, dh (N, D) bf16): dlg = ((exp(stash - lse) -
-    onehot) * scale) rounded to bf16, dh = dlg @ head16^T summed in f32 and
-    rounded to bf16. `scale` is the f32 one-element g / N."""
-    p = torch.exp(stash.float() - lse[:, None])
-    p[torch.arange(p.shape[0], device=p.device), t1.long()] -= 1.0
-    dlg = (p * scale.float()).to(torch.bfloat16)
+    """-> (dlg (N, V) bf16, dh (N, D) bf16): dlg from `fused_ce_dlg_plain`,
+    then dh = dlg @ head16^T summed in f32 and rounded to bf16."""
+    dlg = fused_ce_dlg_plain(stash, lse, t1, scale)
     dh = (dlg.float() @ head16.float().t()).to(torch.bfloat16)
     return dlg, dh
 
@@ -99,13 +113,32 @@ def fused_ce_backward_plain(stash: torch.Tensor, head16: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def forward_splits(n: int, v: int) -> int:
-    """Vocab shares of the forward grid: enough blocks to fill the card,
-    the vocab tiles spread evenly over the shares."""
-    n_tiles, v_tiles = -(-n // TILE), -(-v // TILE)
-    want = min(v_tiles, max(1, -(-TARGET_FWD_BLOCKS // n_tiles)))
-    per = -(-v_tiles // want)
-    return -(-v_tiles // per)
+def ce_body(dtype: torch.dtype) -> str:
+    """The body both fused CE launchers run for `dtype`: bf16 the tensor
+    cores (wgmma + TMA), f32 the f32 pipes (the library's rule,
+    `ktwe_fused_ce_wgmma`)."""
+    return "wgmma" if dtype == torch.bfloat16 else "f32 pipes"
+
+
+def body_report(kernel: str, dtype: torch.dtype) -> dict:
+    """Which body the library runs for `kernel` (KERNEL_FWD or KERNEL_BWD)
+    and `dtype`, as its launchers decide, the tile of that body and the
+    dynamic shared memory a block asks for."""
+    lib = kernels.library("fused_ce")
+    code = kernels.DTYPE_CODES[dtype]
+    rows, cols, depth, stages, smem = (
+        lib.ktwe_fused_ce_tile(CE_CODES[kernel], code, i) for i in range(5))
+    return dict(body="wgmma" if lib.ktwe_fused_ce_wgmma(code)
+                else "f32 pipes",
+                instance=f"{rows} x {cols} tiles, {depth} deep, {stages} "
+                         f"stage(s)",
+                dynamic_smem_bytes=smem)
+
+
+def _count(lib, kernel: str, wgmma_name: str, dtype: torch.dtype) -> None:
+    kernels.launches[kernel] += 1
+    if lib.ktwe_fused_ce_wgmma(kernels.DTYPE_CODES[dtype]):
+        kernels.launches[wgmma_name] += 1
 
 
 def _targets(t1: torch.Tensor, n: int, what: str) -> torch.Tensor:
@@ -140,16 +173,16 @@ def _fused_ce_forward_cuda(h2, head16, t1):
     stash = torch.empty((n, v), dtype=torch.bfloat16, device=dev)
     lse = torch.empty((n,), dtype=torch.float32, device=dev)
     gold = torch.empty((n,), dtype=torch.float32, device=dev)
-    splits = forward_splits(n, v)
-    part = torch.empty((3, splits, n), dtype=torch.float32, device=dev)
     lib = kernels.library("fused_ce")
+    dt = kernels.DTYPE_CODES[h2.dtype]
+    splits = lib.ktwe_fused_ce_splits(n, v, dt)
+    part = torch.empty((3, splits, n), dtype=torch.float32, device=dev)
     code = lib.ktwe_fused_ce_fwd(
         h2.data_ptr(), head16.data_ptr(), t32.data_ptr(), stash.data_ptr(),
         part.data_ptr(), lse.data_ptr(), gold.data_ptr(), n, d, v, splits,
-        kernels.DTYPE_CODES[h2.dtype], dev.index or 0,
-        kernels.stream_handle(h2))
+        dt, dev.index or 0, kernels.stream_handle(h2))
     kernels.check(lib, KERNEL_FWD, code)
-    kernels.launches[KERNEL_FWD] += 1
+    _count(lib, KERNEL_FWD, KERNEL_FWD_WGMMA, h2.dtype)
     return lse, gold, stash
 
 
@@ -180,7 +213,7 @@ def _fused_ce_backward_cuda(stash, head16, lse, t1, scale):
         kernels.DTYPE_CODES[head16.dtype], dev.index or 0,
         kernels.stream_handle(stash))
     kernels.check(lib, KERNEL_BWD, code)
-    kernels.launches[KERNEL_BWD] += 1
+    _count(lib, KERNEL_BWD, KERNEL_BWD_WGMMA, head16.dtype)
     return dlg, dh
 
 

@@ -61,7 +61,10 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "ktwe_flash_bwd_dmax": [_I, _I, _I],
         "ktwe_flash_bwd_smem": [_I, _I, _I]},
     "fused_ce": {"ktwe_fused_ce_fwd": [_P] * 7 + [_I] * 6 + [_P],
-                 "ktwe_fused_ce_bwd": [_P] * 7 + [_I] * 5 + [_P]},
+                 "ktwe_fused_ce_bwd": [_P] * 7 + [_I] * 5 + [_P],
+                 "ktwe_fused_ce_splits": [_I, _I, _I],
+                 "ktwe_fused_ce_wgmma": [_I],
+                 "ktwe_fused_ce_tile": [_I, _I, _I]},
     "paged_decode": {"ktwe_paged_decode_fwd": [
         _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P]},
     "embed": {"ktwe_embed_gather": [_P, _P, _P] + [_LL] * 5

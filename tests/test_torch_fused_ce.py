@@ -98,6 +98,38 @@ def test_plain_versions_match_jax_kernels(b, s, d, v):
                      np.asarray(dh_j, np.float32)) < GRAD_REL_NORM
 
 
+@pytest.mark.parametrize("b,s,d,v", [(3, 40, 128, 264), (1, 8, 128, 8)])
+def test_dlg_stage_matches_jax_backward(b, s, d, v):
+    """The plain backward's first stage (the card's dlg pass) against the
+    dlg of the Pallas backward in interpret mode, at ragged N and V: within
+    one bf16 ulp (the two exps may round an f32 p differently)."""
+    h, head, tgt = _case(b, s, d, v, seed=3 * b + v)
+    n = b * s
+    h2, t1 = h.reshape(n, d), tgt.reshape(n)
+    lse_j, _, stash_j = jfce._fused_forward(
+        jnp.asarray(h2), jnp.asarray(head), jnp.asarray(t1), 0, 0,
+        interpret=True)
+    scale = np.float32(0.3 / n)
+    dlg_j, _ = jfce._fused_backward(
+        stash_j, jnp.asarray(head), lse_j, jnp.asarray(t1), scale, 0, 0,
+        interpret=True)
+    dlg = tfce.fused_ce_dlg_plain(
+        _t(np.asarray(stash_j, np.float32)).to(torch.bfloat16),
+        _t(np.asarray(lse_j)), _t(t1), torch.tensor([scale]))
+    assert dlg.dtype == torch.bfloat16 and dlg.shape == (n, v)
+    want = np.asarray(dlg_j, np.float32)
+    assert np.all(np.abs(dlg.float().numpy() - want)
+                  <= np.abs(want) / 128 + 1e-30)
+
+
+@pytest.mark.parametrize("dtype,body", [(torch.bfloat16, "wgmma"),
+                                        (torch.float32, "f32 pipes")])
+def test_ce_body_is_chosen_by_dtype(dtype, body):
+    """bf16 runs the tensor-core bodies, f32 the f32 pipes (true f32
+    products for the f32 gates)."""
+    assert tfce.ce_body(dtype) == body
+
+
 @pytest.mark.parametrize("b,s,d,v", [(2, 64, 256, 1024), (1, 256, 512, 512)])
 def test_fused_xent_value_and_grads_match_jax(b, s, d, v):
     h, head, tgt = _case(b, s, d, v, seed=7 * b + d)

@@ -482,6 +482,7 @@ def test_fused_ce_runs_on_the_card(dev):
     kernels.reset_launches()
     loss, _ = tf.loss_fn(params, toks, cfg)
     assert kernels.launches["fused_ce_fwd"] == 1
+    assert kernels.launches["fused_ce_fwd_wgmma"] == 0     # f32: the f32 pipes
     chunked, _ = tf.loss_fn(params, toks, dataclasses.replace(cfg,
                                                               ce_fused=False))
     assert torch.isfinite(loss)
@@ -531,19 +532,28 @@ def _assert_within_ulp(got, want, msg):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,d,v", [(256, 512, 1024), (300, 128, 264),
-                                   (8, 256, 8), (1024, 2048, 4096)])
+@pytest.mark.parametrize("n,d,v", [
+    (256, 512, 1024), (300, 128, 264),
+    (8, 256, 8),                    # N < 64: one consumer's rows all past N
+    (1024, 2048, 4096),
+    (2048, 2048, 32768),            # the flagship's widths
+    (300, 2048, 264)])              # ragged N and V at the full D
 def test_fused_ce_kernels_match_plain(dev, dtype, n, d, v):
     """Forward: lse and gold within 1e-3 relative in bf16 (the tensor
     cores sum in another order) or 1e-5 in f32, the stash within one bf16
     ulp. Backward from the plain version's stash: dlg within one ulp, dH
-    to the backward limits scaled to its root mean square."""
+    to the backward limits scaled to its root mean square. Every bf16 call
+    runs the wgmma body, no f32 call does."""
     torch.backends.cuda.matmul.allow_tf32 = False
     h2, head, t1 = _ce_inputs(dev, dtype, n, d, v)
+    wgmma = int(dtype == torch.bfloat16)
+    assert fused_ce.ce_body(dtype) == ("wgmma" if wgmma else "f32 pipes")
     kernels.reset_launches()
     lse, gold, stash = fused_ce.fused_ce_forward(h2, head, t1)
     torch.cuda.synchronize()
-    assert dict(kernels.launches) == {"fused_ce_fwd": 1}
+    assert dict(kernels.launches) == (
+        {"fused_ce_fwd": 1, "fused_ce_fwd_wgmma": 1} if wgmma
+        else {"fused_ce_fwd": 1})
     w_lse, w_gold, w_stash = fused_ce.fused_ce_forward_plain(h2, head, t1)
     rtol = 1e-3 if dtype == torch.bfloat16 else 1e-5
     torch.testing.assert_close(lse, w_lse, rtol=rtol, atol=rtol)
@@ -553,6 +563,10 @@ def test_fused_ce_kernels_match_plain(dev, dtype, n, d, v):
     dlg, dh = fused_ce.fused_ce_backward(w_stash, head, w_lse, t1, scale)
     torch.cuda.synchronize()
     assert kernels.launches["fused_ce_bwd"] == 1
+    assert kernels.launches["fused_ce_bwd_wgmma"] == wgmma
+    for kernel in (fused_ce.KERNEL_FWD, fused_ce.KERNEL_BWD):
+        assert fused_ce.body_report(kernel, dtype)["body"] == \
+            fused_ce.ce_body(dtype)
     w_dlg, w_dh = fused_ce.fused_ce_backward_plain(w_stash, head, w_lse, t1,
                                                    scale)
     _assert_within_ulp(dlg, w_dlg, "dlg")
