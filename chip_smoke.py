@@ -15,14 +15,18 @@ inits in bf16:
      shapes the serving, training and flagship paths give it (and small
      ragged shapes, bf16 and f32), and times on the device (calls captured in one
      CUDA graph, replayed) the kernel, the plain version and, where one
-     PyTorch call computes the same function, that call (for a backward:
-     torch.autograd.grad of F.rms_norm or scaled_dot_product_attention on
-     a retained graph, eager, between CUDA events; for the fused CE, the
-     head matmul plus F.cross_entropy, two calls, and their backward to
-     the hidden); the wrapper's eager
-     per-call rate, which includes the host's cost of issuing it, is
-     reported apart. The paged decode kernel is also timed beside
-     `scaled_dot_product_attention` over the same rows laid out as a
+     PyTorch call computes the same function, that call (for the RMSNorm
+     backward the op F.rms_norm's backward runs,
+     aten._fused_rms_norm_backward, timed as the kernels are, and also
+     torch.autograd.grad of F.rms_norm, eager; for the attention backward
+     torch.autograd.grad of scaled_dot_product_attention on a retained
+     graph, eager, between CUDA events; for the fused CE, the head matmul
+     plus F.cross_entropy, two calls, and their backward to the hidden);
+     at the trainer's rows also what the card's memory gives for the
+     RMSNorm's bytes through one call (`copy_`, `torch.add`); the
+     wrapper's eager per-call rate, which includes the host's cost of
+     issuing it, is reported apart. The paged decode kernel is also timed
+     beside `scaled_dot_product_attention` over the same rows laid out as a
      contiguous cache (`dense_sdpa_ms`, a yardstick: that call does no
      table walk, so it is not the same function). The embedding gather is
      timed beside `F.embedding` (the gather alone) and the eager
@@ -63,8 +67,8 @@ inits in bf16:
      train phases and the flagship at head_dim 512), every recompute
      dK/dV of the train phase (head_dim 128) and every fused CE forward
      and backward of the flagship; no f32 gate's flash or fused CE kernel
-     may. The flash and fused CE libraries' build seconds, registers,
-     spills and shared memory are printed first, and each backward and
+     may. The flash, RMSNorm and fused CE libraries' build seconds,
+     registers, spills and shared memory are printed first, and each backward and
      fused CE case names the body (and its instance) that ran it;
   4. opens a torch.profiler window on one step of the trainer main at its
      defaults and one flagship step of a single microbatch, after the
@@ -309,7 +313,19 @@ def ptxas_entries(log: str) -> list:
                             name)
             wgmma = next((k for k in BWD_WGMMA_INSTANCES if k in name), None)
             ce = next((k for k in CE_KERNELS if k in name), None)
-            if ce:
+            rms = re.search(r"(rms_norm_\w+?_kernel)I(f|13__nv_bfloat16)"
+                            r"(f|13__nv_bfloat16|S1_)Li(\d+)ELi(\d+)E", name)
+            fin = re.search(r"rms_dw_finalize_kernelI(f|13__nv_bfloat16)"
+                            r"Li(\d+)E", name)
+            if rms:
+                x_t = "f32" if rms.group(2) == "f" else "bf16"
+                w_t = {"f": "f32", "S1_": x_t}.get(rms.group(3), "bf16")
+                name = "%s<x %s, w %s, %s a vector, V %s>" % (
+                    rms.group(1), x_t, w_t, rms.group(4), rms.group(5))
+            elif fin:
+                name = "rms_dw_finalize_kernel<dw %s, %s a load>" % (
+                    "f32" if fin.group(1) == "f" else "bf16", fin.group(2))
+            elif ce:
                 name = CE_KERNELS[ce]
             elif shape:
                 name = ("flash_fwd_wgmma_kernel<d<=%s, %s query rows, %s keys,"
@@ -367,10 +383,12 @@ def check_kernels(dev, rms, rope, flash, paged, attn_mod) -> dict:
     d, h, hd = SERVE_DIMS["d_model"], SERVE_DIMS["n_heads"], 2048 // 4
     out = {}
 
-    # RMSNorm: prefill rows, decode rows, and a ragged small shape.
+    # RMSNorm: a prefill chunk's rows, a decode step's, and a ragged small
+    # shape.
     cases = []
     w = (1.0 + 0.1 * randn(d, dtype=torch.float32)).to(torch.bfloat16)
-    for rows, width in ((PREFILL_LEN, d), (NUM_SLOTS, d), (5, 203)):
+    for case, rows, width in (("prefill", PREFILL_LEN, d),
+                              ("decode", NUM_SLOTS, d), ("ragged", 5, 203)):
         x = randn(rows, width)
         ww = w if width == d else (1.0 + 0.1 * randn(width)).to(torch.bfloat16)
         got = rms.rms_norm(x, ww)
@@ -380,7 +398,7 @@ def check_kernels(dev, rms, rope, flash, paged, attn_mod) -> dict:
         b_ms, b_by = bound(bts, 4.0 * x.numel())
         lib_ms = device_ms(lambda: torch.nn.functional.rms_norm(
             x, (width,), ww, 1e-6))
-        cases.append(dict(shape=[rows, width], dtype="bfloat16",
+        cases.append(dict(case=case, shape=[rows, width], dtype="bfloat16",
                           max_abs_err=ea, max_rel_err=er, ok=ok,
                           ms=device_ms(lambda: rms.rms_norm(x, ww)),
                           wrapper_ms=wrapper_ms(lambda: rms.rms_norm(x, ww)),
@@ -549,6 +567,16 @@ def library_bwd_ms(forward, inputs, iters: int = 10) -> float:
                       iters=iters, warmup=2)
 
 
+def rms_norm_bwd_library_ms(x, w, dy, **it) -> float:
+    """Device ms of the one PyTorch call F.rms_norm's backward runs
+    (`aten._fused_rms_norm_backward`: dx and dw from x, dy and the saved
+    rstd), taken as the kernels are (`device_ms`)."""
+    d = x.shape[-1]
+    _, rstd = torch.ops.aten._fused_rms_norm(x, [d], w, 1e-6)
+    return device_ms(lambda: torch.ops.aten._fused_rms_norm_backward(
+        dy, x, [d], rstd, w, [True, True]), **it)
+
+
 def check_train_kernels(dev, rms, rope, flash, attn_mod, out: dict) -> dict:
     """The backward kernels (and the RoPE VJP) at the trainer's shapes, a
     stash-path shape and small ragged shapes, in bf16 and f32; adds cases
@@ -591,12 +619,18 @@ def check_train_kernels(dev, rms, rope, flash, attn_mod, out: dict) -> dict:
             plain_ms=device_ms(lambda: rms.rms_norm_backward_plain(x, w, dy),
                                **it),
             bound_ms=b_ms, bound_by=b_by,
-            library_ms=library_bwd_ms(
+            library_ms=rms_norm_bwd_library_ms(x, w.to(dt), dy, **it),
+            library_eager_ms=library_bwd_ms(
                 lambda a, ww: torch.nn.functional.rms_norm(
                     a, (width,), ww, 1e-6),
                 (x.detach().requires_grad_(),
                  w.to(dt).detach().requires_grad_()))))
-        if big:      # the forward kernel at the trainer's rows too
+        if big:      # the forward kernel at the trainer's rows too; and
+            # what the card's memory gives for each direction's bytes
+            # through one PyTorch call: `torch.add` (2 in, 1 out), `copy_`
+            o = torch.empty_like(x)
+            cases[-1]["add_ms"] = device_ms(
+                lambda: torch.add(x, dy, out=o), **it)
             ea, er, okf = errors(rms.rms_norm(x, w), rms.rms_norm_plain(x, w),
                                  BF16_ATOL, BF16_RTOL)
             fb_ms, fb_by = bound(2 * x.numel() * es + width * ws,
@@ -609,7 +643,9 @@ def check_train_kernels(dev, rms, rope, flash, attn_mod, out: dict) -> dict:
                 plain_ms=device_ms(lambda: rms.rms_norm_plain(x, w), **it),
                 bound_ms=fb_ms, bound_by=fb_by,
                 library_ms=device_ms(lambda: torch.nn.functional.rms_norm(
-                    x, (width,), w.to(dt), 1e-6), **it)))
+                    x, (width,), w.to(dt), 1e-6), **it),
+                copy_ms=device_ms(lambda: o.copy_(x), **it)))
+            del o
         del x, dy, dx, want_dx
     out["rms_norm_bwd"] = cases
 
@@ -1673,7 +1709,8 @@ def profile_window(run) -> dict:
     read of its loss); the window opens after step 0 and closes after step
     1, outside every timed phase. Returns the ten device operations with
     the most self time under the profiler's names, the flash forward's
-    total, and the device's idle share: 1 - (union of device activity) /
+    total, the split of the flash backward, fused CE and RMSNorm kernels,
+    and the device's idle share: 1 - (union of device activity) /
     (the window's host wall time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1723,6 +1760,9 @@ def profile_window(run) -> dict:
                                         "flash_bwd_dkv_wgmma",
                                         "flash_bwd_dkv_stash_kernel",
                                         "flash_bwd_dkv_stash_wgmma")},
+                rms_ms={k: sum(ms for n, ms in by_name.items() if k in n)
+                        for k in ("rms_norm_fwd_kernel", "rms_norm_bwd_kernel",
+                                  "rms_dw_finalize_kernel")},
                 top=[dict(name=n[:160], self_ms=ms, share=ms / window_ms)
                      for n, ms in top])
 
@@ -1805,6 +1845,9 @@ def main() -> int:
                              flash.KERNEL_BWD_DKV_STASH)
                    for dt, d in ((torch.bfloat16, 128), (torch.bfloat16, 512),
                                  (torch.float32, 128))]}}), flush=True)
+    print(json.dumps({"rms_build": {
+        "build_s": per_lib["rms"],
+        "kernels": ptxas_entries(kernels.build_log("rms"))}}), flush=True)
     print(json.dumps({"fused_ce_build": {
         "build_s": per_lib["fused_ce"],
         "kernels": ptxas_entries(kernels.build_log("fused_ce")),

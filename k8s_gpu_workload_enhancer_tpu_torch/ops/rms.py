@@ -24,10 +24,14 @@ from . import kernels
 KERNEL = "rms_norm"
 KERNEL_BWD = "rms_norm_bwd"
 # Partial dw rows the backward writes before its fixed-order final sum
-# (csrc/rms.cu); fixed, so dw's summation order never depends on the card.
-BWD_PARTS = 512
-# Vectors of 16 bytes a thread owns per row (kBwdMaxIter) times 256 threads.
-_BWD_MAX_VECS = 4 * 256
+# (csrc/rms.cu kBwdParts: 132 SMs x 4 blocks of its 64-register body);
+# fixed, so dw's summation order never depends on the card.
+BWD_PARTS = 528
+# Widest rows the kernels take, in 16-byte vectors (or in columns where 16
+# bytes do not divide the width or the weight is not 16-byte aligned): the
+# forward's 8 warps of 8 vectors a thread, the backward's 8 warps of 4.
+_FWD_MAX_VECS = 8 * 32 * 8
+_BWD_MAX_VECS = 8 * 32 * 4
 
 
 def rms_norm_plain(x: torch.Tensor, weight: torch.Tensor,
@@ -58,6 +62,19 @@ def rms_norm_backward_plain(x: torch.Tensor, weight: torch.Tensor,
     return dx, dw.to(weight.dtype)
 
 
+def _check_width(what: str, x: torch.Tensor, weight: torch.Tensor,
+                 max_vecs: int) -> None:
+    d = x.shape[-1]
+    vec = 16 // x.element_size()
+    vector = d % vec == 0 and weight.data_ptr() % 16 == 0
+    n_vec = d // vec if vector else d
+    if n_vec > max_vecs:
+        raise ValueError(f"{what} width {d} too wide for the kernel "
+                         f"({max_vecs} vectors of {vec} per row, or "
+                         f"{max_vecs} columns when {vec} does not divide "
+                         f"the width or the weight is not 16-byte aligned)")
+
+
 def _check_weight(x: torch.Tensor, weight: torch.Tensor) -> int:
     if weight.device != x.device or weight.dtype not in kernels.DTYPE_CODES:
         raise ValueError("rms_norm weight must be a float tensor on x's "
@@ -73,6 +90,7 @@ def _rms_norm_cuda(x: torch.Tensor, weight: torch.Tensor,
                    eps: float) -> torch.Tensor:
     kernels.require(x, "rms_norm x")
     d = _check_weight(x, weight)
+    _check_width("rms_norm", x, weight, _FWD_MAX_VECS)
     out = torch.empty_like(x)
     rows = x.numel() // d if d else 0
     if rows == 0:
@@ -96,13 +114,7 @@ def _rms_norm_backward_cuda(x: torch.Tensor, weight: torch.Tensor,
     if dy.shape != x.shape or dy.device != x.device:
         raise ValueError(f"rms_norm_bwd dy {tuple(dy.shape)} on {dy.device} "
                          f"must match x {tuple(x.shape)} on {x.device}")
-    vec = 16 // x.element_size()
-    n_vec = d // vec if d % vec == 0 else d
-    if n_vec > _BWD_MAX_VECS:
-        raise ValueError(f"rms_norm_bwd width {d} too wide for the kernel "
-                         f"({_BWD_MAX_VECS} vectors of {vec} per row, or "
-                         f"{_BWD_MAX_VECS} columns when {vec} does not "
-                         f"divide the width)")
+    _check_width("rms_norm_bwd", x, weight, _BWD_MAX_VECS)
     dx = torch.empty_like(x)
     rows = x.numel() // d if d else 0
     if rows == 0:

@@ -238,6 +238,87 @@ def test_rms_autograd_on_the_card_launches_both_kernels(dev):
     _assert_bwd_close(dw, want_dw)
 
 
+# Every layout the RMSNorm launchers choose (csrc/rms.cu): widths from a
+# warp of rows a block (256) to the backward's widest (8192 bf16), f32,
+# the trainer's rows and counts that leave the last block or row group
+# part empty, the serving weights in bf16, the ragged one-element path.
+_RMS_LAYOUTS = [
+    # (x dtype, w dtype, rows, d)
+    (torch.bfloat16, torch.float32, 64, 1024),
+    (torch.bfloat16, torch.float32, 64, 2048),
+    (torch.bfloat16, torch.float32, 64, 4096),
+    (torch.bfloat16, torch.float32, 64, 8192),
+    (torch.float32, torch.float32, 64, 4096),
+    (torch.bfloat16, torch.float32, 1, 2048),
+    (torch.bfloat16, torch.float32, 7, 2048),
+    (torch.bfloat16, torch.float32, 33, 2048),
+    (torch.bfloat16, torch.float32, 600, 2048),
+    (torch.bfloat16, torch.float32, 16384, 2048),
+    (torch.float32, torch.float32, 1024, 2048),
+    (torch.bfloat16, torch.bfloat16, 8, 2048),
+    (torch.bfloat16, torch.bfloat16, 128, 2048),
+    (torch.bfloat16, torch.float32, 7, 256),
+    (torch.bfloat16, torch.float32, 1001, 256),
+    (torch.bfloat16, torch.float32, 33, 512),
+    (torch.bfloat16, torch.float32, 3, 203),
+    (torch.float32, torch.float32, 3, 203),
+]
+
+
+@pytest.mark.parametrize("dtype,w_dtype,rows,d", _RMS_LAYOUTS)
+def test_rms_kernels_match_plain_at_every_layout(dev, dtype, w_dtype, rows,
+                                                 d):
+    x = _randn(dev, rows, d, dtype=dtype)
+    w = (1.0 + 0.1 * _randn(dev, d, seed=1)).to(w_dtype)
+    dy = _randn(dev, rows, d, dtype=dtype, seed=2)
+    kernels.reset_launches()
+    got = rms.rms_norm(x, w)
+    torch.cuda.synchronize()
+    assert dict(kernels.launches) == {"rms_norm": 1}
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(got, rms.rms_norm_plain(x, w), atol=atol,
+                               rtol=rtol)
+    dx, dw = rms.rms_norm_backward(x, w, dy)
+    torch.cuda.synchronize()
+    assert dict(kernels.launches) == {"rms_norm": 1, "rms_norm_bwd": 1}
+    want_dx, want_dw = rms.rms_norm_backward_plain(x, w, dy)
+    _assert_bwd_close(dx, want_dx)
+    _assert_bwd_close(dw, want_dw)
+    assert torch.equal(rms.rms_norm_backward(x, w, dy)[1], dw)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rms_kernels_take_a_weight_off_16_byte_alignment(dev, dtype):
+    # A weight 4 bytes into its storage goes to the one-element instances.
+    d = 1024
+    store = 1.0 + 0.1 * _randn(dev, d + 1, seed=1)
+    w = store[1:]
+    assert w.data_ptr() % 16 and w.is_contiguous()
+    x = _randn(dev, 40, d, dtype=dtype)
+    dy = _randn(dev, 40, d, dtype=dtype, seed=2)
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(rms.rms_norm(x, w), rms.rms_norm_plain(x, w),
+                               atol=atol, rtol=rtol)
+    dx, dw = rms.rms_norm_backward(x, w, dy)
+    want_dx, want_dw = rms.rms_norm_backward_plain(x, w, dy)
+    _assert_bwd_close(dx, want_dx)
+    _assert_bwd_close(dw, want_dw)
+    assert torch.equal(rms.rms_norm_backward(x, w, dy)[1], dw)
+
+
+def test_rms_kernels_raise_past_their_widest_rows(dev):
+    # The forward takes 2048 vectors a row, the backward 1024; the
+    # one-element instances as many columns.
+    for d, dtype in ((16392, torch.bfloat16), (2049, torch.float32)):
+        with pytest.raises(ValueError):
+            rms.rms_norm(_randn(dev, 2, d, dtype=dtype),
+                         torch.ones(d, device=dev))
+    for d, dtype in ((8200, torch.bfloat16), (4100, torch.float32)):
+        x = _randn(dev, 2, d, dtype=dtype)
+        with pytest.raises(ValueError):
+            rms.rms_norm_backward(x, torch.ones(d, device=dev), x)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rope_vjp_is_the_inverse_rotation(dev, dtype):
     x = _randn(dev, 2, 64, 4, 128, dtype=dtype).requires_grad_()

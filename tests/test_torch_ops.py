@@ -46,6 +46,32 @@ def test_rms_norm_matches_jax_kernel(rows):
         np.asarray(jlayers.rms_norm(jnp.asarray(x), jnp.asarray(w))), **TOL)
 
 
+# The port's width (d_model 2048) and a row count of one JAX block: f32
+# within TOL; bf16 (the serving and training dtype, x and out in bf16, an
+# f32 weight as the trainer holds it) within one bf16 rounding (an ulp is
+# at most 2^-7 of a value) of f32 sums taken in another order; and f32
+# inputs that are bf16 values, within TOL.
+@pytest.mark.parametrize("mode", ["f32", "bf16", "bf16_values_f32"])
+def test_rms_norm_matches_jax_kernel_at_the_port_width(mode):
+    x = _randn(64, 2048, seed=7, scale=2.0)
+    w = 1.0 + _randn(2048, seed=8, scale=0.1)
+    tol = TOL
+    if mode == "bf16":
+        jx = jnp.asarray(x).astype(jnp.bfloat16)
+        tx = torch.from_numpy(x).to(torch.bfloat16)
+        tol = dict(atol=1e-6, rtol=2.0 ** -7)
+    else:
+        if mode == "bf16_values_f32":
+            x = np.array(jnp.asarray(x).astype(jnp.bfloat16)
+                           .astype(jnp.float32))
+        jx, tx = jnp.asarray(x), torch.from_numpy(x)
+    want = rms_norm_pallas(jx, jnp.asarray(w))
+    got = trms.rms_norm(tx, torch.from_numpy(w))
+    assert str(got.dtype).split(".")[-1] == str(want.dtype)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)), **tol)
+
+
 def test_rope_frequencies_match():
     np.testing.assert_allclose(tattn.rope_frequencies(256, 64).numpy(),
                                np.asarray(jattn.rope_frequencies(256, 64)),

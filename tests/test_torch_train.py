@@ -81,6 +81,41 @@ def test_rms_backward_plain_matches_jax_kernel(rows, d):
     np.testing.assert_allclose(dw.numpy(), np.asarray(want_dw), **OP_TOL)
 
 
+# The port's width: the autograd path (the CPU's plain backward) and the
+# plain backward against the JAX backward kernel in interpret mode. f32
+# within OP_TOL; bf16 x and dy with the trainer's f32 weight: dx within one
+# bf16 rounding (rtol 2^-7) plus 1e-3 of its root mean square for entries
+# where cancellation decides the last bits, dw (f32 sums over the rows)
+# within OP_TOL.
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_rms_backward_matches_jax_kernel_at_the_port_width(dtype):
+    x = _randn(64, 2048, seed=9, scale=2.0)
+    w = 1.0 + _randn(2048, seed=10, scale=0.1)
+    g = _randn(64, 2048, seed=11)
+    jdt, tdt = ((jnp.bfloat16, torch.bfloat16) if dtype == "bf16"
+                else (jnp.float32, torch.float32))
+    want_dx, want_dw = jrms._rms_bwd_call(
+        jnp.asarray(x).astype(jdt), jnp.asarray(w),
+        jnp.asarray(g).astype(jdt), 1e-6, interpret=True)
+    want_dx = np.asarray(want_dx.astype(jnp.float32))
+    xt = _t(x).to(tdt).requires_grad_()
+    wt = _t(w).requires_grad_()
+    gt = _t(g).to(tdt)
+    got = {"autograd": torch.autograd.grad(trms.rms_norm(xt, wt), (xt, wt),
+                                           gt),
+           "plain": trms.rms_norm_backward_plain(xt.detach(), wt.detach(),
+                                                 gt)}
+    rms_dx = float(np.sqrt(np.mean(want_dx ** 2)))
+    dx_tol = (dict(atol=1e-3 * rms_dx, rtol=2.0 ** -7) if dtype == "bf16"
+              else OP_TOL)
+    for path, (dx, dw) in got.items():
+        assert dx.dtype == tdt and dw.dtype == torch.float32, path
+        np.testing.assert_allclose(dx.float().numpy(), want_dx,
+                                   err_msg=path, **dx_tol)
+        np.testing.assert_allclose(dw.numpy(), np.asarray(want_dw),
+                                   err_msg=path, **OP_TOL)
+
+
 def test_rms_autograd_matches_jax_vjp():
     x, w, g = _randn(4, 8, 128, seed=3), 1.0 + _randn(128, seed=4, scale=0.1), \
         _randn(4, 8, 128, seed=5)
