@@ -31,7 +31,13 @@ inits in bf16:
      table walk, so it is not the same function). The embedding gather is
      timed beside `F.embedding` (the gather alone) and the eager
      `table.to(dtype)[ids] * scale` it replaced (`eager_ms`), the relayouts
-     beside `x.transpose(1, 2).contiguous()`;
+     beside `x.transpose(1, 2).contiguous()`. Shapes no main path gives
+     are held to the plain versions too: RMSNorm rows past the
+     register-resident layouts, flash forward and backward at head_dim 12
+     and 640, paged decode at 32 query heads a kv head and head_dim 1024;
+     the paged decode call (split-KV kernel and combine) is also checked
+     for bitwise repeats, and its combine kernel alone on the split
+     kernel's partials;
   3. runs the main paths, each with the launch counters set to 0 just
      before it and read just after: the dense engine on 8 requests of
      128-token prompts plus one of 160 (chunked prefill at offset 128); the
@@ -70,10 +76,12 @@ inits in bf16:
      may. The flash, RMSNorm and fused CE libraries' build seconds,
      registers, spills and shared memory are printed first, and each backward and
      fused CE case names the body (and its instance) that ran it;
-  4. opens a torch.profiler window on one step of the trainer main at its
-     defaults and one flagship step of a single microbatch, after the
-     timed phases, and prints the ten device operations with the most
-     self time and the device's idle share in each;
+  4. opens torch.profiler windows: on two engine steps of the paged engine
+     (8 decoding slots, DECODE_CHUNK decode steps each) after the paged
+     phase, and on one step of the trainer main at its defaults and one
+     flagship step of a single microbatch after the timed phases; prints
+     the ten device operations with the most self time, the device's idle
+     share and the named kernels' device ms in each;
   5. prints the {"kernels": [...]} line, then the result line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
@@ -263,7 +271,8 @@ def expected_launches(n_layers: int, lifetime: dict,
     runs one embedding gather, 2L+1 norms, 2L RoPE rotations (q and k) and
     L flash calls, all on the tensor-core body (serving is bf16); every
     decode step one gather, 2L+1 norms and, on the paged engine, L paged
-    decode calls (dense decode RoPE and attention are plain torch)."""
+    decode calls of two kernels each, the split-KV kernel and its combine
+    (dense decode RoPE and attention are plain torch)."""
     chunks, steps = lifetime["prefill_chunks"], lifetime["decode_steps"]
     want = {"embed_gather": chunks + steps,
             "rms_norm": (2 * n_layers + 1) * (chunks + steps),
@@ -272,6 +281,7 @@ def expected_launches(n_layers: int, lifetime: dict,
             "flash_attention_wgmma": n_layers * chunks}
     if paged:
         want["paged_decode"] = n_layers * steps
+        want["paged_decode_combine"] = n_layers * steps
     return want
 
 
@@ -317,7 +327,18 @@ def ptxas_entries(log: str) -> list:
                             r"(f|13__nv_bfloat16|S1_)Li(\d+)ELi(\d+)E", name)
             fin = re.search(r"rms_dw_finalize_kernelI(f|13__nv_bfloat16)"
                             r"Li(\d+)E", name)
-            if rms:
+            pd = re.search(r"paged_decode_(mma|simt|combine)_kernelI"
+                           r"(?:Li(\d+)E|f(?:Li(\d+)ELi(\d+)E)?"
+                           r"|13__nv_bfloat16)", name)
+            if pd:
+                kind, cw, rows, cw2 = pd.groups()
+                name = ("paged_decode_mma_kernel<bf16, %s-byte copies>" % cw
+                        if kind == "mma" else
+                        "paged_decode_simt_kernel<f32, %s rows, %s-byte "
+                        "copies>" % (rows, cw2) if kind == "simt" else
+                        "paged_decode_combine_kernel<%s>" % (
+                            "f32" if "I13" not in name else "bf16"))
+            elif rms:
                 x_t = "f32" if rms.group(2) == "f" else "bf16"
                 w_t = {"f": "f32", "S1_": x_t}.get(rms.group(3), "bf16")
                 name = "%s<x %s, w %s, %s a vector, V %s>" % (
@@ -474,7 +495,8 @@ def check_kernels(dev, rms, rope, flash, paged, attn_mod) -> dict:
                                   q, k, v, True, q_off, 0)),
                           bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
     out["flash_attention"] = cases
-    out["paged_decode"] = check_paged_decode(dev, gen, paged)
+    out["paged_decode"], out["paged_decode_combine"] = check_paged_decode(
+        dev, gen, paged)
     for name, cs in out.items():
         for c in cs:
             if not c["ok"]:
@@ -483,21 +505,25 @@ def check_kernels(dev, rms, rope, flash, paged, attn_mod) -> dict:
 
 
 def check_paged_decode(dev, gen, paged) -> list:
-    """The paged decode kernel against its plain version in bf16 and f32:
-    the paged engine's shape (8 slots, 4 heads of 512, pages of 16, 16 per
-    slot, the auto pool of 129, positions 130-207, pages handed out in a
-    shuffled order), a GQA shape (2 kv heads), the engine shape with slot 7
-    parked (all-trash row at position 255), and a long-context shape for
-    timing (256 pages per slot, pool of 2049, positions near 4000)."""
-    h, hd, bl = SERVE_DIMS["n_heads"], 2048 // 4, KV_BLOCK_LEN
-    shapes = [("engine", 4, 16, 129, (130, 207), False),
-              ("gqa", 2, 16, 129, (130, 207), False),
-              ("parked", 4, 16, 129, (130, 207), True),
-              ("long", 4, 256, 2049, (3990, 4010), False)]
+    """The paged decode kernels (the split-KV kernel and its combine, one
+    call) against their plain version in bf16 and f32: the paged engine's
+    shape (8 slots, 4 heads of 512, pages of 16, 16 per slot, the auto pool
+    of 129, positions 130-207, pages handed out in a shuffled order), a GQA
+    shape (2 kv heads), the engine shape with slot 7 parked (all-trash row
+    at position 255), a long-context shape (256 pages per slot, pool of
+    2049, positions near 4000), 32 query heads of 128 on one kv head, and
+    head_dim 1024 (2 heads)."""
+    bl = KV_BLOCK_LEN
+    shapes = [("engine", 4, 4, 512, 16, 129, (130, 207), False),
+              ("gqa", 4, 2, 512, 16, 129, (130, 207), False),
+              ("parked", 4, 4, 512, 16, 129, (130, 207), True),
+              ("long", 4, 4, 512, 256, 2049, (3990, 4010), False),
+              ("g32", 32, 1, 128, 16, 129, (130, 207), False),
+              ("d1024", 2, 2, 1024, 16, 129, (130, 207), False)]
     cpu_gen = torch.Generator().manual_seed(3)
-    cases = []
+    cases, combine_cases = [], []
     for dtype in (torch.bfloat16, torch.float32):
-        for name, kh, mb, nb, (lo, hi), parked in shapes:
+        for name, h, kh, hd, mb, nb, (lo, hi), parked in shapes:
             b = NUM_SLOTS
             table = (torch.randperm(nb - 1, generator=cpu_gen)[:b * mb]
                      + 1).reshape(b, mb).to(torch.int32)
@@ -520,8 +546,10 @@ def check_paged_decode(dev, gen, paged) -> list:
                 return paged.paged_decode_attention_plain(
                     q, kp, vp, table, pos, block_len=bl)
             got, want = kernel(), plain()
+            again = kernel()
             torch.cuda.synchronize()
             ea, er, ok = errors(got, want, BF16_ATOL, BF16_RTOL)
+            ok = ok and torch.equal(got, again)       # bitwise repeatable
             # Work this run's data needs: slot b reads its K and V rows of
             # positions [0, pos[b]] for each kv head once.
             n_pos = [int(p) + 1 for p in pos.tolist()]
@@ -540,16 +568,106 @@ def check_paged_decode(dev, gen, paged) -> list:
             sdpa_ms = device_ms(
                 lambda: torch.nn.functional.scaled_dot_product_attention(
                     q4, kd, vd, attn_mask=mask))
-            cases.append(dict(
+            split_len, splits = paged.split_plan(b, h, kh, hd, mb * bl, dtype)
+            case = dict(
                 case=name, shape=dict(b=b, h=h, kh=kh, d=hd, bl=bl, mb=mb,
                                       nb=nb),
                 pos=pos.tolist(), dtype=str(dtype).split(".")[-1],
+                split_len=split_len, splits=splits,
                 max_abs_err=ea, max_rel_err=er, ok=ok, ms=device_ms(kernel),
                 wrapper_ms=wrapper_ms(kernel), plain_ms=device_ms(plain),
                 bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                dense_sdpa_ms=sdpa_ms))
+                dense_sdpa_ms=sdpa_ms)
+            print(json.dumps({"paged_decode_case": case}), flush=True)
+            cases.append(case)
+            if name in ("engine", "long"):
+                combine_cases.append(check_paged_combine(
+                    paged, q, kp, vp, table, pos, name))
             del kd, vd, kp, vp
-    return cases
+    return cases, combine_cases
+
+
+def check_paged_combine(paged, q, kp, vp, table, pos, name) -> dict:
+    """The combine kernel against its plain version on the split kernel's
+    partials of one paged decode case (launches made here are checks, not
+    main-path launches)."""
+    acc, ml = paged.paged_decode_partials(q, kp, vp, table, pos,
+                                          block_len=KV_BLOCK_LEN)
+    got = paged.paged_decode_combine(acc, ml, q.dtype)
+    want = paged.paged_decode_combine_plain(acc, ml, q.dtype)
+    ea, er, ok = errors(got, want, BF16_ATOL, BF16_RTOL)
+    # Bytes: every live split's partial row once (this run's data), the
+    # statistics and the output.
+    splits, b, h, d = acc.shape
+    live = int((ml[..., 1] > 0).sum())
+    bts = live * d * 4 + ml.numel() * 4 + got.numel() * got.element_size()
+    b_ms, b_by = bound(bts, 3.0 * live * d, q.dtype)
+    return dict(case=name, shape=dict(splits=splits, b=b, h=h, d=d),
+                live_partials=live, dtype=str(q.dtype).split(".")[-1],
+                max_abs_err=ea, max_rel_err=er, ok=ok,
+                ms=device_ms(lambda: paged.paged_decode_combine(acc, ml,
+                                                                q.dtype)),
+                wrapper_ms=wrapper_ms(lambda: paged.paged_decode_combine(
+                    acc, ml, q.dtype)),
+                plain_ms=device_ms(lambda: paged.paged_decode_combine_plain(
+                    acc, ml, q.dtype)),
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def check_off_path_shapes(dev, rms, flash) -> dict:
+    """Shapes no main path gives the kernels, which the JAX package
+    computes: RMSNorm rows past the register-resident layouts (the wide-row
+    bodies; the forward's first widths past 2048 16-byte vectors, the
+    backward's past 1024), and flash attention forward and backward at
+    head_dim 12 (zero-padded to 16 by the wrapper) and 640 (the
+    column-sliced bodies), bf16 and f32, each against its plain version."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+
+    def randn(*shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+    tol = {torch.bfloat16: (BF16_ATOL, BF16_RTOL), torch.float32: (1e-5, 1e-5)}
+    out = {"rms_norm": [], "flash_attention": []}
+    for dtype, d in ((torch.bfloat16, 16392), (torch.float32, 8196),
+                     (torch.bfloat16, 8200), (torch.float32, 4100)):
+        x, dy = randn(6, d, dtype=dtype), randn(6, d, dtype=dtype)
+        w = 1.0 + 0.1 * randn(d, dtype=torch.float32)
+        fa, fr, fok = errors(rms.rms_norm(x, w), rms.rms_norm_plain(x, w),
+                             *tol[dtype])
+        dx, dw = rms.rms_norm_backward(x, w, dy)
+        want_dx, want_dw = rms.rms_norm_backward_plain(x, w, dy)
+        xa, _, xok = bwd_errors(dx, want_dx)
+        wa, _, wok = bwd_errors(dw, want_dw)
+        repeat = torch.equal(rms.rms_norm_backward(x, w, dy)[1], dw)
+        out["rms_norm"].append(dict(
+            shape=[6, d], dtype=str(dtype).split(".")[-1], fwd_max_abs_err=fa,
+            dx_max_abs_err=xa, dw_max_abs_err=wa, dw_repeat=repeat,
+            ok=fok and xok and wok and repeat))
+    for dtype in (torch.bfloat16, torch.float32):
+        for b, sq, sk, h, d, q_off in ((2, 40, 40, 2, 12, 0),
+                                       (1, 70, 90, 2, 640, 20)):
+            q, k, v, do = (randn(b, n, h, d, dtype=dtype)
+                           for n in (sq, sk, sk, sq))
+            o, lse = flash.flash_attention(q, k, v, True, q_off, 0,
+                                           return_lse=True)
+            want = flash.flash_attention_plain(q, k, v, True, q_off, 0)
+            fa, _, fok = errors(o, want, *tol[dtype])
+            grads = flash.flash_attention_backward(q, k, v, o, lse, do, True,
+                                                   q_off, 0)
+            wants = flash.flash_attention_backward_plain(q, k, v, o, lse, do,
+                                                         True, q_off, 0)
+            bwd = [bwd_errors(g, wt) for g, wt in zip(grads, wants)]
+            out["flash_attention"].append(dict(
+                shape=dict(b=b, sq=sq, sk=sk, h=h, d=d), q_offset=q_off,
+                dtype=str(dtype).split(".")[-1], fwd_max_abs_err=fa,
+                bwd_max_abs_err={n: e[0] for n, e in
+                                 zip(("dq", "dk", "dv"), bwd)},
+                ok=fok and all(e[2] for e in bwd)))
+    for name, cases in out.items():
+        for c in cases:
+            if not c["ok"]:
+                fail(f"{name} at a shape off the main paths disagrees with "
+                     f"its plain version: {c}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1707,12 +1825,8 @@ def profile_window(run) -> dict:
     """torch.profiler over one training step. `run(on_step)` trains two
     steps and calls on_step(i, metrics) after each (a step ends in a host
     read of its loss); the window opens after step 0 and closes after step
-    1, outside every timed phase. Returns the ten device operations with
-    the most self time under the profiler's names, the flash forward's
-    total, the split of the flash backward, fused CE and RMSNorm kernels,
-    and the device's idle share: 1 - (union of device activity) /
-    (the window's host wall time)."""
-    from torch.autograd import DeviceType
+    1, outside every timed phase. Returns `device_report` of the
+    window."""
     from torch.profiler import ProfilerActivity, profile
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     marks = {}
@@ -1728,7 +1842,15 @@ def profile_window(run) -> dict:
     rc = run(on_step)
     if isinstance(rc, int) and rc != 0:
         fail(f"profiled run exited {rc}")
-    window_ms = (marks["end"] - marks["start"]) * 1e3
+    return device_report(prof, (marks["end"] - marks["start"]) * 1e3)
+
+
+def device_report(prof, window_ms: float) -> dict:
+    """A profiler window's device activity: the ten device operations with
+    the most self time, the flash, fused CE, RMSNorm and paged decode
+    kernels' device ms, and the idle share 1 - (union of device activity) /
+    (the window's host wall time)."""
+    from torch.autograd import DeviceType
     spans, by_name = [], {}
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
@@ -1763,6 +1885,11 @@ def profile_window(run) -> dict:
                 rms_ms={k: sum(ms for n, ms in by_name.items() if k in n)
                         for k in ("rms_norm_fwd_kernel", "rms_norm_bwd_kernel",
                                   "rms_dw_finalize_kernel")},
+                paged_decode_ms={k: sum(ms for n, ms in by_name.items()
+                                        if k in n)
+                                 for k in ("paged_decode_mma_kernel",
+                                           "paged_decode_simt_kernel",
+                                           "paged_decode_combine_kernel")},
                 top=[dict(name=n[:160], self_ms=ms, share=ms / window_ms)
                      for n, ms in top])
 
@@ -1783,6 +1910,51 @@ def profile_steps(trainer_cli, trainer, flagship) -> dict:
         model_cfg, train_cfg, num_steps=2, callback=cb, device="cuda"))
     collect_garbage()
     return {"train_step": train, "flagship_microbatch": micro}
+
+
+def profile_serving(dev, mods, cfg, params) -> dict:
+    """The profiler window on the paged engine at the serve defaults (pages
+    of 16, bf16): 8 requests of the paged phase are admitted and prefilled
+    first, then the window covers two engine steps of DECODE_CHUNK decode
+    steps each over the 8 decoding slots, host work included, with a
+    synchronize at either end."""
+    from torch.profiler import ProfilerActivity, profile
+    kernels, rms, rope, flash, paged, tf, decode, serving, serve = mods
+    _, prompts = paged_requests(cfg.vocab_size)
+    eng = new_engine(serving, params, cfg, dev, kv_block_len=KV_BLOCK_LEN)
+    # Generations long enough that none ends before the window closes, one
+    # page short of max_seq so that the 8 reservations fit the auto pool
+    # without prefix sharing.
+    rids = [eng.submit(p, cfg.max_seq - len(p) - KV_BLOCK_LEN)
+            for p in prompts[:NUM_SLOTS]]
+    while eng.metrics_snapshot()["queued"] or not all(
+            eng.result(r).tokens for r in rids):
+        eng.step()
+    eng.step()                                    # one decode-only warm step
+    before = eng.metrics_snapshot()["lifetime"]["decode_steps"]
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    torch.cuda.synchronize()
+    prof.start()
+    t0 = time.perf_counter()
+    for _ in range(2):
+        eng.step()
+    torch.cuda.synchronize()
+    window_ms = (time.perf_counter() - t0) * 1e3
+    prof.stop()
+    steps = eng.metrics_snapshot()["lifetime"]["decode_steps"] - before
+    live = eng.slots_busy
+    eng.run()
+    if any(eng.result(r).finish_reason != "length" for r in rids):
+        fail("the profiled paged requests did not finish")
+    del eng
+    torch.cuda.empty_cache()
+    report = device_report(prof, window_ms)
+    paged_ms = sum(report["paged_decode_ms"].values())
+    if live != NUM_SLOTS:
+        fail(f"the serving window decoded {live} slots, want {NUM_SLOTS}")
+    return dict(decode_steps=steps, slots=live,
+                ms_per_decode_step=window_ms / max(1, steps),
+                paged_decode_share=paged_ms / window_ms, **report)
 
 
 # ---------------------------------------------------------------------------
@@ -1848,6 +2020,10 @@ def main() -> int:
     print(json.dumps({"rms_build": {
         "build_s": per_lib["rms"],
         "kernels": ptxas_entries(kernels.build_log("rms"))}}), flush=True)
+    print(json.dumps({"paged_decode_build": {
+        "build_s": per_lib["paged_decode"],
+        "kernels": ptxas_entries(kernels.build_log("paged_decode"))}}),
+        flush=True)
     print(json.dumps({"fused_ce_build": {
         "build_s": per_lib["fused_ce"],
         "kernels": ptxas_entries(kernels.build_log("fused_ce")),
@@ -1864,6 +2040,8 @@ def main() -> int:
     check_flagship_kernels(dev, rope, fused_ce, attn_mod, results["kernels"])
     check_embed_relayout_kernels(dev, embed, relayout, results["kernels"])
     print(json.dumps({"kernel_checks": results["kernels"]}), flush=True)
+    print(json.dumps({"off_path_checks": check_off_path_shapes(dev, rms, flash)}),
+          flush=True)
     mods = (kernels, rms, rope, flash, paged, tf, decode, serving, serve)
     cfg, params, init_s = serve_params(dev, tf, serve)
     n_layers = SERVE_DIMS["n_layers"]
@@ -1875,6 +2053,9 @@ def main() -> int:
     print(json.dumps({"serve": results["serve"]}), flush=True)
     results["paged_engine"] = run_paged_engine(dev, mods, cfg, params)
     print(json.dumps({"paged_engine": results["paged_engine"]}), flush=True)
+    print(json.dumps({"serving_profile": profile_serving(dev, mods, cfg,
+                                                         params)}),
+          flush=True)
     del params
     torch.cuda.empty_cache()
     results["paged_serve"] = run_serve(serve, kernels, paged=True)
@@ -1911,6 +2092,7 @@ def main() -> int:
              "rms_norm": every + ("flagship",), "rope": every,
              "flash_attention": every + ("flagship",),
              "paged_decode": ("paged_engine", "paged_serve"),
+             "paged_decode_combine": ("paged_engine", "paged_serve"),
              "rms_norm_bwd": train_phases + ("flagship",),
              "flash_attention_bwd_dq": train_phases + ("flagship",),
              "flash_attention_bwd_dkv": ("train",),
@@ -1956,6 +2138,7 @@ def main() -> int:
         "rope": ("rope.cu", "rope_pallas.py:30"),
         "flash_attention": ("flash_attention.cu", "flash_attention.py:125"),
         "paged_decode": ("paged_decode.cu", "flash_attention.py:809"),
+        "paged_decode_combine": ("paged_decode.cu", "flash_attention.py:809"),
         "rms_norm_bwd": ("rms.cu", "rms_pallas.py:48"),
         "flash_attention_bwd_dq": ("flash_attention_bwd.cu",
                                    "flash_attention.py:299"),

@@ -8,12 +8,16 @@ finishes (or streams it). Request and reply fields are named as in the JAX
 service.
 
 Endpoints: POST /v1/generate {"prompt": [ids], "maxNewTokens": N,
-"timeoutSeconds": s, "temperature"?, "topP"?, "stop"?} -> {"status",
-"requestId", "tokens", "logprobs", "finishReason", "ttftMs"}; with
+"timeoutSeconds": s, "temperature"?, "topP"?, "stop"?, "prngKey"?} ->
+{"status", "requestId", "tokens", "logprobs", "finishReason", "ttftMs"}; with
 {"stream": true} the reply is NDJSON, one {"tokens", "offset",
 "requestId"} line per batch of new tokens and then the final view. A
 timeout or an abandoned stream CANCELS the request, freeing its slot.
-A full queue answers 429 with Retry-After. GET /v1/metrics, GET /health.
+A full queue answers 429 with Retry-After. "prngKey" (two uint32 words)
+is the request's sampling key: the same key at the same temperature gives
+the same tokens. "prefixId", "stopText", "text" and "resumeFrom" are not
+served yet (they need registered prefixes, a tokenizer and the resume
+path) and answer 400 naming the field. GET /v1/metrics, GET /health.
 With a bearer token (--auth-token, $KTWE_AUTH_TOKEN or the file at
 $KTWE_AUTH_TOKEN_FILE, which must be readable when set) every route but
 /health answers 401 without `Authorization: Bearer <token>`.
@@ -62,6 +66,16 @@ DEFAULTS = dict(port=8000, vocab_size=32768, d_model=2048,
                 drain_timeout=30.0, temperature=0.0, top_k=0, top_p=1.0,
                 enable_top_p=False, kv_block_len=0, kv_num_blocks=0,
                 device="cuda", seed=0, auth_token="")
+
+# /v1/generate fields of the JAX service that this replica refuses (400
+# naming the field) rather than drop, and why.
+_UNPORTED_FIELDS = {
+    "prefixId": "registered prefixes (/v1/prefix) are not ported",
+    "stopText": "it needs a tokenizer (--tokenizer is not ported)",
+    "text": "it needs a tokenizer (--tokenizer is not ported); send "
+            '"prompt" ids',
+    "resumeFrom": "resuming a migrated generation is not ported",
+}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -212,6 +226,10 @@ class ServeService:
         # Validate everything before touching the engine: a request
         # rejected after submit() would burn a slot. ValueError -> 400.
         eng = self._engine
+        for field in _UNPORTED_FIELDS:
+            if request.get(field) not in (None, []):
+                raise ValueError(f'"{field}" is not served by this replica '
+                                 f'yet: {_UNPORTED_FIELDS[field]}')
         prompt = [int(t) for t in request["prompt"]]
         n = int(request.get("maxNewTokens", 32))
         timeout_s = float(request.get("timeoutSeconds", 120))
@@ -224,6 +242,14 @@ class ServeService:
             if not 0.0 < top_p <= 1.0:
                 raise ValueError("topP must be in (0, 1]")
         stop = [[int(t) for t in s] for s in request.get("stop", [])]
+        prng_key = request.get("prngKey")
+        if prng_key is not None:
+            try:
+                prng_key = [int(k) for k in prng_key]
+            except (TypeError, ValueError):
+                prng_key = None
+            if prng_key is None or len(prng_key) != 2:
+                raise ValueError("prngKey must be two uint32 words")
         vocab = eng.cfg.vocab_size
         if any(not 0 <= t < vocab for t in prompt):
             raise ValueError(f"prompt token id out of range [0, {vocab})")
@@ -236,7 +262,7 @@ class ServeService:
         with self._lock:
             try:
                 rid = eng.submit(prompt, n, temperature=temperature,
-                                 top_p=top_p, stop=stop)
+                                 top_p=top_p, stop=stop, prng_key=prng_key)
             except serving.QueueFull as e:
                 raise StatusError(429, str(e),
                                   retry_after=self._retry_after(1.0, 30.0),

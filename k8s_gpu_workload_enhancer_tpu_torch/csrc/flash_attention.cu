@@ -63,6 +63,10 @@
 //   Q K^T inside a warpgroup, and a deeper ring at head_dim 512. Times
 //   beside the bound and SDPA: PERF.md, section 6, row 6.
 //
+// Head dims above 512 (either dtype, off every main path) take a
+// column-sliced variant of the f32-pipe body (flash_fwd_sliced_kernel); a
+// head_dim that is not a multiple of 8 is zero-padded by the wrapper.
+//
 // f32: the f32 pipes (the f32 training gates need true f32 products, which
 // TF32 wgmma would not give). 16 query rows per block, 256 threads each
 // owning D / 256 output columns for all 16 rows; K and V stream through
@@ -285,6 +289,211 @@ cudaError_t launch(const FlashArgs& a, int batch, int device, cudaStream_t strea
   }
   const dim3 grid((a.sq + kBQ - 1) / kBQ, a.h, batch);
   flash_fwd_kernel<T><<<grid, kThreads, smem_bytes<T>(a.d), stream>>>(a);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Head dims above 512 (f32 and bf16; off every main path): the f32-pipe body
+// with a grid axis over 512-column slices of O. A block computes its query
+// tile's scores over the whole D, 512 columns of Q and K at a time through
+// the same shared-memory tiles, and writes only its slice of O (and, in
+// slice 0, the LSE); every slice computes the same scores bit for bit, so
+// their softmax statistics agree without an exchange.
+// ---------------------------------------------------------------------------
+
+constexpr int kSlice = 512;
+
+template <typename T>
+size_t sliced_smem_bytes() {
+  return sizeof(float) * kBQ * kSlice + 2 * sizeof(T) * kBK * kSlice +
+         sizeof(float) * kBQ * kBK;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) flash_fwd_sliced_kernel(FlashArgs a, int slices) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float m_s[kBQ];
+  __shared__ float l_s[kBQ];
+  __shared__ float c_s[kBQ];
+
+  const int d = a.d;
+  float* qs = reinterpret_cast<float*>(smem);          // (kBQ, kSlice) f32: a chunk of Q
+  T* ks = reinterpret_cast<T*>(qs + kBQ * kSlice);     // (kBK, kSlice): a chunk of K
+  T* vs = ks + kBK * kSlice;                           // (kBK, kSlice): the slice of V
+  float* ps = reinterpret_cast<float*>(vs + kBK * kSlice);  // (kBQ, kBK)
+
+  const int slice = blockIdx.x % slices;
+  const int q0 = blockIdx.x / slices * kBQ;
+  const int col0 = slice * kSlice;
+  const int wv = min(kSlice, d - col0);
+  const int head = blockIdx.y;
+  const int batch = blockIdx.z;
+  const int kv_head = head / (a.h / a.kh);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+
+  const long long q_stride = static_cast<long long>(a.h) * d;
+  const long long kv_stride = static_cast<long long>(a.kh) * d;
+  const T* qb = static_cast<const T*>(a.q) + static_cast<long long>(batch) * a.sq * q_stride +
+                static_cast<long long>(head) * d;
+  const T* kb = static_cast<const T*>(a.k) + static_cast<long long>(batch) * a.sk * kv_stride +
+                static_cast<long long>(kv_head) * d;
+  const T* vb = static_cast<const T*>(a.v) + static_cast<long long>(batch) * a.sk * kv_stride +
+                static_cast<long long>(kv_head) * d;
+  constexpr int kVec = 16 / sizeof(T);
+
+  if (tid < kBQ) {
+    m_s[tid] = kNegInf;
+    l_s[tid] = 0.f;
+  }
+  float acc[kBQ][kCols];
+#pragma unroll
+  for (int r = 0; r < kBQ; ++r) {
+#pragma unroll
+    for (int u = 0; u < kCols; ++u) acc[r][u] = 0.f;
+  }
+  const int q_last = min(q0 + kBQ, a.sq) - 1;
+  int n_tiles = (a.sk + kBK - 1) / kBK;
+  if (a.causal) {
+    const long long last_key = a.q_offset + q_last - a.kv_offset;
+    if (last_key < 0) {
+      n_tiles = 0;
+    } else if (last_key / kBK + 1 < n_tiles) {
+      n_tiles = static_cast<int>(last_key / kBK + 1);
+    }
+  }
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * kBK;
+    for (int i = tid; i < kBQ * kBK; i += kThreads) ps[i] = 0.f;
+    for (int c0 = 0; c0 < d; c0 += kSlice) {
+      const int vpr = min(kSlice, d - c0) / kVec;
+      __syncthreads();  // the last chunk's (or tile's) readers are done
+      for (int idx = tid; idx < kBQ * vpr; idx += kThreads) {
+        const int r = idx / vpr;
+        const int c = (idx - r * vpr) * kVec;
+        float* dst = qs + r * kSlice + c;
+        if (q0 + r < a.sq) {
+          const Vec<T, kVec> v = load_vec<T, kVec>(qb + (q0 + r) * q_stride + c0 + c);
+#pragma unroll
+          for (int e = 0; e < kVec; ++e) dst[e] = to_f(v.v[e]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < kVec; ++e) dst[e] = 0.f;
+        }
+      }
+      for (int idx = tid; idx < kBK * vpr; idx += kThreads) {
+        const int r = idx / vpr;
+        const int c = (idx - r * vpr) * kVec;
+        Vec<T, kVec> kv;
+        if (k0 + r < a.sk) {
+          kv = load_vec<T, kVec>(kb + (k0 + r) * kv_stride + c0 + c);
+        } else {
+#pragma unroll
+          for (int e = 0; e < kVec; ++e) kv.v[e] = from_f<T>(0.f);
+        }
+        store_vec<T, kVec>(ks + r * kSlice + c, kv);
+      }
+      __syncthreads();
+      const int w = vpr * kVec;
+      for (int p = warp; p < kBQ * kBK; p += kWarps) {
+        const float* qr = qs + (p / kBK) * kSlice;
+        const T* kr = ks + (p % kBK) * kSlice;
+        float s = 0.f;
+        for (int c = lane; c < w; c += 32) s = fmaf(qr[c], to_f(kr[c]), s);
+        s = warp_sum(s);
+        if (lane == 0) ps[p] += s;
+      }
+    }
+    // This slice of V; rows past Sk are zero.
+    const int vpr = wv / kVec;
+    for (int idx = tid; idx < kBK * vpr; idx += kThreads) {
+      const int r = idx / vpr;
+      const int c = (idx - r * vpr) * kVec;
+      Vec<T, kVec> vv;
+      if (k0 + r < a.sk) {
+        vv = load_vec<T, kVec>(vb + (k0 + r) * kv_stride + col0 + c);
+      } else {
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) vv.v[e] = from_f<T>(0.f);
+      }
+      store_vec<T, kVec>(vs + r * kSlice + c, vv);
+    }
+    __syncthreads();
+
+    // Online softmax: one row per warp, one key per lane.
+    for (int r = warp; r < kBQ; r += kWarps) {
+      const bool visible = k0 + lane < a.sk &&
+                           (!a.causal || a.q_offset + q0 + r >= a.kv_offset + k0 + lane);
+      const float s = visible ? __fmul_rn(ps[r * kBK + lane], a.scale) : kNegInf;
+      const float m_prev = m_s[r];
+      const float m_new = fmaxf(fmaxf(m_prev, warp_max(s)), kNegInf * 0.5f);
+      const float p = expf(s - m_new);
+      const float corr = expf(m_prev - m_new);
+      const float p_sum = warp_sum(p);
+      ps[r * kBK + lane] = to_f(from_f<T>(p));
+      if (lane == 0) {
+        m_s[r] = m_new;
+        l_s[r] = l_s[r] * corr + p_sum;
+        c_s[r] = corr;
+      }
+    }
+    __syncthreads();
+
+#pragma unroll
+    for (int u = 0; u < kCols; ++u) {
+      const int c = tid + u * kThreads;
+      if (c < wv) {
+#pragma unroll
+        for (int r = 0; r < kBQ; ++r) acc[r][u] *= c_s[r];
+        for (int j = 0; j < kBK; ++j) {
+          const float vv = to_f(vs[j * kSlice + c]);
+#pragma unroll
+          for (int r = 0; r < kBQ; ++r) acc[r][u] = fmaf(ps[r * kBK + j], vv, acc[r][u]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+  __syncthreads();
+
+  T* ob = static_cast<T*>(a.o) + static_cast<long long>(batch) * a.sq * q_stride +
+          static_cast<long long>(head) * d + col0;
+#pragma unroll
+  for (int u = 0; u < kCols; ++u) {
+    const int c = tid + u * kThreads;
+    if (c < wv) {
+#pragma unroll
+      for (int r = 0; r < kBQ; ++r) {
+        if (q0 + r < a.sq) {
+          ob[(q0 + r) * q_stride + c] = from_f<T>(acc[r][u] / fmaxf(l_s[r], 1e-30f));
+        }
+      }
+    }
+  }
+  if (slice == 0 && a.lse != nullptr && tid < kBQ && q0 + tid < a.sq) {
+    const float l = l_s[tid];
+    a.lse[(static_cast<long long>(batch) * a.h + head) * a.sq + q0 + tid] =
+        l > 0.f ? m_s[tid] + logf(fmaxf(l, 1e-30f)) : kLseMasked;
+  }
+}
+
+template <typename T>
+cudaError_t launch_sliced(const FlashArgs& a, int batch, int device, cudaStream_t stream) {
+  static std::atomic<bool> opted_in[kMaxDevices];
+  if (!opted_in[device].load(std::memory_order_acquire)) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_sliced_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(sliced_smem_bytes<T>()));
+    if (err != cudaSuccess) return err;
+    opted_in[device].store(true, std::memory_order_release);
+  }
+  const int slices = (a.d + kSlice - 1) / kSlice;
+  const long long blocks_x = static_cast<long long>((a.sq + kBQ - 1) / kBQ) * slices;
+  if (blocks_x > 0x7fffffffLL) return static_cast<cudaError_t>(kBadArgument);
+  const dim3 grid(static_cast<unsigned>(blocks_x), a.h, batch);
+  flash_fwd_sliced_kernel<T><<<grid, kThreads, sliced_smem_bytes<T>(), stream>>>(a, slices);
   return cudaGetLastError();
 }
 
@@ -639,15 +848,16 @@ cudaError_t launch(const FlashArgs& fa, int batch, int device, cudaStream_t stre
 KTWE_DEFINE_ERROR_STRING
 
 // q, o: (batch, sq, h, d); k, v: (batch, sk, kh, d); all contiguous, one
-// dtype, 16-byte aligned. lse: (batch, h, sq) f32 or null.
+// dtype, 16-byte aligned; d a multiple of 8 (the wrapper pads other head
+// dims with zero columns). lse: (batch, h, sq) f32 or null. d above 512
+// runs the column-sliced f32-pipe body in either dtype.
 KTWE_EXPORT int ktwe_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                          void* lse, int batch, int sq, int sk, int h, int kh,
                                          int d, int causal, long long q_offset,
                                          long long kv_offset, float scale, int dtype, int device,
                                          void* stream) {
   if (batch <= 0 || batch > 65535 || sq <= 0 || sk <= 0 || h <= 0 || h > 65535 || kh <= 0 ||
-      h % kh != 0 || d <= 0 || d > kMaxD || d % 8 != 0 || device < 0 ||
-      device >= kMaxDevices) {
+      h % kh != 0 || d <= 0 || d % 8 != 0 || device < 0 || device >= kMaxDevices) {
     return kBadArgument;
   }
   cudaError_t err = use_device(device);
@@ -655,6 +865,14 @@ KTWE_EXPORT int ktwe_flash_attention_fwd(const void* q, const void* k, const voi
   FlashArgs a{q, k, v, o, static_cast<float*>(lse), sq, sk, h, kh, d, causal != 0,
               q_offset, kv_offset, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d > kMaxD) {
+    switch (dtype) {
+      case kF32: err = launch_sliced<float>(a, batch, device, s); break;
+      case kBF16: err = launch_sliced<__nv_bfloat16>(a, batch, device, s); break;
+      default: return kBadArgument;
+    }
+    return static_cast<int>(err);
+  }
   switch (dtype) {
     case kF32: err = launch<float>(a, batch, device, s); break;
     case kBF16:
@@ -669,7 +887,14 @@ KTWE_EXPORT int ktwe_flash_attention_fwd(const void* q, const void* k, const voi
 // Dynamic shared memory a block of the body that `dtype` and `d` select
 // asks for (bytes), for reports; 0 for arguments the launcher refuses.
 KTWE_EXPORT int ktwe_flash_attention_smem(int d, int dtype) {
-  if (d <= 0 || d > kMaxD || d % 8 != 0) return 0;
+  if (d <= 0 || d % 8 != 0) return 0;
+  if (d > kMaxD) {
+    switch (dtype) {
+      case kF32: return static_cast<int>(sliced_smem_bytes<float>());
+      case kBF16: return static_cast<int>(sliced_smem_bytes<__nv_bfloat16>());
+      default: return 0;
+    }
+  }
   switch (dtype) {
     case kF32: return static_cast<int>(smem_bytes<float>(d));
     case kBF16: return d <= tc::Small::DPAD ? tc::Small::SMEM : tc::Large::SMEM;

@@ -149,6 +149,12 @@
 // of q, k, v or dO: 130 KB for dQ, 131 KB for dK/dV), and 32 columns of
 // its accumulator rows.
 //
+// Head dims above 512, in either dtype (off every main path), take
+// column-sliced variants of the f32-pipe bodies (`*_sliced_kernel`): a grid
+// axis over 512-column slices of the output, S and dP over the whole D in
+// 512-column chunks. The wrapper zero-pads a head_dim that is not a
+// multiple of 8.
+//
 // Not done yet: a tensor-core body for the recompute dK/dV above head_dim
 // 128 (off the main path); overlapping one tile's elementwise pass and
 // recheck with the next tile's products inside a warpgroup; splitting the
@@ -209,11 +215,11 @@ template <> struct Tiles<512> {
   static constexpr bool ROWDOT = true;
 };
 
-// sum_{k < K} a[k] * b[k] in k order with FMAs (the order of `outer_mma`),
-// both rows in shared memory, 16-byte aligned, K a multiple of 4.
+// acc + sum_{k < K} a[k] * b[k] in k order with FMAs (the order of
+// `outer_mma`), both rows in shared memory, 16-byte aligned, K a multiple of
+// 4; a chain split over chunks continues from the last chunk's acc.
 __device__ __forceinline__ float row_dot(const float* __restrict__ a, const float* __restrict__ b,
-                                         int K) {
-  float acc = 0.f;
+                                         int K, float acc = 0.f) {
 #pragma unroll 4
   for (int k = 0; k < K; k += 4) {
     const float4 x = *reinterpret_cast<const float4*>(a + k);
@@ -682,6 +688,260 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_stash_kernel(BwdArgs a
     outer_mma<TM, TD, true>(dsR, LC, ty * TM, qR, LD, tx * 4, BQ, acc_k);
   }
   store_kv<T, TM, TD>(a, k0, ty, tx, acc_k, acc_v);
+}
+
+// ---------------------------------------------------------------------------
+// Head dims above 512 (f32 and bf16; off every main path): column-sliced
+// variants of the f32-pipe bodies at 16-row tiles. A grid axis runs over
+// 512-column slices of the block's output (dQ, or dK and dV); the block
+// computes S and dP over the whole D, 512 columns of each operand at a time
+// through the same row-major tiles (one FMA chain a score, continued from
+// chunk to chunk), and the products of its slice from that slice of K (dQ)
+// or of Q and dO (dK/dV). Every slice computes the same P and dS bit for
+// bit; slice 0 alone writes the p/ds stash. The stash dK/dV reads P and dS
+// from the stash and needs only its slice.
+// ---------------------------------------------------------------------------
+
+constexpr int kSlice = 512;
+constexpr int kSR = 16;            // rows a block owns, and rows a streamed tile
+constexpr int kSLD = kSlice + 4;   // row stride of the row-major tiles
+constexpr int kSTD = kSlice / 16;  // accumulator columns a thread
+
+constexpr size_t sliced_smem_floats(int which) {
+  return which == 2 ? 2 * kSR * kSLD + 2 * kSR * (kSR + 1)
+                    : 4 * kSR * kSLD + (which == 0 ? 1 : 2) * kSR * (kSR + 1);
+}
+
+__device__ __forceinline__ int slices_of(int d) { return (d + kSlice - 1) / kSlice; }
+
+// s = a_row . c_row and dp = b_row . e_row over the whole D for the block's
+// row ty (a, b: rows a_row0.. of the block's side) and the streamed row tx
+// (c, e: rows c_row0.. of the other side), each loaded 512 columns at a time.
+template <typename T>
+__device__ __forceinline__ void sliced_scores(const T* a_base, const T* b_base, int a_row0,
+                                              int a_n, const T* c_base, const T* e_base,
+                                              int c_row0, int c_n, long long rs, int d,
+                                              float* aR, float* bR, float* cR, float* eR,
+                                              float& s, float& dp) {
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  s = dp = 0.f;
+  for (int c0 = 0; c0 < d; c0 += kSlice) {
+    __syncthreads();  // the last chunk's (or tile's) readers are done
+    load_tile<T, kSR, kSlice>(a_base + c0, rs, a_row0, a_n, d - c0, nullptr, 0, aR, kSLD);
+    load_tile<T, kSR, kSlice>(b_base + c0, rs, a_row0, a_n, d - c0, nullptr, 0, bR, kSLD);
+    load_tile<T, kSR, kSlice>(c_base + c0, rs, c_row0, c_n, d - c0, nullptr, 0, cR, kSLD);
+    load_tile<T, kSR, kSlice>(e_base + c0, rs, c_row0, c_n, d - c0, nullptr, 0, eR, kSLD);
+    __syncthreads();
+    const int w = min(kSlice, d - c0);
+    s = row_dot(aR + ty * kSLD, cR + tx * kSLD, w, s);
+    dp = row_dot(bR + ty * kSLD, eR + tx * kSLD, w, dp);
+  }
+}
+
+// Row `row` (< n) of a (S, H, D) head slice, columns col0 + acc_col(tx, j)
+// (< d), from one thread's accumulator.
+template <typename T>
+__device__ __forceinline__ void store_slice(T* base, long long rs, int row, int n, int col0, int d,
+                                            int tx, const float (&acc)[1][kSTD]) {
+  if (row >= n) return;
+#pragma unroll
+  for (int j = 0; j < kSTD; ++j) {
+    const int c = col0 + acc_col(tx, j);
+    if (c < d) base[row * rs + c] = from_f<T>(acc[0][j]);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dq_sliced_kernel(BwdArgs a) {
+  constexpr int LQ = kSR + 1;
+  extern __shared__ __align__(16) float smem[];
+  float* qR = smem;
+  float* doR = qR + kSR * kSLD;
+  float* kR = doR + kSR * kSLD;
+  float* vR = kR + kSR * kSLD;
+  float* dsT = vR + kSR * kSLD;  // [key][LQ]
+
+  const int slices = slices_of(a.d);
+  const int slice = blockIdx.x % slices;
+  const int q0 = blockIdx.x / slices * kSR;
+  const int col0 = slice * kSlice;
+  const int head = blockIdx.y;
+  const int batch = blockIdx.z;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int d = a.d;
+  const long long rs = static_cast<long long>(a.h) * d;
+  const long long bh = static_cast<long long>(batch) * a.h + head;
+  const T* qb = static_cast<const T*>(a.q) + static_cast<long long>(batch) * a.sq * rs + head * d;
+  const T* gb = static_cast<const T*>(a.dout) + static_cast<long long>(batch) * a.sq * rs + head * d;
+  const T* kb = static_cast<const T*>(a.k) + static_cast<long long>(batch) * a.sk * rs + head * d;
+  const T* vb = static_cast<const T*>(a.v) + static_cast<long long>(batch) * a.sk * rs + head * d;
+
+  const int r = q0 + ty;
+  const float lse_r = r < a.sq ? a.lse[bh * a.sq + r] : kLseMasked;
+  const float delta_r = r < a.sq ? a.delta[bh * a.sq + r] : 0.f;
+  float acc[1][kSTD];
+#pragma unroll
+  for (int j = 0; j < kSTD; ++j) acc[0][j] = 0.f;
+
+  const int total_tiles = (a.sk + kSR - 1) / kSR;
+  int n_tiles = total_tiles;
+  if (a.causal) {
+    const int q_last = min(q0 + kSR, a.sq) - 1;
+    const long long last_key = a.q_offset + q_last - a.kv_offset;
+    const long long need = last_key / kSR + 1;
+    n_tiles = last_key < 0 ? 0 : (need < total_tiles ? static_cast<int>(need) : total_tiles);
+  }
+  T* p_st = slice == 0 ? static_cast<T*>(a.p_stash) : nullptr;
+  T* ds_st = static_cast<T*>(a.ds_stash);
+  const long long st_base = bh * a.sq * static_cast<long long>(a.sk);
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * kSR;
+    float s, dp;
+    sliced_scores<T>(qb, gb, q0, a.sq, kb, vb, k0, a.sk, rs, d, qR, doR, kR, vR, s, dp);
+    const int c = k0 + tx;
+    const float sv = visible(a, r, c) ? __fmul_rn(s, a.scale) : kNegInf;
+    const float p = expf(sv - lse_r);
+    const float ds = __fmul_rn(__fmul_rn(p, __fsub_rn(dp, delta_r)), a.scale);
+    const T ds_t = from_f<T>(ds);
+    dsT[tx * LQ + ty] = to_f(ds_t);
+    if (p_st != nullptr && r < a.sq && c < a.sk) {
+      const long long at = st_base + static_cast<long long>(r) * a.sk + c;
+      p_st[at] = from_f<T>(p);
+      ds_st[at] = ds_t;
+    }
+    __syncthreads();  // dsT complete; the scores' readers of kR are done
+    load_tile<T, kSR, kSlice>(kb + col0, rs, k0, a.sk, d - col0, nullptr, 0, kR, kSLD);
+    __syncthreads();
+    outer_mma<1, kSTD, true>(dsT, LQ, ty, kR, kSLD, tx * 4, kSR, acc);
+  }
+
+  // Stash tiles past the causal range hold zeros, as the TPU kernel leaves
+  // them.
+  if (p_st != nullptr && n_tiles < total_tiles) {
+    const int c_start = n_tiles * kSR;
+    const int width = a.sk - c_start;
+    const int q_rows = min(kSR, a.sq - q0);
+    const T zero = from_f<T>(0.f);
+    for (long long idx = threadIdx.x; idx < static_cast<long long>(q_rows) * width;
+         idx += kThreads) {
+      const int rr = static_cast<int>(idx / width);
+      const int cc = c_start + static_cast<int>(idx - static_cast<long long>(rr) * width);
+      const long long at = st_base + static_cast<long long>(q0 + rr) * a.sk + cc;
+      p_st[at] = zero;
+      ds_st[at] = zero;
+    }
+  }
+  store_slice<T>(static_cast<T*>(a.dq) + static_cast<long long>(batch) * a.sq * rs + head * d,
+                 rs, r, a.sq, col0, d, tx, acc);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_sliced_kernel(BwdArgs a) {
+  constexpr int LC = kSR + 1;
+  extern __shared__ __align__(16) float smem[];
+  float* kR = smem;
+  float* vR = kR + kSR * kSLD;
+  float* qR = vR + kSR * kSLD;
+  float* doR = qR + kSR * kSLD;
+  float* pR = doR + kSR * kSLD;  // [query][LC]
+  float* dsR = pR + kSR * LC;    // [query][LC]
+  __shared__ float lse_s[kSR];
+  __shared__ float delta_s[kSR];
+
+  const int slices = slices_of(a.d);
+  const int slice = blockIdx.x % slices;
+  const int k0 = blockIdx.x / slices * kSR;
+  const int col0 = slice * kSlice;
+  const int head = blockIdx.y;
+  const int batch = blockIdx.z;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int d = a.d;
+  const long long rs = static_cast<long long>(a.h) * d;
+  const long long bh = static_cast<long long>(batch) * a.h + head;
+  const T* qb = static_cast<const T*>(a.q) + static_cast<long long>(batch) * a.sq * rs + head * d;
+  const T* gb = static_cast<const T*>(a.dout) + static_cast<long long>(batch) * a.sq * rs + head * d;
+  const T* kb = static_cast<const T*>(a.k) + static_cast<long long>(batch) * a.sk * rs + head * d;
+  const T* vb = static_cast<const T*>(a.v) + static_cast<long long>(batch) * a.sk * rs + head * d;
+
+  float acc_k[1][kSTD], acc_v[1][kSTD];
+#pragma unroll
+  for (int j = 0; j < kSTD; ++j) acc_k[0][j] = acc_v[0][j] = 0.f;
+  const int c = k0 + ty;
+  const int n_q_tiles = (a.sq + kSR - 1) / kSR;
+  for (int t = first_q_tile(a, k0, kSR); t < n_q_tiles; ++t) {
+    const int q0 = t * kSR;
+    if (threadIdx.x < kSR) {  // the last tile's readers passed two barriers since
+      const int r = q0 + threadIdx.x;
+      lse_s[threadIdx.x] = r < a.sq ? a.lse[bh * a.sq + r] : kLseMasked;
+      delta_s[threadIdx.x] = r < a.sq ? a.delta[bh * a.sq + r] : 0.f;
+    }
+    float s, dp;  // S^T[c][r], dP^T[c][r]
+    sliced_scores<T>(kb, vb, k0, a.sk, qb, gb, q0, a.sq, rs, d, kR, vR, qR, doR, s, dp);
+    const float sv = visible(a, q0 + tx, c) ? __fmul_rn(s, a.scale) : kNegInf;
+    const float p = expf(sv - lse_s[tx]);
+    const float ds = __fmul_rn(__fmul_rn(p, __fsub_rn(dp, delta_s[tx])), a.scale);
+    pR[tx * LC + ty] = to_f(from_f<T>(p));
+    dsR[tx * LC + ty] = to_f(from_f<T>(ds));
+    __syncthreads();  // pR, dsR complete; the scores' readers of qR, doR are done
+    load_tile<T, kSR, kSlice>(qb + col0, rs, q0, a.sq, d - col0, nullptr, 0, qR, kSLD);
+    load_tile<T, kSR, kSlice>(gb + col0, rs, q0, a.sq, d - col0, nullptr, 0, doR, kSLD);
+    __syncthreads();
+    outer_mma<1, kSTD, true>(pR, LC, ty, doR, kSLD, tx * 4, kSR, acc_v);   // dV += P^T dO
+    outer_mma<1, kSTD, true>(dsR, LC, ty, qR, kSLD, tx * 4, kSR, acc_k);   // dK += dS^T Q
+  }
+  const long long off = static_cast<long long>(batch) * a.sk * rs + head * d;
+  store_slice<T>(static_cast<T*>(a.dk) + off, rs, c, a.sk, col0, d, tx, acc_k);
+  store_slice<T>(static_cast<T*>(a.dv) + off, rs, c, a.sk, col0, d, tx, acc_v);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_stash_sliced_kernel(BwdArgs a) {
+  constexpr int LC = kSR + 1;
+  extern __shared__ __align__(16) float smem[];
+  float* qR = smem;              // [query][kSLD]
+  float* doR = qR + kSR * kSLD;  // [query][kSLD]
+  float* pR = doR + kSR * kSLD;  // [query][LC]
+  float* dsR = pR + kSR * LC;    // [query][LC]
+
+  const int slices = slices_of(a.d);
+  const int slice = blockIdx.x % slices;
+  const int k0 = blockIdx.x / slices * kSR;
+  const int col0 = slice * kSlice;
+  const int head = blockIdx.y;
+  const int batch = blockIdx.z;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int d = a.d;
+  const long long rs = static_cast<long long>(a.h) * d;
+  const long long bh = static_cast<long long>(batch) * a.h + head;
+  const T* qb = static_cast<const T*>(a.q) + static_cast<long long>(batch) * a.sq * rs + head * d;
+  const T* gb = static_cast<const T*>(a.dout) + static_cast<long long>(batch) * a.sq * rs + head * d;
+  const T* p_st = static_cast<const T*>(a.p_stash) + bh * a.sq * static_cast<long long>(a.sk);
+  const T* ds_st = static_cast<const T*>(a.ds_stash) + bh * a.sq * static_cast<long long>(a.sk);
+
+  float acc_k[1][kSTD], acc_v[1][kSTD];
+#pragma unroll
+  for (int j = 0; j < kSTD; ++j) acc_k[0][j] = acc_v[0][j] = 0.f;
+  const int n_q_tiles = (a.sq + kSR - 1) / kSR;
+  for (int t = first_q_tile(a, k0, kSR); t < n_q_tiles; ++t) {
+    const int q0 = t * kSR;
+    __syncthreads();
+    load_tile<T, kSR, kSlice>(qb + col0, rs, q0, a.sq, d - col0, nullptr, 0, qR, kSLD);
+    load_tile<T, kSR, kSlice>(gb + col0, rs, q0, a.sq, d - col0, nullptr, 0, doR, kSLD);
+    for (int idx = threadIdx.x; idx < kSR * kSR; idx += kThreads) {
+      const int r = idx / kSR, cc = idx % kSR;
+      const bool in = q0 + r < a.sq && k0 + cc < a.sk;
+      const long long at = static_cast<long long>(q0 + r) * a.sk + k0 + cc;
+      pR[r * LC + cc] = in ? to_f(p_st[at]) : 0.f;
+      dsR[r * LC + cc] = in ? to_f(ds_st[at]) : 0.f;
+    }
+    __syncthreads();
+    outer_mma<1, kSTD, true>(pR, LC, ty, doR, kSLD, tx * 4, kSR, acc_v);
+    outer_mma<1, kSTD, true>(dsR, LC, ty, qR, kSLD, tx * 4, kSR, acc_k);
+  }
+  const long long off = static_cast<long long>(batch) * a.sk * rs + head * d;
+  store_slice<T>(static_cast<T*>(a.dk) + off, rs, k0 + ty, a.sk, col0, d, tx, acc_k);
+  store_slice<T>(static_cast<T*>(a.dv) + off, rs, k0 + ty, a.sk, col0, d, tx, acc_v);
 }
 
 enum Which { kDq = 0, kDkv = 1, kDkvStash = 2 };
@@ -2074,25 +2334,59 @@ cudaError_t launch_one(const BwdArgs& a, int batch, int device, cudaStream_t str
 }
 
 // Whether a call runs a tensor-core body: in bf16 every dQ and stash dK/dV
-// call, and the recompute dK/dV at head_dim <= 128. The launcher's rule,
-// exported for the wrappers' counts (ktwe_flash_bwd_wgmma).
+// call, and the recompute dK/dV at head_dim <= 128, up to head_dim 512. The
+// launcher's rule, exported for the wrappers' counts (ktwe_flash_bwd_wgmma).
 bool wgmma_body(int which, int d, int dtype) {
-  return dtype == kBF16 && (which != kDkv || d <= tc::kDPad);
+  return dtype == kBF16 && d <= tc::kWideD && (which != kDkv || d <= tc::kDPad);
 }
 
 // The widest head_dim of the body instance a call runs (exported as
 // ktwe_flash_bwd_dmax): the f32 pipes' 64, 128, 256 or 512; the tensor-core
 // bodies' 128 (dQ and dK/dV at head_dim <= 128) or 512 (dQ above 128, and
-// the stash dK/dV at every head_dim, in 128-column slices).
+// the stash dK/dV at every head_dim, in 128-column slices); above 512 the
+// column-sliced bodies', D rounded up to whole 512-column slices.
 int body_dmax(int which, int d, int dtype) {
+  if (d > kSlice) return (d + kSlice - 1) / kSlice * kSlice;
   if (wgmma_body(which, d, dtype)) {
     return which != kDkvStash && d <= tc::kDPad ? tc::kDPad : tc::kWideD;
   }
   return d <= 64 ? 64 : (d <= 128 ? 128 : (d <= 256 ? 256 : 512));
 }
 
+// Head dims above 512, either dtype: the column-sliced f32-pipe bodies.
+template <typename T, int W>
+cudaError_t launch_sliced(const BwdArgs& a, int batch, int device, cudaStream_t stream) {
+  void (*kernel)(BwdArgs);
+  if constexpr (W == kDq) {
+    kernel = flash_bwd_dq_sliced_kernel<T>;
+  } else if constexpr (W == kDkv) {
+    kernel = flash_bwd_dkv_sliced_kernel<T>;
+  } else {
+    kernel = flash_bwd_dkv_stash_sliced_kernel<T>;
+  }
+  const size_t bytes = sliced_smem_floats(W) * sizeof(float);
+  static std::atomic<bool> opted_in[kMaxDevices];
+  if (!opted_in[device].load(std::memory_order_acquire)) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+    if (err != cudaSuccess) return err;
+    opted_in[device].store(true, std::memory_order_release);
+  }
+  const int rows = W == kDq ? a.sq : a.sk;
+  const long long blocks_x =
+      static_cast<long long>((rows + kSR - 1) / kSR) * ((a.d + kSlice - 1) / kSlice);
+  if (blocks_x > 0x7fffffffLL) return static_cast<cudaError_t>(kBadArgument);
+  const dim3 grid(static_cast<unsigned>(blocks_x), a.h, batch);
+  kernel<<<grid, kThreads, bytes, stream>>>(a);
+  return cudaGetLastError();
+}
+
 template <int W>
 cudaError_t launch(const BwdArgs& a, int batch, int dtype, int device, cudaStream_t s) {
+  if (a.d > kSlice) {
+    return dtype == kF32 ? launch_sliced<float, W>(a, batch, device, s)
+                         : launch_sliced<__nv_bfloat16, W>(a, batch, device, s);
+  }
   const int dmax = body_dmax(W, a.d, dtype);
   if (dtype == kF32) {
     if (dmax == 64) return launch_one<float, 64, W>(a, batch, device, s);
@@ -2116,7 +2410,7 @@ cudaError_t launch(const BwdArgs& a, int batch, int dtype, int device, cudaStrea
 
 int validate(int batch, int sq, int sk, int h, int d, int dtype, int device) {
   if (batch <= 0 || batch > 65535 || sq <= 0 || sk <= 0 || h <= 0 || h > 65535 || d <= 0 ||
-      d > 512 || d % 8 != 0 || device < 0 || device >= kMaxDevices ||
+      d % 8 != 0 || device < 0 || device >= kMaxDevices ||
       (dtype != kF32 && dtype != kBF16)) {
     return kBadArgument;
   }
@@ -2137,8 +2431,10 @@ int run(const BwdArgs& a, int batch, int dtype, int device, void* stream) {
 KTWE_DEFINE_ERROR_STRING
 
 // q, dout, dq: (batch, sq, h, d); k, v: (batch, sk, h, d); one dtype, all
-// contiguous and 16-byte aligned. lse, delta: (batch, h, sq) f32. p_stash and
-// ds_stash: (batch * h, sq, sk) in the same dtype, both or neither.
+// contiguous and 16-byte aligned; d a multiple of 8 (the wrapper pads other
+// head dims with zero columns), above 512 the column-sliced bodies. lse,
+// delta: (batch, h, sq) f32. p_stash and ds_stash: (batch * h, sq, sk) in
+// the same dtype, both or neither.
 KTWE_EXPORT int ktwe_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                                   const void* lse, const void* delta, void* dq, void* p_stash,
                                   void* ds_stash, int batch, int sq, int sk, int h, int d,
@@ -2204,7 +2500,7 @@ KTWE_EXPORT int ktwe_flash_bwd_wgmma(int which, int d, int dtype) {
 // The widest head_dim of the body instance that (which, d, dtype) selects
 // (body_dmax), for reports; 0 for arguments the launchers refuse.
 KTWE_EXPORT int ktwe_flash_bwd_dmax(int which, int d, int dtype) {
-  if (d <= 0 || d > 512 || d % 8 != 0 || which < kDq || which > kDkvStash ||
+  if (d <= 0 || d % 8 != 0 || which < kDq || which > kDkvStash ||
       (dtype != kF32 && dtype != kBF16)) {
     return 0;
   }
@@ -2215,10 +2511,11 @@ KTWE_EXPORT int ktwe_flash_bwd_dmax(int which, int d, int dtype) {
 // selects asks for (bytes), for reports; 0 for arguments the launchers
 // refuse.
 KTWE_EXPORT int ktwe_flash_bwd_smem(int which, int d, int dtype) {
-  if (d <= 0 || d > 512 || d % 8 != 0 || which < kDq || which > kDkvStash ||
+  if (d <= 0 || d % 8 != 0 || which < kDq || which > kDkvStash ||
       (dtype != kF32 && dtype != kBF16)) {
     return 0;
   }
+  if (d > kSlice) return static_cast<int>(sliced_smem_floats(which) * sizeof(float));
   if (wgmma_body(which, d, dtype)) {
     if (which == kDkvStash) return tc::kStashSmem;
     return body_dmax(which, d, dtype) == tc::kDPad ? tc::kSmem : tc::kWideSmem;

@@ -74,6 +74,14 @@
 // The TPU kernel carries its dw sum across its sequential grid; blocks
 // here run in no order, hence the second pass.
 //
+// Wide rows (rows the layouts above cannot hold in registers, off every
+// main path): a block of 256 threads a row, two passes over the row, the
+// second from L2 (a 16384-column bf16 row is 32 KB); the backward's dw
+// partial row lives in dw_partial itself, each column owned by one thread
+// and summed over the block's rows in order, so the same 528 partial rows
+// and fixed-order sum keep dw bitwise repeatable. The launchers take this
+// body only where the layouts above refuse the width.
+//
 // Registers, spills and shared memory of every instance (CUDA 12.8,
 // `-Xptxas -v`, sm_90a) are printed by chip_smoke.py's `rms_build` line;
 // PERF.md §6 keeps those of the main path's instances.
@@ -93,6 +101,8 @@ constexpr int kFwdVecs = 2;          // forward: vectors a thread owns where G a
 constexpr int kSpreadWarps = 1024;   // forward: warps a grid of few rows spreads over
 constexpr int kBwdThreads = 256;
 constexpr int kBwdMaxVecs = 4;       // backward: vectors a thread owns in a row, at most
+constexpr int kWideThreads = 256;    // wide rows: a block a row
+constexpr int kWideGrid = 4096;      // wide forward: blocks, at most
 
 // Wait for the `threads` threads of row group g (of `groups` in the
 // block): the block barrier for one group, else named barrier 1 + g. The
@@ -233,6 +243,124 @@ __device__ __forceinline__ void shift_rows(Vec<T, N> (&b)[D][V]) {
   for (int i = 0; i + 1 < D; ++i) {
 #pragma unroll
     for (int k = 0; k < V; ++k) b[i][k] = b[i + 1][k];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Wide rows: past the register-resident layouts (forward 2048 vectors a row,
+// backward 1024), a block of kWideThreads takes a row in two passes over
+// it, the second from L2: its sum (and the backward's dy*w*x sum), then the
+// scaled write. Thread t owns vectors t, t + 256, ... of every row.
+// ---------------------------------------------------------------------------
+
+// (sum a, sum b) over the block, in warp order; `slot` alternates between
+// rows, so one barrier a row suffices.
+__device__ __forceinline__ float2 block_sum2(float2 v, float2 (&red)[2][kWideThreads / 32],
+                                             int& slot) {
+  v.x = warp_sum(v.x);
+  v.y = warp_sum(v.y);
+  if ((threadIdx.x & 31) == 0) red[slot][threadIdx.x >> 5] = v;
+  __syncthreads();
+  v = make_float2(0.f, 0.f);
+#pragma unroll
+  for (int i = 0; i < kWideThreads / 32; ++i) {
+    v.x += red[slot][i].x;
+    v.y += red[slot][i].y;
+  }
+  slot ^= 1;
+  return v;
+}
+
+// Block b takes rows b, b + gridDim.x, ...
+template <typename T, typename W, int N>
+__global__ void __launch_bounds__(kWideThreads)
+    rms_norm_fwd_wide_kernel(const T* __restrict__ x, const W* __restrict__ w, T* __restrict__ out,
+                             long long rows, int d, float eps) {
+  __shared__ float2 red[2][kWideThreads / 32];
+  const int n_vec = d / N;
+  const float inv_d = 1.f / static_cast<float>(d);
+  int slot = 0;
+  for (long long row = blockIdx.x; row < rows; row += gridDim.x) {
+    const T* xr = x + row * d;
+    float2 ss = make_float2(0.f, 0.f);
+    for (int vi = threadIdx.x; vi < n_vec; vi += kWideThreads) {
+      const Vec<T, N> v = load_vec<T, N>(xr + static_cast<long long>(vi) * N);
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        const float f = to_f(v.v[j]);
+        ss.x = fmaf(f, f, ss.x);
+      }
+    }
+    const float r = rsqrtf(block_sum2(ss, red, slot).x * inv_d + eps);
+    T* orow = out + row * d;
+    for (int vi = threadIdx.x; vi < n_vec; vi += kWideThreads) {
+      const long long at = static_cast<long long>(vi) * N;
+      const Vec<T, N> v = load_vec<T, N>(xr + at);
+      float wk[N];
+      load_weights<W, N>(w + at, wk);
+      Vec<T, N> o;
+#pragma unroll
+      for (int j = 0; j < N; ++j) o.v[j] = from_f<T>(__fmul_rn(__fmul_rn(to_f(v.v[j]), r), wk[j]));
+      store_vec<T, N>(orow + at, o);
+    }
+  }
+}
+
+// Block p takes rows [p * rows / parts, (p + 1) * rows / parts) and keeps its
+// dw partial row in dw_partial (device memory, each column owned by one
+// thread, summed over the rows in order), as the register-resident body
+// keeps it in registers.
+template <typename T, typename W, int N>
+__global__ void __launch_bounds__(kWideThreads)
+    rms_norm_bwd_wide_kernel(const T* __restrict__ x, const W* __restrict__ w,
+                             const T* __restrict__ dy, T* __restrict__ dx,
+                             float* __restrict__ dw_partial, long long rows, int d, float eps) {
+  __shared__ float2 red[2][kWideThreads / 32];
+  const int n_vec = d / N;
+  const float inv_d = 1.f / static_cast<float>(d);
+  const long long lo = rows * blockIdx.x / gridDim.x;
+  const long long hi = rows * (blockIdx.x + 1) / gridDim.x;
+  float* prow = dw_partial + blockIdx.x * static_cast<long long>(d);
+  int slot = 0;
+  for (long long row = lo; row < hi; ++row) {
+    const T* xr = x + row * d;
+    const T* gr = dy + row * d;
+    float2 sums = make_float2(0.f, 0.f);  // (sum x^2, sum dy*w*x)
+    for (int vi = threadIdx.x; vi < n_vec; vi += kWideThreads) {
+      const long long at = static_cast<long long>(vi) * N;
+      const Vec<T, N> xv = load_vec<T, N>(xr + at);
+      const Vec<T, N> gv = load_vec<T, N>(gr + at);
+      float wk[N];
+      load_weights<W, N>(w + at, wk);
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        const float xf = to_f(xv.v[j]);
+        sums.x = fmaf(xf, xf, sums.x);
+        sums.y = fmaf(__fmul_rn(to_f(gv.v[j]), wk[j]), xf, sums.y);
+      }
+    }
+    sums = block_sum2(sums, red, slot);
+    const float r = rsqrtf(sums.x * inv_d + eps);
+    const float proj = __fmul_rn(r, sums.y * inv_d);  // mean(dy*w*x_hat)
+    T* drow = dx + row * d;
+    for (int vi = threadIdx.x; vi < n_vec; vi += kWideThreads) {
+      const long long at = static_cast<long long>(vi) * N;
+      const Vec<T, N> xv = load_vec<T, N>(xr + at);
+      const Vec<T, N> gv = load_vec<T, N>(gr + at);
+      float wk[N];
+      load_weights<W, N>(w + at, wk);
+      Vec<T, N> o;
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        const float xf = to_f(xv.v[j]);
+        const float gf = to_f(gv.v[j]);
+        const float xhat = __fmul_rn(xf, r);
+        const float dyw = __fmul_rn(gf, wk[j]);
+        o.v[j] = from_f<T>(__fmul_rn(r, __fsub_rn(dyw, __fmul_rn(xhat, proj))));
+        prow[at + j] = fmaf(gf, xhat, row == lo ? 0.f : prow[at + j]);
+      }
+      store_vec<T, N>(drow + at, o);
+    }
   }
 }
 
@@ -381,11 +509,15 @@ inline bool fwd_layout(int n_vec, long long rows, int* gshift, int* v) {
 template <typename T, typename W, int N>
 cudaError_t launch_fwd_n(const void* x, const void* w, void* out, long long rows, int d,
                          float eps, int device, cudaStream_t stream) {
-  int gshift = 0, v = 0;
-  if (!fwd_layout(d / N, rows, &gshift, &v)) return static_cast<cudaError_t>(kBadArgument);
   const T* xp = static_cast<const T*>(x);
   const W* wp = static_cast<const W*>(w);
   T* op = static_cast<T*>(out);
+  int gshift = 0, v = 0;
+  if (!fwd_layout(d / N, rows, &gshift, &v)) {
+    const int grid = static_cast<int>(rows < kWideGrid ? rows : kWideGrid);
+    rms_norm_fwd_wide_kernel<T, W, N><<<grid, kWideThreads, 0, stream>>>(xp, wp, op, rows, d, eps);
+    return cudaGetLastError();
+  }
   switch (v) {
     case 1: return launch_fwd_v<T, W, N, 1>(xp, wp, op, rows, d, gshift, eps, device, stream);
     case 2: return launch_fwd_v<T, W, N, 2>(xp, wp, op, rows, d, gshift, eps, device, stream);
@@ -625,12 +757,16 @@ cudaError_t launch_bwd_n(const void* x, const void* w, const void* dy, void* dx,
                          void* dw, long long rows, int d, float eps, int parts,
                          cudaStream_t stream) {
   int gshift = 0, v = 0;
-  if (!bwd_layout(d / N, &gshift, &v)) return static_cast<cudaError_t>(kBadArgument);
+  if (!bwd_layout(d / N, &gshift, &v)) v = 0;  // the wide-row body
   const T* xp = static_cast<const T*>(x);
   const W* wp = static_cast<const W*>(w);
   const T* gp = static_cast<const T*>(dy);
   T* op = static_cast<T*>(dx);
   switch (v) {
+    case 0:
+      rms_norm_bwd_wide_kernel<T, W, N><<<parts, kWideThreads, 0, stream>>>(xp, wp, gp, op, partial,
+                                                                            rows, d, eps);
+      break;
     case 1:
       rms_norm_bwd_kernel<T, W, N, 1><<<parts, kBwdThreads, RowWeights<W, N, 1>::smem_bytes(d),
                                         stream>>>(xp, wp, gp, op, partial, rows, d, gshift, eps);
@@ -684,9 +820,9 @@ cudaError_t launch_bwd_w(const void* x, const void* w, const void* dy, void* dx,
 
 KTWE_DEFINE_ERROR_STRING
 
-// x, out: (rows, d) contiguous, 16-byte aligned; w: (d,) contiguous. Rows
-// of at most 2048 vectors of 16 bytes (2048 columns where 16 bytes do not
-// divide d or w is not 16-byte aligned).
+// x, out: (rows, d) contiguous, 16-byte aligned; w: (d,) contiguous. Any
+// width: past 2048 vectors of 16 bytes (2048 columns where 16 bytes do not
+// divide d or w is not 16-byte aligned) the wide-row body runs.
 KTWE_EXPORT int ktwe_rms_norm_fwd(const void* x, const void* w, void* out, long long rows, int d,
                                   float eps, int x_dtype, int w_dtype, int device, void* stream) {
   if (rows <= 0 || d <= 0) return kBadArgument;
@@ -703,8 +839,8 @@ KTWE_EXPORT int ktwe_rms_norm_fwd(const void* x, const void* w, void* out, long 
 
 // x, dy, dx: (rows, d) contiguous, 16-byte aligned, x's dtype; w, dw: (d,)
 // in w's dtype; dw_partial: (parts, d) f32 scratch, 16-byte aligned, parts
-// <= rows. Rows of at most 1024 vectors of 16 bytes (1024 columns where 16
-// bytes do not divide d or w is not 16-byte aligned).
+// <= rows. Any width: past 1024 vectors of 16 bytes (1024 columns where 16
+// bytes do not divide d or w is not 16-byte aligned) the wide-row body runs.
 KTWE_EXPORT int ktwe_rms_norm_bwd(const void* x, const void* w, const void* dy, void* dx,
                                   void* dw_partial, void* dw, long long rows, int d, float eps,
                                   int parts, int x_dtype, int w_dtype, int device, void* stream) {

@@ -601,13 +601,22 @@ class ContinuousBatchEngine:
     def submit(self, prompt: List[int], max_new_tokens: int,
                temperature: Optional[float] = None,
                top_p: Optional[float] = None,
-               stop: Optional[List[List[int]]] = None) -> int:
-        """Enqueue a generation; returns its request id."""
+               stop: Optional[List[List[int]]] = None,
+               prng_key: Optional[Sequence[int]] = None) -> int:
+        """Enqueue a generation; returns its request id. `prng_key` (two
+        uint32 words) is the request's sampling base key, so the same key
+        at the same temperature gives the same tokens on any engine; the
+        default is (seed, request id)."""
         if self._draining:
             raise Draining("engine is draining (shutdown in progress); retry "
                            "against another replica")
         if max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
+        if prng_key is not None:
+            if len(prng_key) != 2:
+                raise ValueError("prngKey must be two uint32 words")
+            prng_key = np.asarray([int(k) & 0xFFFFFFFF for k in prng_key],
+                                  np.uint32)
         if top_p is not None:
             if not 0.0 < top_p <= 1.0:
                 raise ValueError(f"top_p {top_p} must be in (0, 1]")
@@ -636,8 +645,8 @@ class ContinuousBatchEngine:
                            temperature=temperature, top_p=top_p,
                            stop=[list(s) for s in (stop or []) if s])
         self._next_id += 1
-        req.base_key = np.asarray([self._seed & 0xFFFFFFFF,
-                                   req.req_id & 0xFFFFFFFF], np.uint32)
+        req.base_key = (prng_key if prng_key is not None else np.asarray(
+            [self._seed & 0xFFFFFFFF, req.req_id & 0xFFFFFFFF], np.uint32))
         self._reqs[req.req_id] = req
         self._queue.append(req)
         return req.req_id

@@ -16,10 +16,13 @@ KERNEL_BWD_DKV_WGMMA and KERNEL_BWD_DKV_STASH_WGMMA, beside each kernel's
 own name.
 
 `flash_attention` is the forward alone (the serving path): it takes any
-Sq >= 1, any Sk, GQA natively (KH dividing H) and a head_dim that is a
-multiple of 8 up to 512. `flash_attention_train` is differentiable: it
-expands GQA first, as the JAX kernels require, and its backward kernels
-take the same head dims. `flash_attention_t` is the differentiable entry
+Sq >= 1, any Sk, GQA natively (KH dividing H) and any head_dim: the
+kernels take multiples of 8 (above 512 in column-sliced f32-pipe bodies,
+in either dtype), and the wrapper zero-pads any other head_dim to the next
+multiple of 8 (zero columns change no score and no kept output; the scale
+stays the true D^-0.5) and slices the result back. `flash_attention_train`
+is differentiable: it expands GQA first, as the JAX kernels require, and
+its backward takes the same head dims the same way. `flash_attention_t` is the differentiable entry
 on the kernels' flat (B*H, S, D) layout (the reference's
 `flash_attention_t`, training offsets 0), which the model's t-layout path
 feeds from `rope_rotate_t`; `flash_supported` is the reference's shape
@@ -54,8 +57,9 @@ KERNEL_BWD_DKV_STASH_WGMMA = "flash_attention_bwd_dkv_stash_wgmma"
 # Kernel codes of the backward library's body queries (csrc's `Which`).
 BWD_CODES = {KERNEL_BWD_DQ: 0, KERNEL_BWD_DKV: 1, KERNEL_BWD_DKV_STASH: 2}
 LSE_MASKED = 1e30
-MAX_HEAD_DIM = 512
-MAX_HEAD_DIM_BWD = 512
+# The widest head_dim the tensor-core (wgmma) bodies take; above it bf16
+# runs the column-sliced f32-pipe bodies, which the wgmma counters skip.
+MAX_HEAD_DIM_WGMMA = 512
 # The reference's preferred and fallback flash block sizes, which its shape
 # gate `flash_supported` asks a sequence to divide.
 DEFAULT_BLOCK_Q = DEFAULT_BLOCK_K = 512
@@ -123,6 +127,15 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, lse
 
 
+def _pad_head_dim(*ts: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Zero-pad the last axis to a multiple of 8, the kernels' head_dim
+    granularity (contiguous copies; the tensors as they are otherwise)."""
+    pad = -ts[0].shape[-1] % 8
+    if not pad:
+        return ts
+    return tuple(torch.nn.functional.pad(t, (0, pad)) for t in ts)
+
+
 def _flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           causal: bool, q_offset: int, kv_offset: int,
                           return_lse: bool) -> Result:
@@ -141,29 +154,31 @@ def _flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_attention q, k, v must share dtype and device")
     if h % kh:
         raise ValueError(f"flash_attention kv heads {kh} must divide {h}")
-    if d % 8 or d > MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention head_dim {d} must be a multiple "
-                         f"of 8 and at most {MAX_HEAD_DIM}")
     if b > 65535 or h > 65535:
         raise ValueError("flash_attention batch and heads must be <= 65535")
-    out = torch.empty_like(q)
+    qp, kp, vp = _pad_head_dim(q, k, v)
+    dp = qp.shape[-1]
+    out = torch.empty_like(qp)
     lse: Optional[torch.Tensor] = (
         torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
         if return_lse else None)
     if q.numel() and sk:
         lib = kernels.library("flash_attention")
         code = lib.ktwe_flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr() if lse is not None else None, b, sq, sk, h, kh, d,
+            qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if lse is not None else None, b, sq, sk, h, kh, dp,
             int(bool(causal)), int(q_offset), int(kv_offset), float(d ** -0.5),
             kernels.DTYPE_CODES[q.dtype], q.device.index or 0,
             kernels.stream_handle(q))
         kernels.check(lib, KERNEL, code)
         kernels.launches[KERNEL] += 1
-        if q.dtype == torch.bfloat16:   # the launcher's choice of body
+        # The launcher's choice of body.
+        if q.dtype == torch.bfloat16 and dp <= MAX_HEAD_DIM_WGMMA:
             kernels.launches[KERNEL_WGMMA] += 1
     elif q.numel():
         raise ValueError("flash_attention needs at least one key")
+    if dp != d:
+        out = out[..., :d].contiguous()
     return (out, lse) if return_lse else out
 
 
@@ -301,8 +316,10 @@ def _count_bwd(lib, kernel: str, wgmma_name: str, d: int,
         kernels.launches[wgmma_name] += 1
 
 
-def _check_bwd(q, k, v, do, lse, delta=None) -> Tuple[int, ...]:
-    """Checks shared by the backward wrappers; (b, sq, sk, h, d)."""
+def _check_bwd(q, k, v, do, lse, delta=None,
+               pad_ok=False) -> Tuple[int, ...]:
+    """Checks shared by the backward wrappers; (b, sq, sk, h, d). With
+    `pad_ok` any head_dim passes (the caller pads it)."""
     for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
         kernels.require(t, f"flash_attention_bwd {name}", dtypes=(q.dtype,))
         if t.dim() != 4 or t.device != q.device:
@@ -316,9 +333,10 @@ def _check_bwd(q, k, v, do, lse, delta=None) -> Tuple[int, ...]:
         raise ValueError(f"flash_attention_bwd k/v {tuple(k.shape)} / "
                          f"{tuple(v.shape)} must be MHA over q "
                          f"{tuple(q.shape)}: expand GQA first")
-    if d % 8 or d > MAX_HEAD_DIM_BWD:
+    if d % 8 and not pad_ok:
         raise ValueError(f"flash_attention_bwd head_dim {d} must be a "
-                         f"multiple of 8 and at most {MAX_HEAD_DIM_BWD}")
+                         f"multiple of 8 (flash_attention_backward pads "
+                         f"other head dims)")
     if b > 65535 or h > 65535:
         raise ValueError("flash_attention_bwd batch and heads must be "
                          "<= 65535")
@@ -335,9 +353,10 @@ def _check_bwd(q, k, v, do, lse, delta=None) -> Tuple[int, ...]:
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, causal=True, q_offset=0,
-                 kv_offset=0, stash=False):
+                 kv_offset=0, stash=False, scale=None):
     """The dQ kernel on CUDA tensors: (dq, p_stash, ds_stash), the stashes
-    (B*H, Sq, Sk) in dO's and q's dtypes when `stash`, else None."""
+    (B*H, Sq, Sk) in dO's and q's dtypes when `stash`, else None. `scale`
+    defaults to head_dim^-0.5 (a padded call passes the true one)."""
     b, sq, sk, h, d = _check_bwd(q, k, v, do, lse, delta)
     dq = torch.empty_like(q)
     p_st = ds_st = None
@@ -350,7 +369,8 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal=True, q_offset=0,
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         p_st.data_ptr() if stash else None,
         ds_st.data_ptr() if stash else None, b, sq, sk, h, d,
-        int(bool(causal)), int(q_offset), int(kv_offset), float(d ** -0.5),
+        int(bool(causal)), int(q_offset), int(kv_offset),
+        float(d ** -0.5 if scale is None else scale),
         kernels.DTYPE_CODES[q.dtype], q.device.index or 0,
         kernels.stream_handle(q))
     kernels.check(lib, KERNEL_BWD_DQ, code)
@@ -359,8 +379,9 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal=True, q_offset=0,
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, causal=True, q_offset=0,
-                  kv_offset=0):
-    """The recompute dK/dV kernel on CUDA tensors: (dk, dv)."""
+                  kv_offset=0, scale=None):
+    """The recompute dK/dV kernel on CUDA tensors: (dk, dv); `scale` as for
+    `flash_bwd_dq`."""
     b, sq, sk, h, d = _check_bwd(q, k, v, do, lse, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     lib = kernels.library("flash_attention_bwd")
@@ -368,7 +389,8 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal=True, q_offset=0,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b,
         sq, sk, h, d, int(bool(causal)), int(q_offset), int(kv_offset),
-        float(d ** -0.5), kernels.DTYPE_CODES[q.dtype], q.device.index or 0,
+        float(d ** -0.5 if scale is None else scale),
+        kernels.DTYPE_CODES[q.dtype], q.device.index or 0,
         kernels.stream_handle(q))
     kernels.check(lib, KERNEL_BWD_DKV, code)
     _count_bwd(lib, KERNEL_BWD_DKV, KERNEL_BWD_DKV_WGMMA, d, q.dtype)
@@ -402,7 +424,7 @@ def flash_bwd_dkv_from_stash(q, k, v, do, p_stash, ds_stash, causal=True,
 
 def _flash_attention_backward_cuda(q, k, v, o, lse, do, causal, q_offset,
                                    kv_offset):
-    b, sq, sk, h, d = _check_bwd(q, k, v, do, lse)
+    b, sq, sk, h, d = _check_bwd(q, k, v, do, lse, pad_ok=True)
     kernels.require(o, "flash_attention_bwd o", dtypes=(q.dtype,))
     if o.shape != q.shape or o.device != q.device:
         raise ValueError("flash_attention_bwd o must match q's shape")
@@ -411,13 +433,20 @@ def _flash_attention_backward_cuda(q, k, v, o, lse, do, causal, q_offset,
                 torch.zeros_like(v))
     delta = backward_delta(o, do)
     args = (causal, q_offset, kv_offset)
+    scale = d ** -0.5
+    qp, kp, vp, dop = _pad_head_dim(q, k, v, do)
     if stash_bytes(q, k, do) <= PDS_STASH_LIMIT_BYTES:
-        dq, p_st, ds_st = flash_bwd_dq(q, k, v, do, lse, delta, *args,
-                                       stash=True)
-        dk, dv = flash_bwd_dkv_from_stash(q, k, v, do, p_st, ds_st, *args)
+        dq, p_st, ds_st = flash_bwd_dq(qp, kp, vp, dop, lse, delta, *args,
+                                       stash=True, scale=scale)
+        dk, dv = flash_bwd_dkv_from_stash(qp, kp, vp, dop, p_st, ds_st,
+                                          *args)
     else:
-        dq, _, _ = flash_bwd_dq(q, k, v, do, lse, delta, *args)
-        dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, *args)
+        dq, _, _ = flash_bwd_dq(qp, kp, vp, dop, lse, delta, *args,
+                                scale=scale)
+        dk, dv = flash_bwd_dkv(qp, kp, vp, dop, lse, delta, *args,
+                               scale=scale)
+    if qp is not q:
+        dq, dk, dv = (t[..., :d].contiguous() for t in (dq, dk, dv))
     return dq, dk, dv
 
 

@@ -65,8 +65,12 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
                  "ktwe_fused_ce_splits": [_I, _I, _I],
                  "ktwe_fused_ce_wgmma": [_I],
                  "ktwe_fused_ce_tile": [_I, _I, _I]},
-    "paged_decode": {"ktwe_paged_decode_fwd": [
-        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P]},
+    "paged_decode": {"ktwe_paged_decode_fwd": [_P] * 8 + [_I] * 8
+                     + [_F, _I, _I, _P],
+                     "ktwe_paged_decode_split": [_P] * 7 + [_I] * 8
+                     + [_F, _I, _I, _P],
+                     "ktwe_paged_decode_combine": [_P] * 3 + [_I] * 5 + [_P],
+                     "ktwe_paged_decode_split_len": [_I] * 4 + [_LL, _I]},
     "embed": {"ktwe_embed_gather": [_P, _P, _P] + [_LL] * 5
               + [_I, _F] + [_I] * 5 + [_P]},
     "relayout": {"ktwe_relayout": [_P, _P, _LL, _LL, _LL] + [_I] * 4

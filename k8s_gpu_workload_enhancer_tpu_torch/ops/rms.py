@@ -9,8 +9,9 @@ that.
 
 `rms_norm` is differentiable (a `torch.autograd.Function`). Each direction
 launches its kernel for a CUDA tensor and takes the plain version only for
-a tensor on the CPU. A CUDA tensor a kernel does not take raises; nothing
-falls back quietly.
+a tensor on the CPU. The kernels take any width (past the register-resident
+layouts the library runs its wide-row bodies). A CUDA tensor a kernel does
+not take raises; nothing falls back quietly.
 """
 
 from __future__ import annotations
@@ -27,11 +28,6 @@ KERNEL_BWD = "rms_norm_bwd"
 # (csrc/rms.cu kBwdParts: 132 SMs x 4 blocks of its 64-register body);
 # fixed, so dw's summation order never depends on the card.
 BWD_PARTS = 528
-# Widest rows the kernels take, in 16-byte vectors (or in columns where 16
-# bytes do not divide the width or the weight is not 16-byte aligned): the
-# forward's 8 warps of 8 vectors a thread, the backward's 8 warps of 4.
-_FWD_MAX_VECS = 8 * 32 * 8
-_BWD_MAX_VECS = 8 * 32 * 4
 
 
 def rms_norm_plain(x: torch.Tensor, weight: torch.Tensor,
@@ -62,19 +58,6 @@ def rms_norm_backward_plain(x: torch.Tensor, weight: torch.Tensor,
     return dx, dw.to(weight.dtype)
 
 
-def _check_width(what: str, x: torch.Tensor, weight: torch.Tensor,
-                 max_vecs: int) -> None:
-    d = x.shape[-1]
-    vec = 16 // x.element_size()
-    vector = d % vec == 0 and weight.data_ptr() % 16 == 0
-    n_vec = d // vec if vector else d
-    if n_vec > max_vecs:
-        raise ValueError(f"{what} width {d} too wide for the kernel "
-                         f"({max_vecs} vectors of {vec} per row, or "
-                         f"{max_vecs} columns when {vec} does not divide "
-                         f"the width or the weight is not 16-byte aligned)")
-
-
 def _check_weight(x: torch.Tensor, weight: torch.Tensor) -> int:
     if weight.device != x.device or weight.dtype not in kernels.DTYPE_CODES:
         raise ValueError("rms_norm weight must be a float tensor on x's "
@@ -90,7 +73,6 @@ def _rms_norm_cuda(x: torch.Tensor, weight: torch.Tensor,
                    eps: float) -> torch.Tensor:
     kernels.require(x, "rms_norm x")
     d = _check_weight(x, weight)
-    _check_width("rms_norm", x, weight, _FWD_MAX_VECS)
     out = torch.empty_like(x)
     rows = x.numel() // d if d else 0
     if rows == 0:
@@ -114,7 +96,6 @@ def _rms_norm_backward_cuda(x: torch.Tensor, weight: torch.Tensor,
     if dy.shape != x.shape or dy.device != x.device:
         raise ValueError(f"rms_norm_bwd dy {tuple(dy.shape)} on {dy.device} "
                          f"must match x {tuple(x.shape)} on {x.device}")
-    _check_width("rms_norm_bwd", x, weight, _BWD_MAX_VECS)
     dx = torch.empty_like(x)
     rows = x.numel() // d if d else 0
     if rows == 0:

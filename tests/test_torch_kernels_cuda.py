@@ -84,6 +84,9 @@ def test_rope_kernel_matches_plain(dev, dtype, shape, offset):
     (1, 2048, 2048, 1, 1, 512, True, 0, 0),    # the flagship's flat head
     (1, 100, 180, 2, 2, 512, False, 0, 0),     # 512, not causal, ragged
     (1, 16, 64, 2, 2, 512, True, 0, 40),       # 512, every row masked
+    (2, 19, 45, 4, 2, 12, True, 20, 0),        # head_dim 12, zero-padded to 16
+    (1, 50, 70, 2, 1, 640, True, 20, 0),       # 640: two 512-column slices
+    (1, 16, 64, 2, 2, 1032, True, 0, 40),      # three slices, rows masked
 ])
 def test_flash_kernel_matches_plain(dev, dtype, b, sq, sk, h, kh, d, causal,
                                     q_off, kv_off):
@@ -132,22 +135,29 @@ def _paged_inputs(dev, dtype, b, h, kh, d, bl, s_max, seed=5):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("bl", [8, 16, 32])
+@pytest.mark.parametrize("bl", [1, 8, 16, 32])
 @pytest.mark.parametrize("h,kh,d", [
     (4, 4, 512),            # the serving shape (MHA, head_dim 512)
     (4, 2, 256),            # GQA, 2 query heads per kv head
     (8, 2, 128),            # groups of 4
-    (6, 2, 64),             # groups of 3 (a bound of 4 in the kernel)
+    (6, 2, 64),             # groups of 3 (an f32 group tile of 4)
     (8, 1, 96),             # groups of 8
-    (16, 1, 64),            # the largest group the kernel takes
+    (16, 1, 64),            # one full bf16 group tile of 16
+    (32, 1, 64),            # two group tiles (past the old ceiling of 16)
+    (64, 1, 128),           # four group tiles
     (3, 3, 200),            # ragged head_dim
+    (2, 2, 12),             # head_dim not a multiple of 8 (8-byte copies)
+    (2, 1, 520),            # two 512-column slices, the second 8 wide
+    (2, 2, 1024),           # two full slices
 ])
 def test_paged_decode_kernel_matches_plain(dev, dtype, bl, h, kh, d):
     q, k, v, table, pos = _paged_inputs(dev, dtype, 4, h, kh, d, bl, 128)
-    before = kernels.launches["paged_decode"]
+    before = {n: kernels.launches[n]
+              for n in (paged.KERNEL, paged.KERNEL_COMBINE)}
     got = paged.paged_decode_attention(q, k, v, table, pos, block_len=bl)
     torch.cuda.synchronize()
-    assert kernels.launches["paged_decode"] == before + 1
+    assert {n: kernels.launches[n] - c for n, c in before.items()} == {
+        paged.KERNEL: 1, paged.KERNEL_COMBINE: 1}
     want = paged.paged_decode_attention_plain(q, k, v, table, pos,
                                               block_len=bl)
     atol, rtol = TOL[dtype]
@@ -155,10 +165,49 @@ def test_paged_decode_kernel_matches_plain(dev, dtype, bl, h, kh, d):
     torch.testing.assert_close(got, want, atol=atol, rtol=rtol)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kh,d,bl,s_max", [
+    (4, 4, 512, 16, 256),   # the paged engine's shape
+    (8, 2, 128, 16, 1024),  # longer tables: fewer, longer splits
+    (3, 1, 13, 4, 96),      # an odd head_dim (element-wise bf16 copies)
+])
+def test_paged_decode_split_edges_and_repeat(dev, dtype, h, kh, d, bl, s_max):
+    # Positions at 0, on either side of a split boundary and at the table's
+    # last row; two calls give the same bits.
+    b = 4
+    q, k, v, table, _ = _paged_inputs(dev, dtype, b, h, kh, d, bl, s_max)
+    table[-1] = table[0]                     # no parked slot here
+    split, splits = paged.split_plan(b, h, kh, d, s_max, dtype)
+    assert splits > 1
+    pos = torch.tensor([0, split - 1, split, s_max - 1], dtype=torch.int32,
+                       device=dev)
+    got = paged.paged_decode_attention(q, k, v, table, pos, block_len=bl)
+    again = paged.paged_decode_attention(q, k, v, table, pos, block_len=bl)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    want = paged.paged_decode_attention_plain(q, k, v, table, pos,
+                                              block_len=bl)
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(got, want, atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_combine_kernel_matches_plain(dev, dtype):
+    # The split kernel's partials at the paged engine's shape (slot 0 at
+    # position 0: its later splits are empty, their acc never written).
+    q, k, v, table, pos = _paged_inputs(dev, dtype, 4, 4, 4, 512, 16, 256)
+    acc, ml = paged.paged_decode_partials(q, k, v, table, pos, block_len=16)
+    before = kernels.launches[paged.KERNEL_COMBINE]
+    got = paged.paged_decode_combine(acc, ml, dtype)
+    torch.cuda.synchronize()
+    assert kernels.launches[paged.KERNEL_COMBINE] == before + 1
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(
+        got, paged.paged_decode_combine_plain(acc, ml, dtype), atol=atol,
+        rtol=rtol)
+
+
 def test_kernels_raise_on_shapes_they_do_not_take(dev):
-    q = _randn(dev, 1, 4, 2, 12)                    # head_dim not a multiple of 8
-    with pytest.raises(ValueError):
-        flash.flash_attention(q, q, q)
     with pytest.raises(ValueError):
         rms.rms_norm(_randn(dev, 4, 8).t(), torch.ones(4, device=dev))
     with pytest.raises(TypeError):                  # f32 and bf16 only
@@ -169,15 +218,8 @@ def test_kernels_raise_on_shapes_they_do_not_take(dev):
 
     def call(q=q, k=k, v=v, table=table, pos=pos):
         return paged.paged_decode_attention(q, k, v, table, pos, block_len=8)
-    for bad_d in (12, 520):                         # not a multiple of 8 / > 512
-        qd = _randn(dev, 2, 4, bad_d)
-        kd = _randn(dev, k.shape[0], 8, 2, bad_d)
-        with pytest.raises(ValueError):
-            call(q=qd, k=kd, v=kd)
     with pytest.raises(ValueError):                 # kv heads do not divide H
         call(q=_randn(dev, 2, 3, 64))
-    with pytest.raises(ValueError):                 # 32 query heads per kv head
-        call(q=_randn(dev, 2, 64, 64))
     with pytest.raises(TypeError):                  # table must be int32
         call(table=table.long())
     with pytest.raises(TypeError):                  # f32 and bf16 only
@@ -306,17 +348,35 @@ def test_rms_kernels_take_a_weight_off_16_byte_alignment(dev, dtype):
     assert torch.equal(rms.rms_norm_backward(x, w, dy)[1], dw)
 
 
-def test_rms_kernels_raise_past_their_widest_rows(dev):
-    # The forward takes 2048 vectors a row, the backward 1024; the
-    # one-element instances as many columns.
-    for d, dtype in ((16392, torch.bfloat16), (2049, torch.float32)):
-        with pytest.raises(ValueError):
-            rms.rms_norm(_randn(dev, 2, d, dtype=dtype),
-                         torch.ones(d, device=dev))
-    for d, dtype in ((8200, torch.bfloat16), (4100, torch.float32)):
-        x = _randn(dev, 2, d, dtype=dtype)
-        with pytest.raises(ValueError):
-            rms.rms_norm_backward(x, torch.ones(d, device=dev), x)
+@pytest.mark.parametrize("dtype,d", [
+    (torch.bfloat16, 16392),    # forward: past 2048 16-byte vectors
+    (torch.float32, 8196),
+    (torch.float32, 2049),      # past 2048 columns of one element
+    (torch.bfloat16, 8200),     # backward: past 1024 16-byte vectors
+    (torch.float32, 4100),
+    (torch.float32, 1025),      # past 1024 columns of one element
+])
+def test_rms_kernels_raise_past_their_widest_rows(dev, dtype, d):
+    # The register-resident layouts end at these widths (the forward's 2048
+    # vectors a row, the backward's 1024); past them the wide-row bodies
+    # take the row, so nothing raises: both directions match the plain
+    # versions at the first width past each limit, and dw repeats bitwise.
+    x = _randn(dev, 5, d, dtype=dtype, seed=3)
+    dy = _randn(dev, 5, d, dtype=dtype, seed=4)
+    w = 1.0 + 0.1 * _randn(dev, d, seed=5)
+    before = {n: kernels.launches[n] for n in (rms.KERNEL, rms.KERNEL_BWD)}
+    got = rms.rms_norm(x, w)
+    dx, dw = rms.rms_norm_backward(x, w, dy)
+    torch.cuda.synchronize()
+    assert {n: kernels.launches[n] - c for n, c in before.items()} == {
+        rms.KERNEL: 1, rms.KERNEL_BWD: 1}
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(got, rms.rms_norm_plain(x, w), atol=atol,
+                               rtol=rtol)
+    want_dx, want_dw = rms.rms_norm_backward_plain(x, w, dy)
+    _assert_bwd_close(dx, want_dx)
+    _assert_bwd_close(dw, want_dw)
+    assert torch.equal(rms.rms_norm_backward(x, w, dy)[1], dw)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -350,6 +410,9 @@ def test_rope_vjp_is_the_inverse_rotation(dev, dtype):
     (2, 256, 256, 1, 512, True, 0, 0),       # D 512, several tiles of both sides
     (1, 200, 300, 1, 512, True, 0, 17),      # D 512, Sk 300 (not a multiple of 8)
     (1, 136, 136, 2, 264, True, 0, 0),       # D 264: three 128-column slices
+    (2, 40, 40, 2, 12, True, 0, 0),          # D 12, zero-padded to 16
+    (1, 70, 70, 2, 640, True, 0, 0),         # D 640: two 512-column slices
+    (1, 33, 50, 1, 640, True, 0, 9),         # D 640, ragged, kv_offset 9
 ])
 def test_flash_backward_kernels_match_plain(dev, monkeypatch, stash, dtype, b,
                                             sq, sk, h, d, causal, q_off,
@@ -369,7 +432,7 @@ def test_flash_backward_kernels_match_plain(dev, monkeypatch, stash, dtype, b,
     dkv = ("flash_attention_bwd_dkv_stash" if stash
            else "flash_attention_bwd_dkv")
     want_launches = {"flash_attention_bwd_dq": 1, dkv: 1}
-    if dtype == torch.bfloat16:                  # the tensor-core bodies
+    if dtype == torch.bfloat16 and d <= 512:     # the tensor-core bodies
         want_launches[flash.KERNEL_BWD_DQ_WGMMA] = 1
         if stash:
             want_launches[flash.KERNEL_BWD_DKV_STASH_WGMMA] = 1
@@ -383,12 +446,13 @@ def test_flash_backward_kernels_match_plain(dev, monkeypatch, stash, dtype, b,
         _assert_bwd_close(g, w, msg=name)
 
 
-@pytest.mark.parametrize("d", [128, 512])
+@pytest.mark.parametrize("d", [128, 512, 640])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_each_flash_backward_kernel_matches_its_plain_version(dev, dtype, d):
     """dQ with its p/ds stash, dK/dV from that stash, and the recompute
     dK/dV, each against its own plain version, at the training layouts
-    (head_dim 128, and the flagship's 512) with a ragged last tile."""
+    (head_dim 128, and the flagship's 512) with a ragged last tile, and at
+    640 (the column-sliced bodies)."""
     q, k, v, do = (_randn(dev, 2, 200, 2, d, dtype=dtype, seed=10 + i)
                    for i in range(4))
     o, lse = flash.flash_attention(q, k, v, True, return_lse=True)
@@ -536,15 +600,8 @@ def test_backward_kernels_raise_on_inputs_they_do_not_take(dev):
     o, lse = flash.flash_attention(q, q, q, True, return_lse=True)
     with pytest.raises(ValueError):
         flash.flash_attention_backward(q, kv, kv, o, lse, q)
-    q5 = _randn(dev, 1, 16, 1, 520)                 # head_dim above 512
-    lse5 = torch.zeros((1, 1, 16), device=dev)
-    with pytest.raises(ValueError):
-        flash.flash_attention_backward(q5, q5, q5, q5, lse5, q5)
     with pytest.raises(TypeError):                  # dO in another dtype
         flash.flash_attention_backward(q, q, q, o, lse, q.bfloat16())
-    with pytest.raises(ValueError):                 # wider than the kernel
-        x = _randn(dev, 2, 1025)
-        rms.rms_norm_backward(x, torch.ones(1025, device=dev), x)
 
 
 def test_fused_ce_runs_on_the_card(dev):

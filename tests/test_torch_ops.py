@@ -8,6 +8,7 @@ implementations); int8 quantization matches exactly except where a value
 lands on a rounding tie.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -70,6 +71,34 @@ def test_rms_norm_matches_jax_kernel_at_the_port_width(mode):
     assert str(got.dtype).split(".")[-1] == str(want.dtype)
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want.astype(jnp.float32)), **tol)
+
+
+# Widths past the CUDA kernels' register-resident rows (the backward's 1024
+# 16-byte vectors: 8192 bf16 or 4096 f32 columns), which their wide-row
+# bodies take: the plain forward and backward against the JAX package's
+# rms_norm and its autodiff VJP, the XLA formulation that computes these
+# widths there. f32 within TOL; bf16 outputs within one bf16 rounding of
+# f32 values taken in another order (rtol 2^-7), with an atol of 1e-3 of
+# the output's root mean square for entries where cancellation decides the
+# last bits (the backward limits of tests/test_torch_kernels_cuda.py).
+@pytest.mark.parametrize("d,dtype", [(8200, "bfloat16"), (4100, "float32")])
+def test_rms_norm_wide_rows_match_jax(d, dtype):
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    jx = jnp.asarray(_randn(4, d, seed=21, scale=2.0)).astype(jdt)
+    jdy = jnp.asarray(_randn(4, d, seed=23)).astype(jdt)
+    w = 1.0 + _randn(d, seed=22, scale=0.1)
+    want, vjp = jax.vjp(jlayers.rms_norm, jx, jnp.asarray(w))
+    want_dx, want_dw = vjp(jdy)
+    tx, tdy = (torch.from_numpy(np.array(a.astype(jnp.float32))).to(tdt)
+               for a in (jx, jdy))
+    got = trms.rms_norm(tx, torch.from_numpy(w))
+    dx, dw = trms.rms_norm_backward(tx, torch.from_numpy(w), tdy)
+    assert got.dtype == dx.dtype == tdt and dw.dtype == torch.float32
+    for g, wnt in ((got, want), (dx, want_dx), (dw, want_dw)):
+        wnt = np.asarray(wnt.astype(jnp.float32))
+        tol = TOL if g.dtype == torch.float32 else dict(
+            atol=1e-3 * float(np.sqrt(np.mean(wnt * wnt))), rtol=2.0 ** -7)
+        np.testing.assert_allclose(g.float().numpy(), wnt, **tol)
 
 
 def test_rope_frequencies_match():
@@ -159,6 +188,23 @@ def test_flash_plain_matches_jax_attention_reference(sq, sk, kh, causal,
     got = tflash.flash_attention_plain(
         torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
         causal, q_off, kv_off)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("d", [12, 640])
+def test_flash_plain_matches_jax_attention_reference_at_other_head_dims(d):
+    """Head dims the CUDA wrapper pads (12: not a multiple of 8) or slices
+    (640: above 512): the plain version still computes the JAX package's
+    attention_reference."""
+    q = _randn(2, 16, 2, d, seed=17)
+    k = _randn(2, 24, 1, d, seed=18)
+    v = _randn(2, 24, 1, d, seed=19)
+    want = np.asarray(jattn.attention_reference(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
+        q_offset=8, kv_offset=0))
+    got = tflash.flash_attention_plain(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        True, 8, 0)
     np.testing.assert_allclose(got.numpy(), want, **TOL)
 
 

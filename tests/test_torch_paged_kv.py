@@ -165,6 +165,79 @@ def test_paged_decode_plain_matches_jax_kernel_and_gather(kh, g, d):
     np.testing.assert_allclose(got, gather, atol=2e-5, rtol=0)
 
 
+@pytest.mark.parametrize("kh,g,d", [(1, 32, 64), (2, 1, 12), (1, 2, 200),
+                                    (2, 1, 1024)])
+def test_paged_decode_plain_matches_jax_gather_past_the_kernel_gate(kh, g, d):
+    # Shapes the JAX kernel's gate refuses (32 query heads per kv head, head
+    # dims that are not multiples of 128 or above 512): the JAX package
+    # computes them with the XLA gather, and the CUDA kernel takes them.
+    b, nb, mb = 3, 13, 4
+    rng = np.random.default_rng(d + g)
+    kp = rng.standard_normal((nb, BL, kh, d)).astype(np.float32)
+    vp = rng.standard_normal((nb, BL, kh, d)).astype(np.float32)
+    q = rng.standard_normal((b, kh * g, d)).astype(np.float32)
+    table = np.asarray([[5, 3, 12, 1], [2, 11, 7, 9], [6, 0, 0, 0]],
+                       np.int32)
+    pos = np.asarray([29, 8, 0], np.int32)
+    got = tpa.paged_decode_attention(
+        *(torch.from_numpy(x) for x in (q, kp, vp, table, pos)),
+        block_len=BL).numpy()
+    gather = np.asarray(_xla_gather(*(jnp.asarray(x) for x in
+                                      (q, kp, vp, table, pos)), BL))
+    np.testing.assert_allclose(got, gather, atol=2e-5, rtol=0)
+
+
+def _split_partials(q, kp, vp, table, pos, bl, split):
+    """Every split's (acc, (m, l)) of the paged decode function in plain f32
+    torch, as the split kernel writes them: splits of `split` positions, an
+    empty split (no position at or before pos) m = NEG_INF, l = 0 and an acc
+    of NaN, which the combine must never read."""
+    b, h, d = q.shape
+    nb, _, kh, _ = kp.shape
+    span = table.shape[1] * bl
+    j = torch.arange(span)
+    rows = table.long()[:, j // bl] * bl + j % bl
+    kk = kp.reshape(nb * bl, kh, d)[rows].repeat_interleave(h // kh, dim=2)
+    vv = vp.reshape(nb * bl, kh, d)[rows].repeat_interleave(h // kh, dim=2)
+    s = torch.einsum("bhd,bshd->bhs", q, kk) * d ** -0.5
+    n = -(-span // split)
+    acc = torch.full((n, b, h, d), float("nan"))
+    ml = torch.zeros((n, b, h, 2))
+    for i in range(n):
+        for slot in range(b):
+            lo, hi = i * split, min(span, (i + 1) * split, int(pos[slot]) + 1)
+            if hi <= lo:
+                ml[i, slot, :, 0] = NEG_INF
+                continue
+            ss = s[slot, :, lo:hi]
+            m = ss.amax(dim=-1).clamp_min(NEG_INF / 2)
+            p = torch.exp(ss - m[:, None])
+            acc[i, slot] = torch.einsum("hs,shd->hd", p, vv[slot, lo:hi])
+            ml[i, slot, :, 0], ml[i, slot, :, 1] = m, p.sum(dim=-1)
+    return acc, ml
+
+
+@pytest.mark.parametrize("split", [8, 16])
+def test_paged_decode_combine_plain_merges_split_partials(split):
+    # The combine kernel's plain version over the split kernel's partials
+    # (some splits empty, their acc NaN) gives the whole function.
+    b, kh, g, d, nb, mb = 3, 2, 2, 32, 13, 4
+    rng = np.random.default_rng(split)
+    kp, vp = (torch.from_numpy(rng.standard_normal((nb, BL, kh, d))
+                               .astype(np.float32)) for _ in range(2))
+    q = torch.from_numpy(rng.standard_normal((b, kh * g, d))
+                         .astype(np.float32))
+    table = torch.tensor([[5, 3, 12, 1], [2, 11, 7, 9], [6, 0, 0, 0]],
+                         dtype=torch.int32)
+    pos = torch.tensor([29, 8, 0], dtype=torch.int32)
+    acc, ml = _split_partials(q, kp, vp, table, pos, BL, split)
+    assert torch.isnan(acc).any()
+    got = tpa.paged_decode_combine(acc, ml, torch.float32)
+    want = tpa.paged_decode_attention_plain(q, kp, vp, table, pos,
+                                            block_len=BL)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-5, rtol=0)
+
+
 # ---------------------------------------------------------------------------
 # The paged engine against the JAX paged engine
 # ---------------------------------------------------------------------------

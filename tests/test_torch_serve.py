@@ -162,3 +162,48 @@ def test_paged_server_matches_dense_and_reports_kv_cache(paged_server):
     assert kv["blocks_total"] == 2 * 64 // 8
     assert kv["matched_tokens_total"] == 16 and kv["prefix_hit_rate"] > 0
     assert kv["blocks_used"] == kv["blocks_cached"] == 2
+
+
+def _metrics(port):
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/v1/metrics",
+                                timeout=30) as resp:
+        return json.loads(resp.read())["metrics"]
+
+
+def _sampled(port, key):
+    body = {"prompt": [3, 17, 29, 5], "maxNewTokens": 10,
+            "temperature": 1.0, "prngKey": key}
+    with _post(port, body) as resp:
+        reply = json.loads(resp.read())
+    assert reply["status"] == "ok" and len(reply["tokens"]) == 10
+    return reply["tokens"]
+
+
+def test_prng_key_gives_one_sampled_stream_on_both_engines(server,
+                                                           paged_server):
+    streams = {}
+    for name, port in (("dense", server), ("paged", paged_server)):
+        first = _sampled(port, [7, 11])
+        assert _sampled(port, [7, 11]) == first        # the same key, again
+        assert _sampled(port, [8, 11]) != first        # another key
+        streams[name] = first
+    assert streams["dense"] == streams["paged"]
+
+
+@pytest.mark.parametrize("field,value", [
+    ("prngKey", [1, 2, 3]), ("prngKey", "ab"), ("prefixId", 0),
+    ("stopText", ["</s>"]), ("text", "hello"),
+    ("resumeFrom", {"prompt": [1, 2], "committed": [3],
+                    "maxNewTokens": 4})])
+def test_refused_fields_get_a_400_naming_them(server, field, value):
+    before = _metrics(server)
+    body = {"prompt": [1, 2, 3], "maxNewTokens": 4, field: value}
+    if field == "resumeFrom":
+        del body["prompt"]
+    with pytest.raises(urllib.error.HTTPError) as e:
+        _post(server, body)
+    assert e.value.code == 400
+    assert field in json.loads(e.value.read())["error"]
+    after = _metrics(server)
+    assert after["slots_busy"] == 0 and after["queued"] == 0
+    assert after["lifetime"] == before["lifetime"]
