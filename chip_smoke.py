@@ -31,7 +31,14 @@ inits in bf16:
      table walk, so it is not the same function). The embedding gather is
      timed beside `F.embedding` (the gather alone) and the eager
      `table.to(dtype)[ids] * scale` it replaced (`eager_ms`), the relayouts
-     beside `x.transpose(1, 2).contiguous()`. Shapes no main path gives
+     beside `x.transpose(1, 2).contiguous()`. The RoPE kernels read the
+     cos/sin views of the (max_seq, D/2, 2) frequency table in place, as the
+     main paths hand them over, and are held bit for bit, the rotation and
+     its VJP alike; RoPE is also run as a prefill chunk calls it
+     (`attention.apply_rope` on the table, forward and VJP), each call's
+     kernel launches counted by torch.profiler (one each way, else the run
+     fails). The launch floor, a one-element `zero_()` timed as the kernels
+     are, is printed on the kernels line. Shapes no main path gives
      are held to the plain versions too: RMSNorm rows past the
      register-resident layouts, flash forward and backward at head_dim 12
      and 640, paged decode at 32 query heads a kv head and head_dim 1024;
@@ -82,7 +89,8 @@ inits in bf16:
      flagship step of a single microbatch after the timed phases; prints
      the ten device operations with the most self time, the device's idle
      share and the named kernels' device ms in each;
-  5. prints the {"kernels": [...]} line, then the result line
+  5. prints the {"kernels": [...], "launch_floor_ms": ...} line, then the
+     result line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
 Any failed phase exits non-zero before the result line. Without a CUDA card
@@ -395,6 +403,79 @@ def flash_body(flash, dtype, d: int) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def launch_floor_ms(dev) -> float:
+    """Device ms of the least a launch costs: a one-element zero_() on the
+    card, timed as the kernels are (calls captured in one CUDA graph)."""
+    z = torch.empty(1, device=dev)
+    return device_ms(lambda: z.zero_())
+
+
+def device_kernels(fn, tries: int = 3) -> dict:
+    """One call of fn under torch.profiler: how many CUDA kernels it
+    launched, their device ms summed and their names. The window is fenced
+    by a spin kernel (`torch.cuda._sleep`) before and after fn; one in
+    which the profiler did not record both fences is incomplete and is
+    taken again, up to `tries` windows."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            fn()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        spans = [(e.name, (e.time_range.end - e.time_range.start) / 1e3)
+                 for e in prof.events() if e.device_type == DeviceType.CUDA]
+        fences = sum("spin_kernel" in name for name, _ in spans)
+        spans = [(n, ms) for n, ms in spans if "spin_kernel" not in n]
+        if fences == 2:
+            return dict(launches=len(spans),
+                        device_ms=sum(ms for _, ms in spans),
+                        kernels=[name[:80] for name, _ in spans])
+    fail(f"no profiler window recorded both fences in {tries} tries")
+
+
+def main_path_rotation(dev, attn_mod, rope, randn) -> dict:
+    """RoPE as a prefill chunk runs it: `attention.apply_rope` of one
+    chunk's q on the (max_seq, D/2, 2) table at offset 128, forward (no
+    autograd, as serving runs it) and its VJP through autograd. Each call's
+    kernel launches and their device ms come from the profiler (whatever
+    the call launches around the kernel counts); the forward is also timed
+    as the kernels are (CUDA graph), both at their eager rate. Both are
+    held bit for bit to the plain rotation; a call of more than one launch
+    fails."""
+    h = SERVE_DIMS["n_heads"]
+    hd = SERVE_DIMS["d_model"] // h
+    off = PREFILL_LEN
+    freqs = attn_mod.rope_frequencies(hd, SERVE_DIMS["max_seq"], 10000.0, dev)
+    x, g = randn(1, PREFILL_LEN, h, hd), randn(1, PREFILL_LEN, h, hd)
+    fr = freqs[off:off + PREFILL_LEN]
+    c, sn = fr[..., 0], fr[..., 1]
+    xg = x.detach().requires_grad_()
+    y = attn_mod.apply_rope(xg, freqs, off)
+
+    def fwd():
+        return attn_mod.apply_rope(x, freqs, off)
+
+    def vjp():
+        return torch.autograd.grad(y, (xg,), g, retain_graph=True)[0]
+    ok = bool(torch.equal(fwd(), rope.rope_rotate_plain(x, c, sn))
+              and torch.equal(vjp(), rope.rope_rotate_plain(g, c, -sn)))
+    res = dict(call="attention.apply_rope(x, freqs, 128)",
+               shape=[1, PREFILL_LEN, h, hd], dtype="bfloat16", ok=ok,
+               forward=dict(device_kernels(fwd), ms=device_ms(fwd),
+                            wrapper_ms=wrapper_ms(fwd)),
+               vjp=dict(device_kernels(vjp), wrapper_ms=wrapper_ms(vjp)))
+    if not ok:
+        fail(f"apply_rope or its VJP disagrees with the plain rotation: {res}")
+    if res["forward"]["launches"] != 1 or res["vjp"]["launches"] != 1:
+        fail(f"a main-path rotation took more than one launch: {res}")
+    return res
+
+
 def check_kernels(dev, rms, rope, flash, paged, attn_mod) -> dict:
     gen = torch.Generator(device=dev).manual_seed(1)
 
@@ -428,7 +509,9 @@ def check_kernels(dev, rms, rope, flash, paged, attn_mod) -> dict:
                           bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
     out["rms_norm"] = cases
 
-    # RoPE: one prefill chunk's q (offset 0 and 128), and a ragged shape.
+    # RoPE: one prefill chunk's q (offset 0 and 128), and a ragged shape, on
+    # the cos/sin views of the (max_seq, D/2, 2) table the main path hands
+    # the kernel (read in place); bit for bit.
     cases = []
     freqs = attn_mod.rope_frequencies(hd, SERVE_DIMS["max_seq"], 10000.0, dev)
     for shape, offset in (((1, PREFILL_LEN, h, hd), 0),
@@ -438,10 +521,11 @@ def check_kernels(dev, rms, rope, flash, paged, attn_mod) -> dict:
         s, dd = shape[1], shape[3]
         fr = (freqs if dd == hd else attn_mod.rope_frequencies(
             dd, 64, 10000.0, dev))[offset:offset + s]
-        c, sn = fr[..., 0].contiguous(), fr[..., 1].contiguous()
+        c, sn = fr[..., 0], fr[..., 1]
         got = rope.rope_rotate(x, c, sn)
         want = rope.rope_rotate_plain(x, c, sn)
-        ea, er, ok = errors(got, want, BF16_ATOL, BF16_RTOL)
+        ea, er, _ = errors(got, want, BF16_ATOL, BF16_RTOL)
+        ok = bool(torch.equal(got, want))
         bts = 2 * x.numel() * 2 + 2 * c.numel() * 4
         b_ms, b_by = bound(bts, 3.0 * x.numel())
         cases.append(dict(shape=list(shape), offset=offset, dtype="bfloat16",
@@ -452,6 +536,8 @@ def check_kernels(dev, rms, rope, flash, paged, attn_mod) -> dict:
                           plain_ms=device_ms(
                               lambda: rope.rope_rotate_plain(x, c, sn)),
                           bound_ms=b_ms, bound_by=b_by, library_ms=None))
+    cases[0]["main_path_rotation"] = main_path_rotation(dev, attn_mod, rope,
+                                                        randn)
     out["rope"] = cases
 
     # Flash: a prefill chunk against the static 256-row cache, at q_offset 0
@@ -767,26 +853,29 @@ def check_train_kernels(dev, rms, rope, flash, attn_mod, out: dict) -> dict:
         del x, dy, dx, want_dx
     out["rms_norm_bwd"] = cases
 
-    # RoPE VJP: the same kernel with -sin, at the trainer's q shape.
+    # RoPE VJP: the same kernel with -sin (its sign flag), at the trainer's
+    # q shape, on the in-place views of the table; bit for bit.
     freqs = attn_mod.rope_frequencies(hd, s, 10000.0, dev)
-    c, sn = freqs[..., 0].contiguous(), freqs[..., 1].contiguous()
+    c, sn = freqs[..., 0], freqs[..., 1]
     neg = -sn
     for dt in (bf16, f32):
         x = randn(b, s, h, hd, dtype=dt).requires_grad_()
         g = randn(b, s, h, hd, dtype=dt)
         (got,) = torch.autograd.grad(rope.rope_rotate(x, c, sn), (x,), g)
         want = rope.rope_rotate_plain(g, c, neg)
-        ea, er, ok = bwd_errors(got, want)
+        ea, er, _ = bwd_errors(got, want)
+        ok = bool(torch.equal(got, want))
         b_ms, b_by = bound(2 * g.numel() * g.element_size()
                            + 2 * c.numel() * 4, 3.0 * g.numel(), dt)
         it = dict(iters=10, replays=3)
+
+        def vjp():
+            return rope.rope_rotate_forward(g, c, sn, inverse=True)
         out["rope"].append(dict(
             case="train_vjp", shape=list(g.shape), offset=0,
             dtype=str(dt).split(".")[-1], max_abs_err=ea, max_rel_err=er,
-            ok=ok, ms=device_ms(lambda: rope.rope_rotate_forward(g, c, neg),
-                                **it),
-            wrapper_ms=wrapper_ms(lambda: rope.rope_rotate_forward(g, c, neg),
-                                  iters=10),
+            ok=ok, ms=device_ms(vjp, **it),
+            wrapper_ms=wrapper_ms(vjp, iters=10),
             plain_ms=device_ms(lambda: rope.rope_rotate_plain(g, c, neg),
                                **it),
             bound_ms=b_ms, bound_by=b_by, library_ms=None))
@@ -966,7 +1055,7 @@ def check_flagship_kernels(dev, rope, fused_ce, attn_mod, out: dict) -> dict:
             ("flagship_f32", (FLAGSHIP_MICRO, seq, 4, 512), f32),
             ("ragged", (3, 5, 2, 24), bf16)):
         fr = attn_mod.rope_frequencies(dd, ss, 10000.0, dev)
-        c, sn = fr[..., 0].contiguous(), fr[..., 1].contiguous()
+        c, sn = fr[..., 0], fr[..., 1]         # read in place, as on the path
         x = randn(bb, ss, hh, dd, dtype=dt)
         g = randn(bb * hh, ss, dd, dtype=dt)
         es = x.element_size()
@@ -1174,6 +1263,12 @@ def check_embed_relayout_kernels(dev, embed, relayout, out: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def _rope_plain(rope):
+    def plain(x, cos, sin, inverse=False):
+        return rope.rope_rotate_plain(x, cos, -sin if inverse else sin)
+    return plain
+
+
 def _rope_t_plain(rope):
     def plain(x, cos, sin, heads, to_flat):
         return (rope.rope_rotate_t_plain(x, cos, sin) if to_flat
@@ -1196,7 +1291,7 @@ def plain_versions(rms, rope, flash):
              (relayout, "_relayout_cuda", relayout_plain),
              (rms, "_rms_norm_cuda", rms.rms_norm_plain),
              (rms, "_rms_norm_backward_cuda", rms.rms_norm_backward_plain),
-             (rope, "_rope_rotate_cuda", rope.rope_rotate_plain),
+             (rope, "_rope_rotate_cuda", _rope_plain(rope)),
              (rope, "_rope_t_cuda", _rope_t_plain(rope)),
              (flash, "_flash_attention_cuda", flash.flash_attention_plain),
              (flash, "_flash_attention_backward_cuda",
@@ -2035,7 +2130,8 @@ def main() -> int:
                    for k in (fused_ce.KERNEL_FWD, fused_ce.KERNEL_BWD)
                    for dt in (torch.bfloat16, torch.float32)]}}), flush=True)
     results = {"kernels": check_kernels(dev, rms, rope, flash, paged,
-                                        attn_mod)}
+                                        attn_mod),
+               "launch_floor_ms": launch_floor_ms(dev)}
     check_train_kernels(dev, rms, rope, flash, attn_mod, results["kernels"])
     check_flagship_kernels(dev, rope, fused_ce, attn_mod, results["kernels"])
     check_embed_relayout_kernels(dev, embed, relayout, results["kernels"])
@@ -2172,15 +2268,17 @@ def main() -> int:
             extra["wgmma_launches"] = sum(
                 results[phase]["launches"].get(WGMMA_COUNTERS[name], 0)
                 for phase in paths[name])
-        for k in ("body", "instance", "dynamic_smem_bytes"):
+        for k in ("body", "instance", "dynamic_smem_bytes",
+                  "main_path_rotation"):
             if k in main:
                 extra[k] = main[k]
-        exact = name.startswith(("rope_t", "embed", "relayout"))
+        exact = name.startswith(("rope", "embed", "relayout"))
         tolerance = (ce_tol[name] if name in ce_tol else
+                     {"forward": "bit for bit", "vjp": "bit for bit"}
+                     if name == "rope" else
                      {"forward": "bit for bit"} if exact
                      else {"backward": bwd_tol} if "bwd" in name else
-                     {"forward": fwd_tol, "vjp": bwd_tol} if name == "rope"
-                     else {"forward": fwd_tol})
+                     {"forward": fwd_tol})
         entries.append(dict(
             name=name, route="cuda", source=port + source,
             replaces=ref + replaces, launches=main_path_launches[name],
@@ -2190,7 +2288,9 @@ def main() -> int:
             bound_ms=main["bound_ms"], bound_by=main["bound_by"],
             library_ms=main["library_ms"], **extra, shape=main["shape"],
             cases=cases))
-    print(json.dumps({"kernels": entries}), flush=True)
+    print(json.dumps({"kernels": entries,
+                      "launch_floor_ms": results["launch_floor_ms"]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -55,6 +55,33 @@ __device__ __forceinline__ void store_vec(T* p, const Vec<T, N>& v) {
   *reinterpret_cast<Vec<T, N>*>(p) = v;
 }
 
+// Cache hints for data a kernel touches once, for 16-byte vectors (other
+// sizes take the plain access). load_once: read-only, not kept in L1, and
+// L2 asked to fetch the 256-byte block around the address. store_once:
+// evict-first in L2 (st.global.cs), for output nothing reads back before
+// the next kernel.
+template <typename T, int N>
+__device__ __forceinline__ Vec<T, N> load_once(const T* p) {
+  if constexpr (sizeof(Vec<T, N>) == 16) {
+    uint4 r;
+    asm("ld.global.nc.L1::no_allocate.L2::256B.v4.u32 {%0, %1, %2, %3}, [%4];"
+        : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w)
+        : "l"(p));
+    return *reinterpret_cast<const Vec<T, N>*>(&r);
+  } else {
+    return load_vec<T, N>(p);
+  }
+}
+
+template <typename T, int N>
+__device__ __forceinline__ void store_once(T* p, const Vec<T, N>& v) {
+  if constexpr (sizeof(Vec<T, N>) == 16) {
+    __stcs(reinterpret_cast<uint4*>(p), *reinterpret_cast<const uint4*>(&v));
+  } else {
+    store_vec<T, N>(p, v);
+  }
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

@@ -63,7 +63,7 @@ def apply_rope(x: torch.Tensor, freqs: torch.Tensor,
                position_offset: int = 0) -> torch.Tensor:
     """x: (B, S, H, D); freqs: (max_seq, D/2, 2) from rope_frequencies.
     Rotate-half pairs (i, i + D/2), through the RoPE kernel on the card.
-    The offset clamps to [0, max_seq - S] like the JAX dynamic slice."""
+    The offset is taken as the JAX dynamic slice takes it (`_tables`)."""
     cos, sin = _tables(freqs, x.shape[1], position_offset)
     return rope_rotate(x, cos, sin)
 
@@ -78,8 +78,13 @@ def apply_rope_t(x: torch.Tensor, freqs: torch.Tensor,
 
 
 def _tables(freqs: torch.Tensor, s: int, position_offset: int):
-    """The (S, D/2) cos and sin rows at the offset, clamped to [0,
-    max_seq - S] like the JAX dynamic slice."""
-    start = max(0, min(int(position_offset), freqs.shape[0] - s))
+    """The (S, D/2) cos and sin rows at the offset, which, like the JAX
+    dynamic slice's start, wraps once by max_seq if negative and is then
+    clamped to [0, max_seq - S]: views of `freqs` (element stride 2), which
+    the RoPE kernels read in place."""
+    start = int(position_offset)
+    if start < 0:
+        start += freqs.shape[0]
+    start = max(0, min(start, freqs.shape[0] - s))
     fr = freqs[start:start + s]
-    return fr[..., 0].contiguous(), fr[..., 1].contiguous()
+    return fr[..., 0], fr[..., 1]

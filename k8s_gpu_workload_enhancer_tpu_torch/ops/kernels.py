@@ -44,8 +44,10 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "rms": {"ktwe_rms_norm_fwd": [_P, _P, _P, _LL, _I, _F, _I, _I, _I, _P],
             "ktwe_rms_norm_bwd": [_P, _P, _P, _P, _P, _P, _LL, _I, _F, _I, _I,
                                   _I, _I, _P]},
-    "rope": {"ktwe_rope_fwd": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _P],
-             "ktwe_rope_t": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _P]},
+    "rope": {"ktwe_rope_fwd": [_P] * 4 + [_LL, _I, _I, _I] + [_LL] * 4
+             + [_I, _I, _I, _P],
+             "ktwe_rope_t": [_P] * 4 + [_LL, _I, _I, _I] + [_LL] * 4
+             + [_I, _I, _I, _P]},
     "flash_attention": {"ktwe_flash_attention_fwd": [
         _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _LL, _LL, _F, _I,
         _I, _P], "ktwe_flash_attention_smem": [_I, _I]},

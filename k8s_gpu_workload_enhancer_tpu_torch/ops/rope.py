@@ -11,7 +11,11 @@ csrc/rope.cu; its source note says what bounds them on the card and how
 the design answers that.
 
 Each entry launches its kernel for a CUDA tensor and takes the plain
-version only for a tensor on the CPU. The kernels take any even head_dim.
+version only for a tensor on the CPU. The kernels take any even head_dim,
+and (S, D/2) f32 tables of any strides: contiguous ones, or the cos and
+sin views of the model's (max_seq, D/2, 2) frequency table, which they
+read in place (`ops/attention._tables`), so a rotation is one launch
+forward and one backward.
 """
 
 from __future__ import annotations
@@ -65,32 +69,35 @@ def rope_rotate_t_inv_plain(g: torch.Tensor, cos: torch.Tensor,
     return rope_rotate_plain(g4, cos, -sin).contiguous()
 
 
-def _check_tables(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
-                  s: int, d: int, what: str) -> None:
+def _table_args(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                s: int, d: int, what: str) -> tuple:
+    """The tables' addresses and strides as the kernels take them (cos,
+    sin, then each one's row and element stride in floats)."""
     for name, t in (("cos", cos), ("sin", sin)):
         if (t.device != x.device or t.dtype != torch.float32
-                or not t.is_contiguous() or t.shape != (s, d // 2)):
-            raise ValueError(f"{what} {name} must be contiguous f32 "
-                             f"({s}, {d // 2}) on x's device, got "
-                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+                or t.shape != (s, d // 2)):
+            raise ValueError(f"{what} {name} must be f32 ({s}, {d // 2}) on "
+                             f"x's device, got {t.dtype} {tuple(t.shape)} "
+                             f"on {t.device}")
+    return (cos.data_ptr(), sin.data_ptr(), *cos.stride(), *sin.stride())
 
 
-def _rope_rotate_cuda(x: torch.Tensor, cos: torch.Tensor,
-                      sin: torch.Tensor) -> torch.Tensor:
+def _rope_rotate_cuda(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                      inverse: bool = False) -> torch.Tensor:
     kernels.require(x, "rope x")
     if x.dim() != 4 or x.shape[-1] % 2:
         raise ValueError(f"rope x must be (B, S, H, D) with even D, got "
                          f"{tuple(x.shape)}")
     b, s, h, d = x.shape
-    _check_tables(x, cos, sin, s, d, "rope")
+    c_ptr, s_ptr, *strides = _table_args(x, cos, sin, s, d, "rope")
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
     lib = kernels.library("rope")
     code = lib.ktwe_rope_fwd(
-        x.data_ptr(), cos.data_ptr(), sin.data_ptr(), out.data_ptr(), b, s, h,
-        d // 2, kernels.DTYPE_CODES[x.dtype], x.device.index or 0,
-        kernels.stream_handle(x))
+        x.data_ptr(), c_ptr, s_ptr, out.data_ptr(), b, s, h, d // 2,
+        *strides, int(inverse), kernels.DTYPE_CODES[x.dtype],
+        x.device.index or 0, kernels.stream_handle(x))
     kernels.check(lib, KERNEL, code)
     kernels.launches[KERNEL] += 1
     return out
@@ -116,13 +123,13 @@ def _rope_t_cuda(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
             raise ValueError(f"{name}: heads {h} must divide {bh}")
         b = bh // h
         out = torch.empty((b, s, h, d), dtype=x.dtype, device=x.device)
-    _check_tables(x, cos, sin, s, d, name)
+    c_ptr, s_ptr, *strides = _table_args(x, cos, sin, s, d, name)
     if x.numel() == 0:
         return out
     lib = kernels.library("rope")
     code = lib.ktwe_rope_t(
-        x.data_ptr(), cos.data_ptr(), sin.data_ptr(), out.data_ptr(), b, s, h,
-        d // 2, int(to_flat), kernels.DTYPE_CODES[x.dtype],
+        x.data_ptr(), c_ptr, s_ptr, out.data_ptr(), b, s, h, d // 2,
+        *strides, int(to_flat), kernels.DTYPE_CODES[x.dtype],
         x.device.index or 0, kernels.stream_handle(x))
     kernels.check(lib, name, code)
     kernels.launches[name] += 1
@@ -147,16 +154,19 @@ def rope_rotate_t_inverse(g: torch.Tensor, cos: torch.Tensor,
 
 
 def rope_rotate_forward(x: torch.Tensor, cos: torch.Tensor,
-                        sin: torch.Tensor) -> torch.Tensor:
-    """The kernel (plain version for a CPU tensor), no autograd."""
+                        sin: torch.Tensor,
+                        inverse: bool = False) -> torch.Tensor:
+    """The kernel (plain version for a CPU tensor), no autograd; with
+    `inverse`, the rotation by -sin (the kernel negates sin as it reads
+    it)."""
     if x.device.type == "cpu":
-        return rope_rotate_plain(x, cos, sin)
-    return _rope_rotate_cuda(x, cos, sin)
+        return rope_rotate_plain(x, cos, -sin if inverse else sin)
+    return _rope_rotate_cuda(x, cos, sin, inverse)
 
 
 class _RopeRotate(torch.autograd.Function):
     """Residuals are the tables only; the cotangent is rotated back by the
-    same kernel with -sin (rope_pallas.py:82-85)."""
+    same kernel with -sin (rope_pallas.py:82-85), one launch."""
 
     @staticmethod
     def forward(ctx, x, cos, sin):
@@ -166,7 +176,8 @@ class _RopeRotate(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         cos, sin = ctx.saved_tensors
-        return rope_rotate_forward(g.contiguous(), cos, -sin), None, None
+        return (rope_rotate_forward(g.contiguous(), cos, sin, inverse=True),
+                None, None)
 
 
 def rope_rotate(x: torch.Tensor, cos: torch.Tensor,

@@ -651,6 +651,126 @@ def test_rope_t_kernels_match_plain(dev, dtype, shape):
     assert torch.equal(dx, back)
 
 
+def _table_views(dev, d, max_seq, start, s):
+    """The (S, D/2) cos and sin of the model's (max_seq, D/2, 2) table at
+    `start`, three ways: the in-place views (element stride 2, sin one
+    float past cos), contiguous copies, and views of element stride 3 (the
+    kernels' any-stride read)."""
+    freqs = attention.rope_frequencies(d, max_seq, device=dev)
+    fr = freqs[start:start + s]
+    wide = torch.zeros((s, d // 2, 3), device=dev)
+    wide[..., :2] = fr
+    return {"in_place": (fr[..., 0], fr[..., 1]),
+            "contiguous": (fr[..., 0].contiguous(), fr[..., 1].contiguous()),
+            "stride_3": (wide[..., 0], wide[..., 1])}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,start", [((1, 128, 4, 512), 0),
+                                         ((1, 128, 4, 512), 128),
+                                         ((2, 64, 16, 128), 3),
+                                         ((2, 7, 3, 24), 5), ((1, 1, 2, 2), 9)])
+def test_rope_reads_strided_tables_bit_for_bit(dev, dtype, shape, start):
+    """The rotation and its inverse (the sign flag) on the table read in
+    place, on contiguous tables and through any strides: each bit for bit
+    with the plain version, one launch a call; then the t-layout pair on the
+    same tables, bit for bit."""
+    b, s, h, d = shape
+    x = _randn(dev, *shape, dtype=dtype)
+    g = _randn(dev, b * h, s, d, dtype=dtype, seed=1)
+    for name, (c, sn) in _table_views(dev, d, 256, start, s).items():
+        kernels.reset_launches()
+        fwd = rope.rope_rotate_forward(x, c, sn)
+        inv = rope.rope_rotate_forward(x, c, sn, inverse=True)
+        xt = rope.rope_rotate_t_forward(x, c, sn)
+        back = rope.rope_rotate_t_inverse(g, c, sn, h)
+        torch.cuda.synchronize()
+        assert dict(kernels.launches) == {"rope": 2, "rope_t": 1,
+                                          "rope_t_inv": 1}, name
+        assert torch.equal(fwd, rope.rope_rotate_plain(x, c, sn)), name
+        assert torch.equal(inv, rope.rope_rotate_plain(x, c, -sn)), name
+        assert torch.equal(xt, rope.rope_rotate_t_plain(x, c, sn)), name
+        assert torch.equal(back, rope.rope_rotate_t_inv_plain(g, c, sn, h)), \
+            name
+
+
+def _device_kernels(fn, tries: int = 3) -> int:
+    """CUDA kernels one call of fn launches (torch.profiler). The window is
+    fenced by a spin kernel before and after fn; one in which the profiler
+    did not record both fences is incomplete and is taken again."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            fn()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        fences = sum("spin_kernel" in n for n in names)
+        if fences == 2:
+            return len(names) - fences
+    raise AssertionError(f"no profiler window recorded both fences in "
+                         f"{tries} tries")
+
+
+@pytest.mark.parametrize("t_layout", [False, True])
+def test_main_path_rotation_is_one_launch_each_way(dev, t_layout):
+    """`apply_rope` / `apply_rope_t` on the model's table, as the model
+    calls them: one kernel forward and one backward, no copy of the table
+    and no -sin; the gradient is the plain inverse rotation's bit for
+    bit."""
+    b, s, h, d = (1, 128, 4, 512)
+    freqs = attention.rope_frequencies(d, 256, device=dev)
+    x = _randn(dev, b, s, h, d, dtype=torch.bfloat16).requires_grad_()
+    fn = attention.apply_rope_t if t_layout else attention.apply_rope
+    y = fn(x, freqs, 64)
+    g = _randn(dev, *y.shape, dtype=torch.bfloat16, seed=1)
+    with torch.no_grad():
+        assert _device_kernels(lambda: fn(x, freqs, 64)) == 1
+    assert _device_kernels(lambda: torch.autograd.grad(
+        y, (x,), g, retain_graph=True)) == 1
+    (dx,) = torch.autograd.grad(y, (x,), g)
+    c, sn = freqs[64:64 + s, :, 0], freqs[64:64 + s, :, 1]
+    want = (rope.rope_rotate_t_inv_plain(g, c, sn, h) if t_layout
+            else rope.rope_rotate_plain(g, c, -sn))
+    assert torch.equal(dx, want)
+
+
+@pytest.mark.parametrize("table_dtype,out_dtype,round_rows", [
+    (torch.bfloat16, torch.bfloat16, True),
+    (torch.float32, torch.bfloat16, True),
+    (torch.float32, torch.float32, False)])
+@pytest.mark.parametrize("n", [1, 8, 128, 16384])
+@pytest.mark.parametrize("d", [2048, 1004, 1001])
+def test_embed_gather_at_every_grid_bit_for_bit(dev, table_dtype, out_dtype,
+                                                round_rows, n, d):
+    """The gather's launch shapes (one wave of small blocks at 1, 8 and 128
+    ids, two vectors a thread at 16384), at a width that is a multiple of
+    the vector (2048), of 4 but not 8 elements (1004: bf16 moves one element
+    a vector, an f32 table four) and of neither (1001); ids 0, V - 1, -1, V
+    and wild ones, through 1-d int32 ids and a strided 2-d int64 view."""
+    v = 32768
+    table = (0.02 * _randn(dev, v, d)).to(table_dtype)
+    g = torch.Generator(device=dev).manual_seed(n)
+    cols = min(n, 128)
+    base = torch.randint(-2 * v, 2 * v, (n // cols, cols + 1), device=dev,
+                         generator=g)
+    base.view(-1)[:4] = torch.tensor([0, v - 1, -1, v], device=dev)[
+        :base.numel()]
+    for ids in (base[:, :-1].reshape(-1).to(torch.int32), base[:, :-1]):
+        kernels.reset_launches()
+        got = embed.embed_gather(table, ids, 45.25, out_dtype, round_rows)
+        torch.cuda.synchronize()
+        assert dict(kernels.launches) == {"embed_gather": 1}
+        assert torch.equal(got, embed.embed_gather_plain(
+            table, ids, 45.25, out_dtype, round_rows))
+
+
 def _ce_inputs(dev, dtype, n, d, v, seed=0):
     h2 = _randn(dev, n, d, dtype=dtype, seed=seed)
     head = (0.05 * _randn(dev, d, v, seed=seed + 1)).to(dtype)
