@@ -53,7 +53,20 @@ inits in bf16:
      tokens sharing a 128-token prefix plus one cold request of 160, after
      a warm-up that published the prefix, so 8 of the 9 start from pool
      pages; the paged serve main answering two requests that share a
-     128-token prefix; the trainer main in-process, 4 steps at batch 8
+     128-token prefix; the checkpoint phase (the trainer main at the serve
+     dims, seq 256, batch 8, on a token shard written from a seed: 3 steps
+     straight against 2, a save and a resumed third step, held bit for
+     bit in loss, grad norm, params, both Adam moments, count and step; a
+     SIGTERM drain that leaves the drained step's checkpoint and
+     drain-complete.json; the dense and the paged serve main from
+     --checkpoint-dir answering greedy requests exactly as an in-process
+     engine on the same checkpoint, a /v1/admin/reload to a later step
+     answering as the new weights, one of another model's checkpoint
+     answering 409 and changing nothing, no page leaked; it prints the
+     checkpoint's bytes, save and restore seconds, the serve load's peak
+     device memory, the swap pause and the step ms on the shard against
+     synthetic data; checkpoints live in a temporary directory, at most
+     two full ones at a time); the trainer main in-process, 4 steps at batch 8
      (the p/ds stash is over its gate, so dK/dV are recomputed) and 2 at
      batch 4 (the stash path); and the flagship configuration through
      train.trainer.train_loop, cut to batch 32 (grad_accum 4 instead of
@@ -106,11 +119,16 @@ import dataclasses
 import gc
 import io
 import json
+import os
 import re
+import shutil
+import signal
 import subprocess
 import sys
+import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -135,6 +153,12 @@ KV_BLOCK_LEN, SHARED_PREFIX, SUFFIX = 16, 128, 32
 TRAIN_DIMS = dict(vocab_size=32768, d_model=2048, n_layers=8, n_heads=16,
                   d_ff=8192, seq_len=2048)
 TRAIN_BATCH, STASH_BATCH, TRAIN_STEPS, STASH_STEPS = 8, 4, 4, 2
+# The checkpoint phase: the trainer main at the serve dims (4 heads of 512:
+# the t-layout path), seq 256 (the serve max_seq), batch 8 (the p/ds stash
+# is 8.4 MB a layer, under its gate), on a token shard of 48 windows; the
+# serve mains answer greedy requests of 16 new tokens.
+CKPT_BATCH, CKPT_WINDOWS, CKPT_NEW_TOKENS = 8, 48, 16
+CKPT_HEAD_DIM = SERVE_DIMS["d_model"] // SERVE_DIMS["n_heads"]
 # The f32 gate: full width, 2 layers, batch 2, seq 512.
 GATE_DIMS = dict(vocab_size=32768, d_model=2048, n_layers=2, n_heads=16,
                  n_kv_heads=16, d_ff=8192, max_seq=512)
@@ -1673,7 +1697,7 @@ def run_serve(serve, kernels, paged: bool = False) -> dict:
 
 def per_step_launches(n_layers: int, stash: bool, flagship: bool = False,
                       microbatches: int = 1, bf16: bool = True,
-                      head_dim: int = 128) -> dict:
+                      head_dim: int = 128, fused_ce: bool = None) -> dict:
     """Kernel launches of one train step of the dense model: per microbatch
     one embedding gather, 2L+1 norms forward and backward, q and k rotated
     forward and back, L flash forward (in bf16 every one on the
@@ -1685,7 +1709,10 @@ def per_step_launches(n_layers: int, stash: bool, flagship: bool = False,
     are the t-layout pair (2L each way), v and the attention output pass
     the relayout pair (L each way forward, L each way back: 2L each) and
     the loss is one fused CE forward and backward (in bf16 both on their
-    tensor-core bodies, in f32 neither); elsewhere 4L RoPE launches."""
+    tensor-core bodies, in f32 neither; `fused_ce` False for a t-layout
+    model without the cached-logits CE, whose loss is plain torch);
+    elsewhere 4L RoPE launches."""
+    fused_ce = flagship if fused_ce is None else fused_ce
     want = {"embed_gather": 1,
             "rms_norm": 2 * n_layers + 1, "rms_norm_bwd": 2 * n_layers + 1,
             "flash_attention": n_layers, "flash_attention_bwd_dq": n_layers,
@@ -1700,13 +1727,31 @@ def per_step_launches(n_layers: int, stash: bool, flagship: bool = False,
             want["flash_attention_bwd_dkv_wgmma"] = n_layers
     if flagship:
         want.update(rope_t=2 * n_layers, rope_t_inv=2 * n_layers,
-                    relayout_to_t=2 * n_layers, relayout_from_t=2 * n_layers,
-                    fused_ce_fwd=1, fused_ce_bwd=1)
-        if bf16:
-            want.update(fused_ce_fwd_wgmma=1, fused_ce_bwd_wgmma=1)
+                    relayout_to_t=2 * n_layers, relayout_from_t=2 * n_layers)
     else:
         want["rope"] = 4 * n_layers
+    if fused_ce:
+        want.update(fused_ce_fwd=1, fused_ce_bwd=1)
+        if bf16:
+            want.update(fused_ce_fwd_wgmma=1, fused_ce_bwd_wgmma=1)
     return {k: n * microbatches for k, n in want.items()}
+
+
+def step_launches(snaps: list, launches: dict, want: dict, what: str) -> list:
+    """Per-step launch deltas from the counter snapshots taken after each
+    step; fails unless every step launched exactly `want` and nothing
+    launched outside the steps."""
+    prev, per_step = {}, []
+    for snap in snaps:
+        delta = {k: n - prev.get(k, 0) for k, n in snap.items()
+                 if n - prev.get(k, 0)}
+        per_step.append(delta)
+        prev = snap
+        if delta != want:
+            fail(f"{what} step launched {delta}, want {want}")
+    if not snaps or launches != snaps[-1]:
+        fail(f"{what} launched kernels outside its steps: {launches}")
+    return per_step
 
 
 def leaf_names(tree, prefix=""):
@@ -1818,18 +1863,8 @@ def run_trainer(trainer_cli, kernels, batch: int, steps: int,
              f"{buf.getvalue()[-2000:]}")
     want = per_step_launches(TRAIN_DIMS["n_layers"], stash, head_dim=TRAIN_DIMS[
         "d_model"] // TRAIN_DIMS["n_heads"])
-    prev = {}
-    per_step = []
-    for snap in snaps:
-        delta = {k: n - prev.get(k, 0) for k, n in snap.items()
-                 if n - prev.get(k, 0)}
-        per_step.append(delta)
-        prev = snap
-        if delta != want:
-            fail(f"trainer step launched {delta}, want {want} "
-                 f"(batch {batch})")
-    if launches != snaps[-1]:
-        fail("the trainer launched kernels outside its steps")
+    per_step = step_launches(snaps, launches, want,
+                             f"trainer (batch {batch})")
     if not all(np.isfinite(losses)) or not all(np.isfinite(gnorms)):
         fail(f"trainer losses {losses} or grad norms {gnorms} not finite")
     return dict(config=dict(TRAIN_DIMS, batch=batch, dtype="bfloat16"),
@@ -1879,16 +1914,9 @@ def run_flagship(kernels, trainer, flagship) -> dict:
     want = per_step_launches(model_cfg.n_layers, stash=True, flagship=True,
                              microbatches=FLAGSHIP_ACCUM,
                              head_dim=model_cfg.d_model // model_cfg.n_heads)
-    prev, per_step = {}, []
-    for snap in snaps:
-        delta = {k: n - prev.get(k, 0) for k, n in snap.items()
-                 if n - prev.get(k, 0)}
-        per_step.append(delta)
-        prev = snap
-        if delta != want:
-            fail(f"flagship step launched {delta}, want {want}")
-    if len(snaps) != FLAGSHIP_STEPS or launches != snaps[-1]:
-        fail("the flagship run launched kernels outside its steps")
+    per_step = step_launches(snaps, launches, want, "flagship")
+    if len(snaps) != FLAGSHIP_STEPS:
+        fail(f"the flagship ran {len(snaps)} steps, want {FLAGSHIP_STEPS}")
     if not all(np.isfinite(losses)) or not all(np.isfinite(gnorms)):
         fail(f"flagship losses {losses} or grad norms {gnorms} not finite")
     return dict(config=dict(model=dict(
@@ -1909,6 +1937,376 @@ def run_flagship(kernels, trainer, flagship) -> dict:
                 / 1e9, freed_by_gc_collect_gb=freed_gb,
                 losses=losses, grad_norms=gnorms,
                 launches_per_step=per_step[0], launches=launches)
+
+
+# ---------------------------------------------------------------------------
+# Phase 5b: checkpoints in and out
+# ---------------------------------------------------------------------------
+
+
+def ckpt_trainer_argv(shard: str, steps: int, ckpt: str = "",
+                      resume: bool = False) -> list:
+    """The trainer main at the serve dims (the model the serve main then
+    loads), seq 256 (the serve max_seq), batch 8, on the token shard."""
+    d = SERVE_DIMS
+    argv = ["--device", "cuda", "--vocab-size", str(d["vocab_size"]),
+            "--d-model", str(d["d_model"]), "--n-layers", str(d["n_layers"]),
+            "--n-heads", str(d["n_heads"]), "--d-ff", str(d["d_ff"]),
+            "--seq-len", str(d["max_seq"]), "--batch-size", str(CKPT_BATCH),
+            "--seed", "0", "--steps", str(steps)]
+    if shard:
+        argv += ["--data-file", shard]
+    if ckpt:
+        argv += ["--checkpoint-dir", ckpt]
+    if resume:
+        argv += ["--resume"]
+    return argv
+
+
+def run_ckpt_trainer(trainer_cli, kernels, argv, on_step=None) -> dict:
+    """One trainer main run with the launch counters set to 0 just before
+    it; every step must launch exactly the t-layout path's kernels (head_dim
+    512, the p/ds stash, plain-torch CE) and nothing may launch outside the
+    steps."""
+    snaps, idx, losses, gnorms = [], [], [], []
+
+    def cb(i, metrics):
+        snaps.append(dict(kernels.launches))
+        idx.append(i)
+        losses.append(float(metrics["loss"]))
+        gnorms.append(float(metrics["grad_norm"]))
+        if on_step is not None:
+            on_step(i)
+    buf = io.StringIO()
+    kernels.reset_launches()
+    with contextlib.redirect_stdout(buf):
+        rc = trainer_cli.main(argv, callback=cb)
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    if rc != 0:
+        fail(f"trainer main {argv} exited {rc}")
+    want = per_step_launches(SERVE_DIMS["n_layers"], stash=True,
+                             flagship=True, fused_ce=False,
+                             head_dim=CKPT_HEAD_DIM)
+    step_launches(snaps, launches, want, f"checkpoint trainer {argv}")
+    if not all(np.isfinite(losses)) or not all(np.isfinite(gnorms)):
+        fail(f"checkpoint trainer losses {losses} or grad norms {gnorms}")
+    text = buf.getvalue()
+    lines = [json.loads(x) for x in text.splitlines() if x.startswith("{")]
+    return dict(steps=idx, losses=losses, grad_norms=gnorms,
+                launches=launches, last=lines[-1] if lines else {},
+                text=text)
+
+
+def equal_checkpoints(a: str, b: str) -> dict:
+    """Two checkpoint files, bit for bit: step, count and every tensor of
+    params, mu and nu (bitwise, NaN patterns included)."""
+    x = torch.load(a, map_location="cpu", weights_only=True, mmap=True)
+    y = torch.load(b, map_location="cpu", weights_only=True, mmap=True)
+    diffs = []
+    if x["step"] != y["step"] or (x["opt_state"]["count"]
+                                  != y["opt_state"]["count"]):
+        diffs.append(f"step/count {x['step']}/{x['opt_state']['count']} vs "
+                     f"{y['step']}/{y['opt_state']['count']}")
+    for part, tx, ty in (("params", x["params"], y["params"]),
+                         ("mu", x["opt_state"]["mu"], y["opt_state"]["mu"]),
+                         ("nu", x["opt_state"]["nu"], y["opt_state"]["nu"])):
+        for name, u, v in zip(leaf_names(tx), _leaves(tx), _leaves(ty)):
+            if not torch.equal(u.view(torch.int32), v.view(torch.int32)):
+                n = int((u.view(torch.int32) != v.view(torch.int32)).sum())
+                diffs.append(f"{part}{name}: {n} of {u.numel()} differ")
+    return dict(step=x["step"], count=x["opt_state"]["count"],
+                leaves=3 * len(_leaves(x["params"])), diffs=diffs)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    return [tree]
+
+
+def post_json(port: int, path: str, body: dict, timeout: float = 300):
+    """(status, reply) of a POST; an HTTP error's status and JSON body."""
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"}, method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def get_metrics(port: int) -> dict:
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/v1/metrics",
+                                timeout=60) as resp:
+        return json.loads(resp.read())["metrics"]
+
+
+def reference_tokens(serve, argv, params, prompts) -> list:
+    """Greedy tokens of an in-process engine built as the serve main builds
+    its own (same flags) on `params`, the prompts one after another."""
+    eng = serve.make_engine(serve.build_parser().parse_args(argv), params)
+    out = []
+    for prompt in prompts:
+        rid = eng.submit(prompt, CKPT_NEW_TOKENS)
+        eng.run()
+        out.append(eng.result(rid).tokens)
+    del eng
+    return out
+
+
+def ckpt_serve(serve, kernels, argv, prompts, later_dir, other_dir,
+               want_before, want_after) -> dict:
+    """The serve main from --checkpoint-dir: the prompts answer as the
+    reference engine on the checkpoint; a reload to `later_dir` answers
+    200 with its step, then the prompts answer as the new weights; a
+    reload of another model's checkpoint answers 409 and changes nothing.
+    Paged: the prompts share a prefix, and no page is leaked."""
+    stop, ready, got_port, rc = threading.Event(), {}, threading.Event(), {}
+
+    def on_ready(port):
+        ready["port"] = port
+        got_port.set()
+    buf = io.StringIO()
+    kernels.reset_launches()
+    th = threading.Thread(target=lambda: rc.update(rc=serve.main(
+        argv, stop=stop, on_ready=on_ready)), daemon=True)
+    with contextlib.redirect_stdout(buf):
+        th.start()
+        try:
+            if not got_port.wait(600):
+                fail("checkpoint serve main did not come up")
+            port = ready["port"]
+            start_kv = get_metrics(port)["kv_cache"]
+
+            def answers():
+                got = []
+                for prompt in prompts:
+                    code, r = post_json(port, "/v1/generate", {
+                        "prompt": prompt, "maxNewTokens": CKPT_NEW_TOKENS,
+                        "timeoutSeconds": 300})
+                    if code != 200 or r.get("status") != "ok":
+                        fail(f"checkpoint serve /v1/generate: {code} {r}")
+                    got.append(r["tokens"])
+                return got
+            before = answers()
+            code, good = post_json(port, "/v1/admin/reload",
+                                   {"checkpointDir": later_dir})
+            code_bad, bad = post_json(port, "/v1/admin/reload",
+                                      {"checkpointDir": other_dir})
+            after = answers()
+            metrics = get_metrics(port)
+        finally:
+            stop.set()
+            th.join(120)
+    text = buf.getvalue()
+    launches = dict(kernels.launches)
+    if th.is_alive() or rc.get("rc") != 0:
+        fail(f"checkpoint serve main did not drain and exit 0: {rc}")
+    if "restored params from step" not in text:
+        fail(f"checkpoint serve main printed no restore line: {text}")
+    if before != want_before:
+        fail(f"checkpoint serve tokens {before} differ from the engine on "
+             f"the same checkpoint {want_before}")
+    if code != 200 or good.get("status") != "ok":
+        fail(f"/v1/admin/reload to {later_dir}: {code} {good}")
+    if code_bad != 409:
+        fail(f"/v1/admin/reload of another model answered {code_bad} "
+             f"{bad}, want 409")
+    if after != want_after:
+        fail(f"after the reload the serve gave {after}, the engine on the "
+             f"new weights {want_after}")
+    kv = metrics["kv_cache"]
+    leaked = 0
+    if kv["paged"]:
+        leaked = start_kv["blocks_free"] - kv["blocks_free"] \
+            - kv["blocks_cached"]
+        if leaked or kv["blocks_used"] != kv["blocks_cached"] \
+                or kv["matched_tokens_total"] < 2 * SHARED_PREFIX:
+            fail(f"paged checkpoint serve: {leaked} pages leaked or no "
+                 f"prefix reuse: start {start_kv}, end {kv}")
+    return dict(argv=argv, restored_line=[x for x in text.splitlines()
+                                          if "restored params" in x],
+                reload_step=good["step"], swap_pause_ms=good["swapPauseMs"],
+                other_model_reload=dict(status=code_bad,
+                                        error=bad.get("error", "")[:200]),
+                weight_swaps=metrics["resilience"]["weight_swaps"],
+                requests_completed=metrics["requests_completed"],
+                lifetime=metrics["lifetime"],
+                kv_cache={k: kv[k] for k in ("paged", "blocks_free",
+                                             "blocks_cached", "blocks_used",
+                                             "matched_tokens_total")},
+                pages_leaked=leaked, launches=launches)
+
+
+def run_checkpoint(dev, kernels, trainer_cli, serve, tf, trainer, ckpt,
+                   data) -> dict:
+    """Train at the serve width on a token shard through the trainer main,
+    save, resume bit for bit, drain, then serve the checkpoint and hot-swap
+    it on the dense and the paged serve main. Checkpoints live in a
+    temporary directory, removed at the end, with at most two full ones on
+    disk at once."""
+    root = tempfile.mkdtemp(prefix="ktwe-ckpt-smoke-")
+    try:
+        return _checkpoint_phase(dev, kernels, trainer_cli, serve, tf,
+                                 trainer, ckpt, data, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _checkpoint_phase(dev, kernels, trainer_cli, serve, tf, trainer, ckpt,
+                      data, root) -> dict:
+    shard = os.path.join(root, "tokens.bin")
+    vocab = SERVE_DIMS["vocab_size"]
+    data.write_token_file(shard, np.random.default_rng(13).integers(
+        0, vocab, CKPT_WINDOWS * (SERVE_DIMS["max_seq"] + 1)))
+    dir_a, dir_b = os.path.join(root, "a"), os.path.join(root, "b")
+    out = {"config": dict(SERVE_DIMS, batch=CKPT_BATCH, dtype="bfloat16",
+                          shard_windows=CKPT_WINDOWS,
+                          shard_bytes=os.path.getsize(shard))}
+    # 1. Resume is exact: B trains 2 steps and saves, a second main resumes
+    # and trains step 3; A trains 3 steps straight.
+    freed_gb = collect_garbage()
+    b1 = run_ckpt_trainer(trainer_cli, kernels,
+                          ckpt_trainer_argv(shard, 2, dir_b))
+    b2 = run_ckpt_trainer(trainer_cli, kernels,
+                          ckpt_trainer_argv(shard, 3, dir_b, resume=True))
+    if "resumed from step 2" not in b2["text"] or b2["steps"] != [2]:
+        fail(f"the resumed trainer did not resume at step 2: {b2['text']}")
+    os.unlink(os.path.join(dir_b, "ckpt-2.pt"))
+    path_b3 = os.path.join(dir_b, "ckpt-3.pt")
+    out["checkpoint_bytes"] = os.path.getsize(path_b3)
+    # Save and restore times at this width, on the resumed state.
+    cfg = tf.TransformerConfig(**SERVE_DIMS, dtype=torch.bfloat16)
+    tcfg = trainer.TrainConfig(batch_size=CKPT_BATCH,
+                               seq_len=SERVE_DIMS["max_seq"])
+    target = trainer.init_state(cfg, tcfg,
+                                torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = ckpt.CheckpointManager(dir_b).restore(None, target)
+    torch.cuda.synchronize()
+    out["restore_full_s"] = time.perf_counter() - t0
+    del target
+    dir_t = os.path.join(root, "timing")
+    mgr = ckpt.CheckpointManager(dir_t)
+    t0 = time.perf_counter()
+    mgr.save(state.step, state, wait=True)
+    out["save_wait_s"] = time.perf_counter() - t0
+    shutil.rmtree(dir_t)
+    mgr = ckpt.CheckpointManager(dir_t)
+    t0 = time.perf_counter()
+    mgr.save(state.step, state, wait=False)
+    out["save_nowait_return_s"] = time.perf_counter() - t0
+    mgr.close()
+    out["save_nowait_total_s"] = time.perf_counter() - t0
+    shutil.rmtree(dir_t)
+    del state, mgr
+    collect_garbage()
+    a = run_ckpt_trainer(trainer_cli, kernels,
+                         ckpt_trainer_argv(shard, 3, dir_a))
+    same = equal_checkpoints(os.path.join(dir_a, "ckpt-3.pt"), path_b3)
+    shutil.rmtree(dir_a)
+    metrics_equal = (a["losses"][2] == b2["losses"][0]
+                     and a["grad_norms"][2] == b2["grad_norms"][0])
+    if same["diffs"] or same["step"] != 3 or not metrics_equal:
+        fail(f"resume is not bit for bit: step 3 loss/grad norm straight "
+             f"{a['losses'][2]}/{a['grad_norms'][2]}, resumed "
+             f"{b2['losses'][0]}/{b2['grad_norms'][0]}; "
+             f"{same['diffs'][:20]}")
+    out["resume"] = dict(straight_losses=a["losses"],
+                         straight_grad_norms=a["grad_norms"],
+                         resumed_losses=b1["losses"] + b2["losses"],
+                         resumed_grad_norms=b1["grad_norms"]
+                         + b2["grad_norms"],
+                         leaves_compared=same["leaves"], bit_for_bit=True)
+    out["step_ms_data_file"] = a["last"]["avg_step_s"] * 1e3
+    synthetic = run_ckpt_trainer(trainer_cli, kernels,
+                                 ckpt_trainer_argv("", 3))
+    out["step_ms_synthetic"] = synthetic["last"]["avg_step_s"] * 1e3
+    out["freed_by_gc_collect_gb"] = freed_gb
+    launches = {}
+    for run in (b1, b2, a, synthetic):
+        for k, n in run["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    # 2. Drain: SIGTERM after the first resumed step leaves a checkpoint at
+    # the drained step and the marker.
+    d = run_ckpt_trainer(
+        trainer_cli, kernels, ckpt_trainer_argv(shard, 10, dir_b,
+                                                resume=True),
+        on_step=lambda i: os.kill(os.getpid(), signal.SIGTERM))
+    for k, n in d["launches"].items():
+        launches[k] = launches.get(k, 0) + n
+    marker = ckpt.read_drain_marker(dir_b)
+    if (d["steps"] != [3] or d["last"].get("drained") is not True
+            or d["last"].get("step") != 4 or marker is None
+            or marker.get("step") != 4
+            or ckpt.CheckpointManager(dir_b).latest_step() != 4):
+        fail(f"drain: steps {d['steps']}, line {d['last']}, marker {marker}")
+    out["drain"] = dict(drained_line=d["last"], marker_step=marker["step"])
+    out["train_launches"] = launches
+    # 3-4. Serve step 3, hot-swap to step 4 (moved to its own directory)
+    # and refuse another model's checkpoint.
+    dir_later = os.path.join(root, "later")
+    os.makedirs(dir_later)
+    os.rename(os.path.join(dir_b, "ckpt-4.pt"),
+              os.path.join(dir_later, "ckpt-4.pt"))
+    dir_other = os.path.join(root, "other")
+    small = tf.TransformerConfig(vocab_size=vocab, d_model=256, n_layers=1,
+                                 n_heads=2, n_kv_heads=2, d_ff=512,
+                                 max_seq=SERVE_DIMS["max_seq"])
+    ckpt.CheckpointManager(dir_other).save(5, trainer.init_state(
+        small, tcfg, torch.Generator(device=dev).manual_seed(1)))
+    serve_argv = ["--device", "cuda", "--port", "0", "--seed", "0",
+                  "--checkpoint-dir", dir_b]
+    collect_garbage()
+    baseline = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    loader = serve.make_params_loader(cfg, "", False, dev)
+    t0 = time.perf_counter()
+    params3, step3 = loader(dir_b)
+    torch.cuda.synchronize()
+    out["restore_params_only_s"] = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - baseline
+    bf16_bytes = sum(t.numel() * t.element_size()
+                     for t in trainer.tree_leaves(params3))
+    f32_leaf = max(t.numel() * 4 for t in trainer.tree_leaves(params3))
+    out["serve_load"] = dict(step=step3, peak_gb=peak / 1e9,
+                             params_bf16_gb=bf16_bytes / 1e9,
+                             largest_f32_leaf_gb=f32_leaf / 1e9)
+    if step3 != 3 or peak > bf16_bytes + f32_leaf + (1 << 20):
+        fail(f"serve load: step {step3}, peak {peak} B over the bf16 params "
+             f"{bf16_bytes} B plus one f32 leaf {f32_leaf} B")
+    params4, _ = loader(dir_later)
+    rng = np.random.default_rng(21)
+    dense_prompts = [rng.integers(0, vocab, n).tolist()
+                     for n in (16, PREFILL_LEN + 32)]
+    prefix = rng.integers(0, vocab, SHARED_PREFIX).tolist()
+    paged_prompts = [prefix + rng.integers(0, vocab, 16).tolist()
+                     for _ in range(2)]
+    paged_argv = serve_argv + ["--kv-block-len", str(KV_BLOCK_LEN)]
+    want = {}
+    for name, argv, prompts in (("dense", serve_argv, dense_prompts),
+                                ("paged", paged_argv, paged_prompts)):
+        want[name] = [reference_tokens(serve, argv, p, prompts)
+                      for p in (params3, params4)]
+    del params3, params4
+    collect_garbage()
+    out["serve"] = ckpt_serve(serve, kernels, serve_argv, dense_prompts,
+                              dir_later, dir_other, *want["dense"])
+    out["paged_serve"] = ckpt_serve(serve, kernels, paged_argv,
+                                    paged_prompts, dir_later, dir_other,
+                                    *want["paged"])
+    for phase in ("serve", "paged_serve"):
+        got = out[phase]["launches"]
+        exp = expected_launches(SERVE_DIMS["n_layers"],
+                                out[phase]["lifetime"],
+                                paged=phase == "paged_serve")
+        if got != exp:
+            fail(f"checkpoint {phase} launches {got}, its chunks and steps "
+                 f"need {exp}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2066,14 +2464,16 @@ def main() -> int:
     from k8s_gpu_workload_enhancer_tpu_torch.ops import (
         attention as attn_mod, embed, flash_attention as flash, fused_ce,
         kernels, paged_attention as paged, relayout, rms, rope)
-    from k8s_gpu_workload_enhancer_tpu_torch.train import flagship, trainer
+    from k8s_gpu_workload_enhancer_tpu_torch.train import (
+        checkpoint, data, flagship, trainer)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
     if smi.returncode != 0:
         fail(f"nvidia-smi: {smi.stderr}")
-    for line in smi.stdout.strip().splitlines():
+    card = smi.stdout.strip()
+    for line in card.splitlines():
         print(line.strip(), flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
@@ -2162,6 +2562,13 @@ def main() -> int:
                                  paged=phase == "paged_serve")
         if got != want:
             fail(f"{phase} launches {got}, its chunks and steps need {want}")
+    ckpt_out = run_checkpoint(dev, kernels, trainer_cli, serve, tf, trainer,
+                              checkpoint, data)
+    results["checkpoint_train"] = {"launches": ckpt_out["train_launches"]}
+    results["checkpoint_serve"] = ckpt_out["serve"]
+    results["checkpoint_paged_serve"] = ckpt_out["paged_serve"]
+    print(json.dumps({"checkpoint": dict(card=card, **ckpt_out)}),
+          flush=True)
     gate_mods = (kernels, rms, rope, flash, tf, trainer)
     results["train_gate_f32"] = run_train_gate(dev, gate_mods)
     print(json.dumps({"train_gate_f32": results["train_gate_f32"]}),
@@ -2181,21 +2588,25 @@ def main() -> int:
     results["profile"] = profile_steps(trainer_cli, trainer, flagship)
     print(json.dumps({"profile": results["profile"]}), flush=True)
 
-    serving_phases = ("engine", "serve", "paged_engine", "paged_serve")
+    serving_phases = ("engine", "serve", "paged_engine", "paged_serve",
+                      "checkpoint_serve", "checkpoint_paged_serve")
     train_phases = ("train", "train_stash")
+    paged_phases = ("paged_engine", "paged_serve", "checkpoint_paged_serve")
+    # The checkpoint phase's trainer runs the t-layout path (head_dim 512).
+    t_layout = ("flagship", "checkpoint_train")
     every = serving_phases + train_phases
-    paths = {"embed_gather": every + ("flagship",),
-             "rms_norm": every + ("flagship",), "rope": every,
-             "flash_attention": every + ("flagship",),
-             "paged_decode": ("paged_engine", "paged_serve"),
-             "paged_decode_combine": ("paged_engine", "paged_serve"),
-             "rms_norm_bwd": train_phases + ("flagship",),
-             "flash_attention_bwd_dq": train_phases + ("flagship",),
+    paths = {"embed_gather": every + t_layout,
+             "rms_norm": every + t_layout, "rope": every,
+             "flash_attention": every + t_layout,
+             "paged_decode": paged_phases,
+             "paged_decode_combine": paged_phases,
+             "rms_norm_bwd": train_phases + t_layout,
+             "flash_attention_bwd_dq": train_phases + t_layout,
              "flash_attention_bwd_dkv": ("train",),
-             "flash_attention_bwd_dkv_stash": ("train_stash", "flagship"),
-             "rope_t": ("flagship",), "rope_t_inv": ("flagship",),
+             "flash_attention_bwd_dkv_stash": ("train_stash",) + t_layout,
+             "rope_t": t_layout, "rope_t_inv": t_layout,
              "fused_ce_fwd": ("flagship",), "fused_ce_bwd": ("flagship",),
-             "relayout_to_t": ("flagship",), "relayout_from_t": ("flagship",)}
+             "relayout_to_t": t_layout, "relayout_from_t": t_layout}
     # Every bf16 flash and fused CE launch of every phase ran a tensor-core
     # body: the flash forward, dQ and the stash dK/dV at every head_dim, the
     # recompute dK/dV of the train phase (head_dim 128), the fused CE

@@ -18,6 +18,12 @@ is the request's sampling key: the same key at the same temperature gives
 the same tokens. "prefixId", "stopText", "text" and "resumeFrom" are not
 served yet (they need registered prefixes, a tokenizer and the resume
 path) and answer 400 naming the field. GET /v1/metrics, GET /health.
+POST /v1/admin/reload {"checkpointDir"?} hot-swaps the weights to the
+latest step of that directory (default --checkpoint-dir): 200 {"status":
+"ok", "step", "swapPauseMs"}; 503 without a checkpoint source, 404 when no
+checkpoint is found, 409 when the restore fails or its tree does not match
+the engine's (the old weights keep serving), 500 for any other swap
+failure. The restore runs outside the engine lock; only the swap holds it.
 With a bearer token (--auth-token, $KTWE_AUTH_TOKEN or the file at
 $KTWE_AUTH_TOKEN_FILE, which must be readable when set) every route but
 /health answers 401 without `Authorization: Bearer <token>`.
@@ -30,16 +36,23 @@ SIGTERM drains: new submits get 503 + Retry-After, /health answers 503
 "draining", accepted requests complete up to --drain-timeout, then the
 process exits 0.
 
-The model is a seeded random init (--seed); loading a trainer checkpoint
-is later work. It runs on the card (--device cuda, the default, which
-raises without one) in bf16, or on the CPU in f32 with --device cpu.
+The weights are the latest step of a trainer checkpoint with
+--checkpoint-dir (train/checkpoint.py; only the params are read, `restored
+params from step N`), else a seeded random init (--seed). With
+--watch-checkpoints S the directory is polled every S seconds and a new
+step is hot-swapped in through the reload path. It runs on the card
+(--device cuda, the default, which raises without one) in bf16, or on the
+CPU in f32 with --device cpu.
 
     python -m k8s_gpu_workload_enhancer_tpu_torch.cmd.serve --port 8000
+    python -m k8s_gpu_workload_enhancer_tpu_torch.cmd.serve \
+        --checkpoint-dir ckpt --watch-checkpoints 30
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import signal
 import sys
 import threading
@@ -52,6 +65,7 @@ import torch
 from ..models import serving
 from ..models import transformer as tf
 from ..ops.quant import quantize_params
+from ..train.checkpoint import CheckpointManager
 from ..utils.device import resolve_device
 from ..utils.httpjson import (StatusError, make_json_handler,
                               resolve_auth_token)
@@ -65,7 +79,8 @@ DEFAULTS = dict(port=8000, vocab_size=32768, d_model=2048,
                 max_queue=64, prefill_interleave=2, eos_id=-1,
                 drain_timeout=30.0, temperature=0.0, top_k=0, top_p=1.0,
                 enable_top_p=False, kv_block_len=0, kv_num_blocks=0,
-                device="cuda", seed=0, auth_token="")
+                device="cuda", seed=0, auth_token="", checkpoint_dir="",
+                watch_checkpoints=0.0)
 
 # /v1/generate fields of the JAX service that this replica refuses (400
 # naming the field) rather than drop, and why.
@@ -88,6 +103,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--n-kv-heads", type=int, help="0 = same as --n-heads")
     p.add_argument("--d-ff", type=int)
     p.add_argument("--max-seq", type=int)
+    p.add_argument("--checkpoint-dir", type=str,
+                   help="restore trained params from a trainer "
+                        "checkpoint (latest step); empty = random init")
+    p.add_argument("--watch-checkpoints", type=float,
+                   help="poll --checkpoint-dir every N seconds and "
+                        "hot-swap weights when a new step lands "
+                        "(live engine, bounded pause; 0 disables)")
     p.add_argument("--int8", action="store_true",
                    help="weight-only int8 quantization (ops/quant.py)")
     p.add_argument("--num-slots", type=int)
@@ -136,11 +158,20 @@ def build_parser() -> argparse.ArgumentParser:
 
 class ServeService:
     """dict-in/dict-out API over the engine; one lock serializes engine
-    mutation (the background step loop and request submission)."""
+    mutation (the background step loop, request submission and the weight
+    swap). `load_params` ((checkpoint_dir | None) -> (params, step))
+    enables the /v1/admin/reload hot-swap."""
 
     def __init__(self, engine: serving.ContinuousBatchEngine,
-                 drain_timeout: float = 30.0):
+                 drain_timeout: float = 30.0,
+                 load_params: Optional[Callable] = None):
         self._engine = engine
+        self._load_params = load_params
+        # The checkpoint step the engine serves (None = random init); set
+        # at startup and by every reload, read by the checkpoint watcher.
+        self.last_swapped_step: Optional[int] = None
+        # Orders reloads only: the restore must not hold the engine lock.
+        self._reload_lock = threading.Lock()
         self._drain_timeout = float(drain_timeout)
         self._drain_deadline: Optional[float] = None
         self._req_lat = LatencyWindow(capacity=512)
@@ -335,6 +366,44 @@ class ServeService:
                 if not req.done:
                     self._engine.cancel(rid)
 
+    def reload(self, request: dict) -> dict:
+        """POST /v1/admin/reload {"checkpointDir"?: str}: live weight
+        hot-swap. The checkpoint restore runs outside the engine lock; only
+        swap_params' bounded pause holds it, between steps. A tree that
+        does not match the engine's -> 409 and the old weights keep
+        serving."""
+        if self._load_params is None:
+            raise StatusError(
+                503, "no checkpoint source (start with --checkpoint-dir)")
+        ckpt_dir = request.get("checkpointDir") or None
+        with self._reload_lock:
+            try:
+                new_params, step = self._load_params(ckpt_dir)
+            except FileNotFoundError as e:
+                raise StatusError(404, f"checkpoint restore failed: {e}")
+            except Exception as e:   # noqa: BLE001 — a half-written or
+                # incompatible checkpoint is the documented 409 (old weights
+                # keep serving), not a dropped connection.
+                raise StatusError(409, f"checkpoint restore failed: {e!r}")
+            with self._lock:
+                try:
+                    pause_ms = self._engine.swap_params(new_params)
+                except ValueError as e:
+                    raise StatusError(409, str(e))
+                except Exception as e:   # noqa: BLE001 — swap_params
+                    # commits only after every copy landed, so the engine
+                    # is still on the old weights.
+                    raise StatusError(
+                        500, f"hot-swap failed (engine still on old "
+                             f"weights): {e!r}")
+            # Inside the reload lock: two reloads finishing out of order
+            # must not record the older step.
+            self.last_swapped_step = step
+        print(f"weights hot-swapped to step {step} "
+              f"(pause {pause_ms:.3f} ms)", flush=True)
+        return {"status": "ok", "step": step,
+                "swapPauseMs": round(pause_ms, 3)}
+
     def health(self, _request: dict) -> dict:
         """200 while serving; 503 "draining" once the drain begins."""
         if self._engine.draining:
@@ -353,37 +422,110 @@ class ServeService:
         return {"status": "ok", "metrics": m}
 
 
-def _finish_params(params, cfg: tf.TransformerConfig, int8: bool):
-    """Serve-dtype cast of the f32 leaves, then optional weight-only int8."""
+def _finish_params(params, cfg: tf.TransformerConfig, int8: bool,
+                   device: Optional[torch.device] = None):
+    """The conditioning every param source goes through (random init,
+    checkpoint, reload): each leaf moved to `device` (when given) and its
+    f32 cast to the serve dtype before the next leaf moves, so the card
+    holds at most one f32 leaf beyond the served tree; then optional
+    weight-only int8."""
     def cast(node):
         if isinstance(node, dict):
             return {k: cast(v) for k, v in node.items()}
+        if device is not None:
+            node = node.to(device)
         return node.to(cfg.dtype) if node.dtype == torch.float32 else node
     params = cast(params)
     return quantize_params(params) if int8 else params
 
 
-def build_engine(args) -> serving.ContinuousBatchEngine:
-    """The engine `args` describe, on a seeded random init."""
-    device = resolve_device(args.device)
-    cfg = tf.TransformerConfig(
+def _check_shapes(tree, shapes, path: str = "") -> None:
+    """ValueError unless `tree` has the structure and leaf shapes of
+    `shapes` (tf.param_shapes of the served config)."""
+    if isinstance(shapes, dict):
+        if not isinstance(tree, dict) or set(tree) != set(shapes):
+            raise ValueError(f"checkpoint param tree at {path or 'root'} "
+                             f"does not match the served config")
+        for k in shapes:
+            _check_shapes(tree[k], shapes[k], f"{path}/{k}")
+        return
+    if tuple(tree.shape) != tuple(shapes):
+        raise ValueError(f"checkpoint param {path} has shape "
+                         f"{tuple(tree.shape)}, the served config wants "
+                         f"{tuple(shapes)}")
+
+
+def make_params_loader(cfg: tf.TransformerConfig, default_dir: str,
+                       int8: bool, device: torch.device) -> Callable:
+    """(checkpoint_dir | None) -> (finished params on `device`, step): the
+    load shared by startup, POST /v1/admin/reload and the
+    --watch-checkpoints poller. Only the params are read (memory-mapped,
+    the Adam moments never leave the file), checked against the served
+    config on the host, then moved leaf by leaf through _finish_params."""
+    def load(ckpt_dir: Optional[str] = None):
+        directory = ckpt_dir or default_dir
+        if not directory:
+            raise FileNotFoundError("no checkpoint directory configured")
+        if not os.path.isdir(directory):
+            raise FileNotFoundError(f"no checkpoint directory {directory}")
+        host, step = CheckpointManager(directory).load_params()
+        _check_shapes(host, tf.param_shapes(cfg))
+        return _finish_params(host, cfg, int8, device), step
+    return load
+
+
+def serve_config(args, device: torch.device) -> tf.TransformerConfig:
+    """The model `args` describe, in bf16 on the card and f32 on the CPU."""
+    return tf.TransformerConfig(
         vocab_size=args.vocab_size, d_model=args.d_model,
         n_layers=args.n_layers, n_heads=args.n_heads,
         n_kv_heads=args.n_kv_heads or args.n_heads, d_ff=args.d_ff,
         max_seq=args.max_seq,
         dtype=torch.bfloat16 if device.type == "cuda" else torch.float32)
+
+
+def build_engine(args) -> serving.ContinuousBatchEngine:
+    """The engine `args` describe, on a seeded random init."""
+    device = resolve_device(args.device)
+    cfg = serve_config(args, device)
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
-    params = _finish_params(tf.init_params(gen, cfg), cfg, args.int8)
+    return make_engine(
+        args, _finish_params(tf.init_params(gen, cfg), cfg, args.int8))
+
+
+def make_engine(args, params) -> serving.ContinuousBatchEngine:
+    """The engine `args` describe, on `params` (finished, on the device)."""
+    device = resolve_device(args.device)
     return serving.ContinuousBatchEngine(
-        params, cfg, num_slots=args.num_slots, max_seq=args.max_seq,
-        prefill_len=args.prefill_len, decode_chunk=args.decode_chunk,
-        max_queue=args.max_queue, prefill_interleave=args.prefill_interleave,
+        params, serve_config(args, device), num_slots=args.num_slots,
+        max_seq=args.max_seq, prefill_len=args.prefill_len,
+        decode_chunk=args.decode_chunk, max_queue=args.max_queue,
+        prefill_interleave=args.prefill_interleave,
         eos_id=None if args.eos_id < 0 else args.eos_id,
         temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
         enable_top_p=True if args.enable_top_p else None, seed=args.seed,
         kv_block_len=args.kv_block_len, kv_num_blocks=args.kv_num_blocks,
         device=device)
+
+
+def watch_checkpoints(service: ServeService, directory: str,
+                      interval_s: float, stop: threading.Event) -> None:
+    """Poll `directory` every `interval_s` seconds; when its latest step
+    is not the one the engine serves, hot-swap it through the reload path.
+    A failure (a half-written or mismatched checkpoint) is printed and
+    retried next tick; the engine keeps serving the old weights."""
+    mgr = CheckpointManager(directory)
+    while not stop.wait(interval_s):
+        try:
+            mgr.refresh()
+            latest = mgr.latest_step()
+            if latest is None or latest == service.last_swapped_step:
+                continue
+            service.reload({})
+        except Exception as e:   # noqa: BLE001 — the poller survives
+            print(f"checkpoint watch failed: {e!r}", file=sys.stderr,
+                  flush=True)
 
 
 def main(argv=None, *, stop: Optional[threading.Event] = None,
@@ -398,10 +540,24 @@ def main(argv=None, *, stop: Optional[threading.Event] = None,
         # engine; fail fast instead.
         parser.error("--kv-num-blocks requires --kv-block-len > 0")
     auth_token = resolve_auth_token(args.auth_token)
-    engine = build_engine(args)
-    service = ServeService(engine, drain_timeout=args.drain_timeout)
+    device = resolve_device(args.device)
+    loader = make_params_loader(serve_config(args, device),
+                                args.checkpoint_dir, args.int8, device)
+    ckpt_step = None
+    if args.checkpoint_dir:
+        params, ckpt_step = loader()
+        print(f"restored params from step {ckpt_step}", flush=True)
+        engine = make_engine(args, params)
+        del params
+    else:
+        engine = build_engine(args)
+    service = ServeService(engine, drain_timeout=args.drain_timeout,
+                           load_params=loader if args.checkpoint_dir
+                           else None)
+    service.last_swapped_step = ckpt_step
     handler = make_json_handler(
-        {"/v1/generate": service.generate, "/v1/metrics": service.metrics},
+        {"/v1/generate": service.generate, "/v1/metrics": service.metrics,
+         "/v1/admin/reload": service.reload},
         get_routes={"/v1/metrics": service.metrics, "/health": service.health},
         auth_token=auth_token)
     server = ThreadingHTTPServer(("0.0.0.0", args.port), handler)
@@ -414,11 +570,21 @@ def main(argv=None, *, stop: Optional[threading.Event] = None,
         stop = threading.Event()
         signal.signal(signal.SIGTERM, lambda *a: stop.set())
         signal.signal(signal.SIGINT, lambda *a: stop.set())
+    watcher = None
+    if args.watch_checkpoints > 0 and args.checkpoint_dir:
+        watcher = threading.Thread(
+            target=watch_checkpoints, args=(service, args.checkpoint_dir,
+                                            args.watch_checkpoints, stop),
+            daemon=True, name="ktwe-serve-ckpt-watch")
+        watcher.start()
     if on_ready is not None:
         on_ready(port)
     try:
         stop.wait()
     finally:
+        if watcher is not None:
+            stop.set()
+            watcher.join()
         service.begin_drain()
         print(f"draining: waiting up to {args.drain_timeout}s for in-flight "
               f"requests", flush=True)

@@ -3,27 +3,37 @@
 Port of k8s_gpu_workload_enhancer_tpu/cmd/trainer.py on one device, with
 the same flags and defaults (vocab 32768, d_model 2048, 8 layers, 16
 heads, d_ff 8192, seq 2048, batch 8) plus `--device` (cuda by default;
-raises without a card) and `--seed`. It trains on seeded synthetic LM data
-in bf16 on the card (f32 on the CPU), prints a JSON line every 10 steps
-and a final summary line, and on SIGTERM finishes the step in flight and
-prints a `drained` line.
+raises without a card) and `--seed`. It trains in bf16 on the card (f32 on
+the CPU), prints a JSON line every 10 steps and a final summary line.
+
+- `--data-file` trains on a KTWE token shard (train/data.py, the JAX
+  package's format and windows), else on seeded synthetic LM data.
+- `--checkpoint-dir` saves the TrainState there (train/checkpoint.py)
+  every `--checkpoint-every` steps in the background and at `--steps`;
+  with `--resume` (or KTWE_RESUME=1) the latest step found is restored
+  first (`resumed from step N`) and training goes on to `--steps`. The
+  token stream resumes at the restored step; the synthetic stream
+  restarts, as in the JAX trainer.
+- SIGTERM finishes the step in flight, saves it (waiting for the file),
+  writes the drain marker `drain-complete.json` beside it and prints a
+  `drained` line.
 
 Not ported yet, and refused with exit code 2 rather than ignored:
-`--checkpoint-dir` / `--resume` and `--data-file` (ROADMAP A10:
-train/checkpoint.py, train/data.py), `--pipeline-microbatches` and
-`--n-experts` (ROADMAP A11: pipeline parallelism, MoE). `--profile-dir`
-is accepted and unused, as in the JAX trainer.
+`--pipeline-microbatches` and `--n-experts` (ROADMAP A11: pipeline
+parallelism, MoE). `--profile-dir` is accepted and unused, as in the JAX
+trainer.
 
     python -m k8s_gpu_workload_enhancer_tpu_torch.cmd.trainer --steps 20
     python -m k8s_gpu_workload_enhancer_tpu_torch.cmd.trainer --device cpu \
         --steps 10 --batch-size 2 --seq-len 32 --d-model 64 --n-layers 2 \
-        --n-heads 2 --d-ff 128 --vocab-size 256
+        --n-heads 2 --d-ff 128 --vocab-size 256 --checkpoint-dir ckpt
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import signal
 import sys
 import threading
@@ -33,6 +43,8 @@ import torch
 
 from ..models import transformer as tf
 from ..train import trainer
+from ..train.checkpoint import CheckpointManager, write_drain_marker
+from ..train.data import DataConfig, make_input_pipeline
 from ..train.profiling import StepTimer
 from ..utils.device import resolve_device
 
@@ -53,10 +65,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="MoE experts; not ported yet (0 only)")
     p.add_argument("--learning-rate", type=float, default=3e-4)
     p.add_argument("--checkpoint-dir", type=str, default="",
-                   help="not ported yet (empty only)")
+                   help="save the TrainState here (empty = no checkpoints)")
     p.add_argument("--checkpoint-every", type=int, default=100)
     p.add_argument("--resume", action="store_true",
-                   help="not ported yet")
+                   help="restore the latest step of --checkpoint-dir first "
+                        "(also KTWE_RESUME=1)")
     p.add_argument("--remat", action="store_true")
     p.add_argument("--profile-dir", type=str, default="",
                    help="accepted and unused, as in the JAX trainer")
@@ -65,8 +78,8 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["bf16", "f32"],
                    help="accumulator dtype of the microbatch gradients")
     p.add_argument("--data-file", type=str, default="",
-                   help="token shards; not ported yet (empty = synthetic "
-                        "LM data, the only source)")
+                   help="KTWE token shard (train/data.py); empty = "
+                        "synthetic LM data")
     p.add_argument("--pipeline-microbatches", type=int, default=0,
                    help="the explicit GPipe schedule; not ported yet "
                         "(0 only)")
@@ -78,12 +91,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def refused(args: argparse.Namespace) -> Optional[str]:
     """Why the arguments ask for something not ported yet, or None."""
-    if args.checkpoint_dir or args.resume:
-        return ("--checkpoint-dir/--resume: checkpointing is not ported yet "
-                "(ROADMAP A10, train/checkpoint.py)")
-    if args.data_file:
-        return ("--data-file: the token-shard input pipeline is not ported "
-                "yet (ROADMAP A10, train/data.py)")
     if args.pipeline_microbatches > 0:
         return ("--pipeline-microbatches: pipeline parallelism is not "
                 "ported yet (ROADMAP A11); the port trains on one device")
@@ -111,7 +118,30 @@ def main(argv=None, callback: Optional[Callable] = None) -> int:
         seq_len=args.seq_len, total_steps=args.steps,
         grad_accum=args.grad_accum, grad_accum_dtype=args.grad_accum_dtype,
         seed=args.seed)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(tcfg.seed)
+    state = trainer.init_state(model_cfg, tcfg, gen)
+    mgr = CheckpointManager(args.checkpoint_dir) if args.checkpoint_dir \
+        else None
+    # KTWE_RESUME=1 is how the controller relaunches a drained tenant (it
+    # re-creates the captured pod spec and cannot rewrite argv safely).
+    if os.environ.get("KTWE_RESUME") == "1":
+        args.resume = True
+    if mgr is not None and args.resume and mgr.latest_step() is not None:
+        state = mgr.restore(None, state)
+        print(f"resumed from step {state.step}", flush=True)
+    if args.data_file:
+        batches = make_input_pipeline(
+            DataConfig(path=args.data_file, batch_size=tcfg.batch_size,
+                       seq_len=tcfg.seq_len, seed=tcfg.seed,
+                       grad_accum=tcfg.grad_accum),
+            start_step=state.step, device=device)
+    else:
+        batches = trainer.synthetic_batches(model_cfg, tcfg, device)
     timer = StepTimer()
+    # Drain: SIGTERM only sets a flag; the loop finishes the step in flight,
+    # then main saves it, writes the drain marker and returns 0.
+    drain = threading.Event()
 
     def on_step(i, metrics):
         if callback is not None:
@@ -122,25 +152,33 @@ def main(argv=None, callback: Optional[Callable] = None) -> int:
                               "tokens_per_s": round(s["tokens_per_s"], 1),
                               "mfu_pct": round(s["mfu_pct"], 2)}),
                   flush=True)
+        if (mgr is not None and not drain.is_set()
+                and (i + 1) % args.checkpoint_every == 0):
+            mgr.save(i + 1, state, wait=False)
 
-    # Drain: SIGTERM only sets a flag; the loop finishes the step in flight,
-    # then main prints the drained line and returns 0.
-    drain = threading.Event()
     in_main = threading.current_thread() is threading.main_thread()
     previous = (signal.signal(signal.SIGTERM, lambda *_: drain.set())
                 if in_main else None)
     try:
         out = trainer.train_loop(model_cfg, tcfg, args.steps,
                                  callback=on_step, device=device,
-                                 stop=drain.is_set, timer=timer)
+                                 stop=drain.is_set, timer=timer,
+                                 state=state, batches=batches)
     finally:
         if in_main:
             signal.signal(signal.SIGTERM, previous if previous is not None
                           else signal.SIG_DFL)
     if drain.is_set():
-        print(json.dumps({"drained": True, "step": out["steps_run"],
+        if mgr is not None:
+            mgr.save(state.step, state, wait=True)
+            write_drain_marker(args.checkpoint_dir, state.step)
+            mgr.close()
+        print(json.dumps({"drained": True, "step": state.step,
                           "loss": out["final_loss"]}), flush=True)
         return 0
+    if mgr is not None:
+        mgr.save(args.steps, state, wait=True)
+        mgr.close()
     print(json.dumps({"final": True, **timer.summary()}), flush=True)
     return 0
 

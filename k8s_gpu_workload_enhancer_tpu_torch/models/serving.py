@@ -37,6 +37,11 @@ k8s_gpu_workload_enhancer_tpu/models/serving.py.
   wherever the request is, results stay until `release`d or aged out past
   `keep_results`, `drain` stops admission (`Draining`). A fault in one
   phase fails only the requests that phase touched.
+- **Weight hot-swap.** `swap_params` validates a new param tree against
+  the engine's (structure, shapes, dtypes) before it touches anything,
+  places it on the device and commits it between steps. On the paged
+  engine the radix tree is detached (its pages hold old-weight KV) and a
+  prefill in flight across the swap never publishes its blocks.
 - **Sampling.** Greedy slots take the argmax (the first maximal index, as
   jnp.argmax, so greedy tokens match the JAX engine). A sampled token is a
   pure function of (request key, sample index): Gumbel-max noise from a
@@ -50,12 +55,12 @@ XLA in the JAX package. Where JAX donates the cache to each program and
 threads it through a layer `scan`, the port writes the cache's new rows in
 place: no step copies it, and a prefill commits only the rows it owns.
 
-Not ported here (later slices): register_prefix/release_prefix, speculative
+Not ported here (later slices): register_prefix/release_prefix (and with
+them the re-prefill of registered prefixes on a swap), speculative
 decoding, the host-RAM KV tier and preemption of the paged engine, the int8
 KV cache, meshes, eject/resume/handoff, tenancy, the watchdog and FaultLab
-sites, `swap_params` (and with it radix detachment), phase events, and the
-overlapped dispatch/commit pipeline (this engine collects every chunk
-before it dispatches the next).
+sites, phase events, and the overlapped dispatch/commit pipeline (this
+engine collects every chunk before it dispatches the next).
 """
 
 from __future__ import annotations
@@ -79,6 +84,33 @@ from . import decode, paged_kv
 from . import transformer as tf
 
 Params = tf.Params
+
+
+def _map_leaves(fn: Callable, tree):
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _check_same_tree(old, new, path: str = "") -> None:
+    """ValueError unless `new` has `old`'s dict structure and every leaf is
+    a tensor of the same shape and dtype."""
+    if isinstance(old, dict):
+        if not isinstance(new, dict) or set(new) != set(old):
+            raise ValueError(
+                f"param tree structure mismatch at {path or 'root'}: engine "
+                f"has {sorted(old)}, got "
+                f"{sorted(new) if isinstance(new, dict) else type(new)}")
+        for k in old:
+            _check_same_tree(old[k], new[k], f"{path}/{k}")
+        return
+    if (not isinstance(new, torch.Tensor) or new.shape != old.shape
+            or new.dtype != old.dtype):
+        raise ValueError(
+            f"param leaf {path} mismatch: engine has shape "
+            f"{tuple(old.shape)} dtype {old.dtype}, got shape "
+            f"{tuple(getattr(new, 'shape', ()))} dtype "
+            f"{getattr(new, 'dtype', type(new))}")
 
 
 class QueueFull(RuntimeError):
@@ -474,6 +506,9 @@ class _PrefillState:
     # multiple of kv_block_len; 0 = cold). The final commit writes only
     # [matched, len(prompt)) — shared pages are read-only.
     matched: int = 0
+    # False once a weight swap lands mid-prefill: its temp rows straddle
+    # two checkpoints, so its blocks stay private (never published).
+    publish: bool = True
 
 
 @dataclass
@@ -595,6 +630,9 @@ class ContinuousBatchEngine:
         self._kv_matched_tokens_total = 0
         self._kv_deferrals_total = 0
         self._kv_deferred_req: Optional[int] = None
+        self._swaps_total = 0
+        self._swap_pause_ms_total = 0.0
+        self._swap_pause_ms_last = 0.0
 
     # -- client API --
 
@@ -690,6 +728,37 @@ class ContinuousBatchEngine:
     @property
     def draining(self) -> bool:
         return self._draining
+
+    def swap_params(self, new_params: Params) -> float:
+        """Live weight hot-swap: validate `new_params` against the engine's
+        tree (structure, shapes, dtypes), place every leaf on the engine's
+        device, wait for the copies, and swap. Returns the pause in ms.
+
+        Callers pause the engine between steps (cmd/serve.py holds the
+        service lock, so no step() runs concurrently); queued and decoding
+        requests survive, every chunk after the swap uses the new weights.
+        A mismatched tree raises ValueError before anything is touched: the
+        engine keeps serving the old weights. Paged: the radix tree's pages
+        hold old-weight KV, so the whole tree is detached (unreferenced
+        pages free now, pages live requests still map free with their
+        leases), and a prefill in flight across the swap finishes but never
+        publishes its blocks."""
+        t0 = time.perf_counter()
+        _check_same_tree(self.params, new_params)
+        placed = _map_leaves(lambda t: t.to(self.device), new_params)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        # Commit: host-side assignments only, nothing below can raise.
+        self.params = placed
+        if self._paged:
+            self._radix.detach_all()
+            if self._prefill is not None:
+                self._prefill.publish = False
+        pause_ms = (time.perf_counter() - t0) * 1e3
+        self._swaps_total += 1
+        self._swap_pause_ms_total += pause_ms
+        self._swap_pause_ms_last = pause_ms
+        return pause_ms
 
     @property
     def pending(self) -> int:
@@ -1095,8 +1164,10 @@ class ContinuousBatchEngine:
                 self.params, self._cache, st.temp, chunk, lease.row,
                 st.matched, len(ctx), remaining, self.cfg, st.offset,
                 self._freqs, sampling, self.kv_block_len)
-            # Publish the prompt's full blocks for automatic reuse.
-            self._insert_prompt_blocks(ctx, lease)
+            # Publish the prompt's full blocks for automatic reuse, unless
+            # a weight swap landed mid-prefill.
+            if st.publish:
+                self._insert_prompt_blocks(ctx, lease)
         else:
             tok, lp = _prefill_final(
                 self.params, self._cache, st.temp, chunk, b, remaining,
@@ -1152,6 +1223,15 @@ class ContinuousBatchEngine:
             },
             "errors": dict(self._errors_total),
             "draining": self._draining,
+            # Fault, drain and hot-swap state (the JAX engine's block; its
+            # watchdog and device-loss fields are not ported).
+            "resilience": {
+                "errors": dict(self._errors_total),
+                "weight_swaps": self._swaps_total,
+                "swap_pause_ms_total": self._swap_pause_ms_total,
+                "swap_pause_ms_last": self._swap_pause_ms_last,
+                "draining": self._draining,
+            },
             # Prompt prefix reuse (monotonic counters).
             "prefix_cache": {
                 "hits": self._prefix_hits,
@@ -1207,6 +1287,7 @@ class ContinuousBatchEngine:
             "kv_cache": snap["kv_cache"],
             "errors": snap["errors"],
             "draining": snap["draining"],
+            "resilience": snap["resilience"],
             "queued": snap["queued"],
             "tokens": total_toks,
             "wall_s": wall,

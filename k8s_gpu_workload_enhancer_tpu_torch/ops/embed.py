@@ -159,8 +159,18 @@ class _EmbedTokens(torch.autograd.Function):
         (ids,) = ctx.saved_tensors
         v, d = ctx.vocab, g.shape[-1]
         acc = torch.zeros((v + 1, d), dtype=ctx.dtype, device=g.device)
-        acc.index_put_((scatter_rows(ids, v).reshape(-1),),
-                       (g * ctx.scale).reshape(-1, d), accumulate=True)
+        rows, vals = scatter_rows(ids, v).reshape(-1), (g * ctx.scale
+                                                        ).reshape(-1, d)
+        if acc.is_cuda or acc.dtype != torch.float32:
+            # On the card it sorts the ids, then adds each row's terms in
+            # order; on the CPU a bf16 table is added to in order, rounding
+            # every sum as the JAX scatter does: both repeatable.
+            acc.index_put_((rows,), vals, accumulate=True)
+        else:
+            # The CPU index_put_ adds f32 terms from several threads past a
+            # grain size, in no fixed order; index_add_ adds them in order,
+            # so a resumed run repeats a straight one bit for bit.
+            acc.index_add_(0, rows, vals)
         return acc[:v].to(ctx.table_dtype), None, None, None
 
 

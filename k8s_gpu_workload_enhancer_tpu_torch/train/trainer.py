@@ -237,29 +237,36 @@ def synthetic_batches(model_cfg: tf.TransformerConfig,
 def train_loop(model_cfg: tf.TransformerConfig, train_cfg: TrainConfig,
                num_steps: int = 10, callback=None, device="cuda",
                stop: Optional[Callable[[], bool]] = None,
-               timer: Optional[StepTimer] = None) -> Dict[str, Any]:
-    """Train `num_steps` steps from a fresh state (seeded from
-    train_cfg.seed) on synthetic batches. Each step is timed by `timer` (a
-    StepTimer, made here when None) and ends in a host read of the loss,
-    so its wall time covers the device's work. `callback(i, metrics)` runs
-    after each step; the loop ends early once `stop()` is true after a
-    step. Returns the timer's summary (the first step, which builds the
-    kernels, left out) with `final_loss` and `steps_run`."""
+               timer: Optional[StepTimer] = None,
+               state: Optional[TrainState] = None,
+               batches: Optional[Iterator[torch.Tensor]] = None
+               ) -> Dict[str, Any]:
+    """Train from `state` (default: a fresh state seeded from
+    train_cfg.seed) until it reaches step `num_steps`, on `batches`
+    (default: synthetic batches). The step updates `state` in place. Each
+    step is timed by `timer` (a StepTimer, made here when None) and ends in
+    a host read of the loss, so its wall time covers the device's work.
+    `callback(i, metrics)` runs after step i (counted from 0 at a fresh
+    state); the loop ends early once `stop()` is true after a step.
+    Returns the timer's summary (the first step, which builds the kernels,
+    left out) with `final_loss` and `steps_run`."""
     device = resolve_device(device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(train_cfg.seed)
-    state = init_state(model_cfg, train_cfg, gen)
+    if state is None:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(train_cfg.seed)
+        state = init_state(model_cfg, train_cfg, gen)
     step = make_train_step(model_cfg, train_cfg)
-    batches = synthetic_batches(model_cfg, train_cfg, device)
+    if batches is None:
+        batches = synthetic_batches(model_cfg, train_cfg, device)
     timer = timer if timer is not None else StepTimer()
     tokens = train_cfg.batch_size * train_cfg.seq_len
     flops = tokens * model_cfg.flops_per_token(train_cfg.seq_len)
     loss, steps_run = float("nan"), 0
-    for i in range(num_steps):
+    for i in range(state.step, num_steps):
         with timer.step(i, tokens=tokens, flops=flops):
             state, metrics = step(state, next(batches))
             loss = float(metrics["loss"])    # waits for the device
-        steps_run = i + 1
+        steps_run += 1
         if callback is not None:
             callback(i, metrics)
         if stop is not None and stop():

@@ -1007,3 +1007,24 @@ def test_embed_and_relayout_kernels_raise_on_inputs_they_do_not_take(dev):
         relayout.to_t_forward(x[0])
     with pytest.raises(ValueError):                 # B*H must match
         relayout.from_t_forward(_randn(dev, 6, 8, 64), 4, 2)
+
+
+def test_prefetch_to_device_matches_the_numpy_batches(dev, tmp_path):
+    """The token pipeline on the card: batches copied from pinned host
+    tensors on a side stream, each waited for before use, equal the numpy
+    windows (as int64 tokens), and a step that consumes a batch sees it."""
+    import numpy as np
+    from k8s_gpu_workload_enhancer_tpu_torch.train import data
+    path = str(tmp_path / "tokens.bin")
+    data.write_token_file(path, np.random.default_rng(0).integers(
+        0, 30000, 40 * 257))
+    cfg = data.DataConfig(path=path, batch_size=8, seq_len=256, seed=1)
+    want = data.TokenDataset(cfg).batches(2)
+    got = data.make_input_pipeline(cfg, start_step=2, device=dev)
+    for _ in range(6):
+        b = next(got)
+        assert b.device == dev and b.dtype == torch.int64
+        total = int(b.sum())                 # consumed on the current stream
+        w = next(want)
+        assert total == int(w.astype(np.int64).sum())
+        assert torch.equal(b.cpu(), torch.from_numpy(w).long())

@@ -1,6 +1,6 @@
 """The port's trainer main on the CPU: its JSON step and final lines, the
-SIGTERM drain, and the flags it refuses (exit code 2) instead of
-ignoring."""
+SIGTERM drain, resuming from a checkpoint, training from a token shard,
+and the flags it refuses (exit code 2) instead of ignoring."""
 
 import json
 import os
@@ -76,9 +76,6 @@ def test_sigterm_drains_after_the_step_in_flight(capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--checkpoint-dir", "ckpt"],
-    ["--resume"],
-    ["--data-file", "tokens.bin"],
     ["--pipeline-microbatches", "2"],
     ["--n-experts", "4"],
 ])
@@ -86,6 +83,63 @@ def test_unported_flags_exit_2(flags, capsys):
     assert cli.main(TINY + ["--steps", "1"] + flags) == cli.EXIT_REFUSED
     err = capsys.readouterr().err
     assert "not ported yet" in err and "ROADMAP A1" in err
+
+
+def test_main_resumes_and_prints_resumed_from_step(tmp_path, capsys):
+    ckpt = str(tmp_path / "ckpt")
+    first, second = [], []
+    assert cli.main(TINY + ["--steps", "2", "--checkpoint-dir", ckpt],
+                    callback=lambda i, m: first.append(i)) == 0
+    assert "resumed" not in capsys.readouterr().out
+    assert cli.main(TINY + ["--steps", "4", "--checkpoint-dir", ckpt,
+                            "--resume"],
+                    callback=lambda i, m: second.append(i)) == 0
+    out = capsys.readouterr().out
+    assert "resumed from step 2" in out.splitlines()
+    assert (first, second) == ([0, 1], [2, 3])
+    assert _lines(out)[-1]["final"] is True
+    assert sorted(os.listdir(ckpt)) == ["ckpt-2.pt", "ckpt-4.pt"]
+
+
+def test_resume_without_a_directory_trains_from_step_0(capsys):
+    """As in the JAX trainer, --resume alone has nothing to restore."""
+    seen = []
+    assert cli.main(TINY + ["--steps", "2", "--resume"],
+                    callback=lambda i, m: seen.append(i)) == 0
+    assert seen == [0, 1]
+    assert "resumed" not in capsys.readouterr().out
+
+
+def test_main_trains_from_a_token_shard(tmp_path, capsys):
+    """--data-file: the first step's loss is the model loss of the seeded
+    init on the shard's first batch (not on synthetic data)."""
+    import numpy as np
+    import torch
+    from k8s_gpu_workload_enhancer_tpu_torch.models import transformer as tf
+    from k8s_gpu_workload_enhancer_tpu_torch.train import data, trainer
+    path = str(tmp_path / "tokens.bin")
+    data.write_token_file(path, np.random.default_rng(2).integers(
+        0, 256, 33 * 8))
+    losses = {}
+    for source in (["--data-file", path], []):
+        got = []
+        assert cli.main(TINY + ["--steps", "2"] + source,
+                        callback=lambda i, m: got.append(float(m["loss"]))
+                        ) == 0
+        losses[bool(source)] = got
+    cfg = tf.TransformerConfig(vocab_size=256, d_model=64, n_layers=2,
+                               n_heads=2, n_kv_heads=2, d_ff=128, max_seq=32,
+                               dtype=torch.float32)
+    tcfg = trainer.TrainConfig(batch_size=2, seq_len=32)
+    state = trainer.init_state(cfg, tcfg, torch.Generator().manual_seed(0))
+    batch = next(data.TokenDataset(data.DataConfig(
+        path=path, batch_size=2, seq_len=32)).batches(0))
+    with torch.no_grad():
+        want, _ = tf.loss_fn(state.params, torch.from_numpy(batch).long(),
+                             cfg)
+    assert losses[True][0] == float(want)
+    assert losses[True] != losses[False]
+    capsys.readouterr()
 
 
 def test_trainer_flags_match_the_jax_trainer():
