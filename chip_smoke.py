@@ -66,7 +66,28 @@ inits in bf16:
      checkpoint's bytes, save and restore seconds, the serve load's peak
      device memory, the swap pause and the step ms on the shard against
      synthetic data; checkpoints live in a temporary directory, at most
-     two full ones at a time); the trainer main in-process, 4 steps at batch 8
+     two full ones at a time; since the fleet slice the dense and paged
+     serve mains also register a 160-token prefix before the reload, a
+     prefixId request answers as the full prompt on the new weights, and
+     the reload is repeated without the prefix: the swap pause with and
+     without one); the fleet phase, once dense and once paged: two serve
+     mains A and B on the same seeded weights, each with a --metrics-port
+     (a 160-token prefix registered on A, 8 requests of it plus 32 tokens
+     answering as the full prompts sent to B, the release (paged: requests
+     filling the whole pool then evict every cached page, the released
+     chain's included, and the pool ends as it began); 4 greedy streams of
+     64 new tokens and a sampled one (temperature 0.8, a prngKey) ejected
+     from A by POST /v1/admin/eject once each has streamed 8 tokens, every
+     stream ending in a migrate frame whose resume state B continues as
+     resumeFrom, streamed: the spliced stream equals B's uninterrupted
+     transcript, offsets contiguous; a queued and a decoding request
+     cancelled through /v1/cancel and read through /v1/result; both
+     metrics ports scraped, every family parsed, the resume and eject
+     counters equal to what the phase did; it prints a `fleet` line with
+     the card, TTFT of the prefix requests against the full prompts and
+     the prefill chunks saved, the eject's wall ms, resumed against fresh
+     TTFT, and the checkpoint phase's swap pauses with and without a
+     prefix); the trainer main in-process, 4 steps at batch 8
      (the p/ds stash is over its gate, so dK/dV are recomputed) and 2 at
      batch 4 (the stash path); and the flagship configuration through
      train.trainer.train_loop, cut to batch 32 (grad_accum 4 instead of
@@ -123,6 +144,7 @@ import os
 import re
 import shutil
 import signal
+import socket
 import subprocess
 import sys
 import tempfile
@@ -146,6 +168,18 @@ N_REQUESTS, PROMPT_LEN, LONG_PROMPT_LEN, NEW_TOKENS = 8, 128, 160, 48
 # The paged phase: pages of 16 tokens (16 per slot, an auto pool of 129),
 # 8 requests sharing a 128-token prefix with 32-token suffixes, one cold.
 KV_BLOCK_LEN, SHARED_PREFIX, SUFFIX = 16, 128, 32
+
+# The fleet phase: a registered prefix of 160 tokens (128 cached dense, 160
+# paged) under 8 requests of 32-token suffixes and 48 new tokens; 4 greedy
+# streams of 64 new tokens and one sampled one (temperature 0.8), ejected
+# once each has streamed 8 tokens; on the paged main, 8 requests of 15
+# prompt and 241 new tokens (16 pages each: the whole pool) after the
+# release; 8 streams of 128 new tokens and a ninth queued behind them for
+# the cancels.
+FLEET_PREFIX, FLEET_SUFFIX, FLEET_NEW = 160, 32, 48
+MIGRATE_REQUESTS, MIGRATE_PROMPT, MIGRATE_NEW, MIGRATE_AFTER = 4, 32, 64, 8
+SAMPLED_TEMPERATURE, SAMPLED_KEY = 0.8, [7, 11]
+FLUSH_PROMPT, CANCEL_NEW = 15, 128
 
 # Training: the trainer main's defaults (cmd/trainer.py of the JAX package),
 # and the stash-path batch (the p/ds stash is 1.07 GB at batch 4, under the
@@ -315,6 +349,17 @@ def expected_launches(n_layers: int, lifetime: dict,
         want["paged_decode"] = n_layers * steps
         want["paged_decode_combine"] = n_layers * steps
     return want
+
+
+def prefix_chunks(n_tokens: int, paged: bool) -> int:
+    """Prefill chunks a registration (or a swap's re-prefill) of an
+    n-token prefix runs, none of it matched in the tree: dense its
+    prefill_len grid, paged its full blocks (the last chunk padded). They
+    are not in the engine's prefill_chunks count."""
+    if not paged:
+        return n_tokens // PREFILL_LEN
+    span = n_tokens // KV_BLOCK_LEN * KV_BLOCK_LEN
+    return -(-span // PREFILL_LEN)
 
 
 def cast_params(params, dtype):
@@ -2057,12 +2102,18 @@ def reference_tokens(serve, argv, params, prompts) -> list:
 
 
 def ckpt_serve(serve, kernels, argv, prompts, later_dir, other_dir,
-               want_before, want_after) -> dict:
+               want_before, want_after, pfx) -> dict:
     """The serve main from --checkpoint-dir: the prompts answer as the
-    reference engine on the checkpoint; a reload to `later_dir` answers
-    200 with its step, then the prompts answer as the new weights; a
-    reload of another model's checkpoint answers 409 and changes nothing.
-    Paged: the prompts share a prefix, and no page is leaked."""
+    reference engine on the checkpoint; a prefix `pfx` = (prefix, suffix)
+    is registered and a prefixId request answers as the full prompt
+    (the last entry of want_*); a reload to `later_dir` with the prefix
+    registered answers 200 with its step, then the prefixId request
+    answers as the full prompt on the new weights (the swap re-prefilled
+    the prefix); the prefix is released and the same reload repeated
+    without one (the pause without a prefix); a reload of another model's
+    checkpoint answers 409 and changes nothing; the prompts answer as the
+    new weights. Paged: the prompts share a prefix, and no page is
+    leaked."""
     stop, ready, got_port, rc = threading.Event(), {}, threading.Event(), {}
 
     def on_ready(port):
@@ -2080,19 +2131,28 @@ def ckpt_serve(serve, kernels, argv, prompts, later_dir, other_dir,
             port = ready["port"]
             start_kv = get_metrics(port)["kv_cache"]
 
+            def answer(body):
+                code, r = post_json(port, "/v1/generate", dict(
+                    body, maxNewTokens=CKPT_NEW_TOKENS, timeoutSeconds=300))
+                if code != 200 or r.get("status") != "ok":
+                    fail(f"checkpoint serve /v1/generate: {code} {r}")
+                return r["tokens"]
+
             def answers():
-                got = []
-                for prompt in prompts:
-                    code, r = post_json(port, "/v1/generate", {
-                        "prompt": prompt, "maxNewTokens": CKPT_NEW_TOKENS,
-                        "timeoutSeconds": 300})
-                    if code != 200 or r.get("status") != "ok":
-                        fail(f"checkpoint serve /v1/generate: {code} {r}")
-                    got.append(r["tokens"])
-                return got
+                return [answer({"prompt": p}) for p in prompts]
             before = answers()
+            code, reg = post_json(port, "/v1/prefix", {"tokens": pfx[0]})
+            if code != 200:
+                fail(f"checkpoint serve /v1/prefix: {code} {reg}")
+            by_prefix = {"prompt": pfx[1], "prefixId": reg["prefixId"]}
+            prefix_before = answer(by_prefix)
             code, good = post_json(port, "/v1/admin/reload",
                                    {"checkpointDir": later_dir})
+            prefix_after = answer(by_prefix)
+            code_rel, _ = post_json(port, "/v1/prefix",
+                                    {"releaseId": reg["prefixId"]})
+            code_plain, plain = post_json(port, "/v1/admin/reload",
+                                          {"checkpointDir": later_dir})
             code_bad, bad = post_json(port, "/v1/admin/reload",
                                       {"checkpointDir": other_dir})
             after = answers()
@@ -2106,15 +2166,20 @@ def ckpt_serve(serve, kernels, argv, prompts, later_dir, other_dir,
         fail(f"checkpoint serve main did not drain and exit 0: {rc}")
     if "restored params from step" not in text:
         fail(f"checkpoint serve main printed no restore line: {text}")
-    if before != want_before:
-        fail(f"checkpoint serve tokens {before} differ from the engine on "
-             f"the same checkpoint {want_before}")
-    if code != 200 or good.get("status") != "ok":
-        fail(f"/v1/admin/reload to {later_dir}: {code} {good}")
+    if before != want_before[:-1] or prefix_before != want_before[-1]:
+        fail(f"checkpoint serve tokens {before}, by prefix {prefix_before} "
+             f"differ from the engine on the same checkpoint {want_before}")
+    if code != 200 or good.get("status") != "ok" or code_plain != 200 \
+            or code_rel != 200:
+        fail(f"/v1/admin/reload to {later_dir}: {code} {good}, again "
+             f"without the prefix {code_plain} {plain}")
+    if prefix_after != want_after[-1]:
+        fail(f"after the reload the prefix request gave {prefix_after}, the "
+             f"full prompt on the new weights {want_after[-1]}")
     if code_bad != 409:
         fail(f"/v1/admin/reload of another model answered {code_bad} "
              f"{bad}, want 409")
-    if after != want_after:
+    if after != want_after[:-1]:
         fail(f"after the reload the serve gave {after}, the engine on the "
              f"new weights {want_after}")
     kv = metrics["kv_cache"]
@@ -2128,7 +2193,10 @@ def ckpt_serve(serve, kernels, argv, prompts, later_dir, other_dir,
                  f"prefix reuse: start {start_kv}, end {kv}")
     return dict(argv=argv, restored_line=[x for x in text.splitlines()
                                           if "restored params" in x],
-                reload_step=good["step"], swap_pause_ms=good["swapPauseMs"],
+                reload_step=good["step"],
+                swap_pause_ms_with_prefix=good["swapPauseMs"],
+                swap_pause_ms=plain["swapPauseMs"],
+                prefix_cached_tokens=reg["cachedTokens"],
                 other_model_reload=dict(status=code_bad,
                                         error=bad.get("error", "")[:200]),
                 weight_swaps=metrics["resilience"]["weight_swaps"],
@@ -2285,27 +2353,392 @@ def _checkpoint_phase(dev, kernels, trainer_cli, serve, tf, trainer, ckpt,
     prefix = rng.integers(0, vocab, SHARED_PREFIX).tolist()
     paged_prompts = [prefix + rng.integers(0, vocab, 16).tolist()
                      for _ in range(2)]
+    # A registered prefix of FLEET_PREFIX tokens no other prompt shares (so
+    # its registration prefills every chunk) and a suffix.
+    pfx = (rng.integers(0, vocab, FLEET_PREFIX).tolist(),
+           rng.integers(0, vocab, FLEET_SUFFIX).tolist())
     paged_argv = serve_argv + ["--kv-block-len", str(KV_BLOCK_LEN)]
     want = {}
     for name, argv, prompts in (("dense", serve_argv, dense_prompts),
                                 ("paged", paged_argv, paged_prompts)):
-        want[name] = [reference_tokens(serve, argv, p, prompts)
+        want[name] = [reference_tokens(serve, argv, p,
+                                       prompts + [pfx[0] + pfx[1]])
                       for p in (params3, params4)]
     del params3, params4
     collect_garbage()
     out["serve"] = ckpt_serve(serve, kernels, serve_argv, dense_prompts,
-                              dir_later, dir_other, *want["dense"])
+                              dir_later, dir_other, *want["dense"], pfx)
     out["paged_serve"] = ckpt_serve(serve, kernels, paged_argv,
                                     paged_prompts, dir_later, dir_other,
-                                    *want["paged"])
+                                    *want["paged"], pfx)
     for phase in ("serve", "paged_serve"):
         got = out[phase]["launches"]
-        exp = expected_launches(SERVE_DIMS["n_layers"],
-                                out[phase]["lifetime"],
-                                paged=phase == "paged_serve")
+        paged = phase == "paged_serve"
+        # The registration's chunks and the swap's re-prefill of the
+        # prefix (the first reload; the second runs without a prefix).
+        life = dict(out[phase]["lifetime"])
+        life["prefill_chunks"] += 2 * prefix_chunks(FLEET_PREFIX, paged)
+        exp = expected_launches(SERVE_DIMS["n_layers"], life, paged=paged)
         if got != exp:
             fail(f"checkpoint {phase} launches {got}, its chunks and steps "
                  f"need {exp}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 5b: the serve surface the fleet calls
+# ---------------------------------------------------------------------------
+
+
+def free_port() -> int:
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def get_json(port: int, path: str):
+    """(status, reply) of a GET; an HTTP error's status and JSON body."""
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=60) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+class ServeMain:
+    """serve.main(argv) in a thread, up at `port`; close() stops it and
+    fails unless it drained and returned 0."""
+
+    def __init__(self, serve, argv):
+        self.stop, self.rc, ready, up = (threading.Event(), {}, {},
+                                         threading.Event())
+
+        def on_ready(port):
+            ready["port"] = port
+            up.set()
+        self.thread = threading.Thread(target=lambda: self.rc.update(
+            rc=serve.main(argv, stop=self.stop, on_ready=on_ready)),
+            daemon=True)
+        self.thread.start()
+        if not up.wait(600):
+            fail(f"serve main {argv} did not come up")
+        self.port = ready["port"]
+
+    def close(self):
+        self.stop.set()
+        self.thread.join(120)
+        if self.thread.is_alive() or self.rc.get("rc") != 0:
+            fail(f"serve main did not drain and exit 0: {self.rc}")
+
+
+class Stream:
+    """A streamed /v1/generate (submitted when the constructor returns),
+    read in a thread: `lines` grows as they arrive, `done` is set after
+    the last."""
+
+    def __init__(self, port: int, body: dict):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/v1/generate",
+            data=json.dumps(dict(body, stream=True,
+                                 timeoutSeconds=300)).encode(),
+            headers={"Content-Type": "application/json"}, method="POST")
+        self.resp = urllib.request.urlopen(req, timeout=300)
+        self.lines, self.done = [], threading.Event()
+        threading.Thread(target=self._read, daemon=True).start()
+
+    def _read(self):
+        try:
+            for raw in self.resp:
+                self.lines.append(json.loads(raw))
+        finally:
+            self.resp.close()
+            self.done.set()
+
+    def tokens(self) -> list:
+        return [t for x in list(self.lines) if "status" not in x
+                for t in x["tokens"]]
+
+    def final(self) -> dict:
+        if not self.done.wait(300) or "status" not in self.lines[-1]:
+            fail(f"stream did not end with a final view: {self.lines[-3:]}")
+        return self.lines[-1]
+
+
+def concurrent(port: int, bodies: list) -> list:
+    """Blocking /v1/generate replies of `bodies`, sent at once."""
+    out = [None] * len(bodies)
+
+    def send(i):
+        out[i] = post_json(port, "/v1/generate",
+                           dict(bodies[i], timeoutSeconds=300))
+    threads = [threading.Thread(target=send, args=(i,))
+               for i in range(len(bodies))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(600)
+    for code, r in out:
+        if code != 200 or r.get("status") != "ok":
+            fail(f"/v1/generate: {code} {r}")
+    return [r for _, r in out]
+
+
+def wait_streamed(streams, n: int) -> None:
+    """Until each stream has streamed n tokens; fail if one ends first."""
+    deadline = time.time() + 300
+    while not all(len(s.tokens()) >= n for s in streams):
+        if any(s.done.is_set() for s in streams) or time.time() > deadline:
+            fail(f"a stream ended (or stalled) before {n} tokens: "
+                 f"{[s.lines[-1:] for s in streams]}")
+        time.sleep(0.001)
+
+
+def splice(a: Stream, b: Stream, want: list, what: str) -> int:
+    """A's stream ends in a migrate frame, B's resumes it: offsets
+    contiguous from 0 across both, no token repeated or lost, and the
+    spliced tokens equal `want`. Returns the committed length."""
+    final_a, final_b = a.final(), b.final()
+    if final_a.get("status") != "migrate" or "resume" not in final_a:
+        fail(f"{what}: the ejected stream ended {final_a}")
+    committed = final_a["resume"]["committed"]
+    seen, toks = 0, []
+    for x in a.lines[:-1] + b.lines[:-1]:
+        if x["offset"] != seen:
+            fail(f"{what}: offset {x['offset']} where {seen} was due")
+        toks += x["tokens"]
+        seen += len(x["tokens"])
+    if a.tokens() != committed or final_b.get("status") != "ok" \
+            or final_b.get("committedOffset") != len(committed):
+        fail(f"{what}: streamed {a.tokens()}, committed {committed}, "
+             f"resumed final {final_b}")
+    if toks != want:
+        first = next((i for i, (x, y) in enumerate(zip(toks, want))
+                      if x != y), min(len(toks), len(want)))
+        fail(f"{what}: the spliced stream differs from the uninterrupted "
+             f"one at token {first} (committed {len(committed)}): "
+             f"{toks} vs {want}")
+    return len(committed)
+
+
+def scrape(port: int, families) -> dict:
+    """GET /metrics of a --metrics-port: every line a `# TYPE name kind`
+    or `name value`, every family one of `families`."""
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                timeout=60) as resp:
+        text = resp.read().decode()
+    series = {}
+    for line in text.splitlines():
+        parts = line.split()
+        if line.startswith("# TYPE "):
+            if len(parts) != 4 or parts[3] not in ("counter", "gauge"):
+                fail(f"metrics port: bad TYPE line {line!r}")
+        elif len(parts) != 2 or parts[0] not in families:
+            fail(f"metrics port: bad line {line!r}")
+        else:
+            series[parts[0]] = float(parts[1])
+    if set(series) != set(families):
+        fail(f"metrics port served {sorted(series)}")
+    return series
+
+
+def run_fleet(serve, kernels, paged: bool = False) -> dict:
+    """Two serve mains A and B at the serve defaults on the same seeded
+    weights (paged: pages of 16), each with a --metrics-port, with the
+    launch counters set to 0 just before they start and read after they
+    exit; the fleet's routes driven between them (fleet_phase)."""
+    base = ["--device", "cuda", "--port", "0", "--seed", "0"]
+    if paged:
+        base += ["--kv-block-len", str(KV_BLOCK_LEN)]
+    mports = [free_port(), free_port()]
+    buf = io.StringIO()
+    kernels.reset_launches()
+    with contextlib.redirect_stdout(buf):
+        a = ServeMain(serve, base + ["--metrics-port", str(mports[0])])
+        b = ServeMain(serve, base + ["--metrics-port", str(mports[1])])
+        try:
+            out = fleet_phase(serve, a.port, b.port, mports, paged)
+        finally:
+            a.close()
+            b.close()
+    launches = dict(kernels.launches)
+    life = {k: out["lifetime_a"][k] + out["lifetime_b"][k]
+            for k in ("prefill_chunks", "decode_steps")}
+    life["prefill_chunks"] += prefix_chunks(FLEET_PREFIX, paged)
+    want = expected_launches(SERVE_DIMS["n_layers"], life, paged=paged)
+    if launches != want:
+        fail(f"fleet ({'paged' if paged else 'dense'}) launches {launches}, "
+             f"its chunks and steps need {want}")
+    out["launches"] = launches
+    return out
+
+
+def fleet_phase(serve, pa: int, pb: int, mports, paged: bool) -> dict:
+    vocab, max_seq = SERVE_DIMS["vocab_size"], SERVE_DIMS["max_seq"]
+    rng = np.random.default_rng(31 + paged)
+    out = {"paged": paged}
+    kv0 = get_metrics(pa)["kv_cache"]
+    # 1. A registered prefix against the full prompts on B.
+    prefix = rng.integers(0, vocab, FLEET_PREFIX).tolist()
+    suffixes = [rng.integers(0, vocab, FLEET_SUFFIX).tolist()
+                for _ in range(NUM_SLOTS)]
+    code, reg = post_json(pa, "/v1/prefix", {"tokens": prefix})
+    cached = (FLEET_PREFIX if paged
+              else FLEET_PREFIX // PREFILL_LEN * PREFILL_LEN)
+    if code != 200 or reg.get("cachedTokens") != cached:
+        fail(f"/v1/prefix: {code} {reg}, want {cached} cached tokens")
+    chunks0 = [get_metrics(p)["lifetime"]["prefill_chunks"]
+               for p in (pa, pb)]
+    by_prefix = concurrent(pa, [{"prompt": sfx, "prefixId": reg["prefixId"],
+                                 "maxNewTokens": FLEET_NEW}
+                                for sfx in suffixes])
+    full = concurrent(pb, [{"prompt": prefix + sfx,
+                            "maxNewTokens": FLEET_NEW} for sfx in suffixes])
+    for i, (x, y) in enumerate(zip(by_prefix, full)):
+        if x["tokens"] != y["tokens"] or len(x["tokens"]) != FLEET_NEW:
+            fail(f"prefix request {i} gave {x['tokens']}, the full prompt "
+                 f"{y['tokens']}")
+    chunks = [get_metrics(p)["lifetime"]["prefill_chunks"] - c
+              for p, c in zip((pa, pb), chunks0)]
+    code, rel = post_json(pa, "/v1/prefix", {"releaseId": reg["prefixId"]})
+    m = get_metrics(pa)
+    if code != 200 or m["prefix_cache"] != {
+            "registered": 0, "hits": NUM_SLOTS,
+            "prompt_tokens_saved": NUM_SLOTS * cached}:
+        fail(f"prefix release: {code} {rel}, {m['prefix_cache']}")
+    out["prefix"] = dict(
+        prefix_tokens=FLEET_PREFIX, cached_tokens=cached,
+        requests=NUM_SLOTS, suffix_tokens=FLEET_SUFFIX, new_tokens=FLEET_NEW,
+        ttft_p50_ms_prefix=float(np.median([r["ttftMs"] for r in by_prefix])),
+        ttft_p50_ms_full=float(np.median([r["ttftMs"] for r in full])),
+        prefill_chunks_prefix=chunks[0], prefill_chunks_full=chunks[1],
+        prefill_chunks_saved=chunks[1] - chunks[0],
+        registration_chunks=prefix_chunks(FLEET_PREFIX, paged),
+        tokens_equal=True)
+    if paged:
+        # The released chain is cold: requests that fill the whole pool
+        # evict it with every other cached page, none is deferred, and
+        # when they end the pool holds what it held before registration.
+        kv1 = m["kv_cache"]
+        concurrent(pa, [{"prompt": rng.integers(0, vocab, FLUSH_PROMPT)
+                         .tolist(), "maxNewTokens": max_seq - FLUSH_PROMPT}
+                        for _ in range(NUM_SLOTS)])
+        kv2 = get_metrics(pa)["kv_cache"]
+        evicted = kv2["evictions_total"] - kv1["evictions_total"]
+        if kv2["blocks_used"] != kv0["blocks_used"] \
+                or kv2["deferrals_total"] != kv1["deferrals_total"] \
+                or evicted != kv1["blocks_cached"]:
+            fail(f"after the prefix release: pool {kv2}, before the flush "
+                 f"{kv1}, before registration {kv0}")
+        out["prefix"]["released_pages_evicted"] = evicted
+        out["prefix"]["blocks_used_before_after"] = [kv0["blocks_used"],
+                                                     kv2["blocks_used"]]
+    # 2. Migration: 4 greedy streams and a sampled one ejected from A
+    # after 8 tokens each, resumed on B, against B's uninterrupted runs.
+    prompts = [rng.integers(0, vocab, MIGRATE_PROMPT).tolist()
+               for _ in range(MIGRATE_REQUESTS)]
+    fresh = concurrent(pb, [{"prompt": p, "maxNewTokens": MIGRATE_NEW}
+                            for p in prompts])
+    streams = [Stream(pa, {"prompt": p, "maxNewTokens": MIGRATE_NEW})
+               for p in prompts]
+    wait_streamed(streams, MIGRATE_AFTER)
+    t0 = time.perf_counter()
+    code, ej = post_json(pa, "/v1/admin/eject", {})
+    eject_ms = (time.perf_counter() - t0) * 1e3
+    if code != 200 or ej.get("ejected") != MIGRATE_REQUESTS:
+        fail(f"/v1/admin/eject: {code} {ej}")
+    finals = [s.final() for s in streams]
+    if any(f.get("status") != "migrate" for f in finals):
+        fail(f"an ejected stream ended {finals}")
+    resumed = [Stream(pb, {"resumeFrom": f["resume"]}) for f in finals]
+    committed = [splice(a, b, w["tokens"], f"greedy stream {i}")
+                 for i, (a, b, w) in enumerate(zip(streams, resumed,
+                                                   fresh))]
+    sampled_body = {"prompt": rng.integers(0, vocab, MIGRATE_PROMPT)
+                    .tolist(), "maxNewTokens": MIGRATE_NEW,
+                    "temperature": SAMPLED_TEMPERATURE,
+                    "prngKey": SAMPLED_KEY}
+    want_s = concurrent(pb, [sampled_body])[0]["tokens"]
+    s_a = Stream(pa, sampled_body)
+    wait_streamed([s_a], MIGRATE_AFTER)
+    code, ej = post_json(pa, "/v1/admin/eject", {})
+    resume_s = s_a.final().get("resume") or {}
+    if code != 200 or ej.get("ejected") != 1:
+        fail(f"/v1/admin/eject of the sampled stream: {code} {ej}")
+    if resume_s.get("prngKey") != SAMPLED_KEY \
+            or resume_s.get("temperature") != SAMPLED_TEMPERATURE:
+        fail(f"the sampled resume state lost its key: {resume_s}")
+    s_b = Stream(pb, {"resumeFrom": resume_s})
+    committed.append(splice(s_a, s_b, want_s, "sampled stream"))
+    out["migration"] = dict(
+        streams=MIGRATE_REQUESTS, sampled=1, new_tokens=MIGRATE_NEW,
+        committed=committed, eject_ms=eject_ms,
+        ttft_ms_resumed=[b.final()["ttftMs"] for b in resumed],
+        ttft_ms_fresh=[r["ttftMs"] for r in fresh],
+        spliced_equal_uninterrupted=True)
+    # 3. Cancel a queued and a decoding request; /v1/result reads them.
+    streams = [Stream(pa, {"prompt": rng.integers(0, vocab, 16).tolist(),
+                           "maxNewTokens": CANCEL_NEW})
+               for _ in range(NUM_SLOTS + 1)]
+    wait_streamed(streams[:1], 1)
+    rid0 = streams[0].lines[0]["requestId"]
+    rid_q = rid0 + NUM_SLOTS             # ids follow the submit order
+    deadline = time.time() + 60
+    while True:                          # the other 8 admitted
+        m = get_metrics(pa)
+        if m["queued"] == 1 and m["slots_busy"] == NUM_SLOTS:
+            break
+        if time.time() > deadline:
+            fail(f"the cancel phase never had one request queued: {m}")
+        time.sleep(0.001)
+    pending = get_json(pa, f"/v1/result?requestId={rid_q}")
+    queued = get_metrics(pa)["queued"]
+    cancels = [post_json(pa, "/v1/cancel", {"requestId": r})
+               for r in (rid_q, rid0)]
+    views = [get_json(pa, f"/v1/result?requestId={r}") for r in (rid_q,
+                                                                  rid0)]
+    if pending != (200, {"status": "pending", "requestId": rid_q,
+                         "tokensSoFar": 0}) or queued != 1:
+        fail(f"the queued request: /v1/result {pending}, queued {queued}")
+    if any(c != (200, {"status": "ok", "requestId": r, "cancelled": True})
+           for c, r in zip(cancels, (rid_q, rid0))):
+        fail(f"/v1/cancel: {cancels}")
+    if any(c != 200 or v.get("status") != "cancelled" for c, v in views) \
+            or views[0][1]["tokens"] or not views[1][1]["tokens"]:
+        fail(f"/v1/result after the cancels: {views}")
+    for s in streams[1:NUM_SLOTS]:
+        if s.final().get("status") != "ok":
+            fail(f"a stream beside the cancels ended {s.final()}")
+    if get_json(pa, "/v1/result?requestId=999999")[0] != 404:
+        fail("/v1/result of an unknown id did not answer 404")
+    kv = get_metrics(pa)["kv_cache"]
+    if paged and kv["blocks_free"] + kv["blocks_cached"] != kv["blocks_total"]:
+        fail(f"pages leaked after the cancels: {kv}")
+    out["cancel"] = dict(queued_cancelled=views[0][1]["finishReason"],
+                         decoding_cancelled_after=len(views[1][1]["tokens"]))
+    # 4. The metrics ports against what the phase did.
+    fam = serve.SERVING_FAMILIES
+    sa, sb = scrape(mports[0], fam), scrape(mports[1], fam)
+    want = {(0, "ktwe_serving_ejected_requests_total"): MIGRATE_REQUESTS + 1,
+            (0, "ktwe_serving_resume_requests_total"): 0,
+            (0, "ktwe_serving_prefix_hits_total"): NUM_SLOTS,
+            (0, "ktwe_serving_prefixes_registered"): 0,
+            (0, "ktwe_serving_requests_cancelled_total"): 2,
+            (1, "ktwe_serving_ejected_requests_total"): 0,
+            (1, "ktwe_serving_resume_requests_total"): MIGRATE_REQUESTS + 1,
+            (1, "ktwe_serving_resume_committed_tokens_total"):
+                sum(committed)}
+    for (i, name), value in want.items():
+        if (sa, sb)[i][name] != value:
+            fail(f"metrics port {'AB'[i]}: {name} {(sa, sb)[i][name]}, "
+                 f"want {value}")
+    out["metrics_port"] = dict(families=len(fam),
+                               a={k: sa[k] for k in fam if "resume" in k
+                                  or "eject" in k},
+                               b={k: sb[k] for k in fam if "resume" in k
+                                  or "eject" in k})
+    out["lifetime_a"] = get_metrics(pa)["lifetime"]
+    out["lifetime_b"] = get_metrics(pb)["lifetime"]
     return out
 
 
@@ -2569,6 +3002,28 @@ def main() -> int:
     results["checkpoint_paged_serve"] = ckpt_out["paged_serve"]
     print(json.dumps({"checkpoint": dict(card=card, **ckpt_out)}),
           flush=True)
+    results["fleet"] = run_fleet(serve, kernels)
+    results["fleet_paged"] = run_fleet(serve, kernels, paged=True)
+    summary = {}
+    for name, phase, ck in (("dense", "fleet", "serve"),
+                            ("paged", "fleet_paged", "paged_serve")):
+        f = results[phase]
+        summary[name] = dict(
+            ttft_p50_ms_prefix=f["prefix"]["ttft_p50_ms_prefix"],
+            ttft_p50_ms_full_prompt=f["prefix"]["ttft_p50_ms_full"],
+            prefill_chunks_saved=f["prefix"]["prefill_chunks_saved"],
+            eject_ms=f["migration"]["eject_ms"],
+            ttft_p50_ms_resumed=float(np.median(
+                f["migration"]["ttft_ms_resumed"])),
+            ttft_p50_ms_fresh=float(np.median(
+                f["migration"]["ttft_ms_fresh"])),
+            swap_pause_ms_with_prefix=ckpt_out[ck][
+                "swap_pause_ms_with_prefix"],
+            swap_pause_ms_without=ckpt_out[ck]["swap_pause_ms"])
+    print(json.dumps({"fleet": dict(card=card, summary=summary,
+                                    dense=results["fleet"],
+                                    paged=results["fleet_paged"])}),
+          flush=True)
     gate_mods = (kernels, rms, rope, flash, tf, trainer)
     results["train_gate_f32"] = run_train_gate(dev, gate_mods)
     print(json.dumps({"train_gate_f32": results["train_gate_f32"]}),
@@ -2589,9 +3044,11 @@ def main() -> int:
     print(json.dumps({"profile": results["profile"]}), flush=True)
 
     serving_phases = ("engine", "serve", "paged_engine", "paged_serve",
-                      "checkpoint_serve", "checkpoint_paged_serve")
+                      "checkpoint_serve", "checkpoint_paged_serve", "fleet",
+                      "fleet_paged")
     train_phases = ("train", "train_stash")
-    paged_phases = ("paged_engine", "paged_serve", "checkpoint_paged_serve")
+    paged_phases = ("paged_engine", "paged_serve", "checkpoint_paged_serve",
+                    "fleet_paged")
     # The checkpoint phase's trainer runs the t-layout path (head_dim 512).
     t_layout = ("flagship", "checkpoint_train")
     every = serving_phases + train_phases

@@ -5,36 +5,58 @@ Port of the default path of k8s_gpu_workload_enhancer_tpu/cmd/serve.py: a
 background loop steps `models/serving.ContinuousBatchEngine` whenever work
 is pending, and `/v1/generate` blocks its caller until the request
 finishes (or streams it). Request and reply fields are named as in the JAX
-service.
+service (fleet/wire.py of the JAX package is the schema), so the fleet's
+router, autoscaler and registry drive this replica as they drive a JAX one.
 
-Endpoints: POST /v1/generate {"prompt": [ids], "maxNewTokens": N,
-"timeoutSeconds": s, "temperature"?, "topP"?, "stop"?, "prngKey"?} ->
-{"status", "requestId", "tokens", "logprobs", "finishReason", "ttftMs"}; with
-{"stream": true} the reply is NDJSON, one {"tokens", "offset",
+POST /v1/generate {"prompt": [ids], "maxNewTokens": N, "timeoutSeconds": s,
+"temperature"?, "topP"?, "stop"?, "prngKey"?, "prefixId"?, "resumeFrom"?}
+-> {"status", "requestId", "tokens", "logprobs", "finishReason", "ttftMs"};
+with {"stream": true} the reply is NDJSON, one {"tokens", "offset",
 "requestId"} line per batch of new tokens and then the final view. A
-timeout or an abandoned stream CANCELS the request, freeing its slot.
-A full queue answers 429 with Retry-After. "prngKey" (two uint32 words)
-is the request's sampling key: the same key at the same temperature gives
-the same tokens. "prefixId", "stopText", "text" and "resumeFrom" are not
-served yet (they need registered prefixes, a tokenizer and the resume
-path) and answer 400 naming the field. GET /v1/metrics, GET /health.
+timeout or an abandoned stream CANCELS the request, freeing its slot. A
+full queue answers 429 with Retry-After. "prngKey" (two uint32 words) is
+the request's sampling key: the same key at the same temperature gives the
+same tokens. "prefixId" prepends a registered prefix. "resumeFrom" (a
+migrate frame's "resume": prompt, committed, maxNewTokens, sampling params,
+stop, prngKey) continues another replica's generation: the committed
+tokens are context, count against maxNewTokens and are never re-emitted
+(streams start at offset len(committed); the final view carries
+"committedOffset"). "stopText" and "text" need a tokenizer, which is not
+ported, and answer 400 naming the field. A request's "traceparent" header
+is echoed in its final view.
+
+POST /v1/prefix {"tokens": [ids]} registers a shared prompt prefix ->
+{"prefixId", "cachedTokens"}; {"releaseId": id} releases one (404 if
+unknown). A full registry answers 429 without Retry-After (only a release
+clears it), a paged pool that cannot hold the prefix 429 with Retry-After.
+POST /v1/cancel {"requestId"}; POST or GET /v1/result {"requestId"} ->
+the final view, or {"status": "pending", "tokensSoFar"} (404 unknown).
+POST /v1/admin/eject ejects every live request as a resume state: each
+stream ends with {"status": "migrate", "resume": {...}}, each blocking
+caller gets that view. GET /v1/metrics, GET /health.
 POST /v1/admin/reload {"checkpointDir"?} hot-swaps the weights to the
-latest step of that directory (default --checkpoint-dir): 200 {"status":
-"ok", "step", "swapPauseMs"}; 503 without a checkpoint source, 404 when no
-checkpoint is found, 409 when the restore fails or its tree does not match
-the engine's (the old weights keep serving), 500 for any other swap
-failure. The restore runs outside the engine lock; only the swap holds it.
+latest step of that directory (default --checkpoint-dir), re-prefilling
+every registered prefix: 200 {"status": "ok", "step", "swapPauseMs"}; 503
+without a checkpoint source, 404 when no checkpoint is found, 409 when the
+restore fails or its tree does not match the engine's (the old weights
+keep serving), 500 for any other swap failure. The restore runs outside
+the engine lock; only the swap holds it.
 With a bearer token (--auth-token, $KTWE_AUTH_TOKEN or the file at
 $KTWE_AUTH_TOKEN_FILE, which must be readable when set) every route but
 /health answers 401 without `Authorization: Bearer <token>`.
 
 --kv-block-len N > 0 serves from the paged KV engine: pages of N tokens,
 reserved per request, with automatic radix prefix reuse; /v1/metrics then
-reports the pool in its `kv_cache` block.
+reports the pool in its `kv_cache` block. --metrics-port P serves the
+`ktwe_serving_*` Prometheus families (SERVING_FAMILIES) on GET /metrics.
+--config ktwe.yaml takes defaults from the file's `serve:` section (keys
+are flag names with underscores); flags on the command line win, and a key
+this main has no flag for is an error.
 
 SIGTERM drains: new submits get 503 + Retry-After, /health answers 503
-"draining", accepted requests complete up to --drain-timeout, then the
-process exits 0.
+"draining", accepted requests run on; two seconds (at most half the
+budget) before --drain-timeout, whatever still runs is ejected as migrate
+frames, then the process exits 0.
 
 The weights are the latest step of a trainer checkpoint with
 --checkpoint-dir (train/checkpoint.py; only the params are read, `restored
@@ -46,7 +68,7 @@ CPU in f32 with --device cpu.
 
     python -m k8s_gpu_workload_enhancer_tpu_torch.cmd.serve --port 8000
     python -m k8s_gpu_workload_enhancer_tpu_torch.cmd.serve \
-        --checkpoint-dir ckpt --watch-checkpoints 30
+        --checkpoint-dir ckpt --watch-checkpoints 30 --metrics-port 9400
 """
 
 from __future__ import annotations
@@ -67,8 +89,10 @@ from ..models import transformer as tf
 from ..ops.quant import quantize_params
 from ..train.checkpoint import CheckpointManager
 from ..utils.device import resolve_device
+from ..utils.config import parse_with_config
 from ..utils.httpjson import (StatusError, make_json_handler,
                               resolve_auth_token)
+from ..utils.procmetrics import ProcMetricsServer
 from ..utils.stats import LatencyWindow
 
 # The serve defaults of the JAX package's knob registry
@@ -79,17 +103,83 @@ DEFAULTS = dict(port=8000, vocab_size=32768, d_model=2048,
                 max_queue=64, prefill_interleave=2, eos_id=-1,
                 drain_timeout=30.0, temperature=0.0, top_k=0, top_p=1.0,
                 enable_top_p=False, kv_block_len=0, kv_num_blocks=0,
-                device="cuda", seed=0, auth_token="", checkpoint_dir="",
-                watch_checkpoints=0.0)
+                max_prefixes=8, metrics_port=0, device="cuda", seed=0,
+                auth_token="", checkpoint_dir="", watch_checkpoints=0.0)
 
 # /v1/generate fields of the JAX service that this replica refuses (400
 # naming the field) rather than drop, and why.
 _UNPORTED_FIELDS = {
-    "prefixId": "registered prefixes (/v1/prefix) are not ported",
     "stopText": "it needs a tokenizer (--tokenizer is not ported)",
     "text": "it needs a tokenizer (--tokenizer is not ported); send "
             '"prompt" ids',
-    "resumeFrom": "resuming a migrated generation is not ported",
+}
+
+# The `ktwe_serving_*` Prometheus families (--metrics-port): the subset of
+# the JAX serve's SERVING_FAMILIES whose source this replica has, with the
+# same names and meanings. Each maps (the /v1/metrics dict, slots_busy,
+# num_slots) to a value; `_total` families read the engine's monotonic
+# lifetime counters. Families of features not ported are left out, not
+# exported as zeros (ROADMAP names the item that brings each).
+SERVING_FAMILIES = {
+    "ktwe_serving_requests_completed_total":
+        lambda m, b, s: m["lifetime"]["completed"],
+    "ktwe_serving_requests_cancelled_total":
+        lambda m, b, s: m["lifetime"]["cancelled"],
+    "ktwe_serving_tokens_total": lambda m, b, s: m["lifetime"]["tokens"],
+    "ktwe_serving_queue_depth": lambda m, b, s: m["queued"],
+    "ktwe_serving_slots_busy": lambda m, b, s: b,
+    "ktwe_serving_slots": lambda m, b, s: s,
+    "ktwe_serving_tokens_per_second":
+        lambda m, b, s: m["aggregate_tokens_per_s"],
+    "ktwe_serving_token_latency_p50_ms":
+        lambda m, b, s: m["token_lat_p50_ms"],
+    "ktwe_serving_token_latency_p99_ms":
+        lambda m, b, s: m["token_lat_p99_ms"],
+    "ktwe_serving_ttft_p50_ms": lambda m, b, s: m["ttft_p50_ms"],
+    "ktwe_serving_ttft_p95_ms": lambda m, b, s: m["ttft_p95_ms"],
+    "ktwe_serving_ttft_p99_ms": lambda m, b, s: m["ttft_p99_ms"],
+    "ktwe_serving_request_latency_p50_ms":
+        lambda m, b, s: m["request_lat_ms"]["p50_ms"],
+    "ktwe_serving_request_latency_p95_ms":
+        lambda m, b, s: m["request_lat_ms"]["p95_ms"],
+    "ktwe_serving_request_latency_p99_ms":
+        lambda m, b, s: m["request_lat_ms"]["p99_ms"],
+    "ktwe_serving_prefix_hits_total":
+        lambda m, b, s: m["prefix_cache"]["hits"],
+    "ktwe_serving_prefix_prompt_tokens_saved_total":
+        lambda m, b, s: m["prefix_cache"]["prompt_tokens_saved"],
+    "ktwe_serving_prefixes_registered":
+        lambda m, b, s: m["prefix_cache"]["registered"],
+    "ktwe_serving_kv_blocks_free":
+        lambda m, b, s: m["kv_cache"]["blocks_free"],
+    "ktwe_serving_kv_blocks_used":
+        lambda m, b, s: m["kv_cache"]["blocks_used"],
+    "ktwe_serving_kv_blocks_shared":
+        lambda m, b, s: m["kv_cache"]["blocks_shared"],
+    "ktwe_serving_kv_blocks_cached":
+        lambda m, b, s: m["kv_cache"]["blocks_cached"],
+    "ktwe_serving_kv_evictions_total":
+        lambda m, b, s: m["kv_cache"]["evictions_total"],
+    "ktwe_serving_kv_admission_deferrals_total":
+        lambda m, b, s: m["kv_cache"]["deferrals_total"],
+    "ktwe_serving_kv_prefix_hit_rate":
+        lambda m, b, s: m["kv_cache"]["prefix_hit_rate"],
+    "ktwe_serving_resume_requests_total":
+        lambda m, b, s: m["migration"]["resumed_total"],
+    "ktwe_serving_resume_committed_tokens_total":
+        lambda m, b, s: m["migration"]["resume_committed_tokens_total"],
+    "ktwe_serving_ejected_requests_total":
+        lambda m, b, s: m["migration"]["ejected_total"],
+    "ktwe_serving_prefill_chunks_total":
+        lambda m, b, s: m["lifetime"]["prefill_chunks"],
+    "ktwe_serving_request_errors_prefill_total":
+        lambda m, b, s: m["resilience"]["errors"]["prefill"],
+    "ktwe_serving_weight_swaps_total":
+        lambda m, b, s: m["resilience"]["weight_swaps"],
+    "ktwe_serving_weight_swap_pause_ms":
+        lambda m, b, s: m["resilience"]["swap_pause_ms_last"],
+    "ktwe_serving_draining":
+        lambda m, b, s: 1.0 if m["resilience"]["draining"] else 0.0,
 }
 
 
@@ -152,6 +242,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="shared bearer token required on every route but "
                         "/health (else $KTWE_AUTH_TOKEN, else the file "
                         "at $KTWE_AUTH_TOKEN_FILE; empty = no auth)")
+    p.add_argument("--max-prefixes", type=int,
+                   help="registered prefixes held at once (/v1/prefix); "
+                        "dense: one batch-1 temp cache each")
+    p.add_argument("--metrics-port", type=int,
+                   help="serve the ktwe_serving_* Prometheus families on "
+                        "this port (0 = off)")
+    p.add_argument("--config", type=str, default="",
+                   help="ktwe.yaml knob file: its `serve:` section sets "
+                        "defaults, flags on the command line win")
     p.set_defaults(**DEFAULTS)
     return p
 
@@ -240,23 +339,58 @@ class ServeService:
     # -- routes --
 
     @staticmethod
-    def _view(req) -> dict:
+    def _view(req, traceparent: Optional[str] = None) -> dict:
+        """The final view. An ejected request reports status "migrate"
+        with its resume state, the frame a router feeds back as
+        resumeFrom."""
         status = ("cancelled" if req.cancelled
-                  else "error" if req.finish_reason == "error" else "ok")
+                  else "error" if req.finish_reason == "error"
+                  else "migrate" if req.finish_reason == "migrated"
+                  else "ok")
         out = {"status": status, "requestId": req.req_id,
                "tokens": list(req.tokens),
                "logprobs": [round(x, 6) for x in req.logprobs],
                "finishReason": req.finish_reason,
                "ttftMs": round((req.first_token_at - req.submitted_at) * 1e3,
                                3) if req.first_token_at else None}
+        if req.emit_from:
+            out["committedOffset"] = req.emit_from
+        if req.resume_state is not None:
+            out["resume"] = req.resume_state
         if req.error is not None:
             out["error"] = req.error
+        if traceparent:
+            out["traceparent"] = traceparent
+        return out
+
+    @staticmethod
+    def _timeout_view(rid: int, req, tokens, traceparent) -> dict:
+        out = {"status": "timeout", "requestId": rid, "tokens": tokens,
+               "logprobs": [round(x, 6) for x in req.logprobs]}
+        if traceparent:
+            out["traceparent"] = traceparent
         return out
 
     def generate(self, request: dict):
         # Validate everything before touching the engine: a request
         # rejected after submit() would burn a slot. ValueError -> 400.
         eng = self._engine
+        hdrs = request.get("_headers") or {}
+        traceparent = hdrs.get("traceparent")
+        resume = request.get("resumeFrom")
+        if resume is not None:
+            # The resume carry is the request: its prompt already holds
+            # any prefix, its maxNewTokens is the original total budget.
+            if not isinstance(resume, dict):
+                raise ValueError('"resumeFrom" must be a resume state '
+                                 'object')
+            request = dict(request, prompt=resume["prompt"])
+            request.pop("prefixId", None)
+            if "maxNewTokens" in resume:
+                request["maxNewTokens"] = resume["maxNewTokens"]
+            for k in ("temperature", "topP", "stop", "prngKey"):
+                if resume.get(k) is not None:
+                    request[k] = resume[k]
         for field in _UNPORTED_FIELDS:
             if request.get(field) not in (None, []):
                 raise ValueError(f'"{field}" is not served by this replica '
@@ -264,6 +398,9 @@ class ServeService:
         prompt = [int(t) for t in request["prompt"]]
         n = int(request.get("maxNewTokens", 32))
         timeout_s = float(request.get("timeoutSeconds", 120))
+        prefix_id = request.get("prefixId")
+        if prefix_id is not None:
+            prefix_id = int(prefix_id)
         temperature = request.get("temperature")
         if temperature is not None:
             temperature = float(temperature)
@@ -286,14 +423,31 @@ class ServeService:
             raise ValueError(f"prompt token id out of range [0, {vocab})")
         if not 0 < n < eng.max_seq:
             raise ValueError(f"maxNewTokens must be in [1, {eng.max_seq})")
-        if not 0 < len(prompt) <= eng.max_seq - n:
+        if prefix_id is None and not 0 < len(prompt) <= eng.max_seq - n:
+            # With a prefix, submit() checks the whole length.
             raise ValueError(f"prompt length must be in [1, {eng.max_seq - n}]"
                              f" (max-seq {eng.max_seq} - maxNewTokens {n})")
+        committed = None
+        if resume is not None:
+            committed = [int(t) for t in resume.get("committed", [])]
+            if any(not 0 <= t < vocab for t in committed):
+                raise ValueError(f'"resumeFrom" committed token id out of '
+                                 f'range [0, {vocab})')
+            if len(committed) >= n:
+                raise ValueError(
+                    f'"resumeFrom" carries {len(committed)} committed '
+                    f'tokens but maxNewTokens is {n}: nothing left to '
+                    f'generate')
         submitted_at = time.time()
         with self._lock:
+            if prefix_id is not None and not eng.has_prefix(prefix_id):
+                raise ValueError(f'"prefixId" {prefix_id} is not a '
+                                 f'registered prefix')
             try:
-                rid = eng.submit(prompt, n, temperature=temperature,
-                                 top_p=top_p, stop=stop, prng_key=prng_key)
+                rid = eng.submit(prompt, n, prefix_id=prefix_id,
+                                 temperature=temperature, top_p=top_p,
+                                 stop=stop, committed=committed,
+                                 prng_key=prng_key)
             except serving.QueueFull as e:
                 raise StatusError(429, str(e),
                                   retry_after=self._retry_after(1.0, 30.0),
@@ -306,7 +460,8 @@ class ServeService:
                     max(0.0, left), max(1.0, left)))
         self._wake.set()
         if request.get("stream", False):
-            return self._stream_result(rid, timeout_s, submitted_at)
+            return self._stream_result(rid, timeout_s, submitted_at,
+                                       traceparent)
         deadline = time.time() + timeout_s
         while time.time() < deadline:
             with self._lock:
@@ -314,28 +469,29 @@ class ServeService:
                 done = req.done
             if done:
                 self._req_lat.record((time.time() - submitted_at) * 1e3)
-                return self._view(req)
+                return self._view(req, traceparent)
             time.sleep(0.01)
         # Deadline: cancel so the slot frees, hand back the partial tokens.
         with self._lock:
             cancelled = eng.cancel(rid)
             req = eng.result(rid)
         if not (cancelled or req.cancelled):
-            return self._view(req)      # finished in the last poll gap
-        return {"status": "timeout", "requestId": rid,
-                "tokens": list(req.tokens),
-                "logprobs": [round(x, 6) for x in req.logprobs]}
+            return self._view(req, traceparent)   # finished in the last gap
+        return self._timeout_view(rid, req, list(req.tokens), traceparent)
 
-    def _stream_result(self, rid: int, timeout_s: float, submitted_at: float):
+    def _stream_result(self, rid: int, timeout_s: float, submitted_at: float,
+                       traceparent: Optional[str] = None):
         """NDJSON generator: a {"tokens", "offset"} line per batch of new
-        tokens, then the final view. A matched stop tail is trimmed at
-        finish, so the last len(stop) - 1 tokens are held back until done.
-        Deadline or client disconnect cancels the request."""
+        tokens, then the final view. A resumed request starts at its
+        committed offset (those tokens are never re-emitted). A matched
+        stop tail is trimmed at finish, so the last len(stop) - 1 tokens
+        are held back until done. Deadline or client disconnect cancels
+        the request."""
         deadline = time.time() + timeout_s
         with self._lock:
-            hold = max((len(s) for s in self._engine.result(rid).stop),
-                       default=1) - 1
-        sent = 0
+            req0 = self._engine.result(rid)
+            hold = max((len(s) for s in req0.stop), default=1) - 1
+            sent = req0.emit_from
         try:
             while True:
                 with self._lock:
@@ -349,22 +505,92 @@ class ServeService:
                     sent += len(fresh)
                 if done:
                     self._req_lat.record((time.time() - submitted_at) * 1e3)
-                    yield self._view(req)
+                    yield self._view(req, traceparent)
                     return
                 if time.time() > deadline:
                     with self._lock:
                         self._engine.cancel(rid)
                         req = self._engine.result(rid)
-                    yield {"status": "timeout", "requestId": rid,
-                           "tokens": list(req.tokens[sent:]),
-                           "logprobs": [round(x, 6) for x in req.logprobs]}
+                    yield self._timeout_view(rid, req, list(req.tokens[sent:]),
+                                             traceparent)
                     return
                 time.sleep(0.01)
         finally:
             with self._lock:
-                req = self._engine.result(rid)
-                if not req.done:
+                try:
+                    req = self._engine.result(rid)
+                except KeyError:
+                    req = None               # released or aged out
+                if req is not None and not req.done:
                     self._engine.cancel(rid)
+
+    def result(self, request: dict) -> dict:
+        """POST or GET /v1/result {"requestId"}: the final view, or
+        {"status": "pending", "tokensSoFar"} while it runs; 404 for an
+        unknown (or aged-out) id."""
+        rid = int(request.get("requestId", request.get("id", -1)))
+        traceparent = (request.get("_headers") or {}).get("traceparent")
+        with self._lock:
+            try:
+                req = self._engine.result(rid)
+            except KeyError:
+                raise StatusError(404, f"unknown request id {rid}")
+            if not req.done:
+                return {"status": "pending", "requestId": rid,
+                        "tokensSoFar": len(req.tokens)}
+        return self._view(req, traceparent)
+
+    def cancel(self, request: dict) -> dict:
+        """POST /v1/cancel {"requestId"}: evict it wherever it is."""
+        rid = int(request["requestId"])
+        with self._lock:
+            try:
+                cancelled = self._engine.cancel(rid)
+            except KeyError:
+                raise StatusError(404, f"unknown request id {rid}")
+        return {"status": "ok", "requestId": rid, "cancelled": cancelled}
+
+    def prefix(self, request: dict) -> dict:
+        """POST /v1/prefix: register {"tokens": [ids]} (-> prefixId and
+        cachedTokens) or release {"releaseId": id}. A full registry is a
+        429 without Retry-After (only a release clears it); a paged pool
+        that cannot hold the prefix a 429 with one."""
+        if "tokens" in request:
+            tokens = [int(t) for t in request["tokens"]]
+            vocab = self._engine.cfg.vocab_size
+            if any(not 0 <= t < vocab for t in tokens):
+                # A clamped gather would pin wrong KV for every borrower.
+                raise ValueError(f"prefix token id out of range [0, {vocab})")
+            with self._lock:
+                try:
+                    pid = self._engine.register_prefix(tokens)
+                except serving.QueueFull as e:
+                    raise StatusError(
+                        429, str(e), retry_after=self._retry_after(1.0, 30.0)
+                        if e.retryable else None)
+                cached = self._engine.prefix_cached_len(pid)
+            return {"status": "ok", "prefixId": pid, "cachedTokens": cached}
+        rid = int(request["releaseId"])
+        with self._lock:
+            try:
+                self._engine.release_prefix(rid)
+            except KeyError:
+                raise StatusError(404, f"unknown prefix id {rid}")
+        return {"status": "ok", "released": rid}
+
+    def eject(self, _request: dict) -> dict:
+        """POST /v1/admin/eject: every live request leaves as a resume
+        state; streams end with a migrate frame, blocking callers get the
+        migrate view. The autoscaler calls it when a drain's deadline
+        passes, the SIGTERM drain through eject_live()."""
+        with self._lock:
+            states = self._engine.eject_live()
+        self._wake.set()
+        return {"status": "ok", "ejected": len(states),
+                "requestIds": [s["requestId"] for s in states]}
+
+    def eject_live(self) -> int:
+        return int(self.eject({})["ejected"])
 
     def reload(self, request: dict) -> dict:
         """POST /v1/admin/reload {"checkpointDir"?: str}: live weight
@@ -410,7 +636,9 @@ class ServeService:
             raise StatusError(503, "draining")
         return {"status": "ok"}
 
-    def metrics(self, _request: dict) -> dict:
+    def _metrics(self):
+        """(the /v1/metrics dict, slots_busy, num_slots); only the
+        snapshot runs under the lock, the percentile sorts after it."""
         with self._lock:
             snap = self._engine.metrics_snapshot()
             busy = self._engine.slots_busy
@@ -418,8 +646,31 @@ class ServeService:
         m["slots_busy"] = busy
         m["slots"] = self._engine.num_slots
         m["request_lat_ms"] = self._req_lat.snapshot()
+        m["role"] = "mixed"         # the JAX serve's --disagg off
         m["device"] = str(self._engine.device)
-        return {"status": "ok", "metrics": m}
+        return m, busy, self._engine.num_slots
+
+    def metrics(self, _request: dict) -> dict:
+        return {"status": "ok", "metrics": self._metrics()[0]}
+
+    def prometheus_series(self) -> dict:
+        """The SERVING_FAMILIES values for a --metrics-port scrape."""
+        m, busy, slots = self._metrics()
+        return {name: float(src(m, busy, slots))
+                for name, src in SERVING_FAMILIES.items()}
+
+
+def make_handler(service: ServeService, auth_token: str = ""):
+    """The HTTP handler serving `service`'s routes (the JAX serve's, but
+    /v1/kvhost and the trace, span and slow-request admin routes)."""
+    return make_json_handler(
+        {"/v1/generate": service.generate, "/v1/result": service.result,
+         "/v1/cancel": service.cancel, "/v1/metrics": service.metrics,
+         "/v1/prefix": service.prefix, "/v1/admin/reload": service.reload,
+         "/v1/admin/eject": service.eject},
+        get_routes={"/v1/result": service.result,
+                    "/v1/metrics": service.metrics, "/health": service.health},
+        auth_token=auth_token)
 
 
 def _finish_params(params, cfg: tf.TransformerConfig, int8: bool,
@@ -506,7 +757,7 @@ def make_engine(args, params) -> serving.ContinuousBatchEngine:
         temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
         enable_top_p=True if args.enable_top_p else None, seed=args.seed,
         kv_block_len=args.kv_block_len, kv_num_blocks=args.kv_num_blocks,
-        device=device)
+        max_prefixes=args.max_prefixes, device=device)
 
 
 def watch_checkpoints(service: ServeService, directory: str,
@@ -534,7 +785,7 @@ def main(argv=None, *, stop: Optional[threading.Event] = None,
     that runs the server in a thread; `on_ready` then gets the bound
     port), drain, exit 0."""
     parser = build_parser()
-    args = parser.parse_args(argv)
+    args = parse_with_config(parser, "serve", argv)
     if args.kv_num_blocks and not args.kv_block_len:
         # A pool size without a page size would silently build the dense
         # engine; fail fast instead.
@@ -555,17 +806,18 @@ def main(argv=None, *, stop: Optional[threading.Event] = None,
                            load_params=loader if args.checkpoint_dir
                            else None)
     service.last_swapped_step = ckpt_step
-    handler = make_json_handler(
-        {"/v1/generate": service.generate, "/v1/metrics": service.metrics,
-         "/v1/admin/reload": service.reload},
-        get_routes={"/v1/metrics": service.metrics, "/health": service.health},
-        auth_token=auth_token)
-    server = ThreadingHTTPServer(("0.0.0.0", args.port), handler)
+    server = ThreadingHTTPServer(("0.0.0.0", args.port),
+                                 make_handler(service, auth_token))
     http_thread = threading.Thread(target=server.serve_forever, daemon=True,
                                    name="ktwe-serve-http")
     http_thread.start()
     port = server.server_address[1]
     print(f"ktwe-serve-torch up on :{port} ({engine.device})", flush=True)
+    metrics_srv = None
+    if args.metrics_port:
+        metrics_srv = ProcMetricsServer(extra=service.prometheus_series)
+        metrics_srv.start(args.metrics_port)
+        print(f"ktwe-serve-torch metrics on :{metrics_srv.port}", flush=True)
     if stop is None:
         stop = threading.Event()
         signal.signal(signal.SIGTERM, lambda *a: stop.set())
@@ -588,13 +840,21 @@ def main(argv=None, *, stop: Optional[threading.Event] = None,
         service.begin_drain()
         print(f"draining: waiting up to {args.drain_timeout}s for in-flight "
               f"requests", flush=True)
-        if service.wait_drained(args.drain_timeout):
+        # The eject and the migrate frames' flush land inside the drain
+        # budget: up to 2 s of it is kept for them.
+        flush_reserve = min(2.0, args.drain_timeout / 2)
+        if service.wait_drained(max(0.5, args.drain_timeout - flush_reserve)):
             time.sleep(0.25)     # let blocking pollers read their results
             print("drain complete", flush=True)
         else:
-            print("drain timeout; exiting with requests in flight",
-                  flush=True)
+            n = service.eject_live()
+            print(f"drain deadline; ejected {n} live requests as migrate "
+                  f"frames", flush=True)
+            service.wait_drained(max(0.5, flush_reserve - 0.5))
+            time.sleep(0.5)      # let streams flush their migrate frames
         service.stop()
+        if metrics_srv is not None:
+            metrics_srv.stop()
         server.shutdown()
         server.server_close()
         http_thread.join()   # its bound serve_forever holds the server

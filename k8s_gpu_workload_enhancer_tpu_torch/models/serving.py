@@ -37,11 +37,28 @@ k8s_gpu_workload_enhancer_tpu/models/serving.py.
   wherever the request is, results stay until `release`d or aged out past
   `keep_results`, `drain` stops admission (`Draining`). A fault in one
   phase fails only the requests that phase touched.
+- **Registered prefixes.** `register_prefix` prefills a shared prompt
+  prefix once. Dense: its first (len // prefill_len) * prefill_len tokens
+  stay as a frozen batch-1 temp cache, and a `submit(prefix_id=)`
+  admission starts from a COPY of it at that grid offset (the port's
+  prefill writes its temp cache in place, so borrowing the cache itself
+  would let the first borrower's suffix rows overwrite the prefix). Paged:
+  the prefix's full blocks are prefilled into pool pages, inserted into
+  the radix tree and pinned, so every admission sharing them matches them.
+- **Migration.** `eject` finishes a live request as "migrated" with a
+  resume state (prompt, committed tokens, total budget, sampling params,
+  stop sequences, sampling key); `submit(committed=)` continues such a
+  state: the committed tokens prefill as context (riding the radix tree on
+  the paged engine), count against the total budget and are never
+  re-emitted, and the first new token samples at index len(committed), so
+  a sampled resume continues the uninterrupted stream.
 - **Weight hot-swap.** `swap_params` validates a new param tree against
   the engine's (structure, shapes, dtypes) before it touches anything,
-  places it on the device and commits it between steps. On the paged
-  engine the radix tree is detached (its pages hold old-weight KV) and a
-  prefill in flight across the swap never publishes its blocks.
+  places it on the device, re-prefills every registered prefix under the
+  new weights and commits it all between steps. On the paged engine the
+  radix tree is detached (its pages hold old-weight KV), the prefixes'
+  new pages are inserted and pinned, and a prefill in flight across the
+  swap never publishes its blocks.
 - **Sampling.** Greedy slots take the argmax (the first maximal index, as
   jnp.argmax, so greedy tokens match the JAX engine). A sampled token is a
   pure function of (request key, sample index): Gumbel-max noise from a
@@ -55,10 +72,10 @@ XLA in the JAX package. Where JAX donates the cache to each program and
 threads it through a layer `scan`, the port writes the cache's new rows in
 place: no step copies it, and a prefill commits only the rows it owns.
 
-Not ported here (later slices): register_prefix/release_prefix (and with
-them the re-prefill of registered prefixes on a swap), speculative
-decoding, the host-RAM KV tier and preemption of the paged engine, the int8
-KV cache, meshes, eject/resume/handoff, tenancy, the watchdog and FaultLab
+Not ported here (later slices): speculative decoding, the host-RAM KV
+tier, preemption, the int8 KV cache, meshes, the prefill role's
+first-token handoff, tenancy (a resume state carries the tenancy keys at
+their defaults), the watchdog and FaultLab
 sites, phase events, and the overlapped dispatch/commit pipeline (this
 engine collects every chunk before it dispatches the next).
 """
@@ -115,7 +132,13 @@ def _check_same_tree(old, new, path: str = "") -> None:
 
 class QueueFull(RuntimeError):
     """submit() beyond max_queue: callers map it to backpressure (HTTP
-    429 + Retry-After)."""
+    429). `retryable` tells pressure that clears on its own (the queue, a
+    paged pool under eviction: a Retry-After helps) from a full prefix
+    registry, which only a release clears (no Retry-After)."""
+
+    def __init__(self, message: str, retryable: bool = True):
+        super().__init__(message)
+        self.retryable = retryable
 
 
 class Draining(RuntimeError):
@@ -484,10 +507,20 @@ class ServeRequest:
     top_p: Optional[float] = None
     # Stop sequences (token-id lists); a matched tail is trimmed.
     stop: List[List[int]] = field(default_factory=list)
-    finish_reason: Optional[str] = None      # length|eos|stop|cancelled|error
+    # length|eos|stop|cancelled|error|migrated
+    finish_reason: Optional[str] = None
     error: Optional[str] = None
     # Sampling base key (two uint32 words): token n draws from (key, n).
     base_key: Any = None
+    # Registered prefix this request rides on (None = plain); `prompt`
+    # holds the full sequence, prefix + suffix.
+    prefix_id: Optional[int] = None
+    # Resumed requests: tokens[:emit_from] were generated by another
+    # replica. They prefill as context, count against max_new_tokens and
+    # are never re-emitted.
+    emit_from: int = 0
+    # Set by eject(): the resumeFrom payload another replica continues.
+    resume_state: Optional[dict] = None
 
     @property
     def done(self) -> bool:
@@ -502,6 +535,8 @@ class _PrefillState:
     slot: int
     offset: int
     temp: Optional[decode.KVCache]
+    # The prefill context: prompt + a resumed request's committed tokens.
+    ctx: List[int] = field(default_factory=list)
     # Paged engines: prompt tokens served from radix-matched pool pages (a
     # multiple of kv_block_len; 0 = cold). The final commit writes only
     # [matched, len(prompt)) — shared pages are read-only.
@@ -509,6 +544,19 @@ class _PrefillState:
     # False once a weight swap lands mid-prefill: its temp rows straddle
     # two checkpoints, so its blocks stay private (never published).
     publish: bool = True
+
+
+@dataclass
+class _Prefix:
+    """A registered prompt prefix. Dense: its first grid_len = (len //
+    prefill_len) * prefill_len tokens as a frozen batch-1 temp cache (None
+    when grid_len is 0), the tail re-prefilled with each suffix. Paged:
+    `chain`, the pinned radix nodes of its full blocks (grid_len = their
+    tokens)."""
+    tokens: List[int]
+    grid_len: int
+    temp: Optional[decode.KVCache]
+    chain: Optional[list] = None
 
 
 @dataclass
@@ -542,7 +590,8 @@ class ContinuousBatchEngine:
                  enable_top_p: Optional[bool] = None, seed: int = 0,
                  max_queue: int = 256, prefill_interleave: int = 2,
                  keep_results: int = 1024, kv_block_len: int = 0,
-                 kv_num_blocks: int = 0, device="cuda"):
+                 kv_num_blocks: int = 0, max_prefixes: int = 8,
+                 device="cuda"):
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
             raise ValueError(f"params live on {params['embed'].device}, the "
@@ -569,6 +618,9 @@ class ContinuousBatchEngine:
         self.max_queue = int(max_queue)
         self.prefill_interleave = max(1, int(prefill_interleave))
         self.keep_results = int(keep_results)
+        self.max_prefixes = int(max_prefixes)
+        self._prefixes: Dict[int, _Prefix] = {}
+        self._next_prefix_id = 0
         self._seed = int(seed)
         self.kv_block_len = int(kv_block_len or 0)
         self._paged = self.kv_block_len > 0
@@ -633,23 +685,192 @@ class ContinuousBatchEngine:
         self._swaps_total = 0
         self._swap_pause_ms_total = 0.0
         self._swap_pause_ms_last = 0.0
+        # Migration: requests admitted with committed tokens, those
+        # tokens, live requests ejected as resume states.
+        self._resumed_total = 0
+        self._resume_committed_total = 0
+        self._ejected_total = 0
 
     # -- client API --
 
+    def register_prefix(self, tokens: List[int]) -> int:
+        """Prefill a shared prompt prefix once; `submit(prefix_id=)`
+        requests then skip it. Dense: the first (len // prefill_len) *
+        prefill_len tokens are kept as a batch-1 temp cache (one temp
+        cache of device memory a prefix, at most max_prefixes), the tail
+        re-prefills with each suffix; a prefix shorter than one chunk
+        keeps no cache. Paged: the prefix's full blocks are committed to
+        pool pages (matching whatever chain the tree already holds) and
+        pinned. QueueFull(retryable=False) when max_prefixes are
+        registered; QueueFull when the pool cannot hold the blocks."""
+        tokens = [int(t) for t in tokens]
+        if not 0 < len(tokens) <= self.max_seq - 2:
+            raise ValueError(
+                f"prefix length {len(tokens)} not in [1, {self.max_seq - 2}]"
+                f" (need room for >= 1 suffix token and >= 1 generated "
+                f"token)")
+        if len(self._prefixes) >= self.max_prefixes:
+            raise QueueFull(f"prefix cache full ({self.max_prefixes} "
+                            f"registered; release one first)",
+                            retryable=False)
+        if self._paged:
+            chain = self._register_prefix_blocks(tokens)
+            pfx = _Prefix(tokens=tokens, grid_len=len(chain)
+                          * self.kv_block_len, temp=None, chain=chain)
+        else:
+            grid_len = (len(tokens) // self.prefill_len) * self.prefill_len
+            pfx = _Prefix(tokens=tokens, grid_len=grid_len,
+                          temp=(self._prefill_grid(tokens, grid_len)
+                                if grid_len > 0 else None))
+        pid = self._next_prefix_id
+        self._next_prefix_id += 1
+        self._prefixes[pid] = pfx
+        return pid
+
+    def release_prefix(self, prefix_id: int) -> None:
+        """Drop a registered prefix (KeyError if unknown). Requests that
+        already borrowed it keep their copy; paged: its chain is unpinned
+        and stays cached until pool pressure evicts it."""
+        pfx = self._prefixes.pop(prefix_id)
+        if self._paged and pfx.chain:
+            self._radix.unpin(pfx.chain)
+
+    def has_prefix(self, prefix_id: int) -> bool:
+        return prefix_id in self._prefixes
+
+    def prefix_cached_len(self, prefix_id: int) -> int:
+        """Prefix tokens served from the cache a hit (the rest of the
+        prefix re-prefills with each request)."""
+        return self._prefixes[prefix_id].grid_len
+
+    def _prefill_range(self, temp: decode.KVCache, tokens: List[int],
+                       off: int, stop: int,
+                       params: Optional[Params] = None) -> decode.KVCache:
+        """Prefill tokens[off:stop] into `temp` in prefill_len chunks from
+        `off` (a prefill_len multiple), the last one padded, under `params`
+        (default: the engine's; a swap re-prefills under the new ones)."""
+        p = self.params if params is None else params
+        plen = self.prefill_len
+        for start in range(off, stop, plen):
+            chunk = np.zeros((1, plen), np.int64)
+            n = min(plen, stop - start)
+            chunk[0, :n] = tokens[start:start + n]
+            temp = _prefill_step(p, temp,
+                                 torch.as_tensor(chunk, device=self.device),
+                                 self.cfg, start, self._freqs)
+        return temp
+
+    def _prefill_grid(self, tokens: List[int], grid_len: int,
+                      params: Optional[Params] = None) -> decode.KVCache:
+        """A dense prefix's first `grid_len` tokens (a prefill_len
+        multiple) in a fresh batch-1 temp cache."""
+        return self._prefill_range(
+            _init_temp_cache(self.cfg, self.max_seq, self.device), tokens,
+            0, grid_len, params)
+
+    def _register_prefix_blocks(self, tokens: List[int]) -> list:
+        """Paged registration: match the chain the tree already holds,
+        prefill and commit only the tail blocks, insert and pin the whole
+        chain. A sub-block prefix pins nothing (admissions prefill and
+        publish it like any prompt)."""
+        bl = self.kv_block_len
+        span = (len(tokens) // bl) * bl
+        if span == 0:
+            return []
+        chain = self._radix.match(tokens)
+        matched = len(chain) * bl
+        self._radix.acquire(chain)          # eviction guard while we work
+        try:
+            need = span // bl - len(chain)
+            fresh = self._kv_alloc(need)
+            if fresh is None:
+                raise QueueFull(f"kv pool exhausted: prefix needs {need} "
+                                f"more blocks, {self._pool.free_count} free "
+                                f"after eviction")
+            if need:
+                try:
+                    self._prefill_span_to_blocks(
+                        tokens, span, self._table_row(chain, fresh), matched)
+                except Exception:
+                    self._pool.free(fresh)
+                    raise
+        finally:
+            self._radix.release(chain)
+        nodes = list(chain)
+        parent = chain[-1] if chain else None
+        for i, blk in enumerate(fresh):
+            j = len(chain) + i
+            node = self._radix.insert(parent, tokens[j * bl:(j + 1) * bl],
+                                      blk)
+            if node.block != blk:           # an identical chain: theirs
+                self._pool.free([blk])
+            nodes.append(node)
+            parent = node
+        self._radix.pin(nodes)
+        return nodes
+
+    def _stage_prefix_blocks(self, tokens: List[int],
+                             params: Params) -> List[int]:
+        """A paged swap's pre-commit half: the prefix's full blocks
+        prefilled under the NEW weights into fresh pool pages that no
+        table reaches until swap_params commits."""
+        bl = self.kv_block_len
+        span = (len(tokens) // bl) * bl
+        blocks = self._kv_alloc(span // bl)
+        if blocks is None:
+            raise ValueError(f"kv pool exhausted mid hot-swap: prefix needs "
+                             f"{span // bl} blocks, {self._pool.free_count} "
+                             f"free")
+        try:
+            self._prefill_span_to_blocks(tokens, span,
+                                         self._table_row([], blocks), 0,
+                                         params)
+        except Exception:
+            self._pool.free(blocks)
+            raise
+        return blocks
+
+    def _prefill_span_to_blocks(self, tokens: List[int], span: int,
+                                row: np.ndarray, matched: int,
+                                params: Optional[Params] = None) -> None:
+        """Prefill positions [matched, span) of `tokens` and commit them
+        to the pool pages of table row `row`: the grid walk behind paged
+        registration and the swap's staging. The padded last chunk's
+        garbage rows fall outside the commit window."""
+        bl = self.kv_block_len
+        temp = (_temp_from_pool(self._cache, row, matched, self.max_seq, bl)
+                if matched > 0
+                else _init_temp_cache(self.cfg, self.max_seq, self.device))
+        off = (min(matched, span - 1) // self.prefill_len) * self.prefill_len
+        temp = self._prefill_range(temp, tokens, off, span, params)
+        _commit_rows(self._cache, temp, row, matched, span, bl)
+
     def submit(self, prompt: List[int], max_new_tokens: int,
+               prefix_id: Optional[int] = None,
                temperature: Optional[float] = None,
                top_p: Optional[float] = None,
                stop: Optional[List[List[int]]] = None,
+               committed: Optional[List[int]] = None,
                prng_key: Optional[Sequence[int]] = None) -> int:
         """Enqueue a generation; returns its request id. `prng_key` (two
         uint32 words) is the request's sampling base key, so the same key
         at the same temperature gives the same tokens on any engine; the
-        default is (seed, request id)."""
+        default is (seed, request id). `prefix_id` prepends a registered
+        prefix to `prompt`. `committed` + `prng_key` resume another
+        replica's generation (eject's state): the committed tokens are
+        context and output at once, count against max_new_tokens (the
+        request's TOTAL budget) and anchor the stop-tail state."""
         if self._draining:
             raise Draining("engine is draining (shutdown in progress); retry "
                            "against another replica")
         if max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
+        committed = [int(t) for t in (committed or [])]
+        if committed and not len(committed) < max_new_tokens:
+            raise ValueError(
+                f"resume carries {len(committed)} committed tokens but "
+                f"maxNewTokens is {max_new_tokens}: nothing left to "
+                f"generate")
         if prng_key is not None:
             if len(prng_key) != 2:
                 raise ValueError("prngKey must be two uint32 words")
@@ -661,11 +882,20 @@ class ContinuousBatchEngine:
             if top_p < 1.0 and not self.enable_top_p:
                 raise ValueError("per-request top_p needs an engine built "
                                  "with enable_top_p=True")
+        prompt = [int(t) for t in prompt]
+        if prefix_id is not None:
+            if prefix_id not in self._prefixes:
+                raise ValueError(f"unknown prefix id {prefix_id}")
+            if not prompt:
+                raise ValueError("prompt must carry >= 1 token after the "
+                                 "prefix (sampling reads the final prompt "
+                                 "row)")
+            prompt = self._prefixes[prefix_id].tokens + prompt
         limit = self.max_seq - max_new_tokens
         if not 0 < len(prompt) <= limit:
-            raise ValueError(f"prompt length {len(prompt)} not in [1, {limit}]"
-                             f" (max_seq {self.max_seq} - max_new_tokens "
-                             f"{max_new_tokens})")
+            raise ValueError(f"prompt length {len(prompt)} (incl. prefix) not"
+                             f" in [1, {limit}] (max_seq {self.max_seq} - "
+                             f"max_new_tokens {max_new_tokens})")
         if self._paged:
             need = paged_kv.blocks_needed(len(prompt) + max_new_tokens,
                                           self.kv_block_len)
@@ -677,14 +907,24 @@ class ContinuousBatchEngine:
         if len(self._queue) >= self.max_queue:
             raise QueueFull(
                 f"serving queue full ({self.max_queue} requests waiting)")
-        req = ServeRequest(req_id=self._next_id, prompt=[int(t) for t in prompt],
+        req = ServeRequest(req_id=self._next_id, prompt=prompt,
                            max_new_tokens=int(max_new_tokens),
                            submitted_at=time.perf_counter(),
                            temperature=temperature, top_p=top_p,
-                           stop=[list(s) for s in (stop or []) if s])
+                           stop=[list(s) for s in (stop or []) if s],
+                           prefix_id=prefix_id)
         self._next_id += 1
         req.base_key = (prng_key if prng_key is not None else np.asarray(
             [self._seed & 0xFFFFFFFF, req.req_id & 0xFFFFFFFF], np.uint32))
+        if committed:
+            # The logprob and latency rows are placeholders: the replica
+            # that generated these tokens delivered the real ones.
+            req.tokens = list(committed)
+            req.logprobs = [0.0] * len(committed)
+            req.token_lat_s = [0.0] * len(committed)
+            req.emit_from = len(committed)
+            self._resumed_total += 1
+            self._resume_committed_total += len(committed)
         self._reqs[req.req_id] = req
         self._queue.append(req)
         return req.req_id
@@ -699,6 +939,12 @@ class ContinuousBatchEngine:
         if req.done:
             return False
         req.cancelled = True
+        self._evict(req)
+        return True
+
+    def _evict(self, req: ServeRequest) -> None:
+        """Finish `req` and take it out wherever it is: the queue, the
+        prefill in flight, its slot (parked)."""
         self._finish(req)
         if self._prefill is not None and self._prefill.req is req:
             self._prefill = None
@@ -710,7 +956,48 @@ class ContinuousBatchEngine:
             self._queue.remove(req)
         except ValueError:
             pass
-        return True
+
+    def eject(self, req_id: int, reason: str = "eject") -> Optional[dict]:
+        """Evict a live request as a resume state, the migration half of
+        a zero-loss drain: it finishes as "migrated", its slot and pages
+        free as cancel frees them, and the state carries what another
+        replica needs to continue it exactly (prompt, every committed
+        token, the total budget, sampling params, stop sequences, the
+        sampling key and position). A second eject of the same request
+        returns the cached state; a request that finished for real
+        returns None."""
+        req = self._reqs[req_id]
+        if req.done:
+            return req.resume_state
+        state = {
+            "requestId": req.req_id,
+            "prompt": list(req.prompt),
+            "committed": list(req.tokens),
+            "maxNewTokens": req.max_new_tokens,
+            "remaining": req.max_new_tokens - len(req.tokens),
+            "temperature": req.temperature,
+            "topP": req.top_p,
+            "stop": [list(s) for s in req.stop],
+            "prngKey": [int(x) for x in np.asarray(req.base_key)],
+            "prngPos": len(req.tokens),
+            "reason": reason,
+            # The tenancy keys at their defaults: tenancy is not ported.
+            "tenant": "",
+            "priority": "interactive",
+            "preempted": 0,
+        }
+        req.resume_state = state
+        req.finish_reason = "migrated"
+        self._ejected_total += 1
+        self._evict(req)
+        return state
+
+    def eject_live(self) -> List[dict]:
+        """Eject every live request (queued, prefilling, decoding): the
+        force-eject of a drain deadline."""
+        live = [r.req_id for r in self._reqs.values() if not r.done]
+        return [s for s in (self.eject(rid) for rid in live)
+                if s is not None]
 
     def release(self, req_id: int) -> None:
         """Drop a finished request's record."""
@@ -732,28 +1019,70 @@ class ContinuousBatchEngine:
     def swap_params(self, new_params: Params) -> float:
         """Live weight hot-swap: validate `new_params` against the engine's
         tree (structure, shapes, dtypes), place every leaf on the engine's
-        device, wait for the copies, and swap. Returns the pause in ms.
+        device, re-prefill every registered prefix under the new weights,
+        wait for the device, and swap. Returns the pause in ms.
 
         Callers pause the engine between steps (cmd/serve.py holds the
         service lock, so no step() runs concurrently); queued and decoding
         requests survive, every chunk after the swap uses the new weights.
-        A mismatched tree raises ValueError before anything is touched: the
-        engine keeps serving the old weights. Paged: the radix tree's pages
-        hold old-weight KV, so the whole tree is detached (unreferenced
-        pages free now, pages live requests still map free with their
-        leases), and a prefill in flight across the swap finishes but never
-        publishes its blocks."""
+        A mismatched tree raises ValueError before anything is touched, and
+        a fault while re-prefilling leaves the engine on the old weights
+        and the old prefixes, with no page leaked. Paged: each prefix's
+        blocks are staged into fresh pages first; at the commit the radix
+        tree is detached (its pages hold old-weight KV: unreferenced pages
+        free now, pages live requests still map free with their leases),
+        the staged chains are inserted and pinned, and a prefill in flight
+        across the swap finishes but never publishes its blocks."""
         t0 = time.perf_counter()
         _check_same_tree(self.params, new_params)
         placed = _map_leaves(lambda t: t.to(self.device), new_params)
+        new_temps: Dict[int, decode.KVCache] = {}
+        staged: Dict[int, List[int]] = {}
+        if self._paged:
+            try:
+                for pid, pfx in self._prefixes.items():
+                    if len(pfx.tokens) >= self.kv_block_len:
+                        staged[pid] = self._stage_prefix_blocks(pfx.tokens,
+                                                                placed)
+            except Exception:
+                for blocks in staged.values():
+                    self._pool.free(blocks)
+                raise
+        else:
+            for pid, pfx in self._prefixes.items():
+                if pfx.grid_len > 0:
+                    new_temps[pid] = self._prefill_grid(
+                        pfx.tokens, pfx.grid_len, placed)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         # Commit: host-side assignments only, nothing below can raise.
         self.params = placed
+        for pid, temp in new_temps.items():
+            self._prefixes[pid].temp = temp
         if self._paged:
+            for pfx in self._prefixes.values():
+                if pfx.chain:
+                    self._radix.unpin(pfx.chain)
+                    pfx.chain = None
             self._radix.detach_all()
             if self._prefill is not None:
                 self._prefill.publish = False
+            bl = self.kv_block_len
+            for pid, blocks in staged.items():
+                pfx = self._prefixes[pid]
+                nodes, parent = [], None
+                for i, blk in enumerate(blocks):
+                    node = self._radix.insert(
+                        parent, pfx.tokens[i * bl:(i + 1) * bl], blk)
+                    if node.block != blk:
+                        # Two prefixes share this block: the first staged
+                        # insert won, the duplicate page goes back.
+                        self._pool.free([blk])
+                    nodes.append(node)
+                    parent = node
+                self._radix.pin(nodes)
+                pfx.chain = nodes
+                pfx.grid_len = len(nodes) * bl
         pause_ms = (time.perf_counter() - t0) * 1e3
         self._swaps_total += 1
         self._swap_pause_ms_total += pause_ms
@@ -872,10 +1201,13 @@ class ContinuousBatchEngine:
                     req.finish_reason = "length"
         if req.cancelled:
             self._cancelled_total += 1
-        elif req.finish_reason != "error":
+        elif req.finish_reason not in ("error", "migrated"):
+            # A migrated request counts under ejected_total; the replica
+            # that resumes it counts the completion.
             self._completed_total += 1
-        # Cancelled requests' partial tokens ran real decode work: count them.
-        self._tokens_out_total += len(req.tokens)
+        # Cancelled requests' partial tokens ran real decode work: count
+        # them; a resumed request's committed tokens ran elsewhere.
+        self._tokens_out_total += max(0, len(req.tokens) - req.emit_from)
         self._done_order.append(req.req_id)
         while len(self._done_order) > self.keep_results:
             old = self._done_order.popleft()
@@ -984,8 +1316,22 @@ class ContinuousBatchEngine:
             return self._start_prefill_paged(b)
         req = self._queue.popleft()
         req.admitted_at = time.perf_counter()
-        self._kv_prompt_tokens_total += len(req.prompt)
-        self._prefill = _PrefillState(req=req, slot=b, offset=0, temp=None)
+        ctx = req.prompt + req.tokens[:req.emit_from]
+        self._kv_prompt_tokens_total += len(ctx)
+        self._prefill = _PrefillState(req=req, slot=b, offset=0, temp=None,
+                                      ctx=ctx)
+        pfx = (self._prefixes.get(req.prefix_id)
+               if req.prefix_id is not None else None)
+        if pfx is not None and pfx.grid_len > 0:
+            # Borrow a COPY of the prefix's cache: the suffix prefill
+            # writes the temp cache in place. (A prefix released since
+            # submit falls through to a full prefill of the stored tokens.)
+            self._prefix_hits += 1
+            self._kv_matched_tokens_total += pfx.grid_len
+            self._prefill.offset = pfx.grid_len
+            self._prefill.temp = decode.KVCache(k=pfx.temp.k.clone(),
+                                                v=pfx.temp.v.clone())
+            return True
         self._prefill.temp = _init_temp_cache(self.cfg, self.max_seq,
                                               self.device)
         return True
@@ -1046,15 +1392,20 @@ class ContinuousBatchEngine:
         fails instead of blocking the queue forever."""
         req = self._queue[0]
         bl = self.kv_block_len
-        plen = len(req.prompt)
-        chain = self._radix.match(req.prompt)
+        # The context: prompt + a resumed request's committed tokens (the
+        # radix match makes a migrated-in request warm).
+        ctx = req.prompt + req.tokens[:req.emit_from]
+        plen = len(ctx)
+        chain = self._radix.match(ctx)
         while chain and len(chain) * bl >= plen:
             # Keep >= 1 prompt token out of the match: the first token is
             # sampled from the last prompt row's logits.
             chain = chain[:-1]
         matched = len(chain) * bl
-        need = paged_kv.blocks_needed(plen + req.max_new_tokens, bl) \
-            - len(chain)
+        # The whole span is prompt + max_new: the committed tokens ride
+        # inside the budget.
+        need = paged_kv.blocks_needed(len(req.prompt) + req.max_new_tokens,
+                                      bl) - len(chain)
         self._radix.acquire(chain)       # eviction guard + our reference
         private = self._kv_alloc(need)
         if private is None:
@@ -1092,7 +1443,7 @@ class ContinuousBatchEngine:
         # never committed.
         off0 = (min(matched, plen - 1) // self.prefill_len) * self.prefill_len
         self._prefill = _PrefillState(req=req, slot=b, offset=off0, temp=None,
-                                      matched=matched)
+                                      ctx=ctx, matched=matched)
         self._prefill.temp = (
             _temp_from_pool(self._cache, row, matched, self.max_seq, bl)
             if matched > 0
@@ -1135,7 +1486,7 @@ class ContinuousBatchEngine:
         if st.req.done:                           # cancelled mid-prefill
             self._prefill = None
             return
-        ctx = st.req.prompt
+        ctx = st.ctx
         remaining = len(ctx) - st.offset
         if remaining > self.prefill_len:          # non-final chunk
             chunk = torch.as_tensor(
@@ -1153,7 +1504,10 @@ class ContinuousBatchEngine:
         r_temp = (req.temperature if req.temperature is not None
                   else self.temperature)
         r_topp = req.top_p if req.top_p is not None else self.top_p
-        sampling = _Sampling(req.base_key[None], np.zeros(1, np.int64),
+        # The first new token samples at index emit_from (0 for a fresh
+        # request), where the uninterrupted stream sampled it.
+        sampling = _Sampling(req.base_key[None],
+                             np.asarray([req.emit_from], np.int64),
                              np.asarray([r_temp], np.float32),
                              np.asarray([r_topp], np.float32), self.top_k,
                              self.enable_top_p)
@@ -1189,7 +1543,7 @@ class ContinuousBatchEngine:
         self._temps[b] = r_temp
         self._topps[b] = r_topp
         self._skeys[b] = req.base_key
-        self._scnt[b] = 1            # the prefill consumed sample index 0
+        self._scnt[b] = req.emit_from + 1   # the prefill's index is used
         if self._paged:
             self._table_d[b] = torch.as_tensor(
                 self._leases[req.req_id].row, device=self.device)
@@ -1204,11 +1558,13 @@ class ContinuousBatchEngine:
             "req_id": r.req_id,
             "cancelled": r.cancelled,
             "errored": r.finish_reason == "error",
-            "n_tokens": len(r.tokens),
+            "migrated": r.finish_reason == "migrated",
+            # Tokens generated on this replica.
+            "n_tokens": max(0, len(r.tokens) - r.emit_from),
             "submitted_at": r.submitted_at,
             "first_token_at": r.first_token_at,
             "done_at": r.done_at,
-            "token_lat_s": list(r.token_lat_s),
+            "token_lat_s": list(r.token_lat_s[r.emit_from:]),
         } for r in self._reqs.values() if r.done]
         return {
             "rows": rows,
@@ -1232,8 +1588,17 @@ class ContinuousBatchEngine:
                 "swap_pause_ms_last": self._swap_pause_ms_last,
                 "draining": self._draining,
             },
-            # Prompt prefix reuse (monotonic counters).
+            # Zero-loss migration (monotonic counters).
+            "migration": {
+                "resumed_total": self._resumed_total,
+                "resume_committed_tokens_total":
+                    self._resume_committed_total,
+                "ejected_total": self._ejected_total,
+            },
+            # Prompt prefix reuse: hits and tokens saved monotonic,
+            # registered instantaneous.
             "prefix_cache": {
+                "registered": len(self._prefixes),
                 "hits": self._prefix_hits,
                 # Every matched prompt token is one the prefill skipped.
                 "prompt_tokens_saved": self._kv_matched_tokens_total,
@@ -1267,7 +1632,8 @@ class ContinuousBatchEngine:
         """metrics_snapshot() -> the metrics dict. Cancelled and errored
         requests are counted but kept out of throughput and latency."""
         rows = snap["rows"]
-        done = [r for r in rows if not r["cancelled"] and not r["errored"]]
+        done = [r for r in rows if not r["cancelled"] and not r["errored"]
+                and not r["migrated"]]
         total_toks = sum(r["n_tokens"] for r in done)
         wall = 0.0
         if done and snap["started_at"] is not None:
@@ -1285,6 +1651,7 @@ class ContinuousBatchEngine:
             "lifetime": snap["lifetime"],
             "prefix_cache": snap["prefix_cache"],
             "kv_cache": snap["kv_cache"],
+            "migration": snap["migration"],
             "errors": snap["errors"],
             "draining": snap["draining"],
             "resilience": snap["resilience"],

@@ -9,8 +9,12 @@ iterator so a generator route can clean up in its finally). KeyError,
 ValueError, TypeError and AttributeError map to 400 with
 {"status": "error", "error": ...}; `StatusError` picks its own code (429,
 503, ...) and optional Retry-After; unknown paths are 404. GET routes get
-the parsed query string. With a bearer token (`resolve_auth_token`) every
-route but /health answers 401 to a request without it.
+the parsed query string. Every route's dict carries the request's headers
+under the reserved "_headers" key (lower-cased names), written after the
+body is parsed, so a client cannot forge them through the JSON body; the
+serve main reads `traceparent` there. With a bearer token
+(`resolve_auth_token`) every route but /health answers 401 to a request
+without it.
 
 The handler holds its routes as an instance attribute handed in by the
 server (`make_json_handler` returns a partial of one module-level class),
@@ -185,7 +189,12 @@ class JsonHandler(BaseHTTPRequestHandler):
         except _BAD_REQUEST as e:
             self._reply(400, {"status": "error", "error": str(e)})
             return
+        if isinstance(req, dict):
+            req["_headers"] = self._header_dict()
         self._run(fn, req)
+
+    def _header_dict(self) -> Dict[str, str]:
+        return {k.lower(): v for k, v in self.headers.items()}
 
     def do_GET(self):
         path, query = self._split()
@@ -195,6 +204,7 @@ class JsonHandler(BaseHTTPRequestHandler):
         if fn is None:
             self.send_error(404)
             return
+        query["_headers"] = self._header_dict()
         self._run(fn, query)
 
     def log_message(self, *a):  # quiet: the service logs its own events

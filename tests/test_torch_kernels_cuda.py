@@ -1028,3 +1028,58 @@ def test_prefetch_to_device_matches_the_numpy_batches(dev, tmp_path):
         w = next(want)
         assert total == int(w.astype(np.int64).sum())
         assert torch.equal(b.cpu(), torch.from_numpy(w).long())
+
+
+@pytest.mark.parametrize("kv_block_len", [0, 16], ids=["dense", "paged"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_prefix_and_resumed_admissions_match_a_cold_prompt(dev, dtype,
+                                                           kv_block_len):
+    """On the card, through the kernels: a request riding a registered
+    160-token prefix (dense: one 128-token chunk borrowed, the suffix
+    prefilled at q_offset 128; paged: ten pinned pages) and a request
+    resumed from an eject after 9 tokens give the greedy tokens of the
+    cold full prompt."""
+    import numpy as np
+    from k8s_gpu_workload_enhancer_tpu_torch.models import serving
+    from k8s_gpu_workload_enhancer_tpu_torch.models import transformer as tf
+    cfg = tf.TransformerConfig(vocab_size=1024, d_model=512, n_layers=2,
+                               n_heads=4, n_kv_heads=4, d_ff=1024,
+                               max_seq=256, dtype=dtype)
+    params = _cast_tree(tf.init_params(
+        torch.Generator(device=dev).manual_seed(0), cfg), dtype)
+
+    def engine():
+        return serving.ContinuousBatchEngine(
+            params, cfg, num_slots=4, prefill_len=128, decode_chunk=8,
+            kv_block_len=kv_block_len, device=dev)
+    rng = np.random.default_rng(3)
+    prefix = rng.integers(0, 1024, 160).tolist()
+    suffix = rng.integers(0, 1024, 32).tolist()
+    cold_eng = engine()
+    rid = cold_eng.submit(prefix + suffix, 48)
+    cold_eng.run()
+    cold = cold_eng.result(rid).tokens
+    eng = engine()
+    pid = eng.register_prefix(prefix)
+    assert eng.prefix_cached_len(pid) == (160 if kv_block_len else 128)
+    kernels.reset_launches()
+    rid = eng.submit(suffix, 48, prefix_id=pid)
+    eng.run()
+    assert eng.result(rid).tokens == cold
+    assert kernels.launches["flash_attention"] >= cfg.n_layers
+    src = engine()
+    rid = src.submit(prefix + suffix, 48)
+    while len(src.result(rid).tokens) < 9:
+        src.step()
+    state = src.eject(rid)
+    dst = engine()
+    r2 = dst.submit(state["prompt"], 48, committed=state["committed"],
+                    prng_key=state["prngKey"])
+    dst.run()
+    assert dst.result(r2).tokens == cold
+
+
+def _cast_tree(tree, dtype):
+    if isinstance(tree, dict):
+        return {k: _cast_tree(v, dtype) for k, v in tree.items()}
+    return tree.to(dtype) if tree.is_floating_point() else tree

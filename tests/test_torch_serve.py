@@ -193,9 +193,12 @@ def test_prng_key_gives_one_sampled_stream_on_both_engines(server,
 @pytest.mark.parametrize("field,value", [
     ("prngKey", [1, 2, 3]), ("prngKey", "ab"), ("prefixId", 0),
     ("stopText", ["</s>"]), ("text", "hello"),
-    ("resumeFrom", {"prompt": [1, 2], "committed": [3],
+    ("resumeFrom", {"prompt": [1, 2], "committed": [3, 4, 5, 6],
                     "maxNewTokens": 4})])
 def test_refused_fields_get_a_400_naming_them(server, field, value):
+    """A malformed prngKey, the tokenizer fields, an unregistered prefixId
+    and a resume whose committed tokens fill maxNewTokens: each a 400
+    naming the field, the engine untouched."""
     before = _metrics(server)
     body = {"prompt": [1, 2, 3], "maxNewTokens": 4, field: value}
     if field == "resumeFrom":
@@ -203,7 +206,12 @@ def test_refused_fields_get_a_400_naming_them(server, field, value):
     with pytest.raises(urllib.error.HTTPError) as e:
         _post(server, body)
     assert e.value.code == 400
-    assert field in json.loads(e.value.read())["error"]
+    error = json.loads(e.value.read())["error"]
+    assert field in error
+    if field == "prefixId":
+        assert "0 is not a registered prefix" in error
+    if field == "resumeFrom":
+        assert "nothing left to generate" in error
     after = _metrics(server)
     assert after["slots_busy"] == 0 and after["queued"] == 0
     assert after["lifetime"] == before["lifetime"]
