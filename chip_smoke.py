@@ -76,7 +76,7 @@ inits in bf16:
      answering as the full prompts sent to B, the release (paged: requests
      filling the whole pool then evict every cached page, the released
      chain's included, and the pool ends as it began); 4 greedy streams of
-     64 new tokens and a sampled one (temperature 0.8, a prngKey) ejected
+     128 new tokens and a sampled one (temperature 0.8, a prngKey) ejected
      from A by POST /v1/admin/eject once each has streamed 8 tokens, every
      stream ending in a migrate frame whose resume state B continues as
      resumeFrom, streamed: the spliced stream equals B's uninterrupted
@@ -102,8 +102,17 @@ inits in bf16:
      tokens are checked against the plain versions; the paged engine is
      held to the dense engine: identical greedy transcripts in f32 on the
      same weights (a hard gate), and the count of identical ones in bf16,
-     printed. Two f32 training gates at full width (the trainer's: 2
-     layers, batch 2, seq 512; the flagship's: 1 layer, batch 1, seq 512)
+     printed. Both engine phases run the decode chunk as one captured CUDA
+     graph, replayed, under the overlapped dispatch/commit pipeline with
+     the watchdog armed (30 s; it must not trip): one capture serves each
+     engine, the launch counts come through the replays, and every request
+     is held bit for bit, tokens and logprobs, greedy and again sampled
+     (temperature 0.8), to an eager engine with the commit serialized
+     (cuda_graph=False, overlap_commit=False) on the same weights and
+     prompts; a `hotpath` line per engine prints the fetch-sync and commit
+     seconds a token and the commit's overlapped share. Two f32 training
+     gates at full width (the trainer's: 2 layers, batch 2, seq 512; the
+     flagship's: 1 layer, batch 1, seq 512)
      hold the loss and every gradient leaf through the kernels, once with
      the p/ds stash and once with dK/dV recomputed, to the same step
      through the plain versions; the trainers' losses and grad norms must
@@ -117,10 +126,16 @@ inits in bf16:
      may. The flash, RMSNorm and fused CE libraries' build seconds,
      registers, spills and shared memory are printed first, and each backward and
      fused CE case names the body (and its instance) that ran it;
-  4. opens torch.profiler windows: on two engine steps of the paged engine
-     (8 decoding slots, DECODE_CHUNK decode steps each) after the paged
-     phase, and on one step of the trainer main at its defaults and one
-     flagship step of a single microbatch after the timed phases; prints
+  4. opens torch.profiler windows: on three engine steps of the paged
+     engine (8 decoding slots, DECODE_CHUNK decode steps each, one graph
+     replay a step) after the paged phase, with ms a decode step and the
+     host's own ms a chunk, then three more steps unprofiled with each
+     phase of a step timed on the host and each replay bracketed by CUDA
+     events (the live chunks' device ms and the idle share from them),
+     and the same unprofiled window on 8 sampled requests (t 0.8); and on
+     one step of the trainer
+     main at its defaults and one flagship step of a single microbatch
+     after the timed phases; prints
      the ten device operations with the most self time, the device's idle
      share and the named kernels' device ms in each;
   5. prints the {"kernels": [...], "launch_floor_ms": ...} line, then the
@@ -165,21 +180,29 @@ SERVE_DIMS = dict(vocab_size=32768, d_model=2048, n_layers=3, n_heads=4,
                   n_kv_heads=4, d_ff=16384, max_seq=256)
 NUM_SLOTS, PREFILL_LEN, DECODE_CHUNK = 8, 128, 8
 N_REQUESTS, PROMPT_LEN, LONG_PROMPT_LEN, NEW_TOKENS = 8, 128, 160, 48
+# The engine phases arm the watchdog (it must never trip) and repeat their
+# prompts sampled at this temperature against the eager engine.
+WATCHDOG_S, SAMPLED_T = 30.0, 0.8
+# Engine steps (one decode chunk each) in the serving profiler window, and
+# again in the unprofiled window after it.
+SERVING_WINDOW_STEPS = 3
 # The paged phase: pages of 16 tokens (16 per slot, an auto pool of 129),
 # 8 requests sharing a 128-token prefix with 32-token suffixes, one cold.
 KV_BLOCK_LEN, SHARED_PREFIX, SUFFIX = 16, 128, 32
 
 # The fleet phase: a registered prefix of 160 tokens (128 cached dense, 160
 # paged) under 8 requests of 32-token suffixes and 48 new tokens; 4 greedy
-# streams of 64 new tokens and one sampled one (temperature 0.8), ejected
-# once each has streamed 8 tokens; on the paged main, 8 requests of 15
+# streams of 128 new tokens and one sampled one (temperature 0.8), ejected
+# once each has streamed 8 tokens (long enough that the graphed engine,
+# ~0.7 ms a token, is still decoding every one of them when the eject lands
+# through the engine lock); on the paged main, 8 requests of 15
 # prompt and 241 new tokens (16 pages each: the whole pool) after the
-# release; 8 streams of 128 new tokens and a ninth queued behind them for
-# the cancels.
+# release; 8 streams of 240 new tokens (on the paged main the whole pool)
+# and a ninth queued behind them for the cancels.
 FLEET_PREFIX, FLEET_SUFFIX, FLEET_NEW = 160, 32, 48
-MIGRATE_REQUESTS, MIGRATE_PROMPT, MIGRATE_NEW, MIGRATE_AFTER = 4, 32, 64, 8
+MIGRATE_REQUESTS, MIGRATE_PROMPT, MIGRATE_NEW, MIGRATE_AFTER = 4, 32, 128, 8
 SAMPLED_TEMPERATURE, SAMPLED_KEY = 0.8, [7, 11]
-FLUSH_PROMPT, CANCEL_NEW = 15, 128
+FLUSH_PROMPT, CANCEL_NEW = 15, 240
 
 # Training: the trainer main's defaults (cmd/trainer.py of the JAX package),
 # and the stash-path batch (the p/ds stash is 1.07 GB at batch 4, under the
@@ -349,6 +372,52 @@ def expected_launches(n_layers: int, lifetime: dict,
         want["paged_decode"] = n_layers * steps
         want["paged_decode_combine"] = n_layers * steps
     return want
+
+
+def hotpath_report(eng) -> dict:
+    """An engine run's hot path: host seconds a token waiting on the
+    chunk fetch and committing, the commit's share that ran behind a chunk
+    in flight, the decode graph's captures and replays, watchdog trips."""
+    m = eng.metrics()
+    hp, tokens = m["hotpath"], max(1, m["lifetime"]["tokens"])
+    commit = hp["commit_s_total"]
+    return dict(fetch_sync_s_per_token=hp["fetch_sync_s_total"] / tokens,
+                commit_s_per_token=commit / tokens,
+                commit_overlapped_share=(hp["commit_overlapped_s_total"]
+                                         / commit if commit else 0.0),
+                commit_rounds=hp["commit_rounds_total"],
+                graphs_captured=hp["graphs_captured"],
+                graph_replays=hp["graph_replays"],
+                watchdog_trips=m["resilience"]["watchdog_trips"])
+
+
+def decode_p50_ms(reqs) -> float:
+    """The p50 of the requests' per-token decode latencies (TTFT left
+    out), as the engine's token_lat_p50_ms takes it over all it keeps."""
+    from k8s_gpu_workload_enhancer_tpu_torch.utils.stats import percentile
+    return percentile(sorted(lat for r in reqs
+                             for lat in r.token_lat_s[1:]), 50) * 1e3
+
+
+def check_graphed(eng, what: str) -> dict:
+    """One capture served every request of the graphed engine, its
+    watchdog (armed) never tripped; returns its hot-path report."""
+    hp = hotpath_report(eng)
+    if hp["graphs_captured"] != 1 or hp["graph_replays"] < 1:
+        fail(f"{what}: {hp['graphs_captured']} decode graphs captured, "
+             f"{hp['graph_replays']} replays; want 1 capture replayed")
+    if hp["watchdog_trips"]:
+        fail(f"{what}: the watchdog tripped {hp['watchdog_trips']} times")
+    return hp
+
+
+def hold_to_eager(got: list, want: list, what: str) -> None:
+    """The graphed, pipelined engine's requests against the eager,
+    serialized engine's: tokens and logprobs bit for bit."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g.tokens != w.tokens or g.logprobs != w.logprobs:
+            fail(f"{what}: request {i} of the graphed engine differs from "
+                 f"the eager engine: {g.tokens} / {w.tokens}")
 
 
 def prefix_chunks(n_tokens: int, paged: bool) -> int:
@@ -1410,16 +1479,19 @@ def run_engine(dev, mods, cfg, params, init_s) -> dict:
                for _ in range(N_REQUESTS)]
     prompts.append(rng.integers(0, cfg.vocab_size, LONG_PROMPT_LEN).tolist())
 
-    eng = serving.ContinuousBatchEngine(
-        params, cfg, num_slots=NUM_SLOTS, max_seq=cfg.max_seq,
-        prefill_len=PREFILL_LEN, decode_chunk=DECODE_CHUNK, device=dev)
-    warm = eng.submit(prompts[0][:16], 4)             # cuBLAS / first launches
-    eng.run()
-    if eng.result(warm).finish_reason != "length":
-        fail(f"warm-up request: {eng.result(warm)}")
-    eng = serving.ContinuousBatchEngine(
-        params, cfg, num_slots=NUM_SLOTS, max_seq=cfg.max_seq,
-        prefill_len=PREFILL_LEN, decode_chunk=DECODE_CHUNK, device=dev)
+    def warmed(**kw):
+        # cuBLAS, the first launches and the decode graph's capture
+        # happen outside the timed run.
+        eng = new_engine(serving, params, cfg, dev, **kw)
+        warm = eng.submit(prompts[0][:16], 4)
+        eng.run()
+        if eng.result(warm).finish_reason != "length":
+            fail(f"warm-up request: {eng.result(warm)}")
+        eng.release(warm)
+        return eng
+    eng = warmed(watchdog_timeout=WATCHDOG_S)
+    capture_ms = eng._graph.capture_ms
+    before = eng.metrics_snapshot()["lifetime"]
 
     kernels.reset_launches()
     t0 = time.perf_counter()
@@ -1429,7 +1501,9 @@ def run_engine(dev, mods, cfg, params, init_s) -> dict:
     wall = time.perf_counter() - t0
     engine_launches = dict(kernels.launches)
     m = eng.metrics()
-    want = expected_launches(cfg.n_layers, m["lifetime"])
+    life = {k: m["lifetime"][k] - before[k]
+            for k in ("prefill_chunks", "decode_steps")}
+    want = expected_launches(cfg.n_layers, life)
     if engine_launches != want:
         fail(f"engine launches {engine_launches}, its chunks and steps "
              f"need {want}")
@@ -1442,6 +1516,21 @@ def run_engine(dev, mods, cfg, params, init_s) -> dict:
             fail(f"request {rid} produced out-of-range token ids")
         if not all(np.isfinite(r.logprobs)):
             fail(f"request {rid} has non-finite logprobs")
+    # The graphed, pipelined engine against the eager, serialized one on
+    # the same weights and prompts, greedy and sampled (not counted).
+    graphed = [eng.result(r) for r in rids]
+    hotpath = dict(check_graphed(eng, "engine"), capture_ms=capture_ms)
+    graphed_sampled = transcripts(eng, prompts, SAMPLED_T)
+    check_graphed(eng, "engine, sampled")
+    hotpath.update(greedy_ms_per_token_p50=decode_p50_ms(graphed),
+                   sampled_ms_per_token_p50=decode_p50_ms(graphed_sampled))
+    ref = warmed(cuda_graph=False, overlap_commit=False)
+    eager = transcripts(ref, prompts)
+    eager_m = ref.metrics()
+    hold_to_eager(graphed, eager, "engine (greedy)")
+    hold_to_eager(graphed_sampled, transcripts(ref, prompts, SAMPLED_T),
+                  "engine (sampled)")
+    del ref
 
     # Reference: the same forward with the plain versions in place of the
     # kernels, on the same weights and prompts (not counted as launches).
@@ -1476,8 +1565,14 @@ def run_engine(dev, mods, cfg, params, init_s) -> dict:
         ttft_p50_ms=m["ttft_p50_ms"], ttft_p99_ms=m["ttft_p99_ms"],
         decode_ms_per_token_p50=m["token_lat_p50_ms"],
         decode_ms_per_token_p99=m["token_lat_p99_ms"],
-        decode_steps=m["lifetime"]["decode_steps"],
-        prefill_chunks=m["lifetime"]["prefill_chunks"],
+        eager_tokens_per_s=eager_m["aggregate_tokens_per_s"],
+        eager_decode_ms_per_token_p50=eager_m["token_lat_p50_ms"],
+        eager_ttft_p50_ms=eager_m["ttft_p50_ms"],
+        graphed_equals_eager=dict(greedy=len(graphed),
+                                  sampled=len(graphed_sampled)),
+        hotpath=hotpath,
+        decode_steps=life["decode_steps"],
+        prefill_chunks=life["prefill_chunks"],
         first_chunk_logits_max_abs_err=logits_err,
         logits_tolerance=LOGITS_ATOL,
         first_token_margins=[round(mg, 4) for _, mg in plain_first],
@@ -1503,8 +1598,9 @@ def new_engine(serving, params, cfg, dev, **kw):
         prefill_len=PREFILL_LEN, decode_chunk=DECODE_CHUNK, device=dev, **kw)
 
 
-def transcripts(eng, prompts):
-    rids = [eng.submit(p, NEW_TOKENS) for p in prompts]
+def transcripts(eng, prompts, temperature=None):
+    rids = [eng.submit(p, NEW_TOKENS, temperature=temperature)
+            for p in prompts]
     eng.run()
     return [eng.result(r) for r in rids]
 
@@ -1538,12 +1634,18 @@ def run_paged_engine(dev, mods, cfg, params) -> dict:
     transcripts, printed) and f32 (identical transcripts, a hard gate)."""
     kernels, rms, rope, flash, paged, tf, decode, serving, serve = mods
     warm, prompts = paged_requests(cfg.vocab_size)
-    eng = new_engine(serving, params, cfg, dev, kv_block_len=KV_BLOCK_LEN)
-    w = eng.submit(warm, 4)
-    eng.run()
-    if eng.result(w).finish_reason != "length":
-        fail(f"paged warm-up request: {eng.result(w)}")
-    eng.release(w)
+
+    def warmed(**kw):
+        eng = new_engine(serving, params, cfg, dev,
+                         kv_block_len=KV_BLOCK_LEN, **kw)
+        w = eng.submit(warm, 4)
+        eng.run()
+        if eng.result(w).finish_reason != "length":
+            fail(f"paged warm-up request: {eng.result(w)}")
+        eng.release(w)
+        return eng
+    eng = warmed(watchdog_timeout=WATCHDOG_S)
+    capture_ms = eng._graph.capture_ms
     before = eng.metrics_snapshot()
     peak = {"blocks_used": 0, "blocks_shared": 0}
     kernels.reset_launches()
@@ -1587,8 +1689,20 @@ def run_paged_engine(dev, mods, cfg, params) -> dict:
     if matched != N_REQUESTS * SHARED_PREFIX:
         fail(f"paged engine matched {matched} prompt tokens, want "
              f"{N_REQUESTS * SHARED_PREFIX}")
-    paged_bf16 = [eng.result(r).tokens for r in rids]
+    graphed = [eng.result(r) for r in rids]
+    paged_bf16 = [r.tokens for r in graphed]
+    hotpath = dict(check_graphed(eng, "paged engine"), capture_ms=capture_ms)
+    graphed_sampled = transcripts(eng, prompts, SAMPLED_T)
+    check_graphed(eng, "paged engine, sampled")
+    hotpath.update(greedy_ms_per_token_p50=decode_p50_ms(graphed),
+                   sampled_ms_per_token_p50=decode_p50_ms(graphed_sampled))
     del eng
+    ref = warmed(cuda_graph=False, overlap_commit=False)
+    hold_to_eager(graphed, transcripts(ref, prompts), "paged engine (greedy)")
+    eager_m = ref.metrics()
+    hold_to_eager(graphed_sampled, transcripts(ref, prompts, SAMPLED_T),
+                  "paged engine (sampled)")
+    del ref
     dense_bf16 = [r.tokens for r in transcripts(
         new_engine(serving, params, cfg, dev), prompts)]
 
@@ -1619,6 +1733,12 @@ def run_paged_engine(dev, mods, cfg, params) -> dict:
         ttft_p50_ms=m["ttft_p50_ms"], ttft_p99_ms=m["ttft_p99_ms"],
         decode_ms_per_token_p50=m["token_lat_p50_ms"],
         decode_ms_per_token_p99=m["token_lat_p99_ms"],
+        eager_tokens_per_s=eager_m["aggregate_tokens_per_s"],
+        eager_decode_ms_per_token_p50=eager_m["token_lat_p50_ms"],
+        eager_ttft_p50_ms=eager_m["ttft_p50_ms"],
+        graphed_equals_eager=dict(greedy=len(graphed),
+                                  sampled=len(graphed_sampled)),
+        hotpath=hotpath,
         decode_steps=life["decode_steps"],
         prefill_chunks=life["prefill_chunks"],
         kv_cache=dict(peak_blocks_used=peak["blocks_used"],
@@ -2112,8 +2232,8 @@ def ckpt_serve(serve, kernels, argv, prompts, later_dir, other_dir,
     the prefix); the prefix is released and the same reload repeated
     without one (the pause without a prefix); a reload of another model's
     checkpoint answers 409 and changes nothing; the prompts answer as the
-    new weights. Paged: the prompts share a prefix, and no page is
-    leaked."""
+    new weights; one decode graph capture serves both reloads. Paged: the
+    prompts share a prefix, and no page is leaked."""
     stop, ready, got_port, rc = threading.Event(), {}, threading.Event(), {}
 
     def on_ready(port):
@@ -2182,6 +2302,11 @@ def ckpt_serve(serve, kernels, argv, prompts, later_dir, other_dir,
     if after != want_after[:-1]:
         fail(f"after the reload the serve gave {after}, the engine on the "
              f"new weights {want_after}")
+    if metrics["hotpath"]["graphs_captured"] != 1:
+        fail(f"the checkpoint serve main captured "
+             f"{metrics['hotpath']['graphs_captured']} decode graphs over "
+             f"two reloads, want 1 (a swap copies into the captured "
+             f"storage)")
     kv = metrics["kv_cache"]
     leaked = 0
     if kv["paged"]:
@@ -2200,6 +2325,7 @@ def ckpt_serve(serve, kernels, argv, prompts, later_dir, other_dir,
                 other_model_reload=dict(status=code_bad,
                                         error=bad.get("error", "")[:200]),
                 weight_swaps=metrics["resilience"]["weight_swaps"],
+                graphs_captured=metrics["hotpath"]["graphs_captured"],
                 requests_completed=metrics["requests_completed"],
                 lifetime=metrics["lifetime"],
                 kv_cache={k: kv[k] for k in ("paged", "blocks_free",
@@ -2677,12 +2803,15 @@ def fleet_phase(serve, pa: int, pb: int, mports, paged: bool) -> dict:
         ttft_ms_fresh=[r["ttftMs"] for r in fresh],
         spliced_equal_uninterrupted=True)
     # 3. Cancel a queued and a decoding request; /v1/result reads them.
+    # The decoding one is the last admitted, so that it is still decoding
+    # when the cancel lands (the others may finish by then).
     streams = [Stream(pa, {"prompt": rng.integers(0, vocab, 16).tolist(),
                            "maxNewTokens": CANCEL_NEW})
                for _ in range(NUM_SLOTS + 1)]
     wait_streamed(streams[:1], 1)
     rid0 = streams[0].lines[0]["requestId"]
     rid_q = rid0 + NUM_SLOTS             # ids follow the submit order
+    rid_d = rid_q - 1
     deadline = time.time() + 60
     while True:                          # the other 8 admitted
         m = get_metrics(pa)
@@ -2691,22 +2820,23 @@ def fleet_phase(serve, pa: int, pb: int, mports, paged: bool) -> dict:
         if time.time() > deadline:
             fail(f"the cancel phase never had one request queued: {m}")
         time.sleep(0.001)
+    wait_streamed(streams[NUM_SLOTS - 1:NUM_SLOTS], 1)   # its first token
     pending = get_json(pa, f"/v1/result?requestId={rid_q}")
     queued = get_metrics(pa)["queued"]
     cancels = [post_json(pa, "/v1/cancel", {"requestId": r})
-               for r in (rid_q, rid0)]
+               for r in (rid_q, rid_d)]
     views = [get_json(pa, f"/v1/result?requestId={r}") for r in (rid_q,
-                                                                  rid0)]
+                                                                  rid_d)]
     if pending != (200, {"status": "pending", "requestId": rid_q,
                          "tokensSoFar": 0}) or queued != 1:
         fail(f"the queued request: /v1/result {pending}, queued {queued}")
     if any(c != (200, {"status": "ok", "requestId": r, "cancelled": True})
-           for c, r in zip(cancels, (rid_q, rid0))):
+           for c, r in zip(cancels, (rid_q, rid_d))):
         fail(f"/v1/cancel: {cancels}")
     if any(c != 200 or v.get("status") != "cancelled" for c, v in views) \
             or views[0][1]["tokens"] or not views[1][1]["tokens"]:
         fail(f"/v1/result after the cancels: {views}")
-    for s in streams[1:NUM_SLOTS]:
+    for s in streams[:NUM_SLOTS - 1]:
         if s.final().get("status") != "ok":
             fail(f"a stream beside the cancels ended {s.final()}")
     if get_json(pa, "/v1/result?requestId=999999")[0] != 404:
@@ -2840,47 +2970,156 @@ def profile_steps(trainer_cli, trainer, flagship) -> dict:
 
 def profile_serving(dev, mods, cfg, params) -> dict:
     """The profiler window on the paged engine at the serve defaults (pages
-    of 16, bf16): 8 requests of the paged phase are admitted and prefilled
-    first, then the window covers two engine steps of DECODE_CHUNK decode
-    steps each over the 8 decoding slots, host work included, with a
-    synchronize at either end."""
+    of 16, bf16, the decode chunk one replayed CUDA graph under the
+    overlapped pipeline): 8 greedy requests of the paged phase are admitted
+    and prefilled first, then the window covers SERVING_WINDOW_STEPS engine
+    steps of DECODE_CHUNK decode steps each over the 8 decoding slots,
+    host work included, with a synchronize at either end. Besides the
+    device report: ms a decode step, graph replays in the window, and the
+    host's own ms a chunk (the window's wall less the time it waited on
+    the chunk fetch, over the chunks). Then SERVING_WINDOW_STEPS steps
+    unprofiled (`host_split`), and the same unprofiled window on a second
+    engine whose 8 requests sample at SAMPLED_T (the dispatch draws their
+    Gumbel noise on the host side)."""
     from torch.profiler import ProfilerActivity, profile
-    kernels, rms, rope, flash, paged, tf, decode, serving, serve = mods
+    serving = mods[7]
     _, prompts = paged_requests(cfg.vocab_size)
-    eng = new_engine(serving, params, cfg, dev, kv_block_len=KV_BLOCK_LEN)
-    # Generations long enough that none ends before the window closes, one
-    # page short of max_seq so that the 8 reservations fit the auto pool
-    # without prefix sharing.
-    rids = [eng.submit(p, cfg.max_seq - len(p) - KV_BLOCK_LEN)
-            for p in prompts[:NUM_SLOTS]]
-    while eng.metrics_snapshot()["queued"] or not all(
-            eng.result(r).tokens for r in rids):
-        eng.step()
-    eng.step()                                    # one decode-only warm step
-    before = eng.metrics_snapshot()["lifetime"]["decode_steps"]
+    eng, rids = window_engine(serving, params, cfg, dev, prompts)
+    before = eng.metrics_snapshot()
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     torch.cuda.synchronize()
     prof.start()
     t0 = time.perf_counter()
-    for _ in range(2):
+    for _ in range(SERVING_WINDOW_STEPS):
         eng.step()
     torch.cuda.synchronize()
     window_ms = (time.perf_counter() - t0) * 1e3
     prof.stop()
-    steps = eng.metrics_snapshot()["lifetime"]["decode_steps"] - before
+    after = eng.metrics_snapshot()
+    steps = (after["lifetime"]["decode_steps"]
+             - before["lifetime"]["decode_steps"])
+    replays = (after["hotpath"]["graph_replays"]
+               - before["hotpath"]["graph_replays"])
+    fetch_ms = (after["hotpath"]["fetch_sync_s_total"]
+                - before["hotpath"]["fetch_sync_s_total"]) * 1e3
     live = eng.slots_busy
-    eng.run()
-    if any(eng.result(r).finish_reason != "length" for r in rids):
-        fail("the profiled paged requests did not finish")
+    host = host_split(eng)
+    finish_window(eng, rids, "greedy")
+    del eng
+    eng, rids = window_engine(serving, params, cfg, dev, prompts, SAMPLED_T)
+    sampled = host_split(eng)
+    finish_window(eng, rids, "sampled")
     del eng
     torch.cuda.empty_cache()
     report = device_report(prof, window_ms)
     paged_ms = sum(report["paged_decode_ms"].values())
     if live != NUM_SLOTS:
         fail(f"the serving window decoded {live} slots, want {NUM_SLOTS}")
-    return dict(decode_steps=steps, slots=live,
+    if replays != SERVING_WINDOW_STEPS:
+        fail(f"the serving window replayed the decode graph {replays} "
+             f"times, want {SERVING_WINDOW_STEPS}")
+    return dict(decode_steps=steps, slots=live, graph_replays=replays,
                 ms_per_decode_step=window_ms / max(1, steps),
-                paged_decode_share=paged_ms / window_ms, **report)
+                host_ms_per_chunk=(window_ms - fetch_ms) / max(1, replays),
+                fetch_wait_ms=fetch_ms,
+                paged_decode_share=paged_ms / window_ms,
+                unprofiled=host, unprofiled_sampled=sampled, **report)
+
+
+def window_engine(serving, params, cfg, dev, prompts, temperature=None):
+    """A paged engine with NUM_SLOTS of `prompts` admitted in its first
+    step (each generation, one page short of max_seq so that the 8
+    reservations fit the auto pool without prefix sharing, outlasts the
+    windows), stepped until every first token landed, then one
+    decode-only step."""
+    eng = new_engine(serving, params, cfg, dev, kv_block_len=KV_BLOCK_LEN,
+                     prefill_interleave=2 * NUM_SLOTS)
+    rids = [eng.submit(p, cfg.max_seq - len(p) - KV_BLOCK_LEN,
+                       temperature=temperature)
+            for p in prompts[:NUM_SLOTS]]
+    while eng.metrics_snapshot()["queued"] or not all(
+            eng.result(r).tokens for r in rids):
+        eng.step()
+    eng.step()
+    return eng, rids
+
+
+def finish_window(eng, rids, what: str) -> None:
+    """Run a window engine to its end: every request runs its length on
+    the one capture."""
+    eng.run()
+    if any(eng.result(r).finish_reason != "length" for r in rids):
+        fail(f"the {what} serving window's requests did not finish")
+    captures = eng.metrics()["hotpath"]["graphs_captured"]
+    if captures != 1:
+        fail(f"the {what} serving window captured {captures} decode "
+             f"graphs, want 1")
+
+
+def host_split(eng) -> dict:
+    """SERVING_WINDOW_STEPS more engine steps without the profiler, each of
+    the step's phases timed on the host clock: ms a decode step, and per
+    chunk the admission, the fetch's wait, the dispatch (the noise draw
+    and the graph replay call in it) and the commit. CUDA events bracket
+    each replay and each noise draw on the stream, so the live chunks'
+    device time is read in the window itself: `idle_share` is 1 - (the
+    bracketed ms) / (the window's wall). A bracket opens when the stream
+    reaches it, so where the device waited for the host's launches that
+    wait is inside it: `idle_share` is a floor, and `idle_share_ceiling`
+    takes the bracketed calls' host ms out (the most such a wait can
+    be)."""
+    names = ("_admit", "_fetch", "_dispatch_chunk", "_commit_phase")
+    spent = {n: 0.0 for n in names + ("_draw_noise", "replay")}
+    brackets = {"_draw_noise": [], "replay": []}
+
+    def timed(key, fn):
+        def call(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                spent[key] += time.perf_counter() - t
+        return call
+
+    def bracketed(key, fn):
+        def call(*a, **kw):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            fn(*a, **kw)
+            ev[1].record()
+            brackets[key].append(ev)
+        return timed(key, call)
+    for n in names:
+        setattr(eng, n, timed(n, getattr(eng, n)))
+    eng._draw_noise = bracketed("_draw_noise", eng._draw_noise)
+    eng._graph.replay = bracketed("replay", eng._graph.replay)
+    before = eng.metrics_snapshot()["lifetime"]["decode_steps"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(SERVING_WINDOW_STEPS):
+        eng.step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    steps = eng.metrics_snapshot()["lifetime"]["decode_steps"] - before
+    for n in names + ("_draw_noise",):
+        delattr(eng, n)
+    del eng._graph.replay
+    if len(brackets["replay"]) != SERVING_WINDOW_STEPS:
+        fail(f"the unprofiled window replayed {len(brackets['replay'])} "
+             f"chunks, want {SERVING_WINDOW_STEPS}")
+    device_ms = {k: [a.elapsed_time(b) for a, b in v]
+                 for k, v in brackets.items()}
+    busy_ms = sum(map(sum, device_ms.values()))
+    launch_ms = (spent["_draw_noise"] + spent["replay"]) * 1e3
+    chunks = max(1, steps // DECODE_CHUNK)
+    return dict(ms_per_decode_step=wall_ms / max(1, steps),
+                chunk_device_ms=device_ms["replay"],
+                noise_device_ms=device_ms["_draw_noise"],
+                idle_share=1.0 - busy_ms / wall_ms,
+                idle_share_ceiling=1.0 - max(0.0, busy_ms - launch_ms)
+                / wall_ms,
+                ms_per_chunk={k.strip("_"): v * 1e3 / chunks
+                              for k, v in spent.items()})
 
 
 # ---------------------------------------------------------------------------
@@ -2978,10 +3217,16 @@ def main() -> int:
     # it and reads them just after.
     results["engine"] = run_engine(dev, mods, cfg, params, init_s)
     print(json.dumps({"engine": results["engine"]}), flush=True)
+    print(json.dumps({"hotpath": dict(engine="dense", card=card,
+                                      **results["engine"]["hotpath"])}),
+          flush=True)
     results["serve"] = run_serve(serve, kernels)
     print(json.dumps({"serve": results["serve"]}), flush=True)
     results["paged_engine"] = run_paged_engine(dev, mods, cfg, params)
     print(json.dumps({"paged_engine": results["paged_engine"]}), flush=True)
+    print(json.dumps({"hotpath": dict(engine="paged", card=card,
+                                      **results["paged_engine"]["hotpath"])}),
+          flush=True)
     print(json.dumps({"serving_profile": profile_serving(dev, mods, cfg,
                                                          params)}),
           flush=True)

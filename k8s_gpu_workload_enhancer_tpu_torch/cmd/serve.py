@@ -49,6 +49,10 @@ $KTWE_AUTH_TOKEN_FILE, which must be readable when set) every route but
 reserved per request, with automatic radix prefix reuse; /v1/metrics then
 reports the pool in its `kv_cache` block. --metrics-port P serves the
 `ktwe_serving_*` Prometheus families (SERVING_FAMILIES) on GET /metrics.
+--overlap-commit 0 commits each decode chunk before the next one is
+dispatched (bisection; the tokens are the same); --watchdog-timeout S fails
+the in-flight batch when a chunk has not landed S seconds after its
+dispatch.
 --config ktwe.yaml takes defaults from the file's `serve:` section (keys
 are flag names with underscores); flags on the command line win, and a key
 this main has no flag for is an error.
@@ -104,7 +108,8 @@ DEFAULTS = dict(port=8000, vocab_size=32768, d_model=2048,
                 drain_timeout=30.0, temperature=0.0, top_k=0, top_p=1.0,
                 enable_top_p=False, kv_block_len=0, kv_num_blocks=0,
                 max_prefixes=8, metrics_port=0, device="cuda", seed=0,
-                auth_token="", checkpoint_dir="", watch_checkpoints=0.0)
+                auth_token="", checkpoint_dir="", watch_checkpoints=0.0,
+                overlap_commit=1, watchdog_timeout=0.0)
 
 # /v1/generate fields of the JAX service that this replica refuses (400
 # naming the field) rather than drop, and why.
@@ -172,8 +177,31 @@ SERVING_FAMILIES = {
         lambda m, b, s: m["migration"]["ejected_total"],
     "ktwe_serving_prefill_chunks_total":
         lambda m, b, s: m["lifetime"]["prefill_chunks"],
+    "ktwe_serving_request_errors_dispatch_total":
+        lambda m, b, s: m["resilience"]["errors"]["dispatch"],
+    "ktwe_serving_request_errors_collect_total":
+        lambda m, b, s: m["resilience"]["errors"]["collect"],
+    "ktwe_serving_request_errors_commit_total":
+        lambda m, b, s: m["resilience"]["errors"]["commit"],
     "ktwe_serving_request_errors_prefill_total":
         lambda m, b, s: m["resilience"]["errors"]["prefill"],
+    "ktwe_serving_request_errors_watchdog_total":
+        lambda m, b, s: m["resilience"]["errors"]["watchdog"],
+    # The decode hot path: the overlap_commit gauge, host seconds on the
+    # sync path (fetch, watchdog poll included), commit seconds and their
+    # share that ran behind a chunk in flight, commit rounds.
+    "ktwe_serving_overlap_commit":
+        lambda m, b, s: 1.0 if m["hotpath"]["overlap_commit"] else 0.0,
+    "ktwe_serving_fetch_sync_seconds_total":
+        lambda m, b, s: m["hotpath"]["fetch_sync_s_total"],
+    "ktwe_serving_commit_seconds_total":
+        lambda m, b, s: m["hotpath"]["commit_s_total"],
+    "ktwe_serving_commit_overlapped_seconds_total":
+        lambda m, b, s: m["hotpath"]["commit_overlapped_s_total"],
+    "ktwe_serving_commit_rounds_total":
+        lambda m, b, s: m["hotpath"]["commit_rounds_total"],
+    "ktwe_serving_watchdog_trips_total":
+        lambda m, b, s: m["resilience"]["watchdog_trips"],
     "ktwe_serving_weight_swaps_total":
         lambda m, b, s: m["resilience"]["weight_swaps"],
     "ktwe_serving_weight_swap_pause_ms":
@@ -229,6 +257,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--eos-id", type=int, help="-1 = none")
     p.add_argument("--drain-timeout", type=float,
                    help="seconds SIGTERM waits for in-flight requests")
+    p.add_argument("--overlap-commit", type=int,
+                   help="1 (default): overlapped commit pipeline — "
+                        "dispatch chunk N+1 behind chunk N, then fetch "
+                        "chunk N's packed tokens and run its host-side "
+                        "commit work (stop/EOS/budget checks, slot frees, "
+                        "stream-visible token appends) while N+1 runs; 0 "
+                        "serializes the fetch and commit ahead of the next "
+                        "dispatch for bisection. Transcripts are "
+                        "bitwise-identical either way")
+    p.add_argument("--watchdog-timeout", type=float,
+                   help="fail the in-flight decode batch if no chunk "
+                        "completes within this many seconds of dispatch "
+                        "(hung device); 0 disables")
     p.add_argument("--temperature", type=float,
                    help="default sampling temperature (<= 0 = greedy)")
     p.add_argument("--top-k", type=int, help="top-k filter (engine-wide)")
@@ -757,7 +798,9 @@ def make_engine(args, params) -> serving.ContinuousBatchEngine:
         temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
         enable_top_p=True if args.enable_top_p else None, seed=args.seed,
         kv_block_len=args.kv_block_len, kv_num_blocks=args.kv_num_blocks,
-        max_prefixes=args.max_prefixes, device=device)
+        max_prefixes=args.max_prefixes,
+        overlap_commit=bool(args.overlap_commit),
+        watchdog_timeout=args.watchdog_timeout or None, device=device)
 
 
 def watch_checkpoints(service: ServeService, directory: str,

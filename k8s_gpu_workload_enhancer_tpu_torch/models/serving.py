@@ -17,26 +17,45 @@ k8s_gpu_workload_enhancer_tpu/models/serving.py.
   table in the paged decode kernel (ops/paged_attention.py). Block 0 is the
   trash page: a freed slot's table row is parked there, so its ignored
   decode writes never reach pages another request now owns. A freed page
-  is handed out again at once; that is safe because all device work runs
-  in order on one stream and the engine collects every chunk before it
-  dispatches the next, so no chunk that read the old table is in flight.
+  is handed out again at once, even while a chunk that still maps it is in
+  flight: all device work runs in order on one stream, so that chunk's
+  (ignored) writes land before the new owner's prefill writes the page,
+  and a slot only ever decodes into its private pages.
 - **Per-slot positions.** Each slot decodes at its own frontier `pos[b]`:
   RoPE rows are gathered at `pos`, the new K/V row is written at `pos`
   BEFORE the attention read, and attention masks `j <= pos[b]`, so a freed
   slot's stale rows are never attended and the next request may reuse it.
   Parked slots keep stepping with `pos` clamped at `max_seq - 1`.
-- **Chunked decode.** `decode_chunk` steps per dispatch; the chunk's tokens
-  and their logprobs come back in ONE (C, B, 2) int32 array (tokens, and
-  the f32 logprobs bitcast), the engine's one device sync per chunk.
+- **Chunked decode.** `decode_chunk` steps per dispatch, reading and
+  advancing device-resident slot mirrors (next token, position, sampling
+  params); the chunk's tokens and their logprobs come back in ONE (C, B, 2)
+  int32 array (tokens, and the f32 logprobs bitcast), copied to pinned
+  host memory behind an event: the engine's one device sync per chunk. On
+  the card the chunk is one captured CUDA graph, replayed
+  (models/decode_graph.py), the counterpart of the JAX engine's jitted
+  chunk program.
+- **Overlapped dispatch/commit pipeline.** `step()` dispatches chunk N+1
+  behind chunk N, fetches N, then commits N's tokens (budget, EOS and
+  stop checks, slot frees) while N+1 runs on the device: the device never
+  waits on the host's launch of the next chunk. Bookkeeping
+  trails the device by one chunk: a slot freed by chunk N's commit still
+  decodes (ignored) in N+1, and a request's last chunk is committed one
+  step after its dispatch. The dispatch reads only the device mirrors, so
+  tokens are identical with the pipeline on or off. A `watchdog_timeout`
+  fails the in-flight batch when its chunk does not land in time.
 - **Chunked prefill.** A prompt is prefilled in `prefill_len` chunks at
   offsets that are multiples of prefill_len, through a batch-1 temp cache,
   then committed into its slot; at most `prefill_interleave` chunks run per
   step while any slot is decoding. The final chunk samples the request's
-  first token, which lands on the host right away (the TTFT stamp).
+  first token into the slot's device mirror, so the next chunk decodes
+  from it without a sync; its host copy lands at the next commit (the
+  TTFT stamp).
 - **Lifecycle.** `submit` bounds the queue (`QueueFull`), `cancel` evicts
-  wherever the request is, results stay until `release`d or aged out past
-  `keep_results`, `drain` stops admission (`Draining`). A fault in one
-  phase fails only the requests that phase touched.
+  wherever the request is (a chunk in flight drops its tokens at commit),
+  results stay until `release`d or aged out past `keep_results`, `drain`
+  stops admission (`Draining`). A fault fails only the requests it
+  touched, counted by cause as the JAX engine counts them (prefill,
+  dispatch, collect, commit, watchdog).
 - **Registered prefixes.** `register_prefix` prefills a shared prompt
   prefix once. Dense: its first (len // prefill_len) * prefill_len tokens
   stay as a frozen batch-1 temp cache, and a `submit(prefix_id=)`
@@ -58,12 +77,16 @@ k8s_gpu_workload_enhancer_tpu/models/serving.py.
   new weights and commits it all between steps. On the paged engine the
   radix tree is detached (its pages hold old-weight KV), the prefixes'
   new pages are inserted and pinned, and a prefill in flight across the
-  swap never publishes its blocks.
+  swap never publishes its blocks. A chunk in flight finishes on the old
+  weights. A graphed engine copies the new leaves into the storage its
+  decode graph captured, in stream order, and keeps the graph.
 - **Sampling.** Greedy slots take the argmax (the first maximal index, as
   jnp.argmax, so greedy tokens match the JAX engine). A sampled token is a
   pure function of (request key, sample index): Gumbel-max noise from a
-  torch.Generator seeded by both, so a sampled stream does not depend on
-  slot or batch company.
+  torch.Generator seeded by both, drawn on the host side of each dispatch
+  into a static (C, B, V) buffer, so a sampled stream does not depend on
+  slot or batch company; the filters and the draw run on the device with
+  no host branch or sync.
 
 The norms, prefill RoPE, prefill attention and paged decode attention run
 the hand-written CUDA kernels on the card (ops/). Dense decode attention,
@@ -75,9 +98,8 @@ place: no step copies it, and a prefill commits only the rows it owns.
 Not ported here (later slices): speculative decoding, the host-RAM KV
 tier, preemption, the int8 KV cache, meshes, the prefill role's
 first-token handoff, tenancy (a resume state carries the tenancy keys at
-their defaults), the watchdog and FaultLab
-sites, phase events, and the overlapped dispatch/commit pipeline (this
-engine collects every chunk before it dispatches the next).
+their defaults), the FaultLab sites, phase events, chunked-prefill decode
+quanta and the disaggregated roles.
 """
 
 from __future__ import annotations
@@ -97,7 +119,7 @@ from ..ops.paged_attention import paged_decode_attention
 from ..ops.quant import as_compute
 from ..utils.device import resolve_device
 from ..utils.stats import percentile
-from . import decode, paged_kv
+from . import decode, decode_graph, paged_kv
 from . import transformer as tf
 
 Params = tf.Params
@@ -107,6 +129,16 @@ def _map_leaves(fn: Callable, tree):
     if isinstance(tree, dict):
         return {k: _map_leaves(fn, v) for k, v in tree.items()}
     return fn(tree)
+
+
+def _copy_leaves(dst, src) -> None:
+    """Copy every leaf of `src` into the same leaf of `dst` in place."""
+    if isinstance(dst, dict):
+        for k in dst:
+            _copy_leaves(dst[k], src[k])
+        return
+    with torch.no_grad():
+        dst.copy_(src)
 
 
 def _check_same_tree(old, new, path: str = "") -> None:
@@ -144,6 +176,13 @@ class QueueFull(RuntimeError):
 class Draining(RuntimeError):
     """submit() after drain(): accepted work finishes, nothing new is
     admitted (HTTP 503 + Retry-After)."""
+
+
+class WatchdogTimeout(RuntimeError):
+    """A dispatched decode chunk produced no completed result within
+    watchdog_timeout seconds of its dispatch: the device is presumed hung,
+    and step() fails the in-flight batch instead of blocking every client
+    forever."""
 
 
 # ---------------------------------------------------------------------------
@@ -184,39 +223,42 @@ def _mix64(*words: int) -> int:
     return h & 0x7FFFFFFFFFFFFFFF
 
 
-def _sample_per_slot(logits: torch.Tensor, keys: np.ndarray,
-                     counts: Sequence[int], temps: np.ndarray,
-                     top_ps: np.ndarray, top_k: int,
-                     enable_top_p: bool) -> torch.Tensor:
-    """logits (B, V) -> (B,) int64 with PER-SLOT sampling params.
-
-    temps[b] <= 0 is greedy (argmax). A sampled slot filters by the
-    engine-wide top_k and, with enable_top_p, its nucleus mass top_ps[b]
-    (exclusive cumulative mass, so the first token always survives), then
-    draws by Gumbel-max with noise seeded from (keys[b], counts[b]): the
-    draw is a pure function of the request's key and sample index."""
+def _sample(logits: torch.Tensor, temps: torch.Tensor,
+            top_ps: torch.Tensor, noise: torch.Tensor, top_k: int,
+            enable_top_p: bool) -> torch.Tensor:
+    """logits (B, V) f32 -> (B,) int64 with PER-SLOT sampling params, as a
+    tensor function: no host branch and no sync, so a CUDA graph captures
+    it. temps[b] <= 0 is greedy (argmax: the first maximal index, as
+    jnp.argmax). A sampled slot filters by the engine-wide top_k and, with
+    enable_top_p, its nucleus mass top_ps[b] (exclusive cumulative mass, so
+    the first token always survives; top_ps[b] >= 1 keeps every token),
+    then takes the Gumbel-max draw over noise (B, V) (`_draw_gumbel`)."""
     greedy = torch.argmax(logits, dim=-1)
-    sampled = np.nonzero(np.asarray(temps) > 0.0)[0]
-    if len(sampled) == 0:
-        return greedy
-    out = greedy.clone()
-    for b in sampled:
-        row = logits[b].float() / max(float(temps[b]), 1e-6)
-        if top_k > 0:
-            cutoff = torch.topk(row, top_k).values[-1]
-            row = torch.where(row < cutoff, float("-inf"), row)
-        if enable_top_p and float(top_ps[b]) < 1.0:
-            probs = torch.softmax(row, dim=-1)
-            sp = torch.sort(probs, descending=True).values
-            keep = (torch.cumsum(sp, dim=-1) - sp) < float(top_ps[b])
-            cutoff = sp[int(keep.sum()) - 1]
-            row = torch.where(probs >= cutoff, row, float("-inf"))
-        gen = torch.Generator(device=logits.device)
-        gen.manual_seed(_mix64(keys[b][0], keys[b][1], counts[b]))
-        u = torch.rand(row.shape, generator=gen, device=logits.device)
-        gumbel = -torch.log(-torch.log(u.clamp_min(1e-20)))
-        out[b] = torch.argmax(row + gumbel)
-    return out
+    scaled = logits / torch.clamp_min(temps, 1e-6)[:, None]
+    if top_k > 0:
+        cutoff = torch.topk(scaled, top_k, dim=-1).values[:, -1:]
+        scaled = torch.where(scaled < cutoff, float("-inf"), scaled)
+    if enable_top_p:
+        probs = torch.softmax(scaled, dim=-1)
+        sp = torch.sort(probs, dim=-1, descending=True).values
+        keep = (((torch.cumsum(sp, dim=-1) - sp) < top_ps[:, None])
+                | (top_ps[:, None] >= 1.0))
+        cutoff = sp.gather(-1, keep.sum(dim=-1, keepdim=True) - 1)
+        scaled = torch.where(probs >= cutoff, scaled, float("-inf"))
+    sampled = torch.argmax(scaled + noise, dim=-1)
+    return torch.where(temps > 0.0, sampled, greedy)
+
+
+def _draw_gumbel(out: torch.Tensor, key: Sequence[int], index: int) -> None:
+    """Gumbel noise for the token at sample `index` of the request with
+    sampling key `key` into `out` (V,): uniforms from a torch.Generator
+    seeded by (key, index) on out's device, so a sampled token is a pure
+    function of (request key, sample index), whatever the slot or the
+    batch around it."""
+    gen = torch.Generator(device=out.device)
+    gen.manual_seed(_mix64(key[0], key[1], index))
+    u = torch.rand(out.shape, generator=gen, device=out.device)
+    out.copy_(-torch.log(-torch.log(u.clamp_min(1e-20))))
 
 
 def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -229,17 +271,18 @@ def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 @dataclass
 class _Sampling:
-    """Per-slot sampling state for one dispatch (host arrays)."""
-    keys: np.ndarray          # (B, 2) uint32 request base keys
-    counts: np.ndarray        # (B,) sample index of the next token
-    temps: np.ndarray         # (B,) f32, <= 0 greedy
-    top_ps: np.ndarray        # (B,) f32
+    """The sampling inputs of one dispatch, on the device: per-slot
+    temperatures and nucleus masses, and the Gumbel noise of every step
+    (noise[n] is step n's (B, V))."""
+    temps: torch.Tensor       # (B,) f32, <= 0 greedy
+    top_ps: torch.Tensor      # (B,) f32
+    noise: torch.Tensor       # (C, B, V) f32
     top_k: int = 0
     enable_top_p: bool = False
 
-    def at(self, step: int) -> "_Sampling":
-        return _Sampling(self.keys, self.counts + step, self.temps,
-                         self.top_ps, self.top_k, self.enable_top_p)
+    def sample(self, logits: torch.Tensor, step: int) -> torch.Tensor:
+        return _sample(logits, self.temps, self.top_ps, self.noise[step],
+                       self.top_k, self.enable_top_p)
 
 
 Attend = Callable[[int, torch.Tensor, torch.Tensor, torch.Tensor],
@@ -293,11 +336,12 @@ def _paged_attend(pool: decode.KVCache, table: torch.Tensor,
 
 def _decode_step(params: Params, toks: torch.Tensor, pos: torch.Tensor,
                  cfg: tf.TransformerConfig, freqs: torch.Tensor,
-                 sampling: _Sampling, attend: Attend
+                 sampling: _Sampling, step: int, attend: Attend
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One batched decode step at per-slot positions. toks, pos: (B,).
-    `attend` writes each layer's new K/V rows and returns its attention.
-    Returns (next token (B,) int64, its logprob (B,) f32)."""
+    """Step `step` of a chunk: one batched decode step at per-slot
+    positions. toks, pos: (B,). `attend` writes each layer's new K/V rows
+    and returns its attention. Returns (next token (B,) int64, its logprob
+    (B,) f32)."""
     dt = cfg.dtype
     b = toks.shape[0]
     nh, nkh, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
@@ -321,9 +365,7 @@ def _decode_step(params: Params, toks: torch.Tensor, pos: torch.Tensor,
     x = rms_norm(x, params["final_ln"])
     head = as_compute(tf.output_head(params, cfg), dt)
     logits = (x @ head).float()                                     # (B, V)
-    nxt = _sample_per_slot(logits, sampling.keys, sampling.counts,
-                           sampling.temps, sampling.top_ps, sampling.top_k,
-                           sampling.enable_top_p)
+    nxt = sampling.sample(logits, step)
     # Model logprob of the chosen token (raw log-softmax, independent of
     # the sampling filters).
     lp_tok = torch.log_softmax(logits, dim=-1).gather(1, nxt[:, None])[:, 0]
@@ -344,27 +386,68 @@ def _unpack(packed_h: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     return packed_h[..., 0], packed_h.view(np.float32)[..., 1]
 
 
+def _h2d(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on `device`. On the card the copy is staged through
+    pinned memory and left in flight: a copy from pageable memory would
+    wait for every chunk already queued on the stream."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+@dataclass
+class _HostCopy:
+    """A device tensor's copy into host memory, started without a sync:
+    `host` (pinned on the card) and `event`, recorded behind the copy on
+    the card (None on the CPU, where the copy is done when it returns)."""
+    host: torch.Tensor
+    event: Optional[Any] = None
+
+    @classmethod
+    def start(cls, src: torch.Tensor,
+              host: Optional[torch.Tensor] = None) -> "_HostCopy":
+        if host is None:
+            host = torch.empty(src.shape, dtype=src.dtype,
+                               pin_memory=src.is_cuda)
+        host.copy_(src, non_blocking=src.is_cuda)
+        event = None
+        if src.is_cuda:
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(src.device))
+        return cls(host, event)
+
+    def numpy(self) -> np.ndarray:
+        """The copied values in a host array of their own (waits for the
+        copy: the designed sync)."""
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host.numpy().copy()
+
+
 def _steps(params: Params, toks: torch.Tensor, pos: torch.Tensor,
            cfg: tf.TransformerConfig, steps: int, freqs: torch.Tensor,
            sampling: _Sampling, s_max: int,
-           attend_at: Callable[[torch.Tensor], Attend]) -> torch.Tensor:
-    """`steps` decode steps, attending through `attend_at(pos)`; returns
-    the packed (C, B, 2) int32 result. Step n of slot b samples at index
-    sampling.counts[b] + n. Parked slots' positions clamp at s_max - 1 so
+           attend_at: Callable[[torch.Tensor], Attend]
+           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`steps` decode steps, attending through `attend_at(pos)`. Returns
+    the packed (C, B, 2) int32 result, the last step's tokens and the
+    advanced positions. Parked slots' positions clamp at s_max - 1 so
     their ignored writes stay in bounds."""
     out, lps = [], []
     for n in range(steps):
-        toks, lp = _decode_step(params, toks, pos, cfg, freqs,
-                                sampling.at(n), attend_at(pos))
+        toks, lp = _decode_step(params, toks, pos, cfg, freqs, sampling, n,
+                                attend_at(pos))
         out.append(toks)
         lps.append(lp)
         pos = torch.clamp(pos + 1, max=s_max - 1)
-    return _pack(torch.stack(out), torch.stack(lps))
+    return _pack(torch.stack(out), torch.stack(lps)), toks, pos
 
 
 def _decode_chunk(params: Params, cache: decode.KVCache, toks: torch.Tensor,
                   pos: torch.Tensor, cfg: tf.TransformerConfig, steps: int,
-                  freqs: torch.Tensor, sampling: _Sampling) -> torch.Tensor:
+                  freqs: torch.Tensor, sampling: _Sampling
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """`steps` decode steps over the dense cache."""
     return _steps(params, toks, pos, cfg, steps, freqs, sampling,
                   cache.max_seq, lambda p: _dense_attend(cache, p, cfg))
@@ -374,7 +457,8 @@ def _decode_chunk_paged(params: Params, pool: decode.KVCache,
                         table: torch.Tensor, toks: torch.Tensor,
                         pos: torch.Tensor, cfg: tf.TransformerConfig,
                         steps: int, freqs: torch.Tensor, sampling: _Sampling,
-                        block_len: int) -> torch.Tensor:
+                        block_len: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """`steps` decode steps through the block table (B, MB) int32, which
     does not change within a chunk: a reservation covers the request's
     whole prompt + max_new span from admission."""
@@ -420,10 +504,9 @@ def _prefill_final(params: Params, cache: decode.KVCache,
 def _first_token(last: torch.Tensor, sampling: _Sampling
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sample a request's first token from its last prompt row's logits
-    (V,); returns (token, logprob) device scalars."""
-    tok = _sample_per_slot(last[None], sampling.keys, sampling.counts,
-                           sampling.temps, sampling.top_ps, sampling.top_k,
-                           sampling.enable_top_p)[0]
+    (V,) with a batch-1 `sampling` (the decode steps' function); returns
+    (token, logprob) device scalars."""
+    tok = sampling.sample(last[None], 0)[0]
     return tok, torch.log_softmax(last, dim=-1)[tok]
 
 
@@ -431,7 +514,7 @@ def _pool_rows(row: np.ndarray, start: int, stop: int, block_len: int,
                device) -> torch.Tensor:
     """Physical pool rows of logical positions [start, stop) of a slot
     whose block-table row is `row` (host int32)."""
-    return decode.paged_rows(torch.as_tensor(row, device=device),
+    return decode.paged_rows(_h2d(row, device),
                              torch.arange(start, stop, device=device),
                              block_len)
 
@@ -479,6 +562,15 @@ def _prefill_final_paged(params: Params, pool: decode.KVCache,
                                          freqs=freqs)
     _commit_rows(pool, temp, row, write_from, write_to, block_len)
     return _first_token(logits[0, plen - 1], sampling)
+
+
+def _chunk_ready(inflight) -> bool:
+    """True once a dispatched chunk's (or first token's) copy to the host
+    has landed: the copy's event on the card; on the CPU a dispatched
+    chunk is already computed. Module-level so a test can simulate a hung
+    device by patching it."""
+    event = inflight.copy.event
+    return event is None or bool(event.query())
 
 
 # ---------------------------------------------------------------------------
@@ -570,17 +662,49 @@ class _KVLease:
     row: np.ndarray                 # (max_blocks,) int32
 
 
+@dataclass
+class _Inflight:
+    """A dispatched decode chunk: its packed tokens' copy to the host, the
+    (slot, request) pairs live at dispatch, when its dispatch began (its
+    wall starts there: an eager chunk's launches take host time) and
+    ended (the watchdog's deadline runs from there, so a capture never
+    counts), and the chunk's length."""
+    copy: _HostCopy
+    snapshot: List[Tuple[int, ServeRequest]]
+    t_start: float
+    t_dispatch: float
+    n: int
+
+
+@dataclass
+class _PendingFirst:
+    """An admitted request's first token, still on its way to the host:
+    the (1, 1, 2) packed token and logprob."""
+    req: ServeRequest
+    slot: int
+    copy: _HostCopy
+
+
 class ContinuousBatchEngine:
     """Slot-based continuous batching over one KTWE-LM instance.
 
     submit() enqueues (QueueFull beyond max_queue); step() admits pending
     requests into free slots (at most `prefill_interleave` prefill chunks
-    per step while anything decodes), advances every live slot by
-    `decode_chunk` tokens and commits them; cancel() evicts; run() drains.
+    per step while anything decodes), dispatches the next `decode_chunk`
+    tokens of every live slot behind the chunk in flight, then fetches
+    and commits that one; cancel() evicts; run() drains.
     `device` defaults to "cuda" and raises without a card; params must
     already live on it. `kv_block_len > 0` builds the paged engine over a
     pool of `kv_num_blocks` pages (0 = the dense cache's rows plus the
-    trash page)."""
+    trash page).
+
+    One chunk stays in flight across steps; `overlap_commit` fetches and
+    commits it behind the next dispatch (False: before it, for
+    bisection), which changes no token. `watchdog_timeout` (seconds, None off) fails the
+    in-flight batch when its chunk has not landed that long after its
+    dispatch. `cuda_graph` (the card only) replays the decode chunk as
+    one captured CUDA graph (models/decode_graph.py); False launches it
+    eagerly, which exists to hold the graph to the eager path."""
 
     def __init__(self, params: Params, cfg: tf.TransformerConfig, *,
                  num_slots: int = 4, max_seq: Optional[int] = None,
@@ -591,7 +715,9 @@ class ContinuousBatchEngine:
                  max_queue: int = 256, prefill_interleave: int = 2,
                  keep_results: int = 1024, kv_block_len: int = 0,
                  kv_num_blocks: int = 0, max_prefixes: int = 8,
-                 device="cuda"):
+                 overlap_commit: bool = True,
+                 watchdog_timeout: Optional[float] = None,
+                 cuda_graph: bool = True, device="cuda"):
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
             raise ValueError(f"params live on {params['embed'].device}, the "
@@ -618,6 +744,9 @@ class ContinuousBatchEngine:
         self.max_queue = int(max_queue)
         self.prefill_interleave = max(1, int(prefill_interleave))
         self.keep_results = int(keep_results)
+        self.overlap_commit = bool(overlap_commit)
+        self.watchdog_timeout = (float(watchdog_timeout)
+                                 if watchdog_timeout else None)
         self.max_prefixes = int(max_prefixes)
         self._prefixes: Dict[int, _Prefix] = {}
         self._next_prefix_id = 0
@@ -650,17 +779,46 @@ class ContinuousBatchEngine:
                                             self.max_seq, self.device)
         self._freqs = rope_frequencies(cfg.head_dim, self.max_seq,
                                        cfg.rope_theta, self.device)
-        # Host slot table: the truth for every slot's next input token,
-        # position, sampling params and sample counter; uploaded per chunk.
-        n = self.num_slots
-        self._cur = np.zeros(n, np.int64)
-        self._pos = np.zeros(n, np.int64)
-        self._temps = np.full(n, self.temperature, np.float32)
-        self._topps = np.full(n, self.top_p, np.float32)
-        self._skeys = np.zeros((n, 2), np.uint32)
+        # Device slot mirrors: every slot's next input token, position and
+        # sampling params. A chunk reads them and writes the tokens and
+        # positions back on the device; an admission writes its slot's
+        # entries in place (its first token never visits the host first).
+        # They are the captured graph's static inputs, so they are only
+        # ever written in place.
+        n, dev = self.num_slots, self.device
+        self._cur_d = torch.zeros(n, dtype=torch.int64, device=dev)
+        self._pos_d = torch.zeros(n, dtype=torch.int64, device=dev)
+        self._temps_d = torch.full((n,), self.temperature,
+                                   dtype=torch.float32, device=dev)
+        self._topps_d = torch.full((n,), self.top_p, dtype=torch.float32,
+                                   device=dev)
+        # Gumbel noise of a chunk's sampled slots, drawn on the host side
+        # of each dispatch; and the chunk's packed (C, B, 2) output.
+        self._noise_d = torch.zeros((self.decode_chunk, n, cfg.vocab_size),
+                                    dtype=torch.float32, device=dev)
+        self._out_d = torch.zeros((self.decode_chunk, n, 2),
+                                  dtype=torch.int32, device=dev)
+        # Two host buffers, alternating: a chunk's copy is started while
+        # the one before it may not have been read yet.
+        self._out_h = [torch.zeros(self._out_d.shape, dtype=torch.int32,
+                                   pin_memory=dev.type == "cuda")
+                       for _ in range(2)]
+        # Host mirrors the noise draw reads: sample counters advanced per
+        # dispatch as the device's chunks advance, sampling keys and
+        # temperatures. (Positions live on the device alone: no host code
+        # reads them.)
         self._scnt = np.zeros(n, np.int64)
+        self._skeys = np.zeros((n, 2), np.uint32)
+        self._temps = np.full(n, self.temperature, np.float32)
         self._slot_req: List[Optional[ServeRequest]] = [None] * n
         self._prefill: Optional[_PrefillState] = None
+        # First tokens sampled at admission, resolved at the next commit.
+        self._pending_first: List[_PendingFirst] = []
+        # The chunk in flight: fetched by the next step.
+        self._inflight: Optional[_Inflight] = None
+        self._last_collect_t: Optional[float] = None
+        self._graph = (decode_graph.DecodeGraph(dev)
+                       if cuda_graph and dev.type == "cuda" else None)
         self._queue: deque = deque()
         self._reqs: Dict[int, ServeRequest] = {}
         self._done_order: deque = deque()
@@ -673,7 +831,17 @@ class ContinuousBatchEngine:
         self._tokens_out_total = 0
         self._decode_steps_total = 0
         self._prefill_chunks_total = 0
-        self._errors_total = {"prefill": 0, "decode": 0}
+        # Contained failures by cause (the JAX engine's keys).
+        self._errors_total = {"dispatch": 0, "collect": 0, "commit": 0,
+                              "prefill": 0, "watchdog": 0}
+        self._watchdog_trips = 0
+        # Hot-path accounting: host seconds waiting on the fetch (the
+        # round's one sync, watchdog poll included) and committing, and the
+        # commit seconds that ran behind an already-dispatched chunk.
+        self._commit_rounds_total = 0
+        self._commit_s_total = 0.0
+        self._commit_overlapped_s_total = 0.0
+        self._fetch_sync_s_total = 0.0
         self._started_at: Optional[float] = None
         # Prompt-token accounting behind kv_cache.prefix_hit_rate, and the
         # paged pool's admission deferrals (counted once per request).
@@ -755,8 +923,7 @@ class ContinuousBatchEngine:
             chunk = np.zeros((1, plen), np.int64)
             n = min(plen, stop - start)
             chunk[0, :n] = tokens[start:start + n]
-            temp = _prefill_step(p, temp,
-                                 torch.as_tensor(chunk, device=self.device),
+            temp = _prefill_step(p, temp, _h2d(chunk, self.device),
                                  self.cfg, start, self._freqs)
         return temp
 
@@ -963,7 +1130,10 @@ class ContinuousBatchEngine:
         free as cancel frees them, and the state carries what another
         replica needs to continue it exactly (prompt, every committed
         token, the total budget, sampling params, stop sequences, the
-        sampling key and position). A second eject of the same request
+        sampling key and position). Only committed tokens go in: the
+        tokens of a chunk in flight (and a first token not landed yet) are
+        dropped and regenerate on the resuming replica, since a sampled
+        token is a function of (key, index). A second eject of the same request
         returns the cached state; a request that finished for real
         returns None."""
         req = self._reqs[req_id]
@@ -1032,7 +1202,13 @@ class ContinuousBatchEngine:
         tree is detached (its pages hold old-weight KV: unreferenced pages
         free now, pages live requests still map free with their leases),
         the staged chains are inserted and pinned, and a prefill in flight
-        across the swap finishes but never publishes its blocks."""
+        across the swap finishes but never publishes its blocks.
+
+        A graphed engine copies the new values into the leaves it was
+        built with (its decode graph reads their storage), so a caller
+        that kept that tree sees the new weights in it; an eager engine
+        takes the placed tree. The pause includes the wait for the chunk
+        in flight and, graphed, the copy."""
         t0 = time.perf_counter()
         _check_same_tree(self.params, new_params)
         placed = _map_leaves(lambda t: t.to(self.device), new_params)
@@ -1053,10 +1229,17 @@ class ContinuousBatchEngine:
                 if pfx.grid_len > 0:
                     new_temps[pid] = self._prefill_grid(
                         pfx.tokens, pfx.grid_len, placed)
+        # Commit: nothing below can raise (the trees matched). The decode
+        # graph reads the engine's leaves' storage, so a graphed engine
+        # copies the new values into it, in stream order: the chunk in
+        # flight finishes on the old weights, every later chunk reads the
+        # new ones, and the graph stays as captured.
+        if self._graph is not None:
+            _copy_leaves(self.params, placed)
+        else:
+            self.params = placed
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        # Commit: host-side assignments only, nothing below can raise.
-        self.params = placed
         for pid, temp in new_temps.items():
             self._prefixes[pid].temp = temp
         if self._paged:
@@ -1102,28 +1285,59 @@ class ContinuousBatchEngine:
 
     @property
     def active(self) -> bool:
-        return self.pending > 0
+        """True while there is any work: queued, prefilling or decoding
+        requests, or a chunk in flight."""
+        return self.pending > 0 or self._inflight is not None
 
     def step(self) -> int:
-        """Admit (bounded prefill work), dispatch one decode chunk over the
-        live slots and commit its tokens. Returns tokens committed. A fault
-        fails only the requests of the phase it hit (finish_reason
-        "error") and the engine keeps serving."""
-        # A slot live before admission waited through this step's prefill
-        # work too: its tokens' latency is measured from here.
-        t0 = (time.perf_counter()
-              if any(r is not None for r in self._slot_req) else None)
+        """Admit (bounded prefill work), dispatch the next chunk over the
+        live slots behind the chunk in flight, fetch the chunk in flight
+        (the one device sync of a round) and commit its tokens while the
+        new one runs on the device. Returns the tokens committed (0 while
+        the pipeline fills or when idle). The dispatch goes first so that
+        the device never waits on the host's launch of the next chunk.
+        overlap_commit=False fetches and commits before the dispatch
+        instead (bisection). The dispatch reads only the device mirrors,
+        and slot frees land on the same step in either ordering, so both
+        give the same tokens.
+
+        A fault fails only the requests it touched (finish_reason "error",
+        counted by cause) and the engine keeps serving: a prefill fault
+        the request being prefilled; a dispatch or collect fault, or a
+        watchdog trip, every request of the batch; a commit fault the one
+        request it was committing."""
         try:
             self._admit()
         except Exception as e:                 # noqa: BLE001 — contained
-            self._contain_failure("prefill", e)
-        if not any(r is not None for r in self._slot_req):
-            return 0
-        try:
-            return self._collect(self._dispatch_chunk(t0))
-        except Exception as e:                 # noqa: BLE001 — contained
-            self._contain_failure("decode", e)
-            return 0
+            self._contain_prefill_failure(e)
+        emitted = 0
+        inflight, self._inflight = self._inflight, None
+        if inflight is not None and not self.overlap_commit:
+            try:
+                emitted = self._commit_phase(self._fetch(inflight),
+                                             overlapped=False)
+            except Exception as e:             # noqa: BLE001 — contained
+                self._contain_collect_failure(e)
+                return emitted
+            inflight = None
+        nxt = None
+        if any(r is not None for r in self._slot_req):
+            try:
+                nxt = self._dispatch_chunk()
+            except Exception as e:             # noqa: BLE001 — contained
+                self._contain_dispatch_failure(e)
+        if inflight is not None:
+            # A fault here (a chunk or a first token that never lands)
+            # fails the batch; the chunk just dispatched descends from the
+            # same device state and goes with it.
+            try:
+                emitted = self._commit_phase(self._fetch(inflight),
+                                             overlapped=nxt is not None)
+            except Exception as e:             # noqa: BLE001 — contained
+                self._contain_collect_failure(e)
+                return 0
+        self._inflight = nxt
+        return emitted
 
     def run(self, max_chunks: int = 1_000_000) -> None:
         for _ in range(max_chunks):
@@ -1133,33 +1347,63 @@ class ContinuousBatchEngine:
 
     # -- internals --
 
-    def _contain_failure(self, phase: str, exc: Exception) -> None:
-        """Fail the requests `phase` touched: the one being prefilled, or
-        every decoding slot."""
-        self._errors_total[phase] += 1
-        msg = f"{phase} failed: {type(exc).__name__}: {exc}"
-        if phase == "prefill":
-            touched = [self._prefill.req] if self._prefill is not None else []
-            self._prefill = None
-        else:
-            # Paged: the pool needs no rebuild. The port writes in place,
-            # and a faulted chunk can have written only its slots' private
-            # decode rows (and the trash page), never a shared tree page:
-            # a slot's pos is past every block its prompt published.
-            touched = [r for r in self._slot_req if r is not None]
-            for b, r in enumerate(self._slot_req):
-                if r is not None:
-                    self._park_slot(b)
-            self._slot_req = [None] * self.num_slots
-        for req in touched:
-            if not req.done:
+    def _contain_prefill_failure(self, exc: Exception) -> None:
+        """A prefill fault touches the request being prefilled: fail it
+        (its lease goes back) and keep admitting the others."""
+        self._errors_total["prefill"] += 1
+        st, self._prefill = self._prefill, None
+        if st is not None:
+            self._fail_request(st.req, f"prefill failed: {exc!r}")
+
+    def _contain_dispatch_failure(self, exc: Exception,
+                                  cause: str = "dispatch") -> None:
+        """A chunk is one batched program over every live slot: fail them
+        all and the first tokens still on their way. No device state is
+        rebuilt: the port writes the cache in place, and a faulted chunk
+        can have written only its slots' private decode rows (and the
+        trash page), never a shared tree page, since a slot's position is
+        past every block its prompt published; the mirrors of the parked
+        slots are rewritten by their next admission."""
+        self._errors_total[cause] += 1
+        msg = f"{cause} failed: {exc!r}"
+        for req in list(self._slot_req):
+            if req is not None:
                 self._fail_request(req, msg)
+        for pending in self._pending_first:
+            self._fail_request(pending.req, msg)
+        self._pending_first = []
+
+    def _contain_collect_failure(self, exc: Exception) -> None:
+        """A fetch fault or a watchdog trip: the batch in flight, and every
+        live request, descends from the chunk that did not land; fail them
+        as a dispatch fault does, under their own cause."""
+        if isinstance(exc, WatchdogTimeout):
+            self._watchdog_trips += 1
+            self._contain_dispatch_failure(exc, cause="watchdog")
+        else:
+            self._contain_dispatch_failure(exc, cause="collect")
+
+    def _contain_commit_failure(self, req: ServeRequest,
+                                exc: Exception) -> None:
+        """A host-side fault while committing one request's tokens touches
+        that request alone (commit reads fetched host arrays and changes
+        per-request lists): fail it; its co-tenants and the chunk already
+        dispatched go on."""
+        self._errors_total["commit"] += 1
+        self._fail_request(req, f"commit failed: {exc!r}")
 
     def _fail_request(self, req: ServeRequest, msg: str) -> None:
-        """Finish `req` as errored with `msg` (its lease goes back)."""
+        """Finish `req` as errored with `msg` and free its slot (its lease
+        goes back); a finished request is left as it is."""
+        if req.done:
+            return
         req.finish_reason = "error"
         req.error = msg
         self._finish(req)
+        for b in range(self.num_slots):
+            if self._slot_req[b] is req:
+                self._slot_req[b] = None
+                self._park_slot(b)
 
     @staticmethod
     def _matched_stop(req: ServeRequest) -> Optional[List[int]]:
@@ -1215,48 +1459,151 @@ class ContinuousBatchEngine:
             if r is not None and r.done:
                 del self._reqs[old]
 
-    def _sampling(self) -> _Sampling:
-        return _Sampling(self._skeys, self._scnt, self._temps, self._topps,
-                         self.top_k, self.enable_top_p)
+    def _run_chunk(self) -> None:
+        """One decode chunk over every slot (parked ones included), from
+        the device mirrors into them: the packed tokens into _out_d, the
+        last tokens into _cur_d, the advanced positions into _pos_d. The
+        program the CUDA graph captures, and the eager path."""
+        sampling = _Sampling(self._temps_d, self._topps_d, self._noise_d,
+                             self.top_k, self.enable_top_p)
+        with torch.no_grad():
+            if self._paged:
+                packed, cur, pos = _decode_chunk_paged(
+                    self.params, self._cache, self._table_d, self._cur_d,
+                    self._pos_d, self.cfg, self.decode_chunk, self._freqs,
+                    sampling, self.kv_block_len)
+            else:
+                packed, cur, pos = _decode_chunk(
+                    self.params, self._cache, self._cur_d, self._pos_d,
+                    self.cfg, self.decode_chunk, self._freqs, sampling)
+            self._out_d.copy_(packed)
+            self._cur_d.copy_(cur)
+            self._pos_d.copy_(pos)
 
-    def _dispatch_chunk(self, t_start: Optional[float] = None):
-        """Run one decode chunk over every slot (parked ones included) and
-        advance the host pos / sample-counter mirrors as the device did.
-        `t_start` stamps where the chunk's wall begins (default: now)."""
-        t_start = time.perf_counter() if t_start is None else t_start
-        n = self.decode_chunk
-        toks = torch.as_tensor(self._cur, device=self.device)
-        pos = torch.as_tensor(self._pos, device=self.device)
-        if self._paged:
-            packed = _decode_chunk_paged(self.params, self._cache,
-                                         self._table_d, toks, pos, self.cfg,
-                                         n, self._freqs, self._sampling(),
-                                         self.kv_block_len)
+    def _draw_noise(self) -> None:
+        """The Gumbel noise of every live sampled slot for each step of the
+        next chunk (step n of slot b samples at index _scnt[b] + n); greedy
+        and parked slots draw nothing, and with no sampled slot nothing is
+        drawn at all."""
+        for b, req in enumerate(self._slot_req):
+            if req is None or self._temps[b] <= 0.0:
+                continue
+            for n in range(self.decode_chunk):
+                _draw_gumbel(self._noise_d[n, b], self._skeys[b],
+                             int(self._scnt[b]) + n)
+
+    def _dispatch_chunk(self) -> _Inflight:
+        """Dispatch one decode chunk (the graph's replay on the card) and
+        start its packed tokens' copy to the host; advance the host
+        sample counters as the chunk advances them."""
+        n, t_start = self.decode_chunk, time.perf_counter()
+        self._draw_noise()
+        if self._graph is not None:
+            self._graph.replay(self._run_chunk)
         else:
-            packed = _decode_chunk(self.params, self._cache, toks, pos,
-                                   self.cfg, n, self._freqs,
-                                   self._sampling())
+            self._run_chunk()
+        self._out_h.reverse()
+        copy = _HostCopy.start(self._out_d, self._out_h[0])
         snapshot = [(b, r) for b, r in enumerate(self._slot_req)
                     if r is not None]
-        self._pos = np.minimum(self._pos + n, self.max_seq - 1)
         self._scnt = self._scnt + n
         self._decode_steps_total += n
-        return packed, snapshot, t_start, n
+        return _Inflight(copy, snapshot, t_start, time.perf_counter(), n)
 
-    def _collect(self, dispatched) -> int:
-        """Fetch a chunk's packed tokens (THE device sync) and commit them
-        slot by slot; each token's latency is the chunk wall over its
-        length."""
-        packed, snapshot, t_start, n = dispatched
-        toks_h, lps_h = _unpack(packed.cpu().numpy())
-        self._cur = toks_h[-1].astype(np.int64)
-        per_tok = (time.perf_counter() - t_start) / n
-        emitted = 0
-        for b, req in snapshot:
+    def _fetch(self, inflight: _Inflight) -> Tuple[np.ndarray, _Inflight]:
+        """Wait for a dispatched chunk's packed tokens (THE sync of a
+        round). With the watchdog armed, poll the copy up to the deadline,
+        which runs from this chunk's own dispatch, and raise
+        WatchdogTimeout past it instead of waiting forever."""
+        t0 = time.perf_counter()
+        packed_h = self._landed(inflight, inflight.t_dispatch,
+                                "no decode chunk completed")
+        self._fetch_sync_s_total += time.perf_counter() - t0
+        return packed_h, inflight
+
+    def _landed(self, pending, since: float, what: str) -> np.ndarray:
+        """The values of `pending`'s copy to the host (a chunk in flight or
+        a first token). With the watchdog armed, poll it and raise
+        WatchdogTimeout once watchdog_timeout seconds have passed since
+        `since`, instead of waiting on a device that may never answer."""
+        if self.watchdog_timeout is not None:
+            deadline = since + self.watchdog_timeout
+            while not _chunk_ready(pending):
+                if time.perf_counter() > deadline:
+                    raise WatchdogTimeout(
+                        f"{what} within {self.watchdog_timeout}s")
+                time.sleep(1e-4)
+        return pending.copy.numpy()
+
+    def _commit_phase(self, fetched: Tuple[np.ndarray, _Inflight],
+                      overlapped: bool) -> int:
+        """All host-side commit work of a fetched chunk: the first tokens
+        pending, then each live request's tokens. `overlapped`: it runs
+        behind the next chunk's device execution."""
+        t0 = time.perf_counter()
+        self._resolve_first_tokens()
+        emitted = self._commit_chunk(*fetched)
+        dur = time.perf_counter() - t0
+        self._commit_rounds_total += 1
+        self._commit_s_total += dur
+        if overlapped:
+            self._commit_overlapped_s_total += dur
+        return emitted
+
+    def _resolve_first_tokens(self) -> None:
+        """Land the first tokens sampled at admission (their copies are in
+        flight since) before any decode token of theirs, so an EOS or a
+        budget of one finishes the request before a decode token is
+        appended. An entry is popped only once its token landed: a fault
+        leaves the rest for the containment to fail."""
+        now = time.perf_counter()
+        while self._pending_first:
+            pending = self._pending_first[0]
+            req, b = pending.req, pending.slot
             if req.done:
-                continue                    # cancelled after dispatch
-            emitted += self._commit_tokens(req, b, toks_h[:, b], lps_h[:, b],
-                                           per_tok)
+                self._pending_first.pop(0)
+                continue
+            toks_h, lps_h = _unpack(self._landed(
+                pending, time.perf_counter(), "no first token landed"))
+            self._pending_first.pop(0)
+            req.tokens.append(int(toks_h[0, 0]))
+            req.logprobs.append(float(lps_h[0, 0]))
+            req.token_lat_s.append(now - req.submitted_at)         # TTFT
+            req.first_token_at = now
+            if self._terminal(req):
+                self._finish(req)
+                if self._slot_req[b] is req:
+                    self._slot_req[b] = None
+                    self._park_slot(b)
+
+    def _collect_wall(self, t_start: float) -> float:
+        """A chunk's wall: the time since the previous collect while the
+        pipeline is busy (dispatch -> collect spans overlapped work), else
+        since this chunk's dispatch began."""
+        now = time.perf_counter()
+        base = t_start
+        if self._last_collect_t is not None and \
+                self._last_collect_t > t_start:
+            base = self._last_collect_t
+        self._last_collect_t = now
+        return now - base
+
+    def _commit_chunk(self, packed_h: np.ndarray, inflight: _Inflight) -> int:
+        """Commit a fetched chunk slot by slot; each token's latency is the
+        chunk's wall over its length. A request that finished, was
+        cancelled or ejected after the dispatch drops its in-flight
+        tokens."""
+        toks_h, lps_h = _unpack(packed_h)
+        per_tok = self._collect_wall(inflight.t_start) / inflight.n
+        emitted = 0
+        for b, req in inflight.snapshot:
+            if req.done:
+                continue
+            try:
+                emitted += self._commit_tokens(req, b, toks_h[:, b],
+                                               lps_h[:, b], per_tok)
+            except Exception as e:             # noqa: BLE001 — contained
+                self._contain_commit_failure(req, e)
         return emitted
 
     def _commit_tokens(self, req: ServeRequest, b: int, toks, lps,
@@ -1366,8 +1713,8 @@ class ContinuousBatchEngine:
     def _release_lease(self, req: ServeRequest) -> None:
         """Give a finished, cancelled or failed request's pages back: radix
         references drop, private pages return to the free list. Reusing
-        them at once is safe: the slot's table row is parked before the
-        next chunk, and no chunk is in flight (see the module note)."""
+        them at once is safe even with a chunk in flight (see the module
+        note)."""
         if not self._paged:
             return
         lease = self._leases.pop(req.req_id, None)
@@ -1489,9 +1836,9 @@ class ContinuousBatchEngine:
         ctx = st.ctx
         remaining = len(ctx) - st.offset
         if remaining > self.prefill_len:          # non-final chunk
-            chunk = torch.as_tensor(
-                [ctx[st.offset:st.offset + self.prefill_len]],
-                dtype=torch.int64, device=self.device)
+            chunk = _h2d(np.asarray(
+                [ctx[st.offset:st.offset + self.prefill_len]], np.int64),
+                self.device)
             st.temp = _prefill_step(self.params, st.temp, chunk, self.cfg,
                                     st.offset, self._freqs)
             st.offset += self.prefill_len
@@ -1504,14 +1851,8 @@ class ContinuousBatchEngine:
         r_temp = (req.temperature if req.temperature is not None
                   else self.temperature)
         r_topp = req.top_p if req.top_p is not None else self.top_p
-        # The first new token samples at index emit_from (0 for a fresh
-        # request), where the uninterrupted stream sampled it.
-        sampling = _Sampling(req.base_key[None],
-                             np.asarray([req.emit_from], np.int64),
-                             np.asarray([r_temp], np.float32),
-                             np.asarray([r_topp], np.float32), self.top_k,
-                             self.enable_top_p)
-        chunk = torch.as_tensor(padded, device=self.device)
+        sampling = self._first_sampling(req, r_temp, r_topp)
+        chunk = _h2d(padded, self.device)
         if self._paged:
             lease = self._leases[req.req_id]
             tok, lp = _prefill_final_paged(
@@ -1522,32 +1863,40 @@ class ContinuousBatchEngine:
             # a weight swap landed mid-prefill.
             if st.publish:
                 self._insert_prompt_blocks(ctx, lease)
+            self._table_d[b].copy_(_h2d(lease.row, self.device))
         else:
             tok, lp = _prefill_final(
                 self.params, self._cache, st.temp, chunk, b, remaining,
                 self.cfg, st.offset, self._freqs, sampling)
         self._prefill_chunks_total += 1
         self._prefill = None
-        t = int(tok)                              # the first-token sync
-        lpv = float(lp)
-        now = time.perf_counter()
-        req.tokens.append(t)
-        req.logprobs.append(lpv)
-        req.token_lat_s.append(now - req.submitted_at)            # TTFT
-        req.first_token_at = now
-        if self._terminal(req):
-            self._finish(req)
-            return
-        self._cur[b] = t
-        self._pos[b] = len(ctx)
+        # The slot's device entries, written in place behind any chunk
+        # already in flight: the first token goes to the next chunk
+        # without visiting the host; its copy lands for the next commit.
+        self._cur_d[b] = tok
+        self._pos_d[b] = len(ctx)
+        self._temps_d[b] = r_temp
+        self._topps_d[b] = r_topp
+        self._pending_first.append(_PendingFirst(
+            req, b, _HostCopy.start(_pack(tok.view(1, 1), lp.view(1, 1)))))
         self._temps[b] = r_temp
-        self._topps[b] = r_topp
         self._skeys[b] = req.base_key
         self._scnt[b] = req.emit_from + 1   # the prefill's index is used
-        if self._paged:
-            self._table_d[b] = torch.as_tensor(
-                self._leases[req.req_id].row, device=self.device)
         self._slot_req[b] = req
+
+    def _first_sampling(self, req: ServeRequest, temp: float,
+                        top_p: float) -> _Sampling:
+        """Batch-1 sampling inputs of a request's first token, which
+        samples at index emit_from (0 for a fresh request), where the
+        uninterrupted stream sampled it."""
+        dev, v = self.device, self.cfg.vocab_size
+        noise = torch.zeros((1, 1, v), dtype=torch.float32, device=dev)
+        if temp > 0.0:
+            _draw_gumbel(noise[0, 0], req.base_key, req.emit_from)
+        return _Sampling(
+            torch.full((1,), temp, dtype=torch.float32, device=dev),
+            torch.full((1,), top_p, dtype=torch.float32, device=dev),
+            noise, self.top_k, self.enable_top_p)
 
     # -- metrics --
 
@@ -1580,13 +1929,29 @@ class ContinuousBatchEngine:
             "errors": dict(self._errors_total),
             "draining": self._draining,
             # Fault, drain and hot-swap state (the JAX engine's block; its
-            # watchdog and device-loss fields are not ported).
+            # device-loss fields are not ported).
             "resilience": {
                 "errors": dict(self._errors_total),
+                "watchdog_trips": self._watchdog_trips,
                 "weight_swaps": self._swaps_total,
                 "swap_pause_ms_total": self._swap_pause_ms_total,
                 "swap_pause_ms_last": self._swap_pause_ms_last,
                 "draining": self._draining,
+            },
+            # Decode hot path: host seconds on the sync path (the fetch,
+            # watchdog poll included; plus the commit when it does not
+            # overlap) and commit seconds that ran behind a chunk in
+            # flight; the decode graph's captures and replays.
+            "hotpath": {
+                "overlap_commit": self.overlap_commit,
+                "commit_rounds_total": self._commit_rounds_total,
+                "commit_s_total": self._commit_s_total,
+                "commit_overlapped_s_total": self._commit_overlapped_s_total,
+                "fetch_sync_s_total": self._fetch_sync_s_total,
+                "graphs_captured": (self._graph.captures
+                                    if self._graph is not None else 0),
+                "graph_replays": (self._graph.replays
+                                  if self._graph is not None else 0),
             },
             # Zero-loss migration (monotonic counters).
             "migration": {
@@ -1655,6 +2020,7 @@ class ContinuousBatchEngine:
             "errors": snap["errors"],
             "draining": snap["draining"],
             "resilience": snap["resilience"],
+            "hotpath": snap["hotpath"],
             "queued": snap["queued"],
             "tokens": total_toks,
             "wall_s": wall,

@@ -1083,3 +1083,101 @@ def _cast_tree(tree, dtype):
     if isinstance(tree, dict):
         return {k: _cast_tree(v, dtype) for k, v in tree.items()}
     return tree.to(dtype) if tree.is_floating_point() else tree
+
+
+def _serving_model(dev):
+    """A small bf16 model for the engine tests (4 heads of 128)."""
+    from k8s_gpu_workload_enhancer_tpu_torch.models import transformer as tf
+    cfg = tf.TransformerConfig(vocab_size=1024, d_model=512, n_layers=2,
+                               n_heads=4, n_kv_heads=4, d_ff=1024,
+                               max_seq=256, dtype=torch.bfloat16)
+    params = [_cast_tree(tf.init_params(
+        torch.Generator(device=dev).manual_seed(seed), cfg), cfg.dtype)
+        for seed in (0, 1)]
+    return cfg, params
+
+
+def _graph_engine(dev, params, cfg, kv_block_len, **kw):
+    from k8s_gpu_workload_enhancer_tpu_torch.models import serving
+    return serving.ContinuousBatchEngine(
+        params, cfg, num_slots=2, prefill_len=128, decode_chunk=8,
+        kv_block_len=kv_block_len, top_k=40, enable_top_p=True, device=dev,
+        **kw)
+
+
+def _graph_workload(eng, seed=0):
+    """Three requests through two slots (admissions between replays): a
+    greedy one, a two-chunk prompt, a sampled one with top-k and top-p."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    rids = [eng.submit(rng.integers(0, 1024, 40).tolist(), 24),
+            eng.submit(rng.integers(0, 1024, 150).tolist(), 20),
+            eng.submit(rng.integers(0, 1024, 9).tolist(), 30,
+                       temperature=0.8, top_p=0.9, prng_key=[7, seed])]
+    eng.run()
+    out = [(eng.result(r).tokens, eng.result(r).logprobs) for r in rids]
+    assert all(eng.result(r).finish_reason == "length" for r in rids)
+    return out
+
+
+def _engine_launches(cfg, lifetime, paged):
+    """Launches of an engine run: per prefill chunk a gather, 2L+1 norms,
+    2L RoPE rotations and L flash forwards (on the wgmma body); per decode
+    step a gather, 2L+1 norms and, paged, L split-KV and L combine
+    kernels."""
+    chunks, steps = lifetime["prefill_chunks"], lifetime["decode_steps"]
+    n = cfg.n_layers
+    want = {"embed_gather": chunks + steps,
+            "rms_norm": (2 * n + 1) * (chunks + steps),
+            "rope": 2 * n * chunks, "flash_attention": n * chunks,
+            "flash_attention_wgmma": n * chunks}
+    if paged:
+        want.update(paged_decode=n * steps, paged_decode_combine=n * steps)
+    return want
+
+
+@pytest.mark.parametrize("kv_block_len", [0, 16], ids=["dense", "paged"])
+def test_graphed_engine_equals_the_eager_engine_bitwise(dev, kv_block_len):
+    """The decode chunk replayed as one CUDA graph under the overlapped
+    pipeline gives the eager, serialized engine's tokens and logprobs bit
+    for bit (greedy, and sampled through top-k and top-p); one capture
+    serves every request, and the launch counts equal the per-step
+    formula through the replays."""
+    cfg, (params, _) = _serving_model(dev)
+    eng = _graph_engine(dev, params, cfg, kv_block_len,
+                        watchdog_timeout=30)
+    kernels.reset_launches()
+    got = _graph_workload(eng)
+    torch.cuda.synchronize()
+    m = eng.metrics()
+    assert dict(kernels.launches) == _engine_launches(
+        cfg, m["lifetime"], kv_block_len > 0)
+    got += _graph_workload(eng, seed=1)
+    hp = eng.metrics()["hotpath"]
+    assert hp["graphs_captured"] == 1 and hp["graph_replays"] > 0
+    assert eng.metrics()["resilience"]["watchdog_trips"] == 0
+    ref = _graph_engine(dev, params, cfg, kv_block_len, cuda_graph=False,
+                        overlap_commit=False)
+    want = _graph_workload(ref) + _graph_workload(ref, seed=1)
+    assert ref.metrics()["hotpath"]["graphs_captured"] == 0
+    assert got == want
+
+
+@pytest.mark.parametrize("kv_block_len", [0, 16], ids=["dense", "paged"])
+def test_graphed_engine_after_a_swap_equals_a_fresh_engine(dev,
+                                                           kv_block_len):
+    """swap_params with a chunk in flight: the new leaves are copied into
+    the captured storage, the graph is kept, and requests after the swap
+    equal a fresh graphed engine's on the new weights."""
+    cfg, (pa, pb) = _serving_model(dev)
+    eng = _graph_engine(dev, pa, cfg, kv_block_len)
+    before = eng.submit(list(range(1, 40)), 30)
+    for _ in range(3):
+        eng.step()
+    assert eng._inflight is not None
+    eng.swap_params(pb)
+    eng.run()
+    assert eng.result(before).finish_reason == "length"
+    got = _graph_workload(eng)
+    assert eng.metrics()["hotpath"]["graphs_captured"] == 1
+    assert got == _graph_workload(_graph_engine(dev, pb, cfg, kv_block_len))

@@ -489,7 +489,7 @@ def test_decode_fault_returns_leases_and_spares_the_prefill(model,
     eng.step()
     monkeypatch.undo()
     assert eng.result(decoy).finish_reason == "error"
-    assert eng._errors_total["decode"] == 1
+    assert eng._errors_total["dispatch"] == 1
     eng.run()
     assert eng.result(warm).done
     got = eng.result(victim)

@@ -215,3 +215,54 @@ def test_refused_fields_get_a_400_naming_them(server, field, value):
     after = _metrics(server)
     assert after["slots_busy"] == 0 and after["queued"] == 0
     assert after["lifetime"] == before["lifetime"]
+
+
+def test_overlap_commit_and_watchdog_flags_reach_the_engine(tmp_path):
+    from k8s_gpu_workload_enhancer_tpu_torch.utils.config import \
+        parse_with_config
+    default = serve.build_engine(serve.build_parser().parse_args(ARGS))
+    assert default.overlap_commit and default.watchdog_timeout is None
+    eng = serve.build_engine(serve.build_parser().parse_args(
+        ARGS + ["--overlap-commit", "0", "--watchdog-timeout", "7.5"]))
+    assert not eng.overlap_commit and eng.watchdog_timeout == 7.5
+    cfg = tmp_path / "ktwe.yaml"
+    cfg.write_text("serve:\n  overlap_commit: 0\n  watchdog_timeout: 3\n")
+    args = parse_with_config(serve.build_parser(), "serve",
+                             ARGS + ["--config", str(cfg)])
+    assert (args.overlap_commit, args.watchdog_timeout) == (0, 3.0)
+    eng = serve.build_engine(args)
+    assert not eng.overlap_commit and eng.watchdog_timeout == 3.0
+
+
+def test_hot_path_families_on_the_metrics_port():
+    """--overlap-commit 0 and --watchdog-timeout on the serve main: a
+    generate, then the hot-path and error families on --metrics-port say
+    the commit ran on the sync path and nothing tripped."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        mport = s.getsockname()[1]
+    gen = _serve(ARGS + ["--metrics-port", str(mport), "--overlap-commit",
+                         "0", "--watchdog-timeout", "30"])
+    port = next(gen)
+    try:
+        want = _expected([3, 17, 29, 5], 9)
+        with _post(port, {"prompt": [3, 17, 29, 5],
+                          "maxNewTokens": 9}) as resp:
+            assert json.loads(resp.read())["tokens"] == want
+        with urllib.request.urlopen(f"http://127.0.0.1:{mport}/metrics",
+                                    timeout=30) as resp:
+            series = dict(line.split() for line in resp.read().decode()
+                          .splitlines() if line and not line.startswith("#"))
+    finally:
+        next(gen, None)
+    series = {k: float(v) for k, v in series.items()}
+    assert series["ktwe_serving_overlap_commit"] == 0.0
+    assert series["ktwe_serving_commit_rounds_total"] >= 2
+    assert series["ktwe_serving_commit_seconds_total"] > 0.0
+    assert series["ktwe_serving_commit_overlapped_seconds_total"] == 0.0
+    assert series["ktwe_serving_fetch_sync_seconds_total"] > 0.0
+    for name in ("watchdog_trips_total", "request_errors_dispatch_total",
+                 "request_errors_collect_total", "request_errors_commit_total",
+                 "request_errors_watchdog_total"):
+        assert series[f"ktwe_serving_{name}"] == 0.0, name

@@ -229,7 +229,7 @@ def test_result_and_cancel_routes(replicas):
         code, out, _ = call(r.url, f"/v1/result?requestId={rid}")
         assert code == 200 and out == {"status": "pending",
                                        "requestId": rid, "tokensSoFar": 0}
-    r.step()                        # both prefilled, one decode chunk
+    r.step(2)                       # both prefilled, one chunk committed
     code, out, _ = call(r.url, "/v1/result", {"requestId": 0})
     assert out["status"] == "pending" and out["tokensSoFar"] == 5
     code, out, _ = call(r.url, "/v1/cancel", {"requestId": 0})
@@ -264,7 +264,7 @@ def test_admin_eject_ends_a_stream_with_a_migrate_frame(replicas, extra):
     want = uninterrupted(b.url)
     hdr = {"traceparent": TRACEPARENT}
     s = Stream(a.url, {"prompt": PROMPT, "maxNewTokens": N}, headers=hdr)
-    a.step(2)                       # prefill + 2 chunks: 9 tokens
+    a.step(3)                       # prefill + 2 chunks committed: 9 tokens
     while len(s.tokens()) < 9:
         s.next()
     code, out, _ = call(a.url, "/v1/admin/eject", {})

@@ -129,9 +129,13 @@ def test_cancel_queued_and_decoding(model):
     b = eng.submit([8, 9], 5)                         # waits for the slot
     eng.step()
     assert eng.cancel(b) and eng.result(b).finish_reason == "cancelled"
+    eng.step()                    # commits a's first chunk (one step behind)
     assert eng.cancel(a)
     assert eng.result(a).finish_reason == "cancelled"
-    assert 0 < len(eng.result(a).tokens) < 30
+    partial = list(eng.result(a).tokens)
+    assert 0 < len(partial) < 30
+    eng.run()                     # the chunk in flight drops a's tokens
+    assert eng.result(a).tokens == partial
     assert not eng.active and eng.slots_busy == 0
     assert not eng.cancel(a)                          # already finished
     # The freed slot serves a fresh request exactly.
