@@ -200,6 +200,17 @@ KV_BLOCK_LEN, SHARED_PREFIX, SUFFIX = 16, 128, 32
 # release; 8 streams of 240 new tokens (on the paged main the whole pool)
 # and a ninth queued behind them for the cancels.
 FLEET_PREFIX, FLEET_SUFFIX, FLEET_NEW = 160, 32, 48
+# The tenancy phase (the paged engine, pages of 16): 8 batch requests of
+# 96-token prompts and 128 new tokens fill the 8 slots; once each has
+# committed TENANCY_ARRIVE tokens, 4 interactive requests of 64 tokens and
+# 32 new arrive. It runs at preempt_cap 2 and at 0, greedy and sampled
+# (keys [TENANCY_KEY, i]). The pool-pressure engine holds 4 batch
+# requests in a pool of 61 pages: their 4 leases of 14 pages leave 5 free
+# where an interactive request needs 6, with 4 slots free.
+TENANCY_BATCH, TENANCY_BATCH_PROMPT, TENANCY_BATCH_NEW = 8, 96, 128
+TENANCY_INTERACTIVE, TENANCY_I_PROMPT, TENANCY_I_NEW = 4, 64, 32
+TENANCY_ARRIVE, TENANCY_KEY, TENANCY_POOL_BATCH = 16, 41, 4
+TENANCY_POOL_BLOCKS = 62
 MIGRATE_REQUESTS, MIGRATE_PROMPT, MIGRATE_NEW, MIGRATE_AFTER = 4, 32, 128, 8
 SAMPLED_TEMPERATURE, SAMPLED_KEY = 0.8, [7, 11]
 FLUSH_PROMPT, CANCEL_NEW = 15, 240
@@ -1757,6 +1768,332 @@ def run_paged_engine(dev, mods, cfg, params) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 3b: priority admission and preemption on the paged engine
+# ---------------------------------------------------------------------------
+
+
+def tenancy_prompts(vocab: int):
+    rng = np.random.default_rng(16)
+    return ([rng.integers(0, vocab, TENANCY_BATCH_PROMPT).tolist()
+             for _ in range(TENANCY_BATCH)],
+            [rng.integers(0, vocab, TENANCY_I_PROMPT).tolist()
+             for _ in range(TENANCY_INTERACTIVE)])
+
+
+def tenancy_kw(temperature, key: int, i: int) -> dict:
+    return dict(temperature=temperature, prng_key=[TENANCY_KEY + key, i])
+
+
+def watch_preemptions(eng) -> dict:
+    """Time every preempting eject of `eng` and count the victims' tokens
+    that a chunk in flight (or a first token on its way) had produced and
+    the eject dropped: they regenerate on the resuming engine."""
+    seen = {"eject_ms": [], "dropped": 0}
+    eject = eng.eject
+
+    def timed(rid, reason="eject"):
+        req = eng.result(rid)
+        if reason == "preempt" and not req.done:
+            left = req.max_new_tokens - len(req.tokens)
+            if any(p.req is req for p in eng._pending_first):
+                seen["dropped"] += 1
+                left -= 1
+            inflight = eng._inflight
+            if inflight is not None and any(r is req for _, r in
+                                            inflight.snapshot):
+                seen["dropped"] += max(0, min(inflight.n, left))
+        t0 = time.perf_counter()
+        out = eject(rid, reason)
+        if reason == "preempt":
+            seen["eject_ms"].append((time.perf_counter() - t0) * 1e3)
+        return out
+    eng.eject = timed                # _preempt_for calls self.eject
+    return seen
+
+
+def tenancy_run(eng, batch, interactive, temperature=None) -> dict:
+    """The batch requests, then the interactive ones once every batch
+    request has TENANCY_ARRIVE tokens, on `eng` to the end. Returns the
+    requests, the wall and the tokens generated on this engine."""
+    preempted0 = eng.metrics_snapshot()["migration"]["preempted_total"]
+    t0 = time.perf_counter()
+    bids = [eng.submit(p, TENANCY_BATCH_NEW, priority="batch",
+                       tenant="bulk", **tenancy_kw(temperature, 0, i))
+            for i, p in enumerate(batch)]
+    for _ in range(100000):
+        if all(len(eng.result(r).tokens) >= TENANCY_ARRIVE
+               for r in bids):
+            break
+        eng.step()
+    else:
+        fail("tenancy: the batch requests never reached "
+             f"{TENANCY_ARRIVE} tokens")
+    iids = [eng.submit(p, TENANCY_I_NEW, **tenancy_kw(temperature, 1, i))
+            for i, p in enumerate(interactive)]
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    reqs = [eng.result(r) for r in bids + iids]
+    tokens = sum(len(r.tokens) - r.emit_from for r in reqs)
+    return dict(batch=reqs[:len(bids)], interactive=reqs[len(bids):],
+                wall_s=wall, tokens=tokens, preempted0=preempted0)
+
+
+def resume_state_of(eng, st):
+    """A victim's resume state continued on `eng` to its end."""
+    rid = eng.submit(st["prompt"], st["maxNewTokens"],
+                     committed=st["committed"] or None,
+                     prng_key=st["prngKey"], temperature=st["temperature"],
+                     tenant=st["tenant"], priority=st["priority"],
+                     preempted=st["preempted"])
+    eng.run()
+    return eng.result(rid)
+
+
+def divergence(got: list, want: list):
+    """The first index where two token lists differ (None: equal)."""
+    if got == want:
+        return None
+    return next((j for j, (x, y) in enumerate(zip(got, want)) if x != y),
+                min(len(got), len(want)))
+
+
+def check_tenancy_run(eng, run: dict, ref: dict, want_b: list,
+                      resume: tuple, what: str) -> dict:
+    """`run` (the graphed, pipelined engine) against `ref` (the same
+    arrivals on the eager, serialized engine): every request's tokens,
+    logprobs and resume state bit for bit. Each victim carries its tenancy
+    keys with one hop, its committed tokens are its uninterrupted stream's,
+    and its resume on the graphed engine of `resume` equals its resume on
+    the eager one bit for bit; the resumed stream is compared with the
+    uninterrupted one `want_b` (counted: bf16 re-prefills the committed
+    tokens through the prefill kernels, where the uninterrupted stream
+    decoded them, so a near-tie may later round the other way). No page
+    leaked, one capture, no watchdog trip, preemptions_total up by the
+    victims."""
+    got_all = run["batch"] + run["interactive"]
+    ref_all = ref["batch"] + ref["interactive"]
+    for i, (g, w) in enumerate(zip(got_all, ref_all)):
+        if (g.tokens, g.logprobs, g.resume_state, g.finish_reason) != \
+                (w.tokens, w.logprobs, w.resume_state, w.finish_reason):
+            fail(f"{what}: request {i} of the graphed engine differs from "
+                 f"the eager engine's")
+    victims, resumed, diverged, prefill_tokens = [], 0, [], 0
+    for i, r in enumerate(run["batch"]):
+        if r.finish_reason != "migrated":
+            if r.finish_reason != "length":
+                fail(f"{what}: batch request {i} ended {r.finish_reason}")
+            continue
+        st = r.resume_state
+        k = len(st["committed"])
+        if (st["reason"], st["priority"], st["tenant"], st["preempted"]) \
+                != ("preempt", "batch", "bulk", 1) \
+                or st["committed"] != want_b[i].tokens[:k]:
+            fail(f"{what}: victim {i} carries {st}")
+        victims.append(i)
+        g, e = (resume_state_of(x, st) for x in resume)
+        if (g.tokens, g.logprobs) != (e.tokens, e.logprobs) \
+                or g.preempted != 1:
+            fail(f"{what}: victim {i}'s resume on the graphed engine "
+                 f"differs from its resume on the eager engine")
+        j = divergence(g.tokens, want_b[i].tokens)
+        if j is None:
+            resumed += 1
+        else:
+            diverged.append(dict(
+                victim=i, committed=k, at=j,
+                logprob_resumed=g.logprobs[j],
+                logprob_uninterrupted=want_b[i].logprobs[j]))
+        prefill_tokens += len(st["prompt"]) + k
+    if any(r.finish_reason != "length" for r in run["interactive"]):
+        fail(f"{what}: an interactive request did not finish")
+    m = eng.metrics()
+    preempted = m["migration"]["preempted_total"] - run["preempted0"]
+    if preempted != len(victims):
+        fail(f"{what}: preempted_total rose by {preempted}, victims "
+             f"{len(victims)}")
+    kv = m["kv_cache"]
+    if kv["blocks_free"] + kv["blocks_cached"] != kv["blocks_total"]:
+        fail(f"{what}: pages leaked: {kv}")
+    check_graphed(eng, what)
+    ttft = sorted((r.first_token_at - r.submitted_at) * 1e3
+                  for r in run["interactive"])
+    from k8s_gpu_workload_enhancer_tpu_torch.utils.stats import percentile
+    return dict(victims=len(victims),
+                committed_at_preempt=[len(r.resume_state["committed"])
+                                      for r in run["batch"]
+                                      if r.resume_state is not None],
+                resumes_equal_uninterrupted=resumed,
+                resumes_diverged=diverged,
+                interactive_ttft_p50_ms=percentile(ttft, 50),
+                interactive_ttft_p99_ms=percentile(ttft, 99),
+                wall_s=run["wall_s"], tokens=run["tokens"],
+                tokens_per_s=run["tokens"] / run["wall_s"],
+                resume_prefill_tokens=prefill_tokens)
+
+
+def run_tenancy(dev, mods, cfg, params) -> dict:
+    """Priority admission and preemption on the graphed, pipelined paged
+    engine at the serve defaults, with the launch counters set to 0 just
+    before it and read after: at preempt_cap 2 the interactive arrivals
+    preempt the 4 most recent batch requests (a chunk in flight decoding
+    for each), at 0 they wait for slots; greedy, then sampled; then the
+    pool-pressure engine. Each run is repeated on an eager, serialized
+    engine and held to it bit for bit, victims' resumes included; every
+    request also runs uninterrupted on the eager engine. Then, not
+    counted, the f32 gate: the cap-2 runs on the weights cast to f32,
+    where every victim's resume must equal its uninterrupted stream."""
+    kernels, serving = mods[0], mods[7]
+    batch, interactive = tenancy_prompts(cfg.vocab_size)
+    kernels.reset_launches()
+    engines = []
+
+    def paged_engine(p=params, c=cfg, graphed=True, **kw):
+        if graphed:
+            kw["watchdog_timeout"] = WATCHDOG_S
+        else:
+            kw.update(cuda_graph=False, overlap_commit=False)
+        engines.append(new_engine(serving, p, c, dev,
+                                  kv_block_len=KV_BLOCK_LEN, **kw))
+        return engines[-1]
+
+    def uninterrupted(eng):
+        # The batch requests together, then the interactive ones (a decode
+        # step's numbers do not depend on its company: every step decodes
+        # all slots).
+        return {t: tuple(run_all(eng, [(p, n, tenancy_kw(t, key, i))
+                                       for i, p in enumerate(prompts)])
+                         for key, prompts, n in (
+                             (0, batch, TENANCY_BATCH_NEW),
+                             (1, interactive, TENANCY_I_NEW)))
+                for t in (None, SAMPLED_T)}
+    want = uninterrupted(paged_engine(graphed=False))
+    resume = (paged_engine(), paged_engine(graphed=False))
+    out = {}
+    for cap in (2, 0):
+        eng = paged_engine(preempt_cap=cap)
+        ref = paged_engine(graphed=False, preempt_cap=cap)
+        seen = watch_preemptions(eng)
+        for t, name in ((None, "greedy"), (SAMPLED_T, "sampled")):
+            before = len(seen["eject_ms"])
+            rep = check_tenancy_run(
+                eng, tenancy_run(eng, batch, interactive, t),
+                tenancy_run(ref, batch, interactive, t), want[t][0], resume,
+                f"tenancy cap {cap} {name}")
+            if cap and rep["victims"] != TENANCY_INTERACTIVE:
+                fail(f"tenancy cap {cap} {name}: {rep['victims']} victims, "
+                     f"want {TENANCY_INTERACTIVE}")
+            if not cap and rep["victims"]:
+                fail(f"tenancy cap 0 {name}: {rep['victims']} preempted")
+            rep["eject_ms"] = seen["eject_ms"][before:]
+            out[f"cap{cap}_{name}"] = rep
+        out[f"cap{cap}_dropped_in_flight"] = seen["dropped"]
+        out[f"cap{cap}_hotpath"] = hotpath_report(eng)
+    n = TENANCY_POOL_BATCH
+    pool = paged_engine(kv_num_blocks=TENANCY_POOL_BLOCKS)
+    seen = watch_preemptions(pool)
+    rep = check_tenancy_run(
+        pool, tenancy_run(pool, batch[:n], interactive),
+        tenancy_run(paged_engine(graphed=False,
+                                 kv_num_blocks=TENANCY_POOL_BLOCKS),
+                    batch[:n], interactive),
+        want[None][0][:n], resume, "tenancy pool pressure")
+    deferrals = pool.metrics()["kv_cache"]["deferrals_total"]
+    if not rep["victims"] or not deferrals:
+        fail(f"tenancy pool pressure: {rep['victims']} victims, "
+             f"{deferrals} deferrals")
+    out["pool_pressure"] = dict(rep, deferrals=deferrals,
+                                eject_ms=seen["eject_ms"],
+                                dropped_in_flight=seen["dropped"],
+                                blocks_total=pool.metrics()["kv_cache"][
+                                    "blocks_total"])
+    check_graphed(resume[0], "tenancy resume engine")
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    life = {k: sum(e.metrics()["lifetime"][k] for e in engines)
+            for k in ("prefill_chunks", "decode_steps")}
+    want_launches = expected_launches(cfg.n_layers, life, paged=True)
+    if launches != want_launches:
+        fail(f"tenancy launches {launches}, its chunks and steps need "
+             f"{want_launches}")
+    for e in engines:
+        e.__dict__.pop("eject", None)     # the timing wrapper's cycle
+    del engines[:], resume, pool, eng, ref
+    torch.cuda.empty_cache()
+
+    # The f32 gate (not counted): full-f32 products, where the re-prefill
+    # of the committed tokens leaves every margin far above the rounding.
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    p32 = cast_params(params, torch.float32)
+    want32 = uninterrupted(paged_engine(p32, cfg32, graphed=False))
+    resume32 = (paged_engine(p32, cfg32), paged_engine(p32, cfg32,
+                                                       graphed=False))
+    gate32 = {}
+    eng = paged_engine(p32, cfg32, preempt_cap=2)
+    ref = paged_engine(p32, cfg32, graphed=False, preempt_cap=2)
+    for t, name in ((None, "greedy"), (SAMPLED_T, "sampled")):
+        rep = check_tenancy_run(
+            eng, tenancy_run(eng, batch, interactive, t),
+            tenancy_run(ref, batch, interactive, t), want32[t][0], resume32,
+            f"tenancy f32 {name}")
+        if rep["victims"] != TENANCY_INTERACTIVE or rep["resumes_diverged"]:
+            fail(f"tenancy f32 {name}: {rep['victims']} victims, resumes "
+                 f"that left the uninterrupted stream: "
+                 f"{rep['resumes_diverged']}")
+        gate32[name] = dict(victims=rep["victims"],
+                            committed_at_preempt=rep[
+                                "committed_at_preempt"],
+                            resumes_equal_uninterrupted=rep[
+                                "resumes_equal_uninterrupted"])
+    del engines[:], resume32, eng, ref, p32
+    torch.cuda.empty_cache()
+
+    ejects = [ms for k in ("cap2_greedy", "cap2_sampled")
+              for ms in out[k]["eject_ms"]] + out["pool_pressure"]["eject_ms"]
+    bf16_runs = ("cap2_greedy", "cap2_sampled", "pool_pressure")
+    summary = dict(
+        interactive_ttft_p50_ms={c: out[f"cap{c}_greedy"][
+            "interactive_ttft_p50_ms"] for c in (2, 0)},
+        interactive_ttft_p99_ms={c: out[f"cap{c}_greedy"][
+            "interactive_ttft_p99_ms"] for c in (2, 0)},
+        eject_ms_per_preemption_p50=float(np.median(ejects)),
+        eject_ms_per_preemption_max=max(ejects),
+        preemptions=len(ejects),
+        batch_tokens_dropped_in_flight=(out["cap2_dropped_in_flight"]
+                                        + out["pool_pressure"][
+                                            "dropped_in_flight"]),
+        tokens_per_s={c: out[f"cap{c}_greedy"]["tokens_per_s"]
+                      for c in (2, 0)},
+        graphed_equals_eager=True,
+        bf16_resumes_equal_uninterrupted=[
+            sum(out[k]["resumes_equal_uninterrupted"] for k in bf16_runs),
+            sum(out[k]["victims"] for k in bf16_runs)],
+        bf16_resumes_diverged=[d for k in bf16_runs
+                               for d in out[k]["resumes_diverged"]],
+        f32_resumes_equal_uninterrupted=True)
+    return dict(config=dict(batch=TENANCY_BATCH,
+                            batch_prompt=TENANCY_BATCH_PROMPT,
+                            batch_new=TENANCY_BATCH_NEW,
+                            interactive=TENANCY_INTERACTIVE,
+                            interactive_prompt=TENANCY_I_PROMPT,
+                            interactive_new=TENANCY_I_NEW,
+                            arrive_after=TENANCY_ARRIVE,
+                            kv_block_len=KV_BLOCK_LEN,
+                            pool_blocks=TENANCY_POOL_BLOCKS),
+                summary=summary, runs=out, f32_gate=gate32,
+                decode_steps=life["decode_steps"],
+                prefill_chunks=life["prefill_chunks"], launches=launches)
+
+
+def run_all(eng, requests) -> list:
+    """[(prompt, new tokens, submit keywords)] submitted at once and run
+    to the end; their finished requests."""
+    rids = [eng.submit(p, n, **kw) for p, n, kw in requests]
+    eng.run()
+    return [eng.result(r) for r in rids]
+
+
+# ---------------------------------------------------------------------------
 # Phase 4: the serve main, in-process
 # ---------------------------------------------------------------------------
 
@@ -1768,11 +2105,29 @@ def post(port: int, body: dict, timeout: float = 300):
     return urllib.request.urlopen(req, timeout=timeout)
 
 
+def refused(port: int, body: dict, headers=None):
+    """(status, reply, Retry-After) of a /v1/generate the serve refuses."""
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/v1/generate",
+        data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json", **(headers or {})},
+        method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            return resp.status, json.loads(resp.read()), None
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read()), e.headers.get("Retry-After")
+
+
 def run_serve(serve, kernels, paged: bool = False) -> dict:
     """The serve main in-process, with the launch counters set to 0 just
     before it starts and read after it exits. Dense: three requests, one
     streamed. Paged (--kv-block-len 16): two requests sharing a 128-token
-    prefix, the second served from the first one's pages."""
+    prefix, the second served from the first one's pages. Both: a
+    "priority": "bogus" request answers 400, and one of a tenant whose
+    budget (--tenant-budget probe=0) is spent answers 429 with reason
+    "budget-exhausted" and a Retry-After to the end of the day; neither
+    reaches the engine."""
     stop = threading.Event()
     ready = {}
     got_port = threading.Event()
@@ -1782,7 +2137,8 @@ def run_serve(serve, kernels, paged: bool = False) -> dict:
         got_port.set()
 
     rc = {}
-    argv = ["--device", "cuda", "--port", "0", "--seed", "0"]
+    argv = ["--device", "cuda", "--port", "0", "--seed", "0",
+            "--tenant-budget", "probe=0"]
     if paged:
         argv += ["--kv-block-len", str(KV_BLOCK_LEN)]
     allocated_before = torch.cuda.memory_allocated()
@@ -1828,6 +2184,16 @@ def run_serve(serve, kernels, paged: bool = False) -> dict:
                 fail(f"streamed /v1/generate: {lines}")
             ttfts.append(final["ttftMs"])
             stream_lines = len(lines)
+        bogus = refused(port, {"prompt": prompts[0], "maxNewTokens": 4,
+                               "priority": "bogus"})
+        if bogus[0] != 400 or "priority" not in bogus[1].get("error", ""):
+            fail(f'"priority": "bogus" answered {bogus}')
+        budget = refused(port, {"prompt": prompts[0], "maxNewTokens": 4},
+                         {"x-ktwe-tenant": "probe"})
+        if budget[0] != 429 or budget[1].get("reason") != \
+                "budget-exhausted" or not budget[2] \
+                or not 0 < float(budget[2]) <= 86400:
+            fail(f"the spent budget's request answered {budget}")
         with urllib.request.urlopen(f"http://127.0.0.1:{port}/health",
                                     timeout=30) as resp:
             if resp.status != 200:
@@ -1845,7 +2211,15 @@ def run_serve(serve, kernels, paged: bool = False) -> dict:
     kv = metrics["kv_cache"]
     if paged and kv["matched_tokens_total"] < SHARED_PREFIX:
         fail(f"paged serve reused no prefix: {kv}")
+    tenancy = metrics["tenancy"]
+    if tenancy["budget_rejections_total"] != 1 or \
+            tenancy["by_priority"]["interactive"]["requests"] != len(ttfts):
+        fail(f"serve tenancy block: {tenancy}")
     return dict(boot_s=boot_s, requests=len(ttfts), stream_lines=stream_lines,
+                refused=dict(bogus_priority=bogus[0],
+                             budget_exhausted=[budget[0],
+                                               budget[1].get("reason"),
+                                               float(budget[2])]),
                 ttft_ms=ttfts, requests_completed=metrics["requests_completed"],
                 lifetime=metrics["lifetime"],
                 kv_cache={k: kv[k] for k in ("paged", "block_len",
@@ -2765,8 +3139,11 @@ def fleet_phase(serve, pa: int, pb: int, mports, paged: bool) -> dict:
                for _ in range(MIGRATE_REQUESTS)]
     fresh = concurrent(pb, [{"prompt": p, "maxNewTokens": MIGRATE_NEW}
                             for p in prompts])
-    streams = [Stream(pa, {"prompt": p, "maxNewTokens": MIGRATE_NEW})
-               for p in prompts]
+    # Each stream names its tenant and runs as batch: the eject frames
+    # must carry those keys, as the JAX engine's do.
+    streams = [Stream(pa, {"prompt": p, "maxNewTokens": MIGRATE_NEW,
+                           "tenant": f"fleet-{i}", "priority": "batch"})
+               for i, p in enumerate(prompts)]
     wait_streamed(streams, MIGRATE_AFTER)
     t0 = time.perf_counter()
     code, ej = post_json(pa, "/v1/admin/eject", {})
@@ -2776,6 +3153,10 @@ def fleet_phase(serve, pa: int, pb: int, mports, paged: bool) -> dict:
     finals = [s.final() for s in streams]
     if any(f.get("status") != "migrate" for f in finals):
         fail(f"an ejected stream ended {finals}")
+    carries = [(f["resume"].get("tenant"), f["resume"].get("priority"),
+                f["resume"].get("preempted")) for f in finals]
+    if carries != [(f"fleet-{i}", "batch", 0) for i in range(len(finals))]:
+        fail(f"the eject frames carry the tenancy keys {carries}")
     resumed = [Stream(pb, {"resumeFrom": f["resume"]}) for f in finals]
     committed = [splice(a, b, w["tokens"], f"greedy stream {i}")
                  for i, (a, b, w) in enumerate(zip(streams, resumed,
@@ -2798,7 +3179,7 @@ def fleet_phase(serve, pa: int, pb: int, mports, paged: bool) -> dict:
     committed.append(splice(s_a, s_b, want_s, "sampled stream"))
     out["migration"] = dict(
         streams=MIGRATE_REQUESTS, sampled=1, new_tokens=MIGRATE_NEW,
-        committed=committed, eject_ms=eject_ms,
+        committed=committed, eject_ms=eject_ms, tenancy_carries=carries,
         ttft_ms_resumed=[b.final()["ttftMs"] for b in resumed],
         ttft_ms_fresh=[r["ttftMs"] for r in fresh],
         spliced_equal_uninterrupted=True)
@@ -2857,7 +3238,14 @@ def fleet_phase(serve, pa: int, pb: int, mports, paged: bool) -> dict:
             (1, "ktwe_serving_ejected_requests_total"): 0,
             (1, "ktwe_serving_resume_requests_total"): MIGRATE_REQUESTS + 1,
             (1, "ktwe_serving_resume_committed_tokens_total"):
-                sum(committed)}
+                sum(committed),
+            # The migrated views metered their tokens but no request; the
+            # resumes completed the 4 batch requests on B.
+            (0, "ktwe_serving_tenant_tokens_batch_total"):
+                sum(committed[:MIGRATE_REQUESTS]),
+            (0, "ktwe_serving_tenant_requests_batch_total"): 0,
+            (1, "ktwe_serving_tenant_requests_batch_total"):
+                MIGRATE_REQUESTS}
     for (i, name), value in want.items():
         if (sa, sb)[i][name] != value:
             fail(f"metrics port {'AB'[i]}: {name} {(sa, sb)[i][name]}, "
@@ -3230,6 +3618,9 @@ def main() -> int:
     print(json.dumps({"serving_profile": profile_serving(dev, mods, cfg,
                                                          params)}),
           flush=True)
+    results["tenancy"] = run_tenancy(dev, mods, cfg, params)
+    print(json.dumps({"tenancy": dict(card=card, **results["tenancy"])}),
+          flush=True)
     del params
     torch.cuda.empty_cache()
     results["paged_serve"] = run_serve(serve, kernels, paged=True)
@@ -3289,11 +3680,11 @@ def main() -> int:
     print(json.dumps({"profile": results["profile"]}), flush=True)
 
     serving_phases = ("engine", "serve", "paged_engine", "paged_serve",
-                      "checkpoint_serve", "checkpoint_paged_serve", "fleet",
-                      "fleet_paged")
+                      "tenancy", "checkpoint_serve", "checkpoint_paged_serve",
+                      "fleet", "fleet_paged")
     train_phases = ("train", "train_stash")
-    paged_phases = ("paged_engine", "paged_serve", "checkpoint_paged_serve",
-                    "fleet_paged")
+    paged_phases = ("paged_engine", "paged_serve", "tenancy",
+                    "checkpoint_paged_serve", "fleet_paged")
     # The checkpoint phase's trainer runs the t-layout path (head_dim 512).
     t_layout = ("flagship", "checkpoint_train")
     every = serving_phases + train_phases

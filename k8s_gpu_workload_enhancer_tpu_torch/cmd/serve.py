@@ -9,7 +9,8 @@ service (fleet/wire.py of the JAX package is the schema), so the fleet's
 router, autoscaler and registry drive this replica as they drive a JAX one.
 
 POST /v1/generate {"prompt": [ids], "maxNewTokens": N, "timeoutSeconds": s,
-"temperature"?, "topP"?, "stop"?, "prngKey"?, "prefixId"?, "resumeFrom"?}
+"temperature"?, "topP"?, "stop"?, "prngKey"?, "prefixId"?, "resumeFrom"?,
+"tenant"?, "priority"?}
 -> {"status", "requestId", "tokens", "logprobs", "finishReason", "ttftMs"};
 with {"stream": true} the reply is NDJSON, one {"tokens", "offset",
 "requestId"} line per batch of new tokens and then the final view. A
@@ -24,6 +25,21 @@ tokens are context, count against maxNewTokens and are never re-emitted
 "committedOffset"). "stopText" and "text" need a tokenizer, which is not
 ported, and answer 400 naming the field. A request's "traceparent" header
 is echoed in its final view.
+
+Tenancy, as the JAX serve resolves it: "tenant" and "priority" come from
+the body, else the x-ktwe-tenant / x-ktwe-priority headers, else a
+resumeFrom carry, else --default-tenant and "interactive"; any other
+priority than "interactive" or "batch" is a 400. Interactive requests are
+admitted ahead of batch ones, and a decoding batch request is preempted
+for an interactive one (its stream ends in a migrate frame with reason
+"preempt"; --preempt-cap bounds the hops of one generation, 0 disables
+it). Every terminal view is metered to its tenant (tokens, and slot
+residency as chip-seconds priced at --chip-hour-rate); /v1/metrics
+reports the meter in its `tenancy` block. With --tenant-budget NAME=DOLLARS
+a fresh request of a tenant whose spend in the --budget-period has reached
+its budget answers 429 with reason "budget-exhausted" and a Retry-After
+that runs to the period's end; a resumeFrom continuation is never refused
+for its budget, but is metered.
 
 POST /v1/prefix {"tokens": [ids]} registers a shared prompt prefix ->
 {"prefixId", "cachedTokens"}; {"releaseId": id} releases one (404 if
@@ -88,6 +104,8 @@ from typing import Callable, Optional
 
 import torch
 
+from ..cost.cost_engine import (BudgetPeriod, BudgetScope, CostEngine,
+                                EnforcementPolicy, TenantMeter)
 from ..models import serving
 from ..models import transformer as tf
 from ..ops.quant import quantize_params
@@ -109,7 +127,9 @@ DEFAULTS = dict(port=8000, vocab_size=32768, d_model=2048,
                 enable_top_p=False, kv_block_len=0, kv_num_blocks=0,
                 max_prefixes=8, metrics_port=0, device="cuda", seed=0,
                 auth_token="", checkpoint_dir="", watch_checkpoints=0.0,
-                overlap_commit=1, watchdog_timeout=0.0)
+                overlap_commit=1, watchdog_timeout=0.0, preempt_cap=2,
+                default_tenant="anonymous", tenant_budget=[],
+                budget_period="daily", chip_hour_rate=1.20)
 
 # /v1/generate fields of the JAX service that this replica refuses (400
 # naming the field) rather than drop, and why.
@@ -208,6 +228,35 @@ SERVING_FAMILIES = {
         lambda m, b, s: m["resilience"]["swap_pause_ms_last"],
     "ktwe_serving_draining":
         lambda m, b, s: 1.0 if m["resilience"]["draining"] else 0.0,
+    # Tenancy: the meter's per-priority aggregates (the per-tenant
+    # breakdown is in /v1/metrics' `tenancy` block), budget-exhausted
+    # 429s, the queue depth by class and the batch requests preempted.
+    "ktwe_serving_tenant_requests_interactive_total":
+        lambda m, b, s: m["tenancy"]["by_priority"]["interactive"][
+            "requests"],
+    "ktwe_serving_tenant_requests_batch_total":
+        lambda m, b, s: m["tenancy"]["by_priority"]["batch"]["requests"],
+    "ktwe_serving_tenant_tokens_interactive_total":
+        lambda m, b, s: m["tenancy"]["by_priority"]["interactive"][
+            "tokens"],
+    "ktwe_serving_tenant_tokens_batch_total":
+        lambda m, b, s: m["tenancy"]["by_priority"]["batch"]["tokens"],
+    "ktwe_serving_tenant_chip_seconds_interactive_total":
+        lambda m, b, s: m["tenancy"]["by_priority"]["interactive"][
+            "chip_seconds"],
+    "ktwe_serving_tenant_chip_seconds_batch_total":
+        lambda m, b, s: m["tenancy"]["by_priority"]["batch"][
+            "chip_seconds"],
+    "ktwe_serving_tenant_budget_rejections_total":
+        lambda m, b, s: m["tenancy"]["budget_rejections_total"],
+    "ktwe_serving_tenants_active":
+        lambda m, b, s: m["tenancy"]["active_tenants"],
+    "ktwe_serving_queue_depth_interactive":
+        lambda m, b, s: m["queued_interactive"],
+    "ktwe_serving_queue_depth_batch":
+        lambda m, b, s: m["queued_batch"],
+    "ktwe_serving_preemptions_total":
+        lambda m, b, s: m["migration"]["preempted_total"],
 }
 
 
@@ -289,6 +338,31 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--metrics-port", type=int,
                    help="serve the ktwe_serving_* Prometheus families on "
                         "this port (0 = off)")
+    p.add_argument("--preempt-cap", type=int,
+                   help="max times one batch generation may be preempted "
+                        "(ejected as a reason='preempt' migrate frame for "
+                        "an interactive queue head) across the fleet: the "
+                        "count rides the resume state, so batch work "
+                        "always finishes; 0 disables preemption")
+    p.add_argument("--default-tenant", type=str,
+                   help="tenant metered for requests that carry no "
+                        "'tenant' field or x-ktwe-tenant header")
+    p.add_argument("--tenant-budget", action="append", metavar="NAME=DOLLARS",
+                   help="per-tenant budget (repeatable): once NAME's "
+                        "metered spend (chip-seconds at --chip-hour-rate) "
+                        "reaches DOLLARS inside the --budget-period, its "
+                        "fresh requests get 429 reason=budget-exhausted "
+                        "with a Retry-After to the period's end")
+    p.add_argument("--budget-period",
+                   choices=["daily", "weekly", "monthly", "quarterly"],
+                   help="calendar period (UTC) a --tenant-budget covers; "
+                        "spend resets at its end")
+    p.add_argument("--chip-hour-rate", type=float,
+                   help="$/chip-hour the tenant meter prices chip-seconds "
+                        "at. The default, 1.20, is the JAX serve's knob "
+                        "default, kept so that both replicas of a mixed "
+                        "fleet price in one currency; set your fleet's "
+                        "own rate")
     p.add_argument("--config", type=str, default="",
                    help="ktwe.yaml knob file: its `serve:` section sets "
                         "defaults, flags on the command line win")
@@ -300,13 +374,20 @@ class ServeService:
     """dict-in/dict-out API over the engine; one lock serializes engine
     mutation (the background step loop, request submission and the weight
     swap). `load_params` ((checkpoint_dir | None) -> (params, step))
-    enables the /v1/admin/reload hot-swap."""
+    enables the /v1/admin/reload hot-swap. `meter` (a TenantMeter; None:
+    unmetered, a zero `tenancy` block) meters every terminal view and
+    gates fresh requests on its budgets; `default_tenant` is metered for
+    requests that name none."""
 
     def __init__(self, engine: serving.ContinuousBatchEngine,
                  drain_timeout: float = 30.0,
-                 load_params: Optional[Callable] = None):
+                 load_params: Optional[Callable] = None,
+                 meter: Optional[TenantMeter] = None,
+                 default_tenant: str = "anonymous"):
         self._engine = engine
         self._load_params = load_params
+        self._meter = meter
+        self.default_tenant = str(default_tenant)
         # The checkpoint step the engine serves (None = random init); set
         # at startup and by every reload, read by the checkpoint watcher.
         self.last_swapped_step: Optional[int] = None
@@ -419,12 +500,32 @@ class ServeService:
         hdrs = request.get("_headers") or {}
         traceparent = hdrs.get("traceparent")
         resume = request.get("resumeFrom")
+        if resume is not None and not isinstance(resume, dict):
+            raise ValueError('"resumeFrom" must be a resume state object')
+        # Tenancy: the body wins, then the x-ktwe-* headers, then a resume
+        # carry, then the defaults.
+        tenant = str(request.get("tenant") or hdrs.get("x-ktwe-tenant")
+                     or (resume or {}).get("tenant") or self.default_tenant)
+        priority = str(request.get("priority")
+                       or hdrs.get("x-ktwe-priority")
+                       or (resume or {}).get("priority") or "interactive")
+        if priority not in ("interactive", "batch"):
+            raise ValueError(f'priority must be "interactive" or "batch", '
+                             f'got {priority!r}')
+        preempted = int((resume or {}).get("preempted") or 0)
+        if resume is None and self._meter is not None:
+            allowed, why, reset_s = self._meter.admission(tenant)
+            if not allowed:
+                # Terminal for the tenant until its budget period resets,
+                # unlike the queue-pressure 429 below: the reason lets the
+                # fleet router pass this one through instead of retrying
+                # it elsewhere.
+                raise StatusError(429, f"budget-exhausted: {why}",
+                                  retry_after=reset_s,
+                                  reason="budget-exhausted")
         if resume is not None:
             # The resume carry is the request: its prompt already holds
             # any prefix, its maxNewTokens is the original total budget.
-            if not isinstance(resume, dict):
-                raise ValueError('"resumeFrom" must be a resume state '
-                                 'object')
             request = dict(request, prompt=resume["prompt"])
             request.pop("prefixId", None)
             if "maxNewTokens" in resume:
@@ -488,7 +589,8 @@ class ServeService:
                 rid = eng.submit(prompt, n, prefix_id=prefix_id,
                                  temperature=temperature, top_p=top_p,
                                  stop=stop, committed=committed,
-                                 prng_key=prng_key)
+                                 prng_key=prng_key, tenant=tenant,
+                                 priority=priority, preempted=preempted)
             except serving.QueueFull as e:
                 raise StatusError(429, str(e),
                                   retry_after=self._retry_after(1.0, 30.0),
@@ -510,12 +612,15 @@ class ServeService:
                 done = req.done
             if done:
                 self._req_lat.record((time.time() - submitted_at) * 1e3)
+                self._meter_record(req)
                 return self._view(req, traceparent)
             time.sleep(0.01)
-        # Deadline: cancel so the slot frees, hand back the partial tokens.
+        # Deadline: cancel so the slot frees, hand back the partial tokens
+        # (they ran on the card: they are metered).
         with self._lock:
             cancelled = eng.cancel(rid)
             req = eng.result(rid)
+        self._meter_record(req)
         if not (cancelled or req.cancelled):
             return self._view(req, traceparent)   # finished in the last gap
         return self._timeout_view(rid, req, list(req.tokens), traceparent)
@@ -527,8 +632,11 @@ class ServeService:
         committed offset (those tokens are never re-emitted). A matched
         stop tail is trimmed at finish, so the last len(stop) - 1 tokens
         are held back until done. Deadline or client disconnect cancels
-        the request."""
+        the request. Every way out meters the request once, a disconnect
+        included (else streaming and walking away would bypass the
+        budget)."""
         deadline = time.time() + timeout_s
+        metered = False
         with self._lock:
             req0 = self._engine.result(rid)
             hold = max((len(s) for s in req0.stop), default=1) - 1
@@ -546,12 +654,16 @@ class ServeService:
                     sent += len(fresh)
                 if done:
                     self._req_lat.record((time.time() - submitted_at) * 1e3)
+                    self._meter_record(req)
+                    metered = True
                     yield self._view(req, traceparent)
                     return
                 if time.time() > deadline:
                     with self._lock:
                         self._engine.cancel(rid)
                         req = self._engine.result(rid)
+                    self._meter_record(req)
+                    metered = True
                     yield self._timeout_view(rid, req, list(req.tokens[sent:]),
                                              traceparent)
                     return
@@ -564,6 +676,26 @@ class ServeService:
                     req = None               # released or aged out
                 if req is not None and not req.done:
                     self._engine.cancel(rid)
+            if not metered and req is not None and req.done:
+                self._meter_record(req)      # the client walked away
+
+    def _meter_record(self, req) -> None:
+        """Meter one terminal view: the tokens generated on this replica
+        (a resume's committed tokens ran elsewhere) and the request's
+        chip-seconds, its slot residency (admitted_at -> done_at; queue
+        wait holds no slot) times the one device over the slots. A
+        migrated view meters its tokens and residency but no request: one
+        generation counts once, where it completes."""
+        if self._meter is None:
+            return
+        resident_s = (max(0.0, req.done_at - req.admitted_at)
+                      if req.admitted_at is not None and req.done_at
+                      is not None else 0.0)
+        self._meter.record(
+            req.tenant or self.default_tenant, req.priority,
+            max(0, len(req.tokens) - req.emit_from),
+            resident_s / max(1, self._engine.num_slots),
+            count_request=req.finish_reason != "migrated")
 
     def result(self, request: dict) -> dict:
         """POST or GET /v1/result {"requestId"}: the final view, or
@@ -689,7 +821,20 @@ class ServeService:
         m["request_lat_ms"] = self._req_lat.snapshot()
         m["role"] = "mixed"         # the JAX serve's --disagg off
         m["device"] = str(self._engine.device)
+        m["tenancy"] = self._tenancy_metrics()
         return m, busy, self._engine.num_slots
+
+    def _tenancy_metrics(self) -> dict:
+        """The /v1/metrics `tenancy` block: the meter's per-priority
+        aggregates and per-tenant breakdown; zeros when unmetered, so the
+        families stay alive."""
+        if self._meter is not None:
+            return self._meter.snapshot()
+        zero = {"requests": 0, "tokens": 0, "chip_seconds": 0.0}
+        return {"active_tenants": 0, "budget_rejections_total": 0,
+                "by_priority": {"interactive": dict(zero),
+                                "batch": dict(zero)},
+                "tenants": {}}
 
     def metrics(self, _request: dict) -> dict:
         return {"status": "ok", "metrics": self._metrics()[0]}
@@ -800,7 +945,36 @@ def make_engine(args, params) -> serving.ContinuousBatchEngine:
         kv_block_len=args.kv_block_len, kv_num_blocks=args.kv_num_blocks,
         max_prefixes=args.max_prefixes,
         overlap_commit=bool(args.overlap_commit),
-        watchdog_timeout=args.watchdog_timeout or None, device=device)
+        watchdog_timeout=args.watchdog_timeout or None,
+        preempt_cap=args.preempt_cap, device=device)
+
+
+def build_meter(args, parser: argparse.ArgumentParser) -> TenantMeter:
+    """The tenant meter `args` describe. It always runs (the tenant
+    families exist on every deployment); a budget engine joins only with
+    --tenant-budget, one BLOCK budget a NAME=DOLLARS."""
+    cost_engine = None
+    if args.tenant_budget:
+        cost_engine = CostEngine()
+        period = BudgetPeriod(args.budget_period.capitalize())
+        for spec in args.tenant_budget:
+            name, sep, limit = str(spec).partition("=")
+            if not sep or not name:
+                parser.error(f"--tenant-budget must be NAME=DOLLARS, got "
+                             f"{spec!r}")
+            try:
+                dollars = float(limit)
+            except ValueError:
+                parser.error(f"--tenant-budget {spec!r}: DOLLARS must be a "
+                             f"number")
+            cost_engine.create_budget(
+                f"tenant-{name}", dollars, BudgetScope.TENANT,
+                scope_value=name, period=period,
+                enforcement=EnforcementPolicy.BLOCK)
+            print(f"tenant budget: {name} = ${dollars:.2f}/"
+                  f"{args.budget_period}", flush=True)
+    return TenantMeter(engine=cost_engine,
+                       chip_hour_rate=args.chip_hour_rate)
 
 
 def watch_checkpoints(service: ServeService, directory: str,
@@ -834,6 +1008,7 @@ def main(argv=None, *, stop: Optional[threading.Event] = None,
         # engine; fail fast instead.
         parser.error("--kv-num-blocks requires --kv-block-len > 0")
     auth_token = resolve_auth_token(args.auth_token)
+    meter = build_meter(args, parser)
     device = resolve_device(args.device)
     loader = make_params_loader(serve_config(args, device),
                                 args.checkpoint_dir, args.int8, device)
@@ -847,7 +1022,8 @@ def main(argv=None, *, stop: Optional[threading.Event] = None,
         engine = build_engine(args)
     service = ServeService(engine, drain_timeout=args.drain_timeout,
                            load_params=loader if args.checkpoint_dir
-                           else None)
+                           else None, meter=meter,
+                           default_tenant=args.default_tenant)
     service.last_swapped_step = ckpt_step
     server = ThreadingHTTPServer(("0.0.0.0", args.port),
                                  make_handler(service, auth_token))

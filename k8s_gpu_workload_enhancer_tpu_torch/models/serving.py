@@ -64,13 +64,25 @@ k8s_gpu_workload_enhancer_tpu/models/serving.py.
   would let the first borrower's suffix rows overwrite the prefix). Paged:
   the prefix's full blocks are prefilled into pool pages, inserted into
   the radix tree and pinned, so every admission sharing them matches them.
+- **Priority admission and preemption.** A request is "interactive" (the
+  default) or "batch". The oldest waiting interactive request is admitted
+  first; batch requests keep FIFO order among themselves. With no free
+  slot for an interactive head, or with the paged pool too short for it,
+  the most recently submitted decoding batch request still under
+  `preempt_cap` is ejected as a `reason="preempt"` resume state (moved,
+  not killed: the fleet resumes it elsewhere). Its pages and slot free at
+  once, even with a chunk in flight that still decodes for it (that
+  chunk's tokens for it are dropped at commit, as for any eject). The
+  state's `preempted` count rises by one a hop and rides the carry, so
+  the cap holds across the fleet and batch work always finishes.
 - **Migration.** `eject` finishes a live request as "migrated" with a
   resume state (prompt, committed tokens, total budget, sampling params,
-  stop sequences, sampling key); `submit(committed=)` continues such a
-  state: the committed tokens prefill as context (riding the radix tree on
-  the paged engine), count against the total budget and are never
-  re-emitted, and the first new token samples at index len(committed), so
-  a sampled resume continues the uninterrupted stream.
+  stop sequences, sampling key, tenant, priority, preempt hops);
+  `submit(committed=)` continues such a state: the committed tokens
+  prefill as context (riding the radix tree on the paged engine), count
+  against the total budget and are never re-emitted, and the first new
+  token samples at index len(committed), so a sampled resume continues
+  the uninterrupted stream.
 - **Weight hot-swap.** `swap_params` validates a new param tree against
   the engine's (structure, shapes, dtypes) before it touches anything,
   places it on the device, re-prefills every registered prefix under the
@@ -96,10 +108,10 @@ threads it through a layer `scan`, the port writes the cache's new rows in
 place: no step copies it, and a prefill commits only the rows it owns.
 
 Not ported here (later slices): speculative decoding, the host-RAM KV
-tier, preemption, the int8 KV cache, meshes, the prefill role's
-first-token handoff, tenancy (a resume state carries the tenancy keys at
-their defaults), the FaultLab sites, phase events, chunked-prefill decode
-quanta and the disaggregated roles.
+tier, the int8 KV cache, meshes, the prefill role's first-token handoff,
+the FaultLab sites, phase events, chunked-prefill decode quanta and the
+disaggregated roles. Tenant metering and budgets live in the serve main
+(cost/cost_engine.py); the engine only carries each request's tenant.
 """
 
 from __future__ import annotations
@@ -613,6 +625,13 @@ class ServeRequest:
     emit_from: int = 0
     # Set by eject(): the resumeFrom payload another replica continues.
     resume_state: Optional[dict] = None
+    # Tenancy: the tenant the serve meters, the priority class
+    # ("interactive" admitted ahead of "batch"; batch slots may be
+    # preempted for an interactive head) and the preempt hops this
+    # generation has taken fleet-wide (carried in the resume state).
+    tenant: str = ""
+    priority: str = "interactive"
+    preempted: int = 0
 
     @property
     def done(self) -> bool:
@@ -717,7 +736,8 @@ class ContinuousBatchEngine:
                  kv_num_blocks: int = 0, max_prefixes: int = 8,
                  overlap_commit: bool = True,
                  watchdog_timeout: Optional[float] = None,
-                 cuda_graph: bool = True, device="cuda"):
+                 cuda_graph: bool = True, preempt_cap: int = 2,
+                 device="cuda"):
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
             raise ValueError(f"params live on {params['embed'].device}, the "
@@ -748,6 +768,9 @@ class ContinuousBatchEngine:
         self.watchdog_timeout = (float(watchdog_timeout)
                                  if watchdog_timeout else None)
         self.max_prefixes = int(max_prefixes)
+        # How many times one batch generation may be preempted, fleet-wide
+        # (its carried `preempted` count); 0 disables preemption.
+        self.preempt_cap = int(preempt_cap)
         self._prefixes: Dict[int, _Prefix] = {}
         self._next_prefix_id = 0
         self._seed = int(seed)
@@ -854,10 +877,12 @@ class ContinuousBatchEngine:
         self._swap_pause_ms_total = 0.0
         self._swap_pause_ms_last = 0.0
         # Migration: requests admitted with committed tokens, those
-        # tokens, live requests ejected as resume states.
+        # tokens, live requests ejected as resume states, and the ejects
+        # that were priority preemptions.
         self._resumed_total = 0
         self._resume_committed_total = 0
         self._ejected_total = 0
+        self._preempted_total = 0
 
     # -- client API --
 
@@ -1018,7 +1043,9 @@ class ContinuousBatchEngine:
                top_p: Optional[float] = None,
                stop: Optional[List[List[int]]] = None,
                committed: Optional[List[int]] = None,
-               prng_key: Optional[Sequence[int]] = None) -> int:
+               prng_key: Optional[Sequence[int]] = None,
+               tenant: str = "", priority: str = "interactive",
+               preempted: int = 0) -> int:
         """Enqueue a generation; returns its request id. `prng_key` (two
         uint32 words) is the request's sampling base key, so the same key
         at the same temperature gives the same tokens on any engine; the
@@ -1026,12 +1053,17 @@ class ContinuousBatchEngine:
         prefix to `prompt`. `committed` + `prng_key` resume another
         replica's generation (eject's state): the committed tokens are
         context and output at once, count against max_new_tokens (the
-        request's TOTAL budget) and anchor the stop-tail state."""
+        request's TOTAL budget) and anchor the stop-tail state. `tenant`,
+        `priority` ("interactive" or "batch") and `preempted` (the preempt
+        hops a resumed generation already took) are the tenancy keys."""
         if self._draining:
             raise Draining("engine is draining (shutdown in progress); retry "
                            "against another replica")
         if max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
+        if priority not in ("interactive", "batch"):
+            raise ValueError(f"priority must be 'interactive' or 'batch', "
+                             f"got {priority!r}")
         committed = [int(t) for t in (committed or [])]
         if committed and not len(committed) < max_new_tokens:
             raise ValueError(
@@ -1079,7 +1111,9 @@ class ContinuousBatchEngine:
                            submitted_at=time.perf_counter(),
                            temperature=temperature, top_p=top_p,
                            stop=[list(s) for s in (stop or []) if s],
-                           prefix_id=prefix_id)
+                           prefix_id=prefix_id, tenant=str(tenant or ""),
+                           priority=priority,
+                           preempted=max(0, int(preempted)))
         self._next_id += 1
         req.base_key = (prng_key if prng_key is not None else np.asarray(
             [self._seed & 0xFFFFFFFF, req.req_id & 0xFFFFFFFF], np.uint32))
@@ -1130,12 +1164,13 @@ class ContinuousBatchEngine:
         free as cancel frees them, and the state carries what another
         replica needs to continue it exactly (prompt, every committed
         token, the total budget, sampling params, stop sequences, the
-        sampling key and position). Only committed tokens go in: the
-        tokens of a chunk in flight (and a first token not landed yet) are
-        dropped and regenerate on the resuming replica, since a sampled
-        token is a function of (key, index). A second eject of the same request
-        returns the cached state; a request that finished for real
-        returns None."""
+        sampling key and position) and its tenancy keys (tenant, priority,
+        and the preempt hops, one more on `reason="preempt"`). Only
+        committed tokens go in: the tokens of a chunk in flight (and a
+        first token not landed yet) are dropped and regenerate on the
+        resuming replica, since a sampled token is a function of (key,
+        index). A second eject of the same request returns the cached
+        state; a request that finished for real returns None."""
         req = self._reqs[req_id]
         if req.done:
             return req.resume_state
@@ -1151,14 +1186,17 @@ class ContinuousBatchEngine:
             "prngKey": [int(x) for x in np.asarray(req.base_key)],
             "prngPos": len(req.tokens),
             "reason": reason,
-            # The tenancy keys at their defaults: tenancy is not ported.
-            "tenant": "",
-            "priority": "interactive",
-            "preempted": 0,
+            # The resuming replica meters the same tenant, keeps the
+            # class, and enforces preempt_cap on the carried hop count.
+            "tenant": req.tenant,
+            "priority": req.priority,
+            "preempted": req.preempted + (1 if reason == "preempt" else 0),
         }
         req.resume_state = state
         req.finish_reason = "migrated"
         self._ejected_total += 1
+        if reason == "preempt":
+            self._preempted_total += 1
         self._evict(req)
         return state
 
@@ -1649,12 +1687,50 @@ class ContinuousBatchEngine:
                 return b
         return None
 
+    def _promote_interactive_head(self) -> None:
+        """Priority admission: the next request admitted is the oldest
+        waiting interactive one; batch requests keep FIFO order among
+        themselves and advance only when no interactive request waits. A
+        rotation, not a second queue, so the promoted request is the head
+        the paged deferral parks."""
+        if not self._queue or self._queue[0].priority == "interactive":
+            return
+        for i, r in enumerate(self._queue):
+            if not r.cancelled and r.priority == "interactive":
+                del self._queue[i]
+                self._queue.appendleft(r)
+                return
+
+    def _preempt_for(self, req: ServeRequest) -> bool:
+        """Free capacity for an interactive queue head by ejecting one
+        decoding batch request as a reason="preempt" resume state. The
+        victim is the most recently submitted batch request still under
+        preempt_cap, so the oldest batch work (closest to done) keeps its
+        slot. True when one was ejected: its slot and pages are free at
+        once (see the module note on a chunk in flight)."""
+        if req.priority != "interactive" or self.preempt_cap <= 0:
+            return False
+        victims = [r for r in self._slot_req
+                   if r is not None and r.priority == "batch"
+                   and r.preempted < self.preempt_cap]
+        if not victims:
+            return False
+        victim = max(victims, key=lambda r: (r.submitted_at, r.req_id))
+        self.eject(victim.req_id, reason="preempt")
+        return True
+
     def _start_prefill(self) -> bool:
         while self._queue and self._queue[0].cancelled:
             self._queue.popleft()
+        self._promote_interactive_head()
         if not self._queue:
             return False
         b = self._free_slot()
+        if b is None and self._preempt_for(self._queue[0]):
+            # Slot pressure with an interactive head: a batch victim
+            # leaves as a resume state instead of the interactive request
+            # queueing behind the batch backlog.
+            b = self._free_slot()
         if b is None:
             return False
         if self._started_at is None:
@@ -1736,7 +1812,9 @@ class ContinuousBatchEngine:
         suffix prefill at the match's prefill-grid frontier. When the pool
         cannot cover the reservation even after eviction the request stays
         at the queue head (deferred, strict FIFO); one that can never fit
-        fails instead of blocking the queue forever."""
+        fails instead of blocking the queue forever. A deferred
+        interactive head preempts one batch request, whose pages free at
+        once, so it is admitted on the next step."""
         req = self._queue[0]
         bl = self.kv_block_len
         # The context: prompt + a resumed request's committed tokens (the
@@ -1775,6 +1853,7 @@ class ContinuousBatchEngine:
             if self._kv_deferred_req != req.req_id:
                 self._kv_deferrals_total += 1
                 self._kv_deferred_req = req.req_id
+            self._preempt_for(req)
             return False
         row = self._table_row(chain, private)
         self._queue.popleft()
@@ -1919,6 +1998,12 @@ class ContinuousBatchEngine:
             "rows": rows,
             "started_at": self._started_at,
             "queued": len(self._queue),
+            # Queue depth by priority class: the fleet's router and
+            # autoscaler steer interactive traffic on the split.
+            "queued_interactive": sum(1 for r in self._queue
+                                      if r.priority == "interactive"),
+            "queued_batch": sum(1 for r in self._queue
+                                if r.priority == "batch"),
             "lifetime": {
                 "completed": self._completed_total,
                 "cancelled": self._cancelled_total,
@@ -1959,6 +2044,9 @@ class ContinuousBatchEngine:
                 "resume_committed_tokens_total":
                     self._resume_committed_total,
                 "ejected_total": self._ejected_total,
+                # Batch requests ejected for an interactive head (a
+                # subset of ejected_total).
+                "preempted_total": self._preempted_total,
             },
             # Prompt prefix reuse: hits and tokens saved monotonic,
             # registered instantaneous.
@@ -2022,6 +2110,8 @@ class ContinuousBatchEngine:
             "resilience": snap["resilience"],
             "hotpath": snap["hotpath"],
             "queued": snap["queued"],
+            "queued_interactive": snap["queued_interactive"],
+            "queued_batch": snap["queued_batch"],
             "tokens": total_toks,
             "wall_s": wall,
             "aggregate_tokens_per_s": total_toks / wall if wall else 0.0,

@@ -105,6 +105,15 @@ def _config_path(argv: Sequence[str]) -> str:
 
 
 def _cast(action: argparse.Action, key: str, value: Any) -> Any:
+    if isinstance(action, argparse._AppendAction):
+        # A repeatable flag takes a list; a scalar value is a one-item
+        # list, as the JAX knob registry's strlist cast makes it.
+        items = value if isinstance(value, (list, tuple)) else [value]
+        return [_cast_one(action, key, v) for v in items if v is not None]
+    return _cast_one(action, key, value)
+
+
+def _cast_one(action: argparse.Action, key: str, value: Any) -> Any:
     if action.nargs == 0:                     # store_true / store_false
         if not isinstance(value, bool):
             raise ValueError(f"{key}: expected true or false, got "

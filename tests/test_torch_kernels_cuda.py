@@ -1181,3 +1181,60 @@ def test_graphed_engine_after_a_swap_equals_a_fresh_engine(dev,
     got = _graph_workload(eng)
     assert eng.metrics()["hotpath"]["graphs_captured"] == 1
     assert got == _graph_workload(_graph_engine(dev, pb, cfg, kv_block_len))
+
+
+def _preempt_workload(eng, temperature=None):
+    """Two batch requests decoding in both slots, then an interactive one:
+    the later batch request is preempted with a chunk in flight. Returns
+    every request's tokens and logprobs and the victim's resume state."""
+    import numpy as np
+    rng = np.random.default_rng(3)
+    b = [eng.submit(rng.integers(0, 1024, 96).tolist(), 64,
+                    priority="batch", temperature=temperature,
+                    prng_key=[5, i]) for i in range(2)]
+    for _ in range(200):
+        if all(len(eng.result(r).tokens) >= 9 for r in b):
+            break
+        eng.step()
+    i = eng.submit(rng.integers(0, 1024, 40).tolist(), 24,
+                   temperature=temperature, prng_key=[6, 0])
+    assert eng._inflight is not None
+    eng.run()
+    st = eng.result(b[1]).resume_state
+    assert st is not None and st["reason"] == "preempt"
+    assert eng.result(b[0]).finish_reason == "length"
+    return [(eng.result(r).tokens, eng.result(r).logprobs)
+            for r in b + [i]], st
+
+
+@pytest.mark.parametrize("temperature", [None, 0.8], ids=["greedy", "t0.8"])
+def test_graphed_paged_preemption_equals_the_eager_engine(dev, temperature):
+    """A preemption on the graphed, pipelined paged engine (the victim's
+    pages handed to the interactive request while a replayed chunk still
+    decodes for it) equals the eager, serialized engine bit for bit:
+    every request's tokens and logprobs and the victim's resume state. One
+    capture serves it, no page leaks, and the victim resumed on a fresh
+    engine continues its uninterrupted stream."""
+    cfg, (params, _) = _serving_model(dev)
+    eng = _graph_engine(dev, params, cfg, 16, watchdog_timeout=30)
+    got, st = _preempt_workload(eng, temperature)
+    m = eng.metrics()
+    assert m["hotpath"]["graphs_captured"] == 1
+    assert m["resilience"]["watchdog_trips"] == 0
+    assert m["migration"]["preempted_total"] == 1
+    kv = m["kv_cache"]
+    assert kv["blocks_free"] + kv["blocks_cached"] == kv["blocks_total"]
+    ref = _graph_engine(dev, params, cfg, 16, cuda_graph=False,
+                        overlap_commit=False)
+    want, want_st = _preempt_workload(ref, temperature)
+    assert got == want and st == want_st
+    whole = _graph_engine(dev, params, cfg, 16)
+    rid = whole.submit(st["prompt"], 64, temperature=temperature,
+                       prng_key=st["prngKey"])
+    whole.run()
+    res = _graph_engine(dev, params, cfg, 16)
+    r2 = res.submit(st["prompt"], 64, committed=st["committed"],
+                    temperature=temperature, prng_key=st["prngKey"],
+                    priority="batch", preempted=st["preempted"])
+    res.run()
+    assert res.result(r2).tokens == whole.result(rid).tokens

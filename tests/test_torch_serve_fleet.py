@@ -14,8 +14,13 @@
   are the uninterrupted transcript, offsets contiguous, one migration.
 - `--metrics-port`: every family served has its name in the JAX
   `SERVING_FAMILIES` and the value that table computes from `/v1/metrics`.
+- The JAX `FleetRouter` splices a torch replica's preemption: a batch
+  stream preempted for an interactive request continues on the other
+  replica as batch with one hop, and the registry reads A's queue depth
+  split by class.
 - `--config`: the `serve:` section sets flags, the command line wins, a
-  key without a flag is an error naming it.
+  key without a flag is an error naming it, a scalar `tenant_budget` is
+  one budget.
 
 Replicas whose engine loop is parked are stepped by hand, so that an eject
 or a poll lands at a known point of a generation.
@@ -368,6 +373,75 @@ def test_fleet_router_splices_a_torch_replica_migration(replicas):
         reg.stop()
 
 
+def test_fleet_router_splices_a_torch_replica_preemption(replicas):
+    """The JAX FleetRouter sends a batch stream to torch replica A (one
+    slot, stepped by hand). A batch and an interactive request queue on A
+    behind it, which the registry's snapshot of A shows split by class.
+    The interactive head preempts the stream; the router splices the
+    reason "preempt" frame onto replica B, the client sees the
+    uninterrupted tokens, and B runs the stream as batch with one hop."""
+    a = replicas(["--num-slots", "1"], parked=True)
+    b = replicas()
+    want = uninterrupted(b.url)
+    reg = ReplicaRegistry(probe_interval_s=0.1, probe_timeout_s=2.0)
+    try:
+        reg.add(a.url, "a")
+        reg.probe_all()
+        router = FleetRouter(reg, hedge_enabled=False)
+        out = {}
+        th = threading.Thread(target=_router_stream, args=(router, {
+            "prompt": PROMPT, "maxNewTokens": N, "stream": True,
+            "timeoutSeconds": 60, "tenant": "bulk", "priority": "batch"},
+            out), daemon=True)
+        th.start()
+        deadline = time.time() + 30
+        while not a.engine.active:
+            assert time.time() < deadline
+            time.sleep(0.01)
+        while len(a.engine.result(0).tokens) < 9:
+            a.step()
+        assert a.engine.result(0).priority == "batch"
+        queued = [Stream(a.url, {"prompt": [9, 9, 9], "maxNewTokens": 4,
+                                 "priority": "batch"}),
+                  Stream(a.url, {"prompt": [4, 4], "maxNewTokens": 4},
+                         headers={"x-ktwe-priority": "interactive"})]
+        while a.engine.metrics()["queued"] != 2:
+            assert time.time() < deadline
+            time.sleep(0.01)
+        reg.add(b.url, "b")
+        reg.probe_all()
+        load = reg.get("a").load
+        assert (load.queued, load.queued_interactive, load.queued_batch) \
+            == (2, 1, 1)
+        a.step()                    # the interactive admission preempts
+        assert a.engine.result(0).finish_reason == "migrated"
+        assert a.engine.result(0).resume_state["reason"] == "preempt"
+        while th.is_alive() or a.engine.active:
+            assert time.time() < deadline
+            if a.engine.active:
+                a.step()
+            time.sleep(0.005)
+        lines = out["lines"]
+        toks = [t for x in lines if "status" not in x
+                and "finishReason" not in x for t in x.get("tokens", [])]
+        assert toks == want
+        _offsets_contiguous([x for x in lines if "finishReason" not in x],
+                            0)
+        assert lines[-1]["finishReason"] == "length"
+        assert "migrate" not in {x.get("status") for x in lines}
+        assert router.preempt_frames_total == 1
+        assert router.preempt_resumes_total == 1
+        assert router.migrations_failed_total == 0
+        resumed = b.engine.result(1)
+        assert resumed.emit_from > 0 and resumed.tokens == want
+        assert (resumed.tenant, resumed.priority, resumed.preempted) == \
+            ("bulk", "batch", 1)
+        assert [s.finish()["status"] for s in queued] == ["ok", "ok"]
+        assert a.engine.metrics()["migration"]["preempted_total"] == 1
+    finally:
+        reg.stop()
+
+
 def _free_port():
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -472,3 +546,29 @@ def test_config_sets_flags_and_refuses_keys_without_one(tmp_path, capsys):
         parse_with_config(serve.build_parser(), "serve",
                           ["--config", str(cfg)])
     assert "unknown component section 'servr'" in capsys.readouterr().err
+
+
+def test_config_takes_a_scalar_tenant_budget_as_one_item(tmp_path):
+    """The JAX knob file's `tenant_budget` (a strlist knob) may be one
+    scalar: it becomes a one-item list, as the JAX strlist cast makes it,
+    never a string the serve iterates character by character; a flag on
+    the command line adds to it."""
+    cfg = tmp_path / "ktwe.yaml"
+    cfg.write_text('serve:\n  tenant_budget: "a=0.5"\n'
+                   '  budget_period: weekly\n  chip_hour_rate: 2.5\n'
+                   '  default_tenant: team\n  preempt_cap: 0\n')
+    parser = serve.build_parser()
+    args = parse_with_config(parser, "serve", ["--config", str(cfg)])
+    assert args.tenant_budget == ["a=0.5"]
+    assert (args.budget_period, args.chip_hour_rate, args.default_tenant,
+            args.preempt_cap) == ("weekly", 2.5, "team", 0)
+    meter = serve.build_meter(args, parser)
+    assert meter.chip_hour_rate == 2.5 and meter.admission("a")[0]
+    meter.record("a", "batch", 1, 0.5 / 2.5 * 3600)       # $0.50
+    ok, reason, retry = meter.admission("a")
+    assert not ok and "tenant-a" in reason and retry > 0
+    args = parse_with_config(serve.build_parser(), "serve",
+                             ["--config", str(cfg), "--tenant-budget",
+                              "b=1"])
+    assert args.tenant_budget == ["a=0.5", "b=1"]
+    assert serve.build_parser().parse_args([]).tenant_budget == []
