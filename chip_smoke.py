@@ -92,7 +92,22 @@ inits in bf16:
      batch 4 (the stash path); and the flagship configuration through
      train.trainer.train_loop, cut to batch 32 (grad_accum 4 instead of
      32) for 1 warm-up and 3 timed steps (the t-layout RoPE pair, flash at
-     head_dim 512 with the p/ds stash, the fused CE kernels). Every phase
+     head_dim 512 with the p/ds stash, the fused CE kernels). The tenancy
+     phase preempts batch requests for interactive ones on the graphed
+     paged engine. The disagg phase runs the JAX package's chunked-prefill
+     storm (40 requests, prompts cycling 8, 8, 8, 128, 8, 8, 8, 64 tokens,
+     arrivals on the work clock) and the same requests as one burst on
+     both engines at prefill_chunk_tokens 0 and 32, graphed and eager
+     (graphed == eager bit for bit, 2 captures on a chunked engine, 1 on a
+     plain one, the short class's TTFT in work tokens and ms, the quanta;
+     in f32 the chunked engines' tokens equal the plain ones', in bf16
+     they are counted), hands 8 streams (greedy and sampled) from a
+     --disagg prefill serve main to a --disagg decode one (the prefill
+     replica never decodes nor captures, counts 8 handoffs on both
+     metrics routes; every splice equal to a mixed replica's stream in
+     f32, counted in bf16) and sends SIGTERM to a serve main in its own
+     process with a 2 s eject grace (the migrate frame within 3.5 s, exit
+     0). Every phase
      must launch exactly the kernels its prefill chunks, decode steps,
      train steps and microbatches need (one embedding gather a chunk, step
      and microbatch; the flagship's relayout pair 2L times each a
@@ -211,6 +226,21 @@ TENANCY_BATCH, TENANCY_BATCH_PROMPT, TENANCY_BATCH_NEW = 8, 96, 128
 TENANCY_INTERACTIVE, TENANCY_I_PROMPT, TENANCY_I_NEW = 4, 64, 32
 TENANCY_ARRIVE, TENANCY_KEY, TENANCY_POOL_BATCH = 16, 41, 4
 TENANCY_POOL_BLOCKS = 62
+# The disagg phase. The chunked-prefill storm of the JAX package's
+# scripts/bench_disagg.py (chunked_prefill_storm, copied): 40 requests
+# whose prompt lengths cycle [8, 8, 8, 128, 8, 8, 8, 64] with 16 new tokens,
+# arriving on the work clock (decode steps + prefill chunks x prefill_len)
+# at Poisson marks at 0.8 of the default engine's capacity, seed 23; at
+# prefill_chunk_tokens 0 and 32. Then 8 streams (4 greedy, 4 sampled) of
+# 64-token prompts and 64 new tokens handed off from a prefill replica to a
+# decode replica. Then a serve main with a 2 s eject grace in a 30 s drain,
+# whose migrate frame must arrive within GRACE_SLACK_S of the grace; its
+# stream is long (max_seq 8192, one decode step a chunk) so it outlives the
+# grace.
+STORM_REQUESTS, STORM_NEW, STORM_SEED, STORM_CHUNK_TOKENS = 40, 16, 23, 32
+DISAGG_STREAMS, DISAGG_PROMPT, DISAGG_NEW, DISAGG_KEY = 8, 64, 64, 31
+GRACE_S, GRACE_DRAIN_TIMEOUT, GRACE_SLACK_S = 2.0, 30.0, 1.5
+GRACE_MAX_SEQ, GRACE_NEW = 8192, 8000
 MIGRATE_REQUESTS, MIGRATE_PROMPT, MIGRATE_NEW, MIGRATE_AFTER = 4, 32, 128, 8
 SAMPLED_TEMPERATURE, SAMPLED_KEY = 0.8, [7, 11]
 FLUSH_PROMPT, CANCEL_NEW = 15, 240
@@ -634,12 +664,13 @@ def check_kernels(dev, rms, rope, flash, paged, attn_mod) -> dict:
     d, h, hd = SERVE_DIMS["d_model"], SERVE_DIMS["n_heads"], 2048 // 4
     out = {}
 
-    # RMSNorm: a prefill chunk's rows, a decode step's, and a ragged small
-    # shape.
+    # RMSNorm: a prefill chunk's rows, a decode step's, a ragged small
+    # shape, and a chunked-prefill slice's rows (the disagg phase).
     cases = []
     w = (1.0 + 0.1 * randn(d, dtype=torch.float32)).to(torch.bfloat16)
     for case, rows, width in (("prefill", PREFILL_LEN, d),
-                              ("decode", NUM_SLOTS, d), ("ragged", 5, 203)):
+                              ("decode", NUM_SLOTS, d), ("ragged", 5, 203),
+                              ("prefill_chunk32", STORM_CHUNK_TOKENS, d)):
         x = randn(rows, width)
         ww = w if width == d else (1.0 + 0.1 * randn(width)).to(torch.bfloat16)
         got = rms.rms_norm(x, ww)
@@ -658,14 +689,17 @@ def check_kernels(dev, rms, rope, flash, paged, attn_mod) -> dict:
                           bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
     out["rms_norm"] = cases
 
-    # RoPE: one prefill chunk's q (offset 0 and 128), and a ragged shape, on
+    # RoPE: one prefill chunk's q (offset 0 and 128), a ragged shape, and a
+    # chunked-prefill slice's q at offsets 32 and 96 (the disagg phase), on
     # the cos/sin views of the (max_seq, D/2, 2) table the main path hands
     # the kernel (read in place); bit for bit.
     cases = []
     freqs = attn_mod.rope_frequencies(hd, SERVE_DIMS["max_seq"], 10000.0, dev)
+    c32 = STORM_CHUNK_TOKENS
     for shape, offset in (((1, PREFILL_LEN, h, hd), 0),
                           ((1, PREFILL_LEN, h, hd), PREFILL_LEN),
-                          ((2, 7, 3, 24), 5)):
+                          ((2, 7, 3, 24), 5),
+                          ((1, c32, h, hd), c32), ((1, c32, h, hd), 3 * c32)):
         x = randn(*shape)
         s, dd = shape[1], shape[3]
         fr = (freqs if dd == hd else attn_mod.rope_frequencies(
@@ -690,14 +724,19 @@ def check_kernels(dev, rms, rope, flash, paged, attn_mod) -> dict:
     out["rope"] = cases
 
     # Flash: a prefill chunk against the static 256-row cache, at q_offset 0
-    # and 128, and a ragged GQA shape.
+    # and 128, a ragged GQA shape, and a chunked-prefill slice of 32 rows
+    # (shorter than a 64-row tile) at q_offset 32 and 96 (the causal
+    # boundary inside a key tile; the disagg phase).
     cases = []
     s_max = SERVE_DIMS["max_seq"]
     for (b, sq, sk, hh, kh, dd), q_off in (((1, PREFILL_LEN, s_max, h, h, hd),
                                             0),
                                            ((1, PREFILL_LEN, s_max, h, h, hd),
                                             PREFILL_LEN),
-                                           ((2, 19, 45, 4, 2, 72), 20)):
+                                           ((2, 19, 45, 4, 2, 72), 20),
+                                           ((1, c32, s_max, h, h, hd), c32),
+                                           ((1, c32, s_max, h, h, hd),
+                                            3 * c32)):
         q, k, v = randn(b, sq, hh, dd), randn(b, sk, kh, dd), randn(b, sk, kh, dd)
         got = flash.flash_attention(q, k, v, True, q_off, 0)
         want = flash.flash_attention_plain(q, k, v, True, q_off, 0)
@@ -1339,6 +1378,7 @@ def check_embed_relayout_kernels(dev, embed, relayout, out: dict) -> dict:
             ("flagship", table_bf, ids(FLAGSHIP_MICRO, seq + 1)[:, :-1], bf16),
             ("decode", table_bf, ids(NUM_SLOTS), bf16),
             ("prefill", table_bf, ids(1, PREFILL_LEN), bf16),
+            ("prefill_chunk32", table_bf, ids(1, STORM_CHUNK_TOKENS), bf16),
             ("train_f32_master", master, ids(TRAIN_BATCH, seq + 1)[:, :-1],
              bf16),
             ("f32_repeats", master, repeats, f32)):
@@ -2934,8 +2974,8 @@ class ServeMain:
 
 class Stream:
     """A streamed /v1/generate (submitted when the constructor returns),
-    read in a thread: `lines` grows as they arrive, `done` is set after
-    the last."""
+    read in a thread: `lines` grows as they arrive (`times`: the
+    perf_counter of each arrival), `done` is set after the last."""
 
     def __init__(self, port: int, body: dict):
         req = urllib.request.Request(
@@ -2944,12 +2984,13 @@ class Stream:
                                  timeoutSeconds=300)).encode(),
             headers={"Content-Type": "application/json"}, method="POST")
         self.resp = urllib.request.urlopen(req, timeout=300)
-        self.lines, self.done = [], threading.Event()
+        self.lines, self.times, self.done = [], [], threading.Event()
         threading.Thread(target=self._read, daemon=True).start()
 
     def _read(self):
         try:
             for raw in self.resp:
+                self.times.append(time.perf_counter())
                 self.lines.append(json.loads(raw))
         finally:
             self.resp.close()
@@ -3257,6 +3298,566 @@ def fleet_phase(serve, pa: int, pb: int, mports, paged: bool) -> dict:
                                   or "eject" in k})
     out["lifetime_a"] = get_metrics(pa)["lifetime"]
     out["lifetime_b"] = get_metrics(pb)["lifetime"]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 5c: chunked prefill, the disaggregated roles and the drain grace
+# ---------------------------------------------------------------------------
+
+
+def storm_requests(vocab: int):
+    """The storm of the JAX package's chunked_prefill_storm at the serve
+    defaults: prompt lengths, prompts and arrival marks on the work
+    clock, drawn in its order from its seed."""
+    rng = np.random.default_rng(STORM_SEED)
+    short = max(2, PREFILL_LEN // 16)
+    lens = [short] * 3 + [PREFILL_LEN] + [short] * 3 + [PREFILL_LEN // 2]
+    prompts = [[int(rng.integers(1, vocab - 1))
+                for _ in range(lens[i % len(lens)])]
+               for i in range(STORM_REQUESTS)]
+    # Default-config work a request: a padded prefill chunk, plus its
+    # decode steps over about half the slots; marks at 0.8 of capacity.
+    per_req_work = PREFILL_LEN + STORM_NEW * 2.0 / NUM_SLOTS
+    arrivals = np.cumsum(rng.exponential(per_req_work / 0.8,
+                                         size=STORM_REQUESTS))
+    return lens, prompts, arrivals
+
+
+def storm_run(eng, prompts, arrivals, short_len: int) -> dict:
+    """The storm on `eng`: a request is submitted once the work clock
+    (decode steps + prefill chunks x prefill_len) reaches its mark, or at
+    once on an idle engine; its TTFT in work tokens is the work serialized
+    between its submit and its first token's commit. Returns the
+    requests, the short class's TTFT (work tokens and wall ms) and the
+    length of every chunk dispatched."""
+    from k8s_gpu_workload_enhancer_tpu_torch.utils.stats import percentile
+    lengths = []
+    dispatch = eng._dispatch_chunk
+
+    def recorded():
+        inflight = dispatch()
+        lengths.append(inflight.n)
+        return inflight
+    eng._dispatch_chunk = recorded
+
+    def work_clock():
+        return (eng._decode_steps_total
+                + eng._prefill_chunks_total * eng.prefill_len)
+    life0 = dict(eng.metrics_snapshot()["lifetime"])
+    # The marks count from the clock at the storm's start (a warm-up ran
+    # before it).
+    arrivals = arrivals + work_clock()
+    submitted, ttft_work, rids, i = {}, {}, [], 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while i < len(prompts) or eng.active:
+        clock = work_clock()
+        due = clock if eng.active else arrivals[i]
+        while i < len(prompts) and arrivals[i] <= due:
+            rids.append(eng.submit(prompts[i], STORM_NEW))
+            submitted[rids[-1]] = clock
+            i += 1
+        eng.step()
+        clock = work_clock()
+        for rid in rids:
+            if rid not in ttft_work and eng.result(rid).tokens:
+                ttft_work[rid] = clock - submitted[rid]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    del eng._dispatch_chunk
+    reqs = [eng.result(r) for r in rids]
+    if any(r.finish_reason != "length" for r in reqs):
+        fail(f"storm: a request ended {[r.finish_reason for r in reqs]}")
+    short = [(ttft_work[r.req_id], (r.first_token_at - r.submitted_at) * 1e3)
+             for r in reqs if len(r.prompt) <= short_len]
+    work = sorted(w for w, _ in short)
+    ms = sorted(m for _, m in short)
+    life = {k: v - life0[k]
+            for k, v in eng.metrics_snapshot()["lifetime"].items()}
+    if sum(lengths) != life["decode_steps"]:
+        fail(f"storm: chunks of {lengths} steps, decode_steps "
+             f"{life['decode_steps']}")
+    return dict(reqs=reqs, lengths=lengths, wall_s=wall,
+                short_ttft_work_p50=percentile(work, 50),
+                short_ttft_work_p99=percentile(work, 99),
+                short_ttft_ms_p50=percentile(ms, 50),
+                short_ttft_ms_p99=percentile(ms, 99),
+                tokens_per_s=sum(len(r.tokens) for r in reqs) / wall,
+                prefill_chunks=life["prefill_chunks"],
+                decode_steps=life["decode_steps"])
+
+
+def storm_warm_up(eng) -> None:
+    """NUM_SLOTS + 1 short requests at once before the storm: a backlog,
+    so a graphed engine captures its decode graphs (the chunked one its
+    quantum's too) before any storm request's TTFT runs."""
+    rids = [eng.submit([1 + i] * 8, 4) for i in range(NUM_SLOTS + 1)]
+    eng.run()
+    for r in rids:
+        eng.release(r)
+
+
+def run_chunked_storm(dev, mods, cfg, params, gates: list, life: dict,
+                      burst: bool = False, f32: bool = False) -> dict:
+    """The storm on the dense and the paged engine (pages of 16), each at
+    prefill_chunk_tokens 0 and 32, graphed and pipelined (watchdog armed)
+    and again eager and serialized, each engine warmed up first
+    (storm_warm_up). `burst`: every request arrives at once, so a backlog
+    lasts until the queue drains and the chunked engine decodes quanta.
+    Gates: graphed == eager bit for bit (tokens and logprobs) at each
+    slice size; 2 captures on a chunked graphed engine, 1 on a plain one;
+    no page leaked; in f32 (`f32`: the weights cast, not counted) the
+    chunked engines' tokens equal the plain ones'. In bf16 the chunked
+    transcripts are counted against the plain ones (a 32-row prefill
+    GEMM may round otherwise than a 128-row one: gemm_row_invariance).
+    Failed gates go to `gates`, the engines' lifetime totals by kind
+    (paged or not) to `life`, for the launch count."""
+    serving = mods[7]
+    if f32:
+        cfg = dataclasses.replace(cfg, dtype=torch.float32)
+        params = cast_params(params, torch.float32)
+    lens, prompts, arrivals = storm_requests(cfg.vocab_size)
+    if burst:
+        arrivals = np.zeros_like(arrivals)
+    what = ("burst" if burst else "storm") + (" f32" if f32 else "")
+    out = {}
+    for paged in (False, True):
+        kind = "paged" if paged else "dense"
+        runs = {}
+        for chunk in (0, STORM_CHUNK_TOKENS):
+            for graphed in (True, False):
+                kw = dict(prefill_chunk_tokens=chunk)
+                if paged:
+                    kw["kv_block_len"] = KV_BLOCK_LEN
+                if graphed:
+                    kw["watchdog_timeout"] = WATCHDOG_S
+                else:
+                    kw.update(cuda_graph=False, overlap_commit=False)
+                eng = new_engine(serving, params, cfg, dev, max_queue=256,
+                                 **kw)
+                storm_warm_up(eng)
+                rep = storm_run(eng, prompts, arrivals, lens[0])
+                m = eng.metrics()
+                if not f32:
+                    for k in life[paged]:
+                        life[paged][k] += m["lifetime"][k]
+                name = (f"{'chunked' if chunk else 'plain'}_"
+                        f"{'graphed' if graphed else 'eager'}")
+                if paged:
+                    kv = m["kv_cache"]
+                    if kv["blocks_free"] + kv["blocks_cached"] \
+                            != kv["blocks_total"]:
+                        gates.append(f"{what} {kind} {name}: pages leaked "
+                                     f"{kv}")
+                q = eng._decode_quantum
+                rep.update(quantum_chunks=(rep["lengths"].count(q)
+                                           if chunk else 0),
+                           chunks=len(rep["lengths"]))
+                if graphed:
+                    hp = hotpath_report(eng)
+                    want = 2 if chunk else 1
+                    if hp["graphs_captured"] != want or hp["watchdog_trips"] \
+                            or (burst and chunk and not rep["quantum_chunks"]):
+                        gates.append(f"{what} {kind} {name}: "
+                                     f"{hp['graphs_captured']} captures "
+                                     f"(want {want}), {hp['watchdog_trips']} "
+                                     f"watchdog trips")
+                    rep["capture_ms"] = eng._graph.capture_ms
+                    if eng._quantum_graph is not None:
+                        rep["quantum_capture_ms"] = \
+                            eng._quantum_graph.capture_ms
+                    rep["graphs_captured"] = hp["graphs_captured"]
+                del rep["lengths"]
+                runs[name] = rep
+                del eng
+        transcripts = {name: rep.pop("reqs") for name, rep in runs.items()}
+        for name, rep in runs.items():
+            reqs = transcripts[name]
+            ref = transcripts[name.replace("graphed", "eager")]
+            plain = transcripts["plain_eager"]
+            differ = [i for i, (g, w) in enumerate(zip(reqs, ref))
+                      if (g.tokens, g.logprobs) != (w.tokens, w.logprobs)]
+            if differ:
+                gates.append(f"{what} {kind} {name}: {len(differ)} requests "
+                             f"differ from the eager engine's")
+            rep["requests_equal_plain"] = sum(
+                (g.tokens, g.logprobs) == (w.tokens, w.logprobs)
+                for g, w in zip(reqs, plain))
+            rep["tokens_equal_plain"] = sum(
+                g.tokens == w.tokens for g, w in zip(reqs, plain))
+            rep["max_logprob_diff_plain"] = max(
+                abs(a - b) for g, w in zip(reqs, plain)
+                for a, b in zip(g.logprobs, w.logprobs))
+            diverged = [dict(request=i, prompt=len(g.prompt),
+                             at=divergence(g.tokens, w.tokens))
+                        for i, (g, w) in enumerate(zip(reqs, plain))
+                        if g.tokens != w.tokens]
+            rep["tokens_diverged_plain"] = diverged
+            if f32 and diverged:
+                gates.append(f"{what} {kind} {name}: tokens left the plain "
+                             f"engine's: {diverged}")
+        runs["ttft_p99_ratio_work"] = (
+            runs["chunked_graphed"]["short_ttft_work_p99"]
+            / max(runs["plain_graphed"]["short_ttft_work_p99"], 1e-9))
+        runs["ttft_p99_ratio_ms"] = (
+            runs["chunked_graphed"]["short_ttft_ms_p99"]
+            / max(runs["plain_graphed"]["short_ttft_ms_p99"], 1e-9))
+        out[kind] = runs
+        torch.cuda.empty_cache()
+    return dict(prompt_lens=lens, requests=STORM_REQUESTS, new=STORM_NEW,
+                chunk_tokens=STORM_CHUNK_TOKENS, **out)
+
+
+def gemm_row_invariance(dev, tf, params) -> dict:
+    """Whether a prefill GEMM's rows depend on the chunk's row count: the
+    first 32 rows of a (128, K) @ W product against the (32, K) @ W
+    product of the same rows, for layer 0's wq, w_gate (K = d_model) and
+    w_down (K = d_ff), in bf16 and f32 (cuBLAS picks a kernel, and with it
+    a summation order, by the shape). Elements that differ and the
+    largest difference."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    lp = tf.layer_params(params, 0)
+    out = {}
+    for name in ("wq", "w_gate", "w_down"):
+        w2 = lp[name].reshape(lp[name].shape[0], -1)
+        for dt in (torch.bfloat16, torch.float32):
+            w = w2.to(dt)
+            x = torch.randn((PREFILL_LEN, w.shape[0]), generator=gen,
+                            device=dev).to(dt)
+            whole, part = (x @ w)[:STORM_CHUNK_TOKENS], \
+                x[:STORM_CHUNK_TOKENS] @ w
+            diff = (whole.float() - part.float()).abs()
+            out[f"{name}_{str(dt).split('.')[-1]}"] = dict(
+                shape=[list(x.shape), list(w.shape)],
+                elements_differing=int((diff > 0).sum()),
+                max_abs_diff=float(diff.max()))
+    return out
+
+
+class RoleService:
+    """A ServeService with `role` on an in-process engine, behind an HTTP
+    server (the serve main's routes): the f32 replicas of the disagg
+    phase, whose weights the serve main (bf16 on the card) cannot take."""
+
+    def __init__(self, serve, engine, role: str):
+        from http.server import ThreadingHTTPServer
+        self.svc = serve.ServeService(engine, role=role)
+        self.server = ThreadingHTTPServer(("127.0.0.1", 0),
+                                          serve.make_handler(self.svc))
+        self.thread = threading.Thread(target=self.server.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+        self.port = self.server.server_address[1]
+
+    def close(self):
+        self.svc.stop()
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join(60)
+
+
+def disagg_bodies(vocab: int) -> list:
+    rng = np.random.default_rng(DISAGG_KEY)
+    bodies = []
+    for i in range(DISAGG_STREAMS):
+        body = {"prompt": rng.integers(0, vocab, DISAGG_PROMPT).tolist(),
+                "maxNewTokens": DISAGG_NEW}
+        if i >= DISAGG_STREAMS // 2:
+            body.update(temperature=SAMPLED_T, prngKey=[DISAGG_KEY, i])
+        bodies.append(body)
+    return bodies
+
+
+def handoffs(pf_port: int, dec_port: int, mixed_port: int, bodies,
+             what: str, gates: list, exact: bool) -> dict:
+    """Every body streamed to the prefill replica, which must end it after
+    token #1 with a reason "handoff" migrate frame; a thread a stream posts
+    the resume to the decode replica as soon as the frame lands (the
+    router's splice). The spliced stream (offsets contiguous from 0) is
+    held to the mixed replica's uninterrupted reply: `exact` gates the
+    equality, else the equal ones are counted and the rest printed."""
+    want = concurrent(mixed_port, bodies)
+    # Warm-ups, not timed: a one-token request finishes on the prefill
+    # replica without a handoff; a fresh request on the decode replica
+    # captures its decode graph.
+    for port, n in ((pf_port, 1), (dec_port, 16)):
+        warm = post_json(port, "/v1/generate", {"prompt": [5] * 8,
+                                                "maxNewTokens": n})[1]
+        if warm.get("finishReason") != "length":
+            gates.append(f"{what}: a warm-up request ended {warm}")
+    pf, threads = [], []
+    resumed, posted = [None] * len(bodies), [None] * len(bodies)
+
+    def hop(i):
+        # The router's move: post the resume as soon as the frame is read
+        # (the connection closes after it).
+        a, deadline = pf[i], time.time() + 300
+        while not (a.lines and "status" in a.lines[-1]):
+            if a.done.is_set() or time.time() > deadline:
+                return
+            time.sleep(0.0002)
+        final = a.lines[-1]
+        if final.get("status") == "migrate":
+            posted[i] = time.perf_counter()
+            resumed[i] = Stream(dec_port, {"resumeFrom": final["resume"]})
+    for i, body in enumerate(bodies):
+        pf.append(Stream(pf_port, body))
+        threads.append(threading.Thread(target=hop, args=(i,)))
+        threads[-1].start()
+    for th in threads:
+        th.join(600)
+    equal, diverged, ttft, hop_ms, post_ms, dec_ttft = 0, [], [], [], [], []
+    for i, (a, b) in enumerate(zip(pf, resumed)):
+        fa = a.final()
+        st = fa.get("resume") or {}
+        if fa.get("status") != "migrate" or st.get("reason") != "handoff" \
+                or b is None or a.tokens() != st.get("committed") \
+                or len(st["committed"]) != 1:
+            gates.append(f"{what} stream {i}: the prefill replica ended "
+                         f"{fa}")
+            continue
+        fb = b.final()
+        seen, toks = 0, []
+        for x in a.lines[:-1] + b.lines[:-1]:
+            if x["offset"] != seen:
+                gates.append(f"{what} stream {i}: offset {x['offset']} where "
+                             f"{seen} was due")
+            toks += x["tokens"]
+            seen += len(x["tokens"])
+        if fb.get("status") != "ok" or fb.get("committedOffset") != 1:
+            gates.append(f"{what} stream {i}: the decode replica ended {fb}")
+        ttft.append(fa["ttftMs"])
+        hop_ms.append((b.times[0] - a.times[-1]) * 1e3)
+        post_ms.append((posted[i] - a.times[-1]) * 1e3)
+        dec_ttft.append(fb.get("ttftMs"))
+        j = divergence(toks, want[i]["tokens"])
+        if j is None:
+            equal += 1
+        else:
+            diverged.append(dict(stream=i, at=j, sampled="prngKey" in
+                                 bodies[i]))
+            if exact:
+                gates.append(f"{what} stream {i}: the spliced stream left "
+                             f"the uninterrupted one at token {j}")
+    return dict(streams=len(bodies), equal_uninterrupted=equal,
+                diverged=diverged, prefill_ttft_ms=ttft, hop_ms=hop_ms,
+                hop_ms_p50=float(np.median(hop_ms)) if hop_ms else None,
+                frame_to_post_ms=post_ms, decode_side_ttft_ms=dec_ttft)
+
+
+def check_roles(pf: dict, dec: dict, what: str, gates: list) -> None:
+    """The prefill replica's /v1/metrics: role prefill, no decode step, no
+    graph, a handoff a stream; the decode replica's role decode."""
+    got = (pf["role"], pf["lifetime"]["decode_steps"],
+           pf["hotpath"]["graphs_captured"],
+           pf["migration"]["handoffs_total"], dec["role"])
+    if got != ("prefill", 0, 0, DISAGG_STREAMS, "decode"):
+        gates.append(f"{what}: (prefill role, decode steps, captures, "
+                     f"handoffs, decode role) = {got}")
+
+
+def run_handoffs(mods, cfg, gates: list) -> tuple:
+    """The bf16 serve mains (paged, pages of 16): a --disagg prefill and a
+    --disagg decode replica, each with a --metrics-port, and a mixed one
+    for the uninterrupted streams. Returns the report and the mains'
+    lifetime totals (launches are counted by the caller)."""
+    serve = mods[8]
+    base = ["--device", "cuda", "--port", "0", "--seed", "0",
+            "--kv-block-len", str(KV_BLOCK_LEN)]
+    mports = [free_port(), free_port()]
+    bodies = disagg_bodies(cfg.vocab_size)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        mains = [ServeMain(serve, base + ["--disagg", role, "--metrics-port",
+                                          str(mp)])
+                 for role, mp in (("prefill", mports[0]),
+                                  ("decode", mports[1]))]
+        mains.append(ServeMain(serve, base))
+        try:
+            rep = handoffs(*(m.port for m in mains), bodies, "disagg bf16",
+                           gates, exact=False)
+            ms = [get_json(m.port, "/v1/metrics")[1]["metrics"]
+                  for m in mains]
+            series = scrape(mports[0], serve.SERVING_FAMILIES)
+        finally:
+            for m in mains:
+                m.close()
+    check_roles(ms[0], ms[1], "disagg bf16", gates)
+    if series["ktwe_serving_handoffs_total"] != DISAGG_STREAMS:
+        gates.append(f"disagg bf16: ktwe_serving_handoffs_total "
+                     f"{series['ktwe_serving_handoffs_total']}")
+    life = {k: sum(m["lifetime"][k] for m in ms)
+            for k in ("prefill_chunks", "decode_steps")}
+    rep.update(metrics_port_handoffs_total=series[
+        "ktwe_serving_handoffs_total"],
+        roles=[m["role"] for m in ms],
+        prefill_decode_steps=ms[0]["lifetime"]["decode_steps"],
+        prefill_graphs_captured=ms[0]["hotpath"]["graphs_captured"])
+    return rep, life
+
+
+def run_handoffs_f32(dev, mods, cfg, params, gates: list) -> dict:
+    """The f32 gate (not counted): the same streams through in-process
+    services on the weights cast to f32 (graphed paged engines, pages of
+    16), where every spliced stream must equal the mixed replica's."""
+    serving, serve = mods[7], mods[8]
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    p32 = cast_params(params, torch.float32)
+    reps = [RoleService(serve, new_engine(
+        serving, p32, cfg32, dev, kv_block_len=KV_BLOCK_LEN,
+        handoff_first_token=role == "prefill"), role)
+        for role in ("prefill", "decode", "mixed")]
+    try:
+        rep = handoffs(*(r.port for r in reps),
+                       disagg_bodies(cfg.vocab_size), "disagg f32", gates,
+                       exact=True)
+        ms = [r.svc.metrics({})["metrics"] for r in reps]
+    finally:
+        for r in reps:
+            r.close()
+    check_roles(ms[0], ms[1], "disagg f32", gates)
+    del reps, p32
+    torch.cuda.empty_cache()
+    return rep
+
+
+def run_drain_grace(gates: list) -> dict:
+    """A serve main in its own process (the card, dense, one decode step a
+    chunk, max_seq 8192) with --drain-timeout 30 --drain-eject-grace 2: a
+    long stream, then SIGTERM. Its migrate frame must arrive within
+    GRACE_S + GRACE_SLACK_S of the signal, and the process exit 0."""
+    argv = [sys.executable, "-m",
+            "k8s_gpu_workload_enhancer_tpu_torch.cmd.serve", "--device",
+            "cuda", "--port", "0", "--max-seq", str(GRACE_MAX_SEQ),
+            "--decode-chunk", "1", "--drain-timeout",
+            str(GRACE_DRAIN_TIMEOUT), "--drain-eject-grace", str(GRACE_S)]
+    proc = subprocess.Popen(
+        argv, cwd=os.path.dirname(os.path.abspath(__file__)),
+        env=dict(os.environ, PYTHONUNBUFFERED="1"), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    lines, up = [], threading.Event()
+
+    def read():
+        for line in proc.stdout:
+            lines.append(line)
+            if "up on :" in line:
+                up.set()
+        up.set()
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    try:
+        if not up.wait(600) or proc.poll() is not None:
+            fail(f"drain grace: the serve main did not come up: "
+                 f"{''.join(lines)[-2000:]}")
+        port = int(next(x for x in lines if "up on :" in x)
+                   .split("up on :")[1].split()[0])
+        s = Stream(port, {"prompt": list(range(1, 17)),
+                          "maxNewTokens": GRACE_NEW})
+        wait_streamed([s], 1)
+        t0 = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        final = s.final()
+        waited = s.times[-1] - t0
+        rc = proc.wait(timeout=GRACE_DRAIN_TIMEOUT + 60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        reader.join(10)
+    committed = len((final.get("resume") or {}).get("committed", []))
+    if final.get("status") != "migrate" \
+            or final["resume"].get("reason") != "eject" \
+            or not 0 < committed < GRACE_NEW:
+        gates.append(f"drain grace: the stream ended {final.get('status')} "
+                     f"with {committed} committed tokens")
+    if not waited <= GRACE_S + GRACE_SLACK_S:
+        gates.append(f"drain grace: the migrate frame came {waited:.3f} s "
+                     f"after SIGTERM, bound {GRACE_S + GRACE_SLACK_S}")
+    if rc != 0 or not any("drain grace expired" in x for x in lines):
+        gates.append(f"drain grace: exit {rc}: {''.join(lines)[-2000:]}")
+    return dict(grace_s=GRACE_S, drain_timeout_s=GRACE_DRAIN_TIMEOUT,
+                migrate_frame_s_after_sigterm=waited,
+                committed_at_eject=committed, exit_code=rc)
+
+
+def run_disagg(dev, mods, cfg, params) -> dict:
+    """The disagg phase, with the launch counters set to 0 just before it
+    and read after the bf16 handoffs: the chunked-prefill storm and its
+    burst, the bf16 handoffs between serve mains; then, not counted, the
+    burst and the handoffs in f32, the prefill GEMMs' row invariance and
+    the drain grace (another process). Every gate is checked after the
+    whole phase ran, so a failing run still prints its numbers."""
+    kernels = mods[0]
+    gates = []
+    life = {paged: {"prefill_chunks": 0, "decode_steps": 0}
+            for paged in (False, True)}
+    kernels.reset_launches()
+    storm = run_chunked_storm(dev, mods, cfg, params, gates, life)
+    burst = run_chunked_storm(dev, mods, cfg, params, gates, life, True)
+    bf16, life_serve = run_handoffs(mods, cfg, gates)
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    for k, v in life_serve.items():
+        life[True][k] += v
+    want = expected_launches(cfg.n_layers, life[True], paged=True)
+    for k, v in expected_launches(cfg.n_layers, life[False]).items():
+        want[k] += v
+    if launches != want:
+        gates.append(f"disagg launches {launches}, its chunks and steps "
+                     f"need {want}")
+    burst32 = run_chunked_storm(dev, mods, cfg, params, gates, life, True,
+                                True)
+    f32 = run_handoffs_f32(dev, mods, cfg, params, gates)
+    gemm = gemm_row_invariance(dev, mods[5], params)
+    grace = run_drain_grace(gates)
+    summary = {}
+    for kind, r in (("dense", storm["dense"]), ("paged", storm["paged"]),
+                    ("dense_burst", burst["dense"]),
+                    ("paged_burst", burst["paged"])):
+        summary[kind] = dict(
+            short_ttft_ms_p50={k: r[f"{k}_graphed"]["short_ttft_ms_p50"]
+                               for k in ("chunked", "plain")},
+            short_ttft_ms_p99={k: r[f"{k}_graphed"]["short_ttft_ms_p99"]
+                               for k in ("chunked", "plain")},
+            short_ttft_work_p50={k: r[f"{k}_graphed"]["short_ttft_work_p50"]
+                                 for k in ("chunked", "plain")},
+            short_ttft_work_p99={k: r[f"{k}_graphed"]["short_ttft_work_p99"]
+                                 for k in ("chunked", "plain")},
+            ttft_p99_ratio_work=r["ttft_p99_ratio_work"],
+            ttft_p99_ratio_ms=r["ttft_p99_ratio_ms"],
+            quantum_chunks=r["chunked_graphed"]["quantum_chunks"],
+            chunks={k: r[f"{k}_graphed"]["chunks"]
+                    for k in ("chunked", "plain")},
+            prefill_chunks={k: r[f"{k}_graphed"]["prefill_chunks"]
+                            for k in ("chunked", "plain")},
+            tokens_per_s={k: r[f"{k}_graphed"]["tokens_per_s"]
+                          for k in ("chunked", "plain")},
+            quantum_capture_ms=r["chunked_graphed"].get(
+                "quantum_capture_ms"),
+            chunk_capture_ms=r["chunked_graphed"]["capture_ms"])
+    summary.update(
+        prefill_ttft_ms_p50=float(np.median(bf16["prefill_ttft_ms"])),
+        hop_ms_p50=bf16["hop_ms_p50"],
+        bf16_spliced_equal=[bf16["equal_uninterrupted"], bf16["streams"]],
+        f32_spliced_equal=[f32["equal_uninterrupted"], f32["streams"]],
+        drain_grace_frame_s=grace["migrate_frame_s_after_sigterm"])
+    for kind in ("dense", "paged"):
+        summary[kind].update(
+            bf16_chunked_equal_plain=[storm[kind]["chunked_graphed"][
+                "requests_equal_plain"], STORM_REQUESTS],
+            bf16_chunked_tokens_equal_plain=[storm[kind]["chunked_graphed"][
+                "tokens_equal_plain"], STORM_REQUESTS],
+            f32_burst_chunked_equal_plain=[burst32[kind]["chunked_graphed"][
+                "requests_equal_plain"], STORM_REQUESTS])
+    out = dict(summary=summary, storm=storm, burst=burst,
+               burst_f32=burst32, gemm_row_invariance=gemm,
+               handoffs_bf16=bf16,
+               handoffs_f32=f32, drain_grace=grace, launches=launches,
+               prefill_chunks=life[False]["prefill_chunks"]
+               + life[True]["prefill_chunks"],
+               decode_steps=life[False]["decode_steps"]
+               + life[True]["decode_steps"], gates_failed=gates)
     return out
 
 
@@ -3621,6 +4222,11 @@ def main() -> int:
     results["tenancy"] = run_tenancy(dev, mods, cfg, params)
     print(json.dumps({"tenancy": dict(card=card, **results["tenancy"])}),
           flush=True)
+    results["disagg"] = run_disagg(dev, mods, cfg, params)
+    print(json.dumps({"disagg": dict(card=card, **results["disagg"])}),
+          flush=True)
+    for gate in results["disagg"]["gates_failed"]:
+        fail(gate)
     del params
     torch.cuda.empty_cache()
     results["paged_serve"] = run_serve(serve, kernels, paged=True)
@@ -3680,10 +4286,10 @@ def main() -> int:
     print(json.dumps({"profile": results["profile"]}), flush=True)
 
     serving_phases = ("engine", "serve", "paged_engine", "paged_serve",
-                      "tenancy", "checkpoint_serve", "checkpoint_paged_serve",
-                      "fleet", "fleet_paged")
+                      "tenancy", "disagg", "checkpoint_serve",
+                      "checkpoint_paged_serve", "fleet", "fleet_paged")
     train_phases = ("train", "train_stash")
-    paged_phases = ("paged_engine", "paged_serve", "tenancy",
+    paged_phases = ("paged_engine", "paged_serve", "tenancy", "disagg",
                     "checkpoint_paged_serve", "fleet_paged")
     # The checkpoint phase's trainer runs the t-layout path (head_dim 512).
     t_layout = ("flagship", "checkpoint_train")

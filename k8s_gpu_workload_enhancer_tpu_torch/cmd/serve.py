@@ -73,10 +73,23 @@ dispatch.
 are flag names with underscores); flags on the command line win, and a key
 this main has no flag for is an error.
 
+Disaggregated prefill/decode (--disagg): a "prefill" replica prefills each
+request, lands its first token and ejects it as a migrate frame whose
+resume has reason "handoff"; the fleet router splices the continuation
+onto a "decode" replica. The role is advertised as `role` in /v1/metrics,
+where the fleet's registry pools replicas by it ("mixed" with --disagg
+off). The single-replica complement is --prefill-chunk-tokens N: N replaces
+--prefill-len as the prompt slice (it must divide --max-seq, and a prefill
+replica refuses it), and while a prompt is mid-slice or a request waits,
+decode runs in quanta of decode-chunk/4 steps; only the schedule moves (on
+the card a bf16 matmul over fewer rows may round otherwise).
+
 SIGTERM drains: new submits get 503 + Retry-After, /health answers 503
-"draining", accepted requests run on; two seconds (at most half the
-budget) before --drain-timeout, whatever still runs is ejected as migrate
-frames, then the process exits 0.
+"draining", accepted requests run on; at the eject grace whatever still
+runs is ejected as migrate frames, then the process exits 0. The grace is
+--drain-eject-grace seconds after the signal (0: two seconds, at most half
+the budget, before --drain-timeout), never later than that
+(`eject_grace_s`).
 
 The weights are the latest step of a trainer checkpoint with
 --checkpoint-dir (train/checkpoint.py; only the params are read, `restored
@@ -129,7 +142,8 @@ DEFAULTS = dict(port=8000, vocab_size=32768, d_model=2048,
                 auth_token="", checkpoint_dir="", watch_checkpoints=0.0,
                 overlap_commit=1, watchdog_timeout=0.0, preempt_cap=2,
                 default_tenant="anonymous", tenant_budget=[],
-                budget_period="daily", chip_hour_rate=1.20)
+                budget_period="daily", chip_hour_rate=1.20, disagg="off",
+                prefill_chunk_tokens=0, drain_eject_grace=0.0)
 
 # /v1/generate fields of the JAX service that this replica refuses (400
 # naming the field) rather than drop, and why.
@@ -195,6 +209,9 @@ SERVING_FAMILIES = {
         lambda m, b, s: m["migration"]["resume_committed_tokens_total"],
     "ktwe_serving_ejected_requests_total":
         lambda m, b, s: m["migration"]["ejected_total"],
+    # First-token handoffs of a prefill-role replica (a subset of ejected).
+    "ktwe_serving_handoffs_total":
+        lambda m, b, s: m["migration"]["handoffs_total"],
     "ktwe_serving_prefill_chunks_total":
         lambda m, b, s: m["lifetime"]["prefill_chunks"],
     "ktwe_serving_request_errors_dispatch_total":
@@ -306,6 +323,23 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--eos-id", type=int, help="-1 = none")
     p.add_argument("--drain-timeout", type=float,
                    help="seconds SIGTERM waits for in-flight requests")
+    p.add_argument("--drain-eject-grace", type=float,
+                   help="seconds after SIGTERM before live requests are "
+                        "force-ejected as migrate frames (the fleet router "
+                        "resumes them elsewhere); 0 = eject ~2s before "
+                        "--drain-timeout")
+    p.add_argument("--disagg", choices=["off", "prefill", "decode"],
+                   help="disaggregated serving role: 'prefill' prefills "
+                        "and lands the first token, then ejects every "
+                        "request as a reason='handoff' migrate frame; "
+                        "'decode' advertises this replica for the "
+                        "continuations; 'off' = a mixed replica. The role "
+                        "rides /v1/metrics")
+    p.add_argument("--prefill-chunk-tokens", type=int,
+                   help="chunked prefill: prompt slices of this many tokens "
+                        "(must divide --max-seq; replaces --prefill-len) "
+                        "and short decode quanta while a prefill backlog "
+                        "exists; 0 disables")
     p.add_argument("--overlap-commit", type=int,
                    help="1 (default): overlapped commit pipeline — "
                         "dispatch chunk N+1 behind chunk N, then fetch "
@@ -377,14 +411,17 @@ class ServeService:
     enables the /v1/admin/reload hot-swap. `meter` (a TenantMeter; None:
     unmetered, a zero `tenancy` block) meters every terminal view and
     gates fresh requests on its budgets; `default_tenant` is metered for
-    requests that name none."""
+    requests that name none. `role` ("mixed", "prefill" or "decode") is
+    advertised in /v1/metrics; the engine enforces the prefill role
+    (handoff_first_token)."""
 
     def __init__(self, engine: serving.ContinuousBatchEngine,
                  drain_timeout: float = 30.0,
                  load_params: Optional[Callable] = None,
                  meter: Optional[TenantMeter] = None,
-                 default_tenant: str = "anonymous"):
+                 default_tenant: str = "anonymous", role: str = "mixed"):
         self._engine = engine
+        self.role = str(role or "mixed")
         self._load_params = load_params
         self._meter = meter
         self.default_tenant = str(default_tenant)
@@ -819,7 +856,7 @@ class ServeService:
         m["slots_busy"] = busy
         m["slots"] = self._engine.num_slots
         m["request_lat_ms"] = self._req_lat.snapshot()
-        m["role"] = "mixed"         # the JAX serve's --disagg off
+        m["role"] = self.role
         m["device"] = str(self._engine.device)
         m["tenancy"] = self._tenancy_metrics()
         return m, busy, self._engine.num_slots
@@ -946,7 +983,20 @@ def make_engine(args, params) -> serving.ContinuousBatchEngine:
         max_prefixes=args.max_prefixes,
         overlap_commit=bool(args.overlap_commit),
         watchdog_timeout=args.watchdog_timeout or None,
-        preempt_cap=args.preempt_cap, device=device)
+        preempt_cap=args.preempt_cap,
+        prefill_chunk_tokens=args.prefill_chunk_tokens,
+        handoff_first_token=args.disagg == "prefill", device=device)
+
+
+def eject_grace_s(drain_timeout: float, drain_eject_grace: float) -> float:
+    """Seconds after SIGTERM at which live requests are ejected: the
+    eject and the migrate frames' flush land inside the drain budget, so
+    up to 2 s of it (at most half) is kept for them, and a grace is never
+    later than that."""
+    flush_reserve = min(2.0, drain_timeout / 2)
+    latest = max(0.5, drain_timeout - flush_reserve)
+    return (min(drain_eject_grace, latest) if drain_eject_grace > 0
+            else latest)
 
 
 def build_meter(args, parser: argparse.ArgumentParser) -> TenantMeter:
@@ -1007,6 +1057,19 @@ def main(argv=None, *, stop: Optional[threading.Event] = None,
         # A pool size without a page size would silently build the dense
         # engine; fail fast instead.
         parser.error("--kv-num-blocks requires --kv-block-len > 0")
+    if args.prefill_chunk_tokens:
+        if args.max_seq % args.prefill_chunk_tokens:
+            parser.error(f"--prefill-chunk-tokens "
+                         f"{args.prefill_chunk_tokens} must divide "
+                         f"--max-seq {args.max_seq} (it is the prefill "
+                         f"slice grid)")
+        if args.disagg == "prefill":
+            # A prefill replica never decodes: there is no decode tail to
+            # protect.
+            parser.error("--prefill-chunk-tokens is the single-replica "
+                         "complement of disaggregation; a --disagg "
+                         "prefill replica has no decode to interleave "
+                         "with")
     auth_token = resolve_auth_token(args.auth_token)
     meter = build_meter(args, parser)
     device = resolve_device(args.device)
@@ -1023,7 +1086,9 @@ def main(argv=None, *, stop: Optional[threading.Event] = None,
     service = ServeService(engine, drain_timeout=args.drain_timeout,
                            load_params=loader if args.checkpoint_dir
                            else None, meter=meter,
-                           default_tenant=args.default_tenant)
+                           default_tenant=args.default_tenant,
+                           role="mixed" if args.disagg == "off"
+                           else args.disagg)
     service.last_swapped_step = ckpt_step
     server = ThreadingHTTPServer(("0.0.0.0", args.port),
                                  make_handler(service, auth_token))
@@ -1059,16 +1124,15 @@ def main(argv=None, *, stop: Optional[threading.Event] = None,
         service.begin_drain()
         print(f"draining: waiting up to {args.drain_timeout}s for in-flight "
               f"requests", flush=True)
-        # The eject and the migrate frames' flush land inside the drain
-        # budget: up to 2 s of it is kept for them.
         flush_reserve = min(2.0, args.drain_timeout / 2)
-        if service.wait_drained(max(0.5, args.drain_timeout - flush_reserve)):
+        if service.wait_drained(eject_grace_s(args.drain_timeout,
+                                              args.drain_eject_grace)):
             time.sleep(0.25)     # let blocking pollers read their results
             print("drain complete", flush=True)
         else:
             n = service.eject_live()
-            print(f"drain deadline; ejected {n} live requests as migrate "
-                  f"frames", flush=True)
+            print(f"drain grace expired; ejected {n} live requests as "
+                  f"migrate frames", flush=True)
             service.wait_drained(max(0.5, flush_reserve - 0.5))
             time.sleep(0.5)      # let streams flush their migrate frames
         service.stop()

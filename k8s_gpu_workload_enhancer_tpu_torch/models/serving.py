@@ -50,6 +50,22 @@ k8s_gpu_workload_enhancer_tpu/models/serving.py.
   first token into the slot's device mirror, so the next chunk decodes
   from it without a sync; its host copy lands at the next commit (the
   TTFT stamp).
+- **The decode quantum** (`prefill_chunk_tokens > 0`). The value replaces
+  prefill_len as the prompt slice, and while a prefill is mid-flight or a
+  request waits, a dispatch decodes only `max(1, decode_chunk // 4)` steps,
+  so the next slice interleaves within a few tokens instead of a whole
+  chunk: the TTFT tail of a storm shrinks on one replica. Slice and chunk
+  lengths move the schedule, not a row's arithmetic, so the tokens are the
+  plain engine's, except where a matmul kernel chosen for fewer rows sums
+  in another order (bf16 on the card: PERF.md). On the card the quantum is
+  a second captured graph, over the first rows of the same static noise
+  and output buffers; each graph is captured on its first use.
+- **The prefill role** (`handoff_first_token`). The engine prefills,
+  lands each request's first token in the step that sampled it and ejects
+  the request at once as a `reason="handoff"` resume state, which the
+  fleet router continues on a decode replica. Such an engine never
+  dispatches a decode chunk (and never captures a graph); a request of one
+  new token finishes normally.
 - **Lifecycle.** `submit` bounds the queue (`QueueFull`), `cancel` evicts
   wherever the request is (a chunk in flight drops its tokens at commit),
   results stay until `release`d or aged out past `keep_results`, `drain`
@@ -108,14 +124,15 @@ threads it through a layer `scan`, the port writes the cache's new rows in
 place: no step copies it, and a prefill commits only the rows it owns.
 
 Not ported here (later slices): speculative decoding, the host-RAM KV
-tier, the int8 KV cache, meshes, the prefill role's first-token handoff,
-the FaultLab sites, phase events, chunked-prefill decode quanta and the
-disaggregated roles. Tenant metering and budgets live in the serve main
-(cost/cost_engine.py); the engine only carries each request's tenant.
+tier, the int8 KV cache, meshes, the FaultLab sites and phase events.
+Tenant metering and budgets live in the serve main (cost/cost_engine.py):
+the engine only carries each request's tenant. The serve main also
+advertises the disaggregated role.
 """
 
 from __future__ import annotations
 
+import functools
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -687,7 +704,8 @@ class _Inflight:
     (slot, request) pairs live at dispatch, when its dispatch began (its
     wall starts there: an eager chunk's launches take host time) and
     ended (the watchdog's deadline runs from there, so a capture never
-    counts), and the chunk's length."""
+    counts), and the chunk's length (decode_chunk, or the quantum): its
+    copy holds exactly that many rows."""
     copy: _HostCopy
     snapshot: List[Tuple[int, ServeRequest]]
     t_start: float
@@ -723,7 +741,10 @@ class ContinuousBatchEngine:
     in-flight batch when its chunk has not landed that long after its
     dispatch. `cuda_graph` (the card only) replays the decode chunk as
     one captured CUDA graph (models/decode_graph.py); False launches it
-    eagerly, which exists to hold the graph to the eager path."""
+    eagerly, which exists to hold the graph to the eager path.
+    `prefill_chunk_tokens > 0` replaces prefill_len and decodes the short
+    quantum under a prefill backlog; `handoff_first_token` is the prefill
+    role (see the module notes)."""
 
     def __init__(self, params: Params, cfg: tf.TransformerConfig, *,
                  num_slots: int = 4, max_seq: Optional[int] = None,
@@ -737,7 +758,8 @@ class ContinuousBatchEngine:
                  overlap_commit: bool = True,
                  watchdog_timeout: Optional[float] = None,
                  cuda_graph: bool = True, preempt_cap: int = 2,
-                 device="cuda"):
+                 prefill_chunk_tokens: int = 0,
+                 handoff_first_token: bool = False, device="cuda"):
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
             raise ValueError(f"params live on {params['embed'].device}, the "
@@ -746,6 +768,12 @@ class ContinuousBatchEngine:
         self.cfg = cfg
         self.num_slots = int(num_slots)
         self.max_seq = int(max_seq or cfg.max_seq)
+        # Chunked prefill: the value replaces prefill_len as the prompt
+        # slice, and a prefill backlog drops decode to the short quantum.
+        self.prefill_chunk_tokens = int(prefill_chunk_tokens or 0)
+        self._chunked_prefill = self.prefill_chunk_tokens > 0
+        if self._chunked_prefill:
+            prefill_len = self.prefill_chunk_tokens
         if self.max_seq % prefill_len:
             # The final (padded) chunk writes a whole prefill_len window at
             # a prefill_len multiple; it must not clamp back over real rows.
@@ -753,6 +781,9 @@ class ContinuousBatchEngine:
                              f"prefill_len {prefill_len}")
         self.prefill_len = int(prefill_len)
         self.decode_chunk = int(decode_chunk)
+        self._decode_quantum = max(1, self.decode_chunk // 4)
+        # The prefill role: one token a request, then a handoff eject.
+        self.handoff_first_token = bool(handoff_first_token)
         self.eos_id = eos_id
         self.temperature = float(temperature)
         self.top_k = int(top_k)
@@ -816,7 +847,8 @@ class ContinuousBatchEngine:
         self._topps_d = torch.full((n,), self.top_p, dtype=torch.float32,
                                    device=dev)
         # Gumbel noise of a chunk's sampled slots, drawn on the host side
-        # of each dispatch; and the chunk's packed (C, B, 2) output.
+        # of each dispatch; and the chunk's packed (C, B, 2) output. A
+        # quantum reads and writes their first rows.
         self._noise_d = torch.zeros((self.decode_chunk, n, cfg.vocab_size),
                                     dtype=torch.float32, device=dev)
         self._out_d = torch.zeros((self.decode_chunk, n, 2),
@@ -840,8 +872,14 @@ class ContinuousBatchEngine:
         # The chunk in flight: fetched by the next step.
         self._inflight: Optional[_Inflight] = None
         self._last_collect_t: Optional[float] = None
-        self._graph = (decode_graph.DecodeGraph(dev)
-                       if cuda_graph and dev.type == "cuda" else None)
+        # One decode graph a chunk length, each captured on its first
+        # dispatch: the full chunk's, and the quantum's when it differs.
+        graphed = cuda_graph and dev.type == "cuda"
+        self._graph = decode_graph.DecodeGraph(dev) if graphed else None
+        self._quantum_graph = (
+            decode_graph.DecodeGraph(dev)
+            if graphed and self._chunked_prefill
+            and self._decode_quantum != self.decode_chunk else None)
         self._queue: deque = deque()
         self._reqs: Dict[int, ServeRequest] = {}
         self._done_order: deque = deque()
@@ -883,6 +921,7 @@ class ContinuousBatchEngine:
         self._resume_committed_total = 0
         self._ejected_total = 0
         self._preempted_total = 0
+        self._handoffs_total = 0
 
     # -- client API --
 
@@ -1195,7 +1234,9 @@ class ContinuousBatchEngine:
         req.resume_state = state
         req.finish_reason = "migrated"
         self._ejected_total += 1
-        if reason == "preempt":
+        if reason == "handoff":
+            self._handoffs_total += 1
+        elif reason == "preempt":
             self._preempted_total += 1
         self._evict(req)
         return state
@@ -1243,7 +1284,7 @@ class ContinuousBatchEngine:
         across the swap finishes but never publishes its blocks.
 
         A graphed engine copies the new values into the leaves it was
-        built with (its decode graph reads their storage), so a caller
+        built with (its decode graphs read their storage), so a caller
         that kept that tree sees the new weights in it; an eager engine
         takes the placed tree. The pause includes the wait for the chunk
         in flight and, graphed, the copy."""
@@ -1268,10 +1309,10 @@ class ContinuousBatchEngine:
                     new_temps[pid] = self._prefill_grid(
                         pfx.tokens, pfx.grid_len, placed)
         # Commit: nothing below can raise (the trees matched). The decode
-        # graph reads the engine's leaves' storage, so a graphed engine
+        # graphs read the engine's leaves' storage, so a graphed engine
         # copies the new values into it, in stream order: the chunk in
         # flight finishes on the old weights, every later chunk reads the
-        # new ones, and the graph stays as captured.
+        # new ones, and both graphs stay as captured.
         if self._graph is not None:
             _copy_leaves(self.params, placed)
         else:
@@ -1339,6 +1380,10 @@ class ContinuousBatchEngine:
         and slot frees land on the same step in either ordering, so both
         give the same tokens.
 
+        On the prefill role the first tokens land right after the
+        admission (a sync: TTFT is that replica's whole job), so the
+        handoff frees every slot before a dispatch would run.
+
         A fault fails only the requests it touched (finish_reason "error",
         counted by cause) and the engine keeps serving: a prefill fault
         the request being prefilled; a dispatch or collect fault, or a
@@ -1348,6 +1393,11 @@ class ContinuousBatchEngine:
             self._admit()
         except Exception as e:                 # noqa: BLE001 — contained
             self._contain_prefill_failure(e)
+        if self.handoff_first_token:
+            try:
+                self._resolve_first_tokens()
+            except Exception as e:             # noqa: BLE001 — contained
+                self._contain_collect_failure(e)
         emitted = 0
         inflight, self._inflight = self._inflight, None
         if inflight is not None and not self.overlap_commit:
@@ -1497,51 +1547,60 @@ class ContinuousBatchEngine:
             if r is not None and r.done:
                 del self._reqs[old]
 
-    def _run_chunk(self) -> None:
-        """One decode chunk over every slot (parked ones included), from
-        the device mirrors into them: the packed tokens into _out_d, the
-        last tokens into _cur_d, the advanced positions into _pos_d. The
-        program the CUDA graph captures, and the eager path."""
+    def _run_chunk(self, steps: int) -> None:
+        """One decode chunk of `steps` steps over every slot (parked ones
+        included), from the device mirrors into them: the packed tokens
+        into the first `steps` rows of _out_d, the last tokens into
+        _cur_d, the advanced positions into _pos_d. The program a CUDA
+        graph captures (one a chunk length), and the eager path."""
         sampling = _Sampling(self._temps_d, self._topps_d, self._noise_d,
                              self.top_k, self.enable_top_p)
         with torch.no_grad():
             if self._paged:
                 packed, cur, pos = _decode_chunk_paged(
                     self.params, self._cache, self._table_d, self._cur_d,
-                    self._pos_d, self.cfg, self.decode_chunk, self._freqs,
+                    self._pos_d, self.cfg, steps, self._freqs,
                     sampling, self.kv_block_len)
             else:
                 packed, cur, pos = _decode_chunk(
                     self.params, self._cache, self._cur_d, self._pos_d,
-                    self.cfg, self.decode_chunk, self._freqs, sampling)
-            self._out_d.copy_(packed)
+                    self.cfg, steps, self._freqs, sampling)
+            self._out_d[:steps].copy_(packed)
             self._cur_d.copy_(cur)
             self._pos_d.copy_(pos)
 
-    def _draw_noise(self) -> None:
-        """The Gumbel noise of every live sampled slot for each step of the
-        next chunk (step n of slot b samples at index _scnt[b] + n); greedy
-        and parked slots draw nothing, and with no sampled slot nothing is
-        drawn at all."""
+    def _draw_noise(self, steps: int) -> None:
+        """The Gumbel noise of every live sampled slot for each of the
+        next chunk's `steps` steps (step n of slot b samples at index
+        _scnt[b] + n); greedy and parked slots draw nothing, and with no
+        sampled slot nothing is drawn at all."""
         for b, req in enumerate(self._slot_req):
             if req is None or self._temps[b] <= 0.0:
                 continue
-            for n in range(self.decode_chunk):
+            for n in range(steps):
                 _draw_gumbel(self._noise_d[n, b], self._skeys[b],
                              int(self._scnt[b]) + n)
 
     def _dispatch_chunk(self) -> _Inflight:
-        """Dispatch one decode chunk (the graph's replay on the card) and
-        start its packed tokens' copy to the host; advance the host
-        sample counters as the chunk advances them."""
+        """Dispatch one decode chunk (its graph's replay on the card) and
+        start the copy of its packed tokens, exactly its rows, to the
+        host; advance the host sample counters as the chunk advances
+        them. With chunked prefill and a backlog (a prompt mid-slice or a
+        request waiting, read after the step's admission) the chunk is
+        the short quantum."""
         n, t_start = self.decode_chunk, time.perf_counter()
-        self._draw_noise()
-        if self._graph is not None:
-            self._graph.replay(self._run_chunk)
+        if self._chunked_prefill and (self._prefill is not None
+                                      or self._queue):
+            n = self._decode_quantum
+        self._draw_noise(n)
+        graph = (self._quantum_graph if n != self.decode_chunk
+                 else self._graph)
+        if graph is not None:
+            graph.replay(functools.partial(self._run_chunk, n))
         else:
-            self._run_chunk()
+            self._run_chunk(n)
         self._out_h.reverse()
-        copy = _HostCopy.start(self._out_d, self._out_h[0])
+        copy = _HostCopy.start(self._out_d[:n], self._out_h[0][:n])
         snapshot = [(b, r) for b, r in enumerate(self._slot_req)
                     if r is not None]
         self._scnt = self._scnt + n
@@ -1613,6 +1672,10 @@ class ContinuousBatchEngine:
                 if self._slot_req[b] is req:
                     self._slot_req[b] = None
                     self._park_slot(b)
+            elif self.handoff_first_token:
+                # The prefill role's share is done: the decode pool
+                # continues the stream from the resume state.
+                self.eject(req.req_id, reason="handoff")
 
     def _collect_wall(self, t_start: float) -> float:
         """A chunk's wall: the time since the previous collect while the
@@ -1982,6 +2045,8 @@ class ContinuousBatchEngine:
     def metrics_snapshot(self) -> Dict[str, Any]:
         """Counters and flat per-request rows; the percentile sorts live in
         aggregate_metrics (callers run them outside any serving lock)."""
+        graphs = [g for g in (self._graph, self._quantum_graph)
+                  if g is not None]
         rows = [{
             "req_id": r.req_id,
             "cancelled": r.cancelled,
@@ -2033,10 +2098,8 @@ class ContinuousBatchEngine:
                 "commit_s_total": self._commit_s_total,
                 "commit_overlapped_s_total": self._commit_overlapped_s_total,
                 "fetch_sync_s_total": self._fetch_sync_s_total,
-                "graphs_captured": (self._graph.captures
-                                    if self._graph is not None else 0),
-                "graph_replays": (self._graph.replays
-                                  if self._graph is not None else 0),
+                "graphs_captured": sum(g.captures for g in graphs),
+                "graph_replays": sum(g.replays for g in graphs),
             },
             # Zero-loss migration (monotonic counters).
             "migration": {
@@ -2044,9 +2107,11 @@ class ContinuousBatchEngine:
                 "resume_committed_tokens_total":
                     self._resume_committed_total,
                 "ejected_total": self._ejected_total,
-                # Batch requests ejected for an interactive head (a
-                # subset of ejected_total).
+                # Batch requests ejected for an interactive head, and
+                # the prefill role's first-token handoffs (subsets of
+                # ejected_total).
                 "preempted_total": self._preempted_total,
+                "handoffs_total": self._handoffs_total,
             },
             # Prompt prefix reuse: hits and tokens saved monotonic,
             # registered instantaneous.

@@ -119,15 +119,26 @@ def _cast_one(action: argparse.Action, key: str, value: Any) -> Any:
             raise ValueError(f"{key}: expected true or false, got "
                              f"{value!r}")
         return value
-    if value is None or action.type is None:
-        return value
-    if action.type in (int, float) and isinstance(value, bool):
-        raise ValueError(f"{key}: expected a number, got {value!r}")
-    try:
-        return action.type(value)
-    except (TypeError, ValueError):
-        raise ValueError(f"{key}: {value!r} is not a valid "
-                         f"{action.type.__name__}") from None
+    if action.choices and isinstance(value, bool):
+        # The reader reads a bare off/on/yes/no as a boolean: it means the
+        # on/off or yes/no choice (`disagg: off` is "off"), as the JAX
+        # knob registry's cast takes it.
+        for truthy, falsy in (("on", "off"), ("yes", "no")):
+            if truthy in action.choices or falsy in action.choices:
+                value = truthy if value else falsy
+                break
+    if value is not None and action.type is not None:
+        if action.type in (int, float) and isinstance(value, bool):
+            raise ValueError(f"{key}: expected a number, got {value!r}")
+        try:
+            value = action.type(value)
+        except (TypeError, ValueError):
+            raise ValueError(f"{key}: {value!r} is not a valid "
+                             f"{action.type.__name__}") from None
+    if action.choices and value not in action.choices:
+        # set_defaults would take it unchecked.
+        raise ValueError(f"{key}: {value!r} not in {list(action.choices)}")
+    return value
 
 
 def parse_with_config(parser: argparse.ArgumentParser, component: str,

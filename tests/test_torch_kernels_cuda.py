@@ -1238,3 +1238,59 @@ def test_graphed_paged_preemption_equals_the_eager_engine(dev, temperature):
                     priority="batch", preempted=st["preempted"])
     res.run()
     assert res.result(r2).tokens == whole.result(rid).tokens
+
+
+@pytest.mark.parametrize("kv_block_len", [0, 16], ids=["dense", "paged"])
+def test_graphed_chunked_engine_equals_the_eager_plain_engine(dev,
+                                                              kv_block_len):
+    """prefill_chunk_tokens 32 on the graphed, pipelined engine: the third
+    request waits for a slot, so the backlog drops decode to the quantum
+    (decode_chunk 8 // 4 = 2 steps, a second captured graph) while the
+    prompts prefill in 32-token slices at offsets that
+    are no multiple of the 64-row tiles; the tokens and logprobs equal the
+    eager, serialized plain engine's (128-token slices, full chunks) bit
+    for bit. Two captures, each length once; the launch counts follow the
+    per-step formula through both graphs' replays."""
+    cfg, (params, _) = _serving_model(dev)
+    eng = _graph_engine(dev, params, cfg, kv_block_len,
+                        prefill_chunk_tokens=32, watchdog_timeout=30)
+    kernels.reset_launches()
+    got = _graph_workload(eng)
+    torch.cuda.synchronize()
+    m = eng.metrics()
+    assert dict(kernels.launches) == _engine_launches(
+        cfg, m["lifetime"], kv_block_len > 0)
+    assert m["hotpath"]["graphs_captured"] == 2
+    assert eng._graph.captures == eng._quantum_graph.captures == 1
+    assert m["resilience"]["watchdog_trips"] == 0
+    ref = _graph_engine(dev, params, cfg, kv_block_len, cuda_graph=False,
+                        overlap_commit=False)
+    assert got == _graph_workload(ref)
+
+
+def test_prefill_role_engine_never_captures(dev):
+    """A prefill-role engine on the card hands every request off after its
+    first token (the eager plain engine's first token and logprob) and
+    never dispatches a decode chunk, so it never captures a graph."""
+    cfg, (params, _) = _serving_model(dev)
+    eng = _graph_engine(dev, params, cfg, 16, handoff_first_token=True)
+    ref = _graph_engine(dev, params, cfg, 16, cuda_graph=False,
+                        overlap_commit=False)
+    import numpy as np
+    prompts = np.random.default_rng(4).integers(0, 1024, (4, 40)).tolist()
+    rids = [eng.submit(p, 24) for p in prompts]
+    eng.run()
+    want = [ref.submit(p, 1) for p in prompts]
+    ref.run()
+    for r, w in zip(rids, want):
+        req = eng.result(r)
+        assert req.finish_reason == "migrated"
+        assert req.resume_state["reason"] == "handoff"
+        assert (req.tokens, req.logprobs) == (ref.result(w).tokens,
+                                              ref.result(w).logprobs)
+    m = eng.metrics()
+    assert m["lifetime"]["decode_steps"] == 0
+    assert m["hotpath"]["graphs_captured"] == 0
+    assert m["migration"]["handoffs_total"] == 4
+    kv = m["kv_cache"]
+    assert kv["blocks_free"] + kv["blocks_cached"] == kv["blocks_total"]

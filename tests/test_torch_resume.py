@@ -92,7 +92,8 @@ def test_greedy_resume_bitwise_identical(model, paged):
     assert sm["requests_completed"] == 0
     assert dm["migration"] == {"resumed_total": 1,
                                "resume_committed_tokens_total": k,
-                               "ejected_total": 0, "preempted_total": 0}
+                               "ejected_total": 0, "preempted_total": 0,
+                               "handoffs_total": 0}
     # Only the tokens generated here count on the resuming replica.
     assert dm["lifetime"]["tokens"] == dm["tokens"] == N - k
     assert dm["lifetime"]["completed"] == 1

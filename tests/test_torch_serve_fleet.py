@@ -61,7 +61,9 @@ class Replica:
 
     def __init__(self, extra=(), parked=False):
         args = serve.build_parser().parse_args(ARGS + list(extra))
-        self.svc = serve.ServeService(serve.build_engine(args))
+        self.svc = serve.ServeService(
+            serve.build_engine(args),
+            role="mixed" if args.disagg == "off" else args.disagg)
         self.engine = self.svc._engine
         if parked:
             self.svc._stop.set()
