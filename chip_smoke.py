@@ -107,7 +107,22 @@ inits in bf16:
      metrics routes; every splice equal to a mixed replica's stream in
      f32, counted in bf16) and sends SIGTERM to a serve main in its own
      process with a 2 s eject grace (the migrate frame within 3.5 s, exit
-     0). Every phase
+     0). The int8kv phase runs both engines with the int8 KV cache
+     (kv_cache_int8) on the paged phase's prompts, graphed and pipelined,
+     greedy and sampled, held bit for bit to eager engines: int8 K/V and
+     f32 scales at the engines' shapes, the paged decode kernel never
+     launched (the JAX engine's paged kernel is off under int8), no page
+     leaked, prefill logits within 2 % of the bf16-KV range; in f32 the
+     dense and paged int8 engines and the plain versions' engine give the
+     same tokens, and an ejected request and a preempted batch request
+     resume to their uninterrupted tokens; one FaultLab fault at each of
+     the engine's five sites on the graphed paged engine fails exactly the
+     requests of its containment class (the JAX engine's), the rest and
+     later requests keep the unfaulted tokens; a serve main started with
+     KTWE_FAULT_* counts its injections in /v1/metrics and on its metrics
+     port; it prints the K/V bytes and ms a decode step, int8 against bf16
+     KV at max_seq 256 and 4096, and the bf16 streams they agree on. Every
+     phase
      must launch exactly the kernels its prefill chunks, decode steps,
      train steps and microbatches need (one embedding gather a chunk, step
      and microbatch; the flagship's relayout pair 2L times each a
@@ -242,6 +257,13 @@ DISAGG_STREAMS, DISAGG_PROMPT, DISAGG_NEW, DISAGG_KEY = 8, 64, 64, 31
 GRACE_S, GRACE_DRAIN_TIMEOUT, GRACE_SLACK_S = 2.0, 30.0, 1.5
 GRACE_MAX_SEQ, GRACE_NEW = 8192, 8000
 MIGRATE_REQUESTS, MIGRATE_PROMPT, MIGRATE_NEW, MIGRATE_AFTER = 4, 32, 128, 8
+# The int8kv phase: the speed comparison's long cache (8 dense slots of 4096
+# rows hold 0.81 GB of bf16 K/V against 0.84 GB of weights) and new tokens
+# a request; FaultLab's one fault a site (the occurrence that fires).
+INT8_LONG_SEQ, INT8_SPEED_NEW = 4096, 64
+FAULT_TARGETS = {"engine.dispatch": 2, "engine.collect": 2,
+                 "engine.commit": 3, "engine.paged_admit": 1,
+                 "engine.prefill": 1}
 SAMPLED_TEMPERATURE, SAMPLED_KEY = 0.8, [7, 11]
 FLUSH_PROMPT, CANCEL_NEW = 15, 240
 
@@ -3862,6 +3884,403 @@ def run_disagg(dev, mods, cfg, params) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 3d: the int8 KV cache on both engines, and the engine's FaultLab
+# sites
+# ---------------------------------------------------------------------------
+
+
+def kv_bytes(cache) -> int:
+    """Device bytes of a KV cache or pool, scales included."""
+    return sum(t.numel() * t.element_size() for t in cache.leaves())
+
+
+def pages_back(eng) -> bool:
+    kv = eng.metrics()["kv_cache"]
+    return kv["blocks_free"] + kv["blocks_cached"] == kv["blocks_total"]
+
+
+def int8_storage(eng, cfg, what: str, gates: list) -> dict:
+    """K/V int8 and their scales f32, at (L, rows..., KH, D) and (L,
+    rows..., KH): the dense cache's rows are (slots, max_seq), the pool's
+    (blocks, block_len)."""
+    c = eng._cache
+    lead = (cfg.n_layers,) + tuple(c.k.shape[1:3])
+    want = lead + (cfg.n_kv_heads, cfg.head_dim)
+    ok = (c.quantized and c.k.dtype == c.v.dtype == torch.int8
+          and c.kscale.dtype == c.vscale.dtype == torch.float32
+          and tuple(c.k.shape) == tuple(c.v.shape) == want
+          and tuple(c.kscale.shape) == tuple(c.vscale.shape) == want[:-1])
+    if not ok:
+        gates.append(f"{what}: KV storage {[(str(t.dtype), tuple(t.shape)) for t in c.leaves()]}, want int8 {want} and f32 {want[:-1]}")
+    return dict(k=[str(c.k.dtype), list(c.k.shape)],
+                kscale=[str(c.kscale.dtype), list(c.kscale.shape)])
+
+
+@contextlib.contextmanager
+def fault_watch(faultlab, eng):
+    """Around faultlab.site: when a site injects, record the requests its
+    containment class must fail, read from the engine at that moment (the
+    JAX engine's classes): a dispatch or collect fault every live request,
+    the slots' and the first tokens on their way; a prefill fault the
+    request being prefilled; a paged admission fault none (its request
+    stays queued); a commit fault the one request whose commit crossed the
+    site (the request the calling commit loop holds at that crossing)."""
+    seen = {}
+    real = faultlab.site
+
+    def site(name):
+        try:
+            real(name)
+        except faultlab.InjectedFault:
+            if name in ("engine.dispatch", "engine.collect"):
+                live = {r.req_id for r in eng._slot_req if r is not None}
+                live |= {p.req.req_id for p in eng._pending_first
+                         if not p.req.done}
+            elif name == "engine.prefill":
+                live = {eng._prefill.req.req_id}
+            elif name == "engine.commit":
+                caller = sys._getframe(1)
+                req = caller.f_locals.get("req")
+                live = ({req.req_id} if req is not None
+                        and caller.f_code.co_name == "_commit_chunk"
+                        else {None})
+            else:
+                live = set()
+            seen[name] = live
+            raise
+    faultlab.site = site
+    try:
+        yield seen
+    finally:
+        faultlab.site = real
+
+
+def run_faults(dev, mods, cfg8, params, prompts, want, later, later_want,
+               gates) -> dict:
+    """One TargetedPlan a site on a fresh graphed paged int8 engine: the
+    9 prompts at once, then `later` ones. The requests the fault's class
+    fails are failed, by the site's cause, and no other; every other
+    request, and every later one, has the unfaulted engine's tokens; no
+    page is leaked."""
+    from k8s_gpu_workload_enhancer_tpu_torch import faultlab
+    serving = mods[7]
+    cause = {"engine.dispatch": "dispatch", "engine.collect": "collect",
+             "engine.commit": "commit", "engine.prefill": "prefill",
+             "engine.paged_admit": "prefill"}
+    out = {}
+    for site, occ in FAULT_TARGETS.items():
+        eng = new_engine(serving, params, cfg8, dev,
+                         kv_block_len=KV_BLOCK_LEN,
+                         watchdog_timeout=WATCHDOG_S)
+        faultlab.activate(faultlab.TargetedPlan({site: [occ]}))
+        try:
+            with fault_watch(faultlab, eng) as seen:
+                first = transcripts(eng, prompts)
+                after = transcripts(eng, later)
+        finally:
+            injected = faultlab.injections_total()
+            faultlab.deactivate()
+        errored = {r.req_id for r in first if r.finish_reason == "error"}
+        errors = eng.metrics()["resilience"]["errors"]
+        expect = seen.get(site)
+        if injected != 1 or expect is None:
+            gates.append(f"faults: {site}#{occ} injected {injected} times")
+            continue
+        if errored != expect:
+            gates.append(f"faults: {site} failed requests {sorted(errored)}"
+                         f", its class fails {sorted(expect)}")
+        if {k: v for k, v in errors.items() if v} != {cause[site]: 1}:
+            gates.append(f"faults: {site} counted errors {errors}")
+        for r, w in zip(first, want):
+            if r.req_id not in errored and (r.finish_reason != "length"
+                                            or r.tokens != w):
+                gates.append(f"faults: {site}: untouched request "
+                             f"{r.req_id} ended {r.finish_reason}, tokens "
+                             f"diverge at {divergence(r.tokens, w)}")
+        if [r.tokens for r in after] != later_want or any(
+                r.finish_reason != "length" for r in after):
+            gates.append(f"faults: {site}: later requests differ from the "
+                         f"unfaulted engine's")
+        if not pages_back(eng):
+            gates.append(f"faults: {site}: pages leaked")
+        if eng.metrics()["hotpath"]["graphs_captured"] != 1:
+            gates.append(f"faults: {site}: the engine recaptured its graph")
+        out[site] = dict(occurrence=occ, failed=sorted(errored),
+                         class_fails=sorted(expect), errors=cause[site])
+        del eng
+    return out
+
+
+def run_fault_serve(gates: list) -> dict:
+    """A paged int8-KV serve main started with KTWE_FAULT_SEED=5,
+    KTWE_FAULT_RATE=1.0, KTWE_FAULT_SITES=engine.commit: every commit
+    fails, so each of two requests answers its error view, and
+    /v1/metrics' faultlab block and ktwe_fault_injections_total on the
+    metrics port count both injections."""
+    from k8s_gpu_workload_enhancer_tpu_torch import faultlab
+    from k8s_gpu_workload_enhancer_tpu_torch.cmd import serve
+    env = {"KTWE_FAULT_SEED": "5", "KTWE_FAULT_RATE": "1.0",
+           "KTWE_FAULT_SITES": "engine.commit"}
+    os.environ.update(env)
+    stop, got_port, ready, rc = (threading.Event(), threading.Event(), {},
+                                 {})
+    mport = free_port()
+    argv = ["--device", "cuda", "--port", "0", "--int8-kv",
+            "--kv-block-len", str(KV_BLOCK_LEN), "--metrics-port",
+            str(mport)]
+
+    def on_ready(port):
+        ready["port"] = port
+        got_port.set()
+    th = threading.Thread(target=lambda: rc.update(rc=serve.main(
+        argv, stop=stop, on_ready=on_ready)), daemon=True)
+    th.start()
+    views, block, series = [], {}, {}
+    try:
+        if not got_port.wait(600):
+            fail("the FaultLab serve main did not come up")
+        port = ready["port"]
+        rng = np.random.default_rng(9)
+        for _ in range(2):
+            with post(port, {"prompt": rng.integers(
+                    0, SERVE_DIMS["vocab_size"], 24).tolist(),
+                    "maxNewTokens": 8, "timeoutSeconds": 300}) as resp:
+                views.append(json.loads(resp.read()))
+        block = get_metrics(port)["faultlab"]
+        series = scrape(mport, serve.SERVING_FAMILIES)
+    finally:
+        stop.set()
+        th.join(120)
+        faultlab.deactivate()
+        for k in env:
+            os.environ.pop(k, None)
+    if th.is_alive() or rc.get("rc") != 0:
+        gates.append(f"the FaultLab serve main did not exit 0: {rc}")
+    if [v.get("status") for v in views] != ["error", "error"] or not all(
+            "site=engine.commit" in v.get("error", "") for v in views):
+        gates.append(f"FaultLab serve views: {views}")
+    if block.get("injections_by_site") != {"engine.commit": 2} or \
+            series.get("ktwe_fault_injections_total") != 2.0:
+        gates.append(f"FaultLab serve counters: {block}, {series}")
+    return dict(views=[v.get("status") for v in views], faultlab=block,
+                ktwe_fault_injections_total=series.get(
+                    "ktwe_fault_injections_total"))
+
+
+def int8_speed(dev, serving, params, cfg, card) -> dict:
+    """Decode ms a token (the engine's p50) and tokens/s of the graphed
+    dense engine, int8 against bf16 KV, at max_seq 256 and 4096: 8
+    prompts of 128 tokens, INT8_SPEED_NEW new each; the KV bytes beside
+    them. Printed, not gated."""
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab_size, PROMPT_LEN).tolist()
+               for _ in range(NUM_SLOTS)]
+    out = {}
+    for max_seq in (cfg.max_seq, INT8_LONG_SEQ):
+        for int8 in (False, True):
+            c = dataclasses.replace(cfg, max_seq=max_seq,
+                                    kv_cache_int8=int8)
+            eng = new_engine(serving, params, c, dev)
+            warm = eng.submit(prompts[0], 16)       # the capture
+            eng.run()
+            eng.release(warm)
+            before = eng.metrics_snapshot()["lifetime"]
+            t0 = time.perf_counter()
+            rids = [eng.submit(p, INT8_SPEED_NEW) for p in prompts]
+            eng.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            reqs = [eng.result(r) for r in rids]
+            steps = (eng.metrics_snapshot()["lifetime"]["decode_steps"]
+                     - before["decode_steps"])
+            out[f"{'int8' if int8 else 'bf16'}_{max_seq}"] = dict(
+                card=card, kv_bytes=kv_bytes(eng._cache),
+                decode_ms_per_token_p50=decode_p50_ms(reqs),
+                tokens_per_s=sum(len(r.tokens) for r in reqs) / wall,
+                decode_steps=steps, wall_s=wall)
+            del eng
+            torch.cuda.empty_cache()
+    return out
+
+
+def run_int8kv(dev, mods, cfg, params, card) -> dict:
+    """The int8kv phase at the serve defaults, both engines with
+    kv_cache_int8, graphed and pipelined, with the launch counters set to
+    0 just before its bf16 engine runs and read just after. Gates: int8
+    storage; graphed == eager bit for bit, greedy and sampled; every
+    prefill chunk and decode step launching the gather, the norms, RoPE
+    and flash as expected_launches counts them (dense decode attention for
+    both engines) and the paged decode kernel never (the JAX engine's
+    paged kernel is off under int8); no page leaked; prefill logits
+    within 2 % of the bf16-KV logits' range; in f32, int8 dense == int8
+    paged == the plain versions' engine, and an eject/resume and a
+    preemption splice exactly; FaultLab's five engine sites on the graphed
+    paged engine and a serve main started with KTWE_FAULT_*. Printed: the
+    pools' bytes, int8 against bf16 KV at max_seq 256 and 4096, and how
+    many bf16 greedy streams int8 and bf16 KV agree on."""
+    kernels, rms, rope, flash, paged, tf, decode, serving, serve = mods
+    gates = []
+    cfg8 = dataclasses.replace(cfg, kv_cache_int8=True)
+    _, prompts = paged_requests(cfg.vocab_size)
+    rng = np.random.default_rng(6)
+    later = [rng.integers(0, cfg.vocab_size, PROMPT_LEN).tolist()
+             for _ in range(4)]
+    kinds = (("dense", 0), ("paged", KV_BLOCK_LEN))
+    life = {"prefill_chunks": 0, "decode_steps": 0}
+    graphed, storage, hot, bytes_kv = {}, {}, {}, {}
+    kernels.reset_launches()
+    with spying([(serving, "paged_decode_attention")]) as spied:
+        for kind, bl in kinds:
+            eng = new_engine(serving, params, cfg8, dev, kv_block_len=bl,
+                             watchdog_timeout=WATCHDOG_S)
+            greedy = transcripts(eng, prompts)
+            sampled = transcripts(eng, prompts, SAMPLED_T)
+            hot[kind] = check_graphed(eng, f"int8 {kind} engine")
+            for k in life:
+                life[k] += eng.metrics()["lifetime"][k]
+            storage[kind] = int8_storage(eng, cfg, f"int8 {kind}", gates)
+            bytes_kv[kind] = kv_bytes(eng._cache)
+            if bl and not pages_back(eng):
+                gates.append("int8 paged engine leaked pages")
+            graphed[kind] = (greedy, sampled)
+            del eng
+        torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    want = expected_launches(cfg.n_layers, life)
+    if launches != want:
+        gates.append(f"int8kv launches {launches}, its chunks and steps "
+                     f"need {want}")
+    if launches.get("paged_decode", 0) or spied["paged_decode_attention"]:
+        gates.append(f"int8 KV reached the paged decode kernel: "
+                     f"{launches.get('paged_decode', 0)} launches, "
+                     f"{spied['paged_decode_attention']} calls")
+    for kind, bl in kinds:
+        ref = new_engine(serving, params, cfg8, dev, kv_block_len=bl,
+                         cuda_graph=False, overlap_commit=False)
+        hold_to_eager(graphed[kind][0], transcripts(ref, prompts),
+                      f"int8 {kind} engine (greedy)")
+        hold_to_eager(graphed[kind][1], transcripts(ref, prompts,
+                                                    SAMPLED_T),
+                      f"int8 {kind} engine (sampled)")
+        if bl:
+            later_want = [r.tokens for r in transcripts(ref, later)]
+        del ref
+    bf16 = new_engine(serving, params, cfg, dev)
+    bytes_bf16 = kv_bytes(bf16._cache)
+    bf16_tokens = [r.tokens for r in transcripts(bf16, prompts)]
+    del bf16
+    agree = sum(r.tokens == w for r, w in zip(graphed["dense"][0],
+                                               bf16_tokens))
+    first8, _ = prefill_logits(decode, params, cfg8, prompts[0], dev)
+    first16, _ = prefill_logits(decode, params, cfg, prompts[0], dev)
+    logit_err = float((first8 - first16).abs().max())
+    logit_range = float(first16.abs().max())
+    if not logit_err < 0.02 * logit_range:
+        gates.append(f"int8 KV prefill logits off by {logit_err}, 2 % of "
+                     f"the bf16-KV range is {0.02 * logit_range}")
+    faults = run_faults(dev, mods, cfg8, params, prompts,
+                        [r.tokens for r in graphed["paged"][0]], later,
+                        later_want, gates)
+    fault_serve = run_fault_serve(gates)
+    f32 = run_int8kv_f32(dev, mods, cfg8, params, prompts, gates)
+    speed = int8_speed(dev, serving, params, cfg, card)
+    return dict(
+        config=dict(SERVE_DIMS, dtype="bfloat16", kv_cache_int8=True,
+                    num_slots=NUM_SLOTS, prefill_len=PREFILL_LEN,
+                    decode_chunk=DECODE_CHUNK, kv_block_len=KV_BLOCK_LEN),
+        storage=storage, kv_bytes=dict(int8_dense=bytes_kv["dense"],
+                                       int8_paged=bytes_kv["paged"],
+                                       bf16_dense=bytes_bf16),
+        hotpath=hot, graphed_equals_eager=dict(
+            greedy=len(prompts) * 2, sampled=len(prompts) * 2),
+        bf16_streams_int8_equal_bf16_kv=[agree, len(prompts)],
+        prefill_logit_err=logit_err, prefill_logit_range=logit_range,
+        faults=faults, fault_serve=fault_serve, f32=f32, speed=speed,
+        spied_calls=spied, launches=launches,
+        prefill_chunks=life["prefill_chunks"],
+        decode_steps=life["decode_steps"], gates_failed=gates)
+
+
+def run_int8kv_f32(dev, mods, cfg8, params, prompts, gates) -> dict:
+    """The f32 gates under int8 KV: dense == paged == the plain versions'
+    dense engine, token for token; a request ejected mid-stream from the
+    dense engine resumes on another to the uninterrupted tokens; on the
+    paged engine the newest of 8 decoding batch requests, preempted for an
+    interactive one, resumes to its uninterrupted tokens, and the
+    interactive request gets its own; no page leaked."""
+    kernels, rms, rope, flash, paged, tf, decode, serving, serve = mods
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg32 = dataclasses.replace(cfg8, dtype=torch.float32)
+    p32 = cast_params(params, torch.float32)
+    dense = transcripts(new_engine(serving, p32, cfg32, dev), prompts)
+    paged_eng = new_engine(serving, p32, cfg32, dev,
+                           kv_block_len=KV_BLOCK_LEN)
+    paged32 = transcripts(paged_eng, prompts)
+    with plain_versions(rms, rope, flash):
+        plain = transcripts(new_engine(serving, p32, cfg32, dev,
+                                       cuda_graph=False), prompts)
+    want = [r.tokens for r in dense]
+    for what, got in (("paged", paged32), ("plain versions", plain)):
+        if [r.tokens for r in got] != want:
+            gates.append(f"f32 int8 KV: the {what} engine's tokens differ "
+                         f"from the dense engine's (requests "
+                         f"{[i for i, r in enumerate(got) if r.tokens != want[i]]})")
+    if not pages_back(paged_eng):
+        gates.append("f32 int8 paged engine leaked pages")
+    lp = max(float(np.max(np.abs(np.subtract(a.logprobs, b.logprobs))))
+             for a, b in zip(plain, dense))
+    # Eject one decoding request of 8 and resume it on another engine.
+    src = new_engine(serving, p32, cfg32, dev)
+    rids = [src.submit(p, NEW_TOKENS) for p in prompts[:NUM_SLOTS]]
+    for _ in range(1000):
+        if len(src.result(rids[0]).tokens) >= MIGRATE_AFTER:
+            break
+        src.step()
+    st = src.eject(rids[0])
+    src.run()
+    if st is None or not 0 < len(st["committed"]) < NEW_TOKENS:
+        gates.append(f"f32 int8 KV: the eject gave {st}")
+    else:
+        res = resume_state_of(new_engine(serving, p32, cfg32, dev), st)
+        if res.tokens != want[0]:
+            gates.append(f"f32 int8 KV: the resumed stream diverges at "
+                         f"{divergence(res.tokens, want[0])}")
+    # Preempt the newest of 8 batch requests for an interactive one.
+    eng = new_engine(serving, p32, cfg32, dev, kv_block_len=KV_BLOCK_LEN)
+    bids = [eng.submit(p, NEW_TOKENS, priority="batch")
+            for p in prompts[:NUM_SLOTS]]
+    for _ in range(1000):
+        if all(len(eng.result(r).tokens) >= MIGRATE_AFTER for r in bids):
+            break
+        eng.step()
+    iid = eng.submit(prompts[NUM_SLOTS], NEW_TOKENS)
+    eng.run()
+    victims = [r for r in bids if eng.result(r).finish_reason == "migrated"]
+    spliced = None
+    if victims != [bids[-1]] or eng.result(iid).tokens != want[NUM_SLOTS]:
+        gates.append(f"f32 int8 KV: preemption victims {victims}, "
+                     f"interactive tokens equal "
+                     f"{eng.result(iid).tokens == want[NUM_SLOTS]}")
+    else:
+        st = eng.result(bids[-1]).resume_state
+        res = resume_state_of(new_engine(serving, p32, cfg32, dev,
+                                         kv_block_len=KV_BLOCK_LEN), st)
+        spliced = len(st["committed"])
+        if res.tokens != want[NUM_SLOTS - 1] or st["reason"] != "preempt":
+            gates.append(f"f32 int8 KV: the preempted stream diverges at "
+                         f"{divergence(res.tokens, want[NUM_SLOTS - 1])}")
+    if not pages_back(eng):
+        gates.append("f32 int8 preemption engine leaked pages")
+    del p32
+    torch.cuda.empty_cache()
+    return dict(dense_equals_paged_equals_plain=len(prompts),
+                plain_logprob_max_abs_diff=lp,
+                ejected_committed=len(st["committed"]) if st else None,
+                preempted_committed=spliced)
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: where a step's device time goes
 # ---------------------------------------------------------------------------
 
@@ -4227,6 +4646,11 @@ def main() -> int:
           flush=True)
     for gate in results["disagg"]["gates_failed"]:
         fail(gate)
+    results["int8kv"] = run_int8kv(dev, mods, cfg, params, card)
+    print(json.dumps({"int8kv": dict(card=card, **results["int8kv"])}),
+          flush=True)
+    for gate in results["int8kv"]["gates_failed"]:
+        fail(gate)
     del params
     torch.cuda.empty_cache()
     results["paged_serve"] = run_serve(serve, kernels, paged=True)
@@ -4286,7 +4710,7 @@ def main() -> int:
     print(json.dumps({"profile": results["profile"]}), flush=True)
 
     serving_phases = ("engine", "serve", "paged_engine", "paged_serve",
-                      "tenancy", "disagg", "checkpoint_serve",
+                      "tenancy", "disagg", "int8kv", "checkpoint_serve",
                       "checkpoint_paged_serve", "fleet", "fleet_paged")
     train_phases = ("train", "train_stash")
     paged_phases = ("paged_engine", "paged_serve", "tenancy", "disagg",

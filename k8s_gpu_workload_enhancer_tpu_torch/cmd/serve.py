@@ -68,7 +68,14 @@ reports the pool in its `kv_cache` block. --metrics-port P serves the
 --overlap-commit 0 commits each decode chunk before the next one is
 dispatched (bisection; the tokens are the same); --watchdog-timeout S fails
 the in-flight batch when a chunk has not landed S seconds after its
-dispatch.
+dispatch. --int8-kv stores the KV cache as int8 with per-row f32 scales
+(models/decode.py), on both engines.
+KTWE_FAULT_SEED=N (with KTWE_FAULT_RATE and a comma-separated
+KTWE_FAULT_SITES) activates a FaultLab plan at start (faultlab/; printed as
+`[faultlab] ACTIVE: ...`); the engine's sites then inject faults, which
+fail the requests their containment class fails, and /v1/metrics reports
+them in its `faultlab` block (`ktwe_fault_injections_total` on
+--metrics-port).
 --config ktwe.yaml takes defaults from the file's `serve:` section (keys
 are flag names with underscores); flags on the command line win, and a key
 this main has no flag for is an error.
@@ -117,6 +124,7 @@ from typing import Callable, Optional
 
 import torch
 
+from .. import faultlab
 from ..cost.cost_engine import (BudgetPeriod, BudgetScope, CostEngine,
                                 EnforcementPolicy, TenantMeter)
 from ..models import serving
@@ -134,7 +142,7 @@ from ..utils.stats import LatencyWindow
 # (autopilot/knobs.py, "serve" component), copied.
 DEFAULTS = dict(port=8000, vocab_size=32768, d_model=2048,
                 n_layers=3, n_heads=4, n_kv_heads=0, d_ff=16384, max_seq=256,
-                int8=False, num_slots=8, prefill_len=128, decode_chunk=8,
+                int8=False, int8_kv=False, num_slots=8, prefill_len=128, decode_chunk=8,
                 max_queue=64, prefill_interleave=2, eos_id=-1,
                 drain_timeout=30.0, temperature=0.0, top_k=0, top_p=1.0,
                 enable_top_p=False, kv_block_len=0, kv_num_blocks=0,
@@ -274,6 +282,10 @@ SERVING_FAMILIES = {
         lambda m, b, s: m["queued_batch"],
     "ktwe_serving_preemptions_total":
         lambda m, b, s: m["migration"]["preempted_total"],
+    # FaultLab injections this process has taken (all sites; the per-site
+    # split is the /v1/metrics `faultlab` block). Zero without a plan.
+    "ktwe_fault_injections_total":
+        lambda m, b, s: faultlab.injections_total(),
 }
 
 
@@ -296,6 +308,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "(live engine, bounded pause; 0 disables)")
     p.add_argument("--int8", action="store_true",
                    help="weight-only int8 quantization (ops/quant.py)")
+    p.add_argument("--int8-kv", action="store_true",
+                   help="int8 KV cache with per-row f32 scales "
+                        "(models/decode.py kv_quantize)")
     p.add_argument("--num-slots", type=int)
     p.add_argument("--kv-block-len", type=int,
                    help="paged KV cache page size in tokens (must "
@@ -859,6 +874,9 @@ class ServeService:
         m["role"] = self.role
         m["device"] = str(self._engine.device)
         m["tenancy"] = self._tenancy_metrics()
+        # FaultLab's per-site injections (the Prometheus family is the
+        # total).
+        m["faultlab"] = faultlab.snapshot()
         return m, busy, self._engine.num_slots
 
     def _tenancy_metrics(self) -> dict:
@@ -954,7 +972,7 @@ def serve_config(args, device: torch.device) -> tf.TransformerConfig:
         vocab_size=args.vocab_size, d_model=args.d_model,
         n_layers=args.n_layers, n_heads=args.n_heads,
         n_kv_heads=args.n_kv_heads or args.n_heads, d_ff=args.d_ff,
-        max_seq=args.max_seq,
+        max_seq=args.max_seq, kv_cache_int8=args.int8_kv,
         dtype=torch.bfloat16 if device.type == "cuda" else torch.float32)
 
 
@@ -1070,6 +1088,12 @@ def main(argv=None, *, stop: Optional[threading.Event] = None,
                          "complement of disaggregation; a --disagg "
                          "prefill replica has no decode to interleave "
                          "with")
+    # FaultLab's replay entry point: KTWE_FAULT_SEED=N activates the plan
+    # a failing run printed (inert without it).
+    fault_plan = faultlab.from_env()
+    if fault_plan is not None:
+        faultlab.activate(fault_plan)
+        print(f"[faultlab] ACTIVE: {fault_plan!r}", flush=True)
     auth_token = resolve_auth_token(args.auth_token)
     meter = build_meter(args, parser)
     device = resolve_device(args.device)

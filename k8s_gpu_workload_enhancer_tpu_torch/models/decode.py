@@ -14,7 +14,15 @@ the sequence axes cut into (num_blocks, block_len) pages; the paged engine
 (models/serving.py, `kv_block_len > 0`) addresses it through per-slot
 block tables.
 
-Not ported here: the int8 KV cache and mesh sharding.
+With `cfg.kv_cache_int8` the cache holds int8 K/V and per-row (token,
+kv-head) f32 scales, quantized on write (`kv_quantize`, symmetric amax/127
+over the head dim, the JAX package's recipe). `forward_cached` attends over
+the layer dequantized (`kv_dequantize`), the rows it has just written
+included, so prefill still runs the flash kernel; the serving engine's
+decode folds the scales into its logits and probabilities instead
+(models/serving.py).
+
+Not ported here: mesh sharding.
 """
 
 from __future__ import annotations
@@ -35,22 +43,63 @@ Params = tf.Params
 
 @dataclass
 class KVCache:
-    """k, v: (L, B, S_max, KH, D) in the activation dtype; a paged pool
-    (init_paged_pool) holds (L, NB, BL, KH, D) pages instead."""
+    """k, v: (L, B, S_max, KH, D) in the activation dtype, or int8 under
+    `kv_cache_int8` with per-row f32 scales kscale/vscale (L, B, S_max, KH)
+    (None otherwise); a paged pool (init_paged_pool) holds (L, NB, BL, KH,
+    D) pages and (L, NB, BL, KH) scales instead."""
     k: torch.Tensor
     v: torch.Tensor
+    kscale: Optional[torch.Tensor] = None
+    vscale: Optional[torch.Tensor] = None
 
     @property
     def max_seq(self) -> int:
         return self.k.shape[2]
 
+    @property
+    def quantized(self) -> bool:
+        return self.kscale is not None
+
+    def leaves(self) -> Tuple[torch.Tensor, ...]:
+        """k, v and, quantized, their scales: every tensor that moves
+        with a KV row."""
+        if self.quantized:
+            return self.k, self.v, self.kscale, self.vscale
+        return self.k, self.v
+
+
+def kv_quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(..., D) rows -> (int8 (..., D), f32 scale (...)): symmetric per
+    row, scale = max(amax, 1e-12) / 127 over the head dim, round half to
+    even, clip to +-127 (JAX decode.kv_quantize)."""
+    x32 = x.float()
+    scale = torch.clamp_min(x32.abs().amax(dim=-1), 1e-12) / 127.0
+    q8 = torch.clamp(torch.round(x32 / scale[..., None]), -127, 127)
+    return q8.to(torch.int8), scale
+
+
+def kv_dequantize(q8: torch.Tensor, scale: torch.Tensor,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """int8 rows and their per-row scale -> `dtype` rows, materialized."""
+    return (q8.float() * scale[..., None]).to(dtype)
+
+
+def _kv_zeros(cfg: tf.TransformerConfig, shape, device) -> KVCache:
+    """A zero KVCache of (..., KH, D) rows: the activation dtype, or
+    int8 with f32 (..., KH) scales under kv_cache_int8."""
+    dt = torch.int8 if cfg.kv_cache_int8 else cfg.dtype
+    leaves = [torch.zeros(shape, dtype=dt, device=device) for _ in "kv"]
+    if cfg.kv_cache_int8:
+        leaves += [torch.zeros(shape[:-1], dtype=torch.float32,
+                               device=device) for _ in "kv"]
+    return KVCache(*leaves)
+
 
 def init_cache(cfg: tf.TransformerConfig, batch: int,
                max_seq: Optional[int] = None, device="cpu") -> KVCache:
     max_seq = max_seq or cfg.max_seq
-    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
-    return KVCache(k=torch.zeros(shape, dtype=cfg.dtype, device=device),
-                   v=torch.zeros(shape, dtype=cfg.dtype, device=device))
+    return _kv_zeros(cfg, (cfg.n_layers, batch, max_seq, cfg.n_kv_heads,
+                           cfg.head_dim), device)
 
 
 def init_paged_pool(cfg: tf.TransformerConfig, num_blocks: int,
@@ -59,11 +108,10 @@ def init_paged_pool(cfg: tf.TransformerConfig, num_blocks: int,
     as (num_blocks, block_len) physical pages — k/v are (L, NB, BL, KH, D).
     Block 0 is the engine's trash page (models/paged_kv.TRASH_BLOCK):
     parked slots point there, so their ignored decode writes never reach
-    another request's pages."""
-    shape = (cfg.n_layers, num_blocks, block_len, cfg.n_kv_heads,
-             cfg.head_dim)
-    return KVCache(k=torch.zeros(shape, dtype=cfg.dtype, device=device),
-                   v=torch.zeros(shape, dtype=cfg.dtype, device=device))
+    another request's pages. Under kv_cache_int8 the pages are int8 with
+    (L, NB, BL, KH) f32 scales."""
+    return _kv_zeros(cfg, (cfg.n_layers, num_blocks, block_len,
+                           cfg.n_kv_heads, cfg.head_dim), device)
 
 
 def paged_rows(table: torch.Tensor, positions: torch.Tensor,
@@ -93,7 +141,9 @@ def forward_cached(params: Params, tokens: torch.Tensor, cache: KVCache,
     Writes their K/V into `cache` in place and attends over cache positions
     [0, pos + T). `freqs` is the rope_frequencies table of the cache's
     length; callers that run many passes build it once and pass it in.
-    Returns (logits (B, T, V) f32, the same cache)."""
+    A quantized cache takes the rows int8 with their scales, and the
+    attention reads the layer dequantized (its new rows too), as in the
+    JAX package. Returns (logits (B, T, V) f32, the same cache)."""
     dt = cfg.dtype
     b, t = tokens.shape
     nh, nkh, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
@@ -113,10 +163,19 @@ def forward_cached(params: Params, tokens: torch.Tensor, cache: KVCache,
              ).reshape(b, t, nkh, hd)
         q = apply_rope(q, freqs, pos)
         k = apply_rope(k, freqs, pos)
-        cache.k[layer, :, start:start + t] = k
-        cache.v[layer, :, start:start + t] = v
-        o = attention(q, cache.k[layer], cache.v[layer], causal=True,
-                      q_offset=pos, kv_offset=0)
+        if cache.quantized:
+            for rows, scales, val in ((cache.k, cache.kscale, k),
+                                      (cache.v, cache.vscale, v)):
+                q8, sc = kv_quantize(val)
+                rows[layer, :, start:start + t] = q8
+                scales[layer, :, start:start + t] = sc
+            ka = kv_dequantize(cache.k[layer], cache.kscale[layer], dt)
+            va = kv_dequantize(cache.v[layer], cache.vscale[layer], dt)
+        else:
+            cache.k[layer, :, start:start + t] = k
+            cache.v[layer, :, start:start + t] = v
+            ka, va = cache.k[layer], cache.v[layer]
+        o = attention(q, ka, va, causal=True, q_offset=pos, kv_offset=0)
         x = x + (o.reshape(b * t, nh * hd)
                  @ as_compute(lp["wo"], dt).reshape(nh * hd, d)
                  ).reshape(b, t, d)

@@ -9,7 +9,7 @@ every kernel of every step from Python.
 
 The captured program reads and writes only static storage: the engine's
 device slot mirrors, its Gumbel noise buffer, the paged block table, the
-cache and the params (models/serving.py `_run_chunk`). The engine writes
+cache (with an int8 cache's scales) and the params (models/serving.py `_run_chunk`). The engine writes
 those in place between replays, on the same stream, so stream order and
 no sync separates an admission's writes from the chunks around it.
 

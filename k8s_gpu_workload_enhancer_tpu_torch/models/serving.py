@@ -21,6 +21,16 @@ k8s_gpu_workload_enhancer_tpu/models/serving.py.
   flight: all device work runs in order on one stream, so that chunk's
   (ignored) writes land before the new owner's prefill writes the page,
   and a slot only ever decodes into its private pages.
+- **int8 KV** (`cfg.kv_cache_int8`). The cache or pool holds int8 K/V
+  with per-row f32 scales (models/decode.py). Prefill quantizes on write
+  and attends over the dequantized layer; decode attention reads the int8
+  rows converted to the compute dtype and folds the scales into its
+  logits and probabilities (the scale-after-dot form, in the JAX engine's
+  order, so f32 greedy tokens match). The paged engine then gathers each
+  slot's rows in logical order and runs the same einsum, never the paged
+  decode kernel, as the JAX engine switches its paged kernel off under
+  int8. Every move of KV rows (the slot commit, the radix gather and
+  commit, registered prefixes) carries their scales.
 - **Per-slot positions.** Each slot decodes at its own frontier `pos[b]`:
   RoPE rows are gathered at `pos`, the new K/V row is written at `pos`
   BEFORE the attention read, and attention masks `j <= pos[b]`, so a freed
@@ -123,8 +133,15 @@ XLA in the JAX package. Where JAX donates the cache to each program and
 threads it through a layer `scan`, the port writes the cache's new rows in
 place: no step copies it, and a prefill commits only the rows it owns.
 
+FaultLab (faultlab/) names five of the JAX engine's fault boundaries here,
+where the JAX engine crosses them: `engine.dispatch` (a plain chunk's
+dispatch), `engine.collect` (its fetch), `engine.commit` (one request's
+commit), `engine.paged_admit` (a paged admission, before anything is
+reserved) and `engine.prefill` (each prefill chunk). An injected fault
+takes the containment its boundary's real faults take.
+
 Not ported here (later slices): speculative decoding, the host-RAM KV
-tier, the int8 KV cache, meshes, the FaultLab sites and phase events.
+tier, meshes (and the `engine.device_loss` site), and phase events.
 Tenant metering and budgets live in the serve main (cost/cost_engine.py):
 the engine only carries each request's tenant. The serve main also
 advertises the disaggregated role.
@@ -146,6 +163,7 @@ from ..ops.embed import embed_tokens
 from ..ops.layers import rms_norm, swiglu
 from ..ops.paged_attention import paged_decode_attention
 from ..ops.quant import as_compute
+from .. import faultlab
 from ..utils.device import resolve_device
 from ..utils.stats import percentile
 from . import decode, decode_graph, paged_kv
@@ -235,8 +253,9 @@ def _rope_at(x: torch.Tensor, freqs: torch.Tensor,
 
 def _write_slot(cache: torch.Tensor, kv: torch.Tensor,
                 pos: torch.Tensor) -> None:
-    """cache (B, S, KH, D) <- kv (B, KH, D) at row pos[b] of each slot, in
-    place (one indexed write, no cache copy)."""
+    """cache (B, S, ...) <- kv (B, ...) at row pos[b] of each slot, in
+    place (one indexed write, no cache copy): K/V rows (B, S, KH, D), and
+    an int8 cache's scales (B, S, KH), the JAX engine's _write_slot_scale."""
     cache[torch.arange(cache.shape[0], device=cache.device), pos] = kv
 
 
@@ -318,30 +337,52 @@ Attend = Callable[[int, torch.Tensor, torch.Tensor, torch.Tensor],
                   torch.Tensor]
 
 
+def _attend_rows(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
+                 ks: Optional[torch.Tensor], vs: Optional[torch.Tensor],
+                 mask: torch.Tensor) -> torch.Tensor:
+    """Decode attention of q (B, H, D) over each slot's rows kc, vc (B, S,
+    KH, D) in logical order, masked by mask (B, S). int8 rows come with
+    their scales ks, vs (B, S, KH): the rows are read converted to the
+    compute dtype and the scales fold into the f32 logits (before the
+    1/sqrt(D) scale) and into the probabilities, in the JAX engine's
+    order. Query heads are grouped by KV head (GQA without repeating the
+    cache), with f32 products."""
+    b, s_max, nkh, hd = kc.shape
+    nh, dt = q.shape[1], q.dtype
+    g = nh // nkh
+    kt = kc.transpose(1, 2).reshape(b * nkh, s_max, hd).to(dt)
+    vt = vc.transpose(1, 2).reshape(b * nkh, s_max, hd).to(dt)
+    logits = _bmm_f32(q.reshape(b * nkh, g, hd), kt.transpose(1, 2))
+    if ks is not None:
+        logits = logits * ks.transpose(1, 2).reshape(b * nkh, 1, s_max)
+    logits = (logits * hd ** -0.5).reshape(b, nh, s_max)
+    logits = torch.where(mask[:, None, :], logits, NEG_INF)
+    p = torch.softmax(logits, dim=-1).reshape(b * nkh, g, s_max)
+    if vs is not None:
+        p = p * vs.transpose(1, 2).reshape(b * nkh, 1, s_max)
+    o = _bmm_f32(p.to(dt), vt)
+    return o.reshape(b, nh, hd).to(dt)
+
+
 def _dense_attend(cache: decode.KVCache, pos: torch.Tensor,
                   cfg: tf.TransformerConfig) -> Attend:
     """Decode attention over the dense cache: layer `layer`'s new K/V rows
-    go in place at pos[b] of each slot, then each slot attends j <=
-    pos[b]."""
-    b, s_max = cache.k.shape[1], cache.max_seq
-    nh, nkh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    (quantized first on an int8 cache) go in place at pos[b] of each slot,
+    then each slot attends j <= pos[b]."""
+    s_max = cache.max_seq
     mask = (torch.arange(s_max, device=pos.device)[None, :]
             <= pos[:, None])                                        # (B, S)
 
     def attend(layer, q, k, v):
+        ks = vs = None
+        if cache.quantized:
+            (k, sk), (v, sv) = decode.kv_quantize(k), decode.kv_quantize(v)
+            _write_slot(cache.kscale[layer], sk, pos)
+            _write_slot(cache.vscale[layer], sv, pos)
+            ks, vs = cache.kscale[layer], cache.vscale[layer]
         _write_slot(cache.k[layer], k, pos)
         _write_slot(cache.v[layer], v, pos)
-        # Query heads grouped by KV head (GQA without repeating the cache);
-        # the cache is read in its own dtype, with f32 products.
-        kt = cache.k[layer].transpose(1, 2).reshape(b * nkh, s_max, hd)
-        vt = cache.v[layer].transpose(1, 2).reshape(b * nkh, s_max, hd)
-        qg = q.reshape(b * nkh, nh // nkh, hd)
-        logits = (_bmm_f32(qg, kt.transpose(1, 2)) * hd ** -0.5
-                  ).reshape(b, nh, s_max)
-        logits = torch.where(mask[:, None, :], logits, NEG_INF)
-        p = torch.softmax(logits, dim=-1).to(q.dtype)
-        o = _bmm_f32(p.reshape(b * nkh, nh // nkh, s_max), vt)
-        return o.reshape(b, nh, hd).to(q.dtype)
+        return _attend_rows(q, cache.k[layer], cache.v[layer], ks, vs, mask)
     return attend
 
 
@@ -349,17 +390,38 @@ def _paged_attend(pool: decode.KVCache, table: torch.Tensor,
                   pos: torch.Tensor, block_len: int) -> Attend:
     """Decode attention through the block table: layer `layer`'s new K/V
     rows go in place at each slot's physical row of pos[b] (a parked slot's
-    land in the trash page), then the paged decode kernel attends j <=
-    pos[b] page by page."""
+    land in the trash page), then each slot attends j <= pos[b] through the
+    paged decode kernel, page by page. An int8 pool never reaches the
+    kernel (the JAX engine's paged kernel is off under int8 too): its rows
+    are gathered in logical order (`paged_rows`) for the dense engine's
+    function."""
     nb, bl, nkh, hd = pool.k.shape[1:]
     wrow = decode.paged_rows(table, pos[:, None], block_len)[:, 0]   # (B,)
-    pos32 = pos.to(torch.int32)
+    if pool.quantized:
+        s_max = table.shape[1] * block_len
+        jpos = torch.arange(s_max, device=pos.device)[None, :]
+        rows = decode.paged_rows(table, jpos, block_len)            # (B, S)
+        mask = jpos <= pos[:, None]
+    else:
+        pos32 = pos.to(torch.int32)
 
     def attend(layer, q, k, v):
-        pool.k[layer].view(nb * bl, nkh, hd)[wrow] = k
-        pool.v[layer].view(nb * bl, nkh, hd)[wrow] = v
-        return paged_decode_attention(q, pool.k[layer], pool.v[layer], table,
-                                      pos32, block_len=block_len)
+        ks = vs = None
+        if pool.quantized:
+            (k, sk), (v, sv) = decode.kv_quantize(k), decode.kv_quantize(v)
+            fks = pool.kscale[layer].view(nb * bl, nkh)
+            fvs = pool.vscale[layer].view(nb * bl, nkh)
+            fks[wrow] = sk
+            fvs[wrow] = sv
+            ks, vs = fks[rows], fvs[rows]
+        fk = pool.k[layer].view(nb * bl, nkh, hd)
+        fv = pool.v[layer].view(nb * bl, nkh, hd)
+        fk[wrow] = k
+        fv[wrow] = v
+        if pool.quantized:
+            return _attend_rows(q, fk[rows], fv[rows], ks, vs, mask)
+        return paged_decode_attention(q, pool.k[layer], pool.v[layer],
+                                      table, pos32, block_len=block_len)
     return attend
 
 
@@ -525,8 +587,8 @@ def _prefill_final(params: Params, cache: decode.KVCache,
     mask ever reaches them. Returns (token, logprob) device scalars."""
     logits, temp = decode.forward_cached(params, chunk, temp, offset, cfg,
                                          freqs=freqs)
-    cache.k[:, slot].copy_(temp.k[:, 0])
-    cache.v[:, slot].copy_(temp.v[:, 0])
+    for big, small in zip(cache.leaves(), temp.leaves()):
+        big[:, slot].copy_(small[:, 0])
     return _first_token(logits[0, plen - 1], sampling)
 
 
@@ -552,16 +614,18 @@ def _temp_from_pool(pool: decode.KVCache, row: np.ndarray, matched: int,
                     max_seq: int, block_len: int) -> decode.KVCache:
     """A batch-1 temp prefill cache whose first `matched` rows are gathered
     from the pool (a radix-matched prefix), the rest zero: suffix prefill
-    chunks attend over the shared prefix KV without recomputing it."""
-    l, nb, bl, kh, d = pool.k.shape
+    chunks attend over the shared prefix KV without recomputing it. int8
+    scales come with their rows."""
+    l, nb, bl = pool.k.shape[:3]
     rows = _pool_rows(row, 0, matched, block_len, pool.k.device)
 
     def gather(pages: torch.Tensor) -> torch.Tensor:
-        out = torch.zeros((l, 1, max_seq, kh, d), dtype=pages.dtype,
+        tail = pages.shape[3:]
+        out = torch.zeros((l, 1, max_seq) + tail, dtype=pages.dtype,
                           device=pages.device)
-        out[:, 0, :matched] = pages.view(l, nb * bl, kh, d)[:, rows]
+        out[:, 0, :matched] = pages.view((l, nb * bl) + tail)[:, rows]
         return out
-    return decode.KVCache(k=gather(pool.k), v=gather(pool.v))
+    return decode.KVCache(*map(gather, pool.leaves()))
 
 
 def _commit_rows(pool: decode.KVCache, temp: decode.KVCache, row: np.ndarray,
@@ -570,11 +634,13 @@ def _commit_rows(pool: decode.KVCache, temp: decode.KVCache, row: np.ndarray,
     through its table row, in place (JAX's _commit_window_rows +
     _pool_commit_rows). Rows outside the window are not written at all, so
     shared prefix pages stay read-only and pad garbage never lands; the
-    JAX package's trash redirect of those rows is not needed."""
-    l, nb, bl, kh, d = pool.k.shape
+    JAX package's trash redirect of those rows is not needed. int8 scales
+    go with their rows."""
+    l, nb, bl = pool.k.shape[:3]
     rows = _pool_rows(row, write_from, write_to, block_len, pool.k.device)
-    for pages, src in ((pool.k, temp.k), (pool.v, temp.v)):
-        pages.view(l, nb * bl, kh, d)[:, rows] = src[:, 0, write_from:write_to]
+    for pages, src in zip(pool.leaves(), temp.leaves()):
+        pages.view((l, nb * bl) + pages.shape[3:])[:, rows] = \
+            src[:, 0, write_from:write_to]
 
 
 def _prefill_final_paged(params: Params, pool: decode.KVCache,
@@ -1588,6 +1654,7 @@ class ContinuousBatchEngine:
         them. With chunked prefill and a backlog (a prompt mid-slice or a
         request waiting, read after the step's admission) the chunk is
         the short quantum."""
+        faultlab.site("engine.dispatch")
         n, t_start = self.decode_chunk, time.perf_counter()
         if self._chunked_prefill and (self._prefill is not None
                                       or self._queue):
@@ -1613,6 +1680,7 @@ class ContinuousBatchEngine:
         which runs from this chunk's own dispatch, and raise
         WatchdogTimeout past it instead of waiting forever."""
         t0 = time.perf_counter()
+        faultlab.site("engine.collect")
         packed_h = self._landed(inflight, inflight.t_dispatch,
                                 "no decode chunk completed")
         self._fetch_sync_s_total += time.perf_counter() - t0
@@ -1701,6 +1769,7 @@ class ContinuousBatchEngine:
             if req.done:
                 continue
             try:
+                faultlab.site("engine.commit")
                 emitted += self._commit_tokens(req, b, toks_h[:, b],
                                                lps_h[:, b], per_tok)
             except Exception as e:             # noqa: BLE001 — contained
@@ -1815,8 +1884,8 @@ class ContinuousBatchEngine:
             self._prefix_hits += 1
             self._kv_matched_tokens_total += pfx.grid_len
             self._prefill.offset = pfx.grid_len
-            self._prefill.temp = decode.KVCache(k=pfx.temp.k.clone(),
-                                                v=pfx.temp.v.clone())
+            self._prefill.temp = decode.KVCache(
+                *(t.clone() for t in pfx.temp.leaves()))
             return True
         self._prefill.temp = _init_temp_cache(self.cfg, self.max_seq,
                                               self.device)
@@ -1880,6 +1949,9 @@ class ContinuousBatchEngine:
         once, so it is admitted on the next step."""
         req = self._queue[0]
         bl = self.kv_block_len
+        # A fault here touches no request: the head stays queued and the
+        # next step admits it again (the JAX engine's containment).
+        faultlab.site("engine.paged_admit")
         # The context: prompt + a resumed request's committed tokens (the
         # radix match makes a migrated-in request warm).
         ctx = req.prompt + req.tokens[:req.emit_from]
@@ -1975,6 +2047,7 @@ class ContinuousBatchEngine:
         if st.req.done:                           # cancelled mid-prefill
             self._prefill = None
             return
+        faultlab.site("engine.prefill")
         ctx = st.ctx
         remaining = len(ctx) - st.offset
         if remaining > self.prefill_len:          # non-final chunk

@@ -58,6 +58,9 @@ class TransformerConfig:
     n_experts: int = 0
     expert_top_k: int = 1
     dtype: torch.dtype = torch.bfloat16
+    # Inference only: store the KV cache as int8 with per-row (token,
+    # kv-head) f32 scales (models/decode.py). Training ignores it.
+    kv_cache_int8: bool = False
     # Training: recompute each layer (remat) or only its FFN (remat_ffn) in
     # the backward; the lean SwiGLU backward (ops/layers.swiglu_lean).
     remat: bool = False

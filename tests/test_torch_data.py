@@ -12,6 +12,8 @@ import torch
 from k8s_gpu_workload_enhancer_tpu.train import data as jdata
 from k8s_gpu_workload_enhancer_tpu_torch.train import data as tdata
 
+import torch_parity  # noqa: F401  (one intra-op thread a process)
+
 SEQ = 16
 WINDOWS = 11                   # a prime: batches straddle epoch ends
 

@@ -27,6 +27,8 @@ from k8s_gpu_workload_enhancer_tpu_torch.ops import kernels
 from k8s_gpu_workload_enhancer_tpu_torch.train import flagship
 from k8s_gpu_workload_enhancer_tpu_torch.train import trainer as ttrainer
 
+import torch_parity  # noqa: F401  (one intra-op thread a process)
+
 TOL = dict(atol=1e-4, rtol=1e-4)
 SLICE_DIMS = dict(vocab_size=512, d_model=512, n_layers=2, n_heads=2,
                   n_kv_heads=2, d_ff=1024, max_seq=256)

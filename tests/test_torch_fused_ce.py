@@ -28,6 +28,8 @@ from k8s_gpu_workload_enhancer_tpu_torch.ops import fused_ce as tfce
 from k8s_gpu_workload_enhancer_tpu_torch.ops import kernels
 from k8s_gpu_workload_enhancer_tpu_torch.train import trainer as ttrainer
 
+import torch_parity  # noqa: F401  (one intra-op thread a process)
+
 LOSS_TOL = dict(atol=1e-5, rtol=1e-5)
 GRAD_REL_NORM = 1e-4
 

@@ -1294,3 +1294,43 @@ def test_prefill_role_engine_never_captures(dev):
     assert m["migration"]["handoffs_total"] == 4
     kv = m["kv_cache"]
     assert kv["blocks_free"] + kv["blocks_cached"] == kv["blocks_total"]
+
+
+@pytest.mark.parametrize("kv_block_len", [0, 16], ids=["dense", "paged"])
+def test_graphed_int8_kv_engine_equals_the_eager_engine(dev, kv_block_len):
+    """kv_cache_int8 on the card: int8 K/V with f32 scales, the graphed
+    pipelined engine equal to the eager serialized one bit for bit, the
+    launch counts of a dense decode (no paged decode kernel, as the JAX
+    engine switches its paged kernel off under int8), no page leaked; the
+    quantizer's scales within 1e-6 of its CPU run and its q8 equal, but
+    where the value before rounding lies within 1e-4 of a half-integer
+    (the card's and the CPU's division may part in the last bit), there by
+    at most one step."""
+    import dataclasses
+    from k8s_gpu_workload_enhancer_tpu_torch.models import decode
+    cfg, (params, _) = _serving_model(dev)
+    cfg8 = dataclasses.replace(cfg, kv_cache_int8=True)
+    eng = _graph_engine(dev, params, cfg8, kv_block_len, watchdog_timeout=30)
+    assert eng._cache.k.dtype == torch.int8
+    assert eng._cache.kscale.dtype == torch.float32
+    kernels.reset_launches()
+    got = _graph_workload(eng)
+    torch.cuda.synchronize()
+    m = eng.metrics()
+    assert dict(kernels.launches) == _engine_launches(cfg, m["lifetime"],
+                                                      False)
+    assert m["hotpath"]["graphs_captured"] == 1
+    ref = _graph_engine(dev, params, cfg8, kv_block_len, cuda_graph=False,
+                        overlap_commit=False)
+    assert got == _graph_workload(ref)
+    kv = m["kv_cache"]
+    assert kv["blocks_free"] + kv["blocks_cached"] == kv["blocks_total"]
+    x = _randn(dev, 3, 5, 4, 512, dtype=cfg.dtype, seed=3)
+    q8, sc = decode.kv_quantize(x)
+    q8c, scc = decode.kv_quantize(x.cpu())
+    torch.testing.assert_close(sc.cpu(), scc, rtol=1e-6, atol=0)
+    pre = x.cpu().float() / scc[..., None]
+    tie = (pre - pre.floor() - 0.5).abs() < 1e-4
+    diff = q8.cpu().int() - q8c.int()
+    assert not diff[~tie].any()
+    assert diff.abs().max() <= 1

@@ -26,6 +26,8 @@ from k8s_gpu_workload_enhancer_tpu_torch.ops import quant as tquant
 from k8s_gpu_workload_enhancer_tpu_torch.ops import rms as trms
 from k8s_gpu_workload_enhancer_tpu_torch.ops import rope as trope
 
+import torch_parity  # noqa: F401  (one intra-op thread a process)
+
 TOL = dict(atol=1e-5, rtol=1e-5)
 
 

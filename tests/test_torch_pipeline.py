@@ -37,6 +37,8 @@ from k8s_gpu_workload_enhancer_tpu_torch.models import decode as tdec
 from k8s_gpu_workload_enhancer_tpu_torch.models import serving as tsrv
 from k8s_gpu_workload_enhancer_tpu_torch.models import transformer as ttf
 
+import torch_parity  # noqa: F401  (one intra-op thread a process)
+
 DIMS = dict(vocab_size=128, d_model=32, n_layers=2, n_heads=2, n_kv_heads=2,
             d_ff=64, max_seq=64)
 # The JAX pin's mixed workload: a sub-chunk prompt, a two-chunk prompt
@@ -360,7 +362,7 @@ def test_hot_path_families_have_the_jax_names():
              "ktwe_serving_watchdog_trips_total",
              "ktwe_serving_request_errors_watchdog_total"}
     assert names <= set(serve.SERVING_FAMILIES) <= set(JAX_FAMILIES)
-    assert len(serve.SERVING_FAMILIES) == 55
+    assert len(serve.SERVING_FAMILIES) == 56
 
 
 def test_a_failing_graph_fails_the_batch_and_never_runs_eagerly(models,

@@ -15,6 +15,8 @@ from k8s_gpu_workload_enhancer_tpu.ops import relayout as jrelayout
 from k8s_gpu_workload_enhancer_tpu_torch.models import transformer as ttf
 from k8s_gpu_workload_enhancer_tpu_torch.ops import kernels, relayout
 
+import torch_parity  # noqa: F401  (one intra-op thread a process)
+
 DTYPES = {"f32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}
 

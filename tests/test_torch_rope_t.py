@@ -19,6 +19,8 @@ from k8s_gpu_workload_enhancer_tpu_torch.ops import attention as tattn
 from k8s_gpu_workload_enhancer_tpu_torch.ops import kernels
 from k8s_gpu_workload_enhancer_tpu_torch.ops import rope as trope
 
+import torch_parity  # noqa: F401  (one intra-op thread a process)
+
 TOL = dict(atol=1e-6, rtol=1e-6)
 
 

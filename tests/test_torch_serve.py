@@ -16,6 +16,8 @@ import torch
 from k8s_gpu_workload_enhancer_tpu_torch.cmd import serve
 from k8s_gpu_workload_enhancer_tpu_torch.models import decode
 
+import torch_parity  # noqa: F401  (one intra-op thread a process)
+
 ARGS = ["--device", "cpu", "--port", "0", "--seed", "5", "--vocab-size",
         "128", "--d-model", "64", "--n-layers", "2", "--n-heads", "2",
         "--d-ff", "128", "--max-seq", "64", "--num-slots", "2",

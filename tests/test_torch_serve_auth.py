@@ -19,6 +19,8 @@ from k8s_gpu_workload_enhancer_tpu_torch.cmd import serve
 
 from test_torch_serve import ARGS, _serve
 
+import torch_parity  # noqa: F401  (one intra-op thread a process)
+
 TOKEN = "s3cret-token"
 
 

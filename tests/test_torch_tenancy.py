@@ -58,6 +58,8 @@ from k8s_gpu_workload_enhancer_tpu_torch.models import serving as tsrv
 from k8s_gpu_workload_enhancer_tpu_torch.models import transformer as ttf
 from k8s_gpu_workload_enhancer_tpu_torch.utils.httpjson import StatusError
 
+import torch_parity  # noqa: F401  (one intra-op thread a process)
+
 # tests/unit/test_tenancy.py's sizes.
 DIMS = dict(vocab_size=128, d_model=32, n_layers=2, n_heads=2, n_kv_heads=2,
             d_ff=64, max_seq=64)
@@ -617,7 +619,7 @@ def test_serve_eject_carries_tenancy_and_prometheus_families(model):
         assert prom["ktwe_serving_tenant_requests_batch_total"] == 0.0
         assert prom["ktwe_serving_tenant_chip_seconds_batch_total"] == 0.0
         assert prom["ktwe_serving_tenants_active"] == 1.0
-        assert len(serve.SERVING_FAMILIES) == 55
+        assert len(serve.SERVING_FAMILIES) == 56
     finally:
         svc.stop()
 

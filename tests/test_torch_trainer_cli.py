@@ -11,6 +11,8 @@ import pytest
 from k8s_gpu_workload_enhancer_tpu_torch.cmd import trainer as cli
 from k8s_gpu_workload_enhancer_tpu_torch.ops import kernels
 
+import torch_parity  # noqa: F401  (one intra-op thread a process)
+
 TINY = ["--device", "cpu", "--batch-size", "2", "--seq-len", "32",
         "--d-model", "64", "--n-layers", "2", "--n-heads", "2", "--d-ff",
         "128", "--vocab-size", "256"]

@@ -22,6 +22,12 @@ DIMS = dict(vocab_size=512, d_model=512, n_layers=2, n_heads=2, d_ff=1024,
             max_seq=64)
 PREFILL_LEN = 32
 
+# The port's tests share the machine with other test processes (pytest-xdist
+# workers, each with its own JAX thread pools). With one intra-op thread a
+# process the port's small CPU ops do not wait on threads that another
+# process holds the cores of.
+torch.set_num_threads(1)
+
 
 def jax_cfg(n_kv_heads: int = 2) -> jtf.TransformerConfig:
     return jtf.TransformerConfig(**DIMS, n_kv_heads=n_kv_heads,
