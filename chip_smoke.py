@@ -121,7 +121,28 @@ inits in bf16:
      later requests keep the unfaulted tokens; a serve main started with
      KTWE_FAULT_* counts its injections in /v1/metrics and on its metrics
      port; it prints the K/V bytes and ms a decode step, int8 against bf16
-     KV at max_seq 256 and 4096, and the bf16 streams they agree on. Every
+     KV at max_seq 256 and 4096, and the bf16 streams they agree on. The
+     observability phase runs three paged serve mains (graphed, bf16, a
+     bearer token): A with the flight recorder, the traffic trace and the
+     optimizer telemetry on (--span-out, --trace-out,
+     --slo-capture-threshold 0.001, --optimizer-url to a stub HTTP server in
+     this script that counts pushes and checks their bearer token,
+     --telemetry-interval 1, --tenants 2), B likewise, and C with none of
+     those flags; A and C answer the serving cell's 9 greedy requests in
+     turn (their tokens must be equal), A also one request with an incoming
+     traceparent (its trace id kept), a stream ejected and resumed on B
+     under one traceparent, and a budget 429. Gates: every final view's
+     traceId has one replica.generate root in its main's span NDJSON, with
+     admission, queue_wait, prefill and decode children; the prefill_chunk
+     events equal the prefill chunks; the eject and resume marks share the
+     trace; one trace record a terminal view plus one rejected record;
+     /v1/admin/trace rotates, /v1/admin/spans and /v1/admin/slow-requests
+     answer (C's 400); a telemetry push with the serve's bucket, tenants 2
+     and slots 8; the 75 families served, the 19 new ones 0 on C; one
+     decode graph capture a main. It prints ms a token p50 and commit
+     seconds a token with the recorder on against off, the host ms of
+     FlightRecorder.record a request, and span and trace bytes a request.
+     Every
      phase
      must launch exactly the kernels its prefill chunks, decode steps,
      train steps and microbatches need (one embedding gather a chunk, step
@@ -265,6 +286,14 @@ FAULT_TARGETS = {"engine.dispatch": 2, "engine.collect": 2,
                  "engine.commit": 3, "engine.paged_admit": 1,
                  "engine.prefill": 1}
 SAMPLED_TEMPERATURE, SAMPLED_KEY = 0.8, [7, 11]
+# The observability phase: the optimizer stub's bearer token, the tenants a
+# push reports, the slow-request threshold (low enough that the ring keeps
+# every request), the prompts' seed and the incoming trace contexts (a plain
+# request's, and the ejected-and-resumed stream's).
+OBS_TOKEN, OBS_TENANTS, OBS_SLO_S, OBS_SEED = "obs-token", 2, 0.001, 19
+OBS_TRACEPARENT = "00-0af7651916cd43dd8448eb211c80319c-b7ad6b7169203331-01"
+OBS_TRACEPARENT_MIGRATE = ("00-4bf92f3577b34da6a3ce929d0e0e4736-"
+                           "00f067aa0ba902b7-01")
 FLUSH_PROMPT, CANCEL_NEW = 15, 240
 
 # Training: the trainer main's defaults (cmd/trainer.py of the JAX package),
@@ -2626,11 +2655,13 @@ def _leaves(tree):
     return [tree]
 
 
-def post_json(port: int, path: str, body: dict, timeout: float = 300):
+def post_json(port: int, path: str, body: dict, timeout: float = 300,
+              headers=None):
     """(status, reply) of a POST; an HTTP error's status and JSON body."""
     req = urllib.request.Request(
         f"http://127.0.0.1:{port}{path}", data=json.dumps(body).encode(),
-        headers={"Content-Type": "application/json"}, method="POST")
+        headers={"Content-Type": "application/json", **(headers or {})},
+        method="POST")
     try:
         with urllib.request.urlopen(req, timeout=timeout) as resp:
             return resp.status, json.loads(resp.read())
@@ -2638,10 +2669,11 @@ def post_json(port: int, path: str, body: dict, timeout: float = 300):
         return e.code, json.loads(e.read())
 
 
-def get_metrics(port: int) -> dict:
-    with urllib.request.urlopen(f"http://127.0.0.1:{port}/v1/metrics",
-                                timeout=60) as resp:
-        return json.loads(resp.read())["metrics"]
+def get_metrics(port: int, headers=None) -> dict:
+    code, reply = get_json(port, "/v1/metrics", headers)
+    if code != 200:
+        fail(f"/v1/metrics answered {code} {reply}")
+    return reply["metrics"]
 
 
 def reference_tokens(serve, argv, params, prompts) -> list:
@@ -2958,11 +2990,12 @@ def free_port() -> int:
         return sk.getsockname()[1]
 
 
-def get_json(port: int, path: str):
+def get_json(port: int, path: str, headers=None):
     """(status, reply) of a GET; an HTTP error's status and JSON body."""
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 headers=headers or {})
     try:
-        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
-                                    timeout=60) as resp:
+        with urllib.request.urlopen(req, timeout=60) as resp:
             return resp.status, json.loads(resp.read())
     except urllib.error.HTTPError as e:
         return e.code, json.loads(e.read())
@@ -2999,12 +3032,13 @@ class Stream:
     read in a thread: `lines` grows as they arrive (`times`: the
     perf_counter of each arrival), `done` is set after the last."""
 
-    def __init__(self, port: int, body: dict):
+    def __init__(self, port: int, body: dict, headers=None):
         req = urllib.request.Request(
             f"http://127.0.0.1:{port}/v1/generate",
             data=json.dumps(dict(body, stream=True,
                                  timeoutSeconds=300)).encode(),
-            headers={"Content-Type": "application/json"}, method="POST")
+            headers={"Content-Type": "application/json", **(headers or {})},
+            method="POST")
         self.resp = urllib.request.urlopen(req, timeout=300)
         self.lines, self.times, self.done = [], [], threading.Event()
         threading.Thread(target=self._read, daemon=True).start()
@@ -3321,6 +3355,382 @@ def fleet_phase(serve, pa: int, pb: int, mports, paged: bool) -> dict:
     out["lifetime_a"] = get_metrics(pa)["lifetime"]
     out["lifetime_b"] = get_metrics(pb)["lifetime"]
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 5b: the serving replica's observability
+# ---------------------------------------------------------------------------
+
+
+class OptimizerStub:
+    """An HTTP stand-in for the optimizer service: it answers POST
+    /v1/serving-telemetry {"status": "ok"} when the bearer token is right
+    (401 otherwise) and keeps every push it got, with its token's
+    verdict."""
+
+    def __init__(self, token: str):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+        self.pushes, self.bad_tokens = [], 0
+        stub = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def do_POST(self):
+                body = json.loads(self.rfile.read(
+                    int(self.headers.get("Content-Length", 0))))
+                ok = (self.path == "/v1/serving-telemetry" and
+                      self.headers.get("Authorization")
+                      == f"Bearer {token}")
+                if ok:
+                    stub.pushes.append(body)
+                else:
+                    stub.bad_tokens += 1
+                out = json.dumps({"status": "ok"} if ok else
+                                 {"status": "error"}).encode()
+                self.send_response(200 if ok else 401)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(out)))
+                self.end_headers()
+                self.wfile.write(out)
+
+            def log_message(self, *a):
+                pass
+
+        self.server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.thread = threading.Thread(target=self.server.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+        self.url = f"http://127.0.0.1:{self.server.server_address[1]}"
+
+    def close(self):
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join(30)
+
+
+def timed_flight_record(flight_mod) -> list:
+    """Wrap FlightRecorder.record so each call's host seconds land in the
+    returned list (the recorder's whole per-request cost: the tree, the
+    phase windows and the span writes). Undo with untimed_flight_record."""
+    took, record = [], flight_mod.FlightRecorder.record
+
+    def timed(self, *a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return record(self, *a, **kw)
+        finally:
+            took.append(time.perf_counter() - t0)
+    timed.untimed = record
+    flight_mod.FlightRecorder.record = timed
+    return took
+
+
+def obs_requests(vocab: int) -> list:
+    """The serving cell's 9 greedy requests: 8 prompts of 128 tokens and
+    one of 160, 48 new tokens each."""
+    rng = np.random.default_rng(OBS_SEED)
+    return [{"prompt": rng.integers(0, vocab, n).tolist(),
+             "maxNewTokens": NEW_TOKENS}
+            for n in [PROMPT_LEN] * N_REQUESTS + [LONG_PROMPT_LEN]]
+
+
+def obs_traffic(port: int, auth: dict, bodies: list) -> list:
+    """A warm-up request (the decode graph's capture), then `bodies` sent
+    at once: their final views."""
+    code, warm = post_json(port, "/v1/generate", {
+        "prompt": bodies[0]["prompt"][:16], "maxNewTokens": 8,
+        "timeoutSeconds": 300}, headers=auth)
+    if code != 200 or warm.get("status") != "ok":
+        fail(f"observability warm-up: {code} {warm}")
+    out = [None] * len(bodies)
+
+    def send(i):
+        out[i] = post_json(port, "/v1/generate",
+                           dict(bodies[i], timeoutSeconds=300),
+                           headers=auth)
+    threads = [threading.Thread(target=send, args=(i,))
+               for i in range(len(bodies))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(600)
+    for code, r in out:
+        if code != 200 or r.get("status") != "ok":
+            fail(f"observability /v1/generate: {code} {r}")
+    return [warm] + [r for _, r in out]
+
+
+def span_tree(spans: list, trace_id: str, gates: list, what: str):
+    """(root, {child name: span}) of a trace's one replica.generate root;
+    a gate fails unless there is exactly one."""
+    tree = [s for s in spans if s["traceId"] == trace_id]
+    roots = [s for s in tree if s["name"] == "replica.generate"]
+    if len(roots) != 1:
+        gates.append(f"{what}: trace {trace_id} has {len(roots)} "
+                     f"replica.generate roots")
+        return None, {}
+    kids = {s["name"]: s for s in tree
+            if s["parentSpanId"] == roots[0]["spanId"]}
+    return roots[0], kids
+
+
+def run_observability(serve, kernels, card) -> dict:
+    """The observability phase: three paged serve mains at the serve
+    defaults (bf16, graphed), with the launch counters set to 0 just
+    before they start and read after they exit. A (recorder, trace and
+    telemetry on: --span-out, --trace-out, --slo-capture-threshold,
+    --optimizer-url to a stub, --telemetry-interval 1, --tenants 2), B (the
+    same, where A's ejected stream resumes) and C (none of those flags).
+    A and C answer the serving cell's 9 greedy requests in turn; A also a
+    request with an incoming traceparent, a stream ejected and resumed on B
+    under one trace, and a budget 429. The gates are in the module
+    notes."""
+    from k8s_gpu_workload_enhancer_tpu_torch.observability import \
+        flight as flight_mod
+    gates, out = [], {}
+    auth = {"Authorization": f"Bearer {OBS_TOKEN}"}
+    tmp = tempfile.mkdtemp(prefix="ktwe-obs-")
+    files = {k: os.path.join(tmp, f"{k}.ndjson")
+             for k in ("spans_a", "trace_a", "spans_b", "trace_b")}
+    base = ["--device", "cuda", "--port", "0", "--seed", "0",
+            "--kv-block-len", str(KV_BLOCK_LEN), "--auth-token", OBS_TOKEN,
+            "--tenant-budget", "probe=0"]
+    mports = [free_port(), free_port()]
+    stub = OptimizerStub(OBS_TOKEN)
+    took = timed_flight_record(flight_mod)
+    obs = ["--optimizer-url", stub.url, "--telemetry-interval", "1",
+           "--tenants", str(OBS_TENANTS), "--slo-capture-threshold",
+           str(OBS_SLO_S)]
+    buf = io.StringIO()
+    kernels.reset_launches()
+    try:
+        with contextlib.redirect_stdout(buf):
+            c = ServeMain(serve, base + ["--metrics-port", str(mports[1])])
+            a = ServeMain(serve, base + obs + [
+                "--span-out", files["spans_a"], "--trace-out",
+                files["trace_a"], "--metrics-port", str(mports[0])])
+            b = ServeMain(serve, base + obs + [
+                "--span-out", files["spans_b"], "--trace-out",
+                files["trace_b"]])
+            try:
+                out = obs_phase(a.port, b.port, c.port, mports, auth, files,
+                                serve, gates)
+                # The telemetry thread pushes once a second: wait for one
+                # with tokens to report.
+                deadline = time.time() + 30
+                while not stub.pushes and time.time() < deadline:
+                    time.sleep(0.1)
+            finally:
+                a.close()
+                b.close()
+                c.close()
+    finally:
+        flight_mod.FlightRecorder.record = \
+            flight_mod.FlightRecorder.record.untimed
+        stub.close()
+    launches = dict(kernels.launches)
+    life = {k: sum(out["lifetime"][m][k] for m in "abc")
+            for k in ("prefill_chunks", "decode_steps")}
+    want = expected_launches(SERVE_DIMS["n_layers"], life, paged=True)
+    if launches != want:
+        gates.append(f"observability launches {launches}, its chunks and "
+                     f"steps need {want}")
+    bucket = (f"d{SERVE_DIMS['d_model']}-L{SERVE_DIMS['n_layers']}"
+              f"-ff{SERVE_DIMS['d_ff']}-V{SERVE_DIMS['vocab_size']}|bf16")
+    good = [p for p in stub.pushes if p.get("bucket") == bucket
+            and p.get("tenants") == OBS_TENANTS
+            and p.get("slots") == NUM_SLOTS and p.get("tokens_per_s", 0) > 0]
+    if not good or stub.bad_tokens:
+        gates.append(f"telemetry: {len(stub.pushes)} pushes ({len(good)} "
+                     f"with bucket {bucket}, tenants {OBS_TENANTS}, slots "
+                     f"{NUM_SLOTS}), {stub.bad_tokens} with a wrong token: "
+                     f"{stub.pushes[:2]}")
+    views = out["terminal_views"]
+    bytes_ = {k: os.path.getsize(v) if os.path.exists(v) else 0
+              for k, v in files.items()}
+    rotated = [f for f in os.listdir(tmp) if ".ndjson." in f]
+    trace_bytes = bytes_["trace_a"] + bytes_["trace_b"] + sum(
+        os.path.getsize(os.path.join(tmp, f)) for f in rotated
+        if f.startswith("trace_"))
+    shutil.rmtree(tmp, ignore_errors=True)
+    record_ms = sorted(t * 1e3 for t in took)
+    out.update(
+        card=card, launches=launches,
+        telemetry=dict(pushes=len(stub.pushes), matching=len(good),
+                       bad_tokens=stub.bad_tokens,
+                       first=good[0] if good else None),
+        flight_record_host_ms=dict(
+            calls=len(record_ms),
+            p50=record_ms[len(record_ms) // 2] if record_ms else None,
+            mean=(sum(record_ms) / len(record_ms)) if record_ms else None,
+            max=record_ms[-1] if record_ms else None),
+        span_bytes_per_request=(bytes_["spans_a"] + bytes_["spans_b"])
+        / max(1, views),
+        trace_bytes_per_request=trace_bytes / max(1, views + 1),
+        gates_failed=gates)
+    return out
+
+
+def obs_phase(pa: int, pb: int, pc: int, mports, auth: dict, files: dict,
+              serve, gates: list) -> dict:
+    vocab = SERVE_DIMS["vocab_size"]
+    bodies = obs_requests(vocab)
+    # C (recorder off) first, then A: the same 9 requests in turn.
+    views_c = obs_traffic(pc, auth, bodies)
+    views_a = obs_traffic(pa, auth, bodies)
+    equal = sum(x["tokens"] == y["tokens"]
+                for x, y in zip(views_a[1:], views_c[1:]))
+    if equal != len(bodies):
+        gates.append(f"recorder on against off: {equal} of {len(bodies)} "
+                     f"greedy streams equal")
+    if any("traceId" in v for v in views_c):
+        gates.append("a recorder-off view carries a traceId")
+    # An incoming traceparent is adopted.
+    tp = OBS_TRACEPARENT
+    code, tview = post_json(pa, "/v1/generate", dict(
+        bodies[0], timeoutSeconds=300), headers=dict(auth, traceparent=tp))
+    if code != 200 or tview.get("traceId") != tp.split("-")[1] \
+            or tview.get("traceparent") != tp:
+        gates.append(f"the traceparent request: {code} {tview}")
+    # A stream ejected from A and resumed on B under one trace.
+    tp2 = OBS_TRACEPARENT_MIGRATE
+    ej_body = {"prompt": bodies[1]["prompt"], "maxNewTokens": MIGRATE_NEW}
+    s_a = Stream(pa, ej_body, headers=dict(auth, traceparent=tp2))
+    wait_streamed([s_a], MIGRATE_AFTER)
+    code, ej = post_json(pa, "/v1/admin/eject", {}, headers=auth)
+    fa = s_a.final()
+    if code != 200 or ej.get("ejected") != 1 or fa.get("status") != \
+            "migrate":
+        fail(f"observability eject: {code} {ej}, the stream ended {fa}")
+    s_b = Stream(pb, {"resumeFrom": fa["resume"]},
+                 headers=dict(auth, traceparent=tp2))
+    fb = s_b.final()
+    code, want = post_json(pc, "/v1/generate", dict(
+        ej_body, timeoutSeconds=300), headers=auth)
+    if code != 200:
+        fail(f"the uninterrupted stream on C: {code} {want}")
+    spliced = s_a.tokens() + s_b.tokens()
+    # A budget 429, traced as a rejected arrival.
+    code, rej = post_json(pa, "/v1/generate", dict(bodies[0], maxNewTokens=4),
+                          headers=dict(auth, **{"x-ktwe-tenant": "probe"}))
+    if code != 429 or rej.get("reason") != "budget-exhausted":
+        gates.append(f"the budget probe answered {code} {rej}")
+    finals_a = views_a + [tview, fa]
+    finals_b = [fb]
+    # The span trees.
+    spans_a = read_ndjson(files["spans_a"])
+    spans_b = read_ndjson(files["spans_b"])
+    chunk_events = 0
+    for views, spans, what in ((finals_a, spans_a, "A"),
+                               (finals_b, spans_b, "B")):
+        for v in views:
+            root, kids = span_tree(spans, v.get("traceId"), gates, what)
+            if root is None:
+                continue
+            missing = {"admission", "queue_wait", "prefill", "decode"} - \
+                set(kids)
+            if missing:
+                gates.append(f"{what}: trace {v['traceId']} lacks {missing}")
+                continue
+            chunk_events += sum(e["name"] == "prefill_chunk"
+                                for e in kids["prefill"]["events"])
+    for v, body in zip(views_a[1:], bodies):
+        root, kids = span_tree(spans_a, v["traceId"], gates, "A")
+        n = sum(e["name"] == "prefill_chunk"
+                for e in kids.get("prefill", {}).get("events", []))
+        if n != -(-len(body["prompt"]) // PREFILL_LEN):
+            gates.append(f"A: {n} prefill_chunk events for a "
+                         f"{len(body['prompt'])}-token prompt")
+    ma, mb, mc = (get_metrics(p, auth) for p in (pa, pb, pc))
+    life = {"a": ma["lifetime"], "b": mb["lifetime"], "c": mc["lifetime"]}
+    if chunk_events != ma["lifetime"]["prefill_chunks"] + \
+            mb["lifetime"]["prefill_chunks"]:
+        gates.append(f"{chunk_events} prefill_chunk events against "
+                     f"{ma['lifetime']['prefill_chunks']} + "
+                     f"{mb['lifetime']['prefill_chunks']} prefill chunks")
+    ra, ka = span_tree(spans_a, tp2.split("-")[1], gates, "A eject")
+    rb, kb = span_tree(spans_b, tp2.split("-")[1], gates, "B resume")
+    if "eject" not in ka or "resume" not in kb or fb.get("traceId") != \
+            tp2.split("-")[1] or (rb or {}).get("attributes", {}).get(
+                "resume.committed") != len(fa["resume"]["committed"]):
+        gates.append(f"the migration's marks: A {sorted(ka)}, B "
+                     f"{sorted(kb)}, resumed view {fb.get('traceId')}")
+    root_tp, _ = span_tree(spans_a, tp.split("-")[1], gates, "traceparent")
+    if root_tp is not None and root_tp["parentSpanId"] != tp.split("-")[2]:
+        gates.append(f"the traceparent root's parent {root_tp}")
+    # Trace records: one a terminal view, one rejected.
+    recs_a = read_ndjson(files["trace_a"])
+    recs_b = read_ndjson(files["trace_b"])
+    statuses = sorted(r["status"] for r in recs_a)
+    want_status = sorted(["ok"] * (len(finals_a) - 1) + ["migrate",
+                                                         "rejected"])
+    if statuses != want_status or [r["status"] for r in recs_b] != ["ok"]:
+        gates.append(f"trace records A {statuses}, B "
+                     f"{[r['status'] for r in recs_b]}; want A "
+                     f"{want_status}, B ['ok']")
+    # The admin routes.
+    code, st = post_json(pa, "/v1/admin/trace", {"action": "rotate"},
+                         headers=auth)
+    rotated = [f for f in os.listdir(os.path.dirname(files["trace_a"]))
+               if f.startswith("trace_a.ndjson.")]
+    if code != 200 or st.get("records") != len(recs_a) \
+            or os.path.exists(files["trace_a"]) or len(rotated) != 1:
+        gates.append(f"/v1/admin/trace rotate: {code} {st} {rotated}")
+    code, sp = post_json(pa, "/v1/admin/spans", {"action": "status"},
+                         headers=auth)
+    if code != 200 or sp.get("records") != len(spans_a) or not sp["spans"]:
+        gates.append(f"/v1/admin/spans: {code} {sp}, {len(spans_a)} spans")
+    code, slow = get_json(pa, "/v1/admin/slow-requests", auth)
+    if code != 200 or not slow.get("slow"):
+        gates.append(f"/v1/admin/slow-requests: {code} "
+                     f"{str(slow)[:200]}")
+    code_off, slow_off = get_json(pc, "/v1/admin/slow-requests", auth)
+    if code_off != 400:
+        gates.append(f"recorder off: /v1/admin/slow-requests {code_off}")
+    # The families: all 75, the 19 new ones among them.
+    fam = serve.SERVING_FAMILIES
+    series = scrape(mports[0], fam)
+    series_off = scrape(mports[1], fam)
+    new = [k for k in fam if "phase_seconds" in k or "_span_" in k
+           or "slow_requests" in k or "trace_records" in k]
+    if len(fam) != 75 or len(new) != 19 or \
+            series["ktwe_serving_span_records_total"] != len(spans_a) or \
+            series["ktwe_serving_trace_records_total"] != len(recs_a) or \
+            series["ktwe_serving_phase_seconds_prefill_p50"] <= 0 or \
+            any(series_off[k] for k in new):
+        gates.append(f"families: {len(fam)} served, {len(new)} new; "
+                     f"{ {k: series[k] for k in new} }, off "
+                     f"{ {k: series_off[k] for k in new if series_off[k]} }")
+    captures = [m["hotpath"]["graphs_captured"] for m in (ma, mb, mc)]
+    if captures != [1, 1, 1]:
+        gates.append(f"decode graph captures A, B, C: {captures}")
+
+    def per_token(m):
+        hp, tokens = m["hotpath"], max(1, m["lifetime"]["tokens"])
+        return dict(ms_per_token_p50=m["token_lat_p50_ms"],
+                    commit_s_per_token=hp["commit_s_total"] / tokens,
+                    commit_overlapped_share=(
+                        hp["commit_overlapped_s_total"] / hp["commit_s_total"]
+                        if hp["commit_s_total"] else 0.0),
+                    tokens=m["lifetime"]["tokens"])
+    return dict(
+        requests=len(bodies), new_tokens=NEW_TOKENS,
+        recorder_on=per_token(ma), recorder_off=per_token(mc),
+        greedy_equal=[equal, len(bodies)],
+        resumed_equal_uninterrupted=spliced == want["tokens"],
+        resumed_tokens=[len(fa["resume"]["committed"]), len(spliced)],
+        terminal_views=len(finals_a) + len(finals_b),
+        spans=[len(spans_a), len(spans_b)],
+        trace_records=[len(recs_a), len(recs_b)],
+        prefill_chunk_events=chunk_events,
+        slow_captured=len(slow.get("slow", [])),
+        phase_seconds={k.replace("ktwe_serving_phase_seconds_", ""):
+                       series[k] for k in new if "phase_seconds" in k},
+        families=len(fam), captures=captures, lifetime=life)
+
+
+def read_ndjson(path: str) -> list:
+    with open(path, "r", encoding="utf-8") as f:
+        return [json.loads(x) for x in f if x.strip()]
 
 
 # ---------------------------------------------------------------------------
@@ -4690,6 +5100,11 @@ def main() -> int:
                                     dense=results["fleet"],
                                     paged=results["fleet_paged"])}),
           flush=True)
+    results["observability"] = run_observability(serve, kernels, card)
+    print(json.dumps({"observability": results["observability"]}),
+          flush=True)
+    for gate in results["observability"]["gates_failed"]:
+        fail(gate)
     gate_mods = (kernels, rms, rope, flash, tf, trainer)
     results["train_gate_f32"] = run_train_gate(dev, gate_mods)
     print(json.dumps({"train_gate_f32": results["train_gate_f32"]}),
@@ -4711,10 +5126,11 @@ def main() -> int:
 
     serving_phases = ("engine", "serve", "paged_engine", "paged_serve",
                       "tenancy", "disagg", "int8kv", "checkpoint_serve",
-                      "checkpoint_paged_serve", "fleet", "fleet_paged")
+                      "checkpoint_paged_serve", "fleet", "fleet_paged",
+                      "observability")
     train_phases = ("train", "train_stash")
     paged_phases = ("paged_engine", "paged_serve", "tenancy", "disagg",
-                    "checkpoint_paged_serve", "fleet_paged")
+                    "checkpoint_paged_serve", "fleet_paged", "observability")
     # The checkpoint phase's trainer runs the t-layout path (head_dim 512).
     t_layout = ("flagship", "checkpoint_train")
     every = serving_phases + train_phases

@@ -80,6 +80,24 @@ them in its `faultlab` block (`ktwe_fault_injections_total` on
 are flag names with underscores); flags on the command line win, and a key
 this main has no flag for is an error.
 
+Observability, as the JAX serve has it. --trace-out PATH records one NDJSON
+traffic-trace record per terminal view, and one per queue-pressure or
+budget 429 (autopilot/trace.py); POST /v1/admin/trace {"action": "start" |
+"stop" | "rotate" | "status"} drives it. --span-out PATH turns the flight
+recorder on (observability/flight.py): every terminal view exports its span
+tree (a `replica.generate` root that adopts the request's `traceparent`,
+with admission, queue_wait, prefill and decode children and the eject
+marks) as span NDJSON, driven by POST /v1/admin/spans; the final view then
+carries "traceId". --slo-capture-threshold S (> 0, with or without
+--span-out) also turns it on and keeps the span tree of every request
+slower than S seconds for GET /v1/admin/slow-requests. With the recorder
+on the engine records phase events (models/serving.py); with it off the
+serving path runs no tracing code, each of these routes answers 400, and
+the `spans` block and its families read 0. --optimizer-url URL pushes a
+density point (tokens/s and token p99 by model bucket, --tenants, slots)
+to the optimizer every --telemetry-interval seconds (at least 1), with this
+serve's bearer token.
+
 Disaggregated prefill/decode (--disagg): a "prefill" replica prefills each
 request, lands its first token and ejects it as a migrate frame whose
 resume has reason "handoff"; the fleet router splices the continuation
@@ -125,10 +143,14 @@ from typing import Callable, Optional
 import torch
 
 from .. import faultlab
+from ..agent.optimizer_client import HTTPOptimizerClient
+from ..autopilot.trace import TraceWriter, admin_trace
 from ..cost.cost_engine import (BudgetPeriod, BudgetScope, CostEngine,
                                 EnforcementPolicy, TenantMeter)
 from ..models import serving
 from ..models import transformer as tf
+from ..observability.flight import (ROOT_SPAN_REPLICA, FlightRecorder,
+                                    zero_metrics)
 from ..ops.quant import quantize_params
 from ..train.checkpoint import CheckpointManager
 from ..utils.device import resolve_device
@@ -137,6 +159,8 @@ from ..utils.httpjson import (StatusError, make_json_handler,
                               resolve_auth_token)
 from ..utils.procmetrics import ProcMetricsServer
 from ..utils.stats import LatencyWindow
+from ..utils.tracing import (InMemoryExporter, JsonlExporter,
+                             SlowRequestCapture, Tracer, admin_spans)
 
 # The serve defaults of the JAX package's knob registry
 # (autopilot/knobs.py, "serve" component), copied.
@@ -151,7 +175,9 @@ DEFAULTS = dict(port=8000, vocab_size=32768, d_model=2048,
                 overlap_commit=1, watchdog_timeout=0.0, preempt_cap=2,
                 default_tenant="anonymous", tenant_budget=[],
                 budget_period="daily", chip_hour_rate=1.20, disagg="off",
-                prefill_chunk_tokens=0, drain_eject_grace=0.0)
+                prefill_chunk_tokens=0, drain_eject_grace=0.0,
+                optimizer_url="", telemetry_interval=30.0, tenants=1,
+                trace_out="", span_out="", slo_capture_threshold=0.0)
 
 # /v1/generate fields of the JAX service that this replica refuses (400
 # naming the field) rather than drop, and why.
@@ -286,7 +312,27 @@ SERVING_FAMILIES = {
     # split is the /v1/metrics `faultlab` block). Zero without a plan.
     "ktwe_fault_injections_total":
         lambda m, b, s: faultlab.injections_total(),
+    # Traffic-trace records written (--trace-out; 0 when off).
+    "ktwe_serving_trace_records_total":
+        lambda m, b, s: m["trace"]["records"],
+    # The flight recorder: spans exported, write failures swallowed,
+    # slow-request trees captured; zeros when it is off.
+    "ktwe_serving_span_records_total":
+        lambda m, b, s: m["spans"]["records"],
+    "ktwe_serving_span_dropped_total":
+        lambda m, b, s: m["spans"]["dropped"],
+    "ktwe_serving_slow_requests_captured_total":
+        lambda m, b, s: m["spans"]["slow_captured"],
 }
+# Per-phase latency, from the same arithmetic as the span trees
+# (observability/flight.py). The prefetch phase has no sample until a host
+# KV tier exists.
+for _phase in ("queue_wait", "prefetch", "prefill", "decode_per_token",
+               "commit"):
+    for _q in ("p50", "p95", "p99"):
+        SERVING_FAMILIES[f"ktwe_serving_phase_seconds_{_phase}_{_q}"] = (
+            lambda m, b, s, _p=_phase, _q=_q: m["spans"]["phase_s"][_p][_q])
+del _phase, _q
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -412,10 +458,41 @@ def build_parser() -> argparse.ArgumentParser:
                         "default, kept so that both replicas of a mixed "
                         "fleet price in one currency; set your fleet's "
                         "own rate")
+    p.add_argument("--optimizer-url", type=str,
+                   help="POST engine metrics to this optimizer base URL "
+                        "(e.g. http://ktwe-optimizer:50051) every "
+                        "--telemetry-interval seconds")
+    p.add_argument("--telemetry-interval", type=float,
+                   help="seconds between optimizer pushes (>= 1)")
+    p.add_argument("--tenants", type=int,
+                   help="co-tenants time-sharing this card, reported with "
+                        "each optimizer push (default "
+                        "$KTWE_TIMESLICE_TENANTS, else 1)")
+    p.add_argument("--trace-out", type=str,
+                   help="record terminal generations as an NDJSON traffic "
+                        "trace (arrival time, token lengths, tenant and "
+                        "priority, stream flag, resume carry; POST "
+                        "/v1/admin/trace start/stop/rotate). Empty "
+                        "disables capture")
+    p.add_argument("--span-out", type=str,
+                   help="flight recorder: write every request's phase span "
+                        "tree as OTLP-shaped span NDJSON here, adopting the "
+                        "router's traceparent (POST /v1/admin/spans "
+                        "start/stop/rotate). Empty disables; the decode "
+                        "path then runs no tracing code")
+    p.add_argument("--slo-capture-threshold", type=float,
+                   help="keep the span tree of any request slower than this "
+                        "many seconds end to end (GET "
+                        "/v1/admin/slow-requests; with or without "
+                        "--span-out); 0 disables")
     p.add_argument("--config", type=str, default="",
                    help="ktwe.yaml knob file: its `serve:` section sets "
                         "defaults, flags on the command line win")
-    p.set_defaults(**DEFAULTS)
+    defaults = dict(DEFAULTS)
+    if os.environ.get("KTWE_TIMESLICE_TENANTS") is not None:
+        # The JAX knob registry's environment override of this default.
+        defaults["tenants"] = int(os.environ["KTWE_TIMESLICE_TENANTS"])
+    p.set_defaults(**defaults)
     return p
 
 
@@ -428,15 +505,25 @@ class ServeService:
     gates fresh requests on its budgets; `default_tenant` is metered for
     requests that name none. `role` ("mixed", "prefill" or "decode") is
     advertised in /v1/metrics; the engine enforces the prefill role
-    (handoff_first_token)."""
+    (handoff_first_token). `trace_writer` (a TraceWriter: --trace-out)
+    records every terminal view and every refused arrival; `flight` (a
+    FlightRecorder) exports a span tree per terminal view, and `span_log`
+    (its JsonlExporter: --span-out) is what /v1/admin/spans drives. None
+    turns each off."""
 
     def __init__(self, engine: serving.ContinuousBatchEngine,
                  drain_timeout: float = 30.0,
                  load_params: Optional[Callable] = None,
                  meter: Optional[TenantMeter] = None,
-                 default_tenant: str = "anonymous", role: str = "mixed"):
+                 default_tenant: str = "anonymous", role: str = "mixed",
+                 trace_writer: Optional[TraceWriter] = None,
+                 flight: Optional[FlightRecorder] = None,
+                 span_log: Optional[JsonlExporter] = None):
         self._engine = engine
         self.role = str(role or "mixed")
+        self._trace = trace_writer
+        self._flight = flight
+        self._span_log = span_log
         self._load_params = load_params
         self._meter = meter
         self.default_tenant = str(default_tenant)
@@ -513,10 +600,11 @@ class ServeService:
     # -- routes --
 
     @staticmethod
-    def _view(req, traceparent: Optional[str] = None) -> dict:
+    def _view(req, traceparent: Optional[str] = None, fctx=None) -> dict:
         """The final view. An ejected request reports status "migrate"
         with its resume state, the frame a router feeds back as
-        resumeFrom."""
+        resumeFrom. With the flight recorder on it names the trace of the
+        request's span tree ("traceId")."""
         status = ("cancelled" if req.cancelled
                   else "error" if req.finish_reason == "error"
                   else "migrate" if req.finish_reason == "migrated"
@@ -535,14 +623,18 @@ class ServeService:
             out["error"] = req.error
         if traceparent:
             out["traceparent"] = traceparent
+        if fctx is not None:
+            out["traceId"] = fctx.trace_id
         return out
 
     @staticmethod
-    def _timeout_view(rid: int, req, tokens, traceparent) -> dict:
+    def _timeout_view(rid: int, req, tokens, traceparent, fctx=None) -> dict:
         out = {"status": "timeout", "requestId": rid, "tokens": tokens,
                "logprobs": [round(x, 6) for x in req.logprobs]}
         if traceparent:
             out["traceparent"] = traceparent
+        if fctx is not None:
+            out["traceId"] = fctx.trace_id
         return out
 
     def generate(self, request: dict):
@@ -572,6 +664,10 @@ class ServeService:
                 # unlike the queue-pressure 429 below: the reason lets the
                 # fleet router pass this one through instead of retrying
                 # it elsewhere.
+                self._trace_rejected(
+                    tenant, priority, len(request.get("prompt") or []),
+                    int(request.get("maxNewTokens", 32) or 32),
+                    bool(request.get("stream")), reason="budget-exhausted")
                 raise StatusError(429, f"budget-exhausted: {why}",
                                   retry_after=reset_s,
                                   reason="budget-exhausted")
@@ -632,7 +728,12 @@ class ServeService:
                     f'"resumeFrom" carries {len(committed)} committed '
                     f'tokens but maxNewTokens is {n}: nothing left to '
                     f'generate')
+        stream = bool(request.get("stream", False))
         submitted_at = time.time()
+        # The request's trace identity, fixed at arrival: the router's
+        # trace when a traceparent came, else a fresh root.
+        fctx = (self._flight.context(traceparent, submitted_at)
+                if self._flight is not None else None)
         with self._lock:
             if prefix_id is not None and not eng.has_prefix(prefix_id):
                 raise ValueError(f'"prefixId" {prefix_id} is not a '
@@ -644,6 +745,8 @@ class ServeService:
                                  prng_key=prng_key, tenant=tenant,
                                  priority=priority, preempted=preempted)
             except serving.QueueFull as e:
+                self._trace_rejected(tenant, priority, len(prompt), n,
+                                     stream, reason="queue-pressure")
                 raise StatusError(429, str(e),
                                   retry_after=self._retry_after(1.0, 30.0),
                                   reason="queue-pressure")
@@ -654,9 +757,9 @@ class ServeService:
                 raise StatusError(503, str(e), retry_after=self._retry_after(
                     max(0.0, left), max(1.0, left)))
         self._wake.set()
-        if request.get("stream", False):
+        if stream:
             return self._stream_result(rid, timeout_s, submitted_at,
-                                       traceparent)
+                                       traceparent, fctx)
         deadline = time.time() + timeout_s
         while time.time() < deadline:
             with self._lock:
@@ -664,21 +767,22 @@ class ServeService:
                 done = req.done
             if done:
                 self._req_lat.record((time.time() - submitted_at) * 1e3)
-                self._meter_record(req)
-                return self._view(req, traceparent)
+                self._meter_record(req, submitted_at, fctx=fctx)
+                return self._view(req, traceparent, fctx)
             time.sleep(0.01)
         # Deadline: cancel so the slot frees, hand back the partial tokens
         # (they ran on the card: they are metered).
         with self._lock:
             cancelled = eng.cancel(rid)
             req = eng.result(rid)
-        self._meter_record(req)
+        self._meter_record(req, submitted_at, fctx=fctx)
         if not (cancelled or req.cancelled):
-            return self._view(req, traceparent)   # finished in the last gap
-        return self._timeout_view(rid, req, list(req.tokens), traceparent)
+            return self._view(req, traceparent, fctx)  # done in the last gap
+        return self._timeout_view(rid, req, list(req.tokens), traceparent,
+                                  fctx)
 
     def _stream_result(self, rid: int, timeout_s: float, submitted_at: float,
-                       traceparent: Optional[str] = None):
+                       traceparent: Optional[str] = None, fctx=None):
         """NDJSON generator: a {"tokens", "offset"} line per batch of new
         tokens, then the final view. A resumed request starts at its
         committed offset (those tokens are never re-emitted). A matched
@@ -706,18 +810,18 @@ class ServeService:
                     sent += len(fresh)
                 if done:
                     self._req_lat.record((time.time() - submitted_at) * 1e3)
-                    self._meter_record(req)
+                    self._meter_record(req, submitted_at, True, fctx)
                     metered = True
-                    yield self._view(req, traceparent)
+                    yield self._view(req, traceparent, fctx)
                     return
                 if time.time() > deadline:
                     with self._lock:
                         self._engine.cancel(rid)
                         req = self._engine.result(rid)
-                    self._meter_record(req)
+                    self._meter_record(req, submitted_at, True, fctx)
                     metered = True
                     yield self._timeout_view(rid, req, list(req.tokens[sent:]),
-                                             traceparent)
+                                             traceparent, fctx)
                     return
                 time.sleep(0.01)
         finally:
@@ -729,15 +833,23 @@ class ServeService:
                 if req is not None and not req.done:
                     self._engine.cancel(rid)
             if not metered and req is not None and req.done:
-                self._meter_record(req)      # the client walked away
+                # The client walked away.
+                self._meter_record(req, submitted_at, True, fctx)
 
-    def _meter_record(self, req) -> None:
-        """Meter one terminal view: the tokens generated on this replica
-        (a resume's committed tokens ran elsewhere) and the request's
-        chip-seconds, its slot residency (admitted_at -> done_at; queue
-        wait holds no slot) times the one device over the slots. A
-        migrated view meters its tokens and residency but no request: one
-        generation counts once, where it completes."""
+    def _meter_record(self, req, submitted_at: float, stream: bool = False,
+                      fctx=None) -> None:
+        """One terminal view: its traffic-trace record, its span tree
+        (flight recorder on) and its metering: the tokens generated on
+        this replica (a resume's committed tokens ran elsewhere) and the
+        request's chip-seconds, its slot residency (admitted_at ->
+        done_at; queue wait holds no slot) times the one device over the
+        slots. A migrated view meters its tokens and residency but no
+        request: one generation counts once, where it completes."""
+        self._trace_record(req, submitted_at, stream)
+        if self._flight is not None and fctx is not None:
+            # Built after the fact from the engine's timestamps and phase
+            # events: the whole cost lands here, off the decode path.
+            self._flight.record(req, fctx, stream=stream)
         if self._meter is None:
             return
         resident_s = (max(0.0, req.done_at - req.admitted_at)
@@ -748,6 +860,86 @@ class ServeService:
             max(0, len(req.tokens) - req.emit_from),
             resident_s / max(1, self._engine.num_slots),
             count_request=req.finish_reason != "migrated")
+
+    def _trace_record(self, req, submitted_at: float, stream: bool) -> None:
+        """One traffic-trace record per terminal view (--trace-out; a
+        record never raises). `ts` is the HTTP arrival; hops the carried
+        preempt count. TTFT comes from the engine's own perf_counter pair,
+        never the HTTP wall clock."""
+        if self._trace is None:
+            return
+        status = ("cancelled" if req.cancelled
+                  else "error" if req.finish_reason == "error"
+                  else "migrate" if req.finish_reason == "migrated"
+                  else "ok")
+        self._trace.record({
+            "kind": "generation",
+            "ts": round(submitted_at, 6),
+            "tenant": req.tenant or self.default_tenant,
+            "priority": req.priority,
+            "prompt_tokens": len(req.prompt),
+            "max_new": int(req.max_new_tokens),
+            "output_tokens": len(req.tokens),
+            "stream": bool(stream),
+            "resume": req.emit_from > 0,
+            "committed": req.emit_from,
+            "hops": int(req.preempted),
+            "status": status,
+            "ttft_ms": (round((req.first_token_at - req.submitted_at) * 1e3,
+                              3) if req.first_token_at else None),
+        })
+
+    def _trace_rejected(self, tenant: str, priority: str, prompt_len: int,
+                        max_new: int, stream: bool, reason: str) -> None:
+        """Trace a refused arrival (a queue-pressure or budget 429): a
+        storm trace without its shed peak would tune against milder load
+        than production saw."""
+        if self._trace is None:
+            return
+        self._trace.record({
+            "kind": "generation",
+            "ts": round(time.time(), 6),
+            "tenant": tenant,
+            "priority": priority,
+            "prompt_tokens": int(prompt_len),
+            "max_new": int(max_new),
+            "output_tokens": 0,
+            "stream": bool(stream),
+            "resume": False,
+            "hops": 0,
+            "status": "rejected",
+            "reason": reason,
+        })
+
+    def admin_trace(self, request: dict) -> dict:
+        """POST /v1/admin/trace: start/stop/rotate/status of the
+        --trace-out capture; 400 without it."""
+        return admin_trace(self._trace, request)
+
+    def admin_spans(self, request: dict) -> dict:
+        """POST /v1/admin/spans: start/stop/rotate/status of the
+        --span-out span log; 400 without it."""
+        return admin_spans(self._span_log, request)
+
+    def slow_requests(self, _request: dict) -> dict:
+        """GET /v1/admin/slow-requests: the span trees of the recent
+        requests over --slo-capture-threshold, most recent last; 400 when
+        the flight recorder is off."""
+        if self._flight is None:
+            raise ValueError(
+                "flight recorder is not configured (start with "
+                "--span-out and/or --slo-capture-threshold)")
+        return {"status": "ok", "slow": self._flight.slow_list()}
+
+    def _trace_metrics(self) -> dict:
+        """The /v1/metrics `trace` block; zeros without --trace-out."""
+        if self._trace is None:
+            return {"enabled": 0, "records": 0, "dropped": 0,
+                    "rotations": 0}
+        return {"enabled": int(self._trace.enabled),
+                "records": self._trace.records_total,
+                "dropped": self._trace.dropped_total,
+                "rotations": self._trace.rotations_total}
 
     def result(self, request: dict) -> dict:
         """POST or GET /v1/result {"requestId"}: the final view, or
@@ -874,6 +1066,11 @@ class ServeService:
         m["role"] = self.role
         m["device"] = str(self._engine.device)
         m["tenancy"] = self._tenancy_metrics()
+        m["trace"] = self._trace_metrics()
+        # The flight recorder's counters and phase windows (zeros when it
+        # is off, so the families stay alive).
+        m["spans"] = (self._flight.metrics() if self._flight is not None
+                      else zero_metrics())
         # FaultLab's per-site injections (the Prometheus family is the
         # total).
         m["faultlab"] = faultlab.snapshot()
@@ -903,15 +1100,68 @@ class ServeService:
 
 def make_handler(service: ServeService, auth_token: str = ""):
     """The HTTP handler serving `service`'s routes (the JAX serve's, but
-    /v1/kvhost and the trace, span and slow-request admin routes)."""
+    /v1/kvhost)."""
     return make_json_handler(
         {"/v1/generate": service.generate, "/v1/result": service.result,
          "/v1/cancel": service.cancel, "/v1/metrics": service.metrics,
          "/v1/prefix": service.prefix, "/v1/admin/reload": service.reload,
-         "/v1/admin/eject": service.eject},
+         "/v1/admin/eject": service.eject,
+         "/v1/admin/trace": service.admin_trace,
+         "/v1/admin/spans": service.admin_spans},
         get_routes={"/v1/result": service.result,
-                    "/v1/metrics": service.metrics, "/health": service.health},
+                    "/v1/metrics": service.metrics,
+                    "/v1/admin/slow-requests": service.slow_requests,
+                    "/health": service.health},
         auth_token=auth_token)
+
+
+def push_serving_telemetry(metrics: dict, client, bucket: str,
+                           tenants: int, slots: int) -> bool:
+    """One density point to the optimizer through an HTTPOptimizerClient
+    (bearer token, failure backoff, never raises). False when there is
+    nothing to report or the push failed."""
+    if metrics.get("tokens", 0) <= 0 or metrics["token_lat_p99_ms"] <= 0:
+        return False
+    resp = client.ingest_serving_telemetry({
+        "bucket": bucket,
+        "tokens_per_s": metrics["aggregate_tokens_per_s"],
+        "token_p99_ms": metrics["token_lat_p99_ms"],
+        "slots": slots, "tenants": tenants,
+    })
+    return resp.get("status") == "ok"
+
+
+def telemetry_bucket(args) -> str:
+    """The optimizer's model bucket of this serve, as the JAX serve names
+    it: d{d}-L{L}-ff{ff}-V{V}|{int8|bf16}."""
+    return (f"d{args.d_model}-L{args.n_layers}-ff{args.d_ff}"
+            f"-V{args.vocab_size}|{'int8' if args.int8 else 'bf16'}")
+
+
+def telemetry_loop(service: ServeService, client, bucket: str, tenants: int,
+                   slots: int, interval_s: float,
+                   stop: threading.Event) -> None:
+    """Push a density point every `interval_s` seconds until `stop`."""
+    while not stop.wait(interval_s):
+        push_serving_telemetry(service.metrics({})["metrics"], client,
+                               bucket, tenants, slots)
+
+
+def build_flight(args):
+    """(FlightRecorder, JsonlExporter) that `args` describe, or
+    (None, None) when neither --span-out nor --slo-capture-threshold asks
+    for the recorder. The slow-request ring wraps the span log (or, without
+    --span-out, an in-memory exporter)."""
+    if not (args.span_out or args.slo_capture_threshold > 0):
+        return None, None
+    span_log = JsonlExporter(args.span_out) if args.span_out else None
+    capture = SlowRequestCapture(
+        span_log if span_log is not None
+        else InMemoryExporter(capacity=1024),
+        threshold_s=args.slo_capture_threshold,
+        root_names=(ROOT_SPAN_REPLICA,))
+    return FlightRecorder(Tracer("ktwe-serve", capture),
+                          capture=capture), span_log
 
 
 def _finish_params(params, cfg: tf.TransformerConfig, int8: bool,
@@ -1003,7 +1253,10 @@ def make_engine(args, params) -> serving.ContinuousBatchEngine:
         watchdog_timeout=args.watchdog_timeout or None,
         preempt_cap=args.preempt_cap,
         prefill_chunk_tokens=args.prefill_chunk_tokens,
-        handoff_first_token=args.disagg == "prefill", device=device)
+        handoff_first_token=args.disagg == "prefill",
+        record_phase_events=bool(args.span_out
+                                 or args.slo_capture_threshold > 0),
+        device=device)
 
 
 def eject_grace_s(drain_timeout: float, drain_eject_grace: float) -> float:
@@ -1088,6 +1341,10 @@ def main(argv=None, *, stop: Optional[threading.Event] = None,
                          "complement of disaggregation; a --disagg "
                          "prefill replica has no decode to interleave "
                          "with")
+    if args.telemetry_interval < 1.0:
+        # The JAX knob registry's lower bound of this knob.
+        parser.error(f"--telemetry-interval {args.telemetry_interval} is "
+                     f"below 1.0")
     # FaultLab's replay entry point: KTWE_FAULT_SEED=N activates the plan
     # a failing run printed (inert without it).
     fault_plan = faultlab.from_env()
@@ -1107,12 +1364,20 @@ def main(argv=None, *, stop: Optional[threading.Event] = None,
         del params
     else:
         engine = build_engine(args)
+    # Traffic-trace capture and the flight recorder, each off unless asked.
+    trace_writer = TraceWriter(args.trace_out) if args.trace_out else None
+    flight, span_log = build_flight(args)
+    if flight is not None:
+        print(f"flight recorder on (span-out="
+              f"{args.span_out or '<memory>'}, slo-capture-threshold="
+              f"{args.slo_capture_threshold}s)", flush=True)
     service = ServeService(engine, drain_timeout=args.drain_timeout,
                            load_params=loader if args.checkpoint_dir
                            else None, meter=meter,
                            default_tenant=args.default_tenant,
                            role="mixed" if args.disagg == "off"
-                           else args.disagg)
+                           else args.disagg, trace_writer=trace_writer,
+                           flight=flight, span_log=span_log)
     service.last_swapped_step = ckpt_step
     server = ThreadingHTTPServer(("0.0.0.0", args.port),
                                  make_handler(service, auth_token))
@@ -1130,21 +1395,33 @@ def main(argv=None, *, stop: Optional[threading.Event] = None,
         stop = threading.Event()
         signal.signal(signal.SIGTERM, lambda *a: stop.set())
         signal.signal(signal.SIGINT, lambda *a: stop.set())
-    watcher = None
+    workers = []
     if args.watch_checkpoints > 0 and args.checkpoint_dir:
-        watcher = threading.Thread(
+        workers.append(threading.Thread(
             target=watch_checkpoints, args=(service, args.checkpoint_dir,
                                             args.watch_checkpoints, stop),
-            daemon=True, name="ktwe-serve-ckpt-watch")
-        watcher.start()
+            daemon=True, name="ktwe-serve-ckpt-watch"))
+    if args.optimizer_url:
+        # The serve's own bearer token: an optimizer deployed with auth
+        # would otherwise answer every push 401.
+        client = HTTPOptimizerClient(args.optimizer_url,
+                                     auth_token=auth_token)
+        workers.append(threading.Thread(
+            target=telemetry_loop, args=(
+                service, client, telemetry_bucket(args), args.tenants,
+                args.num_slots, args.telemetry_interval, stop),
+            daemon=True, name="ktwe-serve-telemetry"))
+    for worker in workers:
+        worker.start()
     if on_ready is not None:
         on_ready(port)
     try:
         stop.wait()
     finally:
-        if watcher is not None:
+        if workers:
             stop.set()
-            watcher.join()
+            for worker in workers:
+                worker.join()
         service.begin_drain()
         print(f"draining: waiting up to {args.drain_timeout}s for in-flight "
               f"requests", flush=True)
@@ -1160,6 +1437,10 @@ def main(argv=None, *, stop: Optional[threading.Event] = None,
             service.wait_drained(max(0.5, flush_reserve - 0.5))
             time.sleep(0.5)      # let streams flush their migrate frames
         service.stop()
+        if trace_writer is not None:
+            trace_writer.close()
+        if span_log is not None:
+            span_log.close()
         if metrics_srv is not None:
             metrics_srv.stop()
         server.shutdown()

@@ -133,6 +133,18 @@ XLA in the JAX package. Where JAX donates the cache to each program and
 threads it through a layer `scan`, the port writes the cache's new rows in
 place: no step copies it, and a prefill commits only the rows it owns.
 
+**Phase events** (`record_phase_events`, off by default). Each request
+then carries a `phase_events` list of (perf_counter, name, value) tuples,
+appended where the JAX engine appends them: `resume` at a submit with
+committed tokens, `eject` with its reason, `prefill_chunk` with the
+prefill offset after each chunk (the final one: the whole context),
+`decode_step` (the request's token count) and `commit` ((tokens, host
+seconds, overlapped)) at a commit, at most one of each a
+`phase_event_every` tokens. The serve main's flight recorder
+(observability/flight.py) turns them into span events. They are taken on
+the host at commit, never inside the captured decode graph; off, a
+request holds None and each site is one `is not None` check.
+
 FaultLab (faultlab/) names five of the JAX engine's fault boundaries here,
 where the JAX engine crosses them: `engine.dispatch` (a plain chunk's
 dispatch), `engine.collect` (its fetch), `engine.commit` (one request's
@@ -140,8 +152,9 @@ commit), `engine.paged_admit` (a paged admission, before anything is
 reserved) and `engine.prefill` (each prefill chunk). An injected fault
 takes the containment its boundary's real faults take.
 
-Not ported here (later slices): speculative decoding, the host-RAM KV
-tier, meshes (and the `engine.device_loss` site), and phase events.
+Not ported here (later slices): speculative decoding (and its
+`spec_round` event), the host-RAM KV tier, meshes (and the
+`engine.device_loss` site).
 Tenant metering and budgets live in the serve main (cost/cost_engine.py):
 the engine only carries each request's tenant. The serve main also
 advertises the disaggregated role.
@@ -715,6 +728,10 @@ class ServeRequest:
     tenant: str = ""
     priority: str = "interactive"
     preempted: int = 0
+    # The flight recorder's phase log (record_phase_events engines only;
+    # None otherwise, so a request with the recorder off allocates
+    # nothing): (perf_counter, name, value) tuples.
+    phase_events: Optional[list] = None
 
     @property
     def done(self) -> bool:
@@ -810,7 +827,9 @@ class ContinuousBatchEngine:
     eagerly, which exists to hold the graph to the eager path.
     `prefill_chunk_tokens > 0` replaces prefill_len and decodes the short
     quantum under a prefill backlog; `handoff_first_token` is the prefill
-    role (see the module notes)."""
+    role (see the module notes). `record_phase_events` gives every request
+    a phase_events log, its decode_step and commit events at most one a
+    `phase_event_every` tokens (see the module notes)."""
 
     def __init__(self, params: Params, cfg: tf.TransformerConfig, *,
                  num_slots: int = 4, max_seq: Optional[int] = None,
@@ -825,7 +844,9 @@ class ContinuousBatchEngine:
                  watchdog_timeout: Optional[float] = None,
                  cuda_graph: bool = True, preempt_cap: int = 2,
                  prefill_chunk_tokens: int = 0,
-                 handoff_first_token: bool = False, device="cuda"):
+                 handoff_first_token: bool = False,
+                 record_phase_events: bool = False,
+                 phase_event_every: int = 16, device="cuda"):
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
             raise ValueError(f"params live on {params['embed'].device}, the "
@@ -850,6 +871,10 @@ class ContinuousBatchEngine:
         self._decode_quantum = max(1, self.decode_chunk // 4)
         # The prefill role: one token a request, then a handoff eject.
         self.handoff_first_token = bool(handoff_first_token)
+        # The flight recorder's phase events (off: no request allocates a
+        # log and each site is one `is not None` check).
+        self._phases_on = bool(record_phase_events)
+        self._phase_event_every = max(1, int(phase_event_every))
         self.eos_id = eos_id
         self.temperature = float(temperature)
         self.top_k = int(top_k)
@@ -1222,6 +1247,11 @@ class ContinuousBatchEngine:
         self._next_id += 1
         req.base_key = (prng_key if prng_key is not None else np.asarray(
             [self._seed & 0xFFFFFFFF, req.req_id & 0xFFFFFFFF], np.uint32))
+        if self._phases_on:
+            req.phase_events = []
+            if committed:
+                req.phase_events.append(
+                    (req.submitted_at, "resume", len(committed)))
         if committed:
             # The logprob and latency rows are placeholders: the replica
             # that generated these tokens delivered the real ones.
@@ -1299,6 +1329,8 @@ class ContinuousBatchEngine:
         }
         req.resume_state = state
         req.finish_reason = "migrated"
+        if req.phase_events is not None:
+            req.phase_events.append((time.perf_counter(), "eject", reason))
         self._ejected_total += 1
         if reason == "handoff":
             self._handoffs_total += 1
@@ -1707,7 +1739,7 @@ class ContinuousBatchEngine:
         behind the next chunk's device execution."""
         t0 = time.perf_counter()
         self._resolve_first_tokens()
-        emitted = self._commit_chunk(*fetched)
+        emitted = self._commit_chunk(*fetched, overlapped)
         dur = time.perf_counter() - t0
         self._commit_rounds_total += 1
         self._commit_s_total += dur
@@ -1757,24 +1789,50 @@ class ContinuousBatchEngine:
         self._last_collect_t = now
         return now - base
 
-    def _commit_chunk(self, packed_h: np.ndarray, inflight: _Inflight) -> int:
+    def _commit_chunk(self, packed_h: np.ndarray, inflight: _Inflight,
+                      overlapped: bool) -> int:
         """Commit a fetched chunk slot by slot; each token's latency is the
         chunk's wall over its length. A request that finished, was
         cancelled or ejected after the dispatch drops its in-flight
-        tokens."""
+        tokens. With phase events on, a request's commit records its
+        decode_step and commit events (`overlapped`: this commit runs
+        behind the next chunk's device work)."""
         toks_h, lps_h = _unpack(packed_h)
         per_tok = self._collect_wall(inflight.t_start) / inflight.n
         emitted = 0
         for b, req in inflight.snapshot:
             if req.done:
                 continue
+            tc0 = (time.perf_counter()
+                   if req.phase_events is not None else 0.0)
             try:
                 faultlab.site("engine.commit")
-                emitted += self._commit_tokens(req, b, toks_h[:, b],
-                                               lps_h[:, b], per_tok)
+                n = self._commit_tokens(req, b, toks_h[:, b], lps_h[:, b],
+                                        per_tok)
             except Exception as e:             # noqa: BLE001 — contained
                 self._contain_commit_failure(req, e)
+                continue
+            emitted += n
+            if req.phase_events is not None and n:
+                self._phase_events_at_commit(
+                    req, n, time.perf_counter() - tc0, overlapped)
         return emitted
+
+    def _phase_events_at_commit(self, req: ServeRequest, n: int,
+                                dur_s: float, overlapped: bool) -> None:
+        """A request's decode_step and commit events for a commit of `n`
+        tokens, when that commit crossed a multiple of phase_event_every
+        in its token count (or was its first): (count) and (n, host
+        seconds, overlapped 0/1), the JAX engine's two events of a plain
+        chunk. Callers guard on phase_events."""
+        every = self._phase_event_every
+        total = len(req.tokens)
+        if (total - n) // every == total // every and total != n:
+            return
+        now = time.perf_counter()
+        req.phase_events.append((now, "decode_step", total))
+        req.phase_events.append(
+            (now, "commit", (n, dur_s, 1 if overlapped else 0)))
 
     def _commit_tokens(self, req: ServeRequest, b: int, toks, lps,
                        per_tok: float) -> int:
@@ -2058,6 +2116,9 @@ class ContinuousBatchEngine:
                                     st.offset, self._freqs)
             st.offset += self.prefill_len
             self._prefill_chunks_total += 1
+            if st.req.phase_events is not None:
+                st.req.phase_events.append(
+                    (time.perf_counter(), "prefill_chunk", st.offset))
             return
         # Final chunk: commit into the slot and sample token #1.
         padded = np.zeros((1, self.prefill_len), np.int64)
@@ -2084,6 +2145,9 @@ class ContinuousBatchEngine:
                 self.params, self._cache, st.temp, chunk, b, remaining,
                 self.cfg, st.offset, self._freqs, sampling)
         self._prefill_chunks_total += 1
+        if req.phase_events is not None:
+            req.phase_events.append(
+                (time.perf_counter(), "prefill_chunk", len(ctx)))
         self._prefill = None
         # The slot's device entries, written in place behind any chunk
         # already in flight: the first token goes to the next chunk
