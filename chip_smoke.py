@@ -138,10 +138,31 @@ inits in bf16:
      trace; one trace record a terminal view plus one rejected record;
      /v1/admin/trace rotates, /v1/admin/spans and /v1/admin/slow-requests
      answer (C's 400); a telemetry push with the serve's bucket, tenants 2
-     and slots 8; the 75 families served, the 19 new ones 0 on C; one
+     and slots 8; the 83 families served, the 19 new ones 0 on C; one
      decode graph capture a main. It prints ms a token p50 and commit
      seconds a token with the recorder on against off, the host ms of
      FlightRecorder.record a request, and span and trace bytes a request.
+     The spec phase runs speculative decoding (spec_k 4) on both engines,
+     graphed, on four traffics: the serving cell's 8 prompts drafted by an
+     oracle of the spec-off transcripts, 8 prompts of a repeated 8-token
+     cycle under the n-gram drafter, 4 greedy and 4 sampled requests, and
+     an adversarial drafter that collapses the controller to bypass
+     chunks. Gates: in f32 the spec engines' tokens equal the spec-off
+     engines' (sampled streams too) with verify rounds and every oracle
+     draft accepted (the n-gram traffic's rounds are counted: random
+     weights need not continue a cycle); graphed == eager bit for bit; one verify-graph capture
+     an engine, whose replay launches one gather and 2L+1 norms only; the
+     launches of each engine exactly those of its chunks, steps and verify
+     rounds (the paged decode kernel L times a step that is no verify
+     round); no page leaked; a --spec-k 4 serve main's `spec` block and
+     its 8 spec families (83 served), --spec-k with --int8-kv exit 2; the
+     generate main with --speculate-draft-layers 4 --speculate-k 4 at its
+     defaults, and the same speculative generation in f32 equal to the
+     plain greedy one with the launches of its passes. It prints the
+     verify round's device ms against a decode step's, draft host ms a
+     round, tokens a round, acceptance and ms a token p50 against
+     spec-off, per traffic and engine, and the bf16 streams equal to
+     spec-off.
      Every
      phase
      must launch exactly the kernels its prefill chunks, decode steps,
@@ -295,6 +316,10 @@ OBS_TRACEPARENT = "00-0af7651916cd43dd8448eb211c80319c-b7ad6b7169203331-01"
 OBS_TRACEPARENT_MIGRATE = ("00-4bf92f3577b34da6a3ce929d0e0e4736-"
                            "00f067aa0ba902b7-01")
 FLUSH_PROMPT, CANCEL_NEW = 15, 240
+# The spec phase: spec_k 4; the n-gram traffic's prompts repeat an 8-token
+# cycle (seed SPEC_SEED, which also keys the sampled requests) and take 64
+# new tokens.
+SPEC_K, SPEC_SEED, SPEC_CYCLE, SPEC_NGRAM_NEW = 4, 37, 8, 64
 
 # Training: the trainer main's defaults (cmd/trainer.py of the JAX package),
 # and the stash-path batch (the p/ds stash is 1.07 GB at batch 4, under the
@@ -446,14 +471,17 @@ def bound(bytes_moved: float, flops: float, dtype=torch.bfloat16):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def expected_launches(n_layers: int, lifetime: dict,
-                      paged: bool = False) -> dict:
+def expected_launches(n_layers: int, lifetime: dict, paged: bool = False,
+                      verify_rounds: int = 0) -> dict:
     """Kernel launches an engine run must have made: every prefill chunk
     runs one embedding gather, 2L+1 norms, 2L RoPE rotations (q and k) and
     L flash calls, all on the tensor-core body (serving is bf16); every
     decode step one gather, 2L+1 norms and, on the paged engine, L paged
     decode calls of two kernels each, the split-KV kernel and its combine
-    (dense decode RoPE and attention are plain torch)."""
+    (dense decode RoPE and attention are plain torch). A speculative verify
+    round counts one decode step: one gather over its (B, k+1) block and
+    2L+1 norms, and no paged decode (its RoPE and attention are plain
+    torch on both engines)."""
     chunks, steps = lifetime["prefill_chunks"], lifetime["decode_steps"]
     want = {"embed_gather": chunks + steps,
             "rms_norm": (2 * n_layers + 1) * (chunks + steps),
@@ -461,8 +489,8 @@ def expected_launches(n_layers: int, lifetime: dict,
             "flash_attention": n_layers * chunks,
             "flash_attention_wgmma": n_layers * chunks}
     if paged:
-        want["paged_decode"] = n_layers * steps
-        want["paged_decode_combine"] = n_layers * steps
+        want["paged_decode"] = n_layers * (steps - verify_rounds)
+        want["paged_decode_combine"] = n_layers * (steps - verify_rounds)
     return want
 
 
@@ -777,28 +805,43 @@ def check_kernels(dev, rms, rope, flash, paged, attn_mod) -> dict:
     # Flash: a prefill chunk against the static 256-row cache, at q_offset 0
     # and 128, a ragged GQA shape, and a chunked-prefill slice of 32 rows
     # (shorter than a 64-row tile) at q_offset 32 and 96 (the causal
-    # boundary inside a key tile; the disagg phase).
+    # boundary inside a key tile; the disagg phase). Then a speculative
+    # round's k+1 = 5 query rows at q_offset 131 and max_seq - 6, bf16 and
+    # f32: at the serve dims (head_dim 512, the 64-row tiles) and at the
+    # generate main's defaults (8 heads of 128, the 128-row tiles; its
+    # cache of 128 + 64 + k + 1 = 197 rows), as generate_speculative's
+    # passes give them to the kernel.
     cases = []
     s_max = SERVE_DIMS["max_seq"]
-    for (b, sq, sk, hh, kh, dd), q_off in (((1, PREFILL_LEN, s_max, h, h, hd),
-                                            0),
-                                           ((1, PREFILL_LEN, s_max, h, h, hd),
-                                            PREFILL_LEN),
-                                           ((2, 19, 45, 4, 2, 72), 20),
-                                           ((1, c32, s_max, h, h, hd), c32),
-                                           ((1, c32, s_max, h, h, hd),
-                                            3 * c32)):
-        q, k, v = randn(b, sq, hh, dd), randn(b, sk, kh, dd), randn(b, sk, kh, dd)
+    f32, gen_seq = torch.float32, 128 + 64 + SPEC_K + 1
+    tol = {torch.bfloat16: (BF16_ATOL, BF16_RTOL), f32: (1e-5, 1e-5)}
+    for (b, sq, sk, hh, kh, dd), q_off, dt in (
+            ((1, PREFILL_LEN, s_max, h, h, hd), 0, torch.bfloat16),
+            ((1, PREFILL_LEN, s_max, h, h, hd), PREFILL_LEN, torch.bfloat16),
+            ((2, 19, 45, 4, 2, 72), 20, torch.bfloat16),
+            ((1, c32, s_max, h, h, hd), c32, torch.bfloat16),
+            ((1, c32, s_max, h, h, hd), 3 * c32, torch.bfloat16),
+            ((1, SPEC_K + 1, s_max, h, h, hd), 131, torch.bfloat16),
+            ((1, SPEC_K + 1, s_max, h, h, hd), s_max - 6, torch.bfloat16),
+            ((1, SPEC_K + 1, s_max, h, h, hd), 131, f32),
+            ((1, SPEC_K + 1, s_max, h, h, hd), s_max - 6, f32),
+            ((1, SPEC_K + 1, gen_seq, 8, 8, 128), 131, torch.bfloat16),
+            ((1, SPEC_K + 1, gen_seq, 8, 8, 128), gen_seq - 6,
+             torch.bfloat16),
+            ((1, SPEC_K + 1, gen_seq, 8, 8, 128), 131, f32),
+            ((1, SPEC_K + 1, gen_seq, 8, 8, 128), gen_seq - 6, f32)):
+        q, k, v = (randn(b, n, hh_, dd, dtype=dt)
+                   for n, hh_ in ((sq, hh), (sk, kh), (sk, kh)))
         got = flash.flash_attention(q, k, v, True, q_off, 0)
         want = flash.flash_attention_plain(q, k, v, True, q_off, 0)
-        ea, er, ok = errors(got, want, BF16_ATOL, BF16_RTOL)
+        ea, er, ok = errors(got, want, *tol[dt])
         # Work this run's data needs: query row i sees keys
         # [0, min(sk, q_off + i + 1)).
         vis = [min(sk, q_off + i + 1) for i in range(sq)]
         flops = 4.0 * dd * sum(vis) * b * hh
         kv_rows = max(vis)
-        bts = 2 * (2 * q.numel() + 2 * b * kv_rows * kh * dd)
-        b_ms, b_by = bound(bts, flops)
+        bts = q.element_size() * (2 * q.numel() + 2 * b * kv_rows * kh * dd)
+        b_ms, b_by = bound(bts, flops, dt)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         kt = kt.repeat_interleave(hh // kh, dim=1)
         vt = vt.repeat_interleave(hh // kh, dim=1)
@@ -811,7 +854,7 @@ def check_kernels(dev, rms, rope, flash, paged, attn_mod) -> dict:
         def kernel():
             return flash.flash_attention(q, k, v, True, q_off, 0)
         cases.append(dict(shape=dict(b=b, sq=sq, sk=sk, h=hh, kh=kh, d=dd),
-                          q_offset=q_off, dtype="bfloat16",
+                          q_offset=q_off, dtype=str(dt).split(".")[-1],
                           **flash_body(flash, q.dtype, dd),
                           max_abs_err=ea, max_rel_err=er, ok=ok,
                           ms=device_ms(kernel), wrapper_ms=wrapper_ms(kernel),
@@ -3686,13 +3729,14 @@ def obs_phase(pa: int, pb: int, pc: int, mports, auth: dict, files: dict,
     code_off, slow_off = get_json(pc, "/v1/admin/slow-requests", auth)
     if code_off != 400:
         gates.append(f"recorder off: /v1/admin/slow-requests {code_off}")
-    # The families: all 75, the 19 new ones among them.
+    # The families: all 83 (since the spec slice), the 19 new ones among
+    # them.
     fam = serve.SERVING_FAMILIES
     series = scrape(mports[0], fam)
     series_off = scrape(mports[1], fam)
     new = [k for k in fam if "phase_seconds" in k or "_span_" in k
            or "slow_requests" in k or "trace_records" in k]
-    if len(fam) != 75 or len(new) != 19 or \
+    if len(fam) != 83 or len(new) != 19 or \
             series["ktwe_serving_span_records_total"] != len(spans_a) or \
             series["ktwe_serving_trace_records_total"] != len(recs_a) or \
             series["ktwe_serving_phase_seconds_prefill_p50"] <= 0 or \
@@ -4691,6 +4735,433 @@ def run_int8kv_f32(dev, mods, cfg8, params, prompts, gates) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# The spec phase: speculative decoding
+# ---------------------------------------------------------------------------
+
+
+class SwitchDrafter:
+    """The spec engines' drafter, switched between traffics (`fn`: context,
+    k -> drafts), with its host seconds counted."""
+
+    def __init__(self):
+        self.fn = None
+        self.s = 0.0
+
+    def __call__(self, context, k):
+        t = time.perf_counter()
+        try:
+            return self.fn(context, k)
+        finally:
+            self.s += time.perf_counter() - t
+
+
+def oracle_drafter(want: dict):
+    """Drafts from known continuations: `want` maps a prompt (a tuple of
+    PROMPT_LEN tokens) to the tokens the spec-off engine decoded after
+    it."""
+    def draft(context, k):
+        cont = want.get(tuple(context[:PROMPT_LEN]), [])
+        done = len(context) - PROMPT_LEN
+        return cont[done:done + k]
+    return draft
+
+
+def adversarial_drafter(vocab: int):
+    """A draft that is never the token the model just decoded plus one,
+    over and over: wrong (all but) every time."""
+    def draft(context, k):
+        return [(int(context[-1]) + 1) % vocab] * k
+    return draft
+
+
+def spec_traffic(vocab: int) -> dict:
+    """The spec phase's traffics: (a) the serving cell's 8 prompts of 128
+    tokens, 48 new, drafted by an oracle of the spec-off transcripts; (b)
+    8 prompts of a repeated 8-token cycle, 64 new, the n-gram drafter; (d)
+    the serving cell's prompts, 4 greedy (the oracle) and 4 sampled at
+    t 0.8; (c) the serving cell's prompts under the adversarial drafter
+    (last: its collapse lowers the engine-wide acceptance that new
+    admissions start from)."""
+    rng = np.random.default_rng(0)          # run_engine's first 8 prompts
+    cell = [rng.integers(0, vocab, PROMPT_LEN).tolist()
+            for _ in range(N_REQUESTS)]
+    rng = np.random.default_rng(SPEC_SEED)
+    cycle = [rng.integers(0, vocab, SPEC_CYCLE).tolist()
+             * (PROMPT_LEN // SPEC_CYCLE) for _ in range(N_REQUESTS)]
+    mixed = [(p, NEW_TOKENS, {} if i < N_REQUESTS // 2 else dict(
+        temperature=SAMPLED_T, prng_key=[SPEC_SEED, i]))
+        for i, p in enumerate(cell)]
+    return {"oracle": [(p, NEW_TOKENS, {}) for p in cell],
+            "ngram": [(p, SPEC_NGRAM_NEW, {}) for p in cycle],
+            "mixed": mixed,
+            "adversarial": [(p, NEW_TOKENS, {}) for p in cell]}
+
+
+def spec_drafters(speculative, want: dict, vocab: int) -> dict:
+    oracle = oracle_drafter(want)
+    return {"oracle": oracle, "ngram": speculative.NGramDrafter(3),
+            "mixed": oracle, "adversarial": adversarial_drafter(vocab)}
+
+
+def spec_off_runs(serving, params, cfg, dev, traffic, bl) -> dict:
+    """The spec-off engine's requests of each traffic (the adversarial
+    one is the oracle's prompts again), after a warm-up request."""
+    eng = new_engine(serving, params, cfg, dev, kv_block_len=bl)
+    run_all(eng, [(traffic["ngram"][0][0], 16, {})])
+    out = {name: run_all(eng, traffic[name])
+           for name in ("oracle", "ngram", "mixed")}
+    out["adversarial"] = out["oracle"]
+    if bl and not pages_back(eng):
+        fail("spec-off paged engine leaked pages")
+    return out
+
+
+def bracket_replays(graph) -> list:
+    """CUDA events around each replay of `graph` (its capture left out),
+    taken as the replays run; read them after a synchronize."""
+    events, replay = [], graph.replay
+
+    def call(run):
+        if not graph.captures:
+            return replay(run)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        replay(run)
+        ev[1].record()
+        events.append(ev)
+    graph.replay = call
+    return events
+
+
+def spec_engine(serving, params, cfg, dev, bl, **kw):
+    """(a spec engine at spec_k SPEC_K, its switchable drafter)."""
+    drafter = SwitchDrafter()
+    return new_engine(serving, params, cfg, dev, kv_block_len=bl,
+                      spec_k=SPEC_K, drafter=drafter, **kw), drafter
+
+
+def drive_spec(eng, drafter, speculative, traffic, want) -> dict:
+    """A spec engine through a warm-up request (its graphs' captures) and
+    the traffics in order, its drafter switched between them. Per
+    traffic: the requests, the spec counters' deltas and the drafter's
+    host seconds."""
+    drafters = spec_drafters(speculative, want, eng.cfg.vocab_size)
+    drafter.fn = drafters["ngram"]
+    run_all(eng, [(traffic["ngram"][0][0], 16, {})])
+    out = {}
+    for name in ("oracle", "ngram", "mixed", "adversarial"):
+        drafter.fn = drafters[name]
+        before, s0 = dict(eng.metrics()["spec"]), drafter.s
+        reqs = run_all(eng, traffic[name])
+        after = eng.metrics()["spec"]
+        delta = {k: after[k] - before[k] for k in (
+            "rounds_total", "bypass_rounds_total", "tokens_total",
+            "draft_proposed_total", "draft_accepted_total")}
+        delta["slot_rounds"] = sum(after["k_hist"]) - sum(before["k_hist"])
+        out[name] = dict(reqs=reqs, spec=delta, draft_s=drafter.s - s0)
+    if eng.kv_block_len and not pages_back(eng):
+        fail("a spec paged engine leaked pages")
+    return out
+
+
+def spec_equal(runs: dict, ref: dict) -> dict:
+    """Requests of each traffic whose tokens equal the reference's."""
+    return {name: [sum(g.tokens == w.tokens for g, w in
+                       zip(run["reqs"], ref[name])), len(ref[name])]
+            for name, run in runs.items()}
+
+
+def spec_report(runs: dict, off: dict, chunk_ms: list,
+                verify_ms: list) -> dict:
+    """Per traffic: tokens a round (and a slot-round), acceptance, bypass
+    rounds, the drafter's host ms a verify round and a dispatch (verify
+    and bypass rounds: the drafter runs at both), ms a token p50 against
+    the spec-off engine's."""
+    out = {}
+    for name, run in runs.items():
+        d = run["spec"]
+        out[name] = dict(
+            rounds=d["rounds_total"], bypass_rounds=d["bypass_rounds_total"],
+            tokens_per_round=(d["tokens_total"] / d["rounds_total"]
+                              if d["rounds_total"] else 0.0),
+            tokens_per_slot_round=(d["tokens_total"] / d["slot_rounds"]
+                                   if d["slot_rounds"] else 0.0),
+            acceptance=(d["draft_accepted_total"]
+                        / d["draft_proposed_total"]
+                        if d["draft_proposed_total"] else 0.0),
+            draft_host_ms_per_verify_round=(
+                run["draft_s"] * 1e3 / d["rounds_total"]
+                if d["rounds_total"] else 0.0),
+            draft_host_ms_per_dispatch=(
+                run["draft_s"] * 1e3
+                / max(1, d["rounds_total"] + d["bypass_rounds_total"])),
+            ms_per_token_p50=decode_p50_ms(run["reqs"]),
+            ms_per_token_p50_spec_off=decode_p50_ms(off[name]))
+    return dict(traffic=out,
+                verify_round_device_ms_p50=float(np.median(verify_ms))
+                if verify_ms else None,
+                decode_step_device_ms_p50=float(np.median(chunk_ms))
+                / DECODE_CHUNK if chunk_ms else None,
+                verify_rounds_timed=len(verify_ms),
+                chunks_timed=len(chunk_ms))
+
+
+def run_spec_f32(dev, serving, speculative, params, cfg, traffic, gates):
+    """The f32 gates: on both engines the spec engine's tokens equal the
+    spec-off engine's in every traffic, (d)'s sampled streams included,
+    with verify rounds (the oracle's guarantee them; on random weights the
+    n-gram drafter finds few matches) and every oracle draft accepted."""
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    p32 = cast_params(params, torch.float32)
+    out = {}
+    for kind, bl in (("dense", 0), ("paged", KV_BLOCK_LEN)):
+        off = spec_off_runs(serving, p32, cfg32, dev, traffic, bl)
+        want = {tuple(p): r.tokens for (p, _, _), r in
+                zip(traffic["oracle"], off["oracle"])}
+        runs = drive_spec(*spec_engine(serving, p32, cfg32, dev, bl),
+                          speculative, traffic, want)
+        equal = spec_equal(runs, off)
+        for name in runs:
+            if equal[name][0] != equal[name][1]:
+                gates.append(f"f32 {kind} spec engine: {name} requests "
+                             f"{equal[name]} equal spec-off")
+        if runs["oracle"]["spec"]["rounds_total"] <= 0:
+            gates.append(f"f32 {kind}: no verify round")
+        d = runs["oracle"]["spec"]
+        if d["draft_accepted_total"] != d["draft_proposed_total"]:
+            gates.append(f"f32 {kind} oracle acceptance "
+                         f"{d['draft_accepted_total']} of "
+                         f"{d['draft_proposed_total']}")
+        out[kind] = dict(equal=equal, counters={
+            name: run["spec"] for name, run in runs.items()})
+        del runs, off
+    del p32
+    torch.cuda.empty_cache()
+    return out
+
+
+SPEC_BLOCK_KEYS = {"enabled", "k", "rounds_total", "bypass_rounds_total",
+                   "tokens_total", "draft_proposed_total",
+                   "draft_accepted_total", "acceptance_rate",
+                   "tokens_per_round", "effective_tokens_per_step",
+                   "k_hist"}
+
+
+def run_spec_serve(serve, kernels, traffic, gates) -> dict:
+    """A --spec-k 4 serve main with a metrics port answers 3 greedy
+    requests of the cycle prompts: /v1/metrics has the `spec` block with
+    the JAX engine's keys and its speculative dispatches counted (verify
+    rounds where the n-gram drafter found a match, bypass rounds where it
+    found none: random weights need not continue a cycle), the port serves
+    83 families with the 8 spec ones at the table's values, and the
+    launches are those of its chunks, steps and rounds. --spec-k 4 with
+    --int8-kv is a parser error (exit 2)."""
+    with contextlib.redirect_stderr(io.StringIO()) as err:
+        try:
+            serve.main(["--device", "cuda", "--spec-k", "4", "--int8-kv"])
+            int8_exit = 0
+        except SystemExit as e:
+            int8_exit = e.code
+    if int8_exit != 2 or "--int8-kv" not in err.getvalue():
+        gates.append(f"--spec-k 4 --int8-kv exited {int8_exit}: "
+                     f"{err.getvalue()[-200:]}")
+    mport = free_port()
+    kernels.reset_launches()
+    main = ServeMain(serve, ["--device", "cuda", "--port", "0", "--seed",
+                             "0", "--spec-k", str(SPEC_K), "--metrics-port",
+                             str(mport)])
+    try:
+        for p, _, _ in traffic["ngram"][:3]:
+            code, r = post_json(main.port, "/v1/generate",
+                                {"prompt": p, "maxNewTokens": 32})
+            if code != 200 or len(r.get("tokens", [])) != 32:
+                gates.append(f"spec serve main: {code} {str(r)[:200]}")
+        m = get_metrics(main.port)
+        series = scrape(mport, serve.SERVING_FAMILIES)
+    finally:
+        main.close()
+    launches = dict(kernels.launches)
+    spec = m["spec"]
+    want = expected_launches(SERVE_DIMS["n_layers"], m["lifetime"],
+                             verify_rounds=spec["rounds_total"])
+    if launches != want:
+        gates.append(f"spec serve main launches {launches}, want {want}")
+    if set(spec) != SPEC_BLOCK_KEYS or not spec["enabled"] \
+            or spec["rounds_total"] + spec["bypass_rounds_total"] <= 0:
+        gates.append(f"spec serve main: spec block {spec}")
+    fam = {k: v for k, v in series.items() if "_spec_" in k}
+    if len(series) != 83 or len(fam) != 8 or any(
+            fam[k] != float(serve.SERVING_FAMILIES[k](
+                m, m["slots_busy"], m["slots"])) for k in fam) \
+            or fam["ktwe_serving_spec_rounds_total"] != spec["rounds_total"]:
+        gates.append(f"spec serve main families: {len(series)} served, "
+                     f"{fam}")
+    return dict(spec=spec, families=len(series), spec_families=fam,
+                lifetime=m["lifetime"], int8_kv_exit=int8_exit,
+                launches=launches)
+
+
+def run_spec_generate(dev, generate, decode, tf, kernels, gates) -> dict:
+    """The generate main with --batch-size 1 --speculate-draft-layers 4
+    --speculate-k 4 at its defaults (bf16): its "speculative" result;
+    then the same speculative generation in f32 against the plain greedy
+    one, token for token, with the launches of its forward passes (the
+    flash kernel at 5 query rows at the stream's offset)."""
+    argv = ["--batch-size", "1", "--speculate-draft-layers", "4",
+            "--speculate-k", "4"]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = generate.main(argv)
+    line = json.loads(out.getvalue().strip().splitlines()[-1])
+    spec = line.get("speculative") or {}
+    if rc != 0 or not spec.get("rounds"):
+        gates.append(f"generate main --speculate-*: rc {rc}, {line}")
+    args = generate.build_parser().parse_args(argv)
+    cfg = tf.TransformerConfig(
+        vocab_size=args.vocab_size, d_model=args.d_model,
+        n_layers=args.n_layers, n_heads=args.n_heads,
+        n_kv_heads=args.n_kv_heads or args.n_heads, d_ff=args.d_ff,
+        max_seq=args.prompt_len + args.gen_len, dtype=torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    params = tf.init_params(gen, cfg)
+    prompt = torch.randint(0, cfg.vocab_size, (1, args.prompt_len),
+                           generator=gen, device=dev)
+    kernels.reset_launches()
+    stats, toks = generate._run_speculative(args, cfg, params, prompt)
+    launches = dict(kernels.launches)
+    max_seq = args.prompt_len + args.gen_len + args.speculate_k + 1
+    plain = decode.generate(params, prompt, args.gen_len, cfg,
+                            max_seq=max_seq)
+    if not torch.equal(toks, plain):
+        gates.append(f"f32 generate_speculative diverges from the plain "
+                     f"greedy generation at {divergence(toks[0].tolist(), plain[0].tolist())}")
+    # Two runs (warm-up and timed); a run: the target's prefill and one
+    # verify a round, the draft's prefill and k + 1 passes a round.
+    n, k, layers = args.speculate_draft_layers, args.speculate_k, cfg.n_layers
+    calls = [(layers, 1 + stats["rounds"]),
+             (n, 1 + stats["rounds"] * (k + 1))]
+    want = {"embed_gather": 2 * sum(c for _, c in calls),
+            "rms_norm": 2 * sum((2 * nl + 1) * c for nl, c in calls),
+            "rope": 2 * sum(2 * nl * c for nl, c in calls),
+            "flash_attention": 2 * sum(nl * c for nl, c in calls)}
+    if launches != want:
+        gates.append(f"f32 generate_speculative launches {launches}, its "
+                     f"passes need {want}")
+    del params
+    torch.cuda.empty_cache()
+    return dict(main_bf16=spec, main_sample_tail=line.get("sample_tail"),
+                main_plain={k: line.get(k) for k in (
+                    "wall_s", "prefill_s", "tokens_per_s",
+                    "decode_ms_per_token")},
+                f32=dict(stats, equal_plain=bool(torch.equal(toks, plain)),
+                         launches=launches))
+
+
+def run_spec(dev, mods, cfg, params, card) -> dict:
+    """The spec phase at the serve defaults, spec_k SPEC_K, bf16, graphed,
+    on the dense and the paged engine (pages of 16), with the launch
+    counters set to 0 just before each graphed spec engine is built and
+    read after its traffics. Gates: the f32 twins of every traffic equal
+    spec-off token for token (sampled streams included) with verify rounds
+    (the n-gram traffic's counted: random weights need not continue a
+    cycle); graphed == eager (the same traffics, cuda_graph=False) bit for
+    bit, tokens and logprobs; one verify-graph capture an engine, whose
+    replay launches the gather and the 2L+1 norms and nothing else (no
+    paged decode, RoPE or flash); the launches exactly expected_launches
+    with a verify round one decode step; the adversarial traffic's
+    collapse to bypass chunks; no page leaked; the spec serve main; the
+    generate main's speculation. Printed: the verify round's device ms
+    against a decode step's (CUDA events around the replays), draft host
+    ms a round, tokens a round and acceptance, and ms a token p50 spec
+    against spec-off, per traffic and engine; the bf16 streams equal to
+    spec-off, counted."""
+    kernels, rms, rope, flash, paged, tf, decode, serving, serve = mods
+    from k8s_gpu_workload_enhancer_tpu_torch.cmd import generate
+    from k8s_gpu_workload_enhancer_tpu_torch.models import speculative
+    gates, out = [], {}
+    t_phase = time.perf_counter()
+    n_layers = cfg.n_layers
+    traffic = spec_traffic(cfg.vocab_size)
+    launches = {}
+    verify_launches = {"embed_gather": 1, "rms_norm": 2 * n_layers + 1}
+    for kind, bl in (("dense", 0), ("paged", KV_BLOCK_LEN)):
+        off = spec_off_runs(serving, params, cfg, dev, traffic, bl)
+        want = {tuple(p): r.tokens for (p, _, _), r in
+                zip(traffic["oracle"], off["oracle"])}
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        eng, drafter = spec_engine(serving, params, cfg, dev, bl,
+                                   watchdog_timeout=WATCHDOG_S)
+        verify_ev = bracket_replays(eng._verify_graph)
+        chunk_ev = bracket_replays(eng._graph)
+        graphed = drive_spec(eng, drafter, speculative, traffic, want)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        got = dict(kernels.launches)
+        life = eng.metrics()["lifetime"]
+        spec_total = eng.metrics()["spec"]
+        want_l = expected_launches(n_layers, life, paged=bool(bl),
+                                   verify_rounds=spec_total["rounds_total"])
+        if got != want_l:
+            gates.append(f"spec {kind} launches {got}, its chunks, steps "
+                         f"and verify rounds need {want_l}")
+        for k_, v in got.items():
+            launches[k_] = launches.get(k_, 0) + v
+        vg = eng._verify_graph
+        if vg.captures != 1 or dict(vg.launches) != verify_launches:
+            gates.append(f"spec {kind}: {vg.captures} verify captures, a "
+                         f"replay launches {dict(vg.launches)}, want 1 and "
+                         f"{verify_launches}")
+        hp = eng.metrics()["hotpath"]
+        if eng.metrics()["resilience"]["watchdog_trips"]:
+            gates.append(f"spec {kind}: the watchdog tripped")
+        verify_ms = [a.elapsed_time(b) for a, b in verify_ev]
+        chunk_ms = [a.elapsed_time(b) for a, b in chunk_ev]
+        del eng._verify_graph.replay, eng._graph.replay
+        adv = graphed["adversarial"]["spec"]
+        if adv["bypass_rounds_total"] <= 0 or \
+                adv["draft_accepted_total"] > 0.2 * max(
+                    1, adv["draft_proposed_total"]):
+            gates.append(f"spec {kind}: the adversarial drafter did not "
+                         f"collapse to bypass chunks: {adv}")
+        for name in ("oracle", "mixed"):
+            if graphed[name]["spec"]["rounds_total"] <= 0:
+                gates.append(f"spec {kind} {name}: no verify round")
+        del eng
+        eager = drive_spec(*spec_engine(serving, params, cfg, dev, bl,
+                                        cuda_graph=False,
+                                        watchdog_timeout=WATCHDOG_S),
+                           speculative, traffic, want)
+        for name in graphed:
+            hold_to_eager(graphed[name]["reqs"], eager[name]["reqs"],
+                          f"spec {kind} engine ({name})")
+            if graphed[name]["spec"] != eager[name]["spec"]:
+                gates.append(f"spec {kind} {name}: graphed counters "
+                             f"{graphed[name]['spec']}, eager "
+                             f"{eager[name]['spec']}")
+        out[kind] = dict(spec_report(graphed, off, chunk_ms, verify_ms),
+                         bf16_equal_spec_off=spec_equal(graphed, off),
+                         k_hist=spec_total["k_hist"], lifetime=life,
+                         hotpath=hp, wall_s=wall_s, launches=got)
+        del eager, off, graphed
+        torch.cuda.empty_cache()
+    out["f32"] = run_spec_f32(dev, serving, speculative, params, cfg,
+                              traffic, gates)
+    out["serve"] = run_spec_serve(serve, kernels, traffic, gates)
+    for k_, v in out["serve"]["launches"].items():
+        launches[k_] = launches.get(k_, 0) + v
+    out["generate"] = run_spec_generate(dev, generate, decode, tf, kernels,
+                                        gates)
+    return dict(config=dict(SERVE_DIMS, dtype="bfloat16", spec_k=SPEC_K,
+                            num_slots=NUM_SLOTS, prefill_len=PREFILL_LEN,
+                            decode_chunk=DECODE_CHUNK,
+                            kv_block_len=KV_BLOCK_LEN),
+                card=card, **out, launches=launches,
+                phase_wall_s=time.perf_counter() - t_phase,
+                gates_failed=gates)
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: where a step's device time goes
 # ---------------------------------------------------------------------------
 
@@ -5061,6 +5532,10 @@ def main() -> int:
           flush=True)
     for gate in results["int8kv"]["gates_failed"]:
         fail(gate)
+    results["spec"] = run_spec(dev, mods, cfg, params, card)
+    print(json.dumps({"spec": results["spec"]}), flush=True)
+    for gate in results["spec"]["gates_failed"]:
+        fail(gate)
     del params
     torch.cuda.empty_cache()
     results["paged_serve"] = run_serve(serve, kernels, paged=True)
@@ -5125,12 +5600,13 @@ def main() -> int:
     print(json.dumps({"profile": results["profile"]}), flush=True)
 
     serving_phases = ("engine", "serve", "paged_engine", "paged_serve",
-                      "tenancy", "disagg", "int8kv", "checkpoint_serve",
-                      "checkpoint_paged_serve", "fleet", "fleet_paged",
-                      "observability")
+                      "tenancy", "disagg", "int8kv", "spec",
+                      "checkpoint_serve", "checkpoint_paged_serve", "fleet",
+                      "fleet_paged", "observability")
     train_phases = ("train", "train_stash")
     paged_phases = ("paged_engine", "paged_serve", "tenancy", "disagg",
-                    "checkpoint_paged_serve", "fleet_paged", "observability")
+                    "spec", "checkpoint_paged_serve", "fleet_paged",
+                    "observability")
     # The checkpoint phase's trainer runs the t-layout path (head_dim 512).
     t_layout = ("flagship", "checkpoint_train")
     every = serving_phases + train_phases

@@ -1,23 +1,29 @@
 """Single-stream inference main of the PyTorch port (models/decode.py).
 
-Port of k8s_gpu_workload_enhancer_tpu/cmd/generate.py without its mesh and
-speculative options: a seeded random model prefills a seeded random prompt
-batch and decodes, then one JSON line reports the throughput (prefill and
-per-token decode separated).
+Port of k8s_gpu_workload_enhancer_tpu/cmd/generate.py without its mesh
+option: a seeded random model prefills a seeded random prompt batch and
+decodes, then one JSON line reports the throughput (prefill and per-token
+decode separated). `--speculate-draft-layers N` then also runs early-exit
+self-drafting speculative decoding (models/speculative.py; batch 1,
+greedy): its stats go under the line's "speculative" key and its tokens
+into "sample_tail".
 
     python -m k8s_gpu_workload_enhancer_tpu_torch.cmd.generate \
         --prompt-len 128 --gen-len 64 --batch-size 8
+    python -m k8s_gpu_workload_enhancer_tpu_torch.cmd.generate \
+        --batch-size 1 --speculate-draft-layers 4 --speculate-k 4
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 
 import torch
 
-from ..models import decode, transformer as tf
+from ..models import decode, speculative, transformer as tf
 from ..ops.quant import quantize_params
 from ..utils.device import resolve_device
 
@@ -39,9 +45,63 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--quantize-int8", action="store_true",
                    help="weight-only int8 quantization (ops/quant.py)")
+    p.add_argument("--speculate-draft-layers", type=int, default=0,
+                   help="early-exit self-drafting speculative decoding "
+                        "(models/speculative.py): the draft is the "
+                        "target's FIRST N layers sharing the same "
+                        "embed/head weights (no extra HBM). Output is "
+                        "target-equivalent regardless of draft quality; "
+                        "requires --batch-size 1 and greedy. 0 = off")
+    p.add_argument("--speculate-k", type=int, default=4,
+                   help="draft tokens proposed per verify round")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; raises without a card) or cpu")
     return p
+
+
+def early_exit_draft(params: tf.Params, cfg: tf.TransformerConfig,
+                     n: int) -> tuple:
+    """(draft params, draft cfg): the target's first `n` layers, sharing
+    its embedding, head and norms (only the stacked layer leaves are
+    sliced, quantized q8/scale pairs together; views, no copies)."""
+    def first(node):
+        if isinstance(node, dict):
+            return {k: first(v) for k, v in node.items()}
+        return node[:n]
+    draft = {k: v for k, v in params.items() if k != "layers"}
+    draft["layers"] = first(params["layers"])
+    return draft, dataclasses.replace(cfg, n_layers=n)
+
+
+def _run_speculative(args, cfg: tf.TransformerConfig, params: tf.Params,
+                     prompt: torch.Tensor) -> tuple:
+    """Early-exit self-draft speculative generation of `prompt` (1, P):
+    one warm-up run (the kernels' builds), one timed. Whatever the draft
+    accepts, the greedy verify makes the tokens the target's; the knob
+    trades draft compute for accepted tokens a round (reported). Returns
+    (the stats, the tokens (1, P + gen_len))."""
+    n = args.speculate_draft_layers
+    draft, draft_cfg = early_exit_draft(params, cfg, n)
+    max_seq = args.prompt_len + args.gen_len + args.speculate_k + 1
+
+    def run():
+        return speculative.generate_speculative(
+            params, cfg, draft, draft_cfg, prompt, args.gen_len,
+            k=args.speculate_k, max_seq=max_seq)
+    run()
+    _sync(prompt.device)
+    t0 = time.perf_counter()
+    toks, rounds = run()
+    _sync(prompt.device)
+    wall = time.perf_counter() - t0
+    stats = speculative.spec_stats(rounds, args.gen_len)
+    return {
+        "draft_layers": n, "k": args.speculate_k,
+        "rounds": stats.rounds,
+        "tokens_per_round": round(stats.tokens_per_round, 2),
+        "wall_s": round(wall, 4),
+        "tokens_per_s": round(args.gen_len / wall, 1),
+    }, toks
 
 
 def _sync(device: torch.device) -> None:
@@ -53,6 +113,19 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.gen_len < 1:
         build_parser().error("--gen-len must be >= 1")
+    if args.speculate_draft_layers > 0:
+        # Validate everything before the baseline runs.
+        if args.batch_size != 1 or args.temperature > 0:
+            build_parser().error(
+                "--speculate-draft-layers needs --batch-size 1 and "
+                "greedy (temperature 0) — speculation is per-stream")
+        if args.speculate_draft_layers >= args.n_layers:
+            build_parser().error(
+                f"--speculate-draft-layers {args.speculate_draft_layers}"
+                f" must be < --n-layers {args.n_layers} (the draft is a"
+                f" strict early exit)")
+        if args.speculate_k < 1:
+            build_parser().error("--speculate-k must be >= 1")
     device = resolve_device(args.device)
     max_seq = args.prompt_len + args.gen_len
     cfg = tf.TransformerConfig(
@@ -86,9 +159,13 @@ def main(argv=None) -> int:
 
     dt_prefill, _ = timed(1)                    # prefill + 1 token
     dt, out = timed(args.gen_len)               # prefill + gen_len tokens
+    spec_stats = None
+    if args.speculate_draft_layers > 0:
+        spec_stats, out = _run_speculative(args, cfg, params, prompt)
     decode_steps = max(args.gen_len - 1, 1)
     decode_ms = 1e3 * max(dt - dt_prefill, 0.0) / decode_steps
     print(json.dumps({
+        **({"speculative": spec_stats} if spec_stats else {}),
         "devices": torch.cuda.device_count() if device.type == "cuda" else 1,
         "platform": "gpu" if device.type == "cuda" else "cpu",
         "device_name": (torch.cuda.get_device_name(device)

@@ -69,7 +69,12 @@ reports the pool in its `kv_cache` block. --metrics-port P serves the
 dispatched (bisection; the tokens are the same); --watchdog-timeout S fails
 the in-flight batch when a chunk has not landed S seconds after its
 dispatch. --int8-kv stores the KV cache as int8 with per-row f32 scales
-(models/decode.py), on both engines.
+(models/decode.py), on both engines. --spec-k K > 0 decodes
+speculatively (models/serving.py): up to K n-gram self-drafts a greedy
+slot (--spec-ngram, the longest n-gram matched), verified in one
+(K+1)-wide round; greedy tokens are those of --spec-k 0, /v1/metrics grows
+its `spec` block and --metrics-port the ktwe_serving_spec_* families. It
+refuses --int8-kv (exit 2).
 KTWE_FAULT_SEED=N (with KTWE_FAULT_RATE and a comma-separated
 KTWE_FAULT_SITES) activates a FaultLab plan at start (faultlab/; printed as
 `[faultlab] ACTIVE: ...`); the engine's sites then inject faults, which
@@ -177,7 +182,8 @@ DEFAULTS = dict(port=8000, vocab_size=32768, d_model=2048,
                 budget_period="daily", chip_hour_rate=1.20, disagg="off",
                 prefill_chunk_tokens=0, drain_eject_grace=0.0,
                 optimizer_url="", telemetry_interval=30.0, tenants=1,
-                trace_out="", span_out="", slo_capture_threshold=0.0)
+                trace_out="", span_out="", slo_capture_threshold=0.0,
+                spec_k=0, spec_ngram=3)
 
 # /v1/generate fields of the JAX service that this replica refuses (400
 # naming the field) rather than drop, and why.
@@ -324,6 +330,32 @@ SERVING_FAMILIES = {
     "ktwe_serving_slow_requests_captured_total":
         lambda m, b, s: m["spans"]["slow_captured"],
 }
+# Speculative decoding (zeros with --spec-k 0): lifetime counters;
+# acceptance_rate is accepted over proposed drafts, tokens_per_round the
+# committed tokens a verify round, effective_k the mean dispatched draft
+# length a slot-round (k_hist's total; slots riding a round without
+# drafting count 0). The per-length histogram is in /v1/metrics
+# (spec.k_hist).
+SERVING_FAMILIES.update({
+    "ktwe_serving_spec_rounds_total":
+        lambda m, b, s: m["spec"]["rounds_total"],
+    "ktwe_serving_spec_bypass_rounds_total":
+        lambda m, b, s: m["spec"]["bypass_rounds_total"],
+    "ktwe_serving_spec_tokens_total":
+        lambda m, b, s: m["spec"]["tokens_total"],
+    "ktwe_serving_spec_draft_proposed_total":
+        lambda m, b, s: m["spec"]["draft_proposed_total"],
+    "ktwe_serving_spec_draft_accepted_total":
+        lambda m, b, s: m["spec"]["draft_accepted_total"],
+    "ktwe_serving_spec_acceptance_rate":
+        lambda m, b, s: m["spec"]["acceptance_rate"],
+    "ktwe_serving_spec_tokens_per_round":
+        lambda m, b, s: m["spec"]["tokens_per_round"],
+    "ktwe_serving_spec_effective_k":
+        lambda m, b, s: (m["spec"]["draft_proposed_total"]
+                         / sum(m["spec"]["k_hist"])
+                         if sum(m["spec"]["k_hist"]) else 0.0),
+})
 # Per-phase latency, from the same arithmetic as the span trees
 # (observability/flight.py). The prefetch phase has no sample until a host
 # KV tier exists.
@@ -372,6 +404,19 @@ def build_parser() -> argparse.ArgumentParser:
                         "equal HBM to the dense cache). Raise slots "
                         "and keep this fixed to trade per-request "
                         "headroom for density")
+    p.add_argument("--spec-k", type=int,
+                   help="speculative decoding: propose up to K draft "
+                        "tokens per slot per step (self-drafting "
+                        "n-gram lookup, no second model) and verify+"
+                        "commit up to K+1 tokens in one dispatch. "
+                        "Greedy outputs are bitwise-identical to "
+                        "--spec-k 0; adaptive per-slot k falls back to "
+                        "plain decode under low acceptance. 0 disables "
+                        "(docs/operations.md runbook for tuning)")
+    p.add_argument("--spec-ngram", type=int,
+                   help="longest context n-gram the self-drafter "
+                        "matches when proposing drafts (walks down "
+                        "to 1); only with --spec-k > 0")
     p.add_argument("--prefill-len", type=int,
                    help="prefill CHUNK size; longer prompts prefill in "
                         "chunks up to max-seq - maxNewTokens")
@@ -1256,7 +1301,7 @@ def make_engine(args, params) -> serving.ContinuousBatchEngine:
         handoff_first_token=args.disagg == "prefill",
         record_phase_events=bool(args.span_out
                                  or args.slo_capture_threshold > 0),
-        device=device)
+        spec_k=args.spec_k, spec_ngram=args.spec_ngram, device=device)
 
 
 def eject_grace_s(drain_timeout: float, drain_eject_grace: float) -> float:
@@ -1328,6 +1373,11 @@ def main(argv=None, *, stop: Optional[threading.Event] = None,
         # A pool size without a page size would silently build the dense
         # engine; fail fast instead.
         parser.error("--kv-num-blocks requires --kv-block-len > 0")
+    if args.spec_k and args.int8_kv:
+        # The engine raises the same constraint at construction; say it in
+        # flag language before the model loads.
+        parser.error("--spec-k does not support --int8-kv yet (the "
+                     "verify program carries no KV scale rows)")
     if args.prefill_chunk_tokens:
         if args.max_seq % args.prefill_chunk_tokens:
             parser.error(f"--prefill-chunk-tokens "

@@ -22,6 +22,9 @@ included, so prefill still runs the flash kernel; the serving engine's
 decode folds the scales into its logits and probabilities instead
 (models/serving.py).
 
+`scatter_rows` and `spec_write_rows` are the multi-row cache writes of the
+serving engine's speculative verify rounds (models/serving.py `spec_k`).
+
 Not ported here: mesh sharding.
 """
 
@@ -128,6 +131,32 @@ def paged_rows(table: torch.Tensor, positions: torch.Tensor,
     blk = blk.expand(*table.shape[:-1], blk.shape[-1])
     phys = torch.gather(table, -1, blk.to(torch.int64))
     return phys * block_len + positions % block_len
+
+
+def scatter_rows(leaf: torch.Tensor, vals: torch.Tensor,
+                 rows: torch.Tensor) -> None:
+    """Per-slot multi-row cache write, in place: leaf (B, S, ...) <- vals
+    (B, T, ...) at per-slot row indices rows (B, T). One indexed write
+    (never an accumulate), so a CUDA graph captures it. Unlike a T-row
+    window write, whose clamped start would shift the whole window back
+    over valid rows near the cache end, each row lands on its own index;
+    callers clamp out-of-range rows to a spill row whose garbage is never
+    attended (spec_write_rows). Duplicate (clamped) indices land on that
+    spill row only, where which write wins is a don't-care."""
+    b = leaf.shape[0]
+    leaf[torch.arange(b, device=leaf.device)[:, None], rows] = vals
+
+
+def spec_write_rows(pos: torch.Tensor, t: int, max_seq: int) -> torch.Tensor:
+    """Write rows for a t-token speculative block at per-slot positions
+    pos (B,): row i of slot b is min(pos[b] + i, max_seq - 1). Rows clamped
+    to the last cache row are SPILL writes: engines running speculation
+    keep that row out of every request's live range (prompt + max_new <=
+    max_seq - 1), so spilled garbage is never attended and never overwrites
+    a row a live query needs this round."""
+    return torch.clamp(
+        pos[:, None] + torch.arange(t, device=pos.device)[None, :],
+        max=max_seq - 1)
 
 
 def forward_cached(params: Params, tokens: torch.Tensor, cache: KVCache,

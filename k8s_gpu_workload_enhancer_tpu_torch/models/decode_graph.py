@@ -9,9 +9,17 @@ every kernel of every step from Python.
 
 The captured program reads and writes only static storage: the engine's
 device slot mirrors, its Gumbel noise buffer, the paged block table, the
-cache (with an int8 cache's scales) and the params (models/serving.py `_run_chunk`). The engine writes
-those in place between replays, on the same stream, so stream order and
-no sync separates an admission's writes from the chunks around it.
+cache (with an int8 cache's scales) and the params (models/serving.py
+`_run_chunk`). The engine writes those in place between replays, on the
+same stream, so stream order and no sync separates an admission's writes
+from the chunks around it.
+
+A speculative engine captures its verify round the same way, as one more
+graph (`_run_verify`, the counterpart of the JAX engine's jitted
+`_spec_verify_chunk[_paged]`): its inputs are the static (B, k+1) block,
+whose draft columns the host fills before each replay, and the draft
+lengths; it writes the packed round and the slot mirrors. No `.item()` or
+host branch runs inside it.
 
 The first replay captures. Its warm-up pass, run eagerly on a side stream
 as CUDA graphs ask (libraries and workspaces initialise outside the

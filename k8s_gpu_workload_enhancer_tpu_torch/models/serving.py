@@ -76,6 +76,30 @@ k8s_gpu_workload_enhancer_tpu/models/serving.py.
   fleet router continues on a decode replica. Such an engine never
   dispatches a decode chunk (and never captures a graph); a request of one
   new token finishes normally.
+- **Speculative decoding** (`spec_k > 0`). Each step drafts up to spec_k
+  tokens a greedy slot on the host (the n-gram self-drafter over the slot's
+  own committed tokens, or any `drafter` callable), then ONE (spec_k + 1)
+  -wide verify round over every slot (`_spec_verify`: each row writes its
+  K/V at spec_write_rows before the attention reads, row i attends [0,
+  pos + i]; on the paged engine through the block table, rows past a
+  reservation in the trash page, the layer read in logical order, never
+  the paged decode kernel) accepts the longest matching prefix a slot on
+  the device and commits accepted + 1 tokens. Sampled slots ride the
+  round without drafting and sample their one token from row 0 with the
+  noise of their sample index, so their stream is the spec-off engine's.
+  A per-slot acceptance EMA shrinks a slot's draft length under rejection
+  down to 0; a round where no slot drafts is a plain decode chunk (the
+  bypass), and after 8 such rounds in a row every live slot re-probes at
+  one draft. Greedy tokens equal the spec-off engine's at f32
+  (speculation moves the schedule, never the tokens); in bf16 the
+  (k+1)-row matmuls round otherwise than single rows, so near-ties may
+  part. A verify round is collected in the step that dispatched it, in
+  the JAX engine's order (the round in flight is fetched before the
+  drafts, committed after the dispatch); a bypass chunk stays in flight
+  across steps only while no live slot could draft. On the card the round
+  is one more captured graph over static block and draft-length buffers.
+  One spill row at the cache end is kept out of every request's span
+  (the submit bound), and speculation refuses the int8 KV cache.
 - **Lifecycle.** `submit` bounds the queue (`QueueFull`), `cancel` evicts
   wherever the request is (a chunk in flight drops its tokens at commit),
   results stay until `release`d or aged out past `keep_results`, `drain`
@@ -127,9 +151,10 @@ k8s_gpu_workload_enhancer_tpu/models/serving.py.
   no host branch or sync.
 
 The norms, prefill RoPE, prefill attention and paged decode attention run
-the hand-written CUDA kernels on the card (ops/). Dense decode attention,
-decode RoPE, the KV writes and sampling are plain torch, as they are plain
-XLA in the JAX package. Where JAX donates the cache to each program and
+the hand-written CUDA kernels on the card (ops/); a verify round runs the
+norms and the embedding gather. Dense decode attention, decode and verify
+RoPE and attention, the KV writes and sampling are plain torch, as they are
+plain XLA in the JAX package. Where JAX donates the cache to each program and
 threads it through a layer `scan`, the port writes the cache's new rows in
 place: no step copies it, and a prefill commits only the rows it owns.
 
@@ -140,20 +165,21 @@ committed tokens, `eject` with its reason, `prefill_chunk` with the
 prefill offset after each chunk (the final one: the whole context),
 `decode_step` (the request's token count) and `commit` ((tokens, host
 seconds, overlapped)) at a commit, at most one of each a
-`phase_event_every` tokens. The serve main's flight recorder
+`phase_event_every` tokens (a verify round's commit records
+`spec_round` ((count, proposed, accepted)) in place of `decode_step`).
+The serve main's flight recorder
 (observability/flight.py) turns them into span events. They are taken on
 the host at commit, never inside the captured decode graph; off, a
 request holds None and each site is one `is not None` check.
 
 FaultLab (faultlab/) names five of the JAX engine's fault boundaries here,
-where the JAX engine crosses them: `engine.dispatch` (a plain chunk's
-dispatch), `engine.collect` (its fetch), `engine.commit` (one request's
-commit), `engine.paged_admit` (a paged admission, before anything is
+where the JAX engine crosses them: `engine.dispatch` (a plain chunk's or
+a verify round's dispatch), `engine.collect` (its fetch), `engine.commit`
+(one request's commit), `engine.paged_admit` (a paged admission, before anything is
 reserved) and `engine.prefill` (each prefill chunk). An injected fault
 takes the containment its boundary's real faults take.
 
-Not ported here (later slices): speculative decoding (and its
-`spec_round` event), the host-RAM KV tier, meshes (and the
+Not ported here (later slices): the host-RAM KV tier, meshes (and the
 `engine.device_loss` site).
 Tenant metering and budgets live in the serve main (cost/cost_engine.py):
 the engine only carries each request's tenant. The serve main also
@@ -179,7 +205,7 @@ from ..ops.quant import as_compute
 from .. import faultlab
 from ..utils.device import resolve_device
 from ..utils.stats import percentile
-from . import decode, decode_graph, paged_kv
+from . import decode, decode_graph, paged_kv, speculative
 from . import transformer as tf
 
 Params = tf.Params
@@ -571,6 +597,123 @@ def _decode_chunk_paged(params: Params, pool: decode.KVCache,
                   lambda p: _paged_attend(pool, table, p, block_len))
 
 
+def _attend_block(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
+                  mask: torch.Tensor) -> torch.Tensor:
+    """Verify attention of q (B, T, H, D) over each slot's rows kc, vc (B,
+    S, KH, D) in logical order, masked by mask (B, T, S): _attend_rows for
+    T query rows a slot. Query heads are grouped by KV head, with f32
+    products."""
+    b, t, nh, hd = q.shape
+    s_max, nkh = kc.shape[1], kc.shape[2]
+    g, dt = nh // nkh, q.dtype
+    kt = kc.transpose(1, 2).reshape(b * nkh, s_max, hd).to(dt)
+    vt = vc.transpose(1, 2).reshape(b * nkh, s_max, hd).to(dt)
+    qg = q.reshape(b, t, nkh, g, hd).permute(0, 2, 1, 3, 4)
+    logits = _bmm_f32(qg.reshape(b * nkh, t * g, hd), kt.transpose(1, 2))
+    logits = (logits * hd ** -0.5).reshape(b, nkh, t, g, s_max)
+    logits = torch.where(mask[:, None, :, None, :], logits, NEG_INF)
+    p = torch.softmax(logits, dim=-1).reshape(b * nkh, t * g, s_max)
+    o = _bmm_f32(p.to(dt), vt).reshape(b, nkh, t, g, hd)
+    return o.permute(0, 2, 1, 3, 4).reshape(b, t, nh, hd).to(dt)
+
+
+def _verify_block(params: Params, cache: decode.KVCache,
+                  block: torch.Tensor, pos: torch.Tensor,
+                  cfg: tf.TransformerConfig, freqs: torch.Tensor,
+                  sampling: _Sampling, table: Optional[torch.Tensor],
+                  block_len: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One batched multi-token verify step at per-slot positions.
+
+    block: (B, T) candidate tokens (T = spec_k + 1; row 0 is the slot's
+    committed token, rows 1.. its drafts). Row i's output is what the model
+    emits after [history..., block[:i + 1]]: a T-step incremental decode in
+    one pass. Each row's K/V is written at spec_write_rows before the
+    attention reads the layer; row i attends [0, pos + i]. `table` None is
+    the dense cache; otherwise the paged pool through the block table,
+    rows past a reservation landing in the trash page, and the attention
+    reads each slot's rows in logical order (the paged decode kernel is
+    single-token, as the JAX engine's). Row 0 samples with `sampling`'s
+    first noise row (a sampled slot never drafts, so its row 0 is the only
+    row it can commit); rows 1.. take the argmax. Returns (out (B, T)
+    int64, the model logprobs of out (B, T) f32)."""
+    dt = cfg.dtype
+    b, t = block.shape
+    nh, nkh, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
+    paged = table is not None
+    s_max = table.shape[1] * block_len if paged else cache.max_seq
+    wrows = decode.spec_write_rows(pos, t, s_max)                 # (B, T)
+    flat_rows = wrows.reshape(b * t)
+    jpos = torch.arange(s_max, device=pos.device)
+    posm = pos[:, None] + torch.arange(t, device=pos.device)[None, :]
+    mask = jpos[None, None, :] <= posm[:, :, None]                # (B, T, S)
+    if paged:
+        nb, bl = cache.k.shape[1:3]
+        rows_all = decode.paged_rows(table, jpos[None, :], block_len)
+        wphys = decode.paged_rows(table, wrows, block_len).reshape(b * t)
+    x = embed_tokens(params["embed"], block, d, dt)               # (B, T, D)
+    for layer in range(cfg.n_layers):
+        lp = tf.layer_params(params, layer)
+        h = rms_norm(x.reshape(b * t, d), lp["ln1"])
+        q = (h @ as_compute(lp["wq"], dt).reshape(d, nh * hd)
+             ).reshape(b * t, nh, hd)
+        k = (h @ as_compute(lp["wk"], dt).reshape(d, nkh * hd)
+             ).reshape(b * t, nkh, hd)
+        v = (h @ as_compute(lp["wv"], dt).reshape(d, nkh * hd)
+             ).reshape(b, t, nkh, hd)
+        q = _rope_at(q, freqs, flat_rows).reshape(b, t, nh, hd)
+        k = _rope_at(k, freqs, flat_rows).reshape(b, t, nkh, hd)
+        if paged:
+            fk = cache.k[layer].view(nb * bl, nkh, hd)
+            fv = cache.v[layer].view(nb * bl, nkh, hd)
+            fk[wphys] = k.reshape(b * t, nkh, hd)
+            fv[wphys] = v.reshape(b * t, nkh, hd)
+            ka, va = fk[rows_all], fv[rows_all]                   # (B, S, ...)
+        else:
+            decode.scatter_rows(cache.k[layer], k, wrows)
+            decode.scatter_rows(cache.v[layer], v, wrows)
+            ka, va = cache.k[layer], cache.v[layer]
+        o = _attend_block(q, ka, va, mask)
+        x = x + (o.reshape(b * t, nh * hd)
+                 @ as_compute(lp["wo"], dt).reshape(nh * hd, d)
+                 ).reshape(b, t, d)
+        h2 = rms_norm(x.reshape(b * t, d), lp["ln2"])
+        x = x + swiglu(h2, as_compute(lp["w_gate"], dt),
+                       as_compute(lp["w_up"], dt),
+                       as_compute(lp["w_down"], dt)).reshape(b, t, d)
+    x = rms_norm(x.reshape(b * t, d), params["final_ln"])
+    head = as_compute(tf.output_head(params, cfg), dt)
+    logits = (x @ head).float().reshape(b, t, -1)
+    out = torch.cat([sampling.sample(logits[:, 0], 0)[:, None],
+                     torch.argmax(logits[:, 1:], dim=-1)], dim=1)
+    lps = torch.log_softmax(logits, dim=-1).gather(2, out[..., None])[..., 0]
+    return out, lps
+
+
+def _spec_verify(params: Params, cache: decode.KVCache, block: torch.Tensor,
+                 draft_len: torch.Tensor, pos: torch.Tensor,
+                 cfg: tf.TransformerConfig, freqs: torch.Tensor,
+                 sampling: _Sampling, table: Optional[torch.Tensor],
+                 block_len: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Verify and accept, on the device: `_verify_block`, then each slot's
+    emitted count (speculative.accept_counts), its next token (the last
+    emitted one) and its position advanced past them (clamped to s_max -
+    1). Returns (packed (B, 2T+1) int32: the T candidate tokens, their f32
+    logprobs bitcast and the emitted count; the next tokens; the
+    positions). Rejected rows stay garbage behind the frontier, overwritten
+    by the next round before any mask admits them."""
+    s_max = table.shape[1] * block_len if table is not None \
+        else cache.max_seq
+    out, lps = _verify_block(params, cache, block, pos, cfg, freqs,
+                             sampling, table, block_len)
+    emitted = speculative.accept_counts(block[:, 1:], out, draft_len)
+    cur = out.gather(1, (emitted - 1)[:, None])[:, 0]
+    packed = torch.cat([out.to(torch.int32),
+                        lps.float().contiguous().view(torch.int32),
+                        emitted[:, None].to(torch.int32)], dim=1)
+    return packed, cur, torch.clamp(pos + emitted, max=s_max - 1)
+
+
 def _init_temp_cache(cfg: tf.TransformerConfig, max_seq: int,
                      device) -> decode.KVCache:
     """Batch-1 temp prefill cache."""
@@ -788,12 +931,15 @@ class _Inflight:
     wall starts there: an eager chunk's launches take host time) and
     ended (the watchdog's deadline runs from there, so a capture never
     counts), and the chunk's length (decode_chunk, or the quantum): its
-    copy holds exactly that many rows."""
+    copy holds exactly that many rows. A speculative verify round carries
+    its slots' draft lengths in `dlen` (None for a decode chunk), and its
+    copy the packed (B, 2T+1) round."""
     copy: _HostCopy
     snapshot: List[Tuple[int, ServeRequest]]
     t_start: float
     t_dispatch: float
     n: int
+    dlen: Optional[np.ndarray] = None
 
 
 @dataclass
@@ -829,7 +975,12 @@ class ContinuousBatchEngine:
     quantum under a prefill backlog; `handoff_first_token` is the prefill
     role (see the module notes). `record_phase_events` gives every request
     a phase_events log, its decode_step and commit events at most one a
-    `phase_event_every` tokens (see the module notes)."""
+    `phase_event_every` tokens (see the module notes). `spec_k > 0` turns
+    on speculative decoding: up to spec_k drafts a greedy slot from
+    `drafter` (any callable (context, k) -> tokens; default an NGramDrafter
+    of max_n `spec_ngram`), verified in one (spec_k + 1)-wide round, with
+    the per-slot adaptive controller unless `spec_adaptive` is False (see
+    the module notes)."""
 
     def __init__(self, params: Params, cfg: tf.TransformerConfig, *,
                  num_slots: int = 4, max_seq: Optional[int] = None,
@@ -846,7 +997,9 @@ class ContinuousBatchEngine:
                  prefill_chunk_tokens: int = 0,
                  handoff_first_token: bool = False,
                  record_phase_events: bool = False,
-                 phase_event_every: int = 16, device="cuda"):
+                 phase_event_every: int = 16, spec_k: int = 0,
+                 spec_ngram: int = 3, spec_adaptive: bool = True,
+                 drafter: Optional[Callable] = None, device="cuda"):
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
             raise ValueError(f"params live on {params['embed'].device}, the "
@@ -890,6 +1043,38 @@ class ContinuousBatchEngine:
         self.watchdog_timeout = (float(watchdog_timeout)
                                  if watchdog_timeout else None)
         self.max_prefixes = int(max_prefixes)
+        # Speculative decoding: drafts on the host, one verify round a step
+        # (the module notes); the floor under rejection is plain decode.
+        self.spec_k = int(spec_k or 0)
+        self._spec = self.spec_k > 0
+        self.spec_ngram = int(spec_ngram)
+        self._spec_adaptive = bool(spec_adaptive)
+        if self._spec:
+            if cfg.kv_cache_int8:
+                raise ValueError(
+                    "speculation (spec_k > 0) does not support "
+                    "kv_cache_int8 yet — the verify program carries no "
+                    "scale rows (same gate as generate_speculative)")
+            if drafter is None:
+                drafter = speculative.NGramDrafter(max_n=self.spec_ngram)
+        self._drafter = drafter
+        # The per-slot adaptive controller: draft length and acceptance
+        # EMA a slot, reset at admission; the slow engine-wide EMA decides
+        # whether an admission starts at full k or at one probe.
+        self._spec_k_cur = [self.spec_k] * int(num_slots)
+        self._spec_ema = [1.0] * int(num_slots)
+        self._spec_global_ema = 1.0
+        # Consecutive all-bypass rounds before speculation re-probes at k=1.
+        self._spec_reprobe = 8
+        self._spec_rounds_total = 0
+        self._spec_tokens_total = 0
+        self._spec_proposed_total = 0
+        self._spec_accepted_total = 0
+        self._spec_bypass_total = 0
+        self._spec_bypass_streak = 0
+        # Slot-rounds by dispatched draft length (0: rode the round without
+        # drafting).
+        self._spec_k_hist = [0] * (self.spec_k + 1)
         # How many times one batch generation may be preempted, fleet-wide
         # (its carried `preempted` count); 0 disables preemption.
         self.preempt_cap = int(preempt_cap)
@@ -971,6 +1156,23 @@ class ContinuousBatchEngine:
             decode_graph.DecodeGraph(dev)
             if graphed and self._chunked_prefill
             and self._decode_quantum != self.decode_chunk else None)
+        # The verify round's static buffers: the (B, k+1) block (column 0
+        # the slots' next tokens, copied on the device; the host's drafts
+        # go into the rest before each round), the draft lengths and the
+        # packed (B, 2k+3) round with its host buffer. It is one more
+        # graph, captured on the first round.
+        if self._spec:
+            t = self.spec_k + 1
+            self._block_d = torch.zeros((n, t), dtype=torch.int64,
+                                        device=dev)
+            self._dlen_d = torch.zeros(n, dtype=torch.int64, device=dev)
+            self._spec_out_d = torch.zeros((n, 2 * t + 1), dtype=torch.int32,
+                                           device=dev)
+            self._spec_out_h = torch.zeros(self._spec_out_d.shape,
+                                           dtype=torch.int32,
+                                           pin_memory=dev.type == "cuda")
+        self._verify_graph = (decode_graph.DecodeGraph(dev)
+                              if graphed and self._spec else None)
         self._queue: deque = deque()
         self._reqs: Dict[int, ServeRequest] = {}
         self._done_order: deque = deque()
@@ -1220,11 +1422,16 @@ class ContinuousBatchEngine:
                                  "prefix (sampling reads the final prompt "
                                  "row)")
             prompt = self._prefixes[prefix_id].tokens + prompt
-        limit = self.max_seq - max_new_tokens
+        # Speculation keeps one spill row at the cache end out of every live
+        # range: a verify round writes up to spec_k rows past the frontier,
+        # clamped there (decode.spec_write_rows).
+        limit = self.max_seq - max_new_tokens - (1 if self._spec else 0)
         if not 0 < len(prompt) <= limit:
-            raise ValueError(f"prompt length {len(prompt)} (incl. prefix) not"
-                             f" in [1, {limit}] (max_seq {self.max_seq} - "
-                             f"max_new_tokens {max_new_tokens})")
+            raise ValueError(
+                f"prompt length {len(prompt)} (incl. prefix) not in [1, "
+                f"{limit}] (max_seq {self.max_seq} - max_new_tokens "
+                f"{max_new_tokens}"
+                + (" - 1 speculation spill row)" if self._spec else ")"))
         if self._paged:
             need = paged_kv.blocks_needed(len(prompt) + max_new_tokens,
                                           self.kv_block_len)
@@ -1496,6 +1703,8 @@ class ContinuousBatchEngine:
                 self._resolve_first_tokens()
             except Exception as e:             # noqa: BLE001 — contained
                 self._contain_collect_failure(e)
+        if self._spec:
+            return self._step_spec()
         emitted = 0
         inflight, self._inflight = self._inflight, None
         if inflight is not None and not self.overlap_commit:
@@ -1523,6 +1732,58 @@ class ContinuousBatchEngine:
                 self._contain_collect_failure(e)
                 return 0
         self._inflight = nxt
+        return emitted
+
+    def _step_spec(self) -> int:
+        """step() past admission on a speculative engine, in the JAX
+        engine's order: fetch the round in flight, dispatch the next one
+        (its drafts first), commit the fetched round behind it, then
+        collect the new round at once unless it is a bypass chunk while no
+        live slot could draft. A round is in flight across steps only as
+        such a chunk, so a slot that drafts has every token of its own
+        committed (its first token lands before its drafts)."""
+        emitted, fetched = 0, None
+        inflight, self._inflight = self._inflight, None
+        if inflight is not None:
+            try:
+                fetched = self._fetch(inflight)
+            except Exception as e:             # noqa: BLE001 — contained
+                self._contain_collect_failure(e)
+                return 0
+            if not self.overlap_commit:
+                try:
+                    emitted = self._commit_phase(fetched, overlapped=False)
+                except Exception as e:         # noqa: BLE001 — contained
+                    self._contain_collect_failure(e)
+                    return emitted
+                fetched = None
+        nxt = None
+        if any(r is not None for r in self._slot_req):
+            try:
+                nxt = self._dispatch_round()
+            except WatchdogTimeout as e:
+                # A first token that never landed, met before drafting.
+                self._contain_collect_failure(e)
+            except Exception as e:             # noqa: BLE001 — contained
+                self._contain_dispatch_failure(e)
+        if fetched is not None:
+            try:
+                emitted = self._commit_phase(fetched,
+                                             overlapped=nxt is not None)
+            except Exception as e:             # noqa: BLE001 — contained
+                # The round just dispatched descends from the same state;
+                # its requests were failed with the batch.
+                self._contain_collect_failure(e)
+                nxt = None
+        if nxt is not None:
+            if nxt.dlen is None and not self._spec_can_draft():
+                self._inflight = nxt
+            else:
+                try:
+                    emitted += self._commit_phase(self._fetch(nxt),
+                                                  overlapped=False)
+                except Exception as e:         # noqa: BLE001 — contained
+                    self._contain_collect_failure(e)
         return emitted
 
     def run(self, max_chunks: int = 1_000_000) -> None:
@@ -1706,6 +1967,158 @@ class ContinuousBatchEngine:
         self._decode_steps_total += n
         return _Inflight(copy, snapshot, t_start, time.perf_counter(), n)
 
+    # -- speculative decoding --
+
+    def _slot_could_draft(self, b: int) -> bool:
+        """A greedy slot with draft budget left in its controller (sampled
+        slots never draft: acceptance by equality is a greedy argument)."""
+        return self._temps[b] <= 0.0 and self._spec_k_cur[b] > 0
+
+    def _spec_can_draft(self) -> bool:
+        return any(r is not None and self._slot_could_draft(b)
+                   for b, r in enumerate(self._slot_req))
+
+    def _dispatch_round(self) -> Optional[_Inflight]:
+        """A speculative engine's dispatch: a verify round when some slot
+        drafted, else a plain decode chunk (the bypass: committing one
+        token a slot through the (k+1)-wide program would waste it), or
+        None when resolving the first tokens finished every live slot."""
+        round_ = self._dispatch_spec()
+        if round_ is not None:
+            return round_
+        if not any(r is not None for r in self._slot_req):
+            return None
+        return self._dispatch_chunk()
+
+    def _dispatch_spec(self) -> Optional[_Inflight]:
+        """Draft and dispatch one verify round, or None to bypass (no slot
+        drafted). The first tokens pending land first: a slot's drafter
+        needs its whole history, and a request of one new token finishes
+        before it can ride the round. Each greedy slot drafts at most its
+        controller's length and never past its budget; one decode step is
+        counted a round. The round is collected in the step that
+        dispatched it."""
+        self._resolve_first_tokens()
+        live = [(b, r) for b, r in enumerate(self._slot_req)
+                if r is not None]
+        if not live:
+            return None
+        faultlab.site("engine.dispatch")
+        k, n = self.spec_k, self.num_slots
+        drafts = np.zeros((n, k), np.int64)
+        dlen = np.zeros(n, np.int64)
+        for b, req in live:
+            if not self._slot_could_draft(b):
+                continue
+            # A round commits at most draft_len + 1 tokens.
+            budget = min(self._spec_k_cur[b],
+                         req.max_new_tokens - len(req.tokens) - 1)
+            if budget <= 0:
+                continue
+            prop = list(self._drafter(req.prompt + req.tokens,
+                                      budget))[:budget]
+            if prop:
+                drafts[b, :len(prop)] = prop
+                dlen[b] = len(prop)
+        if not dlen.any():
+            self._spec_bypass_total += 1
+            self._spec_bypass_streak += 1
+            if (self._spec_adaptive
+                    and self._spec_bypass_streak >= self._spec_reprobe):
+                # Re-probe: a workload that shrank every slot to k=0 may
+                # have turned repetitive since.
+                self._spec_bypass_streak = 0
+                for b, _ in live:
+                    self._spec_k_cur[b] = max(1, self._spec_k_cur[b])
+            return None
+        self._spec_bypass_streak = 0
+        t_start = time.perf_counter()
+        # A sampled slot samples its one token from row 0, at its index.
+        self._draw_noise(1)
+        self._block_d[:, 1:].copy_(_h2d(drafts, self.device))
+        self._dlen_d.copy_(_h2d(dlen, self.device))
+        if self._verify_graph is not None:
+            self._verify_graph.replay(self._run_verify)
+        else:
+            self._run_verify()
+        copy = _HostCopy.start(self._spec_out_d, self._spec_out_h)
+        self._spec_rounds_total += 1
+        self._decode_steps_total += 1
+        self._spec_proposed_total += int(dlen.sum())
+        for b, _ in live:
+            self._spec_k_hist[int(dlen[b])] += 1
+        return _Inflight(copy, live, t_start, time.perf_counter(), 1, dlen)
+
+    def _run_verify(self) -> None:
+        """One verify round over every slot (parked ones included: they
+        draft nothing and their writes stay in their own rows or the trash
+        page), from the device mirrors and the static block into them: the
+        packed round into _spec_out_d, the next tokens into _cur_d, the
+        advanced positions into _pos_d. The program the verify graph
+        captures, and the eager path."""
+        sampling = _Sampling(self._temps_d, self._topps_d, self._noise_d[:1],
+                             self.top_k, self.enable_top_p)
+        with torch.no_grad():
+            self._block_d[:, 0].copy_(self._cur_d)
+            packed, cur, pos = _spec_verify(
+                self.params, self._cache, self._block_d, self._dlen_d,
+                self._pos_d, self.cfg, self._freqs, sampling,
+                self._table_d if self._paged else None, self.kv_block_len)
+            self._spec_out_d.copy_(packed)
+            self._cur_d.copy_(cur)
+            self._pos_d.copy_(pos)
+
+    def _commit_spec(self, packed_h: np.ndarray, inflight: _Inflight,
+                     overlapped: bool) -> int:
+        """Commit a fetched verify round: each live slot's emitted tokens
+        (decided on the device), one at a time with the budget, EOS and
+        stop checks, each at the round's wall over their count; the sample
+        counters advance by the emitted count for every slot, parked ones
+        included, as their device positions did. Each drafting slot feeds
+        its controller: the acceptance EMA shrinks its draft length below
+        0.35 and grows it above 0.65."""
+        t = self.spec_k + 1
+        out_h = packed_h[:, :t]
+        lps_h = np.ascontiguousarray(packed_h[:, t:2 * t]).view(np.float32)
+        acc_h = packed_h[:, 2 * t]
+        wall = self._collect_wall(inflight.t_start)
+        self._scnt = self._scnt + acc_h
+        dlen, emitted = inflight.dlen, 0
+        for b, req in inflight.snapshot:
+            if req.done:
+                continue
+            n, d = int(acc_h[b]), int(dlen[b])
+            tc0 = (time.perf_counter()
+                   if req.phase_events is not None else 0.0)
+            try:
+                faultlab.site("engine.commit")
+                committed = self._commit_tokens(req, b, out_h[b, :n],
+                                                lps_h[b, :n],
+                                                wall / max(1, n))
+            except Exception as e:             # noqa: BLE001 — contained
+                self._contain_commit_failure(req, e)
+                committed = 0
+            emitted += committed
+            if req.phase_events is not None and committed:
+                self._phase_events_at_commit(
+                    req, committed, time.perf_counter() - tc0, overlapped,
+                    spec=(d, min(n - 1, d)))
+            if d > 0:
+                accepted = min(n - 1, d)
+                self._spec_accepted_total += accepted
+                if self._spec_adaptive:
+                    frac = accepted / d
+                    self._spec_ema[b] = 0.5 * self._spec_ema[b] + 0.5 * frac
+                    self._spec_global_ema = (0.95 * self._spec_global_ema
+                                             + 0.05 * frac)
+                    if self._spec_ema[b] < 0.35:
+                        self._spec_k_cur[b] = max(0, self._spec_k_cur[b] - 1)
+                    elif self._spec_ema[b] > 0.65:
+                        self._spec_k_cur[b] = min(self.spec_k,
+                                                  self._spec_k_cur[b] + 1)
+        self._spec_tokens_total += emitted
+        return emitted
+
     def _fetch(self, inflight: _Inflight) -> Tuple[np.ndarray, _Inflight]:
         """Wait for a dispatched chunk's packed tokens (THE sync of a
         round). With the watchdog armed, poll the copy up to the deadline,
@@ -1739,7 +2152,10 @@ class ContinuousBatchEngine:
         behind the next chunk's device execution."""
         t0 = time.perf_counter()
         self._resolve_first_tokens()
-        emitted = self._commit_chunk(*fetched, overlapped)
+        if fetched[1].dlen is not None:
+            emitted = self._commit_spec(*fetched, overlapped)
+        else:
+            emitted = self._commit_chunk(*fetched, overlapped)
         dur = time.perf_counter() - t0
         self._commit_rounds_total += 1
         self._commit_s_total += dur
@@ -1819,18 +2235,25 @@ class ContinuousBatchEngine:
         return emitted
 
     def _phase_events_at_commit(self, req: ServeRequest, n: int,
-                                dur_s: float, overlapped: bool) -> None:
+                                dur_s: float, overlapped: bool,
+                                spec: Optional[Tuple[int, int]] = None
+                                ) -> None:
         """A request's decode_step and commit events for a commit of `n`
         tokens, when that commit crossed a multiple of phase_event_every
         in its token count (or was its first): (count) and (n, host
         seconds, overlapped 0/1), the JAX engine's two events of a plain
-        chunk. Callers guard on phase_events."""
+        chunk. A verify round's commit gives `spec` = (proposed, accepted)
+        and a spec_round event (count, proposed, accepted) in place of
+        decode_step. Callers guard on phase_events."""
         every = self._phase_event_every
         total = len(req.tokens)
         if (total - n) // every == total // every and total != n:
             return
         now = time.perf_counter()
-        req.phase_events.append((now, "decode_step", total))
+        if spec is None:
+            req.phase_events.append((now, "decode_step", total))
+        else:
+            req.phase_events.append((now, "spec_round", (total,) + spec))
         req.phase_events.append(
             (now, "commit", (n, dur_s, 1 if overlapped else 0)))
 
@@ -2162,6 +2585,12 @@ class ContinuousBatchEngine:
         self._skeys[b] = req.base_key
         self._scnt[b] = req.emit_from + 1   # the prefill's index is used
         self._slot_req[b] = req
+        # A fresh speculation controller: full k while the engine-wide
+        # acceptance says drafting pays, one probe once the workload has
+        # proven adversarial.
+        self._spec_k_cur[b] = (self.spec_k
+                               if self._spec_global_ema >= 0.25 else 1)
+        self._spec_ema[b] = 1.0
 
     def _first_sampling(self, req: ServeRequest, temp: float,
                         top_p: float) -> _Sampling:
@@ -2182,8 +2611,8 @@ class ContinuousBatchEngine:
     def metrics_snapshot(self) -> Dict[str, Any]:
         """Counters and flat per-request rows; the percentile sorts live in
         aggregate_metrics (callers run them outside any serving lock)."""
-        graphs = [g for g in (self._graph, self._quantum_graph)
-                  if g is not None]
+        graphs = [g for g in (self._graph, self._quantum_graph,
+                              self._verify_graph) if g is not None]
         rows = [{
             "req_id": r.req_id,
             "cancelled": r.cancelled,
@@ -2237,6 +2666,31 @@ class ContinuousBatchEngine:
                 "fetch_sync_s_total": self._fetch_sync_s_total,
                 "graphs_captured": sum(g.captures for g in graphs),
                 "graph_replays": sum(g.replays for g in graphs),
+            },
+            # Speculative decoding (all zero with spec_k 0): monotonic
+            # counters; acceptance_rate and tokens_per_round are lifetime
+            # ratios; k_hist[i] counts slot-rounds dispatched at draft
+            # length i; effective_tokens_per_step is the commit depth a
+            # round, which the fleet folds into its TTFT-pressure math
+            # (1.0 when speculation is off or idle).
+            "spec": {
+                "enabled": self._spec,
+                "k": self.spec_k,
+                "rounds_total": self._spec_rounds_total,
+                "bypass_rounds_total": self._spec_bypass_total,
+                "tokens_total": self._spec_tokens_total,
+                "draft_proposed_total": self._spec_proposed_total,
+                "draft_accepted_total": self._spec_accepted_total,
+                "acceptance_rate": (
+                    self._spec_accepted_total / self._spec_proposed_total
+                    if self._spec_proposed_total else 0.0),
+                "tokens_per_round": (
+                    self._spec_tokens_total / self._spec_rounds_total
+                    if self._spec_rounds_total else 0.0),
+                "effective_tokens_per_step": (
+                    self._spec_tokens_total / self._spec_rounds_total
+                    if self._spec and self._spec_rounds_total else 1.0),
+                "k_hist": list(self._spec_k_hist),
             },
             # Zero-loss migration (monotonic counters).
             "migration": {
@@ -2311,6 +2765,7 @@ class ContinuousBatchEngine:
             "draining": snap["draining"],
             "resilience": snap["resilience"],
             "hotpath": snap["hotpath"],
+            "spec": snap["spec"],
             "queued": snap["queued"],
             "queued_interactive": snap["queued_interactive"],
             "queued_batch": snap["queued_batch"],

@@ -87,6 +87,10 @@ def test_rope_kernel_matches_plain(dev, dtype, shape, offset):
     (2, 19, 45, 4, 2, 12, True, 20, 0),        # head_dim 12, zero-padded to 16
     (1, 50, 70, 2, 1, 640, True, 20, 0),       # 640: two 512-column slices
     (1, 16, 64, 2, 2, 1032, True, 0, 40),      # three slices, rows masked
+    (1, 5, 256, 4, 4, 512, True, 131, 0),      # a verify block of k+1 rows
+    (1, 5, 256, 4, 4, 512, True, 250, 0),      # ... at max_seq - 6
+    (1, 5, 197, 8, 8, 128, True, 131, 0),      # generate's defaults, k 4
+    (1, 5, 197, 8, 8, 128, True, 191, 0),      # ... at max_seq - 6
 ])
 def test_flash_kernel_matches_plain(dev, dtype, b, sq, sk, h, kh, d, causal,
                                     q_off, kv_off):
@@ -1334,3 +1338,53 @@ def test_graphed_int8_kv_engine_equals_the_eager_engine(dev, kv_block_len):
     diff = q8.cpu().int() - q8c.int()
     assert not diff[~tie].any()
     assert diff.abs().max() <= 1
+
+
+def _spec_workload(eng, seed=0):
+    """Three requests through two slots on prompts of a repeated 8-token
+    cycle (the n-gram drafter's regime): two greedy, one sampled with
+    top-k and top-p, which rides the verify rounds without drafting."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    cycles = [rng.integers(0, 1024, 8).tolist() for _ in range(3)]
+    rids = [eng.submit(cycles[0] * 5, 40), eng.submit(cycles[1] * 18, 30),
+            eng.submit(cycles[2] * 2, 30, temperature=0.8, top_p=0.9,
+                       prng_key=[9, seed])]
+    eng.run()
+    out = [(eng.result(r).tokens, eng.result(r).logprobs) for r in rids]
+    assert all(eng.result(r).finish_reason == "length" for r in rids)
+    return out
+
+
+@pytest.mark.parametrize("kv_block_len", [0, 16], ids=["dense", "paged"])
+def test_graphed_verify_rounds_equal_the_eager_engine(dev, kv_block_len):
+    """spec_k 4 on the card: the verify round captured once as its own
+    graph, whose replay launches one gather and 2L+1 norms (no paged
+    decode, RoPE or flash); the graphed engine's tokens and logprobs equal
+    the eager engine's bit for bit, and its launches those of its prefill
+    chunks, decode steps and verify rounds (a round one step, with no
+    paged decode); no page leaked."""
+    cfg, (params, _) = _serving_model(dev)
+    eng = _graph_engine(dev, params, cfg, kv_block_len, spec_k=4,
+                        watchdog_timeout=30)
+    kernels.reset_launches()
+    got = _spec_workload(eng) + _spec_workload(eng, seed=1)
+    torch.cuda.synchronize()
+    m = eng.metrics()
+    rounds = m["spec"]["rounds_total"]
+    assert rounds > 0 and m["spec"]["draft_accepted_total"] > 0
+    want = _engine_launches(cfg, m["lifetime"], kv_block_len > 0)
+    if kv_block_len:
+        want["paged_decode"] -= cfg.n_layers * rounds
+        want["paged_decode_combine"] -= cfg.n_layers * rounds
+    assert dict(kernels.launches) == want
+    vg = eng._verify_graph
+    assert vg.captures == 1 and vg.replays == rounds - 1
+    assert dict(vg.launches) == {"embed_gather": 1,
+                                 "rms_norm": 2 * cfg.n_layers + 1}
+    ref = _graph_engine(dev, params, cfg, kv_block_len, spec_k=4,
+                        cuda_graph=False)
+    assert got == _spec_workload(ref) + _spec_workload(ref, seed=1)
+    assert ref.metrics()["spec"] == m["spec"]
+    kv = m["kv_cache"]
+    assert kv["blocks_free"] + kv["blocks_cached"] == kv["blocks_total"]

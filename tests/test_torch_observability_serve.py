@@ -72,10 +72,6 @@ UNPORTED = (
         "offloads_total", "prefetches_total")]
     + [f"ktwe_serving_mesh_{k}" for k in (
         "degraded", "devices", "dp", "per_slice_mfu_pct", "tp")]
-    + [f"ktwe_serving_spec_{k}" for k in (
-        "acceptance_rate", "bypass_rounds_total", "draft_accepted_total",
-        "draft_proposed_total", "effective_k", "rounds_total",
-        "tokens_per_round", "tokens_total")]
     + ["ktwe_serving_evacuated_requests_total",
        "ktwe_serving_request_errors_device_loss_total"])
 
@@ -213,10 +209,10 @@ def test_metrics_blocks_have_the_jax_keys(tmp_path):
 
 
 def test_families_are_the_jax_ones_less_the_unported(tmp_path):
-    assert len(UNPORTED) == 23
+    assert len(UNPORTED) == 15
     assert set(serve.SERVING_FAMILIES) == \
         set(jserve.SERVING_FAMILIES) - set(UNPORTED)
-    assert len(serve.SERVING_FAMILIES) == 75
+    assert len(serve.SERVING_FAMILIES) == 83
     mport = _free_port()
     spans = tmp_path / "spans.ndjson"
     port, stop, th, result = _run_main(ARGS + [

@@ -537,7 +537,10 @@ def test_config_sets_flags_and_refuses_keys_without_one(tmp_path, capsys):
     assert (args.num_slots, args.max_queue, args.enable_top_p,
             args.device) == (3, 9, True, "cpu")
     assert serve.build_parser().parse_args([]).num_slots == 8
-    for bad, named in (("  spec_k: 2\n", "serve.spec_k"),
+    cfg.write_text("serve:\n  spec_k: 2\n")
+    assert parse_with_config(serve.build_parser(), "serve",
+                             ["--config", str(cfg)]).spec_k == 2
+    for bad, named in (("  kv_host_blocks: 2\n", "serve.kv_host_blocks"),
                        ("  num_slots: lots\n", "serve.num_slots"),
                        ("  int8: 3\n", "serve.int8")):
         cfg.write_text("serve:\n" + bad)
