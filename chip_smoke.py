@@ -138,7 +138,7 @@ inits in bf16:
      trace; one trace record a terminal view plus one rejected record;
      /v1/admin/trace rotates, /v1/admin/spans and /v1/admin/slow-requests
      answer (C's 400); a telemetry push with the serve's bucket, tenants 2
-     and slots 8; the 83 families served, the 19 new ones 0 on C; one
+     and slots 8; the 91 families served, the 19 new ones 0 on C; one
      decode graph capture a main. It prints ms a token p50 and commit
      seconds a token with the recorder on against off, the host ms of
      FlightRecorder.record a request, and span and trace bytes a request.
@@ -155,7 +155,7 @@ inits in bf16:
      launches of each engine exactly those of its chunks, steps and verify
      rounds (the paged decode kernel L times a step that is no verify
      round); no page leaked; a --spec-k 4 serve main's `spec` block and
-     its 8 spec families (83 served), --spec-k with --int8-kv exit 2; the
+     its 8 spec families (91 served), --spec-k with --int8-kv exit 2; the
      generate main with --speculate-draft-layers 4 --speculate-k 4 at its
      defaults, and the same speculative generation in f32 equal to the
      plain greedy one with the launches of its passes. It prints the
@@ -163,6 +163,25 @@ inits in bf16:
      round, tokens a round, acceptance and ms a token p50 against
      spec-off, per traffic and engine, and the bf16 streams equal to
      spec-off.
+     The kvhost phase runs the paged engine with a host KV tier of 64
+     blocks under a pool cut from 129 pages to 41, graphed: wave A on 3 of
+     6 distinct 128-token prefixes, wave B on the other 3 (which evicts A's
+     pages into the tier), then A's prefixes again under new suffixes,
+     which prefetch them. Gates: every restored page equals the demoted
+     page bit for bit (k and v, and an int8 engine's k, v and scales);
+     graphed == eager with the tier on; every block the re-arrivals match
+     a tier hit; the launches exactly those of its chunks and steps; no
+     page leaked; in f32 the tier engine's tokens equal a tier-off engine's
+     whose pool holds every wave, and a fault at kvhost.dma, kvhost.fetch
+     and kvhost.corrupt each ends as a plain re-prefill with those tokens,
+     counted; two --kv-host-blocks serve mains ship a prefix over
+     /v1/kvhost to a prefetch hit with equal tokens, the kvhost block and
+     the 8 kvhost families, and --kv-host-blocks without --kv-block-len
+     exits 2. It prints TTFT p50 of the prefetched re-arrivals against the
+     same re-arrivals re-prefilled with the tier off, one page's copy each
+     way in device ms against the host link, the tier's dma seconds a
+     block, the host ms a demotion adds to an admission and the pinned
+     host bytes.
      Every
      phase
      must launch exactly the kernels its prefill chunks, decode steps,
@@ -320,6 +339,15 @@ FLUSH_PROMPT, CANCEL_NEW = 15, 240
 # cycle (seed SPEC_SEED, which also keys the sampled requests) and take 64
 # new tokens.
 SPEC_K, SPEC_SEED, SPEC_CYCLE, SPEC_NGRAM_NEW = 4, 37, 8, 64
+# The kvhost phase: 6 distinct 128-token prefixes (8 pages) under 32-token
+# suffixes, 32 new tokens; the pool cut from the auto 129 pages to 41, so
+# that 3 requests' 12 pages fill it and wave B evicts wave A's prefixes
+# into a host tier of 64 blocks. The host link's rate for the copies'
+# bound: PCIe Gen5 x16, 64 GB/s a direction (the H100 SXM's link to its
+# host).
+KVHOST_PREFIXES, KVHOST_PREFIX, KVHOST_SUFFIX, KVHOST_NEW = 6, 128, 32, 32
+KVHOST_BLOCKS, KVHOST_TIER, KVHOST_SEED = 41, 64, 43
+HOST_LINK_BYTES_PER_S = 64e9
 
 # Training: the trainer main's defaults (cmd/trainer.py of the JAX package),
 # and the stash-path batch (the p/ds stash is 1.07 GB at batch 4, under the
@@ -3729,14 +3757,14 @@ def obs_phase(pa: int, pb: int, pc: int, mports, auth: dict, files: dict,
     code_off, slow_off = get_json(pc, "/v1/admin/slow-requests", auth)
     if code_off != 400:
         gates.append(f"recorder off: /v1/admin/slow-requests {code_off}")
-    # The families: all 83 (since the spec slice), the 19 new ones among
+    # The families: all 91 (since the kvhost slice), the 19 new ones among
     # them.
     fam = serve.SERVING_FAMILIES
     series = scrape(mports[0], fam)
     series_off = scrape(mports[1], fam)
     new = [k for k in fam if "phase_seconds" in k or "_span_" in k
            or "slow_requests" in k or "trace_records" in k]
-    if len(fam) != 83 or len(new) != 19 or \
+    if len(fam) != 91 or len(new) != 19 or \
             series["ktwe_serving_span_records_total"] != len(spans_a) or \
             series["ktwe_serving_trace_records_total"] != len(recs_a) or \
             series["ktwe_serving_phase_seconds_prefill_p50"] <= 0 or \
@@ -4953,7 +4981,7 @@ def run_spec_serve(serve, kernels, traffic, gates) -> dict:
     the JAX engine's keys and its speculative dispatches counted (verify
     rounds where the n-gram drafter found a match, bypass rounds where it
     found none: random weights need not continue a cycle), the port serves
-    83 families with the 8 spec ones at the table's values, and the
+    91 families with the 8 spec ones at the table's values, and the
     launches are those of its chunks, steps and rounds. --spec-k 4 with
     --int8-kv is a parser error (exit 2)."""
     with contextlib.redirect_stderr(io.StringIO()) as err:
@@ -4990,7 +5018,7 @@ def run_spec_serve(serve, kernels, traffic, gates) -> dict:
             or spec["rounds_total"] + spec["bypass_rounds_total"] <= 0:
         gates.append(f"spec serve main: spec block {spec}")
     fam = {k: v for k, v in series.items() if "_spec_" in k}
-    if len(series) != 83 or len(fam) != 8 or any(
+    if len(series) != 91 or len(fam) != 8 or any(
             fam[k] != float(serve.SERVING_FAMILIES[k](
                 m, m["slots_busy"], m["slots"])) for k in fam) \
             or fam["ktwe_serving_spec_rounds_total"] != spec["rounds_total"]:
@@ -5159,6 +5187,473 @@ def run_spec(dev, mods, cfg, params, card) -> dict:
                 card=card, **out, launches=launches,
                 phase_wall_s=time.perf_counter() - t_phase,
                 gates_failed=gates)
+
+
+# ---------------------------------------------------------------------------
+# Phase 5b: the host KV tier (models/kvhost.py)
+# ---------------------------------------------------------------------------
+
+
+def kvhost_traffic(vocab: int):
+    """Wave A (prefixes 1-3 under their suffixes), wave B (prefixes 4-6),
+    and A's re-arrivals (prefixes 1-3 under new suffixes)."""
+    rng = np.random.default_rng(KVHOST_SEED)
+    pre = [rng.integers(0, vocab, KVHOST_PREFIX).tolist()
+           for _ in range(KVHOST_PREFIXES)]
+    suf = [rng.integers(0, vocab, KVHOST_SUFFIX).tolist()
+           for _ in range(KVHOST_PREFIXES + 3)]
+    return ([pre[i] + suf[i] for i in range(3)],
+            [pre[i] + suf[i] for i in range(3, 6)],
+            [pre[i] + suf[6 + i] for i in range(3)])
+
+
+def kvhost_engine(serving, params, cfg, dev, tier=True, **kw):
+    """The paged engine at the serve defaults with the pool cut to
+    KVHOST_BLOCKS pages (None: the auto pool, which holds every wave) and,
+    with `tier`, a host tier of KVHOST_TIER blocks."""
+    return new_engine(serving, params, cfg, dev, kv_block_len=KV_BLOCK_LEN,
+                      kv_host_blocks=KVHOST_TIER if tier else 0, **kw)
+
+
+def kvhost_waves(eng, traffic, marks=None) -> dict:
+    """The three waves, each submitted at once and run to the end: every
+    request, the re-arrivals' TTFTs, and the re-arrival wave's deltas of
+    the tier's hits and prefetches and of the radix-matched blocks.
+    `marks["wave"]` (when given) is the wave running."""
+    reqs, before = [], None
+    for i, prompts in enumerate(traffic):
+        if marks is not None:
+            marks["wave"] = i
+        if i == 2:
+            before = (dict(eng.metrics()["kvhost"]),
+                      eng.metrics()["kv_cache"]["matched_tokens_total"])
+        rids = [eng.submit(p, KVHOST_NEW) for p in prompts]
+        eng.run()
+        reqs += [eng.result(r) for r in rids]
+    m = eng.metrics()
+    return dict(
+        reqs=reqs, again=reqs[6:],
+        ttft_ms_again=[(r.first_token_at - r.submitted_at) * 1e3
+                       for r in reqs[6:]],
+        hits=m["kvhost"]["hits_total"] - before[0]["hits_total"],
+        prefetches=(m["kvhost"]["prefetches_total"]
+                    - before[0]["prefetches_total"]),
+        matched_blocks=(m["kv_cache"]["matched_tokens_total"] - before[1])
+        // KV_BLOCK_LEN)
+
+
+def watch_demotions(eng) -> dict:
+    """Around the radix eviction hook: digest -> the page's leaves cloned
+    (on the compute stream, so in order) just before it is demoted, the
+    digests in demotion order, and the host seconds each demotion (the
+    tier's offload) took."""
+    seen, order, host_s = {}, [], []
+    real = eng._radix.on_evict
+
+    def hook(node):
+        seen[node.digest] = [t[:, node.block].clone()
+                             for t in eng._cache.leaves()]
+        order.append(node.digest)
+        t0 = time.perf_counter()
+        real(node)
+        host_s.append(time.perf_counter() - t0)
+    eng._radix.on_evict = hook
+    return dict(pages=seen, order=order, host_s=host_s)
+
+
+def restored_bit_for_bit(eng, demoted: dict, what: str, gates: list) -> int:
+    """Every tree page whose block was demoted holds it bit for bit, leaf
+    for leaf; returns how many pages were held."""
+    torch.cuda.synchronize()
+    n, stack = 0, list(eng._radix.root.children.values())
+    while stack:
+        node = stack.pop()
+        stack.extend(node.children.values())
+        want = demoted["pages"].get(node.digest)
+        if want is None:
+            continue
+        for leaf, got, w in zip(("k", "v", "kscale", "vscale"),
+                                eng._cache.leaves(), want):
+            if not torch.equal(got[:, node.block], w):
+                gates.append(f"{what}: restored page {node.digest} differs "
+                             f"from the demoted page in {leaf}")
+        n += 1
+    if n == 0:
+        gates.append(f"{what}: no restored page to hold")
+    return n
+
+
+def time_tier(eng) -> dict:
+    """Host seconds of each call of the tier's offload, fetch and restore,
+    by wave (marks["wave"], set by kvhost_waves)."""
+    marks = {"wave": None, "calls": []}
+    tier = eng._host_tier
+    for name in ("offload", "fetch", "restore"):
+        real = getattr(tier, name)
+
+        def timed(*a, _real=real, _name=name, **kw):
+            t0 = time.perf_counter()
+            try:
+                return _real(*a, **kw)
+            finally:
+                marks["calls"].append((marks["wave"], _name,
+                                       time.perf_counter() - t0))
+        setattr(tier, name, timed)
+    return marks
+
+
+def tier_host_split(marks, wave: int) -> dict:
+    """Calls and host ms (total, p50) of each tier method in one wave."""
+    out = {}
+    for name in ("offload", "fetch", "restore"):
+        ms = [s * 1e3 for w, n, s in marks["calls"] if w == wave and n == name]
+        out[name] = dict(calls=len(ms), ms_total=float(sum(ms)),
+                         ms_p50=float(np.median(ms)) if ms else 0.0)
+    return out
+
+
+def host_costs(eng, reps: int = 20) -> dict:
+    """Host ms of the pieces a tier call is made of, on one page: a
+    pinned allocation of its leaves, the crc over its bytes."""
+    leaves = [t[:, 1].clone() for t in eng._cache.leaves()]
+    t0 = time.perf_counter()
+    bufs = [[torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+             for t in leaves] for _ in range(reps)]
+    alloc_ms = (time.perf_counter() - t0) * 1e3 / reps
+    arrays = dict(zip(("k", "v"), bufs[0]))
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        eng._host_tier._crc(arrays)
+    crc_ms = (time.perf_counter() - t0) * 1e3 / reps
+    del bufs
+    return dict(pinned_alloc_ms_a_page=alloc_ms, crc_ms_a_page=crc_ms)
+
+
+def tier_counters(eng) -> dict:
+    m = dict(eng.metrics()["kvhost"])
+    m.pop("dma_seconds_total")
+    return m
+
+
+def page_copy_ms(eng, reps: int = 20) -> dict:
+    """Device ms of one page's copy to pinned host memory and back (every
+    leaf), CUDA events around `reps` copies of page 1 each way, against
+    its bytes over the host link."""
+    leaves = eng._cache.leaves()
+    stage = [t[:, 1].clone() for t in leaves]
+    host = [torch.empty(s.shape, dtype=s.dtype, pin_memory=True)
+            for s in stage]
+    nbytes = sum(s.numel() * s.element_size() for s in stage)
+
+    def timed(fn):
+        fn()
+        a, b = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / reps
+
+    def d2h():
+        for h, s in zip(host, stage):
+            h.copy_(s, non_blocking=True)
+
+    def h2d():
+        for t, h in zip(leaves, host):
+            t[:, 1].copy_(h, non_blocking=True)
+    d2h_ms, h2d_ms = timed(d2h), timed(h2d)
+    return dict(page_bytes=nbytes, d2h_ms=d2h_ms, h2d_ms=h2d_ms,
+                bound_ms=nbytes / HOST_LINK_BYTES_PER_S * 1e3,
+                d2h_gb_s=nbytes / d2h_ms / 1e6, h2d_gb_s=nbytes / h2d_ms / 1e6)
+
+
+def run_kvhost_faults(dev, serving, faultlab, params, cfg, traffic, want,
+                      full_hits: int, dma_at: int, gates) -> dict:
+    """One fault at each kvhost site on a fresh f32 tier engine: dma at the
+    `dma_at`-th demotion (wave B's first of a block the re-arrivals need),
+    fetch and corrupt at the first prefetch (the re-arrivals). The block
+    it touches is re-prefilled (one tier hit fewer than the unfaulted
+    engine's), every request has the tier-off engine's tokens, and the
+    fault is counted as the JAX tier counts it."""
+    out = {}
+    for site, counter, occ in (("kvhost.dma", "dma_failures_total", dma_at),
+                               ("kvhost.fetch", "dma_failures_total", 0),
+                               ("kvhost.corrupt", "corrupt_drops_total", 0)):
+        eng = kvhost_engine(serving, params, cfg, dev,
+                            kv_num_blocks=KVHOST_BLOCKS)
+        faultlab.activate(faultlab.TargetedPlan({site: [occ]}))
+        try:
+            got = kvhost_waves(eng, traffic)
+        finally:
+            snap = faultlab.snapshot()
+            faultlab.deactivate()
+        m = eng.metrics()["kvhost"]
+        toks = [r.tokens for r in got["reqs"]]
+        if toks != want:
+            gates.append(f"{site} fault: tokens differ from the tier-off "
+                         f"engine's")
+        if snap["injections_by_site"] != {site: 1} or m[counter] != 1:
+            gates.append(f"{site} fault: injections "
+                         f"{snap['injections_by_site']}, {counter} "
+                         f"{m[counter]}; want one")
+        if got["hits"] >= full_hits:
+            gates.append(f"{site} fault: {got['hits']} tier hits, the "
+                         f"unfaulted engine's {full_hits}: nothing "
+                         f"re-prefilled")
+        if not all(r.finish_reason == "length" for r in got["reqs"]):
+            gates.append(f"{site} fault failed a request")
+        if not pages_back(eng):
+            gates.append(f"{site} fault: pages leaked")
+        out[site] = dict(injections=snap["injections_by_site"],
+                         rearrival_hits=got["hits"],
+                         **{k: m[k] for k in ("dma_failures_total",
+                                              "corrupt_drops_total",
+                                              "offloads_total", "hits_total",
+                                              "prefetches_total")})
+        del eng
+    return out
+
+
+def run_kvhost_f32(dev, serving, faultlab, params, cfg, traffic,
+                   gates) -> dict:
+    """The f32 twin at the same widths: the tier engine's tokens equal
+    those of a tier-off engine whose auto pool holds every wave, and the
+    three faults (run_kvhost_faults)."""
+    from k8s_gpu_workload_enhancer_tpu_torch.models import kvhost
+    p32 = cast_params(params, torch.float32)
+    c32 = dataclasses.replace(cfg, dtype=torch.float32)
+    ref = kvhost_engine(serving, p32, c32, dev, tier=False)
+    want = [r.tokens for r in kvhost_waves(ref, traffic)["reqs"]]
+    del ref
+    eng = kvhost_engine(serving, p32, c32, dev, kv_num_blocks=KVHOST_BLOCKS)
+    demoted = watch_demotions(eng)
+    got = kvhost_waves(eng, traffic)
+    # The first demotion of a block the re-arrivals restore: where the dma
+    # fault must strike to cost a re-prefill.
+    needed = {d for p in traffic[2]
+              for d in kvhost.prompt_digests(p[:KVHOST_PREFIX],
+                                             KV_BLOCK_LEN)}
+    dma_at = next(i for i, d in enumerate(demoted["order"]) if d in needed)
+    if [r.tokens for r in got["reqs"]] != want:
+        gates.append("kvhost f32: the tier engine's tokens differ from the "
+                     "tier-off engine's")
+    if got["hits"] < got["matched_blocks"] or got["hits"] <= 0:
+        gates.append(f"kvhost f32: {got['hits']} tier hits for "
+                     f"{got['matched_blocks']} matched blocks")
+    tier = tier_counters(eng)
+    del eng, demoted
+    faults = run_kvhost_faults(dev, serving, faultlab, p32, c32, traffic,
+                               want, got["hits"], dma_at, gates)
+    del p32
+    torch.cuda.empty_cache()
+    return dict(requests=len(want), equal_tier_off=len(want), tier=tier,
+                dma_fault_at=dma_at, faults=faults)
+
+
+def run_kvhost_serve(serve, traffic, gates) -> dict:
+    """Two --kv-host-blocks serve mains at the serve defaults (pool cut
+    alike): A serves waves A and B, so A's pages go to its tier; A's
+    /v1/kvhost exports the first prompt's digests, B imports them and
+    serves that prompt with a prefetch hit and A's tokens. A's /v1/metrics
+    kvhost block and the 8 kvhost families on its metrics port; the
+    parser error without --kv-block-len."""
+    from k8s_gpu_workload_enhancer_tpu_torch.models import kvhost
+    base = ["--device", "cuda", "--port", "0", "--seed", "0",
+            "--kv-block-len", str(KV_BLOCK_LEN), "--kv-num-blocks",
+            str(KVHOST_BLOCKS), "--kv-host-blocks", str(KVHOST_TIER)]
+    mport = free_port()
+    families = [f for f in serve.SERVING_FAMILIES
+                if f.startswith("ktwe_serving_kvhost_")]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        a = ServeMain(serve, base + ["--metrics-port", str(mport)])
+        b = ServeMain(serve, base)
+        try:
+            body = lambda p: {"prompt": p, "maxNewTokens": KVHOST_NEW}  # noqa: E731
+            first = concurrent(a.port, [body(p) for p in traffic[0]])
+            concurrent(a.port, [body(p) for p in traffic[1]])
+            # Wave A's prompts' digests; the pages wave B left on A's device
+            # are not in its tier. The prompt with the longest chain from
+            # the root in the tier is the one B serves.
+            chains = [kvhost.prompt_digests(p, KV_BLOCK_LEN)
+                      for p in traffic[0]]
+            code, exp = post_json(a.port, "/v1/kvhost", {
+                "digests": [d for c in chains for d in c]})
+            entries = exp.get("entries", [])
+            shipped = {e["digest"] for e in entries}
+            depth = [next((i for i, d in enumerate(c) if d not in shipped),
+                          len(c)) for c in chains]
+            pick = int(np.argmax(depth))
+            code_i, imp = post_json(b.port, "/v1/kvhost",
+                                    {"entries": entries})
+            got = concurrent(b.port, [body(traffic[0][pick])])[0]
+            code_bad, bad = post_json(b.port, "/v1/kvhost", {})
+            block_a = get_metrics(a.port)["kvhost"]
+            block_b = get_metrics(b.port)["kvhost"]
+            series = scrape(mport, serve.SERVING_FAMILIES)
+        finally:
+            a.close()
+            b.close()
+    if code != 200 or not entries or code_i != 200 or \
+            imp.get("imported") != len(entries):
+        gates.append(f"/v1/kvhost: export {code} with {len(entries)} "
+                     f"entries, import {code_i} {imp}")
+    if got["tokens"] != first[pick]["tokens"]:
+        gates.append("/v1/kvhost: the importing replica's tokens differ "
+                     "from the exporting replica's")
+    restorable = min(depth[pick], (len(traffic[0][pick]) - 1)
+                     // KV_BLOCK_LEN)
+    if block_b["hits_total"] != restorable or restorable < 1 or \
+            block_b["prefetches_total"] != restorable:
+        gates.append(f"/v1/kvhost: no prefetch hit on the importer: "
+                     f"{block_b}")
+    if code_bad != 400 or bad.get("error") != \
+            'kvhost request needs "digests" or "entries"':
+        gates.append(f"/v1/kvhost {{}}: {code_bad} {bad}")
+    want_keys = {"enabled", "capacity", "blocks_used", "offloads_total",
+                 "prefetches_total", "hits_total", "discards_total",
+                 "corrupt_drops_total", "dma_failures_total",
+                 "dma_seconds_total", "imports_total", "exports_total",
+                 "block_len", "bloom", "bloom_bits", "bloom_hashes"}
+    if set(block_a) != want_keys or not block_a["bloom"] or \
+            block_a["offloads_total"] <= 0:
+        gates.append(f"serve kvhost block: {sorted(block_a)}")
+    if len(families) != 8 or any(
+            series.get(f) != float(serve.SERVING_FAMILIES[f](
+                {"kvhost": block_a}, 0, 0)) for f in families
+            if f != "ktwe_serving_kvhost_dma_seconds_total"):
+        gates.append(f"kvhost families: {[(f, series.get(f)) for f in families]}")
+    try:
+        with contextlib.redirect_stderr(io.StringIO()) as err:
+            serve.main(["--kv-host-blocks", "4"])
+        rc = 0
+    except SystemExit as e:
+        rc = e.code
+    if rc != 2 or "--kv-host-blocks requires --kv-block-len > 0" not in \
+            err.getvalue():
+        gates.append(f"--kv-host-blocks without --kv-block-len exited {rc}")
+    return dict(exported=len(entries), imported=imp.get("imported"),
+                served_prompt=pick, chain_in_tier=depth,
+                importer=dict(hits_total=block_b["hits_total"],
+                              prefetches_total=block_b["prefetches_total"],
+                              imports_total=block_b["imports_total"]),
+                exporter={k: block_a[k] for k in (
+                    "offloads_total", "blocks_used", "exports_total")},
+                families={f: series[f] for f in families},
+                parser_error_exit=rc)
+
+
+def run_kvhost(dev, mods, cfg, params, card) -> dict:
+    """The kvhost phase at the serve defaults (bf16, graphed, 8 slots,
+    pages of 16) with the pool cut from the auto 129 pages to
+    KVHOST_BLOCKS so that prefixes are evicted, a host tier of KVHOST_TIER
+    blocks, the launch counters set to 0 just before the graphed tier
+    engine is built and read after its waves. Gates: every restored page
+    equal to the page demoted, bit for bit (k and v; an int8 engine's k, v
+    and scales); graphed == eager with the tier on (tokens, logprobs and
+    tier counters); the re-arrivals' matched blocks all tier hits; the
+    launches exactly expected_launches; no page leaked; the f32 twin's
+    tokens equal a tier-off engine's whose pool holds everything, and the
+    three kvhost faults contained (run_kvhost_f32); the serve mains
+    (run_kvhost_serve). Printed: TTFT p50 of the prefetched re-arrivals
+    against the same re-arrivals re-prefilled with the tier off (same pool);
+    one page's copy each way in device ms against the host link; the tier's
+    dma seconds a block (the JAX tier's meter: dispatch to the lazy
+    finalize, and a restore's host time); the host ms an offload adds to an
+    admission; the pinned host bytes; the bf16 streams equal to the tier-off
+    engine's, counted."""
+    kernels, rms, rope, flash, paged, tf, decode, serving, serve = mods
+    from k8s_gpu_workload_enhancer_tpu_torch import faultlab
+    gates = []
+    t_phase = time.perf_counter()
+    traffic = kvhost_traffic(cfg.vocab_size)
+    kernels.reset_launches()
+    eng = kvhost_engine(serving, params, cfg, dev,
+                        kv_num_blocks=KVHOST_BLOCKS,
+                        watchdog_timeout=WATCHDOG_S)
+    demoted = watch_demotions(eng)
+    marks = time_tier(eng)
+    graphed = kvhost_waves(eng, traffic, marks)
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    life = eng.metrics()["lifetime"]
+    want = expected_launches(cfg.n_layers, life, paged=True)
+    if launches != want:
+        gates.append(f"kvhost launches {launches}, its chunks and steps "
+                     f"need {want}")
+    held = restored_bit_for_bit(eng, demoted, "kvhost bf16", gates)
+    check_graphed(eng, "kvhost engine")
+    hp = hotpath_report(eng)
+    if graphed["hits"] < graphed["matched_blocks"] or graphed["hits"] <= 0:
+        gates.append(f"kvhost: {graphed['hits']} tier hits for "
+                     f"{graphed['matched_blocks']} matched blocks")
+    if not pages_back(eng):
+        gates.append("kvhost engine leaked pages")
+    tier = eng._host_tier
+    m = eng.metrics()["kvhost"]
+    counters = tier_counters(eng)
+    copies = page_copy_ms(eng)
+    host = dict(
+        pinned_bytes=tier.host_bytes(),
+        dma_seconds_total=m["dma_seconds_total"],
+        dma_s_per_block=m["dma_seconds_total"] / max(
+            1, m["offloads_total"] + m["prefetches_total"]),
+        offload_host_ms_p50=float(np.median(demoted["host_s"])) * 1e3,
+        offload_host_ms_mean=float(np.mean(demoted["host_s"])) * 1e3,
+        offloads_timed=len(demoted["host_s"]),
+        wave_b=tier_host_split(marks, 1),
+        rearrivals=tier_host_split(marks, 2), **host_costs(eng))
+    del eng, demoted
+    eager = kvhost_engine(serving, params, cfg, dev,
+                          kv_num_blocks=KVHOST_BLOCKS, cuda_graph=False,
+                          overlap_commit=False)
+    hold_to_eager(graphed["reqs"], kvhost_waves(eager, traffic)["reqs"],
+                  "kvhost engine")
+    if tier_counters(eager) != counters:
+        gates.append(f"kvhost: graphed counters {counters}, eager "
+                     f"{tier_counters(eager)}")
+    del eager
+    off = kvhost_waves(kvhost_engine(serving, params, cfg, dev, tier=False,
+                                     kv_num_blocks=KVHOST_BLOCKS), traffic)
+    equal = sum(g.tokens == o.tokens for g, o in zip(graphed["reqs"],
+                                                     off["reqs"]))
+    cfg8 = dataclasses.replace(cfg, kv_cache_int8=True)
+    eng8 = kvhost_engine(serving, params, cfg8, dev,
+                         kv_num_blocks=KVHOST_BLOCKS)
+    demoted8 = watch_demotions(eng8)
+    int8 = kvhost_waves(eng8, traffic)
+    held8 = restored_bit_for_bit(eng8, demoted8, "kvhost int8", gates)
+    if not pages_back(eng8) or int8["hits"] <= 0:
+        gates.append(f"kvhost int8: {int8['hits']} hits, pages back "
+                     f"{pages_back(eng8)}")
+    del eng8, demoted8
+    torch.cuda.empty_cache()
+    f32 = run_kvhost_f32(dev, serving, faultlab, params, cfg, traffic, gates)
+    served = run_kvhost_serve(serve, traffic, gates)
+    return dict(
+        config=dict(SERVE_DIMS, dtype="bfloat16", num_slots=NUM_SLOTS,
+                    prefill_len=PREFILL_LEN, decode_chunk=DECODE_CHUNK,
+                    kv_block_len=KV_BLOCK_LEN, kv_num_blocks=KVHOST_BLOCKS,
+                    kv_num_blocks_cut_from=NUM_SLOTS * SERVE_DIMS["max_seq"]
+                    // KV_BLOCK_LEN + 1, kv_host_blocks=KVHOST_TIER,
+                    prefixes=KVHOST_PREFIXES, prefix=KVHOST_PREFIX,
+                    suffix=KVHOST_SUFFIX, new_tokens=KVHOST_NEW),
+        card=card, tier=counters,
+        rearrivals=dict(hits=graphed["hits"],
+                        prefetches=graphed["prefetches"],
+                        matched_blocks=graphed["matched_blocks"]),
+        ttft_p50_ms_prefetched=float(np.median(graphed["ttft_ms_again"])),
+        ttft_p50_ms_reprefilled=float(np.median(off["ttft_ms_again"])),
+        ttft_ms_prefetched=graphed["ttft_ms_again"],
+        ttft_ms_reprefilled=off["ttft_ms_again"],
+        page_copy=copies, host=host, pages_held_bit_for_bit=held,
+        int8=dict(pages_held_bit_for_bit=held8, hits=int8["hits"]),
+        bf16_streams_equal_tier_off=[equal, len(graphed["reqs"])],
+        graphed_equals_eager=len(graphed["reqs"]), hotpath=hp,
+        lifetime=life, f32=f32, serve=served, launches=launches,
+        phase_wall_s=time.perf_counter() - t_phase, gates_failed=gates)
 
 
 # ---------------------------------------------------------------------------
@@ -5536,6 +6031,10 @@ def main() -> int:
     print(json.dumps({"spec": results["spec"]}), flush=True)
     for gate in results["spec"]["gates_failed"]:
         fail(gate)
+    results["kvhost"] = run_kvhost(dev, mods, cfg, params, card)
+    print(json.dumps({"kvhost": results["kvhost"]}), flush=True)
+    for gate in results["kvhost"]["gates_failed"]:
+        fail(gate)
     del params
     torch.cuda.empty_cache()
     results["paged_serve"] = run_serve(serve, kernels, paged=True)
@@ -5600,13 +6099,13 @@ def main() -> int:
     print(json.dumps({"profile": results["profile"]}), flush=True)
 
     serving_phases = ("engine", "serve", "paged_engine", "paged_serve",
-                      "tenancy", "disagg", "int8kv", "spec",
+                      "tenancy", "disagg", "int8kv", "spec", "kvhost",
                       "checkpoint_serve", "checkpoint_paged_serve", "fleet",
                       "fleet_paged", "observability")
     train_phases = ("train", "train_stash")
     paged_phases = ("paged_engine", "paged_serve", "tenancy", "disagg",
-                    "spec", "checkpoint_paged_serve", "fleet_paged",
-                    "observability")
+                    "spec", "kvhost", "checkpoint_paged_serve",
+                    "fleet_paged", "observability")
     # The checkpoint phase's trainer runs the t-layout path (head_dim 512).
     t_layout = ("flagship", "checkpoint_train")
     every = serving_phases + train_phases

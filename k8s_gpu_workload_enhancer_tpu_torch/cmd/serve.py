@@ -63,7 +63,18 @@ $KTWE_AUTH_TOKEN_FILE, which must be readable when set) every route but
 
 --kv-block-len N > 0 serves from the paged KV engine: pages of N tokens,
 reserved per request, with automatic radix prefix reuse; /v1/metrics then
-reports the pool in its `kv_cache` block. --metrics-port P serves the
+reports the pool in its `kv_cache` block, and its `kvhost` block a bloom
+filter of the prefix digests the replica holds (rebuilt at most every
+--kv-gossip-interval seconds), which the fleet's router reads to route a
+prompt to the replica warm for it. --kv-host-blocks B > 0 (paged only;
+exit 2 without --kv-block-len) puts a host-RAM tier of B blocks under the
+pool (models/kvhost.py): evicted pages are demoted to it and a prompt
+matching a demoted prefix restores it before its prefill;
+--kv-offload-watermark F demotes ahead below a free fraction F. POST
+/v1/kvhost {"digests": [...]} exports the tier's blocks of those digests
+-> {"entries": [...]}; {"entries": [...]} imports a peer's -> {"imported":
+n} (blocks of another backend, mesh or checksum are not counted); any
+other body is a 400. --metrics-port P serves the
 `ktwe_serving_*` Prometheus families (SERVING_FAMILIES) on GET /metrics.
 --overlap-commit 0 commits each decode chunk before the next one is
 dispatched (bisection; the tokens are the same); --watchdog-timeout S fails
@@ -183,7 +194,8 @@ DEFAULTS = dict(port=8000, vocab_size=32768, d_model=2048,
                 prefill_chunk_tokens=0, drain_eject_grace=0.0,
                 optimizer_url="", telemetry_interval=30.0, tenants=1,
                 trace_out="", span_out="", slo_capture_threshold=0.0,
-                spec_k=0, spec_ngram=3)
+                spec_k=0, spec_ngram=3, kv_host_blocks=0,
+                kv_offload_watermark=0.0, kv_gossip_interval=30.0)
 
 # /v1/generate fields of the JAX service that this replica refuses (400
 # naming the field) rather than drop, and why.
@@ -243,6 +255,29 @@ SERVING_FAMILIES = {
         lambda m, b, s: m["kv_cache"]["deferrals_total"],
     "ktwe_serving_kv_prefix_hit_rate":
         lambda m, b, s: m["kv_cache"]["prefix_hit_rate"],
+    # The host KV tier under the paged pool (zeros without
+    # --kv-host-blocks). blocks_used is a gauge over the host buffers;
+    # offloads and prefetches count device->host and host->device block
+    # copies; hits are radix misses the tier answered (each a block of
+    # prefill the device never re-ran); discards are LRU evictions off the
+    # floor of the hierarchy; dma_seconds accumulates transfer wall time
+    # both ways.
+    "ktwe_serving_kvhost_blocks_used":
+        lambda m, b, s: m["kvhost"]["blocks_used"],
+    "ktwe_serving_kvhost_offloads_total":
+        lambda m, b, s: m["kvhost"]["offloads_total"],
+    "ktwe_serving_kvhost_prefetches_total":
+        lambda m, b, s: m["kvhost"]["prefetches_total"],
+    "ktwe_serving_kvhost_hits_total":
+        lambda m, b, s: m["kvhost"]["hits_total"],
+    "ktwe_serving_kvhost_discards_total":
+        lambda m, b, s: m["kvhost"]["discards_total"],
+    "ktwe_serving_kvhost_corrupt_drops_total":
+        lambda m, b, s: m["kvhost"]["corrupt_drops_total"],
+    "ktwe_serving_kvhost_dma_failures_total":
+        lambda m, b, s: m["kvhost"]["dma_failures_total"],
+    "ktwe_serving_kvhost_dma_seconds_total":
+        lambda m, b, s: m["kvhost"]["dma_seconds_total"],
     "ktwe_serving_resume_requests_total":
         lambda m, b, s: m["migration"]["resumed_total"],
     "ktwe_serving_resume_committed_tokens_total":
@@ -357,8 +392,8 @@ SERVING_FAMILIES.update({
                          if sum(m["spec"]["k_hist"]) else 0.0),
 })
 # Per-phase latency, from the same arithmetic as the span trees
-# (observability/flight.py). The prefetch phase has no sample until a host
-# KV tier exists.
+# (observability/flight.py). The prefetch phase samples only requests that
+# restored host-tier blocks.
 for _phase in ("queue_wait", "prefetch", "prefill", "decode_per_token",
                "commit"):
     for _q in ("p50", "p95", "p99"):
@@ -404,6 +439,25 @@ def build_parser() -> argparse.ArgumentParser:
                         "equal HBM to the dense cache). Raise slots "
                         "and keep this fixed to trade per-request "
                         "headroom for density")
+    p.add_argument("--kv-host-blocks", type=int,
+                   help="host-RAM KV offload tier capacity in "
+                        "blocks; 0 disables (requires --kv-block-len "
+                        "> 0). Radix eviction demotes cold full "
+                        "pages device->host over async DMA instead "
+                        "of discarding, and a prompt matching an "
+                        "offloaded prefix prefetches it back before "
+                        "prefill — re-prefill only on a true miss "
+                        "(docs/operations.md sizing runbook)")
+    p.add_argument("--kv-offload-watermark", type=float,
+                   help="demote-ahead trigger: when the paged pool's "
+                        "free fraction drops below this, admission "
+                        "evicts a couple of cold radix pages into "
+                        "the host tier before allocation pressure "
+                        "forces a discard; 0 disables")
+    p.add_argument("--kv-gossip-interval", type=float,
+                   help="seconds between prefix-digest bloom "
+                        "rebuilds gossiped through /v1/metrics for "
+                        "fleet-wide warm routing")
     p.add_argument("--spec-k", type=int,
                    help="speculative decoding: propose up to K draft "
                         "tokens per slot per step (self-drafting "
@@ -1040,6 +1094,25 @@ class ServeService:
                 raise StatusError(404, f"unknown prefix id {rid}")
         return {"status": "ok", "released": rid}
 
+    def kvhost(self, request: dict) -> dict:
+        """POST /v1/kvhost: {"digests": [...]} exports the host tier's
+        blocks of those digests (absent ones are skipped: the peer
+        re-prefills that tail); {"entries": [...]} installs a peer's blocks
+        (another signature's or a corrupt payload is rejected inside the
+        tier and not counted). Best effort both ways: a failed ship
+        degrades to a re-prefill."""
+        if "digests" in request:
+            digests = [str(d) for d in request["digests"]]
+            with self._lock:
+                entries = self._engine.kvhost_export(digests)
+            return {"status": "ok", "entries": entries}
+        if "entries" in request:
+            payloads = [dict(p) for p in request["entries"]]
+            with self._lock:
+                accepted = self._engine.kvhost_import(payloads)
+            return {"status": "ok", "imported": int(accepted)}
+        raise ValueError('kvhost request needs "digests" or "entries"')
+
     def eject(self, _request: dict) -> dict:
         """POST /v1/admin/eject: every live request leaves as a resume
         state; streams end with a migrate frame, blocking callers get the
@@ -1149,7 +1222,8 @@ def make_handler(service: ServeService, auth_token: str = ""):
     return make_json_handler(
         {"/v1/generate": service.generate, "/v1/result": service.result,
          "/v1/cancel": service.cancel, "/v1/metrics": service.metrics,
-         "/v1/prefix": service.prefix, "/v1/admin/reload": service.reload,
+         "/v1/prefix": service.prefix, "/v1/kvhost": service.kvhost,
+         "/v1/admin/reload": service.reload,
          "/v1/admin/eject": service.eject,
          "/v1/admin/trace": service.admin_trace,
          "/v1/admin/spans": service.admin_spans},
@@ -1301,7 +1375,10 @@ def make_engine(args, params) -> serving.ContinuousBatchEngine:
         handoff_first_token=args.disagg == "prefill",
         record_phase_events=bool(args.span_out
                                  or args.slo_capture_threshold > 0),
-        spec_k=args.spec_k, spec_ngram=args.spec_ngram, device=device)
+        spec_k=args.spec_k, spec_ngram=args.spec_ngram,
+        kv_host_blocks=args.kv_host_blocks,
+        kv_offload_watermark=args.kv_offload_watermark,
+        kv_gossip_interval=args.kv_gossip_interval, device=device)
 
 
 def eject_grace_s(drain_timeout: float, drain_eject_grace: float) -> float:
@@ -1373,6 +1450,10 @@ def main(argv=None, *, stop: Optional[threading.Event] = None,
         # A pool size without a page size would silently build the dense
         # engine; fail fast instead.
         parser.error("--kv-num-blocks requires --kv-block-len > 0")
+    if args.kv_host_blocks and not args.kv_block_len:
+        # The host tier stores paged blocks; without paging there is
+        # nothing block-shaped to demote.
+        parser.error("--kv-host-blocks requires --kv-block-len > 0")
     if args.spec_k and args.int8_kv:
         # The engine raises the same constraint at construction; say it in
         # flag language before the model loads.

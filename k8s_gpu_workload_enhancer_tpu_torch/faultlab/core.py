@@ -1,9 +1,10 @@
 """FaultLab: the deterministic, seed-driven fault-injection plane.
 
 The port's own copy of the JAX package's faultlab, cut to the serving
-engine's sites: the same environment contract (``KTWE_FAULT_SEED``,
-``KTWE_FAULT_RATE``, ``KTWE_FAULT_SITES``) and the same schedule, so one
-seed injects the same faults at the same crossings in both packages.
+engine's sites and the host KV tier's: the same environment contract
+(``KTWE_FAULT_SEED``, ``KTWE_FAULT_RATE``, ``KTWE_FAULT_SITES``) and the
+same schedule, so one seed injects the same faults at the same crossings
+in both packages.
 
 A boundary the engine crosses carries a NAMED injection site::
 
@@ -40,8 +41,8 @@ class InjectedFault(RuntimeError):
     path under test must absorb it."""
 
 
-# The engine's sites: name -> (kind, what the fault models). Every one is
-# of kind "error", as in the JAX package's table.
+# The engine's and the host KV tier's sites: name -> (kind, what the fault
+# models). Every one is of kind "error", as in the JAX package's table.
 SITES: Dict[str, Tuple[str, str]] = {
     "engine.dispatch": ("error", "decode/verify dispatch fault"),
     "engine.collect": ("error", "chunk-fetch/collect fault"),
@@ -53,6 +54,18 @@ SITES: Dict[str, Tuple[str, str]] = {
                                "for one request"),
     "engine.prefill": ("error", "prompt-prefill fault mid-admission"),
     "engine.paged_admit": ("error", "paged-pool admission fault"),
+    # The host KV tier (models/kvhost.py): all three are CONTAINED by
+    # construction — every degraded path ends in re-prefill, never wrong
+    # tokens. A dma fault means the eviction victim discards exactly as
+    # it did before the tier existed; a fetch fault or detected
+    # corruption drops the host entry and the admission re-prefills the
+    # block.
+    "kvhost.dma": ("error", "device->host demotion copy fails — the "
+                            "evicted block discards (pre-tier floor)"),
+    "kvhost.fetch": ("error", "host->device prefetch fails — the "
+                              "entry drops, admission re-prefills"),
+    "kvhost.corrupt": ("error", "stored host block fails its checksum "
+                                "— dropped, never restored"),
 }
 
 _lock = threading.Lock()          # leaf-only guard for the counters

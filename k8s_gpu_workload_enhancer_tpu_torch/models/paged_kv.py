@@ -116,8 +116,8 @@ class RadixNode:
     """One cached full block. `key` is its block_len token ids; identity
     is the chain root -> ... -> this node (children keyed by token
     tuple). `ref` counts live requests whose block table maps through
-    this node; `pins` counts holders keeping it hot (the JAX engine's
-    register_prefix, not ported yet). `detached` nodes have been removed
+    this node; `pins` counts holders keeping it hot (register_prefix).
+    `detached` nodes have been removed
     from the match index (a weight hot-swap invalidated their contents)
     and free their block to the pool when the last reference drops."""
 
@@ -151,7 +151,7 @@ class RadixCache:
         self._tick = 0
         self._nodes = 0
         self.evictions_total = 0
-        # Demotion hook (a host-RAM tier, not ported yet): called with
+        # Demotion hook (the host-RAM tier, models/kvhost.py): called with
         # each eviction victim BEFORE its page is freed, so a tier can
         # copy the block's KV out. MUST NOT raise — eviction semantics
         # are unchanged whether the hook stores the block or not (the

@@ -179,8 +179,28 @@ a verify round's dispatch), `engine.collect` (its fetch), `engine.commit`
 reserved) and `engine.prefill` (each prefill chunk). An injected fault
 takes the containment its boundary's real faults take.
 
-Not ported here (later slices): the host-RAM KV tier, meshes (and the
-`engine.device_loss` site).
+**The host KV tier** (`kv_host_blocks > 0`, paged only;
+models/kvhost.py). Radix eviction DEMOTES a cold full block to host RAM
+(`_kv_demote`, the tree's `on_evict` hook) instead of discarding it; under
+the `kv_offload_watermark` free fraction an admission demotes up to two
+cold blocks ahead of its match. An admission PREFETCHES the continuation
+of its radix match from the tier (`_kv_prefetch`: a restore into a fresh
+page, inserted into the tree) before it sizes its reservation, so each
+restored block is a prefill chunk it never re-pays; any miss ends the walk
+and the rest re-prefills. A restore writes into the pool's own tensors,
+so the decode graphs see it. `kvhost_export` / `kvhost_import` ship tier
+blocks between replicas (`/v1/kvhost`). Every paged engine gossips a bloom
+filter of the chain digests it holds (tree and tier) in the `kvhost`
+metrics block, rebuilt at most every `kv_gossip_interval` seconds, which
+the fleet's router reads to route a prompt to the replica warm for it. A
+weight swap clears the tier (its blocks are the old weights' KV).
+
+**overlap** (default True). False collects every chunk in the step that
+dispatched it (the JAX engine's `overlap=False`): no chunk stays in flight
+across steps, which changes no token.
+
+Not ported here (a later slice): meshes (and the `engine.device_loss`
+site).
 Tenant metering and budgets live in the serve main (cost/cost_engine.py):
 the engine only carries each request's tenant. The serve main also
 advertises the disaggregated role.
@@ -205,7 +225,7 @@ from ..ops.quant import as_compute
 from .. import faultlab
 from ..utils.device import resolve_device
 from ..utils.stats import percentile
-from . import decode, decode_graph, paged_kv, speculative
+from . import decode, decode_graph, kvhost, paged_kv, speculative
 from . import transformer as tf
 
 Params = tf.Params
@@ -858,6 +878,12 @@ class ServeRequest:
     # Registered prefix this request rides on (None = plain); `prompt`
     # holds the full sequence, prefix + suffix.
     prefix_id: Optional[int] = None
+    # Host-tier prefetch window (engines with kv_host_blocks > 0): the
+    # admission restored offloaded prefix blocks between these two
+    # perf_counter stamps, before admitted_at (the flight recorder's
+    # `prefetch` span: queue_wait ends where it starts).
+    prefetch_started_at: Optional[float] = None
+    prefetch_done_at: Optional[float] = None
     # Resumed requests: tokens[:emit_from] were generated by another
     # replica. They prefill as context, count against max_new_tokens and
     # are never re-emitted.
@@ -966,7 +992,8 @@ class ContinuousBatchEngine:
 
     One chunk stays in flight across steps; `overlap_commit` fetches and
     commits it behind the next dispatch (False: before it, for
-    bisection), which changes no token. `watchdog_timeout` (seconds, None off) fails the
+    bisection), which changes no token; `overlap=False` collects every
+    chunk in the step that dispatched it. `watchdog_timeout` (seconds, None off) fails the
     in-flight batch when its chunk has not landed that long after its
     dispatch. `cuda_graph` (the card only) replays the decode chunk as
     one captured CUDA graph (models/decode_graph.py); False launches it
@@ -980,7 +1007,10 @@ class ContinuousBatchEngine:
     `drafter` (any callable (context, k) -> tokens; default an NGramDrafter
     of max_n `spec_ngram`), verified in one (spec_k + 1)-wide round, with
     the per-slot adaptive controller unless `spec_adaptive` is False (see
-    the module notes)."""
+    the module notes). `kv_host_blocks > 0` (paged only) puts the host KV
+    tier under the pool, `kv_offload_watermark` is its demote-ahead free
+    fraction and `kv_gossip_interval` the seconds between bloom rebuilds
+    (see the module notes)."""
 
     def __init__(self, params: Params, cfg: tf.TransformerConfig, *,
                  num_slots: int = 4, max_seq: Optional[int] = None,
@@ -999,7 +1029,9 @@ class ContinuousBatchEngine:
                  record_phase_events: bool = False,
                  phase_event_every: int = 16, spec_k: int = 0,
                  spec_ngram: int = 3, spec_adaptive: bool = True,
-                 drafter: Optional[Callable] = None, device="cuda"):
+                 drafter: Optional[Callable] = None, overlap: bool = True,
+                 kv_host_blocks: int = 0, kv_offload_watermark: float = 0.0,
+                 kv_gossip_interval: float = 30.0, device="cuda"):
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
             raise ValueError(f"params live on {params['embed'].device}, the "
@@ -1039,6 +1071,7 @@ class ContinuousBatchEngine:
         self.max_queue = int(max_queue)
         self.prefill_interleave = max(1, int(prefill_interleave))
         self.keep_results = int(keep_results)
+        self.overlap = bool(overlap)
         self.overlap_commit = bool(overlap_commit)
         self.watchdog_timeout = (float(watchdog_timeout)
                                  if watchdog_timeout else None)
@@ -1107,6 +1140,26 @@ class ContinuousBatchEngine:
             self.kv_num_blocks = 0
             self._cache = decode.init_cache(cfg, self.num_slots,
                                             self.max_seq, self.device)
+        # The host KV tier (paged only): radix eviction demotes into it and
+        # admission prefetches from it (the module notes).
+        self.kv_host_blocks = (int(kv_host_blocks or 0)
+                               if self._paged else 0)
+        self.kv_offload_watermark = float(kv_offload_watermark or 0.0)
+        self.kv_gossip_interval = float(kv_gossip_interval or 30.0)
+        self._host_tier: Optional[kvhost.HostBlockTier] = None
+        if self.kv_host_blocks > 0:
+            self._host_tier = kvhost.HostBlockTier(
+                capacity=self.kv_host_blocks, block_len=self.kv_block_len,
+                device=self.device, page_layout={
+                    n: (tuple(t.shape[:1] + t.shape[2:]), t.dtype)
+                    for n, t in zip(kvhost.LEAF_NAMES,
+                                    self._cache.leaves())})
+            self._radix.on_evict = self._kv_demote
+        # The gossiped warmth bloom, rebuilt lazily in metrics_snapshot.
+        self._kv_bloom_hex = ""
+        self._kv_bloom_bits = 0
+        self._kv_bloom_hashes = 0
+        self._kv_bloom_at = 0.0
         self._freqs = rope_frequencies(cfg.head_dim, self.max_seq,
                                        cfg.rope_theta, self.device)
         # Device slot mirrors: every slot's next input token, position and
@@ -1585,8 +1638,9 @@ class ContinuousBatchEngine:
         blocks are staged into fresh pages first; at the commit the radix
         tree is detached (its pages hold old-weight KV: unreferenced pages
         free now, pages live requests still map free with their leases),
-        the staged chains are inserted and pinned, and a prefill in flight
-        across the swap finishes but never publishes its blocks.
+        the staged chains are inserted and pinned, a prefill in flight
+        across the swap finishes but never publishes its blocks, and the
+        host KV tier is cleared (its blocks are old-weight KV).
 
         A graphed engine copies the new values into the leaves it was
         built with (its decode graphs read their storage), so a caller
@@ -1632,6 +1686,9 @@ class ContinuousBatchEngine:
                     self._radix.unpin(pfx.chain)
                     pfx.chain = None
             self._radix.detach_all()
+            if self._host_tier is not None:
+                # The tier's blocks are the old weights' KV.
+                self._host_tier.clear()
             if self._prefill is not None:
                 self._prefill.publish = False
             bl = self.kv_block_len
@@ -1683,7 +1740,9 @@ class ContinuousBatchEngine:
         overlap_commit=False fetches and commits before the dispatch
         instead (bisection). The dispatch reads only the device mirrors,
         and slot frees land on the same step in either ordering, so both
-        give the same tokens.
+        give the same tokens. overlap=False collects the new chunk in this
+        step as well, after the dispatch (the JAX engine's strict per-chunk
+        sync), so no chunk is in flight between steps.
 
         On the prefill role the first tokens land right after the
         admission (a sync: TTFT is that replica's whole job), so the
@@ -1731,6 +1790,13 @@ class ContinuousBatchEngine:
             except Exception as e:             # noqa: BLE001 — contained
                 self._contain_collect_failure(e)
                 return 0
+        if nxt is not None and not self.overlap:
+            try:
+                emitted += self._commit_phase(self._fetch(nxt),
+                                              overlapped=False)
+            except Exception as e:             # noqa: BLE001 — contained
+                self._contain_collect_failure(e)
+            nxt = None
         self._inflight = nxt
         return emitted
 
@@ -1739,9 +1805,10 @@ class ContinuousBatchEngine:
         engine's order: fetch the round in flight, dispatch the next one
         (its drafts first), commit the fetched round behind it, then
         collect the new round at once unless it is a bypass chunk while no
-        live slot could draft. A round is in flight across steps only as
-        such a chunk, so a slot that drafts has every token of its own
-        committed (its first token lands before its drafts)."""
+        live slot could draft (and overlap is on). A round is in flight
+        across steps only as such a chunk, so a slot that drafts has every
+        token of its own committed (its first token lands before its
+        drafts)."""
         emitted, fetched = 0, None
         inflight, self._inflight = self._inflight, None
         if inflight is not None:
@@ -1776,7 +1843,8 @@ class ContinuousBatchEngine:
                 self._contain_collect_failure(e)
                 nxt = None
         if nxt is not None:
-            if nxt.dlen is None and not self._spec_can_draft():
+            if (self.overlap and nxt.dlen is None
+                    and not self._spec_can_draft()):
                 self._inflight = nxt
             else:
                 try:
@@ -2399,6 +2467,97 @@ class ContinuousBatchEngine:
             self._radix.evict(deficit)
         return self._pool.alloc(n)
 
+    def _kv_demote(self, node) -> None:
+        """RadixCache.on_evict hook: copy the eviction victim's KV to the
+        host tier before its page is freed. Never raises: a copy fault
+        (kvhost.dma) degrades to the plain discard inside the tier, and any
+        other failure here must not break eviction (the tier is purely
+        additive). The trash page is never demoted."""
+        tier = self._host_tier
+        if tier is None or node.block == paged_kv.TRASH_BLOCK:
+            return
+        try:
+            parent = node.parent
+            tier.offload(self._cache, node.block, node.digest,
+                         parent.digest if parent is not None else "",
+                         node.key)
+        except Exception:                      # noqa: BLE001 — contained
+            tier.dma_failures_total += 1
+
+    def kvhost_export(self, digests: List[str]) -> List[dict]:
+        """Serialize the host-tier blocks of `digests` for a peer replica
+        (/v1/kvhost); digests the tier does not hold are skipped (the peer
+        re-prefills that tail)."""
+        tier = self._host_tier
+        if tier is None:
+            return []
+        out = []
+        for d in digests:
+            payload = tier.export_entry(d)
+            if payload is not None:
+                out.append(payload)
+        return out
+
+    def kvhost_import(self, payloads: List[dict]) -> int:
+        """Install peer-shipped blocks into the host tier (host side only:
+        the next matching admission prefetches them through the same
+        checksummed restore as local demotions). Returns how many were
+        accepted; payloads of another signature or corrupt ones are
+        rejected inside the tier."""
+        tier = self._host_tier
+        if tier is None:
+            return 0
+        return sum(1 for p in payloads if tier.import_entry(p))
+
+    def _kv_prefetch(self, ctx: List[int], chain: list, plen: int,
+                     req: ServeRequest) -> list:
+        """Extend a radix match with blocks restored from the host tier
+        before the prefill reservation is sized: each restored block is a
+        prefill chunk the request never re-pays. The chain (matched and
+        restored so far) rides an acquire guard while pages are allocated,
+        as admission's own eviction guard: `_kv_alloc` may evict (and
+        demote), never the pages this admission is about to use. Any tier
+        miss (absent, faulted, corrupt, another signature) ends the walk;
+        the rest re-prefills."""
+        tier = self._host_tier
+        bl = self.kv_block_len
+        self._radix.acquire(chain)
+        try:
+            parent = chain[-1] if chain else self._radix.root
+            # Keep >= 1 prompt token out (the match trim's rule: the first
+            # token is sampled from the last prompt row's logits).
+            while (len(chain) + 1) * bl < plen:
+                off = len(chain) * bl
+                key = tuple(int(t) for t in ctx[off:off + bl])
+                entry = tier.fetch(paged_kv.chain_digest(parent.digest, key))
+                if entry is None:
+                    break
+                if req.prefetch_started_at is None:
+                    req.prefetch_started_at = time.perf_counter()
+                blks = self._kv_alloc(1)
+                if blks is None:
+                    break
+                # The restore is queued on the compute stream before the
+                # prefill that reads the page (module kvhost notes).
+                tier.restore(self._cache, blks[0], entry)
+                node = self._radix.insert(parent, key, blks[0])
+                if node.block != blks[0]:
+                    # An identical chain raced in (a concurrent
+                    # registration): the tree's node wins, our page goes
+                    # back.
+                    self._pool.free(blks)
+                self._radix.acquire([node])
+                chain.append(node)
+                parent = node
+        finally:
+            # Hand the guard back: the caller acquires the whole chain
+            # through the normal admission flow.
+            self._radix.release(chain)
+        if (req.prefetch_started_at is not None
+                and req.prefetch_done_at is None):
+            req.prefetch_done_at = time.perf_counter()
+        return chain
+
     def _release_lease(self, req: ServeRequest) -> None:
         """Give a finished, cancelled or failed request's pages back: radix
         references drop, private pages return to the free list. Reusing
@@ -2437,11 +2596,23 @@ class ContinuousBatchEngine:
         # radix match makes a migrated-in request warm).
         ctx = req.prompt + req.tokens[:req.emit_from]
         plen = len(ctx)
+        tier = self._host_tier
+        if (tier is not None and self.kv_offload_watermark > 0.0
+                and self._pool.free_count
+                < self.kv_offload_watermark * self._pool.capacity):
+            # Demote-ahead: under the free watermark, push a couple of cold
+            # blocks through eviction (which demotes them) before this
+            # admission needs the headroom.
+            self._radix.evict(min(2, self._radix.evictable_blocks()))
         chain = self._radix.match(ctx)
         while chain and len(chain) * bl >= plen:
             # Keep >= 1 prompt token out of the match: the first token is
             # sampled from the last prompt row's logits.
             chain = chain[:-1]
+        if tier is not None and tier.blocks_used:
+            # Restore the match's offloaded continuation before sizing the
+            # prefill.
+            chain = self._kv_prefetch(ctx, chain, plen, req)
         matched = len(chain) * bl
         # The whole span is prompt + max_new: the committed tokens ride
         # inside the budget.
@@ -2608,6 +2779,53 @@ class ContinuousBatchEngine:
 
     # -- metrics --
 
+    def _kvhost_snapshot(self) -> Dict[str, Any]:
+        """The `kvhost` metrics block: the host tier's counters and the
+        gossiped warmth bloom over every prefix digest this replica can
+        serve warm (the device radix tree and the host tier), rebuilt at
+        most every kv_gossip_interval seconds (staleness costs a few
+        seconds of routing on old warmth, which the radix miss absorbs). A
+        dense engine sends an empty bloom."""
+        tier = self._host_tier
+        out: Dict[str, Any] = {
+            "enabled": tier is not None,
+            "capacity": self.kv_host_blocks,
+            "blocks_used": tier.blocks_used if tier else 0,
+            "offloads_total": tier.offloads_total if tier else 0,
+            "prefetches_total": tier.prefetches_total if tier else 0,
+            "hits_total": tier.hits_total if tier else 0,
+            "discards_total": tier.discards_total if tier else 0,
+            "corrupt_drops_total": tier.corrupt_drops_total if tier else 0,
+            "dma_failures_total": tier.dma_failures_total if tier else 0,
+            "dma_seconds_total": tier.dma_seconds_total if tier else 0.0,
+            "imports_total": tier.imports_total if tier else 0,
+            "exports_total": tier.exports_total if tier else 0,
+            "block_len": self.kv_block_len,
+            "bloom": "", "bloom_bits": 0, "bloom_hashes": 0,
+        }
+        if not self._paged:
+            return out
+        now = time.monotonic()
+        if (not self._kv_bloom_hex
+                or now - self._kv_bloom_at >= self.kv_gossip_interval):
+            bloom = kvhost.PrefixBloom()
+            stack = list(self._radix.root.children.values())
+            while stack:
+                node = stack.pop()
+                bloom.add(node.digest)
+                stack.extend(node.children.values())
+            if tier is not None:
+                for digest in tier.digests():
+                    bloom.add(digest)
+            self._kv_bloom_hex = bloom.to_hex()
+            self._kv_bloom_bits = bloom.bits
+            self._kv_bloom_hashes = bloom.hashes
+            self._kv_bloom_at = now
+        out["bloom"] = self._kv_bloom_hex
+        out["bloom_bits"] = self._kv_bloom_bits
+        out["bloom_hashes"] = self._kv_bloom_hashes
+        return out
+
     def metrics_snapshot(self) -> Dict[str, Any]:
         """Counters and flat per-request rows; the percentile sorts live in
         aggregate_metrics (callers run them outside any serving lock)."""
@@ -2734,6 +2952,10 @@ class ContinuousBatchEngine:
                     / self._kv_prompt_tokens_total
                     if self._kv_prompt_tokens_total else 0.0),
             },
+            # The host KV tier and the fleet's warmth gossip: the
+            # ktwe_serving_kvhost_* source; the fleet registry reads the
+            # bloom fields for warm routing.
+            "kvhost": self._kvhost_snapshot(),
         }
 
     @staticmethod
@@ -2760,6 +2982,16 @@ class ContinuousBatchEngine:
             "lifetime": snap["lifetime"],
             "prefix_cache": snap["prefix_cache"],
             "kv_cache": snap["kv_cache"],
+            # .get: a stub snapshot without the block reads as tier-off
+            # with an empty bloom.
+            "kvhost": snap.get("kvhost", {
+                "enabled": False, "capacity": 0, "blocks_used": 0,
+                "offloads_total": 0, "prefetches_total": 0,
+                "hits_total": 0, "discards_total": 0,
+                "corrupt_drops_total": 0, "dma_failures_total": 0,
+                "dma_seconds_total": 0.0, "imports_total": 0,
+                "exports_total": 0, "block_len": 0, "bloom": "",
+                "bloom_bits": 0, "bloom_hashes": 0}),
             "migration": snap["migration"],
             "errors": snap["errors"],
             "draining": snap["draining"],

@@ -14,7 +14,7 @@ adopts that remote parent:
   zero-duration child spans at their timestamps;
 - phase children ``admission`` (HTTP arrival -> engine enqueue),
   ``queue_wait`` (enqueue -> slot admission), ``prefetch`` (a host-tier
-  restore; the port has no host tier yet, so it never appears),
+  restore, models/kvhost.py; absent when nothing was restored),
   ``prefill`` (admission -> first token, the prefill chunks as events),
   ``decode`` (first token -> terminal, decode-step and commit events);
 - a ``first_token`` event on the root, and its ``ttft_ms``.
@@ -49,8 +49,8 @@ PHASE_ADMISSION = "admission"
 PHASE_QUEUE_WAIT = "queue_wait"
 # Host-tier prefetch: offloaded prefix blocks restoring host -> device
 # between queue pop and prefill dispatch. It reads the request's
-# prefetch_started_at / prefetch_done_at, which only a host KV tier sets;
-# the port has none yet, so the span is absent and its window stays empty.
+# prefetch_started_at / prefetch_done_at, which only the host KV tier sets
+# (models/kvhost.py); without a restore the span is absent.
 PHASE_PREFETCH = "prefetch"
 PHASE_PREFILL = "prefill"
 PHASE_DECODE = "decode"

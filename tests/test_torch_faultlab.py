@@ -46,6 +46,8 @@ KINDS = [0, 8]
 KIND_IDS = ["dense", "paged"]
 ENGINE_SITES = ("engine.dispatch", "engine.collect", "engine.commit",
                 "engine.paged_admit", "engine.prefill")
+# The host KV tier's sites (tests/test_torch_kvhost.py drives them).
+KVHOST_SITES = ("kvhost.dma", "kvhost.fetch", "kvhost.corrupt")
 CAUSES = ("dispatch", "collect", "commit", "prefill", "watchdog")
 
 
@@ -91,8 +93,9 @@ def test_schedule_equals_jax(seed):
     for name in ENGINE_SITES:
         assert ([tt.decide(name, i) for i in range(8)]
                 == [jt.decide(name, i) for i in range(8)])
-    # The port keeps the engine's sites only, each of JAX's kind.
-    assert set(tfl.SITES) == set(ENGINE_SITES)
+    # The port keeps the engine's and the host tier's sites only, each of
+    # JAX's kind.
+    assert set(tfl.SITES) == set(ENGINE_SITES + KVHOST_SITES)
     for name, (kind, _) in tfl.SITES.items():
         assert kind == jfl.SITES[name][0] == "error", name
     assert (tfl.ENV_SEED, tfl.ENV_RATE, tfl.ENV_SITES) == (

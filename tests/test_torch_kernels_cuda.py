@@ -1388,3 +1388,112 @@ def test_graphed_verify_rounds_equal_the_eager_engine(dev, kv_block_len):
     assert ref.metrics()["spec"] == m["spec"]
     kv = m["kv_cache"]
     assert kv["blocks_free"] + kv["blocks_cached"] == kv["blocks_total"]
+
+
+def _tier_workload(eng, seed=0):
+    """Three prompts of distinct 64-token prefixes through a pool that
+    holds two requests' pages (each request leaves 5 full prompt pages
+    cached), so admissions evict earlier prefixes into the host tier; then
+    each prefix again under a new tail, restored from the tier."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    prefixes = [rng.integers(0, 1024, 64).tolist() for _ in range(3)]
+    rids = [eng.submit(p + rng.integers(0, 1024, 16).tolist(), 24)
+            for p in prefixes]
+    eng.run()
+    rids += [eng.submit(p + rng.integers(0, 1024, 16).tolist(), 24)
+             for p in prefixes]
+    eng.run()
+    assert all(eng.result(r).finish_reason == "length" for r in rids)
+    return [(eng.result(r).tokens, eng.result(r).logprobs) for r in rids]
+
+
+def _watch_demotions(eng):
+    """digest -> the page's leaves as they were when it was demoted."""
+    seen = {}
+    real = eng._radix.on_evict
+
+    def hook(node):
+        seen[node.digest] = [t[:, node.block].clone()
+                             for t in eng._cache.leaves()]
+        real(node)
+    eng._radix.on_evict = hook
+    return seen
+
+
+def test_graphed_engine_with_the_host_tier_equals_the_eager_engine(dev):
+    """kv_host_blocks on the card: the graphed, pipelined paged engine
+    whose admissions demote pages to pinned host memory on a side stream
+    and restore them in place gives the eager serialized engine's tokens
+    and logprobs bit for bit, the same tier counters (the wall-clock DMA
+    seconds aside), restores every re-arrival's prefix, and leaks no page;
+    its launches are its prefill chunks' and decode steps' (a restore
+    launches no table kernel)."""
+    cfg, (params, _) = _serving_model(dev)
+    kw = dict(kv_num_blocks=15, kv_host_blocks=32)
+    eng = _graph_engine(dev, params, cfg, 16, watchdog_timeout=30, **kw)
+    kernels.reset_launches()
+    got = _tier_workload(eng)
+    torch.cuda.synchronize()
+    m = eng.metrics()
+    assert dict(kernels.launches) == _engine_launches(cfg, m["lifetime"],
+                                                      True)
+    assert m["hotpath"]["graphs_captured"] == 1
+    tier = m["kvhost"]
+    assert tier["offloads_total"] >= 12 and tier["hits_total"] >= 8
+    assert tier["prefetches_total"] == tier["hits_total"]
+    ref = _graph_engine(dev, params, cfg, 16, cuda_graph=False,
+                        overlap_commit=False, **kw)
+    assert got == _tier_workload(ref)
+    rm = ref.metrics()["kvhost"]
+    for k in ("dma_seconds_total",):
+        tier.pop(k)
+        rm.pop(k)
+    assert rm == tier
+    kv = m["kv_cache"]
+    assert kv["blocks_free"] + kv["blocks_cached"] == kv["blocks_total"]
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_host_tier_restores_pages_in_place_bit_for_bit(dev, int8):
+    """Every page restored from the host tier equals, bit for bit, the
+    page as it was when demoted (k, v and, under int8, the scales), in the
+    pool tensors the engine was built with: each restore is held as it
+    lands, and the pages still in the tree after the run, with no sync
+    between the engine's steps; the demotion's staging copy on the compute
+    stream and the side stream's copy to pinned memory see the page before
+    the admission that freed it overwrites it."""
+    import dataclasses
+    cfg, (params, _) = _serving_model(dev)
+    cfg = dataclasses.replace(cfg, kv_cache_int8=int8)
+    eng = _graph_engine(dev, params, cfg, 16, kv_num_blocks=15,
+                        kv_host_blocks=32)
+    ptrs = [t.data_ptr() for t in eng._cache.leaves()]
+    demoted = _watch_demotions(eng)
+    tier, restored = eng._host_tier, []
+    real_restore = tier.restore
+
+    def restore(cache, block_id, entry):
+        real_restore(cache, block_id, entry)
+        torch.cuda.synchronize()
+        for got, want in zip(cache.leaves(), demoted[entry.digest]):
+            assert torch.equal(got[:, block_id], want)
+        restored.append(entry.digest)
+    tier.restore = restore
+    _tier_workload(eng)
+    torch.cuda.synchronize()
+    assert len(restored) >= 8 and len(restored) == tier.prefetches_total
+    assert [t.data_ptr() for t in eng._cache.leaves()] == ptrs
+    checked, stack = 0, list(eng._radix.root.children.values())
+    while stack:
+        node = stack.pop()
+        stack.extend(node.children.values())
+        if node.digest in demoted:
+            for got, want in zip(eng._cache.leaves(), demoted[node.digest]):
+                assert torch.equal(got[:, node.block], want)
+            checked += 1
+    assert checked >= 1
+    assert eng._host_tier.host_bytes() > 0
+    host = next(iter(eng._host_tier._entries.values()))
+    arrays = host.arrays or host.pending
+    assert all(a.is_pinned() for a in arrays.values())

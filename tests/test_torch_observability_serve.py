@@ -66,11 +66,7 @@ FLAGS = ("trace_out", "span_out", "slo_capture_threshold", "optimizer_url",
          "telemetry_interval", "tenants")
 # The JAX serve's families whose source the port has not ported yet.
 UNPORTED = (
-    [f"ktwe_serving_kvhost_{k}" for k in (
-        "blocks_used", "corrupt_drops_total", "discards_total",
-        "dma_failures_total", "dma_seconds_total", "hits_total",
-        "offloads_total", "prefetches_total")]
-    + [f"ktwe_serving_mesh_{k}" for k in (
+    [f"ktwe_serving_mesh_{k}" for k in (
         "degraded", "devices", "dp", "per_slice_mfu_pct", "tp")]
     + ["ktwe_serving_evacuated_requests_total",
        "ktwe_serving_request_errors_device_loss_total"])
@@ -209,10 +205,10 @@ def test_metrics_blocks_have_the_jax_keys(tmp_path):
 
 
 def test_families_are_the_jax_ones_less_the_unported(tmp_path):
-    assert len(UNPORTED) == 15
+    assert len(UNPORTED) == 7
     assert set(serve.SERVING_FAMILIES) == \
         set(jserve.SERVING_FAMILIES) - set(UNPORTED)
-    assert len(serve.SERVING_FAMILIES) == 83
+    assert len(serve.SERVING_FAMILIES) == 91
     mport = _free_port()
     spans = tmp_path / "spans.ndjson"
     port, stop, th, result = _run_main(ARGS + [

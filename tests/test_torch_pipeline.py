@@ -17,7 +17,10 @@ the JAX engine on the same weights (CPU, f32).
   engine's transcripts for the same sequence of calls, and a graphed
   engine's swap copies into the storage its graph captured;
 - the sampler, a tensor function over pre-drawn Gumbel noise, equals the
-  engine's former per-row sampler bit for bit.
+  engine's former per-row sampler bit for bit;
+- overlap=False (the JAX engine's knob) collects every chunk in the step
+  that dispatched it: step for step the JAX engine's live slots, prefill
+  offsets, tokens and counters, dense, paged, speculative and chunked.
 """
 
 import time
@@ -362,7 +365,7 @@ def test_hot_path_families_have_the_jax_names():
              "ktwe_serving_watchdog_trips_total",
              "ktwe_serving_request_errors_watchdog_total"}
     assert names <= set(serve.SERVING_FAMILIES) <= set(JAX_FAMILIES)
-    assert len(serve.SERVING_FAMILIES) == 83
+    assert len(serve.SERVING_FAMILIES) == 91
 
 
 def test_a_failing_graph_fails_the_batch_and_never_runs_eagerly(models,
@@ -387,3 +390,63 @@ def test_a_failing_graph_fails_the_batch_and_never_runs_eagerly(models,
     assert req.finish_reason == "error" and "capture failed" in req.error
     assert eng.metrics()["resilience"]["errors"]["dispatch"] == 1
     assert not eager and not eng.active
+
+
+def _strict_trace(eng) -> list:
+    """The JAX overlap=False pins' step sequences (test_serving.py: a long
+    prompt arriving while a slot decodes, idle admission stopping at the
+    first live slot, the prefill reservation in slots_busy, the quantum
+    under a backlog), recorded after every step: live slots, the prefill
+    offset, slots_busy, each request's tokens, the lifetime counters,
+    the spec block and whether a chunk is left in flight."""
+    long_a = [(5 * i + 2) % DIMS["vocab_size"] for i in range(24)]
+    long_b = [(11 * i + 1) % DIMS["vocab_size"] for i in range(24)]
+    cases = [([3, 17, 29, 5], 12), (long_a, 8), ([5, 6] * 4, 10),
+             (long_b, 6)]
+    trace, rids = [], []
+
+    def snap():
+        m = eng.metrics()
+        trace.append((
+            sum(r is not None for r in eng._slot_req),
+            None if eng._prefill is None else eng._prefill.offset,
+            eng.slots_busy, [list(eng.result(r).tokens) for r in rids],
+            {k: m["lifetime"][k] for k in ("completed", "tokens",
+                                           "decode_steps",
+                                           "prefill_chunks")},
+            {k: m["spec"][k] for k in ("rounds_total", "bypass_rounds_total",
+                                       "tokens_total", "k_hist")},
+            eng._inflight is None))
+    for i, (prompt, n) in enumerate(cases):
+        rids.append(eng.submit(prompt, n))
+        if i < 2:
+            eng.step()
+            snap()
+    while eng.active:
+        eng.step()
+        snap()
+    return trace
+
+
+@pytest.mark.parametrize("kind", [
+    {}, {"kv_block_len": 8}, {"spec_k": 2}, {"spec_k": 2, "kv_block_len": 8},
+    {"prefill_chunk_tokens": 4, "decode_chunk": 8}],
+    ids=["dense", "paged", "dense-spec", "paged-spec", "chunked"])
+def test_overlap_false_collects_each_chunk_as_the_jax_engine(models, kind):
+    """overlap=False (the JAX engine's knob): every chunk is collected in
+    the step that dispatched it, so the port steps as the JAX engine does,
+    step for step: the same live slots, prefill offsets, tokens, counters
+    and spec block after every step, no chunk in flight between steps;
+    and the tokens equal the overlapped engine's."""
+    jcfg, cfg, [(jp, params), _] = models
+    kw = dict(ENGINE, prefill_interleave=1, **kind)
+    want = _strict_trace(jsrv.ContinuousBatchEngine(jp, jcfg, overlap=False,
+                                                    **kw))
+    got = _strict_trace(port_engine(params, cfg, overlap=False, **kw))
+    assert got == want
+    assert all(t[-1] for t in got)
+    if "spec_k" in kind:
+        assert got[-1][5]["rounds_total"] > 0
+    overlapped = _strict_trace(port_engine(params, cfg, **kw))
+    assert overlapped[-1][3] == got[-1][3]
+    assert not all(t[-1] for t in overlapped) or "spec_k" in kind

@@ -540,7 +540,10 @@ def test_config_sets_flags_and_refuses_keys_without_one(tmp_path, capsys):
     cfg.write_text("serve:\n  spec_k: 2\n")
     assert parse_with_config(serve.build_parser(), "serve",
                              ["--config", str(cfg)]).spec_k == 2
-    for bad, named in (("  kv_host_blocks: 2\n", "serve.kv_host_blocks"),
+    cfg.write_text("serve:\n  kv_host_blocks: 2\n")
+    assert parse_with_config(serve.build_parser(), "serve",
+                             ["--config", str(cfg)]).kv_host_blocks == 2
+    for bad, named in (("  mesh: '2,4'\n", "serve.mesh"),
                        ("  num_slots: lots\n", "serve.num_slots"),
                        ("  int8: 3\n", "serve.int8")):
         cfg.write_text("serve:\n" + bad)

@@ -22,10 +22,14 @@ layers, max_seq 128).
 - The serve main: `--spec-k`/`--spec-ngram` with the JAX knob defaults
   and `serve:` keys, `--spec-k` with `--int8-kv` the JAX parser error, a
   spec replica's `spec` block with the JAX keys, its 8
-  `ktwe_serving_spec_*` families at the JAX table's values (83 served),
+  `ktwe_serving_spec_*` families at the JAX table's values (91 served),
   tokens equal to a spec-off replica's, and the JAX
   `ReplicaRegistry._parse_load` reading its acceptance rate and effective
   tokens a step.
+- Speculation under preemption, under eject and resume, and on a
+  registered prefix (an oracle drafter): the JAX spec engine's tokens,
+  `spec` blocks, migration counters and resume frames, and the spec-off
+  engine's tokens.
 
 Every engine test forces verify rounds (repetitive prompts or a
 `drafter=`) and asserts that they ran and accepted drafts.
@@ -596,7 +600,7 @@ def test_spec_replica_serves_the_spec_block_and_families(paged):
     assert spec["enabled"] and spec["k"] == 4 and spec["rounds_total"] > 0
     assert spec["draft_accepted_total"] > 0
     assert m_off["spec"]["rounds_total"] == 0
-    assert len(serve.SERVING_FAMILIES) == 83 == len(series)
+    assert len(serve.SERVING_FAMILIES) == 91 == len(series)
     spec_names = [n for n in series if n.startswith("ktwe_serving_spec_")]
     assert len(spec_names) == 8
     for name in spec_names:
@@ -609,3 +613,91 @@ def test_spec_replica_serves_the_spec_block_and_families(paged):
         spec["effective_tokens_per_step"] > 1.0
     off_snap = ReplicaRegistry._parse_load(m_off)
     assert off_snap.effective_tokens_per_step == 1.0
+
+
+def _step_until(eng, cond, limit=400):
+    for _ in range(limit):
+        if cond():
+            return
+        eng.step()
+    assert cond(), f"condition not reached within {limit} steps"
+
+
+def _resume(eng, st):
+    return eng.submit(st["prompt"], st["maxNewTokens"],
+                      committed=st["committed"], prng_key=st["prngKey"],
+                      tenant=st["tenant"], priority=st["priority"],
+                      preempted=st["preempted"])
+
+
+def _spec_preempt(make):
+    """One slot: a batch request decoding speculatively is preempted for an
+    interactive arrival; its resume frame continues on a second engine."""
+    eng = make(num_slots=1)
+    b = eng.submit(PROMPTS[0], LENS[0], priority="batch", tenant="bulk")
+    _step_until(eng, lambda: len(eng.result(b).tokens) >= 6)
+    i = eng.submit(PROMPTS[1], 12)
+    eng.run()
+    rb, ri = eng.result(b), eng.result(i)
+    other = make()
+    r2 = _resume(other, rb.resume_state)
+    other.run()
+    return [(rb.tokens, rb.finish_reason, rb.resume_state),
+            (ri.tokens, ri.finish_reason), other.result(r2).tokens,
+            eng.metrics()["spec"], eng.metrics()["migration"],
+            other.metrics()["spec"], other.metrics()["migration"]]
+
+
+def _spec_eject(make):
+    """A speculative stream ejected after 9 tokens resumes on another
+    speculative engine."""
+    eng = make()
+    rids = [eng.submit(p, n) for p, n in zip(PROMPTS[:2], LENS[:2])]
+    _step_until(eng, lambda: len(eng.result(rids[0]).tokens) >= 9)
+    st = eng.eject(rids[0])
+    eng.run()
+    other = make()
+    r2 = _resume(other, st)
+    other.run()
+    return [st, eng.result(rids[0]).tokens, eng.result(rids[1]).tokens,
+            other.result(r2).tokens, eng.metrics()["spec"],
+            eng.metrics()["migration"], other.metrics()["spec"],
+            other.metrics()["migration"]]
+
+
+def _spec_prefix(make):
+    """Requests riding a registered prefix verify over its cached rows."""
+    eng = make()
+    pid = eng.register_prefix(PROMPTS[2] * 4)
+    rids = [eng.submit(p, n, prefix_id=pid)
+            for p, n in zip(PROMPTS[3:], LENS[3:])]
+    eng.run()
+    return [[eng.result(r).tokens for r in rids], eng.metrics()["spec"],
+            eng.metrics()["prefix_cache"], eng.prefix_cached_len(pid)]
+
+
+@pytest.mark.parametrize("kind", KINDS, ids=KIND_IDS)
+@pytest.mark.parametrize("scenario", [_spec_preempt, _spec_eject,
+                                      _spec_prefix],
+                         ids=["preempt", "eject_resume", "prefix"])
+def test_spec_under_migration_and_prefixes_equals_jax(model, scenario,
+                                                      kind):
+    """Speculation under preemption, under eject and resume, and on a
+    registered prefix, under an oracle drafter: the JAX spec engine's
+    tokens, `spec` blocks, migration counters and resume frames, and the
+    spec-off engine's tokens."""
+    # The prefix riders first: the oracle takes the first prompt a context
+    # starts with, and each rider starts with PROMPTS[2].
+    prompts = [PROMPTS[2] * 4 + p for p in PROMPTS[3:]] + PROMPTS
+    oracle = oracle_for(model, prompts, LENS[3:] + LENS)
+
+    def maker(engine):
+        return lambda **kw: engine(model, spec_k=3, drafter=oracle,
+                                   **{**kind, **kw})
+    got = scenario(maker(port_engine))
+    assert got == scenario(maker(jax_engine))
+    spec = [x for x in got if isinstance(x, dict) and "rounds_total" in x]
+    assert spec[0]["rounds_total"] > 0 and spec[0]["draft_accepted_total"] > 0
+    off = scenario(lambda **kw: port_engine(model, **{**kind, **kw}))
+    tokens = lambda out: [x for x in out if isinstance(x, list)]  # noqa: E731
+    assert tokens(got) == tokens(off)
