@@ -182,6 +182,29 @@ inits in bf16:
      way in device ms against the host link, the tier's dma seconds a
      block, the host ms a demotion adds to an admission and the pinned
      host bytes.
+     The moe phases run Mixture-of-Experts (4 experts a layer, top-1): the
+     MoE engines at the serve defaults, dense and paged (the dense
+     one-hot expert route at every decode step, inside the captured
+     graph), greedy and sampled, held bit for bit to eager engines, with a
+     spec engine (spec_k 4, an oracle drafter) graphed against eager and
+     its verify replay one gather and 2L+1 norms; their launches exactly a
+     dense model's per chunk and step (MoE adds no table kernel); in f32
+     the graphed dense and paged MoE engines' tokens equal the plain
+     versions' eager engine's; it prints device ms a decode step against
+     the dense model's engine in the same phase and the weight bytes a
+     step reads. The census phase warms an engine in each mode at the
+     serve defaults (dense and paged; plain, spec, chunked prefill, MoE)
+     under the program-event sentinel (analysis/compilewatch.py): exactly
+     the graphs of its mode, each captured once (chunk; quantum with
+     chunked prefill; verify round with spec), no kernel build or load;
+     then new prompts and lengths and a weight swap on every engine: zero
+     post-warm captures and builds. The trainer main at its defaults with
+     --n-experts 4 (1.88 B parameters; the ragged dispatch) trains 4
+     steps: step ms, tokens/s, MFU, peak memory, aux, finite losses and
+     grad norms, a dense step's launches; an f32 MoE gate (the trainer
+     gate's dims, 4 experts, the ragged and the dense route) holds the
+     loss and every gradient leaf, router and experts included, through
+     the kernels to the plain versions at the gates' limits.
      Every
      phase
      must launch exactly the kernels its prefill chunks, decode steps,
@@ -228,7 +251,10 @@ inits in bf16:
      main at its defaults and one flagship step of a single microbatch
      after the timed phases; prints
      the ten device operations with the most self time, the device's idle
-     share and the named kernels' device ms in each;
+     share and the named kernels' device ms in each; then the trace cell:
+     train/profiling.trace_steps over three steps of the trainer's
+     default configuration and device_duty_cycle of its Chrome trace,
+     within 1 point of 100 - the idle share of the same window;
   5. prints the {"kernels": [...], "launch_floor_ms": ...} line, then the
      result line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
@@ -376,6 +402,17 @@ FLAGSHIP_GATE_DIMS = dict(vocab_size=32768, d_model=2048, n_layers=1,
                           n_heads=4, n_kv_heads=4, d_ff=16384, max_seq=512,
                           ce_chunk=32768, ce_cache_logits=True)
 FLAGSHIP_GATE_BATCH = 1
+# The moe phases: MOE_EXPERTS experts a layer, top-1 (the trainer main's
+# --n-experts 4: 1.88 B parameters, ~30 GB of f32 params, grads and AdamW
+# moments at the trainer defaults, where 8 experts would need ~56 GB before
+# activations); its trainer run of MOE_TRAIN_STEPS steps (one warm-up);
+# the f32 gate at the trainer gate's dims with 4 experts, both routes.
+MOE_EXPERTS, MOE_TRAIN_STEPS = 4, 4
+MOE_GATE_DIMS = dict(GATE_DIMS, n_experts=MOE_EXPERTS)
+# The trace cell: trace_steps over TRACE_STEPS default train steps (its
+# default count), device_duty_cycle within TRACE_POINTS of 100 - the idle
+# share of the same window.
+TRACE_STEPS, TRACE_POINTS = 3, 1.0
 # Fused CE forward vs plain: lse and gold relative (bf16: the tensor cores
 # sum the logits in another order; f32: the f32 pipes in contraction order
 # against cuBLAS); stash and dlg within one bf16 ulp (an f32 value within
@@ -1647,21 +1684,10 @@ def serve_params(dev, tf, serve):
 
 def run_engine(dev, mods, cfg, params, init_s) -> dict:
     kernels, rms, rope, flash, paged, tf, decode, serving, serve = mods
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab_size, PROMPT_LEN).tolist()
-               for _ in range(N_REQUESTS)]
-    prompts.append(rng.integers(0, cfg.vocab_size, LONG_PROMPT_LEN).tolist())
+    prompts = engine_prompts(cfg.vocab_size)
 
     def warmed(**kw):
-        # cuBLAS, the first launches and the decode graph's capture
-        # happen outside the timed run.
-        eng = new_engine(serving, params, cfg, dev, **kw)
-        warm = eng.submit(prompts[0][:16], 4)
-        eng.run()
-        if eng.result(warm).finish_reason != "length":
-            fail(f"warm-up request: {eng.result(warm)}")
-        eng.release(warm)
-        return eng
+        return warmed_engine(serving, params, cfg, dev, prompts[0], **kw)
     eng = warmed(watchdog_timeout=WATCHDOG_S)
     capture_ms = eng._graph.capture_ms
     before = eng.metrics_snapshot()["lifetime"]
@@ -2532,20 +2558,25 @@ def run_train_gate(dev, mods, dims=GATE_DIMS, batch=GATE_BATCH,
 
 
 def run_trainer(trainer_cli, kernels, batch: int, steps: int,
-                stash: bool) -> dict:
+                stash: bool, experts: int = 0) -> dict:
     """The port's trainer main in-process at its defaults (bf16 on the
-    card), with the launch counters set to 0 just before it starts and
-    read after every step and when it returns."""
+    card; `experts` > 0 adds --n-experts), with the launch counters set to
+    0 just before it starts and read after every step and when it
+    returns. An MoE model launches what the dense one does: its router,
+    dispatch and expert products are plain torch."""
     freed_gb = collect_garbage()
     torch.cuda.reset_peak_memory_stats()
-    snaps, losses, gnorms = [], [], []
+    snaps, losses, gnorms, auxes = [], [], [], []
 
     def on_step(i, metrics):
         snaps.append(dict(kernels.launches))
         losses.append(float(metrics["loss"]))
         gnorms.append(float(metrics["grad_norm"]))
+        auxes.append(float(metrics["aux"]))
     argv = ["--device", "cuda", "--steps", str(steps), "--batch-size",
             str(batch), "--seed", "0"]
+    if experts:
+        argv += ["--n-experts", str(experts)]
     buf = io.StringIO()
     kernels.reset_launches()
     t0 = time.perf_counter()
@@ -2568,7 +2599,12 @@ def run_trainer(trainer_cli, kernels, batch: int, steps: int,
                              f"trainer (batch {batch})")
     if not all(np.isfinite(losses)) or not all(np.isfinite(gnorms)):
         fail(f"trainer losses {losses} or grad norms {gnorms} not finite")
-    return dict(config=dict(TRAIN_DIMS, batch=batch, dtype="bfloat16"),
+    if experts and (final.get("aux") != auxes[-1]
+                    or not all(np.isfinite(auxes)) or min(auxes) <= 0):
+        fail(f"MoE trainer aux {auxes}, final line {final.get('aux')}")
+    moe = dict(n_experts=experts) if experts else {}
+    return dict(config=dict(TRAIN_DIMS, batch=batch, dtype="bfloat16",
+                            **moe), **(dict(aux=auxes) if experts else {}),
                 argv=argv, steps=steps, wall_s=wall,
                 step_ms=final["avg_step_s"] * 1e3,
                 tokens_per_s=final["tokens_per_s"],
@@ -5685,19 +5721,23 @@ def profile_window(run) -> dict:
     return device_report(prof, (marks["end"] - marks["start"]) * 1e3)
 
 
-def device_report(prof, window_ms: float) -> dict:
+def device_spans(prof) -> list:
+    """(name, start µs, end µs) of every device event of a profiler."""
+    from torch.autograd import DeviceType
+    return [(e.name, e.time_range.start, e.time_range.end)
+            for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def device_report(prof, window_ms: float, events=None) -> dict:
     """A profiler window's device activity: the ten device operations with
     the most self time, the flash, fused CE, RMSNorm and paged decode
     kernels' device ms, and the idle share 1 - (union of device activity) /
-    (the window's host wall time)."""
-    from torch.autograd import DeviceType
+    (the window's host wall time). `events`, when given, are the window's
+    (name, start µs, end µs) device events in place of the profiler's."""
     spans, by_name = [], {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        t0, t1 = e.time_range.start, e.time_range.end
+    for name, t0, t1 in (device_spans(prof) if events is None else events):
         spans.append((t0, t1))
-        by_name[e.name] = by_name.get(e.name, 0.0) + (t1 - t0) / 1e3
+        by_name[name] = by_name.get(name, 0.0) + (t1 - t0) / 1e3
     busy_us, reach = 0.0, float("-inf")
     for t0, t1 in sorted(spans):
         if t1 > reach:
@@ -5909,6 +5949,406 @@ def host_split(eng) -> dict:
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# The moe phases, the capture census and the trace cell
+# ---------------------------------------------------------------------------
+
+
+def moe_param_count(tf, dims: dict) -> int:
+    """Parameters of the model `dims` describe (from its leaf shapes; no
+    tensor is made)."""
+    def count(node):
+        if isinstance(node, dict):
+            return sum(count(v) for v in node.values())
+        return int(np.prod(node))
+    return count(tf.param_shapes(tf.TransformerConfig(**dims)))
+
+
+def weight_read_bytes(params) -> int:
+    """Bytes a decode step reads of the weights: every leaf but the
+    embedding table, whose gather reads one row a slot."""
+    return sum(t.numel() * t.element_size() for k, t in
+               zip(leaf_names(params), _leaves(params)) if k != "/embed")
+
+
+def engine_prompts(vocab: int) -> list:
+    """The dense engine phase's 9 prompts: 8 of PROMPT_LEN tokens, one of
+    LONG_PROMPT_LEN (two prefill chunks)."""
+    rng = np.random.default_rng(0)
+    return ([rng.integers(0, vocab, PROMPT_LEN).tolist()
+             for _ in range(N_REQUESTS)]
+            + [rng.integers(0, vocab, LONG_PROMPT_LEN).tolist()])
+
+
+def warmed_engine(serving, params, cfg, dev, prompt, **kw):
+    """An engine after one short request: cuBLAS, the first launches and
+    the decode graph's capture happen before anything is timed."""
+    eng = new_engine(serving, params, cfg, dev, **kw)
+    warm = eng.submit(prompt[:16], 4)
+    eng.run()
+    if eng.result(warm).finish_reason != "length":
+        fail(f"warm-up request: {eng.result(warm)}")
+    eng.release(warm)
+    return eng
+
+
+def chunk_device_ms(events: list) -> float:
+    """Device ms a decode step: the median replay of a chunk over its
+    DECODE_CHUNK steps (read after a synchronize)."""
+    return float(np.median([a.elapsed_time(b) for a, b in events])) \
+        / DECODE_CHUNK
+
+
+def moe_engine_run(dev, mods, mcfg, mparams, dense_params, prompts, bl,
+                   gates: list) -> dict:
+    """One MoE engine kind (dense cache, or paged at pages of `bl`) at the
+    serve defaults, bf16: the graphed, pipelined engine on the 9 prompts,
+    greedy then sampled, its launches a dense model's per chunk and step;
+    held bit for bit to the eager serialized engine; a spec engine
+    (spec_k SPEC_K, an oracle drafter of the greedy tokens) graphed against
+    eager, its verify graph's replay one gather and 2L+1 norms; the decode
+    step's device ms against the dense model's engine in the same run."""
+    kernels, rms, rope, flash, paged, tf, decode, serving, serve = mods
+    what = f"moe {'paged' if bl else 'dense'} engine"
+    kw = dict(kv_block_len=bl)
+    eng = warmed_engine(serving, mparams, mcfg, dev, prompts[0],
+                        watchdog_timeout=WATCHDOG_S, **kw)
+    events = bracket_replays(eng._graph)
+    before = eng.metrics_snapshot()["lifetime"]
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    greedy = transcripts(eng, prompts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    m = eng.metrics()
+    life = {k: m["lifetime"][k] - before[k]
+            for k in ("prefill_chunks", "decode_steps")}
+    want = expected_launches(mcfg.n_layers, life, paged=bl > 0)
+    if launches != want:
+        gates.append(f"{what}: launches {launches}, a dense model's chunks "
+                     f"and steps need {want}")
+    moe_ms = chunk_device_ms(events)
+    for r in greedy:
+        if (r.finish_reason != "length" or len(r.tokens) != NEW_TOKENS
+                or not all(np.isfinite(r.logprobs))):
+            gates.append(f"{what}: a request ended {r.finish_reason} with "
+                         f"{len(r.tokens)} tokens")
+    sampled = transcripts(eng, prompts, SAMPLED_T)
+    hp = check_graphed(eng, what)
+    if bl and not pages_back(eng):
+        gates.append(f"{what} leaked pages")
+    ref = warmed_engine(serving, mparams, mcfg, dev, prompts[0],
+                        cuda_graph=False, overlap_commit=False, **kw)
+    hold_to_eager(greedy, transcripts(ref, prompts), f"{what} (greedy)")
+    hold_to_eager(sampled, transcripts(ref, prompts, SAMPLED_T),
+                  f"{what} (sampled)")
+    del eng, ref
+    # One verify round at least, graphed against eager.
+    oracle = oracle_drafter({tuple(p): r.tokens for p, r in
+                             zip(prompts[:N_REQUESTS], greedy)})
+    spec = {}
+    for mode, extra in (("graphed", {}), ("eager", dict(cuda_graph=False))):
+        s_eng = warmed_engine(serving, mparams, mcfg, dev, prompts[0],
+                              spec_k=SPEC_K, drafter=oracle, **kw, **extra)
+        got = transcripts(s_eng, prompts[:N_REQUESTS])
+        spec[mode] = (got, s_eng.metrics()["spec"],
+                      s_eng._verify_graph)
+        if bl and not pages_back(s_eng):
+            gates.append(f"{what} (spec) leaked pages")
+    (got, sm, vg), (eager, em, _) = spec["graphed"], spec["eager"]
+    hold_to_eager(got, eager, f"{what} (spec)")
+    if sm["rounds_total"] < 1 or sm != em:
+        gates.append(f"{what} (spec): {sm['rounds_total']} verify rounds, "
+                     f"graphed spec block equals eager's: {sm == em}")
+    vl = dict(vg.launches)
+    if vg.captures != 1 or vl != {"embed_gather": 1,
+                                  "rms_norm": 2 * mcfg.n_layers + 1}:
+        gates.append(f"{what} (spec): verify graph captures {vg.captures}, "
+                     f"replay launches {vl}")
+    # The dense model's decode step, same prompts, same call.
+    dcfg = dataclasses.replace(mcfg, n_experts=0)
+    deng = warmed_engine(serving, dense_params, dcfg, dev, prompts[0], **kw)
+    dense_events = bracket_replays(deng._graph)
+    dense_reqs = transcripts(deng, prompts)
+    torch.cuda.synchronize()
+    dense_ms = chunk_device_ms(dense_events)
+    del deng
+    torch.cuda.empty_cache()
+    moe_bytes, dense_bytes = (weight_read_bytes(mparams),
+                              weight_read_bytes(dense_params))
+    return dict(
+        wall_s=wall, tokens_per_s=m["aggregate_tokens_per_s"],
+        ttft_p50_ms=m["ttft_p50_ms"],
+        ms_per_token_p50=decode_p50_ms(greedy),
+        sampled_ms_per_token_p50=decode_p50_ms(sampled),
+        dense_model_ms_per_token_p50=decode_p50_ms(dense_reqs),
+        decode_step_device_ms_p50=moe_ms,
+        dense_model_decode_step_device_ms_p50=dense_ms,
+        step_ratio=moe_ms / dense_ms,
+        weight_bytes_a_step=moe_bytes,
+        weight_read_bound_ms=moe_bytes / HBM_BYTES_PER_S * 1e3,
+        dense_model_weight_bytes_a_step=dense_bytes,
+        dense_model_weight_read_bound_ms=dense_bytes / HBM_BYTES_PER_S * 1e3,
+        chunks_timed=len(events), graphed_equals_eager=dict(
+            greedy=len(greedy), sampled=len(sampled), spec=len(got)),
+        spec=dict(rounds=sm["rounds_total"],
+                  accepted=sm["draft_accepted_total"],
+                  verify_replay_launches=vl),
+        hotpath=hp, decode_steps=life["decode_steps"],
+        prefill_chunks=life["prefill_chunks"], launches=launches)
+
+
+def run_moe_engines(dev, mods, dense_params, card) -> dict:
+    """The MoE engines at the serve defaults with MOE_EXPERTS experts (the
+    dense one-hot route at every decode step, captured), dense and paged,
+    against eager engines and the dense model; then the f32 gate: the
+    graphed dense and paged MoE engines' tokens equal the plain versions'
+    eager engine's."""
+    kernels, rms, rope, flash, paged, tf, decode, serving, serve = mods
+    collect_garbage()
+    mcfg = tf.TransformerConfig(**SERVE_DIMS, n_experts=MOE_EXPERTS,
+                                dtype=torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    mparams = serve._finish_params(tf.init_params(gen, mcfg), mcfg, False)
+    prompts = engine_prompts(mcfg.vocab_size)
+    gates, out = [], dict(card=card, config=dict(
+        SERVE_DIMS, n_experts=MOE_EXPERTS, dtype="bfloat16",
+        num_slots=NUM_SLOTS, prefill_len=PREFILL_LEN,
+        decode_chunk=DECODE_CHUNK), params=moe_param_count(
+            tf, dict(SERVE_DIMS, n_experts=MOE_EXPERTS)))
+    out["dense"] = moe_engine_run(dev, mods, mcfg, mparams, dense_params,
+                                  prompts, 0, gates)
+    out["paged"] = moe_engine_run(dev, mods, mcfg, mparams, dense_params,
+                                  prompts, KV_BLOCK_LEN, gates)
+    # f32: graphed engines against the plain versions' eager engine.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg32 = dataclasses.replace(mcfg, dtype=torch.float32)
+    p32 = cast_params(mparams, torch.float32)
+    del mparams
+    with plain_versions(rms, rope, flash):
+        plain = transcripts(new_engine(serving, p32, cfg32, dev,
+                                       cuda_graph=False), prompts)
+    want = [r.tokens for r in plain]
+    f32 = {}
+    for kind, bl in (("dense", 0), ("paged", KV_BLOCK_LEN)):
+        got = transcripts(new_engine(serving, p32, cfg32, dev,
+                                     kv_block_len=bl), prompts)
+        f32[kind] = sum(g.tokens == w for g, w in zip(got, want))
+        if f32[kind] != len(want):
+            gates.append(f"f32 moe {kind} engine: {f32[kind]} of "
+                         f"{len(want)} requests equal the plain versions'")
+    out["f32_equal_plain"] = dict(f32, of=len(want))
+    del p32
+    torch.cuda.empty_cache()
+    out["gates_failed"] = gates
+    return out
+
+
+class CensusDrafter:
+    """Proposes nothing until `on`, then repeats the context's last token:
+    a spec engine first dispatches a bypass chunk (its chunk graph), then
+    verify rounds (its verify graph)."""
+
+    def __init__(self):
+        self.on = False
+
+    def __call__(self, context, k):
+        return [int(context[-1])] * k if self.on else []
+
+
+def census_traffic(eng, drafter, vocab: int, seed: int) -> None:
+    """A short request, two steps, then NUM_SLOTS + 1 more (one of
+    LONG_PROMPT_LEN tokens, the rest of random lengths): prefills run
+    while slots decode and requests wait (the quantum on a chunked
+    engine); a spec engine's drafter switches on after the first
+    dispatches."""
+    rng = np.random.default_rng(seed)
+    rids = [eng.submit(rng.integers(0, vocab, 9).tolist(), 24)]
+    for _ in range(2):
+        eng.step()
+    if drafter is not None:
+        drafter.on = True
+    lens = [LONG_PROMPT_LEN] + rng.integers(8, PROMPT_LEN,
+                                            NUM_SLOTS).tolist()
+    rids += [eng.submit(rng.integers(0, vocab, n).tolist(),
+                        int(rng.integers(16, 48))) for n in lens]
+    eng.run()
+    for r in rids:
+        if eng.result(r).finish_reason != "length":
+            fail(f"census request {r}: {eng.result(r)}")
+
+
+CENSUS_GRAPHS = {"chunk": "_graph", "quantum": "_quantum_graph",
+                 "verify": "_verify_graph"}
+
+
+def run_census(dev, mods, card) -> dict:
+    """The capture census at the serve defaults, under the program-event
+    sentinel (analysis/compilewatch.py, enabled): an engine in each mode
+    (dense and paged; plain, spec (spec_k SPEC_K), chunked prefill
+    (STORM_CHUNK_TOKENS) and MoE (MOE_EXPERTS experts)), warmed by its
+    first traffic, must have captured exactly its graphs (the chunk, the
+    quantum when chunked prefill is on, the verify round when spec is
+    on), each once, and the sentinel counted them and no kernel build or
+    load; then steady traffic of new prompts and lengths and a weight swap
+    on every engine: zero post-warm captures and zero kernel builds."""
+    from k8s_gpu_workload_enhancer_tpu_torch.analysis import compilewatch
+    kernels, rms, rope, flash, paged, tf, decode, serving, serve = mods
+    collect_garbage()
+    cfg = tf.TransformerConfig(**SERVE_DIMS, dtype=torch.bfloat16)
+    mcfg = dataclasses.replace(cfg, n_experts=MOE_EXPERTS)
+
+    def weights(c, seed):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return serve._finish_params(tf.init_params(gen, c), c, False)
+    params, mparams = weights(cfg, 10), weights(mcfg, 10)
+    compilewatch.reset()
+    compilewatch.enable(force=True)
+    try:
+        engines = []
+        for bl, kind in ((0, "dense"), (KV_BLOCK_LEN, "paged")):
+            modes = (("", {}, None, {"chunk": 1}),
+                     ("-spec", dict(spec_k=SPEC_K), CensusDrafter(),
+                      {"chunk": 1, "verify": 1}),
+                     ("-chunked", dict(prefill_chunk_tokens=STORM_CHUNK_TOKENS),
+                      None, {"chunk": 1, "quantum": 1}),
+                     ("-moe", {}, None, {"chunk": 1}))
+            for suffix, kw, drafter, want in modes:
+                if drafter is not None:
+                    kw = dict(kw, drafter=drafter)
+                moe = suffix == "-moe"
+                eng = new_engine(serving, mparams if moe else params,
+                                 mcfg if moe else cfg, dev, kv_block_len=bl,
+                                 **kw)
+                engines.append((kind + suffix, eng, drafter, want, moe))
+        t0 = time.perf_counter()
+        for _, eng, drafter, _, _ in engines:
+            census_traffic(eng, drafter, cfg.vocab_size, seed=0)
+        warm_s = time.perf_counter() - t0
+        census, total = {}, 0
+        for name, eng, _, want, _ in engines:
+            got = {g: getattr(eng, attr).captures
+                   for g, attr in CENSUS_GRAPHS.items()
+                   if getattr(eng, attr) is not None}
+            census[name] = got
+            total += sum(want.values())
+            if got != want:
+                fail(f"census: the {name} engine captured {got}, want {want}")
+        warm_counts = compilewatch.counts()
+        if warm_counts != {"capture": total}:
+            fail(f"census: the sentinel counted {warm_counts} while warming, "
+                 f"want {total} captures and no kernel build or load")
+        compilewatch.mark_warm("census: every mode warm")
+        new, mnew = weights(cfg, 11), weights(mcfg, 11)
+        t0 = time.perf_counter()
+        steady = {}
+        for name, eng, drafter, _, moe in engines:
+            before = eng.metrics()["lifetime"]
+            census_traffic(eng, drafter, cfg.vocab_size, seed=1)
+            eng.swap_params(mnew if moe else new)
+            census_traffic(eng, drafter, cfg.vocab_size, seed=2)
+            m = eng.metrics()
+            steady[name] = {k: m["lifetime"][k] - before[k]
+                            for k in ("prefill_chunks", "decode_steps")}
+            if eng.kv_block_len and not pages_back(eng):
+                fail(f"census: the {name} engine leaked pages")
+        steady_s = time.perf_counter() - t0
+        post = compilewatch.post_warm_compiles()
+        counts = compilewatch.counts()
+        if post or counts != warm_counts:
+            fail(f"census: {len(post)} post-warm program events "
+                 f"{counts}: {post[:4]}")
+        compilewatch.verify()
+        spec_rounds = {name: eng.metrics()["spec"]["rounds_total"]
+                       for name, eng, d, _, _ in engines if d is not None}
+        if min(spec_rounds.values()) < 1:
+            fail(f"census: a spec engine ran no verify round {spec_rounds}")
+        capture_ms = {name: {g: round(getattr(eng, a).capture_ms, 3)
+                             for g, a in CENSUS_GRAPHS.items()
+                             if getattr(eng, a) is not None}
+                      for name, eng, _, _, _ in engines}
+    finally:
+        compilewatch.disable()
+        compilewatch.reset()
+    del engines, params, mparams, new, mnew
+    torch.cuda.empty_cache()
+    return dict(card=card, engines=len(census), captures=census,
+                sentinel_warm_counts=warm_counts, post_warm_events=0,
+                kernel_builds_post_warm=0, capture_ms=capture_ms,
+                steady=steady, spec_rounds=spec_rounds, warm_s=warm_s,
+                steady_s=steady_s)
+
+
+def chrome_device_events(path: str, categories) -> list:
+    """(name, start µs, end µs) of the device events of a Chrome trace."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return [(e["name"], float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+            for e in events if e.get("ph") == "X"
+            and e.get("cat") in categories and "dur" in e]
+
+
+def run_trace(dev, tf, trainer, profiling, card) -> dict:
+    """The trace cell: `train.profiling.trace_steps` over TRACE_STEPS steps
+    of the trainer's default configuration (bf16, batch TRAIN_BATCH, after
+    one warm-up step), then `device_duty_cycle` of its Chrome trace, held
+    within TRACE_POINTS of 100 x (1 - the idle share `device_report` gives
+    for the same window: the union of the trace's device events over the
+    steps' host wall time, from a synchronize before the first to the
+    last loss's read). The two differ only at the window's edges, the
+    host's time to the first launch and from the last device event, which
+    the steps share."""
+    collect_garbage()
+    dims = {k: v for k, v in TRAIN_DIMS.items() if k != "seq_len"}
+    cfg = tf.TransformerConfig(**dims, n_kv_heads=dims["n_heads"],
+                               max_seq=TRAIN_DIMS["seq_len"],
+                               dtype=torch.bfloat16)
+    tcfg = trainer.TrainConfig(batch_size=TRAIN_BATCH,
+                               seq_len=TRAIN_DIMS["seq_len"])
+    state = trainer.init_state(cfg, tcfg,
+                               torch.Generator(device=dev).manual_seed(0))
+    step = trainer.make_train_step(cfg, tcfg)
+    batches = trainer.synthetic_batches(cfg, tcfg, dev)
+    state, m = step(state, next(batches))
+    float(m["loss"])                       # warm-up: cuBLAS, first launches
+    marks = {}
+
+    def timed(st, batch):
+        torch.cuda.synchronize()
+        marks.setdefault("start", time.perf_counter())
+        st, met = step(st, batch)
+        float(met["loss"])
+        marks["end"] = time.perf_counter()
+        return st, met
+    with tempfile.TemporaryDirectory() as log_dir:
+        state, m = profiling.trace_steps(timed, state, batches, log_dir,
+                                         num_steps=TRACE_STEPS)
+        duty = profiling.device_duty_cycle(log_dir)
+        (name,) = os.listdir(log_dir)
+        trace_bytes = os.path.getsize(os.path.join(log_dir, name))
+        events = chrome_device_events(os.path.join(log_dir, name),
+                                      profiling.DEVICE_CATEGORIES)
+    window_ms = (marks["end"] - marks["start"]) * 1e3
+    report = device_report(None, window_ms, events)
+    busy_pct = 100.0 * (1.0 - report["idle_share"])
+    if duty is None or abs(duty - busy_pct) > TRACE_POINTS:
+        fail(f"trace: device_duty_cycle {duty} against 100 - idle "
+             f"{busy_pct} (within {TRACE_POINTS} points)")
+    if not np.isfinite(float(m["loss"])):
+        fail(f"trace: loss {m['loss']}")
+    del state, step
+    collect_garbage()
+    return dict(card=card, config=dict(TRAIN_DIMS, batch=TRAIN_BATCH,
+                                       dtype="bfloat16"), steps=TRACE_STEPS,
+                duty_cycle_pct=duty, busy_pct_of_window=busy_pct,
+                idle_share=report["idle_share"], window_ms=window_ms,
+                device_busy_ms=report["device_busy_ms"],
+                device_ops=report["device_ops"], trace_bytes=trace_bytes,
+                points_apart=duty - busy_pct, limit_points=TRACE_POINTS)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -5921,7 +6361,7 @@ def main() -> int:
         attention as attn_mod, embed, flash_attention as flash, fused_ce,
         kernels, paged_attention as paged, relayout, rms, rope)
     from k8s_gpu_workload_enhancer_tpu_torch.train import (
-        checkpoint, data, flagship, trainer)
+        checkpoint, data, flagship, profiling, trainer)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -6035,6 +6475,14 @@ def main() -> int:
     print(json.dumps({"kvhost": results["kvhost"]}), flush=True)
     for gate in results["kvhost"]["gates_failed"]:
         fail(gate)
+    moe_out = run_moe_engines(dev, mods, params, card)
+    results["moe_engine"], results["moe_paged_engine"] = (moe_out["dense"],
+                                                          moe_out["paged"])
+    print(json.dumps({"moe_engines": moe_out}), flush=True)
+    for gate in moe_out["gates_failed"]:
+        fail(gate)
+    results["census"] = run_census(dev, mods, card)
+    print(json.dumps({"census": results["census"]}), flush=True)
     del params
     torch.cuda.empty_cache()
     results["paged_serve"] = run_serve(serve, kernels, paged=True)
@@ -6087,25 +6535,42 @@ def main() -> int:
         dev, gate_mods, FLAGSHIP_GATE_DIMS, FLAGSHIP_GATE_BATCH, flagship=True)
     print(json.dumps({"flagship_gate_f32": results["flagship_gate_f32"]}),
           flush=True)
+    for route in ("ragged", "dense"):
+        results[f"moe_gate_f32_{route}"] = run_train_gate(
+            dev, gate_mods, dict(MOE_GATE_DIMS,
+                                 moe_ragged_dispatch=route == "ragged"))
+    print(json.dumps({"moe_gate_f32": dict(card=card, **{
+        route: results[f"moe_gate_f32_{route}"]
+        for route in ("ragged", "dense")})}), flush=True)
     results["train"] = run_trainer(trainer_cli, kernels, TRAIN_BATCH,
                                    TRAIN_STEPS, stash=False)
     print(json.dumps({"train": results["train"]}), flush=True)
     results["train_stash"] = run_trainer(trainer_cli, kernels, STASH_BATCH,
                                          STASH_STEPS, stash=True)
     print(json.dumps({"train_stash": results["train_stash"]}), flush=True)
+    results["moe_train"] = run_trainer(trainer_cli, kernels, TRAIN_BATCH,
+                                       MOE_TRAIN_STEPS, stash=False,
+                                       experts=MOE_EXPERTS)
+    results["moe_train"].update(card=card, params=moe_param_count(
+        tf, dict({k: v for k, v in TRAIN_DIMS.items() if k != "seq_len"},
+                 n_kv_heads=TRAIN_DIMS["n_heads"], n_experts=MOE_EXPERTS)))
+    print(json.dumps({"moe_train": results["moe_train"]}), flush=True)
     results["flagship"] = run_flagship(kernels, trainer, flagship)
     print(json.dumps({"flagship": results["flagship"]}), flush=True)
     results["profile"] = profile_steps(trainer_cli, trainer, flagship)
     print(json.dumps({"profile": results["profile"]}), flush=True)
+    results["trace"] = run_trace(dev, tf, trainer, profiling, card)
+    print(json.dumps({"trace": results["trace"]}), flush=True)
 
     serving_phases = ("engine", "serve", "paged_engine", "paged_serve",
                       "tenancy", "disagg", "int8kv", "spec", "kvhost",
                       "checkpoint_serve", "checkpoint_paged_serve", "fleet",
-                      "fleet_paged", "observability")
-    train_phases = ("train", "train_stash")
+                      "fleet_paged", "observability", "moe_engine",
+                      "moe_paged_engine")
+    train_phases = ("train", "train_stash", "moe_train")
     paged_phases = ("paged_engine", "paged_serve", "tenancy", "disagg",
                     "spec", "kvhost", "checkpoint_paged_serve",
-                    "fleet_paged", "observability")
+                    "fleet_paged", "observability", "moe_paged_engine")
     # The checkpoint phase's trainer runs the t-layout path (head_dim 512).
     t_layout = ("flagship", "checkpoint_train")
     every = serving_phases + train_phases
@@ -6116,7 +6581,7 @@ def main() -> int:
              "paged_decode_combine": paged_phases,
              "rms_norm_bwd": train_phases + t_layout,
              "flash_attention_bwd_dq": train_phases + t_layout,
-             "flash_attention_bwd_dkv": ("train",),
+             "flash_attention_bwd_dkv": ("train", "moe_train"),
              "flash_attention_bwd_dkv_stash": ("train_stash",) + t_layout,
              "rope_t": t_layout, "rope_t_inv": t_layout,
              "fused_ce_fwd": ("flagship",), "fused_ce_bwd": ("flagship",),
@@ -6134,7 +6599,8 @@ def main() -> int:
             if got[0] != got[1]:
                 fail(f"{phase}: {got[0]} of {got[1]} {kernel} launches ran "
                      f"the wgmma body, want all")
-    for gate in ("train_gate_f32", "flagship_gate_f32"):
+    for gate in ("train_gate_f32", "flagship_gate_f32",
+                 "moe_gate_f32_ragged", "moe_gate_f32_dense"):
         for path in ("stash", "recompute"):
             n = results[gate][path]["launches"]
             for kernel, counter in WGMMA_COUNTERS.items():

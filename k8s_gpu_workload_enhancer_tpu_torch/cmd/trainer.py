@@ -17,16 +17,22 @@ the CPU), prints a JSON line every 10 steps and a final summary line.
 - SIGTERM finishes the step in flight, saves it (waiting for the file),
   writes the drain marker `drain-complete.json` beside it and prints a
   `drained` line.
+- `--n-experts N` trains the MoE model (every layer's FFN a router and N
+  experts, top-1, through the sort-based capacity-bounded dispatch on the
+  one device), as the JAX trainer builds it; its step lines and final
+  line also carry the last step's MoE load-balance loss `aux`.
 
 Not ported yet, and refused with exit code 2 rather than ignored:
-`--pipeline-microbatches` and `--n-experts` (ROADMAP A11: pipeline
-parallelism, MoE). `--profile-dir` is accepted and unused, as in the JAX
-trainer.
+`--pipeline-microbatches` (ROADMAP A11: pipeline parallelism).
+`--profile-dir` is accepted and unused, as in the JAX trainer.
 
     python -m k8s_gpu_workload_enhancer_tpu_torch.cmd.trainer --steps 20
     python -m k8s_gpu_workload_enhancer_tpu_torch.cmd.trainer --device cpu \
         --steps 10 --batch-size 2 --seq-len 32 --d-model 64 --n-layers 2 \
         --n-heads 2 --d-ff 128 --vocab-size 256 --checkpoint-dir ckpt
+    python -m k8s_gpu_workload_enhancer_tpu_torch.cmd.trainer --device cpu \
+        --steps 2 --batch-size 2 --seq-len 32 --d-model 64 --n-layers 2 \
+        --n-heads 2 --d-ff 128 --vocab-size 256 --n-experts 4
 """
 
 from __future__ import annotations
@@ -62,7 +68,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--d-ff", type=int, default=8192)
     p.add_argument("--vocab-size", type=int, default=32768)
     p.add_argument("--n-experts", type=int, default=0,
-                   help="MoE experts; not ported yet (0 only)")
+                   help="MoE experts a layer (0 = the dense model)")
     p.add_argument("--learning-rate", type=float, default=3e-4)
     p.add_argument("--checkpoint-dir", type=str, default="",
                    help="save the TrainState here (empty = no checkpoints)")
@@ -94,8 +100,6 @@ def refused(args: argparse.Namespace) -> Optional[str]:
     if args.pipeline_microbatches > 0:
         return ("--pipeline-microbatches: pipeline parallelism is not "
                 "ported yet (ROADMAP A11); the port trains on one device")
-    if args.n_experts > 0:
-        return "--n-experts: MoE layers are not ported yet (ROADMAP A11)"
     return None
 
 
@@ -111,7 +115,7 @@ def main(argv=None, callback: Optional[Callable] = None) -> int:
         vocab_size=args.vocab_size, d_model=args.d_model,
         n_layers=args.n_layers, n_heads=args.n_heads,
         n_kv_heads=args.n_heads, d_ff=args.d_ff, max_seq=args.seq_len,
-        remat=args.remat,
+        n_experts=args.n_experts, remat=args.remat,
         dtype=torch.bfloat16 if device.type == "cuda" else torch.float32)
     tcfg = trainer.TrainConfig(
         learning_rate=args.learning_rate, batch_size=args.batch_size,
@@ -142,13 +146,17 @@ def main(argv=None, callback: Optional[Callable] = None) -> int:
     # Drain: SIGTERM only sets a flag; the loop finishes the step in flight,
     # then main saves it, writes the drain marker and returns 0.
     drain = threading.Event()
+    moe = {}          # the last step's aux, for an MoE model only
 
     def on_step(i, metrics):
         if callback is not None:
             callback(i, metrics)
+        if model_cfg.is_moe:
+            moe["aux"] = float(metrics["aux"])
         if (i + 1) % 10 == 0:
             s = timer.summary()
             print(json.dumps({"step": i + 1, "loss": float(metrics["loss"]),
+                              **moe,
                               "tokens_per_s": round(s["tokens_per_s"], 1),
                               "mfu_pct": round(s["mfu_pct"], 2)}),
                   flush=True)
@@ -179,7 +187,7 @@ def main(argv=None, callback: Optional[Callable] = None) -> int:
     if mgr is not None:
         mgr.save(args.steps, state, wait=True)
         mgr.close()
-    print(json.dumps({"final": True, **timer.summary()}), flush=True)
+    print(json.dumps({"final": True, **moe, **timer.summary()}), flush=True)
     return 0
 
 

@@ -25,11 +25,17 @@ decode folds the scales into its logits and probabilities instead
 `scatter_rows` and `spec_write_rows` are the multi-row cache writes of the
 serving engine's speculative verify rounds (models/serving.py `spec_k`).
 
+`ffn` is the FFN of every inference pass, here and in the serving
+engine's decode steps and verify rounds: SwiGLU, or for an MoE model the
+dense one-hot route of `transformer._moe_ffn`, as the JAX package routes
+inference.
+
 Not ported here: mesh sharding.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -159,6 +165,23 @@ def spec_write_rows(pos: torch.Tensor, t: int, max_seq: int) -> torch.Tensor:
         max=max_seq - 1)
 
 
+def ffn(h: torch.Tensor, lp: Params, cfg: tf.TransformerConfig
+        ) -> torch.Tensor:
+    """The FFN of inference on rows h (..., D): SwiGLU, or with experts
+    the dense one-hot route of `_moe_ffn` (JAX decode.py: inference always
+    routes dense, so capacity never drops a generated token; at a decode
+    step's few rows the ragged route's capacity would drop under any
+    router skew)."""
+    dt = cfg.dtype
+    if cfg.is_moe:
+        rows = h.reshape(-1, 1, h.shape[-1])
+        y, _ = tf._moe_ffn(
+            rows, lp, dataclasses.replace(cfg, moe_ragged_dispatch=False))
+        return y.reshape(h.shape)
+    return swiglu(h, as_compute(lp["w_gate"], dt), as_compute(lp["w_up"], dt),
+                  as_compute(lp["w_down"], dt))
+
+
 def forward_cached(params: Params, tokens: torch.Tensor, cache: KVCache,
                    pos: int, cfg: tf.TransformerConfig, *,
                    freqs: Optional[torch.Tensor] = None
@@ -209,9 +232,7 @@ def forward_cached(params: Params, tokens: torch.Tensor, cache: KVCache,
                  @ as_compute(lp["wo"], dt).reshape(nh * hd, d)
                  ).reshape(b, t, d)
         h = rms_norm(x, lp["ln2"])
-        x = x + swiglu(h, as_compute(lp["w_gate"], dt),
-                       as_compute(lp["w_up"], dt),
-                       as_compute(lp["w_down"], dt))
+        x = x + ffn(h, lp, cfg)
     x = rms_norm(x, params["final_ln"])
     head = as_compute(tf.output_head(params, cfg), dt)
     return (x @ head).float(), cache

@@ -29,7 +29,8 @@ capture pass itself executes nothing and launches nothing: the launch
 counts it adds to `ops/kernels.launches` are taken back and kept as the
 graph's per-replay counts, added once per replay, so `kernels.launches`
 counts what ran. A capture or a replay that fails raises; nothing falls
-back to eager launches.
+back to eager launches. Each capture reports to the program-event
+sentinel (analysis/compilewatch.py, inert unless enabled).
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ from typing import Callable, Optional
 
 import torch
 
+from ..analysis import compilewatch
 from ..ops import kernels
 
 
@@ -51,10 +53,12 @@ class DecodeGraph:
     so the graph holds no reference to its owner. `captures` and
     `replays` count what happened (the warm-up pass is neither). The
     graph reads the storage it captured, so the owner writes new inputs,
-    new weights included, into that storage in place."""
+    new weights included, into that storage in place. `name` labels the
+    graph's captures for the sentinel."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, name: str = "decode chunk"):
         self.device = device
+        self.name = name
         self._graph: Optional[torch.cuda.CUDAGraph] = None
         # Kernel launches of one replay, by wrapper name.
         self.launches: collections.Counter = collections.Counter()
@@ -112,3 +116,4 @@ class DecodeGraph:
         self._graph = graph
         self.captures += 1
         self.capture_ms = (time.perf_counter() - t0) * 1e3
+        compilewatch.record("capture", self.name, self.capture_ms / 1e3)

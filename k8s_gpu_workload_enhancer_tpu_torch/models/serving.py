@@ -150,6 +150,11 @@ k8s_gpu_workload_enhancer_tpu/models/serving.py.
   slot or batch company; the filters and the draw run on the device with
   no host branch or sync.
 
+An MoE model (`cfg.n_experts > 0`) takes the dense one-hot expert route
+at every decode step and verify round (`decode.ffn`), inside the captured
+graphs, as the JAX engines route it: every expert over every row, no
+sort, no host read.
+
 The norms, prefill RoPE, prefill attention and paged decode attention run
 the hand-written CUDA kernels on the card (ops/); a verify round runs the
 norms and the embedding gather. Dense decode attention, decode and verify
@@ -219,7 +224,7 @@ import torch
 
 from ..ops.attention import NEG_INF, rope_frequencies
 from ..ops.embed import embed_tokens
-from ..ops.layers import rms_norm, swiglu
+from ..ops.layers import rms_norm
 from ..ops.paged_attention import paged_decode_attention
 from ..ops.quant import as_compute
 from .. import faultlab
@@ -509,9 +514,7 @@ def _decode_step(params: Params, toks: torch.Tensor, pos: torch.Tensor,
         x = x + (o.reshape(b, nh * hd)
                  @ as_compute(lp["wo"], dt).reshape(nh * hd, d))
         h2 = rms_norm(x, lp["ln2"])
-        x = x + swiglu(h2, as_compute(lp["w_gate"], dt),
-                       as_compute(lp["w_up"], dt),
-                       as_compute(lp["w_down"], dt))
+        x = x + decode.ffn(h2, lp, cfg)
     x = rms_norm(x, params["final_ln"])
     head = as_compute(tf.output_head(params, cfg), dt)
     logits = (x @ head).float()                                     # (B, V)
@@ -697,9 +700,7 @@ def _verify_block(params: Params, cache: decode.KVCache,
                  @ as_compute(lp["wo"], dt).reshape(nh * hd, d)
                  ).reshape(b, t, d)
         h2 = rms_norm(x.reshape(b * t, d), lp["ln2"])
-        x = x + swiglu(h2, as_compute(lp["w_gate"], dt),
-                       as_compute(lp["w_up"], dt),
-                       as_compute(lp["w_down"], dt)).reshape(b, t, d)
+        x = x + decode.ffn(h2, lp, cfg).reshape(b, t, d)
     x = rms_norm(x.reshape(b * t, d), params["final_ln"])
     head = as_compute(tf.output_head(params, cfg), dt)
     logits = (x @ head).float().reshape(b, t, -1)
@@ -1206,7 +1207,7 @@ class ContinuousBatchEngine:
         graphed = cuda_graph and dev.type == "cuda"
         self._graph = decode_graph.DecodeGraph(dev) if graphed else None
         self._quantum_graph = (
-            decode_graph.DecodeGraph(dev)
+            decode_graph.DecodeGraph(dev, "decode quantum")
             if graphed and self._chunked_prefill
             and self._decode_quantum != self.decode_chunk else None)
         # The verify round's static buffers: the (B, k+1) block (column 0
@@ -1224,7 +1225,7 @@ class ContinuousBatchEngine:
             self._spec_out_h = torch.zeros(self._spec_out_d.shape,
                                            dtype=torch.int32,
                                            pin_memory=dev.type == "cuda")
-        self._verify_graph = (decode_graph.DecodeGraph(dev)
+        self._verify_graph = (decode_graph.DecodeGraph(dev, "verify round")
                               if graphed and self._spec else None)
         self._queue: deque = deque()
         self._reqs: Dict[int, ServeRequest] = {}

@@ -1,4 +1,5 @@
-"""KTWE-LM, the decoder-only transformer, in PyTorch (dense, one device).
+"""KTWE-LM, the decoder-only transformer, in PyTorch (dense or MoE, one
+device).
 
 Port of k8s_gpu_workload_enhancer_tpu/models/transformer.py. Params are a
 plain dict with the JAX package's tree: stacked (L, ...) layer leaves of the
@@ -19,7 +20,14 @@ Attention takes the reference's t-layout path where its gate
 layout, v goes into it and the output comes out of it through the
 relayout kernels (ops/relayout.py), and attention runs on it.
 
-Not ported here: MoE, ring attention and meshes.
+MoE (`n_experts > 0`): every layer's FFN is a router and a bank of
+experts (`_moe_ffn`, Switch-style top-k with the load-balance aux loss,
+which `loss_fn` adds to the total). Training routes through the sort-based
+capacity-bounded dispatch (ops/moe_dispatch.py) where the reference's
+single-device gate takes it (`moe_ragged_dispatch`, top-1), else through
+the dense one-hot route, which inference always takes.
+
+Not ported here: ring attention and meshes (expert sharding included).
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import (apply_rope, apply_rope_t, attention,
@@ -37,6 +46,7 @@ from ..ops.embed import embed_tokens
 from ..ops.flash_attention import flash_attention_t, flash_supported
 from ..ops.fused_ce import fused_ce_supported, fused_lm_head_xent
 from ..ops.layers import cross_entropy_loss, rms_norm, swiglu, swiglu_lean
+from ..ops.moe_dispatch import ragged_dispatch
 from ..ops.quant import as_compute, is_quantized
 from ..ops.relayout import from_t_layout, to_t_layout
 from ..ops.rope import rope_supported
@@ -54,9 +64,14 @@ class TransformerConfig:
     d_ff: int = 4096
     max_seq: int = 2048
     rope_theta: float = 10000.0
-    # MoE: 0 experts = dense, the only kind ported (ROADMAP A11).
+    # MoE: 0 experts = dense. With experts, every layer's FFN is a router +
+    # expert bank (Switch-style top-1 by default).
     n_experts: int = 0
     expert_top_k: int = 1
+    # MoE dispatch in training: the sort-based capacity-bounded route
+    # (ops/moe_dispatch.py, capacity factor 1.25) at top-1, else the dense
+    # one-hot route.
+    moe_ragged_dispatch: bool = True
     dtype: torch.dtype = torch.bfloat16
     # Inference only: store the KV cache as int8 with per-row (token,
     # kv-head) f32 scales (models/decode.py). Training ignores it.
@@ -115,10 +130,17 @@ def param_shapes(cfg: TransformerConfig) -> Params:
             "ln1": (L, d), "ln2": (L, d),
             "wq": (L, d, h, hd), "wk": (L, d, kh, hd), "wv": (L, d, kh, hd),
             "wo": (L, h, hd, d),
-            "w_gate": (L, d, f), "w_up": (L, d, f), "w_down": (L, f, d),
         },
         "final_ln": (d,),
     }
+    if cfg.is_moe:
+        e = cfg.n_experts
+        shapes["layers"].update({
+            "router": (L, d, e), "w_gate": (L, e, d, f),
+            "w_up": (L, e, d, f), "w_down": (L, e, f, d)})
+    else:
+        shapes["layers"].update({
+            "w_gate": (L, d, f), "w_up": (L, d, f), "w_down": (L, f, d)})
     if not cfg.tie_embeddings:
         shapes["lm_head"] = (d, cfg.vocab_size)
     return shapes
@@ -126,7 +148,8 @@ def param_shapes(cfg: TransformerConfig) -> Params:
 
 # fan-in of each truncated-normal leaf (norm scales start at one)
 _FAN_IN = {"wq": "d", "wk": "d", "wv": "d", "wo": "hd_all", "w_gate": "d",
-           "w_up": "d", "w_down": "f", "embed": "one", "lm_head": "d"}
+           "w_up": "d", "w_down": "f", "router": "d", "embed": "one",
+           "lm_head": "d"}
 
 
 def init_params(generator: torch.Generator, cfg: TransformerConfig) -> Params:
@@ -268,36 +291,117 @@ def _ffn(h3: torch.Tensor, w_gate, w_up, w_down,
               ).reshape(bsz, slen, d)
 
 
+def _top_k(probs: torch.Tensor, k: int
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(values, indices) of the k largest entries of the last axis, in
+    descending order, ties to the lowest index (jax.lax.top_k's order;
+    torch.topk promises none among ties): k argmax passes, each taking the
+    first maximal index, the chosen entry masked below every probability
+    before the next."""
+    vals, idxs = [], []
+    for _ in range(k):
+        i = torch.argmax(probs, dim=-1, keepdim=True)
+        vals.append(torch.gather(probs, -1, i))
+        idxs.append(i)
+        probs = probs.scatter(-1, i, -1.0)
+    return torch.cat(vals, dim=-1), torch.cat(idxs, dim=-1)
+
+
+def _moe_ffn(x: torch.Tensor, lp: Params, cfg: TransformerConfig
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Switch-style MoE FFN of one layer: x (B, S, D) -> (y (B, S, D), the
+    load-balance aux loss, f32 scalar). Router logits in x's dtype, the
+    softmax in f32; top-k (k 1 keeps the raw router probability as the
+    gate, so the router keeps its main-path gradient; k > 1 renormalises).
+    aux = E * sum(frac_tokens * frac_probs) over the batch. The sort-based
+    ragged route (ops/moe_dispatch.py) where `moe_ragged_dispatch` and
+    k == 1, else the dense one-hot route, every expert over every row
+    (JAX models/transformer.py `_moe_ffn` on one device)."""
+    e, k = cfg.n_experts, cfg.expert_top_k
+    dt = x.dtype
+    bsz, slen, d = x.shape
+    logits = (x.reshape(bsz * slen, d) @ as_compute(lp["router"], dt)
+              ).reshape(bsz, slen, e)
+    probs = torch.softmax(logits.float(), dim=-1)
+    topw, topi = _top_k(probs, k)                              # (B, S, k)
+    if k > 1:
+        topw = topw / torch.clamp_min(topw.sum(-1, keepdim=True), 1e-9)
+    # One-hot by comparison (no host-side bounds check, graph-capturable).
+    disp = (topi[..., None] == torch.arange(e, device=x.device)
+            ).to(dt)                                           # (B,S,k,E)
+    frac_tokens = disp.sum(2).float().mean(dim=(0, 1))
+    frac_probs = probs.mean(dim=(0, 1))
+    aux = e * torch.sum(frac_tokens * frac_probs)
+    w_gate = as_compute(lp["w_gate"], dt)                      # (E, D, F)
+    w_up = as_compute(lp["w_up"], dt)
+    w_down = as_compute(lp["w_down"], dt)                      # (E, F, D)
+
+    if cfg.moe_ragged_dispatch and k == 1:
+        def expert_ffn(_eids, xs):                             # (E, C, D)
+            h = torch.matmul(xs, w_gate)
+            u = torch.matmul(xs, w_up)
+            return torch.matmul(F.silu(h) * u, w_down)
+
+        y2, _dropped = ragged_dispatch(
+            x.reshape(bsz * slen, d), topi[..., 0].reshape(-1),
+            topw[..., 0].reshape(-1), e, expert_ffn)
+        return y2.reshape(bsz, slen, d).to(dt), aux
+
+    # Dense route: (B, S, D) x (B, S, E) -> (E, B*S, D), each expert's FFN
+    # over every row, combined by the gates of the chosen experts.
+    combine = (disp * topw[..., None].to(dt)).sum(2)           # (B, S, E)
+    xe = torch.einsum("nd,ne->end", x.reshape(bsz * slen, d),
+                      disp.sum(2).reshape(bsz * slen, e))
+    h = torch.matmul(xe, w_gate)
+    u = torch.matmul(xe, w_up)
+    ye = torch.matmul(F.silu(h) * u, w_down)                   # (E, N, D)
+    y = torch.einsum("end,ne->nd", ye, combine.reshape(bsz * slen, e))
+    return y.reshape(bsz, slen, d), aux
+
+
 def _layer(x: torch.Tensor, lp: Params, cfg: TransformerConfig,
-           freqs: torch.Tensor, position_offset: int) -> torch.Tensor:
+           freqs: torch.Tensor, position_offset: int
+           ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One block: (x out, the layer's MoE aux loss or None when dense)."""
     x = _attention_block(x, lp, cfg, freqs, position_offset)
     h3 = rms_norm(x, lp["ln2"])
+    if cfg.is_moe:
+        y, aux = _moe_ffn(h3, lp, cfg)
+        return x + y, aux
     if cfg.remat_ffn and not cfg.remat and torch.is_grad_enabled():
         y = checkpoint(_ffn, h3, lp["w_gate"], lp["w_up"], lp["w_down"], cfg,
                        use_reentrant=False)
     else:
         y = _ffn(h3, lp["w_gate"], lp["w_up"], lp["w_down"], cfg)
-    return x + y
+    return x + y, None
+
+
+def _forward_hidden_aux(params: Params, tokens: torch.Tensor,
+                        cfg: TransformerConfig, position_offset: int = 0
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens (B, S) -> (final hidden (B, S, D) after the last norm, the
+    sum of the layers' MoE aux losses, f32 scalar; 0 when dense)."""
+    x = embed_tokens(params["embed"], tokens, cfg.d_model, cfg.dtype)
+    freqs = rope_frequencies(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
+                             x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for layer in range(cfg.n_layers):
+        lp = layer_params(params, layer)
+        if cfg.remat and torch.is_grad_enabled():
+            x, layer_aux = checkpoint(_layer, x, lp, cfg, freqs,
+                                      position_offset, use_reentrant=False)
+        else:
+            x, layer_aux = _layer(x, lp, cfg, freqs, position_offset)
+        if layer_aux is not None:
+            aux = aux + layer_aux
+    return rms_norm(x, params["final_ln"]), aux
 
 
 def forward_hidden(params: Params, tokens: torch.Tensor,
                    cfg: TransformerConfig,
                    position_offset: int = 0) -> torch.Tensor:
     """tokens (B, S) -> final hidden (B, S, D) after the last norm."""
-    if cfg.is_moe:
-        raise NotImplementedError("MoE layers (n_experts > 0) are not ported "
-                                  "(ROADMAP A11)")
-    x = embed_tokens(params["embed"], tokens, cfg.d_model, cfg.dtype)
-    freqs = rope_frequencies(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
-                             x.device)
-    for layer in range(cfg.n_layers):
-        lp = layer_params(params, layer)
-        if cfg.remat and torch.is_grad_enabled():
-            x = checkpoint(_layer, x, lp, cfg, freqs, position_offset,
-                           use_reentrant=False)
-        else:
-            x = _layer(x, lp, cfg, freqs, position_offset)
-    return rms_norm(x, params["final_ln"])
+    return _forward_hidden_aux(params, tokens, cfg, position_offset)[0]
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
@@ -312,12 +416,13 @@ def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
 def loss_fn(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
             aux_weight: float = 0.01
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Next-token LM loss over tokens (B, S+1) -> (total, {nll, aux}). The
-    dense model has no auxiliary loss, so aux is 0."""
+    """Next-token LM loss over tokens (B, S+1) -> (total, {nll, aux}):
+    total = nll + aux_weight * aux, aux the layers' summed MoE load-balance
+    loss (0 for the dense model)."""
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
     if cfg.use_chunked_ce:
         from ..ops.chunked_ce import chunked_softmax_xent
-        x = forward_hidden(params, inputs, cfg)
+        x, aux = _forward_hidden_aux(params, inputs, cfg)
         head = output_head(params, cfg)
         if (cfg.ce_fused and cfg.ce_cache_logits
                 and fused_ce_supported(x, head)):
@@ -327,6 +432,7 @@ def loss_fn(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
                                        min(cfg.ce_chunk, cfg.vocab_size),
                                        cfg.ce_cache_logits)
     else:
-        nll = cross_entropy_loss(forward(params, inputs, cfg), targets)
-    aux = torch.zeros((), dtype=torch.float32, device=nll.device)
+        x, aux = _forward_hidden_aux(params, inputs, cfg)
+        head = as_compute(output_head(params, cfg), cfg.dtype)
+        nll = cross_entropy_loss((x @ head).float(), targets)
     return nll + aux_weight * aux, {"nll": nll, "aux": aux}

@@ -12,6 +12,10 @@ source rebuilds and an unchanged one loads as it is.
 `launches` counts kernel launches by name. A wrapper adds one exactly where
 it launches its kernel, and nowhere else, so a run can show that its main
 path went through the kernels (`reset_launches()` before, read after).
+
+Each library compiled (`kernel_build`) and each first load into the process
+(`kernel_load`) reports to the program-event sentinel
+(analysis/compilewatch.py, inert unless enabled).
 """
 
 from __future__ import annotations
@@ -28,6 +32,8 @@ from pathlib import Path
 from typing import Dict, Iterable
 
 import torch
+
+from ..analysis import compilewatch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -141,6 +147,7 @@ def build(names: Iterable[str] = tuple(SIGNATURES)) -> Dict[str, float]:
             continue
         out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
+        compilewatch.record("kernel_build", name, seconds[name])
     if failures:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
     return seconds
@@ -151,6 +158,7 @@ def library(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
+            t0 = time.perf_counter()
             build([name])
             lib = ctypes.CDLL(str(library_path(name)))
             for fn, argtypes in SIGNATURES[name].items():
@@ -159,6 +167,8 @@ def library(name: str) -> ctypes.CDLL:
             lib.ktwe_error_string.argtypes = [ctypes.c_int]
             lib.ktwe_error_string.restype = ctypes.c_char_p
             _libs[name] = lib
+            compilewatch.record("kernel_load", name,
+                                time.perf_counter() - t0)
         return lib
 
 

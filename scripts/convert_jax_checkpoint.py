@@ -22,6 +22,10 @@ installed, not on a machine that has only the port.
     python scripts/convert_jax_checkpoint.py --jax-dir ckpt-jax \\
         --out-dir ckpt-torch --vocab-size 32768 --d-model 2048 \\
         --n-layers 8 --n-heads 16 --d-ff 8192
+
+A checkpoint of the MoE model (the JAX trainer's --n-experts N) converts
+with the same --n-experts N: the router and the expert banks are leaves
+of the same tree.
 """
 
 from __future__ import annotations
@@ -64,6 +68,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="0 = same as --n-heads")
     p.add_argument("--d-ff", type=int, default=8192)
     p.add_argument("--max-seq", type=int, default=2048)
+    p.add_argument("--n-experts", type=int, default=0,
+                   help="MoE experts a layer (0 = the dense model), as the "
+                        "JAX trainer's --n-experts")
     return p
 
 
@@ -106,7 +113,7 @@ def main(argv=None) -> int:
     dims = dict(vocab_size=args.vocab_size, d_model=args.d_model,
                 n_layers=args.n_layers, n_heads=args.n_heads,
                 n_kv_heads=args.n_kv_heads or args.n_heads, d_ff=args.d_ff,
-                max_seq=args.max_seq)
+                max_seq=args.max_seq, n_experts=args.n_experts)
     jstate = restore_jax_state(args.jax_dir, args.step,
                                jtf.TransformerConfig(**dims))
     state = to_port_state(jstate, ttf.TransformerConfig(**dims))

@@ -145,6 +145,41 @@ def test_converter_refuses_disagreeing_counts(converted):
         conv.to_port_state(bad, tp.train_torch_cfg())
 
 
+def test_converter_carries_a_jax_moe_checkpoint(tmp_path):
+    """A JAX MoE TrainState (the trainer's --n-experts 4: router and expert
+    banks) after one step, saved by orbax, converts with --n-experts 4:
+    every param and Adam moment is the JAX leaf exactly, and the port
+    resumes it into an MoE TrainState of the same shapes."""
+    import dataclasses
+    jcfg = dataclasses.replace(tp.train_jax_cfg(), n_experts=4)
+    tc = jtrainer.TrainConfig(**TC)
+    mesh = jmesh.single_device_mesh()
+    state = jtrainer.init_state(jcfg, tc, mesh)
+    toks = np.random.default_rng(6).integers(
+        0, jcfg.vocab_size, (TC["batch_size"], SEQ + 1)).astype(np.int32)
+    state, _ = jtrainer.make_train_step(jcfg, tc, mesh)(state,
+                                                        jnp.asarray(toks))
+    jdir, tdir = str(tmp_path / "jax"), str(tmp_path / "torch")
+    mgr = jckpt.CheckpointManager(jdir)
+    mgr.save(1, state, wait=True)
+    mgr.close()
+    host = jax.tree.map(np.array, state)
+    assert _converter().main(["--jax-dir", jdir, "--out-dir", tdir,
+                              "--n-experts", "4"] + DIM_FLAGS) == 0
+    data = torch.load(os.path.join(tdir, "ckpt-1.pt"), weights_only=True)
+    adam = host.opt_state[1][0]
+    assert data["params"]["layers"]["router"].shape == (2, 256, 4)
+    _assert_tree_equal(data["params"], host.params)
+    _assert_tree_equal(data["opt_state"]["mu"], adam.mu)
+    _assert_tree_equal(data["opt_state"]["nu"], adam.nu)
+    tcfg = dataclasses.replace(tp.train_torch_cfg(), n_experts=4)
+    target = ttrainer.init_state(tcfg, ttrainer.TrainConfig(**TC),
+                                 torch.Generator().manual_seed(0))
+    got = tckpt.CheckpointManager(tdir).restore(None, target)
+    assert got.step == 1 and got.opt_state["count"] == 1
+    _assert_tree_equal(got.params, host.params)
+
+
 def test_converted_checkpoint_serves_jax_greedy_tokens(converted):
     """The serve loader on the converted file, then the engine: greedy
     tokens equal the JAX decode.generate on the JAX params, exactly."""

@@ -1497,3 +1497,139 @@ def test_host_tier_restores_pages_in_place_bit_for_bit(dev, int8):
     host = next(iter(eng._host_tier._entries.values()))
     arrays = host.arrays or host.pending
     assert all(a.is_pinned() for a in arrays.values())
+
+
+def _moe_serving_model(dev):
+    """The engine tests' model with 4 experts a layer (top-1)."""
+    import dataclasses
+    from k8s_gpu_workload_enhancer_tpu_torch.models import transformer as tf
+    cfg, _ = _serving_model(dev)
+    cfg = dataclasses.replace(cfg, n_experts=4)
+    params = [_cast_tree(tf.init_params(
+        torch.Generator(device=dev).manual_seed(seed), cfg), cfg.dtype)
+        for seed in (2, 3)]
+    return cfg, params
+
+
+@pytest.mark.parametrize("kv_block_len", [0, 16], ids=["dense", "paged"])
+def test_graphed_moe_engine_equals_the_eager_engine_bitwise(dev,
+                                                            kv_block_len):
+    """An MoE model (4 experts, the dense one-hot route at every decode
+    step, inside the captured graph): the graphed, pipelined engine gives
+    the eager, serialized engine's tokens and logprobs bit for bit, greedy
+    and sampled; one capture; the launch counts are a dense model's per
+    chunk and step (MoE adds no table kernel); no page leaked."""
+    cfg, (params, _) = _moe_serving_model(dev)
+    eng = _graph_engine(dev, params, cfg, kv_block_len, watchdog_timeout=30)
+    kernels.reset_launches()
+    got = _graph_workload(eng)
+    torch.cuda.synchronize()
+    m = eng.metrics()
+    assert dict(kernels.launches) == _engine_launches(
+        cfg, m["lifetime"], kv_block_len > 0)
+    assert m["hotpath"]["graphs_captured"] == 1
+    assert m["resilience"]["watchdog_trips"] == 0
+    ref = _graph_engine(dev, params, cfg, kv_block_len, cuda_graph=False,
+                        overlap_commit=False)
+    assert got == _graph_workload(ref)
+    kv = m["kv_cache"]
+    assert kv["blocks_free"] + kv["blocks_cached"] == kv["blocks_total"]
+
+
+class _Drafter:
+    """Proposes nothing until `on`, then repeats the context's last token:
+    a spec engine first dispatches a bypass chunk (the chunk graph), then
+    verify rounds (the verify graph)."""
+
+    def __init__(self):
+        self.on = False
+
+    def __call__(self, context, k):
+        return [int(context[-1])] * k if self.on else []
+
+
+def _census_engines(dev):
+    """(name, engine, drafter or None, graphs it must capture) of every
+    mode: dense and paged, plain, spec and chunked, and MoE."""
+    cfg, (params, _) = _serving_model(dev)
+    mcfg, (mparams, _) = _moe_serving_model(dev)
+    out = []
+    for bl, kind in ((0, "dense"), (16, "paged")):
+        out.append((kind, _graph_engine(dev, params, cfg, bl), None,
+                    {"chunk": 1}))
+        drafter = _Drafter()
+        out.append((f"{kind}-spec", _graph_engine(dev, params, cfg, bl,
+                                                  spec_k=4, drafter=drafter),
+                    drafter, {"chunk": 1, "verify": 1}))
+        out.append((f"{kind}-chunked", _graph_engine(
+            dev, params, cfg, bl, prefill_chunk_tokens=32), None,
+            {"chunk": 1, "quantum": 1}))
+        out.append((f"{kind}-moe", _graph_engine(dev, mparams, mcfg, bl),
+                    None, {"chunk": 1}))
+    return out
+
+
+def _census_traffic(eng, drafter, seed):
+    """A short request, then after two steps a two-chunk prompt and a third
+    request through the two slots: a prefill runs while a slot decodes and
+    a request waits (the quantum on a chunked engine); a spec engine's
+    drafter switches on after the first dispatches."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    rids = [eng.submit(rng.integers(0, 1024, 9).tolist(), 24)]
+    for _ in range(2):
+        eng.step()
+    if drafter is not None:
+        drafter.on = True
+    rids += [eng.submit(rng.integers(0, 1024, n).tolist(),
+                        int(rng.integers(20, 40))) for n in (150, 40)]
+    eng.run()
+    assert all(eng.result(r).finish_reason == "length" for r in rids)
+
+
+def test_capture_census_exact_and_no_steady_state_captures(dev):
+    """The capture census (the port's counterpart of the JAX
+    tests/unit/test_compile_census.py): an engine in each mode, warmed by
+    its first traffic, has captured exactly its graphs (the chunk, the
+    quantum when chunked prefill is on, the verify round when spec is
+    on), each once, and the sentinel counted them; then steady traffic of
+    new prompts and lengths and a weight swap make no capture and no
+    kernel build or load."""
+    from k8s_gpu_workload_enhancer_tpu_torch.analysis import compilewatch
+    kernels.build()
+    compilewatch.reset()
+    compilewatch.enable(force=True)
+    try:
+        engines = _census_engines(dev)
+        for _, eng, drafter, _ in engines:
+            _census_traffic(eng, drafter, seed=0)
+        graphs = {"chunk": "_graph", "quantum": "_quantum_graph",
+                  "verify": "_verify_graph"}
+        total = 0
+        for name, eng, _, want in engines:
+            got = {g: getattr(eng, attr).captures
+                   for g, attr in graphs.items()
+                   if getattr(eng, attr) is not None}
+            assert got == want, name
+            total += sum(want.values())
+        assert compilewatch.counts().get("capture", 0) == total
+        compilewatch.mark_warm("census warm")
+        cfg, (_, new) = _serving_model(dev)
+        _, (_, mnew) = _moe_serving_model(dev)
+        for name, eng, drafter, _ in engines:
+            _census_traffic(eng, drafter, seed=1)
+            eng.swap_params(mnew if name.endswith("moe") else new)
+            _census_traffic(eng, drafter, seed=2)
+            m = eng.metrics()
+            assert m["hotpath"]["graphs_captured"] == sum(
+                g.captures for g in (eng._graph, eng._quantum_graph,
+                                     eng._verify_graph) if g is not None)
+            kv = m["kv_cache"]
+            if eng.kv_block_len:
+                assert kv["blocks_free"] + kv["blocks_cached"] == \
+                    kv["blocks_total"]
+        assert compilewatch.post_warm_compiles() == []
+        compilewatch.verify()
+    finally:
+        compilewatch.disable()
+        compilewatch.reset()

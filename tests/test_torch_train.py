@@ -459,12 +459,3 @@ def test_train_loop_reports_throughput_on_the_cpu():
     assert np.isfinite(out["final_loss"])
     assert out["tokens_per_s"] > 0 and out["achieved_tflops"] > 0
 
-
-def test_unported_model_options_raise():
-    import dataclasses
-    cfg = dataclasses.replace(tp.train_torch_cfg(), n_experts=4)
-    params = ttf.init_params(torch.Generator().manual_seed(0),
-                             tp.train_torch_cfg())
-    toks = _t(_train_tokens((1, 9), seed=9)).long()
-    with pytest.raises(NotImplementedError, match="A11"):
-        ttf.loss_fn(params, toks, cfg)

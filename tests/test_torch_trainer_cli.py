@@ -79,12 +79,32 @@ def test_sigterm_drains_after_the_step_in_flight(capsys):
 
 @pytest.mark.parametrize("flags", [
     ["--pipeline-microbatches", "2"],
-    ["--n-experts", "4"],
 ])
 def test_unported_flags_exit_2(flags, capsys):
     assert cli.main(TINY + ["--steps", "1"] + flags) == cli.EXIT_REFUSED
     err = capsys.readouterr().err
     assert "not ported yet" in err and "ROADMAP A1" in err
+
+
+def test_trainer_main_trains_moe_and_prints_aux(capsys):
+    """--n-experts 4 trains the MoE model (the JAX trainer's config: top-1
+    through the ragged dispatch) and its final line carries the last
+    step's load-balance aux; a dense run's lines carry none."""
+    seen = []
+    rc = cli.main(TINY + ["--steps", "2", "--n-experts", "4"],
+                  callback=lambda i, m: seen.append(
+                      (float(m["loss"]), float(m["nll"]), float(m["aux"]),
+                       float(m["grad_norm"]))))
+    assert rc == 0
+    (final,) = _lines(capsys.readouterr().out)
+    assert final["final"] is True and final["steps"] == 1
+    assert final["aux"] == seen[-1][2]
+    for loss, nll, aux, gnorm in seen:
+        # Switch aux is E * sum(frac_tokens * frac_probs): 1 when balanced.
+        assert 0.5 < aux < 4.0 and gnorm > 0
+        assert loss == pytest.approx(nll + 0.01 * aux, rel=1e-6)
+    cli.main(TINY + ["--steps", "1"])
+    assert "aux" not in _lines(capsys.readouterr().out)[-1]
 
 
 def test_main_resumes_and_prints_resumed_from_step(tmp_path, capsys):
