@@ -205,6 +205,26 @@ inits in bf16:
      gate's dims, 4 experts, the ragged and the dense route) holds the
      loss and every gradient leaf, router and experts included, through
      the kernels to the plain versions at the gates' limits.
+     The fsdp phase runs the trainer main at its defaults (4 steps at
+     batch 8) as a gang of one rank through train/bootstrap.py
+     (NUM_PROCESSES=1, KTWE_STRATEGY=FSDP, a localhost
+     COORDINATOR_ADDRESS, and the main's group_of_one, since one process
+     otherwise trains on the single-device path): an NCCL process group
+     of one, the 5-axis DeviceMesh and the FSDP step (each layer's leaves
+     all-gathered before use, their gradients reduce-scattered, the norm
+     scales all-reduced). Gates: an NCCL group of one that main closes;
+     per step exactly the train phase's launches; losses equal to the
+     train phase's (same seed and batches) and grad norms within
+     FSDP_GNORM_RTOL of them. It prints ms a step of both paths, peak
+     memory, the bytes a rank holds of params and each Adam moment, and
+     the card. The tenant_drain phase runs the port's
+     CheckpointingTenantPool on the card: two f32 tenants at the trainer's
+     default widths and depth (DRAIN_DIMS, batch 2) train 3 steps, drain
+     through the pool's callbacks to a stand-in instance (an 8 GB
+     checkpoint each) and resume; their next 2 losses equal an undrained
+     tenant's within DRAIN_RTOL, and every step launches an f32 train
+     step's kernels. It prints each drain's and resume's seconds and
+     checkpoint bytes.
      Every
      phase
      must launch exactly the kernels its prefill chunks, decode steps,
@@ -426,6 +446,11 @@ CE_STAT_RTOL = {torch.bfloat16: 1e-3, torch.float32: 1e-5}
 # by at most a couple of bf16 ulps (2^-8 relative) where their f32 sums are
 # taken in another order.
 BF16_ATOL, BF16_RTOL = 2e-2, 2e-2
+# The fsdp phase's grad norm against the single-device step's: the same
+# gradients (a gang of one gathers and reduce-scatters by copies), their
+# squares summed in another order (one sum over the sharded leaves, one
+# over the replicated ones); measured 8.4e-8.
+FSDP_GNORM_RTOL = 1e-6
 # First prefill chunk's f32 logits, kernels vs plain versions: bf16
 # activations through 3 layers; a one-ulp flip upstream moves a logit by
 # about 1e-2 at these magnitudes.
@@ -2558,21 +2583,29 @@ def run_train_gate(dev, mods, dims=GATE_DIMS, batch=GATE_BATCH,
 
 
 def run_trainer(trainer_cli, kernels, batch: int, steps: int,
-                stash: bool, experts: int = 0) -> dict:
+                stash: bool, experts: int = 0, env=None,
+                group_of_one: bool = False) -> dict:
     """The port's trainer main in-process at its defaults (bf16 on the
     card; `experts` > 0 adds --n-experts), with the launch counters set to
     0 just before it starts and read after every step and when it
-    returns. An MoE model launches what the dense one does: its router,
-    dispatch and expert products are plain torch."""
+    returns; `env` is the gang env it bootstraps from (none: one device)
+    and `group_of_one` the main's.
+    An MoE model launches what the dense one does: its router, dispatch
+    and expert products are plain torch."""
     freed_gb = collect_garbage()
     torch.cuda.reset_peak_memory_stats()
     snaps, losses, gnorms, auxes = [], [], [], []
+
+    group = {}
 
     def on_step(i, metrics):
         snaps.append(dict(kernels.launches))
         losses.append(float(metrics["loss"]))
         gnorms.append(float(metrics["grad_norm"]))
         auxes.append(float(metrics["aux"]))
+        if torch.distributed.is_initialized():
+            group.update(backend=torch.distributed.get_backend(),
+                         world=torch.distributed.get_world_size())
     argv = ["--device", "cuda", "--steps", str(steps), "--batch-size",
             str(batch), "--seed", "0"]
     if experts:
@@ -2581,7 +2614,8 @@ def run_trainer(trainer_cli, kernels, batch: int, steps: int,
     kernels.reset_launches()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
-        rc = trainer_cli.main(argv, callback=on_step)
+        rc = trainer_cli.main(argv, callback=on_step, env=env or {},
+                              group_of_one=group_of_one)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(kernels.launches)
@@ -2612,8 +2646,176 @@ def run_trainer(trainer_cli, kernels, batch: int, steps: int,
                 mfu_pct=final["mfu_pct"], mfu_peak_tflops=989.0,
                 max_memory_allocated_gb=torch.cuda.max_memory_allocated()
                 / 1e9, freed_by_gc_collect_gb=freed_gb,
-                losses=losses, grad_norms=gnorms,
+                losses=losses, grad_norms=gnorms, process_group=group,
                 launches_per_step=per_step[0], launches=launches)
+
+
+def shard_bytes(tf, dims: dict, world: int) -> dict:
+    """Bytes a rank holds of the f32 params and each Adam moment under the
+    FSDP rules (every leaf with an embed axis split over `world` ranks,
+    the norm scales whole), from the leaf shapes."""
+    cfg = tf.TransformerConfig(**dims)
+
+    def leaves(tree):
+        if isinstance(tree, dict):
+            return [x for v in tree.values() for x in leaves(v)]
+        return [tree]
+    total = 0
+    for shape, axes in zip(leaves(tf.param_shapes(cfg)),
+                           leaves(tf.param_logical_axes(cfg))):
+        n = int(np.prod(shape))
+        total += n // world if "embed" in axes else n
+    return {"params": 4 * total, "mu": 4 * total, "nu": 4 * total}
+
+
+def run_fsdp(trainer_cli, kernels, tf, single: dict, card: str) -> dict:
+    """The trainer main at its defaults as a gang of one rank through the
+    bootstrap (NUM_PROCESSES=1, KTWE_STRATEGY=FSDP, a localhost
+    COORDINATOR_ADDRESS, and `group_of_one`, without which one process
+    trains on the single-device path): an NCCL process group of one, the
+    DeviceMesh and the FSDP step (each layer's leaves all-gathered before
+    use, their gradients reduce-scattered). It must launch per step
+    exactly what the single-device train phase launches; its losses must
+    equal that phase's (same seed, batch and steps) exactly and its grad
+    norms within FSDP_GNORM_RTOL."""
+    env = {"COORDINATOR_ADDRESS": f"localhost:{free_port()}",
+           "NUM_PROCESSES": "1", "PROCESS_ID": "0", "KTWE_STRATEGY": "FSDP"}
+    out = run_trainer(trainer_cli, kernels, TRAIN_BATCH, TRAIN_STEPS,
+                      stash=False, env=env, group_of_one=True)
+    if out["process_group"] != {"backend": "nccl", "world": 1}:
+        fail(f"fsdp phase ran without an NCCL group of one: "
+             f"{out['process_group']}")
+    if torch.distributed.is_initialized():
+        fail("the trainer main left its process group open")
+    if out["launches_per_step"] != single["launches_per_step"]:
+        fail(f"fsdp step launched {out['launches_per_step']}, the "
+             f"single-device step {single['launches_per_step']}")
+    rel = {}
+    for key, rtol in (("losses", 0.0), ("grad_norms", FSDP_GNORM_RTOL)):
+        rel[key] = [abs(a - b) / abs(b)
+                    for a, b in zip(out[key], single[key])]
+        if len(out[key]) != len(single[key]) or max(rel[key]) > rtol:
+            fail(f"fsdp {key} {out[key]} vs single-device {single[key]} "
+                 f"(rtol {rtol})")
+    dims = {k: v for k, v in TRAIN_DIMS.items() if k != "seq_len"}
+    return dict(card=card, world=1, mesh="dp=1", config=out["config"],
+                steps=out["steps"], step_ms=out["step_ms"],
+                single_device_step_ms=single["step_ms"],
+                tokens_per_s=out["tokens_per_s"], mfu_pct=out["mfu_pct"],
+                max_memory_allocated_gb=out["max_memory_allocated_gb"],
+                single_device_max_memory_allocated_gb=single[
+                    "max_memory_allocated_gb"],
+                shard_bytes=shard_bytes(tf, dict(
+                    dims, n_kv_heads=dims["n_heads"],
+                    max_seq=TRAIN_DIMS["seq_len"]), 1),
+                losses=out["losses"], grad_norms=out["grad_norms"],
+                single_device_losses=single["losses"],
+                single_device_grad_norms=single["grad_norms"],
+                rel_err=rel, rtol={"losses": 0.0,
+                                   "grad_norms": FSDP_GNORM_RTOL},
+                launches_per_step=out["launches_per_step"],
+                launches=out["launches"], process_group=out["process_group"])
+
+
+# The tenant_drain phase: two f32 tenants and an undrained reference at the
+# trainer's default widths and depth (0.67 B parameters: 8.05 GB of f32
+# params and AdamW moments a tenant, what a drain writes and a resume
+# reads), trained, drained to checkpoints and resumed. Cut: batch 8 -> 2
+# (a drain's time depends on the state, not the batch; at batch 2 the f32
+# p/ds stash, 1.07 GB, stays under its 1.2 GB gate and 15 f32 steps stay
+# short).
+DRAIN_DIMS = dict({k: v for k, v in TRAIN_DIMS.items() if k != "seq_len"},
+                  n_kv_heads=TRAIN_DIMS["n_heads"],
+                  max_seq=TRAIN_DIMS["seq_len"])
+DRAIN_BATCH, DRAIN_BEFORE, DRAIN_AFTER = 2, 3, 2
+DRAIN_RTOL = 1e-6
+
+
+def run_tenant_drain(kernels, tf, trainer, tenant_drain, card: str) -> dict:
+    """The port's CheckpointingTenantPool on the card: two tenants train
+    DRAIN_BEFORE steps, drain through the pool's callbacks to a stand-in
+    instance (a checkpoint each, the tenant stopped) and resume from it;
+    their next DRAIN_AFTER losses must equal an undrained tenant's on the
+    same data within DRAIN_RTOL (f32), and every step must launch the
+    training kernels of an f32 step. It reports each drain's and resume's
+    seconds (the file write and read were warm: no cache is dropped), the
+    bytes each checkpoint holds, and the f32 step time."""
+    class Instance:
+        def __init__(self, instance_id):
+            self.instance_id = instance_id
+
+    freed_gb = collect_garbage()
+    torch.cuda.reset_peak_memory_stats()
+    mcfg = tf.TransformerConfig(**DRAIN_DIMS, dtype=torch.float32)
+    tcfg = trainer.TrainConfig(batch_size=DRAIN_BATCH,
+                               seq_len=DRAIN_DIMS["max_seq"],
+                               warmup_steps=1, total_steps=100)
+    with tempfile.TemporaryDirectory(prefix="ktwe-drain-") as root:
+        pool = tenant_drain.CheckpointingTenantPool(
+            os.path.join(root, "pool"), device="cuda")
+        ref = tenant_drain.CheckpointingTenantPool(
+            os.path.join(root, "ref"), device="cuda")
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        tenants = ("t-0", "t-1")
+        for uid in tenants:
+            pool.launch(uid, mcfg, tcfg)
+            pool.step(uid, DRAIN_BEFORE)
+        ref.launch("undrained", mcfg, tcfg)
+        ref.step("undrained", DRAIN_BEFORE)
+        torch.cuda.synchronize()
+        launch_and_steps_s = time.perf_counter() - t0
+        cbs = pool.callbacks()
+        drain_s, resume_s, ckpt_bytes = {}, {}, {}
+        for uid in tenants:
+            t = time.perf_counter()
+            if not cbs.checkpoint(uid, Instance(f"old-{uid}")):
+                fail(f"tenant_drain: the pool refused to drain {uid}")
+            drain_s[uid] = time.perf_counter() - t
+            if pool.is_live(uid):
+                fail(f"tenant_drain: {uid} still live after its drain")
+            ckpt = os.path.join(root, "pool", uid)
+            ckpt_bytes[uid] = sum(os.path.getsize(os.path.join(ckpt, f))
+                                  for f in os.listdir(ckpt))
+        for uid in tenants:
+            t = time.perf_counter()
+            cbs.resume(uid, Instance(f"new-{uid}"))
+            resume_s[uid] = time.perf_counter() - t
+            if not pool.is_live(uid) or pool.steps_done(uid) != DRAIN_BEFORE:
+                fail(f"tenant_drain: {uid} resumed at "
+                     f"{pool.steps_done(uid)}, want {DRAIN_BEFORE}")
+        want = [ref.step("undrained") for _ in range(DRAIN_AFTER)]
+        got = {uid: [pool.step(uid) for _ in range(DRAIN_AFTER)]
+               for uid in tenants}
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.launches)
+    rel = {uid: [abs(a - b) / abs(b) for a, b in zip(g, want)]
+           for uid, g in got.items()}
+    if max(max(r) for r in rel.values()) > DRAIN_RTOL:
+        fail(f"tenant_drain: losses after resume {got}, undrained {want}")
+    steps = 3 * (DRAIN_BEFORE + DRAIN_AFTER)
+    # stash: the f32 p/ds stash at DRAIN_BATCH is under its gate (above).
+    want_launches = per_step_launches(
+        DRAIN_DIMS["n_layers"], stash=True, bf16=False,
+        head_dim=DRAIN_DIMS["d_model"] // DRAIN_DIMS["n_heads"])
+    want_launches = {k: n * steps for k, n in want_launches.items()}
+    if launches != want_launches:
+        fail(f"tenant_drain launched {launches}, its {steps} steps need "
+             f"{want_launches}")
+    return dict(card=card, config=dict(DRAIN_DIMS, batch=DRAIN_BATCH,
+                                       dtype="float32"),
+                tenants=len(tenants), losses_after_resume=got,
+                undrained_losses=want, rel_err=rel, rtol=DRAIN_RTOL,
+                drain_s=drain_s, resume_s=resume_s, ckpt_bytes=ckpt_bytes,
+                drain_gb_per_s={u: ckpt_bytes[u] / drain_s[u] / 1e9
+                                for u in tenants},
+                resume_gb_per_s={u: ckpt_bytes[u] / resume_s[u] / 1e9
+                                 for u in tenants},
+                launch_and_steps_s=launch_and_steps_s,
+                max_memory_allocated_gb=torch.cuda.max_memory_allocated()
+                / 1e9, freed_by_gc_collect_gb=freed_gb, wall_s=wall,
+                launches=launches)
 
 
 def collect_garbage() -> float:
@@ -6360,6 +6562,7 @@ def main() -> int:
     from k8s_gpu_workload_enhancer_tpu_torch.ops import (
         attention as attn_mod, embed, flash_attention as flash, fused_ce,
         kernels, paged_attention as paged, relayout, rms, rope)
+    from k8s_gpu_workload_enhancer_tpu_torch.sharing import tenant_drain
     from k8s_gpu_workload_enhancer_tpu_torch.train import (
         checkpoint, data, flagship, profiling, trainer)
 
@@ -6545,6 +6748,12 @@ def main() -> int:
     results["train"] = run_trainer(trainer_cli, kernels, TRAIN_BATCH,
                                    TRAIN_STEPS, stash=False)
     print(json.dumps({"train": results["train"]}), flush=True)
+    results["fsdp"] = run_fsdp(trainer_cli, kernels, tf, results["train"],
+                               card)
+    print(json.dumps({"fsdp": results["fsdp"]}), flush=True)
+    results["tenant_drain"] = run_tenant_drain(kernels, tf, trainer,
+                                               tenant_drain, card)
+    print(json.dumps({"tenant_drain": results["tenant_drain"]}), flush=True)
     results["train_stash"] = run_trainer(trainer_cli, kernels, STASH_BATCH,
                                          STASH_STEPS, stash=True)
     print(json.dumps({"train_stash": results["train_stash"]}), flush=True)
@@ -6567,7 +6776,7 @@ def main() -> int:
                       "checkpoint_serve", "checkpoint_paged_serve", "fleet",
                       "fleet_paged", "observability", "moe_engine",
                       "moe_paged_engine")
-    train_phases = ("train", "train_stash", "moe_train")
+    train_phases = ("train", "fsdp", "train_stash", "moe_train")
     paged_phases = ("paged_engine", "paged_serve", "tenancy", "disagg",
                     "spec", "kvhost", "checkpoint_paged_serve",
                     "fleet_paged", "observability", "moe_paged_engine")
@@ -6581,7 +6790,7 @@ def main() -> int:
              "paged_decode_combine": paged_phases,
              "rms_norm_bwd": train_phases + t_layout,
              "flash_attention_bwd_dq": train_phases + t_layout,
-             "flash_attention_bwd_dkv": ("train", "moe_train"),
+             "flash_attention_bwd_dkv": ("train", "fsdp", "moe_train"),
              "flash_attention_bwd_dkv_stash": ("train_stash",) + t_layout,
              "rope_t": t_layout, "rope_t_inv": t_layout,
              "fused_ce_fwd": ("flagship",), "fused_ce_bwd": ("flagship",),

@@ -1,10 +1,22 @@
-"""Trainer main of the PyTorch port: single-device training of KTWE-LM.
+"""Trainer main of the PyTorch port: KTWE-LM on one device or FSDP over a
+gang of processes.
 
-Port of k8s_gpu_workload_enhancer_tpu/cmd/trainer.py on one device, with
-the same flags and defaults (vocab 32768, d_model 2048, 8 layers, 16
-heads, d_ff 8192, seq 2048, batch 8) plus `--device` (cuda by default;
-raises without a card) and `--seed`. It trains in bf16 on the card (f32 on
-the CPU), prints a JSON line every 10 steps and a final summary line.
+Port of k8s_gpu_workload_enhancer_tpu/cmd/trainer.py, with the same flags
+and defaults (vocab 32768, d_model 2048, 8 layers, 16 heads, d_ff 8192,
+seq 2048, batch 8) plus `--device` (cuda by default; raises without a
+card) and `--seed`. It trains in bf16 on the card (f32 on the CPU), prints
+a JSON line every 10 steps and a final summary line.
+
+It starts with `train/bootstrap.initialize`, which reads the gang env the
+controller's launcher injects (COORDINATOR_ADDRESS, NUM_PROCESSES,
+PROCESS_ID, KTWE_MESH_AXES, KTWE_STRATEGY). In a gang each process is one
+rank on one device and the ranks train one model FSDP over the mesh's dp
+axis (train/trainer.py): the global batch is `--batch-size`, each rank
+takes its rows, and only the primary (PROCESS_ID 0) prints and writes
+checkpoints. Without the env, or at NUM_PROCESSES 1, it trains on one
+device (`main(group_of_one=True)` runs one process through the gang's
+FSDP step over a process group of one instead, a check of that path on a
+single card).
 
 - `--data-file` trains on a KTWE token shard (train/data.py, the JAX
   package's format and windows), else on seeded synthetic LM data.
@@ -16,15 +28,18 @@ the CPU), prints a JSON line every 10 steps and a final summary line.
   restarts, as in the JAX trainer.
 - SIGTERM finishes the step in flight, saves it (waiting for the file),
   writes the drain marker `drain-complete.json` beside it and prints a
-  `drained` line.
+  `drained` line. In a gang the ranks agree on the step: each step ends
+  in a MAX all-reduce of the drain flag, so a signal to any rank drains
+  every rank after the same step.
 - `--n-experts N` trains the MoE model (every layer's FFN a router and N
   experts, top-1, through the sort-based capacity-bounded dispatch on the
   one device), as the JAX trainer builds it; its step lines and final
   line also carry the last step's MoE load-balance loss `aux`.
 
 Not ported yet, and refused with exit code 2 rather than ignored:
-`--pipeline-microbatches` (ROADMAP A11: pipeline parallelism).
-`--profile-dir` is accepted and unused, as in the JAX trainer.
+`--pipeline-microbatches` and a mesh with ep, pp, tp or sp above 1
+(ROADMAP A11). `--profile-dir` is accepted and unused, as in the JAX
+trainer.
 
     python -m k8s_gpu_workload_enhancer_tpu_torch.cmd.trainer --steps 20
     python -m k8s_gpu_workload_enhancer_tpu_torch.cmd.trainer --device cpu \
@@ -33,6 +48,13 @@ Not ported yet, and refused with exit code 2 rather than ignored:
     python -m k8s_gpu_workload_enhancer_tpu_torch.cmd.trainer --device cpu \
         --steps 2 --batch-size 2 --seq-len 32 --d-model 64 --n-layers 2 \
         --n-heads 2 --d-ff 128 --vocab-size 256 --n-experts 4
+
+A gang of two CPU ranks (run both, PROCESS_ID 0 and 1):
+
+    COORDINATOR_ADDRESS=localhost:29500 NUM_PROCESSES=2 PROCESS_ID=0 \
+    KTWE_STRATEGY=FSDP python -m k8s_gpu_workload_enhancer_tpu_torch.cmd.trainer \
+        --device cpu --steps 10 --batch-size 4 --seq-len 32 --d-model 64 \
+        --n-layers 2 --n-heads 2 --d-ff 128 --vocab-size 256
 """
 
 from __future__ import annotations
@@ -46,13 +68,14 @@ import threading
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 
 from ..models import transformer as tf
-from ..train import trainer
+from ..parallel.mesh import UnportedAxisError
+from ..train import bootstrap, trainer
 from ..train.checkpoint import CheckpointManager, write_drain_marker
 from ..train.data import DataConfig, make_input_pipeline
-from ..train.profiling import StepTimer
-from ..utils.device import resolve_device
+from ..train.profiling import H100_BF16_PEAK_TFLOPS, StepTimer
 
 EXIT_REFUSED = 2
 
@@ -99,18 +122,37 @@ def refused(args: argparse.Namespace) -> Optional[str]:
     """Why the arguments ask for something not ported yet, or None."""
     if args.pipeline_microbatches > 0:
         return ("--pipeline-microbatches: pipeline parallelism is not "
-                "ported yet (ROADMAP A11); the port trains on one device")
+                "ported yet (ROADMAP A11); the port trains on one device "
+                "or FSDP over dp")
     return None
 
 
-def main(argv=None, callback: Optional[Callable] = None) -> int:
-    """Train; `callback(i, metrics)` (optional) runs after each step."""
+def main(argv=None, callback: Optional[Callable] = None,
+         env: Optional[dict] = None, group_of_one: bool = False) -> int:
+    """Train; `callback(i, metrics)` (optional) runs after each step; `env`
+    is the gang env (default: os.environ); `group_of_one` is
+    `bootstrap.initialize`'s."""
     args = build_parser().parse_args(argv)
     why = refused(args)
+    if why is None:
+        try:
+            ctx = bootstrap.initialize(env, device=args.device,
+                                       group_of_one=group_of_one)
+        except UnportedAxisError as e:
+            why = str(e)
     if why is not None:
         print(f"ktwe-trainer-torch: {why}", file=sys.stderr, flush=True)
         return EXIT_REFUSED
-    device = resolve_device(args.device)
+    try:
+        return _train(args, ctx, callback)
+    finally:
+        ctx.close()
+
+
+def _train(args: argparse.Namespace, ctx: bootstrap.BootstrapContext,
+           callback: Optional[Callable]) -> int:
+    device, mesh = ctx.device, ctx.mesh
+    world, primary = ctx.num_processes, ctx.is_primary
     model_cfg = tf.TransformerConfig(
         vocab_size=args.vocab_size, d_model=args.d_model,
         n_layers=args.n_layers, n_heads=args.n_heads,
@@ -122,9 +164,13 @@ def main(argv=None, callback: Optional[Callable] = None) -> int:
         seq_len=args.seq_len, total_steps=args.steps,
         grad_accum=args.grad_accum, grad_accum_dtype=args.grad_accum_dtype,
         seed=args.seed)
+    if tcfg.microbatch_size % world:
+        raise ValueError(f"--batch-size {tcfg.batch_size} / --grad-accum "
+                         f"{tcfg.grad_accum} rows a microbatch cannot be "
+                         f"split over {world} ranks")
     gen = torch.Generator(device=device)
     gen.manual_seed(tcfg.seed)
-    state = trainer.init_state(model_cfg, tcfg, gen)
+    state = trainer.init_state(model_cfg, tcfg, gen, mesh)
     mgr = CheckpointManager(args.checkpoint_dir) if args.checkpoint_dir \
         else None
     # KTWE_RESUME=1 is how the controller relaunches a drained tenant (it
@@ -135,60 +181,82 @@ def main(argv=None, callback: Optional[Callable] = None) -> int:
         state = mgr.restore(None, state)
         print(f"resumed from step {state.step}", flush=True)
     if args.data_file:
+        # Rank r reads its rows of every microbatch of the global batch
+        # the shard's windows make at this step (the pipeline's split).
         batches = make_input_pipeline(
-            DataConfig(path=args.data_file, batch_size=tcfg.batch_size,
+            DataConfig(path=args.data_file,
+                       batch_size=tcfg.batch_size // world,
                        seq_len=tcfg.seq_len, seed=tcfg.seed,
+                       process_id=ctx.process_id, num_processes=world,
                        grad_accum=tcfg.grad_accum),
             start_step=state.step, device=device)
     else:
-        batches = trainer.synthetic_batches(model_cfg, tcfg, device)
-    timer = StepTimer()
-    # Drain: SIGTERM only sets a flag; the loop finishes the step in flight,
-    # then main saves it, writes the drain marker and returns 0.
+        batches = trainer.synthetic_batches(model_cfg, tcfg, device,
+                                            state.fsdp)
+    timer = StepTimer(peak_tflops=H100_BF16_PEAK_TFLOPS * world)
+    # Drain: SIGTERM only sets a flag; the loop finishes the step in flight
+    # and the ranks agree on it (`agree`), then main saves the step, writes
+    # the drain marker and returns 0.
     drain = threading.Event()
+    agreed = {"drain": False}
     moe = {}          # the last step's aux, for an MoE model only
+
+    def agree() -> bool:
+        if mesh is None:
+            return drain.is_set()
+        flag = torch.tensor([int(drain.is_set())], dtype=torch.int32,
+                            device=device)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        return bool(flag.item())
 
     def on_step(i, metrics):
         if callback is not None:
             callback(i, metrics)
+        agreed["drain"] = agree()
         if model_cfg.is_moe:
             moe["aux"] = float(metrics["aux"])
-        if (i + 1) % 10 == 0:
+        if primary and (i + 1) % 10 == 0:
             s = timer.summary()
             print(json.dumps({"step": i + 1, "loss": float(metrics["loss"]),
                               **moe,
                               "tokens_per_s": round(s["tokens_per_s"], 1),
                               "mfu_pct": round(s["mfu_pct"], 2)}),
                   flush=True)
-        if (mgr is not None and not drain.is_set()
+        if (mgr is not None and not agreed["drain"]
                 and (i + 1) % args.checkpoint_every == 0):
             mgr.save(i + 1, state, wait=False)
 
+    # The handler stays until main returns, so a second SIGTERM during the
+    # drain's save does not kill the process.
     in_main = threading.current_thread() is threading.main_thread()
     previous = (signal.signal(signal.SIGTERM, lambda *_: drain.set())
                 if in_main else None)
     try:
         out = trainer.train_loop(model_cfg, tcfg, args.steps,
                                  callback=on_step, device=device,
-                                 stop=drain.is_set, timer=timer,
+                                 stop=lambda: agreed["drain"], timer=timer,
                                  state=state, batches=batches)
+        if agreed["drain"]:
+            if mgr is not None:
+                mgr.save(state.step, state, wait=True)
+                if primary:
+                    write_drain_marker(args.checkpoint_dir, state.step)
+                mgr.close()
+            if primary:
+                print(json.dumps({"drained": True, "step": state.step,
+                                  "loss": out["final_loss"]}), flush=True)
+            return 0
+        if mgr is not None:
+            mgr.save(args.steps, state, wait=True)
+            mgr.close()
+        if primary:
+            print(json.dumps({"final": True, **moe, **timer.summary()}),
+                  flush=True)
+        return 0
     finally:
         if in_main:
             signal.signal(signal.SIGTERM, previous if previous is not None
                           else signal.SIG_DFL)
-    if drain.is_set():
-        if mgr is not None:
-            mgr.save(state.step, state, wait=True)
-            write_drain_marker(args.checkpoint_dir, state.step)
-            mgr.close()
-        print(json.dumps({"drained": True, "step": state.step,
-                          "loss": out["final_loss"]}), flush=True)
-        return 0
-    if mgr is not None:
-        mgr.save(args.steps, state, wait=True)
-        mgr.close()
-    print(json.dumps({"final": True, **moe, **timer.summary()}), flush=True)
-    return 0
 
 
 if __name__ == "__main__":

@@ -24,10 +24,20 @@ MoE (`n_experts > 0`): every layer's FFN is a router and a bank of
 experts (`_moe_ffn`, Switch-style top-k with the load-balance aux loss,
 which `loss_fn` adds to the total). Training routes through the sort-based
 capacity-bounded dispatch (ops/moe_dispatch.py) where the reference's
-single-device gate takes it (`moe_ragged_dispatch`, top-1), else through
-the dense one-hot route, which inference always takes.
+single-device gate takes it (`moe_ragged_dispatch`, top-1, a mesh of one
+device), else through the dense one-hot route, which inference always
+takes.
 
-Not ported here: ring attention and meshes (expert sharding included).
+FSDP: `loss_fn` takes `fsdp` (parallel/sharding.Fsdp), the layout of a
+param tree whose weights each rank holds a block of. The forward then
+gathers each leaf just before its use (the embedding table, a layer's
+slices of the stacked leaves, the LM head), the backward reduce-scatters
+their gradients, and the MoE load-balance fractions are averaged over the
+ranks before their product. `param_logical_axes` names each leaf's axes
+for the sharding rules, as in the JAX package.
+
+Not ported here: ring attention and the model-parallel axes (tp, sp, pp,
+ep; ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -152,6 +162,39 @@ _FAN_IN = {"wq": "d", "wk": "d", "wv": "d", "wo": "hd_all", "w_gate": "d",
            "lm_head": "d"}
 
 
+def param_logical_axes(cfg: TransformerConfig) -> Params:
+    """Logical sharding axes mirroring the param tree (parallel/sharding.py)."""
+    layers: Dict[str, Tuple] = {
+        "ln1": ("layers", None),
+        "ln2": ("layers", None),
+        "wq": ("layers", "embed", "heads", "head_dim"),
+        "wk": ("layers", "embed", "kv_heads", "head_dim"),
+        "wv": ("layers", "embed", "kv_heads", "head_dim"),
+        "wo": ("layers", "heads", "head_dim", "embed"),
+    }
+    if cfg.is_moe:
+        layers.update({
+            "router": ("layers", "embed", None),
+            "w_gate": ("layers", "expert", "embed", "mlp"),
+            "w_up": ("layers", "expert", "embed", "mlp"),
+            "w_down": ("layers", "expert", "mlp", "embed"),
+        })
+    else:
+        layers.update({
+            "w_gate": ("layers", "embed", "mlp"),
+            "w_up": ("layers", "embed", "mlp"),
+            "w_down": ("layers", "mlp", "embed"),
+        })
+    axes: Params = {
+        "embed": ("vocab", "embed"),
+        "layers": layers,
+        "final_ln": (None,),
+    }
+    if not cfg.tie_embeddings:
+        axes["lm_head"] = ("embed", "vocab")
+    return axes
+
+
 def init_params(generator: torch.Generator, cfg: TransformerConfig) -> Params:
     """f32 master weights on the generator's device: truncated normal in
     [-2, 2] scaled by fan-in^-0.5, norm scales one. Same tree as the JAX
@@ -237,8 +280,12 @@ def layer_params(params: Params, layer: int) -> Params:
 # ---------------------------------------------------------------------------
 
 
-def output_head(params: Params, cfg: TransformerConfig):
-    """(D, V) LM-head weight (tied or separate), in master dtype."""
+def output_head(params: Params, cfg: TransformerConfig, fsdp=None):
+    """(D, V) LM-head weight (tied or separate), in master dtype; under
+    `fsdp` gathered."""
+    if fsdp is not None:
+        return (fsdp.leaf(params, "embed").T if cfg.tie_embeddings
+                else fsdp.leaf(params, "lm_head"))
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
 
@@ -307,16 +354,18 @@ def _top_k(probs: torch.Tensor, k: int
     return torch.cat(vals, dim=-1), torch.cat(idxs, dim=-1)
 
 
-def _moe_ffn(x: torch.Tensor, lp: Params, cfg: TransformerConfig
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _moe_ffn(x: torch.Tensor, lp: Params, cfg: TransformerConfig,
+             fsdp=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Switch-style MoE FFN of one layer: x (B, S, D) -> (y (B, S, D), the
     load-balance aux loss, f32 scalar). Router logits in x's dtype, the
     softmax in f32; top-k (k 1 keeps the raw router probability as the
     gate, so the router keeps its main-path gradient; k > 1 renormalises).
-    aux = E * sum(frac_tokens * frac_probs) over the batch. The sort-based
-    ragged route (ops/moe_dispatch.py) where `moe_ragged_dispatch` and
-    k == 1, else the dense one-hot route, every expert over every row
-    (JAX models/transformer.py `_moe_ffn` on one device)."""
+    aux = E * sum(frac_tokens * frac_probs) over the batch; under `fsdp`
+    over the global batch (both fractions averaged over the ranks). The
+    sort-based ragged route (ops/moe_dispatch.py) where
+    `moe_ragged_dispatch`, k == 1 and the mesh is one device, else the
+    dense one-hot route, every expert over every row (JAX
+    models/transformer.py `_moe_ffn`)."""
     e, k = cfg.n_experts, cfg.expert_top_k
     dt = x.dtype
     bsz, slen, d = x.shape
@@ -331,12 +380,15 @@ def _moe_ffn(x: torch.Tensor, lp: Params, cfg: TransformerConfig
             ).to(dt)                                           # (B,S,k,E)
     frac_tokens = disp.sum(2).float().mean(dim=(0, 1))
     frac_probs = probs.mean(dim=(0, 1))
+    if fsdp is not None:
+        frac_tokens, frac_probs = fsdp.global_means(frac_tokens, frac_probs)
     aux = e * torch.sum(frac_tokens * frac_probs)
     w_gate = as_compute(lp["w_gate"], dt)                      # (E, D, F)
     w_up = as_compute(lp["w_up"], dt)
     w_down = as_compute(lp["w_down"], dt)                      # (E, F, D)
 
-    if cfg.moe_ragged_dispatch and k == 1:
+    single_device = fsdp is None or fsdp.world == 1
+    if cfg.moe_ragged_dispatch and k == 1 and single_device:
         def expert_ffn(_eids, xs):                             # (E, C, D)
             h = torch.matmul(xs, w_gate)
             u = torch.matmul(xs, w_up)
@@ -360,13 +412,13 @@ def _moe_ffn(x: torch.Tensor, lp: Params, cfg: TransformerConfig
 
 
 def _layer(x: torch.Tensor, lp: Params, cfg: TransformerConfig,
-           freqs: torch.Tensor, position_offset: int
+           freqs: torch.Tensor, position_offset: int, fsdp=None
            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One block: (x out, the layer's MoE aux loss or None when dense)."""
     x = _attention_block(x, lp, cfg, freqs, position_offset)
     h3 = rms_norm(x, lp["ln2"])
     if cfg.is_moe:
-        y, aux = _moe_ffn(h3, lp, cfg)
+        y, aux = _moe_ffn(h3, lp, cfg, fsdp)
         return x + y, aux
     if cfg.remat_ffn and not cfg.remat and torch.is_grad_enabled():
         y = checkpoint(_ffn, h3, lp["w_gate"], lp["w_up"], lp["w_down"], cfg,
@@ -377,24 +429,29 @@ def _layer(x: torch.Tensor, lp: Params, cfg: TransformerConfig,
 
 
 def _forward_hidden_aux(params: Params, tokens: torch.Tensor,
-                        cfg: TransformerConfig, position_offset: int = 0
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+                        cfg: TransformerConfig, position_offset: int = 0,
+                        fsdp=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens (B, S) -> (final hidden (B, S, D) after the last norm, the
-    sum of the layers' MoE aux losses, f32 scalar; 0 when dense)."""
-    x = embed_tokens(params["embed"], tokens, cfg.d_model, cfg.dtype)
+    sum of the layers' MoE aux losses, f32 scalar; 0 when dense). Under
+    `fsdp` each leaf is gathered just before its use."""
+    pick = (lambda name: params[name]) if fsdp is None else (
+        lambda name: fsdp.leaf(params, name))
+    x = embed_tokens(pick("embed"), tokens, cfg.d_model, cfg.dtype)
     freqs = rope_frequencies(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
                              x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in range(cfg.n_layers):
-        lp = layer_params(params, layer)
+        lp = (layer_params(params, layer) if fsdp is None
+              else fsdp.layer_params(params, layer))
         if cfg.remat and torch.is_grad_enabled():
             x, layer_aux = checkpoint(_layer, x, lp, cfg, freqs,
-                                      position_offset, use_reentrant=False)
+                                      position_offset, fsdp,
+                                      use_reentrant=False)
         else:
-            x, layer_aux = _layer(x, lp, cfg, freqs, position_offset)
+            x, layer_aux = _layer(x, lp, cfg, freqs, position_offset, fsdp)
         if layer_aux is not None:
             aux = aux + layer_aux
-    return rms_norm(x, params["final_ln"]), aux
+    return rms_norm(x, pick("final_ln")), aux
 
 
 def forward_hidden(params: Params, tokens: torch.Tensor,
@@ -414,16 +471,18 @@ def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
 
 
 def loss_fn(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
-            aux_weight: float = 0.01
+            aux_weight: float = 0.01, fsdp=None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token LM loss over tokens (B, S+1) -> (total, {nll, aux}):
     total = nll + aux_weight * aux, aux the layers' summed MoE load-balance
-    loss (0 for the dense model)."""
+    loss (0 for the dense model). Under `fsdp`, `params` are this rank's
+    blocks and `tokens` its rows: nll is the mean over those rows, aux the
+    global batch's."""
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
     if cfg.use_chunked_ce:
         from ..ops.chunked_ce import chunked_softmax_xent
-        x, aux = _forward_hidden_aux(params, inputs, cfg)
-        head = output_head(params, cfg)
+        x, aux = _forward_hidden_aux(params, inputs, cfg, fsdp=fsdp)
+        head = output_head(params, cfg, fsdp)
         if (cfg.ce_fused and cfg.ce_cache_logits
                 and fused_ce_supported(x, head)):
             nll = fused_lm_head_xent(x, head, targets)
@@ -432,7 +491,7 @@ def loss_fn(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
                                        min(cfg.ce_chunk, cfg.vocab_size),
                                        cfg.ce_cache_logits)
     else:
-        x, aux = _forward_hidden_aux(params, inputs, cfg)
-        head = as_compute(output_head(params, cfg), cfg.dtype)
+        x, aux = _forward_hidden_aux(params, inputs, cfg, fsdp=fsdp)
+        head = as_compute(output_head(params, cfg, fsdp), cfg.dtype)
         nll = cross_entropy_loss((x @ head).float(), targets)
     return nll + aux_weight * aux, {"nll": nll, "aux": aux}

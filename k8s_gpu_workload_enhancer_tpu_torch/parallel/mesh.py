@@ -1,0 +1,142 @@
+"""Device mesh construction and axis conventions.
+
+Port of k8s_gpu_workload_enhancer_tpu/parallel/mesh.py. The five logical
+axes, their order and the arithmetic that factors a device count over them
+(`auto_mesh_config`, `strategy_to_mesh_config`) are the JAX package's; the
+mesh is a `torch.distributed.device_mesh.DeviceMesh` over the ranks of the
+default process group, one rank a device (train/bootstrap.py starts the
+group).
+
+- ``dp``: data parallel and FSDP (params sharded over ``dp`` on their
+  ``embed`` axis, parallel/sharding.py).
+- ``ep``, ``pp``, ``tp``, ``sp``: expert, pipeline, tensor and sequence
+  parallelism. Not ported yet (ROADMAP A11): `check_supported` refuses a
+  size above 1 on any of them.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
+
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+
+AXES: Tuple[str, ...] = ("dp", "ep", "pp", "tp", "sp")
+
+# Batch (tokens) is sharded over both dp and ep.
+BATCH_AXES = ("dp", "ep")
+SEQ_AXIS = "sp"
+TENSOR_AXIS = "tp"
+PIPELINE_AXIS = "pp"
+EXPERT_AXIS = "ep"
+FSDP_AXIS = "dp"
+
+_UNPORTED = {"ep": "expert", "pp": "pipeline", "tp": "tensor",
+             "sp": "sequence"}
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """Sizes for the five logical axes. Product must equal device count."""
+
+    dp: int = 1
+    pp: int = 1
+    ep: int = 1
+    tp: int = 1
+    sp: int = 1
+
+    @property
+    def num_devices(self) -> int:
+        return self.dp * self.pp * self.ep * self.tp * self.sp
+
+    @property
+    def axis_sizes(self) -> Dict[str, int]:
+        return {"dp": self.dp, "pp": self.pp, "ep": self.ep,
+                "tp": self.tp, "sp": self.sp}
+
+    def describe(self) -> str:
+        live = [f"{a}={n}" for a, n in self.axis_sizes.items() if n > 1]
+        return ",".join(live) or "single-device"
+
+
+def auto_mesh_config(n_devices: int, want_pp: bool = True,
+                     want_ep: bool = True) -> MeshConfig:
+    """Factor `n_devices` across the five axes, activating as many distinct
+    parallelism forms as the device count allows (powers of two first).
+
+    8 devices  -> dp=2, tp=2, sp=2        (pp/ep code paths still run at 1)
+    16 devices -> dp=2, pp=2, tp=2, sp=2
+    32 devices -> all five at 2
+    """
+    remaining = n_devices
+    sizes = {"dp": 1, "pp": 1, "ep": 1, "tp": 1, "sp": 1}
+    # Priority order: tp and sp first, then dp, then pp, then ep.
+    priority = ["tp", "sp", "dp"]
+    if want_pp:
+        priority.append("pp")
+    if want_ep:
+        priority.append("ep")
+    i = 0
+    while remaining > 1 and remaining % 2 == 0 and i < 64:
+        axis = priority[i % len(priority)]
+        # One doubling per axis per sweep.
+        sizes[axis] *= 2
+        remaining //= 2
+        i += 1
+    if remaining > 1:  # non-power-of-two leftover goes to dp
+        sizes["dp"] *= remaining
+    return MeshConfig(**sizes)
+
+
+def strategy_to_mesh_config(strategy: str, n_devices: int) -> MeshConfig:
+    """Map a scheduler `DistributionStrategy` to a mesh (the JAX package's
+    mapping of the strategy enum)."""
+    s = strategy.lower()
+    if s in ("dataparallel", "fsdp"):
+        return MeshConfig(dp=n_devices)
+    if s == "tensorparallel":
+        return MeshConfig(tp=n_devices)
+    if s == "pipelineparallel":
+        return MeshConfig(pp=n_devices)
+    if s == "sequenceparallel":
+        return MeshConfig(sp=n_devices)
+    if s == "expertparallel":
+        return MeshConfig(ep=n_devices)
+    return auto_mesh_config(n_devices)  # Hybrid
+
+
+class UnportedAxisError(ValueError):
+    """A mesh asks for parallelism the port does not have yet."""
+
+
+def check_supported(config: MeshConfig) -> None:
+    """Raise UnportedAxisError unless only ``dp`` exceeds 1: the other
+    axes' parallelism is not ported yet, and a mesh that asks for it is
+    refused, never run as something else."""
+    for axis, kind in _UNPORTED.items():
+        n = config.axis_sizes[axis]
+        if n > 1:
+            raise UnportedAxisError(
+                f"mesh axis {axis}={n}: {kind} parallelism is not ported "
+                f"yet (ROADMAP A11); the port shards over dp only "
+                f"(mesh {config.describe()})")
+
+
+def make_mesh(config: Optional[MeshConfig] = None, device_type: str = "cuda"):
+    """The 5-axis DeviceMesh over the default process group's ranks, axes
+    in `AXES` order. With `config=None`, auto-factor the world size."""
+    if not dist.is_initialized():
+        raise RuntimeError("make_mesh needs a process group "
+                           "(train/bootstrap.initialize starts one)")
+    world = dist.get_world_size()
+    if config is None:
+        config = auto_mesh_config(world)
+    if config.num_devices != world:
+        raise ValueError(
+            f"mesh {config.axis_sizes} needs {config.num_devices} devices, "
+            f"got {world}")
+    check_supported(config)
+    shape = tuple(config.axis_sizes[a] for a in AXES)
+    return init_device_mesh(device_type, shape, mesh_dim_names=AXES)
+

@@ -1,4 +1,4 @@
-"""Checkpoints of the single-device trainer, and the drain marker.
+"""Checkpoints of the trainer, and the drain marker.
 
 Port of k8s_gpu_workload_enhancer_tpu/train/checkpoint.py. The JAX package
 saves its TrainState through orbax; the port has no orbax, so its format is
@@ -22,6 +22,14 @@ for. `restore` puts every tensor on the device and dtype of the target's
 leaf and makes the params leaves require grad again, as `init_state`
 does. `load_params` is the serving load: the file memory-mapped, only
 "params" kept, on the host; the Adam moments never reach the card.
+
+Under FSDP (a TrainState with `fsdp`, train/trainer.py) `save` gathers
+the full tensors leaf by leaf on every rank (a collective: every rank
+calls it) and only the primary writes, in the same format; `restore`
+loads the full tensors on every rank and keeps this rank's blocks. A
+checkpoint written by a gang of any size thus resumes on any other, and
+on one device. `write_drain_marker` is the primary's alone (the trainer
+main calls it on the primary only).
 
 The drain-marker helpers are the JAX package's, byte for byte: the
 control plane reads the marker through its own `read_drain_marker`.
@@ -87,22 +95,35 @@ def _host_copy(tree):
 
 def _snapshot(state: TrainState) -> Dict[str, Any]:
     opt = state.opt_state
-    return {"step": int(state.step), "params": _host_copy(state.params),
+    if state.fsdp is None:
+        host = _host_copy
+    else:
+        # Every rank gathers; only the primary, which writes, keeps a copy.
+        keep = ((lambda t: t.to("cpu", copy=True)) if state.fsdp.is_primary
+                else (lambda t: None))
+
+        def host(tree):
+            return state.fsdp.full_tree(tree, keep)
+    return {"step": int(state.step), "params": host(state.params),
             "opt_state": {"count": int(opt["count"]),
-                          "mu": _host_copy(opt["mu"]),
-                          "nu": _host_copy(opt["nu"])}}
+                          "mu": host(opt["mu"]), "nu": host(opt["nu"])}}
 
 
-def _place_like(got, want, path: str = ""):
+def _place_like(got, want, path: str = "", fsdp=None, dims=None):
     """`got` with `want`'s structure, each leaf on the device and dtype of
-    `want`'s leaf; ValueError on a tree or shape mismatch."""
+    `want`'s leaf (under `fsdp`, this rank's block of it, `dims` the
+    sharded dims); ValueError on a tree or shape mismatch."""
     if isinstance(want, dict):
         if not isinstance(got, dict) or set(got) != set(want):
             raise ValueError(
                 f"checkpoint tree at {path or 'root'} has "
                 f"{sorted(got) if isinstance(got, dict) else type(got)}, "
                 f"want {sorted(want)}")
-        return {k: _place_like(got[k], want[k], f"{path}/{k}") for k in want}
+        return {k: _place_like(got[k], want[k], f"{path}/{k}", fsdp,
+                               None if dims is None else dims[k])
+                for k in want}
+    if fsdp is not None and isinstance(got, torch.Tensor):
+        got = fsdp.shard(got, dims)
     if not isinstance(got, torch.Tensor) or got.shape != want.shape:
         raise ValueError(
             f"checkpoint leaf {path} has shape "
@@ -132,9 +153,12 @@ class CheckpointManager:
 
     def save(self, step: int, state: TrainState, wait: bool = True) -> None:
         """Save `state` as step `step`. The host copy is complete when this
-        returns; with wait=False the file is written in the background."""
+        returns; with wait=False the file is written in the background.
+        Under FSDP every rank calls it and the primary writes."""
         self.wait_until_finished()
         snapshot = _snapshot(state)
+        if state.fsdp is not None and not state.fsdp.is_primary:
+            return
         if wait:
             self._write(step, snapshot)
             return
@@ -189,20 +213,24 @@ class CheckpointManager:
 
     def restore(self, step: Optional[int], target: TrainState) -> TrainState:
         """Step `step` (None = the latest) in the structure, devices and
-        dtypes of `target`; the params leaves require grad."""
+        dtypes of `target` (under FSDP, this rank's blocks of it); the
+        params leaves require grad."""
         step = self._resolve(step)
         data = torch.load(self._path(step), map_location="cpu",
                           weights_only=True, mmap=True)
         opt = data["opt_state"]
-        params = _place_like(data["params"], target.params, "params")
+        fsdp = target.fsdp
+        dims = None if fsdp is None else fsdp.dims
+
+        def place(got, want, path):
+            return _place_like(got, want, path, fsdp, dims)
+        params = place(data["params"], target.params, "params")
         return TrainState(
             params=tree_map(lambda p: p.requires_grad_(True), params),
             opt_state={"count": int(opt["count"]),
-                       "mu": _place_like(opt["mu"], target.opt_state["mu"],
-                                         "mu"),
-                       "nu": _place_like(opt["nu"], target.opt_state["nu"],
-                                         "nu")},
-            step=int(data["step"]))
+                       "mu": place(opt["mu"], target.opt_state["mu"], "mu"),
+                       "nu": place(opt["nu"], target.opt_state["nu"], "nu")},
+            step=int(data["step"]), fsdp=fsdp)
 
     def load_params(self, step: Optional[int] = None) -> Tuple[Any, int]:
         """(params, step) of step `step` (None = the latest): the f32

@@ -13,7 +13,14 @@ batches from the same (seed, step):
   process computes its own batches from (seed, step) alone and a resume
   after preemption is exact: the step counter is the iterator state.
 - **Per-process sharding**: process `i` of `n` reads windows
-  `step*B*n + i*B + j` of the shuffled stream.
+  `step*B*n + i*B + j` of the shuffled stream (B the per-process batch).
+  With `grad_accum` = a > 1 it reads its block of B/a rows of each of
+  the a microbatches of the step's global batch, windows
+  `step*B*n + m*B*n/a + i*B/a + j`, so a gang's microbatch m is one
+  process's microbatch m split over the ranks, as the FSDP step takes
+  it (train/trainer.py). One process reads what the JAX pipeline reads;
+  a gang at a > 1 deviates from it (the JAX pipeline gives each process
+  whole microbatches of its own B rows).
 - **Device prefetch**: the next batch's host-to-device copy is issued on a
   side stream from a pinned host tensor while the current step runs; the
   consuming stream waits on the copy's event before it uses the batch.
@@ -108,15 +115,18 @@ class TokenDataset:
         from any step."""
         cfg = self.cfg
         per_step = cfg.batch_size * cfg.num_processes
+        acc = cfg.grad_accum
+        k = cfg.batch_size // acc          # this process's rows a microbatch
         step = start_step
         while True:
-            base = step * per_step + cfg.process_id * cfg.batch_size
-            rows = [self.window_at(base + j) for j in range(cfg.batch_size)]
+            # This process's block of k rows of each microbatch of the
+            # step's global batch (per_step windows, acc microbatches).
+            base = step * per_step + cfg.process_id * k
+            rows = [self.window_at(base + m * (per_step // acc) + j)
+                    for m in range(acc) for j in range(k)]
             batch = np.stack(rows).astype(np.int32)
-            if cfg.grad_accum > 1:
-                batch = batch.reshape(cfg.grad_accum,
-                                      cfg.batch_size // cfg.grad_accum,
-                                      self.window)
+            if acc > 1:
+                batch = batch.reshape(acc, k, self.window)
             yield batch
             step += 1
 

@@ -1,8 +1,20 @@
-"""Single-device trainer of KTWE-LM.
+"""Trainer of KTWE-LM: one device, or FSDP over the dp axis of a mesh.
 
-Port of k8s_gpu_workload_enhancer_tpu/train/trainer.py for one device: no
-mesh and no FSDP (ROADMAP A10 and A11 list what is left). The optimizer is
-the JAX package's optax chain written out in torch: clip_by_global_norm
+Port of k8s_gpu_workload_enhancer_tpu/train/trainer.py. `init_state` and
+`train_loop` take the mesh, as the JAX ones do; without one (None) they
+train on one device. On a mesh (parallel/mesh.py: one rank a device, only
+dp above 1) `init_state` shards the state as the JAX package's rules shard
+it and keeps the layout in `TrainState.fsdp` (parallel/sharding.Fsdp):
+each leaf with an `embed` axis, and its f32 Adam moments, hold 1/dp of
+that axis on each rank, the norm scales are replicated. The step reads
+that layout from the state it is given. It takes this rank's rows of the
+global batch (`Fsdp.rank_rows`; `synthetic_batches` yields them), gathers
+each layer's leaves before use and reduce-scatters their gradients (the
+mean over the ranks; replicated leaves' gradients are all-reduced), once
+a microbatch, so the bf16 accumulator sums the global microbatch
+gradients as the JAX step does. The global norm sums squares over every
+shard; AdamW runs on the local blocks; loss, nll and aux are averaged
+over the ranks. The optimizer is the JAX package's optax chain written out in torch: clip_by_global_norm
 (grad_clip), then AdamW (b1 0.9, b2 0.95, eps 1e-8, weight decay on every
 leaf) scaled by a linear-warmup cosine schedule evaluated at the update's
 pre-increment count, with decay_steps = max(total_steps, warmup_steps + 1).
@@ -20,6 +32,7 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 import torch
 
 from ..models import transformer as tf
+from ..parallel.sharding import Fsdp
 from ..utils.device import resolve_device
 from .profiling import StepTimer
 
@@ -65,6 +78,9 @@ class TrainState:
     params: Params
     opt_state: Dict[str, Any]     # {"count": int, "mu": tree, "nu": tree}
     step: int
+    # The FSDP layout of params, mu and nu (None: whole tensors on one
+    # device); checkpoints read it to gather and to shard.
+    fsdp: Optional[Fsdp] = None
 
 
 def tree_map(fn: Callable, tree, *rest):
@@ -87,8 +103,11 @@ def _map_with_name(fn: Callable, tree, name: str = ""):
     return fn(name, tree)
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in f32."""
+def global_norm(tree, fsdp: Optional[Fsdp] = None) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in f32; under `fsdp` of
+    the full tree (the blocks' squares summed over the ranks)."""
+    if fsdp is not None:
+        return torch.sqrt(fsdp.sum_squares(tree))
     return torch.sqrt(sum(torch.sum(g.float() * g.float())
                           for g in tree_leaves(tree)))
 
@@ -121,10 +140,13 @@ class AdamW:
 
     @torch.no_grad()
     def update(self, params: Params, grads: Params,
-               opt_state: Dict[str, Any]) -> None:
-        """Apply one update to params and opt_state in place."""
+               opt_state: Dict[str, Any],
+               g_norm: Optional[torch.Tensor] = None) -> None:
+        """Apply one update to params and opt_state in place; `g_norm` is
+        the gradients' global norm (computed here when None)."""
         cfg = self.cfg
-        g_norm = global_norm(grads)
+        if g_norm is None:
+            g_norm = global_norm(grads)
         clip = g_norm >= cfg.grad_clip
         count = opt_state["count"]
         lr = learning_rate(cfg, count)
@@ -148,14 +170,19 @@ def make_optimizer(cfg: TrainConfig) -> AdamW:
 
 
 def init_state(model_cfg: tf.TransformerConfig, train_cfg: TrainConfig,
-               generator: torch.Generator) -> TrainState:
+               generator: torch.Generator, mesh=None) -> TrainState:
     """f32 master params from `generator` (a torch.Generator on the device
-    to train on), zero optimizer moments, step 0."""
+    to train on), zero optimizer moments, step 0. On `mesh` every rank
+    draws the same full params from the same seed and keeps its blocks."""
     params = tf.init_params(generator, model_cfg)
+    fsdp = None
+    if mesh is not None:
+        fsdp = Fsdp(model_cfg, mesh)
+        params = fsdp.shard_tree(params)
     params = tree_map(lambda p: p.requires_grad_(True), params)
     return TrainState(params=params,
                       opt_state=make_optimizer(train_cfg).init(params),
-                      step=0)
+                      step=0, fsdp=fsdp)
 
 
 def _grad(loss: torch.Tensor, tree) -> Params:
@@ -170,8 +197,10 @@ def make_train_step(model_cfg: tf.TransformerConfig, train_cfg: TrainConfig
     """Returns (state, tokens) -> (state, metrics), updating state in place.
 
     tokens is (B, S+1) when grad_accum == 1, else (grad_accum, B/acc, S+1);
-    the microbatches run one after another and the optimizer updates once
-    per global batch. The loss is `tf.loss_fn` (the JAX step's `loss_fn`
+    for a state sharded over a mesh (`state.fsdp`) it is this rank's rows of
+    that (`Fsdp.rank_rows`). The
+    microbatches run one after another and the optimizer updates once per
+    global batch. The loss is `tf.loss_fn` (the JAX step's `loss_fn`
     override serves the pipeline schedule, not ported)."""
     optimizer = make_optimizer(train_cfg)
     acc = train_cfg.grad_accum
@@ -187,11 +216,19 @@ def make_train_step(model_cfg: tf.TransformerConfig, train_cfg: TrainConfig
             return p
         return p.detach().to(model_cfg.dtype).requires_grad_(True)
 
+    def loss_and_grads(params: Params, toks: torch.Tensor,
+                       fsdp: Optional[Fsdp]):
+        total, parts = tf.loss_fn(params, toks, model_cfg, fsdp=fsdp)
+        grads = _grad(total, params)
+        if fsdp is not None:
+            fsdp.reduce_replicated_(grads)
+        return total, parts, grads
+
     def step_fn(state: TrainState, tokens: torch.Tensor
                 ) -> Tuple[TrainState, Metrics]:
+        fsdp = state.fsdp
         if acc == 1:
-            total, parts = tf.loss_fn(state.params, tokens, model_cfg)
-            grads = _grad(total, state.params)
+            total, parts, grads = loss_and_grads(state.params, tokens, fsdp)
             total, nll, aux = (total.detach(), parts["nll"].detach(),
                                parts["aux"].detach())
         else:
@@ -200,8 +237,7 @@ def make_train_step(model_cfg: tf.TransformerConfig, train_cfg: TrainConfig
                              state.params)
             total = nll = aux = 0.0
             for micro in range(acc):
-                tot, parts = tf.loss_fn(compute, tokens[micro], model_cfg)
-                g = _grad(tot, compute)
+                tot, parts, g = loss_and_grads(compute, tokens[micro], fsdp)
                 with torch.no_grad():
                     grads = tree_map(lambda a, b: a + b.to(a.dtype), grads, g)
                 total = total + tot.detach()
@@ -210,8 +246,10 @@ def make_train_step(model_cfg: tf.TransformerConfig, train_cfg: TrainConfig
             grads = tree_map(lambda g, p: (g.float() / acc).to(p.dtype),
                              grads, state.params)
             total, nll, aux = total / acc, nll / acc, aux / acc
-        gnorm = global_norm(grads)
-        optimizer.update(state.params, grads, state.opt_state)
+        gnorm = global_norm(grads, fsdp)
+        optimizer.update(state.params, grads, state.opt_state, gnorm)
+        if fsdp is not None:
+            total, nll, aux = fsdp.mean(torch.stack([total, nll, aux]))
         state.step += 1
         return state, {"loss": total, "nll": nll, "aux": aux,
                        "grad_norm": gnorm, "step": state.step}
@@ -220,9 +258,11 @@ def make_train_step(model_cfg: tf.TransformerConfig, train_cfg: TrainConfig
 
 
 def synthetic_batches(model_cfg: tf.TransformerConfig,
-                      train_cfg: TrainConfig,
-                      device="cuda") -> Iterator[torch.Tensor]:
-    """Deterministic synthetic LM data, made on the device from seed + 1."""
+                      train_cfg: TrainConfig, device="cuda",
+                      fsdp: Optional[Fsdp] = None) -> Iterator[torch.Tensor]:
+    """Deterministic synthetic LM data, made on the device from seed + 1.
+    Every rank draws the global batch; under `fsdp` (a state's layout) it
+    yields this rank's rows of it (`Fsdp.rank_rows`)."""
     device = torch.device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(train_cfg.seed + 1)
@@ -230,8 +270,9 @@ def synthetic_batches(model_cfg: tf.TransformerConfig,
     shape = ((train_cfg.batch_size, train_cfg.seq_len + 1) if acc == 1 else
              (acc, train_cfg.microbatch_size, train_cfg.seq_len + 1))
     while True:
-        yield torch.randint(0, model_cfg.vocab_size, shape, generator=gen,
-                            device=device)
+        toks = torch.randint(0, model_cfg.vocab_size, shape, generator=gen,
+                             device=device)
+        yield toks if fsdp is None else fsdp.rank_rows(toks, acc)
 
 
 def train_loop(model_cfg: tf.TransformerConfig, train_cfg: TrainConfig,
@@ -239,12 +280,13 @@ def train_loop(model_cfg: tf.TransformerConfig, train_cfg: TrainConfig,
                stop: Optional[Callable[[], bool]] = None,
                timer: Optional[StepTimer] = None,
                state: Optional[TrainState] = None,
-               batches: Optional[Iterator[torch.Tensor]] = None
-               ) -> Dict[str, Any]:
+               batches: Optional[Iterator[torch.Tensor]] = None,
+               mesh=None) -> Dict[str, Any]:
     """Train from `state` (default: a fresh state seeded from
-    train_cfg.seed) until it reaches step `num_steps`, on `batches`
-    (default: synthetic batches). The step updates `state` in place. Each
-    step is timed by `timer` (a StepTimer, made here when None) and ends in
+    train_cfg.seed, sharded over `mesh` when one is given) until it
+    reaches step `num_steps`, on `batches` (default: synthetic batches, this
+    rank's rows under `state.fsdp`). The step updates `state` in place.
+    Each step is timed by `timer` (a StepTimer, made here when None) and ends in
     a host read of the loss, so its wall time covers the device's work.
     `callback(i, metrics)` runs after step i (counted from 0 at a fresh
     state); the loop ends early once `stop()` is true after a step.
@@ -254,10 +296,10 @@ def train_loop(model_cfg: tf.TransformerConfig, train_cfg: TrainConfig,
     if state is None:
         gen = torch.Generator(device=device)
         gen.manual_seed(train_cfg.seed)
-        state = init_state(model_cfg, train_cfg, gen)
+        state = init_state(model_cfg, train_cfg, gen, mesh)
     step = make_train_step(model_cfg, train_cfg)
     if batches is None:
-        batches = synthetic_batches(model_cfg, train_cfg, device)
+        batches = synthetic_batches(model_cfg, train_cfg, device, state.fsdp)
     timer = timer if timer is not None else StepTimer()
     tokens = train_cfg.batch_size * train_cfg.seq_len
     flops = tokens * model_cfg.flops_per_token(train_cfg.seq_len)
