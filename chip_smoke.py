@@ -224,7 +224,21 @@ inits in bf16:
      checkpoint each) and resume; their next 2 losses equal an undrained
      tenant's within DRAIN_RTOL, and every step launches an f32 train
      step's kernels. It prints each drain's and resume's seconds and
-     checkpoint bytes.
+     checkpoint bytes. The ring phase (tensor- and sequence-parallel
+     training, parallel/ring_attention.py) holds the flash kernels' LSE
+     entry point, `flash_attention_lse`, O, LSE and its backward with a
+     nonzero LSE cotangent, against the plain versions at the trainer's
+     attention width (batch 2, seq 2048, 16 heads of 128, bf16) and at a
+     small f32 shape; then runs the ring's per-step block function
+     (`ring_step`) for 4 virtual sp ranks in one process, the shift
+     replaced by indexing into the held shards, at seq 8192 (shards of
+     2048), batch 2, bf16, with 16 heads of 128 and 4 of 512, and holds
+     its output and gradients (autograd through the blocks) against one
+     `flash_attention_train` call on the whole causal sequence (RING_RTOL,
+     RING_ATOL_OF_MAX). It prints the launches of flash rows 6-9 (the
+     schedule's and, apart, the single call's), ms of forward plus
+     backward of each, and their peak GB; a multi-rank ring needs more
+     than one card.
      Every
      phase
      must launch exactly the kernels its prefill chunks, decode steps,
@@ -441,6 +455,29 @@ TRACE_STEPS, TRACE_POINTS = 3, 1.0
 # root mean square for entries near zero, where the sums' difference
 # (~1e-5 at D 2048) is more than the value's ulp.
 CE_STAT_RTOL = {torch.bfloat16: 1e-3, torch.float32: 1e-5}
+
+# The ring phase: `flash_attention_lse` at the trainer's attention width
+# (batch 2, seq 2048, 16 heads of 128, bf16) and an f32 gate (1, 256, 2,
+# 128) against the plain versions, its backward with a nonzero LSE
+# cotangent; then the ring schedule of RING_SP virtual sp ranks at seq
+# RING_SEQ (shards of 2048), batch 2, bf16, at 16 heads of 128 and 4 of 512
+# (dQ above head_dim 128 is another body), against one flash_attention_train
+# call on the whole causal sequence.
+RING_SP, RING_SEQ, RING_BATCH = 4, 8192, 2
+RING_HEADS = ((16, 128), (4, 512))
+LSE_SHAPES = (((2, 2048, 16, 128), torch.bfloat16),
+              ((1, 256, 2, 128), torch.float32))
+# The LSE, f32 either way, against the plain version: a row's sum of up to
+# 2048 exponentials taken in another order (2048 * 2^-24 relative of the
+# sum, so 1.2e-4 of its log) over scores of f32 sums of 128 products.
+LSE_ATOL = 2e-4
+# The ring schedule against the whole-sequence call, bf16: each of up to 4
+# blocks' output is rounded to bf16 before the f32 merge, and autograd sums
+# the blocks' dQ, dK and dV in bf16, where the single call rounds once: a
+# few bf16 ulps (2^-8 of the value each), and where the blocks' terms
+# cancel, a few ulps of the largest term, RING_ATOL_OF_MAX of the output's
+# largest magnitude.
+RING_RTOL, RING_ATOL_OF_MAX = 2.0 ** -6, 2.0 ** -6
 
 # Kernel vs plain version in bf16: both round once from f32, so they differ
 # by at most a couple of bf16 ulps (2^-8 relative) where their f32 sums are
@@ -1070,6 +1107,177 @@ def check_paged_combine(paged, q, kp, vp, table, pos, name) -> dict:
                 plain_ms=device_ms(lambda: paged.paged_decode_combine_plain(
                     acc, ml, q.dtype)),
                 bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def ring_errors(got: torch.Tensor, want: torch.Tensor):
+    """`errors` at the ring schedule's limits (RING_RTOL, and
+    RING_ATOL_OF_MAX times want's largest magnitude), with the largest
+    error as a share of that magnitude."""
+    top = float(want.detach().abs().max())
+    ea, er, ok = errors(got.detach(), want.detach(), RING_ATOL_OF_MAX * top,
+                        RING_RTOL)
+    return ea, er, ok, ea / max(top, 1e-30)
+
+
+def check_lse_entry(dev, flash, shape, dtype) -> dict:
+    """`flash_attention_lse` (O and LSE) and its backward with a nonzero
+    LSE cotangent (`flash_attention_backward`'s g_lse) against the plain
+    versions on the same inputs."""
+    gen = torch.Generator(device=dev).manual_seed(24)
+    b, s, h, d = shape
+
+    def randn(*sh, dt=dtype):
+        return torch.randn(sh, generator=gen, device=dev).to(dt)
+    q, k, v, do = (randn(*shape) for _ in range(4))
+    g_lse = randn(b, h, s, dt=torch.float32)
+    o, lse = flash.flash_attention_lse(q, k, v, True)
+    want_o, want_lse = flash.flash_attention_plain(q, k, v, True,
+                                                   return_lse=True)
+    tol = (dict(atol=BF16_ATOL, rtol=BF16_RTOL) if dtype == torch.bfloat16
+           else dict(atol=1e-5, rtol=1e-5))
+    ea_o, _, ok_o = errors(o, want_o, **tol)
+    ea_l, _, ok_l = errors(lse, want_lse, LSE_ATOL, 0.0)
+    grads = flash.flash_attention_backward(q, k, v, o, lse, do, True,
+                                           g_lse=g_lse)
+    wants = flash.flash_attention_backward_plain(q, k, v, o, lse, do, True,
+                                                 g_lse=g_lse)
+    bwd = {}
+    for name, got, want in zip(("dq", "dk", "dv"), grads, wants):
+        ea, er, ok = bwd_errors(got, want)
+        if not ok:
+            fail(f"flash_attention_lse backward {name} at {shape} "
+                 f"{dtype}: max abs err {ea}, rel {er}")
+        bwd[name] = ea
+    # The fold is live: the LSE cotangent moves dq.
+    dq0 = flash.flash_attention_backward(q, k, v, o, lse, do, True)[0]
+    if torch.equal(dq0, grads[0]):
+        fail("flash_attention_lse: the LSE cotangent changed nothing")
+    if not (ok_o and ok_l):
+        fail(f"flash_attention_lse at {shape} {dtype}: O err {ea_o}, LSE "
+             f"err {ea_l}")
+    return dict(shape=list(shape), dtype=str(dtype).split(".")[-1],
+                o_max_abs_err=ea_o, lse_max_abs_err=ea_l,
+                bwd_max_abs_err=bwd)
+
+
+def ring_schedule(ring, shards, sp: int) -> list:
+    """The ring's per-step block function (`ring_step`) for each of `sp`
+    virtual ranks in one process, the shift replaced by indexing into the
+    held (q, k, v) shards: each rank's output shard."""
+    q, k, v = shards
+    outs = []
+    for r in range(sp):
+        part = ring.init_partials(q[r])
+        for step in range(sp):
+            src = (r - step) % sp
+            part = ring.ring_step(q[r], k[src], v[src], part, r, src, True,
+                                  True)
+        outs.append(ring.finish(part, q[r].dtype))
+    return outs
+
+
+def run_ring(dev, flash, ring, kernels, card: str) -> dict:
+    """The ring phase (see RING_SP): the LSE entry point against its plain
+    versions, then the ring schedule at seq RING_SEQ against one
+    whole-sequence flash_attention_train call, forward and backward
+    (autograd through the blocks), held at RING_RTOL / RING_ATOL_OF_MAX.
+    Launches are one forward and backward of the schedule (the phase's)
+    and of the single call (apart); ms each over eager calls between CUDA
+    events, in turns; the peak GB each allocates above what is allocated
+    when it starts (the inputs and the phase's other tensors)."""
+    out = {"card": card, "lse_entry": [check_lse_entry(dev, flash, sh, dt)
+                                       for sh, dt in LSE_SHAPES]}
+    gen = torch.Generator(device=dev).manual_seed(25)
+    launches, single_launches, cases = {}, {}, []
+    for h, d in RING_HEADS:
+        shape = (RING_BATCH, RING_SEQ, h, d)
+        q, k, v, do = (torch.randn(shape, generator=gen, device=dev)
+                       .to(torch.bfloat16) for _ in range(4))
+        s = RING_SEQ // RING_SP
+
+        def shards(t):
+            return [t[:, r * s:(r + 1) * s].contiguous().requires_grad_(True)
+                    for r in range(RING_SP)]
+        qs, ks, vs = shards(q), shards(k), shards(v)
+        leaves = qs + ks + vs
+        dos = [t.detach() for t in shards(do)]
+
+        def ring_run():
+            outs = ring_schedule(ring, (qs, ks, vs), RING_SP)
+            loss = sum((o.float() * g.float()).sum()
+                       for o, g in zip(outs, dos))
+            return outs, torch.autograd.grad(loss, leaves)
+        qf, kf, vf = (t.detach().clone().requires_grad_(True)
+                      for t in (q, k, v))
+
+        def single_run():
+            o = flash.flash_attention_train(qf, kf, vf, True)
+            return o, torch.autograd.grad(o, (qf, kf, vf), do)
+        if not ring.ring_uses_flash(qs[0], ks[0], True):
+            fail(f"ring shards {tuple(qs[0].shape)} miss the flash gate")
+        kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        outs, grads = ring_run()
+        torch.cuda.synchronize()
+        ring_peak = (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+        for name, n in kernels.launches.items():
+            launches[name] = launches.get(name, 0) + n
+        case_launches = dict(kernels.launches)
+        kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        o_single, g_single = single_run()
+        torch.cuda.synchronize()
+        single_peak = (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+        for name, n in kernels.launches.items():
+            single_launches[name] = single_launches.get(name, 0) + n
+        case_single = dict(kernels.launches)
+        errs = {}
+        got = {"o": torch.cat(outs, dim=1)}
+        for i, name in enumerate(("dq", "dk", "dv")):
+            got[name] = torch.cat(grads[i * RING_SP:(i + 1) * RING_SP], dim=1)
+        want = dict(zip(("o", "dq", "dk", "dv"), (o_single, *g_single)))
+        for name in got:
+            ea, er, ok, of_max = ring_errors(got[name], want[name])
+            errs[name] = dict(max_abs_err=ea, max_rel_err=er,
+                              err_of_max=of_max)
+            if not ok:
+                fail(f"ring schedule {name} at {shape} against the single "
+                     f"call: max abs err {ea}, rel {er}")
+        del outs, grads, o_single, g_single, got, want
+        ms = {"ring": [], "single": []}
+        for which in ("ring", "single", "single", "ring"):
+            run = ring_run if which == "ring" else single_run
+            ms[which].append(wrapper_ms(run, iters=3, warmup=1))
+        # Causal attention forward and backward (3.5x the forward's 2 * 2
+        # * B * H * S^2 * D / 2 operations); q, k, v, dO read and O, dQ,
+        # dK, dV written once.
+        flops = 3.5 * 2 * RING_BATCH * h * RING_SEQ ** 2 * d
+        bts = 8 * q.numel() * q.element_size()
+        bound_ms, bound_by = bound(bts, flops)
+        cases.append(dict(
+            shape=list(shape), shards=RING_SP, errors=errs,
+            launches=case_launches, single_launches=case_single,
+            ms_ring=ms["ring"], ms_single=ms["single"],
+            ratio=sum(ms["ring"]) / sum(ms["single"]), bound_ms=bound_ms,
+            bound_by=bound_by, peak_gb_above_inputs_ring=ring_peak,
+            peak_gb_above_inputs_single=single_peak))
+        del q, k, v, do, qs, ks, vs, leaves, dos, qf, kf, vf
+        torch.cuda.empty_cache()
+    rows = (flash.KERNEL, flash.KERNEL_BWD_DQ, flash.KERNEL_BWD_DKV_STASH,
+            flash.KERNEL_BWD_DKV)
+    for name in rows:
+        if launches.get(name, 0) + single_launches.get(name, 0) <= 0:
+            fail(f"ring phase: {name} never launched")
+    for name in rows[:3]:
+        if launches.get(name, 0) <= 0:
+            fail(f"ring schedule: {name} never launched")
+    out.update(cases=cases, launches=launches,
+               single_call_launches=single_launches,
+               tolerance=dict(rtol=RING_RTOL, atol_of_max=RING_ATOL_OF_MAX,
+                              lse_atol=LSE_ATOL))
+    return out
 
 
 def check_off_path_shapes(dev, rms, flash) -> dict:
@@ -6562,6 +6770,8 @@ def main() -> int:
     from k8s_gpu_workload_enhancer_tpu_torch.ops import (
         attention as attn_mod, embed, flash_attention as flash, fused_ce,
         kernels, paged_attention as paged, relayout, rms, rope)
+    from k8s_gpu_workload_enhancer_tpu_torch.parallel import (
+        ring_attention as ring)
     from k8s_gpu_workload_enhancer_tpu_torch.sharing import tenant_drain
     from k8s_gpu_workload_enhancer_tpu_torch.train import (
         checkpoint, data, flagship, profiling, trainer)
@@ -6637,6 +6847,8 @@ def main() -> int:
     print(json.dumps({"kernel_checks": results["kernels"]}), flush=True)
     print(json.dumps({"off_path_checks": check_off_path_shapes(dev, rms, flash)}),
           flush=True)
+    results["ring"] = run_ring(dev, flash, ring, kernels, card)
+    print(json.dumps({"ring": results["ring"]}), flush=True)
     mods = (kernels, rms, rope, flash, paged, tf, decode, serving, serve)
     cfg, params, init_s = serve_params(dev, tf, serve)
     n_layers = SERVE_DIMS["n_layers"]
@@ -6785,13 +6997,14 @@ def main() -> int:
     every = serving_phases + train_phases
     paths = {"embed_gather": every + t_layout,
              "rms_norm": every + t_layout, "rope": every,
-             "flash_attention": every + t_layout,
+             "flash_attention": every + t_layout + ("ring",),
              "paged_decode": paged_phases,
              "paged_decode_combine": paged_phases,
              "rms_norm_bwd": train_phases + t_layout,
-             "flash_attention_bwd_dq": train_phases + t_layout,
+             "flash_attention_bwd_dq": train_phases + t_layout + ("ring",),
              "flash_attention_bwd_dkv": ("train", "fsdp", "moe_train"),
-             "flash_attention_bwd_dkv_stash": ("train_stash",) + t_layout,
+             "flash_attention_bwd_dkv_stash": ("train_stash",) + t_layout
+             + ("ring",),
              "rope_t": t_layout, "rope_t_inv": t_layout,
              "fused_ce_fwd": ("flagship",), "fused_ce_bwd": ("flagship",),
              "relayout_to_t": t_layout, "relayout_from_t": t_layout}

@@ -1,5 +1,6 @@
-"""Trainer main of the PyTorch port: KTWE-LM on one device or FSDP over a
-gang of processes.
+"""Trainer main of the PyTorch port: KTWE-LM on one device or over a gang
+of processes (FSDP over dp, tensor parallelism over tp, sequence
+parallelism over sp).
 
 Port of k8s_gpu_workload_enhancer_tpu/cmd/trainer.py, with the same flags
 and defaults (vocab 32768, d_model 2048, 8 layers, 16 heads, d_ff 8192,
@@ -10,13 +11,14 @@ a JSON line every 10 steps and a final summary line.
 It starts with `train/bootstrap.initialize`, which reads the gang env the
 controller's launcher injects (COORDINATOR_ADDRESS, NUM_PROCESSES,
 PROCESS_ID, KTWE_MESH_AXES, KTWE_STRATEGY). In a gang each process is one
-rank on one device and the ranks train one model FSDP over the mesh's dp
-axis (train/trainer.py): the global batch is `--batch-size`, each rank
-takes its rows, and only the primary (PROCESS_ID 0) prints and writes
-checkpoints. Without the env, or at NUM_PROCESSES 1, it trains on one
-device (`main(group_of_one=True)` runs one process through the gang's
-FSDP step over a process group of one instead, a check of that path on a
-single card).
+rank on one device and the ranks train one model on the mesh's dp, tp and
+sp axes (train/trainer.py): the global batch is `--batch-size`, each dp
+rank takes its rows (the ranks of one dp coordinate read the same rows,
+each sp rank its shard of their positions), and only the primary
+(PROCESS_ID 0) prints and writes checkpoints. Without the env, or at
+NUM_PROCESSES 1, it trains on one device (`main(group_of_one=True)` runs
+one process through the gang's FSDP step over a process group of one
+instead, a check of that path on a single card).
 
 - `--data-file` trains on a KTWE token shard (train/data.py, the JAX
   package's format and windows), else on seeded synthetic LM data.
@@ -37,9 +39,9 @@ single card).
   line also carry the last step's MoE load-balance loss `aux`.
 
 Not ported yet, and refused with exit code 2 rather than ignored:
-`--pipeline-microbatches` and a mesh with ep, pp, tp or sp above 1
-(ROADMAP A11). `--profile-dir` is accepted and unused, as in the JAX
-trainer.
+`--pipeline-microbatches`, a mesh with ep or pp above 1, and `--n-experts`
+on a mesh with tp or sp above 1 (ROADMAP A11). `--profile-dir` is
+accepted and unused, as in the JAX trainer.
 
     python -m k8s_gpu_workload_enhancer_tpu_torch.cmd.trainer --steps 20
     python -m k8s_gpu_workload_enhancer_tpu_torch.cmd.trainer --device cpu \
@@ -55,6 +57,10 @@ A gang of two CPU ranks (run both, PROCESS_ID 0 and 1):
     KTWE_STRATEGY=FSDP python -m k8s_gpu_workload_enhancer_tpu_torch.cmd.trainer \
         --device cpu --steps 10 --batch-size 4 --seq-len 32 --d-model 64 \
         --n-layers 2 --n-heads 2 --d-ff 128 --vocab-size 256
+
+A gang of eight on dp=2, tp=2, sp=2: the same with NUM_PROCESSES=8,
+PROCESS_ID 0..7 and KTWE_MESH_AXES=dp=2,tp=2,sp=2 (or KTWE_STRATEGY=Hybrid,
+which factors 8 processes so).
 """
 
 from __future__ import annotations
@@ -71,7 +77,7 @@ import torch
 import torch.distributed as dist
 
 from ..models import transformer as tf
-from ..parallel.mesh import UnportedAxisError
+from ..parallel.mesh import MeshConfig, UnportedAxisError, check_supported
 from ..train import bootstrap, trainer
 from ..train.checkpoint import CheckpointManager, write_drain_marker
 from ..train.data import DataConfig, make_input_pipeline
@@ -118,13 +124,36 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def refused(args: argparse.Namespace) -> Optional[str]:
-    """Why the arguments ask for something not ported yet, or None."""
+def refused(args: argparse.Namespace,
+            mesh_cfg: Optional[MeshConfig] = None) -> Optional[str]:
+    """Why the arguments, on the mesh `mesh_cfg` the gang env asks for,
+    ask for something not ported yet, or None."""
     if args.pipeline_microbatches > 0:
         return ("--pipeline-microbatches: pipeline parallelism is not "
                 "ported yet (ROADMAP A11); the port trains on one device "
-                "or FSDP over dp")
+                "or on a mesh of dp, tp and sp")
+    if mesh_cfg is None:
+        return None
+    try:
+        check_supported(mesh_cfg)
+    except UnportedAxisError as e:
+        return str(e)
+    if args.n_experts > 0 and (mesh_cfg.tp > 1 or mesh_cfg.sp > 1):
+        return (f"--n-experts {args.n_experts} on a mesh with "
+                f"tp={mesh_cfg.tp}, sp={mesh_cfg.sp}: MoE there needs "
+                f"expert parallelism, not ported yet (ROADMAP A11)")
     return None
+
+
+def data_config(args: argparse.Namespace, tcfg: trainer.TrainConfig,
+                dp: int, dp_rank: int) -> DataConfig:
+    """The token pipeline of dp rank `dp_rank` of `dp`: its rows of every
+    microbatch of the global batch the shard's windows make at a step (the
+    pipeline's split). Ranks of one dp coordinate read the same rows."""
+    return DataConfig(path=args.data_file, batch_size=tcfg.batch_size // dp,
+                      seq_len=tcfg.seq_len, seed=tcfg.seed,
+                      process_id=dp_rank, num_processes=dp,
+                      grad_accum=tcfg.grad_accum)
 
 
 def main(argv=None, callback: Optional[Callable] = None,
@@ -133,7 +162,7 @@ def main(argv=None, callback: Optional[Callable] = None,
     is the gang env (default: os.environ); `group_of_one` is
     `bootstrap.initialize`'s."""
     args = build_parser().parse_args(argv)
-    why = refused(args)
+    why = refused(args, bootstrap.mesh_config(env, group_of_one))
     if why is None:
         try:
             ctx = bootstrap.initialize(env, device=args.device,
@@ -153,6 +182,10 @@ def _train(args: argparse.Namespace, ctx: bootstrap.BootstrapContext,
            callback: Optional[Callable]) -> int:
     device, mesh = ctx.device, ctx.mesh
     world, primary = ctx.num_processes, ctx.is_primary
+    # The batch splits over dp alone: the ranks of one dp coordinate (its
+    # tp and sp ranks) read the same rows.
+    dp = ctx.mesh_config.dp if mesh is not None else 1
+    dp_rank = mesh.get_local_rank("dp") if mesh is not None else 0
     model_cfg = tf.TransformerConfig(
         vocab_size=args.vocab_size, d_model=args.d_model,
         n_layers=args.n_layers, n_heads=args.n_heads,
@@ -164,10 +197,14 @@ def _train(args: argparse.Namespace, ctx: bootstrap.BootstrapContext,
         seq_len=args.seq_len, total_steps=args.steps,
         grad_accum=args.grad_accum, grad_accum_dtype=args.grad_accum_dtype,
         seed=args.seed)
-    if tcfg.microbatch_size % world:
+    if tcfg.microbatch_size % dp:
         raise ValueError(f"--batch-size {tcfg.batch_size} / --grad-accum "
                          f"{tcfg.grad_accum} rows a microbatch cannot be "
-                         f"split over {world} ranks")
+                         f"split over dp={dp}")
+    sp = ctx.mesh_config.sp if mesh is not None else 1
+    if tcfg.seq_len % sp:
+        raise ValueError(f"--seq-len {tcfg.seq_len} cannot be split over "
+                         f"sp={sp}")
     gen = torch.Generator(device=device)
     gen.manual_seed(tcfg.seed)
     state = trainer.init_state(model_cfg, tcfg, gen, mesh)
@@ -181,15 +218,9 @@ def _train(args: argparse.Namespace, ctx: bootstrap.BootstrapContext,
         state = mgr.restore(None, state)
         print(f"resumed from step {state.step}", flush=True)
     if args.data_file:
-        # Rank r reads its rows of every microbatch of the global batch
-        # the shard's windows make at this step (the pipeline's split).
         batches = make_input_pipeline(
-            DataConfig(path=args.data_file,
-                       batch_size=tcfg.batch_size // world,
-                       seq_len=tcfg.seq_len, seed=tcfg.seed,
-                       process_id=ctx.process_id, num_processes=world,
-                       grad_accum=tcfg.grad_accum),
-            start_step=state.step, device=device)
+            data_config(args, tcfg, dp, dp_rank), start_step=state.step,
+            device=device)
     else:
         batches = trainer.synthetic_batches(model_cfg, tcfg, device,
                                             state.fsdp)

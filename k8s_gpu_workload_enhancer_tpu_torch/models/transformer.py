@@ -1,5 +1,5 @@
-"""KTWE-LM, the decoder-only transformer, in PyTorch (dense or MoE, one
-device).
+"""KTWE-LM, the decoder-only transformer, in PyTorch (dense or MoE; one
+device, or a mesh of dp, tp and sp).
 
 Port of k8s_gpu_workload_enhancer_tpu/models/transformer.py. Params are a
 plain dict with the JAX package's tree: stacked (L, ...) layer leaves of the
@@ -36,8 +36,23 @@ their gradients, and the MoE load-balance fractions are averaged over the
 ranks before their product. `param_logical_axes` names each leaf's axes
 for the sharding rules, as in the JAX package.
 
-Not ported here: ring attention and the model-parallel axes (tp, sp, pp,
-ep; ROADMAP A11).
+Tensor and sequence parallelism: where the layout's tp or sp axis
+exceeds 1 (`fsdp.model_parallel`), `loss_fn` and `forward` run the
+model-parallel forward (`_forward_hidden_mp`), with explicit collectives:
+Q/K/V and w_gate/w_up column-parallel over this rank's heads and MLP
+columns, wo and w_down row-parallel with an all-reduce over tp (the
+layout's `tp_copy` and `tp_sum`, Megatron's f and g), a vocab-parallel
+embedding (a masked lookup of the rank's rows, summed over tp) and a
+vocab-parallel LM head and cross-entropy (`_vocab_parallel_xent`). Each sp
+rank embeds its S/sp positions at their global offsets, and attention is a
+ring over sp (parallel/ring_attention.py), whose blocks run the flash
+kernels' LSE entry point; with sp 1 it is `attention` on the rank's heads.
+Route choice follows the JAX package on a model-parallel mesh: no t-layout
+path and no fused CE, RMSNorm, RoPE and the embedding in plain torch
+(where the reference falls back to XLA). MoE on such a mesh comes with
+expert parallelism (ROADMAP A11) and is refused.
+
+Not ported here: the pp and ep axes (ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -47,19 +62,22 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
-from ..ops.attention import (apply_rope, apply_rope_t, attention,
+from ..ops.attention import (_tables, apply_rope, apply_rope_t, attention,
                              rope_frequencies)
-from ..ops.embed import embed_tokens
+from ..ops.embed import embed_scale, embed_tokens
 from ..ops.flash_attention import flash_attention_t, flash_supported
 from ..ops.fused_ce import fused_ce_supported, fused_lm_head_xent
 from ..ops.layers import cross_entropy_loss, rms_norm, swiglu, swiglu_lean
 from ..ops.moe_dispatch import ragged_dispatch
 from ..ops.quant import as_compute, is_quantized
 from ..ops.relayout import from_t_layout, to_t_layout
-from ..ops.rope import rope_supported
+from ..ops.rms import rms_norm_plain
+from ..ops.rope import rope_rotate_plain, rope_supported
+from ..parallel.ring_attention import ring_attention
 
 Params = Dict[str, Any]
 
@@ -454,6 +472,130 @@ def _forward_hidden_aux(params: Params, tokens: torch.Tensor,
     return rms_norm(x, pick("final_ln")), aux
 
 
+# ---------------------------------------------------------------------------
+# Tensor- and sequence-parallel forward
+# ---------------------------------------------------------------------------
+
+
+def _refuse_moe(cfg: TransformerConfig, fsdp) -> None:
+    if cfg.is_moe:
+        raise ValueError(
+            f"MoE on a mesh with tp={fsdp.tp}, sp={fsdp.sp}: expert "
+            f"parallelism is not ported yet (ROADMAP A11)")
+
+
+def _embed_vocab_parallel(table: torch.Tensor, tokens: torch.Tensor,
+                          cfg: TransformerConfig, fsdp) -> torch.Tensor:
+    """The embedding from this tp rank's vocab rows (V/tp, D): each token's
+    scaled row where the rank holds it, zeros elsewhere, summed over tp
+    (`embed_tokens`' rounding: the row and sqrt(d_model) in cfg.dtype, the
+    product in f32, rounded once)."""
+    v_loc = table.shape[0]
+    ids = tokens.long() - fsdp.tp_rank * v_loc
+    mine = (ids >= 0) & (ids < v_loc)
+    rows = table[ids.clamp(0, v_loc - 1)].to(cfg.dtype)
+    x = (rows.float() * embed_scale(cfg.d_model, cfg.dtype)).to(cfg.dtype)
+    return fsdp.tp_sum(torch.where(mine[..., None], x, torch.zeros_like(x)))
+
+
+def _kv_heads_of_rank(cfg: TransformerConfig, fsdp, device) -> torch.Tensor:
+    """The KV head each of this tp rank's Q heads reads, where the KV
+    projections are replicated over tp (`fsdp.kv_replicated`)."""
+    h_loc = cfg.n_heads // fsdp.tp
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    first = fsdp.tp_rank * h_loc
+    return torch.arange(first, first + h_loc, device=device) // n_rep
+
+
+def _layer_mp(x: torch.Tensor, lp: Params, cfg: TransformerConfig,
+              freqs: torch.Tensor, position_offset: int, fsdp
+              ) -> torch.Tensor:
+    """One block on this rank's positions (B, S/sp, D) with its tp blocks
+    of the layer's weights (see the module note)."""
+    dt = cfg.dtype
+    bsz, slen, d = x.shape
+    hd = cfg.head_dim
+    h = fsdp.tp_copy(rms_norm_plain(x, lp["ln1"])).reshape(bsz * slen, d)
+
+    def project(w):
+        w = as_compute(w, dt)
+        return (h @ w.reshape(d, -1)).reshape(bsz, slen, -1, hd)
+    q, k, v = project(lp["wq"]), project(lp["wk"]), project(lp["wv"])
+    if fsdp.kv_replicated:
+        idx = _kv_heads_of_rank(cfg, fsdp, x.device)
+        k, v = k.index_select(2, idx), v.index_select(2, idx)
+    cos, sin = _tables(freqs, slen, position_offset)
+    q, k = rope_rotate_plain(q, cos, sin), rope_rotate_plain(k, cos, sin)
+    o = ring_attention(q, k, v, fsdp.sp_group if fsdp.sp > 1 else None,
+                       causal=True)
+    nh = q.shape[2]
+    x = x + fsdp.tp_sum((o.reshape(bsz * slen, nh * hd)
+                         @ as_compute(lp["wo"], dt).reshape(nh * hd, d)
+                         ).reshape(bsz, slen, d))
+    h3 = fsdp.tp_copy(rms_norm_plain(x, lp["ln2"]))
+    if cfg.remat_ffn and not cfg.remat and torch.is_grad_enabled():
+        y = checkpoint(_ffn, h3, lp["w_gate"], lp["w_up"], lp["w_down"], cfg,
+                       use_reentrant=False)
+    else:
+        y = _ffn(h3, lp["w_gate"], lp["w_up"], lp["w_down"], cfg)
+    return x + fsdp.tp_sum(y)
+
+
+def _forward_hidden_mp(params: Params, tokens: torch.Tensor,
+                       cfg: TransformerConfig, fsdp,
+                       position_offset: int = 0) -> torch.Tensor:
+    """This rank's positions of the final hidden (B, S/sp, D), after the
+    last norm, from its rows of tokens (B, S): the sp shard of the
+    positions, at global offsets position_offset + sp_rank * S/sp."""
+    _refuse_moe(cfg, fsdp)
+    tokens = fsdp.seq_shard(tokens)
+    offset = position_offset + fsdp.sp_rank * tokens.shape[1]
+    x = _embed_vocab_parallel(fsdp.leaf(params, "embed"), tokens, cfg, fsdp)
+    freqs = rope_frequencies(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
+                             x.device)
+    for layer in range(cfg.n_layers):
+        lp = fsdp.layer_params(params, layer)
+        if cfg.remat and torch.is_grad_enabled():
+            # Early stop off: the recomputation runs the whole layer, its
+            # collectives (ring shifts, tp sums) included, on every rank.
+            with set_checkpoint_early_stop(False):
+                x = checkpoint(_layer_mp, x, lp, cfg, freqs, offset, fsdp,
+                               use_reentrant=False)
+        else:
+            x = _layer_mp(x, lp, cfg, freqs, offset, fsdp)
+    return rms_norm_plain(x, fsdp.leaf(params, "final_ln"))
+
+
+def _vocab_parallel_logits(x: torch.Tensor, head: torch.Tensor,
+                           cfg: TransformerConfig, fsdp) -> torch.Tensor:
+    """(N, V/tp) f32 logits of this tp rank's vocab columns, from the
+    hidden (..., D) and its head block (D, V/tp)."""
+    h2 = fsdp.tp_copy(x).reshape(-1, x.shape[-1])
+    return (h2 @ as_compute(head, cfg.dtype)).float()
+
+
+def _vocab_parallel_xent(x: torch.Tensor, head: torch.Tensor,
+                         targets: torch.Tensor, cfg: TransformerConfig,
+                         fsdp) -> torch.Tensor:
+    """Mean token NLL with the vocab split over tp: the local logits' max
+    (a MAX all-reduce, no gradient) and sum of exponentials (summed over
+    tp) give the logsumexp, and the gold logit comes from the rank that
+    holds it (summed over tp)."""
+    logits = _vocab_parallel_logits(x, head, cfg, fsdp)
+    v_loc = logits.shape[1]
+    with torch.no_grad():
+        m = logits.amax(dim=1)
+        if fsdp.tp > 1:
+            dist.all_reduce(m, op=dist.ReduceOp.MAX, group=fsdp.tp_group)
+    sumexp = fsdp.tp_sum(torch.exp(logits - m[:, None]).sum(dim=1))
+    lse = m + torch.log(sumexp)
+    t = targets.reshape(-1).long() - fsdp.tp_rank * v_loc
+    mine = (t >= 0) & (t < v_loc)
+    gold = torch.gather(logits, 1, t.clamp(0, v_loc - 1)[:, None])[:, 0]
+    gold = fsdp.tp_sum(torch.where(mine, gold, torch.zeros_like(gold)))
+    return (lse - gold).mean()
+
+
 def forward_hidden(params: Params, tokens: torch.Tensor,
                    cfg: TransformerConfig,
                    position_offset: int = 0) -> torch.Tensor:
@@ -462,9 +604,16 @@ def forward_hidden(params: Params, tokens: torch.Tensor,
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
-            position_offset: int = 0) -> torch.Tensor:
+            position_offset: int = 0, fsdp=None) -> torch.Tensor:
     """tokens (B, S) -> logits (B, S, V) f32 (the head matmul runs in
-    cfg.dtype, then the cast)."""
+    cfg.dtype, then the cast). On a model-parallel layout (`fsdp` with tp
+    or sp above 1) `params` are this rank's blocks and `tokens` its rows:
+    the result is this rank's block (B, S/sp, V/tp) of positions and
+    vocab."""
+    if fsdp is not None and fsdp.model_parallel:
+        x = _forward_hidden_mp(params, tokens, cfg, fsdp, position_offset)
+        return _vocab_parallel_logits(x, output_head(params, cfg, fsdp), cfg,
+                                      fsdp).reshape(*x.shape[:2], -1)
     x = forward_hidden(params, tokens, cfg, position_offset)
     head = as_compute(output_head(params, cfg), cfg.dtype)
     return (x @ head).float()
@@ -477,8 +626,16 @@ def loss_fn(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
     total = nll + aux_weight * aux, aux the layers' summed MoE load-balance
     loss (0 for the dense model). Under `fsdp`, `params` are this rank's
     blocks and `tokens` its rows: nll is the mean over those rows, aux the
-    global batch's."""
+    global batch's. On a model-parallel layout nll is the mean over this
+    rank's rows and its sp shard of the positions, sliced after the
+    input/target shift."""
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    if fsdp is not None and fsdp.model_parallel:
+        x = _forward_hidden_mp(params, inputs, cfg, fsdp)
+        nll = _vocab_parallel_xent(x, output_head(params, cfg, fsdp),
+                                   fsdp.seq_shard(targets), cfg, fsdp)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return nll + aux_weight * aux, {"nll": nll, "aux": aux}
     if cfg.use_chunked_ce:
         from ..ops.chunked_ce import chunked_softmax_xent
         x, aux = _forward_hidden_aux(params, inputs, cfg, fsdp=fsdp)

@@ -22,7 +22,11 @@ in either dtype), and the wrapper zero-pads any other head_dim to the next
 multiple of 8 (zero columns change no score and no kept output; the scale
 stays the true D^-0.5) and slices the result back. `flash_attention_train`
 is differentiable: it expands GQA first, as the JAX kernels require, and
-its backward takes the same head dims the same way. `flash_attention_t` is the differentiable entry
+its backward takes the same head dims the same way. `flash_attention_lse`
+(MHA, offsets 0) returns the LSE beside the output and takes a cotangent
+of each, the LSE's folded into the backward's delta (the reference's
+`flash_attention_lse`, which ring attention's blocks run through,
+parallel/ring_attention.py). `flash_attention_t` is the differentiable entry
 on the kernels' flat (B*H, S, D) layout (the reference's
 `flash_attention_t`, training offsets 0), which the model's t-layout path
 feeds from `rope_rotate_t`; `flash_supported` is the reference's shape
@@ -267,22 +271,32 @@ def flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal=True, q_offset=0,
                                           ds.to(q.dtype))
 
 
+def _delta(o: torch.Tensor, do: torch.Tensor,
+           g_lse: Optional[torch.Tensor]) -> torch.Tensor:
+    """The backward's delta with an LSE cotangent folded in: ds = p (dp -
+    delta + g_lse), since dlse/ds = p (the reference's `delta - g_lse`)."""
+    delta = backward_delta(o, do)
+    return delta if g_lse is None else delta - g_lse.float()
+
+
 def flash_attention_backward_plain(q: torch.Tensor, k: torch.Tensor,
                                    v: torch.Tensor, o: torch.Tensor,
                                    lse: torch.Tensor, do: torch.Tensor,
                                    causal: bool = True, q_offset: int = 0,
-                                   kv_offset: int = 0
+                                   kv_offset: int = 0,
+                                   g_lse: Optional[torch.Tensor] = None
                                    ) -> Tuple[torch.Tensor, torch.Tensor,
                                               torch.Tensor]:
     """The backward kernels' function in plain torch, with their rounding
-    points: delta = rowsum(dO * O) in f32, p and ds as
+    points: delta = rowsum(dO * O) in f32 (minus `g_lse`, the LSE
+    output's cotangent (B, H, Sq), where one is given), p and ds as
     `flash_bwd_probs_plain` makes them, ds in q's dtype before the dQ and
     dK products, p cast to dO's dtype before the dV product, f32 sums.
     q/o/dO (B, Sq, H, D), k/v (B, Sk, H, D) (MHA), lse (B, H, Sq) f32.
     Returns (dq, dk, dv) in q's, k's, v's dtypes."""
     args = (causal, q_offset, kv_offset)
     dq, p_st, ds_st = flash_bwd_dq_plain(q, k, v, do, lse,
-                                         backward_delta(o, do), *args,
+                                         _delta(o, do, g_lse), *args,
                                          stash=True)
     dk, dv = flash_bwd_dkv_from_stash_plain(q, k, v, do, p_st, ds_st, *args)
     return dq, dk, dv
@@ -423,7 +437,7 @@ def flash_bwd_dkv_from_stash(q, k, v, do, p_stash, ds_stash, causal=True,
 
 
 def _flash_attention_backward_cuda(q, k, v, o, lse, do, causal, q_offset,
-                                   kv_offset):
+                                   kv_offset, g_lse):
     b, sq, sk, h, d = _check_bwd(q, k, v, do, lse, pad_ok=True)
     kernels.require(o, "flash_attention_bwd o", dtypes=(q.dtype,))
     if o.shape != q.shape or o.device != q.device:
@@ -431,7 +445,12 @@ def _flash_attention_backward_cuda(q, k, v, o, lse, do, causal, q_offset,
     if q.numel() == 0 or sk == 0:
         return (torch.zeros_like(q), torch.zeros_like(k),
                 torch.zeros_like(v))
-    delta = backward_delta(o, do)
+    if g_lse is not None and (g_lse.shape != lse.shape
+                              or g_lse.device != q.device):
+        raise ValueError(f"flash_attention_bwd g_lse must be "
+                         f"{tuple(lse.shape)} on q's device, got "
+                         f"{tuple(g_lse.shape)}")
+    delta = _delta(o, do, g_lse)
     args = (causal, q_offset, kv_offset)
     scale = d ** -0.5
     qp, kp, vp, dop = _pad_head_dim(q, k, v, do)
@@ -454,36 +473,43 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, o: torch.Tensor,
                              lse: torch.Tensor, do: torch.Tensor,
                              causal: bool = True, q_offset: int = 0,
-                             kv_offset: int = 0
+                             kv_offset: int = 0,
+                             g_lse: Optional[torch.Tensor] = None
                              ) -> Tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:
     """(dq, dk, dv) by the backward kernels (plain version for CPU
-    tensors); the arguments as for `flash_attention_backward_plain`."""
+    tensors); the arguments as for `flash_attention_backward_plain`.
+    `g_lse` enters the kernels only through delta, which they read."""
     if q.device.type == "cpu":
         return flash_attention_backward_plain(q, k, v, o, lse, do, causal,
-                                              int(q_offset), int(kv_offset))
+                                              int(q_offset), int(kv_offset),
+                                              g_lse)
     return _flash_attention_backward_cuda(q, k, v, o, lse, do, causal,
-                                          int(q_offset), int(kv_offset))
+                                          int(q_offset), int(kv_offset),
+                                          g_lse)
 
 
 class _FlashAttention(torch.autograd.Function):
     """The forward kernel with its LSE; residuals (q, k, v, o, lse), as the
-    JAX custom VJP keeps them."""
+    JAX custom VJP keeps them. With `with_lse` the LSE is an output too and
+    the backward takes both cotangents (`flash_attention_lse`), else the
+    output alone (`flash_attention_train`)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, q_offset, kv_offset):
+    def forward(ctx, q, k, v, causal, q_offset, kv_offset, with_lse):
         o, lse = flash_attention(q, k, v, causal, q_offset, kv_offset,
                                  return_lse=True)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.args = (causal, q_offset, kv_offset)
-        return o
+        return (o, lse) if with_lse else o
 
     @staticmethod
-    def backward(ctx, g):
+    def backward(ctx, g, g_lse=None):
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_backward(q, k, v, o, lse,
-                                              g.contiguous(), *ctx.args)
-        return dq, dk, dv, None, None, None
+                                              g.contiguous(), *ctx.args,
+                                              g_lse=g_lse)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention_train(q: torch.Tensor, k: torch.Tensor,
@@ -495,7 +521,20 @@ def flash_attention_train(q: torch.Tensor, k: torch.Tensor,
     copies' gradients back), as the JAX kernels require."""
     n_rep = q.shape[2] // k.shape[2]
     return _FlashAttention.apply(q, repeat_kv(k, n_rep), repeat_kv(v, n_rep),
-                                 causal, int(q_offset), int(kv_offset))
+                                 causal, int(q_offset), int(kv_offset), False)
+
+
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Differentiable flash attention that also returns the per-row
+    logsumexp: q (B, Sq, H, D), k/v (B, Sk, H, D) (MHA) at offsets 0 ->
+    (O (B, Sq, H, D) in q's dtype, LSE (B, H, Sq) f32), the reference's
+    `flash_attention_lse`, the statistic ring attention merges blocks by.
+    Fully masked rows report LSE_MASKED. The backward takes cotangents of
+    both outputs: the LSE's folds into delta (`flash_attention_backward`'s
+    `g_lse`)."""
+    return _FlashAttention.apply(q, k, v, causal, 0, 0, True)
 
 
 def flash_attention_t(qt: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor,

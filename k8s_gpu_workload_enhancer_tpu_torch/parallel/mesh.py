@@ -9,9 +9,15 @@ group).
 
 - ``dp``: data parallel and FSDP (params sharded over ``dp`` on their
   ``embed`` axis, parallel/sharding.py).
-- ``ep``, ``pp``, ``tp``, ``sp``: expert, pipeline, tensor and sequence
-  parallelism. Not ported yet (ROADMAP A11): `check_supported` refuses a
-  size above 1 on any of them.
+- ``tp``: tensor parallelism (Megatron: heads, the MLP hidden and the
+  vocab split over tp, models/transformer.py).
+- ``sp``: sequence parallelism (each rank a shard of the sequence,
+  attention a ring over sp: parallel/ring_attention.py).
+- ``ep``, ``pp``: expert and pipeline parallelism. Not ported yet (ROADMAP
+  A11): `check_supported` refuses a size above 1 on either.
+
+The per-axis process groups are the DeviceMesh's
+(`mesh.get_group("tp")`, ...).
 """
 
 from __future__ import annotations
@@ -32,8 +38,7 @@ PIPELINE_AXIS = "pp"
 EXPERT_AXIS = "ep"
 FSDP_AXIS = "dp"
 
-_UNPORTED = {"ep": "expert", "pp": "pipeline", "tp": "tensor",
-             "sp": "sequence"}
+_UNPORTED = {"ep": "expert", "pp": "pipeline"}
 
 
 @dataclass(frozen=True)
@@ -111,15 +116,15 @@ class UnportedAxisError(ValueError):
 
 
 def check_supported(config: MeshConfig) -> None:
-    """Raise UnportedAxisError unless only ``dp`` exceeds 1: the other
-    axes' parallelism is not ported yet, and a mesh that asks for it is
-    refused, never run as something else."""
+    """Raise UnportedAxisError if ``ep`` or ``pp`` exceeds 1: their
+    parallelism is not ported yet, and a mesh that asks for it is refused,
+    never run as something else."""
     for axis, kind in _UNPORTED.items():
         n = config.axis_sizes[axis]
         if n > 1:
             raise UnportedAxisError(
                 f"mesh axis {axis}={n}: {kind} parallelism is not ported "
-                f"yet (ROADMAP A11); the port shards over dp only "
+                f"yet (ROADMAP A11); the port shards over dp, tp and sp "
                 f"(mesh {config.describe()})")
 
 

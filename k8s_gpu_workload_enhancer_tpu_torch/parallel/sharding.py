@@ -10,16 +10,27 @@ dim d to that mesh axis, `Replicate()` elsewhere), the counterpart of the
 JAX `shard_params`. FSDP is the rule "embed" -> "dp": every weight's model
 dim is split over the dp ranks, the norm scales stay replicated.
 
-`Fsdp` carries that layout into the train step. A rank holds each
-sharded leaf's contiguous block of the dp axis (rank r holds block r, as
-`Shard` lays it out) as a plain tensor, and the step gathers a layer's
-leaves just before the layer uses them: `all_gather_into_tensor` on the
-layer's slice of the stacked (L, ...) leaf, inside an autograd function
-whose backward reduce-scatters the gradient (the mean over the ranks) back
-to the rank's block. The kernels thus see the gathered weights as plain
-contiguous tensors. Replicated leaves' gradients are all-reduced
-(`reduce_replicated_`). On the CPU the collectives run over gloo, on the
-card over NCCL.
+`Fsdp` carries that layout into the train step, on a mesh whose dp, tp
+and sp axes may each exceed 1. A rank holds each leaf's block as a plain
+tensor: its dp block of the `embed` dim (rank r holds block r, as `Shard`
+lays it out) and its tp block of the `heads`, `kv_heads`, `mlp` or `vocab`
+dim, so a leaf may be split on two dims, one for each axis; every leaf
+is replicated over sp, and the norm scales over dp and tp. The step gathers
+a layer's leaves over dp just before the layer uses them (inside the
+rank's tp block): `all_gather_into_tensor` on the layer's slice of the
+stacked (L, ...) leaf, inside an autograd function whose backward
+reduce-scatters the gradient (the mean over dp) back to the rank's block.
+The kernels thus see the gathered weights as plain contiguous tensors.
+After the backward, `reduce_grads_` finishes the gradients in one fixed
+order: the dp-replicated leaves' gradients are averaged over dp, every
+gradient over sp (each sp rank's holds its tokens' part), and where the
+KV heads do not divide over tp (`kv_replicated`: the KV projections are
+replicated over tp and each rank uses the heads its Q heads need) those
+leaves' gradients are summed over tp. The forward's tensor-parallel
+collectives are `tp_copy` (identity, its backward an all-reduce over tp)
+before a column-parallel product and `tp_sum` (an all-reduce over tp, its
+backward the identity) after a row-parallel one, Megatron's f and g. On
+the CPU the collectives run over gloo, on the card over NCCL.
 """
 
 from __future__ import annotations
@@ -29,7 +40,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.distributed as dist
 
-from .mesh import FSDP_AXIS
+from .mesh import FSDP_AXIS, SEQ_AXIS, TENSOR_AXIS
 
 LogicalAxes = Tuple[Optional[str], ...]
 
@@ -106,9 +117,24 @@ def _reduce_scatter_into(out: torch.Tensor, inp: torch.Tensor, group) -> None:
     fn(out, inp, op=dist.ReduceOp.SUM, group=group)
 
 
+def all_gather(shard: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
+    """The full tensor from the `n` ranks' blocks of `dim` (contiguous)."""
+    shard = shard.contiguous()
+    shape = list(shard.shape)
+    # The ranks' blocks concatenated on dim 0 (the form every backend
+    # takes), then moved into place.
+    out = shard.new_empty([n * shape[0]] + shape[1:])
+    _all_gather_into(out, shard, group)
+    full = list(shape)
+    full[dim] *= n
+    if dim == 0:
+        return out
+    return out.view([n] + shape).movedim(0, dim).reshape(full)
+
+
 class _GatherShard(torch.autograd.Function):
-    """Forward: all-gather the ranks' blocks of dim `dim`. Backward:
-    reduce-scatter the gradient, the mean over the ranks."""
+    """Forward: all-gather the dp ranks' blocks of dim `dim`. Backward:
+    reduce-scatter the gradient, the mean over the dp ranks."""
 
     @staticmethod
     def forward(ctx, shard: torch.Tensor, dim: int, fsdp: "Fsdp"):
@@ -120,56 +146,101 @@ class _GatherShard(torch.autograd.Function):
         return ctx.fsdp.reduce_scatter_mean(grad, ctx.dim), None, None
 
 
+class _TpCopy(torch.autograd.Function):
+    """Megatron's f: the input as it is; the gradient all-reduced over tp."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _TpSum(torch.autograd.Function):
+    """Megatron's g: the sum over tp of the ranks' partial results; the
+    gradient as it is (every tp rank computes the same function after)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group):
+        x = x.contiguous().clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return g, None
+
+
+def _axis(mesh, name: str):
+    """(group, size, this rank's coordinate) of a mesh axis."""
+    return (mesh.get_group(name), mesh[name].size(),
+            mesh.get_local_rank(name))
+
+
 class Fsdp:
-    """The FSDP layout of one model's param tree on a DeviceMesh whose only
-    axis above size 1 is dp (see the module note). `dims` holds each leaf's
-    sharded dim (None: replicated)."""
+    """The layout of one model's param tree on a DeviceMesh whose live axes
+    are dp, tp and sp (see the module note). `dims` holds each leaf's dim
+    sharded over dp, `tp_dims` its dim sharded over tp (None:
+    replicated)."""
 
     def __init__(self, model_cfg, mesh):
         from ..models import transformer as tf
         self.mesh = mesh
-        self.group = mesh.get_group(FSDP_AXIS)
-        self.world = mesh[FSDP_AXIS].size()
-        self.rank = mesh.get_local_rank(FSDP_AXIS)
-        dp = mesh.mesh_dim_names.index(FSDP_AXIS)
+        self.group, self.world, self.rank = _axis(mesh, FSDP_AXIS)
+        self.tp_group, self.tp, self.tp_rank = _axis(mesh, TENSOR_AXIS)
+        self.sp_group, self.sp, self.sp_rank = _axis(mesh, SEQ_AXIS)
+        # KV heads the tp ranks cannot split evenly: the KV projections are
+        # replicated over tp (GSPMD would pad them; the function is the
+        # same).
+        self.kv_replicated = (self.tp > 1
+                              and model_cfg.n_kv_heads % self.tp != 0)
+        names = mesh.mesh_dim_names
+        placements = param_placements(model_cfg, names)
+        shapes = tf.param_shapes(model_cfg)
 
-        def sharded_dim(placements, shape):
-            p = placements[dp]
-            if not p.is_shard():
-                return None
-            if shape[p.dim] % self.world:
-                raise ValueError(
-                    f"a leaf of shape {tuple(shape)} cannot be sharded over "
-                    f"dp={self.world}: its dim {p.dim} (size "
-                    f"{shape[p.dim]}) is not a multiple of {self.world}")
-            return p.dim
-        self.dims = _map(sharded_dim,
-                         param_placements(model_cfg, mesh.mesh_dim_names),
-                         tf.param_shapes(model_cfg))
+        def sharded_dim(axis, size):
+            index = names.index(axis)
+
+            def one(path, p, shape):
+                p = p[index]
+                if not p.is_shard() or (
+                        axis == TENSOR_AXIS and self.kv_replicated
+                        and path in ("wk", "wv")):
+                    return None
+                if shape[p.dim] % size:
+                    raise ValueError(
+                        f"a leaf of shape {tuple(shape)} cannot be sharded "
+                        f"over {axis}={size}: its dim {p.dim} (size "
+                        f"{shape[p.dim]}) is not a multiple of {size}")
+                return p.dim
+            return _map_named(one, placements, shapes)
+        self.dims = sharded_dim(FSDP_AXIS, self.world)
+        self.tp_dims = sharded_dim(TENSOR_AXIS, self.tp)
 
     @property
     def is_primary(self) -> bool:
         return dist.get_rank() == 0
 
+    @property
+    def model_parallel(self) -> bool:
+        """tp or sp above 1: the model's tensor- and sequence-parallel
+        forward (models/transformer.py) runs."""
+        return self.tp > 1 or self.sp > 1
+
     # -- collectives --
 
     def all_gather(self, shard: torch.Tensor, dim: int) -> torch.Tensor:
-        """The full tensor from every rank's block of `dim` (contiguous)."""
-        shard = shard.contiguous()
-        shape = list(shard.shape)
-        # The ranks' blocks concatenated on dim 0 (the form every backend
-        # takes), then moved into place.
-        out = shard.new_empty([self.world * shape[0]] + shape[1:])
-        _all_gather_into(out, shard, self.group)
-        full = list(shape)
-        full[dim] *= self.world
-        if dim == 0:
-            return out
-        return out.view([self.world] + shape).movedim(0, dim).reshape(full)
+        """The full tensor from every dp rank's block of `dim`."""
+        return all_gather(shard, dim, self.group, self.world)
 
     def reduce_scatter_mean(self, full: torch.Tensor, dim: int
                             ) -> torch.Tensor:
-        """This rank's block of `dim` of the mean of `full` over ranks."""
+        """This rank's block of `dim` of the mean of `full` over dp."""
         shape = list(full.shape)
         local = shape[:dim] + [shape[dim] // self.world] + shape[dim + 1:]
         blocks = full.reshape(shape[:dim] + [self.world] + local[dim:])
@@ -185,36 +256,59 @@ class Fsdp:
         return t
 
     def mean(self, t: torch.Tensor) -> torch.Tensor:
-        """The mean over the ranks of a tensor (a new tensor, no grad)."""
-        return self.all_reduce_(t.detach().clone()).div_(self.world)
+        """The mean over the dp and sp ranks of a tensor (a new tensor, no
+        grad): with equal token counts a rank, the global batch's mean of
+        a per-rank mean."""
+        t = self.all_reduce_(t.detach().clone())
+        if self.sp > 1:
+            dist.all_reduce(t, group=self.sp_group)
+        return t.div_(self.world * self.sp)
+
+    def tp_copy(self, x: torch.Tensor) -> torch.Tensor:
+        """`x` into a column-parallel product (Megatron's f)."""
+        return x if self.tp == 1 else _TpCopy.apply(x, self.tp_group)
+
+    def tp_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """The tp ranks' partial results summed (Megatron's g)."""
+        return x if self.tp == 1 else _TpSum.apply(x, self.tp_group)
 
     # -- the param tree --
 
-    def shard(self, full: torch.Tensor, dim: Optional[int]) -> torch.Tensor:
-        """This rank's block of `full` (`full` itself when replicated or
-        when the rank holds all of it)."""
-        if dim is None or self.world == 1:
-            return full
-        k = full.shape[dim] // self.world
-        return full.narrow(dim, self.rank * k, k).clone()
+    def shard(self, full: torch.Tensor, dim: Optional[int],
+              tp_dim: Optional[int] = None) -> torch.Tensor:
+        """This rank's block of `full`: its tp block of `tp_dim`, then its
+        dp block of `dim` (`full` itself where it holds all of it)."""
+        out = full
+        for d, n, r in ((tp_dim, self.tp, self.tp_rank),
+                        (dim, self.world, self.rank)):
+            if d is not None and n > 1:
+                k = out.shape[d] // n
+                out = out.narrow(d, r * k, k)
+        return out if out is full else out.clone()
 
     def shard_tree(self, tree):
-        return _map(lambda t, d: self.shard(t, d), tree, self.dims)
+        return _map(self.shard, tree, self.dims, self.tp_dims)
 
     def full_tree(self, tree, to=None):
         """The full tensors of a sharded tree (no grad), each passed through
-        `to` (e.g. a host copy) as soon as it is gathered."""
+        `to` (e.g. a host copy) as soon as it is gathered (a collective:
+        every rank calls it)."""
         to = to or (lambda t: t)
 
-        def one(t, d):
+        def one(t, d, td):
             t = t.detach()
-            return to(t if d is None else self.all_gather(t, d))
+            if d is not None:
+                t = self.all_gather(t, d)
+            if td is not None and self.tp > 1:
+                t = all_gather(t, td, self.tp_group, self.tp)
+            return to(t)
         with torch.no_grad():
-            return _map(one, tree, self.dims)
+            return _map(one, tree, self.dims, self.tp_dims)
 
     def gather(self, shard: torch.Tensor, dim: Optional[int]) -> torch.Tensor:
-        """The full leaf for use in the forward; its gradient comes back
-        reduce-scattered. A replicated leaf is returned as it is."""
+        """The leaf's tp block, whole over dp, for use in the forward; its
+        gradient comes back reduce-scattered. A dp-replicated leaf is
+        returned as it is."""
         if dim is None:
             return shard
         return _GatherShard.apply(shard, dim, self)
@@ -231,35 +325,43 @@ class Fsdp:
                                else dims[k] - 1)
                 for k, v in params["layers"].items()}
 
-    def reduce_replicated_(self, grads: Dict[str, Any]) -> None:
-        """All-reduce (mean) the gradients of the replicated leaves in
-        place, in one collective."""
-        reps = [g for g, d in zip(_leaves(grads), _leaves(self.dims))
-                if d is None]
-        if not reps:
-            return
-        flat = torch.cat([g.reshape(-1).float() for g in reps])
-        self.all_reduce_(flat).div_(self.world)
-        for g, part in zip(reps, flat.split([g.numel() for g in reps])):
-            g.copy_(part.view_as(g))
+    def reduce_grads_(self, grads: Dict[str, Any]) -> None:
+        """Finish the gradients in place after the backward, in one fixed
+        order: the dp-replicated leaves' averaged over dp; every leaf's
+        averaged over sp; the tp-replicated KV projections' summed over
+        tp. Each is one collective over a flat f32 buffer."""
+        leaves = _zip_leaves(grads, self.dims)
+        _reduce_flat([g for g, d in leaves if d is None], self.group,
+                     self.world)
+        if self.sp > 1:
+            _reduce_flat([g for g, _ in leaves], self.sp_group, self.sp)
+        if self.kv_replicated:
+            layers = grads["layers"]
+            _reduce_flat([layers["wk"], layers["wv"]], self.tp_group, 1)
 
     def sum_squares(self, grads: Dict[str, Any]) -> torch.Tensor:
         """The sum of squares of every element of the full gradient tree,
-        f32: the sharded leaves' blocks summed over the ranks, the
-        replicated leaves once."""
-        sharded, replicated = [], []
-        for g, d in zip(_leaves(grads), _leaves(self.dims)):
-            (replicated if d is None else sharded).append(
-                torch.sum(g.float() * g.float()))
-        total = self.all_reduce_(torch.stack(sharded).sum())
-        return total + torch.stack(replicated).sum() if replicated else total
+        f32: each leaf's blocks summed over the ranks that hold different
+        blocks of it (dp where it is sharded over dp, tp where over tp),
+        each block counted once."""
+        owned = []
+        for g, d, td in _zip_leaves(grads, self.dims, self.tp_dims):
+            mine = ((d is not None or self.rank == 0)
+                    and (td is not None or self.tp_rank == 0))
+            sq = torch.sum(g.float() * g.float())
+            owned.append(sq if mine else torch.zeros_like(sq))
+        total = self.all_reduce_(torch.stack(owned).sum())
+        if self.tp > 1:
+            dist.all_reduce(total, group=self.tp_group)
+        return total
 
     def rank_rows(self, tokens: torch.Tensor, grad_accum: int = 1
                   ) -> torch.Tensor:
         """This rank's rows of a global token batch, as the JAX batch
         sharding over ("dp", "ep") gives them to its device: the
         contiguous block of B/dp rows of (B, S+1), or that block of every
-        microbatch of (grad_accum, B/grad_accum, S+1)."""
+        microbatch of (grad_accum, B/grad_accum, S+1). Ranks that differ
+        only in tp or sp read the same rows."""
         axis = 0 if grad_accum == 1 else 1
         n = tokens.shape[axis]
         if n % self.world:
@@ -267,6 +369,17 @@ class Fsdp:
                              f"dp={self.world}")
         k = n // self.world
         return tokens.narrow(axis, self.rank * k, k)
+
+    def seq_shard(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's sp shard of the positions (dim 1) of `t`."""
+        if self.sp == 1:
+            return t
+        s = t.shape[1]
+        if s % self.sp:
+            raise ValueError(f"sequence {s} cannot be split over "
+                             f"sp={self.sp}")
+        k = s // self.sp
+        return t.narrow(1, self.sp_rank * k, k)
 
     def global_means(self, frac_tokens: torch.Tensor,
                      frac_probs: torch.Tensor
@@ -281,7 +394,31 @@ class Fsdp:
         return g_tokens, frac_probs + (g_probs - frac_probs.detach())
 
 
-def _leaves(tree):
+def _reduce_flat(grads, group, divisor: int) -> None:
+    """All-reduce `grads` (summed, then divided by `divisor`) in place, as
+    one flat f32 collective."""
+    if not grads:
+        return
+    flat = torch.cat([g.reshape(-1).float() for g in grads])
+    dist.all_reduce(flat, group=group)
+    if divisor != 1:
+        flat.div_(divisor)
+    for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(part.view_as(g))
+
+
+def _map_named(fn, tree, *rest, name: str = ""):
+    """`_map` whose `fn` also takes the leaf's key."""
     if isinstance(tree, dict):
-        return [leaf for v in tree.values() for leaf in _leaves(v)]
-    return [tree]
+        return {k: _map_named(fn, v, *(r[k] for r in rest), name=k)
+                for k, v in tree.items()}
+    return fn(name, tree, *rest)
+
+
+def _zip_leaves(tree, *rest) -> list:
+    """(leaf, the other trees' leaves at its key...) for every leaf of
+    `tree`, in its order (the trees may order their keys differently)."""
+    if isinstance(tree, dict):
+        return [t for k, v in tree.items()
+                for t in _zip_leaves(v, *(r[k] for r in rest))]
+    return [(tree, *rest)]

@@ -16,7 +16,11 @@ PROCESS_ID, world size NUM_PROCESSES, backend "nccl" on the card and
 hanging it. One process is one rank on one device,
 `cuda:{LOCAL_RANK or 0}` (the JAX package runs one process a host over
 all of its chips). The mesh is then a DeviceMesh of NUM_PROCESSES devices
-(parallel/mesh.py), only its dp axis above 1. At NUM_PROCESSES 1 the
+(parallel/mesh.py) whose dp, tp and sp axes may exceed 1, from
+KTWE_MESH_AXES ("dp=2,tp=2,sp=2") or KTWE_STRATEGY (FSDP, TensorParallel,
+SequenceParallel, Hybrid, ...), as the JAX bootstrap reads them
+(`mesh_config`); ep or pp above 1 is refused (ROADMAP A11). At
+NUM_PROCESSES 1 the
 context is the single-process one, COORDINATOR_ADDRESS or not (as the JAX
 bootstrap starts no distributed runtime for one process): no process
 group, no mesh, one device, and the trainer's single-device step.
@@ -78,21 +82,16 @@ def _init_method(coordinator: str) -> str:
     return coordinator if "://" in coordinator else f"tcp://{coordinator}"
 
 
-def initialize(env: Optional[Dict[str, str]] = None, device="cuda",
-               group_of_one: bool = False) -> BootstrapContext:
-    """The gang's context from `env` (default: os.environ) on `device`
-    ("cuda", raising without a card, or "cpu"); see the module note."""
+def mesh_config(env: Optional[Dict[str, str]] = None,
+                group_of_one: bool = False) -> mesh_lib.MeshConfig:
+    """The mesh the gang env asks for (KTWE_MESH_AXES, else KTWE_STRATEGY
+    over NUM_PROCESSES devices; one device off a gang), checked against
+    the device count but not yet against what the port supports."""
     env = dict(os.environ if env is None else env)
-    coordinator = env.get("COORDINATOR_ADDRESS", "")
     num_processes = int(env.get("NUM_PROCESSES", "1"))
-    process_id = int(env.get("PROCESS_ID", "0"))
     strategy = env.get("KTWE_STRATEGY", "FSDP")
     axes_env = env.get("KTWE_MESH_AXES", "")
-    dev = resolve_device(device)
-    if dev.type == "cuda":
-        dev = torch.device("cuda", int(env.get("LOCAL_RANK", "0")))
-    gang = num_processes > 1 or group_of_one
-    n_dev = num_processes if gang else 1
+    n_dev = num_processes if (num_processes > 1 or group_of_one) else 1
     if axes_env:
         sizes = parse_mesh_axes(axes_env)
         cfg = mesh_lib.MeshConfig(**{a: sizes.get(a, 1)
@@ -103,6 +102,23 @@ def initialize(env: Optional[Dict[str, str]] = None, device="cuda",
                 f"devices; runtime has {n_dev}")
     else:
         cfg = mesh_lib.strategy_to_mesh_config(strategy, n_dev)
+    return cfg
+
+
+def initialize(env: Optional[Dict[str, str]] = None, device="cuda",
+               group_of_one: bool = False) -> BootstrapContext:
+    """The gang's context from `env` (default: os.environ) on `device`
+    ("cuda", raising without a card, or "cpu"); see the module note."""
+    env = dict(os.environ if env is None else env)
+    coordinator = env.get("COORDINATOR_ADDRESS", "")
+    num_processes = int(env.get("NUM_PROCESSES", "1"))
+    process_id = int(env.get("PROCESS_ID", "0"))
+    strategy = env.get("KTWE_STRATEGY", "FSDP")
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", int(env.get("LOCAL_RANK", "0")))
+    gang = num_processes > 1 or group_of_one
+    cfg = mesh_config(env, group_of_one)
     mesh_lib.check_supported(cfg)
     mesh = None
     if gang:

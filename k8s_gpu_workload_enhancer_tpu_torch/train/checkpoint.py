@@ -23,12 +23,13 @@ leaf and makes the params leaves require grad again, as `init_state`
 does. `load_params` is the serving load: the file memory-mapped, only
 "params" kept, on the host; the Adam moments never reach the card.
 
-Under FSDP (a TrainState with `fsdp`, train/trainer.py) `save` gathers
-the full tensors leaf by leaf on every rank (a collective: every rank
-calls it) and only the primary writes, in the same format; `restore`
-loads the full tensors on every rank and keeps this rank's blocks. A
-checkpoint written by a gang of any size thus resumes on any other, and
-on one device. `write_drain_marker` is the primary's alone (the trainer
+On a mesh (a TrainState with `fsdp`, train/trainer.py) `save` gathers
+the full tensors leaf by leaf over dp and tp on every rank (a collective:
+every rank calls it) and only the primary writes, in the same format;
+`restore` loads the full tensors on every rank and keeps this rank's
+blocks of whatever (dp, tp, sp) mesh the target lays out. A checkpoint
+written by a gang of any size and shape thus resumes on any other, and on
+one device. `write_drain_marker` is the primary's alone (the trainer
 main calls it on the primary only).
 
 The drain-marker helpers are the JAX package's, byte for byte: the
@@ -111,8 +112,8 @@ def _snapshot(state: TrainState) -> Dict[str, Any]:
 
 def _place_like(got, want, path: str = "", fsdp=None, dims=None):
     """`got` with `want`'s structure, each leaf on the device and dtype of
-    `want`'s leaf (under `fsdp`, this rank's block of it, `dims` the
-    sharded dims); ValueError on a tree or shape mismatch."""
+    `want`'s leaf (under `fsdp`, this rank's block of it, `dims` a tree of
+    the (dp, tp) sharded dims); ValueError on a tree or shape mismatch."""
     if isinstance(want, dict):
         if not isinstance(got, dict) or set(got) != set(want):
             raise ValueError(
@@ -123,7 +124,7 @@ def _place_like(got, want, path: str = "", fsdp=None, dims=None):
                                None if dims is None else dims[k])
                 for k in want}
     if fsdp is not None and isinstance(got, torch.Tensor):
-        got = fsdp.shard(got, dims)
+        got = fsdp.shard(got, *dims)
     if not isinstance(got, torch.Tensor) or got.shape != want.shape:
         raise ValueError(
             f"checkpoint leaf {path} has shape "
@@ -220,7 +221,8 @@ class CheckpointManager:
                           weights_only=True, mmap=True)
         opt = data["opt_state"]
         fsdp = target.fsdp
-        dims = None if fsdp is None else fsdp.dims
+        dims = None if fsdp is None else tree_map(
+            lambda d, td: (d, td), fsdp.dims, fsdp.tp_dims)
 
         def place(got, want, path):
             return _place_like(got, want, path, fsdp, dims)

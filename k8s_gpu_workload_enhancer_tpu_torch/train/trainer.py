@@ -1,20 +1,24 @@
-"""Trainer of KTWE-LM: one device, or FSDP over the dp axis of a mesh.
+"""Trainer of KTWE-LM: one device, or a mesh of dp (FSDP), tp and sp.
 
 Port of k8s_gpu_workload_enhancer_tpu/train/trainer.py. `init_state` and
 `train_loop` take the mesh, as the JAX ones do; without one (None) they
-train on one device. On a mesh (parallel/mesh.py: one rank a device, only
-dp above 1) `init_state` shards the state as the JAX package's rules shard
-it and keeps the layout in `TrainState.fsdp` (parallel/sharding.Fsdp):
-each leaf with an `embed` axis, and its f32 Adam moments, hold 1/dp of
-that axis on each rank, the norm scales are replicated. The step reads
-that layout from the state it is given. It takes this rank's rows of the
-global batch (`Fsdp.rank_rows`; `synthetic_batches` yields them), gathers
-each layer's leaves before use and reduce-scatters their gradients (the
-mean over the ranks; replicated leaves' gradients are all-reduced), once
-a microbatch, so the bf16 accumulator sums the global microbatch
-gradients as the JAX step does. The global norm sums squares over every
-shard; AdamW runs on the local blocks; loss, nll and aux are averaged
-over the ranks. The optimizer is the JAX package's optax chain written out in torch: clip_by_global_norm
+train on one device. On a mesh (parallel/mesh.py: one rank a device; dp,
+tp and sp may exceed 1) `init_state` shards the state as the JAX
+package's rules shard it and keeps the layout in `TrainState.fsdp`
+(parallel/sharding.Fsdp): each leaf with an `embed` axis, and its f32
+Adam moments, hold 1/dp of that axis on each rank, the heads, MLP and
+vocab axes 1/tp, the norm scales are replicated. The step reads that
+layout from the state it is given. It takes this rank's rows of the
+global batch (`Fsdp.rank_rows`, by the dp coordinate; `synthetic_batches`
+yields them; on an sp mesh the model takes the rank's shard of the
+positions after the input/target shift), gathers each layer's leaves
+over dp before use and reduce-scatters their gradients, then finishes
+them over dp, sp and tp (`Fsdp.reduce_grads_`), once a microbatch, so
+the bf16 accumulator sums the global microbatch gradients as the JAX step
+does. The global norm counts every block of the mesh once; AdamW runs on
+the local blocks; loss, nll and aux are the means over every token of the
+global batch (averaged over the dp and sp ranks). The optimizer is the
+JAX package's optax chain written out in torch: clip_by_global_norm
 (grad_clip), then AdamW (b1 0.9, b2 0.95, eps 1e-8, weight decay on every
 leaf) scaled by a linear-warmup cosine schedule evaluated at the update's
 pre-increment count, with decay_steps = max(total_steps, warmup_steps + 1).
@@ -105,7 +109,7 @@ def _map_with_name(fn: Callable, tree, name: str = ""):
 
 def global_norm(tree, fsdp: Optional[Fsdp] = None) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in f32; under `fsdp` of
-    the full tree (the blocks' squares summed over the ranks)."""
+    the full tree (each block's squares once, summed over the mesh)."""
     if fsdp is not None:
         return torch.sqrt(fsdp.sum_squares(tree))
     return torch.sqrt(sum(torch.sum(g.float() * g.float())
@@ -221,7 +225,7 @@ def make_train_step(model_cfg: tf.TransformerConfig, train_cfg: TrainConfig
         total, parts = tf.loss_fn(params, toks, model_cfg, fsdp=fsdp)
         grads = _grad(total, params)
         if fsdp is not None:
-            fsdp.reduce_replicated_(grads)
+            fsdp.reduce_grads_(grads)
         return total, parts, grads
 
     def step_fn(state: TrainState, tokens: torch.Tensor

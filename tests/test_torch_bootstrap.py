@@ -3,9 +3,10 @@ JAX package's (train/bootstrap.py, parallel/mesh.py, parallel/sharding.py).
 
 `parse_mesh_axes`, `auto_mesh_config` for 1..32 devices (with and without
 pp and ep) and `strategy_to_mesh_config` for every strategy give the JAX
-answers; the size-mismatch error is the JAX message; a live ep, pp, tp or
-sp axis is refused naming ROADMAP A11 (by the bootstrap, by `make_mesh`
-and by the trainer main, exit 2); the single-process context, also at
+answers; the size-mismatch error is the JAX message; a live ep or pp
+axis is refused naming ROADMAP A11 (by the bootstrap, by `make_mesh` and
+by the trainer main, exit 2), and on a live tp or sp axis the MoE model
+(the trainer main, exit 2); the single-process context, also at
 NUM_PROCESSES 1 with a coordinator, has no process group, and
 `group_of_one` joins a gloo group of one (the only group a test here
 starts, closed before it ends); `param_logical_axes`, `DEFAULT_RULES` and
@@ -125,6 +126,15 @@ def test_mesh_axes_size_mismatch_raises_the_jax_message():
 def test_a_live_model_parallel_axis_is_refused_naming_a11(axis, capsys):
     env = {"KTWE_MESH_AXES": f"dp=1,{axis}=2", "NUM_PROCESSES": "2",
            "PROCESS_ID": "0", "COORDINATOR_ADDRESS": "localhost:1"}
+    if axis in ("tp", "sp"):
+        # Ported: the mesh passes; what its axis still refuses is MoE,
+        # which needs expert parallelism (before the gang is joined).
+        tmesh.check_supported(tmesh.MeshConfig(**{axis: 2}))
+        assert cli.main(["--device", "cpu", "--steps", "1",
+                         "--n-experts", "4"], env=env) == cli.EXIT_REFUSED
+        assert "ROADMAP A11" in capsys.readouterr().err
+        assert not dist.is_initialized()
+        return
     with pytest.raises(tmesh.UnportedAxisError,
                        match=f"{axis}=2.*ROADMAP A11"):
         tboot.initialize(env, device="cpu")
@@ -191,14 +201,17 @@ def test_fsdp_layout_refuses_a_model_dim_the_ranks_do_not_divide():
     class Mesh:            # a dp=4 mesh, as far as the layout asks
         mesh_dim_names = tmesh.AXES
 
+        def __init__(self, n=4):
+            self.n = n
+
         def get_group(self, axis):
             return None
 
         def __getitem__(self, axis):
-            return self
+            return Mesh(4 if axis == "dp" else 1)
 
         def size(self):
-            return 4
+            return self.n
 
         def get_local_rank(self, axis):
             return 0

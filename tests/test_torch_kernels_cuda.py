@@ -566,6 +566,86 @@ def test_flash_train_on_the_card_matches_plain_with_gqa(dev):
         torch.testing.assert_close(a.cpu(), w, atol=1e-4, rtol=1e-4, msg=name)
 
 
+@pytest.mark.parametrize("dtype,shape", [
+    (torch.float32, (1, 256, 2, 128)), (torch.bfloat16, (2, 512, 4, 128)),
+    (torch.bfloat16, (1, 256, 2, 512))])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_lse_matches_plain(dev, dtype, shape, causal):
+    """The LSE entry point's O and LSE, and its backward for cotangents of
+    both outputs (the LSE's folded into delta), against the plain
+    versions on the kernels' own O and LSE."""
+    q, k, v, do = (_randn(dev, *shape, dtype=dtype, seed=30 + i)
+                   for i in range(4))
+    b, s, h, _ = shape
+    g_lse = _randn(dev, b, h, s, seed=34)
+    kernels.reset_launches()
+    o, lse = flash.flash_attention_lse(q, k, v, causal)
+    assert kernels.launches["flash_attention"] == 1
+    want_o, want_lse = flash.flash_attention_plain(q, k, v, causal,
+                                                   return_lse=True)
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(o, want_o, atol=atol, rtol=rtol)
+    torch.testing.assert_close(lse, want_lse, atol=2e-4, rtol=0)
+    got = flash.flash_attention_backward(q, k, v, o, lse, do, causal,
+                                         g_lse=g_lse)
+    want = flash.flash_attention_backward_plain(q, k, v, o, lse, do, causal,
+                                                g_lse=g_lse)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        _assert_bwd_close(g, w, msg=name)
+
+
+@pytest.mark.parametrize("d,dtype", [(128, torch.bfloat16),
+                                     (512, torch.bfloat16),
+                                     (128, torch.float32)])
+def test_ring_blocks_on_the_card_match_the_plain_schedule(dev, d, dtype):
+    """The ring's per-step block function through `flash_attention_lse` for
+    4 virtual ranks (the shift replaced by indexing), outputs and
+    gradients, against the same schedule's plain f32 block updates on the
+    same shards."""
+    from k8s_gpu_workload_enhancer_tpu_torch.parallel import (
+        ring_attention as ring)
+    sp, s = 4, 256
+    full = [_randn(dev, 1, sp * s, 2, d, dtype=dtype, seed=40 + i)
+            for i in range(4)]
+
+    def run(flash_route):
+        shards = [[t[:, r * s:(r + 1) * s].contiguous().requires_grad_(True)
+                   for r in range(sp)] for t in full[:3]]
+        outs = []
+        for r in range(sp):
+            part = ring.init_partials(shards[0][r])
+            for step in range(sp):
+                src = (r - step) % sp
+                part = ring.ring_step(shards[0][r], shards[1][src],
+                                      shards[2][src], part, r, src, True,
+                                      flash_route)
+            outs.append(ring.finish(part, dtype))
+        o = torch.cat(outs, dim=1)
+        leaves = [t for group in shards for t in group]
+        grads = torch.autograd.grad((o.float() * full[3].float()).sum(),
+                                    leaves)
+        return o, [torch.cat(grads[i * sp:(i + 1) * sp], dim=1)
+                   for i in range(3)]
+    kernels.reset_launches()
+    got_o, got_g = run(True)
+    assert kernels.launches["flash_attention"] == sp * (sp + 1) // 2
+    assert kernels.launches["flash_attention_bwd_dq"] == sp * (sp + 1) // 2
+    want_o, want_g = run(False)
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(got_o, want_o, atol=atol, rtol=rtol)
+    for name, g, w in zip(("dq", "dk", "dv"), got_g, want_g):
+        if dtype == torch.float32:
+            _assert_bwd_close(g, w, msg=name)
+            continue
+        # bf16: each block's output and gradients are rounded to bf16
+        # before the merge and autograd's sums, a few ulps of the largest
+        # term where terms cancel (chip_smoke.py's RING_RTOL and
+        # RING_ATOL_OF_MAX).
+        top = float(w.abs().max())
+        torch.testing.assert_close(g, w, atol=2.0 ** -6 * top,
+                                   rtol=2.0 ** -6, msg=name)
+
+
 def test_train_step_on_the_card_matches_the_cpu(dev):
     """Loss and every gradient leaf of a small f32 model: the kernels on
     the card against the plain versions on the CPU, same weights."""

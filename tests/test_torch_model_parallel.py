@@ -1,0 +1,445 @@
+"""Tensor- and sequence-parallel training on the port, held on the CPU to the
+JAX package on the same meshes (models/transformer.py's model-parallel
+forward, parallel/sharding.py's layout, train/trainer.py, the checkpoint
+and the trainer main).
+
+One gloo gang of eight ranks (tests/torch_gang.py) runs four meshes in
+turn, each its own process group, on the same numpy weights and batches
+as the JAX side (f32, `params_from_numpy`):
+
+- dp=2, tp=2, sp=2: the forward's logits against the JAX forward on the
+  same mesh and on one device (rtol 5e-4, atol 5e-5); two train steps
+  against JAX `make_train_step` on the mesh (losses, grad norms, params:
+  atol 1e-5, rtol 1e-4), saved; two steps at grad_accum 2 (f32
+  accumulator) with remat against the port's single-process steps;
+- sp=8 at seq 512: loss and every gradient against the JAX dense model
+  (loss rtol 2e-5; gradients rtol 5e-4, atol 2e-5); causality at the
+  shard boundaries (a changed last token leaves earlier logits bit for
+  bit);
+- dp=2, sp=4: the checkpoint of dp=2, tp=2, sp=2 restores to the state
+  saved, and one step from it equals the step from the same checkpoint
+  restored on one device;
+- dp=4, tp=2 with one KV head (n_kv_heads % tp != 0: the KV projections
+  replicated over tp): two train steps against JAX on the same mesh with
+  the KV heads replicated (its default rule cannot lay out one head over
+  two devices).
+
+The trainer main runs as gangs of four through KTWE_MESH_AXES (tp=2,
+sp=2 on synthetic data; dp=2, tp=2 on a token shard) and prints the lines
+one process prints; ep, pp and MoE on tp or sp exit 2 naming A11; the
+token pipeline splits over dp alone.
+"""
+
+import json
+import os
+import pathlib
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from k8s_gpu_workload_enhancer_tpu.models import transformer as jtf
+from k8s_gpu_workload_enhancer_tpu.parallel import mesh as jmesh
+from k8s_gpu_workload_enhancer_tpu.parallel import sharding as jsharding
+from k8s_gpu_workload_enhancer_tpu.train import trainer as jtrainer
+from k8s_gpu_workload_enhancer_tpu_torch.cmd import trainer as cli
+from k8s_gpu_workload_enhancer_tpu_torch.models import transformer as ttf
+from k8s_gpu_workload_enhancer_tpu_torch.train import checkpoint as tckpt
+from k8s_gpu_workload_enhancer_tpu_torch.train import data as tdata
+from k8s_gpu_workload_enhancer_tpu_torch.train import trainer as ttrainer
+
+import torch_gang
+import torch_parity  # noqa: F401  (one intra-op thread a process)
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+DIMS = dict(vocab_size=256, d_model=64, n_layers=2, n_heads=4, n_kv_heads=4,
+            d_ff=128, max_seq=32)
+KV_DIMS = dict(DIMS, n_kv_heads=1)
+SP8_DIMS = dict(DIMS, max_seq=512)
+TRAIN = dict(warmup_steps=1, total_steps=5, batch_size=4, seq_len=32,
+             learning_rate=1e-2)
+ACC2 = dict(TRAIN, grad_accum=2, grad_accum_dtype="f32")
+STEPS = 2
+LOGITS_TOL = dict(rtol=5e-4, atol=5e-5)
+TOL = dict(atol=1e-5, rtol=1e-4)
+TINY = ["--device", "cpu", "--seq-len", "16", "--d-model", "64",
+        "--n-layers", "2", "--n-heads", "2", "--d-ff", "128",
+        "--vocab-size", "128", "--batch-size", "4", "--steps", "10"]
+
+
+def flat(tree, prefix=""):
+    return torch_gang.flat(tree, prefix)
+
+
+def numpy_params(dims: dict, seed: int) -> dict:
+    params = ttf.init_params(torch.Generator().manual_seed(seed),
+                             ttf.TransformerConfig(**dims,
+                                                   dtype=torch.float32))
+    return {k: ({n: t.numpy() for n, t in v.items()}
+                if isinstance(v, dict) else v.numpy())
+            for k, v in params.items()}
+
+
+def tokens(shape, seed: int) -> np.ndarray:
+    return np.random.default_rng(seed).integers(
+        0, DIMS["vocab_size"], shape).astype(np.int32)
+
+
+def jax_cfg(dims: dict, ring: bool = True) -> jtf.TransformerConfig:
+    return jtf.TransformerConfig(**dims, dtype=jnp.float32, use_flash=False,
+                                 use_ring_attention=ring)
+
+
+def torch_cfg(dims: dict) -> ttf.TransformerConfig:
+    return ttf.TransformerConfig(**dims, dtype=torch.float32)
+
+
+def job(name: str, dims: dict, train: dict = TRAIN, **kw) -> dict:
+    return dict(name=name, model=dims, train=train, **kw)
+
+
+@pytest.fixture(scope="module")
+def gang(tmp_path_factory):
+    """The gang of eight on its four meshes, started before the JAX
+    references compile (see the module note)."""
+    job_dir = tmp_path_factory.mktemp("mp")
+    data = {
+        "mp": (numpy_params(DIMS, 0),
+               [tokens((4, 33), 10 + i) for i in range(STEPS)]),
+        "kv": (numpy_params(KV_DIMS, 1),
+               [tokens((4, 33), 20 + i) for i in range(STEPS)]),
+        "acc": (numpy_params(DIMS, 2),
+                [tokens((2, 2, 33), 30 + i) for i in range(STEPS)]),
+        "sp8": (numpy_params(SP8_DIMS, 3), [tokens((2, 513), 40)]),
+    }
+    inputs = {}
+    for name, (params, batches) in data.items():
+        inputs.update({f"{name}/params{k}": v
+                       for k, v in flat(params).items()})
+        inputs.update({f"{name}/batches/{i}": b
+                       for i, b in enumerate(batches)})
+    inputs["fwd"] = tokens((4, 32), 50)
+    causal = tokens((1, 256), 51)
+    flipped = causal.copy()
+    flipped[0, -1] = (flipped[0, -1] + 1) % DIMS["vocab_size"]
+    inputs.update({"causal/a": causal, "causal/b": flipped})
+    trained = dict(params="mp/params", batches="mp/batches", steps=STEPS)
+    phases = [
+        dict(mesh_axes="dp=2,tp=2,sp=2", jobs=[
+            job("fwd", DIMS, kind="forward", params="mp/params",
+                tokens=["fwd"]),
+            job("train", DIMS, save="ckpt-mp", **trained),
+            job("acc2_remat", dict(DIMS, remat=True), ACC2,
+                params="acc/params", batches="acc/batches", steps=STEPS)]),
+        dict(mesh_axes="sp=8", jobs=[
+            job("sp8", SP8_DIMS, dict(TRAIN, batch_size=2, seq_len=512),
+                kind="grads", params="sp8/params", batch="sp8/batches/0"),
+            job("causal", SP8_DIMS, kind="forward", params="sp8/params",
+                tokens=["causal/a", "causal/b"])]),
+        dict(mesh_axes="dp=2,sp=4", jobs=[
+            job("resume", DIMS, restore="ckpt-mp", seed=9),
+            job("resume_step", DIMS, restore="ckpt-mp", seed=9,
+                batches="mp/batches", steps=1)]),
+        dict(mesh_axes="dp=4,tp=2", jobs=[
+            job("kvrep", KV_DIMS, params="kv/params", batches="kv/batches",
+                steps=STEPS)]),
+    ]
+    g = torch_gang.Gang(job_dir, 8, phases, inputs)
+    g.data = data
+    yield g
+    g.close()
+
+
+def jax_mesh(**sizes):
+    return jmesh.make_mesh(jmesh.MeshConfig(**sizes),
+                           devices=jax.devices()[:8])
+
+
+def jax_train(params: dict, batches, dims: dict, train: dict, mesh,
+              rules=None):
+    cfg = jax_cfg(dims)
+    tc = jtrainer.TrainConfig(**train)
+    p = jax.device_put(params, jtrainer.param_shardings(cfg, mesh, rules))
+    state = jtrainer.TrainState(
+        params=p, opt_state=jtrainer.make_optimizer(tc).init(p),
+        step=jnp.zeros((), jnp.int32))
+    step = jtrainer.make_train_step(cfg, tc, mesh, rules)
+    metrics = []
+    for toks in batches:
+        state, m = step(state, jnp.asarray(toks))
+        metrics.append({k: float(m[k]) for k in ("loss", "nll",
+                                                 "grad_norm")})
+    return metrics, jax.tree.map(np.asarray, state.params)
+
+
+def assert_metrics(got: list, want: list, what: str) -> None:
+    assert len(got) == len(want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        for key in ("loss", "nll", "grad_norm"):
+            np.testing.assert_allclose(g[key], w[key],
+                                       err_msg=f"{what} step {i} {key}",
+                                       **TOL)
+
+
+def assert_tree(arrays: dict, tree: str, want: dict, what: str) -> None:
+    want = flat(want)
+    got = {k[len(tree):]: v for k, v in arrays.items()
+           if k.startswith(tree + "/")}
+    assert set(got) == set(want)
+    for k, w in want.items():
+        w = w.detach().numpy() if isinstance(w, torch.Tensor) else w
+        np.testing.assert_allclose(got[k], np.asarray(w),
+                                   err_msg=f"{what} {k}", **TOL)
+
+
+def logits_of(gang, name: str, key: str, sizes: dict) -> np.ndarray:
+    """The global logits (B, S, V) from the ranks' blocks of job `name`."""
+    dp, tp, sp = (sizes.get(a, 1) for a in ("dp", "tp", "sp"))
+    grid = [[[None] * tp for _ in range(sp)] for _ in range(dp)]
+    for coords, arrays in gang.rank_arrays(name):
+        grid[coords["dp"]][coords["sp"]][coords["tp"]] = arrays[key]
+    return np.concatenate([np.concatenate([np.concatenate(cols, axis=2)
+                                           for cols in row], axis=1)
+                           for row in grid], axis=0)
+
+
+def single_process(params: dict, batches, dims: dict, train: dict):
+    tcfg = ttrainer.TrainConfig(**train)
+    p = ttrainer.tree_map(lambda t: t.requires_grad_(True),
+                          ttf.params_from_numpy(params, torch_cfg(dims)))
+    state = ttrainer.TrainState(p, ttrainer.make_optimizer(tcfg).init(p), 0)
+    step = ttrainer.make_train_step(torch_cfg(dims), tcfg)
+    metrics = []
+    for toks in batches:
+        state, m = step(state, torch.from_numpy(toks.copy()).long())
+        metrics.append({k: float(m[k]) for k in ("loss", "nll",
+                                                 "grad_norm")})
+    return state, metrics
+
+
+def test_sharded_forward_matches_jax_on_the_mesh_and_one_device(gang):
+    params = gang.data["mp"][0]
+    toks = jnp.asarray(np.asarray(np.load(gang.dir / "inputs.npz")["fwd"]))
+    got = logits_of(gang, "fwd", "fwd", dict(dp=2, tp=2, sp=2))
+    cfg = jax_cfg(DIMS)
+    single, _ = jtf.forward(params, toks, cfg)
+    mesh = jax_mesh(dp=2, tp=2, sp=2)
+    sharded, _ = jax.jit(lambda p, t: jtf.forward(p, t, cfg, mesh))(
+        params, toks)
+    assert got.shape == (4, 32, DIMS["vocab_size"])
+    np.testing.assert_allclose(got, np.asarray(sharded), **LOGITS_TOL)
+    np.testing.assert_allclose(got, np.asarray(single), **LOGITS_TOL)
+
+
+def test_two_steps_on_dp2_tp2_sp2_match_jax(gang):
+    params, batches = gang.data["mp"]
+    want, want_params = jax_train(params, batches, DIMS, TRAIN,
+                                  jax_mesh(dp=2, tp=2, sp=2))
+    out = gang.result()
+    assert all(o["train"]["metrics"] == out[0]["train"]["metrics"]
+               for o in out)
+    assert_metrics(out[0]["train"]["metrics"], want, "dp2 tp2 sp2 vs JAX")
+    assert_tree(gang.arrays("train"), "params", want_params,
+                "dp2 tp2 sp2 vs JAX")
+    assert out[0]["train"]["step"] == out[0]["train"]["count"] == STEPS
+
+
+def test_layout_splits_each_leaf_over_dp_and_tp(gang):
+    """Each rank holds 1/dp of every embed axis and 1/tp of every heads,
+    MLP and vocab axis, of the params and both moments; the norm scales
+    whole."""
+    axes = flat(ttf.param_logical_axes(torch_cfg(DIMS)))
+    shapes = flat(ttf.param_shapes(torch_cfg(DIMS)))
+    tp_names = ("heads", "kv_heads", "mlp", "vocab")
+    for rank in gang.result():
+        got = rank["train"]
+        for key, shape in shapes.items():
+            want = list(shape)
+            for d, name in enumerate(axes[key]):
+                if name == "embed":
+                    want[d] //= 2
+                if name in tp_names:
+                    want[d] //= 2
+            for tree in ("params", "mu", "nu"):
+                assert got["blocks"][tree + key] == want, (rank, key)
+        assert sorted(k for k, d in got["tp_dims"].items() if d is None) == [
+            "/final_ln", "/layers/ln1", "/layers/ln2"]
+
+
+def test_grad_accum_with_remat_matches_the_single_process_steps(gang):
+    params, batches = gang.data["acc"]
+    state, want = single_process(params, batches, DIMS, ACC2)
+    out = gang.result()[0]["acc2_remat"]
+    assert_metrics(out["metrics"], want, "grad_accum 2, remat")
+    assert_tree(gang.arrays("acc2_remat"), "params", state.params,
+                "grad_accum 2, remat")
+
+
+def test_sp8_loss_and_grads_match_jax_dense(gang):
+    """The ring's loss and gradients at seq 512 over sp=8 equal the JAX
+    dense model's (the JAX package's long-context pin)."""
+    params, (batch,) = gang.data["sp8"]
+    cfg = jax_cfg(SP8_DIMS, ring=False)
+    loss, grads = jax.jit(jax.value_and_grad(
+        lambda p: jtf.loss_fn(p, jnp.asarray(batch), cfg, None)[0]))(params)
+    got_loss = gang.result()[0]["sp8"]["loss"]
+    np.testing.assert_allclose(got_loss, float(loss), rtol=2e-5)
+    got = gang.arrays("sp8")
+    for k, w in flat(jax.tree.map(np.asarray, grads)).items():
+        np.testing.assert_allclose(got["grads" + k], w, rtol=5e-4,
+                                   atol=2e-5, err_msg=k)
+
+
+def test_sp8_ring_respects_causality_at_shard_boundaries(gang):
+    a = logits_of(gang, "causal", "causal/a", dict(sp=8))
+    b = logits_of(gang, "causal", "causal/b", dict(sp=8))
+    np.testing.assert_array_equal(a[0, :-1], b[0, :-1])
+    assert not np.allclose(a[0, -1], b[0, -1])
+
+
+def test_checkpoint_of_dp2_tp2_sp2_resumes_on_dp2_sp4_and_one_device(gang):
+    out = gang.result()
+    assert [o["resume"]["step"] for o in out] == [STEPS] * 8
+    saved, restored = gang.arrays("train"), gang.arrays("resume")
+    assert set(saved) == set(restored)
+    for k, v in saved.items():
+        np.testing.assert_array_equal(restored[k], v, err_msg=k)
+    # One device: the same checkpoint, the same next step.
+    tcfg = ttrainer.TrainConfig(**TRAIN)
+    target = ttrainer.init_state(torch_cfg(DIMS), tcfg,
+                                 torch.Generator().manual_seed(4))
+    state = tckpt.CheckpointManager(
+        str(gang.dir / "ckpt-mp")).restore(None, target)
+    assert state.step == state.opt_state["count"] == STEPS
+    for k, v in flat(state.params).items():
+        np.testing.assert_array_equal(v.detach().numpy(),
+                                      saved["params" + k], err_msg=k)
+    step = ttrainer.make_train_step(torch_cfg(DIMS), tcfg)
+    batch = gang.data["mp"][1][0]
+    _, m = step(state, torch.from_numpy(batch.copy()).long())
+    want = {k: float(m[k]) for k in ("loss", "nll", "grad_norm")}
+    assert_metrics(out[0]["resume_step"]["metrics"], [want],
+                   "dp2 sp4 step from the checkpoint vs one device")
+    assert out[0]["resume_step"]["step"] == STEPS + 1
+
+
+def test_kv_heads_replicated_over_tp_match_jax(gang):
+    """One KV head on tp=2: the port replicates wk and wv over tp (each
+    rank reads the head its Q heads need); JAX on the same mesh with the
+    KV heads replicated computes the same steps."""
+    params, batches = gang.data["kv"]
+    rules = dict(jsharding.DEFAULT_RULES, kv_heads=None)
+    want, want_params = jax_train(params, batches, KV_DIMS, TRAIN,
+                                  jax_mesh(dp=4, tp=2), rules)
+    out = gang.result()
+    assert_metrics(out[0]["kvrep"]["metrics"], want, "kv replicated vs JAX")
+    assert_tree(gang.arrays("kvrep"), "params", want_params,
+                "kv replicated vs JAX")
+    dims = out[0]["kvrep"]["tp_dims"]
+    assert dims["/layers/wk"] is None and dims["/layers/wq"] == 2
+
+
+def _json_lines(text: str) -> list:
+    return [json.loads(x) for x in text.splitlines() if x.startswith("{")]
+
+
+def _main_gang(axes: str, extra: list, world: int = 4):
+    port = torch_gang.free_port()
+    argv = [sys.executable, "-m",
+            "k8s_gpu_workload_enhancer_tpu_torch.cmd.trainer", *TINY, *extra]
+    return [subprocess.Popen(
+        argv, env=dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=str(ROOT),
+                       COORDINATOR_ADDRESS=f"localhost:{port}",
+                       NUM_PROCESSES=str(world), PROCESS_ID=str(r),
+                       KTWE_MESH_AXES=axes),
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(world)]
+
+
+def test_trainer_main_gangs_with_tp_and_sp_print_the_one_process_lines(
+        tmp_path, capsys):
+    """The trainer main as four processes through KTWE_MESH_AXES: tp=2,
+    sp=2 on synthetic data and dp=2, tp=2 on a token shard (each tp rank
+    of a dp coordinate reads that coordinate's rows) print the step and
+    final lines of one process on the same global batch."""
+    shard = str(tmp_path / "tokens.bin")
+    tdata.write_token_file(shard, np.random.default_rng(2).integers(
+        0, 128, 17 * 48))
+    runs = {"tp=2,sp=2": [], "dp=2,tp=2": ["--data-file", shard]}
+    gangs = {axes: _main_gang(axes, extra) for axes, extra in runs.items()}
+    want = {}
+    for axes, extra in runs.items():
+        assert cli.main(TINY + extra) == 0
+        want[axes] = _json_lines(capsys.readouterr().out)
+    try:
+        for axes, procs in gangs.items():
+            outs = [p.communicate(timeout=torch_gang.GANG_TIMEOUT_S)
+                    for p in procs]
+            for p, (_, err) in zip(procs, outs):
+                assert p.returncode == 0, err[-3000:]
+            got = _json_lines(outs[0][0])
+            assert all(_json_lines(o) == [] for o, _ in outs[1:])
+            assert [set(x) for x in got] == [set(x) for x in want[axes]]
+            assert got[0]["step"] == 10
+            np.testing.assert_allclose(got[0]["loss"], want[axes][0]["loss"],
+                                       rtol=1e-5, err_msg=axes)
+            assert got[1]["final"] is True
+    finally:
+        for procs in gangs.values():
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+
+
+@pytest.mark.parametrize("axes,extra", [
+    ("ep=2", []), ("pp=2", []), ("tp=2", ["--n-experts", "4"]),
+    ("sp=2", ["--n-experts", "4"]), ("dp=2,tp=2,sp=2",
+                                     ["--n-experts", "4"])])
+def test_trainer_main_refuses_ep_pp_and_moe_on_tp_or_sp(axes, extra, capsys):
+    n = int(np.prod([int(a.split("=")[1]) for a in axes.split(",")]))
+    env = {"KTWE_MESH_AXES": axes, "NUM_PROCESSES": str(n),
+           "PROCESS_ID": "0", "COORDINATOR_ADDRESS": "localhost:1"}
+    assert cli.main(TINY + extra, env=env) == cli.EXIT_REFUSED
+    assert "ROADMAP A11" in capsys.readouterr().err
+
+
+def test_moe_on_a_model_parallel_layout_is_refused():
+    class Layout:
+        model_parallel, tp, sp = True, 2, 1
+    cfg = torch_cfg(dict(DIMS, n_experts=4))
+    with pytest.raises(ValueError, match="ROADMAP A11"):
+        ttf.loss_fn({}, torch.zeros((2, 9), dtype=torch.long), cfg,
+                    fsdp=Layout())
+
+
+@pytest.mark.parametrize("acc", [1, 2])
+def test_token_pipeline_splits_over_dp_alone(tmp_path, acc):
+    """On dp=2, tp=2 the two tp ranks of a dp coordinate read the same
+    rows, and the gang reads what dp=2 alone reads: each coordinate its
+    block of every microbatch of one process's batch."""
+    shard = str(tmp_path / "tokens.bin")
+    tdata.write_token_file(shard, np.random.default_rng(3).integers(
+        0, 128, 17 * 40))
+    args = cli.build_parser().parse_args(
+        ["--data-file", shard, "--seq-len", "16", "--batch-size", "8",
+         "--seed", "5", "--grad-accum", str(acc)])
+    tcfg = ttrainer.TrainConfig(batch_size=8, seq_len=16, seed=5,
+                                grad_accum=acc)
+
+    def take(cfg):
+        it = tdata.TokenDataset(cfg).batches(2)
+        return [next(it) for _ in range(3)]
+    whole = take(cli.data_config(args, tcfg, 1, 0))
+    # Ranks of (dp, tp) coordinates in mesh order: dp is the outer axis.
+    coords = [(d, t) for d in range(2) for t in range(2)]
+    reads = [take(cli.data_config(args, tcfg, 2, d)) for d, _ in coords]
+    axis = 0 if acc == 1 else 1
+    for step, want in enumerate(whole):
+        for (d, _), got in zip(coords, reads):
+            np.testing.assert_array_equal(
+                got[step], np.split(want, 2, axis=axis)[d])

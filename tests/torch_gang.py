@@ -1,19 +1,30 @@
-"""One rank of a gloo gang for the port's FSDP tests (tests/test_torch_fsdp.py).
+"""One rank of a gloo gang for the port's mesh tests (tests/test_torch_fsdp.py,
+tests/test_torch_ring.py, tests/test_torch_model_parallel.py).
 
     python tests/torch_gang.py JOB_DIR RANK
 
-JOB_DIR/job.json names the world size, the rendezvous port and a list of
-jobs; JOB_DIR/inputs.npz holds the numpy params and token batches they
-use. The rank joins the gang through the port's `bootstrap.initialize`
-(gloo on the CPU), runs the jobs in order and writes what it saw to
-JOB_DIR/rank{RANK}.json (metrics, its blocks' sizes) and, on rank 0, the
-full gathered trees to JOB_DIR/<job name>.npz. Imports torch and the port
-only: no jax.
+JOB_DIR/job.json names the world size and either a rendezvous port and a
+list of jobs (an FSDP mesh) or a list of phases, each a mesh
+(`mesh_axes`, KTWE_MESH_AXES's form), a port and its jobs; JOB_DIR/
+inputs.npz holds the numpy params, token batches and tensors they use.
+The rank joins the gang of each phase through the port's
+`bootstrap.initialize` (gloo on the CPU), runs its jobs in order, leaves
+the group, and writes what it saw to JOB_DIR/rank{RANK}.json (metrics, its
+blocks' sizes, its mesh coordinates) and, on rank 0, the full gathered
+trees to JOB_DIR/<job name>.npz. A job of kind "train" (the default)
+trains, saves and restores; "forward" writes the rank's block of the
+logits, "grads" the loss and the full gradient tree, "ring" the rank's
+ring attention output and gradients, each rank to JOB_DIR/<job
+name>-rank{RANK}.npz. Imports torch and the port only: no jax.
 """
 
 import json
+import os
 import pathlib
+import socket
+import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -22,10 +33,80 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 from k8s_gpu_workload_enhancer_tpu_torch.models import transformer as tf  # noqa: E402
+from k8s_gpu_workload_enhancer_tpu_torch.parallel import (  # noqa: E402
+    ring_attention as ring)
 from k8s_gpu_workload_enhancer_tpu_torch.train import (  # noqa: E402
     bootstrap, checkpoint, trainer)
 
 torch.set_num_threads(1)
+
+GANG_TIMEOUT_S = 240
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+class Gang:
+    """`world` ranks of this script started in the background on `phases`
+    (each {"mesh_axes": ..., "jobs": [...]}, given a free port here), with
+    `inputs` (name -> numpy array) in JOB_DIR/inputs.npz. `result()` waits
+    for every rank, each with one deadline, and raises if one failed or is
+    still running then (all are killed); `close()` kills what still runs."""
+
+    def __init__(self, job_dir: pathlib.Path, world: int, phases: list,
+                 inputs: dict, timeout: float = GANG_TIMEOUT_S):
+        self.dir, self.world, self.timeout = job_dir, world, timeout
+        np.savez(job_dir / "inputs.npz", **inputs)
+        phases = [dict(p, port=free_port()) for p in phases]
+        (job_dir / "job.json").write_text(json.dumps(
+            {"world": world, "phases": phases}))
+        env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=str(ROOT))
+        self.procs = [subprocess.Popen(
+            [sys.executable, str(pathlib.Path(__file__).resolve()),
+             str(job_dir), str(r)], env=env, cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for r in range(world)]
+        self._out = None
+
+    def result(self) -> list:
+        if self._out is None:
+            deadline = time.monotonic() + self.timeout
+            try:
+                for r, p in enumerate(self.procs):
+                    _, err = p.communicate(
+                        timeout=max(1.0, deadline - time.monotonic()))
+                    if p.returncode:
+                        raise RuntimeError(f"gang rank {r} failed:\n"
+                                           f"{err[-4000:]}")
+            except subprocess.TimeoutExpired:
+                raise RuntimeError(f"a gang rank did not finish within "
+                                   f"{self.timeout} s") from None
+            finally:
+                self.close()
+            self._out = [json.loads((self.dir / f"rank{r}.json").read_text())
+                         for r in range(self.world)]
+        return self._out
+
+    def arrays(self, name: str) -> dict:
+        """What rank 0 wrote for job `name`."""
+        self.result()
+        return dict(np.load(self.dir / f"{name}.npz"))
+
+    def rank_arrays(self, name: str) -> list:
+        """What each rank wrote for job `name`, with its mesh coordinates."""
+        out = self.result()
+        return [(out[r][name]["coords"],
+                 dict(np.load(self.dir / f"{name}-rank{r}.npz")))
+                for r in range(self.world)]
+
+    def close(self) -> None:
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
 
 
 def flat(tree, prefix=""):
@@ -86,9 +167,82 @@ def block_sizes(state) -> dict:
             for k, v in flat(tree).items()}
 
 
+def coords(ctx) -> dict:
+    return {a: ctx.mesh.get_local_rank(a) for a in ("dp", "tp", "sp")}
+
+
+def run_ring(job, inputs, ctx, out_path: pathlib.Path) -> dict:
+    """Ring attention of this rank's sp shard of the job's q, k, v (its dp
+    rows), the gradients of sum(o * do) for its shard of do."""
+    mesh = ctx.mesh
+    group = mesh.get_group("sp")
+    sp, r = mesh["sp"].size(), mesh.get_local_rank("sp")
+    dp, dr = mesh["dp"].size(), mesh.get_local_rank("dp")
+
+    def local(name):
+        t = torch.from_numpy(inputs[f"{job['tensors']}/{name}"])
+        b, s = t.shape[0] // dp, t.shape[1] // sp
+        return t[dr * b:(dr + 1) * b, r * s:(r + 1) * s].clone()
+    q, k, v = (local(n).requires_grad_(True) for n in ("q", "k", "v"))
+    o = ring.ring_attention(q, k, v, group, causal=job["causal"],
+                            use_flash=job["flash"])
+    (o * local("do")).sum().backward()
+    np.savez(out_path, o=o.detach().numpy(), dq=q.grad.numpy(),
+             dk=k.grad.numpy(), dv=v.grad.numpy())
+    return {"coords": coords(ctx),
+            "flash": ring.ring_uses_flash(q, repeat(k, q), job["causal"],
+                                          job["flash"])}
+
+
+def repeat(k, q):
+    return k.repeat_interleave(q.shape[2] // k.shape[2], dim=2)
+
+
+def run_forward(job, inputs, state, model, out_path: pathlib.Path) -> dict:
+    """This rank's block of the logits of each of the job's token arrays
+    (its dp rows, sp positions, tp vocab columns)."""
+    out = {}
+    with torch.no_grad():
+        for name in job["tokens"]:
+            toks = torch.from_numpy(inputs[name]).long()
+            rows = state.fsdp.rank_rows(toks)
+            out[name] = tf.forward(state.params, rows, model,
+                                   fsdp=state.fsdp).numpy()
+    np.savez(out_path, **out)
+    return {}
+
+
+def run_grads(job, inputs, state, model, ctx, job_dir) -> dict:
+    """The loss and the full gradient tree of one global batch, the
+    gradients finished as the train step finishes them."""
+    fsdp = state.fsdp
+    toks = torch.from_numpy(inputs[job["batch"]]).long()
+    total, parts = tf.loss_fn(state.params, fsdp.rank_rows(toks), model,
+                              fsdp=fsdp)
+    leaves = trainer.tree_leaves(state.params)
+    grads = iter(torch.autograd.grad(total, leaves))
+    grads = trainer.tree_map(lambda _: next(grads), state.params)
+    fsdp.reduce_grads_(grads)
+    norm = float(trainer.global_norm(grads, fsdp))
+    full = fsdp.full_tree(grads)
+    if ctx.is_primary:
+        np.savez(job_dir / f"{job['name']}.npz",
+                 **{f"grads{k}": v.numpy() for k, v in flat(full).items()})
+    return {"loss": float(fsdp.mean(total.detach())), "grad_norm": norm}
+
+
 def run_job(job, inputs, ctx, job_dir: pathlib.Path) -> dict:
+    kind = job.get("kind", "train")
+    rank_file = job_dir / f"{job['name']}-rank{dist_rank()}.npz"
+    if kind == "ring":
+        return run_ring(job, inputs, ctx, rank_file)
     model, train = configs(job)
     state = state_from(job, inputs, model, train, ctx.mesh)
+    if kind == "forward":
+        return dict(run_forward(job, inputs, state, model, rank_file),
+                    coords=coords(ctx))
+    if kind == "grads":
+        return run_grads(job, inputs, state, model, ctx, job_dir)
     if job.get("restore"):
         state = checkpoint.CheckpointManager(
             str(job_dir / job["restore"])).restore(None, state)
@@ -107,22 +261,32 @@ def run_job(job, inputs, ctx, job_dir: pathlib.Path) -> dict:
         np.savez(job_dir / f"{job['name']}.npz", **arrays)
     return {"metrics": metrics, "step": state.step,
             "count": state.opt_state["count"],
-            "blocks": block_sizes(state), "dims": flat(state.fsdp.dims)}
+            "blocks": block_sizes(state), "dims": flat(state.fsdp.dims),
+            "tp_dims": flat(state.fsdp.tp_dims), "coords": coords(ctx)}
+
+
+def dist_rank() -> int:
+    return torch.distributed.get_rank()
 
 
 def main(job_dir: str, rank: int) -> None:
     job_dir = pathlib.Path(job_dir)
     spec = json.loads((job_dir / "job.json").read_text())
     inputs = dict(np.load(job_dir / "inputs.npz"))
-    env = {"COORDINATOR_ADDRESS": f"localhost:{spec['port']}",
-           "NUM_PROCESSES": str(spec["world"]), "PROCESS_ID": str(rank),
-           "KTWE_STRATEGY": "FSDP"}
-    ctx = bootstrap.initialize(env, device="cpu")
-    try:
-        out = {job["name"]: run_job(job, inputs, ctx, job_dir)
-               for job in spec["jobs"]}
-    finally:
-        ctx.close()
+    phases = spec.get("phases") or [
+        {"port": spec["port"], "jobs": spec["jobs"]}]
+    out = {}
+    for phase in phases:
+        env = {"COORDINATOR_ADDRESS": f"localhost:{phase['port']}",
+               "NUM_PROCESSES": str(spec["world"]), "PROCESS_ID": str(rank),
+               "KTWE_STRATEGY": "FSDP",
+               "KTWE_MESH_AXES": phase.get("mesh_axes", "")}
+        ctx = bootstrap.initialize(env, device="cpu")
+        try:
+            out.update({job["name"]: run_job(job, inputs, ctx, job_dir)
+                        for job in phase["jobs"]})
+        finally:
+            ctx.close()
     (job_dir / f"rank{rank}.json").write_text(json.dumps(out))
 
 
