@@ -138,7 +138,7 @@ inits in bf16:
      trace; one trace record a terminal view plus one rejected record;
      /v1/admin/trace rotates, /v1/admin/spans and /v1/admin/slow-requests
      answer (C's 400); a telemetry push with the serve's bucket, tenants 2
-     and slots 8; the 91 families served, the 19 new ones 0 on C; one
+     and slots 8; the 98 families served, the 19 new ones 0 on C; one
      decode graph capture a main. It prints ms a token p50 and commit
      seconds a token with the recorder on against off, the host ms of
      FlightRecorder.record a request, and span and trace bytes a request.
@@ -155,7 +155,7 @@ inits in bf16:
      launches of each engine exactly those of its chunks, steps and verify
      rounds (the paged decode kernel L times a step that is no verify
      round); no page leaked; a --spec-k 4 serve main's `spec` block and
-     its 8 spec families (91 served), --spec-k with --int8-kv exit 2; the
+     its 8 spec families (98 served), --spec-k with --int8-kv exit 2; the
      generate main with --speculate-draft-layers 4 --speculate-k 4 at its
      defaults, and the same speculative generation in f32 equal to the
      plain greedy one with the launches of its passes. It prints the
@@ -238,7 +238,26 @@ inits in bf16:
      RING_ATOL_OF_MAX). It prints the launches of flash rows 6-9 (the
      schedule's and, apart, the single call's), ms of forward plus
      backward of each, and their peak GB; a multi-rank ring needs more
-     than one card.
+     than one card. The mesh phase (serving meshes, models/serving.py)
+     runs the meshed programs at the serve defaults' full width on
+     virtual gangs of threads on the one card (parallel/comm.ThreadGroup):
+     the dense engine on (dp=2, tp=4), f32 transcripts of 8 prompts gated
+     bit for bit to the unmeshed engine's (the max |delta logit| of one
+     prefill printed), bf16 counted; the paged engine on (1, 4), f32,
+     plain, int8 KV and spec_k 3 (an oracle drafter whose last draft a
+     round is wrong), transcripts and page counters equal, verify rounds
+     run; no gang above one rank launches a kernel (the JAX package's
+     `pallas_ok`); the device-loss drill on the dense (2, 4) gang (every
+     request evacuated as a resume frame that resumes to its
+     uninterrupted transcript, the degraded engine serving one more equal
+     request through rows 1, 3, 6 and 13, the serve's `mesh` block at one
+     device, degraded); the paged engine on a (1, 1) mesh through an NCCL
+     process group of one in bf16, its tokens, launches and one graph
+     capture those of the unmeshed engine; the serve main's --mesh 2,4
+     exiting 2 ("needs 8 devices"). It prints ms a decode step of each
+     gang against the unmeshed eager engine, the driver's broadcast bytes
+     and ms a header and headers a decode step, and peak GB; a gang
+     across cards needs a machine with more than one.
      Every
      phase
      must launch exactly the kernels its prefill chunks, decode steps,
@@ -307,6 +326,7 @@ import gc
 import io
 import json
 import os
+import pickle
 import re
 import shutil
 import signal
@@ -478,6 +498,13 @@ LSE_ATOL = 2e-4
 # cancel, a few ulps of the largest term, RING_ATOL_OF_MAX of the output's
 # largest magnitude.
 RING_RTOL, RING_ATOL_OF_MAX = 2.0 ** -6, 2.0 ** -6
+
+# The mesh phase: 8 prompts of MESH_PROMPT tokens (one prefill chunk) and
+# MESH_NEW new tokens on virtual gangs of threads (dense (2, 4), paged
+# (1, 4)), spec_k 3 through an oracle drafter, the device-loss drill's
+# three requests of MESH_DRILL_NEW tokens armed once the first has 3.
+MESH_PROMPT, MESH_NEW, MESH_SPEC_K, MESH_SEED = 48, 16, 3, 47
+MESH_DRILL_NEW = 12
 
 # Kernel vs plain version in bf16: both round once from f32, so they differ
 # by at most a couple of bf16 ulps (2^-8 relative) where their f32 sums are
@@ -2939,6 +2966,393 @@ DRAIN_BATCH, DRAIN_BEFORE, DRAIN_AFTER = 2, 3, 2
 DRAIN_RTOL = 1e-6
 
 
+class MeshOracle:
+    """The mesh phase's drafter: a request's known greedy continuation, its
+    last draft of two or more made wrong (a round accepts and rejects)."""
+
+    def __init__(self, pairs, vocab: int):
+        self.pairs, self.vocab = pairs, vocab
+
+    def __call__(self, context, k: int):
+        ctx = list(context)
+        for prompt, want in self.pairs:
+            n = len(ctx) - len(prompt)
+            if n >= 0 and ctx[:len(prompt)] == prompt and \
+                    ctx[len(prompt):] == want[:n]:
+                out = list(want[n:n + k])
+                if len(out) >= 2:
+                    out[-1] = (out[-1] + 1) % self.vocab
+                return out
+        return []
+
+
+def thread_gang(ServingMesh, dp: int, tp: int, rank_fn) -> list:
+    """rank_fn(mesh) on every rank of a gang of dp * tp threads on the
+    card; the ranks' results in rank order. A failing rank aborts the
+    gang's barriers, and the phase fails."""
+    meshes, groups = ServingMesh.thread_gang(dp, tp)
+    out, errors = [None] * (dp * tp), []
+
+    def one(r):
+        try:
+            out[r] = rank_fn(meshes[r])
+        except BaseException as e:              # noqa: BLE001 — reported
+            errors.append(f"rank {r}: {e!r}")
+            for g in groups:
+                g.abort()
+    threads = [threading.Thread(target=one, args=(r,), daemon=True)
+               for r in range(dp * tp)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    if errors or any(t.is_alive() for t in threads):
+        fail(f"mesh ({dp}, {tp}) thread gang: {errors or 'hung'}")
+    return out
+
+
+def mesh_engine_run(ServingMesh, serving, decode, dp, tp, full, cfg, dev,
+                    drive, **kw) -> dict:
+    """An engine on every rank of a (dp, tp) thread gang, each on its
+    blocks of `full`; rank 0 runs drive(engine) and stops the followers.
+    Adds the driver's broadcasts (headers, their pickled bytes and host
+    ms, counted around the engine's send), the wall and the launches."""
+    def rank(mesh):
+        eng = new_engine(serving, decode.shard_params_for_serving(
+            full, cfg, mesh), cfg, dev, mesh=mesh, **kw)
+        if not mesh.is_driver:
+            eng.follow()
+            return None
+        sent = {"headers": 0, "bytes": 0, "s": 0.0}
+        send = eng._send
+
+        def counted(header):
+            t0 = time.perf_counter()
+            send(header)
+            sent["s"] += time.perf_counter() - t0
+            sent["headers"] += 1
+            sent["bytes"] += len(pickle.dumps(header))
+        eng._send = counted
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = drive(eng)
+            torch.cuda.synchronize()
+            out["wall_s"] = time.perf_counter() - t0
+            out["decode_steps"] = eng.metrics()["lifetime"]["decode_steps"]
+            n = max(1, sent["headers"])
+            out["broadcast"] = {
+                "headers": sent["headers"],
+                "bytes_per_header": sent["bytes"] / n,
+                "ms_per_header": 1e3 * sent["s"] / n,
+                "headers_per_decode_step": sent["headers"]
+                / max(1, out["decode_steps"])}
+            return out
+        finally:
+            try:
+                eng.stop_followers()
+            finally:
+                del eng._send       # the wrapper's cycle would keep eng
+    return thread_gang(ServingMesh, dp, tp, rank)[0]
+
+
+def mesh_transcripts(prompts, new: int = MESH_NEW):
+    """drive(engine): the greedy transcripts of `prompts` and the
+    engine's metrics."""
+    def drive(eng):
+        rids = [eng.submit(list(p), new) for p in prompts]
+        eng.run()
+        return {"tokens": [eng.result(r).tokens for r in rids],
+                "metrics": eng.metrics()}
+    return drive
+
+
+def ms_per_step(run: dict) -> float:
+    return 1e3 * run["wall_s"] / max(1, run["decode_steps"])
+
+
+def run_mesh(dev, mods, card) -> dict:
+    """The serving mesh on the card at the serve defaults' full width (see
+    the module note): virtual gangs of threads run the meshed programs
+    (plain ops and the tp/dp collectives, no kernel), the degraded engine
+    and the NCCL group of one the single-device ones."""
+    kernels, rms, rope, flash, paged, tf, decode, serving, serve = mods
+    from k8s_gpu_workload_enhancer_tpu_torch import faultlab
+    from k8s_gpu_workload_enhancer_tpu_torch.parallel.mesh import ServingMesh
+    from k8s_gpu_workload_enhancer_tpu_torch.train import bootstrap
+    collect_garbage()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    gates, out = [], {"card": card}
+    rng = np.random.default_rng(MESH_SEED)
+    v = SERVE_DIMS["vocab_size"]
+    prompts = [rng.integers(0, v, MESH_PROMPT).tolist()
+               for _ in range(NUM_SLOTS)]
+    cfg32 = tf.TransformerConfig(**SERVE_DIMS, dtype=torch.float32)
+    p32 = tf.init_params(torch.Generator(device=dev).manual_seed(0), cfg32)
+    drive = mesh_transcripts(prompts)
+
+    def gang(dp, tp, full, cfg, **kw):
+        kernels.reset_launches()
+        got = mesh_engine_run(ServingMesh, serving, decode, dp, tp, full,
+                              cfg, dev, drive, **kw)
+        if kernels.launches:
+            gates.append(f"mesh ({dp}, {tp}) launched kernels "
+                         f"{dict(kernels.launches)} (a mesh above one "
+                         f"device runs none)")
+        return got
+
+    def one(full, cfg, **kw):
+        eng = new_engine(serving, full, cfg, dev, cuda_graph=False, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = drive(eng)
+        torch.cuda.synchronize()
+        r["wall_s"] = time.perf_counter() - t0
+        r["decode_steps"] = r["metrics"]["lifetime"]["decode_steps"]
+        return r
+
+    # Dense (2, 4), f32 (gated bit for bit) and bf16 (counted).
+    want = one(p32, cfg32)
+    got = gang(2, 4, p32, cfg32)
+    if got["tokens"] != want["tokens"]:
+        gates.append("dense (2, 4) f32 transcripts differ from one device")
+    out["dense_f32"] = dict(
+        equal=sum(a == b for a, b in zip(got["tokens"], want["tokens"])),
+        ms_per_decode_step=ms_per_step(got),
+        unmeshed_ms_per_decode_step=ms_per_step(want),
+        broadcast=got["broadcast"])
+    # One prefill's logits on the gang against the unmeshed forward.
+    chunk = torch.as_tensor([prompts[0]], device=dev)
+    ref, _ = decode.forward_cached(p32, chunk, decode.init_cache(
+        cfg32, 1, cfg32.max_seq, dev), 0, cfg32)
+
+    def prefill(mesh):
+        lg, _ = decode.forward_cached(
+            decode.shard_params_for_serving(p32, cfg32, mesh), chunk,
+            decode.init_cache(cfg32, 1, cfg32.max_seq, dev, mesh), 0, cfg32,
+            mesh=mesh)
+        return float((lg - ref).abs().max())
+    out["dense_f32"]["prefill_max_abs_logit_err"] = max(
+        thread_gang(ServingMesh, 2, 4, prefill))
+    del ref
+    cfg16 = dataclasses.replace(cfg32, dtype=torch.bfloat16)
+    p16 = serve._finish_params(p32, cfg16, False)
+    want16 = one(p16, cfg16)
+    got16 = gang(2, 4, p16, cfg16)
+    out["dense_bf16"] = dict(
+        equal=sum(a == b for a, b in zip(got16["tokens"], want16["tokens"])),
+        of=len(prompts), ms_per_decode_step=ms_per_step(got16),
+        unmeshed_ms_per_decode_step=ms_per_step(want16),
+        broadcast=got16["broadcast"])
+    # Paged (1, 4), f32: plain, int8 KV, spec through the oracle.
+    pairs = list(zip(prompts, one(p32, cfg32, kv_block_len=KV_BLOCK_LEN)[
+        "tokens"]))
+    kv_keys = ("blocks_free", "blocks_used", "blocks_shared",
+               "blocks_cached", "evictions_total", "prompt_tokens_total",
+               "matched_tokens_total")
+    out["paged_f32"] = {}
+    for name, cfg, kw in (
+            ("plain", cfg32, {}),
+            ("int8_kv", dataclasses.replace(cfg32, kv_cache_int8=True), {}),
+            ("spec", cfg32, dict(spec_k=MESH_SPEC_K,
+                                 drafter=MeshOracle(pairs, v)))):
+        want_p = one(p32, cfg, kv_block_len=KV_BLOCK_LEN, **kw)
+        got_p = gang(1, 4, p32, cfg, kv_block_len=KV_BLOCK_LEN, **kw)
+        kv_g, kv_w = got_p["metrics"]["kv_cache"], want_p["metrics"][
+            "kv_cache"]
+        if got_p["tokens"] != want_p["tokens"]:
+            gates.append(f"paged (1, 4) {name}: transcripts differ")
+        if any(kv_g[k] != kv_w[k] for k in kv_keys):
+            gates.append(f"paged (1, 4) {name}: pages {kv_g} vs {kv_w}")
+        rounds = got_p["metrics"]["spec"]["rounds_total"]
+        if kw and not (rounds > 0 and rounds == want_p["metrics"]["spec"][
+                "rounds_total"]):
+            gates.append(f"paged (1, 4) spec: {rounds} verify rounds")
+        out["paged_f32"][name] = dict(
+            equal=sum(a == b for a, b in zip(got_p["tokens"],
+                                             want_p["tokens"])),
+            verify_rounds=rounds, ms_per_decode_step=ms_per_step(got_p),
+            unmeshed_ms_per_decode_step=ms_per_step(want_p),
+            broadcast=got_p["broadcast"])
+    out["device_loss"] = mesh_device_loss(dev, mods, ServingMesh, faultlab,
+                                          p32, cfg32, prompts, gates)
+    del p32
+    out["nccl_group_of_one"] = mesh_group_of_one(
+        dev, mods, bootstrap, p16, cfg16, prompts, gates)
+    out["launches"] = out["nccl_group_of_one"]["launches"]
+    del p16
+    # The serve main on one card refuses a mesh of 8.
+    with contextlib.redirect_stderr(io.StringIO()) as err:
+        try:
+            serve.main(["--mesh", "2,4"])
+            code = 0
+        except SystemExit as e:
+            code = e.code
+    if code != 2 or "needs 8 devices" not in err.getvalue():
+        gates.append(f"serve --mesh 2,4 exited {code}: "
+                     f"{err.getvalue()[-200:]}")
+    out["serve_mesh_2_4_exit"] = code
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["gates_failed"] = gates
+    return out
+
+
+def mesh_device_loss(dev, mods, ServingMesh, faultlab, p32, cfg32, prompts,
+                     gates) -> dict:
+    """The JAX device-loss drill (tests/integration/test_faultlab_recovery
+    .py:250-345) on the dense (2, 4) gang in f32: a device loss armed once
+    the first request has 3 tokens; every live or queued request comes back
+    as an `evacuate` frame that resumes on a fresh single-device engine to
+    its uninterrupted transcript; the degraded engine serves one more
+    request equal to the uninterrupted one and launches the single-device
+    kernels (rows 1, 3, 6, 13); the serve's `mesh` block reads devices 1,
+    degraded 1, shape "degraded"."""
+    kernels, rms, rope, flash, paged, tf, decode, serving, serve = mods
+    drill = [p[:16] for p in prompts[:3]]
+    kw = dict(num_slots=2)
+
+    def uninterrupted(p):
+        e = serving.ContinuousBatchEngine(
+            p32, cfg32, max_seq=cfg32.max_seq, prefill_len=PREFILL_LEN,
+            decode_chunk=DECODE_CHUNK, device=dev, **kw)
+        r = e.submit(list(p), MESH_DRILL_NEW)
+        e.run()
+        return e.result(r).tokens
+    wants = [uninterrupted(p) for p in drill]
+
+    def drive(eng):
+        rids = [eng.submit(list(p), MESH_DRILL_NEW) for p in drill]
+        for _ in range(64):
+            eng.step()
+            if len(eng.result(rids[0]).tokens) >= 3:
+                break
+        queued = not eng.result(rids[2]).done
+        faultlab.activate(faultlab.TargetedPlan({"engine.device_loss": [0]}))
+        try:
+            eng.step()
+        finally:
+            faultlab.deactivate()
+        frames = [eng.result(r).resume_state for r in rids]
+        res = eng.metrics()["resilience"]
+        kernels.reset_launches()
+        r3 = eng.submit(list(drill[0]), MESH_DRILL_NEW)
+        eng.run()
+        launches = dict(kernels.launches)
+        svc = serve.ServeService(eng, mesh_shape=(2, 4))
+        try:
+            mesh = svc.metrics({})["metrics"]["mesh"]
+        finally:
+            svc.stop()
+        return dict(queued=queued, frames=frames, resilience=res,
+                    after=eng.result(r3).tokens, launches=launches,
+                    mesh=mesh, degraded_mesh_none=eng.mesh is None)
+    kernels.reset_launches()
+    got = thread_gang(ServingMesh, 2, 4, lambda m: (
+        mesh_drill_rank(m, serving, decode, p32, cfg32, dev, kw, drive)))[0]
+    frames = got["frames"]
+    if not got["queued"] or any(
+            f is None or f["reason"] != "evacuate" for f in frames):
+        gates.append(f"device loss: frames {frames}")
+    res = got["resilience"]
+    if (res["errors"]["device_loss"], res["evacuated_total"],
+            res["mesh_degraded"]) != (1, 3, True):
+        gates.append(f"device loss: resilience {res}")
+    resumed = 0
+    for frame, want in zip(frames, wants):
+        if frame is None:
+            continue
+        e = serving.ContinuousBatchEngine(
+            p32, cfg32, max_seq=cfg32.max_seq, prefill_len=PREFILL_LEN,
+            decode_chunk=DECODE_CHUNK, device=dev, seed=7, **kw)
+        r = e.submit(frame["prompt"], frame["maxNewTokens"],
+                     committed=frame["committed"], prng_key=frame["prngKey"])
+        e.run()
+        resumed += e.result(r).tokens == want
+    if resumed != len(wants):
+        gates.append(f"device loss: {resumed} of {len(wants)} evacuated "
+                     f"requests resumed to their transcripts")
+    if got["after"] != wants[0] or not got["degraded_mesh_none"]:
+        gates.append("device loss: the degraded engine's request differs")
+    mesh = got["mesh"]
+    if (mesh["devices"], mesh["degraded"], mesh["shape"]) != (
+            1, 1, "degraded"):
+        gates.append(f"device loss: mesh block {mesh}")
+    rows = ("rms_norm", "rope", "flash_attention", "embed_gather")
+    if any(got["launches"].get(k, 0) <= 0 for k in rows):
+        gates.append(f"device loss: the degraded engine launched "
+                     f"{got['launches']}")
+    return dict(committed=[len(f["committed"]) for f in frames if f],
+                resumed_equal=resumed, resilience=res, mesh=mesh,
+                degraded_launches=got["launches"])
+
+
+def mesh_drill_rank(mesh, serving, decode, p32, cfg32, dev, kw, drive):
+    eng = serving.ContinuousBatchEngine(
+        decode.shard_params_for_serving(p32, cfg32, mesh), cfg32,
+        max_seq=cfg32.max_seq, prefill_len=PREFILL_LEN,
+        decode_chunk=DECODE_CHUNK, device=dev, mesh=mesh, **kw)
+    if not mesh.is_driver:
+        eng.follow()
+        return None
+    try:
+        return drive(eng)
+    finally:
+        eng.stop_followers()
+
+
+def mesh_group_of_one(dev, mods, bootstrap, p16, cfg16, prompts,
+                      gates) -> dict:
+    """The paged engine on a (1, 1) mesh through an NCCL process group of
+    one (`initialize_serving`, group_of_one), bf16: the single-device
+    programs, kernels and graph; its tokens and launches equal the
+    unmeshed engine's."""
+    kernels = mods[0]
+    serving = mods[7]
+    runs = {}
+    for name in ("unmeshed", "group_of_one"):
+        ctx = mesh = None
+        if name == "group_of_one":
+            ctx, mesh = bootstrap.initialize_serving(
+                (1, 1), {"COORDINATOR_ADDRESS": f"localhost:{free_port()}",
+                         "NUM_PROCESSES": "1", "PROCESS_ID": "0"},
+                device="cuda", group_of_one=True)
+        try:
+            eng = new_engine(serving, p16, cfg16, dev, mesh=mesh,
+                             kv_block_len=KV_BLOCK_LEN)
+            kernels.reset_launches()
+            r = mesh_transcripts(prompts)(eng)
+            runs[name] = dict(tokens=r["tokens"],
+                              launches=dict(kernels.launches),
+                              captures=r["metrics"]["hotpath"][
+                                  "graphs_captured"],
+                              lifetime=r["metrics"]["lifetime"])
+            eng.stop_followers()
+        finally:
+            if ctx is not None:
+                backend = torch.distributed.get_backend()
+                ctx.close()
+                runs[name]["backend"] = backend
+    a, b = runs["unmeshed"], runs["group_of_one"]
+    if a["tokens"] != b["tokens"]:
+        gates.append("NCCL group of one: tokens differ from one device")
+    rows = ("rms_norm", "rope", "flash_attention", "paged_decode",
+            "embed_gather")
+    if any(a["launches"].get(k, 0) != b["launches"].get(k, 0)
+           or b["launches"].get(k, 0) <= 0 for k in rows):
+        gates.append(f"NCCL group of one: launches {b['launches']} vs "
+                     f"{a['launches']}")
+    if b.get("backend") != "nccl" or b["captures"] != 1:
+        gates.append(f"NCCL group of one: backend {b.get('backend')}, "
+                     f"{b['captures']} captures")
+    if torch.distributed.is_initialized():
+        gates.append("NCCL group of one: the group was left open")
+    return dict(equal=a["tokens"] == b["tokens"], backend=b.get("backend"),
+                captures=b["captures"], launches=b["launches"],
+                unmeshed_launches=a["launches"])
+
+
 def run_tenant_drain(kernels, tf, trainer, tenant_drain, card: str) -> dict:
     """The port's CheckpointingTenantPool on the card: two tenants train
     DRAIN_BEFORE steps, drain through the pool's callbacks to a stand-in
@@ -4203,14 +4617,14 @@ def obs_phase(pa: int, pb: int, pc: int, mports, auth: dict, files: dict,
     code_off, slow_off = get_json(pc, "/v1/admin/slow-requests", auth)
     if code_off != 400:
         gates.append(f"recorder off: /v1/admin/slow-requests {code_off}")
-    # The families: all 91 (since the kvhost slice), the 19 new ones among
-    # them.
+    # The families: all 98 (since the serving mesh), the 19 of the
+    # observability slice among them.
     fam = serve.SERVING_FAMILIES
     series = scrape(mports[0], fam)
     series_off = scrape(mports[1], fam)
     new = [k for k in fam if "phase_seconds" in k or "_span_" in k
            or "slow_requests" in k or "trace_records" in k]
-    if len(fam) != 91 or len(new) != 19 or \
+    if len(fam) != 98 or len(new) != 19 or \
             series["ktwe_serving_span_records_total"] != len(spans_a) or \
             series["ktwe_serving_trace_records_total"] != len(recs_a) or \
             series["ktwe_serving_phase_seconds_prefill_p50"] <= 0 or \
@@ -5427,7 +5841,7 @@ def run_spec_serve(serve, kernels, traffic, gates) -> dict:
     the JAX engine's keys and its speculative dispatches counted (verify
     rounds where the n-gram drafter found a match, bypass rounds where it
     found none: random weights need not continue a cycle), the port serves
-    91 families with the 8 spec ones at the table's values, and the
+    98 families with the 8 spec ones at the table's values, and the
     launches are those of its chunks, steps and rounds. --spec-k 4 with
     --int8-kv is a parser error (exit 2)."""
     with contextlib.redirect_stderr(io.StringIO()) as err:
@@ -5464,7 +5878,7 @@ def run_spec_serve(serve, kernels, traffic, gates) -> dict:
             or spec["rounds_total"] + spec["bypass_rounds_total"] <= 0:
         gates.append(f"spec serve main: spec block {spec}")
     fam = {k: v for k, v in series.items() if "_spec_" in k}
-    if len(series) != 91 or len(fam) != 8 or any(
+    if len(series) != 98 or len(fam) != 8 or any(
             fam[k] != float(serve.SERVING_FAMILIES[k](
                 m, m["slots_busy"], m["slots"])) for k in fam) \
             or fam["ktwe_serving_spec_rounds_total"] != spec["rounds_total"]:
@@ -6900,6 +7314,10 @@ def main() -> int:
     print(json.dumps({"census": results["census"]}), flush=True)
     del params
     torch.cuda.empty_cache()
+    results["mesh"] = run_mesh(dev, mods, card)
+    print(json.dumps({"mesh": results["mesh"]}), flush=True)
+    for gate in results["mesh"]["gates_failed"]:
+        fail(gate)
     results["paged_serve"] = run_serve(serve, kernels, paged=True)
     print(json.dumps({"paged_serve": results["paged_serve"]}), flush=True)
     for phase in ("serve", "paged_serve"):
@@ -6987,11 +7405,12 @@ def main() -> int:
                       "tenancy", "disagg", "int8kv", "spec", "kvhost",
                       "checkpoint_serve", "checkpoint_paged_serve", "fleet",
                       "fleet_paged", "observability", "moe_engine",
-                      "moe_paged_engine")
+                      "moe_paged_engine", "mesh")
     train_phases = ("train", "fsdp", "train_stash", "moe_train")
     paged_phases = ("paged_engine", "paged_serve", "tenancy", "disagg",
                     "spec", "kvhost", "checkpoint_paged_serve",
-                    "fleet_paged", "observability", "moe_paged_engine")
+                    "fleet_paged", "observability", "moe_paged_engine",
+                    "mesh")
     # The checkpoint phase's trainer runs the t-layout path (head_dim 512).
     t_layout = ("flagship", "checkpoint_train")
     every = serving_phases + train_phases

@@ -1,12 +1,18 @@
 """Single-stream inference main of the PyTorch port (models/decode.py).
 
-Port of k8s_gpu_workload_enhancer_tpu/cmd/generate.py without its mesh
-option: a seeded random model prefills a seeded random prompt batch and
-decodes, then one JSON line reports the throughput (prefill and per-token
-decode separated). `--speculate-draft-layers N` then also runs early-exit
-self-drafting speculative decoding (models/speculative.py; batch 1,
-greedy): its stats go under the line's "speculative" key and its tokens
-into "sample_tail".
+Port of k8s_gpu_workload_enhancer_tpu/cmd/generate.py: a seeded random
+model prefills a seeded random prompt batch and decodes, then one JSON line
+reports the throughput (prefill and per-token decode separated).
+`--speculate-draft-layers N` then also runs early-exit self-drafting
+speculative decoding (models/speculative.py; batch 1, greedy): its stats go
+under the line's "speculative" key and its tokens into "sample_tail".
+
+`--tensor-parallel N` shards heads, the MLP hidden, the vocab and the KV
+cache over a tp axis of N ranks of a gang (one process a rank, from the
+launcher env: COORDINATOR_ADDRESS, NUM_PROCESSES, PROCESS_ID; the other
+ranks form the dp axis, dp = NUM_PROCESSES / N). Every rank runs
+`generate` on its shard with the same seed: its dp block of the batch, or
+the whole batch where dp does not divide it. Rank 0 prints the line.
 
     python -m k8s_gpu_workload_enhancer_tpu_torch.cmd.generate \
         --prompt-len 128 --gen-len 64 --batch-size 8
@@ -19,12 +25,14 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import time
 
 import torch
 
 from ..models import decode, speculative, transformer as tf
-from ..ops.quant import quantize_params
+from ..ops.quant import quantize_leaf
+from ..train import bootstrap
 from ..utils.device import resolve_device
 
 
@@ -45,6 +53,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--quantize-int8", action="store_true",
                    help="weight-only int8 quantization (ops/quant.py)")
+    p.add_argument("--tensor-parallel", type=int, default=1,
+                   help="shard heads/MLP/vocab + the KV cache over a tp "
+                        "axis of this size (models bigger than one card); "
+                        "the gang's other ranks form the dp axis")
     p.add_argument("--speculate-draft-layers", type=int, default=0,
                    help="early-exit self-drafting speculative decoding "
                         "(models/speculative.py): the draft is the "
@@ -74,7 +86,7 @@ def early_exit_draft(params: tf.Params, cfg: tf.TransformerConfig,
 
 
 def _run_speculative(args, cfg: tf.TransformerConfig, params: tf.Params,
-                     prompt: torch.Tensor) -> tuple:
+                     prompt: torch.Tensor, mesh=None) -> tuple:
     """Early-exit self-draft speculative generation of `prompt` (1, P):
     one warm-up run (the kernels' builds), one timed. Whatever the draft
     accepts, the greedy verify makes the tokens the target's; the knob
@@ -87,7 +99,7 @@ def _run_speculative(args, cfg: tf.TransformerConfig, params: tf.Params,
     def run():
         return speculative.generate_speculative(
             params, cfg, draft, draft_cfg, prompt, args.gen_len,
-            k=args.speculate_k, max_seq=max_seq)
+            k=args.speculate_k, max_seq=max_seq, mesh=mesh)
     run()
     _sync(prompt.device)
     t0 = time.perf_counter()
@@ -126,6 +138,17 @@ def main(argv=None) -> int:
                 f" strict early exit)")
         if args.speculate_k < 1:
             build_parser().error("--speculate-k must be >= 1")
+    n = int(os.environ.get("NUM_PROCESSES", "1"))
+    tp = args.tensor_parallel
+    if tp < 1 or n % tp or args.n_heads % tp or args.vocab_size % tp \
+            or args.d_ff % tp:
+        build_parser().error(
+            f"--tensor-parallel {tp} must divide the device count ({n}), "
+            f"n_heads, d_ff, and vocab_size")
+    gang, mesh = None, None
+    if n > 1:
+        gang, mesh = bootstrap.initialize_serving((n // tp, tp),
+                                                  device=args.device)
     device = resolve_device(args.device)
     max_seq = args.prompt_len + args.gen_len
     cfg = tf.TransformerConfig(
@@ -136,12 +159,26 @@ def main(argv=None) -> int:
         dtype=torch.bfloat16 if device.type == "cuda" else torch.float32)
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
-    params = tf.init_params(gen, cfg)
-    if args.quantize_int8:
-        params = quantize_params(params)
+
+    def finish(name: str, leaf: torch.Tensor):
+        # Each leaf as it is drawn: int8, and on a mesh the rank's block.
+        if args.quantize_int8:
+            leaf = quantize_leaf(name, leaf)
+        if mesh is not None:
+            leaf = decode.shard_params_for_serving({name: leaf}, cfg,
+                                                   mesh)[name]
+        return leaf
+    params = tf.init_params(gen, cfg, finish=finish)
     prompt = torch.randint(0, cfg.vocab_size,
                            (args.batch_size, args.prompt_len),
                            generator=gen, device=device)
+    if mesh is not None:
+        # Every rank drew the same tree and batch: it keeps its blocks and
+        # its dp block of the rows (all of them where dp does not divide
+        # the batch, as GSPMD's padding computes the same function).
+        if args.batch_size % mesh.dp == 0:
+            rows = args.batch_size // mesh.dp
+            prompt = prompt[mesh.dp_rank * rows:(mesh.dp_rank + 1) * rows]
 
     def timed(num_steps: int):
         sampler = torch.Generator(device=device)
@@ -149,7 +186,7 @@ def main(argv=None) -> int:
         run = lambda: decode.generate(          # noqa: E731
             params, prompt, num_steps, cfg, max_seq=max_seq,
             temperature=args.temperature, top_k=args.top_k,
-            generator=sampler)
+            generator=sampler, mesh=mesh)
         run()                                   # warm-up: kernel builds
         _sync(device)
         t0 = time.perf_counter()
@@ -161,12 +198,18 @@ def main(argv=None) -> int:
     dt, out = timed(args.gen_len)               # prefill + gen_len tokens
     spec_stats = None
     if args.speculate_draft_layers > 0:
-        spec_stats, out = _run_speculative(args, cfg, params, prompt)
+        spec_stats, out = _run_speculative(args, cfg, params, prompt, mesh)
     decode_steps = max(args.gen_len - 1, 1)
     decode_ms = 1e3 * max(dt - dt_prefill, 0.0) / decode_steps
+    if gang is not None:
+        gang.close()
+        if not mesh.is_driver:
+            return 0
     print(json.dumps({
         **({"speculative": spec_stats} if spec_stats else {}),
-        "devices": torch.cuda.device_count() if device.type == "cuda" else 1,
+        "devices": (mesh.size if mesh is not None else
+                    torch.cuda.device_count() if device.type == "cuda"
+                    else 1),
         "platform": "gpu" if device.type == "cuda" else "cpu",
         "device_name": (torch.cuda.get_device_name(device)
                         if device.type == "cuda" else "cpu"),
@@ -174,6 +217,7 @@ def main(argv=None) -> int:
         "prompt_len": args.prompt_len,
         "gen_len": args.gen_len,
         "int8": bool(args.quantize_int8),
+        "tensor_parallel": args.tensor_parallel,
         "wall_s": round(dt, 4),
         "prefill_s": round(dt_prefill, 4),
         "tokens_per_s": round(args.batch_size * args.gen_len / dt, 1),

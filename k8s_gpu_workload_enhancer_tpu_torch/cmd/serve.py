@@ -125,6 +125,23 @@ replica refuses it), and while a prompt is mid-slice or a request waits,
 decode runs in quanta of decode-chunk/4 steps; only the schedule moves (on
 the card a bf16 matmul over fewer rows may round otherwise).
 
+--mesh dp,tp serves on a mesh of a gang (models/serving.py, the serving
+meshes): one process a rank from the launcher env (COORDINATOR_ADDRESS,
+NUM_PROCESSES = dp * tp, PROCESS_ID; one device a process, cuda:LOCAL_RANK
+on the card, gloo with --device cpu). Rank 0 serves HTTP; the others run
+the device programs it broadcasts and exit 0 when it stops them at its
+shutdown (they ignore their own SIGTERM: the driver's drain is the
+gang's). A bare N means tp=N; '', '1' and '1,1' one device; the default is
+$KTWE_MESH. Exit 2, in the JAX serve's words: a malformed value, a gang of
+another size than dp * tp, a tp that does not divide --n-heads, --d-ff or
+--vocab-size, a dp that does not divide a dense engine's --num-slots;
+--kv-host-blocks with --mesh (ROADMAP A11b, second part). /v1/metrics
+reports the `mesh` block (devices, dp, tp, shape, degraded,
+per_slice_mfu_pct: model FLOP/s over the mesh's peak), which the fleet
+registry reads; after a device loss it reads one device, degraded. Each
+rank's card holds its blocks of the weights and at most one full leaf
+more; a checkpoint on a mesh is finished on the host.
+
 SIGTERM drains: new submits get 503 + Retry-After, /health answers 503
 "draining", accepted requests run on; at the eject grace whatever still
 runs is ejected as migrate frames, then the process exits 0. The grace is
@@ -156,6 +173,7 @@ import time
 from http.server import ThreadingHTTPServer
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from .. import faultlab
@@ -163,12 +181,14 @@ from ..agent.optimizer_client import HTTPOptimizerClient
 from ..autopilot.trace import TraceWriter, admin_trace
 from ..cost.cost_engine import (BudgetPeriod, BudgetScope, CostEngine,
                                 EnforcementPolicy, TenantMeter)
-from ..models import serving
+from ..models import decode, serving
 from ..models import transformer as tf
 from ..observability.flight import (ROOT_SPAN_REPLICA, FlightRecorder,
                                     zero_metrics)
-from ..ops.quant import quantize_params
+from ..ops.quant import quantize_leaf
+from ..train import bootstrap
 from ..train.checkpoint import CheckpointManager
+from ..train.profiling import H100_BF16_PEAK_TFLOPS
 from ..utils.device import resolve_device
 from ..utils.config import parse_with_config
 from ..utils.httpjson import (StatusError, make_json_handler,
@@ -195,7 +215,7 @@ DEFAULTS = dict(port=8000, vocab_size=32768, d_model=2048,
                 optimizer_url="", telemetry_interval=30.0, tenants=1,
                 trace_out="", span_out="", slo_capture_threshold=0.0,
                 spec_k=0, spec_ngram=3, kv_host_blocks=0,
-                kv_offload_watermark=0.0, kv_gossip_interval=30.0)
+                kv_offload_watermark=0.0, kv_gossip_interval=30.0, mesh="")
 
 # /v1/generate fields of the JAX service that this replica refuses (400
 # naming the field) rather than drop, and why.
@@ -205,12 +225,10 @@ _UNPORTED_FIELDS = {
             '"prompt" ids',
 }
 
-# The `ktwe_serving_*` Prometheus families (--metrics-port): the subset of
-# the JAX serve's SERVING_FAMILIES whose source this replica has, with the
-# same names and meanings. Each maps (the /v1/metrics dict, slots_busy,
-# num_slots) to a value; `_total` families read the engine's monotonic
-# lifetime counters. Families of features not ported are left out, not
-# exported as zeros (ROADMAP names the item that brings each).
+# The `ktwe_serving_*` Prometheus families (--metrics-port): the JAX serve's
+# SERVING_FAMILIES, all of them, with the same names and meanings. Each maps
+# (the /v1/metrics dict, slots_busy, num_slots) to a value; `_total`
+# families read the engine's monotonic lifetime counters.
 SERVING_FAMILIES = {
     "ktwe_serving_requests_completed_total":
         lambda m, b, s: m["lifetime"]["completed"],
@@ -299,6 +317,25 @@ SERVING_FAMILIES = {
         lambda m, b, s: m["resilience"]["errors"]["prefill"],
     "ktwe_serving_request_errors_watchdog_total":
         lambda m, b, s: m["resilience"]["errors"]["watchdog"],
+    "ktwe_serving_request_errors_device_loss_total":
+        lambda m, b, s: m["resilience"]["errors"]["device_loss"],
+    # The degraded-mesh evacuation: live requests ejected as
+    # reason="evacuate" resume frames on a device loss, and the degraded
+    # gauge, 1 while the replica serves on one device after it (mesh.devices
+    # drops with it, so the registry re-registers the replica at its
+    # reduced capacity).
+    "ktwe_serving_evacuated_requests_total":
+        lambda m, b, s: m["resilience"]["evacuated_total"],
+    "ktwe_serving_mesh_degraded": lambda m, b, s: m["mesh"]["degraded"],
+    # The serving mesh (--mesh): the shape this replica spans (1/1/1 on one
+    # card) and the MFU of the whole mesh (model FLOP/s over every device's
+    # peak, so tp overhead lowers it). The fleet registry reads
+    # mesh.devices from /v1/metrics.
+    "ktwe_serving_mesh_devices": lambda m, b, s: m["mesh"]["devices"],
+    "ktwe_serving_mesh_dp": lambda m, b, s: m["mesh"]["dp"],
+    "ktwe_serving_mesh_tp": lambda m, b, s: m["mesh"]["tp"],
+    "ktwe_serving_mesh_per_slice_mfu_pct":
+        lambda m, b, s: m["mesh"]["per_slice_mfu_pct"],
     # The decode hot path: the overlap_commit gauge, host seconds on the
     # sync path (fetch, watchdog poll included), commit seconds and their
     # share that ran behind a chunk in flight, commit rounds.
@@ -584,6 +621,19 @@ def build_parser() -> argparse.ArgumentParser:
                         "many seconds end to end (GET "
                         "/v1/admin/slow-requests; with or without "
                         "--span-out); 0 disables")
+    p.add_argument("--mesh", type=str,
+                   help="serve on a 'dp,tp' mesh of a gang (e.g. '1,4' = "
+                        "4-way tensor parallel): attention heads, the MLP "
+                        "hidden, the vocab and the KV cache's kv-head axis "
+                        "shard over tp (Megatron; KV replicated where the "
+                        "kv heads do not divide tp), dense slots over dp, "
+                        "paged pools replicated over dp. The gang is one "
+                        "process a rank from the launcher env "
+                        "(COORDINATOR_ADDRESS, NUM_PROCESSES, PROCESS_ID); "
+                        "rank 0 serves HTTP, the others run the device "
+                        "programs it broadcasts. A bare N means tp=N; "
+                        "empty, '1' or '1,1' = one device. Default "
+                        "$KTWE_MESH")
     p.add_argument("--config", type=str, default="",
                    help="ktwe.yaml knob file: its `serve:` section sets "
                         "defaults, flags on the command line win")
@@ -591,8 +641,56 @@ def build_parser() -> argparse.ArgumentParser:
     if os.environ.get("KTWE_TIMESLICE_TENANTS") is not None:
         # The JAX knob registry's environment override of this default.
         defaults["tenants"] = int(os.environ["KTWE_TIMESLICE_TENANTS"])
+    if os.environ.get("KTWE_MESH") is not None:
+        defaults["mesh"] = os.environ["KTWE_MESH"]
     p.set_defaults(**defaults)
     return p
+
+
+def parse_mesh_flag(value: str):
+    """'dp,tp' -> (dp, tp); a bare 'N' means tp=N; '', '1' and '1,1' ->
+    None (one device). ValueError on anything else (the JAX serve's
+    parse)."""
+    v = (value or "").strip()
+    if not v:
+        return None
+    try:
+        parts = [int(x) for x in v.split(",")]
+    except ValueError:
+        raise ValueError(f"--mesh must be 'dp,tp' integers, got {v!r}")
+    if len(parts) == 1:
+        parts = [1, parts[0]]
+    if len(parts) != 2 or any(x < 1 for x in parts):
+        raise ValueError(f"--mesh must be 'dp,tp' with positive "
+                         f"integers, got {v!r}")
+    dp, tp = parts
+    return None if dp * tp == 1 else (dp, tp)
+
+
+def count_weight_elements(params, cfg: Optional[tf.TransformerConfig] = None
+                          ) -> int:
+    """Weight elements of the served model, the 2N-FLOPs-per-token model
+    behind the mesh MFU gauge: `tf.param_count` of its tree (None, a stub
+    engine's, counts 0), or with `cfg` of the whole model's tree (an
+    engine on a mesh holds its rank's blocks)."""
+    if cfg is not None:
+        return sum(int(np.prod(shape)) for shape in
+                   _leaf_shapes(tf.param_shapes(cfg)))
+    return tf.param_count(params) if params is not None else 0
+
+
+def _leaf_shapes(tree):
+    if isinstance(tree, dict):
+        return [s for v in tree.values() for s in _leaf_shapes(v)]
+    return [tree]
+
+
+def peak_tflops_per_device(device: torch.device) -> float:
+    """Peak TFLOP/s a device behind the mesh MFU gauge: the H100's dense
+    bf16 rate on the card (the trainer's MFU reads the same constant,
+    train/profiling.H100_BF16_PEAK_TFLOPS); on the CPU the JAX serve's
+    token 0.4, so CPU proxies stay comparable."""
+    return H100_BF16_PEAK_TFLOPS if device.type == "cuda" else 0.4
 
 
 class ServeService:
@@ -608,7 +706,9 @@ class ServeService:
     records every terminal view and every refused arrival; `flight` (a
     FlightRecorder) exports a span tree per terminal view, and `span_log`
     (its JsonlExporter: --span-out) is what /v1/admin/spans drives. None
-    turns each off."""
+    turns each off. `mesh_shape` (dp, tp) is the mesh the engine serves on
+    ((1, 1): one device), advertised with the MFU of the whole mesh in the
+    /v1/metrics `mesh` block."""
 
     def __init__(self, engine: serving.ContinuousBatchEngine,
                  drain_timeout: float = 30.0,
@@ -617,8 +717,17 @@ class ServeService:
                  default_tenant: str = "anonymous", role: str = "mixed",
                  trace_writer: Optional[TraceWriter] = None,
                  flight: Optional[FlightRecorder] = None,
-                 span_log: Optional[JsonlExporter] = None):
+                 span_log: Optional[JsonlExporter] = None,
+                 mesh_shape=None):
         self._engine = engine
+        self.mesh_shape = tuple(int(x) for x in (mesh_shape or (1, 1)))
+        self.mesh_devices = self.mesh_shape[0] * self.mesh_shape[1]
+        # 2N FLOPs a token; getattr: stub engines without a param tree.
+        self._flops_per_token = 2.0 * count_weight_elements(
+            getattr(engine, "params", None),
+            getattr(engine, "cfg", None) if self.mesh_devices > 1 else None)
+        self._peak_tflops_per_device = peak_tflops_per_device(
+            getattr(engine, "device", torch.device("cpu")))
         self.role = str(role or "mixed")
         self._trace = trace_writer
         self._flight = flight
@@ -941,8 +1050,8 @@ class ServeService:
         (flight recorder on) and its metering: the tokens generated on
         this replica (a resume's committed tokens ran elsewhere) and the
         request's chip-seconds, its slot residency (admitted_at ->
-        done_at; queue wait holds no slot) times the one device over the
-        slots. A migrated view meters its tokens and residency but no
+        done_at; queue wait holds no slot) times the mesh's devices over
+        the slots. A migrated view meters its tokens and residency but no
         request: one generation counts once, where it completes."""
         self._trace_record(req, submitted_at, stream)
         if self._flight is not None and fctx is not None:
@@ -957,7 +1066,7 @@ class ServeService:
         self._meter.record(
             req.tenant or self.default_tenant, req.priority,
             max(0, len(req.tokens) - req.emit_from),
-            resident_s / max(1, self._engine.num_slots),
+            resident_s * self.mesh_devices / max(1, self._engine.num_slots),
             count_request=req.finish_reason != "migrated")
 
     def _trace_record(self, req, submitted_at: float, stream: bool) -> None:
@@ -1183,6 +1292,8 @@ class ServeService:
         m["request_lat_ms"] = self._req_lat.snapshot()
         m["role"] = self.role
         m["device"] = str(self._engine.device)
+        # The mesh's shape and MFU: the registry's mesh.devices source.
+        m["mesh"] = self._mesh_metrics(m)
         m["tenancy"] = self._tenancy_metrics()
         m["trace"] = self._trace_metrics()
         # The flight recorder's counters and phase windows (zeros when it
@@ -1193,6 +1304,27 @@ class ServeService:
         # total).
         m["faultlab"] = faultlab.snapshot()
         return m, busy, self._engine.num_slots
+
+    def _mesh_metrics(self, m: dict) -> dict:
+        """The /v1/metrics `mesh` block (the JAX serve's): the shape, and
+        achieved model FLOP/s (2N a token times the tokens/s) over the
+        whole mesh's peak, so tp overhead lowers it. After a device loss
+        the engine serves on one device: the advertised capacity shrinks
+        with it (devices 1, shape "degraded")."""
+        dp, tp = self.mesh_shape
+        degraded = bool(m.get("resilience", {}).get("mesh_degraded"))
+        devices = 1 if degraded else self.mesh_devices
+        mfu = (100.0 * m.get("aggregate_tokens_per_s", 0.0)
+               * self._flops_per_token
+               / (devices * self._peak_tflops_per_device * 1e12))
+        # 8 decimals: a small CPU model's MFU is ~1e-5 % and must not
+        # round to a dead gauge.
+        return {"devices": devices,
+                "dp": 1 if degraded else dp,
+                "tp": 1 if degraded else tp,
+                "shape": "degraded" if degraded else f"dp={dp},tp={tp}",
+                "degraded": int(degraded),
+                "per_slice_mfu_pct": round(mfu, 8)}
 
     def _tenancy_metrics(self) -> dict:
         """The /v1/metrics `tenancy` block: the meter's per-priority
@@ -1283,21 +1415,36 @@ def build_flight(args):
                           capture=capture), span_log
 
 
+def _finish_leaf(name: str, leaf: torch.Tensor, cfg: tf.TransformerConfig,
+                 int8: bool, device: Optional[torch.device] = None,
+                 mesh=None):
+    """One leaf of any param source, finished: moved to `device` (when
+    given), its f32 cast to the serve dtype, a matmul weight optionally
+    weight-only int8, and on a serving mesh cut to this rank's block."""
+    if device is not None:
+        leaf = leaf.to(device)
+    if leaf.dtype == torch.float32:
+        leaf = leaf.to(cfg.dtype)
+    if int8:
+        leaf = quantize_leaf(name, leaf)
+    if mesh is not None:
+        leaf = decode.shard_params_for_serving({name: leaf}, cfg, mesh)[name]
+    return leaf
+
+
 def _finish_params(params, cfg: tf.TransformerConfig, int8: bool,
-                   device: Optional[torch.device] = None):
+                   device: Optional[torch.device] = None, mesh=None):
     """The conditioning every param source goes through (random init,
-    checkpoint, reload): each leaf moved to `device` (when given) and its
-    f32 cast to the serve dtype before the next leaf moves, so the card
-    holds at most one f32 leaf beyond the served tree; then optional
-    weight-only int8."""
-    def cast(node):
-        if isinstance(node, dict):
-            return {k: cast(v) for k, v in node.items()}
-        if device is not None:
-            node = node.to(device)
-        return node.to(cfg.dtype) if node.dtype == torch.float32 else node
-    params = cast(params)
-    return quantize_params(params) if int8 else params
+    checkpoint, reload), leaf by leaf (`_finish_leaf`): each leaf is
+    finished before the next moves, so the card holds at most one full
+    leaf beyond the served tree (on a mesh: beyond the rank's blocks).
+    The cast and the int8 quantization are exact per-element steps and an
+    amax, so they give the same bits on the host as on the card."""
+    def walk(tree):
+        return {k: (walk(v) if isinstance(v, dict) else
+                    _finish_leaf(k, v, cfg, int8, device, mesh))
+                for k, v in tree.items()}
+    return walk(params)
 
 
 def _check_shapes(tree, shapes, path: str = "") -> None:
@@ -1345,21 +1492,27 @@ def serve_config(args, device: torch.device) -> tf.TransformerConfig:
         dtype=torch.bfloat16 if device.type == "cuda" else torch.float32)
 
 
-def build_engine(args) -> serving.ContinuousBatchEngine:
-    """The engine `args` describe, on a seeded random init."""
+def build_engine(args, mesh=None) -> serving.ContinuousBatchEngine:
+    """The engine `args` describe, on a seeded random init, each leaf
+    finished as it is drawn (every rank of a gang draws the same leaves and
+    keeps its blocks, one full leaf at a time)."""
     device = resolve_device(args.device)
     cfg = serve_config(args, device)
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
-    return make_engine(
-        args, _finish_params(tf.init_params(gen, cfg), cfg, args.int8))
+    return make_engine(args, tf.init_params(gen, cfg, finish=(
+        lambda name, t: _finish_leaf(name, t, cfg, args.int8, mesh=mesh))),
+        mesh)
 
 
-def make_engine(args, params) -> serving.ContinuousBatchEngine:
-    """The engine `args` describe, on `params` (finished, on the device)."""
+def make_engine(args, params, mesh=None) -> serving.ContinuousBatchEngine:
+    """The engine `args` describe, on `params`: finished and on the device,
+    on a serving mesh this rank's blocks
+    (models/decode.shard_params_for_serving)."""
     device = resolve_device(args.device)
+    cfg = serve_config(args, device)
     return serving.ContinuousBatchEngine(
-        params, serve_config(args, device), num_slots=args.num_slots,
+        params, cfg, num_slots=args.num_slots,
         max_seq=args.max_seq, prefill_len=args.prefill_len,
         decode_chunk=args.decode_chunk, max_queue=args.max_queue,
         prefill_interleave=args.prefill_interleave,
@@ -1378,7 +1531,8 @@ def make_engine(args, params) -> serving.ContinuousBatchEngine:
         spec_k=args.spec_k, spec_ngram=args.spec_ngram,
         kv_host_blocks=args.kv_host_blocks,
         kv_offload_watermark=args.kv_offload_watermark,
-        kv_gossip_interval=args.kv_gossip_interval, device=device)
+        kv_gossip_interval=args.kv_gossip_interval, mesh=mesh,
+        device=device)
 
 
 def eject_grace_s(drain_timeout: float, drain_eject_grace: float) -> float:
@@ -1439,13 +1593,56 @@ def watch_checkpoints(service: ServeService, directory: str,
                   flush=True)
 
 
+def check_mesh(args, parser: argparse.ArgumentParser, num_processes: int):
+    """The --mesh flag's (dp, tp) (None: one device), its errors in flag
+    language before the model loads (exit 2, the JAX serve's wording;
+    devices are the gang's processes, one device a process), and the
+    refusals of what a mesh does not serve yet."""
+    try:
+        mesh_shape = parse_mesh_flag(args.mesh)
+    except ValueError as e:
+        parser.error(str(e))
+    if mesh_shape is None:
+        if num_processes > 1:
+            parser.error(f"a gang of {num_processes} processes "
+                         f"(NUM_PROCESSES) serves on a --mesh of "
+                         f"{num_processes} devices")
+        return None
+    dp, tp = mesh_shape
+    if num_processes != dp * tp:
+        parser.error(f"--mesh {args.mesh} needs {dp * tp} devices; this "
+                     f"gang has {num_processes} (NUM_PROCESSES, one device "
+                     f"a process)")
+    for dim, value in (("--n-heads", args.n_heads), ("--d-ff", args.d_ff),
+                       ("--vocab-size", args.vocab_size)):
+        if value % tp:
+            parser.error(f"--mesh tp={tp} must divide {dim} ({value}) — "
+                         f"the Megatron split shards that axis with no "
+                         f"replicate fallback")
+    if not args.kv_block_len and args.num_slots % dp:
+        parser.error(f"--mesh dp={dp} must divide --num-slots "
+                     f"({args.num_slots}) — the dense KV cache's slot axis "
+                     f"shards over dp (paged engines via --kv-block-len "
+                     f"have no such constraint)")
+    if args.kv_host_blocks:
+        parser.error("--kv-host-blocks with --mesh is not ported yet "
+                     "(ROADMAP A11b, second part): the host tier's page "
+                     "demotes and restores must gather and scatter tp "
+                     "shards")
+    return mesh_shape
+
+
 def main(argv=None, *, stop: Optional[threading.Event] = None,
          on_ready: Optional[Callable[[int], None]] = None) -> int:
     """Serve until SIGTERM/SIGINT (or until `stop` is set, for a caller
     that runs the server in a thread; `on_ready` then gets the bound
-    port), drain, exit 0."""
+    port), drain, exit 0. With --mesh the process is one rank of a gang
+    (the launcher env): rank 0 serves, the others run the programs it
+    broadcasts and exit 0 when it stops them."""
     parser = build_parser()
     args = parse_with_config(parser, "serve", argv)
+    mesh_shape = check_mesh(args, parser,
+                            int(os.environ.get("NUM_PROCESSES", "1")))
     if args.kv_num_blocks and not args.kv_block_len:
         # A pool size without a page size would silently build the dense
         # engine; fail fast instead.
@@ -1484,17 +1681,43 @@ def main(argv=None, *, stop: Optional[threading.Event] = None,
         print(f"[faultlab] ACTIVE: {fault_plan!r}", flush=True)
     auth_token = resolve_auth_token(args.auth_token)
     meter = build_meter(args, parser)
+    gang, mesh = None, None
+    if mesh_shape is not None:
+        gang, mesh = bootstrap.initialize_serving(mesh_shape,
+                                                  device=args.device)
     device = resolve_device(args.device)
-    loader = make_params_loader(serve_config(args, device),
-                                args.checkpoint_dir, args.int8, device)
+    cfg = serve_config(args, device)
+    # On a mesh a checkpoint is finished on the host: only each rank's
+    # blocks reach its card, and a reload's full tree stays on the host.
+    loader = make_params_loader(cfg, args.checkpoint_dir, args.int8,
+                                device if mesh is None
+                                else torch.device("cpu"))
     ckpt_step = None
     if args.checkpoint_dir:
         params, ckpt_step = loader()
         print(f"restored params from step {ckpt_step}", flush=True)
-        engine = make_engine(args, params)
+        if mesh is not None:
+            params = decode.shard_params_for_serving(params, cfg, mesh,
+                                                     device)
+        engine = make_engine(args, params, mesh)
         del params
     else:
-        engine = build_engine(args)
+        engine = build_engine(args, mesh)
+    if mesh is not None:
+        print(f"serving mesh {mesh.describe()} ({mesh.size} devices), rank "
+              f"{mesh.rank}", flush=True)
+        if not mesh.is_driver:
+            if threading.current_thread() is threading.main_thread():
+                # A follower ends when the driver stops the gang (its drain
+                # is the gang's), not on its own signal.
+                signal.signal(signal.SIGTERM, signal.SIG_IGN)
+                signal.signal(signal.SIGINT, signal.SIG_IGN)
+            try:
+                engine.follow()
+            finally:
+                gang.close()
+            print(f"rank {mesh.rank} stopped", flush=True)
+            return 0
     # Traffic-trace capture and the flight recorder, each off unless asked.
     trace_writer = TraceWriter(args.trace_out) if args.trace_out else None
     flight, span_log = build_flight(args)
@@ -1508,7 +1731,8 @@ def main(argv=None, *, stop: Optional[threading.Event] = None,
                            default_tenant=args.default_tenant,
                            role="mixed" if args.disagg == "off"
                            else args.disagg, trace_writer=trace_writer,
-                           flight=flight, span_log=span_log)
+                           flight=flight, span_log=span_log,
+                           mesh_shape=mesh_shape)
     service.last_swapped_step = ckpt_step
     server = ThreadingHTTPServer(("0.0.0.0", args.port),
                                  make_handler(service, auth_token))
@@ -1568,6 +1792,10 @@ def main(argv=None, *, stop: Optional[threading.Event] = None,
             service.wait_drained(max(0.5, flush_reserve - 0.5))
             time.sleep(0.5)      # let streams flush their migrate frames
         service.stop()
+        # The followers leave their loop; the gang's group is left.
+        engine.stop_followers()
+        if gang is not None:
+            gang.close()
         if trace_writer is not None:
             trace_writer.close()
         if span_log is not None:

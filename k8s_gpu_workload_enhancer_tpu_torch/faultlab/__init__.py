@@ -7,6 +7,7 @@ from .core import (                                        # noqa: F401
     ENV_SITES,
     SITES,
     FaultPlan,
+    InjectedDeviceLoss,
     InjectedFault,
     TargetedPlan,
     activate,

@@ -1,7 +1,7 @@
 """FaultLab: the deterministic, seed-driven fault-injection plane.
 
 The port's own copy of the JAX package's faultlab, cut to the serving
-engine's sites and the host KV tier's: the same environment contract
+engine's sites (the mesh's device loss included) and the host KV tier's: the same environment contract
 (``KTWE_FAULT_SEED``, ``KTWE_FAULT_RATE``, ``KTWE_FAULT_SITES``) and the
 same schedule, so one seed injects the same faults at the same crossings
 in both packages.
@@ -41,8 +41,15 @@ class InjectedFault(RuntimeError):
     path under test must absorb it."""
 
 
+class InjectedDeviceLoss(RuntimeError):
+    """A device died under a meshed dispatch: the engine answers with the
+    degraded-mesh evacuation (every live request ejected as a resume frame,
+    the engine rebuilt on what remains), never with per-request failure."""
+
+
 # The engine's and the host KV tier's sites: name -> (kind, what the fault
-# models). Every one is of kind "error", as in the JAX package's table.
+# models), as in the JAX package's table. A site of kind "error" raises
+# InjectedFault, "device-loss" InjectedDeviceLoss.
 SITES: Dict[str, Tuple[str, str]] = {
     "engine.dispatch": ("error", "decode/verify dispatch fault"),
     "engine.collect": ("error", "chunk-fetch/collect fault"),
@@ -54,6 +61,9 @@ SITES: Dict[str, Tuple[str, str]] = {
                                "for one request"),
     "engine.prefill": ("error", "prompt-prefill fault mid-admission"),
     "engine.paged_admit": ("error", "paged-pool admission fault"),
+    # Crossed only by an engine on a serving mesh, after engine.dispatch.
+    "engine.device_loss": ("device-loss",
+                           "device lost under a meshed dispatch"),
     # The host KV tier (models/kvhost.py): all three are CONTAINED by
     # construction — every degraded path ends in re-prefill, never wrong
     # tokens. A dma fault means the eviction victim discards exactly as
@@ -179,10 +189,13 @@ def site(name: str) -> None:
             _injections[name] = _injections.get(name, 0) + 1
             _last = (name, occ)
     if fire:
-        raise InjectedFault(
-            f"[faultlab] injected error fault: site={name} "
-            f"occurrence={occ} seed={p.seed} "
-            f"(replay: {ENV_SEED}={p.seed})")
+        kind = SITES.get(name, ("error", ""))[0]
+        detail = (f"[faultlab] injected {kind} fault: site={name} "
+                  f"occurrence={occ} seed={p.seed} "
+                  f"(replay: {ENV_SEED}={p.seed})")
+        if kind == "device-loss":
+            raise InjectedDeviceLoss(detail)
+        raise InjectedFault(detail)
 
 
 def injections_total() -> int:

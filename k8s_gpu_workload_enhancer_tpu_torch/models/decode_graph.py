@@ -77,6 +77,12 @@ class DecodeGraph:
         self.replays += 1
         kernels.launches.update(self.launches)
 
+    def reset(self) -> None:
+        """Drop the captured graph: the storage it reads was replaced (a
+        device-state rebuild), so the next replay captures again."""
+        self._graph = None
+        self.launches = collections.Counter()
+
     def _capture(self, run: Callable[[], None]) -> None:
         t0 = time.perf_counter()
         stream = torch.cuda.current_stream(self.device)

@@ -1,4 +1,4 @@
-"""Continuous-batching serving engine for KTWE-LM (one device).
+"""Continuous-batching serving engine for KTWE-LM (one device or a mesh).
 
 Port of the dense and the paged engine of
 k8s_gpu_workload_enhancer_tpu/models/serving.py.
@@ -204,8 +204,42 @@ weight swap clears the tier (its blocks are the old weights' KV).
 dispatched it (the JAX engine's `overlap=False`): no chunk stays in flight
 across steps, which changes no token.
 
-Not ported here (a later slice): meshes (and the `engine.device_loss`
-site).
+**Serving meshes** (`mesh=`, a parallel/mesh.ServingMesh of (dp, tp); the
+JAX engine's `mesh`). The gang is one driver and its followers: rank 0
+runs all of the host logic above (admission, the radix tree and leases,
+preemption, the drafter, FaultLab, the HTTP server around it), and every
+device program (a decode chunk, a verify round, a prefill step or final,
+a temp cache's making, the paged commit, a park, a weight swap's staging)
+goes through `_prog`: the driver broadcasts a small header (the program's
+name and its host inputs: tokens, positions, tables, drafts, the noise's
+keys) and every rank then runs the same program on its own shard of the
+params and of the cache or pool; the followers (`follow`) hold no host
+state and loop on headers until `stop_followers` (or the degrade). The
+programs do their own collectives (decode.py's meshed forward; here the
+tp sums after `wo` and `w_down`, the vocab-parallel embedding, the logits
+gathered over tp before sampling, so every tp rank samples the same
+token, and on the dense engine the packed tokens gathered over dp in slot
+order), so rank 0 reads back what one device would. Running the engine in
+lockstep on every rank instead would diverge: `_chunk_ready`, the
+watchdog and the collect clock read device state and wall time, and two
+ranks taking different dispatch decisions hang the collectives. The
+dense engine's slots shard over dp (num_slots % dp, the JAX check); the
+paged pool holds the rank's KV heads and replicates over dp. On a mesh
+above one rank the programs run the plain ops (the JAX package runs no
+Pallas kernel there) and eager (no graph); a mesh of one rank runs the
+single-device programs, kernels and graphs. Refused on a mesh: the host
+KV tier (ROADMAP A11b, second part) and MoE above one rank (A11c).
+
+**The degraded-mesh evacuation.** A dispatch on a mesh crosses
+`engine.device_loss` after `engine.dispatch`; a device loss there ejects
+every live request (queued, prefilling, decoding) as a reason="evacuate"
+resume frame (`errors.device_loss`, `evacuated_total`), then the driver
+gathers the full weights over the gang (where a deployment restores a
+checkpoint), which releases the followers, and serves on one device with
+the paged decode kernel off and a fresh device state (`mesh_degraded`);
+the decode graphs of a mesh of one rank read the old state, so they are
+dropped and captured again.
+
 Tenant metering and budgets live in the serve main (cost/cost_engine.py):
 the engine only carries each request's tenant. The serve main also
 advertises the disaggregated role.
@@ -215,6 +249,7 @@ from __future__ import annotations
 
 import functools
 import time
+import weakref
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
@@ -223,8 +258,6 @@ import numpy as np
 import torch
 
 from ..ops.attention import NEG_INF, rope_frequencies
-from ..ops.embed import embed_tokens
-from ..ops.layers import rms_norm
 from ..ops.paged_attention import paged_decode_attention
 from ..ops.quant import as_compute
 from .. import faultlab
@@ -250,6 +283,25 @@ def _copy_leaves(dst, src) -> None:
         return
     with torch.no_grad():
         dst.copy_(src)
+
+
+def _flat_leaves(tree, prefix: str = "") -> List[Tuple[str, torch.Tensor]]:
+    """(path, tensor) of every leaf of a param tree, in its order."""
+    if isinstance(tree, dict):
+        return [kv for k, v in tree.items()
+                for kv in _flat_leaves(v, f"{prefix}/{k}")]
+    return [(prefix, tree)]
+
+
+def _unflat_leaves(leaves: List[Tuple[str, torch.Tensor]]) -> Params:
+    tree: Params = {}
+    for path, t in leaves:
+        node = tree
+        parts = path.strip("/").split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = t
+    return tree
 
 
 def _check_same_tree(old, new, path: str = "") -> None:
@@ -429,10 +481,12 @@ def _attend_rows(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
 
 
 def _dense_attend(cache: decode.KVCache, pos: torch.Tensor,
-                  cfg: tf.TransformerConfig) -> Attend:
+                  cfg: tf.TransformerConfig,
+                  kv_idx: Optional[torch.Tensor] = None) -> Attend:
     """Decode attention over the dense cache: layer `layer`'s new K/V rows
     (quantized first on an int8 cache) go in place at pos[b] of each slot,
-    then each slot attends j <= pos[b]."""
+    then each slot attends j <= pos[b] (through `kv_idx`'s KV heads where
+    they are replicated over tp)."""
     s_max = cache.max_seq
     mask = (torch.arange(s_max, device=pos.device)[None, :]
             <= pos[:, None])                                        # (B, S)
@@ -446,22 +500,29 @@ def _dense_attend(cache: decode.KVCache, pos: torch.Tensor,
             ks, vs = cache.kscale[layer], cache.vscale[layer]
         _write_slot(cache.k[layer], k, pos)
         _write_slot(cache.v[layer], v, pos)
-        return _attend_rows(q, cache.k[layer], cache.v[layer], ks, vs, mask)
+        return _attend_rows(q, decode.pick_heads(cache.k[layer], kv_idx),
+                            decode.pick_heads(cache.v[layer], kv_idx),
+                            decode.pick_heads(ks, kv_idx),
+                            decode.pick_heads(vs, kv_idx), mask)
     return attend
 
 
 def _paged_attend(pool: decode.KVCache, table: torch.Tensor,
-                  pos: torch.Tensor, block_len: int) -> Attend:
+                  pos: torch.Tensor, block_len: int, paged_kernel: bool = True,
+                  kv_idx: Optional[torch.Tensor] = None) -> Attend:
     """Decode attention through the block table: layer `layer`'s new K/V
     rows go in place at each slot's physical row of pos[b] (a parked slot's
     land in the trash page), then each slot attends j <= pos[b] through the
     paged decode kernel, page by page. An int8 pool never reaches the
-    kernel (the JAX engine's paged kernel is off under int8 too): its rows
-    are gathered in logical order (`paged_rows`) for the dense engine's
-    function."""
+    kernel (the JAX engine's paged kernel is off under int8 too), nor does
+    an engine whose `paged_kernel` is off (a mesh, a degraded engine): its
+    rows are gathered in logical order (`paged_rows`) for the dense
+    engine's function, through `kv_idx`'s KV heads where they are
+    replicated over tp."""
     nb, bl, nkh, hd = pool.k.shape[1:]
     wrow = decode.paged_rows(table, pos[:, None], block_len)[:, 0]   # (B,)
-    if pool.quantized:
+    gather = pool.quantized or not paged_kernel
+    if gather:
         s_max = table.shape[1] * block_len
         jpos = torch.arange(s_max, device=pos.device)[None, :]
         rows = decode.paged_rows(table, jpos, block_len)            # (B, S)
@@ -482,8 +543,11 @@ def _paged_attend(pool: decode.KVCache, table: torch.Tensor,
         fv = pool.v[layer].view(nb * bl, nkh, hd)
         fk[wrow] = k
         fv[wrow] = v
-        if pool.quantized:
-            return _attend_rows(q, fk[rows], fv[rows], ks, vs, mask)
+        if gather:
+            return _attend_rows(q, decode.pick_heads(fk[rows], kv_idx),
+                                decode.pick_heads(fv[rows], kv_idx),
+                                decode.pick_heads(ks, kv_idx),
+                                decode.pick_heads(vs, kv_idx), mask)
         return paged_decode_attention(q, pool.k[layer], pool.v[layer],
                                       table, pos32, block_len=block_len)
     return attend
@@ -491,33 +555,31 @@ def _paged_attend(pool: decode.KVCache, table: torch.Tensor,
 
 def _decode_step(params: Params, toks: torch.Tensor, pos: torch.Tensor,
                  cfg: tf.TransformerConfig, freqs: torch.Tensor,
-                 sampling: _Sampling, step: int, attend: Attend
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+                 sampling: _Sampling, step: int, attend: Attend,
+                 mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Step `step` of a chunk: one batched decode step at per-slot
     positions. toks, pos: (B,). `attend` writes each layer's new K/V rows
-    and returns its attention. Returns (next token (B,) int64, its logprob
-    (B,) f32)."""
+    and returns its attention. On a mesh above one rank `params` are the
+    rank's blocks (its heads, MLP hidden and vocab): a tp sum after `wo`
+    and after `w_down`, the logits gathered over tp before sampling.
+    Returns (next token (B,) int64, its logprob (B,) f32)."""
     dt = cfg.dtype
     b = toks.shape[0]
-    nh, nkh, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
-    x = embed_tokens(params["embed"], toks, d, dt)                 # (B, D)
+    hd, d = cfg.head_dim, cfg.d_model
+    x = decode.embed(params, toks, cfg, mesh)                       # (B, D)
     for layer in range(cfg.n_layers):
         lp = tf.layer_params(params, layer)
-        h = rms_norm(x, lp["ln1"])
-        q = (h @ as_compute(lp["wq"], dt).reshape(d, nh * hd)
-             ).reshape(b, nh, hd)
-        k = (h @ as_compute(lp["wk"], dt).reshape(d, nkh * hd)
-             ).reshape(b, nkh, hd)
-        v = (h @ as_compute(lp["wv"], dt).reshape(d, nkh * hd)
-             ).reshape(b, nkh, hd)
+        h = decode.norm(x, lp["ln1"], mesh)
+        q = (h @ as_compute(lp["wq"], dt).reshape(d, -1)).reshape(b, -1, hd)
+        k = (h @ as_compute(lp["wk"], dt).reshape(d, -1)).reshape(b, -1, hd)
+        v = (h @ as_compute(lp["wv"], dt).reshape(d, -1)).reshape(b, -1, hd)
         o = attend(layer, _rope_at(q, freqs, pos), _rope_at(k, freqs, pos), v)
-        x = x + (o.reshape(b, nh * hd)
-                 @ as_compute(lp["wo"], dt).reshape(nh * hd, d))
-        h2 = rms_norm(x, lp["ln2"])
-        x = x + decode.ffn(h2, lp, cfg)
-    x = rms_norm(x, params["final_ln"])
-    head = as_compute(tf.output_head(params, cfg), dt)
-    logits = (x @ head).float()                                     # (B, V)
+        x = x + decode.tp_sum(o.reshape(b, -1)
+                              @ as_compute(lp["wo"], dt).reshape(-1, d), mesh)
+        h2 = decode.norm(x, lp["ln2"], mesh)
+        x = x + decode.tp_sum(decode.ffn(h2, lp, cfg), mesh)
+    x = decode.norm(x, params["final_ln"], mesh)
+    logits = decode.head_logits(x, params, cfg, mesh)               # (B, V)
     nxt = sampling.sample(logits, step)
     # Model logprob of the chosen token (raw log-softmax, independent of
     # the sampling filters).
@@ -581,7 +643,7 @@ class _HostCopy:
 def _steps(params: Params, toks: torch.Tensor, pos: torch.Tensor,
            cfg: tf.TransformerConfig, steps: int, freqs: torch.Tensor,
            sampling: _Sampling, s_max: int,
-           attend_at: Callable[[torch.Tensor], Attend]
+           attend_at: Callable[[torch.Tensor], Attend], mesh=None
            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """`steps` decode steps, attending through `attend_at(pos)`. Returns
     the packed (C, B, 2) int32 result, the last step's tokens and the
@@ -590,7 +652,7 @@ def _steps(params: Params, toks: torch.Tensor, pos: torch.Tensor,
     out, lps = [], []
     for n in range(steps):
         toks, lp = _decode_step(params, toks, pos, cfg, freqs, sampling, n,
-                                attend_at(pos))
+                                attend_at(pos), mesh)
         out.append(toks)
         lps.append(lp)
         pos = torch.clamp(pos + 1, max=s_max - 1)
@@ -599,25 +661,30 @@ def _steps(params: Params, toks: torch.Tensor, pos: torch.Tensor,
 
 def _decode_chunk(params: Params, cache: decode.KVCache, toks: torch.Tensor,
                   pos: torch.Tensor, cfg: tf.TransformerConfig, steps: int,
-                  freqs: torch.Tensor, sampling: _Sampling
+                  freqs: torch.Tensor, sampling: _Sampling, mesh=None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """`steps` decode steps over the dense cache."""
+    """`steps` decode steps over the dense cache (on a mesh: the rank's
+    slots, toks and pos its rows)."""
+    kv_idx = decode.kv_index(cfg, mesh, toks.device)
     return _steps(params, toks, pos, cfg, steps, freqs, sampling,
-                  cache.max_seq, lambda p: _dense_attend(cache, p, cfg))
+                  cache.max_seq, lambda p: _dense_attend(cache, p, cfg,
+                                                         kv_idx), mesh)
 
 
 def _decode_chunk_paged(params: Params, pool: decode.KVCache,
                         table: torch.Tensor, toks: torch.Tensor,
                         pos: torch.Tensor, cfg: tf.TransformerConfig,
                         steps: int, freqs: torch.Tensor, sampling: _Sampling,
-                        block_len: int
+                        block_len: int, mesh=None, paged_kernel: bool = True
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """`steps` decode steps through the block table (B, MB) int32, which
     does not change within a chunk: a reservation covers the request's
     whole prompt + max_new span from admission."""
+    kv_idx = decode.kv_index(cfg, mesh, toks.device)
     return _steps(params, toks, pos, cfg, steps, freqs, sampling,
                   table.shape[1] * block_len,
-                  lambda p: _paged_attend(pool, table, p, block_len))
+                  lambda p: _paged_attend(pool, table, p, block_len,
+                                          paged_kernel, kv_idx), mesh)
 
 
 def _attend_block(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
@@ -644,7 +711,8 @@ def _verify_block(params: Params, cache: decode.KVCache,
                   block: torch.Tensor, pos: torch.Tensor,
                   cfg: tf.TransformerConfig, freqs: torch.Tensor,
                   sampling: _Sampling, table: Optional[torch.Tensor],
-                  block_len: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                  block_len: int, mesh=None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One batched multi-token verify step at per-slot positions.
 
     block: (B, T) candidate tokens (T = spec_k + 1; row 0 is the slot's
@@ -657,11 +725,14 @@ def _verify_block(params: Params, cache: decode.KVCache,
     reads each slot's rows in logical order (the paged decode kernel is
     single-token, as the JAX engine's). Row 0 samples with `sampling`'s
     first noise row (a sampled slot never drafts, so its row 0 is the only
-    row it can commit); rows 1.. take the argmax. Returns (out (B, T)
+    row it can commit); rows 1.. take the argmax. On a mesh the rank's
+    heads, MLP hidden and vocab, as in `_decode_step`. Returns (out (B, T)
     int64, the model logprobs of out (B, T) f32)."""
     dt = cfg.dtype
     b, t = block.shape
-    nh, nkh, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
+    hd, d = cfg.head_dim, cfg.d_model
+    nkh = cache.k.shape[3]
+    kv_idx = decode.kv_index(cfg, mesh, block.device)
     paged = table is not None
     s_max = table.shape[1] * block_len if paged else cache.max_seq
     wrows = decode.spec_write_rows(pos, t, s_max)                 # (B, T)
@@ -673,17 +744,17 @@ def _verify_block(params: Params, cache: decode.KVCache,
         nb, bl = cache.k.shape[1:3]
         rows_all = decode.paged_rows(table, jpos[None, :], block_len)
         wphys = decode.paged_rows(table, wrows, block_len).reshape(b * t)
-    x = embed_tokens(params["embed"], block, d, dt)               # (B, T, D)
+    x = decode.embed(params, block, cfg, mesh)                    # (B, T, D)
     for layer in range(cfg.n_layers):
         lp = tf.layer_params(params, layer)
-        h = rms_norm(x.reshape(b * t, d), lp["ln1"])
-        q = (h @ as_compute(lp["wq"], dt).reshape(d, nh * hd)
-             ).reshape(b * t, nh, hd)
+        h = decode.norm(x.reshape(b * t, d), lp["ln1"], mesh)
+        q = (h @ as_compute(lp["wq"], dt).reshape(d, -1)
+             ).reshape(b * t, -1, hd)
         k = (h @ as_compute(lp["wk"], dt).reshape(d, nkh * hd)
              ).reshape(b * t, nkh, hd)
         v = (h @ as_compute(lp["wv"], dt).reshape(d, nkh * hd)
              ).reshape(b, t, nkh, hd)
-        q = _rope_at(q, freqs, flat_rows).reshape(b, t, nh, hd)
+        q = _rope_at(q, freqs, flat_rows).reshape(b, t, -1, hd)
         k = _rope_at(k, freqs, flat_rows).reshape(b, t, nkh, hd)
         if paged:
             fk = cache.k[layer].view(nb * bl, nkh, hd)
@@ -695,15 +766,15 @@ def _verify_block(params: Params, cache: decode.KVCache,
             decode.scatter_rows(cache.k[layer], k, wrows)
             decode.scatter_rows(cache.v[layer], v, wrows)
             ka, va = cache.k[layer], cache.v[layer]
-        o = _attend_block(q, ka, va, mask)
-        x = x + (o.reshape(b * t, nh * hd)
-                 @ as_compute(lp["wo"], dt).reshape(nh * hd, d)
-                 ).reshape(b, t, d)
-        h2 = rms_norm(x.reshape(b * t, d), lp["ln2"])
-        x = x + decode.ffn(h2, lp, cfg).reshape(b, t, d)
-    x = rms_norm(x.reshape(b * t, d), params["final_ln"])
-    head = as_compute(tf.output_head(params, cfg), dt)
-    logits = (x @ head).float().reshape(b, t, -1)
+        o = _attend_block(q, decode.pick_heads(ka, kv_idx),
+                          decode.pick_heads(va, kv_idx), mask)
+        x = x + decode.tp_sum(o.reshape(b * t, -1)
+                              @ as_compute(lp["wo"], dt).reshape(-1, d),
+                              mesh).reshape(b, t, d)
+        h2 = decode.norm(x.reshape(b * t, d), lp["ln2"], mesh)
+        x = x + decode.tp_sum(decode.ffn(h2, lp, cfg), mesh).reshape(b, t, d)
+    x = decode.norm(x.reshape(b * t, d), params["final_ln"], mesh)
+    logits = decode.head_logits(x, params, cfg, mesh).reshape(b, t, -1)
     out = torch.cat([sampling.sample(logits[:, 0], 0)[:, None],
                      torch.argmax(logits[:, 1:], dim=-1)], dim=1)
     lps = torch.log_softmax(logits, dim=-1).gather(2, out[..., None])[..., 0]
@@ -714,7 +785,7 @@ def _spec_verify(params: Params, cache: decode.KVCache, block: torch.Tensor,
                  draft_len: torch.Tensor, pos: torch.Tensor,
                  cfg: tf.TransformerConfig, freqs: torch.Tensor,
                  sampling: _Sampling, table: Optional[torch.Tensor],
-                 block_len: int
+                 block_len: int, mesh=None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Verify and accept, on the device: `_verify_block`, then each slot's
     emitted count (speculative.accept_counts), its next token (the last
@@ -726,7 +797,7 @@ def _spec_verify(params: Params, cache: decode.KVCache, block: torch.Tensor,
     s_max = table.shape[1] * block_len if table is not None \
         else cache.max_seq
     out, lps = _verify_block(params, cache, block, pos, cfg, freqs,
-                             sampling, table, block_len)
+                             sampling, table, block_len, mesh)
     emitted = speculative.accept_counts(block[:, 1:], out, draft_len)
     cur = out.gather(1, (emitted - 1)[:, None])[:, 0]
     packed = torch.cat([out.to(torch.int32),
@@ -736,36 +807,39 @@ def _spec_verify(params: Params, cache: decode.KVCache, block: torch.Tensor,
 
 
 def _init_temp_cache(cfg: tf.TransformerConfig, max_seq: int,
-                     device) -> decode.KVCache:
-    """Batch-1 temp prefill cache."""
-    return decode.init_cache(cfg, 1, max_seq, device)
+                     device, mesh=None) -> decode.KVCache:
+    """Batch-1 temp prefill cache (on a mesh: the rank's KV heads; every
+    dp rank holds one)."""
+    return decode.init_cache(cfg, 1, max_seq, device, mesh)
 
 
 def _prefill_step(params: Params, temp: decode.KVCache, chunk: torch.Tensor,
                   cfg: tf.TransformerConfig, offset: int,
-                  freqs: torch.Tensor) -> decode.KVCache:
+                  freqs: torch.Tensor, mesh=None) -> decode.KVCache:
     """One NON-final prefill chunk: advance the temp cache over `chunk`
     (1, P) of real tokens at global offset `offset`; the logits are
     discarded."""
     _, temp = decode.forward_cached(params, chunk, temp, offset, cfg,
-                                    freqs=freqs)
+                                    freqs=freqs, mesh=mesh)
     return temp
 
 
 def _prefill_final(params: Params, cache: decode.KVCache,
-                   temp: decode.KVCache, chunk: torch.Tensor, slot: int,
-                   plen: int, cfg: tf.TransformerConfig, offset: int,
-                   freqs: torch.Tensor,
-                   sampling: _Sampling) -> Tuple[torch.Tensor, torch.Tensor]:
+                   temp: decode.KVCache, chunk: torch.Tensor,
+                   slot: Optional[int], plen: int, cfg: tf.TransformerConfig,
+                   offset: int, freqs: torch.Tensor, sampling: _Sampling,
+                   mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Final prefill chunk: advance the temp cache over the (padded) last
-    `chunk`, copy the whole temp cache into engine slot `slot`, and sample
-    the first token from the logits at plen - 1 (plen = real tokens in this
-    chunk). Pad rows hold garbage K/V that decode overwrites before the
-    mask ever reaches them. Returns (token, logprob) device scalars."""
+    `chunk`, copy the whole temp cache into cache row `slot` (None: the
+    slot lives on another dp rank, which writes it), and sample the first
+    token from the logits at plen - 1 (plen = real tokens in this chunk).
+    Pad rows hold garbage K/V that decode overwrites before the mask ever
+    reaches them. Returns (token, logprob) device scalars."""
     logits, temp = decode.forward_cached(params, chunk, temp, offset, cfg,
-                                         freqs=freqs)
-    for big, small in zip(cache.leaves(), temp.leaves()):
-        big[:, slot].copy_(small[:, 0])
+                                         freqs=freqs, mesh=mesh)
+    if slot is not None:
+        for big, small in zip(cache.leaves(), temp.leaves()):
+            big[:, slot].copy_(small[:, 0])
     return _first_token(logits[0, plen - 1], sampling)
 
 
@@ -825,15 +899,29 @@ def _prefill_final_paged(params: Params, pool: decode.KVCache,
                          row: np.ndarray, write_from: int, write_to: int,
                          plen: int, cfg: tf.TransformerConfig, offset: int,
                          freqs: torch.Tensor, sampling: _Sampling,
-                         block_len: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                         block_len: int, mesh=None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Paged twin of _prefill_final: advance the temp cache over the
     (padded) last chunk, commit rows [write_from, write_to) — the part of
     the prompt no shared page holds — into the slot's pages, and sample the
     first token from the logits at plen - 1 (real tokens in this chunk)."""
     logits, temp = decode.forward_cached(params, chunk, temp, offset, cfg,
-                                         freqs=freqs)
+                                         freqs=freqs, mesh=mesh)
     _commit_rows(pool, temp, row, write_from, write_to, block_len)
     return _first_token(logits[0, plen - 1], sampling)
+
+
+@dataclass(frozen=True)
+class _Tag:
+    """A temp prefill cache named on the wire: the driver's temp and each
+    follower's of the same tag hold the same rows, each of its rank's
+    shard."""
+    tag: int
+
+
+# Device programs that make a temp cache: the driver names it (its tag
+# rides the header) and every follower files its own under that name.
+_MAKES_TEMP = frozenset({"temp_new", "temp_clone", "temp_from_pool"})
 
 
 def _chunk_ready(inflight) -> bool:
@@ -1032,7 +1120,8 @@ class ContinuousBatchEngine:
                  spec_ngram: int = 3, spec_adaptive: bool = True,
                  drafter: Optional[Callable] = None, overlap: bool = True,
                  kv_host_blocks: int = 0, kv_offload_watermark: float = 0.0,
-                 kv_gossip_interval: float = 30.0, device="cuda"):
+                 kv_gossip_interval: float = 30.0, mesh=None,
+                 device="cuda"):
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
             raise ValueError(f"params live on {params['embed'].device}, the "
@@ -1041,6 +1130,39 @@ class ContinuousBatchEngine:
         self.cfg = cfg
         self.num_slots = int(num_slots)
         self.max_seq = int(max_seq or cfg.max_seq)
+        # The serving mesh (see the module notes): `mesh` is this rank's
+        # place on the gang; `_layout` the mesh the programs see, None on
+        # one device and on a mesh of one rank (the single-device
+        # programs, kernels and graphs).
+        self.mesh = mesh
+        if mesh is not None:
+            if kv_host_blocks:
+                raise ValueError(
+                    "the host KV tier (kv_host_blocks) on a serving mesh is "
+                    "not ported yet (ROADMAP A11b, second part): its page "
+                    "demotes and restores must gather and scatter tp shards")
+            if cfg.is_moe and mesh.size > 1:
+                raise ValueError(
+                    "MoE on a serving mesh needs expert parallelism, not "
+                    "ported yet (ROADMAP A11c)")
+            if not kv_block_len and self.num_slots % mesh.dp:
+                raise ValueError(
+                    f"num_slots {num_slots} must divide over the mesh's "
+                    f"batch axes (dp*ep = {mesh.dp}) — the KV cache's slot "
+                    f"dim shards over them")
+        self._layout = mesh if decode.meshed(mesh) else None
+        # The paged decode kernel runs on one device only (the JAX engine
+        # gates its Pallas kernel off on a mesh, and off after a device
+        # loss).
+        self._paged_kernel = self._layout is None
+        # Temp caches by tag (followers), the next tag and the tags of the
+        # driver's temps that died since its last header.
+        self._temp_caches: Dict[int, decode.KVCache] = {}
+        self._next_tag = 0
+        self._dead_tags: deque = deque()
+        self._staged: Optional[Params] = None
+        self._swap_src: Optional[Params] = None
+        self._stopped = False
         # Chunked prefill: the value replaces prefill_len as the prompt
         # slice, and a prefill backlog drops decode to the short quantum.
         self.prefill_chunk_tokens = int(prefill_chunk_tokens or 0)
@@ -1117,6 +1239,13 @@ class ContinuousBatchEngine:
         self._seed = int(seed)
         self.kv_block_len = int(kv_block_len or 0)
         self._paged = self.kv_block_len > 0
+        # The slots this rank's cache holds: all of them, but on a dense
+        # engine on a mesh its dp block (a paged pool replicates over dp).
+        dp = (self._layout.dp if self._layout is not None and not self._paged
+              else 1)
+        nloc = self.num_slots // dp
+        r = self._layout.dp_rank if dp > 1 else 0
+        self._rows = (r * nloc, (r + 1) * nloc)
         if self._paged:
             if self.max_seq % self.kv_block_len:
                 raise ValueError(f"max_seq {self.max_seq} must be a multiple "
@@ -1136,11 +1265,11 @@ class ContinuousBatchEngine:
             self._table_d = torch.zeros((self.num_slots, self._max_blocks),
                                         dtype=torch.int32, device=self.device)
             self._cache = decode.init_paged_pool(cfg, nb, self.kv_block_len,
-                                                 self.device)
+                                                 self.device, self._layout)
         else:
             self.kv_num_blocks = 0
-            self._cache = decode.init_cache(cfg, self.num_slots,
-                                            self.max_seq, self.device)
+            self._cache = decode.init_cache(cfg, nloc, self.max_seq,
+                                            self.device, self._layout)
         # The host KV tier (paged only): radix eviction demotes into it and
         # admission prefetches from it (the module notes).
         self.kv_host_blocks = (int(kv_host_blocks or 0)
@@ -1204,7 +1333,9 @@ class ContinuousBatchEngine:
         self._last_collect_t: Optional[float] = None
         # One decode graph a chunk length, each captured on its first
         # dispatch: the full chunk's, and the quantum's when it differs.
-        graphed = cuda_graph and dev.type == "cuda"
+        # A mesh above one rank runs eager: its chunk's collectives are not
+        # captured (ROADMAP's held list).
+        graphed = cuda_graph and dev.type == "cuda" and self._layout is None
         self._graph = decode_graph.DecodeGraph(dev) if graphed else None
         self._quantum_graph = (
             decode_graph.DecodeGraph(dev, "decode quantum")
@@ -1241,8 +1372,21 @@ class ContinuousBatchEngine:
         self._prefill_chunks_total = 0
         # Contained failures by cause (the JAX engine's keys).
         self._errors_total = {"dispatch": 0, "collect": 0, "commit": 0,
-                              "prefill": 0, "watchdog": 0}
+                              "prefill": 0, "watchdog": 0,
+                              # A device lost under a meshed dispatch:
+                              # answered by evacuation, never per-request
+                              # failure; a prefix the degraded rebuild
+                              # could not pin again.
+                              "device_loss": 0, "prefix_repin": 0}
         self._watchdog_trips = 0
+        # The degraded-mesh evacuation: requests ejected as
+        # reason="evacuate" frames, and whether the engine serves on one
+        # device after a device loss.
+        self._evacuated_total = 0
+        self._mesh_degraded = False
+        # Radix evictions before a device-state rebuild (the counter is
+        # monotonic across it).
+        self._kv_evictions_prior = 0
         # Hot-path accounting: host seconds waiting on the fetch (the
         # round's one sync, watchdog poll included) and committing, and the
         # commit seconds that ran behind an already-dispatched chunk.
@@ -1269,6 +1413,191 @@ class ContinuousBatchEngine:
         self._ejected_total = 0
         self._preempted_total = 0
         self._handoffs_total = 0
+
+    # -- the gang: device programs --
+
+    def _prog(self, name: str, *args):
+        """Run device program `name` (the method `_p_<name>`) on this
+        rank's state. On a mesh the driver first broadcasts the program's
+        header: its name, its host inputs (a temp cache by its tag), the
+        tag of a temp it makes and the tags of the driver's temps that died
+        since the last header; every follower then runs the same program on
+        its shard (`follow`)."""
+        fn = getattr(self, "_p_" + name)
+        if self.mesh is None:
+            return fn(*args)
+        tag = None
+        if name in _MAKES_TEMP:
+            tag, self._next_tag = self._next_tag, self._next_tag + 1
+        dead = []
+        while self._dead_tags:
+            dead.append(self._dead_tags.popleft())
+        self._send((name, tuple(_Tag(a.tag) if isinstance(a, decode.KVCache)
+                                else a for a in args), tag, dead))
+        out = fn(*args)
+        if tag is not None:
+            out.tag = tag
+            weakref.finalize(out, self._dead_tags.append, tag)
+        return out
+
+    def _send(self, header) -> None:
+        """The driver's broadcast of one header."""
+        self.mesh.world.broadcast_object(header, 0)
+
+    def follow(self) -> None:
+        """A follower's loop (a rank above 0 of a serving mesh): run the
+        driver's device programs on this rank's shard, in the driver's
+        order, until the driver stops the gang or degrades to one device.
+        The follower holds no host state."""
+        if self.mesh is None or self.mesh.is_driver:
+            raise RuntimeError("follow() runs on a follower rank (above 0) "
+                               "of a serving mesh")
+        while True:
+            name, wire, tag, dead = self.mesh.world.broadcast_object(None, 0)
+            for t in dead:
+                self._temp_caches.pop(t, None)
+            if name == "stop":
+                return
+            out = getattr(self, "_p_" + name)(*(
+                self._temp_caches[a.tag] if isinstance(a, _Tag) else a
+                for a in wire))
+            if tag is not None:
+                self._temp_caches[tag] = out
+            if name == "degrade":
+                return
+
+    def stop_followers(self) -> None:
+        """The driver's stop header: every follower leaves its loop (the
+        serve main's shutdown). A no-op off a mesh and after a degrade."""
+        if self.mesh is not None and self.mesh.is_driver and not self._stopped:
+            self._stopped = True
+            self._send(("stop", (), None, []))
+
+    def _local_slot(self, b: int) -> Optional[int]:
+        """Slot b's row in this rank's cache (None: another dp rank's)."""
+        lo, hi = self._rows
+        return b - lo if lo <= b < hi else None
+
+    def _p_temp_new(self) -> decode.KVCache:
+        return _init_temp_cache(self.cfg, self.max_seq, self.device,
+                                self._layout)
+
+    def _p_temp_clone(self, src: decode.KVCache) -> decode.KVCache:
+        return decode.KVCache(*(t.clone() for t in src.leaves()))
+
+    def _p_temp_from_pool(self, row: np.ndarray,
+                          matched: int) -> decode.KVCache:
+        return _temp_from_pool(self._cache, row, matched, self.max_seq,
+                               self.kv_block_len)
+
+    def _p_prefill_step(self, temp: decode.KVCache, chunk: np.ndarray,
+                        offset: int, staged: bool) -> decode.KVCache:
+        return _prefill_step(self._staged if staged else self.params, temp,
+                             _h2d(chunk, self.device), self.cfg, offset,
+                             self._freqs, mesh=self._layout)
+
+    def _p_commit_rows(self, temp: decode.KVCache, row: np.ndarray,
+                       write_from: int, write_to: int) -> None:
+        _commit_rows(self._cache, temp, row, write_from, write_to,
+                     self.kv_block_len)
+
+    def _p_park(self, b: int) -> None:
+        self._table_d[b].zero_()
+
+    def _p_prefill_final(self, temp: decode.KVCache, chunk: np.ndarray,
+                         b: int, ctx_len: int, plen: int, offset: int,
+                         r_temp: float, r_topp: float, key: Sequence[int],
+                         index: int, row: Optional[np.ndarray],
+                         matched: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The final prefill chunk into slot b, its first token sampled at
+        `index` of `key`, and the slot's device entries: the first token
+        goes to the next chunk without visiting the host."""
+        sampling = self._first_sampling(r_temp, r_topp, key, index)
+        chunk = _h2d(chunk, self.device)
+        if self._paged:
+            tok, lp = _prefill_final_paged(
+                self.params, self._cache, temp, chunk, row, matched, ctx_len,
+                plen, self.cfg, offset, self._freqs, sampling,
+                self.kv_block_len, mesh=self._layout)
+            self._table_d[b].copy_(_h2d(row, self.device))
+        else:
+            tok, lp = _prefill_final(
+                self.params, self._cache, temp, chunk, self._local_slot(b),
+                plen, self.cfg, offset, self._freqs, sampling,
+                mesh=self._layout)
+        self._cur_d[b] = tok
+        self._pos_d[b] = ctx_len
+        self._temps_d[b] = r_temp
+        self._topps_d[b] = r_topp
+        return tok, lp
+
+    def _p_chunk(self, n: int, noise: list) -> None:
+        """One decode chunk of n steps (its graph's replay on the card)."""
+        self._draw_noise(noise, n)
+        graph = (self._quantum_graph if n != self.decode_chunk
+                 else self._graph)
+        if graph is not None:
+            graph.replay(functools.partial(self._run_chunk, n))
+        else:
+            self._run_chunk(n)
+
+    def _p_verify(self, drafts: np.ndarray, dlen: np.ndarray,
+                  noise: list) -> None:
+        """One verify round over the host's drafts."""
+        self._draw_noise(noise, 1)
+        self._block_d[:, 1:].copy_(_h2d(drafts, self.device))
+        self._dlen_d.copy_(_h2d(dlen, self.device))
+        if self._verify_graph is not None:
+            self._verify_graph.replay(self._run_verify)
+        else:
+            self._run_verify()
+
+    def _p_swap_stage(self, meta: Optional[list]) -> None:
+        """The new weights staged on every rank: on a mesh the driver's
+        full tree broadcast leaf by leaf (`meta`: each leaf's path, shape
+        and dtype), each rank keeping its block of a leaf before the next
+        one comes, so a rank's card holds one full leaf beyond its blocks."""
+        if self.mesh is None:
+            self._staged = _map_leaves(lambda t: t.to(self.device),
+                                       self._swap_src)
+            return
+        src = (dict(_flat_leaves(self._swap_src)) if self.mesh.is_driver
+               else None)
+        dims = dict(_flat_leaves(decode.serving_dims(self.params, self.cfg,
+                                                     self.mesh)))
+        blocks = []
+        for path, shape, dtype in meta:
+            t = (src[path].to(self.device).contiguous() if src is not None
+                 else torch.empty(shape, dtype=getattr(torch, dtype),
+                                  device=self.device))
+            self.mesh.world.broadcast(t.reshape(-1).view(torch.uint8), 0)
+            blocks.append((path, decode.tp_block(t, dims[path], self.mesh)))
+            del t
+        self._staged = _unflat_leaves(blocks)
+
+    def _p_swap_commit(self) -> None:
+        # The decode graphs read the engine's leaves' storage, so a graphed
+        # engine copies the new values into it, in stream order: the chunk
+        # in flight finishes on the old weights, every later chunk reads
+        # the new ones, and both graphs stay as captured.
+        if self._graph is not None:
+            _copy_leaves(self.params, self._staged)
+        else:
+            self.params = self._staged
+        self._staged = None
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _p_swap_abort(self) -> None:
+        self._staged = None
+
+    def _p_degrade(self) -> Params:
+        """The full param tree, gathered over tp (a collective: the
+        followers' last program)."""
+        if self._layout is None:
+            return self.params
+        return decode.gather_params_for_serving(self.params, self.cfg,
+                                                self._layout)
 
     # -- client API --
 
@@ -1324,27 +1653,24 @@ class ContinuousBatchEngine:
 
     def _prefill_range(self, temp: decode.KVCache, tokens: List[int],
                        off: int, stop: int,
-                       params: Optional[Params] = None) -> decode.KVCache:
+                       staged: bool = False) -> decode.KVCache:
         """Prefill tokens[off:stop] into `temp` in prefill_len chunks from
-        `off` (a prefill_len multiple), the last one padded, under `params`
-        (default: the engine's; a swap re-prefills under the new ones)."""
-        p = self.params if params is None else params
+        `off` (a prefill_len multiple), the last one padded, under the
+        engine's weights (`staged`: a swap's new ones)."""
         plen = self.prefill_len
         for start in range(off, stop, plen):
             chunk = np.zeros((1, plen), np.int64)
             n = min(plen, stop - start)
             chunk[0, :n] = tokens[start:start + n]
-            temp = _prefill_step(p, temp, _h2d(chunk, self.device),
-                                 self.cfg, start, self._freqs)
+            temp = self._prog("prefill_step", temp, chunk, start, staged)
         return temp
 
     def _prefill_grid(self, tokens: List[int], grid_len: int,
-                      params: Optional[Params] = None) -> decode.KVCache:
+                      staged: bool = False) -> decode.KVCache:
         """A dense prefix's first `grid_len` tokens (a prefill_len
         multiple) in a fresh batch-1 temp cache."""
-        return self._prefill_range(
-            _init_temp_cache(self.cfg, self.max_seq, self.device), tokens,
-            0, grid_len, params)
+        return self._prefill_range(self._prog("temp_new"), tokens, 0,
+                                   grid_len, staged)
 
     def _register_prefix_blocks(self, tokens: List[int]) -> list:
         """Paged registration: match the chain the tree already holds,
@@ -1387,8 +1713,7 @@ class ContinuousBatchEngine:
         self._radix.pin(nodes)
         return nodes
 
-    def _stage_prefix_blocks(self, tokens: List[int],
-                             params: Params) -> List[int]:
+    def _stage_prefix_blocks(self, tokens: List[int]) -> List[int]:
         """A paged swap's pre-commit half: the prefix's full blocks
         prefilled under the NEW weights into fresh pool pages that no
         table reaches until swap_params commits."""
@@ -1402,7 +1727,7 @@ class ContinuousBatchEngine:
         try:
             self._prefill_span_to_blocks(tokens, span,
                                          self._table_row([], blocks), 0,
-                                         params)
+                                         staged=True)
         except Exception:
             self._pool.free(blocks)
             raise
@@ -1410,18 +1735,16 @@ class ContinuousBatchEngine:
 
     def _prefill_span_to_blocks(self, tokens: List[int], span: int,
                                 row: np.ndarray, matched: int,
-                                params: Optional[Params] = None) -> None:
+                                staged: bool = False) -> None:
         """Prefill positions [matched, span) of `tokens` and commit them
         to the pool pages of table row `row`: the grid walk behind paged
         registration and the swap's staging. The padded last chunk's
         garbage rows fall outside the commit window."""
-        bl = self.kv_block_len
-        temp = (_temp_from_pool(self._cache, row, matched, self.max_seq, bl)
-                if matched > 0
-                else _init_temp_cache(self.cfg, self.max_seq, self.device))
+        temp = (self._prog("temp_from_pool", row, matched) if matched > 0
+                else self._prog("temp_new"))
         off = (min(matched, span - 1) // self.prefill_len) * self.prefill_len
-        temp = self._prefill_range(temp, tokens, off, span, params)
-        _commit_rows(self._cache, temp, row, matched, span, bl)
+        temp = self._prefill_range(temp, tokens, off, span, staged)
+        self._prog("commit_rows", temp, row, matched, span)
 
     def submit(self, prompt: List[int], max_new_tokens: int,
                prefix_id: Optional[int] = None,
@@ -1647,38 +1970,39 @@ class ContinuousBatchEngine:
         built with (its decode graphs read their storage), so a caller
         that kept that tree sees the new weights in it; an eager engine
         takes the placed tree. The pause includes the wait for the chunk
-        in flight and, graphed, the copy."""
+        in flight and, graphed, the copy.
+
+        On a mesh `new_params` is the full tree, best left on the host: the
+        driver checks views of its blocks against the engine's and
+        broadcasts it leaf by leaf, and every rank keeps its blocks, so no
+        card holds more than one full leaf."""
         t0 = time.perf_counter()
-        _check_same_tree(self.params, new_params)
-        placed = _map_leaves(lambda t: t.to(self.device), new_params)
+        _check_same_tree(self.params, new_params if self._layout is None
+                         else decode.shard_params_for_serving(
+                             new_params, self.cfg, self._layout, copy=False))
+        self._swap_src = new_params
+        try:
+            self._prog("swap_stage", None if self.mesh is None else [
+                (path, tuple(t.shape), str(t.dtype).split(".")[-1])
+                for path, t in _flat_leaves(new_params)])
+        finally:
+            self._swap_src = None
         new_temps: Dict[int, decode.KVCache] = {}
         staged: Dict[int, List[int]] = {}
-        if self._paged:
-            try:
-                for pid, pfx in self._prefixes.items():
-                    if len(pfx.tokens) >= self.kv_block_len:
-                        staged[pid] = self._stage_prefix_blocks(pfx.tokens,
-                                                                placed)
-            except Exception:
-                for blocks in staged.values():
-                    self._pool.free(blocks)
-                raise
-        else:
+        try:
             for pid, pfx in self._prefixes.items():
-                if pfx.grid_len > 0:
+                if self._paged and len(pfx.tokens) >= self.kv_block_len:
+                    staged[pid] = self._stage_prefix_blocks(pfx.tokens)
+                elif not self._paged and pfx.grid_len > 0:
                     new_temps[pid] = self._prefill_grid(
-                        pfx.tokens, pfx.grid_len, placed)
-        # Commit: nothing below can raise (the trees matched). The decode
-        # graphs read the engine's leaves' storage, so a graphed engine
-        # copies the new values into it, in stream order: the chunk in
-        # flight finishes on the old weights, every later chunk reads the
-        # new ones, and both graphs stay as captured.
-        if self._graph is not None:
-            _copy_leaves(self.params, placed)
-        else:
-            self.params = placed
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+                        pfx.tokens, pfx.grid_len, staged=True)
+        except Exception:
+            for blocks in staged.values():
+                self._pool.free(blocks)
+            self._prog("swap_abort")
+            raise
+        # Commit: nothing below can raise (the trees matched).
+        self._prog("swap_commit")
         for pid, temp in new_temps.items():
             self._prefixes[pid].temp = temp
         if self._paged:
@@ -1779,6 +2103,10 @@ class ContinuousBatchEngine:
         if any(r is not None for r in self._slot_req):
             try:
                 nxt = self._dispatch_chunk()
+            except faultlab.InjectedDeviceLoss as e:
+                # The mesh shrank under the batch: evacuation, never
+                # per-request failure.
+                self._evacuate_device_loss(e)
             except Exception as e:             # noqa: BLE001 — contained
                 self._contain_dispatch_failure(e)
         if inflight is not None:
@@ -1829,6 +2157,8 @@ class ContinuousBatchEngine:
         if any(r is not None for r in self._slot_req):
             try:
                 nxt = self._dispatch_round()
+            except faultlab.InjectedDeviceLoss as e:
+                self._evacuate_device_loss(e)
             except WatchdogTimeout as e:
                 # A first token that never landed, met before drafting.
                 self._contain_collect_failure(e)
@@ -1888,6 +2218,83 @@ class ContinuousBatchEngine:
         for pending in self._pending_first:
             self._fail_request(pending.req, msg)
         self._pending_first = []
+
+    def _evacuate_device_loss(self, exc: Exception) -> None:
+        """The degraded-mesh evacuation (the JAX engine's): a device died
+        under a meshed dispatch, so no request on the mesh can make
+        progress, but every one is resumable. Every live request (queued,
+        prefilling, decoding) leaves as a reason="evacuate" resume frame
+        (the frames a drain emits, which the fleet splices onto healthy
+        replicas), then the engine serves on one device at reduced
+        capacity (`mesh_degraded`)."""
+        self._errors_total["device_loss"] += 1
+        self._inflight = None            # descends from the lost device
+        self._pending_first = []
+        evacuated = 0
+        for req in list(self._reqs.values()):
+            if not req.done and self.eject(req.req_id,
+                                           reason="evacuate") is not None:
+                evacuated += 1
+        self._evacuated_total += evacuated
+        self._degrade_to_single_device()
+        self._mesh_degraded = True
+
+    def _degrade_to_single_device(self) -> None:
+        """Serve on the driver's device alone: the full weights gathered
+        over the gang (in this reproduction the driver still reaches every
+        shard, where a deployment restores a checkpoint), the followers
+        released by that last program, then the single-device programs
+        with the paged decode kernel off (the JAX engine's degraded
+        engine) and a fresh device state."""
+        self.params = self._prog("degrade")
+        self.mesh = None
+        self._layout = None
+        self._paged_kernel = False
+        self._rows = (0, self.num_slots)
+        self._rebuild_device_state()
+
+    def _rebuild_device_state(self) -> None:
+        """Fresh device state at this engine's (now single-device) shapes:
+        the cache or pool; on the paged engine the block pool, the radix
+        tree (its KV died with the old pool) and the tables, the prefixes
+        pinned again best-effort (one that fails stays cold, counted under
+        prefix_repin); a dense prefix re-prefilled into a temp cache of
+        the new shape; the slot mirrors zeroed; the decode graphs (a mesh
+        of one rank's) dropped, since they read the old cache and table and
+        ran the paged kernel, to be captured again on their next replay.
+        Callers have ejected every request first."""
+        cfg, dev, n = self.cfg, self.device, self.num_slots
+        for graph in (self._graph, self._quantum_graph, self._verify_graph):
+            if graph is not None:
+                graph.reset()
+        if self._paged:
+            self._cache = decode.init_paged_pool(cfg, self.kv_num_blocks,
+                                                 self.kv_block_len, dev)
+            self._kv_evictions_prior += self._radix.evictions_total
+            self._pool = paged_kv.BlockPool(self.kv_num_blocks,
+                                            self.kv_block_len)
+            self._radix = paged_kv.RadixCache(self._pool)
+            self._table_d = torch.zeros((n, self._max_blocks),
+                                        dtype=torch.int32, device=dev)
+            self._leases = {}
+            for pfx in self._prefixes.values():
+                try:
+                    pfx.chain = self._register_prefix_blocks(pfx.tokens)
+                    pfx.grid_len = len(pfx.chain) * self.kv_block_len
+                except Exception:      # noqa: BLE001 — degrade, don't block
+                    self._errors_total["prefix_repin"] += 1
+                    pfx.chain, pfx.grid_len = [], 0
+        else:
+            self._cache = decode.init_cache(cfg, n, self.max_seq, dev)
+            for pfx in self._prefixes.values():
+                if pfx.grid_len > 0:
+                    pfx.temp = self._prefill_grid(pfx.tokens, pfx.grid_len)
+        with torch.no_grad():
+            self._cur_d.zero_()
+            self._pos_d.zero_()
+            self._temps_d.fill_(self.temperature)
+            self._topps_d.fill_(self.top_p)
+        self._scnt = np.zeros(n, np.int64)
 
     def _contain_collect_failure(self, exc: Exception) -> None:
         """A fetch fault or a watchdog trip: the batch in flight, and every
@@ -1980,34 +2387,50 @@ class ContinuousBatchEngine:
         included), from the device mirrors into them: the packed tokens
         into the first `steps` rows of _out_d, the last tokens into
         _cur_d, the advanced positions into _pos_d. The program a CUDA
-        graph captures (one a chunk length), and the eager path."""
-        sampling = _Sampling(self._temps_d, self._topps_d, self._noise_d,
-                             self.top_k, self.enable_top_p)
+        graph captures (one a chunk length), and the eager path. On a
+        dense engine on a mesh the rank decodes its dp block of the slots
+        and the packed tokens are gathered over dp in slot order."""
+        lo, hi = self._rows
+        sampling = _Sampling(self._temps_d[lo:hi], self._topps_d[lo:hi],
+                             self._noise_d[:, lo:hi], self.top_k,
+                             self.enable_top_p)
         with torch.no_grad():
             if self._paged:
                 packed, cur, pos = _decode_chunk_paged(
                     self.params, self._cache, self._table_d, self._cur_d,
                     self._pos_d, self.cfg, steps, self._freqs,
-                    sampling, self.kv_block_len)
+                    sampling, self.kv_block_len, mesh=self._layout,
+                    paged_kernel=self._paged_kernel)
             else:
                 packed, cur, pos = _decode_chunk(
-                    self.params, self._cache, self._cur_d, self._pos_d,
-                    self.cfg, steps, self._freqs, sampling)
+                    self.params, self._cache, self._cur_d[lo:hi],
+                    self._pos_d[lo:hi], self.cfg, steps, self._freqs,
+                    sampling, mesh=self._layout)
+            if hi - lo < self.num_slots:
+                packed = self._layout.dp_gather(packed, 1)
             self._out_d[:steps].copy_(packed)
-            self._cur_d.copy_(cur)
-            self._pos_d.copy_(pos)
+            self._cur_d[lo:hi].copy_(cur)
+            self._pos_d[lo:hi].copy_(pos)
 
-    def _draw_noise(self, steps: int) -> None:
-        """The Gumbel noise of every live sampled slot for each of the
-        next chunk's `steps` steps (step n of slot b samples at index
-        _scnt[b] + n); greedy and parked slots draw nothing, and with no
-        sampled slot nothing is drawn at all."""
-        for b, req in enumerate(self._slot_req):
-            if req is None or self._temps[b] <= 0.0:
+    def _noise_spec(self, steps: int) -> list:
+        """(slot, key words, first sample index) of every live sampled
+        slot: the inputs of the next dispatch's noise draw, `steps` indices
+        from there (step n of slot b samples at index _scnt[b] + n);
+        greedy and parked slots draw nothing."""
+        return [(b, int(self._skeys[b][0]), int(self._skeys[b][1]),
+                 int(self._scnt[b]))
+                for b, req in enumerate(self._slot_req)
+                if req is not None and self._temps[b] > 0.0]
+
+    def _draw_noise(self, spec: list, steps: int) -> None:
+        """The Gumbel noise of `spec`'s slots (`_noise_spec`) for `steps`
+        steps, drawn for the slots this rank decodes; with no sampled slot
+        nothing is drawn at all."""
+        for b, k0, k1, first in spec:
+            if self._local_slot(b) is None:
                 continue
             for n in range(steps):
-                _draw_gumbel(self._noise_d[n, b], self._skeys[b],
-                             int(self._scnt[b]) + n)
+                _draw_gumbel(self._noise_d[n, b], (k0, k1), first + n)
 
     def _dispatch_chunk(self) -> _Inflight:
         """Dispatch one decode chunk (its graph's replay on the card) and
@@ -2017,17 +2440,13 @@ class ContinuousBatchEngine:
         request waiting, read after the step's admission) the chunk is
         the short quantum."""
         faultlab.site("engine.dispatch")
+        if self.mesh is not None:
+            faultlab.site("engine.device_loss")
         n, t_start = self.decode_chunk, time.perf_counter()
         if self._chunked_prefill and (self._prefill is not None
                                       or self._queue):
             n = self._decode_quantum
-        self._draw_noise(n)
-        graph = (self._quantum_graph if n != self.decode_chunk
-                 else self._graph)
-        if graph is not None:
-            graph.replay(functools.partial(self._run_chunk, n))
-        else:
-            self._run_chunk(n)
+        self._prog("chunk", n, self._noise_spec(n))
         self._out_h.reverse()
         copy = _HostCopy.start(self._out_d[:n], self._out_h[0][:n])
         snapshot = [(b, r) for b, r in enumerate(self._slot_req)
@@ -2073,6 +2492,8 @@ class ContinuousBatchEngine:
         if not live:
             return None
         faultlab.site("engine.dispatch")
+        if self.mesh is not None:
+            faultlab.site("engine.device_loss")
         k, n = self.spec_k, self.num_slots
         drafts = np.zeros((n, k), np.int64)
         dlen = np.zeros(n, np.int64)
@@ -2103,13 +2524,7 @@ class ContinuousBatchEngine:
         self._spec_bypass_streak = 0
         t_start = time.perf_counter()
         # A sampled slot samples its one token from row 0, at its index.
-        self._draw_noise(1)
-        self._block_d[:, 1:].copy_(_h2d(drafts, self.device))
-        self._dlen_d.copy_(_h2d(dlen, self.device))
-        if self._verify_graph is not None:
-            self._verify_graph.replay(self._run_verify)
-        else:
-            self._run_verify()
+        self._prog("verify", drafts, dlen, self._noise_spec(1))
         copy = _HostCopy.start(self._spec_out_d, self._spec_out_h)
         self._spec_rounds_total += 1
         self._decode_steps_total += 1
@@ -2124,18 +2539,24 @@ class ContinuousBatchEngine:
         page), from the device mirrors and the static block into them: the
         packed round into _spec_out_d, the next tokens into _cur_d, the
         advanced positions into _pos_d. The program the verify graph
-        captures, and the eager path."""
-        sampling = _Sampling(self._temps_d, self._topps_d, self._noise_d[:1],
-                             self.top_k, self.enable_top_p)
+        captures, and the eager path. A dense engine on a mesh verifies its
+        dp block of the slots; the rounds are gathered over dp."""
+        lo, hi = self._rows
+        sampling = _Sampling(self._temps_d[lo:hi], self._topps_d[lo:hi],
+                             self._noise_d[:1, lo:hi], self.top_k,
+                             self.enable_top_p)
         with torch.no_grad():
             self._block_d[:, 0].copy_(self._cur_d)
             packed, cur, pos = _spec_verify(
-                self.params, self._cache, self._block_d, self._dlen_d,
-                self._pos_d, self.cfg, self._freqs, sampling,
-                self._table_d if self._paged else None, self.kv_block_len)
+                self.params, self._cache, self._block_d[lo:hi],
+                self._dlen_d[lo:hi], self._pos_d[lo:hi], self.cfg,
+                self._freqs, sampling, self._table_d if self._paged else None,
+                self.kv_block_len, mesh=self._layout)
+            if hi - lo < self.num_slots:
+                packed = self._layout.dp_gather(packed, 0)
             self._spec_out_d.copy_(packed)
-            self._cur_d.copy_(cur)
-            self._pos_d.copy_(pos)
+            self._cur_d[lo:hi].copy_(cur)
+            self._pos_d[lo:hi].copy_(pos)
 
     def _commit_spec(self, packed_h: np.ndarray, inflight: _Inflight,
                      overlapped: bool) -> int:
@@ -2434,11 +2855,9 @@ class ContinuousBatchEngine:
             self._prefix_hits += 1
             self._kv_matched_tokens_total += pfx.grid_len
             self._prefill.offset = pfx.grid_len
-            self._prefill.temp = decode.KVCache(
-                *(t.clone() for t in pfx.temp.leaves()))
+            self._prefill.temp = self._prog("temp_clone", pfx.temp)
             return True
-        self._prefill.temp = _init_temp_cache(self.cfg, self.max_seq,
-                                              self.device)
+        self._prefill.temp = self._prog("temp_new")
         return True
 
     # -- paged block plumbing --
@@ -2577,7 +2996,7 @@ class ContinuousBatchEngine:
         """Point a freed slot's table row at the trash page, so the next
         chunks' (ignored) writes for it land there."""
         if self._paged:
-            self._table_d[b].zero_()
+            self._prog("park", b)
 
     def _start_prefill_paged(self, b: int) -> bool:
         """Paged admission: radix-match the prompt's full blocks, reserve
@@ -2658,10 +3077,8 @@ class ContinuousBatchEngine:
         off0 = (min(matched, plen - 1) // self.prefill_len) * self.prefill_len
         self._prefill = _PrefillState(req=req, slot=b, offset=off0, temp=None,
                                       ctx=ctx, matched=matched)
-        self._prefill.temp = (
-            _temp_from_pool(self._cache, row, matched, self.max_seq, bl)
-            if matched > 0
-            else _init_temp_cache(self.cfg, self.max_seq, self.device))
+        self._prefill.temp = (self._prog("temp_from_pool", row, matched)
+                              if matched > 0 else self._prog("temp_new"))
         return True
 
     def _insert_prompt_blocks(self, tokens: List[int],
@@ -2704,11 +3121,10 @@ class ContinuousBatchEngine:
         ctx = st.ctx
         remaining = len(ctx) - st.offset
         if remaining > self.prefill_len:          # non-final chunk
-            chunk = _h2d(np.asarray(
-                [ctx[st.offset:st.offset + self.prefill_len]], np.int64),
-                self.device)
-            st.temp = _prefill_step(self.params, st.temp, chunk, self.cfg,
-                                    st.offset, self._freqs)
+            st.temp = self._prog(
+                "prefill_step", st.temp, np.asarray(
+                    [ctx[st.offset:st.offset + self.prefill_len]], np.int64),
+                st.offset, False)
             st.offset += self.prefill_len
             self._prefill_chunks_total += 1
             if st.req.phase_events is not None:
@@ -2722,35 +3138,26 @@ class ContinuousBatchEngine:
         r_temp = (req.temperature if req.temperature is not None
                   else self.temperature)
         r_topp = req.top_p if req.top_p is not None else self.top_p
-        sampling = self._first_sampling(req, r_temp, r_topp)
-        chunk = _h2d(padded, self.device)
-        if self._paged:
-            lease = self._leases[req.req_id]
-            tok, lp = _prefill_final_paged(
-                self.params, self._cache, st.temp, chunk, lease.row,
-                st.matched, len(ctx), remaining, self.cfg, st.offset,
-                self._freqs, sampling, self.kv_block_len)
+        # The first token samples at index emit_from (0 for a fresh
+        # request), where the uninterrupted stream sampled it; the slot's
+        # device entries are written in place behind any chunk already in
+        # flight.
+        lease = self._leases[req.req_id] if self._paged else None
+        tok, lp = self._prog(
+            "prefill_final", st.temp, padded, b, len(ctx), remaining,
+            st.offset, r_temp, r_topp,
+            [int(w) for w in np.asarray(req.base_key)], req.emit_from,
+            lease.row if lease is not None else None, st.matched)
+        if lease is not None and st.publish:
             # Publish the prompt's full blocks for automatic reuse, unless
             # a weight swap landed mid-prefill.
-            if st.publish:
-                self._insert_prompt_blocks(ctx, lease)
-            self._table_d[b].copy_(_h2d(lease.row, self.device))
-        else:
-            tok, lp = _prefill_final(
-                self.params, self._cache, st.temp, chunk, b, remaining,
-                self.cfg, st.offset, self._freqs, sampling)
+            self._insert_prompt_blocks(ctx, lease)
         self._prefill_chunks_total += 1
         if req.phase_events is not None:
             req.phase_events.append(
                 (time.perf_counter(), "prefill_chunk", len(ctx)))
         self._prefill = None
-        # The slot's device entries, written in place behind any chunk
-        # already in flight: the first token goes to the next chunk
-        # without visiting the host; its copy lands for the next commit.
-        self._cur_d[b] = tok
-        self._pos_d[b] = len(ctx)
-        self._temps_d[b] = r_temp
-        self._topps_d[b] = r_topp
+        # The first token's copy lands for the next commit.
         self._pending_first.append(_PendingFirst(
             req, b, _HostCopy.start(_pack(tok.view(1, 1), lp.view(1, 1)))))
         self._temps[b] = r_temp
@@ -2764,15 +3171,14 @@ class ContinuousBatchEngine:
                                if self._spec_global_ema >= 0.25 else 1)
         self._spec_ema[b] = 1.0
 
-    def _first_sampling(self, req: ServeRequest, temp: float,
-                        top_p: float) -> _Sampling:
+    def _first_sampling(self, temp: float, top_p: float, key: Sequence[int],
+                        index: int) -> _Sampling:
         """Batch-1 sampling inputs of a request's first token, which
-        samples at index emit_from (0 for a fresh request), where the
-        uninterrupted stream sampled it."""
+        samples at `index` of its key `key`."""
         dev, v = self.device, self.cfg.vocab_size
         noise = torch.zeros((1, 1, v), dtype=torch.float32, device=dev)
         if temp > 0.0:
-            _draw_gumbel(noise[0, 0], req.base_key, req.emit_from)
+            _draw_gumbel(noise[0, 0], key, index)
         return _Sampling(
             torch.full((1,), temp, dtype=torch.float32, device=dev),
             torch.full((1,), top_p, dtype=torch.float32, device=dev),
@@ -2863,8 +3269,8 @@ class ContinuousBatchEngine:
             },
             "errors": dict(self._errors_total),
             "draining": self._draining,
-            # Fault, drain and hot-swap state (the JAX engine's block; its
-            # device-loss fields are not ported).
+            # Fault, drain, hot-swap and evacuation state (the JAX
+            # engine's block).
             "resilience": {
                 "errors": dict(self._errors_total),
                 "watchdog_trips": self._watchdog_trips,
@@ -2872,6 +3278,12 @@ class ContinuousBatchEngine:
                 "swap_pause_ms_total": self._swap_pause_ms_total,
                 "swap_pause_ms_last": self._swap_pause_ms_last,
                 "draining": self._draining,
+                # The degraded-mesh evacuation: requests ejected as
+                # reason="evacuate" frames on a device loss (monotonic), and
+                # whether the engine serves on one device since; the serve
+                # main folds mesh_degraded into its `mesh` block.
+                "evacuated_total": self._evacuated_total,
+                "mesh_degraded": self._mesh_degraded,
             },
             # Decode hot path: host seconds on the sync path (the fetch,
             # watchdog poll included; plus the commit when it does not
@@ -2944,6 +3356,7 @@ class ContinuousBatchEngine:
                 "blocks_cached": (self._radix.cached_blocks
                                   if self._paged else 0),
                 "evictions_total": (self._radix.evictions_total
+                                    + self._kv_evictions_prior
                                     if self._paged else 0),
                 "deferrals_total": self._kv_deferrals_total,
                 "prompt_tokens_total": self._kv_prompt_tokens_total,

@@ -40,6 +40,8 @@ return means "no guess this round".
 
 from __future__ import annotations
 
+import functools
+
 from dataclasses import dataclass
 from typing import List, Sequence, Tuple
 
@@ -147,13 +149,16 @@ def generate_speculative(params_target: Params,
                          params_draft: Params,
                          cfg_draft: tf.TransformerConfig,
                          prompt: torch.Tensor, num_steps: int, *, k: int = 4,
-                         max_seq: int = 0) -> Tuple[torch.Tensor, int]:
+                         max_seq: int = 0, mesh=None
+                         ) -> Tuple[torch.Tensor, int]:
     """Greedy speculative generation of one stream.
 
     prompt: (1, P) token ids. Returns (tokens (1, P + num_steps), rounds):
     tokens equal to ``decode.generate(params_target, ...)`` at temperature
     0, and the verify rounds run (token #1 is the prefill's sample, so the
-    rounds own num_steps - 1 tokens)."""
+    rounds own num_steps - 1 tokens). On a serving mesh both param trees
+    are the rank's blocks, and every rank accepts the same drafts from the
+    same full-vocab rows."""
     b, p = prompt.shape
     assert b == 1, "speculative decoding is per-stream (batch the engine)"
     assert cfg_target.vocab_size == cfg_draft.vocab_size, \
@@ -171,21 +176,22 @@ def generate_speculative(params_target: Params,
         f"({p}+{num_steps}+{k + 1} > {max_seq})")
     with torch.no_grad():
         return _generate(params_target, cfg_target, params_draft, cfg_draft,
-                         prompt.long(), num_steps, k, max_seq)
+                         prompt.long(), num_steps, k, max_seq, mesh)
 
 
 def _generate(pt: Params, ct: tf.TransformerConfig, pd: Params,
               cd: tf.TransformerConfig, prompt: torch.Tensor,
-              num_steps: int, k: int, max_seq: int
+              num_steps: int, k: int, max_seq: int, mesh=None
               ) -> Tuple[torch.Tensor, int]:
     dev, p = prompt.device, prompt.shape[1]
-    cache_t = decode.init_cache(ct, 1, max_seq, dev)
-    cache_d = decode.init_cache(cd, 1, max_seq, dev)
+    cache_t = decode.init_cache(ct, 1, max_seq, dev, mesh)
+    cache_d = decode.init_cache(cd, 1, max_seq, dev, mesh)
+    fwd = functools.partial(decode.forward_cached, mesh=mesh)
     freqs_t = rope_frequencies(ct.head_dim, max_seq, ct.rope_theta, dev)
     freqs_d = rope_frequencies(cd.head_dim, max_seq, cd.rope_theta, dev)
-    logits, _ = decode.forward_cached(pt, prompt, cache_t, 0, ct,
+    logits, _ = fwd(pt, prompt, cache_t, 0, ct,
                                       freqs=freqs_t)
-    decode.forward_cached(pd, prompt, cache_d, 0, cd, freqs=freqs_d)
+    fwd(pd, prompt, cache_d, 0, cd, freqs=freqs_d)
     cur = torch.argmax(logits[0, -1])
     out = [cur[None]]
     full_k = torch.full((1,), k, dtype=torch.int64, device=dev)
@@ -195,16 +201,16 @@ def _generate(pt: Params, ct: tf.TransformerConfig, pd: Params,
         # 1. Propose: k autoregressive draft steps.
         tok, drafts = cur, []
         for i in range(k):
-            lg, _ = decode.forward_cached(pd, tok.view(1, 1), cache_d,
+            lg, _ = fwd(pd, tok.view(1, 1), cache_d,
                                           pos + i, cd, freqs=freqs_d)
             tok = torch.argmax(lg[0, -1])
             drafts.append(tok)
         drafts = torch.stack(drafts)
         block = torch.cat([cur[None], drafts])[None]           # (1, k+1)
         # 2. Canonicalize the draft cache with the target's block.
-        decode.forward_cached(pd, block, cache_d, pos, cd, freqs=freqs_d)
+        fwd(pd, block, cache_d, pos, cd, freqs=freqs_d)
         # 3. Verify: one (k+1)-wide target forward.
-        lg, _ = decode.forward_cached(pt, block, cache_t, pos, ct,
+        lg, _ = fwd(pt, block, cache_t, pos, ct,
                                       freqs=freqs_t)
         greedy = torch.argmax(lg[0], dim=-1)                    # (k+1,)
         # 4. Accept the longest matching prefix; greedy[a] is the

@@ -58,7 +58,7 @@ Not ported here: the pp and ep axes (ROADMAP A11).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -213,10 +213,15 @@ def param_logical_axes(cfg: TransformerConfig) -> Params:
     return axes
 
 
-def init_params(generator: torch.Generator, cfg: TransformerConfig) -> Params:
+def init_params(generator: torch.Generator, cfg: TransformerConfig,
+                finish: Optional[Callable[[str, torch.Tensor], Any]] = None
+                ) -> Params:
     """f32 master weights on the generator's device: truncated normal in
     [-2, 2] scaled by fan-in^-0.5, norm scales one. Same tree as the JAX
-    init; the draws differ (a torch.Generator is not a jax key)."""
+    init; the draws differ (a torch.Generator is not a jax key).
+    `finish(name, leaf)`, when given, replaces each leaf as soon as it is
+    drawn (a cast, a quantization, a rank's block), so at most one full f32
+    leaf is alive beyond the finished tree; the draws are the same."""
     device = generator.device
     fan = {"d": cfg.d_model, "f": cfg.d_ff,
            "hd_all": cfg.n_heads * cfg.head_dim, "one": 1}
@@ -229,10 +234,14 @@ def init_params(generator: torch.Generator, cfg: TransformerConfig) -> Params:
                                     generator=generator)
         return t.mul_(fan[_FAN_IN[name]] ** -0.5)
 
+    def leaf(name, shape):
+        t = init(name, shape)
+        return t if finish is None else finish(name, t)
+
     shapes = param_shapes(cfg)
-    params: Params = {k: init(k, v) for k, v in shapes.items()
+    params: Params = {k: leaf(k, v) for k, v in shapes.items()
                       if k != "layers"}
-    params["layers"] = {k: init(k, v) for k, v in shapes["layers"].items()}
+    params["layers"] = {k: leaf(k, v) for k, v in shapes["layers"].items()}
     return params
 
 

@@ -61,18 +61,16 @@ QUANTIZABLE = {"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
                "lm_head"}
 
 
+def quantize_leaf(name: str, v: torch.Tensor) -> Any:
+    """The leaf `name` of a KTWE-LM param tree for int8 serving: a matmul
+    weight quantized, any other leaf as it is."""
+    if name in QUANTIZABLE:
+        return quantize_int8(v, _contract_axes(name, v.dim()))
+    return v
+
+
 def quantize_params(params: Dict[str, Any]) -> Dict[str, Any]:
     """Quantize a KTWE-LM param tree's matmul weights to int8 for serving.
     Returns a new tree; unquantized leaves are shared, not copied."""
-    def walk(tree):
-        out = {}
-        for k, v in tree.items():
-            if isinstance(v, dict):
-                out[k] = walk(v)
-            elif k in QUANTIZABLE:
-                out[k] = quantize_int8(v, _contract_axes(k, v.dim()))
-            else:
-                out[k] = v
-        return out
-
-    return walk(params)
+    return {k: (quantize_params(v) if isinstance(v, dict)
+                else quantize_leaf(k, v)) for k, v in params.items()}

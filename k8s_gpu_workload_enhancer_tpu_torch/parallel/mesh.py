@@ -14,19 +14,33 @@ group).
 - ``sp``: sequence parallelism (each rank a shard of the sequence,
   attention a ring over sp: parallel/ring_attention.py).
 - ``ep``, ``pp``: expert and pipeline parallelism. Not ported yet (ROADMAP
-  A11): `check_supported` refuses a size above 1 on either.
+  A11c, A11d): `check_supported` refuses a size above 1 on either.
 
 The per-axis process groups are the DeviceMesh's
 (`mesh.get_group("tp")`, ...).
+
+A serving gang's mesh is a `ServingMesh` of (dp, tp): one rank's place
+on it and its communicators (parallel/comm.py) over the whole gang and
+over its tp and dp groups, with rank = dp_rank * tp + tp_rank (tp
+fastest, as the mesh's axis order lays it out). It gives the serving
+programs (models/decode.py, models/serving.py) the Megatron collectives
+that `Fsdp` gives the train step: `tp_sum`, `tp_copy`, `tp`, `tp_rank`,
+and the gathers of the logits over tp and of the dense engine's slots
+over dp. `from_device_mesh` builds it over a DeviceMesh's groups (gloo or
+NCCL); `thread_gang` builds every rank's of a gang of threads on one
+device.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
+import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
+
+from .comm import Comm, ProcessComm, ThreadGroup
 
 AXES: Tuple[str, ...] = ("dp", "ep", "pp", "tp", "sp")
 
@@ -38,7 +52,7 @@ PIPELINE_AXIS = "pp"
 EXPERT_AXIS = "ep"
 FSDP_AXIS = "dp"
 
-_UNPORTED = {"ep": "expert", "pp": "pipeline"}
+_UNPORTED = {"ep": ("expert", "A11c"), "pp": ("pipeline", "A11d")}
 
 
 @dataclass(frozen=True)
@@ -119,13 +133,13 @@ def check_supported(config: MeshConfig) -> None:
     """Raise UnportedAxisError if ``ep`` or ``pp`` exceeds 1: their
     parallelism is not ported yet, and a mesh that asks for it is refused,
     never run as something else."""
-    for axis, kind in _UNPORTED.items():
+    for axis, (kind, item) in _UNPORTED.items():
         n = config.axis_sizes[axis]
         if n > 1:
             raise UnportedAxisError(
                 f"mesh axis {axis}={n}: {kind} parallelism is not ported "
-                f"yet (ROADMAP A11); the port shards over dp, tp and sp "
-                f"(mesh {config.describe()})")
+                f"yet (ROADMAP A11, {item}); the port shards over dp, tp "
+                f"and sp (mesh {config.describe()})")
 
 
 def make_mesh(config: Optional[MeshConfig] = None, device_type: str = "cuda"):
@@ -145,3 +159,91 @@ def make_mesh(config: Optional[MeshConfig] = None, device_type: str = "cuda"):
     shape = tuple(config.axis_sizes[a] for a in AXES)
     return init_device_mesh(device_type, shape, mesh_dim_names=AXES)
 
+
+class ServingMesh:
+    """One rank of a (dp, tp) serving gang (see the module note). `world`
+    is the whole gang's communicator, `tp_comm` this rank's tp group's
+    (the ranks of its dp row), `dp_comm` its dp group's (the ranks of its
+    tp column)."""
+
+    def __init__(self, dp: int, tp: int, world: Comm, tp_comm: Comm,
+                 dp_comm: Comm):
+        self.dp, self.tp = int(dp), int(tp)
+        self.world, self.tp_comm, self.dp_comm = world, tp_comm, dp_comm
+        self.rank = world.rank
+        if world.size != self.dp * self.tp:
+            raise ValueError(f"a (dp={dp}, tp={tp}) serving mesh needs "
+                             f"{self.dp * self.tp} ranks, got {world.size}")
+
+    @property
+    def size(self) -> int:
+        return self.dp * self.tp
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return self.dp, self.tp
+
+    @property
+    def dp_rank(self) -> int:
+        return self.rank // self.tp
+
+    @property
+    def tp_rank(self) -> int:
+        return self.rank % self.tp
+
+    @property
+    def is_driver(self) -> bool:
+        return self.rank == 0
+
+    def describe(self) -> str:
+        return f"dp={self.dp},tp={self.tp}"
+
+    # -- Megatron's f and g, and the gathers --
+
+    def tp_copy(self, x: torch.Tensor) -> torch.Tensor:
+        """`x` into a column-parallel product (inference: the identity)."""
+        return x
+
+    def tp_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """The tp ranks' partial results summed in rank order."""
+        return self.tp_comm.all_reduce_sum(x)
+
+    def tp_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The tp ranks' blocks of `dim` (vocab columns) concatenated."""
+        return self.tp_comm.all_gather(x.contiguous(), dim % x.dim())
+
+    def dp_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The dp ranks' blocks of `dim` (slots) concatenated."""
+        return self.dp_comm.all_gather(x.contiguous(), dim % x.dim())
+
+    # -- construction --
+
+    @classmethod
+    def from_device_mesh(cls, device_mesh, device: torch.device
+                         ) -> "ServingMesh":
+        """Over a DeviceMesh of the bootstrap (`make_mesh`, axes AXES) whose
+        live axes are dp and tp."""
+        dp, tp = device_mesh["dp"].size(), device_mesh["tp"].size()
+        if device_mesh.size() != dp * tp:
+            raise ValueError(f"a serving mesh has dp and tp only, got "
+                             f"{device_mesh.shape} over "
+                             f"{device_mesh.mesh_dim_names}")
+        d, t = divmod(dist.get_rank(), tp)
+        return cls(dp, tp,
+                   ProcessComm(None, range(dp * tp), device),
+                   ProcessComm(device_mesh.get_group("tp"),
+                               [d * tp + i for i in range(tp)], device),
+                   ProcessComm(device_mesh.get_group("dp"),
+                               [i * tp + t for i in range(dp)], device))
+
+    @classmethod
+    def thread_gang(cls, dp: int, tp: int) -> Tuple[List["ServingMesh"],
+                                                   List[ThreadGroup]]:
+        """Every rank's mesh of a gang of dp * tp threads, and the gang's
+        thread groups (`ThreadGroup.abort` them when a rank fails)."""
+        world = ThreadGroup(dp * tp)
+        tps = [ThreadGroup(tp) for _ in range(dp)]
+        dps = [ThreadGroup(dp) for _ in range(tp)]
+        meshes = [cls(dp, tp, world.comm(r), tps[r // tp].comm(r % tp),
+                      dps[r % tp].comm(r // tp)) for r in range(dp * tp)]
+        return meshes, [world] + tps + dps

@@ -26,6 +26,10 @@ bootstrap starts no distributed runtime for one process): no process
 group, no mesh, one device, and the trainer's single-device step.
 `group_of_one=True` joins a group and builds the mesh even then, so that
 the FSDP step and its collectives can be checked on a single card.
+
+A serving gang (`initialize_serving`) comes up from the same env with the
+(dp, tp) mesh of the serve main's --mesh, and serves through a
+`parallel/mesh.ServingMesh` over the DeviceMesh's groups.
 """
 
 from __future__ import annotations
@@ -33,16 +37,18 @@ from __future__ import annotations
 import datetime
 import os
 from dataclasses import dataclass
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
+from ..parallel import comm
 from ..parallel import mesh as mesh_lib
 from ..utils.device import resolve_device
 
-# Longest wait of one collective (the first includes every rank's start).
-COLLECTIVE_TIMEOUT_S = 600.0
+# Longest wait of one collective (the first includes every rank's start);
+# the serving gang's thread groups wait as long.
+COLLECTIVE_TIMEOUT_S = comm.COLLECTIVE_TIMEOUT_S
 
 
 @dataclass
@@ -106,9 +112,13 @@ def mesh_config(env: Optional[Dict[str, str]] = None,
 
 
 def initialize(env: Optional[Dict[str, str]] = None, device="cuda",
-               group_of_one: bool = False) -> BootstrapContext:
+               group_of_one: bool = False,
+               config: Optional[mesh_lib.MeshConfig] = None
+               ) -> BootstrapContext:
     """The gang's context from `env` (default: os.environ) on `device`
-    ("cuda", raising without a card, or "cpu"); see the module note."""
+    ("cuda", raising without a card, or "cpu"); see the module note.
+    `config` is the mesh when the caller has its own (the serve main's
+    --mesh) in place of KTWE_MESH_AXES / KTWE_STRATEGY."""
     env = dict(os.environ if env is None else env)
     coordinator = env.get("COORDINATOR_ADDRESS", "")
     num_processes = int(env.get("NUM_PROCESSES", "1"))
@@ -118,7 +128,12 @@ def initialize(env: Optional[Dict[str, str]] = None, device="cuda",
     if dev.type == "cuda":
         dev = torch.device("cuda", int(env.get("LOCAL_RANK", "0")))
     gang = num_processes > 1 or group_of_one
-    cfg = mesh_config(env, group_of_one)
+    cfg = config if config is not None else mesh_config(env, group_of_one)
+    if config is not None and config.num_devices != (
+            num_processes if gang else 1):
+        raise ValueError(f"mesh {config.describe()} needs "
+                         f"{config.num_devices} devices; the gang has "
+                         f"{num_processes} processes")
     mesh_lib.check_supported(cfg)
     mesh = None
     if gang:
@@ -140,3 +155,18 @@ def initialize(env: Optional[Dict[str, str]] = None, device="cuda",
         process_id=process_id, num_processes=num_processes,
         coordinator=coordinator, mesh=mesh, mesh_config=cfg,
         strategy=strategy, device=dev)
+
+
+def initialize_serving(mesh_shape: Optional[Tuple[int, int]],
+                       env: Optional[Dict[str, str]] = None, device="cuda",
+                       group_of_one: bool = False):
+    """A serving gang from the launcher env (COORDINATOR_ADDRESS,
+    NUM_PROCESSES, PROCESS_ID) with the mesh (dp, tp) the serve main's
+    --mesh gives (None: one device), not KTWE_MESH_AXES. Returns (the
+    context, this rank's ServingMesh), the mesh None off a gang."""
+    dp, tp = mesh_shape or (1, 1)
+    ctx = initialize(env, device, group_of_one,
+                     config=mesh_lib.MeshConfig(dp=dp, tp=tp))
+    if ctx.mesh is None:
+        return ctx, None
+    return ctx, mesh_lib.ServingMesh.from_device_mesh(ctx.mesh, ctx.device)

@@ -147,7 +147,8 @@ def test_embed_tokens_reads_strided_ids():
 def test_model_sites_reach_embed_tokens(monkeypatch):
     """forward_hidden (training), forward_cached (every prefill chunk) and
     the engine's decode step each embed through `embed_tokens`: once per
-    call, chunk and step."""
+    call, chunk and step (the inference sites through
+    `models/decode.embed`)."""
     _, _, cfg, params = tp.model()
     calls = {}
 
@@ -158,7 +159,7 @@ def test_model_sites_reach_embed_tokens(monkeypatch):
             calls[module.__name__] = calls.get(module.__name__, 0) + 1
             return real(*a, **k)
         monkeypatch.setattr(module, "embed_tokens", counted)
-    for module in (ttf, tdecode, tserving):
+    for module in (ttf, tdecode):
         spy(module)
     toks = torch.from_numpy(tp.tokens((2, 33)))
     ttf.loss_fn(params, toks, cfg)
@@ -173,8 +174,8 @@ def test_model_sites_reach_embed_tokens(monkeypatch):
     eng.run()
     assert all(len(eng.result(r).tokens) == 6 for r in rids)
     life = eng.metrics()["lifetime"]
-    assert calls == {tdecode.__name__: life["prefill_chunks"],
-                     tserving.__name__: life["decode_steps"]}
+    assert calls == {tdecode.__name__: life["prefill_chunks"]
+                     + life["decode_steps"]}
     assert life["prefill_chunks"] == 4 and life["decode_steps"] > 0
     assert sum(kernels.launches.values()) == 0
 

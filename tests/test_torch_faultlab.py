@@ -46,6 +46,8 @@ KINDS = [0, 8]
 KIND_IDS = ["dense", "paged"]
 ENGINE_SITES = ("engine.dispatch", "engine.collect", "engine.commit",
                 "engine.paged_admit", "engine.prefill")
+# Crossed only on a serving mesh (tests/test_torch_mesh_serving.py).
+MESH_SITES = ("engine.device_loss",)
 # The host KV tier's sites (tests/test_torch_kvhost.py drives them).
 KVHOST_SITES = ("kvhost.dma", "kvhost.fetch", "kvhost.corrupt")
 CAUSES = ("dispatch", "collect", "commit", "prefill", "watchdog")
@@ -93,11 +95,12 @@ def test_schedule_equals_jax(seed):
     for name in ENGINE_SITES:
         assert ([tt.decide(name, i) for i in range(8)]
                 == [jt.decide(name, i) for i in range(8)])
-    # The port keeps the engine's and the host tier's sites only, each of
-    # JAX's kind.
-    assert set(tfl.SITES) == set(ENGINE_SITES + KVHOST_SITES)
+    # The port keeps the engine's (the mesh's device loss included) and the
+    # host tier's sites only, each of JAX's kind.
+    assert set(tfl.SITES) == set(ENGINE_SITES + MESH_SITES + KVHOST_SITES)
     for name, (kind, _) in tfl.SITES.items():
-        assert kind == jfl.SITES[name][0] == "error", name
+        assert kind == jfl.SITES[name][0] == (
+            "device-loss" if name in MESH_SITES else "error"), name
     assert (tfl.ENV_SEED, tfl.ENV_RATE, tfl.ENV_SITES) == (
         jfl.ENV_SEED, jfl.ENV_RATE, jfl.ENV_SITES)
 

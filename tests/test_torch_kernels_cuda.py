@@ -1713,3 +1713,174 @@ def test_capture_census_exact_and_no_steady_state_captures(dev):
     finally:
         compilewatch.disable()
         compilewatch.reset()
+
+
+def _mesh_gang(dp, tp, rank_fn):
+    """rank_fn(mesh) on every rank of a (dp, tp) gang of threads on the
+    card; rank 0's result."""
+    import threading
+    from k8s_gpu_workload_enhancer_tpu_torch.parallel.mesh import ServingMesh
+    meshes, groups = ServingMesh.thread_gang(dp, tp)
+    out, errors = [None] * (dp * tp), []
+
+    def one(r):
+        try:
+            out[r] = rank_fn(meshes[r])
+        except BaseException as e:              # noqa: BLE001 — reported
+            errors.append(e)
+            for g in groups:
+                g.abort()
+    threads = [threading.Thread(target=one, args=(r,))
+               for r in range(dp * tp)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    assert not errors, errors
+    return out[0]
+
+
+@pytest.mark.parametrize("kv_block_len", [0, 16], ids=["dense", "paged"])
+def test_size_one_mesh_runs_the_single_device_kernels(dev, kv_block_len):
+    """An engine on a (1, 1) serving mesh (an NCCL group of one) runs the
+    single-device programs: the kernels with exactly the unmeshed engine's
+    launches, one graph capture, and its tokens; a (1, 2) thread gang runs
+    the plain ops and launches no kernel."""
+    import socket
+    from k8s_gpu_workload_enhancer_tpu_torch.models import decode
+    from k8s_gpu_workload_enhancer_tpu_torch.train import bootstrap
+    cfg, (params, _) = _serving_model(dev)
+    greedy = lambda eng: _graph_workload(eng)[:2]          # noqa: E731
+    kernels.reset_launches()
+    want = greedy(_graph_engine(dev, params, cfg, kv_block_len))
+    want_launches = dict(kernels.launches)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    ctx, mesh = bootstrap.initialize_serving(
+        (1, 1), {"COORDINATOR_ADDRESS": f"localhost:{port}",
+                 "NUM_PROCESSES": "1", "PROCESS_ID": "0"}, device="cuda",
+        group_of_one=True)
+    try:
+        eng = _graph_engine(dev, params, cfg, kv_block_len, mesh=mesh)
+        kernels.reset_launches()
+        got = greedy(eng)
+        assert dict(kernels.launches) == want_launches
+        assert eng.metrics()["hotpath"]["graphs_captured"] == 1
+        eng.stop_followers()
+    finally:
+        ctx.close()
+    assert [t for t, _ in got] == [t for t, _ in want]
+
+    def rank(mesh):
+        eng = _graph_engine(dev, decode.shard_params_for_serving(
+            params, cfg, mesh), cfg, kv_block_len, mesh=mesh)
+        if not mesh.is_driver:
+            eng.follow()
+            return None
+        try:
+            return greedy(eng), eng.metrics()["hotpath"]["graphs_captured"]
+        finally:
+            eng.stop_followers()
+    kernels.reset_launches()
+    _, captures = _mesh_gang(1, 2, rank)
+    assert not kernels.launches and captures == 0
+
+
+@pytest.mark.parametrize("kv_block_len", [0, 16], ids=["dense", "paged"])
+def test_graphed_size_one_mesh_recaptures_after_a_device_loss(dev,
+                                                              kv_block_len):
+    """A graphed engine on a (1, 1) NCCL mesh loses its device after its
+    decode graph was captured: the rebuild's new cache and table void the
+    graph, which is dropped and captured again, so the degraded engine
+    (paged decode kernel off) gives an unmeshed engine's tokens on that
+    route and launches no paged decode kernel."""
+    import socket
+    from k8s_gpu_workload_enhancer_tpu_torch import faultlab
+    from k8s_gpu_workload_enhancer_tpu_torch.train import bootstrap
+    cfg, (params, _) = _serving_model(dev)
+    prompt = list(range(1, 41))
+    ref = _graph_engine(dev, params, cfg, kv_block_len, cuda_graph=False)
+    ref._paged_kernel = False                   # the degraded route
+    rid = ref.submit(prompt, 16)
+    ref.run()
+    want = ref.result(rid).tokens
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    ctx, mesh = bootstrap.initialize_serving(
+        (1, 1), {"COORDINATOR_ADDRESS": f"localhost:{port}",
+                 "NUM_PROCESSES": "1", "PROCESS_ID": "0"}, device="cuda",
+        group_of_one=True)
+    try:
+        eng = _graph_engine(dev, params, cfg, kv_block_len, mesh=mesh)
+        r0 = eng.submit(prompt, 16)
+        for _ in range(16):
+            eng.step()
+            if eng.result(r0).tokens:
+                break
+        captured = eng._graph.captures
+        faultlab.activate(faultlab.TargetedPlan({"engine.device_loss": [0]}))
+        try:
+            eng.step()
+        finally:
+            faultlab.deactivate()
+        kernels.reset_launches()
+        r1 = eng.submit(prompt, 16)
+        eng.run()
+        got, launches = eng.result(r1).tokens, dict(kernels.launches)
+        finish = eng.result(r0).finish_reason
+    finally:
+        ctx.close()
+    assert captured == 1 and eng._graph.captures == 2
+    assert finish == "migrated" and eng.mesh is None
+    assert "paged_decode" not in launches
+    for k in ("rms_norm", "rope", "flash_attention", "embed_gather"):
+        assert launches.get(k, 0) > 0, launches
+    assert got == want
+
+
+def test_degraded_engine_launches_the_single_device_kernels(dev):
+    """A dense engine on a (2, 2) thread gang loses a device: every request
+    is evacuated, and the degraded engine serves on one device through the
+    kernels (rows 1, 3, 6 and 13; the paged decode kernel is off), its
+    tokens those of an unmeshed engine."""
+    from k8s_gpu_workload_enhancer_tpu_torch import faultlab
+    from k8s_gpu_workload_enhancer_tpu_torch.models import decode
+    cfg, (params, _) = _serving_model(dev)
+    ref = _graph_engine(dev, params, cfg, 0, cuda_graph=False)
+    rid = ref.submit(list(range(1, 41)), 16)
+    ref.run()
+    want = ref.result(rid).tokens
+
+    def rank(mesh):
+        eng = _graph_engine(dev, decode.shard_params_for_serving(
+            params, cfg, mesh), cfg, 0, mesh=mesh)
+        if not mesh.is_driver:
+            eng.follow()
+            return None
+        try:
+            r0 = eng.submit(list(range(1, 41)), 16)
+            for _ in range(16):
+                eng.step()
+                if eng.result(r0).tokens:
+                    break
+            faultlab.activate(faultlab.TargetedPlan(
+                {"engine.device_loss": [0]}))
+            try:
+                eng.step()
+            finally:
+                faultlab.deactivate()
+            kernels.reset_launches()
+            r1 = eng.submit(list(range(1, 41)), 16)
+            eng.run()
+            return (eng.result(r0).finish_reason, eng.result(r1).tokens,
+                    dict(kernels.launches), eng.mesh)
+        finally:
+            eng.stop_followers()
+    finish, tokens, launches, mesh = _mesh_gang(2, 2, rank)
+    assert finish == "migrated" and mesh is None
+    for k in ("rms_norm", "rope", "flash_attention", "embed_gather"):
+        assert launches.get(k, 0) > 0, launches
+    assert "paged_decode" not in launches
+    assert tokens == want

@@ -5,8 +5,8 @@ JAX package.
   `--optimizer-url`, `--telemetry-interval`, `--tenants` parse, take the
   JAX knob registry's defaults ($KTWE_TIMESLICE_TENANTS included), come from
   `--config`, and a telemetry interval under 1 s is refused.
-- `--metrics-port` serves the JAX `SERVING_FAMILIES` less the 23 not ported
-  yet, each with the JAX table's value; /v1/metrics' `spans` and `trace`
+- `--metrics-port` serves the JAX `SERVING_FAMILIES`, all 98 since the
+  serving mesh, each with the JAX table's value; /v1/metrics' `spans` and `trace`
   blocks have the JAX serve's keys, on and off.
 - Recorder on: a request's `traceparent` is adopted (its `traceId` in the
   final view), every final view's trace has one `replica.generate` root with
@@ -64,12 +64,10 @@ from test_torch_serve_fleet import (ARGS, N, PROMPT, TRACEPARENT, Stream,
 
 FLAGS = ("trace_out", "span_out", "slo_capture_threshold", "optimizer_url",
          "telemetry_interval", "tenants")
-# The JAX serve's families whose source the port has not ported yet.
-UNPORTED = (
-    [f"ktwe_serving_mesh_{k}" for k in (
-        "degraded", "devices", "dp", "per_slice_mfu_pct", "tp")]
-    + ["ktwe_serving_evacuated_requests_total",
-       "ktwe_serving_request_errors_device_loss_total"])
+# The JAX serve's families whose source the port has not ported yet: none
+# since the serving mesh (its five mesh families, evacuations and
+# device-loss errors).
+UNPORTED = ()
 
 
 class ObsReplica:
@@ -205,10 +203,10 @@ def test_metrics_blocks_have_the_jax_keys(tmp_path):
 
 
 def test_families_are_the_jax_ones_less_the_unported(tmp_path):
-    assert len(UNPORTED) == 7
+    assert len(UNPORTED) == 0
     assert set(serve.SERVING_FAMILIES) == \
         set(jserve.SERVING_FAMILIES) - set(UNPORTED)
-    assert len(serve.SERVING_FAMILIES) == 91
+    assert len(serve.SERVING_FAMILIES) == 98
     mport = _free_port()
     spans = tmp_path / "spans.ndjson"
     port, stop, th, result = _run_main(ARGS + [

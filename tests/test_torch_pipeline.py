@@ -365,7 +365,7 @@ def test_hot_path_families_have_the_jax_names():
              "ktwe_serving_watchdog_trips_total",
              "ktwe_serving_request_errors_watchdog_total"}
     assert names <= set(serve.SERVING_FAMILIES) <= set(JAX_FAMILIES)
-    assert len(serve.SERVING_FAMILIES) == 91
+    assert len(serve.SERVING_FAMILIES) == 98
 
 
 def test_a_failing_graph_fails_the_batch_and_never_runs_eagerly(models,

@@ -133,8 +133,8 @@ def test_engine_is_freed_when_main_returns_without_gc(monkeypatch):
     engines = []
     build = serve.build_engine
 
-    def build_and_watch(args):
-        engine = build(args)
+    def build_and_watch(args, mesh=None):
+        engine = build(args, mesh)
         engines.append(weakref.ref(engine))
         return engine
     monkeypatch.setattr(serve, "build_engine", build_and_watch)

@@ -36,11 +36,13 @@ from http.server import ThreadingHTTPServer
 
 import pytest
 
+from k8s_gpu_workload_enhancer_tpu import faultlab as jfaultlab
 from k8s_gpu_workload_enhancer_tpu.cmd.serve import \
     SERVING_FAMILIES as JAX_FAMILIES
 from k8s_gpu_workload_enhancer_tpu.fleet.registry import ReplicaRegistry
 from k8s_gpu_workload_enhancer_tpu.fleet.router import FleetRouter
 from k8s_gpu_workload_enhancer_tpu.fleet.wire import validate_frame
+from k8s_gpu_workload_enhancer_tpu_torch import faultlab
 from k8s_gpu_workload_enhancer_tpu_torch.cmd import serve
 from k8s_gpu_workload_enhancer_tpu_torch.utils.config import parse_with_config
 
@@ -487,6 +489,12 @@ def test_metrics_port_and_config(tmp_path):
     page size from the command line over the file's), with --metrics-port:
     traffic through a prefix and a resume, then every scraped family has
     its JAX name and the JAX table's value of /v1/metrics."""
+    # Each package's FaultLab counts injections process-wide, and the JAX
+    # table reads the JAX one: start both at zero, whatever an earlier test
+    # in this process injected (activation resets the counts).
+    for fl in (jfaultlab, faultlab):
+        fl.activate(fl.TargetedPlan({}))
+        fl.deactivate()
     mport = _free_port()
     cfg = tmp_path / "ktwe.yaml"
     cfg.write_text("serve:\n  num_slots: 3\n  max_queue: 7  # comment\n"
@@ -543,7 +551,7 @@ def test_config_sets_flags_and_refuses_keys_without_one(tmp_path, capsys):
     cfg.write_text("serve:\n  kv_host_blocks: 2\n")
     assert parse_with_config(serve.build_parser(), "serve",
                              ["--config", str(cfg)]).kv_host_blocks == 2
-    for bad, named in (("  mesh: '2,4'\n", "serve.mesh"),
+    for bad, named in (("  tokenizer: 'tok.json'\n", "serve.tokenizer"),
                        ("  num_slots: lots\n", "serve.num_slots"),
                        ("  int8: 3\n", "serve.int8")):
         cfg.write_text("serve:\n" + bad)

@@ -275,7 +275,7 @@ def test_generate_main_speculative_result(capsys):
     want = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert tgen.main(argv + ["--device", "cpu"]) == 0
     got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert set(got) - {"device_name"} == set(want) - {"tensor_parallel"}
+    assert set(got) - {"device_name"} == set(want)
     assert set(got["speculative"]) == set(want["speculative"])
     spec = got["speculative"]
     assert (spec["draft_layers"], spec["k"]) == (1, 3)

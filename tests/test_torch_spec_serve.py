@@ -22,7 +22,7 @@ layers, max_seq 128).
 - The serve main: `--spec-k`/`--spec-ngram` with the JAX knob defaults
   and `serve:` keys, `--spec-k` with `--int8-kv` the JAX parser error, a
   spec replica's `spec` block with the JAX keys, its 8
-  `ktwe_serving_spec_*` families at the JAX table's values (91 served),
+  `ktwe_serving_spec_*` families at the JAX table's values (98 served),
   tokens equal to a spec-off replica's, and the JAX
   `ReplicaRegistry._parse_load` reading its acceptance rate and effective
   tokens a step.
@@ -600,7 +600,7 @@ def test_spec_replica_serves_the_spec_block_and_families(paged):
     assert spec["enabled"] and spec["k"] == 4 and spec["rounds_total"] > 0
     assert spec["draft_accepted_total"] > 0
     assert m_off["spec"]["rounds_total"] == 0
-    assert len(serve.SERVING_FAMILIES) == 91 == len(series)
+    assert len(serve.SERVING_FAMILIES) == 98 == len(series)
     spec_names = [n for n in series if n.startswith("ktwe_serving_spec_")]
     assert len(spec_names) == 8
     for name in spec_names:

@@ -619,7 +619,7 @@ def test_serve_eject_carries_tenancy_and_prometheus_families(model):
         assert prom["ktwe_serving_tenant_requests_batch_total"] == 0.0
         assert prom["ktwe_serving_tenant_chip_seconds_batch_total"] == 0.0
         assert prom["ktwe_serving_tenants_active"] == 1.0
-        assert len(serve.SERVING_FAMILIES) == 91
+        assert len(serve.SERVING_FAMILIES) == 98
     finally:
         svc.stop()
 

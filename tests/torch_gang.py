@@ -50,14 +50,16 @@ def free_port() -> int:
 
 
 class Gang:
-    """`world` ranks of this script started in the background on `phases`
-    (each {"mesh_axes": ..., "jobs": [...]}, given a free port here), with
+    """`world` ranks of `script` (default this one) started in the
+    background on `phases` (each {"mesh_axes": ..., "jobs": [...]} here;
+    tests/torch_serve_gang.py reads its own), each given a free port, with
     `inputs` (name -> numpy array) in JOB_DIR/inputs.npz. `result()` waits
     for every rank, each with one deadline, and raises if one failed or is
     still running then (all are killed); `close()` kills what still runs."""
 
     def __init__(self, job_dir: pathlib.Path, world: int, phases: list,
-                 inputs: dict, timeout: float = GANG_TIMEOUT_S):
+                 inputs: dict, timeout: float = GANG_TIMEOUT_S,
+                 script: str = __file__):
         self.dir, self.world, self.timeout = job_dir, world, timeout
         np.savez(job_dir / "inputs.npz", **inputs)
         phases = [dict(p, port=free_port()) for p in phases]
@@ -65,7 +67,7 @@ class Gang:
             {"world": world, "phases": phases}))
         env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=str(ROOT))
         self.procs = [subprocess.Popen(
-            [sys.executable, str(pathlib.Path(__file__).resolve()),
+            [sys.executable, str(pathlib.Path(script).resolve()),
              str(job_dir), str(r)], env=env, cwd=ROOT,
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
             for r in range(world)]
