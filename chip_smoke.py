@@ -254,10 +254,25 @@ inits in bf16:
      device, degraded); the paged engine on a (1, 1) mesh through an NCCL
      process group of one in bf16, its tokens, launches and one graph
      capture those of the unmeshed engine; the serve main's --mesh 2,4
-     exiting 2 ("needs 8 devices"). It prints ms a decode step of each
-     gang against the unmeshed eager engine, the driver's broadcast bytes
-     and ms a header and headers a decode step, and peak GB; a gang
-     across cards needs a machine with more than one.
+     exiting 2 ("needs 8 devices"). The host KV tier on a mesh: the
+     kvhost phase's traffic (6 prefixes, a pool of KVHOST_BLOCKS pages
+     under a tier of KVHOST_TIER blocks) in f32 on a (1, 4) thread gang
+     and on the (1, 1) mesh over an NCCL group of one: offloads,
+     prefetches and hits above 0, every rank's restored page bit for bit
+     the shard that rank held when the page was demoted, tokens those of a
+     tier-off engine on the same mesh and pool, and on (1, 1) one graph
+     capture and none after the restores; the demotion's and restore's
+     collectives held to their pins and page bytes
+     (parallel/comm_gate.py), host ms a page each way and their header
+     bytes printed. The collective-budget gate at full width: every decode
+     chunk of the dense (2, 4) gang (f32) and of the paged (1, 4) gang
+     held to the pinned counts at 3 layers and 8 steps and to the size
+     gate's activation-row caps, the counts and largest bytes printed. The
+     collective bench (cmd/icibench.py) runs its single-rank case over an
+     NCCL group of one, its line printed (`icibench`). It prints ms a
+     decode step of each gang against the unmeshed eager engine, the
+     driver's broadcast bytes and ms a header and headers a decode step,
+     and peak GB; a gang across cards needs a machine with more than one.
      Every
      phase
      must launch exactly the kernels its prefill chunks, decode steps,
@@ -505,6 +520,8 @@ RING_RTOL, RING_ATOL_OF_MAX = 2.0 ** -6, 2.0 ** -6
 # three requests of MESH_DRILL_NEW tokens armed once the first has 3.
 MESH_PROMPT, MESH_NEW, MESH_SPEC_K, MESH_SEED = 48, 16, 3, 47
 MESH_DRILL_NEW = 12
+# The collective bench's payload a rank (cmd/icibench.py's default).
+ICIBENCH_MB = 256
 
 # Kernel vs plain version in bf16: both round once from f32, so they differ
 # by at most a couple of bf16 ulps (2^-8 relative) where their f32 sums are
@@ -3033,12 +3050,14 @@ def mesh_engine_run(ServingMesh, serving, decode, dp, tp, full, cfg, dev,
             sent["headers"] += 1
             sent["bytes"] += len(pickle.dumps(header))
         eng._send = counted
+        programs = record_programs(eng)
         try:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = drive(eng)
             torch.cuda.synchronize()
             out["wall_s"] = time.perf_counter() - t0
+            out["programs"] = programs
             out["decode_steps"] = eng.metrics()["lifetime"]["decode_steps"]
             n = max(1, sent["headers"])
             out["broadcast"] = {
@@ -3052,8 +3071,243 @@ def mesh_engine_run(ServingMesh, serving, decode, dp, tp, full, cfg, dev,
             try:
                 eng.stop_followers()
             finally:
-                del eng._send       # the wrapper's cycle would keep eng
+                # The wrappers' cycles would keep eng.
+                del eng._send, eng._prog
     return thread_gang(ServingMesh, dp, tp, rank)[0]
+
+
+def record_programs(eng) -> list:
+    """[program, steps (a decode chunk's; else None), calls] for every
+    device program the driver `eng` runs from now on: the collectives of
+    its header and of the program on the driver's thread
+    (parallel/comm_gate.record)."""
+    from k8s_gpu_workload_enhancer_tpu_torch.parallel import comm_gate
+    seen, prog = [], eng._prog
+
+    def recorded(name, *args):
+        with comm_gate.record(this_thread=True) as calls:
+            out = prog(name, *args)
+        seen.append((name, args[0] if name == "chunk" else None, calls))
+        return out
+    eng._prog = recorded
+    return seen
+
+
+def chunk_gate(run: dict, name: str, rows: int, cfg, tp: int,
+               gates: list) -> dict:
+    """The collective-budget gate on every full decode chunk of a gang's
+    driver: the pinned counts of `name` at the model's layers and
+    DECODE_CHUNK steps, and every call within the activation-row caps of
+    `rows` token rows (parallel/comm_gate.py)."""
+    from k8s_gpu_workload_enhancer_tpu_torch.parallel import comm_gate
+    want = comm_gate.expected(name, cfg.n_layers, DECODE_CHUNK)
+    caps = comm_gate.row_caps(rows, cfg.d_model, cfg.vocab_size, tp)
+    chunks = [c for p, n, c in run["programs"]
+              if p == "chunk" and n == DECODE_CHUNK]
+    largest: dict = {}
+    for calls in chunks:
+        for op, n in calls:
+            largest[op] = max(largest.get(op, 0), n)
+        try:
+            comm_gate.assert_collective_budget(calls, want, name)
+            comm_gate.assert_sizes_within(calls, caps, name)
+        except AssertionError as e:
+            gates.append(f"collective gate: {e}")
+            break
+    if not chunks:
+        gates.append(f"collective gate: no decode chunk of {name} ran")
+    return dict(chunks=len(chunks), counts=comm_gate.collective_counts(
+        chunks[0]) if chunks else {}, expected=want, largest_bytes=largest,
+        caps=caps)
+
+
+def mesh_tier_rank(mesh, serving, decode, full, cfg, dev, traffic, tier,
+                   marks):
+    """A rank of the host tier's run on a mesh: the tier engine (or, with
+    `tier` False, the same pool without a tier) on the rank's blocks. Every
+    rank logs its shard of each page it demotes and of each page it
+    restores (each just as its program runs); the driver runs the kvhost
+    waves, logging each demotion's and restore's digest, host seconds and
+    collectives (parallel/comm_gate.record)."""
+    from k8s_gpu_workload_enhancer_tpu_torch.parallel import comm_gate
+    eng = kvhost_engine(serving, decode.shard_params_for_serving(
+        full, cfg, mesh), cfg, dev, tier=tier, kv_num_blocks=KVHOST_BLOCKS,
+        mesh=mesh)
+    events = []
+    if tier:
+        demote, restore = eng._p_kv_demote, eng._p_kv_restore
+
+        def logged_demote(blk):
+            events.append(("demote", [t[:, blk].clone()
+                                      for t in eng._cache.leaves()]))
+            return demote(blk)
+
+        def logged_restore(blk):
+            restore(blk)
+            events.append(("restore", [t[:, blk].clone()
+                                       for t in eng._cache.leaves()]))
+        eng._p_kv_demote, eng._p_kv_restore = logged_demote, logged_restore
+    if not mesh.is_driver:
+        eng.follow()
+        return events
+    try:
+        if tier:
+            t = eng._host_tier
+            offload, restore_ = t.offload, t.restore
+
+            def timed(kind, fn, digest, *args):
+                n = len(events)
+                with comm_gate.record(this_thread=True) as calls:
+                    t0 = time.perf_counter()
+                    out = fn(*args)
+                    torch.cuda.synchronize()
+                    s = time.perf_counter() - t0
+                if len(events) > n:
+                    marks.append((kind, digest, s, calls))
+                return out
+            t.offload = lambda cache, blk, digest, *a: timed(
+                "demote", offload, digest, cache, blk, digest, *a)
+            t.restore = lambda cache, blk, entry: timed(
+                "restore", restore_, entry.digest, cache, blk, entry)
+        got = kvhost_waves(eng, traffic)
+        torch.cuda.synchronize()
+        m = eng.metrics()
+        return dict(events=events, tokens=[r.tokens for r in got["reqs"]],
+                    hits=got["hits"], kvhost=m["kvhost"],
+                    captures=m["hotpath"]["graphs_captured"],
+                    mesh_sig=eng._host_tier.mesh_sig if tier else None)
+    finally:
+        eng.stop_followers()
+
+
+def tier_shards_held(ranks: list, marks: list) -> int:
+    """Every rank's shard of each restored page equals, bit for bit, its
+    shard of that page at its latest demotion: the ranks' events and the
+    driver's digests walk in the driver's order. Returns the restores
+    held (every rank), or -1 where one differs."""
+    digests = [d for _, d, _, _ in marks]
+    held = 0
+    for events in ranks:
+        if len(events) != len(digests):
+            return -1
+        last = {}
+        for (kind, pages), digest in zip(events, digests):
+            if kind == "demote":
+                last[digest] = pages
+            elif digest in last:
+                if not all(torch.equal(a, b)
+                           for a, b in zip(pages, last[digest])):
+                    return -1
+                held += 1
+    return held
+
+
+def run_mesh_tier(dev, mods, ServingMesh, bootstrap, p32, cfg32,
+                  gates: list) -> dict:
+    """The host KV tier on a (1, 4) thread gang and on the (1, 1) mesh over
+    an NCCL group of one, f32 at the serve widths (the module note)."""
+    from k8s_gpu_workload_enhancer_tpu_torch.parallel import comm_gate
+    kernels, rms, rope, flash, paged, tf, decode, serving, serve = mods
+    traffic = kvhost_traffic(cfg32.vocab_size)
+    hd = cfg32.d_model // cfg32.n_heads
+    out = {}
+    for name, shape in (("tp4", (1, 4)), ("one", (1, 1))):
+        runs = {}
+        for tier in (True, False):
+            marks = []
+
+            def rank(mesh):
+                return mesh_tier_rank(mesh, serving, decode, p32, cfg32,
+                                      dev, traffic, tier, marks)
+            if shape == (1, 1):
+                ctx, mesh = bootstrap.initialize_serving(
+                    shape, {"COORDINATOR_ADDRESS":
+                            f"localhost:{free_port()}",
+                            "NUM_PROCESSES": "1", "PROCESS_ID": "0"},
+                    device="cuda", group_of_one=True)
+                try:
+                    ranks = [rank(mesh)]
+                finally:
+                    ctx.close()
+            else:
+                ranks = thread_gang(ServingMesh, *shape, rank)
+            driver = ranks[0]
+            runs[tier] = dict(driver=driver, marks=marks,
+                              events=[driver["events"]] + ranks[1:])
+        on, off = runs[True], runs[False]
+        d = on["driver"]
+        kv = d["kvhost"]
+        what = f"mesh tier {shape}"
+        if min(kv["offloads_total"], kv["prefetches_total"],
+               kv["hits_total"]) <= 0:
+            gates.append(f"{what}: tier counters {kv}")
+        if d["tokens"] != off["driver"]["tokens"]:
+            gates.append(f"{what}: tokens differ from the tier-off engine's")
+        held = tier_shards_held(on["events"], on["marks"])
+        if held <= 0:
+            gates.append(f"{what}: restored shards held {held}")
+        if shape == (1, 1) and d["captures"] != 1:
+            gates.append(f"{what}: {d['captures']} graph captures")
+        tp = shape[1]
+        progs = {}
+        for kind in ("demote", "restore"):
+            pin = f"serve/kv_{kind}"
+            page = comm_gate.tier_calls(pin, cfg32.n_layers, KV_BLOCK_LEN,
+                                        cfg32.n_kv_heads, hd, 4, tp)
+            calls = [c for k, _, _, c in on["marks"] if k == kind]
+            ms = [s * 1e3 for k, _, s, _ in on["marks"] if k == kind]
+            headers = [n for c in calls for op, n in c
+                       if op == "object-broadcast"]
+            for c in calls:
+                try:
+                    if tp > 1:
+                        comm_gate.assert_collective_budget(
+                            c, comm_gate.expected(pin), pin)
+                    if sorted(x for x in c if x[0] != "object-broadcast") \
+                            != (page if tp > 1 else []):
+                        raise AssertionError(f"{pin}: page calls {c}, "
+                                             f"pinned {page}")
+                except AssertionError as e:
+                    gates.append(f"{what}: {e}")
+                    break
+            progs[kind] = dict(
+                calls=len(calls), ms_p50=float(np.median(ms)) if ms else 0.0,
+                ms_mean=float(np.mean(ms)) if ms else 0.0,
+                header_bytes=float(np.mean(headers)) if headers else 0.0,
+                page_calls=page if tp > 1 else [])
+        out[name] = dict(mesh=list(shape), mesh_sig=d["mesh_sig"],
+                         requests=len(d["tokens"]), restores_held=held,
+                         equal_tier_off=d["tokens"] == off["driver"]["tokens"],
+                         captures=d["captures"], kvhost={
+                             k: kv[k] for k in ("offloads_total",
+                                                "prefetches_total",
+                                                "hits_total",
+                                                "discards_total")},
+                         **progs)
+        del runs, on, off, d
+        collect_garbage()
+    return out
+
+
+def run_icibench(gates: list) -> dict:
+    """The collective bench's single-rank case over an NCCL group of one
+    (cmd/icibench.py, its line as it prints it)."""
+    from k8s_gpu_workload_enhancer_tpu_torch.cmd import icibench
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        code = icibench.main(["--mb", str(ICIBENCH_MB)])
+    lines = buf.getvalue().strip().splitlines()
+    line = json.loads(lines[-1]) if lines else {}
+    keys = ["devices", "axis_size", "payload_mb_per_chip", "allreduce_ms",
+            "allreduce_gbps_per_chip", "allgather_ms",
+            "allgather_gbps_per_chip", "ppermute_ms",
+            "ppermute_gbps_per_chip"]
+    if code != 0 or list(line) != keys or line["devices"] != 1 or any(
+            line[k] <= 0 for k in keys if k.endswith("_ms")):
+        gates.append(f"icibench: exit {code}, line {line}")
+    if torch.distributed.is_initialized():
+        gates.append("icibench: the group was left open")
+    return line
 
 
 def mesh_transcripts(prompts, new: int = MESH_NEW):
@@ -3117,6 +3371,10 @@ def run_mesh(dev, mods, card) -> dict:
     got = gang(2, 4, p32, cfg32)
     if got["tokens"] != want["tokens"]:
         gates.append("dense (2, 4) f32 transcripts differ from one device")
+    # The collective-budget gate at full width: the dense (2, 4) chunks
+    # (each rank's cache holds its dp block of the slots).
+    out["collective_gate"] = {"dense_2x4": chunk_gate(
+        got, "serve/decode_chunk/dense", NUM_SLOTS, cfg32, 4, gates)}
     out["dense_f32"] = dict(
         equal=sum(a == b for a, b in zip(got["tokens"], want["tokens"])),
         ms_per_decode_step=ms_per_step(got),
@@ -3163,6 +3421,10 @@ def run_mesh(dev, mods, card) -> dict:
             "kv_cache"]
         if got_p["tokens"] != want_p["tokens"]:
             gates.append(f"paged (1, 4) {name}: transcripts differ")
+        if name == "plain":
+            out["collective_gate"]["paged_1x4"] = chunk_gate(
+                got_p, "serve/decode_chunk/paged", NUM_SLOTS, cfg32, 4,
+                gates)
         if any(kv_g[k] != kv_w[k] for k in kv_keys):
             gates.append(f"paged (1, 4) {name}: pages {kv_g} vs {kv_w}")
         rounds = got_p["metrics"]["spec"]["rounds_total"]
@@ -3177,6 +3439,8 @@ def run_mesh(dev, mods, card) -> dict:
             broadcast=got_p["broadcast"])
     out["device_loss"] = mesh_device_loss(dev, mods, ServingMesh, faultlab,
                                           p32, cfg32, prompts, gates)
+    out["host_tier"] = run_mesh_tier(dev, mods, ServingMesh, bootstrap, p32,
+                                     cfg32, gates)
     del p32
     out["nccl_group_of_one"] = mesh_group_of_one(
         dev, mods, bootstrap, p16, cfg16, prompts, gates)
@@ -3194,6 +3458,7 @@ def run_mesh(dev, mods, card) -> dict:
                      f"{err.getvalue()[-200:]}")
     out["serve_mesh_2_4_exit"] = code
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["icibench"] = run_icibench(gates)
     out["phase_s"] = time.perf_counter() - t_phase
     out["gates_failed"] = gates
     return out
@@ -7316,6 +7581,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     results["mesh"] = run_mesh(dev, mods, card)
     print(json.dumps({"mesh": results["mesh"]}), flush=True)
+    print(json.dumps({"icibench": results["mesh"]["icibench"]}),
+          flush=True)
     for gate in results["mesh"]["gates_failed"]:
         fail(gate)
     results["paged_serve"] = run_serve(serve, kernels, paged=True)

@@ -134,9 +134,12 @@ shutdown (they ignore their own SIGTERM: the driver's drain is the
 gang's). A bare N means tp=N; '', '1' and '1,1' one device; the default is
 $KTWE_MESH. Exit 2, in the JAX serve's words: a malformed value, a gang of
 another size than dp * tp, a tp that does not divide --n-heads, --d-ff or
---vocab-size, a dp that does not divide a dense engine's --num-slots;
---kv-host-blocks with --mesh (ROADMAP A11b, second part). /v1/metrics
-reports the `mesh` block (devices, dp, tp, shape, degraded,
+--vocab-size, a dp that does not divide a dense engine's --num-slots. The
+host KV tier (--kv-host-blocks) serves on a mesh too: rank 0 holds it, a
+demotion gathers a page's KV-head shards to it and a restore sends the
+page back to every rank; its `kvhost` block, the ktwe_serving_kvhost_*
+families and /v1/kvhost (assembled pages, keyed by the mesh's signature)
+are a single-device replica's. /v1/metrics reports the `mesh` block (devices, dp, tp, shape, degraded,
 per_slice_mfu_pct: model FLOP/s over the mesh's peak), which the fleet
 registry reads; after a device loss it reads one device, degraded. Each
 rank's card holds its blocks of the weights and at most one full leaf
@@ -1596,8 +1599,7 @@ def watch_checkpoints(service: ServeService, directory: str,
 def check_mesh(args, parser: argparse.ArgumentParser, num_processes: int):
     """The --mesh flag's (dp, tp) (None: one device), its errors in flag
     language before the model loads (exit 2, the JAX serve's wording;
-    devices are the gang's processes, one device a process), and the
-    refusals of what a mesh does not serve yet."""
+    devices are the gang's processes, one device a process)."""
     try:
         mesh_shape = parse_mesh_flag(args.mesh)
     except ValueError as e:
@@ -1624,11 +1626,6 @@ def check_mesh(args, parser: argparse.ArgumentParser, num_processes: int):
                      f"({args.num_slots}) — the dense KV cache's slot axis "
                      f"shards over dp (paged engines via --kv-block-len "
                      f"have no such constraint)")
-    if args.kv_host_blocks:
-        parser.error("--kv-host-blocks with --mesh is not ported yet "
-                     "(ROADMAP A11b, second part): the host tier's page "
-                     "demotes and restores must gather and scatter tp "
-                     "shards")
     return mesh_shape
 
 

@@ -74,9 +74,9 @@ import threading
 from typing import Callable, Optional
 
 import torch
-import torch.distributed as dist
 
 from ..models import transformer as tf
+from ..parallel import comm
 from ..parallel.mesh import MeshConfig, UnportedAxisError, check_supported
 from ..train import bootstrap, trainer
 from ..train.checkpoint import CheckpointManager, write_drain_marker
@@ -237,7 +237,7 @@ def _train(args: argparse.Namespace, ctx: bootstrap.BootstrapContext,
             return drain.is_set()
         flag = torch.tensor([int(drain.is_set())], dtype=torch.int32,
                             device=device)
-        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        comm.all_reduce(flag, op="max")
         return bool(flag.item())
 
     def on_step(i, metrics):

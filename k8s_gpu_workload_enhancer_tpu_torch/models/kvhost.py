@@ -40,7 +40,20 @@ Entries are keyed by a MESH SIGNATURE that names the backend
 ("backend=torch" on one device, where the JAX package's is ""): a page
 shipped in from a JAX replica is a miss here, and a torch page a miss
 there, so KV computed by one package's kernels is never read by the
-other's; the request re-prefills.
+other's; the request re-prefills. On a serving mesh the signature is
+"backend=torch|" and then the JAX tier's own string for the same mesh
+(its five axes' sizes and the KV-head partition axis): a page of another
+mesh is a miss too, never resharded through the tier.
+
+**On a serving mesh** (models/serving.py) the tier lives on the driver
+alone, and its entries hold ASSEMBLED pages (every KV head: the JAX
+tier's host arrays), so `/v1/kvhost` payloads keep the JAX keys and
+shapes. The engine hands the tier two device programs, which every rank
+of the gang runs in the driver's order: `stage` (a demotion: the tp
+ranks' KV-head shards of the page gathered to the driver) and `write` (a
+restore: the page sent from the driver, every rank writing its own
+KV-head slice in place). On one device they are `stage_page` and
+`write_page` below.
 
 Failure containment rides three FaultLab sites, at the JAX tier's
 boundaries: ``kvhost.dma`` (the demotion copy: a fault degrades to the
@@ -60,11 +73,12 @@ import zlib
 
 from collections import OrderedDict
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 
 from .. import faultlab
+from ..parallel.mesh import AXES
 from .paged_kv import chain_digest
 
 __all__ = ["chain_digest", "prompt_digests", "PrefixBloom", "mesh_signature",
@@ -100,13 +114,33 @@ def mesh_signature(mesh: Any, kv_tp: Optional[str],
     mesh) the mesh's axis sizes and the kv-head partition axis. Host
     entries restore only into the signature they were extracted under: a
     page from another backend or mesh is a MISS (re-prefill), never a read
-    of KV that other kernels computed. `mesh` is None on one device (the
-    port has no meshes yet) or anything with a `shape` mapping of axis
-    sizes."""
+    of KV that other kernels computed. `mesh` is None on one device, a
+    ServingMesh (its `shape` the (dp, tp) pair: the JAX mesh of
+    `MeshConfig(dp, tp)` over the five axes) or anything with a `shape`
+    mapping of axis sizes."""
     if mesh is None:
         return f"backend={backend}"
-    axes = ",".join(f"{a}={n}" for a, n in sorted(mesh.shape.items()))
+    shape = mesh.shape
+    if not isinstance(shape, Mapping):
+        dp, tp = shape
+        shape = {**{a: 1 for a in AXES}, "dp": dp, "tp": tp}
+    axes = ",".join(f"{a}={n}" for a, n in sorted(shape.items()))
     return f"backend={backend}|{axes}|kv_tp={kv_tp or ''}"
+
+
+def stage_page(cache, block_id: int) -> Dict[str, torch.Tensor]:
+    """Page `block_id` of every leaf, copied out of the pool (one device):
+    the demotion's stage, queued on the current stream."""
+    return {n: t[:, block_id].clone()
+            for n, t in zip(LEAF_NAMES, cache.leaves())}
+
+
+def write_page(cache, block_id: int, arrays: Dict[str, torch.Tensor]
+               ) -> None:
+    """A page's host rows into pool page `block_id` in place (one device),
+    queued on the current stream."""
+    for name, pages in zip(LEAF_NAMES, cache.leaves()):
+        pages[:, block_id].copy_(arrays[name], non_blocking=pages.is_cuda)
 
 
 class PrefixBloom:
@@ -198,13 +232,20 @@ class HostBlockTier:
     lock serializes every mutation). `capacity` bounds the blocks held;
     past it the coldest entry is DISCARDED, so the tier's floor is the
     plain evict-to-nowhere behaviour. `page_layout` (leaf name -> (shape,
-    dtype) of one page; None: anything) makes `import_entry` reject a
-    payload whose rows this pool cannot hold. `device` is the pool's. The
-    port has no meshes yet, so the signature is the one-device one."""
+    dtype) of one assembled page; None: anything) makes `import_entry`
+    reject a payload whose rows this pool cannot hold. `device` is the
+    pool's. `mesh` and `kv_tp` (the JAX tier's) make the signature; `stage`
+    (cache, block_id) -> {leaf name: the assembled page, a tensor of its
+    own} and `write` (cache, block_id, host rows) are the demotion's and
+    the restore's device work, `stage_page` and `write_page` by default
+    (the module note)."""
 
     def __init__(self, *, capacity: int, block_len: int, device="cpu",
                  page_layout: Optional[Dict[str, Tuple[Tuple[int, ...],
-                                                       torch.dtype]]] = None):
+                                                       torch.dtype]]] = None,
+                 mesh: Any = None, kv_tp: Optional[str] = None,
+                 stage: Optional[Callable] = None,
+                 write: Optional[Callable] = None):
         if capacity <= 0:
             raise ValueError(f"host tier capacity {capacity} must be "
                              f">= 1 (0 disables the tier at the "
@@ -212,8 +253,12 @@ class HostBlockTier:
         self.capacity = int(capacity)
         self.block_len = int(block_len)
         self.device = torch.device(device)
-        self.mesh_sig = mesh_signature(None, None)
+        self.mesh = mesh
+        self.kv_tp = kv_tp
+        self.mesh_sig = mesh_signature(mesh, kv_tp)
         self.page_layout = page_layout
+        self._stage = stage or stage_page
+        self._write = write or write_page
         self._entries: "OrderedDict[str, HostEntry]" = OrderedDict()
         # Lifetime counters — the ktwe_serving_kvhost_* source.
         self.offloads_total = 0
@@ -276,19 +321,20 @@ class HostBlockTier:
     def _dispatch_extract(self, cache, block_id: int):
         """Start copying page `block_id` of every leaf to the host:
         (name -> host tensor, event behind the copies or None)."""
-        leaves = dict(zip(LEAF_NAMES, cache.leaves()))
-        if cache.k.device.type != "cuda":
-            return {n: t[:, block_id].clone() for n, t in leaves.items()}, None
         # Ordering without a device sync. The caller frees the page as soon
         # as this returns, and the same admission may hand it to its
         # prefill commit at once. So the page is first staged on the
-        # compute stream: that copy runs after every write already queued
-        # to the page and before any write queued later. The side stream
-        # waits for the stage, then copies it to pinned host memory while
-        # the compute stream goes on; the stage records the side stream,
-        # so the allocator keeps it until that copy has read it.
+        # compute stream (a copy, or on a mesh the tp gather): that runs
+        # after every write already queued to the page and before any
+        # write queued later.
+        stage = self._stage(cache, block_id)
+        if cache.k.device.type != "cuda":
+            return stage, None
+        # The side stream waits for the stage, then copies it to pinned
+        # host memory while the compute stream goes on; the stage records
+        # the side stream, so the allocator keeps it until that copy has
+        # read it.
         compute = torch.cuda.current_stream(self.device)
-        stage = {n: t[:, block_id].clone() for n, t in leaves.items()}
         staged = torch.cuda.Event()
         staged.record(compute)
         side = self._side_stream()
@@ -400,9 +446,7 @@ class HostBlockTier:
         queued after this returns reads it. The host buffers are held until
         the copy has read them, whatever becomes of the entry."""
         t0 = time.perf_counter()
-        for name, pages in zip(LEAF_NAMES, cache.leaves()):
-            pages[:, block_id].copy_(entry.arrays[name],
-                                     non_blocking=pages.is_cuda)
+        self._write(cache, block_id, entry.arrays)
         if cache.k.is_cuda:
             done = torch.cuda.Event()
             done.record(torch.cuda.current_stream(self.device))

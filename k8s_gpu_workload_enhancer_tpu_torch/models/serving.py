@@ -194,7 +194,8 @@ page, inserted into the tree) before it sizes its reservation, so each
 restored block is a prefill chunk it never re-pays; any miss ends the walk
 and the rest re-prefills. A restore writes into the pool's own tensors,
 so the decode graphs see it. `kvhost_export` / `kvhost_import` ship tier
-blocks between replicas (`/v1/kvhost`). Every paged engine gossips a bloom
+blocks between replicas (`/v1/kvhost`); on a serving mesh see below.
+Every paged engine gossips a bloom
 filter of the chain digests it holds (tree and tier) in the `kvhost`
 metrics block, rebuilt at most every `kv_gossip_interval` seconds, which
 the fleet's router reads to route a prompt to the replica warm for it. A
@@ -227,8 +228,22 @@ dense engine's slots shard over dp (num_slots % dp, the JAX check); the
 paged pool holds the rank's KV heads and replicates over dp. On a mesh
 above one rank the programs run the plain ops (the JAX package runs no
 Pallas kernel there) and eager (no graph); a mesh of one rank runs the
-single-device programs, kernels and graphs. Refused on a mesh: the host
-KV tier (ROADMAP A11b, second part) and MoE above one rank (A11c).
+single-device programs, kernels and graphs. Refused on a mesh: MoE above
+one rank (ROADMAP A11c).
+
+The host KV tier on a mesh is the driver's alone (its entries, crcs, LRU
+order and counters; followers build none), and holds assembled pages
+(every KV head), so `/v1/kvhost` ships the JAX tier's payloads. Its
+device work is two programs through `_prog`: a demotion (`_p_kv_demote`,
+the tier's stage, queued before the page can be freed) gathers the KV-head
+shards of the driver's dp replica over tp (nothing moves under the GQA
+fallback, where the driver's page is whole; the other dp replicas hold the
+same bits and take no part), and a restore (`_p_kv_restore`) sends the
+page from the driver to every rank, each writing its KV-head slice into
+the pool in place. The `kvhost.*` FaultLab sites fire on the driver
+before either header goes out, so a faulted demotion or fetch sends
+nothing and ends as on one device. The signature keys entries by the mesh
+(models/kvhost.mesh_signature): a page of another mesh is a miss.
 
 **The degraded-mesh evacuation.** A dispatch on a mesh crosses
 `engine.device_loss` after `engine.dispatch`; a device loss there ejects
@@ -1136,11 +1151,6 @@ class ContinuousBatchEngine:
         # programs, kernels and graphs).
         self.mesh = mesh
         if mesh is not None:
-            if kv_host_blocks:
-                raise ValueError(
-                    "the host KV tier (kv_host_blocks) on a serving mesh is "
-                    "not ported yet (ROADMAP A11b, second part): its page "
-                    "demotes and restores must gather and scatter tp shards")
             if cfg.is_moe and mesh.size > 1:
                 raise ValueError(
                     "MoE on a serving mesh needs expert parallelism, not "
@@ -1151,6 +1161,11 @@ class ContinuousBatchEngine:
                     f"batch axes (dp*ep = {mesh.dp}) — the KV cache's slot "
                     f"dim shards over them")
         self._layout = mesh if decode.meshed(mesh) else None
+        # The KV heads' tp axis ("tp", or None where the KV heads are
+        # replicated over tp: the GQA fallback), as the JAX engine decides
+        # it once.
+        self._kv_tp = (decode._kv_tp_axis(cfg, mesh) if mesh is not None
+                       else None)
         # The paged decode kernel runs on one device only (the JAX engine
         # gates its Pallas kernel off on a mesh, and off after a device
         # loss).
@@ -1277,11 +1292,17 @@ class ContinuousBatchEngine:
         self.kv_offload_watermark = float(kv_offload_watermark or 0.0)
         self.kv_gossip_interval = float(kv_gossip_interval or 30.0)
         self._host_tier: Optional[kvhost.HostBlockTier] = None
-        if self.kv_host_blocks > 0:
+        # A restore's host rows, on the driver while its program runs.
+        self._restore_src: Optional[Dict[str, torch.Tensor]] = None
+        if self.kv_host_blocks > 0 and (mesh is None or mesh.is_driver):
+            # On a mesh the tier is the driver's alone (followers hold no
+            # host state); its pages are assembled, every KV head.
             self._host_tier = kvhost.HostBlockTier(
                 capacity=self.kv_host_blocks, block_len=self.kv_block_len,
-                device=self.device, page_layout={
-                    n: (tuple(t.shape[:1] + t.shape[2:]), t.dtype)
+                device=self.device, mesh=mesh, kv_tp=self._kv_tp,
+                stage=lambda cache, blk: self._prog("kv_demote", blk),
+                write=self._kv_write, page_layout={
+                    n: (self._page_shape(t), t.dtype)
                     for n, t in zip(kvhost.LEAF_NAMES,
                                     self._cache.leaves())})
             self._radix.on_evict = self._kv_demote
@@ -1551,6 +1572,72 @@ class ContinuousBatchEngine:
             self._verify_graph.replay(self._run_verify)
         else:
             self._run_verify()
+
+    def _page_shape(self, pages: torch.Tensor) -> Tuple[int, ...]:
+        """The assembled page of a pool leaf (L, NB, BL, KH[, D]): (L, BL,
+        every KV head[, D])."""
+        shape = [pages.shape[0]] + list(pages.shape[2:])
+        shape[2] = self.cfg.n_kv_heads
+        return tuple(shape)
+
+    def _kv_sharded(self) -> bool:
+        """This rank's pool holds its tp block of the KV heads."""
+        return (self._layout is not None and self._layout.tp > 1
+                and self._kv_tp is not None)
+
+    def _p_kv_demote(self, blk: int) -> Optional[Dict[str, torch.Tensor]]:
+        """A demotion's stage: on the driver page `blk` of every leaf,
+        assembled (every KV head), in tensors of its own, queued on the
+        compute stream before the page can be freed. On a mesh the ranks of
+        the driver's dp replica gather their KV-head shards over tp (under
+        the GQA fallback the driver's page is whole and nothing moves);
+        the other replicas hold the same bits (every rank sums in rank
+        order) and take no part. Followers keep nothing."""
+        lay = self._layout
+        if lay is None:
+            return kvhost.stage_page(self._cache, blk)
+        if lay.dp_rank:
+            return None
+        if self._kv_sharded():
+            page = {n: lay.tp_gather(t[:, blk], 2)
+                    for n, t in zip(kvhost.LEAF_NAMES, self._cache.leaves())}
+        elif lay.is_driver:
+            page = kvhost.stage_page(self._cache, blk)
+        else:
+            return None
+        return page if lay.is_driver else None
+
+    def _kv_write(self, cache, blk: int,
+                  arrays: Dict[str, torch.Tensor]) -> None:
+        """The tier's restore of host rows `arrays` into page `blk`: a
+        device program every rank runs."""
+        self._restore_src = arrays
+        try:
+            self._prog("kv_restore", blk)
+        finally:
+            self._restore_src = None
+
+    def _p_kv_restore(self, blk: int) -> None:
+        """A restore: the driver's host rows written into page `blk` in
+        place (the pool tensors keep their storage, so a captured decode
+        graph reads the page). On a mesh above one rank the driver sends
+        each assembled leaf to every rank, and every rank of every dp
+        replica writes its own KV-head slice."""
+        src = self._restore_src
+        if self._layout is None:
+            kvhost.write_page(self._cache, blk, src)
+            return
+        lay = self._layout
+        for name, pages in zip(kvhost.LEAF_NAMES, self._cache.leaves()):
+            buf = (src[name].to(self.device, non_blocking=True)
+                   if src is not None else
+                   torch.empty(self._page_shape(pages), dtype=pages.dtype,
+                               device=self.device))
+            lay.world.broadcast(buf.reshape(-1).view(torch.uint8), 0)
+            if self._kv_sharded():
+                kh = pages.shape[3]
+                buf = buf.narrow(2, lay.tp_rank * kh, kh)
+            pages[:, blk].copy_(buf)
 
     def _p_swap_stage(self, meta: Optional[list]) -> None:
         """The new weights staged on every rank: on a mesh the driver's

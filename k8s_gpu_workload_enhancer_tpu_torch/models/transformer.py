@@ -62,7 +62,6 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
@@ -77,6 +76,7 @@ from ..ops.quant import as_compute, is_quantized
 from ..ops.relayout import from_t_layout, to_t_layout
 from ..ops.rms import rms_norm_plain
 from ..ops.rope import rope_rotate_plain, rope_supported
+from ..parallel import comm
 from ..parallel.ring_attention import ring_attention
 
 Params = Dict[str, Any]
@@ -595,7 +595,7 @@ def _vocab_parallel_xent(x: torch.Tensor, head: torch.Tensor,
     with torch.no_grad():
         m = logits.amax(dim=1)
         if fsdp.tp > 1:
-            dist.all_reduce(m, op=dist.ReduceOp.MAX, group=fsdp.tp_group)
+            comm.all_reduce(m, fsdp.tp_group, "max")
     sumexp = fsdp.tp_sum(torch.exp(logits - m[:, None]).sum(dim=1))
     lse = m + torch.log(sumexp)
     t = targets.reshape(-1).long() - fsdp.tp_rank * v_loc

@@ -1,4 +1,19 @@
-"""The collectives of a serving gang, behind one small interface.
+"""The port's one choke point for collectives, and a serving gang's
+communicators.
+
+Every collective the port runs goes through this module: the train step's
+(`all_gather_into`, `reduce_scatter_into`, `all_reduce`, the ring's
+`exchange`, called by parallel/sharding.py, parallel/ring_attention.py,
+models/transformer.py and cmd/trainer.py) and a serving gang's (the `Comm`
+methods). Each call is noted, once, for whatever listens (`listen`: the
+collective-budget gate, parallel/comm_gate.py) as (op, bytes this rank
+sends), the op one of `OPS`: an all-gather sends the rank's block, an
+all-reduce and a reduce-scatter the rank's whole input, a broadcast and an
+object broadcast their payload from the source (0 elsewhere), a p2p
+exchange the tensor sent. A call made inside another (the gathers behind a
+`Comm`'s rank-ordered sum, the two broadcasts behind an object broadcast)
+is not noted again. Nothing is noted while nothing listens, and noting
+changes no call: what is sent, and in what order, is the same.
 
 A `Comm` is one rank's handle on a group of ranks: its `rank` and the
 group's `size`, a sum all-reduce, an all-gather on a dim, a tensor
@@ -18,10 +33,12 @@ broadcast and an object broadcast. Two implementations:
 
 Both sum in rank order on every rank (the ranks' blocks gathered, then
 added one after another from rank 0), so every rank holds identical bits.
+A `Comm` call on a group of one rank is no call and is not noted.
 """
 
 from __future__ import annotations
 
+import contextlib
 import pickle
 import threading
 from typing import Any, List, Optional, Sequence
@@ -32,6 +49,122 @@ import torch.distributed as dist
 
 # Longest wait of one collective (train/bootstrap.COLLECTIVE_TIMEOUT_S).
 COLLECTIVE_TIMEOUT_S = 600.0
+
+# The ops a listener sees.
+OPS = ("all-gather", "all-reduce", "reduce-scatter", "broadcast", "p2p",
+       "object-broadcast")
+
+_REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+
+class _Sink:
+    def __init__(self, calls: list, thread: Optional[int]):
+        self.calls, self.thread = calls, thread
+
+
+_sinks: List[_Sink] = []
+_sinks_lock = threading.Lock()
+_local = threading.local()
+
+
+@contextlib.contextmanager
+def listen(calls: list, this_thread: bool = False):
+    """Append (op, bytes) to `calls` for every collective called inside
+    the context: in any thread of the process, or with `this_thread` only
+    in the calling one (a rank of a gang of threads)."""
+    sink = _Sink(calls, threading.get_ident() if this_thread else None)
+    with _sinks_lock:
+        _sinks.append(sink)
+    try:
+        yield calls
+    finally:
+        with _sinks_lock:
+            _sinks.remove(sink)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+@contextlib.contextmanager
+def _call(op: str, nbytes):
+    """One collective call: noted for the listeners unless it runs inside
+    another. `nbytes` may be a callable, asked only when someone listens."""
+    depth = getattr(_local, "depth", 0)
+    if depth == 0 and _sinks:
+        me = threading.get_ident()
+        n = int(nbytes() if callable(nbytes) else nbytes)
+        for s in list(_sinks):
+            if s.thread is None or s.thread == me:
+                s.calls.append((op, n))
+    _local.depth = depth + 1
+    try:
+        yield
+    finally:
+        _local.depth = depth
+
+
+# -- torch.distributed, called nowhere else in the port --
+
+
+def all_gather_into(out: torch.Tensor, inp: torch.Tensor, group) -> None:
+    """The ranks' `inp` concatenated on dim 0 into `out`."""
+    fn = getattr(dist, "all_gather_single", None) or \
+        dist.all_gather_into_tensor
+    with _call("all-gather", _nbytes(inp)):
+        fn(out, inp, group=group)
+
+
+def reduce_scatter_into(out: torch.Tensor, inp: torch.Tensor, group) -> None:
+    """This rank's block of dim 0 of the ranks' `inp` summed, into `out`."""
+    fn = getattr(dist, "reduce_scatter_single", None) or \
+        dist.reduce_scatter_tensor
+    with _call("reduce-scatter", _nbytes(inp)):
+        fn(out, inp, op=dist.ReduceOp.SUM, group=group)
+
+
+def all_reduce(t: torch.Tensor, group=None, op: str = "sum") -> torch.Tensor:
+    """`t` reduced (`op` "sum" or "max") over the group, in place."""
+    with _call("all-reduce", _nbytes(t)):
+        dist.all_reduce(t, op=_REDUCE_OPS[op], group=group)
+    return t
+
+
+def broadcast(t: torch.Tensor, src: int, group=None) -> torch.Tensor:
+    """Global rank `src`'s `t`, written into `t` on every other rank."""
+    with _call("broadcast", _nbytes(t) if dist.get_rank() == src else 0):
+        dist.broadcast(t, src=src, group=group)
+    return t
+
+
+def exchange(t: torch.Tensor, send_to: int, recv_from: int, group
+             ) -> torch.Tensor:
+    """Send `t` to global rank `send_to` while receiving a tensor of its
+    shape from `recv_from` (one batched p2p pair)."""
+    t = t.contiguous()
+    out = torch.empty_like(t)
+    with _call("p2p", _nbytes(t)):
+        reqs = dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, t, send_to, group),
+            dist.P2POp(dist.irecv, out, recv_from, group)])
+        for req in reqs:
+            req.wait()
+    return out
+
+
+def all_gather(shard: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
+    """The full tensor from the `n` ranks' blocks of `dim` (contiguous)."""
+    shard = shard.contiguous()
+    shape = list(shard.shape)
+    # The ranks' blocks concatenated on dim 0 (the form every backend
+    # takes), then moved into place.
+    out = shard.new_empty([n * shape[0]] + shape[1:])
+    all_gather_into(out, shard, group)
+    full = list(shape)
+    full[dim] *= n
+    if dim == 0:
+        return out
+    return out.view([n] + shape).movedim(0, dim).reshape(full)
 
 
 def _sum_in_order(parts: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -46,28 +179,51 @@ def _concat(parts: Sequence[torch.Tensor], dim: int) -> torch.Tensor:
 
 
 class Comm:
-    """One rank's handle on a group (see the module note)."""
+    """One rank's handle on a group (see the module note). Subclasses give
+    `_all_gather`, `_broadcast` and `_broadcast_object`; the public methods
+    note each call."""
 
     rank: int = 0
     size: int = 1
 
     def all_gather(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
         """The ranks' tensors concatenated on `dim`, in rank order."""
-        raise NotImplementedError
+        if self.size == 1:
+            return t
+        with _call("all-gather", _nbytes(t)):
+            return self._all_gather(t, dim)
 
     def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
         """The ranks' tensors summed in rank order (a new tensor)."""
         if self.size == 1:
             return t
-        parts = self.all_gather(t.unsqueeze(0), 0)
-        return _sum_in_order(parts.unbind(0))
+        with _call("all-reduce", _nbytes(t)):
+            parts = self._all_gather(t.unsqueeze(0), 0)
+            return _sum_in_order(parts.unbind(0))
 
     def broadcast(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
         """`src`'s tensor, written into `t` on every other rank."""
-        raise NotImplementedError
+        if self.size == 1:
+            return t
+        with _call("broadcast", _nbytes(t) if self.rank == src else 0):
+            return self._broadcast(t, src)
 
     def broadcast_object(self, obj: Any, src: int = 0) -> Any:
         """`src`'s picklable object (numpy arrays, ints, tuples)."""
+        if self.size == 1:
+            return obj
+        mine = self.rank == src
+        with _call("object-broadcast",
+                   (lambda: len(pickle.dumps(obj))) if mine else 0):
+            return self._broadcast_object(obj, src)
+
+    def _all_gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        raise NotImplementedError
+
+    def _broadcast(self, t: torch.Tensor, src: int) -> torch.Tensor:
+        raise NotImplementedError
+
+    def _broadcast_object(self, obj: Any, src: int) -> Any:
         raise NotImplementedError
 
 
@@ -86,31 +242,24 @@ class ProcessComm(Comm):
         # the host for gloo.
         self.device = device or torch.device("cpu")
 
-    def all_gather(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
-        if self.size == 1:
-            return t
-        from .sharding import all_gather
+    def _all_gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
         return all_gather(t, dim, self.group, self.size)
 
-    def broadcast(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
-        if self.size > 1:
-            dist.broadcast(t, src=self.ranks[src], group=self.group)
-        return t
+    def _broadcast(self, t: torch.Tensor, src: int) -> torch.Tensor:
+        return broadcast(t, self.ranks[src], self.group)
 
-    def broadcast_object(self, obj: Any, src: int = 0) -> Any:
+    def _broadcast_object(self, obj: Any, src: int) -> Any:
         """Two broadcasts: the pickle's length, then its bytes."""
-        if self.size == 1:
-            return obj
         mine = self.rank == src
         payload = pickle.dumps(obj) if mine else b""
         n = torch.tensor([len(payload)], dtype=torch.int64,
                          device=self.device)
-        self.broadcast(n, src)
+        self._broadcast(n, src)
         buf = (torch.from_numpy(np.frombuffer(payload, np.uint8).copy())
                .to(self.device) if mine
                else torch.empty(int(n.item()), dtype=torch.uint8,
                                 device=self.device))
-        self.broadcast(buf, src)
+        self._broadcast(buf, src)
         return obj if mine else pickle.loads(buf.cpu().numpy().tobytes())
 
 
@@ -150,21 +299,16 @@ class ThreadComm(Comm):
         self.rank = int(rank)
         self.size = group.size
 
-    def all_gather(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
-        if self.size == 1:
-            return t
+    def _all_gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
         return _concat(self.group.exchange(self.rank, t), dim)
 
-    def broadcast(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
-        if self.size > 1:
-            theirs = self.group.exchange(
-                self.rank, t if self.rank == src else None)[src]
-            if self.rank != src:
-                t.copy_(theirs)
+    def _broadcast(self, t: torch.Tensor, src: int) -> torch.Tensor:
+        theirs = self.group.exchange(
+            self.rank, t if self.rank == src else None)[src]
+        if self.rank != src:
+            t.copy_(theirs)
         return t
 
-    def broadcast_object(self, obj: Any, src: int = 0) -> Any:
-        if self.size == 1:
-            return obj
+    def _broadcast_object(self, obj: Any, src: int) -> Any:
         return self.group.exchange(
             self.rank, obj if self.rank == src else None)[src]

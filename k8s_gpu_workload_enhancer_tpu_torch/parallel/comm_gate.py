@@ -1,0 +1,216 @@
+"""The collective-budget gate: the port's counterpart of the JAX package's
+parallel/hlo_gate.py.
+
+A sharding change that doubles a gather passes every numeric test: the
+numbers stay right while the step pays extra traffic between cards. The
+gate pins how many collectives of each op one step runs, at a pinned
+configuration, and fails on any drift, up or down (fewer than pinned means
+the pin is to be moved consciously, not silently), naming each op with
+its expected and actual count, as JAX's does.
+
+What differs from JAX: the JAX gate counts the STATIC collective
+instructions of a compiled step's HLO, in which a loop body (a scan over
+layers, a decode chunk's steps) appears once. The port has no HLO: every
+collective is a call through parallel/comm.py, so the gate counts the
+CALLS one step makes on one rank at a pinned configuration (`record`).
+A count therefore scales with the layers and with a decode chunk's steps,
+and each pin says how (`Pin`). Ops are parallel/comm.OPS: all-gather,
+all-reduce, reduce-scatter, broadcast, p2p and object-broadcast (the
+driver's program header on a serving mesh).
+
+The size gate (JAX tests/unit/test_mesh_serving.py's): in a steady decode
+chunk and a verify round nothing of KV-page or weight size moves between
+ranks. Each call's bytes (what this rank sends, parallel/comm.py) stay
+under a cap: JAX's 1024 B for a move (all-gather, broadcast, p2p, a
+header) and 4096 B for a sum where the configuration's activations fit
+them, and in any configuration `row_caps`, a number of activation rows:
+a sum carries at most the program's token rows of d_model f32 values, a
+move at most those rows of max(d_model, vocab / tp) f32 values (the
+logits' vocab block), a header at most JAX's 1024 B. The tier's demotion
+and restore (models/serving.py) are the only serving programs that move a
+page; their bytes are pinned exactly (`tier_calls`).
+
+The pins live in one table, `BUDGETS`, as JAX keeps its pins beside the
+mesh configs; the tests read the counts from the gang jobs that already
+run these programs (tests/torch_gang.py, tests/torch_serve_gang.py).
+"""
+
+from __future__ import annotations
+
+import contextlib
+from collections import Counter
+from dataclasses import dataclass
+from typing import Dict, Iterable, List, Tuple, Union
+
+from .comm import OPS, listen
+
+Calls = List[Tuple[str, int]]
+
+# JAX's benign caps (tests/unit/test_mesh_serving.py).
+BENIGN_MOVE_BYTES = 1024
+BENIGN_SUM_BYTES = 4096
+SUM_OPS = ("all-reduce", "reduce-scatter")
+
+
+@contextlib.contextmanager
+def record(this_thread: bool = False):
+    """The calls (op, bytes) of every collective inside the context: the
+    process's, or with `this_thread` the calling thread's only (one rank
+    of a gang of threads)."""
+    calls: Calls = []
+    with listen(calls, this_thread):
+        yield calls
+
+
+def collective_counts(calls: Iterable[Tuple[str, int]]) -> Dict[str, int]:
+    """Calls per op."""
+    return dict(Counter(op for op, _ in calls))
+
+
+def collective_sizes(calls: Iterable[Tuple[str, int]]) -> Calls:
+    """[(op, bytes this rank sends)] per call, in call order."""
+    return [(op, int(n)) for op, n in calls]
+
+
+def assert_collective_budget(got: Union[Dict[str, int], Calls],
+                             expected: Dict[str, int],
+                             context: str) -> Dict[str, int]:
+    """Exact-match gate on the counts (`got`: counts, or the calls); raises
+    with the full diff on any drift."""
+    if not isinstance(got, dict):
+        got = collective_counts(got)
+    got = {k: v for k, v in got.items() if v}
+    want = {k: v for k, v in expected.items() if v}
+    unknown = set(want) - set(OPS)
+    if unknown:
+        raise ValueError(f"unknown collective ops {sorted(unknown)}")
+    if got != want:
+        drift = {op: (want.get(op, 0), got.get(op, 0))
+                 for op in sorted(set(want) | set(got))
+                 if want.get(op, 0) != got.get(op, 0)}
+        raise AssertionError(
+            f"collective budget drift in {context}: "
+            + ", ".join(f"{op} expected {w} got {g}"
+                        for op, (w, g) in drift.items())
+            + " — a sharding change altered the collectives; fix the "
+              "layout or consciously re-pin the budget")
+    return got
+
+
+@dataclass(frozen=True)
+class Pin:
+    """Calls of one op in one program call: `once`, plus for each of its
+    steps (a decode chunk's; 1 elsewhere) `per_step` and `per_layer` a
+    layer."""
+    once: int = 0
+    per_step: int = 0
+    per_layer: int = 0
+
+    def count(self, n_layers: int, steps: int = 1) -> int:
+        return self.once + steps * (self.per_step + self.per_layer * n_layers)
+
+
+# Serving on a (dp, tp) gang with tp > 1, counted on the driver (rank 0:
+# the header, then the program): the embedding's vocab-parallel sum, the
+# attention's and the MLP's tp sums a layer, the logits' gather over tp.
+_SERVE_STEP = {"object-broadcast": Pin(once=1),
+               "all-reduce": Pin(per_step=1, per_layer=2),
+               "all-gather": Pin(per_step=1)}
+
+# name -> op -> Pin. Training: one train step on every rank at the pinned
+# mesh and 2-layer model, as totals (JAX pins its step's at one model
+# too): tests/test_torch_model_parallel.py and tests/test_torch_fsdp.py.
+# Serving: one program call on the driver of the (2, 4) gang
+# (tests/test_torch_mesh_serving.py), by layer and step.
+BUDGETS: Dict[str, Dict[str, Pin]] = {
+    # dp=2, tp=2, sp=2, batch 4 of seq 32, ring attention over sp: the
+    # dp gathers of the 7 matrices a layer and the embedding and head, and
+    # their reduce-scatters; the tp sums and the tp copies' backward, the
+    # vocab-parallel embedding and CE, the gradient, norm and metric
+    # reductions; the ring's shift a layer, forward and backward.
+    "train/dp2_tp2_sp2": {"all-gather": Pin(once=16),
+                          "all-reduce": Pin(once=19),
+                          "reduce-scatter": Pin(once=16),
+                          "p2p": Pin(once=4)},
+    # FSDP over dp=2, batch 4 of seq 16, grad_accum 1: the same gathers
+    # and reduce-scatters; the replicated leaves' gradients, the norm and
+    # the loss's mean over dp.
+    "train/fsdp_dp2": {"all-gather": Pin(once=16),
+                       "all-reduce": Pin(once=3),
+                       "reduce-scatter": Pin(once=16)},
+    "serve/prefill_chunk": _SERVE_STEP,
+    "serve/decode_chunk/paged": _SERVE_STEP,
+    # The dense engine's slots over dp: a chunk's packed tokens gathered
+    # over dp once.
+    "serve/decode_chunk/dense": {**_SERVE_STEP,
+                                 "all-gather": Pin(once=1, per_step=1)},
+    "serve/verify_round/paged": _SERVE_STEP,
+    "serve/verify_round/dense": {**_SERVE_STEP,
+                                 "all-gather": Pin(once=1, per_step=1)},
+    # The host tier: a demotion gathers each leaf's KV-head shards over tp
+    # (none under the GQA fallback); a restore broadcasts each leaf.
+    "serve/kv_demote": {"object-broadcast": Pin(once=1),
+                        "all-gather": Pin(once=2)},
+    "serve/kv_demote/int8": {"object-broadcast": Pin(once=1),
+                             "all-gather": Pin(once=4)},
+    "serve/kv_demote/gqa": {"object-broadcast": Pin(once=1)},
+    "serve/kv_restore": {"object-broadcast": Pin(once=1),
+                         "broadcast": Pin(once=2)},
+    "serve/kv_restore/int8": {"object-broadcast": Pin(once=1),
+                              "broadcast": Pin(once=4)},
+}
+
+
+def expected(name: str, n_layers: int = 2, steps: int = 1
+             ) -> Dict[str, int]:
+    """The pinned counts of `name` at `n_layers` and `steps`."""
+    return {op: pin.count(n_layers, steps)
+            for op, pin in BUDGETS[name].items()}
+
+
+def row_caps(rows: int, d_model: int, vocab: int, tp: int) -> Dict[str, int]:
+    """Per-op byte caps of a serving program over `rows` token rows (slots
+    times the tokens a step): a sum at most rows of d_model f32 values, a
+    move at most rows of the wider of d_model and the vocab block, a
+    header at most JAX's move cap."""
+    move = rows * max(d_model, vocab // tp) * 4
+    return {"all-reduce": rows * d_model * 4, "reduce-scatter":
+            rows * d_model * 4, "all-gather": move, "broadcast": move,
+            "p2p": move, "object-broadcast": BENIGN_MOVE_BYTES}
+
+
+def jax_caps() -> Dict[str, int]:
+    """JAX's caps: 4096 B for a sum, 1024 B for a move."""
+    return {op: BENIGN_SUM_BYTES if op in SUM_OPS else BENIGN_MOVE_BYTES
+            for op in OPS}
+
+
+def assert_sizes_within(calls: Iterable[Tuple[str, int]],
+                        caps: Dict[str, int], context: str) -> None:
+    """Every call within its op's cap; raises naming the calls over it."""
+    big = [(op, n) for op, n in calls if n > caps.get(op, 0)]
+    if big:
+        raise AssertionError(
+            f"{context}: collective(s) of KV-page or weight magnitude {big} "
+            f"over the caps {caps} — steady state must never move (or "
+            f"reduce) pool pages or params between ranks")
+
+
+def tier_calls(name: str, n_layers: int, block_len: int, kv_heads: int,
+               head_dim: int, itemsize: int, tp: int,
+               int8: bool = False) -> List[Tuple[str, int]]:
+    """The tier's page traffic on the driver, sorted, without the header:
+    a demotion's all-gathers of each leaf's tp shard, a restore's
+    broadcasts of each assembled leaf. int8 pages carry their f32 scale
+    rows as two more leaves."""
+    rows = n_layers * block_len * kv_heads
+    leaves = [rows * head_dim * itemsize] * 2
+    if int8:
+        leaves = [rows * head_dim] * 2 + [rows * 4] * 2
+    if name == "serve/kv_demote":
+        out = [("all-gather", n // tp) for n in leaves] if tp > 1 else []
+    elif name == "serve/kv_restore":
+        out = [("broadcast", n) for n in leaves]
+    else:
+        raise ValueError(name)
+    return sorted(out)

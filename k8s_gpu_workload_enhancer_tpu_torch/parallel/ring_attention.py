@@ -34,6 +34,7 @@ import torch.distributed as dist
 
 from ..ops.attention import NEG_INF, attention, repeat_kv
 from ..ops.flash_attention import flash_attention_lse, flash_supported
+from .comm import exchange
 
 Partials = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -145,18 +146,6 @@ def _ring_peers(group) -> Tuple[int, int]:
             dist.get_global_rank(group, (r - 1) % n))
 
 
-def _exchange(t: torch.Tensor, send_to: int, recv_from: int, group
-              ) -> torch.Tensor:
-    t = t.contiguous()
-    out = torch.empty_like(t)
-    reqs = dist.batch_isend_irecv([
-        dist.P2POp(dist.isend, t, send_to, group),
-        dist.P2POp(dist.irecv, out, recv_from, group)])
-    for req in reqs:
-        req.wait()
-    return out
-
-
 class _Shift(torch.autograd.Function):
     """The ring's differentiable shift: forward sends to r + 1 and receives
     from r - 1, backward sends the gradient to r - 1 and receives from
@@ -166,12 +155,12 @@ class _Shift(torch.autograd.Function):
     def forward(ctx, t, group):
         nxt, prv = _ring_peers(group)
         ctx.group, ctx.peers = group, (nxt, prv)
-        return _exchange(t, nxt, prv, group)
+        return exchange(t, nxt, prv, group)
 
     @staticmethod
     def backward(ctx, g):
         nxt, prv = ctx.peers
-        return _exchange(g, prv, nxt, ctx.group), None
+        return exchange(g, prv, nxt, ctx.group), None
 
 
 def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -38,8 +38,9 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
-import torch.distributed as dist
 
+from . import comm
+from .comm import all_gather
 from .mesh import FSDP_AXIS, SEQ_AXIS, TENSOR_AXIS
 
 LogicalAxes = Tuple[Optional[str], ...]
@@ -105,33 +106,6 @@ def param_placements(model_cfg, mesh_dim_names: Tuple[str, ...]
                 tf.param_logical_axes(model_cfg))
 
 
-def _all_gather_into(out: torch.Tensor, inp: torch.Tensor, group) -> None:
-    fn = getattr(dist, "all_gather_single", None) or \
-        dist.all_gather_into_tensor
-    fn(out, inp, group=group)
-
-
-def _reduce_scatter_into(out: torch.Tensor, inp: torch.Tensor, group) -> None:
-    fn = getattr(dist, "reduce_scatter_single", None) or \
-        dist.reduce_scatter_tensor
-    fn(out, inp, op=dist.ReduceOp.SUM, group=group)
-
-
-def all_gather(shard: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
-    """The full tensor from the `n` ranks' blocks of `dim` (contiguous)."""
-    shard = shard.contiguous()
-    shape = list(shard.shape)
-    # The ranks' blocks concatenated on dim 0 (the form every backend
-    # takes), then moved into place.
-    out = shard.new_empty([n * shape[0]] + shape[1:])
-    _all_gather_into(out, shard, group)
-    full = list(shape)
-    full[dim] *= n
-    if dim == 0:
-        return out
-    return out.view([n] + shape).movedim(0, dim).reshape(full)
-
-
 class _GatherShard(torch.autograd.Function):
     """Forward: all-gather the dp ranks' blocks of dim `dim`. Backward:
     reduce-scatter the gradient, the mean over the dp ranks."""
@@ -156,8 +130,7 @@ class _TpCopy(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
-        g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group)
+        g = comm.all_reduce(g.contiguous().clone(), ctx.group)
         return g, None
 
 
@@ -167,9 +140,7 @@ class _TpSum(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x: torch.Tensor, group):
-        x = x.contiguous().clone()
-        dist.all_reduce(x, group=group)
-        return x
+        return comm.all_reduce(x.contiguous().clone(), group)
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
@@ -224,7 +195,7 @@ class Fsdp:
 
     @property
     def is_primary(self) -> bool:
-        return dist.get_rank() == 0
+        return torch.distributed.get_rank() == 0
 
     @property
     def model_parallel(self) -> bool:
@@ -247,13 +218,11 @@ class Fsdp:
         blocks = blocks.movedim(dim, 0).reshape(
             [self.world * local[0]] + local[1:])
         out = full.new_empty(local)
-        _reduce_scatter_into(out, blocks.contiguous(), self.group)
+        comm.reduce_scatter_into(out, blocks.contiguous(), self.group)
         return out.div_(self.world)
 
-    def all_reduce_(self, t: torch.Tensor, op=dist.ReduceOp.SUM
-                    ) -> torch.Tensor:
-        dist.all_reduce(t, op=op, group=self.group)
-        return t
+    def all_reduce_(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        return comm.all_reduce(t, self.group, op)
 
     def mean(self, t: torch.Tensor) -> torch.Tensor:
         """The mean over the dp and sp ranks of a tensor (a new tensor, no
@@ -261,7 +230,7 @@ class Fsdp:
         a per-rank mean."""
         t = self.all_reduce_(t.detach().clone())
         if self.sp > 1:
-            dist.all_reduce(t, group=self.sp_group)
+            comm.all_reduce(t, self.sp_group)
         return t.div_(self.world * self.sp)
 
     def tp_copy(self, x: torch.Tensor) -> torch.Tensor:
@@ -352,7 +321,7 @@ class Fsdp:
             owned.append(sq if mine else torch.zeros_like(sq))
         total = self.all_reduce_(torch.stack(owned).sum())
         if self.tp > 1:
-            dist.all_reduce(total, group=self.tp_group)
+            comm.all_reduce(total, self.tp_group)
         return total
 
     def rank_rows(self, tokens: torch.Tensor, grad_accum: int = 1
@@ -400,7 +369,7 @@ def _reduce_flat(grads, group, divisor: int) -> None:
     if not grads:
         return
     flat = torch.cat([g.reshape(-1).float() for g in grads])
-    dist.all_reduce(flat, group=group)
+    comm.all_reduce(flat, group)
     if divisor != 1:
         flat.div_(divisor)
     for g, part in zip(grads, flat.split([g.numel() for g in grads])):

@@ -12,7 +12,8 @@ weights and token batches go to every run:
   grad_norm and the final params equal the JAX step's on
   `make_mesh(MeshConfig(dp=2))` (atol 1e-5, rtol 1e-4) and the port's
   single-process step on the same global batch, and with remat the
-  same trajectory;
+  same trajectory; each step's collectives hold their pinned budget
+  (parallel/comm_gate.py);
 - the MoE model (4 experts, 1 layer) at dp=2, grad_accum 1 and 2, equals
   the JAX MoE there, aux included: both take the dense expert route on a
   mesh of two devices;
@@ -46,6 +47,7 @@ from k8s_gpu_workload_enhancer_tpu.parallel import mesh as jmesh
 from k8s_gpu_workload_enhancer_tpu.train import trainer as jtrainer
 from k8s_gpu_workload_enhancer_tpu_torch.cmd import trainer as cli
 from k8s_gpu_workload_enhancer_tpu_torch.models import transformer as ttf
+from k8s_gpu_workload_enhancer_tpu_torch.parallel import comm_gate
 from k8s_gpu_workload_enhancer_tpu_torch.train import checkpoint as tckpt
 from k8s_gpu_workload_enhancer_tpu_torch.train import data as tdata
 from k8s_gpu_workload_enhancer_tpu_torch.train import trainer as ttrainer
@@ -295,6 +297,20 @@ def test_gang_matches_the_single_process_run(gang, name):
     assert_metrics(gang.result()[0][name]["metrics"], want,
                    f"{name} vs one process")
     assert_params(gang.arrays(name), state.params, f"{name} vs one process")
+
+
+def test_fsdp_step_collectives_hold_the_pinned_budget(gang):
+    """Both ranks' FSDP steps (dp=2, dense_acc1: two layers, grad_accum 1)
+    make exactly the pinned collectives (parallel/comm_gate.BUDGETS): a
+    layer's gathers, their reduce-scatters, the replicated leaves' and the
+    metrics' all-reduces."""
+    want = comm_gate.expected("train/fsdp_dp2", DIMS["n_layers"])
+    for r, out in enumerate(gang.result()):
+        steps = out["dense_acc1"]["collectives"]
+        assert len(steps) == STEPS
+        for i, calls in enumerate(steps):
+            comm_gate.assert_collective_budget(
+                calls, want, f"rank {r} fsdp step {i} on dp=2")
 
 
 def test_remat_keeps_the_gang_trajectory(gang):

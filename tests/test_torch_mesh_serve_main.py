@@ -7,9 +7,13 @@ on the CPU.
   and a single-device replica's block equal to the JAX one's; the peak
   behind the serve's MFU gauge and the trainer's MFU, one constant.
 - The serve main's --mesh flag errors (tp dividing --n-heads and --d-ff
-  among them) and its refusal of the host KV tier (ROADMAP A11b second
-  part) exit 2 before any model loads. Like the JAX serve it has no MoE
-  flag: the engine refuses MoE on a mesh (test_torch_mesh_serving.py).
+  among them, and, as on one device, --kv-host-blocks without
+  --kv-block-len) exit 2 before any model loads; --mesh 1,2 with the host
+  tier passes them. Like the JAX serve it has no MoE flag: the engine
+  refuses MoE on a mesh (test_torch_mesh_serving.py).
+- The host tier behind ServeService on a (1, 2) thread gang: the
+  `kvhost` block and the ktwe_serving_kvhost_* series equal a
+  single-device replica's after the same traffic.
 - A 2-rank gloo gang of the serve main started from the launcher env
   (COORDINATOR_ADDRESS, NUM_PROCESSES, PROCESS_ID) with --mesh 1,2: rank 0
   answers /v1/generate as a single-device replica does, its /v1/metrics
@@ -155,8 +159,8 @@ def test_one_definition_of_the_peak():
     (["--mesh", "1,3"], 3, "--mesh tp=3 must divide --n-heads (2)"),
     (["--mesh", "3,1", "--num-slots", "2"], 3,
      "--mesh dp=3 must divide --num-slots (2)"),
-    (["--mesh", "1,2", "--kv-block-len", "8", "--kv-host-blocks", "4"], 2,
-     "ROADMAP A11b, second part"),
+    (["--mesh", "1,2", "--kv-host-blocks", "4"], 2,
+     "--kv-host-blocks requires --kv-block-len > 0"),
     (["--mesh", "1,2", "--d-ff", "129"], 2,
      "--mesh tp=2 must divide --d-ff (129)"),
 ], ids=["malformed", "devices", "tp-divides", "dp-divides", "host-tier",
@@ -169,6 +173,63 @@ def test_mesh_flag_errors_exit_2(monkeypatch, capsys, argv, procs, msg):
         serve.main(TINY + argv)
     assert e.value.code == 2
     assert msg in capsys.readouterr().err
+
+
+def test_mesh_flag_takes_the_host_tier(monkeypatch):
+    """--mesh 1,2 --kv-block-len 8 --kv-host-blocks 4 is no longer an
+    error: the flags give the mesh, and the tier serves on it."""
+    monkeypatch.setenv("NUM_PROCESSES", "2")
+    parser = serve.build_parser()
+    args = parser.parse_args(TINY + ["--mesh", "1,2", "--kv-block-len", "8",
+                                     "--kv-host-blocks", "4"])
+    assert serve.check_mesh(args, parser, 2) == (1, 2)
+
+
+def test_mesh_kvhost_block_and_series_are_one_devices():
+    """ServeService over the paged engine with the host tier on a (1, 2)
+    thread gang: after a request, an eviction into the tier and the
+    request again (restored from it), the `kvhost` block (less its wall
+    clock) and every ktwe_serving_kvhost_* series equal a single-device
+    replica's after the same traffic."""
+    cfg = ttf.TransformerConfig(**DIMS, dtype=torch.float32)
+    full = ttf.init_params(torch.Generator().manual_seed(0), cfg)
+    kw = dict(num_slots=2, prefill_len=8, decode_chunk=3, kv_block_len=8,
+              kv_num_blocks=16, kv_host_blocks=8)
+    body = {"prompt": list(range(1, 28)), "maxNewTokens": 6,
+            "timeoutSeconds": 60}
+
+    def traffic(eng, mesh_shape=None):
+        svc = serve.ServeService(eng, mesh_shape=mesh_shape)
+        try:
+            first = svc.generate(dict(body))
+            with svc._lock:
+                eng._radix.evict(eng.metrics()["kv_cache"]["blocks_cached"])
+            second = svc.generate(dict(body))
+            kv = dict(svc.metrics({})["metrics"]["kvhost"])
+            kv.pop("dma_seconds_total")
+            series = {k: v for k, v in svc.prometheus_series().items()
+                      if k.startswith("ktwe_serving_kvhost_")
+                      and "dma_seconds" not in k}
+            return first["tokens"], second["tokens"], kv, series
+        finally:
+            svc.stop()
+
+    def rank(mesh):
+        eng = tsrv.ContinuousBatchEngine(
+            tdecode.shard_params_for_serving(full, cfg, mesh), cfg,
+            device="cpu", mesh=mesh, **kw)
+        if not mesh.is_driver:
+            eng.follow()
+            return None
+        try:
+            return traffic(eng, (1, 2))
+        finally:
+            eng.stop_followers()
+    got = on_thread_gang(1, 2, rank)[0]
+    want = traffic(tsrv.ContinuousBatchEngine(full, cfg, device="cpu", **kw))
+    assert got == want
+    assert got[0] == got[1] and got[2]["prefetches_total"] == 3
+    assert got[3]["ktwe_serving_kvhost_offloads_total"] == 3.0
 
 
 def _spawn(module: str, argv: list, world: int, port: int) -> list:

@@ -15,12 +15,37 @@ engine on one device and to the port's single-device engine, the paged
 plain case also to the JAX engine on the same (2, 4) mesh of the
 harness's 8 virtual devices; logprobs to rtol 5e-4, atol 5e-5.
 
+The host KV tier on the mesh (the same gang, more cases): the paged
+engine with `kv_host_blocks` under the tier's traffic (eviction into the
+tier, prefetches, a short pool's evictions by admission, a partial
+re-arrival), plain, with int8 KV, under the GQA fallback (KV heads
+replicated over tp: a demotion moves nothing) and with one FaultLab fault
+at each `kvhost.*` site: tokens, the `kvhost` block (bloom included, less
+its wall clock), the radix tree, leases and free pages after every phase
+equal the JAX engine's on the same (2, 4) mesh and on one device, with
+the JAX `HostBlockTier`; logprobs within tolerance; every restored page
+holds what was demoted, bit for bit.
+
+The collective-budget gate (parallel/comm_gate.py): every device program
+the gang's driver ran (prefill chunks, dense and paged decode chunks,
+dense and paged verify rounds, the tier's demotions and restores) made
+exactly its pinned collectives, the followers the same less the header
+(a demotion none on the other dp replica); the tier's page bytes are
+pinned exactly; and in a steady decode chunk and verify round no call
+moves more than JAX's caps or the programs' activation rows, which are at
+least 4x below one page and 8x below a weight leaf.
+
 In process: `shard_params_for_serving` block for block against the JAX
 function's addressable shards on the same mesh (an int8 tree with two KV
 heads, and the plain tree); the meshed forward's logits on a thread gang
 against the JAX forward; the thread gang's transcripts against the gloo
 gang's (bitwise: both sum in rank order); a dense engine's num_slots % dp
-refused with the JAX message.
+refused with the JAX message; the tier's signature on thread gangs against
+the JAX tier's on the same meshes; a (1, 2) engine's `/v1/kvhost` export
+imported and restored by another (1, 2) engine and refused by a (1, 4)
+and a single-device one; demote-ahead at the watermark on a (1, 2) gang
+as on one device; the dp replicas' pools equal bit for bit after the
+tier's traffic.
 """
 
 import json
@@ -32,18 +57,24 @@ import numpy as np
 import pytest
 import torch
 
+from k8s_gpu_workload_enhancer_tpu import faultlab as jfl
 from k8s_gpu_workload_enhancer_tpu.models import decode as jdecode
+from k8s_gpu_workload_enhancer_tpu.models import kvhost as jkv
 from k8s_gpu_workload_enhancer_tpu.models import serving as jsrv
 from k8s_gpu_workload_enhancer_tpu.models import transformer as jtf
 from k8s_gpu_workload_enhancer_tpu.ops.quant import quantize_params as jquant
 from k8s_gpu_workload_enhancer_tpu.parallel import mesh as jmesh
+from k8s_gpu_workload_enhancer_tpu_torch import faultlab as tfl
 from k8s_gpu_workload_enhancer_tpu_torch.models import decode as tdecode
+from k8s_gpu_workload_enhancer_tpu_torch.models import kvhost as tkv
 from k8s_gpu_workload_enhancer_tpu_torch.models import serving as tsrv
 from k8s_gpu_workload_enhancer_tpu_torch.models import transformer as ttf
+from k8s_gpu_workload_enhancer_tpu_torch.parallel import comm_gate
 from k8s_gpu_workload_enhancer_tpu_torch.parallel.mesh import ServingMesh
 
 import torch_gang
 import torch_parity  # noqa: F401  (one intra-op thread a process)
+import torch_serve_gang as tsg
 from torch_serve_gang import OracleDrafter
 
 DIMS = dict(vocab_size=128, d_model=32, n_layers=2, n_heads=4, n_kv_heads=4,
@@ -72,6 +103,16 @@ CASES = {
     "paged_spec": (DIMS, dict(PAGED, spec_k=3)),
     "dense_spec": (DIMS, dict(ENGINE, spec_k=3)),
     "paged_gqa": (GQA_DIMS, PAGED),
+}
+# The host tier: a pool of 9 pages under a tier of 16 blocks.
+TIER = dict(PAGED, kv_num_blocks=9, kv_host_blocks=16)
+KVHOST_SITES = ("kvhost.dma", "kvhost.fetch", "kvhost.corrupt")
+# name -> (dims, FaultLab site or None): the tier cases.
+TIER_CASES = {
+    "kv_plain": (DIMS, None),
+    "kv_int8": (INT8KV_DIMS, None),
+    "kv_gqa": (GQA_DIMS, None),
+    **{f"kv_fault_{s.split('.')[1]}": (DIMS, s) for s in KVHOST_SITES},
 }
 
 
@@ -161,6 +202,8 @@ def gang(tmp_path_factory):
     cases = [case(name, "transcripts", dims, kw, prompts=PROMPTS, gens=GENS,
                   oracle=pairs if kw.get("spec_k") else None)
              for name, (dims, kw) in CASES.items()]
+    cases += [case(name, "kvhost", dims, TIER, fault=site)
+              for name, (dims, site) in TIER_CASES.items()]
     cases += [
         case("eject", "eject", DIMS, PAGED, prompt=RESUME_PROMPT,
              n=RESUME_N, min_tokens=3),
@@ -179,6 +222,13 @@ def gang(tmp_path_factory):
 def gang_out(gang, name: str) -> dict:
     gang.result()
     return json.loads((gang.dir / f"{name}.json").read_text())
+
+
+def gang_programs(gang, name: str, rank: int = 0) -> list:
+    """[program, steps, calls] of each device program rank `rank` ran on
+    case `name` (the driver's with its header)."""
+    gang.result()
+    return json.loads((gang.dir / f"{name}-rank{rank}.json").read_text())
 
 
 @pytest.fixture(scope="module")
@@ -426,19 +476,36 @@ def test_thread_group_gives_the_gloo_gangs_transcripts(gang, name):
 
 @pytest.mark.parametrize("what", ["moe", "host-tier"])
 def test_engine_refuses_what_a_mesh_does_not_serve_yet(what):
-    """MoE (ROADMAP A11c: expert parallelism) and the host KV tier (A11b,
-    second part) on a mesh above one rank raise before anything is built.
-    The serve main has no MoE flag (the JAX one has none either), so this
-    is the MoE refusal; the host tier the main refuses with exit 2 too."""
-    mesh = thread_meshes(1, 2)[0]
+    """MoE (ROADMAP A11c: expert parallelism) on a mesh above one rank
+    raises before anything is built; the serve main has no MoE flag (the
+    JAX one has none either), so this is the MoE refusal. The host KV tier
+    is no longer refused: the engine builds it on the mesh, the driver's
+    alone, keyed by the mesh's signature, and the followers hold none."""
     dims = dict(DIMS, n_experts=2) if what == "moe" else DIMS
     kw = dict(PAGED, kv_num_blocks=32, kv_host_blocks=4
               ) if what == "host-tier" else ENGINE
     cfg = torch_cfg(dims)
     params = ttf.init_params(torch.Generator().manual_seed(0), cfg)
-    with pytest.raises(ValueError, match=("ROADMAP A11c" if what == "moe"
-                                          else "ROADMAP A11b, second part")):
-        tsrv.ContinuousBatchEngine(params, cfg, device="cpu", mesh=mesh, **kw)
+    if what == "moe":
+        with pytest.raises(ValueError, match="ROADMAP A11c"):
+            tsrv.ContinuousBatchEngine(params, cfg, device="cpu",
+                                       mesh=thread_meshes(1, 2)[0], **kw)
+        return
+
+    def rank(mesh):
+        eng = tsrv.ContinuousBatchEngine(
+            tdecode.shard_params_for_serving(params, cfg, mesh), cfg,
+            device="cpu", mesh=mesh, **kw)
+        if not mesh.is_driver:
+            tier = eng._host_tier
+            eng.follow()
+            return tier
+        eng.stop_followers()
+        return eng._host_tier
+    tier, follower = on_thread_gang(1, 2, rank)
+    assert follower is None
+    assert tier.capacity == 4 and tier.mesh_sig == (
+        "backend=torch|dp=1,ep=1,pp=1,sp=1,tp=2|kv_tp=tp")
 
 
 def same_tree(a, b) -> bool:
@@ -528,3 +595,270 @@ def test_device_loss_on_a_mesh_of_one_drops_the_decode_graphs():
     assert replays > 0 and resets == 1 and after > 0
     assert finish == "migrated" and mesh is None
     assert got["tokens"] == want["tokens"]
+
+
+# ------------------------------------------------------ the host KV tier
+
+
+def jax_tier_run(dims: dict, site, mesh=None) -> list:
+    """The tier's traffic on the JAX paged engine (one device, or `mesh`)
+    with the JAX HostBlockTier."""
+    jcfg = jax_cfg(dims)
+    jp = jax_params(dims)
+    if mesh is not None:
+        jp = jdecode.shard_params_for_serving(jp, jcfg, mesh)
+    eng = jsrv.ContinuousBatchEngine(jp, jcfg, mesh=mesh, **TIER)
+    if site is None:
+        return tsg.kv_traffic(eng)
+    return tsg.kv_fault_traffic(eng, site, jfl)
+
+
+@pytest.fixture(autouse=True)
+def inert_faultlab():
+    """Both FaultLabs inert, their process-wide counters zeroed after each
+    test (activating a plan clears them), so no later test in the process
+    reads this one's injections."""
+    yield
+    for fl in (jfl, tfl):
+        fl.activate(fl.FaultPlan(0, rate=0.0))
+        fl.deactivate()
+
+
+@pytest.mark.parametrize("name", list(TIER_CASES))
+def test_mesh_tier_matches_jax_on_the_mesh_and_one_device(gang, tp_mesh,
+                                                          name):
+    """The paged engine with the host tier on the (2, 4) gloo gang against
+    the JAX engine with the JAX tier on the same mesh and on one device:
+    tokens, the kvhost block, the radix tree, leases and free pages after
+    every phase exactly; logprobs within tolerance; every restored page
+    what was demoted."""
+    dims, site = TIER_CASES[name]
+    got = gang_out(gang, name)
+    one = jax_tier_run(dims, site)
+    on_mesh = jax_tier_run(dims, site, tp_mesh)
+    kv_tp = "tp" if dims["n_kv_heads"] % 4 == 0 else None
+    assert got["mesh_sig"] == "backend=torch|" + jkv.mesh_signature(
+        tp_mesh, kv_tp)
+    for i, (g, w, m) in enumerate(zip(got["phases"], one, on_mesh)):
+        for ref in (w, m):
+            if "tokens" in g:
+                assert g["tokens"] == ref["tokens"], (name, i)
+                np.testing.assert_allclose(g["logprobs"], ref["logprobs"],
+                                           **LOGITS_TOL)
+            if "state" in g:
+                want = dict(ref["state"], nodes=[list(n) for n in
+                                                 ref["state"]["nodes"]])
+                assert g["state"] == want, (name, i)
+            if "injections" in g:
+                # The kvhost sites' crossings (a meshed dispatch also
+                # crosses engine.device_loss, which one device does not).
+                assert g["injections"] == ref["injections"]
+                assert {k: v for k, v in g["occurrences"].items()
+                        if k.startswith("kvhost.")} == \
+                    {k: v for k, v in ref["occurrences"].items()
+                     if k.startswith("kvhost.")}
+    kv = got["phases"][-1 if site is None else 1]["state"]["kvhost"]
+    if site is None:
+        assert kv["offloads_total"] >= 3 and kv["prefetches_total"] >= 5
+        assert got["restored"] == kv["prefetches_total"] == \
+            got["restored_equal"]
+    elif site == "kvhost.corrupt":
+        assert kv["corrupt_drops_total"] == 1
+    else:
+        assert kv["dma_failures_total"] == 1
+    assert got["kv_cache"]["blocks_used"] == got["kv_cache"]["blocks_cached"]
+
+
+def assert_program(calls, name: str, steps: int = 1, header: bool = True):
+    want = comm_gate.expected(name, DIMS["n_layers"], steps)
+    if not header:
+        want.pop("object-broadcast", None)
+    comm_gate.assert_collective_budget(calls, want, name)
+
+
+def test_mesh_programs_hold_the_pinned_budget(gang):
+    """Each device program the gang ran made exactly its pinned
+    collectives (parallel/comm_gate.BUDGETS): on the driver its header and
+    the program's, on the followers the program's, a demotion none on the
+    other dp replica; the tier's page bytes exactly, per leaf."""
+    seen = set()
+    for case_name, kind in (("paged_plain", "paged"), ("dense_spec", "dense"),
+                            ("paged_spec", "paged"), ("kv_plain", "paged")):
+        for prog, steps, calls in gang_programs(gang, case_name):
+            if prog in ("prefill_step", "prefill_final"):
+                assert_program(calls, "serve/prefill_chunk")
+            elif prog == "chunk":
+                assert_program(calls, f"serve/decode_chunk/{kind}", steps)
+            elif prog == "verify":
+                assert_program(calls, f"serve/verify_round/{kind}")
+            elif prog in ("kv_demote", "kv_restore"):
+                assert_program(calls, f"serve/{prog}")
+            else:
+                # A temp cache's making and a park: the header alone.
+                comm_gate.assert_collective_budget(
+                    calls, {"object-broadcast": 1}, prog)
+            seen.add((prog, kind))
+    assert {("chunk", "paged"), ("chunk", "dense"), ("verify", "paged"),
+            ("verify", "dense"), ("kv_demote", "paged"),
+            ("kv_restore", "paged"), ("prefill_final", "paged")} <= seen
+    hd = DIMS["d_model"] // DIMS["n_heads"]
+    for case_name, variant, dims, int8 in (
+            ("kv_plain", "", DIMS, False), ("kv_int8", "/int8", DIMS, True),
+            ("kv_gqa", "", GQA_DIMS, False)):
+        kv_heads, tp = dims["n_kv_heads"], 4 if dims["n_kv_heads"] == 4 else 1
+        for prog in ("kv_demote", "kv_restore"):
+            name = f"serve/{prog}" + ("/gqa" if case_name == "kv_gqa"
+                                      and prog == "kv_demote" else variant)
+            mine = [c for p, _, c in gang_programs(gang, case_name)
+                    if p == prog]
+            assert mine, (case_name, prog)
+            page = comm_gate.tier_calls(
+                f"serve/{prog}", DIMS["n_layers"], 8, kv_heads, hd, 4, tp,
+                int8)
+            for calls in mine:
+                assert_program(calls, name)
+                assert sorted(c for c in map(tuple, calls)
+                              if c[0] != "object-broadcast") == page
+            for r in range(1, 8):
+                theirs = [c for p, _, c in gang_programs(gang, case_name, r)
+                          if p == prog]
+                assert len(theirs) == len(mine)
+                for calls in theirs:
+                    if prog == "kv_demote" and (r >= 4 or tp == 1):
+                        assert calls == []
+                    else:
+                        assert_program(calls, name, header=False)
+
+
+def test_steady_programs_move_nothing_of_page_or_weight_size(gang):
+    """The size gate (JAX test_mesh_serving.py's): in every decode chunk
+    and verify round of the gang no call moves more than JAX's caps (1024 B
+    a move, 4096 B a sum) nor more than the program's activation rows
+    (`comm_gate.row_caps`), and those caps are at least 4x below one page
+    (its K and V leaves, every layer and KV head) and 8x below a weight
+    leaf (d_model x d_ff f32, JAX's calibration)."""
+    hd = DIMS["d_model"] // DIMS["n_heads"]
+    page = 2 * DIMS["n_layers"] * 8 * DIMS["n_kv_heads"] * hd * 4
+    weight = DIMS["d_model"] * DIMS["d_ff"] * 4
+    checked = 0
+    for case_name in ("paged_plain", "dense_spec", "paged_spec"):
+        spec_k = CASES[case_name][1].get("spec_k", 0)
+        for prog, _, calls in gang_programs(gang, case_name):
+            if prog not in ("chunk", "verify"):
+                continue
+            rows = ENGINE["num_slots"] * (spec_k + 1 if prog == "verify"
+                                          else 1)
+            caps = comm_gate.row_caps(rows, DIMS["d_model"],
+                                      DIMS["vocab_size"], 4)
+            assert max(caps.values()) * 4 <= page
+            assert max(caps.values()) * 8 <= weight
+            comm_gate.assert_sizes_within(calls, caps, f"{case_name} {prog}")
+            comm_gate.assert_sizes_within(calls, comm_gate.jax_caps(),
+                                          f"{case_name} {prog}")
+            checked += 1
+    assert checked >= 10
+    # A page moved in a steady program would fail the gate.
+    with pytest.raises(AssertionError, match="KV-page or weight magnitude"):
+        comm_gate.assert_sizes_within([("all-gather", page // 2)],
+                                      comm_gate.row_caps(2, 32, 128, 4), "t")
+
+
+def tier_engine_rank(dims: dict, fn, kw: dict = TIER):
+    """A rank of a thread gang running the tier engine on `dims`: the
+    driver returns fn(engine), a follower None."""
+    cfg, full = torch_cfg(dims), port_params(dims)
+
+    def rank(mesh):
+        eng = tsrv.ContinuousBatchEngine(
+            tdecode.shard_params_for_serving(full, cfg, mesh), cfg,
+            device="cpu", mesh=mesh, **kw)
+        if not mesh.is_driver:
+            eng.follow()
+            return eng
+        try:
+            return fn(eng)
+        finally:
+            eng.stop_followers()
+    return rank
+
+
+@pytest.mark.parametrize("dp,tp,dims", [(2, 4, DIMS), (1, 4, DIMS),
+                                        (2, 4, GQA_DIMS), (1, 1, DIMS)],
+                         ids=["2x4", "1x4", "gqa", "1x1"])
+def test_tier_signature_is_the_jax_tiers_on_the_same_mesh(dp, tp, dims):
+    """"backend=torch|" and then the JAX tier's signature for the JAX mesh
+    of MeshConfig(dp, tp) and the same KV-head axis (None under the GQA
+    fallback; "tp" on a (1, 1) mesh, as the JAX engine passes it)."""
+    got = on_thread_gang(dp, tp, tier_engine_rank(
+        dims, lambda eng: eng._host_tier.mesh_sig))[0]
+    jmesh_ = jmesh.make_mesh(jmesh.MeshConfig(dp=dp, tp=tp),
+                             devices=jax.devices()[:dp * tp])
+    jcfg = jax_cfg(dims)
+    assert got == "backend=torch|" + jkv.mesh_signature(
+        jmesh_, jdecode._kv_tp_axis(jcfg, jmesh_))
+    if dims is GQA_DIMS:
+        assert got.endswith("|kv_tp=")
+
+
+def test_export_moves_between_meshes_of_one_shape_only():
+    """A (1, 2) engine's /v1/kvhost export (assembled pages, the JAX
+    tier's keys and shapes) imports into another (1, 2) engine, whose
+    admission restores it and serves the exporter's tokens; a (1, 4) and a
+    single-device engine refuse it (another signature: never resharded)."""
+    prompt = tsg.KV_PROMPT
+    digests = tkv.prompt_digests(prompt, 8)
+
+    def export(eng):
+        want = tsg.kv_run(eng, prompt, 8)["tokens"]
+        tsg.evict_all(eng)
+        return want, json.loads(json.dumps(eng.kvhost_export(digests)))
+    want, payloads = on_thread_gang(1, 2, tier_engine_rank(DIMS, export))[0]
+    assert len(payloads) == 3
+    hd = DIMS["d_model"] // DIMS["n_heads"]
+    assert payloads[0]["arrays"]["k"]["shape"] == [DIMS["n_layers"], 8,
+                                                   DIMS["n_kv_heads"], hd]
+
+    def imports(eng):
+        n = eng.kvhost_import(payloads)
+        got = tsg.kv_run(eng, prompt, 8)
+        return n, got["tokens"], got["state"]["kvhost"]
+    n, tokens, kv = on_thread_gang(1, 2, tier_engine_rank(DIMS, imports))[0]
+    assert n == 3 and tokens == want
+    assert kv["imports_total"] == 3 and kv["prefetches_total"] == 3
+    assert on_thread_gang(1, 4, tier_engine_rank(
+        DIMS, lambda eng: eng.kvhost_import(payloads)))[0] == 0
+    assert port_engine(DIMS, TIER).kvhost_import(payloads) == 0
+
+
+def test_demote_ahead_on_a_mesh_is_one_devices():
+    """Under the kv_offload_watermark an admission demotes cold blocks
+    ahead of its need; on a (1, 2) thread gang the traffic's tokens and
+    tier state equal the single-device engine's with the same watermark."""
+    kw = dict(TIER, kv_offload_watermark=0.5)
+    got = on_thread_gang(1, 2, tier_engine_rank(DIMS, tsg.kv_traffic, kw))[0]
+    want = tsg.kv_traffic(port_engine(DIMS, kw))
+    assert [p.get("tokens") for p in got] == [p.get("tokens") for p in want]
+    assert [p["state"] for p in got] == [p["state"] for p in want]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.get("logprobs", []),
+                                   w.get("logprobs", []), **LOGITS_TOL)
+    assert want[-1]["state"]["kvhost"]["offloads_total"] > 0
+
+
+def test_dp_replicas_hold_the_same_pool_after_the_tier_traffic():
+    """The paged pool is replicated over dp and a demotion gathers over
+    the driver's replica alone: after the tier's traffic on a (2, 4) thread
+    gang every rank's pool equals its dp peer's bit for bit, and the
+    transcripts and tier state are the single-device engine's."""
+    out = on_thread_gang(2, 4, tier_engine_rank(
+        DIMS, lambda eng: (tsg.kv_traffic(eng), eng)))
+    phases, driver = out[0]
+    engines = [driver] + out[1:]
+    for r in range(4):
+        for a, b in zip(engines[r]._cache.leaves(),
+                        engines[r + 4]._cache.leaves()):
+            assert torch.equal(a, b), r
+    want = tsg.kv_traffic(port_engine(DIMS, TIER))
+    assert [p.get("tokens") for p in phases] == \
+        [p.get("tokens") for p in want]
+    assert [p["state"] for p in phases] == [p["state"] for p in want]

@@ -10,7 +10,8 @@ as the JAX side (f32, `params_from_numpy`):
 - dp=2, tp=2, sp=2: the forward's logits against the JAX forward on the
   same mesh and on one device (rtol 5e-4, atol 5e-5); two train steps
   against JAX `make_train_step` on the mesh (losses, grad norms, params:
-  atol 1e-5, rtol 1e-4), saved; two steps at grad_accum 2 (f32
+  atol 1e-5, rtol 1e-4), saved, each step's collectives held to their
+  pinned budget (parallel/comm_gate.py); two steps at grad_accum 2 (f32
   accumulator) with remat against the port's single-process steps;
 - sp=8 at seq 512: loss and every gradient against the JAX dense model
   (loss rtol 2e-5; gradients rtol 5e-4, atol 2e-5); causality at the
@@ -48,6 +49,7 @@ from k8s_gpu_workload_enhancer_tpu.parallel import sharding as jsharding
 from k8s_gpu_workload_enhancer_tpu.train import trainer as jtrainer
 from k8s_gpu_workload_enhancer_tpu_torch.cmd import trainer as cli
 from k8s_gpu_workload_enhancer_tpu_torch.models import transformer as ttf
+from k8s_gpu_workload_enhancer_tpu_torch.parallel import comm_gate
 from k8s_gpu_workload_enhancer_tpu_torch.train import checkpoint as tckpt
 from k8s_gpu_workload_enhancer_tpu_torch.train import data as tdata
 from k8s_gpu_workload_enhancer_tpu_torch.train import trainer as ttrainer
@@ -268,6 +270,20 @@ def test_layout_splits_each_leaf_over_dp_and_tp(gang):
                 assert got["blocks"][tree + key] == want, (rank, key)
         assert sorted(k for k, d in got["tp_dims"].items() if d is None) == [
             "/final_ln", "/layers/ln1", "/layers/ln2"]
+
+
+def test_train_step_collectives_hold_the_pinned_budget(gang):
+    """Every rank's train steps on dp=2, tp=2, sp=2 make exactly the
+    collectives pinned for them (parallel/comm_gate.BUDGETS, the JAX
+    dryrun's collective budget): a sharding change that adds or drops a
+    gather fails here with JAX's drift message."""
+    want = comm_gate.expected("train/dp2_tp2_sp2", DIMS["n_layers"])
+    for r, out in enumerate(gang.result()):
+        steps = out["train"]["collectives"]
+        assert len(steps) == STEPS
+        for i, calls in enumerate(steps):
+            comm_gate.assert_collective_budget(
+                calls, want, f"rank {r} train step {i} on dp=2,tp=2,sp=2")
 
 
 def test_grad_accum_with_remat_matches_the_single_process_steps(gang):

@@ -9,8 +9,9 @@ list of jobs (an FSDP mesh) or a list of phases, each a mesh
 inputs.npz holds the numpy params, token batches and tensors they use.
 The rank joins the gang of each phase through the port's
 `bootstrap.initialize` (gloo on the CPU), runs its jobs in order, leaves
-the group, and writes what it saw to JOB_DIR/rank{RANK}.json (metrics, its
-blocks' sizes, its mesh coordinates) and, on rank 0, the full gathered
+the group, and writes what it saw to JOB_DIR/rank{RANK}.json (metrics, the
+collectives of each train step (parallel/comm_gate.record), its blocks'
+sizes, its mesh coordinates) and, on rank 0, the full gathered
 trees to JOB_DIR/<job name>.npz. A job of kind "train" (the default)
 trains, saves and restores; "forward" writes the rank's block of the
 logits, "grads" the loss and the full gradient tree, "ring" the rank's
@@ -34,7 +35,7 @@ sys.path.insert(0, str(ROOT))
 
 from k8s_gpu_workload_enhancer_tpu_torch.models import transformer as tf  # noqa: E402
 from k8s_gpu_workload_enhancer_tpu_torch.parallel import (  # noqa: E402
-    ring_attention as ring)
+    comm_gate, ring_attention as ring)
 from k8s_gpu_workload_enhancer_tpu_torch.train import (  # noqa: E402
     bootstrap, checkpoint, trainer)
 
@@ -249,12 +250,15 @@ def run_job(job, inputs, ctx, job_dir: pathlib.Path) -> dict:
         state = checkpoint.CheckpointManager(
             str(job_dir / job["restore"])).restore(None, state)
     step = trainer.make_train_step(model, train)
-    metrics = []
+    metrics, collectives = [], []
     for i in range(job.get("steps", 0)):
         toks = torch.from_numpy(inputs[f"{job['batches']}/{i}"]).long()
-        state, m = step(state, state.fsdp.rank_rows(toks, train.grad_accum))
+        with comm_gate.record() as calls:
+            state, m = step(state, state.fsdp.rank_rows(toks,
+                                                        train.grad_accum))
         metrics.append({k: float(m[k]) for k in
                         ("loss", "nll", "aux", "grad_norm")})
+        collectives.append(calls)
     if job.get("save"):
         checkpoint.CheckpointManager(str(job_dir / job["save"])).save(
             state.step, state, wait=True)
@@ -262,7 +266,7 @@ def run_job(job, inputs, ctx, job_dir: pathlib.Path) -> dict:
     if ctx.is_primary:
         np.savez(job_dir / f"{job['name']}.npz", **arrays)
     return {"metrics": metrics, "step": state.step,
-            "count": state.opt_state["count"],
+            "count": state.opt_state["count"], "collectives": collectives,
             "blocks": block_sizes(state), "dims": flat(state.fsdp.dims),
             "tp_dims": flat(state.fsdp.tp_dims), "coords": coords(ctx)}
 

@@ -20,7 +20,14 @@ engine's metrics), "eject" (one request ejected once it has committed
 `min_tokens`: its resume state), "resume" (a resume state continued) and
 "evacuate" (a device loss armed once the first request has 3 tokens: the
 frames, the counters, a request served after it and the serve's `mesh`
-block). Imports torch and the port only: no jax.
+block) and "kvhost" (the host KV tier's traffic, `kv_traffic`, under
+eviction, or with a `fault` site one FaultLab fault at its first crossing,
+`kv_fault_traffic`: each phase's tokens and `kv_state`; the pages demoted,
+and whether each restored page holds what was demoted, bit for bit). On every case rank 0 records the
+collectives of each device program it drives (parallel/comm_gate.record:
+the header and the program), and on a "kvhost" case every rank those of
+the programs it runs, to JOB_DIR/<case name>-rank<r>.json. Imports torch
+and the port only: no jax.
 """
 
 import json
@@ -38,6 +45,7 @@ from k8s_gpu_workload_enhancer_tpu_torch import faultlab  # noqa: E402
 from k8s_gpu_workload_enhancer_tpu_torch.cmd.serve import ServeService  # noqa: E402,E501
 from k8s_gpu_workload_enhancer_tpu_torch.models import (  # noqa: E402
     decode, serving, transformer as tf)
+from k8s_gpu_workload_enhancer_tpu_torch.parallel import comm_gate  # noqa: E402,E501
 from k8s_gpu_workload_enhancer_tpu_torch.train import bootstrap  # noqa: E402
 
 import torch_gang  # noqa: E402
@@ -126,8 +134,145 @@ def evacuate(eng, case: dict) -> dict:
     return out
 
 
+# The host tier's traffic (tests/test_torch_kvhost.py's, at the mesh
+# tests' widths): a 27-token prompt (3 full blocks of 8, 3 tokens over),
+# three prompts of other prefixes that evict it from a pool of 9 pages,
+# and a partial re-arrival of its first two blocks.
+KV_PROMPT = list(range(1, 28))
+KV_OTHERS = [[40 + i, 41 + i] + list(range(60 + 9 * i, 79 + 9 * i))
+             for i in range(3)]
+KV_TAIL = KV_PROMPT[:16] + [99, 98, 97, 96, 95]
+
+
+def kv_state(eng) -> dict:
+    """The kvhost block less its wall clock, the radix tree node by node,
+    the leases and the free pages (the JAX engine's too)."""
+    kv = dict(eng.metrics()["kvhost"])
+    kv.pop("dma_seconds_total")
+    nodes, stack = [], list(eng._radix.root.children.values())
+    while stack:
+        n = stack.pop()
+        nodes.append([n.digest, n.block, n.ref, n.pins])
+        stack.extend(n.children.values())
+    return dict(kvhost=kv, nodes=sorted(nodes), leases=sorted(eng._leases),
+                free=eng._pool.free_count)
+
+
+def kv_run(eng, prompt, n: int) -> dict:
+    rid = eng.submit(list(prompt), n)
+    eng.run()
+    r = eng.result(rid)
+    return {"tokens": [int(t) for t in r.tokens],
+            "logprobs": [float(x) for x in r.logprobs],
+            "finish": r.finish_reason, "state": kv_state(eng)}
+
+
+def evict_all(eng) -> None:
+    eng._radix.evict(eng.metrics()["kv_cache"]["blocks_cached"])
+
+
+def kv_traffic(eng) -> list:
+    """The tier's phases: each phase's request (None for an eviction) and
+    the state after it."""
+    out = [kv_run(eng, KV_PROMPT, 8)]
+    evict_all(eng)
+    out.append({"state": kv_state(eng)})
+    out.append(kv_run(eng, KV_PROMPT, 8))
+    out += [kv_run(eng, p, 10) for p in KV_OTHERS]
+    out.append(kv_run(eng, KV_PROMPT, 8))
+    out.append(kv_run(eng, KV_TAIL, 6))
+    return out
+
+
+def kv_fault_traffic(eng, site: str, fl) -> list:
+    """One fault at the first crossing of `site` (FaultLab `fl`): at the
+    demotion of an eviction (kvhost.dma) or at the prefetch after it."""
+    out = [kv_run(eng, KV_PROMPT, 8)]
+    if site != "kvhost.dma":
+        evict_all(eng)
+    fl.activate(fl.TargetedPlan({site: [0]}))
+    try:
+        if site == "kvhost.dma":
+            evict_all(eng)
+        out.append(kv_run(eng, KV_PROMPT, 8))
+        snap = fl.snapshot()
+    finally:
+        fl.deactivate()
+    out.append({"injections": snap["injections_by_site"],
+                "occurrences": snap["occurrences_by_site"]})
+    return out
+
+
+def watch_pages(eng) -> dict:
+    """Every page the tier demotes (assembled, as it stores it) by digest;
+    after every restore of one, whether the driver's pool page holds its
+    KV-head shard of it bit for bit. The tier runs unchanged."""
+    seen = {"demoted": {}, "restored": 0, "equal": 0}
+    tier = eng._host_tier
+    offload, restore, stage = tier.offload, tier.restore, tier._stage
+    current = {}
+
+    def on_offload(cache, blk, digest, *rest):
+        current["digest"] = digest
+        return offload(cache, blk, digest, *rest)
+
+    def on_stage(cache, blk):
+        page = stage(cache, blk)
+        seen["demoted"][current["digest"]] = {n: t.clone()
+                                              for n, t in page.items()}
+        return page
+
+    def on_restore(cache, blk, entry):
+        restore(cache, blk, entry)
+        want = seen["demoted"][entry.digest]
+        mine = dict(zip(want, (t[:, blk] for t in eng._cache.leaves())))
+        seen["restored"] += 1
+        seen["equal"] += all(torch.equal(mine[n], want[n].narrow(
+            2, 0, mine[n].shape[2])) for n in want)
+    tier.offload, tier.restore, tier._stage = on_offload, on_restore, \
+        on_stage
+    return seen
+
+
+def kvhost(eng, case: dict) -> dict:
+    seen = watch_pages(eng)
+    site = case.get("fault")
+    phases = (kv_fault_traffic(eng, site, faultlab) if site
+              else kv_traffic(eng))
+    return {"phases": phases, "mesh_sig": eng._host_tier.mesh_sig,
+            "demoted": len(seen["demoted"]), "restored": seen["restored"],
+            "restored_equal": seen["equal"],
+            "kv_cache": eng.metrics()["kv_cache"]}
+
+
 SCENARIOS = {"transcripts": transcripts, "eject": eject, "resume": resume,
-             "evacuate": evacuate}
+             "evacuate": evacuate, "kvhost": kvhost}
+
+
+def record_programs(eng, driver: bool) -> list:
+    """[program name, steps (a chunk's; else None), calls] for each device
+    program this rank runs from now on: the driver's `_prog` (its header
+    and the program), a follower's `_p_<name>` (the program)."""
+    seen = []
+
+    def wrap(fn, name=None):
+        def run(*args):
+            prog = name or args[0]
+            with comm_gate.record() as calls:
+                out = fn(*args)
+            steps = (args[1] if name is None else args[0]) \
+                if prog == "chunk" else None
+            seen.append([prog, steps, calls])
+            return out
+        return run
+    if driver:
+        eng._prog = wrap(eng._prog)
+    else:
+        for name in ("prefill_step", "prefill_final", "chunk", "verify",
+                     "kv_demote", "kv_restore"):
+            setattr(eng, "_p_" + name, wrap(getattr(eng, "_p_" + name),
+                                            name))
+    return seen
 
 
 def run_case(case: dict, inputs: dict, mesh, job_dir: pathlib.Path) -> None:
@@ -140,13 +285,19 @@ def run_case(case: dict, inputs: dict, mesh, job_dir: pathlib.Path) -> None:
     eng = serving.ContinuousBatchEngine(
         decode.shard_params_for_serving(full, cfg, mesh), cfg, device="cpu",
         mesh=mesh, **kw)
+    rank_file = job_dir / f"{case['name']}-rank{mesh.rank}.json"
     if not mesh.is_driver:
+        programs = record_programs(eng, False)
         eng.follow()
+        if case["kind"] == "kvhost":
+            rank_file.write_text(json.dumps(programs))
         return
+    programs = record_programs(eng, True)
     try:
         out = SCENARIOS[case["kind"]](eng, case)
     finally:
         eng.stop_followers()
+    rank_file.write_text(json.dumps(programs))
     (job_dir / f"{case['name']}.json").write_text(json.dumps(out))
 
 
