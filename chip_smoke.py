@@ -238,7 +238,27 @@ inits in bf16:
      RING_ATOL_OF_MAX). It prints the launches of flash rows 6-9 (the
      schedule's and, apart, the single call's), ms of forward plus
      backward of each, and their peak GB; a multi-rank ring needs more
-     than one card. The mesh phase (serving meshes, models/serving.py)
+     than one card. The ep phase (expert parallelism,
+     models/transformer.py `_moe_ffn` under parallel/sharding.ExpertLayout)
+     runs the embedding and 2 MoE blocks at the trainer's widths (4
+     experts, d_ff 8192, 16 heads of 128, seq 2048) on 4 virtual ep ranks
+     of a ThreadGroup on the card, a batch of 8: each rank one expert a
+     layer and 2 rows, its dispatched tokens carried to the experts' ranks
+     and back by two all-to-alls a layer (one autograd node over the
+     gang's ranks, whose backward is the inverse exchange); the ranks'
+     forwards run in their threads and one backward over the sum of their
+     losses. In f32 the output, aux, loss and every gradient leaf (router
+     and experts included) are held to the single-device dense route on
+     the same weights, rows and output cotangent (GATE_LOSS_RTOL,
+     GATE_LEAF_RTOL); in bf16 the errors are printed. Gates: the table
+     kernels' launches exactly each rank's embedding and blocks (rows 1-3,
+     6, 7 and 8 at 2 rows a rank, the p/ds stash fitting its gate, 13), in
+     bf16 every flash launch on its wgmma body; 4 all-to-alls a rank a
+     layer (the pin of parallel/comm_gate.py), each E * N_local * D values.
+     It prints an `ep` line with host ms of the forward and the backward
+     against the single device's, peak GB, the launches and the
+     all-to-alls' count and bytes. The mesh phase (serving meshes,
+     models/serving.py)
      runs the meshed programs at the serve defaults' full width on
      virtual gangs of threads on the one card (parallel/comm.ThreadGroup):
      the dense engine on (dp=2, tp=4), f32 transcripts of 8 prompts gated
@@ -246,8 +266,11 @@ inits in bf16:
      prefill printed), bf16 counted; the paged engine on (1, 4), f32,
      plain, int8 KV and spec_k 3 (an oracle drafter whose last draft a
      round is wrong), transcripts and page counters equal, verify rounds
-     run; no gang above one rank launches a kernel (the JAX package's
-     `pallas_ok`); the device-loss drill on the dense (2, 4) gang (every
+     run; both MoE engines (4 experts) on (1, 4), f32, their transcripts
+     equal to the unmeshed MoE engine's and every decode chunk the dense
+     model's collectives (`serve/decode_chunk/paged/moe`); no gang above
+     one rank launches a kernel (the JAX package's `pallas_ok`); the
+     device-loss drill on the dense (2, 4) gang (every
      request evacuated as a resume frame that resumes to its
      uninterrupted transcript, the degraded engine serving one more equal
      request through rows 1, 3, 6 and 13, the serve's `mesh` block at one
@@ -522,6 +545,13 @@ MESH_PROMPT, MESH_NEW, MESH_SPEC_K, MESH_SEED = 48, 16, 3, 47
 MESH_DRILL_NEW = 12
 # The collective bench's payload a rank (cmd/icibench.py's default).
 ICIBENCH_MB = 256
+# The ep phase: the embedding and EP_LAYERS MoE blocks at the trainer's
+# widths (TRAIN_DIMS with MOE_EXPERTS experts: d_model 2048, 16 heads of
+# 128, d_ff 8192, seq 2048) on EP_RANKS virtual ep ranks of a ThreadGroup
+# on the card, a batch of EP_BATCH rows: each rank one expert of each
+# layer and EP_BATCH / EP_RANKS rows, the dense expert route with the
+# token all-to-alls between the ranks.
+EP_RANKS, EP_LAYERS, EP_BATCH, EP_SEED = 4, 2, 8, 61
 
 # Kernel vs plain version in bf16: both round once from f32, so they differ
 # by at most a couple of bf16 ulps (2^-8 relative) where their f32 sums are
@@ -3310,6 +3340,198 @@ def run_icibench(gates: list) -> dict:
     return line
 
 
+def on_thread_group(group, n: int, fn, what: str) -> list:
+    """fn(rank) on every rank of a gang of n threads on the card; the
+    ranks' results in rank order. A failing rank aborts `group`'s
+    barriers, and the phase fails."""
+    out, errors = [None] * n, []
+
+    def one(r):
+        try:
+            out[r] = fn(r)
+        except BaseException as e:              # noqa: BLE001 — reported
+            errors.append(f"rank {r}: {e!r}")
+            group.abort()
+    threads = [threading.Thread(target=one, args=(r,), daemon=True)
+               for r in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    if errors or any(t.is_alive() for t in threads):
+        fail(f"{what} thread gang: {errors or 'hung'}")
+    return out
+
+
+def ep_blocks(tf, embed, attn_mod, params, cfg, toks, layout):
+    """The embedding of `toks` and the model's blocks (`_layer`, the MoE
+    FFN under `layout`, each rank on its experts): (x, the summed aux)."""
+    x = embed.embed_tokens(params["embed"], toks, cfg.d_model, cfg.dtype)
+    freqs = attn_mod.rope_frequencies(cfg.head_dim, cfg.max_seq,
+                                      cfg.rope_theta, x.device)
+    aux = 0.0
+    for layer in range(cfg.n_layers):
+        lp = tf.layer_params(params, layer)
+        if layout is not None:
+            lp = layout.expert_block(lp)
+        x, a = tf._layer(x, lp, cfg, freqs, 0, layout)
+        aux = aux + a
+    return x, aux
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got.float() - want.float()).norm()
+                 / want.float().norm().clamp_min(1e-30))
+
+
+def run_ep(dev, tf, embed, attn_mod, flash, kernels, card: str) -> dict:
+    """The ep phase (see EP_RANKS): the blocks forward and backward on the
+    virtual ep gang (the ranks' forwards in their threads, one backward
+    over the sum of their losses, sum(x * dy) + aux / EP_RANKS a rank)
+    against the single-device dense route on the same weights, rows and
+    dy (sum(x * dy) + aux): in f32 the output, aux, loss and every
+    gradient leaf, router and experts included, within GATE_LOSS_RTOL and
+    GATE_LEAF_RTOL; in bf16 the errors recorded. The launches of the table
+    kernels the blocks run, per rank, and the all-to-alls: each rank the
+    pinned count (parallel/comm_gate.py `train/dp2_ep2/moe`, 4 a MoE layer),
+    each call E * N_local * D values of the activation dtype. Host ms of
+    the gang's forward and backward and of the single device's (timed warm,
+    after the gang), and the gang's peak GB above what the phase holds
+    before it."""
+    from k8s_gpu_workload_enhancer_tpu_torch.parallel import comm_gate
+    from k8s_gpu_workload_enhancer_tpu_torch.parallel.comm import ThreadGroup
+    from k8s_gpu_workload_enhancer_tpu_torch.parallel.sharding import (
+        ExpertLayout)
+    collect_garbage()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dims = dict({k: v for k, v in TRAIN_DIMS.items() if k != "seq_len"},
+                n_layers=EP_LAYERS, n_kv_heads=TRAIN_DIMS["n_heads"],
+                max_seq=TRAIN_DIMS["seq_len"], n_experts=MOE_EXPERTS,
+                moe_ragged_dispatch=False)
+    seq, rows = TRAIN_DIMS["seq_len"], EP_BATCH // EP_RANKS
+    gates, out = [], dict(card=card, config=dict(
+        dims, ranks=EP_RANKS, batch=EP_BATCH, rows_a_rank=rows))
+    pin = comm_gate.BUDGETS["train/dp2_ep2/moe"]["all-to-all"]
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = str(dtype).split(".")[-1]
+        cfg = tf.TransformerConfig(**dims, dtype=dtype)
+        gen = torch.Generator(device=dev).manual_seed(EP_SEED)
+        params = tf.init_params(gen, cfg)
+        params = {k: params[k] for k in ("embed", "layers")}
+        leaves = [params["embed"]] + list(params["layers"].values())
+        names = ["/embed"] + [f"/layers/{k}" for k in params["layers"]]
+        for t in leaves:
+            t.requires_grad_(True)
+        toks = torch.randint(0, cfg.vocab_size, (EP_BATCH, seq),
+                             generator=gen, device=dev)
+        dy = (torch.randn(EP_BATCH, seq, cfg.d_model, generator=gen,
+                          device=dev) * 1e-2).to(dtype)
+
+        def loss_of(x, aux, part, weight):
+            return (x.float() * dy[part].float()).sum() + aux * weight
+
+        def single():
+            """The single device, dense route: x, aux, loss, gradients."""
+            x, aux = ep_blocks(tf, embed, attn_mod, params, cfg, toks, None)
+            loss = loss_of(x, aux, slice(None), 1.0)
+            grads = torch.autograd.grad(loss, leaves)
+            return (x.detach(), float(aux.detach()), float(loss.detach()),
+                    grads)
+        # The reference (its first pass also warms the kernels and cuBLAS;
+        # it is timed again after the gang).
+        x_ref, aux_ref, loss_ref, g_ref = single()
+        # The gang.
+        group = ThreadGroup(EP_RANKS)
+        kernels.reset_launches()
+        # Every counter exists before the threads start: an increment is
+        # then one dict store under the GIL.
+        kernels.launches.update({k: 0 for k in (
+            "embed_gather", "rms_norm", "rope", "flash_attention",
+            "flash_attention_wgmma")})
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+
+        def rank(r):
+            return ep_blocks(tf, embed, attn_mod, params, cfg,
+                             toks[r * rows:(r + 1) * rows],
+                             ExpertLayout(group.comm(r)))
+        with comm_gate.record() as calls:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ranks = on_thread_group(group, EP_RANKS, rank, "ep")
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            loss = sum(loss_of(x, a, slice(r * rows, (r + 1) * rows),
+                               1.0 / EP_RANKS)
+                       for r, (x, a) in enumerate(ranks))
+            grads = torch.autograd.grad(loss, leaves)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+        launches = {k: v for k, v in kernels.launches.items() if v}
+        x = torch.cat([x.detach() for x, _ in ranks])
+        auxes = [float(a.detach()) for _, a in ranks]
+        errs = dict(out=rel_err(x, x_ref),
+                    aux=abs(auxes[0] - aux_ref) / abs(aux_ref),
+                    loss=abs(float(loss.detach()) - loss_ref) / abs(loss_ref),
+                    leaves={n: rel_err(g, w) for n, g, w in
+                            zip(names, grads, g_ref)})
+        worst = max(errs["leaves"], key=errs["leaves"].get)
+        if any(not torch.isfinite(g).all() for g in grads):
+            gates.append(f"ep {dt}: a gradient has non-finite values")
+        if len(set(auxes)) != 1:
+            gates.append(f"ep {dt}: the ranks' aux differ: {auxes}")
+        if dtype == torch.float32 and not (
+                errs["aux"] <= GATE_LOSS_RTOL
+                and errs["loss"] <= GATE_LOSS_RTOL
+                and errs["out"] < GATE_LEAF_RTOL
+                and errs["leaves"][worst] < GATE_LEAF_RTOL):
+            gates.append(f"ep f32 against one device: {errs}")
+        # Launches: each rank a microbatch's embedding and blocks (no
+        # final norm, no loss kernel), the p/ds stash at its rows.
+        q = torch.empty(rows, seq, cfg.n_heads, cfg.head_dim, dtype=dtype,
+                        device="meta")
+        stash = flash.stash_bytes(q, q, q) <= flash.PDS_STASH_LIMIT_BYTES
+        want = per_step_launches(EP_LAYERS, stash=stash,
+                                 bf16=dtype == torch.bfloat16)
+        want.update(rms_norm=2 * EP_LAYERS, rms_norm_bwd=2 * EP_LAYERS)
+        want = {k: n * EP_RANKS for k, n in want.items()}
+        if launches != want:
+            gates.append(f"ep {dt}: launches {launches}, want {want}")
+        a2a = [n for op, n in calls if op == "all-to-all"]
+        cap = MOE_EXPERTS * rows * seq * cfg.d_model * dtype.itemsize
+        want_a2a = EP_RANKS * pin.count(EP_LAYERS)
+        if len(a2a) != want_a2a or any(n != cap for n in a2a):
+            gates.append(f"ep {dt}: {len(a2a)} all-to-alls of "
+                         f"{sorted(set(a2a))} B, want {want_a2a} of {cap}")
+        out[dt] = dict(
+            errors=errs, worst_leaf=worst, gated=dtype == torch.float32,
+            loss_rtol=GATE_LOSS_RTOL, leaf_rtol=GATE_LEAF_RTOL,
+            stash=stash, launches=launches, launches_per_rank={
+                k: v // EP_RANKS for k, v in launches.items()},
+            all_to_all=dict(per_rank=len(a2a) // EP_RANKS,
+                            per_rank_per_layer=len(a2a) // EP_RANKS
+                            // EP_LAYERS, bytes_each=cap,
+                            bytes_per_layer_per_rank=4 * cap),
+            collectives=comm_gate.collective_counts(calls),
+            host_ms=dict(forward=1e3 * (t1 - t0), backward=1e3 * (t2 - t1),
+                         forward_backward=1e3 * (t2 - t0)),
+            peak_gb=peak_gb)
+        del ranks, loss
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        single()
+        torch.cuda.synchronize()
+        out[dt]["host_ms"]["single_device_forward_backward"] = \
+            1e3 * (time.perf_counter() - t0)
+        del params, leaves, grads, g_ref, x, x_ref, dy, toks
+        collect_garbage()
+    out["launches"] = out["bfloat16"]["launches"]
+    out["gates_failed"] = gates
+    return out
+
+
 def mesh_transcripts(prompts, new: int = MESH_NEW):
     """drive(engine): the greedy transcripts of `prompts` and the
     engine's metrics."""
@@ -3437,6 +3659,31 @@ def run_mesh(dev, mods, card) -> dict:
             verify_rounds=rounds, ms_per_decode_step=ms_per_step(got_p),
             unmeshed_ms_per_decode_step=ms_per_step(want_p),
             broadcast=got_p["broadcast"])
+    # MoE on the (1, 4) gang, f32: both engines at the serve defaults with
+    # MOE_EXPERTS experts (each rank every expert's quarter of the MLP
+    # dim), transcripts equal to the unmeshed MoE engine's; every decode
+    # chunk the dense model's collectives (on one dp rank the dense
+    # engine's slot gather is no call, so both engines' chunks are the
+    # paged pin's).
+    mcfg32 = dataclasses.replace(cfg32, n_experts=MOE_EXPERTS)
+    mp32 = tf.init_params(torch.Generator(device=dev).manual_seed(0),
+                          mcfg32)
+    out["moe_f32"] = {}
+    for name, kw in (("dense", {}), ("paged",
+                                     dict(kv_block_len=KV_BLOCK_LEN))):
+        want_m = one(mp32, mcfg32, **kw)
+        got_m = gang(1, 4, mp32, mcfg32, **kw)
+        if got_m["tokens"] != want_m["tokens"]:
+            gates.append(f"moe {name} (1, 4) f32 transcripts differ from "
+                         f"the unmeshed MoE engine's")
+        out["moe_f32"][name] = dict(
+            equal=sum(a == b for a, b in zip(got_m["tokens"],
+                                             want_m["tokens"])),
+            of=len(prompts), ms_per_decode_step=ms_per_step(got_m),
+            unmeshed_ms_per_decode_step=ms_per_step(want_m),
+            collective_gate=chunk_gate(got_m, "serve/decode_chunk/paged/moe",
+                                       NUM_SLOTS, mcfg32, 4, gates))
+    del mp32
     out["device_loss"] = mesh_device_loss(dev, mods, ServingMesh, faultlab,
                                           p32, cfg32, prompts, gates)
     out["host_tier"] = run_mesh_tier(dev, mods, ServingMesh, bootstrap, p32,
@@ -7528,6 +7775,10 @@ def main() -> int:
           flush=True)
     results["ring"] = run_ring(dev, flash, ring, kernels, card)
     print(json.dumps({"ring": results["ring"]}), flush=True)
+    results["ep"] = run_ep(dev, tf, embed, attn_mod, flash, kernels, card)
+    print(json.dumps({"ep": results["ep"]}), flush=True)
+    for gate in results["ep"]["gates_failed"]:
+        fail(gate)
     mods = (kernels, rms, rope, flash, paged, tf, decode, serving, serve)
     cfg, params, init_s = serve_params(dev, tf, serve)
     n_layers = SERVE_DIMS["n_layers"]
@@ -7681,16 +7932,17 @@ def main() -> int:
     # The checkpoint phase's trainer runs the t-layout path (head_dim 512).
     t_layout = ("flagship", "checkpoint_train")
     every = serving_phases + train_phases
-    paths = {"embed_gather": every + t_layout,
-             "rms_norm": every + t_layout, "rope": every,
-             "flash_attention": every + t_layout + ("ring",),
+    paths = {"embed_gather": every + t_layout + ("ep",),
+             "rms_norm": every + t_layout + ("ep",), "rope": every + ("ep",),
+             "flash_attention": every + t_layout + ("ring", "ep"),
              "paged_decode": paged_phases,
              "paged_decode_combine": paged_phases,
-             "rms_norm_bwd": train_phases + t_layout,
-             "flash_attention_bwd_dq": train_phases + t_layout + ("ring",),
+             "rms_norm_bwd": train_phases + t_layout + ("ep",),
+             "flash_attention_bwd_dq": train_phases + t_layout
+             + ("ring", "ep"),
              "flash_attention_bwd_dkv": ("train", "fsdp", "moe_train"),
              "flash_attention_bwd_dkv_stash": ("train_stash",) + t_layout
-             + ("ring",),
+             + ("ring", "ep"),
              "rope_t": t_layout, "rope_t_inv": t_layout,
              "fused_ce_fwd": ("flagship",), "fused_ce_bwd": ("flagship",),
              "relayout_to_t": t_layout, "relayout_from_t": t_layout}

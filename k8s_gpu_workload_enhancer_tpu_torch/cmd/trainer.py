@@ -1,6 +1,6 @@
 """Trainer main of the PyTorch port: KTWE-LM on one device or over a gang
-of processes (FSDP over dp, tensor parallelism over tp, sequence
-parallelism over sp).
+of processes (FSDP over dp, expert parallelism over ep, tensor
+parallelism over tp, sequence parallelism over sp).
 
 Port of k8s_gpu_workload_enhancer_tpu/cmd/trainer.py, with the same flags
 and defaults (vocab 32768, d_model 2048, 8 layers, 16 heads, d_ff 8192,
@@ -11,10 +11,11 @@ a JSON line every 10 steps and a final summary line.
 It starts with `train/bootstrap.initialize`, which reads the gang env the
 controller's launcher injects (COORDINATOR_ADDRESS, NUM_PROCESSES,
 PROCESS_ID, KTWE_MESH_AXES, KTWE_STRATEGY). In a gang each process is one
-rank on one device and the ranks train one model on the mesh's dp, tp and
-sp axes (train/trainer.py): the global batch is `--batch-size`, each dp
-rank takes its rows (the ranks of one dp coordinate read the same rows,
-each sp rank its shard of their positions), and only the primary
+rank on one device and the ranks train one model on the mesh's dp, ep,
+tp and sp axes (train/trainer.py): the global batch is `--batch-size`,
+each (dp, ep) batch coordinate takes its rows (the ranks of one
+coordinate, its tp and sp ranks, read the same rows, each sp rank its
+shard of their positions), and only the primary
 (PROCESS_ID 0) prints and writes checkpoints. Without the env, or at
 NUM_PROCESSES 1, it trains on one device (`main(group_of_one=True)` runs
 one process through the gang's FSDP step over a process group of one
@@ -34,14 +35,15 @@ instead, a check of that path on a single card).
   in a MAX all-reduce of the drain flag, so a signal to any rank drains
   every rank after the same step.
 - `--n-experts N` trains the MoE model (every layer's FFN a router and N
-  experts, top-1, through the sort-based capacity-bounded dispatch on the
-  one device), as the JAX trainer builds it; its step lines and final
-  line also carry the last step's MoE load-balance loss `aux`.
+  experts, top-1, through the sort-based capacity-bounded dispatch on one
+  device, the dense one-hot route on a mesh of more; on an ep mesh each
+  ep rank holds N/ep experts), as the JAX trainer builds it; its step
+  lines and final line also carry the last step's MoE load-balance loss
+  `aux`.
 
 Not ported yet, and refused with exit code 2 rather than ignored:
-`--pipeline-microbatches`, a mesh with ep or pp above 1, and `--n-experts`
-on a mesh with tp or sp above 1 (ROADMAP A11). `--profile-dir` is
-accepted and unused, as in the JAX trainer.
+`--pipeline-microbatches` and a mesh with pp above 1 (ROADMAP A11d).
+`--profile-dir` is accepted and unused, as in the JAX trainer.
 
     python -m k8s_gpu_workload_enhancer_tpu_torch.cmd.trainer --steps 20
     python -m k8s_gpu_workload_enhancer_tpu_torch.cmd.trainer --device cpu \
@@ -60,7 +62,8 @@ A gang of two CPU ranks (run both, PROCESS_ID 0 and 1):
 
 A gang of eight on dp=2, tp=2, sp=2: the same with NUM_PROCESSES=8,
 PROCESS_ID 0..7 and KTWE_MESH_AXES=dp=2,tp=2,sp=2 (or KTWE_STRATEGY=Hybrid,
-which factors 8 processes so).
+which factors 8 processes so). MoE over four ranks on dp=2, ep=2: the same
+with NUM_PROCESSES=4, KTWE_MESH_AXES=dp=2,ep=2 and --n-experts 4.
 """
 
 from __future__ import annotations
@@ -130,26 +133,23 @@ def refused(args: argparse.Namespace,
     ask for something not ported yet, or None."""
     if args.pipeline_microbatches > 0:
         return ("--pipeline-microbatches: pipeline parallelism is not "
-                "ported yet (ROADMAP A11); the port trains on one device "
-                "or on a mesh of dp, tp and sp")
+                "ported yet (ROADMAP A11d); the port trains on one device "
+                "or on a mesh of dp, ep, tp and sp")
     if mesh_cfg is None:
         return None
     try:
         check_supported(mesh_cfg)
     except UnportedAxisError as e:
         return str(e)
-    if args.n_experts > 0 and (mesh_cfg.tp > 1 or mesh_cfg.sp > 1):
-        return (f"--n-experts {args.n_experts} on a mesh with "
-                f"tp={mesh_cfg.tp}, sp={mesh_cfg.sp}: MoE there needs "
-                f"expert parallelism, not ported yet (ROADMAP A11)")
     return None
 
 
 def data_config(args: argparse.Namespace, tcfg: trainer.TrainConfig,
                 dp: int, dp_rank: int) -> DataConfig:
-    """The token pipeline of dp rank `dp_rank` of `dp`: its rows of every
-    microbatch of the global batch the shard's windows make at a step (the
-    pipeline's split). Ranks of one dp coordinate read the same rows."""
+    """The token pipeline of batch coordinate `dp_rank` of `dp` (the
+    mesh's (dp, ep) coordinates, dp major): its rows of every microbatch
+    of the global batch the shard's windows make at a step (the
+    pipeline's split). Ranks of one coordinate read the same rows."""
     return DataConfig(path=args.data_file, batch_size=tcfg.batch_size // dp,
                       seq_len=tcfg.seq_len, seed=tcfg.seed,
                       process_id=dp_rank, num_processes=dp,
@@ -182,10 +182,6 @@ def _train(args: argparse.Namespace, ctx: bootstrap.BootstrapContext,
            callback: Optional[Callable]) -> int:
     device, mesh = ctx.device, ctx.mesh
     world, primary = ctx.num_processes, ctx.is_primary
-    # The batch splits over dp alone: the ranks of one dp coordinate (its
-    # tp and sp ranks) read the same rows.
-    dp = ctx.mesh_config.dp if mesh is not None else 1
-    dp_rank = mesh.get_local_rank("dp") if mesh is not None else 0
     model_cfg = tf.TransformerConfig(
         vocab_size=args.vocab_size, d_model=args.d_model,
         n_layers=args.n_layers, n_heads=args.n_heads,
@@ -197,10 +193,6 @@ def _train(args: argparse.Namespace, ctx: bootstrap.BootstrapContext,
         seq_len=args.seq_len, total_steps=args.steps,
         grad_accum=args.grad_accum, grad_accum_dtype=args.grad_accum_dtype,
         seed=args.seed)
-    if tcfg.microbatch_size % dp:
-        raise ValueError(f"--batch-size {tcfg.batch_size} / --grad-accum "
-                         f"{tcfg.grad_accum} rows a microbatch cannot be "
-                         f"split over dp={dp}")
     sp = ctx.mesh_config.sp if mesh is not None else 1
     if tcfg.seq_len % sp:
         raise ValueError(f"--seq-len {tcfg.seq_len} cannot be split over "
@@ -208,6 +200,14 @@ def _train(args: argparse.Namespace, ctx: bootstrap.BootstrapContext,
     gen = torch.Generator(device=device)
     gen.manual_seed(tcfg.seed)
     state = trainer.init_state(model_cfg, tcfg, gen, mesh)
+    # The batch splits over the (dp, ep) batch coordinates: the ranks of
+    # one coordinate (its tp and sp ranks) read the same rows.
+    dp, dp_rank = ((state.fsdp.batch_ranks, state.fsdp.batch_rank)
+                   if state.fsdp is not None else (1, 0))
+    if tcfg.microbatch_size % dp:
+        raise ValueError(f"--batch-size {tcfg.batch_size} / --grad-accum "
+                         f"{tcfg.grad_accum} rows a microbatch cannot be "
+                         f"split over dp*ep={dp}")
     mgr = CheckpointManager(args.checkpoint_dir) if args.checkpoint_dir \
         else None
     # KTWE_RESUME=1 is how the controller relaunches a drained tenant (it

@@ -228,8 +228,12 @@ dense engine's slots shard over dp (num_slots % dp, the JAX check); the
 paged pool holds the rank's KV heads and replicates over dp. On a mesh
 above one rank the programs run the plain ops (the JAX package runs no
 Pallas kernel there) and eager (no graph); a mesh of one rank runs the
-single-device programs, kernels and graphs. Refused on a mesh: MoE above
-one rank (ROADMAP A11c).
+single-device programs, kernels and graphs. An MoE model serves on a
+mesh as the dense one does: the serving mesh has no ep axis, so every
+rank holds every expert's block of the MLP dim over tp and the router
+whole (`decode.SERVING_RULES`), `decode.ffn` computes the rank's partial
+output of the dense expert route and the callers' tp sum finishes it, as
+for the dense MLP; no collective is added.
 
 The host KV tier on a mesh is the driver's alone (its entries, crcs, LRU
 order and counters; followers build none), and holds assembled pages
@@ -1151,10 +1155,6 @@ class ContinuousBatchEngine:
         # programs, kernels and graphs).
         self.mesh = mesh
         if mesh is not None:
-            if cfg.is_moe and mesh.size > 1:
-                raise ValueError(
-                    "MoE on a serving mesh needs expert parallelism, not "
-                    "ported yet (ROADMAP A11c)")
             if not kv_block_len and self.num_slots % mesh.dp:
                 raise ValueError(
                     f"num_slots {num_slots} must divide over the mesh's "

@@ -1,5 +1,5 @@
 """KTWE-LM, the decoder-only transformer, in PyTorch (dense or MoE; one
-device, or a mesh of dp, tp and sp).
+device, or a mesh of dp, ep, tp and sp).
 
 Port of k8s_gpu_workload_enhancer_tpu/models/transformer.py. Params are a
 plain dict with the JAX package's tree: stacked (L, ...) layer leaves of the
@@ -25,8 +25,8 @@ experts (`_moe_ffn`, Switch-style top-k with the load-balance aux loss,
 which `loss_fn` adds to the total). Training routes through the sort-based
 capacity-bounded dispatch (ops/moe_dispatch.py) where the reference's
 single-device gate takes it (`moe_ragged_dispatch`, top-1, a mesh of one
-device), else through the dense one-hot route, which inference always
-takes.
+device: the whole mesh's size, as JAX's `mesh.size == 1`), else through
+the dense one-hot route, which inference always takes.
 
 FSDP: `loss_fn` takes `fsdp` (parallel/sharding.Fsdp), the layout of a
 param tree whose weights each rank holds a block of. The forward then
@@ -35,6 +35,19 @@ slices of the stacked leaves, the LM head), the backward reduce-scatters
 their gradients, and the MoE load-balance fractions are averaged over the
 ranks before their product. `param_logical_axes` names each leaf's axes
 for the sharding rules, as in the JAX package.
+
+Expert parallelism: where the layout's ep axis exceeds 1, each rank holds
+n_experts/ep experts a layer and its rows of the batch (split over dp and
+ep jointly). The dense route's dispatched tokens xe (E, N, D) go, split on
+E into ep chunks, through an all-to-all over ep (`ep_comm.all_to_all_grad`,
+whose backward is the inverse all-to-all): the rank receives every rank's
+tokens for its experts, (ep, E/ep, N, D), runs its experts on them, and a
+second all-to-all brings the outputs back to (E, N, D), which the rank's
+own gates combine. This is the token all-to-all GSPMD inserts for the JAX
+package's sharding hints on xe and ye (`"ep"` on the expert axis, the
+batch over dp). The router is replicated over ep; its gradient and every
+other ep-replicated leaf's are averaged over ep after the backward
+(`Fsdp.reduce_grads_`).
 
 Tensor and sequence parallelism: where the layout's tp or sp axis
 exceeds 1 (`fsdp.model_parallel`), `loss_fn` and `forward` run the
@@ -49,10 +62,16 @@ ring over sp (parallel/ring_attention.py), whose blocks run the flash
 kernels' LSE entry point; with sp 1 it is `attention` on the rank's heads.
 Route choice follows the JAX package on a model-parallel mesh: no t-layout
 path and no fused CE, RMSNorm, RoPE and the embedding in plain torch
-(where the reference falls back to XLA). MoE on such a mesh comes with
-expert parallelism (ROADMAP A11) and is refused.
+(where the reference falls back to XLA). An MoE layer there is the dense
+route on the rank's experts (all of them, or its E/ep with ep) and its
+columns of their MLP dim: the router runs on the normed input as it is
+(every tp rank computes the same gates), the experts' input goes through
+`tp_copy` and so do the combine weights (the rank's expert outputs are
+partial sums over the MLP dim, so are the combine weights' gradients), and
+the combined output through `tp_sum`. The layers' aux losses are summed as
+on one device.
 
-Not ported here: the pp and ep axes (ROADMAP A11).
+Not ported here: the pp axis (ROADMAP A11d).
 """
 
 from __future__ import annotations
@@ -390,13 +409,17 @@ def _moe_ffn(x: torch.Tensor, lp: Params, cfg: TransformerConfig,
     aux = E * sum(frac_tokens * frac_probs) over the batch; under `fsdp`
     over the global batch (both fractions averaged over the ranks). The
     sort-based ragged route (ops/moe_dispatch.py) where
-    `moe_ragged_dispatch`, k == 1 and the mesh is one device, else the
-    dense one-hot route, every expert over every row (JAX
-    models/transformer.py `_moe_ffn`)."""
+    `moe_ragged_dispatch`, k == 1 and the whole mesh is one device, else
+    the dense one-hot route, every expert over every row (JAX
+    models/transformer.py `_moe_ffn`). Under a layout with ep above 1 the
+    rank's E/ep experts run on every ep rank's rows for them, carried by
+    two all-to-alls over ep; with tp above 1 on the rank's MLP columns,
+    the output summed over tp (see the module note)."""
     e, k = cfg.n_experts, cfg.expert_top_k
     dt = x.dtype
     bsz, slen, d = x.shape
-    logits = (x.reshape(bsz * slen, d) @ as_compute(lp["router"], dt)
+    n = bsz * slen
+    logits = (x.reshape(n, d) @ as_compute(lp["router"], dt)
               ).reshape(bsz, slen, e)
     probs = torch.softmax(logits.float(), dim=-1)
     topw, topi = _top_k(probs, k)                              # (B, S, k)
@@ -410,11 +433,11 @@ def _moe_ffn(x: torch.Tensor, lp: Params, cfg: TransformerConfig,
     if fsdp is not None:
         frac_tokens, frac_probs = fsdp.global_means(frac_tokens, frac_probs)
     aux = e * torch.sum(frac_tokens * frac_probs)
-    w_gate = as_compute(lp["w_gate"], dt)                      # (E, D, F)
+    w_gate = as_compute(lp["w_gate"], dt)                  # (E/ep, D, F/tp)
     w_up = as_compute(lp["w_up"], dt)
-    w_down = as_compute(lp["w_down"], dt)                      # (E, F, D)
+    w_down = as_compute(lp["w_down"], dt)                  # (E/ep, F/tp, D)
 
-    single_device = fsdp is None or fsdp.world == 1
+    single_device = fsdp is None or fsdp.size == 1
     if cfg.moe_ragged_dispatch and k == 1 and single_device:
         def expert_ffn(_eids, xs):                             # (E, C, D)
             h = torch.matmul(xs, w_gate)
@@ -422,19 +445,31 @@ def _moe_ffn(x: torch.Tensor, lp: Params, cfg: TransformerConfig,
             return torch.matmul(F.silu(h) * u, w_down)
 
         y2, _dropped = ragged_dispatch(
-            x.reshape(bsz * slen, d), topi[..., 0].reshape(-1),
+            x.reshape(n, d), topi[..., 0].reshape(-1),
             topw[..., 0].reshape(-1), e, expert_ffn)
         return y2.reshape(bsz, slen, d).to(dt), aux
 
-    # Dense route: (B, S, D) x (B, S, E) -> (E, B*S, D), each expert's FFN
-    # over every row, combined by the gates of the chosen experts.
-    combine = (disp * topw[..., None].to(dt)).sum(2)           # (B, S, E)
-    xe = torch.einsum("nd,ne->end", x.reshape(bsz * slen, d),
-                      disp.sum(2).reshape(bsz * slen, e))
+    # Dense route: (N, D) x (N, E) -> (E, N, D), each expert's FFN over
+    # every row, combined by the gates of the chosen experts.
+    combine = (disp * topw[..., None].to(dt)).sum(2).reshape(n, e)
+    x2 = x.reshape(n, d)
+    ep = 1 if fsdp is None else fsdp.ep
+    if fsdp is not None:
+        x2, combine = fsdp.tp_copy(x2), fsdp.tp_copy(combine)
+    xe = torch.einsum("nd,ne->end", x2, disp.sum(2).reshape(n, e))
+    if ep > 1:
+        # To the experts' ranks: (ep sources, E/ep, N, D) of this rank's
+        # experts; the experts broadcast over the sources.
+        xe = fsdp.ep_comm.all_to_all_grad(xe.reshape(ep, e // ep, n, d))
     h = torch.matmul(xe, w_gate)
     u = torch.matmul(xe, w_up)
-    ye = torch.matmul(F.silu(h) * u, w_down)                   # (E, N, D)
-    y = torch.einsum("end,ne->nd", ye, combine.reshape(bsz * slen, e))
+    ye = torch.matmul(F.silu(h) * u, w_down)
+    if ep > 1:
+        # And back: (ep expert ranks, E/ep, N, D) -> (E, N, D).
+        ye = fsdp.ep_comm.all_to_all_grad(ye).reshape(e, n, d)
+    y = torch.einsum("end,ne->nd", ye, combine)
+    if fsdp is not None:
+        y = fsdp.tp_sum(y)
     return y.reshape(bsz, slen, d), aux
 
 
@@ -471,9 +506,13 @@ def _forward_hidden_aux(params: Params, tokens: torch.Tensor,
         lp = (layer_params(params, layer) if fsdp is None
               else fsdp.layer_params(params, layer))
         if cfg.remat and torch.is_grad_enabled():
-            x, layer_aux = checkpoint(_layer, x, lp, cfg, freqs,
-                                      position_offset, fsdp,
-                                      use_reentrant=False)
+            # Under a layout, early stop off: the recomputation runs the
+            # whole layer, its collectives (the MoE fractions' mean, the
+            # all-to-alls) included, on every rank.
+            with set_checkpoint_early_stop(fsdp is None):
+                x, layer_aux = checkpoint(_layer, x, lp, cfg, freqs,
+                                          position_offset, fsdp,
+                                          use_reentrant=False)
         else:
             x, layer_aux = _layer(x, lp, cfg, freqs, position_offset, fsdp)
         if layer_aux is not None:
@@ -484,13 +523,6 @@ def _forward_hidden_aux(params: Params, tokens: torch.Tensor,
 # ---------------------------------------------------------------------------
 # Tensor- and sequence-parallel forward
 # ---------------------------------------------------------------------------
-
-
-def _refuse_moe(cfg: TransformerConfig, fsdp) -> None:
-    if cfg.is_moe:
-        raise ValueError(
-            f"MoE on a mesh with tp={fsdp.tp}, sp={fsdp.sp}: expert "
-            f"parallelism is not ported yet (ROADMAP A11)")
 
 
 def _embed_vocab_parallel(table: torch.Tensor, tokens: torch.Tensor,
@@ -518,9 +550,10 @@ def _kv_heads_of_rank(cfg: TransformerConfig, fsdp, device) -> torch.Tensor:
 
 def _layer_mp(x: torch.Tensor, lp: Params, cfg: TransformerConfig,
               freqs: torch.Tensor, position_offset: int, fsdp
-              ) -> torch.Tensor:
-    """One block on this rank's positions (B, S/sp, D) with its tp blocks
-    of the layer's weights (see the module note)."""
+              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One block on this rank's positions (B, S/sp, D) with its tp (and
+    ep) blocks of the layer's weights (see the module note): (x out, the
+    layer's MoE aux loss or None when dense)."""
     dt = cfg.dtype
     bsz, slen, d = x.shape
     hd = cfg.head_dim
@@ -541,38 +574,47 @@ def _layer_mp(x: torch.Tensor, lp: Params, cfg: TransformerConfig,
     x = x + fsdp.tp_sum((o.reshape(bsz * slen, nh * hd)
                          @ as_compute(lp["wo"], dt).reshape(nh * hd, d)
                          ).reshape(bsz, slen, d))
+    if cfg.is_moe:
+        # _moe_ffn takes the tp copies and the tp sum itself.
+        y, aux = _moe_ffn(rms_norm_plain(x, lp["ln2"]), lp, cfg, fsdp)
+        return x + y, aux
     h3 = fsdp.tp_copy(rms_norm_plain(x, lp["ln2"]))
     if cfg.remat_ffn and not cfg.remat and torch.is_grad_enabled():
         y = checkpoint(_ffn, h3, lp["w_gate"], lp["w_up"], lp["w_down"], cfg,
                        use_reentrant=False)
     else:
         y = _ffn(h3, lp["w_gate"], lp["w_up"], lp["w_down"], cfg)
-    return x + fsdp.tp_sum(y)
+    return x + fsdp.tp_sum(y), None
 
 
 def _forward_hidden_mp(params: Params, tokens: torch.Tensor,
                        cfg: TransformerConfig, fsdp,
-                       position_offset: int = 0) -> torch.Tensor:
+                       position_offset: int = 0
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """This rank's positions of the final hidden (B, S/sp, D), after the
     last norm, from its rows of tokens (B, S): the sp shard of the
-    positions, at global offsets position_offset + sp_rank * S/sp."""
-    _refuse_moe(cfg, fsdp)
+    positions, at global offsets position_offset + sp_rank * S/sp; and
+    the sum of the layers' MoE aux losses (0 when dense)."""
     tokens = fsdp.seq_shard(tokens)
     offset = position_offset + fsdp.sp_rank * tokens.shape[1]
     x = _embed_vocab_parallel(fsdp.leaf(params, "embed"), tokens, cfg, fsdp)
     freqs = rope_frequencies(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
                              x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in range(cfg.n_layers):
         lp = fsdp.layer_params(params, layer)
         if cfg.remat and torch.is_grad_enabled():
             # Early stop off: the recomputation runs the whole layer, its
-            # collectives (ring shifts, tp sums) included, on every rank.
+            # collectives (ring shifts, tp sums, all-to-alls) included, on
+            # every rank.
             with set_checkpoint_early_stop(False):
-                x = checkpoint(_layer_mp, x, lp, cfg, freqs, offset, fsdp,
-                               use_reentrant=False)
+                x, layer_aux = checkpoint(_layer_mp, x, lp, cfg, freqs,
+                                          offset, fsdp, use_reentrant=False)
         else:
-            x = _layer_mp(x, lp, cfg, freqs, offset, fsdp)
-    return rms_norm_plain(x, fsdp.leaf(params, "final_ln"))
+            x, layer_aux = _layer_mp(x, lp, cfg, freqs, offset, fsdp)
+        if layer_aux is not None:
+            aux = aux + layer_aux
+    return rms_norm_plain(x, fsdp.leaf(params, "final_ln")), aux
 
 
 def _vocab_parallel_logits(x: torch.Tensor, head: torch.Tensor,
@@ -620,7 +662,7 @@ def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
     the result is this rank's block (B, S/sp, V/tp) of positions and
     vocab."""
     if fsdp is not None and fsdp.model_parallel:
-        x = _forward_hidden_mp(params, tokens, cfg, fsdp, position_offset)
+        x, _ = _forward_hidden_mp(params, tokens, cfg, fsdp, position_offset)
         return _vocab_parallel_logits(x, output_head(params, cfg, fsdp), cfg,
                                       fsdp).reshape(*x.shape[:2], -1)
     x = forward_hidden(params, tokens, cfg, position_offset)
@@ -640,10 +682,9 @@ def loss_fn(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
     input/target shift."""
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
     if fsdp is not None and fsdp.model_parallel:
-        x = _forward_hidden_mp(params, inputs, cfg, fsdp)
+        x, aux = _forward_hidden_mp(params, inputs, cfg, fsdp)
         nll = _vocab_parallel_xent(x, output_head(params, cfg, fsdp),
                                    fsdp.seq_shard(targets), cfg, fsdp)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return nll + aux_weight * aux, {"nll": nll, "aux": aux}
     if cfg.use_chunked_ce:
         from ..ops.chunked_ce import chunked_softmax_xent

@@ -4,20 +4,24 @@ communicators.
 Every collective the port runs goes through this module: the train step's
 (`all_gather_into`, `reduce_scatter_into`, `all_reduce`, the ring's
 `exchange`, called by parallel/sharding.py, parallel/ring_attention.py,
-models/transformer.py and cmd/trainer.py) and a serving gang's (the `Comm`
-methods). Each call is noted, once, for whatever listens (`listen`: the
-collective-budget gate, parallel/comm_gate.py) as (op, bytes this rank
-sends), the op one of `OPS`: an all-gather sends the rank's block, an
-all-reduce and a reduce-scatter the rank's whole input, a broadcast and an
-object broadcast their payload from the source (0 elsewhere), a p2p
-exchange the tensor sent. A call made inside another (the gathers behind a
-`Comm`'s rank-ordered sum, the two broadcasts behind an object broadcast)
-is not noted again. Nothing is noted while nothing listens, and noting
+models/transformer.py and cmd/trainer.py; the expert-parallel MoE FFN's
+token all-to-alls, through the layout's ep `Comm`) and a serving gang's
+(the `Comm` methods). Each call is noted, once, for whatever listens
+(`listen`: the collective-budget gate, parallel/comm_gate.py) as (op,
+bytes this rank sends), the op one of `OPS`: an all-gather sends the
+rank's block, an all-reduce and a reduce-scatter the rank's whole input,
+an all-to-all the rank's whole input (every rank's chunk of it, its own
+included), a broadcast and an object broadcast their payload from the
+source (0 elsewhere), a p2p exchange the tensor sent. A call made inside
+another (the gathers behind a `Comm`'s rank-ordered sum, the two
+broadcasts behind an object broadcast) is not noted again. Nothing is noted while nothing listens, and noting
 changes no call: what is sent, and in what order, is the same.
 
 A `Comm` is one rank's handle on a group of ranks: its `rank` and the
-group's `size`, a sum all-reduce, an all-gather on a dim, a tensor
-broadcast and an object broadcast. Two implementations:
+group's `size`, a sum all-reduce, an all-gather on a dim, an all-to-all on
+a dim (and `all_to_all_grad`, the same exchange with the inverse exchange
+as its backward), a tensor broadcast and an object broadcast. Two
+implementations:
 
 - `ProcessComm`: a `torch.distributed` group (gloo on the CPU, NCCL on the
   card), as `train/bootstrap.initialize` starts it: one process a rank.
@@ -30,6 +34,12 @@ broadcast and an object broadcast. Two implementations:
   its peers raise instead of waiting. All virtual ranks share the device's
   default stream, so a rank's partial is enqueued before the barrier that
   lets another rank read it. Nothing here may run under graph capture.
+  Its differentiable all-to-all is one autograd node over every rank's
+  tensors (rank 0 builds it), not one a rank: the autograd engine runs
+  every backward node of a CUDA device on one thread of its own, so a
+  rank's backward could never wait there for another's. A gang's ranks
+  therefore run their forwards in their threads and one backward, from
+  one thread, over the sum of their losses (`ThreadComm.all_to_all_grad`).
 
 Both sum in rank order on every rank (the ranks' blocks gathered, then
 added one after another from rank 0), so every rank holds identical bits.
@@ -51,8 +61,8 @@ import torch.distributed as dist
 COLLECTIVE_TIMEOUT_S = 600.0
 
 # The ops a listener sees.
-OPS = ("all-gather", "all-reduce", "reduce-scatter", "broadcast", "p2p",
-       "object-broadcast")
+OPS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+       "broadcast", "p2p", "object-broadcast")
 
 _REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
@@ -130,6 +140,13 @@ def all_reduce(t: torch.Tensor, group=None, op: str = "sum") -> torch.Tensor:
     return t
 
 
+def all_to_all(out: torch.Tensor, inp: torch.Tensor, group) -> None:
+    """Chunk r of dim 0 of every rank's `inp` to rank r, the chunks
+    received concatenated on dim 0 in rank order into `out`."""
+    with _call("all-to-all", _nbytes(inp)):
+        dist.all_to_all_single(out, inp, group=group)
+
+
 def broadcast(t: torch.Tensor, src: int, group=None) -> torch.Tensor:
     """Global rank `src`'s `t`, written into `t` on every other rank."""
     with _call("broadcast", _nbytes(t) if dist.get_rank() == src else 0):
@@ -178,10 +195,54 @@ def _concat(parts: Sequence[torch.Tensor], dim: int) -> torch.Tensor:
     return torch.cat(list(parts), dim=dim)
 
 
+def _chunks_to(parts: Sequence[torch.Tensor], rank: int, dim: int
+               ) -> torch.Tensor:
+    """Chunk `rank` of each of the ranks' tensors `parts`, concatenated on
+    `dim` in rank order: what an all-to-all gives rank `rank`."""
+    n = len(parts)
+    return torch.cat([p.chunk(n, dim)[rank] for p in parts], dim=dim)
+
+
+class _AllToAll(torch.autograd.Function):
+    """A rank's all-to-all over `comm`; its backward is the same exchange
+    of the gradients (the inverse all-to-all)."""
+
+    @staticmethod
+    def forward(ctx, t: torch.Tensor, comm: "Comm", dim: int):
+        ctx.comm, ctx.dim = comm, dim
+        return comm.all_to_all(t, dim)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return ctx.comm.all_to_all(g, ctx.dim), None, None
+
+
+class _GangAllToAll(torch.autograd.Function):
+    """Every rank's all-to-all of a thread gang as one node: inputs the
+    ranks' tensors, outputs what each rank receives; the backward gives
+    each rank's input the chunks of the gradients the ranks received from
+    it. The forward's exchanges are noted by the ranks' threads
+    (`ThreadComm.all_to_all_grad`), the backward's once a rank in the
+    thread that runs it."""
+
+    @staticmethod
+    def forward(ctx, dim: int, *parts: torch.Tensor):
+        ctx.dim = dim
+        return tuple(_chunks_to(parts, r, dim) for r in range(len(parts)))
+
+    @staticmethod
+    def backward(ctx, *grads: torch.Tensor):
+        out = []
+        for r in range(len(grads)):
+            with _call("all-to-all", _nbytes(grads[r])):
+                out.append(_chunks_to(grads, r, ctx.dim))
+        return (None, *out)
+
+
 class Comm:
     """One rank's handle on a group (see the module note). Subclasses give
-    `_all_gather`, `_broadcast` and `_broadcast_object`; the public methods
-    note each call."""
+    `_all_gather`, `_all_to_all`, `_broadcast` and `_broadcast_object`;
+    the public methods note each call."""
 
     rank: int = 0
     size: int = 1
@@ -201,6 +262,25 @@ class Comm:
             parts = self._all_gather(t.unsqueeze(0), 0)
             return _sum_in_order(parts.unbind(0))
 
+    def all_to_all(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """Chunk r of `dim` of every rank's `t` (`size` equal chunks) to
+        rank r: the chunks it receives concatenated on `dim`, in rank
+        order (a new tensor of `t`'s shape)."""
+        if self.size == 1:
+            return t
+        if t.shape[dim] % self.size:
+            raise ValueError(f"dim {dim} of {tuple(t.shape)} cannot be "
+                             f"split over {self.size} ranks")
+        with _call("all-to-all", _nbytes(t)):
+            return self._all_to_all(t, dim)
+
+    def all_to_all_grad(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """`all_to_all`, differentiable: the backward is the inverse
+        exchange, the gradients' all-to-all on the same dim."""
+        if self.size == 1:
+            return t
+        return _AllToAll.apply(t, self, dim)
+
     def broadcast(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
         """`src`'s tensor, written into `t` on every other rank."""
         if self.size == 1:
@@ -218,6 +298,9 @@ class Comm:
             return self._broadcast_object(obj, src)
 
     def _all_gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        raise NotImplementedError
+
+    def _all_to_all(self, t: torch.Tensor, dim: int) -> torch.Tensor:
         raise NotImplementedError
 
     def _broadcast(self, t: torch.Tensor, src: int) -> torch.Tensor:
@@ -244,6 +327,13 @@ class ProcessComm(Comm):
 
     def _all_gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
         return all_gather(t, dim, self.group, self.size)
+
+    def _all_to_all(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        # The chunks on dim 0 (the form every backend takes), then back.
+        inp = t.movedim(dim, 0).contiguous()
+        out = torch.empty_like(inp)
+        all_to_all(out, inp, self.group)
+        return out.movedim(0, dim) if dim else out
 
     def _broadcast(self, t: torch.Tensor, src: int) -> torch.Tensor:
         return broadcast(t, self.ranks[src], self.group)
@@ -301,6 +391,25 @@ class ThreadComm(Comm):
 
     def _all_gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
         return _concat(self.group.exchange(self.rank, t), dim)
+
+    def _all_to_all(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        return _chunks_to(self.group.exchange(self.rank, t), self.rank, dim)
+
+    def all_to_all_grad(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """The gang's exchange as one autograd node (see the module note):
+        rank 0 builds it over every rank's `t`, each rank takes its
+        output. The backward runs once for all ranks, from the one
+        backward over the sum of the ranks' losses."""
+        if self.size == 1:
+            return t
+        if t.shape[dim] % self.size:
+            raise ValueError(f"dim {dim} of {tuple(t.shape)} cannot be "
+                             f"split over {self.size} ranks")
+        with _call("all-to-all", _nbytes(t)):
+            parts = self.group.exchange(self.rank, t)
+            outs = (_GangAllToAll.apply(dim, *parts) if self.rank == 0
+                    else None)
+            return self.group.exchange(self.rank, outs)[0][self.rank]
 
     def _broadcast(self, t: torch.Tensor, src: int) -> torch.Tensor:
         theirs = self.group.exchange(

@@ -15,8 +15,9 @@ collective is a call through parallel/comm.py, so the gate counts the
 CALLS one step makes on one rank at a pinned configuration (`record`).
 A count therefore scales with the layers and with a decode chunk's steps,
 and each pin says how (`Pin`). Ops are parallel/comm.OPS: all-gather,
-all-reduce, reduce-scatter, broadcast, p2p and object-broadcast (the
-driver's program header on a serving mesh).
+all-reduce, reduce-scatter, all-to-all (the expert-parallel MoE FFN's
+token exchange), broadcast, p2p and object-broadcast (the driver's
+program header on a serving mesh).
 
 The size gate (JAX tests/unit/test_mesh_serving.py's): in a steady decode
 chunk and a verify round nothing of KV-page or weight size moves between
@@ -138,8 +139,35 @@ BUDGETS: Dict[str, Dict[str, Pin]] = {
     "train/fsdp_dp2": {"all-gather": Pin(once=16),
                        "all-reduce": Pin(once=3),
                        "reduce-scatter": Pin(once=16)},
+    # MoE (4 experts) over dp=2, ep=2, batch 4 of seq 32, grad_accum 1, no
+    # remat (tests/test_torch_expert_parallel.py): the dp gathers of the 8
+    # matrices a layer (the router's too) and the embedding and head, and
+    # their reduce-scatters; the replicated leaves' gradients, the norm
+    # and the metrics over dp and over ep, and each MoE layer's
+    # load-balance fractions over both; the token all-to-alls, two a layer
+    # forward and two backward (remat would add the recompute's two), each
+    # at most E * N_local * D values of the activation dtype (the rank's
+    # dispatched tokens, N_local = its rows times its positions).
+    "train/dp2_ep2/moe": {"all-gather": Pin(once=18),
+                          "all-reduce": Pin(once=10),
+                          "reduce-scatter": Pin(once=18),
+                          "all-to-all": Pin(per_layer=4)},
+    # The same MoE model over dp=2, ep=2, tp=2 (JAX's MoE mesh pin), batch
+    # 4 of seq 32: the gathers and reduce-scatters; the tp sums and tp
+    # copies' backward (an MoE layer's combine weights add one), the
+    # vocab-parallel embedding and CE, the gradient, norm and metric
+    # reductions over dp, ep and tp, the fractions' means; the
+    # all-to-alls, at the same cap.
+    "train/dp2_ep2_tp2/moe": {"all-gather": Pin(once=18),
+                              "all-reduce": Pin(once=26),
+                              "reduce-scatter": Pin(once=18),
+                              "all-to-all": Pin(per_layer=4)},
     "serve/prefill_chunk": _SERVE_STEP,
     "serve/decode_chunk/paged": _SERVE_STEP,
+    # MoE on a tp serving mesh: every rank holds every expert's MLP block,
+    # the router whole; the dense route's partial output rides the MLP's
+    # tp sum. No collective added.
+    "serve/decode_chunk/paged/moe": _SERVE_STEP,
     # The dense engine's slots over dp: a chunk's packed tokens gathered
     # over dp once.
     "serve/decode_chunk/dense": {**_SERVE_STEP,

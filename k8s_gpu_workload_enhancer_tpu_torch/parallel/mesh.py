@@ -13,8 +13,12 @@ group).
   vocab split over tp, models/transformer.py).
 - ``sp``: sequence parallelism (each rank a shard of the sequence,
   attention a ring over sp: parallel/ring_attention.py).
-- ``ep``, ``pp``: expert and pipeline parallelism. Not ported yet (ROADMAP
-  A11c, A11d): `check_supported` refuses a size above 1 on either.
+- ``ep``: expert parallelism. The MoE experts split over ep
+  (parallel/sharding.py) and the token batch over (dp, ep) jointly, dp
+  major; each MoE layer carries its tokens to their experts' ranks and
+  back with an all-to-all over ep (models/transformer.py `_moe_ffn`).
+- ``pp``: pipeline parallelism. Not ported yet (ROADMAP A11d):
+  `check_supported` refuses a size above 1.
 
 The per-axis process groups are the DeviceMesh's
 (`mesh.get_group("tp")`, ...).
@@ -52,7 +56,7 @@ PIPELINE_AXIS = "pp"
 EXPERT_AXIS = "ep"
 FSDP_AXIS = "dp"
 
-_UNPORTED = {"ep": ("expert", "A11c"), "pp": ("pipeline", "A11d")}
+_UNPORTED = {"pp": ("pipeline", "A11d")}
 
 
 @dataclass(frozen=True)
@@ -130,15 +134,15 @@ class UnportedAxisError(ValueError):
 
 
 def check_supported(config: MeshConfig) -> None:
-    """Raise UnportedAxisError if ``ep`` or ``pp`` exceeds 1: their
-    parallelism is not ported yet, and a mesh that asks for it is refused,
-    never run as something else."""
+    """Raise UnportedAxisError if ``pp`` exceeds 1: pipeline parallelism
+    is not ported yet, and a mesh that asks for it is refused, never run
+    as something else."""
     for axis, (kind, item) in _UNPORTED.items():
         n = config.axis_sizes[axis]
         if n > 1:
             raise UnportedAxisError(
                 f"mesh axis {axis}={n}: {kind} parallelism is not ported "
-                f"yet (ROADMAP A11, {item}); the port shards over dp, tp "
+                f"yet (ROADMAP {item}); the port shards over dp, ep, tp "
                 f"and sp (mesh {config.describe()})")
 
 

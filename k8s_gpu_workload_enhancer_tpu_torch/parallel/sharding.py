@@ -10,27 +10,40 @@ dim d to that mesh axis, `Replicate()` elsewhere), the counterpart of the
 JAX `shard_params`. FSDP is the rule "embed" -> "dp": every weight's model
 dim is split over the dp ranks, the norm scales stay replicated.
 
-`Fsdp` carries that layout into the train step, on a mesh whose dp, tp
-and sp axes may each exceed 1. A rank holds each leaf's block as a plain
-tensor: its dp block of the `embed` dim (rank r holds block r, as `Shard`
-lays it out) and its tp block of the `heads`, `kv_heads`, `mlp` or `vocab`
-dim, so a leaf may be split on two dims, one for each axis; every leaf
-is replicated over sp, and the norm scales over dp and tp. The step gathers
-a layer's leaves over dp just before the layer uses them (inside the
-rank's tp block): `all_gather_into_tensor` on the layer's slice of the
+`Fsdp` carries that layout into the train step, on a mesh whose dp, ep,
+tp and sp axes may each exceed 1. A rank holds each leaf's block as a
+plain tensor: its dp block of the `embed` dim (rank r holds block r, as
+`Shard` lays it out), its ep block of the `expert` dim (the MoE experts,
+dim 1 of the stacked w_gate, w_up and w_down) and its tp block of the
+`heads`, `kv_heads`, `mlp` or `vocab` dim, so a leaf may be split on three
+dims, one for each axis; every leaf is replicated over sp, the norm scales
+over dp and tp, every leaf but the experts over ep. The step gathers a
+layer's leaves over dp just before the layer uses them (inside the rank's
+ep and tp blocks): `all_gather_into_tensor` on the layer's slice of the
 stacked (L, ...) leaf, inside an autograd function whose backward
 reduce-scatters the gradient (the mean over dp) back to the rank's block.
 The kernels thus see the gathered weights as plain contiguous tensors.
-After the backward, `reduce_grads_` finishes the gradients in one fixed
-order: the dp-replicated leaves' gradients are averaged over dp, every
-gradient over sp (each sp rank's holds its tokens' part), and where the
-KV heads do not divide over tp (`kv_replicated`: the KV projections are
-replicated over tp and each rank uses the heads its Q heads need) those
-leaves' gradients are summed over tp. The forward's tensor-parallel
-collectives are `tp_copy` (identity, its backward an all-reduce over tp)
-before a column-parallel product and `tp_sum` (an all-reduce over tp, its
-backward the identity) after a row-parallel one, Megatron's f and g. On
-the CPU the collectives run over gloo, on the card over NCCL.
+The token batch splits over (dp, ep) jointly, dp major (`rank_rows`, as
+`P(("dp", "ep"))` lays it out), so ep ranks read rows of their own and an
+MoE layer trades tokens with the ranks that hold their experts
+(`ep_comm`, the all-to-all of models/transformer.py `_moe_ffn`). After
+the backward, `reduce_grads_` finishes the gradients in one fixed order:
+the dp-replicated leaves' gradients are averaged over dp; the
+ep-replicated leaves' averaged over ep and the experts' divided by ep (the
+all-to-all's backward has summed their ep ranks' tokens into them
+already); every gradient averaged over sp (each sp rank's holds its
+tokens' part), and where the KV heads do not divide over tp
+(`kv_replicated`: the KV projections are replicated over tp and each rank
+uses the heads its Q heads need) those leaves' gradients are summed over
+tp. The forward's tensor-parallel collectives are `tp_copy` (identity,
+its backward an all-reduce over tp) before a column-parallel product and
+`tp_sum` (an all-reduce over tp, its backward the identity) after a
+row-parallel one, Megatron's f and g. On the CPU the collectives run over
+gloo, on the card over NCCL.
+
+`ExpertLayout` is the layout of a rank of an ep gang with no other live
+axis over any `Comm` (a ThreadGroup's on one card): what the MoE FFN
+reads of a layout, so the same `_moe_ffn` runs on virtual ep ranks.
 """
 
 from __future__ import annotations
@@ -40,8 +53,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from . import comm
-from .comm import all_gather
-from .mesh import FSDP_AXIS, SEQ_AXIS, TENSOR_AXIS
+from .comm import Comm, ProcessComm, all_gather
+from .mesh import EXPERT_AXIS, FSDP_AXIS, SEQ_AXIS, TENSOR_AXIS
 
 LogicalAxes = Tuple[Optional[str], ...]
 
@@ -155,16 +168,26 @@ def _axis(mesh, name: str):
 
 class Fsdp:
     """The layout of one model's param tree on a DeviceMesh whose live axes
-    are dp, tp and sp (see the module note). `dims` holds each leaf's dim
-    sharded over dp, `tp_dims` its dim sharded over tp (None:
-    replicated)."""
+    are dp, ep, tp and sp (see the module note). `dims` holds each leaf's
+    dim sharded over dp, `ep_dims` over ep, `tp_dims` over tp (None:
+    replicated); `size` is the whole mesh's."""
 
     def __init__(self, model_cfg, mesh):
         from ..models import transformer as tf
         self.mesh = mesh
+        self.size = mesh.size()
         self.group, self.world, self.rank = _axis(mesh, FSDP_AXIS)
+        self.ep_group, self.ep, self.ep_rank = _axis(mesh, EXPERT_AXIS)
         self.tp_group, self.tp, self.tp_rank = _axis(mesh, TENSOR_AXIS)
         self.sp_group, self.sp, self.sp_rank = _axis(mesh, SEQ_AXIS)
+        if self.ep > 1 and model_cfg.n_experts % self.ep:
+            raise ValueError(
+                f"n_experts {model_cfg.n_experts} cannot be split over "
+                f"ep={self.ep}: each ep rank holds n_experts/ep experts")
+        # The ep ranks' handle for the MoE token all-to-alls (none at ep 1).
+        self.ep_comm: Optional[Comm] = ProcessComm(
+            self.ep_group, torch.distributed.get_process_group_ranks(
+                self.ep_group)) if self.ep > 1 else None
         # KV heads the tp ranks cannot split evenly: the KV projections are
         # replicated over tp (GSPMD would pad them; the function is the
         # same).
@@ -191,6 +214,7 @@ class Fsdp:
                 return p.dim
             return _map_named(one, placements, shapes)
         self.dims = sharded_dim(FSDP_AXIS, self.world)
+        self.ep_dims = sharded_dim(EXPERT_AXIS, self.ep)
         self.tp_dims = sharded_dim(TENSOR_AXIS, self.tp)
 
     @property
@@ -225,13 +249,14 @@ class Fsdp:
         return comm.all_reduce(t, self.group, op)
 
     def mean(self, t: torch.Tensor) -> torch.Tensor:
-        """The mean over the dp and sp ranks of a tensor (a new tensor, no
-        grad): with equal token counts a rank, the global batch's mean of
-        a per-rank mean."""
+        """The mean over the dp, ep and sp ranks of a tensor (a new tensor,
+        no grad): with equal token counts a rank, the global batch's mean
+        of a per-rank mean."""
         t = self.all_reduce_(t.detach().clone())
-        if self.sp > 1:
-            comm.all_reduce(t, self.sp_group)
-        return t.div_(self.world * self.sp)
+        for group, n in ((self.ep_group, self.ep), (self.sp_group, self.sp)):
+            if n > 1:
+                comm.all_reduce(t, group)
+        return t.div_(self.world * self.ep * self.sp)
 
     def tp_copy(self, x: torch.Tensor) -> torch.Tensor:
         """`x` into a column-parallel product (Megatron's f)."""
@@ -244,11 +269,14 @@ class Fsdp:
     # -- the param tree --
 
     def shard(self, full: torch.Tensor, dim: Optional[int],
-              tp_dim: Optional[int] = None) -> torch.Tensor:
-        """This rank's block of `full`: its tp block of `tp_dim`, then its
-        dp block of `dim` (`full` itself where it holds all of it)."""
+              tp_dim: Optional[int] = None,
+              ep_dim: Optional[int] = None) -> torch.Tensor:
+        """This rank's block of `full`: its tp block of `tp_dim`, its ep
+        block of `ep_dim`, then its dp block of `dim` (`full` itself where
+        it holds all of it)."""
         out = full
         for d, n, r in ((tp_dim, self.tp, self.tp_rank),
+                        (ep_dim, self.ep, self.ep_rank),
                         (dim, self.world, self.rank)):
             if d is not None and n > 1:
                 k = out.shape[d] // n
@@ -256,7 +284,7 @@ class Fsdp:
         return out if out is full else out.clone()
 
     def shard_tree(self, tree):
-        return _map(self.shard, tree, self.dims, self.tp_dims)
+        return _map(self.shard, tree, self.dims, self.tp_dims, self.ep_dims)
 
     def full_tree(self, tree, to=None):
         """The full tensors of a sharded tree (no grad), each passed through
@@ -264,15 +292,17 @@ class Fsdp:
         every rank calls it)."""
         to = to or (lambda t: t)
 
-        def one(t, d, td):
+        def one(t, d, td, ed):
             t = t.detach()
             if d is not None:
                 t = self.all_gather(t, d)
+            if ed is not None and self.ep > 1:
+                t = all_gather(t, ed, self.ep_group, self.ep)
             if td is not None and self.tp > 1:
                 t = all_gather(t, td, self.tp_group, self.tp)
             return to(t)
         with torch.no_grad():
-            return _map(one, tree, self.dims, self.tp_dims)
+            return _map(one, tree, self.dims, self.tp_dims, self.ep_dims)
 
     def gather(self, shard: torch.Tensor, dim: Optional[int]) -> torch.Tensor:
         """The leaf's tp block, whole over dp, for use in the forward; its
@@ -296,14 +326,22 @@ class Fsdp:
 
     def reduce_grads_(self, grads: Dict[str, Any]) -> None:
         """Finish the gradients in place after the backward, in one fixed
-        order: the dp-replicated leaves' averaged over dp; every leaf's
-        averaged over sp; the tp-replicated KV projections' summed over
-        tp. Each is one collective over a flat f32 buffer."""
-        leaves = _zip_leaves(grads, self.dims)
-        _reduce_flat([g for g, d in leaves if d is None], self.group,
+        order: the dp-replicated leaves' averaged over dp; the
+        ep-replicated leaves' averaged over ep, the experts' divided by
+        ep; every leaf's averaged over sp; the tp-replicated KV
+        projections' summed over tp. Each is one collective over a flat
+        f32 buffer."""
+        leaves = _zip_leaves(grads, self.dims, self.ep_dims)
+        _reduce_flat([g for g, d, _ in leaves if d is None], self.group,
                      self.world)
+        if self.ep > 1:
+            _reduce_flat([g for g, _, ed in leaves if ed is None],
+                         self.ep_group, self.ep)
+            for g, _, ed in leaves:
+                if ed is not None:
+                    g.div_(self.ep)
         if self.sp > 1:
-            _reduce_flat([g for g, _ in leaves], self.sp_group, self.sp)
+            _reduce_flat([g for g, _, _ in leaves], self.sp_group, self.sp)
         if self.kv_replicated:
             layers = grads["layers"]
             _reduce_flat([layers["wk"], layers["wv"]], self.tp_group, 1)
@@ -311,33 +349,46 @@ class Fsdp:
     def sum_squares(self, grads: Dict[str, Any]) -> torch.Tensor:
         """The sum of squares of every element of the full gradient tree,
         f32: each leaf's blocks summed over the ranks that hold different
-        blocks of it (dp where it is sharded over dp, tp where over tp),
-        each block counted once."""
+        blocks of it (dp where it is sharded over dp, ep where over ep, tp
+        where over tp), each block counted once."""
         owned = []
-        for g, d, td in _zip_leaves(grads, self.dims, self.tp_dims):
+        for g, d, ed, td in _zip_leaves(grads, self.dims, self.ep_dims,
+                                        self.tp_dims):
             mine = ((d is not None or self.rank == 0)
+                    and (ed is not None or self.ep_rank == 0)
                     and (td is not None or self.tp_rank == 0))
             sq = torch.sum(g.float() * g.float())
             owned.append(sq if mine else torch.zeros_like(sq))
         total = self.all_reduce_(torch.stack(owned).sum())
-        if self.tp > 1:
-            comm.all_reduce(total, self.tp_group)
+        for group, n in ((self.ep_group, self.ep), (self.tp_group, self.tp)):
+            if n > 1:
+                comm.all_reduce(total, group)
         return total
+
+    @property
+    def batch_ranks(self) -> int:
+        """The batch's coordinates: dp * ep."""
+        return self.world * self.ep
+
+    @property
+    def batch_rank(self) -> int:
+        """This rank's batch coordinate, dp major over (dp, ep)."""
+        return self.rank * self.ep + self.ep_rank
 
     def rank_rows(self, tokens: torch.Tensor, grad_accum: int = 1
                   ) -> torch.Tensor:
         """This rank's rows of a global token batch, as the JAX batch
         sharding over ("dp", "ep") gives them to its device: the
-        contiguous block of B/dp rows of (B, S+1), or that block of every
-        microbatch of (grad_accum, B/grad_accum, S+1). Ranks that differ
-        only in tp or sp read the same rows."""
+        contiguous block `batch_rank` of B/(dp*ep) rows of (B, S+1), or
+        that block of every microbatch of (grad_accum, B/grad_accum, S+1).
+        Ranks that differ only in tp or sp read the same rows."""
         axis = 0 if grad_accum == 1 else 1
         n = tokens.shape[axis]
-        if n % self.world:
+        if n % self.batch_ranks:
             raise ValueError(f"{n} rows a (micro)batch cannot be split over "
-                             f"dp={self.world}")
-        k = n // self.world
-        return tokens.narrow(axis, self.rank * k, k)
+                             f"dp*ep={self.batch_ranks}")
+        k = n // self.batch_ranks
+        return tokens.narrow(axis, self.batch_rank * k, k)
 
     def seq_shard(self, t: torch.Tensor) -> torch.Tensor:
         """This rank's sp shard of the positions (dim 1) of `t`."""
@@ -361,6 +412,44 @@ class Fsdp:
         both = self.mean(torch.cat([frac_tokens, frac_probs]))
         g_tokens, g_probs = both[:n], both[n:]
         return g_tokens, frac_probs + (g_probs - frac_probs.detach())
+
+
+class ExpertLayout:
+    """One rank of an expert-parallel gang with no other live axis, over
+    `comm` (its ep ranks; a ThreadGroup's on one card): what the MoE FFN
+    reads of a layout (models/transformer.py `_moe_ffn`, `_layer`). The
+    rank holds n_experts/ep experts of each layer (`expert_block`) and its
+    rows of the batch; the load-balance fractions are averaged over the
+    ranks."""
+
+    tp = sp = world = 1
+    model_parallel = False
+
+    def __init__(self, comm: Comm):
+        self.ep_comm = comm
+        self.ep, self.ep_rank = comm.size, comm.rank
+        self.size = comm.size
+
+    def tp_copy(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def tp_sum(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def mean(self, t: torch.Tensor) -> torch.Tensor:
+        """The mean over the ranks (a new tensor, no grad)."""
+        return self.ep_comm.all_reduce_sum(t.detach().clone()) / self.ep
+
+    global_means = Fsdp.global_means
+
+    def expert_block(self, lp: Dict[str, torch.Tensor]
+                     ) -> Dict[str, torch.Tensor]:
+        """This rank's experts of one layer's leaves `lp` (the expert dim
+        leading the MoE leaves: `layer_params`' slices)."""
+        k = lp["w_gate"].shape[0] // self.ep
+        return {n: (t.narrow(0, self.ep_rank * k, k)
+                    if n in ("w_gate", "w_up", "w_down") else t)
+                for n, t in lp.items()}
 
 
 def _reduce_flat(grads, group, divisor: int) -> None:

@@ -1,23 +1,24 @@
-"""Trainer of KTWE-LM: one device, or a mesh of dp (FSDP), tp and sp.
+"""Trainer of KTWE-LM: one device, or a mesh of dp (FSDP), ep, tp and sp.
 
 Port of k8s_gpu_workload_enhancer_tpu/train/trainer.py. `init_state` and
 `train_loop` take the mesh, as the JAX ones do; without one (None) they
 train on one device. On a mesh (parallel/mesh.py: one rank a device; dp,
-tp and sp may exceed 1) `init_state` shards the state as the JAX
+ep, tp and sp may exceed 1) `init_state` shards the state as the JAX
 package's rules shard it and keeps the layout in `TrainState.fsdp`
 (parallel/sharding.Fsdp): each leaf with an `embed` axis, and its f32
-Adam moments, hold 1/dp of that axis on each rank, the heads, MLP and
-vocab axes 1/tp, the norm scales are replicated. The step reads that
-layout from the state it is given. It takes this rank's rows of the
-global batch (`Fsdp.rank_rows`, by the dp coordinate; `synthetic_batches`
-yields them; on an sp mesh the model takes the rank's shard of the
-positions after the input/target shift), gathers each layer's leaves
-over dp before use and reduce-scatters their gradients, then finishes
-them over dp, sp and tp (`Fsdp.reduce_grads_`), once a microbatch, so
-the bf16 accumulator sums the global microbatch gradients as the JAX step
-does. The global norm counts every block of the mesh once; AdamW runs on
-the local blocks; loss, nll and aux are the means over every token of the
-global batch (averaged over the dp and sp ranks). The optimizer is the
+Adam moments, hold 1/dp of that axis on each rank, the MoE experts 1/ep,
+the heads, MLP and vocab axes 1/tp, the norm scales are replicated. The
+step reads that layout from the state it is given. It takes this rank's
+rows of the global batch (`Fsdp.rank_rows`, by the (dp, ep) batch
+coordinate; `synthetic_batches` yields them; on an sp mesh the model
+takes the rank's shard of the positions after the input/target shift),
+gathers each layer's leaves over dp before use and reduce-scatters their
+gradients, then finishes them over dp, ep, sp and tp
+(`Fsdp.reduce_grads_`), once a microbatch, so the bf16 accumulator sums
+the global microbatch gradients as the JAX step does. The global norm
+counts every block of the mesh once; AdamW runs on the local blocks;
+loss, nll and aux are the means over every token of the global batch
+(averaged over the dp, ep and sp ranks). The optimizer is the
 JAX package's optax chain written out in torch: clip_by_global_norm
 (grad_clip), then AdamW (b1 0.9, b2 0.95, eps 1e-8, weight decay on every
 leaf) scaled by a linear-warmup cosine schedule evaluated at the update's

@@ -34,7 +34,7 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "k8s_gpu_workload_enhancer_tpu_torch"
 
 # The JAX test's snippet and the calls a recording of the same program
-# gives here (an all-to-all is not a port op: no port program has one yet).
+# gives here.
 SNIPPET = """
   %ag = f32[8,16] all-gather(%p0), replica_groups={...}
   %ar.1 = f32[8] all-reduce(%x), to_apply=%sum
@@ -82,28 +82,33 @@ def test_counts_and_sizes_match_the_jax_parse_of_the_same_program():
 def test_a_thread_gangs_calls_are_counted_once_with_their_bytes():
     """Every Comm op on a thread gang of two: one call each, the bytes the
     rank sends (a broadcast's and an object broadcast's on the source
-    only); the sum's gathers and nothing outside the recording noted."""
+    only, an all-to-all's whole input); the sum's gathers and nothing
+    outside the recording noted."""
     def rank(c):
         t = torch.arange(6, dtype=torch.float32).reshape(2, 3) + c.rank
         c.all_reduce_sum(t)                    # outside: not noted
         with comm_gate.record(this_thread=True) as calls:
             s = c.all_reduce_sum(t)
             g = c.all_gather(t, 1)
+            a = c.all_to_all(t, 0)
             b = c.broadcast(t.clone(), 0)
             o = c.broadcast_object(("hdr", c.rank), 0)
-        return calls, s, g, b, o
+        return calls, s, g, a, b, o
     out = on_threads(2, rank)
-    for r, (calls, s, g, b, o) in enumerate(out):
+    for r, (calls, s, g, a, b, o) in enumerate(out):
         assert comm_gate.collective_counts(calls) == {
-            "all-reduce": 1, "all-gather": 1, "broadcast": 1,
-            "object-broadcast": 1}
+            "all-reduce": 1, "all-gather": 1, "all-to-all": 1,
+            "broadcast": 1, "object-broadcast": 1}
         sizes = dict(calls)
-        assert sizes["all-reduce"] == sizes["all-gather"] == 24
+        assert sizes["all-reduce"] == sizes["all-gather"] == \
+            sizes["all-to-all"] == 24
         assert sizes["broadcast"] == (24 if r == 0 else 0)
         assert (sizes["object-broadcast"] > 0) == (r == 0)
         base = torch.arange(6, dtype=torch.float32).reshape(2, 3)
         assert torch.equal(s, base + (base + 1))
         assert g.shape == (2, 6) and torch.equal(b, base)
+        # Rank r's row r of each rank's t, in rank order.
+        assert torch.equal(a, torch.stack([base[r], base[r] + 1]))
         assert o == ("hdr", 0)
 
 
@@ -131,15 +136,17 @@ def test_the_dist_level_calls_on_a_group_of_one():
             comm.all_gather_into(out, t, None)
             comm.reduce_scatter_into(out, t, None)
             comm.broadcast(t, 0)
+            comm.all_to_all(out, t, None)
             pc = comm.ProcessComm()
             pc.size = 2               # a group of one speaking as two
             pc.broadcast_object({"k": 1}, 0)
-        assert comm_gate.collective_sizes(calls)[:5] == [
+        assert comm_gate.collective_sizes(calls)[:6] == [
             ("all-reduce", 128), ("all-reduce", 128), ("all-gather", 128),
-            ("reduce-scatter", 128), ("broadcast", 128)]
+            ("reduce-scatter", 128), ("broadcast", 128), ("all-to-all", 128)]
+        assert torch.equal(out, t)
         assert comm_gate.collective_counts(calls) == {
             "all-reduce": 2, "all-gather": 1, "reduce-scatter": 1,
-            "broadcast": 1, "object-broadcast": 1}
+            "all-to-all": 1, "broadcast": 1, "object-broadcast": 1}
     finally:
         dist.destroy_process_group()
 
@@ -160,7 +167,8 @@ def test_budget_drift_raises_both_directions():
         comm_gate.assert_collective_budget(
             CALLS, {**ok, "reduce-scatter": 0, "broadcast": 1}, "ctx")
     with pytest.raises(ValueError, match="unknown collective ops"):
-        comm_gate.assert_collective_budget(CALLS, {"all-to-all": 1}, "t")
+        comm_gate.assert_collective_budget(CALLS, {"ragged-all-to-all": 1},
+                                           "t")
 
 
 def test_pins_scale_with_layers_and_steps():
@@ -176,6 +184,8 @@ def test_pins_scale_with_layers_and_steps():
             "object-broadcast": 1, "all-reduce": 5, "all-gather": 1}
     assert comm_gate.expected("train/fsdp_dp2") == {
         "all-gather": 16, "all-reduce": 3, "reduce-scatter": 16}
+    # The ep steps' all-to-alls scale with the MoE layers: 4 a layer.
+    assert comm_gate.expected("train/dp2_ep2/moe", 3)["all-to-all"] == 12
     assert set(op for pins in comm_gate.BUDGETS.values()
                for op in pins) <= set(comm.OPS)
 

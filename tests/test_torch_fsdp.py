@@ -492,12 +492,21 @@ def test_moe_routes_dense_on_a_mesh_of_two(monkeypatch):
     seen = []
 
     class Mesh:
+        """A dp mesh of `world` ranks, as far as the MoE FFN asks: its
+        size (the whole mesh's, which the route gate reads), no ep or tp
+        axis."""
+        ep = 1
+
         def __init__(self, world):
-            self.world = world
+            self.world = self.size = world
 
         def global_means(self, a, b):
             seen.append(self.world)
             return a, b
+
+        def tp_copy(self, x):
+            return x
+        tp_sum = tp_copy
 
     calls = []
     real = ttf.ragged_dispatch

@@ -476,20 +476,33 @@ def test_thread_group_gives_the_gloo_gangs_transcripts(gang, name):
 
 @pytest.mark.parametrize("what", ["moe", "host-tier"])
 def test_engine_refuses_what_a_mesh_does_not_serve_yet(what):
-    """MoE (ROADMAP A11c: expert parallelism) on a mesh above one rank
-    raises before anything is built; the serve main has no MoE flag (the
-    JAX one has none either), so this is the MoE refusal. The host KV tier
-    is no longer refused: the engine builds it on the mesh, the driver's
-    alone, keyed by the mesh's signature, and the followers hold none."""
+    """Neither is refused any more. MoE on a mesh above one rank: the
+    engine builds on a (1, 2) gang (every rank every expert's block of the
+    MLP dim) and serves the unmeshed engine's greedy tokens; the serve
+    main has no MoE flag (the JAX one has none either). The host KV tier:
+    the engine builds it on the mesh, the driver's alone, keyed by the
+    mesh's signature, and the followers hold none."""
     dims = dict(DIMS, n_experts=2) if what == "moe" else DIMS
     kw = dict(PAGED, kv_num_blocks=32, kv_host_blocks=4
               ) if what == "host-tier" else ENGINE
     cfg = torch_cfg(dims)
     params = ttf.init_params(torch.Generator().manual_seed(0), cfg)
     if what == "moe":
-        with pytest.raises(ValueError, match="ROADMAP A11c"):
-            tsrv.ContinuousBatchEngine(params, cfg, device="cpu",
-                                       mesh=thread_meshes(1, 2)[0], **kw)
+        want = run(tsrv.ContinuousBatchEngine(params, cfg, device="cpu",
+                                              **kw))["tokens"]
+
+        def serve(mesh):
+            eng = tsrv.ContinuousBatchEngine(
+                tdecode.shard_params_for_serving(params, cfg, mesh), cfg,
+                device="cpu", mesh=mesh, **kw)
+            if not mesh.is_driver:
+                eng.follow()
+                return None
+            try:
+                return run(eng)["tokens"]
+            finally:
+                eng.stop_followers()
+        assert on_thread_gang(1, 2, serve)[0] == want
         return
 
     def rank(mesh):

@@ -27,8 +27,10 @@ as the JAX side (f32, `params_from_numpy`):
 
 The trainer main runs as gangs of four through KTWE_MESH_AXES (tp=2,
 sp=2 on synthetic data; dp=2, tp=2 on a token shard) and prints the lines
-one process prints; ep, pp and MoE on tp or sp exit 2 naming A11; the
-token pipeline splits over dp alone.
+one process prints; pp exits 2 naming A11d, while ep and MoE on tp or sp
+are accepted (their gangs: tests/test_torch_expert_parallel.py); MoE
+through the model-parallel forward on a one-rank layout equals the
+one-device model; the token pipeline splits over dp alone.
 """
 
 import json
@@ -50,6 +52,7 @@ from k8s_gpu_workload_enhancer_tpu.train import trainer as jtrainer
 from k8s_gpu_workload_enhancer_tpu_torch.cmd import trainer as cli
 from k8s_gpu_workload_enhancer_tpu_torch.models import transformer as ttf
 from k8s_gpu_workload_enhancer_tpu_torch.parallel import comm_gate
+from k8s_gpu_workload_enhancer_tpu_torch.train import bootstrap as tboot
 from k8s_gpu_workload_enhancer_tpu_torch.train import checkpoint as tckpt
 from k8s_gpu_workload_enhancer_tpu_torch.train import data as tdata
 from k8s_gpu_workload_enhancer_tpu_torch.train import trainer as ttrainer
@@ -417,20 +420,62 @@ def test_trainer_main_gangs_with_tp_and_sp_print_the_one_process_lines(
     ("sp=2", ["--n-experts", "4"]), ("dp=2,tp=2,sp=2",
                                      ["--n-experts", "4"])])
 def test_trainer_main_refuses_ep_pp_and_moe_on_tp_or_sp(axes, extra, capsys):
+    """pp above 1 still exits 2 naming ROADMAP A11d; ep, and MoE on tp or
+    sp, are ported: the main refuses none of them."""
     n = int(np.prod([int(a.split("=")[1]) for a in axes.split(",")]))
     env = {"KTWE_MESH_AXES": axes, "NUM_PROCESSES": str(n),
            "PROCESS_ID": "0", "COORDINATOR_ADDRESS": "localhost:1"}
-    assert cli.main(TINY + extra, env=env) == cli.EXIT_REFUSED
-    assert "ROADMAP A11" in capsys.readouterr().err
+    if axes == "pp=2":
+        assert cli.main(TINY + extra, env=env) == cli.EXIT_REFUSED
+        assert "ROADMAP A11d" in capsys.readouterr().err
+        return
+    args = cli.build_parser().parse_args(TINY + extra)
+    assert cli.refused(args, tboot.mesh_config(env)) is None
 
 
 def test_moe_on_a_model_parallel_layout_is_refused():
+    """MoE is no longer refused on a model-parallel layout: through the
+    model-parallel forward on a layout of one rank (every tp and sp
+    collective the identity) its loss parts and every gradient equal the
+    one-device model's on the dense expert route."""
     class Layout:
-        model_parallel, tp, sp = True, 2, 1
-    cfg = torch_cfg(dict(DIMS, n_experts=4))
-    with pytest.raises(ValueError, match="ROADMAP A11"):
-        ttf.loss_fn({}, torch.zeros((2, 9), dtype=torch.long), cfg,
-                    fsdp=Layout())
+        model_parallel, kv_replicated = True, False
+        tp = sp = ep = size = 1
+        tp_rank = sp_rank = 0
+        sp_group = None
+
+        def seq_shard(self, t):
+            return t
+
+        def leaf(self, params, name):
+            return params[name]
+
+        def layer_params(self, params, layer):
+            return ttf.layer_params(params, layer)
+
+        def tp_copy(self, x):
+            return x
+        tp_sum = tp_copy
+
+        def global_means(self, a, b):
+            return a, b
+    cfg = torch_cfg(dict(DIMS, n_experts=4, moe_ragged_dispatch=False))
+    toks = torch.from_numpy(tokens((2, 17), 7)).long()
+    got, want = [ttrainer.tree_map(
+        lambda t: t.requires_grad_(True),
+        ttf.init_params(torch.Generator().manual_seed(3), cfg))
+        for _ in range(2)]
+    (tot, parts), (wtot, wparts) = (
+        ttf.loss_fn(got, toks, cfg, fsdp=Layout()),
+        ttf.loss_fn(want, toks, cfg))
+    assert float(parts["aux"].detach()) > 0.5
+    for k in ("nll", "aux"):
+        np.testing.assert_allclose(float(parts[k].detach()),
+                                   float(wparts[k].detach()), rtol=1e-5)
+    (tot + wtot).backward()
+    for k, w in flat(want).items():
+        np.testing.assert_allclose(flat(got)[k].grad, w.grad, rtol=1e-4,
+                                   atol=1e-6, err_msg=k)
 
 
 @pytest.mark.parametrize("acc", [1, 2])

@@ -5,7 +5,8 @@ tests/test_torch_ring.py, tests/test_torch_model_parallel.py).
 
 JOB_DIR/job.json names the world size and either a rendezvous port and a
 list of jobs (an FSDP mesh) or a list of phases, each a mesh
-(`mesh_axes`, KTWE_MESH_AXES's form), a port and its jobs; JOB_DIR/
+(`mesh_axes`, KTWE_MESH_AXES's form), a port and its jobs, and optionally
+its own `world` (the ranks from it on skip the phase); JOB_DIR/
 inputs.npz holds the numpy params, token batches and tensors they use.
 The rank joins the gang of each phase through the port's
 `bootstrap.initialize` (gloo on the CPU), runs its jobs in order, leaves
@@ -14,7 +15,8 @@ collectives of each train step (parallel/comm_gate.record), its blocks'
 sizes, its mesh coordinates) and, on rank 0, the full gathered
 trees to JOB_DIR/<job name>.npz. A job of kind "train" (the default)
 trains, saves and restores; "forward" writes the rank's block of the
-logits, "grads" the loss and the full gradient tree, "ring" the rank's
+logits (and, for an MoE model, the aux loss), "grads" the loss and the
+full gradient tree, "ring" the rank's
 ring attention output and gradients, each rank to JOB_DIR/<job
 name>-rank{RANK}.npz. Imports torch and the port only: no jax.
 """
@@ -171,7 +173,7 @@ def block_sizes(state) -> dict:
 
 
 def coords(ctx) -> dict:
-    return {a: ctx.mesh.get_local_rank(a) for a in ("dp", "tp", "sp")}
+    return {a: ctx.mesh.get_local_rank(a) for a in ("dp", "ep", "tp", "sp")}
 
 
 def run_ring(job, inputs, ctx, out_path: pathlib.Path) -> dict:
@@ -203,14 +205,22 @@ def repeat(k, q):
 
 def run_forward(job, inputs, state, model, out_path: pathlib.Path) -> dict:
     """This rank's block of the logits of each of the job's token arrays
-    (its dp rows, sp positions, tp vocab columns)."""
+    (its (dp, ep) rows, sp positions, tp vocab columns), and for an MoE
+    model the layers' summed aux loss (of the global batch)."""
     out = {}
+    fsdp = state.fsdp
     with torch.no_grad():
         for name in job["tokens"]:
             toks = torch.from_numpy(inputs[name]).long()
-            rows = state.fsdp.rank_rows(toks)
+            rows = fsdp.rank_rows(toks)
             out[name] = tf.forward(state.params, rows, model,
-                                   fsdp=state.fsdp).numpy()
+                                   fsdp=fsdp).numpy()
+            if model.is_moe:
+                _, aux = (tf._forward_hidden_mp(state.params, rows, model,
+                                                fsdp) if fsdp.model_parallel
+                          else tf._forward_hidden_aux(state.params, rows,
+                                                      model, fsdp=fsdp))
+                out[name + "/aux"] = aux.numpy()
     np.savez(out_path, **out)
     return {}
 
@@ -268,7 +278,8 @@ def run_job(job, inputs, ctx, job_dir: pathlib.Path) -> dict:
     return {"metrics": metrics, "step": state.step,
             "count": state.opt_state["count"], "collectives": collectives,
             "blocks": block_sizes(state), "dims": flat(state.fsdp.dims),
-            "tp_dims": flat(state.fsdp.tp_dims), "coords": coords(ctx)}
+            "tp_dims": flat(state.fsdp.tp_dims),
+            "ep_dims": flat(state.fsdp.ep_dims), "coords": coords(ctx)}
 
 
 def dist_rank() -> int:
@@ -283,8 +294,11 @@ def main(job_dir: str, rank: int) -> None:
         {"port": spec["port"], "jobs": spec["jobs"]}]
     out = {}
     for phase in phases:
+        world = phase.get("world", spec["world"])
+        if rank >= world:
+            continue
         env = {"COORDINATOR_ADDRESS": f"localhost:{phase['port']}",
-               "NUM_PROCESSES": str(spec["world"]), "PROCESS_ID": str(rank),
+               "NUM_PROCESSES": str(world), "PROCESS_ID": str(rank),
                "KTWE_STRATEGY": "FSDP",
                "KTWE_MESH_AXES": phase.get("mesh_axes", "")}
         ctx = bootstrap.initialize(env, device="cpu")
