@@ -257,8 +257,32 @@ inits in bf16:
      layer (the pin of parallel/comm_gate.py), each E * N_local * D values.
      It prints an `ep` line with host ms of the forward and the backward
      against the single device's, peak GB, the launches and the
-     all-to-alls' count and bytes. The mesh phase (serving meshes,
-     models/serving.py)
+     all-to-alls' count and bytes. The pp phase (pipeline parallelism,
+     parallel/pipeline.py and parallel/sharding.StageLayout) runs on
+     virtual pp ranks of a ThreadGroup on the card: (a) the explicit GPipe
+     schedule (`gpipe_lm_loss`) at the trainer main's widths, 8 layers on
+     4 stages (2 a stage), a batch of 8 as 4 microbatches of 2, each
+     stage's layers the model's own `_layer` (its kernels), the
+     activations handed from stage to stage (the tensors themselves, so
+     one backward from one thread runs the schedule's backward), the
+     embedding on stage 0, the final norm, head and chunked CE on every
+     stage; (b) the layer-stack form on 2 stages with the ep phase's MoE
+     blocks (4 experts, one layer a stage, broadcast from its stage,
+     every rank on the same 8 rows). In f32 the loss and every gradient
+     leaf of both are held to one device's on the same weights and rows
+     (GATE_LOSS_RTOL, GATE_LEAF_RTOL); bf16 is recorded. Gates: each
+     rank's forward launches of the table kernels exactly its stage's
+     (row 13 on stage 0; rows 1, 3 and 6 on every stage; in (a) at 2 rows
+     a microbatch, in (b) at 8 rows), the backward's exactly the stages'
+     sum (rows 2, 3, 7, and 8 at 2 rows, 9 at 8), in bf16 every flash
+     launch on its wgmma body; each rank's p2p handoffs exactly its
+     stage's pin (parallel/comm_gate.py `train/gpipe/pp2`: one a
+     microbatch and neighbour each way), each at most one microbatch's
+     activation; (b)'s broadcasts 10 a layer a rank (the pin
+     `train/dp2_pp2_ep2/moe`). It prints a `pp` line with bubble_fraction,
+     host ms of the gang and of one device, peak GB, the launches and the
+     handoffs; p2p between cards needs more than one card and is not
+     measured. The mesh phase (serving meshes, models/serving.py)
      runs the meshed programs at the serve defaults' full width on
      virtual gangs of threads on the one card (parallel/comm.ThreadGroup):
      the dense engine on (dp=2, tp=4), f32 transcripts of 8 prompts gated
@@ -358,6 +382,7 @@ it exits 1 at once.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import gc
@@ -552,6 +577,13 @@ ICIBENCH_MB = 256
 # layer and EP_BATCH / EP_RANKS rows, the dense expert route with the
 # token all-to-alls between the ranks.
 EP_RANKS, EP_LAYERS, EP_BATCH, EP_SEED = 4, 2, 8, 61
+# The pp phase: (a) the GPipe schedule at the trainer main's widths
+# (TRAIN_DIMS: 8 layers) on PP_STAGES virtual stages of a ThreadGroup, its
+# batch of TRAIN_BATCH rows as PP_MICRO microbatches (2 rows each, the p/ds
+# stash at its gate); (b) the layer-stack form on PP_LS_STAGES stages with
+# the ep phase's MoE blocks (MOE_EXPERTS experts, EP_LAYERS layers: one a
+# stage) on EP_BATCH rows a rank (the recompute dK/dV).
+PP_STAGES, PP_MICRO, PP_LS_STAGES, PP_SEED = 4, 4, 2, 67
 
 # Kernel vs plain version in bf16: both round once from f32, so they differ
 # by at most a couple of bf16 ulps (2^-8 relative) where their f32 sums are
@@ -3528,6 +3560,376 @@ def run_ep(dev, tf, embed, attn_mod, flash, kernels, card: str) -> dict:
         del params, leaves, grads, g_ref, x, x_ref, dy, toks
         collect_garbage()
     out["launches"] = out["bfloat16"]["launches"]
+    out["gates_failed"] = gates
+    return out
+
+
+class RankLaunches(collections.Counter):
+    """`kernels.launches` while a gang of threads runs: each `+=` of a
+    wrapper applied to the current total under a lock (so no increment of
+    another thread is lost) and also to the calling thread's own tally
+    (`by_thread`); the backward's launches land on the thread that runs
+    the backward."""
+
+    def __init__(self):
+        super().__init__()
+        self._lock = threading.Lock()
+        self._read = {}
+        self.by_thread = collections.defaultdict(collections.Counter)
+
+    def __getitem__(self, k):
+        v = super().__getitem__(k)
+        self._read[(threading.get_ident(), k)] = v
+        return v
+
+    def __setitem__(self, k, v):
+        me = threading.get_ident()
+        d = v - self._read.pop((me, k), dict.get(self, k, 0))
+        with self._lock:
+            dict.__setitem__(self, k, dict.get(self, k, 0) + d)
+            self.by_thread[me][k] += d
+
+
+@contextlib.contextmanager
+def rank_launches(kernels):
+    """`kernels.launches` replaced by a fresh RankLaunches for the block."""
+    saved, kernels.launches = kernels.launches, RankLaunches()
+    try:
+        yield kernels.launches
+    finally:
+        kernels.launches = saved
+
+
+def pp_stage_launches(stage: int, stages: int, layers: int, micro: int,
+                      stash: bool, bf16: bool, gpipe: bool) -> tuple:
+    """(forward, backward) launches of one rank of a pp gang: stage 0's
+    embedding; per layer it runs and microbatch two norms, q and k
+    rotated, one flash forward; the backward the same layers' norms,
+    rotations, dQ and dK/dV (the stash kernel where it fits its gate); the
+    GPipe path's final norm on every stage. In the layer-stack form (not
+    `gpipe`) every rank runs every layer on its rows, one microbatch."""
+    n = layers * micro
+    fwd = {"rms_norm": 2 * n + int(gpipe), "rope": 2 * n,
+           "flash_attention": n}
+    if stage == 0 or not gpipe:
+        fwd["embed_gather"] = 1
+    bwd = {"rms_norm_bwd": 2 * n + int(gpipe), "rope": 2 * n,
+           "flash_attention_bwd_dq": n,
+           ("flash_attention_bwd_dkv_stash" if stash
+            else "flash_attention_bwd_dkv"): n}
+    if bf16:
+        fwd["flash_attention_wgmma"] = n
+        bwd["flash_attention_bwd_dq_wgmma"] = n
+        bwd["flash_attention_bwd_dkv_stash_wgmma" if stash
+            else "flash_attention_bwd_dkv_wgmma"] = n
+    return fwd, bwd
+
+
+def sum_counts(counts) -> dict:
+    out = collections.Counter()
+    for c in counts:
+        out.update(c)
+    return dict(out)
+
+
+def pp_gang(kernels, comm_gate, group, n: int, fn, what: str) -> dict:
+    """fn(rank) -> the rank's loss on a gang of n threads, the forwards'
+    launches and collectives by rank, then one backward over the sum of
+    the losses from this thread: the losses, forward launches by rank,
+    backward launches (the rest), forward calls by rank, backward calls,
+    host ms of the forward and of the backward."""
+    idents, calls = [None] * n, [None] * n
+
+    def rank(r):
+        idents[r] = threading.get_ident()
+        with comm_gate.record(this_thread=True) as c:
+            calls[r] = c
+            return fn(r)
+    with rank_launches(kernels) as launches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = on_thread_group(group, n, rank, what)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        fwd = [dict(launches.by_thread[i]) for i in idents]
+        with comm_gate.record() as back:
+            torch.autograd.backward(sum(losses))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        total = {k: v for k, v in launches.items() if v}
+    fwd_total = sum_counts(fwd)
+    bwd = {k: v - fwd_total.get(k, 0) for k, v in total.items()
+           if v - fwd_total.get(k, 0)}
+    return dict(losses=losses, fwd=fwd, bwd=bwd, total=total, calls=calls,
+                back=list(back), forward_ms=1e3 * (t1 - t0),
+                backward_ms=1e3 * (t2 - t1))
+
+
+def grad_errors(names, grads, want) -> dict:
+    return {n: rel_err(g, w) for n, g, w in zip(names, grads, want)}
+
+
+def run_pp(dev, tf, pipeline, attn_mod, flash, kernels, card: str
+           ) -> dict:
+    """The pp phase (see PP_STAGES): (a) `gpipe_lm_loss` on PP_STAGES
+    virtual stages, one backward over the sum of the stages' losses (every
+    stage's is the same; only the last's reaches the schedule), against
+    one device's `tf.loss_fn` on the same weights and rows; (b) the
+    layer-stack form on PP_LS_STAGES stages with the ep phase's MoE blocks
+    and loss (sum(x * dy) + aux a rank), against one device's dense route.
+    The stacked leaves' gradients are the stages' blocks joined, the
+    others pp rank 0's. In f32 gated (GATE_LOSS_RTOL, GATE_LEAF_RTOL), in
+    bf16 recorded. Launches and collectives by rank as `pp_stage_launches`
+    and the pins say; host ms of the gang and of one device (timed warm,
+    after the gang), and the gang's peak GB above what the phase holds
+    before it."""
+    from k8s_gpu_workload_enhancer_tpu_torch.ops import embed
+    from k8s_gpu_workload_enhancer_tpu_torch.parallel import comm_gate
+    from k8s_gpu_workload_enhancer_tpu_torch.parallel.comm import ThreadGroup
+    from k8s_gpu_workload_enhancer_tpu_torch.parallel.sharding import (
+        StageLayout)
+    collect_garbage()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    seq = TRAIN_DIMS["seq_len"]
+    base_dims = dict({k: v for k, v in TRAIN_DIMS.items() if k != "seq_len"},
+                     n_kv_heads=TRAIN_DIMS["n_heads"], max_seq=seq)
+    rows = TRAIN_BATCH // PP_MICRO
+    gates = []
+    out = dict(card=card, gpipe=dict(config=dict(
+        base_dims, stages=PP_STAGES, microbatches=PP_MICRO,
+        rows_a_microbatch=rows, batch=TRAIN_BATCH,
+        bubble_fraction=pipeline.bubble_fraction(PP_MICRO, PP_STAGES),
+        num_ticks=pipeline.num_ticks(PP_MICRO, PP_STAGES))),
+        layer_stack=dict(config=dict(
+            base_dims, n_layers=EP_LAYERS, n_experts=MOE_EXPERTS,
+            stages=PP_LS_STAGES, rows_a_rank=EP_BATCH)))
+    pin = comm_gate.BUDGETS["train/gpipe/pp2"]["p2p"]
+    ls_pin = comm_gate.BUDGETS["train/dp2_pp2_ep2/moe"]["broadcast"]
+    launches_bf16 = collections.Counter()
+
+    def stage_copies(params, layout_rank, stages):
+        """A rank's params: its stage's block of the stacked leaves and its
+        own copy of the others, all leaves requiring grad."""
+        mine = {k: v.detach().clone().requires_grad_(True)
+                for k, v in params.items() if k != "layers"}
+        k = params["layers"]["wq"].shape[0] // stages
+        mine["layers"] = {
+            n: v.detach()[layout_rank * k:(layout_rank + 1) * k].clone()
+            .requires_grad_(True) for n, v in params["layers"].items()}
+        return mine
+
+    def joined(ranks, names):
+        got = []
+        for n in names:
+            if n.startswith("/layers/"):
+                leaf = n.split("/")[-1]
+                got.append(torch.cat([r["layers"][leaf].grad for r in ranks]))
+            else:
+                g = ranks[0][n[1:]].grad
+                got.append(g if g is not None
+                           else torch.zeros_like(ranks[0][n[1:]]))
+        return got
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = str(dtype).split(".")[-1]
+        bf16 = dtype == torch.bfloat16
+        # (a) The GPipe schedule.
+        cfg = tf.TransformerConfig(**base_dims, dtype=dtype)
+        gen = torch.Generator(device=dev).manual_seed(PP_SEED)
+        params = tf.init_params(gen, cfg)
+        toks = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, seq + 1),
+                             generator=gen, device=dev)
+        names = leaf_names(params)
+        leaves = [params[n[1:]] if n.count("/") == 1 else
+                  params["layers"][n.split("/")[-1]] for n in names]
+        for t in leaves:
+            t.requires_grad_(True)
+
+        def single():
+            loss, _ = tf.loss_fn(params, toks, cfg)
+            return float(loss.detach()), torch.autograd.grad(loss, leaves)
+        loss_ref, g_ref = single()
+        copies = [stage_copies(params, r, PP_STAGES)
+                  for r in range(PP_STAGES)]
+        group = ThreadGroup(PP_STAGES)
+        collect_garbage()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        res = pp_gang(kernels, comm_gate, group, PP_STAGES, lambda r:
+                      pipeline.gpipe_lm_loss(
+                          copies[r], toks, cfg, StageLayout(group.comm(r)),
+                          PP_MICRO)[0], "pp gpipe")
+        losses = res.pop("losses")
+        peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+        grads = joined(copies, names)
+        errs = dict(loss=max(abs(float(x.detach()) - loss_ref)
+                             for x in losses) / abs(loss_ref),
+                    leaves=grad_errors(names, grads, g_ref))
+        worst = max(errs["leaves"], key=errs["leaves"].get)
+        if any(not torch.isfinite(g).all() for g in grads):
+            gates.append(f"pp gpipe {dt}: a gradient has non-finite values")
+        if not bf16 and not (errs["loss"] <= GATE_LOSS_RTOL
+                             and errs["leaves"][worst] < GATE_LEAF_RTOL):
+            gates.append(f"pp gpipe f32 against one device: {errs}")
+        q = torch.empty(rows, seq, cfg.n_heads, cfg.head_dim, dtype=dtype,
+                        device="meta")
+        stash = flash.stash_bytes(q, q, q) <= flash.PDS_STASH_LIMIT_BYTES
+        per = cfg.n_layers // PP_STAGES
+        want = [pp_stage_launches(r, PP_STAGES, per, PP_MICRO, stash, bf16,
+                                  True) for r in range(PP_STAGES)]
+        for r in range(PP_STAGES):
+            if res["fwd"][r] != want[r][0]:
+                gates.append(f"pp gpipe {dt} stage {r}: forward launches "
+                             f"{res['fwd'][r]}, want {want[r][0]}")
+        want_bwd = sum_counts(w[1] for w in want)
+        if res["bwd"] != want_bwd:
+            gates.append(f"pp gpipe {dt}: backward launches {res['bwd']}, "
+                         f"want {want_bwd}")
+        cap = comm_gate.handoff_caps(rows, seq, cfg.d_model,
+                                     dtype.itemsize)["p2p"]
+        p2p_fwd = [[n for op, n in c if op == "p2p"] for c in res["calls"]]
+        p2p_bwd = [n for op, n in res["back"] if op == "p2p"]
+        pins = [pin.count(0, microbatches=PP_MICRO, stage=r,
+                          stages=PP_STAGES) for r in range(PP_STAGES)]
+        for r in range(PP_STAGES):
+            if len(p2p_fwd[r]) != pins[r] // 2:
+                gates.append(f"pp gpipe {dt} stage {r}: {len(p2p_fwd[r])} "
+                             f"forward handoffs, its pin {pins[r]} is "
+                             f"twice that")
+        if len(p2p_bwd) != sum(pins) // 2:
+            gates.append(f"pp gpipe {dt}: {len(p2p_bwd)} backward handoffs, "
+                         f"want {sum(pins) // 2}")
+        if max(max(x) for x in p2p_fwd) != cap or max(p2p_bwd) != cap:
+            gates.append(f"pp gpipe {dt}: a handoff over or under one "
+                         f"microbatch's activation ({cap} B)")
+        if bf16:
+            launches_bf16.update(res["total"])
+        out["gpipe"][dt] = dict(
+            errors=errs, worst_leaf=worst, gated=not bf16,
+            loss_rtol=GATE_LOSS_RTOL, leaf_rtol=GATE_LEAF_RTOL, stash=stash,
+            launches_forward_by_rank=res["fwd"], launches_backward=res["bwd"],
+            p2p=dict(pins_by_rank=pins,
+                     forward_by_rank=[len(x) for x in p2p_fwd],
+                     backward=len(p2p_bwd), bytes_each=cap,
+                     forward_bytes_by_rank=[sum(x) for x in p2p_fwd]),
+            collectives_forward_by_rank=[comm_gate.collective_counts(c)
+                                         for c in res["calls"]],
+            host_ms=dict(forward=res["forward_ms"],
+                         backward=res["backward_ms"],
+                         forward_backward=res["forward_ms"]
+                         + res["backward_ms"]),
+            peak_gb=peak_gb)
+        del losses, grads, copies, res
+        collect_garbage()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        single()
+        torch.cuda.synchronize()
+        out["gpipe"][dt]["host_ms"]["single_device_forward_backward"] = \
+            1e3 * (time.perf_counter() - t0)
+        del params, leaves, g_ref, toks
+        collect_garbage()
+
+        # (b) The layer-stack form, MoE.
+        dims = dict(base_dims, n_layers=EP_LAYERS, n_experts=MOE_EXPERTS,
+                    moe_ragged_dispatch=False)
+        cfg = tf.TransformerConfig(**dims, dtype=dtype)
+        gen = torch.Generator(device=dev).manual_seed(PP_SEED + 1)
+        params = tf.init_params(gen, cfg)
+        params = {k: params[k] for k in ("embed", "layers")}
+        names = ["/embed"] + [f"/layers/{k}" for k in params["layers"]]
+        leaves = [params["embed"]] + list(params["layers"].values())
+        for t in leaves:
+            t.requires_grad_(True)
+        toks = torch.randint(0, cfg.vocab_size, (EP_BATCH, seq),
+                             generator=gen, device=dev)
+        dy = (torch.randn(EP_BATCH, seq, cfg.d_model, generator=gen,
+                          device=dev) * 1e-2).to(dtype)
+        freqs = attn_mod.rope_frequencies(cfg.head_dim, cfg.max_seq,
+                                          cfg.rope_theta, dev)
+
+        def blocks(p, layout):
+            x = embed.embed_tokens(p["embed"], toks, cfg.d_model, cfg.dtype)
+            aux = 0.0
+            for layer in range(cfg.n_layers):
+                lp = (tf.layer_params(p, layer) if layout is None
+                      else layout.layer_params(p, layer))
+                x, a = tf._layer(x, lp, cfg, freqs, 0, layout)
+                aux = aux + a
+            return (x.float() * dy.float()).sum() + aux
+
+        def single_ls():
+            loss = blocks(params, None)
+            return float(loss.detach()), torch.autograd.grad(loss, leaves)
+        loss_ref, g_ref = single_ls()
+        copies = [stage_copies(params, r, PP_LS_STAGES)
+                  for r in range(PP_LS_STAGES)]
+        group = ThreadGroup(PP_LS_STAGES)
+        collect_garbage()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        res = pp_gang(kernels, comm_gate, group, PP_LS_STAGES, lambda r:
+                      blocks(copies[r], StageLayout(group.comm(r))),
+                      "pp layer-stack")
+        losses = res.pop("losses")
+        peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+        grads = joined(copies, names)
+        errs = dict(loss=max(abs(float(x.detach()) - loss_ref)
+                             for x in losses) / abs(loss_ref),
+                    leaves=grad_errors(names, grads, g_ref))
+        worst = max(errs["leaves"], key=errs["leaves"].get)
+        if any(not torch.isfinite(g).all() for g in grads):
+            gates.append(f"pp layer-stack {dt}: a gradient has non-finite "
+                         f"values")
+        if not bf16 and not (errs["loss"] <= GATE_LOSS_RTOL
+                             and errs["leaves"][worst] < GATE_LEAF_RTOL):
+            gates.append(f"pp layer-stack f32 against one device: {errs}")
+        q = torch.empty(EP_BATCH, seq, cfg.n_heads, cfg.head_dim,
+                        dtype=dtype, device="meta")
+        stash = flash.stash_bytes(q, q, q) <= flash.PDS_STASH_LIMIT_BYTES
+        fwd_want, bwd_want = pp_stage_launches(0, PP_LS_STAGES, EP_LAYERS, 1,
+                                               stash, bf16, False)
+        for r in range(PP_LS_STAGES):
+            if res["fwd"][r] != fwd_want:
+                gates.append(f"pp layer-stack {dt} rank {r}: forward "
+                             f"launches {res['fwd'][r]}, want {fwd_want}")
+        bwd_want = {k: v * PP_LS_STAGES for k, v in bwd_want.items()}
+        if res["bwd"] != bwd_want:
+            gates.append(f"pp layer-stack {dt}: backward launches "
+                         f"{res['bwd']}, want {bwd_want}")
+        bcasts = [[n for op, n in c if op == "broadcast"]
+                  for c in res["calls"]]
+        want_b = ls_pin.per_layer * EP_LAYERS
+        if any(len(b) != want_b for b in bcasts):
+            gates.append(f"pp layer-stack {dt}: broadcasts by rank "
+                         f"{[len(b) for b in bcasts]}, want {want_b} each")
+        if bf16:
+            launches_bf16.update(res["total"])
+        out["layer_stack"][dt] = dict(
+            errors=errs, worst_leaf=worst, gated=not bf16,
+            loss_rtol=GATE_LOSS_RTOL, leaf_rtol=GATE_LEAF_RTOL, stash=stash,
+            launches_forward_by_rank=res["fwd"], launches_backward=res["bwd"],
+            broadcasts_by_rank=[len(b) for b in bcasts],
+            broadcast_bytes_by_rank=[sum(b) for b in bcasts],
+            collectives_forward_by_rank=[comm_gate.collective_counts(c)
+                                         for c in res["calls"]],
+            host_ms=dict(forward=res["forward_ms"],
+                         backward=res["backward_ms"],
+                         forward_backward=res["forward_ms"]
+                         + res["backward_ms"]),
+            peak_gb=peak_gb)
+        del losses, grads, copies, res
+        collect_garbage()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        single_ls()
+        torch.cuda.synchronize()
+        out["layer_stack"][dt]["host_ms"]["single_device_forward_backward"] \
+            = 1e3 * (time.perf_counter() - t0)
+        del params, leaves, g_ref, toks, dy
+        collect_garbage()
+    out["launches"] = dict(launches_bf16)
     out["gates_failed"] = gates
     return out
 
@@ -7697,7 +8099,7 @@ def main() -> int:
         attention as attn_mod, embed, flash_attention as flash, fused_ce,
         kernels, paged_attention as paged, relayout, rms, rope)
     from k8s_gpu_workload_enhancer_tpu_torch.parallel import (
-        ring_attention as ring)
+        pipeline, ring_attention as ring)
     from k8s_gpu_workload_enhancer_tpu_torch.sharing import tenant_drain
     from k8s_gpu_workload_enhancer_tpu_torch.train import (
         checkpoint, data, flagship, profiling, trainer)
@@ -7778,6 +8180,10 @@ def main() -> int:
     results["ep"] = run_ep(dev, tf, embed, attn_mod, flash, kernels, card)
     print(json.dumps({"ep": results["ep"]}), flush=True)
     for gate in results["ep"]["gates_failed"]:
+        fail(gate)
+    results["pp"] = run_pp(dev, tf, pipeline, attn_mod, flash, kernels, card)
+    print(json.dumps({"pp": results["pp"]}), flush=True)
+    for gate in results["pp"]["gates_failed"]:
         fail(gate)
     mods = (kernels, rms, rope, flash, paged, tf, decode, serving, serve)
     cfg, params, init_s = serve_params(dev, tf, serve)
@@ -7932,17 +8338,18 @@ def main() -> int:
     # The checkpoint phase's trainer runs the t-layout path (head_dim 512).
     t_layout = ("flagship", "checkpoint_train")
     every = serving_phases + train_phases
-    paths = {"embed_gather": every + t_layout + ("ep",),
-             "rms_norm": every + t_layout + ("ep",), "rope": every + ("ep",),
-             "flash_attention": every + t_layout + ("ring", "ep"),
+    paths = {"embed_gather": every + t_layout + ("ep", "pp"),
+             "rms_norm": every + t_layout + ("ep", "pp"),
+             "rope": every + ("ep", "pp"),
+             "flash_attention": every + t_layout + ("ring", "ep", "pp"),
              "paged_decode": paged_phases,
              "paged_decode_combine": paged_phases,
-             "rms_norm_bwd": train_phases + t_layout + ("ep",),
+             "rms_norm_bwd": train_phases + t_layout + ("ep", "pp"),
              "flash_attention_bwd_dq": train_phases + t_layout
-             + ("ring", "ep"),
-             "flash_attention_bwd_dkv": ("train", "fsdp", "moe_train"),
+             + ("ring", "ep", "pp"),
+             "flash_attention_bwd_dkv": ("train", "fsdp", "moe_train", "pp"),
              "flash_attention_bwd_dkv_stash": ("train_stash",) + t_layout
-             + ("ring", "ep"),
+             + ("ring", "ep", "pp"),
              "rope_t": t_layout, "rope_t_inv": t_layout,
              "fused_ce_fwd": ("flagship",), "fused_ce_bwd": ("flagship",),
              "relayout_to_t": t_layout, "relayout_from_t": t_layout}

@@ -1,6 +1,7 @@
 """Trainer main of the PyTorch port: KTWE-LM on one device or over a gang
-of processes (FSDP over dp, expert parallelism over ep, tensor
-parallelism over tp, sequence parallelism over sp).
+of processes (FSDP over dp, pipeline parallelism over pp, expert
+parallelism over ep, tensor parallelism over tp, sequence parallelism
+over sp).
 
 Port of k8s_gpu_workload_enhancer_tpu/cmd/trainer.py, with the same flags
 and defaults (vocab 32768, d_model 2048, 8 layers, 16 heads, d_ff 8192,
@@ -11,10 +12,10 @@ a JSON line every 10 steps and a final summary line.
 It starts with `train/bootstrap.initialize`, which reads the gang env the
 controller's launcher injects (COORDINATOR_ADDRESS, NUM_PROCESSES,
 PROCESS_ID, KTWE_MESH_AXES, KTWE_STRATEGY). In a gang each process is one
-rank on one device and the ranks train one model on the mesh's dp, ep,
-tp and sp axes (train/trainer.py): the global batch is `--batch-size`,
+rank on one device and the ranks train one model on the mesh's dp, pp,
+ep, tp and sp axes (train/trainer.py): the global batch is `--batch-size`,
 each (dp, ep) batch coordinate takes its rows (the ranks of one
-coordinate, its tp and sp ranks, read the same rows, each sp rank its
+coordinate, its pp, tp and sp ranks, read the same rows, each sp rank its
 shard of their positions), and only the primary
 (PROCESS_ID 0) prints and writes checkpoints. Without the env, or at
 NUM_PROCESSES 1, it trains on one device (`main(group_of_one=True)` runs
@@ -41,8 +42,18 @@ instead, a check of that path on a single card).
   lines and final line also carry the last step's MoE load-balance loss
   `aux`.
 
-Not ported yet, and refused with exit code 2 rather than ignored:
-`--pipeline-microbatches` and a mesh with pp above 1 (ROADMAP A11d).
+- A mesh with pp above 1 trains the layer-stack form of pipeline
+  parallelism (each stage holds L/pp layers; every layer is broadcast from
+  its stage when the forward reaches it, parallel/sharding.py).
+  `--pipeline-microbatches M` trains through the explicit GPipe schedule
+  instead (parallel/pipeline.gpipe_lm_loss, M microbatches, activations
+  handed from stage to stage), the rows of each microbatch split over the
+  schedule's batch axes (JAX's three cases: dp and ep, dp, or none). As
+  in the JAX trainer it needs a pp axis above 1 and a `--batch-size`
+  divisible by M, else it exits with JAX's message; the port's schedule
+  runs on dp, ep and pp, and exits naming the layer-stack path on a mesh
+  with tp or sp above 1.
+
 `--profile-dir` is accepted and unused, as in the JAX trainer.
 
     python -m k8s_gpu_workload_enhancer_tpu_torch.cmd.trainer --steps 20
@@ -63,12 +74,16 @@ A gang of two CPU ranks (run both, PROCESS_ID 0 and 1):
 A gang of eight on dp=2, tp=2, sp=2: the same with NUM_PROCESSES=8,
 PROCESS_ID 0..7 and KTWE_MESH_AXES=dp=2,tp=2,sp=2 (or KTWE_STRATEGY=Hybrid,
 which factors 8 processes so). MoE over four ranks on dp=2, ep=2: the same
-with NUM_PROCESSES=4, KTWE_MESH_AXES=dp=2,ep=2 and --n-experts 4.
+with NUM_PROCESSES=4, KTWE_MESH_AXES=dp=2,ep=2 and --n-experts 4. A
+pipeline over four ranks on dp=2, pp=2: NUM_PROCESSES=4,
+KTWE_MESH_AXES=dp=2,pp=2 (the layer-stack form), plus
+--pipeline-microbatches 2 for the GPipe schedule.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import signal
@@ -79,7 +94,7 @@ from typing import Callable, Optional
 import torch
 
 from ..models import transformer as tf
-from ..parallel import comm
+from ..parallel import comm, pipeline
 from ..parallel.mesh import MeshConfig, UnportedAxisError, check_supported
 from ..train import bootstrap, trainer
 from ..train.checkpoint import CheckpointManager, write_drain_marker
@@ -119,8 +134,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="KTWE token shard (train/data.py); empty = "
                         "synthetic LM data")
     p.add_argument("--pipeline-microbatches", type=int, default=0,
-                   help="the explicit GPipe schedule; not ported yet "
-                        "(0 only)")
+                   help="train through the explicit GPipe schedule "
+                        "(parallel/pipeline.gpipe_lm_loss) with this many "
+                        "microbatches; needs a pp>1 mesh (KTWE_MESH_AXES) "
+                        "and batch-size divisible by it. 0 = the "
+                        "layer-stack pp path")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; raises without a card) or cpu")
@@ -130,11 +148,8 @@ def build_parser() -> argparse.ArgumentParser:
 def refused(args: argparse.Namespace,
             mesh_cfg: Optional[MeshConfig] = None) -> Optional[str]:
     """Why the arguments, on the mesh `mesh_cfg` the gang env asks for,
-    ask for something not ported yet, or None."""
-    if args.pipeline_microbatches > 0:
-        return ("--pipeline-microbatches: pipeline parallelism is not "
-                "ported yet (ROADMAP A11d); the port trains on one device "
-                "or on a mesh of dp, ep, tp and sp")
+    ask for something not ported yet, or None (every mesh axis and flag
+    of the JAX trainer is ported)."""
     if mesh_cfg is None:
         return None
     try:
@@ -144,12 +159,33 @@ def refused(args: argparse.Namespace,
     return None
 
 
+def check_pipeline(args: argparse.Namespace, mesh_cfg: MeshConfig) -> None:
+    """`--pipeline-microbatches`' two checks, with the JAX trainer's
+    messages (SystemExit), and the port's: no tp or sp with it."""
+    if args.pipeline_microbatches <= 0:
+        return
+    if mesh_cfg.pp <= 1:
+        raise SystemExit(
+            "--pipeline-microbatches needs a pp>1 mesh axis "
+            f"(got meshAxes [{mesh_cfg.describe()}])")
+    if args.batch_size % args.pipeline_microbatches:
+        raise SystemExit(
+            f"--batch-size {args.batch_size} not divisible by "
+            f"--pipeline-microbatches {args.pipeline_microbatches}")
+    if mesh_cfg.tp > 1 or mesh_cfg.sp > 1:
+        raise SystemExit(
+            "--pipeline-microbatches: the explicit GPipe schedule runs on "
+            "dp, ep and pp; a mesh with tp or sp trains through the "
+            f"layer-stack pp path (got meshAxes [{mesh_cfg.describe()}])")
+
+
 def data_config(args: argparse.Namespace, tcfg: trainer.TrainConfig,
                 dp: int, dp_rank: int) -> DataConfig:
     """The token pipeline of batch coordinate `dp_rank` of `dp` (the
-    mesh's (dp, ep) coordinates, dp major): its rows of every microbatch
-    of the global batch the shard's windows make at a step (the
-    pipeline's split). Ranks of one coordinate read the same rows."""
+    mesh's (dp, ep) coordinates, dp major, or on the GPipe path the
+    schedule's batch axes): its rows of every microbatch of the global
+    batch the shard's windows make at a step (the pipeline's split).
+    Ranks of one coordinate read the same rows."""
     return DataConfig(path=args.data_file, batch_size=tcfg.batch_size // dp,
                       seq_len=tcfg.seq_len, seed=tcfg.seed,
                       process_id=dp_rank, num_processes=dp,
@@ -162,7 +198,9 @@ def main(argv=None, callback: Optional[Callable] = None,
     is the gang env (default: os.environ); `group_of_one` is
     `bootstrap.initialize`'s."""
     args = build_parser().parse_args(argv)
-    why = refused(args, bootstrap.mesh_config(env, group_of_one))
+    mesh_cfg = bootstrap.mesh_config(env, group_of_one)
+    check_pipeline(args, mesh_cfg)
+    why = refused(args, mesh_cfg)
     if why is None:
         try:
             ctx = bootstrap.initialize(env, device=args.device,
@@ -201,8 +239,17 @@ def _train(args: argparse.Namespace, ctx: bootstrap.BootstrapContext,
     gen.manual_seed(tcfg.seed)
     state = trainer.init_state(model_cfg, tcfg, gen, mesh)
     # The batch splits over the (dp, ep) batch coordinates: the ranks of
-    # one coordinate (its tp and sp ranks) read the same rows.
-    dp, dp_rank = ((state.fsdp.batch_ranks, state.fsdp.batch_rank)
+    # one coordinate (its pp, tp and sp ranks) read the same rows. On the
+    # GPipe path over the schedule's batch axes (JAX's three cases).
+    loss_fn, split = None, None
+    if args.pipeline_microbatches > 0:
+        m = args.pipeline_microbatches
+        loss_fn = functools.partial(pipeline.gpipe_lm_loss,
+                                    num_microbatches=m)
+        if state.fsdp is not None:
+            split = pipeline.batch_split(state.fsdp,
+                                         tcfg.microbatch_size // m)
+    dp, dp_rank = (split or (state.fsdp.batch_ranks, state.fsdp.batch_rank)
                    if state.fsdp is not None else (1, 0))
     if tcfg.microbatch_size % dp:
         raise ValueError(f"--batch-size {tcfg.batch_size} / --grad-accum "
@@ -223,7 +270,7 @@ def _train(args: argparse.Namespace, ctx: bootstrap.BootstrapContext,
             device=device)
     else:
         batches = trainer.synthetic_batches(model_cfg, tcfg, device,
-                                            state.fsdp)
+                                            state.fsdp, split)
     timer = StepTimer(peak_tflops=H100_BF16_PEAK_TFLOPS * world)
     # Drain: SIGTERM only sets a flag; the loop finishes the step in flight
     # and the ranks agree on it (`agree`), then main saves the step, writes
@@ -266,7 +313,8 @@ def _train(args: argparse.Namespace, ctx: bootstrap.BootstrapContext,
         out = trainer.train_loop(model_cfg, tcfg, args.steps,
                                  callback=on_step, device=device,
                                  stop=lambda: agreed["drain"], timer=timer,
-                                 state=state, batches=batches)
+                                 state=state, batches=batches,
+                                 loss_fn=loss_fn)
         if agreed["drain"]:
             if mgr is not None:
                 mgr.save(state.step, state, wait=True)

@@ -1,5 +1,5 @@
 """KTWE-LM, the decoder-only transformer, in PyTorch (dense or MoE; one
-device, or a mesh of dp, ep, tp and sp).
+device, or a mesh of dp, pp, ep, tp and sp).
 
 Port of k8s_gpu_workload_enhancer_tpu/models/transformer.py. Params are a
 plain dict with the JAX package's tree: stacked (L, ...) layer leaves of the
@@ -71,7 +71,12 @@ partial sums over the MLP dim, so are the combine weights' gradients), and
 the combined output through `tp_sum`. The layers' aux losses are summed as
 on one device.
 
-Not ported here: the pp axis (ROADMAP A11d).
+Pipeline parallelism: both forwards read a layer's leaves through the
+layout (`fsdp.layer_params`), which on a pp mesh takes each layer from
+the stage that holds it (parallel/sharding.py, the layer-stack form: the
+batch replicated over pp, as JAX's "layers" -> "pp" rule runs the
+model); MoE, ep, tp and sp run inside it unchanged. The explicit GPipe
+schedule runs `_layer` as its stage (parallel/pipeline.py).
 """
 
 from __future__ import annotations

@@ -5,14 +5,16 @@ Every collective the port runs goes through this module: the train step's
 (`all_gather_into`, `reduce_scatter_into`, `all_reduce`, the ring's
 `exchange`, called by parallel/sharding.py, parallel/ring_attention.py,
 models/transformer.py and cmd/trainer.py; the expert-parallel MoE FFN's
-token all-to-alls, through the layout's ep `Comm`) and a serving gang's
-(the `Comm` methods). Each call is noted, once, for whatever listens
+token all-to-alls, through the layout's ep `Comm`; the pipeline's stage
+handoffs and layer broadcasts, through the layout's pp `Comm`) and a
+serving gang's (the `Comm` methods). Each call is noted, once, for whatever listens
 (`listen`: the collective-budget gate, parallel/comm_gate.py) as (op,
 bytes this rank sends), the op one of `OPS`: an all-gather sends the
 rank's block, an all-reduce and a reduce-scatter the rank's whole input,
 an all-to-all the rank's whole input (every rank's chunk of it, its own
 included), a broadcast and an object broadcast their payload from the
-source (0 elsewhere), a p2p exchange the tensor sent. A call made inside
+source (0 elsewhere), a p2p exchange the tensor sent, a p2p send its
+tensor and a p2p receive 0. A call made inside
 another (the gathers behind a `Comm`'s rank-ordered sum, the two
 broadcasts behind an object broadcast) is not noted again. Nothing is noted while nothing listens, and noting
 changes no call: what is sent, and in what order, is the same.
@@ -20,8 +22,10 @@ changes no call: what is sent, and in what order, is the same.
 A `Comm` is one rank's handle on a group of ranks: its `rank` and the
 group's `size`, a sum all-reduce, an all-gather on a dim, an all-to-all on
 a dim (and `all_to_all_grad`, the same exchange with the inverse exchange
-as its backward), a tensor broadcast and an object broadcast. Two
-implementations:
+as its backward), a tensor broadcast, an object broadcast, and the
+pipeline's point-to-point pair: `send` a tensor to one rank and `recv`
+one from another (the GPipe schedule's stage handoff,
+parallel/pipeline.py). Two implementations:
 
 - `ProcessComm`: a `torch.distributed` group (gloo on the CPU, NCCL on the
   card), as `train/bootstrap.initialize` starts it: one process a rank.
@@ -40,6 +44,11 @@ implementations:
   rank's backward could never wait there for another's. A gang's ranks
   therefore run their forwards in their threads and one backward, from
   one thread, over the sum of their losses (`ThreadComm.all_to_all_grad`).
+  Its `send` hands the receiver the tensor itself (a mailbox a pair of
+  ranks, no barrier), so the ranks' autograd graphs join at a handoff
+  (`Comm.shares_graph`): the pipeline's backward is then the same one
+  backward over the ranks' losses, and no backward node waits on
+  another rank.
 
 Both sum in rank order on every rank (the ranks' blocks gathered, then
 added one after another from rank 0), so every rank holds identical bits.
@@ -169,6 +178,20 @@ def exchange(t: torch.Tensor, send_to: int, recv_from: int, group
     return out
 
 
+def send(t: torch.Tensor, dst: int, group) -> None:
+    """`t` to global rank `dst` (blocking; one p2p call)."""
+    t = t.contiguous()
+    with _call("p2p", _nbytes(t)):
+        dist.send(t, dst, group=group)
+
+
+def recv(out: torch.Tensor, src: int, group) -> torch.Tensor:
+    """A tensor of `out`'s shape from global rank `src`, into `out`."""
+    with _call("p2p", 0):
+        dist.recv(out, src, group=group)
+    return out
+
+
 def all_gather(shard: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
     """The full tensor from the `n` ranks' blocks of `dim` (contiguous)."""
     shard = shard.contiguous()
@@ -239,13 +262,35 @@ class _GangAllToAll(torch.autograd.Function):
         return (None, *out)
 
 
+class _LinkedHandoff(torch.autograd.Function):
+    """A tensor a rank of a gang of threads received as it was sent: the
+    identity, whose backward notes the two p2p calls a process gang makes
+    to hand its cotangent back (this rank's send of it, the sender's
+    receive), in the thread that runs the backward."""
+
+    @staticmethod
+    def forward(ctx, t: torch.Tensor):
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        with _call("p2p", _nbytes(g)):
+            pass
+        with _call("p2p", 0):
+            pass
+        return g
+
+
 class Comm:
     """One rank's handle on a group (see the module note). Subclasses give
-    `_all_gather`, `_all_to_all`, `_broadcast` and `_broadcast_object`;
-    the public methods note each call."""
+    `_all_gather`, `_all_to_all`, `_broadcast`, `_broadcast_object`,
+    `_send` and `_recv`; the public methods note each call. `shares_graph`:
+    a received tensor is the sender's own (its autograd history included),
+    as on a gang of threads."""
 
     rank: int = 0
     size: int = 1
+    shares_graph: bool = False
 
     def all_gather(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
         """The ranks' tensors concatenated on `dim`, in rank order."""
@@ -297,10 +342,27 @@ class Comm:
                    (lambda: len(pickle.dumps(obj))) if mine else 0):
             return self._broadcast_object(obj, src)
 
+    def send(self, t: torch.Tensor, dst: int) -> None:
+        """`t` to rank `dst` of the group (one p2p call, its bytes)."""
+        with _call("p2p", _nbytes(t)):
+            self._send(t, dst)
+
+    def recv(self, like: torch.Tensor, src: int) -> torch.Tensor:
+        """The tensor rank `src` sends, of `like`'s shape, dtype and
+        device (one p2p call of 0 bytes sent)."""
+        with _call("p2p", 0):
+            return self._recv(like, src)
+
     def _all_gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
         raise NotImplementedError
 
     def _all_to_all(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        raise NotImplementedError
+
+    def _send(self, t: torch.Tensor, dst: int) -> None:
+        raise NotImplementedError
+
+    def _recv(self, like: torch.Tensor, src: int) -> torch.Tensor:
         raise NotImplementedError
 
     def _broadcast(self, t: torch.Tensor, src: int) -> torch.Tensor:
@@ -338,6 +400,13 @@ class ProcessComm(Comm):
     def _broadcast(self, t: torch.Tensor, src: int) -> torch.Tensor:
         return broadcast(t, self.ranks[src], self.group)
 
+    def _send(self, t: torch.Tensor, dst: int) -> None:
+        send(t, self.ranks[dst], self.group)
+
+    def _recv(self, like: torch.Tensor, src: int) -> torch.Tensor:
+        out = torch.empty(like.shape, dtype=like.dtype, device=like.device)
+        return recv(out, self.ranks[src], self.group)
+
     def _broadcast_object(self, obj: Any, src: int) -> Any:
         """Two broadcasts: the pickle's length, then its bytes."""
         mine = self.rank == src
@@ -360,16 +429,42 @@ class ThreadGroup:
 
     def __init__(self, size: int, timeout: float = COLLECTIVE_TIMEOUT_S):
         self.size = int(size)
+        self.timeout = timeout
         self._slots: List[Any] = [None] * self.size
         self._barrier = threading.Barrier(self.size, timeout=timeout)
+        # The point-to-point mailboxes: (src, dst) -> values in send order.
+        self._mail: dict = {}
+        self._mail_cv = threading.Condition()
 
     def comm(self, rank: int) -> "ThreadComm":
         return ThreadComm(self, rank)
 
     def abort(self) -> None:
         """Break the barrier: every rank waiting in (or later entering) a
-        collective raises threading.BrokenBarrierError."""
+        collective, or waiting for a sent value, raises
+        threading.BrokenBarrierError."""
         self._barrier.abort()
+        with self._mail_cv:
+            self._mail_cv.notify_all()
+
+    def post(self, src: int, dst: int, value: Any) -> None:
+        """Rank `src`'s value for rank `dst`, taken in send order."""
+        with self._mail_cv:
+            self._mail.setdefault((src, dst), []).append(value)
+            self._mail_cv.notify_all()
+
+    def take(self, src: int, dst: int) -> Any:
+        """The oldest value rank `src` posted for rank `dst`, waiting for
+        one at most the group's timeout."""
+        with self._mail_cv:
+            box = self._mail.setdefault((src, dst), [])
+            if not self._mail_cv.wait_for(
+                    lambda: box or self._barrier.broken, self.timeout):
+                raise TimeoutError(f"rank {dst} waited {self.timeout} s "
+                                   f"for rank {src}'s handoff")
+            if not box:
+                raise threading.BrokenBarrierError
+            return box.pop(0)
 
     def exchange(self, rank: int, value: Any) -> List[Any]:
         """Every rank's `value`, in rank order. The second wait keeps a
@@ -383,6 +478,8 @@ class ThreadGroup:
 
 class ThreadComm(Comm):
     """Rank `rank`'s handle on a ThreadGroup."""
+
+    shares_graph = True
 
     def __init__(self, group: ThreadGroup, rank: int):
         self.group = group
@@ -421,3 +518,10 @@ class ThreadComm(Comm):
     def _broadcast_object(self, obj: Any, src: int) -> Any:
         return self.group.exchange(
             self.rank, obj if self.rank == src else None)[src]
+
+    def _send(self, t: torch.Tensor, dst: int) -> None:
+        self.group.post(self.rank, dst, t)
+
+    def _recv(self, like: torch.Tensor, src: int) -> torch.Tensor:
+        t = self.group.take(src, self.rank)
+        return _LinkedHandoff.apply(t) if t.requires_grad else t

@@ -14,10 +14,13 @@ layers, a decode chunk's steps) appears once. The port has no HLO: every
 collective is a call through parallel/comm.py, so the gate counts the
 CALLS one step makes on one rank at a pinned configuration (`record`).
 A count therefore scales with the layers and with a decode chunk's steps,
-and each pin says how (`Pin`). Ops are parallel/comm.OPS: all-gather,
-all-reduce, reduce-scatter, all-to-all (the expert-parallel MoE FFN's
-token exchange), broadcast, p2p and object-broadcast (the driver's
-program header on a serving mesh).
+and each pin says how (`Pin`); a GPipe step's also with its microbatches
+and the rank's stage (its handoffs, the first stage's embedding). Ops are
+parallel/comm.OPS: all-gather, all-reduce, reduce-scatter, all-to-all
+(the expert-parallel MoE FFN's token exchange), broadcast (the
+layer-stack pipeline's layers from their stage, and the GPipe result
+from the last), p2p (the ring's shift, the GPipe stage handoffs) and
+object-broadcast (rank 0's program header on a serving mesh).
 
 The size gate (JAX tests/unit/test_mesh_serving.py's): in a steady decode
 chunk and a verify round nothing of KV-page or weight size moves between
@@ -29,7 +32,8 @@ a sum carries at most the program's token rows of d_model f32 values, a
 move at most those rows of max(d_model, vocab / tp) f32 values (the
 logits' vocab block), a header at most JAX's 1024 B. The tier's demotion
 and restore (models/serving.py) are the only serving programs that move a
-page; their bytes are pinned exactly (`tier_calls`).
+page; their bytes are pinned exactly (`tier_calls`). A GPipe handoff
+carries at most one microbatch's activation (`handoff_caps`).
 
 The pins live in one table, `BUDGETS`, as JAX keeps its pins beside the
 mesh configs; the tests read the counts from the gang jobs that already
@@ -102,13 +106,21 @@ def assert_collective_budget(got: Union[Dict[str, int], Calls],
 class Pin:
     """Calls of one op in one program call: `once`, plus for each of its
     steps (a decode chunk's; 1 elsewhere) `per_step` and `per_layer` a
-    layer."""
+    layer; in a GPipe step `per_handoff` a microbatch and neighbouring
+    stage (a stage has one neighbour at either end of the pipeline, two
+    between) and `first_stage` more on stage 0."""
     once: int = 0
     per_step: int = 0
     per_layer: int = 0
+    per_handoff: int = 0
+    first_stage: int = 0
 
-    def count(self, n_layers: int, steps: int = 1) -> int:
-        return self.once + steps * (self.per_step + self.per_layer * n_layers)
+    def count(self, n_layers: int, steps: int = 1, microbatches: int = 0,
+              stage: int = 0, stages: int = 1) -> int:
+        neighbours = int(stage > 0) + int(stage < stages - 1)
+        return (self.once + steps * (self.per_step + self.per_layer * n_layers)
+                + self.per_handoff * microbatches * neighbours
+                + (self.first_stage if stage == 0 else 0))
 
 
 # Serving on a (dp, tp) gang with tp > 1, counted on the driver (rank 0:
@@ -117,6 +129,18 @@ class Pin:
 _SERVE_STEP = {"object-broadcast": Pin(once=1),
                "all-reduce": Pin(per_step=1, per_layer=2),
                "all-gather": Pin(per_step=1)}
+
+# A GPipe step on every rank: the stage's 7 stacked matrices gathered
+# over dp once a step and the head, stage 0 also the embedding, and their
+# reduce-scatters; the result broadcast from the last stage and the pp
+# grads' from pp rank 0; the handoffs, one p2p call a microbatch and
+# neighbour each way (each at most one microbatch's activation); the
+# replicated leaves, the norm (over dp and pp) and the loss's mean.
+_GPIPE_STEP = {"all-gather": Pin(once=8, first_stage=1),
+               "reduce-scatter": Pin(once=8, first_stage=1),
+               "all-reduce": Pin(once=4),
+               "broadcast": Pin(once=2),
+               "p2p": Pin(per_handoff=2)}
 
 # name -> op -> Pin. Training: one train step on every rank at the pinned
 # mesh and 2-layer model, as totals (JAX pins its step's at one model
@@ -162,6 +186,34 @@ BUDGETS: Dict[str, Dict[str, Pin]] = {
                               "all-reduce": Pin(once=26),
                               "reduce-scatter": Pin(once=18),
                               "all-to-all": Pin(per_layer=4)},
+    # Layer-stack pp (dense, no remat) over dp=2, pp=2, one layer a stage,
+    # batch 8 of seq 32 (tests/test_torch_gpipe.py): FSDP's 16 gathers; the
+    # reduce-scatters of the rank's own layer's 7 matrices and the
+    # embedding and head (a received layer has no gradient to scatter);
+    # each layer's 9 leaves broadcast from their stage, and the
+    # pp-replicated leaves' gradients from pp rank 0; the norm adds its
+    # sum over pp.
+    "train/dp2_pp2": {"all-gather": Pin(once=16),
+                      "all-reduce": Pin(once=4),
+                      "reduce-scatter": Pin(once=9),
+                      "broadcast": Pin(once=1, per_layer=9)},
+    # The MoE model (4 experts) on dp=2, pp=2, ep=2, batch 8 of seq 32:
+    # train/dp2_ep2/moe's collectives with the layers' reduce-scatters on
+    # their stage only, 10 leaves a layer broadcast (the router's too),
+    # the pp grads' broadcast and the norm's sum over pp.
+    "train/dp2_pp2_ep2/moe": {"all-gather": Pin(once=18),
+                              "all-reduce": Pin(once=11),
+                              "reduce-scatter": Pin(once=10),
+                              "all-to-all": Pin(per_layer=4),
+                              "broadcast": Pin(once=1, per_layer=10)},
+    # The explicit GPipe schedule (dense, M microbatches) on pp=2 and on
+    # dp=2, pp=2 (a dp of 1 gathers and scatters over its group of one, so
+    # both meshes make the same calls), batch 8 of seq 32.
+    "train/gpipe/pp2": _GPIPE_STEP,
+    "train/gpipe/dp2_pp2": _GPIPE_STEP,
+    # The same on dp=2, pp=2, ep=2: the ep-replicated leaves' gradients,
+    # the norm and the loss's mean over ep add three all-reduces.
+    "train/gpipe/dp2_pp2_ep2": {**_GPIPE_STEP, "all-reduce": Pin(once=7)},
     "serve/prefill_chunk": _SERVE_STEP,
     "serve/decode_chunk/paged": _SERVE_STEP,
     # MoE on a tp serving mesh: every rank holds every expert's MLP block,
@@ -189,11 +241,21 @@ BUDGETS: Dict[str, Dict[str, Pin]] = {
 }
 
 
-def expected(name: str, n_layers: int = 2, steps: int = 1
+def expected(name: str, n_layers: int = 2, steps: int = 1,
+             microbatches: int = 0, stage: int = 0, stages: int = 1
              ) -> Dict[str, int]:
-    """The pinned counts of `name` at `n_layers` and `steps`."""
-    return {op: pin.count(n_layers, steps)
+    """The pinned counts of `name` at `n_layers` and `steps` (a GPipe
+    step's: at `microbatches`, on stage `stage` of `stages`)."""
+    return {op: pin.count(n_layers, steps, microbatches, stage, stages)
             for op, pin in BUDGETS[name].items()}
+
+
+def handoff_caps(rows: int, seq: int, d_model: int, itemsize: int
+                 ) -> Dict[str, int]:
+    """A GPipe handoff's cap: one microbatch's activation, `rows` (the
+    rank's rows of a microbatch) x `seq` x `d_model` values of
+    `itemsize` bytes."""
+    return {"p2p": rows * seq * d_model * itemsize}
 
 
 def row_caps(rows: int, d_model: int, vocab: int, tp: int) -> Dict[str, int]:

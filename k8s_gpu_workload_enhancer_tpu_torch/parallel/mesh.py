@@ -17,8 +17,14 @@ group).
   (parallel/sharding.py) and the token batch over (dp, ep) jointly, dp
   major; each MoE layer carries its tokens to their experts' ranks and
   back with an all-to-all over ep (models/transformer.py `_moe_ffn`).
-- ``pp``: pipeline parallelism. Not ported yet (ROADMAP A11d):
-  `check_supported` refuses a size above 1.
+- ``pp``: pipeline parallelism, in the JAX package's two forms. The
+  stacked (L, ...) layer leaves split over pp on their layer axis
+  (parallel/sharding.py, the rule "layers" -> "pp"): by default the
+  train step is the layer-stack form, where the batch is replicated over
+  pp and each layer's leaves come from the stage that holds them; with
+  the trainer main's --pipeline-microbatches it is the explicit GPipe
+  schedule, stage-to-stage activation handoffs over pp
+  (parallel/pipeline.py).
 
 The per-axis process groups are the DeviceMesh's
 (`mesh.get_group("tp")`, ...).
@@ -56,7 +62,8 @@ PIPELINE_AXIS = "pp"
 EXPERT_AXIS = "ep"
 FSDP_AXIS = "dp"
 
-_UNPORTED = {"pp": ("pipeline", "A11d")}
+# Axes a mesh may not yet take above 1: (kind, ROADMAP item). None now.
+_UNPORTED: Dict[str, Tuple[str, str]] = {}
 
 
 @dataclass(frozen=True)
@@ -134,16 +141,15 @@ class UnportedAxisError(ValueError):
 
 
 def check_supported(config: MeshConfig) -> None:
-    """Raise UnportedAxisError if ``pp`` exceeds 1: pipeline parallelism
-    is not ported yet, and a mesh that asks for it is refused, never run
-    as something else."""
+    """Raise UnportedAxisError if the mesh asks for parallelism the port
+    does not have, rather than running it as something else. Every axis
+    of `AXES` is ported, so no mesh is refused; callers keep the check."""
     for axis, (kind, item) in _UNPORTED.items():
         n = config.axis_sizes[axis]
         if n > 1:
             raise UnportedAxisError(
                 f"mesh axis {axis}={n}: {kind} parallelism is not ported "
-                f"yet (ROADMAP {item}); the port shards over dp, ep, tp "
-                f"and sp (mesh {config.describe()})")
+                f"yet (ROADMAP {item}) (mesh {config.describe()})")
 
 
 def make_mesh(config: Optional[MeshConfig] = None, device_type: str = "cuda"):

@@ -10,14 +10,16 @@ dim d to that mesh axis, `Replicate()` elsewhere), the counterpart of the
 JAX `shard_params`. FSDP is the rule "embed" -> "dp": every weight's model
 dim is split over the dp ranks, the norm scales stay replicated.
 
-`Fsdp` carries that layout into the train step, on a mesh whose dp, ep,
-tp and sp axes may each exceed 1. A rank holds each leaf's block as a
+`Fsdp` carries that layout into the train step, on a mesh whose dp, pp,
+ep, tp and sp axes may each exceed 1. A rank holds each leaf's block as a
 plain tensor: its dp block of the `embed` dim (rank r holds block r, as
-`Shard` lays it out), its ep block of the `expert` dim (the MoE experts,
-dim 1 of the stacked w_gate, w_up and w_down) and its tp block of the
-`heads`, `kv_heads`, `mlp` or `vocab` dim, so a leaf may be split on three
-dims, one for each axis; every leaf is replicated over sp, the norm scales
-over dp and tp, every leaf but the experts over ep. The step gathers a
+`Shard` lays it out), its pp block of the `layers` dim (dim 0 of every
+stacked leaf: stage r holds layers r*L/pp .. (r+1)*L/pp - 1), its ep block
+of the `expert` dim (the MoE experts, dim 1 of the stacked w_gate, w_up
+and w_down) and its tp block of the `heads`, `kv_heads`, `mlp` or `vocab`
+dim, so a leaf may be split on four dims, one for each axis; every leaf
+is replicated over sp, the norm scales over dp and tp, every leaf but the
+experts over ep, and embed, final_ln and lm_head over pp. The step gathers a
 layer's leaves over dp just before the layer uses them (inside the rank's
 ep and tp blocks): `all_gather_into_tensor` on the layer's slice of the
 stacked (L, ...) leaf, inside an autograd function whose backward
@@ -26,9 +28,28 @@ The kernels thus see the gathered weights as plain contiguous tensors.
 The token batch splits over (dp, ep) jointly, dp major (`rank_rows`, as
 `P(("dp", "ep"))` lays it out), so ep ranks read rows of their own and an
 MoE layer trades tokens with the ranks that hold their experts
-(`ep_comm`, the all-to-all of models/transformer.py `_moe_ffn`). After
-the backward, `reduce_grads_` finishes the gradients in one fixed order:
-the dp-replicated leaves' gradients are averaged over dp; the
+(`ep_comm`, the all-to-all of models/transformer.py `_moe_ffn`); the
+ranks of one (dp, ep) coordinate read the same rows whatever their pp
+(and tp, sp) coordinate.
+
+Pipeline parallelism, the layer-stack form (JAX's "layers" -> "pp" with
+the batch replicated over pp): every pp rank runs the whole model on the
+same rows, and `layer_params` takes layer i from the stage that holds it
+(stage i // (L/pp), local index i % (L/pp)), which broadcasts its block
+of the layer's leaves over pp just before use (`pp_comm`, one broadcast a
+leaf and layer). Since every pp rank computes the same function of the
+same rows, the owner's own gradient of its layers is the whole gradient:
+the broadcast's backward moves nothing (a received copy carries no
+autograd history), and a rank's backward computes weight gradients for
+its own layers only. The explicit GPipe schedule (parallel/pipeline.py)
+reads the stage's layers whole instead (`stage_params`).
+
+After the backward, `reduce_grads_` finishes the gradients in one fixed
+order: the pp-replicated leaves' gradients (embed, final_ln, lm_head) are
+pp rank 0's, broadcast over pp (every pp rank holds the same gradient in
+the layer-stack form; in the GPipe schedule only stage 0 embeds and every
+stage runs the same head), the stacked leaves' stay on their stage; the
+dp-replicated leaves' gradients are averaged over dp; the
 ep-replicated leaves' averaged over ep and the experts' divided by ep (the
 all-to-all's backward has summed their ep ranks' tokens into them
 already); every gradient averaged over sp (each sp rank's holds its
@@ -44,6 +65,8 @@ gloo, on the card over NCCL.
 `ExpertLayout` is the layout of a rank of an ep gang with no other live
 axis over any `Comm` (a ThreadGroup's on one card): what the MoE FFN
 reads of a layout, so the same `_moe_ffn` runs on virtual ep ranks.
+`StageLayout` is the same for a pp gang: the layer-stack form's
+`layer_params` and what the GPipe schedule reads, over a `Comm`.
 """
 
 from __future__ import annotations
@@ -54,7 +77,8 @@ import torch
 
 from . import comm
 from .comm import Comm, ProcessComm, all_gather
-from .mesh import EXPERT_AXIS, FSDP_AXIS, SEQ_AXIS, TENSOR_AXIS
+from .mesh import (EXPERT_AXIS, FSDP_AXIS, PIPELINE_AXIS, SEQ_AXIS,
+                   TENSOR_AXIS)
 
 LogicalAxes = Tuple[Optional[str], ...]
 
@@ -166,11 +190,28 @@ def _axis(mesh, name: str):
             mesh.get_local_rank(name))
 
 
+def _stage_layer(pp_comm: Optional[Comm], v: torch.Tensor, layer: int
+                 ) -> torch.Tensor:
+    """Layer `layer` of a stacked leaf split over pp on dim 0, of which
+    `v` is this rank's block of L/pp layers: the owning stage (layer //
+    (L/pp)) broadcasts its slice over pp (see the module note). On the
+    owner the slice keeps its autograd history; elsewhere the received
+    copy has none."""
+    if pp_comm is None or pp_comm.size == 1:
+        return v[layer]
+    owner, local = divmod(layer, v.shape[0])
+    if pp_comm.rank == owner:
+        pp_comm.broadcast(v[local].detach(), owner)
+        return v[local]
+    return pp_comm.broadcast(
+        torch.empty(v.shape[1:], dtype=v.dtype, device=v.device), owner)
+
+
 class Fsdp:
     """The layout of one model's param tree on a DeviceMesh whose live axes
-    are dp, ep, tp and sp (see the module note). `dims` holds each leaf's
-    dim sharded over dp, `ep_dims` over ep, `tp_dims` over tp (None:
-    replicated); `size` is the whole mesh's."""
+    are dp, pp, ep, tp and sp (see the module note). `dims` holds each
+    leaf's dim sharded over dp, `pp_dims` over pp, `ep_dims` over ep,
+    `tp_dims` over tp (None: replicated); `size` is the whole mesh's."""
 
     def __init__(self, model_cfg, mesh):
         from ..models import transformer as tf
@@ -180,6 +221,7 @@ class Fsdp:
         self.ep_group, self.ep, self.ep_rank = _axis(mesh, EXPERT_AXIS)
         self.tp_group, self.tp, self.tp_rank = _axis(mesh, TENSOR_AXIS)
         self.sp_group, self.sp, self.sp_rank = _axis(mesh, SEQ_AXIS)
+        self.pp_group, self.pp, self.pp_rank = _axis(mesh, PIPELINE_AXIS)
         if self.ep > 1 and model_cfg.n_experts % self.ep:
             raise ValueError(
                 f"n_experts {model_cfg.n_experts} cannot be split over "
@@ -188,6 +230,10 @@ class Fsdp:
         self.ep_comm: Optional[Comm] = ProcessComm(
             self.ep_group, torch.distributed.get_process_group_ranks(
                 self.ep_group)) if self.ep > 1 else None
+        # The pp ranks' handle: the layer broadcasts, the GPipe handoffs.
+        self.pp_comm: Optional[Comm] = ProcessComm(
+            self.pp_group, torch.distributed.get_process_group_ranks(
+                self.pp_group)) if self.pp > 1 else None
         # KV heads the tp ranks cannot split evenly: the KV projections are
         # replicated over tp (GSPMD would pad them; the function is the
         # same).
@@ -216,6 +262,7 @@ class Fsdp:
         self.dims = sharded_dim(FSDP_AXIS, self.world)
         self.ep_dims = sharded_dim(EXPERT_AXIS, self.ep)
         self.tp_dims = sharded_dim(TENSOR_AXIS, self.tp)
+        self.pp_dims = sharded_dim(PIPELINE_AXIS, self.pp)
 
     @property
     def is_primary(self) -> bool:
@@ -270,12 +317,14 @@ class Fsdp:
 
     def shard(self, full: torch.Tensor, dim: Optional[int],
               tp_dim: Optional[int] = None,
-              ep_dim: Optional[int] = None) -> torch.Tensor:
-        """This rank's block of `full`: its tp block of `tp_dim`, its ep
-        block of `ep_dim`, then its dp block of `dim` (`full` itself where
-        it holds all of it)."""
+              ep_dim: Optional[int] = None,
+              pp_dim: Optional[int] = None) -> torch.Tensor:
+        """This rank's block of `full`: its pp block of `pp_dim`, its tp
+        block of `tp_dim`, its ep block of `ep_dim`, then its dp block of
+        `dim` (`full` itself where it holds all of it)."""
         out = full
-        for d, n, r in ((tp_dim, self.tp, self.tp_rank),
+        for d, n, r in ((pp_dim, self.pp, self.pp_rank),
+                        (tp_dim, self.tp, self.tp_rank),
                         (ep_dim, self.ep, self.ep_rank),
                         (dim, self.world, self.rank)):
             if d is not None and n > 1:
@@ -284,7 +333,8 @@ class Fsdp:
         return out if out is full else out.clone()
 
     def shard_tree(self, tree):
-        return _map(self.shard, tree, self.dims, self.tp_dims, self.ep_dims)
+        return _map(self.shard, tree, self.dims, self.tp_dims, self.ep_dims,
+                    self.pp_dims)
 
     def full_tree(self, tree, to=None):
         """The full tensors of a sharded tree (no grad), each passed through
@@ -292,7 +342,7 @@ class Fsdp:
         every rank calls it)."""
         to = to or (lambda t: t)
 
-        def one(t, d, td, ed):
+        def one(t, d, td, ed, pd):
             t = t.detach()
             if d is not None:
                 t = self.all_gather(t, d)
@@ -300,9 +350,12 @@ class Fsdp:
                 t = all_gather(t, ed, self.ep_group, self.ep)
             if td is not None and self.tp > 1:
                 t = all_gather(t, td, self.tp_group, self.tp)
+            if pd is not None and self.pp > 1:
+                t = all_gather(t, pd, self.pp_group, self.pp)
             return to(t)
         with torch.no_grad():
-            return _map(one, tree, self.dims, self.tp_dims, self.ep_dims)
+            return _map(one, tree, self.dims, self.tp_dims, self.ep_dims,
+                        self.pp_dims)
 
     def gather(self, shard: torch.Tensor, dim: Optional[int]) -> torch.Tensor:
         """The leaf's tp block, whole over dp, for use in the forward; its
@@ -318,19 +371,31 @@ class Fsdp:
 
     def layer_params(self, params: Dict[str, Any], layer: int
                      ) -> Dict[str, torch.Tensor]:
-        """Layer `layer`'s slice of every stacked leaf, gathered."""
+        """Layer `layer`'s slice of every stacked leaf, from the stage that
+        holds it, gathered over dp."""
         dims = self.dims["layers"]
-        return {k: self.gather(v[layer], None if dims[k] is None
-                               else dims[k] - 1)
+        return {k: self.gather(_stage_layer(self.pp_comm, v, layer),
+                               None if dims[k] is None else dims[k] - 1)
+                for k, v in params["layers"].items()}
+
+    def stage_params(self, params: Dict[str, Any]
+                     ) -> Dict[str, torch.Tensor]:
+        """This stage's (L/pp, ...) blocks of the stacked leaves, gathered
+        over dp: a GPipe stage's weights (parallel/pipeline.py)."""
+        dims = self.dims["layers"]
+        return {k: self.gather(v, dims[k])
                 for k, v in params["layers"].items()}
 
     def reduce_grads_(self, grads: Dict[str, Any]) -> None:
         """Finish the gradients in place after the backward, in one fixed
-        order: the dp-replicated leaves' averaged over dp; the
-        ep-replicated leaves' averaged over ep, the experts' divided by
-        ep; every leaf's averaged over sp; the tp-replicated KV
-        projections' summed over tp. Each is one collective over a flat
-        f32 buffer."""
+        order: the pp-replicated leaves' are pp rank 0's; the
+        dp-replicated leaves' averaged over dp; the ep-replicated leaves'
+        averaged over ep, the experts' divided by ep; every leaf's averaged
+        over sp; the tp-replicated KV projections' summed over tp. Each is
+        one collective over a flat f32 buffer."""
+        if self.pp > 1:
+            _broadcast_flat([g for g, pd in _zip_leaves(grads, self.pp_dims)
+                             if pd is None], self.pp_comm)
         leaves = _zip_leaves(grads, self.dims, self.ep_dims)
         _reduce_flat([g for g, d, _ in leaves if d is None], self.group,
                      self.world)
@@ -350,17 +415,19 @@ class Fsdp:
         """The sum of squares of every element of the full gradient tree,
         f32: each leaf's blocks summed over the ranks that hold different
         blocks of it (dp where it is sharded over dp, ep where over ep, tp
-        where over tp), each block counted once."""
+        where over tp, pp where over pp), each block counted once."""
         owned = []
-        for g, d, ed, td in _zip_leaves(grads, self.dims, self.ep_dims,
-                                        self.tp_dims):
+        for g, d, ed, td, pd in _zip_leaves(grads, self.dims, self.ep_dims,
+                                            self.tp_dims, self.pp_dims):
             mine = ((d is not None or self.rank == 0)
                     and (ed is not None or self.ep_rank == 0)
-                    and (td is not None or self.tp_rank == 0))
+                    and (td is not None or self.tp_rank == 0)
+                    and (pd is not None or self.pp_rank == 0))
             sq = torch.sum(g.float() * g.float())
             owned.append(sq if mine else torch.zeros_like(sq))
         total = self.all_reduce_(torch.stack(owned).sum())
-        for group, n in ((self.ep_group, self.ep), (self.tp_group, self.tp)):
+        for group, n in ((self.ep_group, self.ep), (self.tp_group, self.tp),
+                         (self.pp_group, self.pp)):
             if n > 1:
                 comm.all_reduce(total, group)
         return total
@@ -375,20 +442,25 @@ class Fsdp:
         """This rank's batch coordinate, dp major over (dp, ep)."""
         return self.rank * self.ep + self.ep_rank
 
-    def rank_rows(self, tokens: torch.Tensor, grad_accum: int = 1
-                  ) -> torch.Tensor:
+    def rank_rows(self, tokens: torch.Tensor, grad_accum: int = 1,
+                  split: Optional[Tuple[int, int]] = None) -> torch.Tensor:
         """This rank's rows of a global token batch, as the JAX batch
         sharding over ("dp", "ep") gives them to its device: the
         contiguous block `batch_rank` of B/(dp*ep) rows of (B, S+1), or
         that block of every microbatch of (grad_accum, B/grad_accum, S+1).
-        Ranks that differ only in tp or sp read the same rows."""
+        Ranks that differ only in pp, tp or sp read the same rows. `split`
+        (blocks, this rank's block) overrides (dp*ep, batch_rank): the
+        GPipe schedule's batch axes (parallel/pipeline.batch_split)."""
+        blocks, block = split or (self.batch_ranks, self.batch_rank)
         axis = 0 if grad_accum == 1 else 1
         n = tokens.shape[axis]
-        if n % self.batch_ranks:
+        if n % blocks:
+            what = ("dp*ep" if split is None else "the pipeline's batch "
+                    "axes")
             raise ValueError(f"{n} rows a (micro)batch cannot be split over "
-                             f"dp*ep={self.batch_ranks}")
-        k = n // self.batch_ranks
-        return tokens.narrow(axis, self.batch_rank * k, k)
+                             f"{what}={blocks}")
+        k = n // blocks
+        return tokens.narrow(axis, block * k, k)
 
     def seq_shard(self, t: torch.Tensor) -> torch.Tensor:
         """This rank's sp shard of the positions (dim 1) of `t`."""
@@ -452,6 +524,61 @@ class ExpertLayout:
                 for n, t in lp.items()}
 
 
+class StageLayout:
+    """One rank of a pipeline (pp) gang with no other live axis, over
+    `comm` (its pp ranks; a ThreadGroup's on one card). The rank's params
+    hold its stage's (L/pp, ...) block of every stacked leaf
+    (`stage_block`) and every other leaf whole; every rank reads the same
+    rows. It gives the layer-stack form's `layer_params` (the owning
+    stage's broadcast, as `Fsdp`'s) and what the GPipe schedule reads
+    (`stage_params`, `leaf`, `pp_comm`); a MoE layer on it takes the
+    dense route, as on any mesh of more than one device."""
+
+    tp = sp = world = ep = 1
+    model_parallel = False
+    ep_comm = None
+
+    def __init__(self, comm: Comm):
+        self.pp_comm = comm
+        self.pp, self.pp_rank = comm.size, comm.rank
+        self.size = comm.size
+
+    def tp_copy(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def tp_sum(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def mean(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank holds the same rows: the rank's own (a new tensor)."""
+        return t.detach().clone()
+
+    def global_means(self, frac_tokens: torch.Tensor,
+                     frac_probs: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        return frac_tokens, frac_probs
+
+    def leaf(self, params: Dict[str, Any], name: str) -> torch.Tensor:
+        return params[name]
+
+    def layer_params(self, params: Dict[str, Any], layer: int
+                     ) -> Dict[str, torch.Tensor]:
+        """Layer `layer`'s leaves, from the stage that holds it."""
+        return {k: _stage_layer(self.pp_comm, v, layer)
+                for k, v in params["layers"].items()}
+
+    def stage_params(self, params: Dict[str, Any]
+                     ) -> Dict[str, torch.Tensor]:
+        return params["layers"]
+
+    def stage_block(self, layers: Dict[str, torch.Tensor]
+                    ) -> Dict[str, torch.Tensor]:
+        """This stage's block of full stacked leaves (views)."""
+        k = next(iter(layers.values())).shape[0] // self.pp
+        return {n: t.narrow(0, self.pp_rank * k, k)
+                for n, t in layers.items()}
+
+
 def _reduce_flat(grads, group, divisor: int) -> None:
     """All-reduce `grads` (summed, then divided by `divisor`) in place, as
     one flat f32 collective."""
@@ -461,6 +588,17 @@ def _reduce_flat(grads, group, divisor: int) -> None:
     comm.all_reduce(flat, group)
     if divisor != 1:
         flat.div_(divisor)
+    for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(part.view_as(g))
+
+
+def _broadcast_flat(grads, comm: Comm, src: int = 0) -> None:
+    """Rank `src`'s `grads`, written into every rank's in place, as one
+    flat f32 broadcast over `comm`."""
+    if not grads:
+        return
+    flat = comm.broadcast(torch.cat([g.reshape(-1).float() for g in grads]),
+                          src)
     for g, part in zip(grads, flat.split([g.numel() for g in grads])):
         g.copy_(part.view_as(g))
 

@@ -16,10 +16,10 @@ PROCESS_ID, world size NUM_PROCESSES, backend "nccl" on the card and
 hanging it. One process is one rank on one device,
 `cuda:{LOCAL_RANK or 0}` (the JAX package runs one process a host over
 all of its chips). The mesh is then a DeviceMesh of NUM_PROCESSES devices
-(parallel/mesh.py) whose dp, ep, tp and sp axes may exceed 1, from
-KTWE_MESH_AXES ("dp=2,ep=2,tp=2") or KTWE_STRATEGY (FSDP, TensorParallel,
-SequenceParallel, ExpertParallel, Hybrid, ...), as the JAX bootstrap
-reads them (`mesh_config`); pp above 1 is refused (ROADMAP A11d). At
+(parallel/mesh.py) whose dp, pp, ep, tp and sp axes may exceed 1, from
+KTWE_MESH_AXES ("dp=2,pp=2", "dp=2,ep=2,tp=2") or KTWE_STRATEGY (FSDP,
+PipelineParallel, TensorParallel, SequenceParallel, ExpertParallel,
+Hybrid, ...), as the JAX bootstrap reads them (`mesh_config`). At
 NUM_PROCESSES 1 the
 context is the single-process one, COORDINATOR_ADDRESS or not (as the JAX
 bootstrap starts no distributed runtime for one process): no process

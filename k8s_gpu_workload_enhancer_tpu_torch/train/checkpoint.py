@@ -24,10 +24,10 @@ does. `load_params` is the serving load: the file memory-mapped, only
 "params" kept, on the host; the Adam moments never reach the card.
 
 On a mesh (a TrainState with `fsdp`, train/trainer.py) `save` gathers
-the full tensors leaf by leaf over dp, ep and tp on every rank (a
+the full tensors leaf by leaf over dp, ep, tp and pp on every rank (a
 collective: every rank calls it) and only the primary writes, in the same
 format; `restore` loads the full tensors on every rank and keeps this
-rank's blocks of whatever (dp, ep, tp, sp) mesh the target lays out. A checkpoint
+rank's blocks of whatever (dp, pp, ep, tp, sp) mesh the target lays out. A checkpoint
 written by a gang of any size and shape thus resumes on any other, and on
 one device. `write_drain_marker` is the primary's alone (the trainer
 main calls it on the primary only).
@@ -113,7 +113,7 @@ def _snapshot(state: TrainState) -> Dict[str, Any]:
 def _place_like(got, want, path: str = "", fsdp=None, dims=None):
     """`got` with `want`'s structure, each leaf on the device and dtype of
     `want`'s leaf (under `fsdp`, this rank's block of it, `dims` a tree of
-    the (dp, tp, ep) sharded dims); ValueError on a tree or shape
+    the (dp, tp, ep, pp) sharded dims); ValueError on a tree or shape
     mismatch."""
     if isinstance(want, dict):
         if not isinstance(got, dict) or set(got) != set(want):
@@ -223,8 +223,8 @@ class CheckpointManager:
         opt = data["opt_state"]
         fsdp = target.fsdp
         dims = None if fsdp is None else tree_map(
-            lambda d, td, ed: (d, td, ed), fsdp.dims, fsdp.tp_dims,
-            fsdp.ep_dims)
+            lambda d, td, ed, pd: (d, td, ed, pd), fsdp.dims, fsdp.tp_dims,
+            fsdp.ep_dims, fsdp.pp_dims)
 
         def place(got, want, path):
             return _place_like(got, want, path, fsdp, dims)

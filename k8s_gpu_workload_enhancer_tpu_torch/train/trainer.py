@@ -1,20 +1,23 @@
-"""Trainer of KTWE-LM: one device, or a mesh of dp (FSDP), ep, tp and sp.
+"""Trainer of KTWE-LM: one device, or a mesh of dp (FSDP), pp, ep, tp and
+sp.
 
 Port of k8s_gpu_workload_enhancer_tpu/train/trainer.py. `init_state` and
 `train_loop` take the mesh, as the JAX ones do; without one (None) they
 train on one device. On a mesh (parallel/mesh.py: one rank a device; dp,
-ep, tp and sp may exceed 1) `init_state` shards the state as the JAX
+pp, ep, tp and sp may exceed 1) `init_state` shards the state as the JAX
 package's rules shard it and keeps the layout in `TrainState.fsdp`
 (parallel/sharding.Fsdp): each leaf with an `embed` axis, and its f32
-Adam moments, hold 1/dp of that axis on each rank, the MoE experts 1/ep,
-the heads, MLP and vocab axes 1/tp, the norm scales are replicated. The
+Adam moments, hold 1/dp of that axis on each rank, the stacked layer
+leaves 1/pp of their layer axis, the MoE experts 1/ep, the heads, MLP and
+vocab axes 1/tp, the norm scales are replicated. The
 step reads that layout from the state it is given. It takes this rank's
 rows of the global batch (`Fsdp.rank_rows`, by the (dp, ep) batch
 coordinate; `synthetic_batches` yields them; on an sp mesh the model
 takes the rank's shard of the positions after the input/target shift),
-gathers each layer's leaves over dp before use and reduce-scatters their
-gradients, then finishes them over dp, ep, sp and tp
-(`Fsdp.reduce_grads_`), once a microbatch, so the bf16 accumulator sums
+gathers each layer's leaves over dp (and from its pp stage) before use
+and reduce-scatters their gradients, then finishes them over pp, dp, ep,
+sp and tp (`Fsdp.reduce_grads_`), once a microbatch, so the bf16
+accumulator sums
 the global microbatch gradients as the JAX step does. The global norm
 counts every block of the mesh once; AdamW runs on the local blocks;
 loss, nll and aux are the means over every token of the global batch
@@ -25,7 +28,9 @@ leaf) scaled by a linear-warmup cosine schedule evaluated at the update's
 pre-increment count, with decay_steps = max(total_steps, warmup_steps + 1).
 The `grad_norm` metric is that of the unclipped gradients. The step
 updates params and optimizer state in place, where the JAX step donates
-its state.
+its state. Its loss is `tf.loss_fn` unless the caller passes another of
+the same contract, as the JAX step's `loss_fn` does (the explicit GPipe
+schedule, parallel/pipeline.gpipe_lm_loss).
 """
 
 from __future__ import annotations
@@ -191,12 +196,24 @@ def init_state(model_cfg: tf.TransformerConfig, train_cfg: TrainConfig,
 
 
 def _grad(loss: torch.Tensor, tree) -> Params:
+    """d loss / d every leaf of `tree`; zeros for a leaf the loss does not
+    use on this rank (a GPipe stage past the first never embeds)."""
     leaves = tree_leaves(tree)
-    grads = iter(torch.autograd.grad(loss, leaves))
-    return tree_map(lambda _: next(grads), tree)
+    grads = iter(torch.autograd.grad(loss, leaves, allow_unused=True))
+    return tree_map(lambda p: _or_zeros(next(grads), p), tree)
 
 
-def make_train_step(model_cfg: tf.TransformerConfig, train_cfg: TrainConfig
+def _or_zeros(g: Optional[torch.Tensor], p: torch.Tensor) -> torch.Tensor:
+    return torch.zeros_like(p) if g is None else g
+
+
+def _model_loss(params: Params, tokens: torch.Tensor,
+                model_cfg: tf.TransformerConfig, fsdp: Optional[Fsdp]):
+    return tf.loss_fn(params, tokens, model_cfg, fsdp=fsdp)
+
+
+def make_train_step(model_cfg: tf.TransformerConfig, train_cfg: TrainConfig,
+                    loss_fn: Optional[Callable] = None
                     ) -> Callable[[TrainState, torch.Tensor],
                                   Tuple[TrainState, Metrics]]:
     """Returns (state, tokens) -> (state, metrics), updating state in place.
@@ -205,8 +222,12 @@ def make_train_step(model_cfg: tf.TransformerConfig, train_cfg: TrainConfig
     for a state sharded over a mesh (`state.fsdp`) it is this rank's rows of
     that (`Fsdp.rank_rows`). The
     microbatches run one after another and the optimizer updates once per
-    global batch. The loss is `tf.loss_fn` (the JAX step's `loss_fn`
-    override serves the pipeline schedule, not ported)."""
+    global batch. `loss_fn` overrides the model loss, as the JAX step's
+    does: `(params, tokens, model_cfg, fsdp) -> (total, {nll, aux})`, the
+    contract of `tf.loss_fn` with the layout (None off a mesh) in the
+    JAX mesh's place (e.g. `parallel.pipeline.gpipe_lm_loss` to train
+    through the explicit GPipe schedule); None = `tf.loss_fn`."""
+    model_loss = loss_fn if loss_fn is not None else _model_loss
     optimizer = make_optimizer(train_cfg)
     acc = train_cfg.grad_accum
     acc_dt = torch.bfloat16 if train_cfg.grad_accum_dtype == "bf16" \
@@ -223,7 +244,7 @@ def make_train_step(model_cfg: tf.TransformerConfig, train_cfg: TrainConfig
 
     def loss_and_grads(params: Params, toks: torch.Tensor,
                        fsdp: Optional[Fsdp]):
-        total, parts = tf.loss_fn(params, toks, model_cfg, fsdp=fsdp)
+        total, parts = model_loss(params, toks, model_cfg, fsdp)
         grads = _grad(total, params)
         if fsdp is not None:
             fsdp.reduce_grads_(grads)
@@ -264,10 +285,13 @@ def make_train_step(model_cfg: tf.TransformerConfig, train_cfg: TrainConfig
 
 def synthetic_batches(model_cfg: tf.TransformerConfig,
                       train_cfg: TrainConfig, device="cuda",
-                      fsdp: Optional[Fsdp] = None) -> Iterator[torch.Tensor]:
+                      fsdp: Optional[Fsdp] = None,
+                      split: Optional[Tuple[int, int]] = None
+                      ) -> Iterator[torch.Tensor]:
     """Deterministic synthetic LM data, made on the device from seed + 1.
     Every rank draws the global batch; under `fsdp` (a state's layout) it
-    yields this rank's rows of it (`Fsdp.rank_rows`)."""
+    yields this rank's rows of it (`Fsdp.rank_rows`, `split` its
+    override)."""
     device = torch.device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(train_cfg.seed + 1)
@@ -277,7 +301,7 @@ def synthetic_batches(model_cfg: tf.TransformerConfig,
     while True:
         toks = torch.randint(0, model_cfg.vocab_size, shape, generator=gen,
                              device=device)
-        yield toks if fsdp is None else fsdp.rank_rows(toks, acc)
+        yield toks if fsdp is None else fsdp.rank_rows(toks, acc, split)
 
 
 def train_loop(model_cfg: tf.TransformerConfig, train_cfg: TrainConfig,
@@ -286,11 +310,13 @@ def train_loop(model_cfg: tf.TransformerConfig, train_cfg: TrainConfig,
                timer: Optional[StepTimer] = None,
                state: Optional[TrainState] = None,
                batches: Optional[Iterator[torch.Tensor]] = None,
-               mesh=None) -> Dict[str, Any]:
+               mesh=None, loss_fn: Optional[Callable] = None
+               ) -> Dict[str, Any]:
     """Train from `state` (default: a fresh state seeded from
     train_cfg.seed, sharded over `mesh` when one is given) until it
     reaches step `num_steps`, on `batches` (default: synthetic batches, this
-    rank's rows under `state.fsdp`). The step updates `state` in place.
+    rank's rows under `state.fsdp`). The step updates `state` in place;
+    `loss_fn` is `make_train_step`'s.
     Each step is timed by `timer` (a StepTimer, made here when None) and ends in
     a host read of the loss, so its wall time covers the device's work.
     `callback(i, metrics)` runs after step i (counted from 0 at a fresh
@@ -302,7 +328,7 @@ def train_loop(model_cfg: tf.TransformerConfig, train_cfg: TrainConfig,
         gen = torch.Generator(device=device)
         gen.manual_seed(train_cfg.seed)
         state = init_state(model_cfg, train_cfg, gen, mesh)
-    step = make_train_step(model_cfg, train_cfg)
+    step = make_train_step(model_cfg, train_cfg, loss_fn)
     if batches is None:
         batches = synthetic_batches(model_cfg, train_cfg, device, state.fsdp)
     timer = timer if timer is not None else StepTimer()

@@ -3,10 +3,10 @@ JAX package's (train/bootstrap.py, parallel/mesh.py, parallel/sharding.py).
 
 `parse_mesh_axes`, `auto_mesh_config` for 1..32 devices (with and without
 pp and ep) and `strategy_to_mesh_config` for every strategy give the JAX
-answers; the size-mismatch error is the JAX message; a live pp axis is
-refused naming ROADMAP A11d (by the bootstrap, by `make_mesh` and by the
-trainer main, exit 2), while a live ep, tp or sp axis passes, the MoE
-model on it too; the single-process context, also at
+answers; the size-mismatch error is the JAX message; a live pp, ep, tp or
+sp axis passes (the mesh check, the strategy that asks for pp, the
+trainer main's `refused`), the MoE model on it too; the single-process
+context, also at
 NUM_PROCESSES 1 with a coordinator, has no process group, and
 `group_of_one` joins a gloo group of one (the only group a test here
 starts, closed before it ends); `param_logical_axes`, `DEFAULT_RULES` and
@@ -124,36 +124,25 @@ def test_mesh_axes_size_mismatch_raises_the_jax_message():
 
 @pytest.mark.parametrize("axis", ["ep", "pp", "tp", "sp"])
 def test_a_live_model_parallel_axis_is_refused_naming_a11(axis, capsys):
+    """Every axis is ported: the mesh passes, and the trainer main refuses
+    nothing on it, MoE included (the gangs that train it:
+    tests/test_torch_expert_parallel.py, tests/test_torch_gpipe.py); the
+    strategy that asks for pp gives JAX's pp mesh, which passes too."""
     env = {"KTWE_MESH_AXES": f"dp=1,{axis}=2", "NUM_PROCESSES": "2",
            "PROCESS_ID": "0", "COORDINATOR_ADDRESS": "localhost:1"}
-    if axis in ("ep", "tp", "sp"):
-        # Ported: the mesh passes, and the trainer main refuses nothing on
-        # it, MoE included (the gangs that train it:
-        # tests/test_torch_expert_parallel.py).
-        tmesh.check_supported(tmesh.MeshConfig(**{axis: 2}))
-        args = cli.build_parser().parse_args(["--device", "cpu", "--steps",
-                                              "1", "--n-experts", "4"])
-        assert cli.refused(args, tboot.mesh_config(env)) is None
-        assert not dist.is_initialized()
-        return
-    with pytest.raises(tmesh.UnportedAxisError,
-                       match=f"{axis}=2.*ROADMAP A11d"):
-        tboot.initialize(env, device="cpu")
-    with pytest.raises(ValueError, match="ROADMAP A11"):
-        tmesh.check_supported(tmesh.MeshConfig(**{axis: 2}))
-    # The strategy that asks for it is refused too.
-    with pytest.raises(tmesh.UnportedAxisError):
-        tboot.initialize({"KTWE_STRATEGY": "PipelineParallel",
-                          "NUM_PROCESSES": "2",
-                          "COORDINATOR_ADDRESS": "localhost:1"},
-                         device="cpu")
-    # The trainer main exits 2 naming A11d, as for --pipeline-microbatches.
-    assert cli.main(["--device", "cpu", "--steps", "1"],
-                    env=env) == cli.EXIT_REFUSED
-    assert "ROADMAP A11d" in capsys.readouterr().err
-    assert cli.main(["--device", "cpu", "--steps", "1",
-                     "--pipeline-microbatches", "2"]) == cli.EXIT_REFUSED
-    assert "ROADMAP A11d" in capsys.readouterr().err
+    tmesh.check_supported(tmesh.MeshConfig(**{axis: 2}))
+    args = cli.build_parser().parse_args(["--device", "cpu", "--steps",
+                                          "1", "--n-experts", "4"])
+    assert cli.refused(args, tboot.mesh_config(env)) is None
+    if axis == "pp":
+        strategy = {"KTWE_STRATEGY": "PipelineParallel",
+                    "NUM_PROCESSES": "2",
+                    "COORDINATOR_ADDRESS": "localhost:1"}
+        cfg = tboot.mesh_config(strategy)
+        assert cfg == tmesh.MeshConfig(pp=2)
+        tmesh.check_supported(cfg)
+        assert cli.refused(args, cfg) is None
+        assert "A11d" not in capsys.readouterr().err
     assert not dist.is_initialized()
 
 

@@ -27,7 +27,7 @@ as the JAX side (f32, `params_from_numpy`):
 
 The trainer main runs as gangs of four through KTWE_MESH_AXES (tp=2,
 sp=2 on synthetic data; dp=2, tp=2 on a token shard) and prints the lines
-one process prints; pp exits 2 naming A11d, while ep and MoE on tp or sp
+one process prints; pp, ep and MoE on tp or sp
 are accepted (their gangs: tests/test_torch_expert_parallel.py); MoE
 through the model-parallel forward on a one-rank layout equals the
 one-device model; the token pipeline splits over dp alone.
@@ -420,15 +420,11 @@ def test_trainer_main_gangs_with_tp_and_sp_print_the_one_process_lines(
     ("sp=2", ["--n-experts", "4"]), ("dp=2,tp=2,sp=2",
                                      ["--n-experts", "4"])])
 def test_trainer_main_refuses_ep_pp_and_moe_on_tp_or_sp(axes, extra, capsys):
-    """pp above 1 still exits 2 naming ROADMAP A11d; ep, and MoE on tp or
-    sp, are ported: the main refuses none of them."""
+    """pp, ep, and MoE on tp or sp, are ported: the main refuses none of
+    them (the pp gangs that train: tests/test_torch_gpipe.py)."""
     n = int(np.prod([int(a.split("=")[1]) for a in axes.split(",")]))
     env = {"KTWE_MESH_AXES": axes, "NUM_PROCESSES": str(n),
            "PROCESS_ID": "0", "COORDINATOR_ADDRESS": "localhost:1"}
-    if axes == "pp=2":
-        assert cli.main(TINY + extra, env=env) == cli.EXIT_REFUSED
-        assert "ROADMAP A11d" in capsys.readouterr().err
-        return
     args = cli.build_parser().parse_args(TINY + extra)
     assert cli.refused(args, tboot.mesh_config(env)) is None
 

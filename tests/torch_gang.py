@@ -17,8 +17,13 @@ trees to JOB_DIR/<job name>.npz. A job of kind "train" (the default)
 trains, saves and restores; "forward" writes the rank's block of the
 logits (and, for an MoE model, the aux loss), "grads" the loss and the
 full gradient tree, "ring" the rank's
-ring attention output and gradients, each rank to JOB_DIR/<job
-name>-rank{RANK}.npz. Imports torch and the port only: no jax.
+ring attention output and gradients, "tanh" the GPipe schedule's output
+and its stage's gradients on a tanh layer (parallel/pipeline.py, the
+JAX test's toy stage), each rank to JOB_DIR/<job
+name>-rank{RANK}.npz. A train or grads job with "gpipe": M trains
+through the explicit GPipe schedule (`pipeline.gpipe_lm_loss`, M
+microbatches), each rank on its rows by the schedule's batch axes.
+Imports torch and the port only: no jax.
 """
 
 import json
@@ -37,7 +42,11 @@ sys.path.insert(0, str(ROOT))
 
 from k8s_gpu_workload_enhancer_tpu_torch.models import transformer as tf  # noqa: E402
 from k8s_gpu_workload_enhancer_tpu_torch.parallel import (  # noqa: E402
-    comm_gate, ring_attention as ring)
+    comm_gate, pipeline, ring_attention as ring)
+from k8s_gpu_workload_enhancer_tpu_torch.parallel.comm import (  # noqa: E402
+    ProcessComm)
+from k8s_gpu_workload_enhancer_tpu_torch.parallel.sharding import (  # noqa: E402
+    StageLayout)
 from k8s_gpu_workload_enhancer_tpu_torch.train import (  # noqa: E402
     bootstrap, checkpoint, trainer)
 
@@ -173,7 +182,50 @@ def block_sizes(state) -> dict:
 
 
 def coords(ctx) -> dict:
-    return {a: ctx.mesh.get_local_rank(a) for a in ("dp", "ep", "tp", "sp")}
+    return {a: ctx.mesh.get_local_rank(a)
+            for a in ("dp", "pp", "ep", "tp", "sp")}
+
+
+def loss_of(job):
+    """The job's loss override: the GPipe schedule's with "gpipe": M."""
+    if not job.get("gpipe"):
+        return None
+    m = job["gpipe"]
+    return lambda p, t, c, f: pipeline.gpipe_lm_loss(p, t, c, f, m)
+
+
+def rows_of(job, fsdp, tokens, grad_accum=1):
+    """This rank's rows of a global batch: by (dp, ep), or on the GPipe
+    path by the schedule's batch axes."""
+    split = None
+    if job.get("gpipe"):
+        micro = tokens.shape[0 if grad_accum == 1 else 1] // job["gpipe"]
+        split = pipeline.batch_split(fsdp, micro)
+    return fsdp.rank_rows(tokens, grad_accum, split)
+
+
+def run_tanh(job, inputs, ctx, out_path: pathlib.Path) -> dict:
+    """`gpipe` of the tanh stage over this rank's pp group (its stage's
+    layers of the job's w and b, the whole xs on every rank), and the
+    gradients of mean(out^2) for its stage's w and b."""
+    group = ctx.mesh.get_group("pp")
+    layout = StageLayout(ProcessComm(
+        group, torch.distributed.get_process_group_ranks(group)))
+    full = {k: torch.from_numpy(inputs[f"{job['tensors']}/{k}"])
+            for k in ("w", "b")}
+    mine = {k: v.clone().requires_grad_(True)
+            for k, v in layout.stage_block(full).items()}
+    xs = torch.from_numpy(inputs[f"{job['tensors']}/xs"])
+
+    def layer(x, lp):
+        return torch.tanh(x @ lp["w"] + lp["b"])
+    with comm_gate.record() as calls:
+        out = pipeline.gpipe(pipeline.stack_stage_fn(layer), mine, xs,
+                             layout)
+        (out ** 2).mean().backward()
+    np.savez(out_path, out=out.detach().numpy(), w=mine["w"].grad.numpy(),
+             b=mine["b"].grad.numpy())
+    return {"coords": coords(ctx), "collectives": calls}
 
 
 def run_ring(job, inputs, ctx, out_path: pathlib.Path) -> dict:
@@ -230,18 +282,25 @@ def run_grads(job, inputs, state, model, ctx, job_dir) -> dict:
     gradients finished as the train step finishes them."""
     fsdp = state.fsdp
     toks = torch.from_numpy(inputs[job["batch"]]).long()
-    total, parts = tf.loss_fn(state.params, fsdp.rank_rows(toks), model,
-                              fsdp=fsdp)
+    rows = rows_of(job, fsdp, toks)
+    gpipe = loss_of(job)
+    with comm_gate.record() as calls:
+        total, parts = (tf.loss_fn(state.params, rows, model, fsdp=fsdp)
+                        if gpipe is None else
+                        gpipe(state.params, rows, model, fsdp))
     leaves = trainer.tree_leaves(state.params)
-    grads = iter(torch.autograd.grad(total, leaves))
-    grads = trainer.tree_map(lambda _: next(grads), state.params)
-    fsdp.reduce_grads_(grads)
+    with comm_gate.record() as more:
+        grads = trainer._grad(total, state.params)
+        fsdp.reduce_grads_(grads)
+    calls += more
     norm = float(trainer.global_norm(grads, fsdp))
     full = fsdp.full_tree(grads)
     if ctx.is_primary:
         np.savez(job_dir / f"{job['name']}.npz",
                  **{f"grads{k}": v.numpy() for k, v in flat(full).items()})
-    return {"loss": float(fsdp.mean(total.detach())), "grad_norm": norm}
+    return {"loss": float(fsdp.mean(total.detach())), "grad_norm": norm,
+            "rows": list(rows.shape), "coords": coords(ctx),
+            "collectives": calls}
 
 
 def run_job(job, inputs, ctx, job_dir: pathlib.Path) -> dict:
@@ -249,6 +308,8 @@ def run_job(job, inputs, ctx, job_dir: pathlib.Path) -> dict:
     rank_file = job_dir / f"{job['name']}-rank{dist_rank()}.npz"
     if kind == "ring":
         return run_ring(job, inputs, ctx, rank_file)
+    if kind == "tanh":
+        return run_tanh(job, inputs, ctx, rank_file)
     model, train = configs(job)
     state = state_from(job, inputs, model, train, ctx.mesh)
     if kind == "forward":
@@ -259,13 +320,13 @@ def run_job(job, inputs, ctx, job_dir: pathlib.Path) -> dict:
     if job.get("restore"):
         state = checkpoint.CheckpointManager(
             str(job_dir / job["restore"])).restore(None, state)
-    step = trainer.make_train_step(model, train)
+    step = trainer.make_train_step(model, train, loss_of(job))
     metrics, collectives = [], []
     for i in range(job.get("steps", 0)):
         toks = torch.from_numpy(inputs[f"{job['batches']}/{i}"]).long()
         with comm_gate.record() as calls:
-            state, m = step(state, state.fsdp.rank_rows(toks,
-                                                        train.grad_accum))
+            state, m = step(state, rows_of(job, state.fsdp, toks,
+                                           train.grad_accum))
         metrics.append({k: float(m[k]) for k in
                         ("loss", "nll", "aux", "grad_norm")})
         collectives.append(calls)
@@ -279,7 +340,8 @@ def run_job(job, inputs, ctx, job_dir: pathlib.Path) -> dict:
             "count": state.opt_state["count"], "collectives": collectives,
             "blocks": block_sizes(state), "dims": flat(state.fsdp.dims),
             "tp_dims": flat(state.fsdp.tp_dims),
-            "ep_dims": flat(state.fsdp.ep_dims), "coords": coords(ctx)}
+            "ep_dims": flat(state.fsdp.ep_dims),
+            "pp_dims": flat(state.fsdp.pp_dims), "coords": coords(ctx)}
 
 
 def dist_rank() -> int:
