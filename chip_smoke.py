@@ -235,10 +235,20 @@ inits in bf16:
      2048), batch 2, bf16, with 16 heads of 128 and 4 of 512, and holds
      its output and gradients (autograd through the blocks) against one
      `flash_attention_train` call on the whole causal sequence (RING_RTOL,
-     RING_ATOL_OF_MAX). It prints the launches of flash rows 6-9 (the
-     schedule's and, apart, the single call's), ms of forward plus
-     backward of each, and their peak GB; a multi-rank ring needs more
-     than one card. The ep phase (expert parallelism,
+     RING_ATOL_OF_MAX). The gathered form (JAX's use_ring_attention=False,
+     `gathered_attention`) runs on 4 virtual sp ranks of a ThreadGroup at
+     the same shapes: each rank's 2048 queries at their global offset over
+     the whole 8192 keys gathered from the ranks (one autograd node), the
+     flash kernels at Sq 2048, Sk 8192 and a nonzero q_offset (16 heads of
+     128: the recompute dK/dV, row 9, the stash over its gate; 4 of 512:
+     the stash dK/dV, row 8), one backward over the ranks' losses; its
+     output and gradients are held to the single call and to the ring at
+     the same limits, and each rank's own dK and dV of the gathered K/V
+     (the kernels called at its offset) to exact zeros on every row past
+     its last query. It prints the launches of flash rows 6-9 (the
+     schedule's, the gathered form's forward by rank and backward, and,
+     apart, the single call's), ms of forward plus backward of each, and
+     their peak GB; a multi-rank ring needs more than one card. The ep phase (expert parallelism,
      models/transformer.py `_moe_ffn` under parallel/sharding.ExpertLayout)
      runs the embedding and 2 MoE blocks at the trainer's widths (4
      experts, d_ff 8192, 16 heads of 128, seq 2048) on 4 virtual ep ranks
@@ -279,10 +289,19 @@ inits in bf16:
      stage's pin (parallel/comm_gate.py `train/gpipe/pp2`: one a
      microbatch and neighbour each way), each at most one microbatch's
      activation; (b)'s broadcasts 10 a layer a rank (the pin
-     `train/dp2_pp2_ep2/moe`). It prints a `pp` line with bubble_fraction,
+     `train/dp2_pp2_ep2/moe`). (c) The GPipe schedule on a virtual (pp=2,
+     tp=2) gang (StageLayout with a tp Comm, JAX's schedule replicated over
+     tp): the trainer's widths cut to 4 layers (2 a stage), the batch of 8
+     as 4 microbatches of 2, each rank its tp blocks, the stage gathered
+     whole over tp (every tp rank runs whole heads and the whole MLP: rows
+     1, 3 and 6 on every rank as in (a)), the embedding, head and CE
+     vocab-parallel (no row 13); the f32 loss and every gradient leaf
+     (the ranks' blocks joined) held to one device's, bf16 recorded, the
+     gang's collectives exactly the ranks' pins (`train/gpipe/pp2_tp2/
+     threads`). It prints a `pp` line with bubble_fraction,
      host ms of the gang and of one device, peak GB, the launches and the
-     handoffs; p2p between cards needs more than one card and is not
-     measured. The mesh phase (serving meshes, models/serving.py)
+     handoffs; p2p and tp gathers between cards need more than one card
+     and are not measured. The mesh phase (serving meshes, models/serving.py)
      runs the meshed programs at the serve defaults' full width on
      virtual gangs of threads on the one card (parallel/comm.ThreadGroup):
      the dense engine on (dp=2, tp=4), f32 transcripts of 8 prompts gated
@@ -584,6 +603,11 @@ EP_RANKS, EP_LAYERS, EP_BATCH, EP_SEED = 4, 2, 8, 61
 # the ep phase's MoE blocks (MOE_EXPERTS experts, EP_LAYERS layers: one a
 # stage) on EP_BATCH rows a rank (the recompute dK/dV).
 PP_STAGES, PP_MICRO, PP_LS_STAGES, PP_SEED = 4, 4, 2, 67
+# (c) the GPipe schedule on a (PP_TP_STAGES, PP_TP) gang of threads at the
+# trainer's widths cut to PP_TP_LAYERS layers: every tp rank holds its
+# stage whole, so the gang holds each stage's weights and activations
+# PP_TP times over.
+PP_TP_STAGES, PP_TP, PP_TP_LAYERS = 2, 2, 4
 
 # Kernel vs plain version in bf16: both round once from f32, so they differ
 # by at most a couple of bf16 ulps (2^-8 relative) where their f32 sums are
@@ -1282,19 +1306,51 @@ def ring_schedule(ring, shards, sp: int) -> list:
     return outs
 
 
+def masked_tail_zeros(flash, q, k, v, do, sp: int) -> list:
+    """Each sp rank's own dK and dV of the whole K/V (the backward
+    kernels called at its queries' global offset r * S/sp, Sk = S): the
+    count of nonzero entries on the rows past its last query (want 0),
+    and on the rows before (want > 0), for every rank with such a tail."""
+    s = q.shape[1] // sp
+    out = []
+    for r in range(sp - 1):
+        qr = q[:, r * s:(r + 1) * s].contiguous()
+        dor = do[:, r * s:(r + 1) * s].contiguous()
+        o, lse = flash.flash_attention(qr, k, v, True, r * s, 0,
+                                       return_lse=True)
+        _, dk, dv = flash.flash_attention_backward(qr, k, v, o, lse, dor,
+                                                   True, r * s, 0)
+        end = (r + 1) * s
+        out.append(dict(
+            rank=r, tail_rows=q.shape[1] - end,
+            tail_nonzero=int(torch.count_nonzero(dk[:, end:]))
+            + int(torch.count_nonzero(dv[:, end:])),
+            head_nonzero=int(torch.count_nonzero(dk[:, :end]))
+            + int(torch.count_nonzero(dv[:, :end]))))
+        del o, lse, dk, dv
+    return out
+
+
 def run_ring(dev, flash, ring, kernels, card: str) -> dict:
     """The ring phase (see RING_SP): the LSE entry point against its plain
     versions, then the ring schedule at seq RING_SEQ against one
     whole-sequence flash_attention_train call, forward and backward
-    (autograd through the blocks), held at RING_RTOL / RING_ATOL_OF_MAX.
-    Launches are one forward and backward of the schedule (the phase's)
-    and of the single call (apart); ms each over eager calls between CUDA
-    events, in turns; the peak GB each allocates above what is allocated
-    when it starts (the inputs and the phase's other tensors)."""
+    (autograd through the blocks), held at RING_RTOL / RING_ATOL_OF_MAX;
+    and the gathered form (`gathered_attention` on RING_SP virtual ranks
+    of a ThreadGroup, one backward over their losses) against both, with
+    each rank's masked K/V tail held to exact zero dK and dV
+    (`masked_tail_zeros`). Launches are one forward and backward of the
+    schedule (the phase's), of the gathered form (`gathered`: forward by
+    rank, backward) and of the single call (apart); ms each over eager
+    calls between CUDA events, in turns; the peak GB each allocates above
+    what is allocated when it starts (the inputs and the phase's other
+    tensors)."""
+    from k8s_gpu_workload_enhancer_tpu_torch.parallel.comm import ThreadGroup
     out = {"card": card, "lse_entry": [check_lse_entry(dev, flash, sh, dt)
                                        for sh, dt in LSE_SHAPES]}
     gen = torch.Generator(device=dev).manual_seed(25)
     launches, single_launches, cases = {}, {}, []
+    gathered_launches = collections.Counter()
     for h, d in RING_HEADS:
         shape = (RING_BATCH, RING_SEQ, h, d)
         q, k, v, do = (torch.randn(shape, generator=gen, device=dev)
@@ -1319,6 +1375,22 @@ def run_ring(dev, flash, ring, kernels, card: str) -> dict:
         def single_run():
             o = flash.flash_attention_train(qf, kf, vf, True)
             return o, torch.autograd.grad(o, (qf, kf, vf), do)
+        gq, gk, gv = shards(q), shards(k), shards(v)
+        g_leaves = gq + gk + gv
+        group = ThreadGroup(RING_SP)
+        idents = [None] * RING_SP
+
+        def gathered_rank(r):
+            idents[r] = threading.get_ident()
+            return ring.gathered_attention(gq[r], gk[r], gv[r],
+                                           group.comm(r), True)
+
+        def gathered_run():
+            outs = on_thread_group(group, RING_SP, gathered_rank,
+                                   "ring gathered")
+            loss = sum((o.float() * g.float()).sum()
+                       for o, g in zip(outs, dos))
+            return outs, torch.autograd.grad(loss, g_leaves)
         if not ring.ring_uses_flash(qs[0], ks[0], True):
             fail(f"ring shards {tuple(qs[0].shape)} miss the flash gate")
         kernels.reset_launches()
@@ -1339,6 +1411,36 @@ def run_ring(dev, flash, ring, kernels, card: str) -> dict:
         for name, n in kernels.launches.items():
             single_launches[name] = single_launches.get(name, 0) + n
         case_single = dict(kernels.launches)
+        with rank_launches(kernels) as by_rank:
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            g_outs, g_grads = gathered_run()
+            torch.cuda.synchronize()
+            gathered_peak = (torch.cuda.max_memory_allocated(dev)
+                             - base) / 1e9
+            g_fwd = [dict(by_rank.by_thread[i]) for i in idents]
+            g_total = {k: v for k, v in by_rank.items() if v}
+        fwd_sum = sum_counts(g_fwd)
+        g_bwd = {k: v - fwd_sum.get(k, 0) for k, v in g_total.items()
+                 if v - fwd_sum.get(k, 0)}
+        gathered_launches.update(g_total)
+        stash = flash.stash_bytes(gq[0], k, gq[0]) \
+            <= flash.PDS_STASH_LIMIT_BYTES
+        dkv = flash.KERNEL_BWD_DKV_STASH if stash else flash.KERNEL_BWD_DKV
+        want_fwd = {flash.KERNEL: 1, flash.KERNEL_WGMMA: 1}
+        want_bwd = {flash.KERNEL_BWD_DQ: RING_SP,
+                    flash.KERNEL_BWD_DQ_WGMMA: RING_SP, dkv: RING_SP,
+                    WGMMA_COUNTERS[dkv]: RING_SP}
+        if any(f != want_fwd for f in g_fwd) or g_bwd != want_bwd:
+            fail(f"ring gathered at {shape}: forward launches by rank "
+                 f"{g_fwd}, backward {g_bwd}; want {want_fwd} a rank and "
+                 f"{want_bwd}")
+        tails = masked_tail_zeros(flash, q, k, v, do, RING_SP)
+        for t in tails:
+            if t["tail_nonzero"] or not t["head_nonzero"]:
+                fail(f"ring gathered at {shape}: rank {t['rank']}'s dK/dV "
+                     f"has {t['tail_nonzero']} nonzero entries past its "
+                     f"last query ({t['head_nonzero']} before)")
         errs = {}
         got = {"o": torch.cat(outs, dim=1)}
         for i, name in enumerate(("dq", "dk", "dv")):
@@ -1351,11 +1453,27 @@ def run_ring(dev, flash, ring, kernels, card: str) -> dict:
             if not ok:
                 fail(f"ring schedule {name} at {shape} against the single "
                      f"call: max abs err {ea}, rel {er}")
-        del outs, grads, o_single, g_single, got, want
-        ms = {"ring": [], "single": []}
-        for which in ("ring", "single", "single", "ring"):
-            run = ring_run if which == "ring" else single_run
-            ms[which].append(wrapper_ms(run, iters=3, warmup=1))
+        gathered = {"o": torch.cat(g_outs, dim=1)}
+        for i, name in enumerate(("dq", "dk", "dv")):
+            gathered[name] = torch.cat(
+                g_grads[i * RING_SP:(i + 1) * RING_SP], dim=1)
+        g_errs = {}
+        for against, ref in (("single", want), ("ring", got)):
+            for name in gathered:
+                ea, er, ok, of_max = ring_errors(gathered[name], ref[name])
+                g_errs[f"{name}_vs_{against}"] = dict(
+                    max_abs_err=ea, max_rel_err=er, err_of_max=of_max)
+                if not ok:
+                    fail(f"ring gathered {name} at {shape} against the "
+                         f"{against}: max abs err {ea}, rel {er}")
+        del outs, grads, o_single, g_single, got, want, g_outs, g_grads
+        del gathered
+        ms = {"ring": [], "single": [], "gathered": []}
+        runs = {"ring": ring_run, "single": single_run,
+                "gathered": gathered_run}
+        for which in ("ring", "single", "gathered", "gathered", "single",
+                      "ring"):
+            ms[which].append(wrapper_ms(runs[which], iters=3, warmup=1))
         # Causal attention forward and backward (3.5x the forward's 2 * 2
         # * B * H * S^2 * D / 2 operations); q, k, v, dO read and O, dQ,
         # dK, dV written once.
@@ -1368,8 +1486,16 @@ def run_ring(dev, flash, ring, kernels, card: str) -> dict:
             ms_ring=ms["ring"], ms_single=ms["single"],
             ratio=sum(ms["ring"]) / sum(ms["single"]), bound_ms=bound_ms,
             bound_by=bound_by, peak_gb_above_inputs_ring=ring_peak,
-            peak_gb_above_inputs_single=single_peak))
+            peak_gb_above_inputs_single=single_peak,
+            gathered=dict(
+                errors=g_errs, stash=stash,
+                launches_forward_by_rank=g_fwd, launches_backward=g_bwd,
+                masked_tail=tails, ms=ms["gathered"],
+                ratio_to_single=sum(ms["gathered"]) / sum(ms["single"]),
+                ratio_to_ring=sum(ms["gathered"]) / sum(ms["ring"]),
+                peak_gb_above_inputs=gathered_peak)))
         del q, k, v, do, qs, ks, vs, leaves, dos, qf, kf, vf
+        del gq, gk, gv, g_leaves, group
         torch.cuda.empty_cache()
     rows = (flash.KERNEL, flash.KERNEL_BWD_DQ, flash.KERNEL_BWD_DKV_STASH,
             flash.KERNEL_BWD_DKV)
@@ -1379,7 +1505,11 @@ def run_ring(dev, flash, ring, kernels, card: str) -> dict:
     for name in rows[:3]:
         if launches.get(name, 0) <= 0:
             fail(f"ring schedule: {name} never launched")
+    for name in rows:
+        if gathered_launches.get(name, 0) <= 0:
+            fail(f"ring gathered: {name} never launched")
     out.update(cases=cases, launches=launches,
+               gathered=dict(launches=dict(gathered_launches)),
                single_call_launches=single_launches,
                tolerance=dict(rtol=RING_RTOL, atol_of_max=RING_ATOL_OF_MAX,
                               lse_atol=LSE_ATOL))
@@ -3601,9 +3731,11 @@ def rank_launches(kernels):
 
 
 def pp_stage_launches(stage: int, stages: int, layers: int, micro: int,
-                      stash: bool, bf16: bool, gpipe: bool) -> tuple:
+                      stash: bool, bf16: bool, gpipe: bool,
+                      embed: bool = True) -> tuple:
     """(forward, backward) launches of one rank of a pp gang: stage 0's
-    embedding; per layer it runs and microbatch two norms, q and k
+    embedding (none where `embed` is False: the vocab-parallel lookup of
+    a tp gang); per layer it runs and microbatch two norms, q and k
     rotated, one flash forward; the backward the same layers' norms,
     rotations, dQ and dK/dV (the stash kernel where it fits its gate); the
     GPipe path's final norm on every stage. In the layer-stack form (not
@@ -3611,7 +3743,7 @@ def pp_stage_launches(stage: int, stages: int, layers: int, micro: int,
     n = layers * micro
     fwd = {"rms_norm": 2 * n + int(gpipe), "rope": 2 * n,
            "flash_attention": n}
-    if stage == 0 or not gpipe:
+    if embed and (stage == 0 or not gpipe):
         fwd["embed_gather"] = 1
     bwd = {"rms_norm_bwd": 2 * n + int(gpipe), "rope": 2 * n,
            "flash_attention_bwd_dq": n,
@@ -3669,12 +3801,161 @@ def grad_errors(names, grads, want) -> dict:
     return {n: rel_err(g, w) for n, g, w in zip(names, grads, want)}
 
 
+class Groups:
+    """Several ThreadGroups aborted as one (`on_thread_group`'s group)."""
+
+    def __init__(self, groups):
+        self.groups = groups
+
+    def abort(self) -> None:
+        for g in self.groups:
+            g.abort()
+
+
+def run_pp_tp(dev, tf, pipeline, flash, kernels, comm_gate, base_dims,
+              dtype) -> dict:
+    """The pp phase's (c) (see PP_TP_STAGES) at `dtype`: `gpipe_lm_loss`
+    on a (PP_TP_STAGES, PP_TP) gang of threads, rank r at stage r // PP_TP
+    and tp coordinate r % PP_TP, each with its stage's tp blocks, one
+    backward over the sum of the ranks' losses, against one device's
+    `tf.loss_fn` on the same weights and rows: the errors, the launches
+    (forward by rank, backward), the gang's collectives against the pin
+    `train/gpipe/pp2_tp2/threads`, host ms and peak GB. Gate failures are
+    returned under "gates"."""
+    from k8s_gpu_workload_enhancer_tpu_torch.parallel.comm import ThreadGroup
+    from k8s_gpu_workload_enhancer_tpu_torch.parallel.sharding import (
+        StageLayout)
+    dt = str(dtype).split(".")[-1]
+    bf16 = dtype == torch.bfloat16
+    seq, n = base_dims["max_seq"], PP_TP_STAGES * PP_TP
+    rows = TRAIN_BATCH // PP_MICRO
+    gates = []
+    cfg = tf.TransformerConfig(**dict(base_dims, n_layers=PP_TP_LAYERS),
+                               dtype=dtype)
+    gen = torch.Generator(device=dev).manual_seed(PP_SEED + 2)
+    params = tf.init_params(gen, cfg)
+    toks = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, seq + 1),
+                         generator=gen, device=dev)
+    names = leaf_names(params)
+    leaves = [params[nm[1:]] if nm.count("/") == 1 else
+              params["layers"][nm.split("/")[-1]] for nm in names]
+    for t in leaves:
+        t.requires_grad_(True)
+
+    def single():
+        loss, _ = tf.loss_fn(params, toks, cfg)
+        return float(loss.detach()), torch.autograd.grad(loss, leaves)
+    loss_ref, g_ref = single()
+    pp_groups = [ThreadGroup(PP_TP_STAGES) for _ in range(PP_TP)]
+    tp_groups = [ThreadGroup(PP_TP) for _ in range(PP_TP_STAGES)]
+    layouts = [StageLayout(pp_groups[r % PP_TP].comm(r // PP_TP),
+                           tp_groups[r // PP_TP].comm(r % PP_TP), cfg)
+               for r in range(n)]
+    copies = []
+    for lay in layouts:
+        full = {k: v.detach() for k, v in params.items() if k != "layers"}
+        full["layers"] = lay.stage_block({k: v.detach() for k, v in
+                                          params["layers"].items()})
+        copies.append({k: ({m: t.clone().requires_grad_(True)
+                            for m, t in v.items()} if k == "layers"
+                           else v.clone().requires_grad_(True))
+                       for k, v in lay.tp_block(full).items()})
+    collect_garbage()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    res = pp_gang(kernels, comm_gate, Groups(pp_groups + tp_groups), n,
+                  lambda r: pipeline.gpipe_lm_loss(
+                      copies[r], toks, cfg, layouts[r], PP_MICRO)[0],
+                  "pp gpipe tp")
+    losses = res.pop("losses")
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    tp_dims = layouts[0].tp_dims
+    grads = []
+    for nm in names:
+        leaf = nm.split("/")[-1]
+        if nm.startswith("/layers/"):
+            d = tp_dims["layers"][leaf]
+            stages = [[copies[st * PP_TP + t]["layers"][leaf].grad
+                       for t in range(PP_TP)] for st in range(PP_TP_STAGES)]
+            grads.append(torch.cat([b[0] if d is None else torch.cat(b, d)
+                                    for b in stages]))
+        else:
+            d = tp_dims[leaf]
+            blocks = [copies[t][leaf].grad for t in range(PP_TP)]
+            grads.append(blocks[0] if d is None else torch.cat(blocks, d))
+    errs = dict(loss=max(abs(float(x.detach()) - loss_ref)
+                         for x in losses) / abs(loss_ref),
+                leaves=grad_errors(names, grads, g_ref))
+    worst = max(errs["leaves"], key=errs["leaves"].get)
+    if any(not torch.isfinite(g).all() for g in grads):
+        gates.append(f"pp gpipe tp {dt}: a gradient has non-finite values")
+    if not bf16 and not (errs["loss"] <= GATE_LOSS_RTOL
+                         and errs["leaves"][worst] < GATE_LEAF_RTOL):
+        gates.append(f"pp gpipe tp f32 against one device: {errs}")
+    q = torch.empty(rows, seq, cfg.n_heads, cfg.head_dim, dtype=dtype,
+                    device="meta")
+    stash = flash.stash_bytes(q, q, q) <= flash.PDS_STASH_LIMIT_BYTES
+    per = PP_TP_LAYERS // PP_TP_STAGES
+    want = [pp_stage_launches(r // PP_TP, PP_TP_STAGES, per, PP_MICRO, stash,
+                              bf16, True, embed=False) for r in range(n)]
+    for r in range(n):
+        if res["fwd"][r] != want[r][0]:
+            gates.append(f"pp gpipe tp {dt} rank {r}: forward launches "
+                         f"{res['fwd'][r]}, want {want[r][0]}")
+    want_bwd = sum_counts(w[1] for w in want)
+    if res["bwd"] != want_bwd:
+        gates.append(f"pp gpipe tp {dt}: backward launches {res['bwd']}, "
+                     f"want {want_bwd}")
+    pin = collections.Counter()
+    for r in range(n):
+        pin.update(comm_gate.expected(
+            "train/gpipe/pp2_tp2/threads", microbatches=PP_MICRO,
+            stage=r // PP_TP, stages=PP_TP_STAGES))
+    calls = [c for rank_calls in res["calls"] for c in rank_calls]
+    calls += res["back"]
+    try:
+        comm_gate.assert_collective_budget(calls, dict(pin),
+                                           f"pp gpipe tp {dt}")
+    except AssertionError as e:
+        gates.append(str(e))
+    cap = comm_gate.handoff_caps(rows, seq, cfg.d_model,
+                                 dtype.itemsize)["p2p"]
+    if max(x for op, x in calls if op == "p2p") != cap:
+        gates.append(f"pp gpipe tp {dt}: a handoff over or under one "
+                     f"microbatch's activation ({cap} B)")
+    out = dict(
+        errors=errs, worst_leaf=worst, gated=not bf16,
+        loss_rtol=GATE_LOSS_RTOL, leaf_rtol=GATE_LEAF_RTOL, stash=stash,
+        launches_forward_by_rank=res["fwd"], launches_backward=res["bwd"],
+        launches_total=res["total"],
+        collectives=comm_gate.collective_counts(calls),
+        collectives_pin=dict(pin),
+        tp_gather_bytes_by_rank=[sum(x for op, x in c if op == "all-gather")
+                                 for c in res["calls"]],
+        host_ms=dict(forward=res["forward_ms"], backward=res["backward_ms"],
+                     forward_backward=res["forward_ms"]
+                     + res["backward_ms"]),
+        peak_gb=peak_gb, gates=gates)
+    del losses, grads, copies, res, layouts
+    collect_garbage()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    single()
+    torch.cuda.synchronize()
+    out["host_ms"]["single_device_forward_backward"] = \
+        1e3 * (time.perf_counter() - t0)
+    del params, leaves, g_ref, toks
+    collect_garbage()
+    return out
+
+
 def run_pp(dev, tf, pipeline, attn_mod, flash, kernels, card: str
            ) -> dict:
     """The pp phase (see PP_STAGES): (a) `gpipe_lm_loss` on PP_STAGES
     virtual stages, one backward over the sum of the stages' losses (every
     stage's is the same; only the last's reaches the schedule), against
-    one device's `tf.loss_fn` on the same weights and rows; (b) the
+    one device's `tf.loss_fn` on the same weights and rows; (c) the same
+    on a (pp, tp) gang (`run_pp_tp`); (b) the
     layer-stack form on PP_LS_STAGES stages with the ep phase's MoE blocks
     and loss (sum(x * dy) + aux a rank), against one device's dense route.
     The stacked leaves' gradients are the stages' blocks joined, the
@@ -3703,7 +3984,11 @@ def run_pp(dev, tf, pipeline, attn_mod, flash, kernels, card: str
         num_ticks=pipeline.num_ticks(PP_MICRO, PP_STAGES))),
         layer_stack=dict(config=dict(
             base_dims, n_layers=EP_LAYERS, n_experts=MOE_EXPERTS,
-            stages=PP_LS_STAGES, rows_a_rank=EP_BATCH)))
+            stages=PP_LS_STAGES, rows_a_rank=EP_BATCH)),
+        gpipe_tp=dict(config=dict(
+            base_dims, n_layers=PP_TP_LAYERS, stages=PP_TP_STAGES, tp=PP_TP,
+            microbatches=PP_MICRO, rows_a_microbatch=rows,
+            batch=TRAIN_BATCH)))
     pin = comm_gate.BUDGETS["train/gpipe/pp2"]["p2p"]
     ls_pin = comm_gate.BUDGETS["train/dp2_pp2_ep2/moe"]["broadcast"]
     launches_bf16 = collections.Counter()
@@ -3830,6 +4115,14 @@ def run_pp(dev, tf, pipeline, attn_mod, flash, kernels, card: str
             1e3 * (time.perf_counter() - t0)
         del params, leaves, g_ref, toks
         collect_garbage()
+
+        # (c) The GPipe schedule on a (pp, tp) gang.
+        tp_run = run_pp_tp(dev, tf, pipeline, flash, kernels, comm_gate,
+                           base_dims, dtype)
+        gates += tp_run.pop("gates")
+        out["gpipe_tp"][dt] = tp_run
+        if bf16:
+            out["gpipe_tp"]["launches"] = tp_run["launches_total"]
 
         # (b) The layer-stack form, MoE.
         dims = dict(base_dims, n_layers=EP_LAYERS, n_experts=MOE_EXPERTS,
@@ -8183,6 +8476,8 @@ def main() -> int:
         fail(gate)
     results["pp"] = run_pp(dev, tf, pipeline, attn_mod, flash, kernels, card)
     print(json.dumps({"pp": results["pp"]}), flush=True)
+    results["ring_gathered"] = results["ring"]["gathered"]
+    results["pp_tp"] = results["pp"]["gpipe_tp"]
     for gate in results["pp"]["gates_failed"]:
         fail(gate)
     mods = (kernels, rms, rope, flash, paged, tf, decode, serving, serve)
@@ -8339,17 +8634,19 @@ def main() -> int:
     t_layout = ("flagship", "checkpoint_train")
     every = serving_phases + train_phases
     paths = {"embed_gather": every + t_layout + ("ep", "pp"),
-             "rms_norm": every + t_layout + ("ep", "pp"),
-             "rope": every + ("ep", "pp"),
-             "flash_attention": every + t_layout + ("ring", "ep", "pp"),
+             "rms_norm": every + t_layout + ("ep", "pp", "pp_tp"),
+             "rope": every + ("ep", "pp", "pp_tp"),
+             "flash_attention": every + t_layout
+             + ("ring", "ring_gathered", "ep", "pp", "pp_tp"),
              "paged_decode": paged_phases,
              "paged_decode_combine": paged_phases,
-             "rms_norm_bwd": train_phases + t_layout + ("ep", "pp"),
+             "rms_norm_bwd": train_phases + t_layout + ("ep", "pp", "pp_tp"),
              "flash_attention_bwd_dq": train_phases + t_layout
-             + ("ring", "ep", "pp"),
-             "flash_attention_bwd_dkv": ("train", "fsdp", "moe_train", "pp"),
+             + ("ring", "ring_gathered", "ep", "pp", "pp_tp"),
+             "flash_attention_bwd_dkv": ("train", "fsdp", "moe_train", "pp",
+                                         "ring_gathered"),
              "flash_attention_bwd_dkv_stash": ("train_stash",) + t_layout
-             + ("ring", "ep", "pp"),
+             + ("ring", "ring_gathered", "ep", "pp", "pp_tp"),
              "rope_t": t_layout, "rope_t_inv": t_layout,
              "fused_ce_fwd": ("flagship",), "fused_ce_bwd": ("flagship",),
              "relayout_to_t": t_layout, "relayout_from_t": t_layout}

@@ -50,9 +50,9 @@ instead, a check of that path on a single card).
   handed from stage to stage), the rows of each microbatch split over the
   schedule's batch axes (JAX's three cases: dp and ep, dp, or none). As
   in the JAX trainer it needs a pp axis above 1 and a `--batch-size`
-  divisible by M, else it exits with JAX's message; the port's schedule
-  runs on dp, ep and pp, and exits naming the layer-stack path on a mesh
-  with tp or sp above 1.
+  divisible by M, else it exits with JAX's message. With tp or sp above 1
+  the stage runs whole on every tp and sp rank, as JAX's schedule does
+  (the embedding, head and CE vocab-parallel over tp).
 
 `--profile-dir` is accepted and unused, as in the JAX trainer.
 
@@ -77,7 +77,9 @@ which factors 8 processes so). MoE over four ranks on dp=2, ep=2: the same
 with NUM_PROCESSES=4, KTWE_MESH_AXES=dp=2,ep=2 and --n-experts 4. A
 pipeline over four ranks on dp=2, pp=2: NUM_PROCESSES=4,
 KTWE_MESH_AXES=dp=2,pp=2 (the layer-stack form), plus
---pipeline-microbatches 2 for the GPipe schedule.
+--pipeline-microbatches 2 for the GPipe schedule; the schedule on
+pp=2, tp=2, sp=2: NUM_PROCESSES=8, KTWE_MESH_AXES=pp=2,tp=2,sp=2 and
+--pipeline-microbatches 2.
 """
 
 from __future__ import annotations
@@ -161,7 +163,9 @@ def refused(args: argparse.Namespace,
 
 def check_pipeline(args: argparse.Namespace, mesh_cfg: MeshConfig) -> None:
     """`--pipeline-microbatches`' two checks, with the JAX trainer's
-    messages (SystemExit), and the port's: no tp or sp with it."""
+    messages (SystemExit). Any other axis may be live beside pp: the
+    schedule splits the batch over dp and ep and runs the stage whole on
+    every tp and sp rank, as JAX's does."""
     if args.pipeline_microbatches <= 0:
         return
     if mesh_cfg.pp <= 1:
@@ -172,11 +176,6 @@ def check_pipeline(args: argparse.Namespace, mesh_cfg: MeshConfig) -> None:
         raise SystemExit(
             f"--batch-size {args.batch_size} not divisible by "
             f"--pipeline-microbatches {args.pipeline_microbatches}")
-    if mesh_cfg.tp > 1 or mesh_cfg.sp > 1:
-        raise SystemExit(
-            "--pipeline-microbatches: the explicit GPipe schedule runs on "
-            "dp, ep and pp; a mesh with tp or sp trains through the "
-            f"layer-stack pp path (got meshAxes [{mesh_cfg.describe()}])")
 
 
 def data_config(args: argparse.Namespace, tcfg: trainer.TrainConfig,

@@ -59,7 +59,11 @@ embedding (a masked lookup of the rank's rows, summed over tp) and a
 vocab-parallel LM head and cross-entropy (`_vocab_parallel_xent`). Each sp
 rank embeds its S/sp positions at their global offsets, and attention is a
 ring over sp (parallel/ring_attention.py), whose blocks run the flash
-kernels' LSE entry point; with sp 1 it is `attention` on the rank's heads.
+kernels' LSE entry point, or with `use_ring_attention` False JAX's other
+path: each rank's queries attend over the whole sequence's K and V,
+gathered over sp (`gathered_attention`: the flash kernels at Sq = S/sp,
+Sk = S and the rank's offset); with sp 1 it is `attention` on the rank's
+heads.
 Route choice follows the JAX package on a model-parallel mesh: no t-layout
 path and no fused CE, RMSNorm, RoPE and the embedding in plain torch
 (where the reference falls back to XLA). An MoE layer there is the dense
@@ -100,8 +104,7 @@ from ..ops.quant import as_compute, is_quantized
 from ..ops.relayout import from_t_layout, to_t_layout
 from ..ops.rms import rms_norm_plain
 from ..ops.rope import rope_rotate_plain, rope_supported
-from ..parallel import comm
-from ..parallel.ring_attention import ring_attention
+from ..parallel.ring_attention import gathered_attention, ring_attention
 
 Params = Dict[str, Any]
 
@@ -143,6 +146,10 @@ class TransformerConfig:
     ce_chunk: int = 8192
     ce_cache_logits: bool = False
     ce_fused: bool = True
+    # Attention over sp (only an sp axis above 1 reads it): the ring
+    # (parallel/ring_attention.py), or each rank's queries over the K and V
+    # gathered from the sp ranks (JAX's use_ring_attention=False).
+    use_ring_attention: bool = True
 
     @property
     def head_dim(self) -> int:
@@ -573,8 +580,13 @@ def _layer_mp(x: torch.Tensor, lp: Params, cfg: TransformerConfig,
         k, v = k.index_select(2, idx), v.index_select(2, idx)
     cos, sin = _tables(freqs, slen, position_offset)
     q, k = rope_rotate_plain(q, cos, sin), rope_rotate_plain(k, cos, sin)
-    o = ring_attention(q, k, v, fsdp.sp_group if fsdp.sp > 1 else None,
-                       causal=True)
+    if fsdp.sp > 1 and not cfg.use_ring_attention:
+        o = gathered_attention(q, k, v, fsdp.sp_comm, causal=True,
+                               position_offset=position_offset
+                               - fsdp.sp_rank * slen)
+    else:
+        o = ring_attention(q, k, v, fsdp.sp_group if fsdp.sp > 1 else None,
+                           causal=True)
     nh = q.shape[2]
     x = x + fsdp.tp_sum((o.reshape(bsz * slen, nh * hd)
                          @ as_compute(lp["wo"], dt).reshape(nh * hd, d)
@@ -642,7 +654,7 @@ def _vocab_parallel_xent(x: torch.Tensor, head: torch.Tensor,
     with torch.no_grad():
         m = logits.amax(dim=1)
         if fsdp.tp > 1:
-            comm.all_reduce(m, fsdp.tp_group, "max")
+            m = fsdp.tp_max(m)
     sumexp = fsdp.tp_sum(torch.exp(logits - m[:, None]).sum(dim=1))
     lse = m + torch.log(sumexp)
     t = targets.reshape(-1).long() - fsdp.tp_rank * v_loc

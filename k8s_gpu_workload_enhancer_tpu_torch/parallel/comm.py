@@ -20,9 +20,12 @@ broadcasts behind an object broadcast) is not noted again. Nothing is noted whil
 changes no call: what is sent, and in what order, is the same.
 
 A `Comm` is one rank's handle on a group of ranks: its `rank` and the
-group's `size`, a sum all-reduce, an all-gather on a dim, an all-to-all on
-a dim (and `all_to_all_grad`, the same exchange with the inverse exchange
-as its backward), a tensor broadcast, an object broadcast, and the
+group's `size`, a sum and a max all-reduce, an all-gather on a dim (and
+`all_gather_grad`, whose backward reduce-scatters the gradient: the sum
+of the ranks' gradients, this rank's block), a sum reduce-scatter on a
+dim (processes), an all-to-all on a dim (and `all_to_all_grad`, the same
+exchange with the inverse exchange as its backward), a tensor broadcast,
+an object broadcast, and the
 pipeline's point-to-point pair: `send` a tensor to one rank and `recv`
 one from another (the GPipe schedule's stage handoff,
 parallel/pipeline.py). Two implementations:
@@ -38,12 +41,15 @@ parallel/pipeline.py). Two implementations:
   its peers raise instead of waiting. All virtual ranks share the device's
   default stream, so a rank's partial is enqueued before the barrier that
   lets another rank read it. Nothing here may run under graph capture.
-  Its differentiable all-to-all is one autograd node over every rank's
-  tensors (rank 0 builds it), not one a rank: the autograd engine runs
-  every backward node of a CUDA device on one thread of its own, so a
-  rank's backward could never wait there for another's. A gang's ranks
-  therefore run their forwards in their threads and one backward, from
-  one thread, over the sum of their losses (`ThreadComm.all_to_all_grad`).
+  Its differentiable all-to-all, all-gather and copy are each one
+  autograd node over every rank's tensors (rank 0 builds it), not one a
+  rank: the autograd engine runs every backward node of a CUDA device on
+  one thread of its own, so a rank's backward could never wait there for
+  another's. A gang's ranks therefore run their forwards in their threads
+  and one backward, from one thread, over the sum of their losses
+  (`ThreadComm.all_to_all_grad`, `all_gather_grad`, and `copy_sum_grad`:
+  each rank's tensor as it is, its gradient summed over the ranks,
+  Megatron's f on a thread gang's tp ranks).
   Its `send` hands the receiver the tensor itself (a mailbox a pair of
   ranks, no barrier), so the ranks' autograd graphs join at a handoff
   (`Comm.shares_graph`): the pipeline's backward is then the same one
@@ -262,6 +268,63 @@ class _GangAllToAll(torch.autograd.Function):
         return (None, *out)
 
 
+class _AllGather(torch.autograd.Function):
+    """A rank's all-gather on `dim` over `comm`; its backward is the
+    reduce-scatter of the gradient (the ranks' gradients summed, this
+    rank's block)."""
+
+    @staticmethod
+    def forward(ctx, t: torch.Tensor, comm: "Comm", dim: int):
+        ctx.comm, ctx.dim = comm, dim
+        return comm.all_gather(t, dim)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return ctx.comm.reduce_scatter(g, ctx.dim), None, None
+
+
+class _GangAllGather(torch.autograd.Function):
+    """Every rank's all-gather of a thread gang as one node: inputs the
+    ranks' tensors, outputs what each rank receives (the same
+    concatenation); the backward gives each rank's input its block of the
+    ranks' gradients summed in rank order, noting one reduce-scatter a
+    rank (see `_GangAllToAll`)."""
+
+    @staticmethod
+    def forward(ctx, dim: int, *parts: torch.Tensor):
+        ctx.dim = dim
+        full = _concat(parts, dim)
+        return tuple(full.clone() for _ in parts)
+
+    @staticmethod
+    def backward(ctx, *grads: torch.Tensor):
+        n = len(grads)
+        out = []
+        for r in range(n):
+            with _call("reduce-scatter", _nbytes(grads[r])):
+                out.append(_sum_in_order([g.chunk(n, ctx.dim)[r]
+                                          for g in grads]))
+        return (None, *out)
+
+
+class _GangCopy(torch.autograd.Function):
+    """Every rank's `copy_sum_grad` of a thread gang as one node: each
+    output is its rank's input; each input's gradient is the ranks'
+    gradients summed in rank order, noting one all-reduce a rank."""
+
+    @staticmethod
+    def forward(ctx, *parts: torch.Tensor):
+        return tuple(p.view_as(p) for p in parts)
+
+    @staticmethod
+    def backward(ctx, *grads: torch.Tensor):
+        out = []
+        for g in grads:
+            with _call("all-reduce", _nbytes(g)):
+                out.append(_sum_in_order(grads))
+        return tuple(out)
+
+
 class _LinkedHandoff(torch.autograd.Function):
     """A tensor a rank of a gang of threads received as it was sent: the
     identity, whose backward notes the two p2p calls a process gang makes
@@ -306,6 +369,31 @@ class Comm:
         with _call("all-reduce", _nbytes(t)):
             parts = self._all_gather(t.unsqueeze(0), 0)
             return _sum_in_order(parts.unbind(0))
+
+    def all_reduce_max(self, t: torch.Tensor) -> torch.Tensor:
+        """The ranks' tensors' elementwise max (a new tensor)."""
+        if self.size == 1:
+            return t
+        with _call("all-reduce", _nbytes(t)):
+            return self._all_gather(t.unsqueeze(0), 0).amax(0)
+
+    def reduce_scatter(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """This rank's block of `dim` (`size` equal blocks) of the ranks'
+        tensors summed (a new tensor; the backend's reduce-scatter)."""
+        if self.size == 1:
+            return t
+        if t.shape[dim] % self.size:
+            raise ValueError(f"dim {dim} of {tuple(t.shape)} cannot be "
+                             f"split over {self.size} ranks")
+        with _call("reduce-scatter", _nbytes(t)):
+            return self._reduce_scatter(t, dim)
+
+    def all_gather_grad(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """`all_gather`, differentiable: the backward reduce-scatters the
+        gradient to this rank's block (the ranks' gradients summed)."""
+        if self.size == 1:
+            return t
+        return _AllGather.apply(t, self, dim)
 
     def all_to_all(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
         """Chunk r of `dim` of every rank's `t` (`size` equal chunks) to
@@ -359,6 +447,9 @@ class Comm:
     def _all_to_all(self, t: torch.Tensor, dim: int) -> torch.Tensor:
         raise NotImplementedError
 
+    def _reduce_scatter(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        raise NotImplementedError
+
     def _send(self, t: torch.Tensor, dst: int) -> None:
         raise NotImplementedError
 
@@ -396,6 +487,13 @@ class ProcessComm(Comm):
         out = torch.empty_like(inp)
         all_to_all(out, inp, self.group)
         return out.movedim(0, dim) if dim else out
+
+    def _reduce_scatter(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        # The blocks on dim 0 (the form every backend takes).
+        inp = t.movedim(dim, 0).contiguous()
+        out = inp.new_empty((inp.shape[0] // self.size, *inp.shape[1:]))
+        reduce_scatter_into(out, inp, self.group)
+        return out.movedim(0, dim).contiguous() if dim else out
 
     def _broadcast(self, t: torch.Tensor, src: int) -> torch.Tensor:
         return broadcast(t, self.ranks[src], self.group)
@@ -507,6 +605,27 @@ class ThreadComm(Comm):
             outs = (_GangAllToAll.apply(dim, *parts) if self.rank == 0
                     else None)
             return self.group.exchange(self.rank, outs)[0][self.rank]
+
+    def all_gather_grad(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """The gang's all-gather as one autograd node (as
+        `all_to_all_grad`): its backward, once for all ranks, gives each
+        rank its block of the ranks' gradients summed."""
+        if self.size == 1:
+            return t
+        with _call("all-gather", _nbytes(t)):
+            parts = self.group.exchange(self.rank, t)
+            outs = (_GangAllGather.apply(dim, *parts) if self.rank == 0
+                    else None)
+            return self.group.exchange(self.rank, outs)[0][self.rank]
+
+    def copy_sum_grad(self, t: torch.Tensor) -> torch.Tensor:
+        """The gang's copies as one autograd node (as `all_to_all_grad`):
+        each rank's tensor as it is, its gradient the ranks' summed."""
+        if self.size == 1:
+            return t
+        parts = self.group.exchange(self.rank, t)
+        outs = _GangCopy.apply(*parts) if self.rank == 0 else None
+        return self.group.exchange(self.rank, outs)[0][self.rank]
 
     def _broadcast(self, t: torch.Tensor, src: int) -> torch.Tensor:
         theirs = self.group.exchange(

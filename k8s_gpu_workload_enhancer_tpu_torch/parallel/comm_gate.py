@@ -142,6 +142,28 @@ _GPIPE_STEP = {"all-gather": Pin(once=8, first_stage=1),
                "broadcast": Pin(once=2),
                "p2p": Pin(per_handoff=2)}
 
+# What the stage's replication over tp (the schedule on a mesh with tp)
+# adds to a rank's forward and backward: the stage's 7 matrices gathered
+# whole over tp (their backward moves nothing); the vocab-parallel
+# embedding's sum on stage 0 and the CE's four (the head input's copy in
+# the backward, the max, the sum of exponentials, the gold logit).
+_GPIPE_TP = {"all-gather": Pin(once=7),
+             "all-reduce": Pin(once=4, first_stage=1)}
+
+
+def _plus(*pins: Dict[str, Pin]) -> Dict[str, Pin]:
+    """The op-wise sum of pins."""
+    out: Dict[str, Pin] = {}
+    for table in pins:
+        for op, p in table.items():
+            q = out.get(op, Pin())
+            out[op] = Pin(q.once + p.once, q.per_step + p.per_step,
+                          q.per_layer + p.per_layer,
+                          q.per_handoff + p.per_handoff,
+                          q.first_stage + p.first_stage)
+    return out
+
+
 # name -> op -> Pin. Training: one train step on every rank at the pinned
 # mesh and 2-layer model, as totals (JAX pins its step's at one model
 # too): tests/test_torch_model_parallel.py and tests/test_torch_fsdp.py.
@@ -157,6 +179,12 @@ BUDGETS: Dict[str, Dict[str, Pin]] = {
                           "all-reduce": Pin(once=19),
                           "reduce-scatter": Pin(once=16),
                           "p2p": Pin(once=4)},
+    # The same step with use_ring_attention False: each layer's K and V
+    # gathered over sp in one all-gather, whose backward reduce-scatters
+    # dK and dV, where the ring shifted them.
+    "train/dp2_tp2_sp2/gathered": {"all-gather": Pin(once=18),
+                                   "all-reduce": Pin(once=19),
+                                   "reduce-scatter": Pin(once=18)},
     # FSDP over dp=2, batch 4 of seq 16, grad_accum 1: the same gathers
     # and reduce-scatters; the replicated leaves' gradients, the norm and
     # the loss's mean over dp.
@@ -214,6 +242,23 @@ BUDGETS: Dict[str, Dict[str, Pin]] = {
     # The same on dp=2, pp=2, ep=2: the ep-replicated leaves' gradients,
     # the norm and the loss's mean over ep add three all-reduces.
     "train/gpipe/dp2_pp2_ep2": {**_GPIPE_STEP, "all-reduce": Pin(once=7)},
+    # The schedule on pp=2, tp=2, sp=2 (the stage replicated over tp and
+    # sp, as JAX's), batch 8 of seq 16: _GPIPE_STEP's calls and
+    # _GPIPE_TP's, the norm's sum over tp and the loss's mean over sp. No
+    # sp average of the gradients and no KV sum over tp.
+    "train/gpipe/pp2_tp2_sp2": _plus(_GPIPE_STEP, _GPIPE_TP,
+                                     {"all-reduce": Pin(once=2)}),
+    # The same with one KV head (kv_replicated): wk and wv are whole on
+    # every tp rank already, two gathers fewer.
+    "train/gpipe/pp2_tp2_sp2/kv_replicated": _plus(
+        _GPIPE_STEP, _GPIPE_TP, {"all-reduce": Pin(once=2),
+                                 "all-gather": Pin(once=-2)}),
+    # One rank's forward and backward through `gpipe_lm_loss` on a (pp=2,
+    # tp=2) gang of threads (`StageLayout` with a tp `Comm`: the card's
+    # virtual tp gang; no dp axis, no optimizer step): _GPIPE_TP's calls,
+    # the result's broadcast from the last stage and the handoffs.
+    "train/gpipe/pp2_tp2/threads": _plus(
+        _GPIPE_TP, {"broadcast": Pin(once=1), "p2p": Pin(per_handoff=2)}),
     "serve/prefill_chunk": _SERVE_STEP,
     "serve/decode_chunk/paged": _SERVE_STEP,
     # MoE on a tp serving mesh: every rank holds every expert's MLP block,

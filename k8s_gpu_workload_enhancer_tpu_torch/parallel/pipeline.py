@@ -64,6 +64,18 @@ pipelines through the layer-stack form. The trainer (train/trainer.py
 finishes the gradients (`Fsdp.reduce_grads_`: the pp-replicated leaves
 are pp rank 0's, so stage 0's embedding gradient and the head's, the same
 on every stage).
+
+On a mesh with tp or sp above 1 the schedule runs as JAX's: its
+`param_specs` name only pp and its `xs_spec` only the batch axes, so the
+stage is replicated over tp and sp. Every tp and sp rank runs the whole
+stage (`stage_params` gathers it over tp; whole heads, whole MLP, whole
+sequences) on the rows of its batch coordinate, so the stage's RMSNorm,
+RoPE and flash kernels run at full width. The embedding, head and CE stay
+vocab-parallel as JAX's constrained versions are (the table's vocab rows
+and the logits' vocab columns over tp: the model-parallel forward's
+`_embed_vocab_parallel` and `_vocab_parallel_xent`), so no rank holds a
+whole vocab leaf; every tp and sp rank's gradient is then the whole one
+(`Fsdp.reduce_grads_` leaves out the sp average and the KV tp sum).
 """
 
 from __future__ import annotations
@@ -295,8 +307,9 @@ def gpipe_lm_loss(params: Dict[str, Any], tokens: torch.Tensor, cfg,
     (`batch_split`). The embedding runs on stage 0, the final norm and the
     LM head on every rank on the result, the CE the chunked one where
     `cfg.use_chunked_ce` (JAX's path there), else the plain CE. `layout`
-    is an `Fsdp` (its stage's layers gathered over dp) or a `StageLayout`,
-    with tp and sp 1: JAX replicates the pipeline over them."""
+    is an `Fsdp` (its stage's layers gathered over dp) or a `StageLayout`.
+    With tp or sp above 1 the stage runs whole on every tp and sp rank, the
+    embedding, head and CE vocab-parallel over tp (see the module note)."""
     from ..models import transformer as tf
     from ..ops.chunked_ce import chunked_softmax_xent
     from ..ops.embed import embed_tokens
@@ -308,15 +321,13 @@ def gpipe_lm_loss(params: Dict[str, Any], tokens: torch.Tensor, cfg,
     m, d = num_microbatches, cfg.d_model
     if b % m:
         raise ValueError(f"batch {b} not divisible by microbatches {m}")
-    if layout is not None and layout.model_parallel:
-        raise ValueError("the explicit GPipe schedule runs on dp, ep and pp; "
-                         "a mesh with tp or sp trains through the "
-                         "layer-stack pp path")
+    mp = layout is not None and layout.model_parallel
     pick = (lambda name: params[name]) if layout is None else (
         lambda name: layout.leaf(params, name))
     if _pp(layout) == 1 or layout.pp_rank == 0:
-        xs = embed_tokens(pick("embed"), inputs, d, cfg.dtype).reshape(
-            m, b // m, s, d)
+        xs = (tf._embed_vocab_parallel(pick("embed"), inputs, cfg, layout)
+              if mp else embed_tokens(pick("embed"), inputs, d, cfg.dtype)
+              ).reshape(m, b // m, s, d)
     else:
         xs = torch.zeros((), dtype=cfg.dtype, device=tokens.device).expand(
             m, b // m, s, d)
@@ -325,7 +336,9 @@ def gpipe_lm_loss(params: Dict[str, Any], tokens: torch.Tensor, cfg,
     ys = gpipe(transformer_stage_fn(cfg), stage, xs, layout)
     x = rms_norm(ys.reshape(b, s, d), pick("final_ln"))
     head = tf.output_head(params, cfg, layout)
-    if cfg.use_chunked_ce:
+    if mp:
+        nll = tf._vocab_parallel_xent(x, head, targets, cfg, layout)
+    elif cfg.use_chunked_ce:
         nll = chunked_softmax_xent(x, head, targets,
                                    min(cfg.ce_chunk, cfg.vocab_size),
                                    cfg.ce_cache_logits)

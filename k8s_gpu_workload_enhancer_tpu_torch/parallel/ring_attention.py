@@ -23,6 +23,14 @@ backward is then plain autograd over the kernel-backed blocks. Every rank
 takes part in every shift, forward and backward: a skipped block is tied
 into the output's graph with a zero gradient (`_Tie`), so that the
 shifts' backward runs on every rank of the ring.
+
+`gathered_attention` is the JAX model's other attention over sp
+(`use_ring_attention=False`): each rank gathers the whole sequence's K
+and V from the sp ranks (one differentiable all-gather of both, whose
+backward reduce-scatters dK and dV, `Comm.all_gather_grad`) and attends
+its own queries over them at their global offsets, through `attention`:
+on the card the flash kernels at Sq = S/sp, Sk = S and a nonzero
+q_offset, where the ring's blocks run them at offsets 0.
 """
 
 from __future__ import annotations
@@ -189,3 +197,20 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if step < sp - 1:
             kv = _Shift.apply(kv, group)
     return finish(partials, q.dtype)
+
+
+def gathered_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       comm, causal: bool = True,
+                       position_offset: int = 0) -> torch.Tensor:
+    """Attention of this sp rank's Q shard (B, S/sp, H, D) over the whole
+    sequence, without the ring: the K/V shards (B, S/sp, KH, D) of the sp
+    ranks of `comm` (a parallel/comm.Comm, the ranks in sequence order)
+    gathered in one differentiable all-gather, then `attention` with the
+    shard's queries at global positions position_offset + rank * S/sp + i
+    and the keys at position_offset + j. Under `causal` the K/V rows past
+    the rank's last query are masked for all its queries: their dK and dV
+    from this rank are exact zeros. -> (B, S/sp, H, D) in q's dtype."""
+    kv = comm.all_gather_grad(torch.stack([k, v]), 2)
+    return attention(q, kv[0], kv[1], causal=causal,
+                     q_offset=position_offset + comm.rank * q.shape[1],
+                     kv_offset=position_offset)

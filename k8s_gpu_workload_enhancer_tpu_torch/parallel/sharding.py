@@ -42,7 +42,14 @@ same rows, the owner's own gradient of its layers is the whole gradient:
 the broadcast's backward moves nothing (a received copy carries no
 autograd history), and a rank's backward computes weight gradients for
 its own layers only. The explicit GPipe schedule (parallel/pipeline.py)
-reads the stage's layers whole instead (`stage_params`).
+reads the stage's layers whole instead (`stage_params`). On a mesh with
+tp or sp the schedule runs as JAX's does, replicated over them: every tp
+and sp rank runs the whole stage (whole heads, whole MLP, the whole
+sequence) on the same rows, so `stage_params` also gathers each stacked
+leaf over tp on its tp dim (a leaf replicated over tp, the KV projections
+under `kv_replicated`, as it is), and that gather's backward keeps this
+rank's block of the gradient with no collective: every tp rank computes
+the same whole gradient.
 
 After the backward, `reduce_grads_` finishes the gradients in one fixed
 order: the pp-replicated leaves' gradients (embed, final_ln, lm_head) are
@@ -56,7 +63,12 @@ already); every gradient averaged over sp (each sp rank's holds its
 tokens' part), and where the KV heads do not divide over tp
 (`kv_replicated`: the KV projections are replicated over tp and each rank
 uses the heads its Q heads need) those leaves' gradients are summed over
-tp. The forward's tensor-parallel collectives are `tp_copy` (identity,
+tp. On the GPipe schedule with tp or sp (`stage_params` gathered the
+stage whole) every tp and sp rank holds the whole gradient already: the
+step leaves out the sp average, which would only move bytes, and the KV
+projections' tp sum, which would multiply them by tp (`reduce_grads_`
+reads the mark `stage_params` leaves). The forward's tensor-parallel
+collectives are `tp_copy` (identity,
 its backward an all-reduce over tp) before a column-parallel product and
 `tp_sum` (an all-reduce over tp, its backward the identity) after a
 row-parallel one, Megatron's f and g. On the CPU the collectives run over
@@ -66,7 +78,10 @@ gloo, on the card over NCCL.
 axis over any `Comm` (a ThreadGroup's on one card): what the MoE FFN
 reads of a layout, so the same `_moe_ffn` runs on virtual ep ranks.
 `StageLayout` is the same for a pp gang: the layer-stack form's
-`layer_params` and what the GPipe schedule reads, over a `Comm`.
+`layer_params` and what the GPipe schedule reads, over a `Comm`, and for
+the schedule also over a second `Comm` of tp ranks (the card's virtual
+tp gang: the stage gathered whole over tp, the vocab-parallel embedding,
+head and CE through that `Comm`).
 """
 
 from __future__ import annotations
@@ -184,6 +199,42 @@ class _TpSum(torch.autograd.Function):
         return g, None
 
 
+class _Whole(torch.autograd.Function):
+    """Forward: the whole leaf from the tp ranks' blocks of `dim`
+    (`gather(block, dim)`). Backward: this rank's block of the gradient,
+    with no collective: every tp rank computes the same whole gradient
+    (the GPipe schedule's stage, see the module note)."""
+
+    @staticmethod
+    def forward(ctx, block: torch.Tensor, dim: int, gather, rank: int):
+        ctx.dim, ctx.at, ctx.k = dim, rank * block.shape[dim], block.shape[dim]
+        return gather(block, dim)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return g.narrow(ctx.dim, ctx.at, ctx.k), None, None, None
+
+
+class _CommSum(torch.autograd.Function):
+    """Megatron's g over a `Comm`: the ranks' partial results summed in
+    rank order; the gradient as it is."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, comm: Comm):
+        return comm.all_reduce_sum(x.contiguous())
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return g, None
+
+
+def _tp_dim(logical: LogicalAxes) -> Optional[int]:
+    """The dim of a leaf the rules put on tp, or None."""
+    dims = [d for d, entry in enumerate(spec_for(logical))
+            if TENSOR_AXIS in _axis_names(entry)]
+    return dims[0] if dims else None
+
+
 def _axis(mesh, name: str):
     """(group, size, this rank's coordinate) of a mesh axis."""
     return (mesh.get_group(name), mesh[name].size(),
@@ -234,6 +285,14 @@ class Fsdp:
         self.pp_comm: Optional[Comm] = ProcessComm(
             self.pp_group, torch.distributed.get_process_group_ranks(
                 self.pp_group)) if self.pp > 1 else None
+        # The sp ranks' handle: the gathered attention's K/V all-gather.
+        self.sp_comm: Optional[Comm] = ProcessComm(
+            self.sp_group, torch.distributed.get_process_group_ranks(
+                self.sp_group)) if self.sp > 1 else None
+        # Set by `stage_params` on a model-parallel mesh, cleared by
+        # `reduce_grads_`: this step's gradients are whole on every tp and
+        # sp rank (the module note).
+        self._stage_whole = False
         # KV heads the tp ranks cannot split evenly: the KV projections are
         # replicated over tp (GSPMD would pad them; the function is the
         # same).
@@ -313,6 +372,10 @@ class Fsdp:
         """The tp ranks' partial results summed (Megatron's g)."""
         return x if self.tp == 1 else _TpSum.apply(x, self.tp_group)
 
+    def tp_max(self, t: torch.Tensor) -> torch.Tensor:
+        """The tp ranks' elementwise max of `t` (no grad; in place)."""
+        return comm.all_reduce(t, self.tp_group, "max")
+
     # -- the param tree --
 
     def shard(self, full: torch.Tensor, dim: Optional[int],
@@ -381,10 +444,22 @@ class Fsdp:
     def stage_params(self, params: Dict[str, Any]
                      ) -> Dict[str, torch.Tensor]:
         """This stage's (L/pp, ...) blocks of the stacked leaves, gathered
-        over dp: a GPipe stage's weights (parallel/pipeline.py)."""
+        over dp: a GPipe stage's weights (parallel/pipeline.py). With tp or
+        sp above 1 also whole over tp, and the step's gradients marked
+        whole (see the module note)."""
         dims = self.dims["layers"]
-        return {k: self.gather(v, dims[k])
-                for k, v in params["layers"].items()}
+        out = {k: self.gather(v, dims[k])
+               for k, v in params["layers"].items()}
+        if not self.model_parallel:
+            return out
+        self._stage_whole = True
+        tp_dims = self.tp_dims["layers"]
+
+        def gather_tp(t, dim):
+            return all_gather(t, dim, self.tp_group, self.tp)
+        return {k: (v if tp_dims[k] is None or self.tp == 1 else
+                    _Whole.apply(v, tp_dims[k], gather_tp, self.tp_rank))
+                for k, v in out.items()}
 
     def reduce_grads_(self, grads: Dict[str, Any]) -> None:
         """Finish the gradients in place after the backward, in one fixed
@@ -392,7 +467,9 @@ class Fsdp:
         dp-replicated leaves' averaged over dp; the ep-replicated leaves'
         averaged over ep, the experts' divided by ep; every leaf's averaged
         over sp; the tp-replicated KV projections' summed over tp. Each is
-        one collective over a flat f32 buffer."""
+        one collective over a flat f32 buffer. After the GPipe stage ran
+        whole over tp and sp (`stage_params`) the last two are left out."""
+        whole, self._stage_whole = self._stage_whole, False
         if self.pp > 1:
             _broadcast_flat([g for g, pd in _zip_leaves(grads, self.pp_dims)
                              if pd is None], self.pp_comm)
@@ -405,6 +482,8 @@ class Fsdp:
             for g, _, ed in leaves:
                 if ed is not None:
                     g.div_(self.ep)
+        if whole:
+            return
         if self.sp > 1:
             _reduce_flat([g for g, _, _ in leaves], self.sp_group, self.sp)
         if self.kv_replicated:
@@ -525,29 +604,65 @@ class ExpertLayout:
 
 
 class StageLayout:
-    """One rank of a pipeline (pp) gang with no other live axis, over
-    `comm` (its pp ranks; a ThreadGroup's on one card). The rank's params
-    hold its stage's (L/pp, ...) block of every stacked leaf
+    """One rank of a pipeline (pp) gang with no other live axis but tp,
+    over `comm` (its pp ranks; a ThreadGroup's on one card). The rank's
+    params hold its stage's (L/pp, ...) block of every stacked leaf
     (`stage_block`) and every other leaf whole; every rank reads the same
     rows. It gives the layer-stack form's `layer_params` (the owning
     stage's broadcast, as `Fsdp`'s) and what the GPipe schedule reads
     (`stage_params`, `leaf`, `pp_comm`); a MoE layer on it takes the
-    dense route, as on any mesh of more than one device."""
+    dense route, as on any mesh of more than one device.
 
-    tp = sp = world = ep = 1
-    model_parallel = False
+    With `tp_comm` (this rank's tp ranks of a ThreadGroup; `model_cfg`
+    names the leaves' tp dims) it is a rank of a (pp, tp) gang for the
+    GPipe schedule only: its params are also its tp blocks (`tp_block`),
+    the stage is gathered whole over tp (`stage_params`), and the
+    vocab-parallel embedding, head and CE run their tp collectives through
+    `tp_comm` (`tp_copy` the gang's one autograd node, see
+    parallel/comm.py)."""
+
+    sp = world = ep = 1
     ep_comm = None
 
-    def __init__(self, comm: Comm):
+    def __init__(self, comm: Comm, tp_comm: Optional[Comm] = None,
+                 model_cfg=None):
         self.pp_comm = comm
         self.pp, self.pp_rank = comm.size, comm.rank
-        self.size = comm.size
+        self.tp_comm = tp_comm
+        self.tp, self.tp_rank = ((tp_comm.size, tp_comm.rank) if tp_comm
+                                 else (1, 0))
+        self.size = comm.size * self.tp
+        self.model_parallel = self.tp > 1
+        self.kv_replicated = False
+        self.tp_dims: Optional[Dict[str, Any]] = None
+        if self.tp > 1:
+            from ..models import transformer as tf
+            self.kv_replicated = model_cfg.n_kv_heads % self.tp != 0
+            self.tp_dims = _map_named(
+                lambda name, ax: None if (
+                    self.kv_replicated and name in ("wk", "wv"))
+                else _tp_dim(ax), tf.param_logical_axes(model_cfg))
 
     def tp_copy(self, x: torch.Tensor) -> torch.Tensor:
-        return x
+        return x if self.tp == 1 else self.tp_comm.copy_sum_grad(x)
 
     def tp_sum(self, x: torch.Tensor) -> torch.Tensor:
-        return x
+        return x if self.tp == 1 else _CommSum.apply(x, self.tp_comm)
+
+    def tp_max(self, t: torch.Tensor) -> torch.Tensor:
+        return self.tp_comm.all_reduce_max(t)
+
+    def tp_block(self, tree: Dict[str, Any]) -> Dict[str, Any]:
+        """This rank's tp block of every leaf of a param tree (views)."""
+        if self.tp == 1:
+            return tree
+
+        def one(t, dim):
+            if dim is None:
+                return t
+            k = t.shape[dim] // self.tp
+            return t.narrow(dim, self.tp_rank * k, k)
+        return _map(one, tree, {k: self.tp_dims[k] for k in tree})
 
     def mean(self, t: torch.Tensor) -> torch.Tensor:
         """Every rank holds the same rows: the rank's own (a new tensor)."""
@@ -569,7 +684,13 @@ class StageLayout:
 
     def stage_params(self, params: Dict[str, Any]
                      ) -> Dict[str, torch.Tensor]:
-        return params["layers"]
+        """The stage's stacked leaves, whole over tp."""
+        if self.tp == 1:
+            return params["layers"]
+        dims = self.tp_dims["layers"]
+        return {k: (v if dims[k] is None else _Whole.apply(
+                    v, dims[k], self.tp_comm.all_gather, self.tp_rank))
+                for k, v in params["layers"].items()}
 
     def stage_block(self, layers: Dict[str, torch.Tensor]
                     ) -> Dict[str, torch.Tensor]:

@@ -8,11 +8,12 @@ a global batch of 256 as 32 microbatches of 8. At these shapes both
 kernel paths of the reference engage: the t-layout RoPE and flash
 attention (head_dim 512) and the fused LM-head CE.
 
-Three of the reference dict's fields have no counterpart in the port's
+Two of the reference dict's fields have no counterpart in the port's
 TransformerConfig and are left out: `use_flash` (the port always runs the
-flash kernels), `use_ring_attention` (one device) and `scan_layers` (the
-port's layers are an unrolled loop, which is what the flagship's False
-asks for).
+flash kernels) and `scan_layers` (the port's layers are an unrolled loop,
+which is what the flagship's False asks for). `use_ring_attention` is
+carried as the reference sets it (False); only an sp axis above 1 reads
+it, and the flagship runs on one device.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ from .trainer import TrainConfig
 FLAGSHIP_MODEL = dict(
     vocab_size=32768, d_model=2048, n_layers=3, n_heads=4, n_kv_heads=4,
     d_ff=16384, max_seq=2048, dtype=torch.bfloat16, remat=False,
-    ce_chunk=32768, ce_cache_logits=True)
+    ce_chunk=32768, ce_cache_logits=True, use_ring_attention=False)
 FLAGSHIP_TRAIN = dict(batch_size=256, seq_len=2048, warmup_steps=10,
                       total_steps=1000, grad_accum=32)
 

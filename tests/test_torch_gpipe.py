@@ -20,7 +20,11 @@ turn, f32, on numpy weights and batches the JAX side shares:
   JAX's `gpipe_lm_loss`; two layer-stack MoE steps against the JAX
   trainer (the dryrun's second leg, `__graft_entry__.dryrun_multichip`);
 - pp=2, tp=2, sp=2: two layer-stack MoE steps against the JAX trainer
-  (ring attention over sp);
+  (ring attention over sp); the GPipe schedule replicated over tp and sp,
+  as JAX's is: `gpipe_lm_loss` at M 2 (loss and every gradient) and two
+  GPipe steps against JAX's on that mesh, and two GPipe steps of a one
+  KV head model (the KV projections replicated over tp, whose gradient
+  no tp sum may scale) against JAX with the KV heads replicated;
 - dp=2, pp=2 (four ranks): two dense layer-stack steps against the JAX
   trainer, saved; one GPipe step; a step from a checkpoint saved on one
   device;
@@ -31,10 +35,13 @@ carries at most one microbatch's activation. In process: the schedule and
 the LM loss on gangs of threads (parallel/comm.ThreadGroup, the card's
 virtual ranks), at pp 1 against `tf.loss_fn` and JAX's `gpipe_lm_loss`, the
 MoE refusal, the checkpoint both ways, and the trainer main on (dp=2, pp=2)
-gangs of processes with and without --pipeline-microbatches, and its two
-bad configurations with JAX's messages.
+gangs of processes with and without --pipeline-microbatches and on a
+(pp=2, tp=2) gang with it, and its two bad configurations with JAX's
+messages. The schedule on a (pp=2, tp=2) gang of threads (the card's
+virtual tp gang: `StageLayout` with a tp `Comm`) against `tf.loss_fn`.
 """
 
+import collections
 import json
 import os
 import subprocess
@@ -50,6 +57,7 @@ import torch
 from k8s_gpu_workload_enhancer_tpu.models import transformer as jtf
 from k8s_gpu_workload_enhancer_tpu.parallel import mesh as jmesh
 from k8s_gpu_workload_enhancer_tpu.parallel import pipeline as jpl
+from k8s_gpu_workload_enhancer_tpu.parallel import sharding as jsharding
 from k8s_gpu_workload_enhancer_tpu.train import trainer as jtrainer
 from k8s_gpu_workload_enhancer_tpu_torch.cmd import trainer as cli
 from k8s_gpu_workload_enhancer_tpu_torch.models import transformer as ttf
@@ -70,6 +78,7 @@ ROOT = torch_gang.ROOT
 DENSE = dict(vocab_size=128, d_model=32, n_layers=4, n_heads=2,
              n_kv_heads=2, d_ff=64, max_seq=16)
 DENSE2 = dict(DENSE, n_layers=2)
+DENSE_KV1 = dict(DENSE, n_kv_heads=1)
 MOE = dict(vocab_size=256, d_model=64, n_layers=2, n_heads=4, n_kv_heads=4,
            d_ff=128, max_seq=64, n_experts=4)
 TRAIN = dict(warmup_steps=1, total_steps=50, batch_size=4, seq_len=16,
@@ -169,6 +178,10 @@ def gang(tmp_path_factory):
                [tokens((8, 33), 40 + i, 256) for i in range(2)]),
         "d2": (numpy_params(DENSE2, 4),
                [tokens((8, 17), 50 + i, 128) for i in range(2)]),
+        "tp": (numpy_params(DENSE, 5),
+               [tokens((8, 17), 60 + i, 128) for i in range(2)]),
+        "kv": (numpy_params(DENSE_KV1, 6),
+               [tokens((8, 17), 70 + i, 128) for i in range(2)]),
     }
     inputs = {f"tanh/{k}": v for k, v in tanh_inputs().items()}
     for name, (params, batches) in data.items():
@@ -189,7 +202,11 @@ def gang(tmp_path_factory):
             job("gpipe3d", DENSE, TRAIN8, "d8", steps=2, gpipe=2),
             job("moe3d", MOE, MOE_TRAIN, "moe", steps=2)]),
         dict(mesh_axes="pp=2,tp=2,sp=2", jobs=[
-            job("moe_mp", MOE, MOE_TRAIN, "mp", steps=2)]),
+            job("moe_mp", MOE, MOE_TRAIN, "mp", steps=2),
+            job("gtp", DENSE, TRAIN8, "tp", kind="grads",
+                batch="tp/batches/0", gpipe=2),
+            job("gpipe_tp", DENSE, TRAIN8, "tp", steps=2, gpipe=2),
+            job("gpipe_kv", DENSE_KV1, TRAIN8, "kv", steps=2, gpipe=2)]),
         dict(mesh_axes="dp=2,pp=2", world=4, jobs=[
             job("stack2", DENSE2, TRAIN8, "d2", steps=2, save="ckpt-pp"),
             job("gpipe2", DENSE2, TRAIN8, "d2", steps=1, gpipe=2),
@@ -205,19 +222,20 @@ def gang(tmp_path_factory):
 
 
 def jax_train(dims: dict, params: dict, batches, train: dict, mesh,
-              microbatches: int = 0):
+              microbatches: int = 0, rules=None):
     """The JAX trainer's metrics and final params on `mesh` from `params`,
-    through JAX's `gpipe_lm_loss` with `microbatches` > 0."""
+    through JAX's `gpipe_lm_loss` with `microbatches` > 0, the params laid
+    out by `rules` (None: JAX's default rules)."""
     cfg = jax_cfg(dims)
     tc = jtrainer.TrainConfig(**train)
-    p = jax.device_put(params, jtrainer.param_shardings(cfg, mesh))
+    p = jax.device_put(params, jtrainer.param_shardings(cfg, mesh, rules))
     state = jtrainer.TrainState(
         params=p, opt_state=jtrainer.make_optimizer(tc).init(p),
         step=jnp.zeros((), jnp.int32))
     loss_fn = (None if not microbatches else
                lambda p, t, c, m: jpl.gpipe_lm_loss(p, t, c, m,
                                                     microbatches))
-    step = jtrainer.make_train_step(cfg, tc, mesh, loss_fn=loss_fn)
+    step = jtrainer.make_train_step(cfg, tc, mesh, rules, loss_fn=loss_fn)
     metrics = []
     for toks in batches:
         state, m = step(state, jnp.asarray(toks))
@@ -445,6 +463,84 @@ def test_gpipe_lm_loss_on_a_thread_gang_matches_loss_fn(pp):
     assert_grads(grads, gref, f"pp={pp} threads")
 
 
+@pytest.mark.parametrize("kv_heads", [2, 1])
+def test_gpipe_lm_loss_on_a_pp2_tp2_thread_gang_matches_loss_fn(kv_heads):
+    """The card's virtual (pp=2, tp=2) gang: `StageLayout` over a pp and
+    a tp `Comm` of threads, each rank with its stage's tp blocks; the
+    stage gathered whole over tp, the embedding, head and CE
+    vocab-parallel. Every rank's loss and the gradients, the ranks'
+    blocks joined, equal one device's `tf.loss_fn`; the tp-replicated
+    leaves' gradients are the same on both tp ranks (with one KV head wk
+    and wv too); the gang's collectives are the ranks' pins
+    (`train/gpipe/pp2_tp2/threads`; with one KV head wk and wv are not
+    gathered)."""
+    dims = dict(DENSE, n_kv_heads=kv_heads)
+    cfg, params, toks, ref, gref = lm_reference(dims, 9, (4, 17))
+    pp = tp = 2
+    pp_groups = [ThreadGroup(pp, timeout=60) for _ in range(tp)]
+    tp_groups = [ThreadGroup(tp, timeout=60) for _ in range(pp)]
+    ranks, errors = [None] * (pp * tp), []
+
+    def rank(r):
+        s, t = divmod(r, tp)
+        try:
+            lay = StageLayout(pp_groups[t].comm(s), tp_groups[s].comm(t),
+                              cfg)
+            full = {k: v for k, v in params.items() if k != "layers"}
+            full["layers"] = lay.stage_block(params["layers"])
+            mine = ttrainer.tree_map(
+                lambda x: x.detach().clone().requires_grad_(True),
+                lay.tp_block(full))
+            ranks[r] = (lay, mine, tpl.gpipe_lm_loss(mine, toks, cfg, lay,
+                                                     2)[0])
+        except BaseException as e:            # noqa: BLE001 — reported
+            errors.append(e)
+            for g in pp_groups + tp_groups:
+                g.abort()
+    with comm_gate.record() as calls:
+        threads = [threading.Thread(target=rank, args=(r,))
+                   for r in range(pp * tp)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(60)
+        if errors:
+            raise errors[0]
+        sum(loss for _, _, loss in ranks).backward()
+    np.testing.assert_allclose([float(x.detach()) for _, _, x in ranks],
+                               [ref] * (pp * tp), **OUT_TOL)
+    dims_tp = ranks[0][0].tp_dims
+    grads = {}
+    for k in params:
+        if k == "layers":
+            continue
+        blocks = [ranks[t][1][k].grad for t in range(tp)]
+        d = dims_tp[k]
+        grads[k] = blocks[0] if d is None else torch.cat(blocks, d)
+    grads["layers"] = {}
+    for k in params["layers"]:
+        d = dims_tp["layers"][k]
+        stages = []
+        for s in range(pp):
+            blocks = [ranks[s * tp + t][1]["layers"][k].grad
+                      for t in range(tp)]
+            if d is None:
+                assert torch.equal(blocks[0], blocks[1]), k
+            stages.append(blocks[0] if d is None else torch.cat(blocks, d))
+        grads["layers"][k] = torch.cat(stages)
+    assert_grads(grads, gref, f"pp=2 tp=2 threads, {kv_heads} kv heads")
+    assert (dims_tp["layers"]["wk"] is None) == (kv_heads == 1)
+    want = collections.Counter()
+    for r in range(pp * tp):
+        want.update(comm_gate.expected("train/gpipe/pp2_tp2/threads",
+                                       microbatches=2, stage=r // tp,
+                                       stages=pp))
+    if kv_heads == 1:
+        want["all-gather"] -= 2 * pp * tp
+    comm_gate.assert_collective_budget(calls, dict(want),
+                                       f"pp=2 tp=2 threads, {kv_heads} kv")
+
+
 def test_layer_stack_moe_on_a_thread_gang_matches_one_device():
     """The layer-stack form on two virtual stages, MoE (each stage one
     layer, broadcast from it; the dense expert route): loss and every
@@ -550,6 +646,48 @@ def test_gpipe_steps_on_dp2_pp2_ep2_match_jax(gang):
     assert_tree(gang.arrays("gpipe3d"), "params", want_params, "gpipe3d")
 
 
+def test_gpipe_lm_loss_on_pp2_tp2_sp2_matches_jax(gang):
+    """`gpipe_lm_loss` on (pp=2, tp=2, sp=2) at M 2 of a batch of 8: the
+    stage replicated over tp and sp, as JAX's (its `param_specs` name only
+    pp, its `xs_spec` only the batch axes); loss and every gradient
+    against JAX's `gpipe_lm_loss` on that mesh, every rank on the whole
+    batch."""
+    params, (batch, _) = gang.data["tp"]
+    jcfg = jax_cfg(DENSE)
+    mesh = jax_mesh(pp=2, tp=2, sp=2)
+    p = jax.device_put(params, jtrainer.param_shardings(jcfg, mesh))
+    loss, grads = jax.jit(jax.value_and_grad(lambda p, t: jpl.gpipe_lm_loss(
+        p, t, jcfg, mesh, 2)[0]))(p, jnp.asarray(batch))
+    out = gang.result()
+    assert all(o["gtp"]["rows"] == [8, 17] for o in out)
+    for o in out:
+        np.testing.assert_allclose(o["gtp"]["loss"], float(loss), **OUT_TOL)
+    got = gang.arrays("gtp")
+    for k, w in flat(jax.tree.map(np.asarray, grads)).items():
+        np.testing.assert_allclose(got["grads" + k], w, err_msg=k,
+                                   **LM_GRAD_TOL)
+
+
+@pytest.mark.parametrize("name,dims,data,rules", [
+    ("gpipe_tp", DENSE, "tp", None),
+    ("gpipe_kv", DENSE_KV1, "kv", dict(jsharding.DEFAULT_RULES,
+                                       kv_heads=None))])
+def test_gpipe_steps_on_pp2_tp2_sp2_match_jax(gang, name, dims, data,
+                                              rules):
+    """Two GPipe steps (M 2) on (pp=2, tp=2, sp=2) against the JAX
+    trainer through JAX's `gpipe_lm_loss` on that mesh: the dense model,
+    and one KV head (the port replicates wk and wv over tp; JAX with the
+    KV heads replicated, its default rule cannot lay one head over two
+    devices). A KV gradient summed over tp would double their share of
+    the grad norm."""
+    params, batches = gang.data[data]
+    want, want_params = jax_train(dims, params, batches, TRAIN8,
+                                  jax_mesh(pp=2, tp=2, sp=2), 2, rules)
+    out = gang.result()
+    assert_metrics(same_on_every_rank(out, name), want, name)
+    assert_tree(gang.arrays(name), "params", want_params, name)
+
+
 @pytest.mark.parametrize("name,axes,data", [
     ("moe3d", dict(dp=2, pp=2, ep=2), "moe"),
     ("moe_mp", dict(pp=2, tp=2, sp=2), "mp")])
@@ -616,7 +754,9 @@ def test_checkpoint_of_dp2_pp2_resumes_on_one_device_and_back(gang):
     ("moe3d", "train/dp2_pp2_ep2/moe", 8, 2, 0, 0),
     ("gpipe2", "train/gpipe/dp2_pp2", 4, 2, 2, 16),
     ("gpipe1", "train/gpipe/pp2", 2, 2, 4, 16),
-    ("gpipe3d", "train/gpipe/dp2_pp2_ep2", 8, 2, 1, 16)])
+    ("gpipe3d", "train/gpipe/dp2_pp2_ep2", 8, 2, 1, 16),
+    ("gpipe_tp", "train/gpipe/pp2_tp2_sp2", 8, 2, 4, 16),
+    ("gpipe_kv", "train/gpipe/pp2_tp2_sp2/kv_replicated", 8, 2, 4, 16)])
 def test_pp_train_steps_hold_the_pinned_budget(gang, name, pin, world,
                                                stages, rows, seq):
     """Every rank's steps make exactly the pinned collectives for its
@@ -624,7 +764,8 @@ def test_pp_train_steps_hold_the_pinned_budget(gang, name, pin, world,
     activation (the rank's rows of it x seq x d_model f32 values); a
     change of count fails the gate."""
     out = gang.result()
-    dims = MOE if name == "moe3d" else DENSE if name == "gpipe3d" else DENSE2
+    dims = {"moe3d": MOE, "gpipe3d": DENSE, "gpipe_tp": DENSE,
+            "gpipe_kv": DENSE}.get(name, DENSE2)
     m = 2 if rows else 0
     for r in range(world):
         stage = out[r][name]["coords"]["pp"]
@@ -671,13 +812,16 @@ def _main_gang(axes: str, world: int, extra: list):
 
 def test_trainer_main_trains_through_gpipe_on_a_pp_gang(gang, capsys):
     """The trainer main on (dp=2, pp=2) gangs of four processes, with
-    --pipeline-microbatches 2 and without (the layer-stack path): one
-    process prints; the GPipe run's losses track the layer-stack run's
+    --pipeline-microbatches 2 and without (the layer-stack path), and on a
+    (pp=2, tp=2) gang with it (the stage whole on both tp ranks): one
+    process prints; the GPipe runs' losses track the layer-stack run's
     and one device's within JAX's end-to-end bound (1e-4)."""
     gang.result()                     # the gang's ranks are done
     gangs = {"gpipe": _main_gang("dp=2,pp=2", 4,
                                  ["--pipeline-microbatches", "2"]),
-             "stack": _main_gang("dp=2,pp=2", 4, [])}
+             "stack": _main_gang("dp=2,pp=2", 4, []),
+             "gpipe_tp": _main_gang("pp=2,tp=2", 4,
+                                    ["--pipeline-microbatches", "2"])}
     assert cli.main(TINY) == 0
     want = _json_lines(capsys.readouterr().out)
     got = {}
@@ -699,8 +843,9 @@ def test_trainer_main_trains_through_gpipe_on_a_pp_gang(gang, capsys):
                     p.kill()
                     p.communicate()
     for ref in (got["stack"], want):
-        np.testing.assert_allclose(got["gpipe"][0]["loss"], ref[0]["loss"],
-                                   rtol=1e-4)
+        for name in ("gpipe", "gpipe_tp"):
+            np.testing.assert_allclose(got[name][0]["loss"], ref[0]["loss"],
+                                       rtol=1e-4, err_msg=name)
 
 
 def test_trainer_main_fails_as_jax_on_bad_pipeline_configs():

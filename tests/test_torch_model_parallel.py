@@ -12,11 +12,13 @@ as the JAX side (f32, `params_from_numpy`):
   against JAX `make_train_step` on the mesh (losses, grad norms, params:
   atol 1e-5, rtol 1e-4), saved, each step's collectives held to their
   pinned budget (parallel/comm_gate.py); two steps at grad_accum 2 (f32
-  accumulator) with remat against the port's single-process steps;
+  accumulator) with remat against the port's single-process steps; one
+  step with `use_ring_attention=False` (K and V gathered over sp) against
+  JAX's with it, held to its own pin;
 - sp=8 at seq 512: loss and every gradient against the JAX dense model
-  (loss rtol 2e-5; gradients rtol 5e-4, atol 2e-5); causality at the
-  shard boundaries (a changed last token leaves earlier logits bit for
-  bit);
+  (loss rtol 2e-5; gradients rtol 5e-4, atol 2e-5), through the ring and
+  through the gathered attention; causality at the shard boundaries (a
+  changed last token leaves earlier logits bit for bit);
 - dp=2, sp=4: the checkpoint of dp=2, tp=2, sp=2 restores to the state
   saved, and one step from it equals the step from the same checkpoint
   restored on one device;
@@ -30,7 +32,10 @@ sp=2 on synthetic data; dp=2, tp=2 on a token shard) and prints the lines
 one process prints; pp, ep and MoE on tp or sp
 are accepted (their gangs: tests/test_torch_expert_parallel.py); MoE
 through the model-parallel forward on a one-rank layout equals the
-one-device model; the token pipeline splits over dp alone.
+one-device model; the token pipeline splits over dp alone. In process,
+the gathered attention on a gang of sp threads (parallel/comm.ThreadGroup)
+equals one whole-sequence call, output and gradients, and each rank's
+K/V rows past its last query get exactly zero dK and dV.
 """
 
 import json
@@ -38,6 +43,7 @@ import os
 import pathlib
 import subprocess
 import sys
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -51,7 +57,13 @@ from k8s_gpu_workload_enhancer_tpu.parallel import sharding as jsharding
 from k8s_gpu_workload_enhancer_tpu.train import trainer as jtrainer
 from k8s_gpu_workload_enhancer_tpu_torch.cmd import trainer as cli
 from k8s_gpu_workload_enhancer_tpu_torch.models import transformer as ttf
+from k8s_gpu_workload_enhancer_tpu_torch.ops.attention import attention
+from k8s_gpu_workload_enhancer_tpu_torch.ops.flash_attention import (
+    flash_attention_backward, flash_attention_plain)
 from k8s_gpu_workload_enhancer_tpu_torch.parallel import comm_gate
+from k8s_gpu_workload_enhancer_tpu_torch.parallel.comm import ThreadGroup
+from k8s_gpu_workload_enhancer_tpu_torch.parallel.ring_attention import (
+    gathered_attention)
 from k8s_gpu_workload_enhancer_tpu_torch.train import bootstrap as tboot
 from k8s_gpu_workload_enhancer_tpu_torch.train import checkpoint as tckpt
 from k8s_gpu_workload_enhancer_tpu_torch.train import data as tdata
@@ -65,6 +77,7 @@ DIMS = dict(vocab_size=256, d_model=64, n_layers=2, n_heads=4, n_kv_heads=4,
             d_ff=128, max_seq=32)
 KV_DIMS = dict(DIMS, n_kv_heads=1)
 SP8_DIMS = dict(DIMS, max_seq=512)
+GATHERED = dict(use_ring_attention=False)
 TRAIN = dict(warmup_steps=1, total_steps=5, batch_size=4, seq_len=32,
              learning_rate=1e-2)
 ACC2 = dict(TRAIN, grad_accum=2, grad_accum_dtype="f32")
@@ -139,10 +152,15 @@ def gang(tmp_path_factory):
                 tokens=["fwd"]),
             job("train", DIMS, save="ckpt-mp", **trained),
             job("acc2_remat", dict(DIMS, remat=True), ACC2,
-                params="acc/params", batches="acc/batches", steps=STEPS)]),
+                params="acc/params", batches="acc/batches", steps=STEPS),
+            job("gathered", dict(DIMS, **GATHERED), params="mp/params",
+                batches="mp/batches", steps=1)]),
         dict(mesh_axes="sp=8", jobs=[
             job("sp8", SP8_DIMS, dict(TRAIN, batch_size=2, seq_len=512),
                 kind="grads", params="sp8/params", batch="sp8/batches/0"),
+            job("sp8_gathered", dict(SP8_DIMS, **GATHERED),
+                dict(TRAIN, batch_size=2, seq_len=512), kind="grads",
+                params="sp8/params", batch="sp8/batches/0"),
             job("causal", SP8_DIMS, kind="forward", params="sp8/params",
                 tokens=["causal/a", "causal/b"])]),
         dict(mesh_axes="dp=2,sp=4", jobs=[
@@ -165,8 +183,8 @@ def jax_mesh(**sizes):
 
 
 def jax_train(params: dict, batches, dims: dict, train: dict, mesh,
-              rules=None):
-    cfg = jax_cfg(dims)
+              rules=None, ring: bool = True):
+    cfg = jax_cfg(dims, ring)
     tc = jtrainer.TrainConfig(**train)
     p = jax.device_put(params, jtrainer.param_shardings(cfg, mesh, rules))
     state = jtrainer.TrainState(
@@ -298,19 +316,124 @@ def test_grad_accum_with_remat_matches_the_single_process_steps(gang):
                 "grad_accum 2, remat")
 
 
-def test_sp8_loss_and_grads_match_jax_dense(gang):
-    """The ring's loss and gradients at seq 512 over sp=8 equal the JAX
-    dense model's (the JAX package's long-context pin)."""
+@pytest.fixture(scope="module")
+def sp8_jax(gang):
+    """The JAX dense model's loss and gradients on the sp8 batch (one
+    device, its `use_ring_attention=False` attention)."""
     params, (batch,) = gang.data["sp8"]
     cfg = jax_cfg(SP8_DIMS, ring=False)
     loss, grads = jax.jit(jax.value_and_grad(
         lambda p: jtf.loss_fn(p, jnp.asarray(batch), cfg, None)[0]))(params)
-    got_loss = gang.result()[0]["sp8"]["loss"]
-    np.testing.assert_allclose(got_loss, float(loss), rtol=2e-5)
-    got = gang.arrays("sp8")
-    for k, w in flat(jax.tree.map(np.asarray, grads)).items():
+    return float(loss), flat(jax.tree.map(np.asarray, grads))
+
+
+def assert_sp8(gang, name: str, want) -> None:
+    loss, grads = want
+    np.testing.assert_allclose(gang.result()[0][name]["loss"], loss,
+                               rtol=2e-5)
+    got = gang.arrays(name)
+    for k, w in grads.items():
         np.testing.assert_allclose(got["grads" + k], w, rtol=5e-4,
-                                   atol=2e-5, err_msg=k)
+                                   atol=2e-5, err_msg=f"{name} {k}")
+
+
+def test_sp8_loss_and_grads_match_jax_dense(gang, sp8_jax):
+    """The ring's loss and gradients at seq 512 over sp=8 equal the JAX
+    dense model's (the JAX package's long-context pin)."""
+    assert_sp8(gang, "sp8", sp8_jax)
+
+
+def test_sp8_gathered_attention_matches_jax_dense(gang, sp8_jax):
+    """`use_ring_attention=False` at seq 512 over sp=8: each rank's
+    queries over the K and V gathered from the eight ranks give the loss
+    and every gradient of the JAX dense model (the same reference and
+    tolerances as the ring), and every rank reports the same loss."""
+    assert_sp8(gang, "sp8_gathered", sp8_jax)
+    out = gang.result()
+    assert len({o["sp8_gathered"]["loss"] for o in out}) == 1
+
+
+def test_gathered_step_on_dp2_tp2_sp2_matches_jax_and_its_pin(gang):
+    """One train step with `use_ring_attention=False` on (dp=2, tp=2,
+    sp=2) against the JAX step with it on that mesh (metrics and params),
+    every rank's collectives held to `train/dp2_tp2_sp2/gathered`: the
+    ring's shifts replaced by one K/V all-gather a layer and its
+    reduce-scatter."""
+    params, batches = gang.data["mp"]
+    want, want_params = jax_train(params, batches[:1], DIMS, TRAIN,
+                                  jax_mesh(dp=2, tp=2, sp=2), ring=False)
+    out = gang.result()
+    assert all(o["gathered"]["metrics"] == out[0]["gathered"]["metrics"]
+               for o in out)
+    assert_metrics(out[0]["gathered"]["metrics"], want, "gathered vs JAX")
+    assert_tree(gang.arrays("gathered"), "params", want_params,
+                "gathered vs JAX")
+    pin = comm_gate.expected("train/dp2_tp2_sp2/gathered", DIMS["n_layers"])
+    for r, o in enumerate(out):
+        for calls in o["gathered"]["collectives"]:
+            comm_gate.assert_collective_budget(
+                calls, pin, f"rank {r} gathered step on dp=2,tp=2,sp=2")
+    with pytest.raises(AssertionError, match="p2p expected 4 got 0"):
+        comm_gate.assert_collective_budget(
+            out[0]["gathered"]["collectives"][0],
+            comm_gate.expected("train/dp2_tp2_sp2", DIMS["n_layers"]),
+            "the ring's pin")
+
+
+@pytest.mark.parametrize("kv_heads", [2, 1])
+def test_gathered_attention_on_a_thread_gang_matches_one_call(kv_heads):
+    """`gathered_attention` on a gang of four sp threads (one backward
+    over the ranks' losses: the gather is one node, its backward the
+    reduce-scatter) equals one `attention` call on the whole causal
+    sequence, output and dQ, dK, dV (MHA and GQA); and rank r's own dK
+    and dV of the gathered K/V, at its offset r * S/sp, are exactly zero
+    on every row past its last query."""
+    sp, b, seq, h, d = 4, 2, 32, 2, 8
+    g = torch.Generator().manual_seed(11)
+    q, do = (torch.randn(b, seq, h, d, generator=g) for _ in range(2))
+    k, v = (torch.randn(b, seq, kv_heads, d, generator=g) for _ in range(2))
+    whole = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    o = attention(*whole, causal=True)
+    (o * do).sum().backward()
+    s = seq // sp
+    shards = [[t[:, r * s:(r + 1) * s].clone().requires_grad_(True)
+               for t in (q, k, v)] for r in range(sp)]
+    group = ThreadGroup(sp, timeout=60)
+    outs, errors = [None] * sp, []
+
+    def rank(r):
+        try:
+            outs[r] = gathered_attention(*shards[r], group.comm(r), True)
+        except BaseException as e:            # noqa: BLE001 — reported
+            errors.append(e)
+            group.abort()
+    threads = [threading.Thread(target=rank, args=(r,)) for r in range(sp)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(60)
+    if errors:
+        raise errors[0]
+    sum((outs[r] * do[:, r * s:(r + 1) * s]).sum() for r in range(sp)
+        ).backward()
+    np.testing.assert_allclose(torch.cat(outs, 1).detach(), o.detach(),
+                               rtol=1e-6, atol=1e-6)
+    for i, name in enumerate(("dq", "dk", "dv")):
+        np.testing.assert_allclose(
+            torch.cat([sh[i].grad for sh in shards], 1), whole[i].grad,
+            rtol=1e-5, atol=1e-6, err_msg=name)
+    # Each rank's own part: its queries at offset r * s over the whole K/V.
+    kk, vv = (t.repeat_interleave(h // kv_heads, dim=2) for t in (k, v))
+    for r in range(sp):
+        qr, dor = q[:, r * s:(r + 1) * s], do[:, r * s:(r + 1) * s]
+        o_r, lse = flash_attention_plain(qr, kk, vv, True, r * s, 0,
+                                         return_lse=True)
+        _, dk, dv = flash_attention_backward(qr, kk, vv, o_r, lse, dor,
+                                             True, r * s, 0)
+        tail = slice((r + 1) * s, seq)
+        assert torch.count_nonzero(dk[:, tail]) == 0, r
+        assert torch.count_nonzero(dv[:, tail]) == 0, r
+        assert torch.count_nonzero(dk[:, :(r + 1) * s]) > 0, r
 
 
 def test_sp8_ring_respects_causality_at_shard_boundaries(gang):
