@@ -386,10 +386,35 @@ inits in bf16:
      after the timed phases; prints
      the ten device operations with the most self time, the device's idle
      share and the named kernels' device ms in each; then the trace cell:
-     train/profiling.trace_steps over three steps of the trainer's
+     train/profiling.trace_steps over eight steps of the trainer's
      default configuration and device_duty_cycle of its Chrome trace,
      within 1 point of 100 - the idle share of the same window;
-  5. prints the {"kernels": [...], "launch_floor_ms": ...} line, then the
+  5. runs the nvml phase, the node's device layer (discovery/nvml.py,
+     discovery/native_client.py, the agent and exporter mains) on the
+     card: a probe compiled with the host cc against the toolkit's nvml.h
+     must print the binding's structure sizes, field offsets and sizes and
+     constant values; NVML's device with torch's UUID must have
+     nvidia-smi's name and power limit; an idle sample, then 4 s of the
+     port's flash forward at the trainer's shape back to back, sampled
+     every 0.25 s from a second thread, then an idle sample 1.5 s after:
+     the busy duty cycle (median from 1 s on) at least 80 % and above
+     idle, hbm_total nvidia-smi's memory.total within 1 MiB, the used
+     delta of a 4 GiB allocation the allocator's reserved delta within
+     0.25 GiB, power in (0, limit], temperature nvidia-smi's within 3 C;
+     the agent main with --shim-source auto (on a free port) must choose
+     nvml and show an assigned workload busy in /v1/telemetry under the
+     load, and the exporter main's /metrics (parsed here) the eight chip
+     families for the card: busy under the load, its duty, power, memory
+     and temperature there the client's read at each of 5 scrapes (median
+     difference within 10 points, a tenth of the limit, 0.25 GiB, 3 C),
+     and, 1.5 s after it, within the idle tolerances above (at a load's
+     start the card's power reading overshoots its limit before the cap
+     holds it); the phase launches the flash forward once a load step and
+     no other kernel, all on the wgmma body (its launches are the phase's
+     own, counted on no main path); it prints every reading, which `used`
+     nvidia-smi reports, and the host ms of one read of every counter and
+     of one agent pass (median of 100);
+  6. prints the {"kernels": [...], "launch_floor_ms": ...} line, then the
      result line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
@@ -403,6 +428,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import ctypes
 import dataclasses
 import gc
 import io
@@ -545,10 +571,12 @@ FLAGSHIP_GATE_BATCH = 1
 # the f32 gate at the trainer gate's dims with 4 experts, both routes.
 MOE_EXPERTS, MOE_TRAIN_STEPS = 4, 4
 MOE_GATE_DIMS = dict(GATE_DIMS, n_experts=MOE_EXPERTS)
-# The trace cell: trace_steps over TRACE_STEPS default train steps (its
-# default count), device_duty_cycle within TRACE_POINTS of 100 - the idle
-# share of the same window.
-TRACE_STEPS, TRACE_POINTS = 3, 1.0
+# The trace cell: trace_steps over TRACE_STEPS default train steps,
+# device_duty_cycle within TRACE_POINTS of 100 - the idle share of the same
+# window. The two differ by the window's edges, a few ms whatever the step
+# count (6.6 ms and ~8 ms of a 784 ms window of 3 steps, 0.81 and 1.02
+# points, on an H100 80GB HBM3 at 700 W), so the window holds 8 steps.
+TRACE_STEPS, TRACE_POINTS = 8, 1.0
 # Fused CE forward vs plain: lse and gold relative (bf16: the tensor cores
 # sum the logits in another order; f32: the f32 pipes in contraction order
 # against cuBLAS); stash and dlg within one bf16 ulp (an f32 value within
@@ -8361,7 +8389,11 @@ def run_trace(dev, tf, trainer, profiling, card) -> dict:
         trace_bytes = os.path.getsize(os.path.join(log_dir, name))
         events = chrome_device_events(os.path.join(log_dir, name),
                                       profiling.DEVICE_CATEGORIES)
+    if not events:
+        fail("trace: the Chrome trace holds no device events")
     window_ms = (marks["end"] - marks["start"]) * 1e3
+    span_ms = (max(e for _, _, e in events) - min(s for _, s, _ in events)
+               ) / 1e3
     report = device_report(None, window_ms, events)
     busy_pct = 100.0 * (1.0 - report["idle_share"])
     if duty is None or abs(duty - busy_pct) > TRACE_POINTS:
@@ -8375,9 +8407,483 @@ def run_trace(dev, tf, trainer, profiling, card) -> dict:
                                        dtype="bfloat16"), steps=TRACE_STEPS,
                 duty_cycle_pct=duty, busy_pct_of_window=busy_pct,
                 idle_share=report["idle_share"], window_ms=window_ms,
+                device_span_ms=span_ms, edge_ms=window_ms - span_ms,
                 device_busy_ms=report["device_busy_ms"],
                 device_ops=report["device_ops"], trace_bytes=trace_bytes,
                 points_apart=duty - busy_pct, limit_points=TRACE_POINTS)
+
+
+# The nvml phase: the node's device layer read while the port's flash
+# forward keeps the card busy.
+NVML_NODE = "smoke"
+NVML_LOAD_S, NVML_WARM_S, NVML_SAMPLE_S, NVML_IDLE_WAIT_S = 4.0, 1.0, 0.25, 1.5
+NVML_BUSY_MIN_PCT = 80.0
+NVML_ALLOC_GIB, NVML_MEM_TOL_GIB = 4, 0.25
+NVML_TOTAL_TOL_MIB, NVML_TEMP_TOL_C = 1.0, 3.0
+# The exporter's busy scrapes against the client's read at each scrape:
+# the median difference over the pairs, duty in points, power a share of
+# the limit (the exporter's value is up to one collect interval older).
+NVML_PAIRS, NVML_PAIR_DUTY_PTS, NVML_PAIR_POWER_FRAC = 5, 10.0, 0.1
+NVML_HOST_READS = 100
+_PROM_LINE = re.compile(r"^([a-zA-Z_:][a-zA-Z0-9_:]*)(?:\{(.*)\})?\s+(\S+)$")
+_PROM_LABEL = re.compile(r'(\w+)="((?:[^"\\]|\\.)*)"')
+
+
+def nvml_header_check(nvml) -> dict:
+    """Compiles, with the host cc, a probe against the CUDA toolkit's
+    nvml.h that prints the size, each field's offset and size of every
+    structure discovery/nvml.py binds and the value of every constant it
+    declares; fails on any that differs from the binding's."""
+    include = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                           "include")
+    header = os.path.join(include, "nvml.h")
+    if not os.path.isfile(header):
+        fail(f"nvml: the toolkit has no {header}")
+    cc = shutil.which("cc") or shutil.which("gcc")
+    if cc is None:
+        fail("nvml: no host C compiler (cc) for the nvml.h check")
+    want, lines = {}, []
+    for cname, struct in nvml.STRUCTS.items():
+        want[f"sizeof({cname})"] = ctypes.sizeof(struct)
+        lines.append(f'printf("sizeof({cname}) %zu\\n", sizeof({cname}));')
+        for fname, _ in struct._fields_:
+            field = getattr(struct, fname)
+            for key, value, expr in (
+                    (f"offsetof({cname}, {fname})", field.offset,
+                     f"offsetof({cname}, {fname})"),
+                    (f"sizeof({cname}.{fname})", field.size,
+                     f"sizeof((({cname} *)0)->{fname})")):
+                want[key] = value
+                lines.append(f'printf("{key} %zu\\n", {expr});')
+    for name, value in nvml.CONSTANTS.items():
+        want[name] = value
+        lines.append(f'printf("{name} %lld\\n", (long long)({name}));')
+    src = ("#include <stddef.h>\n#include <stdio.h>\n#include <nvml.h>\n"
+           "int main(void) {\n  " + "\n  ".join(lines)
+           + "\n  return 0;\n}\n")
+    with tempfile.TemporaryDirectory() as d:
+        c_path, exe = os.path.join(d, "probe.c"), os.path.join(d, "probe")
+        with open(c_path, "w") as f:
+            f.write(src)
+        built = subprocess.run([cc, "-I", include, "-o", exe, c_path],
+                               capture_output=True, text=True, timeout=120)
+        if built.returncode != 0:
+            fail(f"nvml: the nvml.h probe did not build: {built.stderr}")
+        ran = subprocess.run([exe], capture_output=True, text=True,
+                             timeout=60, check=True)
+    got = {}
+    for line in ran.stdout.splitlines():
+        key, value = line.rsplit(" ", 1)
+        got[key] = int(value)
+    differ = {k: [v, got.get(k)] for k, v in want.items() if got.get(k) != v}
+    if differ:
+        fail(f"nvml: the binding differs from {header}: "
+             f"{json.dumps(differ)} (binding, header)")
+    return dict(header=header, checked=len(want), header_values=got)
+
+
+def smi_read(uuid: str, fields) -> dict:
+    """nvidia-smi's reading of the card `uuid`, numbers without units."""
+    out = subprocess.run(
+        ["nvidia-smi", "-i", uuid, f"--query-gpu={','.join(fields)}",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60)
+    if out.returncode != 0:
+        fail(f"nvml: nvidia-smi: {out.stderr}")
+    return dict(zip(fields, (v.strip() for v in out.stdout.split(","))))
+
+
+def under_load(step, probe, min_s: float = 0.0):
+    """Runs `step` back to back on this thread until `probe` (on a second
+    thread) has returned and `min_s` have passed; returns the probe's
+    result, the steps run and the seconds."""
+    done, box = threading.Event(), {}
+
+    def run():
+        try:
+            box["out"] = probe()
+        except BaseException as e:  # noqa: BLE001 — failed below (a
+            box["err"] = e          # fail() in the probe exits no thread)
+        finally:
+            done.set()
+    th = threading.Thread(target=run, daemon=True)
+    t0 = time.perf_counter()
+    th.start()
+    n = 0
+    while not done.is_set() or time.perf_counter() - t0 < min_s:
+        step()
+        n += 1
+        if n % 16 == 0:
+            torch.cuda.synchronize()
+        if time.perf_counter() - t0 > 120:
+            fail("nvml: a load stretch ran past 120 s")
+    torch.cuda.synchronize()
+    th.join(10)
+    if "err" in box:
+        fail(f"nvml: {box['err']!r}")
+    return box["out"], n, time.perf_counter() - t0
+
+
+def parse_prometheus(text: str) -> tuple:
+    """({family: type}, {(name, ((label, value), ...)): value})."""
+    types, series = {}, {}
+    for line in text.splitlines():
+        if line.startswith("# TYPE "):
+            _, _, name, kind = line.split(" ", 3)
+            types[name] = kind
+        elif line and not line.startswith("#"):
+            m = _PROM_LINE.match(line)
+            if m is None:
+                raise ValueError(f"bad metrics line {line!r}")
+            labels = tuple(sorted(_PROM_LABEL.findall(m.group(2) or "")))
+            series[(m.group(1), labels)] = float(m.group(3))
+    return types, series
+
+
+def start_main(module: str, args: list):
+    """A main of the port in its own process, once it printed its line."""
+    proc = subprocess.Popen(
+        [sys.executable, "-m", module, *args],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        env=dict(os.environ, PYTHONUNBUFFERED="1"), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    lines, up = [], threading.Event()
+
+    def read():
+        for line in proc.stdout:
+            lines.append(line)
+            if " up on " in line:
+                up.set()
+        up.set()
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    if not up.wait(120) or proc.poll() is not None:
+        stop_main(proc, reader)
+        fail(f"nvml: {module} did not come up: {''.join(lines)[-2000:]}")
+    return proc, reader, lines
+
+
+def stop_main(proc, reader):
+    """SIGTERM, then the exit code (None when it had to be killed)."""
+    rc = None
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGTERM)
+    try:
+        rc = proc.wait(timeout=30)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    reader.join(10)
+    return rc
+
+
+def median_host_ms(fn, n: int = NVML_HOST_READS) -> float:
+    fn()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+class _Points:
+    """An optimizer that keeps the agent's points."""
+
+    def __init__(self):
+        self.points = []
+
+    def ingest_telemetry(self, point):
+        self.points.append(point)
+
+
+def run_nvml(dev, flash, kernels, card: str) -> dict:
+    """The nvml phase (ROADMAP A13): the node's device layer on the card,
+    with the launch counters set to 0 just before it and read just after.
+    Its load is the port's flash forward at the trainer's shape, a test
+    harness and no path of the port, so its launches are checked here
+    against its steps and counted on no main path."""
+    from k8s_gpu_workload_enhancer_tpu_torch.agent.agent import (
+        AgentConfig, NodeAgent)
+    from k8s_gpu_workload_enhancer_tpu_torch.discovery import nvml
+    from k8s_gpu_workload_enhancer_tpu_torch.discovery.native_client import \
+        NativeGPUClient
+    gates, out = [], {"card": card}
+    out["header_check"] = nvml_header_check(nvml)
+    kernels.reset_launches()
+    client = NativeGPUClient(NVML_NODE, "nvml")
+    client.initialize()
+    procs = []
+    try:
+        # Identity: NVML's device of torch's card, by UUID.
+        want_uuid = f"GPU-{torch.cuda.get_device_properties(0).uuid}"
+        with nvml.Session() as session:
+            count = session.device_count()
+            uuids = [session.uuid(session.handle(i)) for i in range(count)]
+            if want_uuid not in uuids:
+                fail(f"nvml: no NVML device has torch's UUID {want_uuid}")
+            idx = uuids.index(want_uuid)
+            handle = session.handle(idx)
+            name = session.name(handle)
+            limit_w = session.power_limit_mw(handle) / 1000.0
+        chip = f"{NVML_NODE}-chip-{idx}"
+        smi = smi_read(want_uuid, ("name", "power.limit", "memory.total"))
+        out["identity"] = dict(nvml_index=idx, nvml_devices=count, name=name,
+                               smi_name=smi["name"], power_limit_w=limit_w,
+                               smi_power_limit_w=smi["power.limit"])
+        if name != smi["name"]:
+            gates.append(f"nvml: name {name!r}, nvidia-smi {smi['name']!r}")
+        if abs(limit_w - float(smi["power.limit"])) > 0.005:
+            gates.append(f"nvml: power limit {limit_w} W, nvidia-smi "
+                         f"{smi['power.limit']} W")
+
+        def read():
+            sample, lost = client.samples()[idx]
+            if lost or sample.health != 0:
+                fail(f"nvml: {chip} health {sample.health} {lost}")
+            return sample
+
+        def temperature_pair():
+            t = read().temperature_c
+            return t, float(smi_read(want_uuid, ("temperature.gpu",))[
+                "temperature.gpu"])
+
+        # Idle, busy (sampled from a second thread), idle again.
+        torch.cuda.synchronize()
+        time.sleep(NVML_IDLE_WAIT_S)
+        idle_before = read()
+        b, s_len = TRAIN_BATCH, TRAIN_DIMS["seq_len"]
+        h = TRAIN_DIMS["n_heads"]
+        d = TRAIN_DIMS["d_model"] // h
+        gen = torch.Generator(device=dev).manual_seed(30)
+        q, k, v = (torch.randn(b, s_len, h, d, generator=gen, device=dev,
+                               dtype=torch.bfloat16) for _ in range(3))
+
+        def step():
+            flash.flash_attention(q, k, v, True)
+
+        def sample_busy():
+            rows, t0 = [], time.perf_counter()
+            while (t := time.perf_counter() - t0) < NVML_LOAD_S:
+                s = read()
+                rows.append(dict(t_s=round(t, 3), duty=s.duty_cycle_pct,
+                                 power_w=s.power_watts,
+                                 temperature_c=s.temperature_c,
+                                 hbm_used_gb=s.hbm_used_gb))
+                time.sleep(NVML_SAMPLE_S)
+            return rows
+        rows, steps, seconds = under_load(step, sample_busy)
+        load_steps = steps
+        torch.cuda.synchronize()
+        time.sleep(NVML_IDLE_WAIT_S)
+        idle_after = read()
+        busy = [r for r in rows if r["t_s"] >= NVML_WARM_S]
+        duty = float(np.median([r["duty"] for r in busy]))
+        power = float(np.median([r["power_w"] for r in busy]))
+        idle_duty = max(idle_before.duty_cycle_pct, idle_after.duty_cycle_pct)
+        out["load"] = dict(kernel="flash_attention", shape=[b, s_len, h, d],
+                           dtype="bf16", steps=steps, seconds=seconds,
+                           samples=rows)
+        out["readings"] = dict(
+            idle_before=dataclasses.asdict(idle_before),
+            idle_after=dataclasses.asdict(idle_after),
+            busy_duty_p50=duty, busy_power_w_p50=power,
+            busy_power_w_max=max(r["power_w"] for r in busy))
+        if not (duty >= NVML_BUSY_MIN_PCT and duty > idle_duty):
+            gates.append(f"nvml: busy duty cycle {duty} %, want >= "
+                         f"{NVML_BUSY_MIN_PCT} and above idle {idle_duty}")
+        for what, w in (("idle", idle_after.power_watts), ("busy p50", power)):
+            if not 0 < w <= limit_w:
+                gates.append(f"nvml: {what} power {w} W not in (0, "
+                             f"{limit_w}]")
+        total_mib = idle_after.hbm_total_gb * 1024.0
+        if abs(total_mib - float(smi["memory.total"])) > NVML_TOTAL_TOL_MIB:
+            gates.append(f"nvml: hbm_total {total_mib} MiB, nvidia-smi "
+                         f"{smi['memory.total']} MiB")
+        t_nvml, t_smi = temperature_pair()
+        out["readings"].update(temperature_c=t_nvml, smi_temperature_c=t_smi,
+                               hbm_total_mib=total_mib,
+                               smi_memory_total_mib=smi["memory.total"])
+        if abs(t_nvml - t_smi) > NVML_TEMP_TOL_C:
+            gates.append(f"nvml: temperature {t_nvml} C, nvidia-smi {t_smi}")
+
+        # Device memory: the used delta of an allocation against the
+        # allocator's reserved delta; and which `used` nvidia-smi prints.
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        r0, u0 = torch.cuda.memory_reserved(dev), read().hbm_used_gb
+        buf = torch.empty(NVML_ALLOC_GIB << 30, dtype=torch.uint8, device=dev)
+        buf.fill_(1)
+        torch.cuda.synchronize()
+        r1, u1 = torch.cuda.memory_reserved(dev), read().hbm_used_gb
+        smi_mem = smi_read(want_uuid, ("memory.used", "memory.reserved"))
+        u_now = read().hbm_used_gb
+        del buf
+        torch.cuda.empty_cache()
+        d_nvml, d_torch = u1 - u0, (r1 - r0) / float(1 << 30)
+        out["memory"] = dict(
+            allocated_gib=NVML_ALLOC_GIB, nvml_used_delta_gib=d_nvml,
+            reserved_delta_gib=d_torch, nvml_used_mib=u_now * 1024.0,
+            smi_used_mib=smi_mem["memory.used"],
+            smi_reserved_mib=smi_mem["memory.reserved"])
+        if abs(d_nvml - d_torch) > NVML_MEM_TOL_GIB:
+            gates.append(f"nvml: hbm_used delta {d_nvml} GiB, reserved "
+                         f"delta {d_torch} GiB")
+
+        # The mains: the agent with auto must choose nvml; the agent's
+        # telemetry and the exporter's families under the load.
+        aport = free_port()
+        agent_proc = start_main(
+            "k8s_gpu_workload_enhancer_tpu_torch.cmd.agent",
+            ["--node-name", NVML_NODE, "--shim-source", "auto", "--port",
+             str(aport), "--telemetry-interval", "0.5"])
+        procs.append(agent_proc)
+        exporter_proc = start_main(
+            "k8s_gpu_workload_enhancer_tpu_torch.cmd.exporter",
+            ["--shim-source", "nvml", "--node-name", NVML_NODE, "--port",
+             "0", "--collect-interval", "0.25"])
+        procs.append(exporter_proc)
+        eport = int(next(x for x in exporter_proc[2] if " up on :" in x)
+                    .split(" up on :")[1].split()[0])
+        code, health = get_json(aport, "/health")
+        out["agent_health"] = health
+        if code != 200 or health.get("shim_source") != "nvml":
+            fail(f"nvml: the agent main with --shim-source auto chose "
+                 f"{health.get('shim_source')!r}, want 'nvml' ({code})")
+        labels = (("chip", chip), ("node", NVML_NODE))
+
+        def scrape_exporter():
+            with urllib.request.urlopen(f"http://127.0.0.1:{eport}/metrics",
+                                        timeout=30) as r:
+                types, series = parse_prometheus(r.read().decode())
+            row = {name: series.get((name, labels)) for name in (
+                "ktwe_chip_duty_cycle_percent",
+                "ktwe_chip_tensorcore_utilization_percent",
+                "ktwe_chip_hbm_used_gb", "ktwe_chip_hbm_total_gb",
+                "ktwe_chip_power_watts", "ktwe_chip_temperature_celsius",
+                "ktwe_chip_healthy")}
+            row["ktwe_cluster_chips_total{state=healthy}"] = series.get(
+                ("ktwe_cluster_chips_total", (("state", "healthy"),)))
+            return types, row
+
+        def probe_mains():
+            code, r = post_json(aport, "/v1/assign", {
+                "workloadUid": "smoke-load", "chipIds": [chip]})
+            if code != 200:
+                raise RuntimeError(f"/v1/assign answered {code} {r}")
+            t0, tel = time.perf_counter(), None
+            while time.perf_counter() - t0 < 30:
+                tel = get_json(aport, "/v1/telemetry")[1]
+                w = tel["workloads"].get("smoke-load")
+                if w and w["duty_cycle_pct"] > 0:
+                    break
+                time.sleep(0.25)
+            else:
+                raise RuntimeError(f"the agent never showed the load: {tel}")
+            t0 = time.perf_counter()
+            while time.perf_counter() - t0 < 30:
+                types, row = scrape_exporter()
+                if (row["ktwe_chip_duty_cycle_percent"] or 0) > 0:
+                    break
+                time.sleep(0.25)
+            else:
+                raise RuntimeError("the exporter never showed the load")
+            # The load steady, each scrape beside the client's own read.
+            time.sleep(NVML_WARM_S)
+            pairs = []
+            for _ in range(NVML_PAIRS):
+                types, row = scrape_exporter()
+                pairs.append((row, read()))
+                time.sleep(NVML_SAMPLE_S)
+            return tel, types, pairs
+        (tel, types, pairs), steps, _ = under_load(step, probe_mains)
+        load_steps += steps
+        busy_row = pairs[-1][0]
+        # The tolerances on an idle scrape: at a load's start the card's
+        # power reading overshoots its limit before the cap holds it.
+        torch.cuda.synchronize()
+        time.sleep(NVML_IDLE_WAIT_S)
+        idle_types, row = scrape_exporter()
+        near, temps = read(), temperature_pair()
+        out["agent_telemetry"] = tel
+        for what, r, ts in [("busy", p[0], types) for p in pairs] + [
+                ("idle", row, idle_types)]:
+            if any(v is None for v in r.values()) or any(
+                    ts.get(n.split("{")[0]) != "gauge" for n in r):
+                fail(f"nvml: the exporter's {what} families for {chip}: "
+                     f"{r}, types {ts}")
+        apart = {
+            key: float(np.median([abs(r[family] - getattr(s, field))
+                                  for r, s in pairs]))
+            for key, family, field in (
+                ("duty_pts", "ktwe_chip_duty_cycle_percent",
+                 "duty_cycle_pct"),
+                ("power_w", "ktwe_chip_power_watts", "power_watts"),
+                ("hbm_used_gib", "ktwe_chip_hbm_used_gb", "hbm_used_gb"),
+                ("temperature_c", "ktwe_chip_temperature_celsius",
+                 "temperature_c"))}
+        out["exporter"] = dict(
+            busy=busy_row, idle=row, types=types, busy_apart_p50=apart,
+            busy_pairs=[dict(exporter=r, client=dataclasses.asdict(s))
+                        for r, s in pairs])
+        checks = {
+            "busy duty > 0": busy_row["ktwe_chip_duty_cycle_percent"] > 0,
+            "busy power > 0": busy_row["ktwe_chip_power_watts"] > 0,
+            "busy healthy": all(r["ktwe_chip_healthy"] == 1
+                                for r, _ in pairs),
+            "busy duty near the client's":
+                apart["duty_pts"] <= NVML_PAIR_DUTY_PTS,
+            "busy power near the client's":
+                apart["power_w"] <= NVML_PAIR_POWER_FRAC * limit_w,
+            "busy hbm_used near the client's":
+                apart["hbm_used_gib"] <= NVML_MEM_TOL_GIB,
+            "busy temperature near the client's":
+                apart["temperature_c"] <= NVML_TEMP_TOL_C,
+            "tensorcore 0":
+                all(r["ktwe_chip_tensorcore_utilization_percent"] == 0
+                    for r, _ in pairs)
+                and row["ktwe_chip_tensorcore_utilization_percent"] == 0,
+            "hbm_used near the client's":
+                abs(row["ktwe_chip_hbm_used_gb"] - near.hbm_used_gb)
+                <= NVML_MEM_TOL_GIB,
+            "hbm_total": abs(row["ktwe_chip_hbm_total_gb"] * 1024.0
+                             - float(smi["memory.total"]))
+            <= NVML_TOTAL_TOL_MIB,
+            "power": 0 < row["ktwe_chip_power_watts"] <= limit_w,
+            "temperature": abs(row["ktwe_chip_temperature_celsius"]
+                               - temps[1]) <= NVML_TEMP_TOL_C,
+            "healthy": row["ktwe_chip_healthy"] == 1,
+            "cluster healthy":
+                row["ktwe_cluster_chips_total{state=healthy}"] >= 1}
+        for what, ok in checks.items():
+            if not ok:
+                gates.append(f"nvml: exporter {what}: {out['exporter']}")
+        out["mains_exit"] = [stop_main(p, r) for p, r, _ in procs]
+        procs.clear()
+        if out["mains_exit"] != [0, 0]:
+            gates.append(f"nvml: the mains exited {out['mains_exit']}")
+
+        # Host cost of a read and of one agent pass, card idle.
+        agent = NodeAgent(client, AgentConfig(node_name=NVML_NODE),
+                          optimizer_service=_Points())
+        agent.assign_chips("smoke-load", [chip])
+        out["host_ms"] = dict(
+            client_read_all_p50=median_host_ms(client.samples),
+            collect_and_push_p50=median_host_ms(agent.collect_and_push),
+            reads=NVML_HOST_READS, devices=count)
+    finally:
+        for p, r, _ in procs:
+            stop_main(p, r)
+        client.shutdown()
+    # The load's launches, and nothing else: the agent and the exporter
+    # launch no kernel.
+    out["launches"] = dict(kernels.launches)
+    want = {flash.KERNEL: load_steps, flash.KERNEL_WGMMA: load_steps}
+    if load_steps <= 0 or out["launches"] != want:
+        gates.append(f"nvml: launches {out['launches']}, its {load_steps} "
+                     f"load steps need {want}")
+    out["gates_failed"] = gates
+    return out
 
 
 def main() -> int:
@@ -8619,6 +9125,10 @@ def main() -> int:
     print(json.dumps({"profile": results["profile"]}), flush=True)
     results["trace"] = run_trace(dev, tf, trainer, profiling, card)
     print(json.dumps({"trace": results["trace"]}), flush=True)
+    results["nvml"] = run_nvml(dev, flash, kernels, card)
+    print(json.dumps({"nvml": results["nvml"]}), flush=True)
+    for gate in results["nvml"]["gates_failed"]:
+        fail(gate)
 
     serving_phases = ("engine", "serve", "paged_engine", "paged_serve",
                       "tenancy", "disagg", "int8kv", "spec", "kvhost",

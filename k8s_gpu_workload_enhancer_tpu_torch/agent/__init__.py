@@ -1,1 +1,2 @@
-"""The client of the optimizer service (optimizer_client.py)."""
+"""The node agent (agent.py) and the client of the optimizer service
+(optimizer_client.py)."""

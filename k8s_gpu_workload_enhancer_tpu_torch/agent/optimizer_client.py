@@ -3,12 +3,16 @@
 agent/optimizer_client.py, with the same routes, bearer token, backoff and
 answers.
 
-The serve main's telemetry thread (`--optimizer-url`) pushes its density
-points through `ingest_serving_telemetry` to POST /v1/serving-telemetry,
-which teaches the optimizer's ServingPredictor. Failures are returned, not
-raised: a down optimizer must not take down serving. After a failure the
-client backs off for `cooldown_s`, so a blackholed optimizer costs one
-timeout a window, not one a push.
+The node agent (`cmd/agent.py --optimizer-url`) pushes its per-workload
+points through `ingest_telemetry` to POST /v1/telemetry, the surface an
+in-process `OptimizerService` has, so the agent does not know its
+transport. The serve main's telemetry thread (`--optimizer-url`) pushes
+its density points through `ingest_serving_telemetry` to POST
+/v1/serving-telemetry, which teaches the optimizer's ServingPredictor.
+Failures are returned, not raised: a down optimizer must not take down
+serving or node telemetry. After a failure the client backs off for
+`cooldown_s`, so a blackholed optimizer costs one timeout a window, not
+one a push.
 """
 
 from __future__ import annotations
@@ -32,6 +36,11 @@ class HTTPOptimizerClient:
         self._backoff_until = 0.0
         self.push_failures = 0
         self.pushes_skipped = 0
+
+    def ingest_telemetry(self, point: Dict[str, Any]) -> Dict[str, Any]:
+        """A node agent's per-workload point, for the optimizer's learning
+        loop."""
+        return self._post("/v1/telemetry", point)
 
     def ingest_serving_telemetry(self, point: Dict[str, Any]
                                  ) -> Dict[str, Any]:

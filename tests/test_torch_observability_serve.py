@@ -202,7 +202,39 @@ def test_metrics_blocks_have_the_jax_keys(tmp_path):
     assert set(rec.metrics()["phase_s"]) == set(jrec.metrics()["phase_s"])
 
 
-def test_families_are_the_jax_ones_less_the_unported(tmp_path):
+@pytest.fixture
+def faultlabs_cleared():
+    """JAX faultlab's and the port's process-wide counters cleared for
+    this run (an inert plan activated, then deactivated), so a fault that
+    another test file fired earlier in this process shows in neither
+    side's `ktwe_fault_injections_total`; the earlier state is put back
+    after."""
+    from k8s_gpu_workload_enhancer_tpu import faultlab as jfaultlab
+    from k8s_gpu_workload_enhancer_tpu.faultlab import core as jcore
+    from k8s_gpu_workload_enhancer_tpu_torch import faultlab as tfaultlab
+    from k8s_gpu_workload_enhancer_tpu_torch.faultlab import core as tcore
+    saved = []
+    for lab, core in ((jfaultlab, jcore), (tfaultlab, tcore)):
+        with core._lock:
+            saved.append((core, core._active, dict(core._occurrences),
+                          dict(core._injections), core._last))
+        lab.activate(lab.FaultPlan(seed=0, rate=0.0))
+        lab.deactivate()
+    try:
+        yield
+    finally:
+        for core, active, occurrences, injections, last in saved:
+            with core._lock:
+                core._occurrences.clear()
+                core._occurrences.update(occurrences)
+                core._injections.clear()
+                core._injections.update(injections)
+                core._last = last
+            core._active = active
+
+
+def test_families_are_the_jax_ones_less_the_unported(tmp_path,
+                                                     faultlabs_cleared):
     assert len(UNPORTED) == 0
     assert set(serve.SERVING_FAMILIES) == \
         set(jserve.SERVING_FAMILIES) - set(UNPORTED)
